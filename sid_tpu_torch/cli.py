@@ -1,0 +1,201 @@
+"""Command-line interface, flag-compatible with the reference ``sid``.
+
+Reproduces sid.cpp:11-110 as ``sid_tpu.cli`` does: the same short flags with
+the same defaults and help text (-m method, -r fixed prior, -R estimated
+prior, -p significance level, -E site error cap, -h), the header-only output
+for unrecognized methods, "No file name given!" on missing input, and the
+exit codes. Long options are sid_tpu's; those whose feature is not ported
+yet exit 1 with "... is not yet ported in sid_tpu_torch". ``--platform``
+names the torch device (default cuda); without CUDA the run exits 1 unless
+``--platform cpu`` was given.
+"""
+
+from __future__ import annotations
+
+import getopt
+import os
+import sys
+from typing import List, Optional
+
+from sid_tpu_torch import engine
+from sid_tpu_torch.config import Options
+from sid_tpu_torch.utils.errors import NotPortedError, SidParseError
+from sid_tpu_torch.utils.profiling import StageProfile, activate
+
+# (name-for-help, takes_arg, description) in the reference's map order
+# (std::map<char, ...> iterates in char order: E R h m p r; sid.cpp:26-58)
+_REF_OPTIONS = [
+    ("E", "ERROR", True,
+     "Maximum allowed site error rate for 'local' method. Default: 0.1"),
+    ("R", "", False,
+     "Estimate SNP prior from data, applicable for methods 'likelihood_ratio', 'local', 'quality'. Conflicts -r."),
+    ("h", "help", False, "Print this help message"),
+    ("m", "METHOD", True,
+     "Select the method to use for SNP calling: 'likelihood_ratio' , 'bayes', 'local' or 'quality', default: local"),
+    ("p", "LEVEL", True,
+     "Significance level for statistical tests, only applicable for methods 'likelihood_ratio', 'local'. Default: 0.05"),
+    ("r", "PRIOR", True,
+     "Use the given prior for SNPs, applicable for methods 'local', 'quality'. Conflicts -R. Default: no prior"),
+]
+
+_LONG_OPTIONS = [
+    ("engine=", "Compute engine: 'device' (torch device, default) or 'exact' (host long-double oracle; not yet ported)"),
+    ("fit=", "Lynch fit backend: 'auto' (default), 'device', or 'exact' (the fit is not yet ported)"),
+    ("io=", "Pileup parser backend: 'auto' (default), 'native', 'python'"),
+    ("output=", "Output CSV path ('-' = stdout, default)"),
+    ("devices=", "Number of devices for the site axis (not yet ported)"),
+    ("per-shard-fit", "Fit the Lynch model per shard (not yet ported)"),
+    ("stream", "Two-pass streaming mode (not yet ported)"),
+    ("chunk-mb=", "Streaming chunk size in MB (default 64)"),
+    ("profile", "Print per-stage timing report to stderr"),
+    ("platform=", "Torch device: 'cuda' (default) or 'cpu'; also honored from SIDTPU_PLATFORM"),
+    ("checkpoint=", "Persist/reuse the pass-1 histogram (.npz) in streaming mode"),
+    ("resume", "Resume a streaming run"),
+    ("population=", "Joint multi-sample calling: 'pooled' or 'independent' (not yet ported)"),
+    ("multihost", "Multi-host data-parallel run (not yet ported)"),
+    ("help", "Print this help message"),
+]
+
+
+def _print_help(out=None) -> None:
+    out = out if out is not None else sys.stdout
+    print("sid [flags] input_file", file=out)
+    for char, name, has_arg, desc in _REF_OPTIONS:
+        arg = f" {name}" if has_arg else ""
+        print(f"\t-{char}{arg}\t{desc}", file=out)
+    for name, desc in _LONG_OPTIONS:
+        arg = name.rstrip("=")
+        suffix = " VALUE" if name.endswith("=") else ""
+        print(f"\t--{arg}{suffix}\t{desc}", file=out)
+
+
+def _atof(s: str) -> float:
+    """C atof: parse a leading float, 0.0 on garbage (sid.cpp uses atof)."""
+    import re
+
+    m = re.match(r"\s*[+-]?(\d+\.?\d*([eE][+-]?\d+)?|\.\d+([eE][+-]?\d+)?|"
+                 r"0[xX][0-9a-fA-F]+|inf(inity)?|nan)", s)
+    if not m:
+        return 0.0
+    try:
+        return float(m.group(0))
+    except ValueError:
+        return 0.0
+
+
+def _fail(message: str) -> None:
+    print(f"sid: {message}", file=sys.stderr)
+    sys.exit(1)
+
+
+def parse_args(argv: List[str]) -> tuple:
+    """Returns (options, input_path); exits on usage errors."""
+    opts = Options()
+    shortopts = "E:Rhm:p:r:"
+    longopts = [name for name, _ in _LONG_OPTIONS]
+    try:
+        parsed, rest = getopt.gnu_getopt(argv, shortopts, longopts)
+    except getopt.GetoptError as e:
+        # C getopt prints its own diagnostic before the reference exits
+        _fail(e.msg)  # unknown flag: exit(EXIT_FAILURE) (sid.cpp:80)
+
+    for flag, value in parsed:
+        if flag in ("-h", "--help"):
+            # the reference prints help and keeps going: `sid -h` with no
+            # file still errors with "No file name given!" (sid.cpp:75-108)
+            _print_help()
+        elif flag == "-m":
+            opts.method = value
+        elif flag == "-r":
+            opts.snp_prior = _atof(value)
+        elif flag == "-R":
+            opts.estimate_prior = True
+        elif flag == "-p":
+            opts.significance_level = _atof(value)
+        elif flag == "-E":
+            opts.site_error_threshold = _atof(value)
+        elif flag == "--engine":
+            opts.engine = value
+        elif flag == "--fit":
+            opts.fit_backend = value
+        elif flag == "--io":
+            opts.io_backend = value
+        elif flag == "--output":
+            opts.output = value
+        elif flag == "--devices":
+            opts.mesh_devices = int(value)
+        elif flag == "--per-shard-fit":
+            opts.per_shard_fit = True
+        elif flag == "--stream":
+            opts.stream = True
+        elif flag == "--chunk-mb":
+            opts.chunk_mb = int(value)
+        elif flag == "--profile":
+            opts.profile = True
+        elif flag == "--platform":
+            opts.platform = value
+        elif flag == "--checkpoint":
+            opts.checkpoint = value
+        elif flag == "--resume":
+            opts.resume = True
+        elif flag == "--population":
+            opts.population = value
+        elif flag == "--multihost":
+            opts.multihost = True
+
+    if not rest:
+        print("No file name given!", file=sys.stderr)
+        sys.exit(1)
+    try:
+        # unknown -m keeps the reference's header-only behavior (sid.cpp:92-102)
+        opts.validate(allow_unknown_method=True)
+    except ValueError as e:
+        _fail(str(e))
+    return opts, rest[0]
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    options, input_path = parse_args(argv)
+    options.platform = options.platform or os.environ.get("SIDTPU_PLATFORM")
+    try:
+        engine.check_ported(options)
+        options.device()
+    except (NotPortedError, RuntimeError) as e:
+        _fail(str(e))
+    try:
+        open(input_path, "rb").close()
+    except OSError:
+        print(f"Could not open file: {input_path}", file=sys.stderr)
+        sys.exit(1)
+
+    def diag(line: str) -> None:
+        if options.diagnostics:
+            print(line, file=sys.stderr)
+
+    prof = StageProfile(enabled=options.profile)
+    activate(prof if options.profile else None)
+    try:
+        csv = engine.run(input_path, options, diag, binary=True)
+    except SidParseError as e:
+        # the reference dies on the uncaught std::invalid_argument; we
+        # report the same message with the offending line number
+        print(f"{e} (line {e.line_number})", file=sys.stderr)
+        sys.exit(1)
+    finally:
+        activate(None)
+    prof.count("sites", max(csv.count(b"\n") - 1, 0))
+    if options.output in ("-", ""):
+        buf = sys.stdout.buffer
+        buf.write(csv)
+        buf.flush()
+    else:
+        with open(options.output, "wb") as out:
+            out.write(csv)
+    if options.profile:
+        prof.report(log=lambda line: print(line, file=sys.stderr))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,147 @@
+"""Method ``local`` (the default): per-site maximum-likelihood error rates.
+
+Reference: callSiteMLError (call.cpp:213-289). Per unique profile, plug-in
+error rates — hom: (cov - n_major)/cov, het: 1.5*(cov - n1 - n2)/cov, both
+capped at the -E threshold — feed the fixed-allele likelihoods; LRT
+p-values (no multiple-testing correction); het iff l2 > l1 and p2 < alpha.
+No coverage filter: every input site is emitted.
+
+Placement: the host picks the top-2 alleles, the device computes only
+(l1, l2) per profile (``ops.local_classify``: the CUDA kernel on a CUDA
+device, the torch f64 twin on the CPU), and the host adds the prior and
+runs the LRT through glibc libm. ``classify_profiles_local_ld`` is the
+same classification in long double on the host (libsidtpu), an
+independent path with no device stage, against which the device path is
+held.
+
+The reference multiplies linear long doubles, mc * (1-e)^n0 * (e/3)^m *
+prior, so at deep coverage a factor can overflow or underflow the long
+double range: 9000 reads of each of two alleles give mc = inf and a NaN
+call. Log space never leaves its range, so those profiles would differ.
+``long_double_range_rows`` bounds every factor from the coverage alone; the
+profiles it cannot clear are classified by the long-double classifier
+instead, so both placements give the reference's bytes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from sid_tpu_torch.config import Options
+from sid_tpu_torch.io import native
+from sid_tpu_torch.models import common
+from sid_tpu_torch.native import bridge
+from sid_tpu_torch.ops import local_classify, stats
+from sid_tpu_torch.ops.lgamma import lgamma_table
+from sid_tpu_torch.ops.profiles import coverage_of, unique_profiles
+from sid_tpu_torch.utils import profiling
+from sid_tpu_torch.utils.errors import NotPortedError
+
+# natural logs of the normal long-double range (x86 80-bit: 2^-16382 to
+# just under 2^16384), with a margin far wider than any rounding
+_LD_LOG_MAX = 16384 * math.log(2.0) - 1.0
+_LD_LOG_MIN = -16382 * math.log(2.0) + 1.0
+
+
+def long_double_range_rows(cov: np.ndarray, error_threshold: float, snp_prior: float) -> np.ndarray:
+    """Profiles whose long-double likelihoods may leave the normal range.
+
+    For a profile of coverage c the multinomial coefficient is at most 4^c,
+    and each likelihood's two powers together are at least exp(-c K): K is
+    ln 4 for uncapped error rates (max of H(p) + p ln 3, and of ln 2 + H(q))
+    and -ln of the smallest base a capped rate gives. The prior adds its own
+    log. Rows where these bounds stay inside the normal range evaluate
+    every factor and partial product there, so log space gives the same
+    answer; the others are returned True. A negative -E (negative bases) or
+    a prior of 1 or more flags every row.
+    """
+    thr = float(error_threshold)
+    if thr < 0 or snp_prior >= 1:
+        return np.ones(cov.shape[0], bool)
+    k = math.log(4.0)
+    if thr > 0:  # a capped rate gives the bases 1-thr, thr/3, (1-2thr/3)/2
+        k = max(k, -math.log(thr / 3.0))
+        if thr < 1:
+            k = max(k, -math.log1p(-thr))
+        if thr < 1.5:
+            k = max(k, -math.log((1.0 - 2.0 / 3.0 * thr) / 2.0))
+    prior = 0.0
+    if snp_prior > 0:
+        prior = max(-math.log(snp_prior), -math.log1p(-snp_prior))
+    c = np.asarray(cov, np.float64)
+    return (c * math.log(4.0) > _LD_LOG_MAX) | (c * k + prior > -_LD_LOG_MIN)
+
+
+def classify_profiles_local(profiles: np.ndarray, options: Options, snp_prior: float):
+    """Per-class local classification on the options' device; returns the
+    5 host arrays (is_het, major, second, p1, p2) over U."""
+    if not options.exact_pvalues:
+        raise NotPortedError("the fused on-device LRT (exact_pvalues=False)")
+    device = options.device()
+    u = profiles.shape[0]
+    major, second = common.major_allele_indices_np(profiles)
+    cov = coverage_of(profiles)
+    max_cov = int(cov.max()) if u else 0
+    with profiling.device_stage("local_log_likelihoods", device):
+        tab = lgamma_table(max_cov, device)
+        l1, l2 = local_classify.local_log_likelihoods(
+            torch.from_numpy(np.ascontiguousarray(profiles, np.int32)).to(device),
+            torch.from_numpy(major).to(device),
+            torch.from_numpy(second).to(device),
+            options.site_error_threshold,
+            tab,
+        )
+        l1 = l1.cpu().numpy()
+        l2 = l2.cpu().numpy()
+    if snp_prior > 0:
+        # glibc log, matching the oracle's prior arithmetic
+        l1 = l1 + np.log(np.float64(1.0 - snp_prior))
+        l2 = l2 + np.log(np.float64(snp_prior))
+    p1 = stats.lrt_pvalue_from_logs_np(l2, l1)
+    p2 = stats.lrt_pvalue_from_logs_np(l1, l2)
+    with np.errstate(invalid="ignore"):
+        is_het = (l2 > l1) & (p2 < options.significance_level)
+    rows = np.nonzero(long_double_range_rows(cov, options.site_error_threshold, snp_prior))[0]
+    if rows.size:
+        is_het[rows], _, _, p1[rows], p2[rows] = classify_profiles_local_ld(
+            profiles[rows], options, snp_prior
+        )
+    return is_het, major, second, p1, p2
+
+
+def classify_profiles_local_ld(profiles: np.ndarray, options: Options, snp_prior: float):
+    """The same classification in host long double (libsidtpu's
+    sidtpu_local_classify_ld, call.cpp:238-273); no device stage."""
+    major, second = common.major_allele_indices_np(profiles)
+    with profiling.maybe_stage("host:local_classify_ld"):
+        is_het, p1, p2 = bridge.local_classify_ld(
+            native.load(), profiles, major, second,
+            options.site_error_threshold, snp_prior, options.significance_level,
+        )
+    return is_het, major, second, p1, p2
+
+
+def _call(batch, options: Options, classify) -> common.CallResult:
+    if options.estimate_prior:
+        raise NotPortedError("-R")
+    profiles, _mult, inverse = unique_profiles(batch.counts)
+    if profiles.shape[0] == 0:
+        empty = np.zeros(0, np.int32)
+        cls = (np.zeros(0, bool), empty, empty, np.zeros(0), np.zeros(0))
+    else:
+        cls = classify(profiles, options, options.snp_prior)
+    return common.gather_result(batch, "p_value", inverse, *cls)
+
+
+def call_local(batch, options: Options, diag=None) -> common.CallResult:
+    """End-to-end ``local`` call on a parsed batch (device path). ``diag``
+    is for ``-R``'s diagnostics, which wait with ``-R``."""
+    return _call(batch, options, classify_profiles_local)
+
+
+def call_local_ld(batch, options: Options) -> common.CallResult:
+    """End-to-end ``local`` call through the host long-double classifier."""
+    return _call(batch, options, classify_profiles_local_ld)

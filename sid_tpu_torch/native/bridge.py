@@ -1,0 +1,269 @@
+"""ctypes interface to libsidtpu (``sid_tpu/native/parser.cpp``).
+
+Declares every entry point the ``local`` slice calls — the threaded parser
+(``sidtpu_parse_ex``), the unique-profile histogram, the two ``%g`` CSV
+writers, the glibc-libm erfc and LRT, and the long-double ``local``
+classifier — and marshals numpy arrays in and out. The quality method's
+inline per-site terms (parse flag 1) wait for the quality slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+from typing import List
+
+import numpy as np
+from scipy.special import gammaln
+
+from sid_tpu_torch.utils.errors import MALFORMED, MALFORMED_OR_MISSING, ErrorChannel
+
+_vp = ctypes.c_void_p
+_i32 = ctypes.c_int
+_i64 = ctypes.c_int64
+_f64 = ctypes.c_double
+_P_I32 = ctypes.POINTER(ctypes.c_int32)
+_P_U8 = ctypes.POINTER(ctypes.c_uint8)
+_P_U16 = ctypes.POINTER(ctypes.c_uint16)
+_P_F64 = ctypes.POINTER(ctypes.c_double)
+_P_CHAR = ctypes.POINTER(ctypes.c_char)
+
+_SIGNATURES = {
+    "sidtpu_parse_ex": (_vp, [ctypes.c_char_p, _i64, _i32, _i32, _i32, _i32, _i32]),
+    "sidtpu_num_sites": (_i64, [_vp]),
+    "sidtpu_num_reads": (_i64, [_vp]),
+    "sidtpu_num_errors": (_i64, [_vp]),
+    "sidtpu_chrom_id": (_vp, [_vp]),
+    "sidtpu_pos": (_vp, [_vp]),
+    "sidtpu_ref_base": (_vp, [_vp]),
+    "sidtpu_counts": (_vp, [_vp]),
+    "sidtpu_read_offsets": (_vp, [_vp]),
+    "sidtpu_read_code": (_vp, [_vp]),
+    "sidtpu_read_strand": (_vp, [_vp]),
+    "sidtpu_read_bq": (_vp, [_vp]),
+    "sidtpu_read_mq": (_vp, [_vp]),
+    "sidtpu_err_line": (_vp, [_vp]),
+    "sidtpu_err_code": (_vp, [_vp]),
+    "sidtpu_chrom_blob": (_vp, [_vp]),
+    "sidtpu_chrom_blob_len": (_i64, [_vp]),
+    "sidtpu_free": (None, [_vp]),
+    "sidtpu_unique_profiles": (_vp, [_P_U16, _i64, _i32]),
+    "sidtpu_unique_num_classes": (_i64, [_vp]),
+    "sidtpu_unique_class_profiles": (_vp, [_vp]),
+    "sidtpu_unique_class_mult": (_vp, [_vp]),
+    "sidtpu_unique_inverse": (_vp, [_vp]),
+    "sidtpu_unique_free": (None, [_vp]),
+    "sidtpu_write_csv": (_i64, [
+        ctypes.c_char_p, _i64, _P_I32, _P_I32, _P_U8, _P_I32, _P_I32,
+        _P_F64, _P_F64, ctypes.c_char_p, _i64, _i32, _i32,
+        ctypes.POINTER(_P_CHAR),
+    ]),
+    "sidtpu_write_csv_indexed": (_i64, [
+        ctypes.c_char_p, _i64, _P_I32, _P_I32, _P_I32, _i64, _P_U8, _P_I32,
+        _P_I32, _P_F64, _P_F64, _i64, ctypes.c_char_p, _i32, _i32,
+        ctypes.POINTER(_P_CHAR),
+    ]),
+    "sidtpu_buffer_free": (None, [_P_CHAR]),
+    "sidtpu_erfc": (None, [_P_F64, _P_F64, _i64]),
+    "sidtpu_lrt_pvalues": (None, [_P_F64, _P_F64, _P_F64, _i64, _i32]),
+    "sidtpu_local_classify_ld": (None, [
+        _P_I32, _P_F64, _P_I32, _P_I32, _f64, _f64, _f64, _i64, _P_F64,
+        _P_F64, _P_U8, _i32,
+    ]),
+}
+
+
+def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare restype/argtypes of every entry point the port calls."""
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def _ptr(a: np.ndarray, ptype):
+    return a.ctypes.data_as(ptype)
+
+
+def encode_chrom_blob(names) -> bytes:
+    """[u32 len][bytes]... — names may contain any byte."""
+    return b"".join(
+        struct.pack("<I", len(raw)) + raw for raw in (n.encode("latin1") for n in names)
+    )
+
+
+def decode_chrom_blob(blob: bytes) -> List[str]:
+    out = []
+    i = 0
+    while i + 4 <= len(blob):
+        (ln,) = struct.unpack_from("<I", blob, i)
+        i += 4
+        out.append(blob[i : i + ln].decode("latin1"))
+        i += ln
+    return out
+
+
+def _as_array(ptr, ctype, count, dtype) -> np.ndarray:
+    """Copy ``count`` native ``ctype`` values at ``ptr`` into a numpy array."""
+    if count == 0:
+        return np.zeros(0, dtype)
+    arr = np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctype)), shape=(count,))
+    return arr.astype(dtype, copy=True)
+
+
+def parse(lib, data: bytes, parse_bq: bool, parse_mq: bool, errors: ErrorChannel) -> dict:
+    """Threaded native parse of a whole buffer: the PileupBatch fields as
+    numpy arrays (the per-read ones only when a quality column is asked
+    for). Malformed lines go to ``errors``."""
+    res = lib.sidtpu_parse_ex(
+        data, len(data), int(parse_bq), int(parse_mq), int(errors.strict), 0, 0
+    )
+    try:
+        n_err = lib.sidtpu_num_errors(res)
+        if n_err:
+            err_lines = _as_array(lib.sidtpu_err_line(res), ctypes.c_int64, n_err, np.int64)
+            err_codes = _as_array(lib.sidtpu_err_code(res), ctypes.c_int32, n_err, np.int32)
+            for ln, code in zip(err_lines, err_codes):
+                # strict channels raise on the first report
+                errors.report(int(ln), MALFORMED_OR_MISSING if code == 1 else MALFORMED)
+        n = lib.sidtpu_num_sites(res)
+        blob_len = lib.sidtpu_chrom_blob_len(res)
+        blob = ctypes.string_at(lib.sidtpu_chrom_blob(res), blob_len) if blob_len else b""
+        fields = dict(
+            chrom_id=_as_array(lib.sidtpu_chrom_id(res), ctypes.c_int32, n, np.int32),
+            chrom_table=decode_chrom_blob(blob),
+            pos=_as_array(lib.sidtpu_pos(res), ctypes.c_int32, n, np.int32),
+            ref_base=_as_array(lib.sidtpu_ref_base(res), ctypes.c_uint8, n, np.uint8),
+            counts=_as_array(
+                lib.sidtpu_counts(res), ctypes.c_uint16, n * 4, np.uint16
+            ).reshape(-1, 4),
+        )
+        if parse_bq or parse_mq:
+            r = lib.sidtpu_num_reads(res)
+            fields.update(
+                read_offsets=_as_array(lib.sidtpu_read_offsets(res), ctypes.c_int64, n + 1, np.int64),
+                read_code=_as_array(lib.sidtpu_read_code(res), ctypes.c_int8, r, np.int8),
+                read_strand=_as_array(lib.sidtpu_read_strand(res), ctypes.c_uint8, r, np.uint8),
+                read_bq=_as_array(lib.sidtpu_read_bq(res), ctypes.c_uint8, r, np.uint8),
+                read_mq=_as_array(lib.sidtpu_read_mq(res), ctypes.c_uint8, r, np.uint8),
+            )
+        return fields
+    finally:
+        lib.sidtpu_free(res)
+
+
+def unique_profiles(lib, counts: np.ndarray):
+    """Threaded unique-profile histogram.
+
+    Returns (profiles (U,4) int32 sorted, mult (U,) int64, inverse (N,)
+    int64) — the contract of ops.profiles.unique_profiles.
+    """
+    arr = np.ascontiguousarray(counts, np.uint16)
+    n = arr.shape[0]
+    res = lib.sidtpu_unique_profiles(_ptr(arr, _P_U16), n, 0)
+    try:
+        u = lib.sidtpu_unique_num_classes(res)
+        profiles = _as_array(
+            lib.sidtpu_unique_class_profiles(res), ctypes.c_uint16, u * 4, np.int32
+        ).reshape(-1, 4)
+        mult = _as_array(lib.sidtpu_unique_class_mult(res), ctypes.c_int64, u, np.int64)
+        inverse = _as_array(lib.sidtpu_unique_inverse(res), ctypes.c_int32, n, np.int64)
+        return profiles, mult, inverse
+    finally:
+        lib.sidtpu_unique_free(res)
+
+
+def erfc_libm(lib, x: np.ndarray) -> np.ndarray:
+    """Batched glibc erfc."""
+    arr = np.ascontiguousarray(x, np.float64)
+    out = np.empty_like(arr)
+    lib.sidtpu_erfc(_ptr(arr, _P_F64), _ptr(out, _P_F64), arr.size)
+    return out
+
+
+def lrt_pvalues_libm(lib, log_l0: np.ndarray, log_l1: np.ndarray) -> np.ndarray:
+    """Threaded LRT p-values in one native pass (chisq, sqrt, glibc erfc,
+    -inf short-circuit); stats.cpp:29-37 on log-likelihoods."""
+    a, b = np.broadcast_arrays(np.asarray(log_l0, np.float64), np.asarray(log_l1, np.float64))
+    a = np.ascontiguousarray(a)
+    b = np.ascontiguousarray(b)
+    out = np.empty_like(a)
+    lib.sidtpu_lrt_pvalues(_ptr(a, _P_F64), _ptr(b, _P_F64), _ptr(out, _P_F64), a.size, 0)
+    return out
+
+
+def mc_log_f64(profiles: np.ndarray) -> np.ndarray:
+    """The f64 log multinomial coefficients the long-double classifier takes:
+    gammaln(cov+1) - sum gammaln(n_i+1), the oracle's exact expression
+    (sid_tpu/exact/lynch_ld.py:_mc_log_f64)."""
+    prof = np.asarray(profiles, np.int64)
+    cov = prof.sum(axis=-1)
+    return gammaln(cov + 1).astype(np.float64) - gammaln(prof + 1).astype(
+        np.float64
+    ).sum(axis=-1)
+
+
+def local_classify_ld(lib, profiles, major, second, error_threshold: float,
+                      snp_prior: float, alpha: float):
+    """Per-profile ``local`` classification in long double (call.cpp:238-273).
+
+    The host oracle path: threaded, bitwise-identical to sid_tpu's
+    native_local_classify_ld. Returns (is_het, p1, p2) over the profiles.
+    """
+    prof = np.ascontiguousarray(profiles, np.int32)
+    u = int(prof.shape[0])
+    mc_log = np.ascontiguousarray(mc_log_f64(prof), np.float64)
+    major = np.ascontiguousarray(major, np.int32)
+    second = np.ascontiguousarray(second, np.int32)
+    p1 = np.empty(u, np.float64)
+    p2 = np.empty(u, np.float64)
+    is_het = np.empty(u, np.uint8)
+    lib.sidtpu_local_classify_ld(
+        _ptr(prof, _P_I32), _ptr(mc_log, _P_F64), _ptr(major, _P_I32),
+        _ptr(second, _P_I32), float(error_threshold), float(snp_prior),
+        float(alpha), u, _ptr(p1, _P_F64), _ptr(p2, _P_F64), _ptr(is_het, _P_U8), 0,
+    )
+    return is_het.astype(bool), p1, p2
+
+
+def write_csv(lib, result, include_header: bool) -> bytes:
+    """Multithreaded C++ serializer (glibc %g == ostream default).
+
+    Takes the indexed writer when the result carries its per-class table
+    (each class formatted once), the per-site writer otherwise.
+    """
+    n = result.num_records
+    blob = encode_chrom_blob(result.chrom_table)
+    chrom_id = np.ascontiguousarray(result.chrom_id, np.int32)
+    pos = np.ascontiguousarray(result.pos, np.int32)
+    out = _P_CHAR()
+    if result.class_idx is not None:
+        class_idx = np.ascontiguousarray(result.class_idx, np.int32)
+        is_het = np.ascontiguousarray(result.cls_is_het, np.uint8)
+        major = np.ascontiguousarray(result.cls_major, np.int32)
+        second = np.ascontiguousarray(result.cls_second, np.int32)
+        ch = np.ascontiguousarray(result.cls_conf_hom, np.float64)
+        ct = np.ascontiguousarray(result.cls_conf_het, np.float64)
+        length = lib.sidtpu_write_csv_indexed(
+            blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
+            _ptr(class_idx, _P_I32), n, _ptr(is_het, _P_U8), _ptr(major, _P_I32),
+            _ptr(second, _P_I32), _ptr(ch, _P_F64), _ptr(ct, _P_F64), ch.shape[0],
+            result.conf_type.encode(), int(include_header), 0, ctypes.byref(out),
+        )
+    else:
+        is_het = np.ascontiguousarray(result.is_het, np.uint8)
+        major = np.ascontiguousarray(result.major, np.int32)
+        second = np.ascontiguousarray(result.second, np.int32)
+        ch = np.ascontiguousarray(result.conf_hom, np.float64)
+        ct = np.ascontiguousarray(result.conf_het, np.float64)
+        length = lib.sidtpu_write_csv(
+            blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
+            _ptr(is_het, _P_U8), _ptr(major, _P_I32), _ptr(second, _P_I32),
+            _ptr(ch, _P_F64), _ptr(ct, _P_F64), result.conf_type.encode(),
+            n, int(include_header), 0, ctypes.byref(out),
+        )
+    try:
+        return ctypes.string_at(out, length)
+    finally:
+        lib.sidtpu_buffer_free(out)

@@ -1,0 +1,136 @@
+"""Build the host library (g++) and the CUDA kernels (nvcc) at first use.
+
+The host library is compiled from ``sid_tpu/native/parser.cpp`` by path, with
+the flags of ``sid_tpu/native/build.py`` (``-ffp-contract=off`` keeps
+per-operation IEEE rounding), into ``sid_tpu_torch/_build/libsidtpu.so``;
+nothing is written into ``sid_tpu/``. The kernels in ``sid_tpu_torch/csrc``
+are compiled for Hopper (``sm_90a``) into a shared library with a plain C
+interface, loaded with ctypes. Each output is rebuilt when the hash of its
+sources and command changes. A file lock serialises concurrent builders
+(test workers), and a failed build raises.
+
+    python -m sid_tpu_torch.native.build          # host library
+    python -m sid_tpu_torch.native.build --cuda   # and the kernels
+"""
+
+from __future__ import annotations
+
+import fcntl
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import sys
+from typing import List
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(PKG)
+BUILD_DIR = os.path.join(PKG, "_build")
+CSRC = os.path.join(PKG, "csrc")
+
+HOST_SRC = os.path.join(REPO, "sid_tpu", "native", "parser.cpp")
+HOST_DEPS = [HOST_SRC, os.path.join(REPO, "sid_tpu", "native", "fmt_g_pow10.h")]
+HOST_LIB = os.path.join(BUILD_DIR, "libsidtpu.so")
+
+KERNEL_SRCS = [os.path.join(CSRC, "local_classify.cu")]
+KERNEL_DEPS = KERNEL_SRCS + [os.path.join(CSRC, "local_classify.cuh")]
+KERNEL_LIB = os.path.join(BUILD_DIR, "libsidtpu_kernels.so")
+# compiler report of the kernel build (registers, spills), kept beside it
+KERNEL_LOG = os.path.join(BUILD_DIR, "libsidtpu_kernels.log")
+
+
+def _host_cmd(out: str) -> List[str]:
+    return [
+        "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+        "-ffp-contract=off", "-march=native", "-o", out, HOST_SRC,
+    ]
+
+
+def _cpu_fingerprint() -> str:
+    """The CPU model and feature flags: ``-march=native`` output is only
+    valid on a CPU like the one that built it."""
+    keep = ("model name", "flags")
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = [ln for ln in f if ln.startswith(keep)]
+    except OSError:
+        return platform.machine()
+    return "".join(sorted(set(lines)))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def _kernel_cmd(out: str) -> List[str]:
+    return [
+        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+        # no fused multiply-add: the kernel's mul/add sequence must round
+        # like the host and torch f64 compositions it is held against
+        "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", "-o", out,
+    ] + KERNEL_SRCS
+
+
+def _digest(deps: List[str], cmd: List[str], salt: str) -> str:
+    h = hashlib.sha256()
+    for path in deps:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update("\0".join(cmd + [salt]).encode())
+    return h.hexdigest()
+
+
+def _build(out: str, deps: List[str], make_cmd, log: str = "", salt: str = "") -> str:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    stamp = out + ".sha256"
+    # the command with a placeholder output, since builds go to a temp name
+    want = _digest(deps, make_cmd("OUT"), salt)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out) and os.path.exists(stamp):
+                with open(stamp) as f:
+                    if f.read().strip() == want:
+                        return out
+            tmp = f"{out}.tmp{os.getpid()}"
+            proc = subprocess.run(make_cmd(tmp), capture_output=True, text=True)
+            if log:
+                with open(log, "w") as f:
+                    f.write(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"build of {os.path.basename(out)} failed "
+                    f"(exit {proc.returncode}):\n{proc.stderr}"
+                )
+            os.replace(tmp, out)
+            with open(stamp, "w") as f:
+                f.write(want + "\n")
+            return out
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def host_library() -> str:
+    """Path of libsidtpu.so, built from the shared source when stale or
+    built on another CPU."""
+    return _build(HOST_LIB, HOST_DEPS, _host_cmd, salt=_cpu_fingerprint())
+
+
+def kernel_library() -> str:
+    """Path of the CUDA kernel library, built with nvcc when stale."""
+    return _build(KERNEL_LIB, KERNEL_DEPS, _kernel_cmd, log=KERNEL_LOG)
+
+
+if __name__ == "__main__":
+    print(host_library())
+    if "--cuda" in sys.argv[1:]:
+        print(kernel_library())

@@ -1,0 +1,62 @@
+"""Host-side profile compaction.
+
+The key algorithmic dedup of the engine (pileup.cpp:169-217): genome-scale
+site counts collapse to a small set of unique (A,C,G,T) profiles, so all
+per-profile device math is O(U) with U << N. The ordering is the
+reference's lexicographic profile order (profile_t operator<), and the
+inverse index replaces its ``std::map<profile_t, size_t>`` join
+(call.cpp:82-86).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from sid_tpu_torch.io import native
+from sid_tpu_torch.native import bridge
+
+# from this many sites on, the threaded native histogram beats the sort
+_NATIVE_MIN_SITES = 65536
+
+
+def unique_profiles(counts: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Compact per-site base-count rows into unique profiles.
+
+    Returns ``(profiles (U,4) int32 lexicographically sorted, multiplicity
+    (U,) int64, inverse (N,) int64)`` with ``profiles[inverse] == counts``.
+    Large inputs go to libsidtpu's threaded flat-hash histogram; the numpy
+    path is the spec, and both give identical arrays.
+    """
+    counts = np.asarray(counts)
+    if counts.shape[0] == 0:
+        return (
+            np.zeros((0, 4), np.int32),
+            np.zeros(0, np.int64),
+            np.zeros(0, np.int64),
+        )
+    if counts.shape[0] >= _NATIVE_MIN_SITES:
+        return bridge.unique_profiles(native.load(), counts)
+    return _unique_profiles_np(counts)
+
+
+def _unique_profiles_np(counts: np.ndarray):
+    # pack each (c0,c1,c2,c3) row into one uint64 whose numeric order equals
+    # the row's lexicographic order, then group via one sort
+    c = counts.astype(np.uint64)
+    keys = (c[:, 0] << 48) | (c[:, 1] << 32) | (c[:, 2] << 16) | c[:, 3]
+    uniq = np.unique(keys)
+    inverse = np.searchsorted(uniq, keys)
+    mult = np.bincount(inverse, minlength=uniq.shape[0]).astype(np.int64)
+    inverse = inverse.astype(np.int64)
+    prof = np.empty((uniq.shape[0], 4), np.int32)
+    prof[:, 0] = (uniq >> 48) & 0xFFFF
+    prof[:, 1] = (uniq >> 32) & 0xFFFF
+    prof[:, 2] = (uniq >> 16) & 0xFFFF
+    prof[:, 3] = uniq & 0xFFFF
+    return prof, mult, inverse
+
+
+def coverage_of(profiles: np.ndarray) -> np.ndarray:
+    return profiles.sum(axis=1, dtype=np.int64)

@@ -1,0 +1,1 @@
+"""Host-side utilities: error channel, C++-compatible formatting, profiling."""
