@@ -39,8 +39,8 @@ _REF_OPTIONS = [
 ]
 
 _LONG_OPTIONS = [
-    ("engine=", "Compute engine: 'device' (torch device, default) or 'exact' (host long-double oracle; not yet ported)"),
-    ("fit=", "Lynch fit backend: 'auto' (default), 'device', or 'exact' (the fit is not yet ported)"),
+    ("engine=", "Compute engine: 'device' (torch device, default) or 'exact' (host long-double oracle)"),
+    ("fit=", "Lynch fit backend: 'auto' (default), 'device', or 'exact'"),
     ("io=", "Pileup parser backend: 'auto' (default), 'native', 'python'"),
     ("output=", "Output CSV path ('-' = stdout, default)"),
     ("devices=", "Number of devices for the site axis (not yet ported)"),
@@ -160,7 +160,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     options.platform = options.platform or os.environ.get("SIDTPU_PLATFORM")
     try:
         engine.check_ported(options)
-        options.device()
+        if options.engine == "device":
+            options.device()
     except (NotPortedError, RuntimeError) as e:
         _fail(str(e))
     try:

@@ -26,10 +26,10 @@ class Options:
 
     # --- framework options (no reference equivalent) ---
     # "device": per-profile math on the torch device; "exact": the host
-    # long-double oracle engine (not yet ported).
+    # long-double oracle engine.
     engine: str = "device"
-    # Lynch fit backend: "auto", "exact" or "device" (the fit is not yet
-    # ported; the value is validated and carried).
+    # Lynch fit backend: "auto" (exact up to 500k unique profiles, device
+    # above), "exact" (host long double) or "device".
     fit_backend: str = "auto"
     # pileup parser backend: "auto"/"native" (C++ libsidtpu) or "python"
     io_backend: str = "auto"

@@ -1,0 +1,230 @@
+// Per-profile arithmetic of the Lynch fit, shared by the CUDA kernels
+// (lynch.cu) and a g++ host build (lynch_host.cpp) that the CPU tests hold
+// against the torch f64 version (sid_tpu_torch/ops/likelihoods.py).
+//
+// Per profile (counts c0..c3, cov = sum c), with the theta-dependent scalars
+// computed once per evaluation on the host (LynchScalars):
+//   m     = lgamma[cov+1] - (((lgamma[c0+1] + lgamma[c1+1]) + lgamma[c2+1]) + lgamma[c3+1])
+//   t_i   = (log nt_i + xlogy(c_i, log1p(-e))) + xlogy(cov - c_i, log(e/3))           i = 0..3
+//   u_ij  = (log(nt_i nt_j) + xlogy(c_i + c_j, log((1-2e/3)/2))) + xlogy(cov - c_i - c_j, log(e/3))
+//   lhom  = m + LSE_i t_i
+//   lhet  = (m + LSE_{i<j} u_ij) - log1p(-sum nt^2)
+//   log_mix = logaddexp(log1p(-pi) + lhom, log(pi) + lhet)
+// with LSE and logaddexp as the installed JAX writes them (max shift, the
+// isfinite guard on the shift, log1p(exp(-|d|)), NaN-propagating max) and the
+// exp terms summed left to right (sid_tpu/ops/likelihoods.py:33-165).
+//
+// The long-double range screen (fault C2 in ROADMAP.md). The reference
+// evaluates the same row in linear 80-bit long double: mc = expl(m), powers
+// from powl, products and sums, then logl of the mixture, skipping rows whose
+// mixture is not > 0 (lynch.cpp:37-61). Where a factor that decides a value
+// leaves the normal long-double range, that evaluation is not the log-space
+// one: mc overflows to inf (inf * 0 = NaN, the row is skipped), or the
+// dominant term's powers underflow to 0. The screen flags a row when
+//   - m > kSafeMax (mc may overflow), or
+//   - a component (hom, het) that is not negligible in the mixture is out of
+//     range: its dominant term below kSafeMin, or its value outside
+//     [kSafeMin, kSafeMax], or
+//   - the mixture itself is finite and outside [kSafeMin, kSafeMax].
+// Every partial product of a term is >= the term (all its factors are <= 1),
+// so the dominant term's log bounds each of its powers and partial products.
+// A component is negligible when an upper bound on its long-double value is
+// kNegligible nats below the mixture (or its weight is exactly 0). An exact
+// zero (-inf in log space) is an exact zero in long double too and is never
+// flagged; neither is a NaN that the log-space version has (sum nt^2 == 1).
+// The marginals' screen is the component part alone, on both components.
+// Every operation is a separate IEEE f64 operation in the order written:
+// build with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#include "local_classify.cuh"
+
+namespace sid {
+
+// natural logs of the 80-bit long-double range: largest finite just under
+// 2^16384, smallest normal 2^-16382; the margins are far wider than rounding
+constexpr double kLdLogMax = 16384.0 * 0.69314718055994530942;
+constexpr double kLdLogMinNormal = -16382.0 * 0.69314718055994530942;
+constexpr double kMargin = 64.0;
+constexpr double kSafeMax = kLdLogMax - kMargin;
+constexpr double kSafeMin = kLdLogMinNormal + kMargin;
+constexpr double kNegligible = 64.0;
+
+// the unordered base pairs i < j in the reference's order (lynch.hpp:59-60):
+// (0,1) (0,2) (0,3) (1,2) (1,3) (2,3)
+SID_HD int pair_i(int p) { return p < 3 ? 0 : (p < 5 ? 1 : 2); }
+SID_HD int pair_j(int p) { return p < 3 ? p + 1 : (p < 5 ? p - 1 : 3); }
+
+// Theta-dependent scalars, computed on the host in f64 (glibc) once per
+// evaluation; layout = 16 doubles (ops/lynch_objective.py SCALAR_FIELDS).
+struct LynchScalars {
+  double log_match_hom;     // log1p(-e)
+  double log_err;           // log(e / 3)
+  double log_match_het;     // log((1 - 2/3 e) / 2)
+  double log_one_minus_pi;  // log1p(-pi)
+  double log_pi;            // log(pi)
+  double log_denom;         // log1p(-sum nt^2)
+  double log_nt[4];         // log nt_i
+  double log_w[6];          // log(nt_i * nt_j), pairs (0,1) (0,2) (0,3) (1,2) (1,3) (2,3)
+};
+
+struct LynchRow {
+  double lhom;
+  double lhet;
+  double log_mix;
+  bool flag_marginals;  // the long-double marginals may differ
+  bool flag_mixture;    // the long-double objective term may differ
+};
+
+// max that returns NaN when either input is NaN (XLA's max)
+SID_HD double nan_max(double a, double b) {
+  return (a != a || a > b) ? a : b;
+}
+
+SID_HD double logaddexp(double x1, double x2) {
+  const double amax = nan_max(x1, x2);
+  const double delta = x1 - x2;
+  return delta != delta ? x1 + x2 : amax + log1p(exp(-fabs(delta)));
+}
+
+// log sum exp t_k over k < n, returning the max term too (before the guard)
+template <int N>
+SID_HD double logsumexp(const double (&t)[N], double* amax_out) {
+  double amax = t[0];
+  for (int k = 1; k < N; ++k) amax = nan_max(amax, t[k]);
+  *amax_out = amax;
+  const double shift = isfinite(amax) ? amax : 0.0;
+  double s = exp(t[0] - shift);
+  for (int k = 1; k < N; ++k) s = s + exp(t[k] - shift);
+  return log(fabs(s)) + shift;
+}
+
+// the component's value is in range in long double: an exact zero, or a
+// dominant term and a value inside the safe band
+SID_HD bool component_ok(double amax, double value) {
+  if (amax == -INFINITY) return true;
+  return amax >= kSafeMin && value >= kSafeMin && value <= kSafeMax;
+}
+
+// negligible in the mixture: its weight is exactly 0, or an upper bound on
+// its long-double value (terms no larger than the smallest normal each,
+// times mc, over the denominator) sits kNegligible nats below the mixture
+SID_HD bool component_negligible(double log_weight, double m, double amax,
+                                 double log_n_terms, double log_denom,
+                                 double log_mix) {
+  if (log_weight == -INFINITY) return true;
+  const double top = amax > kLdLogMinNormal ? amax : kLdLogMinNormal;
+  const double bound = log_weight + (((m + log_n_terms) + top) - log_denom);
+  return bound < log_mix - kNegligible;
+}
+
+SID_HD LynchRow lynch_row(int c0, int c1, int c2, int c3,
+                          const LynchScalars& s, const double* tab,
+                          int tab_len) {
+  const int c[4] = {c0, c1, c2, c3};
+  const int icov = c0 + c1 + c2 + c3;
+  const double m =
+      lgamma_at(tab, tab_len, icov + 1) -
+      (((lgamma_at(tab, tab_len, c0 + 1) + lgamma_at(tab, tab_len, c1 + 1)) +
+        lgamma_at(tab, tab_len, c2 + 1)) +
+       lgamma_at(tab, tab_len, c3 + 1));
+
+  double th[4];
+  for (int i = 0; i < 4; ++i)
+    th[i] = (s.log_nt[i] + xlogy(c[i], s.log_match_hom)) +
+            xlogy(icov - c[i], s.log_err);
+  double tp[6];
+  for (int p = 0; p < 6; ++p) {
+    const int n = c[pair_i(p)] + c[pair_j(p)];
+    tp[p] = (s.log_w[p] + xlogy(n, s.log_match_het)) + xlogy(icov - n, s.log_err);
+  }
+  double amax_hom;
+  double amax_het;
+  const double lhom = m + logsumexp(th, &amax_hom);
+  const double lhet = (m + logsumexp(tp, &amax_het)) - s.log_denom;
+  const double log_mix =
+      logaddexp(s.log_one_minus_pi + lhom, s.log_pi + lhet);
+
+  const bool mc_over = m > kSafeMax;
+  const bool hom_ok = component_ok(amax_hom, lhom);
+  const bool het_ok = component_ok(amax_het, lhet);
+  LynchRow r;
+  r.lhom = lhom;
+  r.lhet = lhet;
+  r.log_mix = log_mix;
+  r.flag_marginals = mc_over || !hom_ok || !het_ok;
+  // log 4 and log 6: the number of terms in each component's sum
+  const bool hom_decides =
+      !hom_ok && !component_negligible(s.log_one_minus_pi, m, amax_hom,
+                                       1.3862943611198906, 0.0, log_mix);
+  const bool het_decides =
+      !het_ok && !component_negligible(s.log_pi, m, amax_het,
+                                       1.791759469228055, s.log_denom, log_mix);
+  const bool mix_out = isfinite(log_mix) && (log_mix < kSafeMin || log_mix > kSafeMax);
+  r.flag_mixture = mc_over || mix_out || hom_decides || het_decides;
+  return r;
+}
+
+// the objective's term: 0 where the mixture is -inf, else log_mix * mult
+SID_HD double lynch_term(double log_mix, int64_t mult) {
+  return log_mix == -INFINITY ? 0.0 : log_mix * static_cast<double>(mult);
+}
+
+// The objective's fixed-order reduction. Rows fall in chunks of kChunk;
+// thread t of a chunk sums rows chunk*kChunk + k*kReduceThreads + t for
+// k = 0..kRowsPerThread-1 in that order, starting from 0.0 (a row past the
+// end, or flagged, adds 0.0); the kReduceThreads sums then fold as a tree,
+// v[t] = v[t] + v[t + s] for s = kReduceThreads/2 .. 1. The chunk sums fold
+// the same way in one block: thread t sums chunks t, t + kReduceThreads, ...
+// (0.0 past the end), then the tree. The result depends on the row count
+// and these constants alone, never on how many blocks run the chunks.
+constexpr int kReduceThreads = 256;
+constexpr int kRowsPerThread = 4;
+constexpr int kChunk = kReduceThreads * kRowsPerThread;
+
+// row i of a (n, 4) int32 profile array; one 16-byte load on the card
+// (the array is 16-byte aligned)
+SID_HD void load_profile(const int32_t* prof, int64_t i, int c[4]) {
+#ifdef __CUDA_ARCH__
+  const int4 q = __ldg(reinterpret_cast<const int4*>(prof) + i);
+  c[0] = q.x;
+  c[1] = q.y;
+  c[2] = q.z;
+  c[3] = q.w;
+#else
+  for (int k = 0; k < 4; ++k) c[k] = prof[4 * i + k];
+#endif
+}
+
+// one thread's share of a chunk: the sum of its unflagged terms, and how
+// many of its rows were flagged (flags written for every row it covers)
+SID_HD double lynch_thread_sum(int64_t chunk, int t, const int32_t* prof,
+                               const int64_t* mult, const LynchScalars& s,
+                               const double* tab, int tab_len, int64_t n,
+                               uint8_t* flags, int* n_flagged) {
+  double acc = 0.0;
+  int cnt = 0;
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int64_t i = chunk * kChunk + static_cast<int64_t>(k) * kReduceThreads + t;
+    double term = 0.0;
+    if (i < n) {
+      int c[4];
+      load_profile(prof, i, c);
+      const LynchRow r = lynch_row(c[0], c[1], c[2], c[3], s, tab, tab_len);
+      flags[i] = r.flag_mixture ? 1 : 0;
+      if (r.flag_mixture) {
+        ++cnt;
+      } else {
+        term = lynch_term(r.log_mix, mult[i]);
+      }
+    }
+    acc = acc + term;
+  }
+  *n_flagged = cnt;
+  return acc;
+}
+
+}  // namespace sid

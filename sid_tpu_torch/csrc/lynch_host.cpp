@@ -1,0 +1,93 @@
+// Host build of the Lynch kernels' per-profile arithmetic and fixed-order
+// reduction (lynch.cuh), looped over arrays, so the CPU tests can hold the
+// very expressions the card runs against the torch f64 version before any
+// card sees them. The reduction runs the kernel's chunks in the block order
+// a grid of `grid` blocks would take them; the result must not depend on it.
+//
+//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
+//       -o liblynch_host.so lynch_host.cpp
+#include <stdint.h>
+#include <string.h>
+
+#include <vector>
+
+#include "lynch.cuh"
+
+namespace {
+
+sid::LynchScalars unpack(const double* scalars) {
+  sid::LynchScalars s;
+  memcpy(&s, scalars, sizeof(s));
+  return s;
+}
+
+void tree_fold(std::vector<double>& v, std::vector<int>& c) {
+  for (int s = sid::kReduceThreads / 2; s > 0; s >>= 1) {
+    for (int t = 0; t < s; ++t) {
+      v[t] = v[t] + v[t + s];
+      c[t] = c[t] + c[t + s];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int sid_lynch_chunk_rows_host() { return sid::kChunk; }
+
+// per-row outputs of lynch_row: lhom, lhet, log_mix (f64) and the two flags
+void sid_lynch_rows_host(const int32_t* prof, const double* scalars,
+                         const double* tab, int tab_len, int64_t n,
+                         double* lhom, double* lhet, double* log_mix,
+                         uint8_t* flag_marginals, uint8_t* flag_mixture) {
+  const sid::LynchScalars s = unpack(scalars);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* p = prof + 4 * i;
+    const sid::LynchRow r = sid::lynch_row(p[0], p[1], p[2], p[3], s, tab, tab_len);
+    lhom[i] = r.lhom;
+    lhet[i] = r.lhet;
+    log_mix[i] = r.log_mix;
+    flag_marginals[i] = r.flag_marginals ? 1 : 0;
+    flag_mixture[i] = r.flag_mixture ? 1 : 0;
+  }
+}
+
+// the objective kernel pair: out[0] = sum of unflagged terms, out[1] = the
+// flagged count; flags (n,) written per row
+void sid_lynch_nll_host(const int32_t* prof, const int64_t* mult,
+                        const double* scalars, const double* tab, int tab_len,
+                        int64_t n, int grid, uint8_t* flags, double* out) {
+  const sid::LynchScalars s = unpack(scalars);
+  const int64_t n_chunks = (n + sid::kChunk - 1) / sid::kChunk;
+  std::vector<double> part_sum(static_cast<size_t>(n_chunks));
+  std::vector<int> part_cnt(static_cast<size_t>(n_chunks));
+  std::vector<double> v(sid::kReduceThreads);
+  std::vector<int> c(sid::kReduceThreads);
+  for (int b = 0; b < grid; ++b) {
+    for (int64_t chunk = b; chunk < n_chunks; chunk += grid) {
+      for (int t = 0; t < sid::kReduceThreads; ++t)
+        v[t] = sid::lynch_thread_sum(chunk, t, prof, mult, s, tab, tab_len, n,
+                                     flags, &c[t]);
+      tree_fold(v, c);
+      part_sum[static_cast<size_t>(chunk)] = v[0];
+      part_cnt[static_cast<size_t>(chunk)] = c[0];
+    }
+  }
+  for (int t = 0; t < sid::kReduceThreads; ++t) {
+    double acc = 0.0;
+    int cnt = 0;
+    for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
+      const int64_t i = base + t;
+      acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(i)] : 0.0);
+      cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(i)] : 0);
+    }
+    v[t] = acc;
+    c[t] = cnt;
+  }
+  tree_fold(v, c);
+  out[0] = v[0];
+  out[1] = static_cast<double>(c[0]);
+}
+
+}  // extern "C"

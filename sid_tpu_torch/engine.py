@@ -2,8 +2,10 @@
 
 Mirrors the reference's method dispatch (sid.cpp:92-100), including the
 quirk that an unrecognized method produces no records (the CLI then prints
-only the CSV header). Methods and options of sid_tpu that this package does
-not run yet raise ``NotPortedError`` instead of doing something else.
+only the CSV header). ``options.engine`` selects the device path (default)
+or the host long-double oracle. Methods and options of sid_tpu that this
+package does not run yet raise ``NotPortedError`` instead of doing
+something else.
 """
 
 from __future__ import annotations
@@ -11,27 +13,41 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from sid_tpu_torch.config import Options
+from sid_tpu_torch.exact import engine as exact_engine
 from sid_tpu_torch.io.pileup import PileupBatch, parse_pileup
-from sid_tpu_torch.models import local
+from sid_tpu_torch.models import bayes, likelihood_ratio, local
 from sid_tpu_torch.models.common import CSV_HEADER, CallResult
 from sid_tpu_torch.utils import profiling
 from sid_tpu_torch.utils.errors import NotPortedError
 
-_METHODS = ("local", "bayes", "likelihood_ratio", "quality")
+_TABLES = {
+    "device": {
+        "local": local.call_local,
+        "bayes": bayes.call_bayes,
+        "likelihood_ratio": likelihood_ratio.call_likelihood_ratio,
+    },
+    "exact": {
+        "local": exact_engine.call_local_exact,
+        "bayes": exact_engine.call_bayes_exact,
+        "likelihood_ratio": exact_engine.call_likelihood_ratio_exact,
+    },
+}
 
 
 def check_ported(options: Options) -> None:
     """Raise NotPortedError for the first option this package cannot run."""
-    if options.method in _METHODS and options.method != "local":
-        raise NotPortedError(f"-m {options.method}")
     unported = (
-        (options.estimate_prior, "-R"),
-        (options.engine == "exact", "--engine exact"),
+        (options.method == "quality", "-m quality"),
         (options.stream, "--stream"),
         (bool(options.population), "--population"),
         (options.multihost, "--multihost"),
         (options.per_shard_fit, "--per-shard-fit"),
         (options.mesh_devices is not None, "--devices"),
+        (
+            options.engine == "device" and not options.exact_pvalues
+            and options.method in ("local", "likelihood_ratio"),
+            "the fused on-device LRT (exact_pvalues=False)",
+        ),
     )
     for flag, name in unported:
         if flag:
@@ -46,9 +62,10 @@ def call_batch(
     """Dispatch one parsed batch to the selected method implementation;
     None for an unknown method (header-only output, sid.cpp:92-102)."""
     check_ported(options)
-    if options.method != "local":
+    fn = _TABLES[options.engine].get(options.method)
+    if fn is None:
         return None
-    return local.call_local(batch, options, diag)
+    return fn(batch, options, diag)
 
 
 def run(

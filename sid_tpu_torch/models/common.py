@@ -49,6 +49,12 @@ def clamp_ld_underflow(log_l: torch.Tensor) -> torch.Tensor:
     return torch.where(log_l < LONG_DOUBLE_UNDERFLOW_LOG, -math.inf, log_l)
 
 
+def clamp_ld_underflow_np(log_l) -> np.ndarray:
+    """Host version of clamp_ld_underflow (same 80-bit subnormal line)."""
+    log_l = np.asarray(log_l, np.float64)
+    return np.where(log_l < LONG_DOUBLE_UNDERFLOW_LOG, -np.inf, log_l)
+
+
 @dataclasses.dataclass
 class CallResult:
     """Struct-of-arrays over the emitted sites, in output order."""
@@ -107,23 +113,31 @@ def gather_result(
     second_u: np.ndarray,
     p1_u: np.ndarray,
     p2_u: np.ndarray,
+    keep_u: Optional[np.ndarray] = None,
 ) -> CallResult:
     """Join per-unique-profile classifications back onto input sites.
 
     Replaces the reference's map<profile_t,size_t> join (call.cpp:129-140):
-    ``inverse`` maps each site to its unique-profile row. The coverage
-    filter of bayes/likelihood_ratio (``keep_u`` in sid_tpu) comes with
-    those methods.
+    ``inverse`` maps each site to its unique-profile row; sites whose profile
+    was filtered out (``keep_u`` False) are omitted from the output, in input
+    order, like the cov<4 drop of bayes and likelihood_ratio.
     """
+    chrom_id, pos = batch.chrom_id, batch.pos
+    if keep_u is not None:
+        site_keep = keep_u[inverse]
+        # site -> unfiltered row -> filtered row
+        filtered_row = np.cumsum(keep_u) - 1
+        inverse = filtered_row[inverse[site_keep]]
+        chrom_id, pos = chrom_id[site_keep], pos[site_keep]
     is_het_u = np.asarray(is_het_u)
     major_u = np.asarray(major_u)
     second_u = np.asarray(second_u)
     p1_u = np.asarray(p1_u, np.float64)
     p2_u = np.asarray(p2_u, np.float64)
     return CallResult(
-        chrom_id=batch.chrom_id,
+        chrom_id=chrom_id,
         chrom_table=batch.chrom_table,
-        pos=batch.pos,
+        pos=pos,
         is_het=is_het_u[inverse],
         major=major_u[inverse],
         second=second_u[inverse],

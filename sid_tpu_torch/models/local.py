@@ -6,6 +6,10 @@ capped at the -E threshold — feed the fixed-allele likelihoods; LRT
 p-values (no multiple-testing correction); het iff l2 > l1 and p2 < alpha.
 No coverage filter: every input site is emitted.
 
+With -R the SNP prior is the heterozygosity of the Lynch fit on the
+cov>=4 profiles (``models.lynch.estimate_prior_heterozygosity``,
+call.cpp:223-234), fitted before the classification.
+
 Placement: the host picks the top-2 alleles, the device computes only
 (l1, l2) per profile (``ops.local_classify``: the CUDA kernel on a CUDA
 device, the torch f64 twin on the CPU), and the host adds the prior and
@@ -33,6 +37,7 @@ import torch
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.io import native
 from sid_tpu_torch.models import common
+from sid_tpu_torch.models.lynch import estimate_prior_heterozygosity
 from sid_tpu_torch.native import bridge
 from sid_tpu_torch.ops import local_classify, stats
 from sid_tpu_torch.ops.lgamma import lgamma_table
@@ -124,24 +129,25 @@ def classify_profiles_local_ld(profiles: np.ndarray, options: Options, snp_prior
     return is_het, major, second, p1, p2
 
 
-def _call(batch, options: Options, classify) -> common.CallResult:
-    if options.estimate_prior:
-        raise NotPortedError("-R")
-    profiles, _mult, inverse = unique_profiles(batch.counts)
+def _call(batch, options: Options, classify, diag) -> common.CallResult:
+    profiles, mult, inverse = unique_profiles(batch.counts)
     if profiles.shape[0] == 0:
         empty = np.zeros(0, np.int32)
         cls = (np.zeros(0, bool), empty, empty, np.zeros(0), np.zeros(0))
     else:
-        cls = classify(profiles, options, options.snp_prior)
+        snp_prior = options.snp_prior
+        if options.estimate_prior:
+            snp_prior = estimate_prior_heterozygosity(profiles, mult, options, diag)
+        cls = classify(profiles, options, snp_prior)
     return common.gather_result(batch, "p_value", inverse, *cls)
 
 
 def call_local(batch, options: Options, diag=None) -> common.CallResult:
-    """End-to-end ``local`` call on a parsed batch (device path). ``diag``
-    is for ``-R``'s diagnostics, which wait with ``-R``."""
-    return _call(batch, options, classify_profiles_local)
+    """End-to-end ``local`` call on a parsed batch (device path); ``diag``
+    gets -R's fit diagnostics."""
+    return _call(batch, options, classify_profiles_local, diag)
 
 
-def call_local_ld(batch, options: Options) -> common.CallResult:
+def call_local_ld(batch, options: Options, diag=None) -> common.CallResult:
     """End-to-end ``local`` call through the host long-double classifier."""
-    return _call(batch, options, classify_profiles_local_ld)
+    return _call(batch, options, classify_profiles_local_ld, diag)

@@ -1,10 +1,11 @@
 """ctypes interface to libsidtpu (``sid_tpu/native/parser.cpp``).
 
-Declares every entry point the ``local`` slice calls — the threaded parser
-(``sidtpu_parse_ex``), the unique-profile histogram, the two ``%g`` CSV
-writers, the glibc-libm erfc and LRT, and the long-double ``local``
-classifier — and marshals numpy arrays in and out. The quality method's
-inline per-site terms (parse flag 1) wait for the quality slice.
+Declares every entry point the ``local`` and Lynch-fit slices call — the
+threaded parser (``sidtpu_parse_ex``), the unique-profile histogram, the two
+``%g`` CSV writers, the glibc-libm erfc and LRT, the long-double ``local``
+classifier and the long-double Lynch objective and marginals — and marshals
+numpy arrays in and out. The quality method's inline per-site terms (parse
+flag 1) wait for the quality slice.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ _f64 = ctypes.c_double
 _P_I32 = ctypes.POINTER(ctypes.c_int32)
 _P_U8 = ctypes.POINTER(ctypes.c_uint8)
 _P_U16 = ctypes.POINTER(ctypes.c_uint16)
+_P_I64 = ctypes.POINTER(ctypes.c_int64)
 _P_F64 = ctypes.POINTER(ctypes.c_double)
+_P_LD = ctypes.POINTER(ctypes.c_longdouble)
 _P_CHAR = ctypes.POINTER(ctypes.c_char)
 
 _SIGNATURES = {
@@ -70,6 +73,8 @@ _SIGNATURES = {
         _P_I32, _P_F64, _P_I32, _P_I32, _f64, _f64, _f64, _i64, _P_F64,
         _P_F64, _P_U8, _i32,
     ]),
+    "sidtpu_compound_nll_ld": (_f64, [_P_I32, _P_I64, _P_F64, _P_F64, _f64, _f64, _i64, _i32]),
+    "sidtpu_lynch_marginals_ld": (None, [_P_I32, _P_F64, _P_F64, _f64, _i64, _P_LD, _P_LD, _i32]),
 }
 
 
@@ -225,6 +230,52 @@ def local_classify_ld(lib, profiles, major, second, error_threshold: float,
         float(alpha), u, _ptr(p1, _P_F64), _ptr(p2, _P_F64), _ptr(is_het, _P_U8), 0,
     )
     return is_het.astype(bool), p1, p2
+
+
+class NativeLynchLD:
+    """The long-double Lynch objective and marginals (libsidtpu
+    ``sidtpu_compound_nll_ld`` / ``sidtpu_lynch_marginals_ld``, lynch.cpp:17-61
+    in the reference's precision) over ``rows`` of the profiles, all of them
+    when None.
+
+    The objective of a subset is the reference's sum over those rows alone
+    (NaN and <= 0 likelihoods skipped, sequential long-double sum, the +-inf
+    clamp, DBL_MAX outside the box); each row's marginals do not depend on
+    the others. Bitwise sid_tpu's ``exact.lynch_ld.NativeLynchLD`` on the
+    same rows.
+    """
+
+    def __init__(self, lib, profiles: np.ndarray, mult: np.ndarray, nt, rows=None):
+        if np.dtype(np.longdouble).itemsize != ctypes.sizeof(ctypes.c_longdouble):
+            raise RuntimeError("numpy longdouble and C long double differ in layout")
+        prof = np.asarray(profiles)
+        mult = np.asarray(mult)
+        if rows is not None:
+            prof, mult = prof[rows], mult[rows]
+        self._lib = lib
+        self._prof = np.ascontiguousarray(prof, np.int32)
+        self._mult = np.ascontiguousarray(mult, np.int64)
+        self._mc_log = np.ascontiguousarray(mc_log_f64(self._prof), np.float64)
+        self._nt = np.ascontiguousarray(nt, np.float64)
+        self._u = int(self._prof.shape[0])
+
+    def objective(self, theta) -> float:
+        """compoundLikelihood (lynch.cpp:37-61) at theta = (pi, epsilon)."""
+        return float(self._lib.sidtpu_compound_nll_ld(
+            _ptr(self._prof, _P_I32), _ptr(self._mult, _P_I64),
+            _ptr(self._mc_log, _P_F64), _ptr(self._nt, _P_F64),
+            float(theta[0]), float(theta[1]), self._u, 0,
+        ))
+
+    def marginals(self, eps: float):
+        """(L_hom, L_het) as numpy longdouble arrays at epsilon."""
+        l_hom = np.empty(self._u, np.longdouble)
+        l_het = np.empty(self._u, np.longdouble)
+        self._lib.sidtpu_lynch_marginals_ld(
+            _ptr(self._prof, _P_I32), _ptr(self._mc_log, _P_F64), _ptr(self._nt, _P_F64),
+            float(eps), self._u, _ptr(l_hom, _P_LD), _ptr(l_het, _P_LD), 0,
+        )
+        return l_hom, l_het
 
 
 def write_csv(lib, result, include_header: bool) -> bytes:

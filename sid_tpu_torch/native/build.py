@@ -3,11 +3,13 @@
 The host library is compiled from ``sid_tpu/native/parser.cpp`` by path, with
 the flags of ``sid_tpu/native/build.py`` (``-ffp-contract=off`` keeps
 per-operation IEEE rounding), into ``sid_tpu_torch/_build/libsidtpu.so``;
-nothing is written into ``sid_tpu/``. The kernels in ``sid_tpu_torch/csrc``
-are compiled for Hopper (``sm_90a``) into a shared library with a plain C
-interface, loaded with ctypes. Each output is rebuilt when the hash of its
-sources and command changes. A file lock serialises concurrent builders
-(test workers), and a failed build raises.
+nothing is written into ``sid_tpu/``. Each kernel source in
+``sid_tpu_torch/csrc`` is compiled for Hopper (``sm_90a``) into a shared
+library of its own with a plain C interface, loaded with ctypes;
+``kernel_libraries`` starts one nvcc per source, all at once. Each output is
+rebuilt when the hash of its sources and command changes. A file lock per
+output serialises concurrent builds of it (test workers), and a failed
+build raises.
 
     python -m sid_tpu_torch.native.build          # host library
     python -m sid_tpu_torch.native.build --cuda   # and the kernels
@@ -22,7 +24,8 @@ import platform
 import shutil
 import subprocess
 import sys
-from typing import List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(PKG)
@@ -33,11 +36,11 @@ HOST_SRC = os.path.join(REPO, "sid_tpu", "native", "parser.cpp")
 HOST_DEPS = [HOST_SRC, os.path.join(REPO, "sid_tpu", "native", "fmt_g_pow10.h")]
 HOST_LIB = os.path.join(BUILD_DIR, "libsidtpu.so")
 
-KERNEL_SRCS = [os.path.join(CSRC, "local_classify.cu")]
-KERNEL_DEPS = KERNEL_SRCS + [os.path.join(CSRC, "local_classify.cuh")]
-KERNEL_LIB = os.path.join(BUILD_DIR, "libsidtpu_kernels.so")
-# compiler report of the kernel build (registers, spills), kept beside it
-KERNEL_LOG = os.path.join(BUILD_DIR, "libsidtpu_kernels.log")
+# kernel name -> the headers its source (csrc/<name>.cu) includes
+KERNELS = {
+    "local_classify": ["local_classify.cuh"],
+    "lynch": ["lynch.cuh", "local_classify.cuh"],
+}
 
 
 def _host_cmd(out: str) -> List[str]:
@@ -70,14 +73,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _kernel_cmd(out: str) -> List[str]:
-    return [
-        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-        # no fused multiply-add: the kernel's mul/add sequence must round
-        # like the host and torch f64 compositions it is held against
-        "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", out,
-    ] + KERNEL_SRCS
+def kernel_paths(name: str):
+    """(library, compiler log) of kernel ``name``; the log keeps ptxas's
+    register and spill report."""
+    lib = os.path.join(BUILD_DIR, f"libsid_{name}.so")
+    return lib, lib[: -len(".so")] + ".log"
+
+
+def _kernel_cmd(name: str):
+    src = os.path.join(CSRC, f"{name}.cu")
+
+    def cmd(out: str) -> List[str]:
+        return [
+            nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+            # no fused multiply-add: the kernel's mul/add sequence must round
+            # like the host and torch f64 compositions it is held against
+            "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", out, src,
+        ]
+
+    return cmd
 
 
 def _digest(deps: List[str], cmd: List[str], salt: str) -> str:
@@ -94,7 +109,7 @@ def _build(out: str, deps: List[str], make_cmd, log: str = "", salt: str = "") -
     stamp = out + ".sha256"
     # the command with a placeholder output, since builds go to a temp name
     want = _digest(deps, make_cmd("OUT"), salt)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    with open(out + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if os.path.exists(out) and os.path.exists(stamp):
@@ -125,12 +140,23 @@ def host_library() -> str:
     return _build(HOST_LIB, HOST_DEPS, _host_cmd, salt=_cpu_fingerprint())
 
 
-def kernel_library() -> str:
-    """Path of the CUDA kernel library, built with nvcc when stale."""
-    return _build(KERNEL_LIB, KERNEL_DEPS, _kernel_cmd, log=KERNEL_LOG)
+def kernel_library(name: str) -> str:
+    """Path of kernel ``name``'s library, built with nvcc when stale."""
+    lib, log = kernel_paths(name)
+    deps = [os.path.join(CSRC, f) for f in [f"{name}.cu"] + KERNELS[name]]
+    return _build(lib, deps, _kernel_cmd(name), log=log)
+
+
+def kernel_libraries() -> Dict[str, str]:
+    """Every kernel library, the stale ones built by one nvcc each, all
+    started together."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        futures = {name: pool.submit(kernel_library, name) for name in KERNELS}
+        return {name: fut.result() for name, fut in futures.items()}
 
 
 if __name__ == "__main__":
     print(host_library())
     if "--cuda" in sys.argv[1:]:
-        print(kernel_library())
+        for path in kernel_libraries().values():
+            print(path)

@@ -1,15 +1,44 @@
 """Fixed-allele genotype-likelihood kernels, f64 log-space, in torch.
 
-The math of lynch.hpp:48-55 and :76-96 (``sid_tpu/ops/likelihoods.py``):
+The math of lynch.hpp:48-96 and lynch.cpp:37-61 (``sid_tpu/ops/likelihoods.py``):
 log likelihoods instead of the reference's long-double linear space, with
 the lgamma lookup as a gather from an f64 integer table. Elementwise over a
-(U,) profile axis; ``profiles`` is (U, 4) integer counts. The marginals and
-the compound Lynch objective come with the fit.
+(U,) profile axis; ``profiles`` is (U, 4) integer counts.
+
+The Lynch marginals and the compound objective are the plain f64 versions of
+the CUDA kernels in ``csrc/lynch.cu`` and follow ``csrc/lynch.cuh`` operation
+for operation: the logs of (pi, epsilon, nt) are host scalars
+(``lynch_scalars``, glibc), log-sum-exp and logaddexp are JAX's formulas, the
+exp terms add left to right, and the objective's sum is the kernel's
+fixed-order reduction (``fixed_order_sum``). So the kernel and these differ
+only in the rounding of each profile's exp and log.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Sequence
+
+import numpy as np
 import torch
+
+# the unordered base pairs i < j in the reference's order (lynch.hpp:59-60)
+PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+
+DBL_MAX = float(np.finfo(np.float64).max)
+
+# csrc/lynch.cuh: the long-double range screen and the reduction's shape
+_LN2 = 0.69314718055994530942
+LD_LOG_MAX = 16384.0 * _LN2
+LD_LOG_MIN_NORMAL = -16382.0 * _LN2
+SAFE_MAX = LD_LOG_MAX - 64.0
+SAFE_MIN = LD_LOG_MIN_NORMAL + 64.0
+NEGLIGIBLE = 64.0
+_LOG4 = 1.3862943611198906
+_LOG6 = 1.791759469228055
+REDUCE_THREADS = 256
+ROWS_PER_THREAD = 4
+CHUNK_ROWS = REDUCE_THREADS * ROWS_PER_THREAD
 
 
 def _xlogy(x: torch.Tensor, logy: torch.Tensor) -> torch.Tensor:
@@ -76,3 +105,188 @@ def log_hom_fixed(
         + _xlogy(n0, log_match)
         + _xlogy(cov - n0, log_err)
     )
+
+
+def _glibc_log(x: float) -> float:
+    """log through glibc (math.log), with log 0 = -inf and NaN below 0."""
+    if x > 0:
+        return math.log(x)
+    return -math.inf if x == 0 else math.nan
+
+
+def _glibc_log1p(x: float) -> float:
+    if x > -1:
+        return math.log1p(x)
+    return -math.inf if x == -1 else math.nan
+
+
+def lynch_scalars(pi: float, eps: float, nt: Sequence[float]) -> np.ndarray:
+    """The 16 theta-dependent f64 scalars of one evaluation (the layout of
+    ``LynchScalars`` in csrc/lynch.cuh), computed once on the host:
+    log1p(-e), log(e/3), log((1-2e/3)/2), log1p(-pi), log pi,
+    log1p(-sum nt^2), log nt_i (4), log(nt_i nt_j) (6, in PAIRS order)."""
+    pi, e = float(pi), float(eps)
+    nt =[float(v) for v in nt]
+    s2 = ((nt[0] * nt[0] + nt[1] * nt[1]) + nt[2] * nt[2]) + nt[3] * nt[3]
+    vals = [
+        _glibc_log1p(-e),
+        _glibc_log(e / 3.0),
+        _glibc_log((1.0 - 2.0 / 3.0 * e) / 2.0),
+        _glibc_log1p(-pi),
+        _glibc_log(pi),
+        _glibc_log1p(-s2),
+    ]
+    vals += [_glibc_log(v) for v in nt]
+    vals += [_glibc_log(nt[i] * nt[j]) for i, j in PAIRS]
+    return np.array(vals, np.float64)
+
+
+def _xlogy_s(x: torch.Tensor, logy: float) -> torch.Tensor:
+    """_xlogy of integer counts and a host scalar: (double)x * logy, 0 at x == 0."""
+    return torch.where(x == 0, 0.0, x.to(torch.float64) * logy)
+
+
+def _logsumexp(terms):
+    """JAX's logsumexp over a list of (U,) tensors, the exp terms summed left
+    to right; returns (lse, the max term before the isfinite guard)."""
+    amax = terms[0]
+    for t in terms[1:]:
+        amax = torch.maximum(amax, t)  # NaN-propagating, as XLA's max
+    shift = torch.where(torch.isfinite(amax), amax, 0.0)
+    s = torch.exp(terms[0] - shift)
+    for t in terms[1:]:
+        s = s + torch.exp(t - shift)
+    return torch.log(torch.abs(s)) + shift, amax
+
+
+def _logaddexp(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """JAX's logaddexp: max + log1p(exp(-|x1 - x2|)), x1 + x2 where the
+    difference is NaN (NaNs, or infinities of one sign)."""
+    amax = torch.maximum(x1, x2)
+    delta = x1 - x2
+    return torch.where(
+        torch.isnan(delta), x1 + x2, amax + torch.log1p(torch.exp(-torch.abs(delta)))
+    )
+
+
+def _component_ok(amax: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    return (amax == -math.inf) | ((amax >= SAFE_MIN) & (value >= SAFE_MIN) & (value <= SAFE_MAX))
+
+
+def _component_negligible(log_weight, m, amax, log_n_terms, log_denom, log_mix):
+    if log_weight == -math.inf:
+        return torch.ones_like(m, dtype=torch.bool)
+    top = torch.where(amax > LD_LOG_MIN_NORMAL, amax, LD_LOG_MIN_NORMAL)
+    bound = log_weight + (((m + log_n_terms) + top) - log_denom)
+    return bound < log_mix - NEGLIGIBLE
+
+
+class LynchRows(NamedTuple):
+    lhom: torch.Tensor  # (U,) f64 log L_hom
+    lhet: torch.Tensor  # (U,) f64 log L_het
+    log_mix: torch.Tensor  # (U,) f64 log((1-pi) L_hom + pi L_het)
+    flag_marginals: torch.Tensor  # (U,) bool: long-double marginals may differ
+    flag_mixture: torch.Tensor  # (U,) bool: long-double objective term may differ
+
+
+def lynch_rows(profiles: torch.Tensor, scalars: np.ndarray, lgamma_tab: torch.Tensor) -> LynchRows:
+    """Per profile, ``lynch_row`` of csrc/lynch.cuh: the two marginals, the
+    mixture and the long-double range screen's flags."""
+    s = [float(v) for v in scalars]
+    prof = profiles.to(torch.int64)
+    cov = prof.sum(-1)
+    m = log_multinomial(prof, lgamma_tab)
+    c = [prof[:, i] for i in range(4)]
+    th = [(s[6 + i] + _xlogy_s(c[i], s[0])) + _xlogy_s(cov - c[i], s[1]) for i in range(4)]
+    tp = []
+    for p, (i, j) in enumerate(PAIRS):
+        n = c[i] + c[j]
+        tp.append((s[10 + p] + _xlogy_s(n, s[2])) + _xlogy_s(cov - n, s[1]))
+    lse_hom, amax_hom = _logsumexp(th)
+    lse_het, amax_het = _logsumexp(tp)
+    lhom = m + lse_hom
+    lhet = (m + lse_het) - s[5]
+    log_mix = _logaddexp(s[3] + lhom, s[4] + lhet)
+
+    mc_over = m > SAFE_MAX
+    hom_ok = _component_ok(amax_hom, lhom)
+    het_ok = _component_ok(amax_het, lhet)
+    hom_decides = ~hom_ok & ~_component_negligible(s[3], m, amax_hom, _LOG4, 0.0, log_mix)
+    het_decides = ~het_ok & ~_component_negligible(s[4], m, amax_het, _LOG6, s[5], log_mix)
+    mix_out = torch.isfinite(log_mix) & ((log_mix < SAFE_MIN) | (log_mix > SAFE_MAX))
+    return LynchRows(
+        lhom, lhet, log_mix,
+        mc_over | ~hom_ok | ~het_ok,
+        mc_over | mix_out | hom_decides | het_decides,
+    )
+
+
+def lynch_terms(log_mix: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:
+    """The objective's per-profile terms: 0 where the mixture is -inf,
+    else log_mix * mult (mult converted to f64)."""
+    return torch.where(log_mix == -math.inf, 0.0, log_mix * mult.to(torch.float64))
+
+
+def _tree_fold(v: torch.Tensor) -> torch.Tensor:
+    """(B, REDUCE_THREADS) -> (B,): v[t] = v[t] + v[t + s], s halving to 1."""
+    s = v.shape[1] // 2
+    while s:
+        v = v[:, :s] + v[:, s : 2 * s]
+        s //= 2
+    return v[:, 0]
+
+
+def fixed_order_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum of a (U,) f64 tensor in the kernel's fixed order (csrc/lynch.cuh):
+    per chunk of CHUNK_ROWS rows, thread t adds rows k*REDUCE_THREADS + t in
+    k order from 0.0, the threads fold as a tree; the chunk sums fold the
+    same way. Rows past the end add 0.0. Returns a 0-d tensor."""
+    u = terms.shape[0]
+    n_chunks = -(-u // CHUNK_ROWS)
+    x = torch.zeros(n_chunks * CHUNK_ROWS, dtype=torch.float64, device=terms.device)
+    x[:u] = terms
+    x = x.view(n_chunks, ROWS_PER_THREAD, REDUCE_THREADS)
+    acc = torch.zeros((n_chunks, REDUCE_THREADS), dtype=torch.float64, device=terms.device)
+    for k in range(ROWS_PER_THREAD):
+        acc = acc + x[:, k, :]
+    partials = _tree_fold(acc)
+    rounds = -(-n_chunks // REDUCE_THREADS)
+    y = torch.zeros(rounds * REDUCE_THREADS, dtype=torch.float64, device=terms.device)
+    y[:n_chunks] = partials
+    y = y.view(rounds, REDUCE_THREADS)
+    acc = torch.zeros((1, REDUCE_THREADS), dtype=torch.float64, device=terms.device)
+    for r in range(rounds):
+        acc = acc + y[r]
+    return _tree_fold(acc)[0]
+
+
+def log_hom_marginal(profiles, error_probability: float, nucleotide_distribution, lgamma_tab) -> torch.Tensor:
+    """log homozygousLikelihood marginalized over the base (lynch.hpp:82-90):
+    multinom * sum_i nt_i (1-e)^n_i (e/3)^(cov-n_i), in log space."""
+    s = lynch_scalars(0.0, error_probability, nucleotide_distribution)
+    return lynch_rows(profiles, s, lgamma_tab).lhom
+
+
+def log_het_marginal(profiles, error_probability: float, nucleotide_distribution, lgamma_tab) -> torch.Tensor:
+    """log heterozygousLikelihood marginalized over base pairs (lynch.hpp:57-74):
+    multinom * sum_{i<j} nt_i nt_j ((1-2e/3)/2)^(n_i+n_j) (e/3)^(cov-n_i-n_j)
+    / (1 - sum nt_i^2), in log space."""
+    s = lynch_scalars(0.0, error_probability, nucleotide_distribution)
+    return lynch_rows(profiles, s, lgamma_tab).lhet
+
+
+def compound_neg_log_likelihood(theta, profiles, mult, nucleotide_distribution, lgamma_tab) -> torch.Tensor:
+    """The Lynch-fit objective (lynch.cpp:37-61) for theta = (pi, epsilon),
+    as sid_tpu computes it: -sum mult * log[(1-pi) L_hom + pi L_het] at the
+    box-clipped theta, terms with a -inf mixture skipped, the sum clamped to
+    +-DBL_MAX, DBL_MAX outside [0,1]^2. No long-double range screen. Returns
+    a 0-d f64 tensor."""
+    pi, eps = float(theta[0]), float(theta[1])
+    in_box = 0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0
+    s = lynch_scalars(min(max(pi, 0.0), 1.0), min(max(eps, 0.0), 1.0), nucleotide_distribution)
+    rows = lynch_rows(profiles, s, lgamma_tab)
+    total = fixed_order_sum(lynch_terms(rows.log_mix, mult))
+    total = torch.clamp(total, -DBL_MAX, DBL_MAX)
+    if not in_box:
+        return torch.full((), DBL_MAX, dtype=torch.float64, device=total.device)
+    return -total

@@ -86,7 +86,7 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build.kernel_library())
+            lib = ctypes.CDLL(build.kernel_library("local_classify"))
             lib.sid_local_classify_launch.restype = ctypes.c_int
             lib.sid_local_classify_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -60,3 +60,27 @@ def _unique_profiles_np(counts: np.ndarray):
 
 def coverage_of(profiles: np.ndarray) -> np.ndarray:
     return profiles.sum(axis=1, dtype=np.int64)
+
+
+def filter_min_coverage(
+    profiles: np.ndarray, mult: np.ndarray, min_coverage: int = 4
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Drop profiles below the coverage threshold (call.cpp:66-70).
+
+    Returns (profiles, mult, kept mask over the original U axis).
+    """
+    keep = coverage_of(profiles) >= min_coverage
+    return profiles[keep], mult[keep], keep
+
+
+def nucleotide_distribution(profiles: np.ndarray, mult: np.ndarray) -> np.ndarray:
+    """Weighted base composition over unique profiles (pileup.cpp:198-217):
+    acc[i] = sum(mult * profile[:, i]) over the total base count, exact in
+    uint64; uniform 0.25 each when the total is zero."""
+    profiles = np.asarray(profiles, np.uint64)
+    mult = np.asarray(mult, np.uint64)
+    acc = (profiles * mult[:, None]).sum(axis=0, dtype=np.uint64)
+    total = acc.sum(dtype=np.uint64)
+    if total == 0:
+        return np.array([0.25, 0.25, 0.25, 0.25])
+    return acc.astype(np.float64) / np.float64(total)

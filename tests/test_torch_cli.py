@@ -30,8 +30,12 @@ CASES = {
     "malformed": ["bad.pileup"],
     "unknown-flag": ["-z", "in.pileup"],
     "unknown-method": ["-m", "bogus", "in.pileup"],
+    "bayes": ["-m", "bayes", "in.pileup"],
+    "R": ["-R", "in.pileup"],
+    "R-lr": ["-R", "-m", "likelihood_ratio", "in.pileup"],
+    "engine-exact": ["--engine", "exact", "-R", "-m", "likelihood_ratio", "in.pileup"],
 }
-UNPORTED = {"bayes": ["-m", "bayes"], "stream": ["--stream"], "R": ["-R"]}
+UNPORTED = {"stream": ["--stream"], "quality": ["-m", "quality"]}
 PROFILE = ["--profile", "--output", "out.csv", "in.pileup"]
 
 

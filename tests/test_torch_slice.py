@@ -156,16 +156,31 @@ def test_empty_input():
     assert engine.run(b"", Options(platform="cpu"), binary=True) == want
 
 
+# options that raised NotPortedError before the Lynch-fit slice ported them
+PORTED_SINCE = ({"method": "bayes"}, {"method": "likelihood_ratio"},
+                {"estimate_prior": True}, {"engine": "exact"})
+
+
 @pytest.mark.parametrize("kw", [
     {"method": "bayes"}, {"method": "likelihood_ratio"}, {"method": "quality"},
     {"estimate_prior": True}, {"engine": "exact"}, {"stream": True},
     {"per_shard_fit": True}, {"mesh_devices": 2}, {"exact_pvalues": False},
 ])
 def test_unported_options_raise(kw):
+    """Unported options raise; the ported ones give sid_tpu's bytes and
+    diagnostic lines."""
     from sid_tpu_torch.utils.errors import NotPortedError
 
+    src = _read("golden.pileup")
+    if kw in PORTED_SINCE:
+        want_diag, got_diag = [], []
+        want = ref_engine.run(src, RefOptions(**kw), want_diag.append, binary=True)
+        got = engine.run(src, Options(platform="cpu", **kw), got_diag.append, binary=True)
+        assert got == want and got_diag == want_diag
+        assert got.count(b"\n") > 1
+        return
     with pytest.raises(NotPortedError, match="not yet ported in sid_tpu_torch"):
-        engine.run(_read("golden.pileup"), Options(platform="cpu", **kw))
+        engine.run(src, Options(platform="cpu", **kw))
 
 
 def test_cuda_never_falls_back_to_cpu():
