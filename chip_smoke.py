@@ -6,34 +6,42 @@ runs) on the card and checks them:
 
 1. probe: a CUDA card must be present; prints its name and power limit;
 2. build: libsidtpu.so (g++) and the kernel libraries (one nvcc per source,
-   all started together, sm_90a) from the sources in this checkout, with
-   the compiler's register report;
+   all started together, sm_90a) from the sources in this checkout; the
+   compiler's register report of every kernel (0 spill bytes asserted for
+   the Lynch kernels) and each kernel's static f64 instruction count
+   (cuobjdump -sass), from which the bounds below are computed;
 3. kernel vs plain: the slim local classify kernel against its plain torch
    f64 version on the card at U = 1,000,000 profiles (Poisson(30) bulk,
    zero rows, deep rows up to 65535, ties, capped rows) at -E 0.0, 0.1 and
    1.0: identical non-finite positions, |a-b| <= 1e-12 max(1,|a|); median
-   times of both over distinct inputs, by CUDA events;
+   times of both over distinct inputs, by CUDA events, the device-only
+   time and the bound;
 4. the -m local path: engine.run on the golden fixture (byte-equal to
    golden_local.csv), the 100k-site real-data-shaped fixture and a
    1,000,000-site simulated ~30x pileup, the last two byte-equal to the CSV
    of the host long-double classifier (no kernel in that path); the
    kernel's launch count must grow; prints sites/s and the device stage's
    share; 4b splits the device stage at U = 1M;
-5. the Lynch fit's kernels (objective B2, marginals B4) against their plain
-   torch f64 versions on the cov >= 4 rows of phase 3's profiles with
-   seeded multiplicities: the objective's sum, flagged count and flags at
-   seven thetas (out of the box: DBL_MAX), the marginals and flags at three
-   epsilons, identical non-finite positions and 1e-12 relative; B2 bitwise
-   repeatable over ten calls and over grid sizes; median times;
+5. the Lynch fit's kernels against their plain torch versions on the
+   cov >= 4 rows of phase 3's profiles with seeded multiplicities: the row
+   record bitwise; the objective B2 bitwise (sum and flagged count) with
+   flags equal row for row at seven thetas (out of the box: DBL_MAX); the
+   marginals B4 and flags at three epsilons, identical non-finite positions
+   and 1e-12 relative; B2 bitwise repeatable over ten calls and over grid
+   sizes, one evaluation one kernel launch (the kernel library's counters);
+   per kernel the call time, the device-only time, the plain version's time
+   and the bound with the share of it reached;
 6. the fit's main path: engine.run on golden.pileup for bayes, LR, LR -R
    and local -R under --fit device, --fit auto and --engine exact, each
    byte-equal to its golden CSV, the device fit's diagnostic lines those of
    the goldens' run; B2 launched under --fit device and not under auto;
-   the deep-coverage repro of fault C2 byte-equal to --fit exact;
+   the deep-coverage repro of fault C2 byte-equal to --fit exact; every
+   kernel of the path launched;
 7. the fit at U ~ 1M at the model layer: models.lynch.fit_profiles under
    auto (the device fit) and --fit exact on phase 5's histogram; wall time,
    iterations, (pi, eps) of both within the simplex tolerance, and how many
-   bayes / LR profile records differ;
+   bayes / LR profile records differ; one evaluation and the device fit's
+   wall taken apart;
 8. prints a JSON line of kernel results, then the final JSON line
    {"ok": true, "device": {...}}.
 
@@ -44,6 +52,8 @@ line. Without a CUDA card it exits 1 at once.
 import gzip
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -160,6 +170,142 @@ def event_times_ms(torch, fn, sets) -> list:
     return times
 
 
+def device_only_ms(torch, launch, sets, k=20, reps=5, hold_cycles=200_000_000) -> float:
+    """Device time of one launch: CUDA events around k launches that the
+    host enqueued while torch.cuda._sleep held the stream, so the host's
+    enqueue cost falls outside the events; median over reps, ms. ``launch``
+    must not synchronise."""
+    for s in sets:
+        launch(*s)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        held.record()
+        torch.cuda._sleep(hold_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(k):
+            launch(*sets[i % len(sets)])
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if enqueue_ms >= held.elapsed_time(start):
+            raise AssertionError(f"the host took {enqueue_ms:.3f} ms to enqueue, longer than the stream was held")
+        times.append(start.elapsed_time(end) / k)
+    return statistics.median(times)
+
+
+# f64 instructions of the card's FP64 pipe: H100 SXM, 132 SMs x 64 FP64
+# lanes x 1.98 GHz boost (NVIDIA data sheet: 34 TFLOP/s FP64 counting an FMA
+# as two); memory 3.35 TB/s (the same data sheet); instruction issue: one
+# warp-instruction a cycle on each of an SM's 4 sub-partitions
+F64_INSTR_PER_S = 132 * 64 * 1.98e9
+WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+F64_OPCODES = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+
+
+def ptxas_report(text: str) -> dict:
+    """nvcc -Xptxas -v output by kernel: registers, stack frame and spill
+    bytes."""
+    out = {}
+    name = None
+    for line in text.splitlines():
+        head = re.search(r"Function properties for (\S+)", line)
+        if head:
+            name = head.group(1)
+            out[name] = {"registers": None}
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"), map(int, spill.groups())))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out[name]["registers"] = int(regs.group(1))
+    return out
+
+
+def cuobjdump_path():
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
+
+
+def sass_f64_counts(lib_path: str) -> dict:
+    """Per kernel of a built library, from cuobjdump -sass: [static count of
+    f64 instructions (DADD, DMUL, DFMA, DSETP, DMNMX, DSET), count of
+    16-byte global loads, count of all instructions]; {} when the toolkit
+    has no cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {}
+    name = None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = [0, 0, 0]
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9]+)(\S*)", line)
+        if name and op:
+            counts[name][0] += op.group(1) in F64_OPCODES
+            counts[name][1] += op.group(1) == "LDG" and ".128" in op.group(2)
+            counts[name][2] += op.group(1) != "NOP"
+    return counts
+
+
+def f64_count(counts: dict, kernel: str) -> list:
+    """The counts of the one kernel whose mangled name holds ``kernel``."""
+    hits = [n for name, n in counts.items() if kernel in name]
+    if len(hits) != 1:
+        raise AssertionError(f"{len(hits)} kernels named {kernel} in the SASS: {sorted(counts)}")
+    return hits[0]
+
+
+def bound_ms(n_bytes: float, f64_instr: float):
+    """(least time in ms, what bounds it): bytes over the memory rate or
+    f64 instructions over the FP64 rate, whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = f64_instr / F64_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fit_wall_split(torch, prof, mult, nt, dev) -> dict:
+    """The device fit (models.lynch.fit_lynch) taken apart, wall clock in
+    ms: set-up (DeviceObjective: uploads, table, workspace), the
+    evaluations (each objective call, launch to fetched result), the host
+    simplex (the rest of the minimizer), B4 with its copies."""
+    from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
+    from sid_tpu_torch.exact.nmsimplex import minimize_nmsimplex2
+    from sid_tpu_torch.models.lynch import DeviceObjective
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obj = DeviceObjective(prof, mult, nt, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    evals = []
+
+    def timed(theta):
+        t = time.perf_counter()
+        v = obj(theta)
+        evals.append(time.perf_counter() - t)
+        return v
+
+    res = minimize_nmsimplex2(timed, DEFAULT_START, DEFAULT_STEP)
+    t2 = time.perf_counter()
+    obj.marginals(float(res.x[1]))
+    t3 = time.perf_counter()
+    return {"setup_ms": (t1 - t0) * 1e3, "evaluations_ms": sum(evals) * 1e3, "evaluations": len(evals),
+            "simplex_ms": (t2 - t1 - sum(evals)) * 1e3, "marginals_ms": (t3 - t2) * 1e3,
+            "wall_ms": (t3 - t0) * 1e3, "x": [float(v) for v in res.x]}
+
+
 def first_difference(a: bytes, b: bytes) -> str:
     la, lb = a.split(b"\n"), b.split(b"\n")
     for k, (x, y) in enumerate(zip(la, lb)):
@@ -204,11 +350,20 @@ def main() -> int:
     t2 = time.perf_counter()
     log(f"# build: libsidtpu.so {t1 - t0:.1f} s (g++), {len(libs)} kernel libraries {t2 - t1:.1f} s "
         f"(one nvcc each, in parallel)")
+    sass = {}
     for name in libs:
         with open(build.kernel_paths(name)[1]) as f:
-            for line in f:
-                if "Compiling entry" in line or "registers" in line or "spill" in line:
-                    log(f"# ptxas {name}: {line.strip()}")
+            report = ptxas_report(f.read())
+        for fn, r in report.items():
+            log(f"# ptxas {name}: {fn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
+                f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
+            if name == "lynch" and (r["spill_stores"] or r["spill_loads"]):
+                raise AssertionError(f"ptxas spills registers in {fn}")
+        sass.update(sass_f64_counts(libs[name]))
+    for fn, (n_f64, n_ld128, n_all) in sorted(sass.items()):
+        log(f"# sass: {fn}: {n_f64} f64 instructions of {n_all} (static), {n_ld128} 16-byte loads")
+    if not sass:
+        raise AssertionError("no cuobjdump: the kernels' f64 instruction counts, and so their bounds, are unknown")
 
     # ---- 3. kernel vs plain at U = 1M ----
     prof_np = kernel_profiles()
@@ -243,9 +398,14 @@ def main() -> int:
     plain += event_times_ms(torch, local_classify.local_log_likelihoods_ref, sets)
     plain_ms = statistics.median(plain)
     kernel_ms = statistics.median(kernel)
+    local_dev_ms = device_only_ms(torch, local_classify.local_log_likelihoods, sets)
+    # (U, 4) int32 counts, two int32 allele indices and two f64 results a row, and the table
+    local_bound = bound_ms(U_KERNEL * (16 + 8 + 16) + tab.shape[0] * 8,
+                           f64_count(sass, "local_classify_kernel")[0] * U_KERNEL)
     log(f"# time at U={U_KERNEL}, -E 0.1, median of {len(kernel)} calls: kernel {kernel_ms:.4f} ms "
-        f"(min {min(kernel):.4f}, max {max(kernel):.4f}), plain torch {plain_ms:.4f} ms "
-        f"(min {min(plain):.4f}, max {max(plain):.4f}); on {card}")
+        f"(min {min(kernel):.4f}, max {max(kernel):.4f}), device only {local_dev_ms:.4f} ms, plain torch "
+        f"{plain_ms:.4f} ms (min {min(plain):.4f}, max {max(plain):.4f}); bound {local_bound[0]:.4f} ms by "
+        f"{local_bound[1]}, {local_bound[0] / local_dev_ms:.1%} of the bound; on {card}")
     del sets, prof, major, second, p1, p2, k1, k2
 
     # ---- 4. main path ----
@@ -348,8 +508,13 @@ def main() -> int:
     p_dev = torch.from_numpy(fit_prof).to(dev)
     m_dev = torch.from_numpy(fit_mult).to(dev)
     ftab = lgamma_table(int(fit_prof.sum(-1).max()), dev)
-    work = lynch_objective.NllWorkspace(u_fit, dev)
-    nll_abs = nll_rel = 0.0
+    work = lynch_objective.LynchWorkspace(p_dev, m_dev, ftab)
+    rec_plain = lynch_objective.lynch_records_ref(p_dev, m_dev, ftab)
+    if not torch.equal(work.records.view(torch.int64), rec_plain.view(torch.int64)):
+        raise AssertionError("the row record differs from its plain version")
+    log(f"# row record == plain at U={u_fit}, bitwise (m, signed multiplicity, packed counts); "
+        f"grids: records {work.grids[0]}, B2 {work.grids[1]}, B4 {work.grids[2]} blocks")
+    nll_abs = 0.0
     flagged = {}
     for th in FIT_THETAS:
         if not (0 <= th[0] <= 1 and 0 <= th[1] <= 1):
@@ -364,13 +529,14 @@ def main() -> int:
         k_out, k_flags = k_out.cpu().numpy().copy(), k_flags.cpu().numpy().copy()
         p_out, p_flags = lynch_objective.lynch_compound_nll_ref(p_dev, m_dev, s, ftab)
         p_out, p_flags = p_out.cpu().numpy(), p_flags.cpu().numpy()
-        if not (np.array_equal(k_flags, p_flags) and k_out[1] == p_out[1]):
+        if not np.array_equal(k_flags, p_flags):
             raise AssertionError(f"B2 flags differ at {th}: {k_out[1]} vs {p_out[1]} rows")
-        err, rel = assert_agree(f"B2 at {th}", p_out[:1], k_out[:1])
-        nll_abs, nll_rel = max(nll_abs, err), max(nll_rel, rel)
+        if not np.array_equal(k_out.view(np.int64), p_out.view(np.int64)):
+            raise AssertionError(f"B2 differs bitwise from plain at {th}: {k_out!r} vs {p_out!r}")
+        nll_abs = max(nll_abs, float(abs(k_out[0] - p_out[0])))
         flagged[th] = int(k_out[1])
-    log(f"# B2 == plain at U={u_fit} over {len(FIT_THETAS)} thetas: max abs err {nll_abs!r}, "
-        f"max rel err {nll_rel!r} (bound {RTOL}); rows flagged by the range screen: "
+    log(f"# B2 == plain at U={u_fit} over {len(FIT_THETAS)} thetas: bitwise (max abs err {nll_abs!r}), "
+        f"flags equal row for row; rows flagged by the range screen: "
         + ", ".join(f"{th}: {n}" for th, n in flagged.items()))
     s = likelihoods.lynch_scalars(0.05, 0.01, nt)
     first = lynch_objective.lynch_compound_nll(p_dev, m_dev, s, ftab, work=work)[0].cpu().numpy().copy()
@@ -378,15 +544,23 @@ def main() -> int:
         again = lynch_objective.lynch_compound_nll(p_dev, m_dev, s, ftab, work=work)[0].cpu().numpy()
         if not np.array_equal(first, again):
             raise AssertionError(f"B2 call {call} differs bitwise: {again!r} vs {first!r}")
-    for grid in (1, 7, 1000):
+    for grid in (1, 7, 1000, work.grids[1]):
         again = lynch_objective.lynch_compound_nll(p_dev, m_dev, s, ftab, work=work, grid=grid)[0].cpu().numpy()
         if not np.array_equal(first, again):
             raise AssertionError(f"B2 with {grid} blocks differs bitwise: {again!r} vs {first!r}")
-    log(f"# B2 bitwise repeatable: 10 calls and grids of 1, 7, 1000 blocks all give {first[0]!r}")
+    before = lynch_objective.kernel_launches()
+    one = work.nll(s)
+    after = lynch_objective.kernel_launches()
+    per_eval = {k: after[k] - before[k] for k in after}
+    if per_eval != {"records": 0, "nll": 1, "marginals": 0} or list(one) != first.tolist():
+        raise AssertionError(f"one evaluation: launches {per_eval}, result {one!r} vs {first!r}")
+    log(f"# B2 bitwise repeatable: 10 calls and grids of 1, 7, 1000 and {work.grids[1]} (the resident "
+        f"blocks) blocks all give {first[0]!r}; one evaluation is {per_eval['nll']} kernel launch "
+        f"(the kernel library's counters: {per_eval})")
     marg_abs = marg_rel = 0.0
     for eps in FIT_EPSILONS:
         s = likelihoods.lynch_scalars(0.0, eps, nt)
-        kk = [t.cpu().numpy() for t in lynch_objective.lynch_marginals(p_dev, s, ftab)]
+        kk = [t.cpu().numpy() for t in lynch_objective.lynch_marginals(p_dev, s, ftab, work=work)]
         pp = [t.cpu().numpy() for t in lynch_objective.lynch_marginals_ref(p_dev, s, ftab)]
         if not np.array_equal(kk[2], pp[2]):
             raise AssertionError(f"B4 flags differ at eps {eps}")
@@ -395,28 +569,63 @@ def main() -> int:
             marg_abs, marg_rel = max(marg_abs, err), max(marg_rel, rel)
         log(f"# B4 == plain at U={u_fit}, eps {eps}: ok; rows flagged {int(kk[2].sum())}")
     log(f"# B4 vs plain: max abs err {marg_abs!r}, max rel err {marg_rel!r} (bound {RTOL})")
+
+    # times: the call (CUDA events around one wrapper call, its host work
+    # included), the device alone (launches enqueued while the stream is
+    # held), the plain version; in turns plain, kernel, kernel, plain
     nll_sets = [(p_dev, m_dev, likelihoods.lynch_scalars(th[0], th[1], nt), ftab)
                 for th in FIT_THETAS[:4]]
+    marg_sets = [(p_dev, likelihoods.lynch_scalars(0.0, e, nt), ftab) for e in FIT_EPSILONS]
+    rec_sets = [(p_dev, m_dev, ftab)]
 
     def b2(*a):
         return lynch_objective.lynch_compound_nll(*a, work=work)
 
-    nll_plain = event_times_ms(torch, lynch_objective.lynch_compound_nll_ref, nll_sets)
-    nll_kernel = event_times_ms(torch, b2, nll_sets)
-    nll_kernel += event_times_ms(torch, b2, nll_sets)
-    nll_plain += event_times_ms(torch, lynch_objective.lynch_compound_nll_ref, nll_sets)
-    marg_sets = [(p_dev, likelihoods.lynch_scalars(0.0, e, nt), ftab) for e in FIT_EPSILONS]
-    marg_plain = event_times_ms(torch, lynch_objective.lynch_marginals_ref, marg_sets)
-    marg_kernel = event_times_ms(torch, lynch_objective.lynch_marginals, marg_sets)
-    marg_kernel += event_times_ms(torch, lynch_objective.lynch_marginals, marg_sets)
-    marg_plain += event_times_ms(torch, lynch_objective.lynch_marginals_ref, marg_sets)
-    nll_ms, nll_plain_ms = statistics.median(nll_kernel), statistics.median(nll_plain)
-    marg_ms, marg_plain_ms = statistics.median(marg_kernel), statistics.median(marg_plain)
-    log(f"# time at U={u_fit}, median of {len(nll_kernel)} calls: B2 kernel {nll_ms:.4f} ms "
-        f"(min {min(nll_kernel):.4f}, max {max(nll_kernel):.4f}), plain torch {nll_plain_ms:.4f} ms; "
-        f"B4 kernel {marg_ms:.4f} ms (min {min(marg_kernel):.4f}, max {max(marg_kernel):.4f}), "
-        f"plain torch {marg_plain_ms:.4f} ms; on {card}")
-    del p_dev, m_dev, work, nll_sets, marg_sets
+    def b4(*a):
+        return lynch_objective.lynch_marginals(*a, work=work)
+
+    def records(*a):
+        return lynch_objective.LynchWorkspace(*a).records
+
+    n_chunks = -(-u_fit // likelihoods.CHUNK_ROWS)
+    t_bytes = ftab.shape[0] * 8
+    fit_kernels = {
+        # name: (wrapper, plain, input sets, device-only launch, kernel in the SASS, bytes)
+        "lynch_records": (records, lynch_objective.lynch_records_ref, rec_sets, lambda *a: work.write_records(),
+                          "lynch_records_kernel", u_fit * (16 + 8 + 24) + t_bytes),
+        "lynch_compound_nll": (b2, lynch_objective.lynch_compound_nll_ref, nll_sets,
+                               lambda p, m, sc, t: work.launch_nll(sc), "lynch_nll_kernel",
+                               u_fit * (24 + 1) + n_chunks * 12 + 16),
+        "lynch_marginals": (b4, lynch_objective.lynch_marginals_ref, marg_sets, b4, "lynch_marginals_kernel",
+                            u_fit * (24 + 17)),
+    }
+    fit_times = {}
+    for name, (fn, plain_fn, sets, launch, sass_name, n_bytes) in fit_kernels.items():
+        plain_t = event_times_ms(torch, plain_fn, sets)
+        call_t = event_times_ms(torch, fn, sets) + event_times_ms(torch, fn, sets)
+        plain_t += event_times_ms(torch, plain_fn, sets)
+        dev_ms = device_only_ms(torch, launch, sets)
+        per_row, _, all_per_row = f64_count(sass, sass_name)
+        b_ms, b_by = bound_ms(n_bytes, per_row * u_fit)
+        # not the bound (that counts the FP64 pipe alone): every instruction
+        # of the row issued once for each warp of 32 rows
+        issue_ms = all_per_row * u_fit / 32 / WARP_ISSUE_PER_S * 1e3
+        fit_times[name] = {"ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t),
+                           "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"# {name} at U={u_fit}: call {fit_times[name]['ms']:.4f} ms (median of {len(call_t)}, min "
+            f"{min(call_t):.4f}), device only {dev_ms:.4f} ms, plain torch {fit_times[name]['plain_ms']:.4f} ms; "
+            f"bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {per_row} f64 instructions a row, static), "
+            f"{b_ms / dev_ms:.1%} of the bound; instruction issue alone {issue_ms:.4f} ms ({all_per_row} "
+            f"instructions a row, static); on {card}")
+    walls = []
+    s = nll_sets[1][2]
+    for _ in range(41):
+        t0 = time.perf_counter()
+        work.nll(s)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"# one B2 evaluation (LynchWorkspace.nll: launch, copy into pinned memory, stream sync), "
+        f"host clock: {statistics.median(walls):.4f} ms (median of 41, min {min(walls):.4f}); on {card}")
+    del p_dev, m_dev, work, rec_plain, nll_sets, marg_sets, rec_sets
 
     # ---- 6. the fit's main path ----
     fit_cases = (
@@ -432,6 +641,7 @@ def main() -> int:
                                    with_qualities=True)
             for name, row in (("(9000, 9000, 0, 0)", [9000, 9000, 0, 0]), ("(15000, 0, 5000, 0)", [15000, 0, 5000, 0]))}
     local_classify.LAUNCHES = 0
+    lynch_objective.RECORD_LAUNCHES = 0
     lynch_objective.NLL_LAUNCHES = 0
     lynch_objective.MARGINALS_LAUNCHES = 0
     t0 = time.perf_counter()
@@ -464,12 +674,13 @@ def main() -> int:
                                      f"{first_difference(got, want)}; {dev_lines} vs {ex_lines}")
         log(f"# C2 repro, 300 simulated sites + {name}: --fit device byte-equal to --fit exact "
             f"(bayes, LR, LR -R, local -R; {ex_lines[-1]})")
-    fit_launches = {"nll": lynch_objective.NLL_LAUNCHES, "marginals": lynch_objective.MARGINALS_LAUNCHES,
-                    "local": local_classify.LAUNCHES}
+    fit_launches = {"records": lynch_objective.RECORD_LAUNCHES, "nll": lynch_objective.NLL_LAUNCHES,
+                    "marginals": lynch_objective.MARGINALS_LAUNCHES, "local": local_classify.LAUNCHES}
     if not all(fit_launches.values()):
         raise AssertionError(f"a kernel of the fit path was not launched: {fit_launches}")
-    log(f"# kernel launches on the fit path ({time.perf_counter() - t0:.1f} s): B2 {fit_launches['nll']}, "
-        f"B4 {fit_launches['marginals']}, local classify {fit_launches['local']}")
+    log(f"# kernel launches on the fit path ({time.perf_counter() - t0:.1f} s): row record "
+        f"{fit_launches['records']}, B2 {fit_launches['nll']}, B4 {fit_launches['marginals']}, local classify "
+        f"{fit_launches['local']}")
 
     # ---- 7. the fit at U ~ 1M at the model layer ----
     opts_auto, opts_exact = Options(), Options(fit_backend="exact")
@@ -520,19 +731,26 @@ def main() -> int:
         obj = lynch.DeviceObjective(h_prof, h_mult, h_nt, dev)
         theta = (pi_d, eps_d)
         s = likelihoods.lynch_scalars(pi_d, eps_d, h_nt)
-        flags = lynch_objective.lynch_compound_nll(obj.prof_dev, obj.mult_dev, s, obj.tab, work=obj.work)[1]
-        rows = np.nonzero(flags.cpu().numpy())[0]
+        obj.work.nll(s)
+        rows = np.nonzero(obj.work.flags.cpu().numpy())[0]
         ld = bridge.NativeLynchLD(native.load(), h_prof, h_mult, h_nt, rows)
         ld_all = bridge.NativeLynchLD(native.load(), h_prof, h_mult, h_nt)
         log(f"# one evaluation, {hist}: DeviceObjective {median_ms(lambda: obj(theta), 9):.3f} ms = host scalars "
             f"{median_ms(lambda: likelihoods.lynch_scalars(pi_d, eps_d, h_nt), 9):.3f} ms + B2 launch and fetch "
-            f"{median_ms(lambda: lynch_objective.lynch_compound_nll(obj.prof_dev, obj.mult_dev, s, obj.tab, work=obj.work)[0].tolist(), 9):.3f} ms"
+            f"{median_ms(lambda: obj.work.nll(s), 9):.3f} ms"
             f" + long double over the {rows.size} flagged rows {median_ms(lambda: ld.objective(theta), 3):.3f} ms; "
             f"the exact fit's evaluation {median_ms(lambda: ld_all.objective(theta), 3):.3f} ms; on {card}")
         del obj, fits, lh_d, lt_d, lh_e, lt_e
+    # the device fit's wall taken apart, on the rows <= 1000x
+    h_prof, h_mult = np.ascontiguousarray(fit_prof[shallow]), fit_mult[shallow]
+    for _ in range(3):
+        sp = fit_wall_split(torch, h_prof, h_mult, nucleotide_distribution(h_prof, h_mult), dev)
+        log(f"# device fit at U={h_prof.shape[0]}, wall {sp['wall_ms']:.3f} ms = set-up {sp['setup_ms']:.3f} ms "
+            f"(uploads, table, row record) + {sp['evaluations']} evaluations {sp['evaluations_ms']:.3f} ms "
+            f"+ host simplex {sp['simplex_ms']:.3f} ms + B4 with its copies {sp['marginals_ms']:.3f} ms; on {card}")
 
     # ---- 8. results ----
-    print(json.dumps({"kernels": [{
+    kernel_rows = [{
         "name": "local_log_likelihoods",
         "route": "cuda",
         "source": "sid_tpu_torch/csrc/local_classify.cu",
@@ -541,25 +759,20 @@ def main() -> int:
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }, {
-        "name": "lynch_compound_nll",
-        "route": "cuda",
-        "source": "sid_tpu_torch/csrc/lynch.cu",
-        "replaces": "sid_tpu/ops/likelihoods.py:138",
-        "launches": fit_launches["nll"],
-        "max_abs_err": nll_abs,
-        "ms": nll_ms,
-        "plain_ms": nll_plain_ms,
-    }, {
-        "name": "lynch_marginals",
-        "route": "cuda",
-        "source": "sid_tpu_torch/csrc/lynch.cu",
-        "replaces": "sid_tpu/ops/likelihoods.py:40",
-        "launches": fit_launches["marginals"],
-        "max_abs_err": marg_abs,
-        "ms": marg_ms,
-        "plain_ms": marg_plain_ms,
-    }]}), flush=True)
+        "device_ms": local_dev_ms,
+        "bound_ms": local_bound[0],
+        "bound_by": local_bound[1],
+        "library_ms": None,
+    }]
+    for name, replaces, launches_key, err in (
+        ("lynch_records", "sid_tpu/ops/likelihoods.py:33", "records", 0.0),
+        ("lynch_compound_nll", "sid_tpu/ops/likelihoods.py:138", "nll", nll_abs),
+        ("lynch_marginals", "sid_tpu/ops/likelihoods.py:40", "marginals", marg_abs),
+    ):
+        kernel_rows.append({"name": name, "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
+                     "replaces": replaces, "launches": fit_launches[launches_key], "max_abs_err": err,
+                     **fit_times[name], "library_ms": None})
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -1,136 +1,199 @@
-// The Lynch fit on Hopper: the compound objective (B2) and the per-profile
-// marginals at the fitted error rate (B4).
+// The Lynch fit on Hopper: the per-fit row record, the compound objective
+// (B2) and the per-profile marginals at the fitted error rate (B4).
 //
 // Replaces the XLA programs of sid_tpu that have no Pallas form:
 //   B2  sid_tpu/ops/likelihoods.py:138 compound_neg_log_likelihood, evaluated
 //       once per simplex step inside models/lynch.py:73-76 (fit_lynch);
 //   B4  sid_tpu/ops/likelihoods.py:40,69 log_het_marginal / log_hom_marginal
-//       at the fitted epsilon, models/lynch.py:81-83.
-// The per-profile math is lynch.cuh, shared with a g++ host build for the CPU
-// tests. The theta-dependent scalars (every log of pi, epsilon and the base
-// composition) come in from the host, so the kernel's own transcendentals are
-// the 11 exp and 3 log/log1p of the two log-sum-exps and the logaddexp.
+//       at the fitted epsilon, models/lynch.py:81-83;
+// and the record kernel computes once per fit what both recomputed per
+// call: log_multinomial (sid_tpu/ops/likelihoods.py:33) and the
+// theta-free part of the range screen. The per-profile math is lynch.cuh,
+// shared with a g++ host build for the CPU tests. The theta-dependent
+// scalars (every log of pi, epsilon and the base composition) come in from
+// the host, so a row's own transcendentals are the 11 exp and 3 log/log1p
+// of the two log-sum-exps and the logaddexp (B4: 10 exp, 2 log).
 //
-// What bounds it: per profile 16 B of counts and 8 B of multiplicity in,
-// one flag byte out, five lgamma-table reads, against ~14 f64
-// transcendentals; at U = 1M that is 25 MB per evaluation, and the f64
-// transcendental rate, not bandwidth, is the likelier limit. So the design
-// is one thread per profile (a chunk of 4 rows per thread for the
-// objective), 16-byte loads, the table through the read-only path.
+// What bounds them: f64 instructions. B2 reads a 24-byte record and writes
+// a flag byte a row (25 MB at U = 1M, and the records stay in the 50 MB L2
+// across evaluations) against ~480 f64 instructions a row (cuobjdump; the
+// exp/log polynomials are most of it): ~28 us of FP64 pipe against ~7.5 us
+// of bytes. Measured, B2 runs at ~55-60 % of that, held by instruction
+// issue: the row is ~1,700 SASS instructions (selects, moves, integer and
+// predicate work beside the f64 ones), one warp-instruction a cycle per SM
+// sub-partition, ~50 us at U = 1M (PERF.md). The design keeps the pipes fed:
+//   - no lgamma gathers in the row: the record holds m;
+//   - a register budget per kernel that ptxas meets with 0 spill bytes, and
+//     a grid of exactly the resident blocks (the occupancy API, once per
+//     workspace), each walking chunks grid-stride;
+//   - one launch per evaluation: the last block to finish folds the chunk
+//     sums, so there is no second kernel and no serial tail on one SM.
 //
 // The objective's sum has a fixed order (lynch.cuh): each chunk of kChunk
-// rows reduces in a fixed per-thread order and a fixed shared-memory tree
-// into its own partial slot, and a second one-block pass folds the partials
-// in a fixed order. Blocks walk chunks grid-stride, so the sum does not
-// depend on the grid size or the number of SMs, and there are no atomics:
-// the fit's (pi, epsilon) are bitwise repeatable, as a later multi-GPU
-// split of the same chunks needs. Rows the long-double range screen flags
-// add 0.0 and are counted; the host adds their long-double terms.
+// rows reduces in a fixed per-thread order and a fixed tree into its own
+// partial slot; every block then stores its partials, makes them visible
+// (__threadfence) and takes a ticket with atomicAdd; the block that takes
+// the last ticket folds all partials in the fixed order and resets the
+// ticket. The atomic elects a block and decides no order, so the sum does
+// not depend on the grid size, the number of SMs or the order blocks
+// finish: the fit's (pi, epsilon) are bitwise repeatable. Rows the
+// long-double range screen flags add 0.0 and are counted; the host adds
+// their long-double terms.
 //
 // Launch: on the caller's stream, no allocation (the wrapper passes every
-// buffer), returns cudaGetLastError() so a refused launch is seen.
+// buffer), returns cudaGetLastError() so a refused launch is seen; the
+// objective can also copy its (2,) result into a pinned host buffer and
+// wait for it, so one evaluation is one call from the host.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <atomic>
 
 #include "lynch.cuh"
 
 namespace {
 
 constexpr int kThreads = sid::kReduceThreads;
-constexpr int kBlocksPerSm = 8;
+// register budgets: at most 65536 / (kMinBlocks * kThreads) registers a
+// thread, chosen so that ptxas reports 0 spill bytes (the -Xptxas -v lines
+// chip_smoke.py prints and checks)
+constexpr int kNllMinBlocks = 3;
+constexpr int kMarginalsMinBlocks = 3;
 
 static_assert(sizeof(sid::LynchScalars) == 16 * sizeof(double),
               "LynchScalars must be 16 doubles");
 
-__device__ void tree_fold(double* sh_sum, int* sh_cnt) {
+// kernel launches since the library was loaded: records, objective, marginals
+enum { kRecordsKernel = 0, kNllKernel = 1, kMarginalsKernel = 2 };
+std::atomic<long long> g_launches[3];
+
+// The block's tree fold of (v, c) over its kThreads threads; thread 0 ends
+// with the block's result. The levels s >= 32 go through shared memory; the
+// last five (s = 16 .. 1) are warp shuffles in which lane t adds lane
+// t + s: the same addition v[t] + v[t + s] as the shared-memory tree.
+__device__ void block_fold(double& v, int& c, double* sh_sum, int* sh_cnt) {
   const int t = threadIdx.x;
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
+  sh_sum[t] = v;
+  sh_cnt[t] = c;
+  __syncthreads();
+  for (int s = kThreads / 2; s >= 32; s >>= 1) {
     if (t < s) {
       sh_sum[t] = sh_sum[t] + sh_sum[t + s];
       sh_cnt[t] = sh_cnt[t] + sh_cnt[t + s];
     }
     __syncthreads();
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    lynch_nll_chunks(const int32_t* __restrict__ prof,
-                     const int64_t* __restrict__ mult, sid::LynchScalars s,
-                     const double* __restrict__ tab, int tab_len, int64_t n,
-                     int64_t n_chunks, uint8_t* __restrict__ flags,
-                     double* __restrict__ part_sum, int* __restrict__ part_cnt) {
-  __shared__ double sh_sum[kThreads];
-  __shared__ int sh_cnt[kThreads];
-  const int t = threadIdx.x;
-  for (int64_t chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
-    int cnt = 0;
-    sh_sum[t] = sid::lynch_thread_sum(chunk, t, prof, mult, s, tab, tab_len, n,
-                                      flags, &cnt);
-    sh_cnt[t] = cnt;
-    __syncthreads();
-    tree_fold(sh_sum, sh_cnt);
-    if (t == 0) {
-      part_sum[chunk] = sh_sum[0];
-      part_cnt[chunk] = sh_cnt[0];
+  if (t < 32) {
+    v = sh_sum[t];
+    c = sh_cnt[t];
+    for (int s = 16; s > 0; s >>= 1) {
+      v = v + __shfl_down_sync(0xffffffffu, v, s);
+      c = c + __shfl_down_sync(0xffffffffu, c, s);
     }
-    __syncthreads();  // the next chunk reuses the shared arrays
   }
-}
-
-// one block: out[0] = the sum of the partials, out[1] = the flagged count
-__global__ void __launch_bounds__(kThreads)
-    lynch_nll_total(const double* __restrict__ part_sum,
-                    const int* __restrict__ part_cnt, int64_t n_chunks,
-                    double* __restrict__ out) {
-  __shared__ double sh_sum[kThreads];
-  __shared__ int sh_cnt[kThreads];
-  const int t = threadIdx.x;
-  double acc = 0.0;
-  int cnt = 0;
-  for (int64_t base = 0; base < n_chunks; base += kThreads) {
-    const int64_t i = base + t;
-    acc = acc + (i < n_chunks ? part_sum[i] : 0.0);
-    cnt = cnt + (i < n_chunks ? part_cnt[i] : 0);
-  }
-  sh_sum[t] = acc;
-  sh_cnt[t] = cnt;
-  __syncthreads();
-  tree_fold(sh_sum, sh_cnt);
-  if (t == 0) {
-    out[0] = sh_sum[0];
-    out[1] = static_cast<double>(sh_cnt[0]);
-  }
+  __syncthreads();  // the shared arrays are free again
 }
 
 __global__ void __launch_bounds__(kThreads)
-    lynch_marginals_kernel(const int32_t* __restrict__ prof,
-                           sid::LynchScalars s, const double* __restrict__ tab,
-                           int tab_len, int64_t n, double* __restrict__ lhom,
-                           double* __restrict__ lhet,
-                           uint8_t* __restrict__ flags) {
+    lynch_records_kernel(const int32_t* __restrict__ prof,
+                         const int64_t* __restrict__ mult,
+                         const double* __restrict__ tab, int tab_len,
+                         int64_t n, double* __restrict__ rec) {
   const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     int c[4];
     sid::load_profile(prof, i, c);
-    const sid::LynchRow r = sid::lynch_row(c[0], c[1], c[2], c[3], s, tab, tab_len);
-    lhom[i] = r.lhom;
-    lhet[i] = r.lhet;
-    flags[i] = r.flag_marginals ? 1 : 0;
+    sid::write_record(rec, n, i, c[0], c[1], c[2], c[3], mult ? __ldg(mult + i) : 0,
+                      tab, tab_len);
   }
 }
 
-cudaError_t default_grid(int64_t needed, int* grid) {
+__global__ void __launch_bounds__(kThreads, kNllMinBlocks)
+    lynch_nll_kernel(const double* __restrict__ rec, sid::LynchScalars s,
+                     int64_t n, int64_t n_chunks, uint8_t* __restrict__ flags,
+                     double* part_sum, int* part_cnt, unsigned int* ticket,
+                     double* __restrict__ out) {
+  __shared__ double sh_sum[kThreads];
+  __shared__ int sh_cnt[kThreads];
+  __shared__ bool sh_last;
+  const int t = threadIdx.x;
+  for (int64_t chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    int cnt = 0;
+    double v = sid::nll_thread_sum(chunk, t, rec, n, s, flags, &cnt);
+    block_fold(v, cnt, sh_sum, sh_cnt);
+    if (t == 0) {
+      part_sum[chunk] = v;
+      part_cnt[chunk] = cnt;
+    }
+  }
+  // thread 0 wrote this block's partials: publish them, then take a ticket
+  if (t == 0) {
+    __threadfence();
+    sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  // the last block: every partial is visible; read them from L2
+  __threadfence();
+  double acc = 0.0;
+  int cnt = 0;
+  for (int64_t base = 0; base < n_chunks; base += kThreads) {
+    const int64_t i = base + t;
+    acc = acc + (i < n_chunks ? __ldcg(part_sum + i) : 0.0);
+    cnt = cnt + (i < n_chunks ? __ldcg(part_cnt + i) : 0);
+  }
+  block_fold(acc, cnt, sh_sum, sh_cnt);
+  if (t == 0) {
+    out[0] = acc;
+    out[1] = static_cast<double>(cnt);
+    *ticket = 0;  // ready for the next evaluation
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMarginalsMinBlocks)
+    lynch_marginals_kernel(const double* __restrict__ rec, sid::LynchScalars s,
+                           int64_t n, double* __restrict__ lhom,
+                           double* __restrict__ lhet,
+                           uint8_t* __restrict__ flags) {
+  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    bool flagged;
+    const sid::Components k = sid::marginals_row(sid::read_record(rec, n, i), s, &flagged);
+    lhom[i] = k.lhom;
+    lhet[i] = k.lhet;
+    flags[i] = flagged ? 1 : 0;
+  }
+}
+
+// min(needed, the blocks of `kernel` resident on the whole card), at least 1
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int64_t needed, int* grid) {
   int device = 0;
   int sms = 0;
+  int per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  *grid = static_cast<int>(needed < cap ? needed : cap);
+  const int64_t cap = static_cast<int64_t>(sms) * per_sm;
+  const int64_t g = needed < cap ? needed : cap;
+  *grid = static_cast<int>(g > 1 ? g : 1);
   return cudaSuccess;
+}
+
+sid::LynchScalars unpack(const double* scalars) {
+  sid::LynchScalars s;
+  memcpy(&s, scalars, sizeof(s));
+  return s;
+}
+
+int launched(int kernel) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches[kernel];
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -140,54 +203,73 @@ extern "C" {
 // rows per objective chunk: part_sum / part_cnt hold ceil(n / chunk) entries
 int sid_lynch_chunk_rows() { return sid::kChunk; }
 
-// B2. prof: (n, 4) int32, 16-byte aligned; mult: (n,) int64; scalars: 16
-// host doubles (LynchScalars); tab: (tab_len,) f64; flags: (n,) uint8;
-// part_sum: (n_chunks,) f64; part_cnt: (n_chunks,) int32; out: (2,) f64.
-// grid <= 0 picks min(n_chunks, 8 blocks per SM). Returns a cudaError_t.
-int sid_lynch_nll_launch(const void* prof, const void* mult,
-                         const double* scalars, const void* tab, int tab_len,
-                         int64_t n, void* flags, void* part_sum, void* part_cnt,
-                         void* out, int grid, void* stream) {
-  sid::LynchScalars s;
-  memcpy(&s, scalars, sizeof(s));
-  const int64_t n_chunks = (n + sid::kChunk - 1) / sid::kChunk;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_chunks > 0) {
-    if (grid <= 0) {
-      const cudaError_t err = default_grid(n_chunks, &grid);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    lynch_nll_chunks<<<grid, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(prof), static_cast<const int64_t*>(mult), s,
-        static_cast<const double*>(tab), tab_len, n, n_chunks,
-        static_cast<uint8_t*>(flags), static_cast<double*>(part_sum),
-        static_cast<int*>(part_cnt));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  lynch_nll_total<<<1, kThreads, 0, st>>>(
-      static_cast<const double*>(part_sum), static_cast<const int*>(part_cnt),
-      n_chunks, static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
+// f64 planes of the row record (lynch.cuh): the record is (planes, n) f64
+int sid_lynch_record_planes() { return sid::kRecordPlanes; }
+
+// kernel launches since load: 0 records, 1 objective, 2 marginals
+long long sid_lynch_launches(int kernel) {
+  return kernel >= 0 && kernel < 3 ? g_launches[kernel].load() : -1;
 }
 
-// B4. prof: (n, 4) int32, 16-byte aligned; scalars as above (the pi entries
-// unused); lhom, lhet: (n,) f64; flags: (n,) uint8. Returns a cudaError_t.
-int sid_lynch_marginals_launch(const void* prof, const double* scalars,
-                               const void* tab, int tab_len, int64_t n,
-                               void* lhom, void* lhet, void* flags,
+// The grids of a workspace of n rows on the current device, from the
+// occupancy of each kernel: grids[0] records, [1] objective (capped at
+// the chunk count), [2] marginals. Called once per workspace.
+int sid_lynch_grids(int64_t n, int* grids) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  cudaError_t err = resident_grid(lynch_records_kernel, blocks, &grids[0]);
+  if (err == cudaSuccess)
+    err = resident_grid(lynch_nll_kernel, (n + sid::kChunk - 1) / sid::kChunk, &grids[1]);
+  if (err == cudaSuccess) err = resident_grid(lynch_marginals_kernel, blocks, &grids[2]);
+  return static_cast<int>(err);
+}
+
+// The records of n rows. prof: (n, 4) int32 counts in 0..65535, 16-byte
+// aligned; mult: (n,) int64 >= 0, or null (multiplicity 0, for the
+// marginals alone); tab: (tab_len,) f64; rec: (3, n) f64.
+int sid_lynch_records_launch(const void* prof, const void* mult, const void* tab,
+                             int tab_len, int64_t n, void* rec, int grid,
+                             void* stream) {
+  if (n <= 0) return 0;
+  lynch_records_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(prof), static_cast<const int64_t*>(mult),
+      static_cast<const double*>(tab), tab_len, n, static_cast<double*>(rec));
+  return launched(kRecordsKernel);
+}
+
+// B2, one kernel. rec: (3, n) records; scalars: 16 host doubles
+// (LynchScalars); flags: (n,) uint8; part_sum: (n_chunks,) f64; part_cnt:
+// (n_chunks,) int32; ticket: one uint32, 0 between launches; out: (2,) f64
+// on the card. With host_out (pinned, 2 doubles) not null, out is copied
+// there and the stream is waited for. Returns a cudaError_t.
+int sid_lynch_nll_launch(const void* rec, const double* scalars, int64_t n,
+                         void* flags, void* part_sum, void* part_cnt,
+                         void* ticket, void* out, int grid, double* host_out,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lynch_nll_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const double*>(rec), unpack(scalars), n,
+      (n + sid::kChunk - 1) / sid::kChunk, static_cast<uint8_t*>(flags),
+      static_cast<double*>(part_sum), static_cast<int*>(part_cnt),
+      static_cast<unsigned int*>(ticket), static_cast<double*>(out));
+  const int err = launched(kNllKernel);
+  if (err != 0 || host_out == nullptr) return err;
+  cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double),
+                                  cudaMemcpyDeviceToHost, st);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
+  return static_cast<int>(e);
+}
+
+// B4. rec: (3, n) records; scalars as above (the pi entries unused);
+// lhom, lhet: (n,) f64; flags: (n,) uint8. Returns a cudaError_t.
+int sid_lynch_marginals_launch(const void* rec, const double* scalars, int64_t n,
+                               void* lhom, void* lhet, void* flags, int grid,
                                void* stream) {
   if (n <= 0) return 0;
-  sid::LynchScalars s;
-  memcpy(&s, scalars, sizeof(s));
-  int grid = 0;
-  const cudaError_t err = default_grid((n + kThreads - 1) / kThreads, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
   lynch_marginals_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(prof), s, static_cast<const double*>(tab),
-      tab_len, n, static_cast<double*>(lhom), static_cast<double*>(lhet),
+      static_cast<const double*>(rec), unpack(scalars), n,
+      static_cast<double*>(lhom), static_cast<double*>(lhet),
       static_cast<uint8_t*>(flags));
-  return static_cast<int>(cudaGetLastError());
+  return launched(kMarginalsKernel);
 }
 
 const char* sid_lynch_error_string(int err) {

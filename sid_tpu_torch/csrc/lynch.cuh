@@ -33,6 +33,15 @@
 // zero (-inf in log space) is an exact zero in long double too and is never
 // flagged; neither is a NaN that the log-space version has (sum nt^2 == 1).
 // The marginals' screen is the component part alone, on both components.
+//
+// The per-fit row record. A fit evaluates the same rows ~100 times, so what
+// does not depend on theta is computed once, by a set-up kernel: m (five
+// table reads and four adds), the counts packed as four uint16, the
+// multiplicity as f64 and the theta-free part of the screen (m > kSafeMax).
+// The objective (mixture_row) and the marginals (marginals_row) then read
+// 24 bytes a row and no table. lynch_row, the whole row from the counts and
+// the table, is built from the same pieces.
+//
 // Every operation is a separate IEEE f64 operation in the order written:
 // build with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
 #pragma once
@@ -41,6 +50,12 @@
 #include <stdint.h>
 
 #include "local_classify.cuh"
+
+#ifdef __CUDA_ARCH__
+#define SID_NO_UNROLL _Pragma("unroll 1")
+#else
+#define SID_NO_UNROLL
+#endif
 
 namespace sid {
 
@@ -52,14 +67,12 @@ constexpr double kMargin = 64.0;
 constexpr double kSafeMax = kLdLogMax - kMargin;
 constexpr double kSafeMin = kLdLogMinNormal + kMargin;
 constexpr double kNegligible = 64.0;
-
-// the unordered base pairs i < j in the reference's order (lynch.hpp:59-60):
-// (0,1) (0,2) (0,3) (1,2) (1,3) (2,3)
-SID_HD int pair_i(int p) { return p < 3 ? 0 : (p < 5 ? 1 : 2); }
-SID_HD int pair_j(int p) { return p < 3 ? p + 1 : (p < 5 ? p - 1 : 3); }
+// log 4 and log 6: the number of terms in each component's sum
+constexpr double kLog4 = 1.3862943611198906;
+constexpr double kLog6 = 1.791759469228055;
 
 // Theta-dependent scalars, computed on the host in f64 (glibc) once per
-// evaluation; layout = 16 doubles (ops/lynch_objective.py SCALAR_FIELDS).
+// evaluation; layout = 16 doubles (ops/likelihoods.py lynch_scalars).
 struct LynchScalars {
   double log_match_hom;     // log1p(-e)
   double log_err;           // log(e / 3)
@@ -77,6 +90,15 @@ struct LynchRow {
   double log_mix;
   bool flag_marginals;  // the long-double marginals may differ
   bool flag_mixture;    // the long-double objective term may differ
+};
+
+// the two components of a row: their logs and largest terms (before the
+// isfinite guard)
+struct Components {
+  double lhom;
+  double lhet;
+  double amax_hom;
+  double amax_het;
 };
 
 // max that returns NaN when either input is NaN (XLA's max)
@@ -102,7 +124,7 @@ SID_HD double logsumexp(const double (&t)[N], double* amax_out) {
   return log(fabs(s)) + shift;
 }
 
-// the component's value is in range in long double: an exact zero, or a
+// the component is in range in long double: an exact zero, or a
 // dominant term and a value inside the safe band
 SID_HD bool component_ok(double amax, double value) {
   if (amax == -INFINITY) return true;
@@ -121,56 +143,147 @@ SID_HD bool component_negligible(double log_weight, double m, double amax,
   return bound < log_mix - kNegligible;
 }
 
+SID_HD double log_multinomial(int c0, int c1, int c2, int c3,
+                              const double* tab, int tab_len) {
+  const int icov = c0 + c1 + c2 + c3;
+  return lgamma_at(tab, tab_len, icov + 1) -
+         (((lgamma_at(tab, tab_len, c0 + 1) + lgamma_at(tab, tab_len, c1 + 1)) +
+           lgamma_at(tab, tab_len, c2 + 1)) +
+          lgamma_at(tab, tab_len, c3 + 1));
+}
+
+SID_HD double hom_term(int c, int icov, double log_nt, const LynchScalars& s) {
+  return (log_nt + xlogy(c, s.log_match_hom)) + xlogy(icov - c, s.log_err);
+}
+
+SID_HD double het_term(int n, int icov, double log_w, const LynchScalars& s) {
+  return (log_w + xlogy(n, s.log_match_het)) + xlogy(icov - n, s.log_err);
+}
+
+SID_HD Components lynch_components(int c0, int c1, int c2, int c3, double m,
+                                   const LynchScalars& s) {
+  const int icov = c0 + c1 + c2 + c3;
+  const double th[4] = {
+      hom_term(c0, icov, s.log_nt[0], s), hom_term(c1, icov, s.log_nt[1], s),
+      hom_term(c2, icov, s.log_nt[2], s), hom_term(c3, icov, s.log_nt[3], s)};
+  const double tp[6] = {
+      het_term(c0 + c1, icov, s.log_w[0], s), het_term(c0 + c2, icov, s.log_w[1], s),
+      het_term(c0 + c3, icov, s.log_w[2], s), het_term(c1 + c2, icov, s.log_w[3], s),
+      het_term(c1 + c3, icov, s.log_w[4], s), het_term(c2 + c3, icov, s.log_w[5], s)};
+  Components k;
+  k.lhom = m + logsumexp(th, &k.amax_hom);
+  k.lhet = (m + logsumexp(tp, &k.amax_het)) - s.log_denom;
+  return k;
+}
+
+SID_HD double mixture_log(const Components& k, const LynchScalars& s) {
+  return logaddexp(s.log_one_minus_pi + k.lhom, s.log_pi + k.lhet);
+}
+
+SID_HD bool marginals_flag(bool mc_over, const Components& k) {
+  return mc_over || !component_ok(k.amax_hom, k.lhom) ||
+         !component_ok(k.amax_het, k.lhet);
+}
+
+SID_HD bool mixture_flag(bool mc_over, double m, const Components& k,
+                         double log_mix, const LynchScalars& s) {
+  const bool hom_decides =
+      !component_ok(k.amax_hom, k.lhom) &&
+      !component_negligible(s.log_one_minus_pi, m, k.amax_hom, kLog4, 0.0, log_mix);
+  const bool het_decides =
+      !component_ok(k.amax_het, k.lhet) &&
+      !component_negligible(s.log_pi, m, k.amax_het, kLog6, s.log_denom, log_mix);
+  const bool mix_out = isfinite(log_mix) && (log_mix < kSafeMin || log_mix > kSafeMax);
+  return mc_over || mix_out || hom_decides || het_decides;
+}
+
+// the whole row from its counts and the lgamma table
 SID_HD LynchRow lynch_row(int c0, int c1, int c2, int c3,
                           const LynchScalars& s, const double* tab,
                           int tab_len) {
-  const int c[4] = {c0, c1, c2, c3};
-  const int icov = c0 + c1 + c2 + c3;
-  const double m =
-      lgamma_at(tab, tab_len, icov + 1) -
-      (((lgamma_at(tab, tab_len, c0 + 1) + lgamma_at(tab, tab_len, c1 + 1)) +
-        lgamma_at(tab, tab_len, c2 + 1)) +
-       lgamma_at(tab, tab_len, c3 + 1));
-
-  double th[4];
-  for (int i = 0; i < 4; ++i)
-    th[i] = (s.log_nt[i] + xlogy(c[i], s.log_match_hom)) +
-            xlogy(icov - c[i], s.log_err);
-  double tp[6];
-  for (int p = 0; p < 6; ++p) {
-    const int n = c[pair_i(p)] + c[pair_j(p)];
-    tp[p] = (s.log_w[p] + xlogy(n, s.log_match_het)) + xlogy(icov - n, s.log_err);
-  }
-  double amax_hom;
-  double amax_het;
-  const double lhom = m + logsumexp(th, &amax_hom);
-  const double lhet = (m + logsumexp(tp, &amax_het)) - s.log_denom;
-  const double log_mix =
-      logaddexp(s.log_one_minus_pi + lhom, s.log_pi + lhet);
-
+  const double m = log_multinomial(c0, c1, c2, c3, tab, tab_len);
   const bool mc_over = m > kSafeMax;
-  const bool hom_ok = component_ok(amax_hom, lhom);
-  const bool het_ok = component_ok(amax_het, lhet);
+  const Components k = lynch_components(c0, c1, c2, c3, m, s);
   LynchRow r;
-  r.lhom = lhom;
-  r.lhet = lhet;
-  r.log_mix = log_mix;
-  r.flag_marginals = mc_over || !hom_ok || !het_ok;
-  // log 4 and log 6: the number of terms in each component's sum
-  const bool hom_decides =
-      !hom_ok && !component_negligible(s.log_one_minus_pi, m, amax_hom,
-                                       1.3862943611198906, 0.0, log_mix);
-  const bool het_decides =
-      !het_ok && !component_negligible(s.log_pi, m, amax_het,
-                                       1.791759469228055, s.log_denom, log_mix);
-  const bool mix_out = isfinite(log_mix) && (log_mix < kSafeMin || log_mix > kSafeMax);
-  r.flag_mixture = mc_over || mix_out || hom_decides || het_decides;
+  r.lhom = k.lhom;
+  r.lhet = k.lhet;
+  r.log_mix = mixture_log(k, s);
+  r.flag_marginals = marginals_flag(mc_over, k);
+  r.flag_mixture = mixture_flag(mc_over, m, k, r.log_mix, s);
   return r;
 }
 
+// ---- the row record ----
+// Three planes of n entries of 8 bytes (structure of arrays, 24 bytes a
+// row, one coalesced 8-byte load per plane):
+//   plane 0  m, log_multinomial of the row (the same expression, so the
+//            same bits);
+//   plane 1  the multiplicity as f64, its sign bit set where m > kSafeMax
+//            (multiplicities are >= 0, so the bit is free);
+//   plane 2  the bits of a uint64: c0 | c1 << 16 | c2 << 32 | c3 << 48
+//            (counts 0..65535).
+constexpr int kRecordPlanes = 3;
+
+struct RowRecord {
+  int c0, c1, c2, c3;
+  double m;
+  double mult;   // the multiplicity, f64
+  bool mc_over;  // m > kSafeMax: the theta-free part of the screen
+};
+
+SID_HD void write_record(double* rec, int64_t n, int64_t i, int c0, int c1,
+                         int c2, int c3, int64_t mult, const double* tab,
+                         int tab_len) {
+  const double m = log_multinomial(c0, c1, c2, c3, tab, tab_len);
+  const double w = static_cast<double>(mult);
+  rec[i] = m;
+  rec[n + i] = m > kSafeMax ? -w : w;
+  reinterpret_cast<uint64_t*>(rec + 2 * n)[i] =
+      static_cast<uint64_t>(static_cast<uint16_t>(c0)) |
+      static_cast<uint64_t>(static_cast<uint16_t>(c1)) << 16 |
+      static_cast<uint64_t>(static_cast<uint16_t>(c2)) << 32 |
+      static_cast<uint64_t>(static_cast<uint16_t>(c3)) << 48;
+}
+
+SID_HD RowRecord read_record(const double* rec, int64_t n, int64_t i) {
+#ifdef __CUDA_ARCH__
+  const double m = __ldg(rec + i);
+  const double w = __ldg(rec + n + i);
+  const uint64_t q = __ldg(reinterpret_cast<const unsigned long long*>(rec + 2 * n) + i);
+#else
+  const double m = rec[i];
+  const double w = rec[n + i];
+  const uint64_t q = reinterpret_cast<const uint64_t*>(rec + 2 * n)[i];
+#endif
+  RowRecord r;
+  r.c0 = static_cast<int>(q & 0xffff);
+  r.c1 = static_cast<int>((q >> 16) & 0xffff);
+  r.c2 = static_cast<int>((q >> 32) & 0xffff);
+  r.c3 = static_cast<int>(q >> 48);
+  r.m = m;
+  r.mult = fabs(w);
+  r.mc_over = signbit(w);
+  return r;
+}
+
+// the objective's row: log_mix, and flag_mixture in *flagged
+SID_HD double mixture_row(const RowRecord& r, const LynchScalars& s, bool* flagged) {
+  const Components k = lynch_components(r.c0, r.c1, r.c2, r.c3, r.m, s);
+  const double log_mix = mixture_log(k, s);
+  *flagged = mixture_flag(r.mc_over, r.m, k, log_mix, s);
+  return log_mix;
+}
+
+// the marginals' row: (lhom, lhet), and flag_marginals in *flagged
+SID_HD Components marginals_row(const RowRecord& r, const LynchScalars& s, bool* flagged) {
+  const Components k = lynch_components(r.c0, r.c1, r.c2, r.c3, r.m, s);
+  *flagged = marginals_flag(r.mc_over, k);
+  return k;
+}
+
 // the objective's term: 0 where the mixture is -inf, else log_mix * mult
-SID_HD double lynch_term(double log_mix, int64_t mult) {
-  return log_mix == -INFINITY ? 0.0 : log_mix * static_cast<double>(mult);
+SID_HD double lynch_term(double log_mix, double mult) {
+  return log_mix == -INFINITY ? 0.0 : log_mix * mult;
 }
 
 // The objective's fixed-order reduction. Rows fall in chunks of kChunk;
@@ -180,7 +293,8 @@ SID_HD double lynch_term(double log_mix, int64_t mult) {
 // v[t] = v[t] + v[t + s] for s = kReduceThreads/2 .. 1. The chunk sums fold
 // the same way in one block: thread t sums chunks t, t + kReduceThreads, ...
 // (0.0 past the end), then the tree. The result depends on the row count
-// and these constants alone, never on how many blocks run the chunks.
+// and these constants alone, never on how many blocks run the chunks or
+// which of them folds the chunk sums.
 constexpr int kReduceThreads = 256;
 constexpr int kRowsPerThread = 4;
 constexpr int kChunk = kReduceThreads * kRowsPerThread;
@@ -201,24 +315,23 @@ SID_HD void load_profile(const int32_t* prof, int64_t i, int c[4]) {
 
 // one thread's share of a chunk: the sum of its unflagged terms, and how
 // many of its rows were flagged (flags written for every row it covers)
-SID_HD double lynch_thread_sum(int64_t chunk, int t, const int32_t* prof,
-                               const int64_t* mult, const LynchScalars& s,
-                               const double* tab, int tab_len, int64_t n,
-                               uint8_t* flags, int* n_flagged) {
+SID_HD double nll_thread_sum(int64_t chunk, int t, const double* rec, int64_t n,
+                             const LynchScalars& s, uint8_t* flags, int* n_flagged) {
   double acc = 0.0;
   int cnt = 0;
+  SID_NO_UNROLL
   for (int k = 0; k < kRowsPerThread; ++k) {
     const int64_t i = chunk * kChunk + static_cast<int64_t>(k) * kReduceThreads + t;
     double term = 0.0;
     if (i < n) {
-      int c[4];
-      load_profile(prof, i, c);
-      const LynchRow r = lynch_row(c[0], c[1], c[2], c[3], s, tab, tab_len);
-      flags[i] = r.flag_mixture ? 1 : 0;
-      if (r.flag_mixture) {
+      const RowRecord r = read_record(rec, n, i);
+      bool flagged;
+      const double log_mix = mixture_row(r, s, &flagged);
+      flags[i] = flagged ? 1 : 0;
+      if (flagged) {
         ++cnt;
       } else {
-        term = lynch_term(r.log_mix, mult[i]);
+        term = lynch_term(log_mix, r.mult);
       }
     }
     acc = acc + term;

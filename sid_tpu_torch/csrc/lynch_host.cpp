@@ -1,8 +1,11 @@
-// Host build of the Lynch kernels' per-profile arithmetic and fixed-order
-// reduction (lynch.cuh), looped over arrays, so the CPU tests can hold the
-// very expressions the card runs against the torch f64 version before any
-// card sees them. The reduction runs the kernel's chunks in the block order
-// a grid of `grid` blocks would take them; the result must not depend on it.
+// Host build of the Lynch kernels' per-profile arithmetic, row record and
+// fixed-order reduction (lynch.cuh), looped over arrays, so the CPU tests
+// can hold the very expressions the card runs against the torch f64 version
+// before any card sees them. The objective runs the kernel's chunks block by
+// block as a grid of `grid` blocks would take them, then replays the blocks
+// taking their tickets in each order it is given: the block that takes the
+// last ticket folds the chunk sums, as on the card. Neither the grid nor
+// the order may change the result.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblynch_host.so lynch_host.cpp
@@ -36,11 +39,13 @@ extern "C" {
 
 int sid_lynch_chunk_rows_host() { return sid::kChunk; }
 
-// per-row outputs of lynch_row: lhom, lhet, log_mix (f64) and the two flags
+// lynch_row from the counts and the table: lhom, lhet, log_mix (f64) and
+// the two flags, and m (log_multinomial)
 void sid_lynch_rows_host(const int32_t* prof, const double* scalars,
                          const double* tab, int tab_len, int64_t n,
                          double* lhom, double* lhet, double* log_mix,
-                         uint8_t* flag_marginals, uint8_t* flag_mixture) {
+                         uint8_t* flag_marginals, uint8_t* flag_mixture,
+                         double* m) {
   const sid::LynchScalars s = unpack(scalars);
   for (int64_t i = 0; i < n; ++i) {
     const int32_t* p = prof + 4 * i;
@@ -50,14 +55,70 @@ void sid_lynch_rows_host(const int32_t* prof, const double* scalars,
     log_mix[i] = r.log_mix;
     flag_marginals[i] = r.flag_marginals ? 1 : 0;
     flag_mixture[i] = r.flag_mixture ? 1 : 0;
+    m[i] = sid::log_multinomial(p[0], p[1], p[2], p[3], tab, tab_len);
   }
 }
 
-// the objective kernel pair: out[0] = sum of unflagged terms, out[1] = the
-// flagged count; flags (n,) written per row
-void sid_lynch_nll_host(const int32_t* prof, const int64_t* mult,
-                        const double* scalars, const double* tab, int tab_len,
-                        int64_t n, int grid, uint8_t* flags, double* out) {
+// the set-up kernel: rec (3, n) f64 from the counts and multiplicities
+// (mult may be null: multiplicity 0)
+void sid_lynch_records_host(const int32_t* prof, const int64_t* mult,
+                            const double* tab, int tab_len, int64_t n,
+                            double* rec) {
+  for (int64_t i = 0; i < n; ++i) {
+    int c[4];
+    sid::load_profile(prof, i, c);
+    sid::write_record(rec, n, i, c[0], c[1], c[2], c[3], mult ? mult[i] : 0, tab, tab_len);
+  }
+}
+
+// the record as the kernels read it: the counts, m, the multiplicity and
+// the theta-free screen of every row
+void sid_lynch_read_records_host(const double* rec, int64_t n, int32_t* counts,
+                                 double* m, double* mult, uint8_t* mc_over) {
+  for (int64_t i = 0; i < n; ++i) {
+    const sid::RowRecord r = sid::read_record(rec, n, i);
+    counts[4 * i] = r.c0;
+    counts[4 * i + 1] = r.c1;
+    counts[4 * i + 2] = r.c2;
+    counts[4 * i + 3] = r.c3;
+    m[i] = r.m;
+    mult[i] = r.mult;
+    mc_over[i] = r.mc_over ? 1 : 0;
+  }
+}
+
+// the objective's and the marginals' row functions over the records:
+// log_mix and flag_mixture (mixture_row); lhom, lhet and flag_marginals
+// (marginals_row)
+void sid_lynch_record_rows_host(const double* rec, int64_t n,
+                                const double* scalars, double* log_mix,
+                                uint8_t* flag_mixture, double* lhom,
+                                double* lhet, uint8_t* flag_marginals) {
+  const sid::LynchScalars s = unpack(scalars);
+  for (int64_t i = 0; i < n; ++i) {
+    const sid::RowRecord r = sid::read_record(rec, n, i);
+    bool f;
+    log_mix[i] = sid::mixture_row(r, s, &f);
+    flag_mixture[i] = f ? 1 : 0;
+    const sid::Components k = sid::marginals_row(r, s, &f);
+    lhom[i] = k.lhom;
+    lhet[i] = k.lhet;
+    flag_marginals[i] = f ? 1 : 0;
+  }
+}
+
+// The objective kernel over the records, with a grid of `grid` blocks. The
+// blocks run their chunks (grid-stride) and store their partials; then, for
+// each of the n_orders orders (orders: n_orders x grid block indices, the
+// order in which the blocks take their tickets), the block that takes the
+// last ticket folds the partials. Per order o: out[2o] the sum of the
+// unflagged terms, out[2o + 1] the flagged count, elected[o] the block that
+// folded. *ticket is left as the folds leave it (0 when each reset it).
+// flags (n,) written per row.
+void sid_lynch_nll_host(const double* rec, int64_t n, const double* scalars,
+                        int grid, const int32_t* orders, int n_orders,
+                        uint8_t* flags, double* out, int32_t* elected,
+                        uint32_t* ticket) {
   const sid::LynchScalars s = unpack(scalars);
   const int64_t n_chunks = (n + sid::kChunk - 1) / sid::kChunk;
   std::vector<double> part_sum(static_cast<size_t>(n_chunks));
@@ -67,27 +128,35 @@ void sid_lynch_nll_host(const int32_t* prof, const int64_t* mult,
   for (int b = 0; b < grid; ++b) {
     for (int64_t chunk = b; chunk < n_chunks; chunk += grid) {
       for (int t = 0; t < sid::kReduceThreads; ++t)
-        v[t] = sid::lynch_thread_sum(chunk, t, prof, mult, s, tab, tab_len, n,
-                                     flags, &c[t]);
+        v[t] = sid::nll_thread_sum(chunk, t, rec, n, s, flags, &c[t]);
       tree_fold(v, c);
       part_sum[static_cast<size_t>(chunk)] = v[0];
       part_cnt[static_cast<size_t>(chunk)] = c[0];
     }
   }
-  for (int t = 0; t < sid::kReduceThreads; ++t) {
-    double acc = 0.0;
-    int cnt = 0;
-    for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
-      const int64_t i = base + t;
-      acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(i)] : 0.0);
-      cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(i)] : 0);
+  for (int o = 0; o < n_orders; ++o) {
+    elected[o] = -1;
+    for (int k = 0; k < grid; ++k) {
+      const uint32_t taken = (*ticket)++;
+      if (taken != static_cast<uint32_t>(grid - 1)) continue;
+      elected[o] = orders[static_cast<int64_t>(o) * grid + k];
+      for (int t = 0; t < sid::kReduceThreads; ++t) {
+        double acc = 0.0;
+        int cnt = 0;
+        for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
+          const int64_t i = base + t;
+          acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(i)] : 0.0);
+          cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(i)] : 0);
+        }
+        v[t] = acc;
+        c[t] = cnt;
+      }
+      tree_fold(v, c);
+      out[2 * o] = v[0];
+      out[2 * o + 1] = static_cast<double>(c[0]);
+      *ticket = 0;
     }
-    v[t] = acc;
-    c[t] = cnt;
   }
-  tree_fold(v, c);
-  out[0] = v[0];
-  out[1] = static_cast<double>(c[0]);
 }
 
 }  // extern "C"

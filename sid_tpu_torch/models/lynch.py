@@ -65,10 +65,12 @@ class DeviceObjective:
     """The compound objective (lynch.cpp:37-61) of fixed profiles on a torch
     device, as a function of theta = (pi, epsilon) for the host simplex.
 
-    Outside the box [0,1]^2 it is DBL_MAX without a launch. Inside, one
-    launch of B2 sums the terms of the rows the range screen clears; when it
-    flags rows, their terms come from the long-double objective over those
-    rows; the total is clamped to +-DBL_MAX as sid_tpu clamps it.
+    The rows are bound to the device once (``LynchWorkspace``: uploads, the
+    row record, the grids). Outside the box [0,1]^2 it is DBL_MAX without a
+    launch. Inside, one launch of B2 sums the terms of the rows the range
+    screen clears and one fetch brings back the sum and the flagged count;
+    when it flags rows, their terms come from the long-double objective over
+    those rows; the total is clamped to +-DBL_MAX as sid_tpu clamps it.
     """
 
     def __init__(self, profiles: np.ndarray, mult: np.ndarray, nt: np.ndarray, device):
@@ -80,23 +82,16 @@ class DeviceObjective:
         self.prof_dev = torch.from_numpy(self.profiles).to(device)
         self.mult_dev = torch.from_numpy(self.mult).to(device)
         self.tab = lgamma_table(max_cov, device)
-        self.work = lynch_objective.NllWorkspace(u, device)
+        self.work = lynch_objective.LynchWorkspace(self.prof_dev, self.mult_dev, self.tab)
         self.flagged = 0  # most rows the screen flagged in one evaluation
-
-    def _flagged_rows(self, flags: torch.Tensor) -> np.ndarray:
-        return np.nonzero(flags.cpu().numpy())[0]
 
     def __call__(self, theta) -> float:
         pi, eps = float(theta[0]), float(theta[1])
         if not (0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0):
             return likelihoods.DBL_MAX
-        scalars = likelihoods.lynch_scalars(pi, eps, self.nt)
-        out, flags = lynch_objective.lynch_compound_nll(
-            self.prof_dev, self.mult_dev, scalars, self.tab, work=self.work
-        )
-        total, n_flagged = out.tolist()  # the evaluation's one fetch
+        total, n_flagged = self.work.nll(likelihoods.lynch_scalars(pi, eps, self.nt))
         if n_flagged:
-            rows = self._flagged_rows(flags)
+            rows = np.nonzero(self.work.flags.cpu().numpy())[0]
             self.flagged = max(self.flagged, rows.size)
             ld = bridge.NativeLynchLD(native.load(), self.profiles, self.mult, self.nt, rows)
             total = total - ld.objective((pi, eps))
@@ -109,11 +104,8 @@ class DeviceObjective:
     def marginals(self, eps: float) -> Tuple[np.ndarray, np.ndarray]:
         """(log L_hom, log L_het) f64 at epsilon (B4); the rows the screen
         flags get the log of their long-double marginals."""
-        scalars = likelihoods.lynch_scalars(0.0, eps, self.nt)
-        lhom, lhet, flags = lynch_objective.lynch_marginals(self.prof_dev, scalars, self.tab)
-        log_l_hom = lhom.cpu().numpy()
-        log_l_het = lhet.cpu().numpy()
-        rows = self._flagged_rows(flags)
+        log_l_hom, log_l_het, flags = self.work.marginals_host(likelihoods.lynch_scalars(0.0, eps, self.nt))
+        rows = np.nonzero(flags)[0]
         if rows.size:
             ld = bridge.NativeLynchLD(native.load(), self.profiles, self.mult, self.nt, rows)
             l_hom, l_het = ld.marginals(eps)

@@ -1,25 +1,37 @@
-"""The Lynch fit's device kernels: the compound objective (B2) and the
-marginals at the fitted error rate (B4).
+"""The Lynch fit's device kernels: the per-fit row record, the compound
+objective (B2) and the marginals at the fitted error rate (B4).
 
-For CUDA tensors ``lynch_compound_nll`` and ``lynch_marginals`` launch the
-hand-written Hopper kernels of ``csrc/lynch.cu`` (the counterparts of
-sid_tpu's XLA programs ``ops/likelihoods.py::compound_neg_log_likelihood`` and
-``log_{hom,het}_marginal``), built with nvcc at first use; for CPU tensors
-they run the plain torch f64 versions ``*_ref``. Any other device, dtype,
-shape or layout raises; so does a failed build or launch.
+A ``LynchWorkspace`` binds one fit's rows to their device and checks them
+once. On a CUDA device its set-up kernel writes the row record
+(``csrc/lynch.cuh``: m, the packed counts, the multiplicity and the
+theta-free part of the range screen), and B2 and B4 (``csrc/lynch.cu``, the
+counterparts of sid_tpu's XLA programs
+``ops/likelihoods.py::compound_neg_log_likelihood`` and
+``log_{hom,het}_marginal``) read it; the kernels are built with nvcc at
+first use. One evaluation of the objective is one ctypes call: the launch,
+an async copy of the (2,) result into pinned host memory and one stream
+sync. On the CPU the workspace runs the plain torch f64 versions ``*_ref``.
+Any other device, dtype, shape, layout or value range raises; so does a
+failed build or launch.
 
-Both apply the long-double range screen (csrc/lynch.cuh): the objective
-leaves the rows it flags out of its sum and counts them, the marginals flag
-theirs; the caller evaluates the flagged rows in host long double
+``lynch_compound_nll`` and ``lynch_marginals`` are the one-call forms the
+tests and chip_smoke.py hold against the plain versions.
+
+Both kernels apply the long-double range screen: the objective leaves the
+rows it flags out of its sum and counts them, the marginals flag theirs;
+the caller evaluates the flagged rows in host long double
 (``models/lynch.py``). The theta-dependent scalars come from
 ``ops.likelihoods.lynch_scalars``.
 
-``NLL_LAUNCHES`` and ``MARGINALS_LAUNCHES`` count kernel launches (not
-plain-version calls), so a run can show that it went through the kernels.
+``RECORD_LAUNCHES``, ``NLL_LAUNCHES`` and ``MARGINALS_LAUNCHES`` count
+kernel launches (not plain-version calls), so a run can show that it went
+through the kernels; the kernel library keeps its own count
+(``kernel_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional, Tuple
@@ -30,25 +42,36 @@ import torch
 from sid_tpu_torch.native import build
 from sid_tpu_torch.ops import likelihoods
 
+RECORD_LAUNCHES = 0
 NLL_LAUNCHES = 0
 MARGINALS_LAUNCHES = 0
+
+# counts arrive as uint16; the record packs them so
+MAX_COUNT = 65535
+# the record: m, the signed multiplicity, the packed counts (csrc/lynch.cuh)
+RECORD_PLANES = 3
+# the kernel library's launch counters (csrc/lynch.cu)
+KERNELS = ("records", "nll", "marginals")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
-class NllWorkspace:
-    """The objective's device buffers for U profiles, allocated once per
-    fit: per-row flags, per-chunk partial sums and counts, and the (2,)
-    result [sum of unflagged terms, flagged count]."""
-
-    def __init__(self, u: int, device):
-        n_chunks = -(-u // likelihoods.CHUNK_ROWS)
-        self.u = u
-        self.flags = torch.empty(u, dtype=torch.uint8, device=device)
-        self.part_sum = torch.empty(max(n_chunks, 1), dtype=torch.float64, device=device)
-        self.part_cnt = torch.empty(max(n_chunks, 1), dtype=torch.int32, device=device)
-        self.out = torch.empty(2, dtype=torch.float64, device=device)
+def lynch_records_ref(
+    profiles: torch.Tensor, mult: Optional[torch.Tensor], lgamma_tab: torch.Tensor
+) -> torch.Tensor:
+    """Plain torch version of the set-up kernel: the (3, U) f64 row record
+    of csrc/lynch.cuh. Plane 0 is m (``likelihoods.log_multinomial``),
+    plane 1 the multiplicity as f64 (0 without ``mult``) with its sign bit
+    set where m > SAFE_MAX, plane 2 the counts as four uint16, c0 lowest."""
+    prof = profiles.to(torch.int64)
+    m = likelihoods.log_multinomial(prof, lgamma_tab)
+    w = mult.to(torch.float64) if mult is not None else torch.zeros_like(m)
+    w = torch.where(m > likelihoods.SAFE_MAX, -w, w)
+    # uint16 bit patterns as int16, then the four of a row as one 8-byte word
+    as_i16 = torch.where(prof > 32767, prof - 65536, prof).to(torch.int16).contiguous()
+    packed = as_i16.view(torch.float64).reshape(-1)
+    return torch.stack([m, w, packed])
 
 
 def lynch_compound_nll_ref(
@@ -72,13 +95,11 @@ def lynch_marginals_ref(
     return rows.lhom, rows.lhet, rows.flag_marginals.to(torch.uint8)
 
 
-def _check(profiles, lgamma_tab, scalars, mult=None) -> None:
+def _check(profiles, lgamma_tab, mult=None) -> None:
     if profiles.dim() != 2 or profiles.shape[1] != 4:
         raise ValueError(f"profiles must be (U, 4), got {tuple(profiles.shape)}")
     if lgamma_tab.dim() != 1:
         raise ValueError("lgamma_tab must be 1-D")
-    if np.shape(scalars) != (16,):
-        raise ValueError("scalars must be the 16 values of lynch_scalars")
     checks = [("profiles", profiles, torch.int32), ("lgamma_tab", lgamma_tab, torch.float64)]
     if mult is not None:
         if mult.shape != (profiles.shape[0],):
@@ -91,6 +112,23 @@ def _check(profiles, lgamma_tab, scalars, mult=None) -> None:
             raise ValueError(f"{name} is on {t.device}, profiles on {profiles.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_scalars(scalars) -> None:
+    if np.shape(scalars) != (16,):
+        raise ValueError("scalars must be the 16 values of lynch_scalars")
+
+
+def _check_values(profiles, mult) -> None:
+    """Counts in 0..MAX_COUNT (the record packs them as uint16) and
+    multiplicities >= 0 (the record keeps the screen in their sign bit):
+    raises, never clips. One reduction each, and a wait for it."""
+    if profiles.numel():
+        lo, hi = (int(v) for v in torch.aminmax(profiles))
+        if lo < 0 or hi > MAX_COUNT:
+            raise ValueError(f"counts must be in 0..{MAX_COUNT}, got {lo}..{hi}")
+    if mult is not None and mult.numel() and int(mult.min()) < 0:
+        raise ValueError("multiplicities must be >= 0")
 
 
 def _cuda_checks(profiles, lgamma_tab, what: str) -> None:
@@ -107,23 +145,35 @@ def _kernel_lib() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build.kernel_library("lynch"))
-            p, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.sid_lynch_chunk_rows.restype = ctypes.c_int
-            lib.sid_lynch_chunk_rows.argtypes = []
-            lib.sid_lynch_nll_launch.restype = ctypes.c_int
-            lib.sid_lynch_nll_launch.argtypes = [
-                p, p, p, p, ctypes.c_int, i64, p, p, p, p, ctypes.c_int, p,
-            ]
-            lib.sid_lynch_marginals_launch.restype = ctypes.c_int
-            lib.sid_lynch_marginals_launch.argtypes = [
-                p, p, p, ctypes.c_int, i64, p, p, p, p,
-            ]
+            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            for name, args in (
+                ("sid_lynch_chunk_rows", []),
+                ("sid_lynch_record_planes", []),
+                ("sid_lynch_grids", [i64, p]),
+                ("sid_lynch_records_launch", [p, p, p, i32, i64, p, i32, p]),
+                ("sid_lynch_nll_launch", [p, p, i64, p, p, p, p, p, i32, p, p]),
+                ("sid_lynch_marginals_launch", [p, p, i64, p, p, p, i32, p]),
+            ):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = args
+            lib.sid_lynch_launches.restype = ctypes.c_longlong
+            lib.sid_lynch_launches.argtypes = [i32]
             lib.sid_lynch_error_string.restype = ctypes.c_char_p
-            lib.sid_lynch_error_string.argtypes = [ctypes.c_int]
+            lib.sid_lynch_error_string.argtypes = [i32]
             if lib.sid_lynch_chunk_rows() != likelihoods.CHUNK_ROWS:
                 raise RuntimeError("csrc/lynch.cuh and ops/likelihoods.py disagree on the chunk size")
+            if lib.sid_lynch_record_planes() != RECORD_PLANES:
+                raise RuntimeError("csrc/lynch.cuh and ops/lynch_objective.py disagree on the record")
             _lib = lib
         return _lib
+
+
+def kernel_launches() -> dict:
+    """The kernel library's own launch counts since it was loaded, by
+    kernel: {"records": n, "nll": n, "marginals": n}."""
+    lib = _kernel_lib()
+    return {name: lib.sid_lynch_launches(k) for k, name in enumerate(KERNELS)}
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -132,74 +182,211 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
+class LynchWorkspace:
+    """One fit's rows bound to their device, checked once.
+
+    profiles (U, 4) int32 counts in 0..65535, mult (U,) int64 >= 0 (None
+    for a workspace of the marginals alone), lgamma_tab (T,) f64 (T > max
+    coverage + 1), contiguous on one device. On a CUDA device the set-up
+    kernel writes the row record once, the grids come from the occupancy
+    API once, and the kernels launch on the stream that was current when the
+    workspace was made. On the CPU each method runs the plain version.
+    """
+
+    def __init__(self, profiles: torch.Tensor, mult: Optional[torch.Tensor], lgamma_tab: torch.Tensor):
+        _check(profiles, lgamma_tab, mult)
+        device = profiles.device
+        if device.type != "cpu":
+            _cuda_checks(profiles, lgamma_tab, "Lynch")
+        _check_values(profiles, mult)
+        self.profiles, self.mult, self.lgamma_tab = profiles, mult, lgamma_tab
+        self.u = u = profiles.shape[0]
+        self.device = device
+        # the last objective's [sum of the unflagged terms, flagged count] and flags
+        self.out: Optional[torch.Tensor] = None
+        self.flags: Optional[torch.Tensor] = None
+        if device.type == "cpu":
+            return
+        lib = self._lib = _kernel_lib()
+        n_chunks = -(-u // likelihoods.CHUNK_ROWS)
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.current_stream(device)
+            grids = (ctypes.c_int * 3)()
+            _raise_on(lib, lib.sid_lynch_grids(u, grids), "Lynch grid")
+            self.grids = tuple(grids)  # records, objective, marginals
+            self.records = torch.empty((RECORD_PLANES, u), dtype=torch.float64, device=device)
+            self.flags = torch.empty(u, dtype=torch.uint8, device=device)
+            self.part_sum = torch.empty(max(n_chunks, 1), dtype=torch.float64, device=device)
+            self.part_cnt = torch.empty(max(n_chunks, 1), dtype=torch.int32, device=device)
+            self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+            self.out = torch.empty(2, dtype=torch.float64, device=device)
+            self.host_out = torch.empty(2, dtype=torch.float64, pin_memory=True)
+            self._host_view = self.host_out.numpy()
+            self._scalars = np.zeros(16, np.float64)  # passed to the kernels by address
+            self._nll_args = (
+                self.records.data_ptr(), self._scalars.ctypes.data, u, self.flags.data_ptr(),
+                self.part_sum.data_ptr(), self.part_cnt.data_ptr(), self.ticket.data_ptr(),
+                self.out.data_ptr(),
+            )
+        self.write_records()
+
+    def write_records(self) -> None:
+        """Enqueue the set-up kernel that writes the row record (done once
+        when the workspace is made)."""
+        global RECORD_LAUNCHES
+        mult = self.mult
+        with torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_records_launch(
+                self.profiles.data_ptr(), None if mult is None else mult.data_ptr(),
+                self.lgamma_tab.data_ptr(), self.lgamma_tab.shape[0], self.u, self.records.data_ptr(),
+                self.grids[0], self.stream.cuda_stream,
+            )
+        _raise_on(self._lib, err, "Lynch record")
+        if self.u:
+            RECORD_LAUNCHES += 1
+
+    def bound_to(self, profiles, mult, lgamma_tab) -> bool:
+        """Whether the workspace was made for these tensors (mult None:
+        any multiplicities)."""
+        return (
+            profiles.device == self.device
+            and profiles.shape == self.profiles.shape
+            and profiles.data_ptr() == self.profiles.data_ptr()
+            and lgamma_tab.data_ptr() == self.lgamma_tab.data_ptr()
+            and (mult is None or (self.mult is not None and mult.data_ptr() == self.mult.data_ptr()))
+        )
+
+    def _launch_nll(self, scalars, grid: Optional[int], host_out) -> None:
+        global NLL_LAUNCHES
+        if self.mult is None:
+            raise ValueError("the workspace was made without multiplicities")
+        _check_scalars(scalars)
+        if self.device.type == "cpu":
+            self.out, self.flags = lynch_compound_nll_ref(self.profiles, self.mult, scalars, self.lgamma_tab)
+            return
+        self._scalars[:] = scalars
+        same = torch.cuda.current_device() == self.device.index
+        with contextlib.nullcontext() if same else torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_nll_launch(
+                *self._nll_args, grid or self.grids[1], host_out, self.stream.cuda_stream)
+        _raise_on(self._lib, err, "Lynch objective")
+        NLL_LAUNCHES += 1
+
+    def launch_nll(self, scalars, grid: Optional[int] = None) -> None:
+        """Enqueue B2 at one theta and return at once: [sum of the unflagged
+        terms, flagged count] lands in ``out`` and the rows' flags in
+        ``flags``. ``grid`` sets the number of blocks (the result does not
+        depend on it); by default the resident blocks."""
+        self._launch_nll(scalars, grid, None)
+
+    def nll(self, scalars) -> Tuple[float, float]:
+        """B2 at one theta, waited for: (sum of the unflagged terms, flagged
+        count); the rows' flags in ``flags``. On a card one ctypes call:
+        the launch, an async copy into pinned memory, one stream sync."""
+        if self.device.type == "cpu":
+            self._launch_nll(scalars, None, None)
+            total, n_flagged = self.out.tolist()
+            return total, n_flagged
+        self._launch_nll(scalars, None, self.host_out.data_ptr())
+        return float(self._host_view[0]), float(self._host_view[1])
+
+    def _marginals(self, scalars) -> torch.Tensor:
+        """Launch B4 at one epsilon; its results in one (17 U,) uint8 device
+        buffer (``_split``)."""
+        global MARGINALS_LAUNCHES
+        _check_scalars(scalars)
+        u = self.u
+        buf = torch.empty(17 * u, dtype=torch.uint8, device=self.device)
+        lhom, lhet, flags = _split(buf, u)
+        host = np.ascontiguousarray(scalars, np.float64)
+        with torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_marginals_launch(
+                self.records.data_ptr(), host.ctypes.data, u, lhom.data_ptr(), lhet.data_ptr(),
+                flags.data_ptr(), self.grids[2], self.stream.cuda_stream,
+            )
+        _raise_on(self._lib, err, "Lynch marginals")
+        if u:
+            MARGINALS_LAUNCHES += 1
+        return buf
+
+    def marginals(self, scalars) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """B4 at one epsilon: (log L_hom, log L_het, uint8 flags), each (U,),
+        on the workspace's device; the pi entries of ``scalars`` are not
+        read."""
+        if self.device.type == "cpu":
+            _check_scalars(scalars)
+            return lynch_marginals_ref(self.profiles, scalars, self.lgamma_tab)
+        return _split(self._marginals(scalars), self.u)
+
+    def marginals_host(self, scalars) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """B4 at one epsilon as host arrays (log L_hom, log L_het, uint8
+        flags): on a card one copy of all three into pinned memory and one
+        stream sync."""
+        if self.device.type == "cpu":
+            return tuple(t.numpy() for t in self.marginals(scalars))
+        buf = self._marginals(scalars)
+        host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+        with torch.cuda.stream(self.stream):
+            host.copy_(buf, non_blocking=True)
+        self.stream.synchronize()
+        return tuple(t.numpy() for t in _split(host, self.u))
+
+
+def _split(buf: torch.Tensor, u: int):
+    """(log L_hom, log L_het, flags) as views of a (17 U,) uint8 buffer."""
+    return buf[: 8 * u].view(torch.float64), buf[8 * u : 16 * u].view(torch.float64), buf[16 * u :]
+
+
 def lynch_compound_nll(
     profiles: torch.Tensor,
     mult: torch.Tensor,
     scalars: np.ndarray,
     lgamma_tab: torch.Tensor,
-    work: Optional[NllWorkspace] = None,
+    work: Optional[LynchWorkspace] = None,
     grid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2 at one theta: ((2,) f64 [sum of the unflagged terms, flagged
     count], (U,) uint8 flags) on the profiles' device.
 
-    profiles (U, 4) int32, mult (U,) int64, lgamma_tab (T,) f64 (T > max
-    coverage + 1), contiguous on one device; scalars from
-    ``likelihoods.lynch_scalars``. On CUDA the results are views of
-    ``work`` (allocated here when None), overwritten by the next call with
-    the same workspace; ``grid`` sets the number of blocks (the result does
-    not depend on it).
+    profiles (U, 4) int32 counts in 0..65535, mult (U,) int64 >= 0,
+    lgamma_tab (T,) f64 (T > max coverage + 1), contiguous on one device;
+    scalars from ``likelihoods.lynch_scalars``. On CUDA the results are
+    views of ``work``, a workspace made for these tensors (made here when
+    None), overwritten by its next evaluation; ``grid`` sets the number of
+    blocks (the result does not depend on it).
     """
-    global NLL_LAUNCHES
-    _check(profiles, lgamma_tab, scalars, mult)
+    _check(profiles, lgamma_tab, mult)
+    _check_scalars(scalars)
+    if work is not None and not work.bound_to(profiles, mult, lgamma_tab):
+        raise ValueError("the workspace was made for other rows")
     if profiles.device.type == "cpu":
+        _check_values(profiles, mult)
         return lynch_compound_nll_ref(profiles, mult, scalars, lgamma_tab)
     _cuda_checks(profiles, lgamma_tab, "Lynch objective")
-    u = profiles.shape[0]
     if work is None:
-        work = NllWorkspace(u, profiles.device)
-    elif work.u != u or work.flags.device != profiles.device:
-        raise ValueError("the workspace was made for other profiles")
-    host = np.ascontiguousarray(scalars, np.float64)
-    lib = _kernel_lib()
-    with torch.cuda.device(profiles.device):
-        stream = torch.cuda.current_stream(profiles.device).cuda_stream
-        err = lib.sid_lynch_nll_launch(
-            profiles.data_ptr(), mult.data_ptr(), host.ctypes.data, lgamma_tab.data_ptr(),
-            lgamma_tab.shape[0], u, work.flags.data_ptr(), work.part_sum.data_ptr(),
-            work.part_cnt.data_ptr(), work.out.data_ptr(), int(grid or 0), stream,
-        )
-    _raise_on(lib, err, "Lynch objective")
-    NLL_LAUNCHES += 1
+        work = LynchWorkspace(profiles, mult, lgamma_tab)
+    work.launch_nll(scalars, grid)
     return work.out, work.flags
 
 
 def lynch_marginals(
-    profiles: torch.Tensor, scalars: np.ndarray, lgamma_tab: torch.Tensor
+    profiles: torch.Tensor,
+    scalars: np.ndarray,
+    lgamma_tab: torch.Tensor,
+    work: Optional[LynchWorkspace] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B4 at one epsilon: (log L_hom, log L_het, uint8 flags), each (U,), on
-    the profiles' device; the pi entries of ``scalars`` are not read."""
-    global MARGINALS_LAUNCHES
-    _check(profiles, lgamma_tab, scalars)
+    the profiles' device; the pi entries of ``scalars`` are not read. On
+    CUDA it reads the record of ``work``, a workspace made for these
+    profiles (made here, without multiplicities, when None)."""
+    _check(profiles, lgamma_tab)
+    _check_scalars(scalars)
+    if work is not None and not work.bound_to(profiles, None, lgamma_tab):
+        raise ValueError("the workspace was made for other rows")
     if profiles.device.type == "cpu":
+        _check_values(profiles, None)
         return lynch_marginals_ref(profiles, scalars, lgamma_tab)
     _cuda_checks(profiles, lgamma_tab, "Lynch marginals")
-    u = profiles.shape[0]
-    device = profiles.device
-    lhom = torch.empty(u, dtype=torch.float64, device=device)
-    lhet = torch.empty(u, dtype=torch.float64, device=device)
-    flags = torch.empty(u, dtype=torch.uint8, device=device)
-    if u == 0:
-        return lhom, lhet, flags
-    host = np.ascontiguousarray(scalars, np.float64)
-    lib = _kernel_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.sid_lynch_marginals_launch(
-            profiles.data_ptr(), host.ctypes.data, lgamma_tab.data_ptr(),
-            lgamma_tab.shape[0], u, lhom.data_ptr(), lhet.data_ptr(),
-            flags.data_ptr(), stream,
-        )
-    _raise_on(lib, err, "Lynch marginals")
-    MARGINALS_LAUNCHES += 1
-    return lhom, lhet, flags
+    if work is None:
+        work = LynchWorkspace(profiles, None, lgamma_tab)
+    return work.marginals(scalars)

@@ -202,3 +202,87 @@ def test_wrappers_reject_what_the_kernels_do_not_take(data):
         f(prof.to("meta"), mult.to("meta"), s, tab.to("meta"))
     with pytest.raises(ValueError, match="no Lynch marginals kernel"):
         lynch_objective.lynch_marginals(prof.to("meta"), s, tab.to("meta"))
+
+
+def test_records_ref_is_the_packed_record(data):
+    """The plain version of the set-up kernel: m of sid_tpu (to 1e-12) and
+    of log_multinomial (bitwise), the multiplicity with the theta-free
+    screen in its sign bit, the counts as four uint16, c0 lowest."""
+    prof, mult = data["prof"], data["mult"]
+    rec = lynch_objective.lynch_records_ref(torch.from_numpy(prof), torch.from_numpy(mult), data["tab_t"])
+    assert rec.shape == (lynch_objective.RECORD_PLANES, prof.shape[0]) and rec.dtype == torch.float64
+    m = lk.log_multinomial(torch.from_numpy(prof), data["tab_t"]).numpy()
+    assert np.array_equal(rec[0].numpy().view(np.int64), m.view(np.int64))
+    assert_agree(m, np.asarray(ref_lk.log_multinomial(jnp.asarray(prof), data["tab_j"])), 1e-12)
+    over = m > lk.SAFE_MAX
+    assert over.sum() == 3  # (9000, 9000, 0, 0), (12000, 6000, 10, 0), (65535 x 4)
+    w = rec[1].numpy()
+    assert np.array_equal(np.signbit(w), over) and np.array_equal(np.abs(w), mult.astype(np.float64))
+    c = prof.astype(np.uint64)
+    packed = c[:, 0] | (c[:, 1] << np.uint64(16)) | (c[:, 2] << np.uint64(32)) | (c[:, 3] << np.uint64(48))
+    assert np.array_equal(rec[2].numpy().view(np.uint64), packed)
+    alone = lynch_objective.lynch_records_ref(torch.from_numpy(prof), None, data["tab_t"])
+    assert np.array_equal(np.signbit(alone[1].numpy()), over) and not alone[1].abs().any()
+
+
+def test_workspace_on_cpu_is_the_plain_version(data):
+    prof = torch.from_numpy(data["prof"])
+    mult = torch.from_numpy(data["mult"])
+    tab = data["tab_t"]
+    nt = nucleotide_distribution(data["prof"], data["mult"])
+    counts = (lynch_objective.RECORD_LAUNCHES, lynch_objective.NLL_LAUNCHES,
+              lynch_objective.MARGINALS_LAUNCHES)
+    work = lynch_objective.LynchWorkspace(prof, mult, tab)
+    for theta in [(1e-3, 1e-3), (0.05, 0.01), (0.5, 0.999)]:
+        s = lk.lynch_scalars(theta[0], theta[1], nt)
+        total, n_flagged = work.nll(s)
+        want, want_flags = lynch_objective.lynch_compound_nll_ref(prof, mult, s, tab)
+        assert [total, n_flagged] == want.tolist()
+        assert torch.equal(work.flags, want_flags)
+        out, flags = lynch_objective.lynch_compound_nll(prof, mult, s, tab, work=work)
+        assert torch.equal(out, want) and torch.equal(flags, want_flags)
+    s = lk.lynch_scalars(0.0, 0.01, nt)
+    got = work.marginals_host(s)
+    for a, b in zip(got, lynch_objective.lynch_marginals_ref(prof, s, tab)):
+        assert isinstance(a, np.ndarray)
+        assert np.array_equal(a, b.numpy(), equal_nan=a.dtype.kind == "f")
+    assert counts == (lynch_objective.RECORD_LAUNCHES, lynch_objective.NLL_LAUNCHES,
+                      lynch_objective.MARGINALS_LAUNCHES)
+
+
+def test_workspace_rejects_counts_it_cannot_pack_and_other_rows():
+    prof = torch.zeros((8, 4), dtype=torch.int32)
+    mult = torch.ones(8, dtype=torch.int64)
+    tab = lgamma_table(4 * 65536, "cpu")
+    s = lk.lynch_scalars(0.01, 0.01, [0.25] * 4)
+    f = lynch_objective.lynch_compound_nll
+    Workspace = lynch_objective.LynchWorkspace
+    for value in (65536, -1):
+        bad = prof.clone()
+        bad[3, 2] = value
+        with pytest.raises(ValueError, match="counts must be in 0..65535"):
+            Workspace(bad, mult, tab)
+        with pytest.raises(ValueError, match="counts must be in 0..65535"):
+            f(bad, mult, s, tab)
+        with pytest.raises(ValueError, match="counts must be in 0..65535"):
+            lynch_objective.lynch_marginals(bad, s, tab)
+    with pytest.raises(ValueError, match="multiplicities must be >= 0"):
+        Workspace(prof, -mult, tab)
+    Workspace(torch.full((8, 4), 65535, dtype=torch.int32), mult, tab)  # the largest count
+    work = Workspace(prof, mult, tab)
+    f(prof, mult, s, tab, work=work)
+    for args in ((prof.clone(), mult, s, tab), (prof, mult.clone(), s, tab), (prof, mult, s, tab.clone()),
+                 (prof[:4], mult[:4], s, tab)):
+        with pytest.raises(ValueError, match="made for other rows"):
+            f(*args, work=work)
+    with pytest.raises(ValueError, match="made for other rows"):
+        lynch_objective.lynch_marginals(prof.clone(), s, tab, work=work)
+    with pytest.raises(ValueError, match="without multiplicities"):
+        Workspace(prof, None, tab).nll(s)
+    with pytest.raises(ValueError, match="16 values"):
+        work.nll(s[:15])
+    # a device with no kernel and no plain path, or tensors on two devices
+    with pytest.raises(ValueError, match="no Lynch kernel for device meta"):
+        Workspace(prof.to("meta"), mult.to("meta"), tab.to("meta"))
+    with pytest.raises(ValueError, match="mult is on meta"):
+        Workspace(prof, mult.to("meta"), tab)

@@ -1,16 +1,24 @@
-"""The Lynch kernels' arithmetic and reduction, compiled for the host, vs torch.
+"""The Lynch kernels' arithmetic, row record and reduction, compiled for the
+host, vs torch.
 
 ``sid_tpu_torch/csrc/lynch.cuh`` holds the per-profile expressions, the
-long-double range screen and the fixed-order reduction that the card runs;
-``lynch_host.cpp`` loops them over arrays and runs the objective's chunks in
-the order a grid of a given size would. Built here with g++ (contraction off,
-like nvcc --fmad=false) and held against the plain torch f64 versions:
-identical non-finite positions and flags, finite values within 1e-12
-relative (only the exp/log implementations differ: glibc here, torch's on
-the CPU), and a sum that does not change with the number of blocks.
+per-fit row record, the long-double range screen and the fixed-order
+reduction that the card runs; ``lynch_host.cpp`` loops them over arrays and
+runs the objective's chunks in the order a grid of a given size would, then
+replays the blocks taking their tickets in given orders. Built here with g++
+(contraction off, like nvcc --fmad=false) and held:
+
+- against itself: the record path (the set-up kernel's record, then the
+  objective's and the marginals' row functions) gives the bits of
+  ``lynch_row`` from the counts and the table;
+- against the plain torch f64 versions: the record bitwise, m and the flags
+  bitwise, the values within 1e-12 relative (only the exp/log
+  implementations differ: glibc here, torch's on the CPU), and a sum that
+  changes neither with the number of blocks nor with the block that folds.
 """
 
 import ctypes
+import itertools
 import os
 import shutil
 import subprocess
@@ -30,6 +38,9 @@ from test_torch_lynch import THETAS, lynch_profiles  # noqa: E402
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sid_tpu_torch", "csrc"
 )
+IN_BOX = [t for t in THETAS if 0 <= t[0] <= 1 and 0 <= t[1] <= 1]
+# the resident grids of an H100 (132 SMs) at 3 and 4 blocks an SM
+RESIDENT_GRIDS = (396, 528)
 
 
 @pytest.fixture(scope="module")
@@ -43,13 +54,19 @@ def shim(tmp_path_factory):
         check=True,
     )
     lib = ctypes.CDLL(out)
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.sid_lynch_chunk_rows_host.restype = ctypes.c_int
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.sid_lynch_chunk_rows_host.restype = i32
     lib.sid_lynch_chunk_rows_host.argtypes = []
-    lib.sid_lynch_rows_host.restype = None
-    lib.sid_lynch_rows_host.argtypes = [p, p, p, ctypes.c_int, i64, p, p, p, p, p]
-    lib.sid_lynch_nll_host.restype = None
-    lib.sid_lynch_nll_host.argtypes = [p, p, p, p, ctypes.c_int, i64, ctypes.c_int, p, p]
+    for name, args in (
+        ("sid_lynch_rows_host", [p, p, p, i32, i64] + [p] * 6),
+        ("sid_lynch_records_host", [p, p, p, i32, i64, p]),
+        ("sid_lynch_read_records_host", [p, i64, p, p, p, p]),
+        ("sid_lynch_record_rows_host", [p, i64, p] + [p] * 5),
+        ("sid_lynch_nll_host", [p, i64, p, i32, p, i32, p, p, p, p]),
+    ):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = args
     return lib
 
 
@@ -61,8 +78,10 @@ def data():
 
 
 def run_rows(lib, prof, s, tab):
+    """lynch_row from the counts and the table: lhom, lhet, log_mix,
+    flag_marginals, flag_mixture, m."""
     u = prof.shape[0]
-    outs = [np.empty(u) for _ in range(3)] + [np.empty(u, np.uint8) for _ in range(2)]
+    outs = [np.empty(u) for _ in range(3)] + [np.empty(u, np.uint8) for _ in range(2)] + [np.empty(u)]
     tab = tab.numpy()
     lib.sid_lynch_rows_host(
         prof.ctypes.data, s.ctypes.data, tab.ctypes.data, tab.shape[0], u,
@@ -71,23 +90,52 @@ def run_rows(lib, prof, s, tab):
     return outs
 
 
-def run_nll(lib, prof, mult, s, tab, grid):
+def run_records(lib, prof, mult, tab):
     u = prof.shape[0]
-    flags = np.empty(u, np.uint8)
-    out = np.empty(2)
+    rec = np.empty((lynch_objective.RECORD_PLANES, u))
     tab = tab.numpy()
-    lib.sid_lynch_nll_host(
-        prof.ctypes.data, mult.ctypes.data, s.ctypes.data, tab.ctypes.data,
-        tab.shape[0], u, grid, flags.ctypes.data, out.ctypes.data,
+    lib.sid_lynch_records_host(
+        prof.ctypes.data, None if mult is None else mult.ctypes.data, tab.ctypes.data,
+        tab.shape[0], u, rec.ctypes.data,
     )
-    return out, flags
+    return rec
+
+
+def run_record_rows(lib, rec, s):
+    """The record path: log_mix, flag_mixture, lhom, lhet, flag_marginals."""
+    u = rec.shape[1]
+    outs = [np.empty(u), np.empty(u, np.uint8), np.empty(u), np.empty(u), np.empty(u, np.uint8)]
+    lib.sid_lynch_record_rows_host(rec.ctypes.data, u, s.ctypes.data, *[o.ctypes.data for o in outs])
+    return outs
+
+
+def run_nll(lib, rec, s, grid, orders=None):
+    """The objective over the records with `grid` blocks, the blocks taking
+    their tickets in each order: (out (n_orders, 2), elected, flags, ticket)."""
+    u = rec.shape[1]
+    if orders is None:
+        orders = [range(grid)]
+    orders = np.ascontiguousarray(np.array(orders, np.int32).reshape(-1, grid))
+    flags = np.empty(u, np.uint8)
+    out = np.empty((orders.shape[0], 2))
+    elected = np.empty(orders.shape[0], np.int32)
+    ticket = np.zeros(1, np.uint32)
+    lib.sid_lynch_nll_host(
+        rec.ctypes.data, u, s.ctypes.data, grid, orders.ctypes.data, orders.shape[0],
+        flags.ctypes.data, out.ctypes.data, elected.ctypes.data, ticket.ctypes.data,
+    )
+    return out, elected, flags, int(ticket[0]), orders
+
+
+def bits(a):
+    return np.asarray(a, np.float64).view(np.int64)
 
 
 def test_chunk_is_the_packages(shim):
     assert shim.sid_lynch_chunk_rows_host() == lk.CHUNK_ROWS
 
 
-@pytest.mark.parametrize("theta", [t for t in THETAS if 0 <= t[0] <= 1 and 0 <= t[1] <= 1])
+@pytest.mark.parametrize("theta", IN_BOX)
 def test_rows_match_plain(shim, data, theta):
     prof, _, tab, nt = data
     s = lk.lynch_scalars(theta[0], theta[1], nt)
@@ -97,13 +145,61 @@ def test_rows_match_plain(shim, data, theta):
         assert_agree(a, b.numpy(), 1e-12)
     assert np.array_equal(got[3], want.flag_marginals.numpy())
     assert np.array_equal(got[4], want.flag_mixture.numpy())
+    assert np.array_equal(bits(got[5]), bits(lk.log_multinomial(torch.from_numpy(prof), tab)))
+
+
+@pytest.mark.parametrize("with_mult", [True, False])
+def test_record_is_the_plain_record(shim, data, with_mult):
+    """The set-up kernel's record, bitwise: m as lynch_row computes it, the
+    counts packed as uint16, the multiplicity with the theta-free screen in
+    its sign bit."""
+    prof, mult, tab, _ = data
+    mult = mult if with_mult else None
+    rec = run_records(shim, prof, mult, tab)
+    want = lynch_objective.lynch_records_ref(
+        torch.from_numpy(prof), None if mult is None else torch.from_numpy(mult), tab
+    )
+    assert np.array_equal(bits(rec), want.view(torch.int64).numpy())
+    u = prof.shape[0]
+    counts, m, w, mc_over = np.empty((u, 4), np.int32), np.empty(u), np.empty(u), np.empty(u, np.uint8)
+    shim.sid_lynch_read_records_host(
+        rec.ctypes.data, u, counts.ctypes.data, m.ctypes.data, w.ctypes.data, mc_over.ctypes.data
+    )
+    assert np.array_equal(counts, prof)
+    lynch_m = run_rows(shim, prof, lk.lynch_scalars(0.01, 0.01, data[3]), tab)[5]
+    assert np.array_equal(bits(m), bits(lynch_m))
+    assert np.array_equal(w, mult.astype(np.float64) if with_mult else np.zeros(u))
+    assert np.array_equal(mc_over, (lynch_m > lk.SAFE_MAX).astype(np.uint8))
+    assert mc_over.sum() == 3  # (9000, 9000, 0, 0), (12000, 6000, 10, 0), (65535 x 4)
+
+
+@pytest.mark.parametrize("theta", IN_BOX)
+def test_record_rows_are_lynch_row(shim, data, theta):
+    """The objective's and the marginals' row functions read the record and
+    give lynch_row's bits; against the plain version, the flags bitwise and
+    the values to 1e-12."""
+    prof, mult, tab, nt = data
+    s = lk.lynch_scalars(theta[0], theta[1], nt)
+    log_mix, flag_mixture, lhom, lhet, flag_marginals = run_record_rows(
+        shim, run_records(shim, prof, mult, tab), s
+    )
+    r_lhom, r_lhet, r_log_mix, r_fmarg, r_fmix, _ = run_rows(shim, prof, s, tab)
+    for a, b in ((log_mix, r_log_mix), (lhom, r_lhom), (lhet, r_lhet)):
+        assert np.array_equal(bits(a), bits(b))
+    assert np.array_equal(flag_mixture, r_fmix) and np.array_equal(flag_marginals, r_fmarg)
+    want = lk.lynch_rows(torch.from_numpy(prof), s, tab)
+    for a, b in ((lhom, want.lhom), (lhet, want.lhet), (log_mix, want.log_mix)):
+        assert_agree(a, b.numpy(), 1e-12)
+    assert np.array_equal(flag_marginals, want.flag_marginals.numpy())
+    assert np.array_equal(flag_mixture, want.flag_mixture.numpy())
 
 
 @pytest.mark.parametrize("theta", [(1e-3, 1e-3), (0.05, 0.01), (0.5, 0.999)])
 def test_objective_reduction_matches_plain(shim, data, theta):
     prof, mult, tab, nt = data
     s = lk.lynch_scalars(theta[0], theta[1], nt)
-    got, flags = run_nll(shim, prof, mult, s, tab, grid=3)
+    out, _, flags, _, _ = run_nll(shim, run_records(shim, prof, mult, tab), s, grid=3)
+    got = out[0]
     want, want_flags = lynch_objective.lynch_compound_nll_ref(
         torch.from_numpy(prof), torch.from_numpy(mult), s, tab
     )
@@ -119,5 +215,35 @@ def test_sum_does_not_change_with_the_number_of_blocks(shim, u):
     mult = rng.integers(1, 1000, u).astype(np.int64)
     tab = lgamma_table(int(prof.sum(-1).max()), "cpu")
     s = lk.lynch_scalars(0.01, 0.01, nucleotide_distribution(prof, mult))
-    results = [run_nll(shim, prof, mult, s, tab, grid)[0] for grid in (1, 2, 7, 64, 1000)]
+    rec = run_records(shim, prof, mult, tab)
+    results = [run_nll(shim, rec, s, grid)[0][0] for grid in (1, 2, 7, 64, 1000) + RESIDENT_GRIDS]
     assert all(np.array_equal(r, results[0]) for r in results)
+
+
+def _orders(grid, rng):
+    if grid <= 7:
+        return list(itertools.permutations(range(grid)))  # every order
+    return [list(range(grid)), list(range(grid))[::-1]] + [rng.permutation(grid) for _ in range(50)]
+
+
+@pytest.mark.parametrize("grid", (1, 7, 1000) + RESIDENT_GRIDS)
+def test_last_block_folds_in_every_order(shim, grid):
+    """Whatever order the blocks finish in, the one that takes the last
+    ticket folds, the result is the same to the bit, and the ticket is back
+    at 0 for the next evaluation."""
+    rng = np.random.default_rng(grid)
+    u = 20_000
+    prof = rng.multinomial(30, [0.94, 0.03, 0.02, 0.01], u).astype(np.int32)
+    mult = rng.integers(1, 1000, u).astype(np.int64)
+    tab = lgamma_table(int(prof.sum(-1).max()), "cpu")
+    s = lk.lynch_scalars(0.02, 0.005, nucleotide_distribution(prof, mult))
+    out, elected, _, ticket, orders = run_nll(shim, run_records(shim, prof, mult, tab), s, grid,
+                                              _orders(grid, rng))
+    assert np.array_equal(elected, orders[:, -1])
+    assert (bits(out) == bits(out[:1])).all()
+    assert ticket == 0
+    want, _ = lynch_objective.lynch_compound_nll_ref(
+        torch.from_numpy(prof), torch.from_numpy(mult), s, tab
+    )
+    assert out[0, 1] == float(want[1])
+    assert abs(out[0, 0] - float(want[0])) <= 1e-12 * abs(float(want[0]))
