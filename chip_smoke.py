@@ -8,8 +8,9 @@ runs) on the card and checks them:
 2. build: libsidtpu.so (g++) and the kernel libraries (one nvcc per source,
    all started together, sm_90a) from the sources in this checkout; the
    compiler's register report of every kernel (0 spill bytes asserted for
-   the Lynch kernels) and each kernel's static f64 instruction count
-   (cuobjdump -sass), from which the bounds below are computed;
+   the Lynch kernels) and, from cuobjdump -sass, the f64 instructions that
+   every row of each kernel executes, from which the bounds below are
+   computed;
 3. kernel vs plain: the slim local classify kernel against its plain torch
    f64 version on the card at U = 1,000,000 profiles (Poisson(30) bulk,
    zero rows, deep rows up to 65535, ties, capped rows) at -E 0.0, 0.1 and
@@ -30,7 +31,8 @@ runs) on the card and checks them:
    and 1e-12 relative; B2 bitwise repeatable over ten calls and over grid
    sizes, one evaluation one kernel launch (the kernel library's counters);
    per kernel the call time, the device-only time, the plain version's time
-   and the bound with the share of it reached;
+   and the bound with the share of it reached; the SM clock while B2 runs
+   back to back;
 6. the fit's main path: engine.run on golden.pileup for bayes, LR, LR -R
    and local -R under --fit device, --fit auto and --engine exact, each
    byte-equal to its golden CSV, the device fit's diagnostic lines those of
@@ -204,6 +206,7 @@ F64_INSTR_PER_S = 132 * 64 * 1.98e9
 WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 F64_OPCODES = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z0-9]+)\S*\s*([^;]*);")
 
 
 def ptxas_report(text: str) -> dict:
@@ -233,33 +236,61 @@ def cuobjdump_path():
     return None
 
 
-def sass_f64_counts(lib_path: str) -> dict:
-    """Per kernel of a built library, from cuobjdump -sass: [static count of
-    f64 instructions (DADD, DMUL, DFMA, DSETP, DMNMX, DSET), count of
-    16-byte global loads, count of all instructions]; {} when the toolkit
-    has no cuobjdump."""
+def row_counts(instrs: list) -> dict:
+    """What every row of a kernel executes, from its SASS (a list of
+    (address, predicated, opcode, operands)). The row's code is the loop
+    that holds the kernel's first global load (the row's own data), or the
+    whole kernel where no loop does. An instruction of it is executed by
+    every row unless a branch can jump over it once that load has run; a
+    predicated f64 instruction may do no work and is not counted. So
+    ``f64`` and ``issued`` are lower bounds on the f64 instructions each
+    row executes and the instructions each warp issues for a row (the
+    profiler's executed counts are out of reach: ncu cannot initialize its
+    counters on the card); ``f64_all`` and ``issued_all`` count the row's
+    code with every branch arm taken, an upper bound that the fold after
+    the row loop does not enter."""
+    end = instrs[-1][0] + 16
+    anchor = next(ad for ad, _, op, _ in instrs if op == "LDG")
+    jumps = [(ad, int(args.split()[-1].rstrip(","), 16)) for ad, _, op, args in instrs if op == "BRA"]
+    jumps += [(ad, end) for ad, pred, op, _ in instrs if op == "EXIT" and pred]
+    loops = [(t, f) for f, t in jumps if t <= anchor <= f]
+    lo, hi = max(loops) if loops else (instrs[0][0], end)
+    out = dict.fromkeys(("f64", "issued", "f64_all", "issued_all"), 0)
+    for ad, pred, op, _ in instrs:
+        if not lo <= ad <= hi or op == "NOP":
+            continue
+        out["f64_all"] += op in F64_OPCODES
+        out["issued_all"] += 1
+        if any(f < ad < t and not f < anchor < t for f, t in jumps if f < t):
+            continue
+        out["f64"] += op in F64_OPCODES and not pred
+        out["issued"] += 1
+    return out
+
+
+def sass_row_counts(lib_path: str) -> dict:
+    """``row_counts`` of every kernel of a built library, by mangled name;
+    {} when the toolkit has no cuobjdump."""
     tool = cuobjdump_path()
     if tool is None:
         return {}
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts = {}
+    kernels = {}
     name = None
     for line in sass.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             name = head.group(1)
-            counts[name] = [0, 0, 0]
+            kernels[name] = []
             continue
-        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9]+)(\S*)", line)
-        if name and op:
-            counts[name][0] += op.group(1) in F64_OPCODES
-            counts[name][1] += op.group(1) == "LDG" and ".128" in op.group(2)
-            counts[name][2] += op.group(1) != "NOP"
-    return counts
+        ins = SASS_LINE.match(line)
+        if name and ins:
+            kernels[name].append((int(ins.group(1), 16), ins.group(2) is not None, ins.group(3), ins.group(4)))
+    return {name: row_counts(instrs) for name, instrs in kernels.items()}
 
 
-def f64_count(counts: dict, kernel: str) -> list:
+def kernel_counts(counts: dict, kernel: str) -> dict:
     """The counts of the one kernel whose mangled name holds ``kernel``."""
     hits = [n for name, n in counts.items() if kernel in name]
     if len(hits) != 1:
@@ -273,6 +304,11 @@ def bound_ms(n_bytes: float, f64_instr: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = f64_instr / F64_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def issue_ms(issued: float, rows: int) -> float:
+    """Time to issue ``issued`` instructions for each warp of 32 rows."""
+    return issued * rows / 32 / WARP_ISSUE_PER_S * 1e3
 
 
 def fit_wall_split(torch, prof, mult, nt, dev) -> dict:
@@ -359,9 +395,10 @@ def main() -> int:
                 f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
             if name == "lynch" and (r["spill_stores"] or r["spill_loads"]):
                 raise AssertionError(f"ptxas spills registers in {fn}")
-        sass.update(sass_f64_counts(libs[name]))
-    for fn, (n_f64, n_ld128, n_all) in sorted(sass.items()):
-        log(f"# sass: {fn}: {n_f64} f64 instructions of {n_all} (static), {n_ld128} 16-byte loads")
+        sass.update(sass_row_counts(libs[name]))
+    for fn, c in sorted(sass.items()):
+        log(f"# sass: {fn}: a row executes at least {c['f64']} f64 instructions and issues at least "
+            f"{c['issued']} instructions a warp; with every branch arm {c['f64_all']} and {c['issued_all']}")
     if not sass:
         raise AssertionError("no cuobjdump: the kernels' f64 instruction counts, and so their bounds, are unknown")
 
@@ -400,12 +437,13 @@ def main() -> int:
     kernel_ms = statistics.median(kernel)
     local_dev_ms = device_only_ms(torch, local_classify.local_log_likelihoods, sets)
     # (U, 4) int32 counts, two int32 allele indices and two f64 results a row, and the table
-    local_bound = bound_ms(U_KERNEL * (16 + 8 + 16) + tab.shape[0] * 8,
-                           f64_count(sass, "local_classify_kernel")[0] * U_KERNEL)
+    local_rows = kernel_counts(sass, "local_classify_kernel")
+    local_bound = bound_ms(U_KERNEL * (16 + 8 + 16) + tab.shape[0] * 8, local_rows["f64"] * U_KERNEL)
     log(f"# time at U={U_KERNEL}, -E 0.1, median of {len(kernel)} calls: kernel {kernel_ms:.4f} ms "
         f"(min {min(kernel):.4f}, max {max(kernel):.4f}), device only {local_dev_ms:.4f} ms, plain torch "
         f"{plain_ms:.4f} ms (min {min(plain):.4f}, max {max(plain):.4f}); bound {local_bound[0]:.4f} ms by "
-        f"{local_bound[1]}, {local_bound[0] / local_dev_ms:.1%} of the bound; on {card}")
+        f"{local_bound[1]} ({local_rows['f64']} f64 instructions a row), {local_bound[0] / local_dev_ms:.1%} of "
+        f"the bound; on {card}")
     del sets, prof, major, second, p1, p2, k1, k2
 
     # ---- 4. main path ----
@@ -560,7 +598,7 @@ def main() -> int:
     marg_abs = marg_rel = 0.0
     for eps in FIT_EPSILONS:
         s = likelihoods.lynch_scalars(0.0, eps, nt)
-        kk = [t.cpu().numpy() for t in lynch_objective.lynch_marginals(p_dev, s, ftab, work=work)]
+        kk = [t.cpu().numpy() for t in work.marginals(s)]
         pp = [t.cpu().numpy() for t in lynch_objective.lynch_marginals_ref(p_dev, s, ftab)]
         if not np.array_equal(kk[2], pp[2]):
             raise AssertionError(f"B4 flags differ at eps {eps}")
@@ -576,13 +614,14 @@ def main() -> int:
     nll_sets = [(p_dev, m_dev, likelihoods.lynch_scalars(th[0], th[1], nt), ftab)
                 for th in FIT_THETAS[:4]]
     marg_sets = [(p_dev, likelihoods.lynch_scalars(0.0, e, nt), ftab) for e in FIT_EPSILONS]
+    # the plain version takes (profiles, scalars, table); the kernel reads the workspace's record
     rec_sets = [(p_dev, m_dev, ftab)]
 
     def b2(*a):
         return lynch_objective.lynch_compound_nll(*a, work=work)
 
-    def b4(*a):
-        return lynch_objective.lynch_marginals(*a, work=work)
+    def b4(p, sc, t):
+        return work.marginals(sc)
 
     def records(*a):
         return lynch_objective.LynchWorkspace(*a).records
@@ -605,20 +644,38 @@ def main() -> int:
         call_t = event_times_ms(torch, fn, sets) + event_times_ms(torch, fn, sets)
         plain_t += event_times_ms(torch, plain_fn, sets)
         dev_ms = device_only_ms(torch, launch, sets)
-        per_row, _, all_per_row = f64_count(sass, sass_name)
-        b_ms, b_by = bound_ms(n_bytes, per_row * u_fit)
-        # not the bound (that counts the FP64 pipe alone): every instruction
-        # of the row issued once for each warp of 32 rows
-        issue_ms = all_per_row * u_fit / 32 / WARP_ISSUE_PER_S * 1e3
+        c = kernel_counts(sass, sass_name)
+        b_ms, b_by = bound_ms(n_bytes, c["f64"] * u_fit)
+        b_all = bound_ms(n_bytes, c["f64_all"] * u_fit)[0]
         fit_times[name] = {"ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t),
                            "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by}
         log(f"# {name} at U={u_fit}: call {fit_times[name]['ms']:.4f} ms (median of {len(call_t)}, min "
             f"{min(call_t):.4f}), device only {dev_ms:.4f} ms, plain torch {fit_times[name]['plain_ms']:.4f} ms; "
-            f"bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {per_row} f64 instructions a row, static), "
-            f"{b_ms / dev_ms:.1%} of the bound; instruction issue alone {issue_ms:.4f} ms ({all_per_row} "
-            f"instructions a row, static); on {card}")
-    walls = []
+            f"bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {c['f64']} f64 instructions every row "
+            f"executes), {b_ms / dev_ms:.1%} of the bound ({b_all:.4f} ms, {b_all / dev_ms:.1%}, with every "
+            f"branch arm: {c['f64_all']}); issuing the row's instructions {issue_ms(c['issued'], u_fit):.4f}-"
+            f"{issue_ms(c['issued_all'], u_fit):.4f} ms ({c['issued']}-{c['issued_all']} a warp); on {card}")
+    # the SM clock and power while B2 runs back to back (nvidia-smi samples every 50 ms)
     s = nll_sets[1][2]
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+                            "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + 2.0
+        while time.perf_counter() < t_end:
+            for _ in range(200):
+                work.launch_nll(s)
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        samples = [ln.split(",") for ln in smi.communicate(timeout=30)[0].splitlines()]
+        samples = [[float(v) for v in ln] for ln in samples
+                   if len(ln) == 2 and all(re.fullmatch(r"\s*[0-9.]+\s*", v) for v in ln)]
+    if samples:
+        clocks, watts = zip(*samples)
+        log(f"# while B2 runs back to back: SM clock median {statistics.median(clocks):.0f} MHz (min {min(clocks):.0f}, "
+            f"max {max(clocks):.0f}), power median {statistics.median(watts):.1f} W, {len(samples)} samples; "
+            f"the bounds take 1980 MHz; on {card}")
+    walls = []
     for _ in range(41):
         t0 = time.perf_counter()
         work.nll(s)

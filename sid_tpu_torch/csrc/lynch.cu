@@ -16,12 +16,10 @@
 //
 // What bounds them: f64 instructions. B2 reads a 24-byte record and writes
 // a flag byte a row (25 MB at U = 1M, and the records stay in the 50 MB L2
-// across evaluations) against ~480 f64 instructions a row (cuobjdump; the
-// exp/log polynomials are most of it): ~28 us of FP64 pipe against ~7.5 us
-// of bytes. Measured, B2 runs at ~55-60 % of that, held by instruction
-// issue: the row is ~1,700 SASS instructions (selects, moves, integer and
-// predicate work beside the f64 ones), one warp-instruction a cycle per SM
-// sub-partition, ~50 us at U = 1M (PERF.md). The design keeps the pipes fed:
+// across evaluations) against ~260-450 f64 instructions a row (cuobjdump:
+// those every row executes, and the row's code with every branch arm taken;
+// the exp/log polynomials are most of it), 15-27 us of FP64 pipe at U = 1M
+// against ~7.5 us of bytes. The design keeps the pipes fed:
 //   - no lgamma gathers in the row: the record holds m;
 //   - a register budget per kernel that ptxas meets with 0 spill bytes, and
 //     a grid of exactly the resident blocks (the occupancy API, once per
@@ -105,8 +103,7 @@ __global__ void __launch_bounds__(kThreads)
        i < n; i += stride) {
     int c[4];
     sid::load_profile(prof, i, c);
-    sid::write_record(rec, n, i, c[0], c[1], c[2], c[3], mult ? __ldg(mult + i) : 0,
-                      tab, tab_len);
+    sid::write_record(rec, n, i, c[0], c[1], c[2], c[3], __ldg(mult + i), tab, tab_len);
   }
 }
 
@@ -224,8 +221,7 @@ int sid_lynch_grids(int64_t n, int* grids) {
 }
 
 // The records of n rows. prof: (n, 4) int32 counts in 0..65535, 16-byte
-// aligned; mult: (n,) int64 >= 0, or null (multiplicity 0, for the
-// marginals alone); tab: (tab_len,) f64; rec: (3, n) f64.
+// aligned; mult: (n,) int64 >= 0; tab: (tab_len,) f64; rec: (3, n) f64.
 int sid_lynch_records_launch(const void* prof, const void* mult, const void* tab,
                              int tab_len, int64_t n, void* rec, int grid,
                              void* stream) {

@@ -2,10 +2,9 @@
 // fixed-order reduction (lynch.cuh), looped over arrays, so the CPU tests
 // can hold the very expressions the card runs against the torch f64 version
 // before any card sees them. The objective runs the kernel's chunks block by
-// block as a grid of `grid` blocks would take them, then replays the blocks
-// taking their tickets in each order it is given: the block that takes the
-// last ticket folds the chunk sums, as on the card. Neither the grid nor
-// the order may change the result.
+// block as a grid of `grid` blocks would take them, then folds the chunk
+// sums as the last block does on the card. The grid may not change the
+// result.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblynch_host.so lynch_host.cpp
@@ -60,14 +59,13 @@ void sid_lynch_rows_host(const int32_t* prof, const double* scalars,
 }
 
 // the set-up kernel: rec (3, n) f64 from the counts and multiplicities
-// (mult may be null: multiplicity 0)
 void sid_lynch_records_host(const int32_t* prof, const int64_t* mult,
                             const double* tab, int tab_len, int64_t n,
                             double* rec) {
   for (int64_t i = 0; i < n; ++i) {
     int c[4];
     sid::load_profile(prof, i, c);
-    sid::write_record(rec, n, i, c[0], c[1], c[2], c[3], mult ? mult[i] : 0, tab, tab_len);
+    sid::write_record(rec, n, i, c[0], c[1], c[2], c[3], mult[i], tab, tab_len);
   }
 }
 
@@ -107,18 +105,12 @@ void sid_lynch_record_rows_host(const double* rec, int64_t n,
   }
 }
 
-// The objective kernel over the records, with a grid of `grid` blocks. The
-// blocks run their chunks (grid-stride) and store their partials; then, for
-// each of the n_orders orders (orders: n_orders x grid block indices, the
-// order in which the blocks take their tickets), the block that takes the
-// last ticket folds the partials. Per order o: out[2o] the sum of the
-// unflagged terms, out[2o + 1] the flagged count, elected[o] the block that
-// folded. *ticket is left as the folds leave it (0 when each reset it).
-// flags (n,) written per row.
+// The objective kernel over the records, with a grid of `grid` blocks: the
+// blocks run their chunks (grid-stride) and store their partials, then the
+// partials fold in the fixed order. out[0] the sum of the unflagged terms,
+// out[1] the flagged count; flags (n,) written per row.
 void sid_lynch_nll_host(const double* rec, int64_t n, const double* scalars,
-                        int grid, const int32_t* orders, int n_orders,
-                        uint8_t* flags, double* out, int32_t* elected,
-                        uint32_t* ticket) {
+                        int grid, uint8_t* flags, double* out) {
   const sid::LynchScalars s = unpack(scalars);
   const int64_t n_chunks = (n + sid::kChunk - 1) / sid::kChunk;
   std::vector<double> part_sum(static_cast<size_t>(n_chunks));
@@ -134,29 +126,20 @@ void sid_lynch_nll_host(const double* rec, int64_t n, const double* scalars,
       part_cnt[static_cast<size_t>(chunk)] = c[0];
     }
   }
-  for (int o = 0; o < n_orders; ++o) {
-    elected[o] = -1;
-    for (int k = 0; k < grid; ++k) {
-      const uint32_t taken = (*ticket)++;
-      if (taken != static_cast<uint32_t>(grid - 1)) continue;
-      elected[o] = orders[static_cast<int64_t>(o) * grid + k];
-      for (int t = 0; t < sid::kReduceThreads; ++t) {
-        double acc = 0.0;
-        int cnt = 0;
-        for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
-          const int64_t i = base + t;
-          acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(i)] : 0.0);
-          cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(i)] : 0);
-        }
-        v[t] = acc;
-        c[t] = cnt;
-      }
-      tree_fold(v, c);
-      out[2 * o] = v[0];
-      out[2 * o + 1] = static_cast<double>(c[0]);
-      *ticket = 0;
+  for (int t = 0; t < sid::kReduceThreads; ++t) {
+    double acc = 0.0;
+    int cnt = 0;
+    for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
+      const int64_t i = base + t;
+      acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(i)] : 0.0);
+      cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(i)] : 0);
     }
+    v[t] = acc;
+    c[t] = cnt;
   }
+  tree_fold(v, c);
+  out[0] = v[0];
+  out[1] = static_cast<double>(c[0]);
 }
 
 }  // extern "C"

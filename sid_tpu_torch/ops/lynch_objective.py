@@ -15,7 +15,7 @@ Any other device, dtype, shape, layout or value range raises; so does a
 failed build or launch.
 
 ``lynch_compound_nll`` and ``lynch_marginals`` are the one-call forms the
-tests and chip_smoke.py hold against the plain versions.
+tests hold against the plain versions.
 
 Both kernels apply the long-double range screen: the objective leaves the
 rows it flags out of its sum and counts them, the marginals flag theirs;
@@ -57,16 +57,14 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
-def lynch_records_ref(
-    profiles: torch.Tensor, mult: Optional[torch.Tensor], lgamma_tab: torch.Tensor
-) -> torch.Tensor:
+def lynch_records_ref(profiles: torch.Tensor, mult: torch.Tensor, lgamma_tab: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the set-up kernel: the (3, U) f64 row record
     of csrc/lynch.cuh. Plane 0 is m (``likelihoods.log_multinomial``),
-    plane 1 the multiplicity as f64 (0 without ``mult``) with its sign bit
-    set where m > SAFE_MAX, plane 2 the counts as four uint16, c0 lowest."""
+    plane 1 the multiplicity as f64 with its sign bit set where m >
+    SAFE_MAX, plane 2 the counts as four uint16, c0 lowest."""
     prof = profiles.to(torch.int64)
     m = likelihoods.log_multinomial(prof, lgamma_tab)
-    w = mult.to(torch.float64) if mult is not None else torch.zeros_like(m)
+    w = mult.to(torch.float64)
     w = torch.where(m > likelihoods.SAFE_MAX, -w, w)
     # uint16 bit patterns as int16, then the four of a row as one 8-byte word
     as_i16 = torch.where(prof > 32767, prof - 65536, prof).to(torch.int16).contiguous()
@@ -95,16 +93,15 @@ def lynch_marginals_ref(
     return rows.lhom, rows.lhet, rows.flag_marginals.to(torch.uint8)
 
 
-def _check(profiles, lgamma_tab, mult=None) -> None:
+def _check(profiles, lgamma_tab, mult) -> None:
     if profiles.dim() != 2 or profiles.shape[1] != 4:
         raise ValueError(f"profiles must be (U, 4), got {tuple(profiles.shape)}")
     if lgamma_tab.dim() != 1:
         raise ValueError("lgamma_tab must be 1-D")
-    checks = [("profiles", profiles, torch.int32), ("lgamma_tab", lgamma_tab, torch.float64)]
-    if mult is not None:
-        if mult.shape != (profiles.shape[0],):
-            raise ValueError(f"mult must be ({profiles.shape[0]},), got {tuple(mult.shape)}")
-        checks.append(("mult", mult, torch.int64))
+    if mult.shape != (profiles.shape[0],):
+        raise ValueError(f"mult must be ({profiles.shape[0]},), got {tuple(mult.shape)}")
+    checks = [("profiles", profiles, torch.int32), ("lgamma_tab", lgamma_tab, torch.float64),
+              ("mult", mult, torch.int64)]
     for name, t, dtype in checks:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -127,7 +124,7 @@ def _check_values(profiles, mult) -> None:
         lo, hi = (int(v) for v in torch.aminmax(profiles))
         if lo < 0 or hi > MAX_COUNT:
             raise ValueError(f"counts must be in 0..{MAX_COUNT}, got {lo}..{hi}")
-    if mult is not None and mult.numel() and int(mult.min()) < 0:
+    if mult.numel() and int(mult.min()) < 0:
         raise ValueError("multiplicities must be >= 0")
 
 
@@ -185,15 +182,15 @@ def _raise_on(lib, err: int, what: str) -> None:
 class LynchWorkspace:
     """One fit's rows bound to their device, checked once.
 
-    profiles (U, 4) int32 counts in 0..65535, mult (U,) int64 >= 0 (None
-    for a workspace of the marginals alone), lgamma_tab (T,) f64 (T > max
-    coverage + 1), contiguous on one device. On a CUDA device the set-up
-    kernel writes the row record once, the grids come from the occupancy
-    API once, and the kernels launch on the stream that was current when the
-    workspace was made. On the CPU each method runs the plain version.
+    profiles (U, 4) int32 counts in 0..65535, mult (U,) int64 >= 0,
+    lgamma_tab (T,) f64 (T > max coverage + 1), contiguous on one device.
+    On a CUDA device the set-up kernel writes the row record once, the
+    grids come from the occupancy API once, and the kernels launch on the
+    stream that was current when the workspace was made. On the CPU each
+    method runs the plain version.
     """
 
-    def __init__(self, profiles: torch.Tensor, mult: Optional[torch.Tensor], lgamma_tab: torch.Tensor):
+    def __init__(self, profiles: torch.Tensor, mult: torch.Tensor, lgamma_tab: torch.Tensor):
         _check(profiles, lgamma_tab, mult)
         device = profiles.device
         if device.type != "cpu":
@@ -234,32 +231,28 @@ class LynchWorkspace:
         """Enqueue the set-up kernel that writes the row record (done once
         when the workspace is made)."""
         global RECORD_LAUNCHES
-        mult = self.mult
         with torch.cuda.device(self.device):
             err = self._lib.sid_lynch_records_launch(
-                self.profiles.data_ptr(), None if mult is None else mult.data_ptr(),
-                self.lgamma_tab.data_ptr(), self.lgamma_tab.shape[0], self.u, self.records.data_ptr(),
-                self.grids[0], self.stream.cuda_stream,
+                self.profiles.data_ptr(), self.mult.data_ptr(), self.lgamma_tab.data_ptr(),
+                self.lgamma_tab.shape[0], self.u, self.records.data_ptr(), self.grids[0],
+                self.stream.cuda_stream,
             )
         _raise_on(self._lib, err, "Lynch record")
         if self.u:
             RECORD_LAUNCHES += 1
 
     def bound_to(self, profiles, mult, lgamma_tab) -> bool:
-        """Whether the workspace was made for these tensors (mult None:
-        any multiplicities)."""
+        """Whether the workspace was made for these tensors."""
         return (
             profiles.device == self.device
             and profiles.shape == self.profiles.shape
             and profiles.data_ptr() == self.profiles.data_ptr()
+            and mult.data_ptr() == self.mult.data_ptr()
             and lgamma_tab.data_ptr() == self.lgamma_tab.data_ptr()
-            and (mult is None or (self.mult is not None and mult.data_ptr() == self.mult.data_ptr()))
         )
 
     def _launch_nll(self, scalars, grid: Optional[int], host_out) -> None:
         global NLL_LAUNCHES
-        if self.mult is None:
-            raise ValueError("the workspace was made without multiplicities")
         _check_scalars(scalars)
         if self.device.type == "cpu":
             self.out, self.flags = lynch_compound_nll_ref(self.profiles, self.mult, scalars, self.lgamma_tab)
@@ -370,23 +363,16 @@ def lynch_compound_nll(
 
 
 def lynch_marginals(
-    profiles: torch.Tensor,
-    scalars: np.ndarray,
-    lgamma_tab: torch.Tensor,
-    work: Optional[LynchWorkspace] = None,
+    profiles: torch.Tensor, scalars: np.ndarray, lgamma_tab: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B4 at one epsilon: (log L_hom, log L_het, uint8 flags), each (U,), on
     the profiles' device; the pi entries of ``scalars`` are not read. On
-    CUDA it reads the record of ``work``, a workspace made for these
-    profiles (made here, without multiplicities, when None)."""
-    _check(profiles, lgamma_tab)
+    CUDA through a workspace made here (multiplicities 0: B4 reads none)."""
+    mult = torch.zeros(profiles.shape[0], dtype=torch.int64, device=profiles.device)
+    _check(profiles, lgamma_tab, mult)
     _check_scalars(scalars)
-    if work is not None and not work.bound_to(profiles, None, lgamma_tab):
-        raise ValueError("the workspace was made for other rows")
     if profiles.device.type == "cpu":
-        _check_values(profiles, None)
+        _check_values(profiles, mult)
         return lynch_marginals_ref(profiles, scalars, lgamma_tab)
     _cuda_checks(profiles, lgamma_tab, "Lynch marginals")
-    if work is None:
-        work = LynchWorkspace(profiles, None, lgamma_tab)
-    return work.marginals(scalars)
+    return LynchWorkspace(profiles, mult, lgamma_tab).marginals(scalars)
