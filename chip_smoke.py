@@ -1,5 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch / CUDA port on one CUDA card: python3 chip_smoke.py
+"""Smoke run of the PyTorch / CUDA port on one CUDA card:
+
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` names an unpacked tree of the parent commit (git archive
+into a git-ignored directory); phase 3 then builds its local classify
+kernel too and times it against this tree's in turns on the same card.
 
 Drives sid_tpu_torch's main paths (``engine.run``, what ``./sid-tpu-torch``
 runs) on the card and checks them:
@@ -8,21 +14,27 @@ runs) on the card and checks them:
 2. build: libsidtpu.so (g++) and the kernel libraries (one nvcc per source,
    all started together, sm_90a) from the sources in this checkout; the
    compiler's register report of every kernel (0 spill bytes asserted for
-   the Lynch kernels) and, from cuobjdump -sass, the f64 instructions that
+   every kernel) and, from cuobjdump -sass, the f64 instructions that
    every row of each kernel executes, from which the bounds below are
    computed;
-3. kernel vs plain: the slim local classify kernel against its plain torch
-   f64 version on the card at U = 1,000,000 profiles (Poisson(30) bulk,
-   zero rows, deep rows up to 65535, ties, capped rows) at -E 0.0, 0.1 and
-   1.0: identical non-finite positions, |a-b| <= 1e-12 max(1,|a|); median
+3. kernel vs plain: the local classify kernel against its plain torch f64
+   version on the card at U = 1,000,000 profiles (Poisson(30) bulk, zero
+   rows, deep rows up to 65535, ties, capped rows) at -E 0.0, 0.1, 1.0 and
+   -0.1: l1 and l2 with identical non-finite positions and |a-b| <= 1e-12
+   max(1,|a|); the byte (major, second, range flag) bitwise against the
+   plain version and against the host's major_allele_indices_np and
+   long_double_range_rows at each -E and priors -1, 1e-3 and 0.999; median
    times of both over distinct inputs, by CUDA events, the device-only
-   time and the bound;
+   time, the bound from the kernel's own bytes and the share of the first
+   port's 40-byte bound; with --parent, the parent's kernel in turns;
 4. the -m local path: engine.run on the golden fixture (byte-equal to
    golden_local.csv), the 100k-site real-data-shaped fixture and a
    1,000,000-site simulated ~30x pileup, the last two byte-equal to the CSV
    of the host long-double classifier (no kernel in that path); the
    kernel's launch count must grow; prints sites/s and the device stage's
-   share; 4b splits the device stage at U = 1M;
+   share; 4b splits the device stage at U = 1M (torch.profiler: the two
+   copies and the kernel) and times classify_profiles_local there against
+   the host long-double classifier;
 5. the Lynch fit's kernels against their plain torch versions on the
    cov >= 4 rows of phase 3's profiles with seeded multiplicities: the row
    record bitwise; the objective B2 bitwise (sum and flagged count) with
@@ -67,7 +79,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
 U_KERNEL = 1_000_000
 N_SITES = 1_000_000
-THRESHOLDS = (0.0, 0.1, 1.0)
+THRESHOLDS = (0.0, 0.1, 1.0, -0.1)
+PRIORS = (-1.0, 1e-3, 0.999)
 RTOL = 1e-12
 REPEATS = 20
 INPUT_SETS = 5
@@ -238,9 +251,10 @@ def cuobjdump_path():
 
 def row_counts(instrs: list) -> dict:
     """What every row of a kernel executes, from its SASS (a list of
-    (address, predicated, opcode, operands)). The row's code is the loop
-    that holds the kernel's first global load (the row's own data), or the
-    whole kernel where no loop does. An instruction of it is executed by
+    (address, predicated, opcode, operands)). The row's code is the
+    innermost loop that holds the kernel's first global load inside a loop
+    (the row's own data, or the next row's where a thread loads ahead), or
+    the whole kernel where no loop holds a global load. An instruction of it is executed by
     every row unless a branch can jump over it once that load has run; a
     predicated f64 instruction may do no work and is not counted. So
     ``f64`` and ``issued`` are lower bounds on the f64 instructions each
@@ -250,9 +264,11 @@ def row_counts(instrs: list) -> dict:
     code with every branch arm taken, an upper bound that the fold after
     the row loop does not enter."""
     end = instrs[-1][0] + 16
-    anchor = next(ad for ad, _, op, _ in instrs if op == "LDG")
     jumps = [(ad, int(args.split()[-1].rstrip(","), 16)) for ad, _, op, args in instrs if op == "BRA"]
     jumps += [(ad, end) for ad, pred, op, _ in instrs if op == "EXIT" and pred]
+    loads = [ad for ad, _, op, _ in instrs if op == "LDG"]
+    looped = [ad for ad in loads if any(t <= ad <= f for f, t in jumps)]
+    anchor = (looped or loads)[0]
     loops = [(t, f) for f, t in jumps if t <= anchor <= f]
     lo, hi = max(loops) if loops else (instrs[0][0], end)
     out = dict.fromkeys(("f64", "issued", "f64_all", "issued_all"), 0)
@@ -342,6 +358,48 @@ def fit_wall_split(torch, prof, mult, nt, dev) -> dict:
             "wall_ms": (t3 - t0) * 1e3, "x": [float(v) for v in res.x]}
 
 
+def parent_local_kernel(build, parent: str):
+    """The parent tree's local classify kernel (csrc/local_classify.cu of the
+    first port: int32 counts and host-made allele indices in, l1 and l2 out),
+    built here with this tree's nvcc flags, with the kernel's resident
+    blocks an SM from the occupancy API. Returns (ctypes library, ptxas
+    report, blocks an SM)."""
+    import ctypes
+
+    src = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc", "local_classify.cu")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    wrapper = os.path.join(build.BUILD_DIR, "parent_local_classify.cu")
+    with open(wrapper, "w") as f:
+        f.write(f'#include "{src}"\n'
+                'extern "C" int sid_parent_blocks_per_sm(int* n) {\n'
+                '  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n'
+                '      n, local_classify_kernel, kThreads, 0));\n}\n')
+    out = os.path.join(build.BUILD_DIR, "libparent_local_classify.so")
+    proc = subprocess.run([build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
+                           "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out, wrapper],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the parent's kernel does not build: {proc.stderr}")
+    lib = ctypes.CDLL(out)
+    p = ctypes.c_void_p
+    lib.sid_local_classify_launch.restype = ctypes.c_int
+    lib.sid_local_classify_launch.argtypes = [p, p, p, ctypes.c_double, p, ctypes.c_int, p, p, ctypes.c_int64, p]
+    lib.sid_parent_blocks_per_sm.restype = ctypes.c_int
+    lib.sid_parent_blocks_per_sm.argtypes = [p]
+    per_sm = ctypes.c_int(0)
+    if lib.sid_parent_blocks_per_sm(ctypes.byref(per_sm)):
+        raise AssertionError("occupancy query of the parent's kernel failed")
+    return lib, ptxas_report(proc.stdout + proc.stderr), per_sm.value
+
+
+def device_time_ms(event) -> float:
+    """Device time of one call of a torch.profiler key_averages() entry, ms."""
+    total = getattr(event, "device_time_total", None)
+    if total is None:
+        total = event.cuda_time_total
+    return total / event.count / 1e3
+
+
 def first_difference(a: bytes, b: bytes) -> str:
     la, lb = a.split(b"\n"), b.split(b"\n")
     for k, (x, y) in enumerate(zip(la, lb)):
@@ -351,7 +409,13 @@ def first_difference(a: bytes, b: bytes) -> str:
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
+    ap.add_argument("--parent", help="an unpacked tree of the parent commit: time its local kernel in turns")
+    args = ap.parse_args()
 
     # ---- 1. probe ----
     if not torch.cuda.is_available():
@@ -368,7 +432,7 @@ def main() -> int:
     from sid_tpu_torch.native import bridge, build
     from sid_tpu_torch.ops import likelihoods, local_classify, lynch_objective
     from sid_tpu_torch.ops.lgamma import lgamma_table
-    from sid_tpu_torch.ops.profiles import nucleotide_distribution, unique_profiles
+    from sid_tpu_torch.ops.profiles import coverage_of, nucleotide_distribution, unique_profiles
     from sid_tpu_torch.utils import profiling
     from synth import make_pileup_text, simulate_diploid_counts
 
@@ -393,7 +457,7 @@ def main() -> int:
         for fn, r in report.items():
             log(f"# ptxas {name}: {fn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
                 f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
-            if name == "lynch" and (r["spill_stores"] or r["spill_loads"]):
+            if r["spill_stores"] or r["spill_loads"]:
                 raise AssertionError(f"ptxas spills registers in {fn}")
         sass.update(sass_row_counts(libs[name]))
     for fn, c in sorted(sass.items()):
@@ -405,46 +469,104 @@ def main() -> int:
     # ---- 3. kernel vs plain at U = 1M ----
     prof_np = kernel_profiles()
     major_np, second_np = major_allele_indices_np(prof_np)
-    prof = torch.from_numpy(prof_np).to(dev)
-    major = torch.from_numpy(major_np).to(dev)
-    second = torch.from_numpy(second_np).to(dev)
-    tab = lgamma_table(int(prof_np.sum(-1).max()), dev)
+    cov_np = coverage_of(prof_np)
+    counts_np, max_count = local_classify.narrow_counts(prof_np)
+    counts = torch.from_numpy(counts_np.view(np.int16)).to(dev)
+    tab = lgamma_table(4 * max_count, dev)
     max_abs = 0.0
     max_rel = 0.0
     for thr in THRESHOLDS:
-        k1, k2 = local_classify.local_log_likelihoods(prof, major, second, thr, tab)
-        torch.cuda.synchronize()
-        p1, p2 = local_classify.local_log_likelihoods_ref(prof, major, second, thr, tab)
-        torch.cuda.synchronize()
-        for name, a, b in (("l1", p1, k1), ("l2", p2, k2)):
-            err, rel = assert_agree(f"-E {thr} {name}", a.cpu().numpy(), b.cpu().numpy())
-            max_abs = max(max_abs, err)
-            max_rel = max(max_rel, rel)
-        log(f"# kernel == plain at U={U_KERNEL}, -E {thr}: ok")
+        p1, p2, _ = (t.cpu().numpy() for t in local_classify.local_classify_ref(counts, thr, PRIORS[0], tab))
+        flagged = []
+        for prior in PRIORS:
+            k1, k2, kb = (t.cpu().numpy() for t in local_classify.local_classify(counts, thr, prior, tab))
+            torch.cuda.synchronize()
+            for name, a, b in (("l1", p1, k1), ("l2", p2, k2)):
+                err, rel = assert_agree(f"-E {thr} prior {prior} {name}", a, b)
+                max_abs = max(max_abs, err)
+                max_rel = max(max_rel, rel)
+            pb = local_classify.local_classify_ref(counts, thr, prior, tab)[2].cpu().numpy()
+            k_major, k_second, k_flag = local_classify.unpack(kb)
+            want_flag = local.long_double_range_rows(cov_np, thr, prior)
+            for what, ok in (("byte vs plain", np.array_equal(kb, pb)),
+                             ("major vs major_allele_indices_np", np.array_equal(k_major, major_np)),
+                             ("second vs major_allele_indices_np", np.array_equal(k_second, second_np)),
+                             ("flag vs long_double_range_rows", np.array_equal(k_flag, want_flag))):
+                if not ok:
+                    raise AssertionError(f"-E {thr} prior {prior}: {what} differs")
+            flagged.append(int(k_flag.sum()))
+        log(f"# kernel == plain at U={U_KERNEL}, -E {thr}: l1, l2 ok; major, second and range flag bitwise the "
+            f"plain version, major_allele_indices_np and long_double_range_rows at priors {PRIORS} "
+            f"(rows flagged {flagged})")
     log(f"# kernel vs plain: max abs err {max_abs!r}, max rel err {max_rel!r} (bound {RTOL})")
     # distinct content per repeat: the same rows rolled by different offsets
-    sets = [
-        (torch.roll(prof, 7919 * k, 0).contiguous(), torch.roll(major, 7919 * k, 0).contiguous(),
-         torch.roll(second, 7919 * k, 0).contiguous(), 0.1, tab)
-        for k in range(INPUT_SETS)
-    ]
+    sets = [(torch.roll(counts, 7919 * k, 0).contiguous(), 0.1, 1e-3, tab) for k in range(INPUT_SETS)]
     # in turns: plain, kernel, kernel, plain
-    plain = event_times_ms(torch, local_classify.local_log_likelihoods_ref, sets)
-    kernel = event_times_ms(torch, local_classify.local_log_likelihoods, sets)
-    kernel += event_times_ms(torch, local_classify.local_log_likelihoods, sets)
-    plain += event_times_ms(torch, local_classify.local_log_likelihoods_ref, sets)
+    plain = event_times_ms(torch, local_classify.local_classify_ref, sets)
+    kernel = event_times_ms(torch, local_classify.local_classify, sets)
+    kernel += event_times_ms(torch, local_classify.local_classify, sets)
+    plain += event_times_ms(torch, local_classify.local_classify_ref, sets)
     plain_ms = statistics.median(plain)
     kernel_ms = statistics.median(kernel)
-    local_dev_ms = device_only_ms(torch, local_classify.local_log_likelihoods, sets)
-    # (U, 4) int32 counts, two int32 allele indices and two f64 results a row, and the table
+    local_dev_ms = device_only_ms(torch, local_classify.local_classify, sets)
+    # 8 B of counts in, l1, l2 and the byte out (17 B) a row, and the table;
+    # the first port moved 40 B a row for the same function
     local_rows = kernel_counts(sass, "local_classify_kernel")
-    local_bound = bound_ms(U_KERNEL * (16 + 8 + 16) + tab.shape[0] * 8, local_rows["f64"] * U_KERNEL)
+    local_f64 = local_rows["f64"] * U_KERNEL
+    local_bound = bound_ms(U_KERNEL * (8 + 17) + tab.shape[0] * 8, local_f64)
+    bound_40 = bound_ms(U_KERNEL * 40 + tab.shape[0] * 8, local_f64)[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = local_classify.resident_blocks(dev)
     log(f"# time at U={U_KERNEL}, -E 0.1, median of {len(kernel)} calls: kernel {kernel_ms:.4f} ms "
         f"(min {min(kernel):.4f}, max {max(kernel):.4f}), device only {local_dev_ms:.4f} ms, plain torch "
         f"{plain_ms:.4f} ms (min {min(plain):.4f}, max {max(plain):.4f}); bound {local_bound[0]:.4f} ms by "
-        f"{local_bound[1]} ({local_rows['f64']} f64 instructions a row), {local_bound[0] / local_dev_ms:.1%} of "
-        f"the bound; on {card}")
-    del sets, prof, major, second, p1, p2, k1, k2
+        f"{local_bound[1]} ({U_KERNEL * 25 / 1e6:.0f} MB of rows, {tab.shape[0] * 8 / 1e6:.1f} MB of table; "
+        f"{local_rows['f64']} f64 instructions every row executes, {local_rows['f64_all']} with every branch "
+        f"arm), {local_bound[0] / local_dev_ms:.1%} of the bound; the first port's 40-byte bound "
+        f"{bound_40:.4f} ms, {bound_40 / local_dev_ms:.1%}; issuing the row's instructions "
+        f"{issue_ms(local_rows['issued'], U_KERNEL):.4f}-{issue_ms(local_rows['issued_all'], U_KERNEL):.4f} ms "
+        f"({local_rows['issued']}-{local_rows['issued_all']} a warp); grid {resident} blocks ({resident // sms} an "
+        f"SM x {sms} SMs); on {card}")
+    parent_dev_ms = None
+    if args.parent:
+        plib, preport, per_sm = parent_local_kernel(build, args.parent)
+        for fn, r in preport.items():
+            log(f"# ptxas parent local_classify: {fn}: {r['registers']} registers, {r['stack']} bytes stack "
+                f"frame, {r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
+        launched = min(-(-U_KERNEL // 256), sms * 8)
+        log(f"# parent's local kernel at U={U_KERNEL}: {launched} blocks of 256 launched, {per_sm} resident an "
+            f"SM x {sms} SMs = {per_sm * sms}: " + (f"a second wave of {launched - per_sm * sms} blocks"
+                                                   if launched > per_sm * sms else "one wave"))
+        old_sets = []
+        for k in range(INPUT_SETS):
+            p_k = np.roll(prof_np, 7919 * k, 0)
+            m_k, s_k = major_allele_indices_np(p_k)
+            old_sets.append([torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (p_k, m_k, s_k)])
+        old_out = [torch.empty(U_KERNEL, dtype=torch.float64, device=dev) for _ in range(2)]
+
+        def old_launch(p_k, m_k, s_k):
+            err = plib.sid_local_classify_launch(
+                p_k.data_ptr(), m_k.data_ptr(), s_k.data_ptr(), 0.1, tab.data_ptr(), tab.shape[0],
+                old_out[0].data_ptr(), old_out[1].data_ptr(), U_KERNEL, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise AssertionError(f"the parent's kernel did not launch ({err})")
+
+        old_launch(*old_sets[0])
+        torch.cuda.synchronize()
+        ref1, ref2 = (t.cpu().numpy() for t in local_classify.local_classify(counts, 0.1, 1e-3, tab)[:2])
+        for name, a, b in (("l1", ref1, old_out[0].cpu().numpy()), ("l2", ref2, old_out[1].cpu().numpy())):
+            if not np.array_equal(a.view(np.uint64), b.view(np.uint64)):
+                raise AssertionError(f"the parent's kernel and this one differ in {name}")
+        turns = [("parent", old_launch, old_sets), ("new", local_classify.local_classify, sets),
+                 ("new", local_classify.local_classify, sets), ("parent", old_launch, old_sets)]
+        readings = [(who, device_only_ms(torch, fn, fn_sets)) for who, fn, fn_sets in turns]
+        parent_dev_ms = statistics.median(t for who, t in readings if who == "parent")
+        new_ms = statistics.median(t for who, t in readings if who == "new")
+        log(f"# in turns, device only at U={U_KERNEL}, -E 0.1: "
+            + ", ".join(f"{who} {t:.4f} ms" for who, t in readings)
+            + f"; the parent's l1, l2 bitwise this kernel's; parent / new {parent_dev_ms / new_ms:.2f}x; on {card}")
+        del old_sets, old_out
+    del sets, counts
 
     # ---- 4. main path ----
     golden_src = os.path.join(FIXTURES, "golden.pileup")
@@ -498,24 +620,33 @@ def main() -> int:
     log(f"# kernel launches on the main path: {launches}")
 
     # ---- 4b. the device stage and both placements at U = 1M profiles ----
-    segments = {"h2d": [], "kernel": [], "d2h": []}
+    # the stage as classify_profiles_local runs it: host wall, and the two
+    # copies and the kernel on the device by torch.profiler
+    thr, prior = opts.site_error_threshold, opts.snp_prior
+    stage_walls = []
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    allocs0 = host_stats().get("num_host_alloc") if host_stats else None
     for _ in range(5):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        args = [torch.from_numpy(a).to(dev) for a in (prof_np, major_np, second_np)]
-        ev[1].record()
-        l1, l2 = local_classify.local_log_likelihoods(*args, 0.1, tab)
-        ev[2].record()
-        l1.cpu(), l2.cpu()
-        ev[3].record()
-        ev[3].synchronize()
-        for k, name in enumerate(segments):
-            segments[name].append(ev[k].elapsed_time(ev[k + 1]))
-    med = {name: statistics.median(t) for name, t in segments.items()}
-    total = sum(med.values())
-    log(f"# device stage at U={U_KERNEL} (median of 5, pageable memory): h2d {med['h2d']:.3f} ms "
-        f"(24 B/profile), kernel {med['kernel']:.3f} ms, d2h {med['d2h']:.3f} ms (16 B/profile); "
-        f"kernel {med['kernel'] / total:.1%} of the stage; on {card}")
+        t0 = time.perf_counter()
+        local_classify.classify_profiles(prof_np, thr, prior, dev)
+        stage_walls.append((time.perf_counter() - t0) * 1e3)
+    allocs = host_stats().get("num_host_alloc") if host_stats else None
+    reuse = (f"{allocs - allocs0} new pinned host allocations in 5 calls" if None not in (allocs, allocs0)
+             else "pinned allocations not counted")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as tp:
+        for _ in range(5):
+            local_classify.classify_profiles(prof_np, thr, prior, dev)
+    seg = {}
+    for ev in tp.key_averages():
+        for name, key in (("h2d", "Memcpy HtoD"), ("kernel", "local_classify_kernel"), ("d2h", "Memcpy DtoH")):
+            if key in ev.key:
+                seg[name] = seg.get(name, 0.0) + device_time_ms(ev)
+    split = ", ".join(f"{name} {seg[name]:.4f} ms" if name in seg else f"{name} not measured"
+                      for name in ("h2d", "kernel", "d2h"))
+    log(f"# device stage at U={U_KERNEL} (classify_profiles, pinned): {split} on the device (torch.profiler, "
+        f"mean of 5 calls); 8 B a profile in ({U_KERNEL * 8 / 1e6:.0f} MB), 17 B a profile out "
+        f"({U_KERNEL * 17 / 1e6:.0f} MB); host wall {statistics.median(stage_walls):.2f} ms (runs "
+        f"{', '.join(f'{w:.2f}' for w in stage_walls)}); {reuse}; on {card}")
     walls = {"device": [], "host_ld": []}
     outs = {}
     for name in ("device", "host_ld", "host_ld", "device", "device", "host_ld"):
@@ -523,9 +654,10 @@ def main() -> int:
         t0 = time.perf_counter()
         outs[name] = fn(prof_np, opts, opts.snp_prior)
         walls[name].append((time.perf_counter() - t0) * 1e3)
-    (h_d, _, _, p1_d, p2_d), (h_l, _, _, p1_l, p2_l) = outs["device"], outs["host_ld"]
-    n_ld_rows = int(local.long_double_range_rows(
-        prof_np.sum(-1, dtype=np.int64), opts.site_error_threshold, opts.snp_prior).sum())
+    (h_d, a_d, b_d, p1_d, p2_d), (h_l, a_l, b_l, p1_l, p2_l) = outs["device"], outs["host_ld"]
+    if not (np.array_equal(a_d, a_l) and np.array_equal(b_d, b_l)):
+        raise AssertionError("classify_profiles_local's alleles differ from the host long-double path's")
+    n_ld_rows = int(local.long_double_range_rows(cov_np, thr, prior).sum())
     diff_g = sum(
         int(np.count_nonzero(np.char.mod("%g", a) != np.char.mod("%g", b)))
         for a, b in ((p1_d, p1_l), (p2_d, p2_l))
@@ -537,7 +669,7 @@ def main() -> int:
         f"of {2 * U_KERNEL}; {n_ld_rows} deep profiles sent to long double by the range screen; "
         f"on {card}")
 
-    del outs, h_d, h_l, p1_d, p2_d, p1_l, p2_l
+    del outs, h_d, h_l, a_d, a_l, b_d, b_l, p1_d, p2_d, p1_l, p2_l
 
     # ---- 5. the Lynch fit's kernels vs their plain versions ----
     fit_prof, fit_mult = fit_histogram(prof_np)
@@ -805,6 +937,18 @@ def main() -> int:
         log(f"# device fit at U={h_prof.shape[0]}, wall {sp['wall_ms']:.3f} ms = set-up {sp['setup_ms']:.3f} ms "
             f"(uploads, table, row record) + {sp['evaluations']} evaluations {sp['evaluations_ms']:.3f} ms "
             f"+ host simplex {sp['simplex_ms']:.3f} ms + B4 with its copies {sp['marginals_ms']:.3f} ms; on {card}")
+    # the set-up's largest coverage: the parent's length-4 axis sum against
+    # coverage_of's column adds, in turns, the same integers
+    cov_walls = {"sum(-1)": [], "coverage_of": []}
+    tops = set()
+    for name in ("sum(-1)", "coverage_of", "coverage_of", "sum(-1)") * 3:
+        t0 = time.perf_counter()
+        tops.add(int(h_prof.sum(-1).max()) if name == "sum(-1)" else int(coverage_of(h_prof).max()))
+        cov_walls[name].append((time.perf_counter() - t0) * 1e3)
+    if len(tops) != 1:
+        raise AssertionError(f"coverage_of and sum(-1) disagree: {tops}")
+    log(f"# the set-up's largest coverage at U={h_prof.shape[0]} (host clock, medians of 6, in turns): "
+        + ", ".join(f"{name} {statistics.median(w):.2f} ms" for name, w in cov_walls.items()) + f"; on {card}")
 
     # ---- 8. results ----
     kernel_rows = [{
@@ -819,6 +963,8 @@ def main() -> int:
         "device_ms": local_dev_ms,
         "bound_ms": local_bound[0],
         "bound_by": local_bound[1],
+        "bound_ms_40_bytes": bound_40,
+        "parent_device_ms": parent_dev_ms,
         "library_ms": None,
     }]
     for name, replaces, launches_key, err in (

@@ -3,13 +3,16 @@
 Reads ``samtools mpileup`` text and emits one CSV row per genome site with
 the most likely diploid genotype and LRT confidences, byte-equal to
 ``sid_tpu`` (the JAX package, which stays the reference). The port mirrors
-``sid_tpu`` module for module; its one device stage, the ``local`` method's
-per-profile slim classify, is a hand-written CUDA kernel for Hopper
-(``csrc/local_classify.cu``) with a plain torch f64 twin for CPU tensors.
+``sid_tpu`` module for module. Its device stages are hand-written CUDA
+kernels for Hopper, each with a plain torch f64 twin for CPU tensors: the
+``local`` method's per-profile classify (top-2 alleles, the slim log
+likelihoods and the long-double range screen; ``csrc/local_classify.cu``)
+and the Lynch fit's objective and marginals (``csrc/lynch.cu``).
 
-Host work (parse, dedup, libm LRT, ``%g`` CSV) runs in the same C++ library
-as ``sid_tpu``, built by this package from ``sid_tpu/native/parser.cpp``
-into ``sid_tpu_torch/_build``. Importing this package imports no JAX and no
+Host work (parse, dedup, libm LRT, ``%g`` CSV) runs in the same C++ code as
+``sid_tpu``: the package keeps a byte-for-byte copy of
+``sid_tpu/native/parser.cpp`` in ``csrc/host`` and builds it into
+``sid_tpu_torch/_build``. Importing this package imports no JAX and no
 ``sid_tpu`` module.
 """
 

@@ -1,25 +1,40 @@
-// Slim `local` classify on Hopper: per unique profile, the f64 log
-// likelihoods (l1 hom at the major allele, l2 het at major + second).
+// The `local` classify on Hopper: per unique profile, the top-2 alleles, the
+// f64 log likelihoods (l1 hom at the major allele, l2 het at major + second)
+// and the long-double range screen, from the counts alone.
 //
 // Replaces the TPU kernel sid_tpu/ops/pallas_classify.py
 // (local_log_likelihoods_pallas, body _classify_kernel), which emulated f64
-// with pairs of f32 (double-single) because the TPU has no f64, and left the
-// multinomial's lgamma gathers to XLA. Here the arithmetic is native f64,
-// term for term the f64 twin sid_tpu/models/local.py:71-95 (see
-// local_classify.cuh), and the lgamma gathers are inside the kernel.
+// with pairs of f32 (double-single) because the TPU has no f64, and took
+// major / second from the XLA program sid_tpu/models/common.py:44
+// (major_allele_indices, B8) and left the lgamma gathers to XLA. Here the
+// arithmetic is native f64, term for term the f64 twin
+// sid_tpu/models/local.py:71-95 (local_classify.cuh), and the top-2
+// selection, the lgamma gathers and the range screen of
+// models/local.py::long_double_range_rows are inside the kernel, so the host
+// sends nothing but the counts and runs no argsort, coverage sum or screen.
 //
-// What bounds it: bytes. Per profile it reads 16 B of counts (one int4
-// load), 8 B of allele indices and five lgamma-table entries, and writes
-// 16 B, against about ten f64 transcendentals (log, log1p) — far below the
-// card's f64 rate per byte. So the design is one thread per profile in a
-// grid-stride loop with coalesced 16-byte loads, the table read through the
-// read-only path (__ldg; it is 8 KB at the 1024-entry floor, up to 2 MB at
-// 65535x coverage, so it stays in global memory and lives in L1/L2). On the
-// calling path the host<->device copies of those bytes dominate, not the
-// kernel.
+// What bounds it: bytes. A row reads 8 B (four uint16 counts, one 8-byte
+// load) and writes 17 B (l1, l2 and a byte: major, second, range flag), 25 B
+// against the 40 B of the first port (int32 counts, host-made int32 allele
+// indices, two f64); its ~60-200 f64 instructions (four log / log1p) are
+// below the bytes' time at the card's FP64 rate. The design keeps the loads
+// in flight and the grid full:
+//   - a grid of exactly the resident blocks (the occupancy API, once per
+//     device on the host), each thread walking rows grid-stride, so there
+//     is no second wave of blocks;
+//   - a register double buffer: each thread issues the next row's 8-byte
+//     load before the current row's f64 math;
+//   - the lgamma table's head (kTabHead entries, table_size's floor, so it
+//     holds every index of coverage below 1023) staged in shared memory
+//     once per block with cp.async, overlapped with the first row's load;
+//     larger indices are read through __ldg as before (the same values,
+//     so the same bits);
+//   - launch bounds that ptxas meets with 0 spill bytes (chip_smoke.py
+//     prints the -Xptxas -v line and asserts it).
 //
-// Launch: on the caller's stream, no allocation (outputs come from the
-// torch wrapper), returns cudaGetLastError() so a refused launch is seen.
+// Launch: on the caller's stream, no allocation (the torch wrapper passes
+// the output buffer), no device query (the grid comes from the caller);
+// returns cudaGetLastError() so a refused launch is seen.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,23 +43,41 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+// register budget: at most 65536 / (kMinBlocks * kThreads) registers a
+// thread, so that ptxas reports 0 spill bytes
+constexpr int kMinBlocks = 5;
+constexpr int kTabHead = 1024;  // 8 KB of shared memory a block
 
-__global__ void __launch_bounds__(kThreads)
-    local_classify_kernel(const int4* __restrict__ prof,
-                          const int32_t* __restrict__ major,
-                          const int32_t* __restrict__ second, double thr,
-                          const double* __restrict__ tab, int tab_len,
-                          double* __restrict__ l1, double* __restrict__ l2,
-                          int64_t n) {
-  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int4 p = prof[i];
-    const sid::LogLik2 r = sid::local_log_likelihoods_one(
-        p.x, p.y, p.z, p.w, major[i], second[i], thr, tab, tab_len);
-    l1[i] = r.l1;
-    l2[i] = r.l2;
+__device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    local_classify_kernel(const uint2* __restrict__ counts, int64_t n,
+                          sid::ClassifyParams p, const double* __restrict__ tab,
+                          int tab_len, double* __restrict__ l1,
+                          double* __restrict__ l2, uint8_t* __restrict__ packed) {
+  __shared__ double head[kTabHead];
+  const int head_len = tab_len < kTabHead ? tab_len : kTabHead;
+  for (int k = threadIdx.x; k < head_len; k += kThreads) cp_async8(head + k, tab + k);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  uint2 next = i < n ? __ldg(counts + i) : make_uint2(0u, 0u);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const sid::StagedTable table{head, head_len, tab, tab_len};
+  for (; i < n; i += stride) {
+    const uint2 row = next;
+    if (i + stride < n) next = __ldg(counts + i + stride);
+    double a, b;
+    const unsigned byte = sid::classify_row(row.x, row.y, p, table, &a, &b);
+    l1[i] = a;
+    l2[i] = b;
+    packed[i] = static_cast<uint8_t>(byte);
   }
 }
 
@@ -52,28 +85,38 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// prof: (n, 4) int32, 16-byte aligned; major, second: (n,) int32;
-// tab: (tab_len,) f64; l1, l2: (n,) f64. Returns a cudaError_t.
-int sid_local_classify_launch(const void* prof, const void* major,
-                              const void* second, double thr, const void* tab,
-                              int tab_len, void* l1, void* l2, int64_t n,
-                              void* stream) {
-  if (n <= 0) return 0;
+// entries of the lgamma table read from shared memory
+int sid_local_classify_tab_head() { return kTabHead; }
+
+// The kernel's resident blocks on the whole current device (blocks an SM by
+// the occupancy API x SMs); the caller computes it once per device.
+int sid_local_classify_resident_blocks(int* blocks) {
   int device = 0;
   int sms = 0;
+  int per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, local_classify_kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t needed = (n + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  const int blocks = static_cast<int>(needed < cap ? needed : cap);
-  local_classify_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(prof), static_cast<const int32_t*>(major),
-      static_cast<const int32_t*>(second), thr,
-      static_cast<const double*>(tab), tab_len, static_cast<double*>(l1),
-      static_cast<double*>(l2), n);
+  *blocks = sms * per_sm;
+  return 0;
+}
+
+// counts: (n, 4) uint16, 8-byte aligned; params: thr, ln4, K, prior,
+// LD_LOG_MAX, -LD_LOG_MIN (6 host doubles) and `every`; tab: (tab_len,)
+// f64; out: 17 n bytes, 8-byte aligned: l1 (n f64), l2 (n f64), then the
+// n bytes. grid >= 1 blocks. Returns a cudaError_t.
+int sid_local_classify_launch(const void* counts, int64_t n, const double* params,
+                              int every, const void* tab, int tab_len, void* out,
+                              int grid, void* stream) {
+  if (n <= 0) return 0;
+  const sid::ClassifyParams p{params[0], params[1], params[2], params[3],
+                              params[4], params[5], every};
+  double* l1 = static_cast<double*>(out);
+  local_classify_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(counts), n, p, static_cast<const double*>(tab),
+      tab_len, l1, l1 + n, reinterpret_cast<uint8_t*>(l1 + 2 * n));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,6 +5,7 @@
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblocal_classify_host.so local_classify_host.cpp
 #include <stdint.h>
+#include <string.h>
 
 #include "local_classify.cuh"
 
@@ -20,6 +21,29 @@ void sid_local_classify_host(const int32_t* prof, const int32_t* major,
         p[0], p[1], p[2], p[3], major[i], second[i], thr, tab, tab_len);
     l1[i] = r.l1;
     l2[i] = r.l2;
+  }
+}
+
+// The kernel's row loop: counts (n, 4) uint16; params and every as
+// sid_local_classify_launch takes them; table indices below head_len read
+// from head (the kernel's shared-memory copy of the table's first entries),
+// the others from tab; out: 17 n bytes, l1 (n f64), l2 (n f64), then the n
+// bytes.
+void sid_local_classify_rows_host(const uint16_t* counts, int64_t n,
+                                  const double* params, int every,
+                                  const double* tab, int tab_len,
+                                  const double* head, int head_len, void* out) {
+  const sid::ClassifyParams p{params[0], params[1], params[2], params[3],
+                              params[4], params[5], every};
+  const sid::StagedTable table{head, head_len, tab, tab_len};
+  double* l1 = static_cast<double*>(out);
+  double* l2 = l1 + n;
+  uint8_t* packed = reinterpret_cast<uint8_t*>(l1 + 2 * n);
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t word[2];
+    memcpy(word, counts + 4 * i, sizeof(word));
+    packed[i] = static_cast<uint8_t>(
+        sid::classify_row(word[0], word[1], p, table, l1 + i, l2 + i));
   }
 }
 

@@ -7,8 +7,9 @@ column grammar ('.'/',' reference resolution, case = strand, '^x' skip,
 clamped to a minimum of 1 (pileup.cpp:159-163).
 
 This is the correctness baseline and fallback; the throughput path is the
-multithreaded C++ parser of sid_tpu/native/parser.cpp (same grammar, property-tested
-against this implementation).
+multithreaded C++ parser of csrc/host/parser.cpp (the port's copy of
+sid_tpu/native/parser.cpp; same grammar, property-tested against this
+implementation).
 
 Deliberately reproduced quirks:
 - '.'/',' resolve through toupper/tolower of the reference base, so a

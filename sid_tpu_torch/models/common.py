@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,12 @@ LONG_DOUBLE_UNDERFLOW_LOG = -16445.0 * math.log(2.0)
 
 ALLELES = np.frombuffer(b"ACGT", np.uint8)
 
+# natural logs of the normal long-double range (x86 80-bit: 2^-16382 to
+# just under 2^16384), with a margin far wider than any rounding
+LD_LOG_MAX = 16384 * math.log(2.0) - 1.0
+LD_LOG_MIN = -16382 * math.log(2.0) + 1.0
+LN4 = math.log(4.0)
+
 
 def major_allele_indices_np(counts: np.ndarray):
     """Top-2 allele indices with the reference's tie-break (call.cpp:52-60).
@@ -42,6 +48,33 @@ def major_allele_indices_np(counts: np.ndarray):
     scores = counts * 4 + np.arange(4, dtype=np.int64)
     order = np.argsort(scores, axis=-1)
     return order[..., 3].astype(np.int32), order[..., 2].astype(np.int32)
+
+
+def long_double_screen(error_threshold: float, snp_prior: float) -> Tuple[bool, float, float]:
+    """The constants of the long-double range screen
+    (``models/local.py::long_double_range_rows``): (every, K, prior).
+
+    A profile of coverage c is flagged when c ln 4 > LD_LOG_MAX or
+    c K + prior > -LD_LOG_MIN, or always when ``every`` (a negative -E, so
+    negative bases, or a prior of 1 or more). K is ln 4 for uncapped error
+    rates and -ln of the smallest base a capped rate gives; ``prior`` is
+    the larger -log of the prior's two factors, 0 without a prior. The
+    local classify kernel takes these values as they are.
+    """
+    thr = float(error_threshold)
+    if thr < 0 or snp_prior >= 1:
+        return True, LN4, 0.0
+    k = LN4
+    if thr > 0:  # a capped rate gives the bases 1-thr, thr/3, (1-2thr/3)/2
+        k = max(k, -math.log(thr / 3.0))
+        if thr < 1:
+            k = max(k, -math.log1p(-thr))
+        if thr < 1.5:
+            k = max(k, -math.log((1.0 - 2.0 / 3.0 * thr) / 2.0))
+    prior = 0.0
+    if snp_prior > 0:
+        prior = max(-math.log(snp_prior), -math.log1p(-snp_prior))
+    return False, k, prior
 
 
 def clamp_ld_underflow(log_l: torch.Tensor) -> torch.Tensor:

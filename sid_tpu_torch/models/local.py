@@ -10,29 +10,27 @@ With -R the SNP prior is the heterozygosity of the Lynch fit on the
 cov>=4 profiles (``models.lynch.estimate_prior_heterozygosity``,
 call.cpp:223-234), fitted before the classification.
 
-Placement: the host picks the top-2 alleles, the device computes only
-(l1, l2) per profile (``ops.local_classify``: the CUDA kernel on a CUDA
-device, the torch f64 twin on the CPU), and the host adds the prior and
-runs the LRT through glibc libm. ``classify_profiles_local_ld`` is the
-same classification in long double on the host (libsidtpu), an
-independent path with no device stage, against which the device path is
-held.
+Placement: the device takes the counts and returns, per profile, the top-2
+alleles, (l1, l2) and the range screen's flag (``ops.local_classify``: the
+CUDA kernel on a CUDA device, the torch f64 twin on the CPU), and the host
+adds the prior and runs the LRT through glibc libm.
+``classify_profiles_local_ld`` is the same classification in long double
+on the host (libsidtpu), an independent path with no device stage, against
+which the device path is held.
 
 The reference multiplies linear long doubles, mc * (1-e)^n0 * (e/3)^m *
 prior, so at deep coverage a factor can overflow or underflow the long
 double range: 9000 reads of each of two alleles give mc = inf and a NaN
 call. Log space never leaves its range, so those profiles would differ.
-``long_double_range_rows`` bounds every factor from the coverage alone; the
-profiles it cannot clear are classified by the long-double classifier
-instead, so both placements give the reference's bytes.
+``long_double_range_rows`` bounds every factor from the coverage alone (the
+kernel flags the same rows); the profiles it cannot clear are classified by
+the long-double classifier instead, so both placements give the
+reference's bytes.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
-import torch
 
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.io import native
@@ -40,15 +38,9 @@ from sid_tpu_torch.models import common
 from sid_tpu_torch.models.lynch import estimate_prior_heterozygosity
 from sid_tpu_torch.native import bridge
 from sid_tpu_torch.ops import local_classify, stats
-from sid_tpu_torch.ops.lgamma import lgamma_table
-from sid_tpu_torch.ops.profiles import coverage_of, unique_profiles
+from sid_tpu_torch.ops.profiles import unique_profiles
 from sid_tpu_torch.utils import profiling
 from sid_tpu_torch.utils.errors import NotPortedError
-
-# natural logs of the normal long-double range (x86 80-bit: 2^-16382 to
-# just under 2^16384), with a margin far wider than any rounding
-_LD_LOG_MAX = 16384 * math.log(2.0) - 1.0
-_LD_LOG_MIN = -16382 * math.log(2.0) + 1.0
 
 
 def long_double_range_rows(cov: np.ndarray, error_threshold: float, snp_prior: float) -> np.ndarray:
@@ -61,46 +53,29 @@ def long_double_range_rows(cov: np.ndarray, error_threshold: float, snp_prior: f
     log. Rows where these bounds stay inside the normal range evaluate
     every factor and partial product there, so log space gives the same
     answer; the others are returned True. A negative -E (negative bases) or
-    a prior of 1 or more flags every row.
+    a prior of 1 or more flags every row (``common.long_double_screen``).
+    The local classify kernel computes the same flag per row.
     """
-    thr = float(error_threshold)
-    if thr < 0 or snp_prior >= 1:
+    every, k, prior = common.long_double_screen(error_threshold, snp_prior)
+    if every:
         return np.ones(cov.shape[0], bool)
-    k = math.log(4.0)
-    if thr > 0:  # a capped rate gives the bases 1-thr, thr/3, (1-2thr/3)/2
-        k = max(k, -math.log(thr / 3.0))
-        if thr < 1:
-            k = max(k, -math.log1p(-thr))
-        if thr < 1.5:
-            k = max(k, -math.log((1.0 - 2.0 / 3.0 * thr) / 2.0))
-    prior = 0.0
-    if snp_prior > 0:
-        prior = max(-math.log(snp_prior), -math.log1p(-snp_prior))
     c = np.asarray(cov, np.float64)
-    return (c * math.log(4.0) > _LD_LOG_MAX) | (c * k + prior > -_LD_LOG_MIN)
+    return (c * common.LN4 > common.LD_LOG_MAX) | (c * k + prior > -common.LD_LOG_MIN)
 
 
 def classify_profiles_local(profiles: np.ndarray, options: Options, snp_prior: float):
     """Per-class local classification on the options' device; returns the
-    5 host arrays (is_het, major, second, p1, p2) over U."""
+    5 host arrays (is_het, major, second, p1, p2) over U. The alleles, (l1,
+    l2) and the range screen's rows all come from the classify kernel's
+    outputs (``ops.local_classify``); the prior and the LRT run on the host."""
     if not options.exact_pvalues:
         raise NotPortedError("the fused on-device LRT (exact_pvalues=False)")
     device = options.device()
-    u = profiles.shape[0]
-    major, second = common.major_allele_indices_np(profiles)
-    cov = coverage_of(profiles)
-    max_cov = int(cov.max()) if u else 0
     with profiling.device_stage("local_log_likelihoods", device):
-        tab = lgamma_table(max_cov, device)
-        l1, l2 = local_classify.local_log_likelihoods(
-            torch.from_numpy(np.ascontiguousarray(profiles, np.int32)).to(device),
-            torch.from_numpy(major).to(device),
-            torch.from_numpy(second).to(device),
-            options.site_error_threshold,
-            tab,
+        l1, l2, packed = local_classify.classify_profiles(
+            profiles, options.site_error_threshold, snp_prior, device
         )
-        l1 = l1.cpu().numpy()
-        l2 = l2.cpu().numpy()
+    major, second, ld_rows = local_classify.unpack(packed)
     if snp_prior > 0:
         # glibc log, matching the oracle's prior arithmetic
         l1 = l1 + np.log(np.float64(1.0 - snp_prior))
@@ -109,10 +84,10 @@ def classify_profiles_local(profiles: np.ndarray, options: Options, snp_prior: f
     p2 = stats.lrt_pvalue_from_logs_np(l1, l2)
     with np.errstate(invalid="ignore"):
         is_het = (l2 > l1) & (p2 < options.significance_level)
-    rows = np.nonzero(long_double_range_rows(cov, options.site_error_threshold, snp_prior))[0]
+    rows = np.flatnonzero(ld_rows)
     if rows.size:
-        is_het[rows], _, _, p1[rows], p2[rows] = classify_profiles_local_ld(
-            profiles[rows], options, snp_prior
+        is_het[rows], p1[rows], p2[rows] = _classify_ld(
+            profiles[rows], major[rows], second[rows], options, snp_prior
         )
     return is_het, major, second, p1, p2
 
@@ -121,12 +96,17 @@ def classify_profiles_local_ld(profiles: np.ndarray, options: Options, snp_prior
     """The same classification in host long double (libsidtpu's
     sidtpu_local_classify_ld, call.cpp:238-273); no device stage."""
     major, second = common.major_allele_indices_np(profiles)
+    is_het, p1, p2 = _classify_ld(profiles, major, second, options, snp_prior)
+    return is_het, major, second, p1, p2
+
+
+def _classify_ld(profiles, major, second, options: Options, snp_prior: float):
+    """(is_het, p1, p2) in host long double for given alleles."""
     with profiling.maybe_stage("host:local_classify_ld"):
-        is_het, p1, p2 = bridge.local_classify_ld(
+        return bridge.local_classify_ld(
             native.load(), profiles, major, second,
             options.site_error_threshold, snp_prior, options.significance_level,
         )
-    return is_het, major, second, p1, p2
 
 
 def _call(batch, options: Options, classify, diag) -> common.CallResult:

@@ -42,7 +42,7 @@ from sid_tpu_torch.io import native
 from sid_tpu_torch.native import bridge
 from sid_tpu_torch.ops import likelihoods, lynch_objective
 from sid_tpu_torch.ops.lgamma import lgamma_table
-from sid_tpu_torch.ops.profiles import filter_min_coverage, nucleotide_distribution
+from sid_tpu_torch.ops.profiles import coverage_of, filter_min_coverage, nucleotide_distribution
 from sid_tpu_torch.utils import profiling
 from sid_tpu_torch.utils.errors import NotPortedError
 
@@ -78,7 +78,7 @@ class DeviceObjective:
         self.mult = np.ascontiguousarray(mult, np.int64)
         self.nt = np.asarray(nt, np.float64)
         u = self.profiles.shape[0]
-        max_cov = int(self.profiles.sum(-1).max()) if u else 0
+        max_cov = int(coverage_of(self.profiles).max()) if u else 0
         self.prof_dev = torch.from_numpy(self.profiles).to(device)
         self.mult_dev = torch.from_numpy(self.mult).to(device)
         self.tab = lgamma_table(max_cov, device)

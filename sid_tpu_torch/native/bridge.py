@@ -1,4 +1,5 @@
-"""ctypes interface to libsidtpu (``sid_tpu/native/parser.cpp``).
+"""ctypes interface to libsidtpu (``sid_tpu_torch/csrc/host/parser.cpp``, the
+port's copy of ``sid_tpu/native/parser.cpp``).
 
 Declares every entry point the ``local`` and Lynch-fit slices call — the
 threaded parser (``sidtpu_parse_ex``), the unique-profile histogram, the two

@@ -1,9 +1,10 @@
 """Build the host library (g++) and the CUDA kernels (nvcc) at first use.
 
-The host library is compiled from ``sid_tpu/native/parser.cpp`` by path, with
-the flags of ``sid_tpu/native/build.py`` (``-ffp-contract=off`` keeps
-per-operation IEEE rounding), into ``sid_tpu_torch/_build/libsidtpu.so``;
-nothing is written into ``sid_tpu/``. Each kernel source in
+The host library is compiled from the port's own copy of sid_tpu's host
+C++ (``csrc/host/parser.cpp`` and ``fmt_g_pow10.h``, byte for byte
+``sid_tpu/native/``'s, which a test checks), with the flags of
+``sid_tpu/native/build.py`` (``-ffp-contract=off`` keeps per-operation IEEE
+rounding), into ``sid_tpu_torch/_build/libsidtpu.so``. Each kernel source in
 ``sid_tpu_torch/csrc`` is compiled for Hopper (``sm_90a``) into a shared
 library of its own with a plain C interface, loaded with ctypes;
 ``kernel_libraries`` starts one nvcc per source, all at once. Each output is
@@ -28,12 +29,11 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REPO = os.path.dirname(PKG)
 BUILD_DIR = os.path.join(PKG, "_build")
 CSRC = os.path.join(PKG, "csrc")
 
-HOST_SRC = os.path.join(REPO, "sid_tpu", "native", "parser.cpp")
-HOST_DEPS = [HOST_SRC, os.path.join(REPO, "sid_tpu", "native", "fmt_g_pow10.h")]
+HOST_SRC = os.path.join(CSRC, "host", "parser.cpp")
+HOST_DEPS = [HOST_SRC, os.path.join(CSRC, "host", "fmt_g_pow10.h")]
 HOST_LIB = os.path.join(BUILD_DIR, "libsidtpu.so")
 
 # kernel name -> the headers its source (csrc/<name>.cu) includes
@@ -135,16 +135,20 @@ def _build(out: str, deps: List[str], make_cmd, log: str = "", salt: str = "") -
 
 
 def host_library() -> str:
-    """Path of libsidtpu.so, built from the shared source when stale or
-    built on another CPU."""
+    """Path of libsidtpu.so, built from ``csrc/host`` when stale or built on
+    another CPU."""
     return _build(HOST_LIB, HOST_DEPS, _host_cmd, salt=_cpu_fingerprint())
+
+
+def kernel_deps(name: str) -> List[str]:
+    """The sources kernel ``name``'s library is built from."""
+    return [os.path.join(CSRC, f) for f in [f"{name}.cu"] + KERNELS[name]]
 
 
 def kernel_library(name: str) -> str:
     """Path of kernel ``name``'s library, built with nvcc when stale."""
     lib, log = kernel_paths(name)
-    deps = [os.path.join(CSRC, f) for f in [f"{name}.cu"] + KERNELS[name]]
-    return _build(lib, deps, _kernel_cmd(name), log=log)
+    return _build(lib, kernel_deps(name), _kernel_cmd(name), log=log)
 
 
 def kernel_libraries() -> Dict[str, str]:

@@ -59,7 +59,13 @@ def _unique_profiles_np(counts: np.ndarray):
 
 
 def coverage_of(profiles: np.ndarray) -> np.ndarray:
-    return profiles.sum(axis=1, dtype=np.int64)
+    """Per-profile coverage as int64: four column adds, the integers of
+    ``profiles.sum(1)`` without numpy's slow length-4 axis reduction."""
+    cov = profiles[:, 0].astype(np.int64)
+    cov += profiles[:, 1]
+    cov += profiles[:, 2]
+    cov += profiles[:, 3]
+    return cov
 
 
 def filter_min_coverage(

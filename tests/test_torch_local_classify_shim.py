@@ -1,11 +1,16 @@
 """The CUDA kernel's per-profile arithmetic, compiled for the host, vs torch.
 
 ``sid_tpu_torch/csrc/local_classify.cuh`` holds the expressions the card
-runs; ``local_classify_host.cpp`` loops them over arrays. Built here with
-g++ (contraction off, like nvcc --fmad=false) and held against the plain
-torch f64 version with the parity tolerance of the kernel: identical
-non-finite positions, finite values within 1e-12 relative. Only the log
-implementations differ (glibc here, libdevice on the card).
+runs; ``local_classify_host.cpp`` loops them over arrays, and its
+``sid_local_classify_rows_host`` is the kernel's row loop (counts as four
+uint16 in, top-2, range flag, byte out, the table's head read from a copy as
+the kernel reads it from shared memory). Built here with g++ (contraction
+off, like nvcc --fmad=false) and held against the plain torch f64 version:
+the byte bitwise; l1 and l2 with the parity tolerance of the kernel
+(identical non-finite positions, finite values within 1e-12 relative), since
+only the log implementations differ (glibc here, libdevice on the card),
+and bitwise against the same expressions reading the table from global
+memory alone.
 """
 
 import ctypes
@@ -18,22 +23,30 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from sid_tpu_torch.models import common  # noqa: E402
 from sid_tpu_torch.models.common import (  # noqa: E402
     LONG_DOUBLE_UNDERFLOW_LOG,
     major_allele_indices_np,
 )
+from sid_tpu_torch.models import local  # noqa: E402
 from sid_tpu_torch.ops import local_classify  # noqa: E402
 from sid_tpu_torch.ops.lgamma import lgamma_table  # noqa: E402
 from test_torch_local_classify import (  # noqa: E402
+    SCREEN_PRIORS,
+    SCREEN_THRESHOLDS,
     THRESHOLDS,
     adversarial_profiles,
     assert_agree,
     bulk_profiles,
+    deep_screen_profiles,
+    tie_profiles,
 )
 
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sid_tpu_torch", "csrc"
 )
+# csrc/local_classify.cu kTabHead: table entries the kernel stages in shared memory
+TAB_HEAD = 1024
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +65,10 @@ def shim(tmp_path_factory):
     lib.sid_local_classify_host.argtypes = [
         p, p, p, ctypes.c_double, p, ctypes.c_int, p, p, ctypes.c_int64,
     ]
+    lib.sid_local_classify_rows_host.restype = None
+    lib.sid_local_classify_rows_host.argtypes = [
+        p, ctypes.c_int64, p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p,
+    ]
     lib.sid_long_double_underflow_log.restype = ctypes.c_double
     lib.sid_long_double_underflow_log.argtypes = []
     return lib
@@ -66,6 +83,31 @@ def run_shim(lib, prof, major, second, thr, tab):
         tab.ctypes.data, tab.shape[0], l1.ctypes.data, l2.ctypes.data, u,
     )
     return l1, l2
+
+
+def run_rows(lib, counts, thr, prior, tab, head_len=TAB_HEAD):
+    """The kernel's row loop on the host: (l1, l2, packed). The head is the
+    table's first head_len entries and a NaN after them, so a read past the
+    head shows."""
+    counts = np.ascontiguousarray(counts, np.uint16)
+    u = counts.shape[0]
+    head_len = min(head_len, tab.shape[0])
+    head = np.append(tab[:head_len], np.nan)
+    every, k, pr = common.long_double_screen(thr, prior)
+    params = np.array([thr, common.LN4, k, pr, common.LD_LOG_MAX, -common.LD_LOG_MIN], np.float64)
+    out = np.empty(17 * u, np.uint8)
+    lib.sid_local_classify_rows_host(
+        counts.ctypes.data, u, params.ctypes.data, int(every), tab.ctypes.data,
+        tab.shape[0], head.ctypes.data, head_len, out.ctypes.data,
+    )
+    return out[: 8 * u].view(np.float64), out[8 * u : 16 * u].view(np.float64), out[16 * u :]
+
+
+def plain(counts, thr, prior, tab_t):
+    got = local_classify.local_classify_ref(
+        torch.from_numpy(np.ascontiguousarray(counts, np.uint16)), thr, prior, tab_t
+    )
+    return tuple(t.numpy() for t in got)
 
 
 @pytest.mark.parametrize("thr", THRESHOLDS)
@@ -94,3 +136,54 @@ def test_shim_table_overrun_gives_nan(shim):
     tab = np.zeros(4, np.float64)
     l1, l2 = run_shim(shim, prof, idx, idx, 0.1, tab)
     assert np.isnan(l1[0]) and np.isnan(l2[0])
+
+
+@pytest.mark.parametrize("head_len", [0, 7, TAB_HEAD])
+@pytest.mark.parametrize("thr", THRESHOLDS)
+@pytest.mark.parametrize("make", [adversarial_profiles, bulk_profiles, tie_profiles])
+def test_shim_rows_match_plain(shim, make, thr, head_len):
+    counts = make()
+    tab_t = lgamma_table(int(counts.astype(np.int64).sum(-1).max()), "cpu")
+    tab = tab_t.numpy()
+    l1, l2, packed = run_rows(shim, counts, thr, 1e-3, tab, head_len)
+    p1, p2, p_packed = plain(counts, thr, 1e-3, tab_t)
+    assert np.array_equal(packed, p_packed)
+    assert_agree(l1, p1, 1e-12)
+    assert_agree(l2, p2, 1e-12)
+    # the staged head changes no bit: the same expressions on the global table
+    prof = counts.astype(np.int32)
+    major, second = major_allele_indices_np(prof)
+    g1, g2 = run_shim(shim, prof, major, second, thr, tab)
+    assert np.array_equal(l1.view(np.uint64), g1.view(np.uint64))
+    assert np.array_equal(l2.view(np.uint64), g2.view(np.uint64))
+
+
+def test_shim_rows_read_both_sides_of_the_cut(shim):
+    # table indices just below, at and above the head's end, in one row and
+    # across rows: every index below the cut from the head, every other from
+    # the table, and the same bits as reading the table alone
+    rng = np.random.default_rng(5)
+    counts = rng.integers(0, 700, (4000, 4)).astype(np.uint16)
+    counts[:200, 0] = rng.integers(TAB_HEAD - 3, TAB_HEAD + 3, 200)
+    cov = counts.astype(np.int64).sum(-1)
+    assert (cov + 1 < TAB_HEAD).any() and (cov + 1 >= TAB_HEAD).any()
+    assert np.isin(counts[:, 0].astype(np.int64) + 1, [TAB_HEAD - 1, TAB_HEAD]).any()
+    tab = lgamma_table(int(cov.max()), "cpu").numpy()
+    staged = run_rows(shim, counts, 0.1, 1e-3, tab)
+    flat = run_rows(shim, counts, 0.1, 1e-3, tab, head_len=0)
+    for a, b in zip(staged, flat):
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    assert np.isfinite(staged[0]).all() and np.isfinite(staged[1]).all()
+
+
+@pytest.mark.parametrize("prior", SCREEN_PRIORS)
+@pytest.mark.parametrize("thr", SCREEN_THRESHOLDS)
+def test_shim_rows_flags_match_long_double_range_rows(shim, thr, prior):
+    counts = deep_screen_profiles()
+    tab = lgamma_table(int(counts.astype(np.int64).sum(-1).max()), "cpu").numpy()
+    packed = run_rows(shim, counts, thr, prior, tab)[2]
+    major, second, flags = local_classify.unpack(packed)
+    want = local.long_double_range_rows(counts.astype(np.int64).sum(-1), thr, prior)
+    assert np.array_equal(flags, want)
+    want_major, want_second = major_allele_indices_np(counts.astype(np.int32))
+    assert np.array_equal(major, want_major) and np.array_equal(second, want_second)
