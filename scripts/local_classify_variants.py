@@ -110,18 +110,17 @@ def main() -> int:
         resident = ctypes.c_int(0)
         if lib.sid_local_classify_resident_blocks(ctypes.byref(resident)):
             raise AssertionError(f"{name}: occupancy query failed")
-        grid = min(resident.value, -(-u // local_classify.THREADS))
 
-        def launch(c, lib=lib, grid=grid):
+        def launch(c, lib=lib, resident=resident.value):
             err = lib.sid_local_classify_launch(c.data_ptr(), u, params, int(every), tab.data_ptr(), tab.shape[0],
-                                                out.data_ptr(), grid, torch.cuda.current_stream().cuda_stream)
+                                                out.data_ptr(), resident, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise AssertionError(f"launch failed ({err})")
 
         launches[name] = launch
         for fn, r in chip_smoke.ptxas_report(log).items():
-            print(f"# {name}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, grid {grid} "
-                  f"({grid // sms} an SM)", flush=True)
+            print(f"# {name}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, "
+                  f"{resident.value // sms} blocks an SM", flush=True)
     want = None
     for name, launch in launches.items():
         launch(sets[0])

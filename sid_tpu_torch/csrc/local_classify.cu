@@ -33,8 +33,9 @@
 //     prints the -Xptxas -v line and asserts it).
 //
 // Launch: on the caller's stream, no allocation (the torch wrapper passes
-// the output buffer), no device query (the grid comes from the caller);
-// returns cudaGetLastError() so a refused launch is seen.
+// the output buffer), no device query (the caller passes the resident
+// blocks it asked for once); returns cudaGetLastError() so a refused launch
+// is seen.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,9 +86,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 extern "C" {
 
-// entries of the lgamma table read from shared memory
-int sid_local_classify_tab_head() { return kTabHead; }
-
 // The kernel's resident blocks on the whole current device (blocks an SM by
 // the occupancy API x SMs); the caller computes it once per device.
 int sid_local_classify_resident_blocks(int* blocks) {
@@ -106,11 +104,14 @@ int sid_local_classify_resident_blocks(int* blocks) {
 // counts: (n, 4) uint16, 8-byte aligned; params: thr, ln4, K, prior,
 // LD_LOG_MAX, -LD_LOG_MIN (6 host doubles) and `every`; tab: (tab_len,)
 // f64; out: 17 n bytes, 8-byte aligned: l1 (n f64), l2 (n f64), then the
-// n bytes. grid >= 1 blocks. Returns a cudaError_t.
+// n bytes; resident: sid_local_classify_resident_blocks's count. The grid is
+// the resident blocks, or fewer where n needs fewer. Returns a cudaError_t.
 int sid_local_classify_launch(const void* counts, int64_t n, const double* params,
                               int every, const void* tab, int tab_len, void* out,
-                              int grid, void* stream) {
+                              int resident, void* stream) {
   if (n <= 0) return 0;
+  const int64_t needed = (n + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(needed < resident ? needed : resident);
   const sid::ClassifyParams p{params[0], params[1], params[2], params[3],
                               params[4], params[5], every};
   double* l1 = static_cast<double*>(out);

@@ -44,7 +44,6 @@ LAUNCHES = 0
 MAX_COUNT = 65535
 # l1 and l2 (f64) and the byte
 BYTES_PER_ROW = 17
-THREADS = 256  # csrc/local_classify.cu kThreads
 FLAG_BIT = 16
 
 _COUNT_DTYPES = (torch.uint16, torch.int16)  # int16: the uint16 bits
@@ -171,8 +170,6 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.sid_local_classify_launch.argtypes = [p, ctypes.c_int64, p, i32, p, i32, p, i32, p]
             lib.sid_local_classify_resident_blocks.restype = i32
             lib.sid_local_classify_resident_blocks.argtypes = [p]
-            lib.sid_local_classify_tab_head.restype = i32
-            lib.sid_local_classify_tab_head.argtypes = []
             lib.sid_cuda_error_string.restype = ctypes.c_char_p
             lib.sid_cuda_error_string.argtypes = [i32]
             _lib = lib
@@ -199,7 +196,7 @@ def resident_blocks(device: torch.device) -> int:
     return blocks
 
 
-def _launch(counts, error_threshold, snp_prior, lgamma_tab, buf, grid) -> None:
+def _launch(counts, error_threshold, snp_prior, lgamma_tab, buf) -> None:
     """Enqueue the kernel over ``counts`` (checked, on a card) into ``buf``."""
     global LAUNCHES
     device = counts.device
@@ -211,8 +208,6 @@ def _launch(counts, error_threshold, snp_prior, lgamma_tab, buf, grid) -> None:
     if u == 0:
         return
     lib = _kernel_lib()
-    if grid is None:
-        grid = min(resident_blocks(device), -(-u // THREADS))
     every, k, prior = common.long_double_screen(error_threshold, snp_prior)
     params = (ctypes.c_double * 6)(
         float(error_threshold), common.LN4, k, prior, common.LD_LOG_MAX, -common.LD_LOG_MIN
@@ -220,7 +215,8 @@ def _launch(counts, error_threshold, snp_prior, lgamma_tab, buf, grid) -> None:
     with torch.cuda.device(device):
         err = lib.sid_local_classify_launch(
             counts.data_ptr(), u, params, int(every), lgamma_tab.data_ptr(),
-            lgamma_tab.shape[0], buf.data_ptr(), grid, torch.cuda.current_stream(device).cuda_stream,
+            lgamma_tab.shape[0], buf.data_ptr(), resident_blocks(device),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(lib, err, "kernel launch")
     LAUNCHES += 1
@@ -231,7 +227,6 @@ def local_classify(
     error_threshold: float,
     snp_prior: float,
     lgamma_tab: torch.Tensor,
-    grid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(l1, l2, packed) over the profiles: the CUDA kernel on a CUDA device,
     the plain version on the CPU.
@@ -239,8 +234,8 @@ def local_classify(
     counts (U, 4) uint16 (torch.uint16, or int16 holding the bits),
     lgamma_tab (T,) f64 (``ops.lgamma.lgamma_table``, T > max coverage + 1),
     both contiguous on one device. On CUDA the three results are views of
-    one (17 U,) uint8 buffer (``split``); ``grid`` sets the number of blocks
-    (by default the resident blocks, or fewer when U needs fewer).
+    one (17 U,) uint8 buffer (``split``), and the grid is the kernel's
+    resident blocks (``resident_blocks``), or fewer where U needs fewer.
     """
     _check(counts, lgamma_tab)
     device = counts.device
@@ -249,7 +244,7 @@ def local_classify(
     if device.type != "cuda":
         raise ValueError(f"no local classify kernel for device {device}")
     buf = torch.empty(BYTES_PER_ROW * counts.shape[0], dtype=torch.uint8, device=device)
-    _launch(counts, error_threshold, snp_prior, lgamma_tab, buf, grid)
+    _launch(counts, error_threshold, snp_prior, lgamma_tab, buf)
     return split(buf, counts.shape[0])
 
 
@@ -278,7 +273,7 @@ def classify_profiles(
         counts = torch.empty((u, 4), dtype=torch.int16, device=device)
         counts.copy_(host_in, non_blocking=True)
         buf = torch.empty(BYTES_PER_ROW * u, dtype=torch.uint8, device=device)
-        _launch(counts, error_threshold, snp_prior, tab, buf, None)
+        _launch(counts, error_threshold, snp_prior, tab, buf)
         host_out = torch.empty(BYTES_PER_ROW * u, dtype=torch.uint8, pin_memory=True)
         host_out.copy_(buf, non_blocking=True)
         stream.synchronize()

@@ -15,6 +15,7 @@ memory alone.
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -123,6 +124,11 @@ def test_shim_matches_plain(shim, make, thr):
     )
     for a, b in zip(got, want):
         assert_agree(a, b.numpy(), 1e-12)
+
+
+def test_tab_head_is_the_kernels():
+    with open(os.path.join(CSRC, "local_classify.cu")) as f:
+        assert re.search(r"constexpr int kTabHead = (\d+);", f.read()).group(1) == str(TAB_HEAD)
 
 
 def test_shim_underflow_line_is_the_packages(shim):
