@@ -10,8 +10,8 @@ likelihoods and the long-double range screen; ``csrc/local_classify.cu``)
 and the Lynch fit's objective and marginals (``csrc/lynch.cu``).
 
 Host work (parse, dedup, libm LRT, ``%g`` CSV) runs in the same C++ code as
-``sid_tpu``: the package keeps a byte-for-byte copy of
-``sid_tpu/native/parser.cpp`` in ``csrc/host`` and builds it into
+``sid_tpu``: the package keeps a copy of ``sid_tpu/native/parser.cpp``,
+byte-equal but for one comment line, in ``csrc/host`` and builds it into
 ``sid_tpu_torch/_build``. Importing this package imports no JAX and no
 ``sid_tpu`` module.
 """

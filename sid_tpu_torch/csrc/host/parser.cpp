@@ -1,7 +1,7 @@
 // High-throughput mpileup parser for sid-tpu (host runtime, C++17).
 //
 // Implements the exact grammar of the reference parser
-// (/root/reference/pileup.cpp:13-167 — described, not copied): whitespace-run
+// (the reference's pileup.cpp:13-167 — described, not copied): whitespace-run
 // tokenization; read-bases column with './,' reference resolution, case =
 // strand, '^x' skip, '+N'/'-N' indel skip, everything else dropped; Phred+33
 // qualities decoded (byte-33) mod 256 then clamped to >= 1; base qualities

@@ -1,8 +1,8 @@
 """Build the host library (g++) and the CUDA kernels (nvcc) at first use.
 
 The host library is compiled from the port's own copy of sid_tpu's host
-C++ (``csrc/host/parser.cpp`` and ``fmt_g_pow10.h``, byte for byte
-``sid_tpu/native/``'s, which a test checks), with the flags of
+C++ (``csrc/host/parser.cpp`` and ``fmt_g_pow10.h``, line for line
+``sid_tpu/native/``'s but for one comment, which a test checks), with the flags of
 ``sid_tpu/native/build.py`` (``-ffp-contract=off`` keeps per-operation IEEE
 rounding), into ``sid_tpu_torch/_build/libsidtpu.so``. Each kernel source in
 ``sid_tpu_torch/csrc`` is compiled for Hopper (``sm_90a``) into a shared
