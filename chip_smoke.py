@@ -7,8 +7,9 @@
 into a git-ignored directory); phase 3 then builds its local classify
 kernel too and times it against this tree's in turns on the same card.
 
-Drives sid_tpu_torch's main paths (``engine.run``, what ``./sid-tpu-torch``
-runs) on the card and checks them:
+Drives sid_tpu_torch's main paths (``engine.run`` and
+``engine.run_streaming``, what ``./sid-tpu-torch`` and ``./sid-tpu-torch
+--stream`` run) on the card and checks them:
 
 1. probe: a CUDA card must be present; prints its name and power limit;
 2. build: libsidtpu.so (g++) and the kernel libraries (one nvcc per source,
@@ -52,11 +53,32 @@ runs) on the card and checks them:
    the deep-coverage repro of fault C2 byte-equal to --fit exact; every
    kernel of the path launched;
 7. the fit at U ~ 1M at the model layer: models.lynch.fit_profiles under
-   auto (the device fit) and --fit exact on phase 5's histogram; wall time,
-   iterations, (pi, eps) of both within the simplex tolerance, and how many
-   bayes / LR profile records differ; one evaluation and the device fit's
-   wall taken apart;
-8. prints a JSON line of kernel results, then the final JSON line
+   auto (the device fit) and --fit exact on phase 5's rows up to 1000x;
+   wall time, iterations, (pi, eps) of both within the simplex tolerance,
+   and how many bayes / LR profile records differ; one evaluation and the
+   device fit's wall taken apart;
+8. the quality finalize kernel (B6) at N = 1,000,000 sites (Poisson(30)
+   bulk, zero-coverage sites, ties, deep sites up to 65535, log sums on
+   both sides of the 80-bit underflow line, NaN and -inf sums) at priors
+   -1, 1e-3 and 0.999: lpp2 bitwise its plain version and sid_tpu's
+   finalize_quality_np composition, both p-values and the calls bitwise
+   libsidtpu's sidtpu_quality_finalize; the call, device-only and plain
+   times and the bound;
+9. the -m quality path: engine.run on golden.pileup (byte-equal to
+   golden_quality.csv; -R to golden_quality_R.csv; --engine exact), the
+   100k-site fixture and 1,000,000 simulated sites with per-read Phred
+   qualities from a seed (both byte-equal to the CSV of the fused host
+   finalize); the kernel's launch count must be one per device run; sites/s
+   and the device stage's share (three runs); the finalize at N = 1M both
+   ways: h2d, kernel and d2h by torch.profiler, against
+   sidtpu_quality_finalize on the host, p-values bitwise equal;
+10. engine.run_streaming on that file with 8 MB chunks for -m local,
+   -R -m likelihood_ratio and -m quality, each byte-equal to engine.run
+   (B1 and B6 launched); a --checkpoint run and a resume=True rerun that
+   skips pass 1; --stream -m local at 10,000,000 simulated sites (~1.1 GB
+   on disk, written under .smoke/ and removed) with 64 MB chunks, sites/s
+   of two runs, the output's SHA-256 equal to engine.run's;
+11. prints a JSON line of kernel results, then the final JSON line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the final
@@ -64,6 +86,8 @@ line. Without a CUDA card it exits 1 at once.
 """
 
 import gzip
+import hashlib
+import io
 import json
 import os
 import re
@@ -87,6 +111,9 @@ INPUT_SETS = 5
 FIT_THETAS = ((1e-3, 1e-3), (0.05, 0.01), (0.0, 1e-3), (1e-3, 0.0), (1.0, 1.0), (0.5, 0.999), (-0.1, 0.5))
 FIT_EPSILONS = (1e-3, 3.85e-11, 0.5)
 SIMPLEX_TOL = 1e-5
+N_QUALITY = 1_000_000
+N_STREAM = 10_000_000
+STREAM_CHUNK = 8 << 20
 
 
 def log(msg: str) -> None:
@@ -127,9 +154,9 @@ def fit_histogram(prof: np.ndarray, seed: int = 2025):
     return rows, mult
 
 
-def simulated_pileup(n_sites: int, seed: int = 7) -> bytes:
-    """~30x diploid pileup (pi=1e-3, eps=1e-2), the counts of bench.py's
-    generate, rendered as plain base letters with constant qualities."""
+def simulated_counts(n_sites: int, seed: int = 7) -> np.ndarray:
+    """(n_sites, 4) counts of a ~30x diploid sample (pi=1e-3, eps=1e-2),
+    bench.py's generate; every site has coverage >= 1."""
     rng = np.random.default_rng(seed)
     cov = rng.poisson(30, n_sites).clip(1)
     is_het = rng.uniform(size=n_sites) < 1e-3
@@ -143,6 +170,102 @@ def simulated_pileup(n_sites: int, seed: int = 7) -> bytes:
     counts[het_idx, major[het_idx]] -= half
     counts[het_idx, second] += half
     counts[np.arange(n_sites), rng.integers(0, 4, n_sites)] += n_err
+    return counts
+
+
+def _starts(lengths: np.ndarray) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+
+
+def phred_pileup(counts: np.ndarray, first_pos: int, seed: int) -> bytes:
+    """mpileup lines of ``counts`` (every coverage >= 1): chr1 from position
+    ``first_pos``, reference N, the reads as base letters (A, C, G, T in
+    turn) and per-read base and mapping qualities drawn from ``seed``
+    (Phred 2..41 and 1..60), assembled with numpy."""
+    counts = np.asarray(counts, np.int64)
+    n = counts.shape[0]
+    cov = counts.sum(1)
+    pos = np.arange(first_pos, first_pos + n, dtype=np.int64)
+    powers = 10 ** np.arange(1, 19, dtype=np.int64)
+    digits = lambda x: np.searchsorted(powers, x, side="right") + 1  # noqa: E731
+    head_len = 9 + digits(pos) + digits(cov)  # "chr1\t" pos "\tN\t" cov "\t"
+    heads = np.frombuffer("".join(f"chr1\t{p}\tN\t{c}\t" for p, c in zip(pos.tolist(), cov.tolist())).encode(),
+                          np.uint8)
+    line_len = head_len + 3 * cov + 3
+    start = _starts(line_len)
+    buf = np.empty(int(line_len.sum()), np.uint8)
+    buf[np.repeat(start - _starts(head_len), head_len) + np.arange(heads.size)] = heads
+    reads = start + head_len  # where each site's bases begin
+    site = np.repeat(np.arange(n), cov)
+    at = reads[site] + np.arange(site.size) - _starts(cov)[site]
+    buf[at] = np.repeat(np.tile(np.frombuffer(b"ACGT", np.uint8), n), counts.ravel())
+    rng = np.random.default_rng(seed)
+    buf[at + cov[site] + 1] = 33 + rng.integers(2, 42, site.size)
+    buf[at + 2 * cov[site] + 2] = 33 + rng.integers(1, 61, site.size)
+    buf[reads + cov] = ord("\t")
+    buf[reads + 2 * cov + 1] = ord("\t")
+    buf[reads + 3 * cov + 2] = ord("\n")
+    return buf.tobytes()
+
+
+def write_phred_pileup(path: str, n_sites: int, seed: int, block: int = 1_000_000) -> int:
+    """A Phred-varied simulated pileup of n_sites written in blocks of
+    ``block`` sites (each block's counts and qualities from its own seed);
+    returns its size in bytes."""
+    with open(path, "wb") as f:
+        for b, first in enumerate(range(0, n_sites, block)):
+            m = min(block, n_sites - first)
+            f.write(phred_pileup(simulated_counts(m, seed + 2 * b), first + 1, seed + 2 * b + 1))
+        return f.tell()
+
+
+def finalize_inputs(n: int, seed: int = 2026):
+    """The quality finalize's inputs at n sites: (counts uint16, major,
+    second, log_hom, log_het) with a Poisson(30) bulk, zero-coverage sites,
+    ties, deep sites up to 65535 (one of 65535 x 4), log sums on both
+    sides of the 80-bit underflow line and a few NaN and -inf sums."""
+    from sid_tpu_torch.models.common import LONG_DOUBLE_UNDERFLOW_LOG, major_allele_indices_np
+
+    rng = np.random.default_rng(seed)
+    counts = rng.permuted(rng.multinomial(rng.poisson(30, n), [0.94, 0.03, 0.02, 0.01]), axis=1)
+    zero, tie, deep, clamp = np.array_split(rng.permutation(n)[:40000], 4)
+    counts[zero] = 0
+    k = rng.integers(1, 300, tie.size)
+    counts[tie] = np.stack([k, k, np.zeros_like(k), k], 1)
+    counts[deep] = rng.integers(0, 65536, (deep.size, 4))
+    counts[deep[0]] = 65535
+    counts = counts.astype(np.uint16)
+    major, second = major_allele_indices_np(counts)
+    log_hom = -rng.exponential(60.0, n)
+    log_het = -rng.exponential(60.0, n)
+    log_het[clamp] = LONG_DOUBLE_UNDERFLOW_LOG + rng.normal(0, 40.0, clamp.size)
+    log_hom[clamp[::2]] = LONG_DOUBLE_UNDERFLOW_LOG + rng.normal(0, 40.0, clamp[::2].size)
+    log_het[deep] = -rng.uniform(0, 3e5, deep.size)
+    log_het[zero[:50]] = np.nan
+    log_het[zero[50:100]] = -np.inf
+    return counts, major, second, log_hom, log_het
+
+
+class HashSink:
+    """A binary output that keeps only the SHA-256 and the length of what
+    is written to it."""
+
+    mode = "wb"
+
+    def __init__(self):
+        self.hash = hashlib.sha256()
+        self.size = 0
+
+    def write(self, data: bytes) -> int:
+        self.hash.update(data)
+        self.size += len(data)
+        return len(data)
+
+
+def simulated_pileup(n_sites: int, seed: int = 7) -> bytes:
+    """~30x diploid pileup (``simulated_counts``) rendered as plain base
+    letters with constant qualities."""
+    counts = simulated_counts(n_sites, seed)
     lines = []
     for s, (a, c, g, t) in enumerate(counts.tolist()):
         n = a + c + g + t
@@ -406,6 +529,257 @@ def first_difference(a: bytes, b: bytes) -> str:
         if x != y:
             return f"line {k}: {x!r} vs {y!r}"
     return f"lengths {len(la)} vs {len(lb)} lines"
+
+
+def quality_kernel_phase(torch, dev, card, sass) -> dict:
+    """Phase 8: the quality finalize kernel at N_QUALITY sites against its
+    plain version, sid_tpu's numpy composition and libsidtpu's fused host
+    pass, bitwise, at each prior; its times and bound. Returns its row of
+    the kernels line (launches are phase 9's)."""
+    from sid_tpu_torch.models import quality
+    from sid_tpu_torch.ops import quality_finalize as qf
+    from sid_tpu_torch.ops import stats
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+
+    n = N_QUALITY
+    counts, major, second, log_hom, log_het = finalize_inputs(n)
+    alleles = qf.pack_alleles(major, second)
+    tab = lgamma_table(qf.MAX_TOP2, dev)  # the device stage's table
+    tab_np = tab.cpu().numpy()
+    c_dev = torch.from_numpy(counts.view(np.int16)).to(dev)
+    a_dev = torch.from_numpy(alleles).to(dev)
+    h_dev = torch.from_numpy(log_het).to(dev)
+    max_abs = 0.0
+    for prior in PRIORS:
+        k = qf.quality_finalize(c_dev, a_dev, h_dev, tab, prior).cpu().numpy()
+        torch.cuda.synchronize()
+        p = qf.quality_finalize_ref(c_dev, a_dev, h_dev, tab, prior).cpu().numpy()
+        lpp1, lpp2 = quality.finalize_quality_np(counts, major, second, log_hom, log_het, prior, tab_np)
+        het, p1, p2 = quality.finalize_quality_native(counts, major, second, log_hom, log_het, prior, 0.05)
+        k1 = stats.lrt_pvalue_from_logs_np(k, lpp1)
+        k2 = stats.lrt_pvalue_from_logs_np(lpp1, k)
+        for what, a, b in (("lpp2 vs the plain version", k, p), ("lpp2 vs finalize_quality_np", k, lpp2),
+                           ("p1 vs sidtpu_quality_finalize", k1, p1), ("p2 vs sidtpu_quality_finalize", k2, p2)):
+            if not np.array_equal(a.view(np.uint64), b.view(np.uint64)):
+                raise AssertionError(f"quality finalize at prior {prior}: {what} differs bitwise")
+        with np.errstate(invalid="ignore"):
+            if not np.array_equal(het, k2 < 0.05):
+                raise AssertionError(f"quality finalize at prior {prior}: het calls differ from the host pass")
+        fin = np.isfinite(k)
+        max_abs = max(max_abs, float(np.abs(k[fin] - p[fin]).max()))
+        log(f"# quality finalize == plain at N={n}, prior {prior}: lpp2 bitwise the plain version and "
+            f"finalize_quality_np, both p-values and the calls bitwise sidtpu_quality_finalize "
+            f"({int(np.isneginf(k).sum())} sites clamped to -inf, {int(np.isnan(k).sum())} NaN)")
+    sets = []
+    for j in range(INPUT_SETS):  # distinct content: the same sites rolled
+        sets.append(tuple(torch.roll(t, 7919 * j, 0).contiguous() for t in (c_dev, a_dev, h_dev)) + (tab, 1e-3))
+    plain = event_times_ms(torch, qf.quality_finalize_ref, sets)
+    call = event_times_ms(torch, qf.quality_finalize, sets) + event_times_ms(torch, qf.quality_finalize, sets)
+    plain += event_times_ms(torch, qf.quality_finalize_ref, sets)
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    misses = torch.empty(1, dtype=torch.int32, device=dev)
+    dev_ms = device_only_ms(torch, lambda c, a, h, t, pr: qf.launch(c, a, h, t, pr, out, misses), sets)
+    rows = kernel_counts(sass, "quality_finalize_kernel")
+    n_bytes = n * qf.BYTES_PER_SITE + tab.shape[0] * 8
+    b_ms, b_by = bound_ms(n_bytes, rows["f64"] * n)
+    b_all = bound_ms(n_bytes, rows["f64_all"] * n)[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = qf.resident_blocks(dev)
+    row = {"name": "quality_finalize", "route": "cuda", "source": "sid_tpu_torch/csrc/quality_finalize.cu",
+           "replaces": "sid_tpu/models/quality.py:113", "launches": None, "max_abs_err": max_abs,
+           "ms": statistics.median(call), "plain_ms": statistics.median(plain), "device_ms": dev_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    log(f"# quality_finalize at N={n}, prior 1e-3: call {row['ms']:.4f} ms (median of {len(call)}, min "
+        f"{min(call):.4f}; launch, stream sync, miss count), device only {dev_ms:.4f} ms, plain torch "
+        f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({n * qf.BYTES_PER_SITE / 1e6:.0f} MB of sites, "
+        f"{tab.shape[0] * 8 / 1e6:.1f} MB of table; {rows['f64']} f64 instructions every row executes, "
+        f"{rows['f64_all']} with every branch arm: {b_all:.4f} ms), {b_ms / dev_ms:.1%} of the bound; issuing the "
+        f"row's instructions {issue_ms(rows['issued'], n):.4f}-{issue_ms(rows['issued_all'], n):.4f} ms "
+        f"({rows['issued']}-{rows['issued_all']} a warp); grid {resident} blocks ({resident // sms} an SM x {sms} "
+        f"SMs); on {card}")
+    return row
+
+
+def quality_path_phase(torch, dev, card, workdir, golden_src, real_src):
+    """Phase 9: -m quality through engine.run on the goldens, the 100k-site
+    fixture and N_QUALITY Phred-varied simulated sites (the last two
+    byte-equal to the fused host finalize's CSV); sites/s, the stage split,
+    and the finalize at N_QUALITY both ways. Returns (kernel launches of the
+    path, the simulated file)."""
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.io.pileup import parse_pileup
+    from sid_tpu_torch.models import quality
+    from sid_tpu_torch.ops import quality_finalize as qf
+    from sid_tpu_torch.ops import stats
+    from sid_tpu_torch.utils import profiling
+
+    qsrc = os.path.join(workdir, "phred_1m.pileup")
+    t0 = time.perf_counter()
+    size = write_phred_pileup(qsrc, N_QUALITY, seed=8)
+    log(f"# simulated {N_QUALITY} ~30x sites with per-read Phred qualities ({size / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    opts = Options(method="quality")
+    want = {}
+    for name, src in (("bwa_like_100k", real_src), ("phred", qsrc)):
+        batch = parse_pileup(src, True, True, quality_terms_only=True)
+        want[name] = quality.call_quality_host(batch, opts).to_csv_bytes()
+
+    qf.LAUNCHES = 0
+    for label, kw, golden in (("-m quality", {}, "golden_quality.csv"),
+                              ("-R -m quality", {"estimate_prior": True}, "golden_quality_R.csv"),
+                              ("-m quality --engine exact", {"engine": "exact"}, "golden_quality.csv")):
+        with open(os.path.join(FIXTURES, golden), "rb") as f:
+            golden_bytes = f.read()
+        got = engine.run(golden_src, Options(method="quality", **kw), binary=True)
+        if got != golden_bytes:
+            raise AssertionError(f"golden {label}: CSV differs from {golden}: {first_difference(got, golden_bytes)}")
+        log(f"# golden.pileup {label}: byte-equal to {golden}")
+    got = engine.run(real_src, opts, binary=True)
+    if got != want["bwa_like_100k"]:
+        raise AssertionError(f"bwa_like_100k -m quality differs: {first_difference(got, want['bwa_like_100k'])}")
+    log("# bwa_like_100k -m quality: byte-equal to the fused host finalize's CSV")
+    runs = []
+    for _ in range(3):
+        prof_run = profiling.StageProfile()
+        profiling.activate(prof_run)
+        t0 = time.perf_counter()
+        got = engine.run(qsrc, opts, binary=True)
+        wall = time.perf_counter() - t0
+        profiling.activate(None)
+        if got != want["phred"]:
+            raise AssertionError(f"Phred-varied -m quality differs: {first_difference(got, want['phred'])}")
+        runs.append((wall, prof_run))
+    launches = qf.LAUNCHES
+    if launches != 6:  # golden, -R, the 100k fixture and three runs; none under --engine exact
+        raise AssertionError(f"the quality path launched the kernel {launches} times, expected 6")
+    log(f"# Phred-varied {N_QUALITY} sites -m quality: byte-equal to the fused host finalize's CSV (3 runs); "
+        f"kernel launches on the path: {launches}")
+    for wall, p in runs:
+        stages = ", ".join(f"{name} {s * 1e3:.1f} ms" for name, s in p.stages)
+        cuda_ms = p.counters.get("device:finalize_quality_het:cuda_ms", float("nan"))
+        log(f"# -m quality: {N_QUALITY / wall:,.0f} sites/s end to end ({wall * 1e3:.1f} ms); device stage "
+            f"{profiling.device_seconds(p) / wall:.2%} of wall ({cuda_ms:.3f} ms on the stream); {stages}; on {card}")
+
+    # the finalize at N_QUALITY both ways: the device stage (pinned copies,
+    # kernel) with the host hom side and libm LRT, against libsidtpu's fused
+    # host pass; in turns
+    batch = parse_pileup(qsrc, True, True, quality_terms_only=True)
+    args = (batch.counts, batch.q_major, batch.q_second, batch.q_log_hom, batch.q_log_het, -1.0)
+
+    def device_way():
+        lpp1, lpp2 = quality.finalize_logs(*args, dev)
+        return stats.lrt_pvalue_from_logs_np(lpp2, lpp1), stats.lrt_pvalue_from_logs_np(lpp1, lpp2)
+
+    def host_way():
+        return quality.finalize_quality_native(*args, 0.05)[1:]
+
+    walls = {"device stage + host LRT": [], "sidtpu_quality_finalize": []}
+    outs = {}
+    for name in ("device stage + host LRT", "sidtpu_quality_finalize") * 2 + (
+            "sidtpu_quality_finalize", "device stage + host LRT") * 2:
+        fn = device_way if name.startswith("device") else host_way
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    for a, b in zip(*outs.values()):
+        if not np.array_equal(a.view(np.uint64), b.view(np.uint64)):
+            raise AssertionError("the device finalize's p-values differ from sidtpu_quality_finalize's")
+    stage = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        qf.finalize_het(args[0], args[1], args[2], args[4], -1.0, dev)
+        stage.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as tp:
+        for _ in range(5):
+            qf.finalize_het(args[0], args[1], args[2], args[4], -1.0, dev)
+    seg = {}
+    for ev in tp.key_averages():
+        for name, key in (("h2d", "Memcpy HtoD"), ("kernel", "quality_finalize_kernel"), ("d2h", "Memcpy DtoH")):
+            if key in ev.key:
+                seg[name] = seg.get(name, 0.0) + device_time_ms(ev)
+    split = ", ".join(f"{name} {seg[name]:.4f} ms" if name in seg else f"{name} not measured"
+                      for name in ("h2d", "kernel", "d2h"))
+    log(f"# quality finalize at N={batch.num_sites} (the Phred-varied sites): device stage finalize_het host wall "
+        f"{statistics.median(stage):.2f} ms (runs {', '.join(f'{w:.2f}' for w in stage)}); on the device {split} "
+        f"(torch.profiler, mean of 5; {qf.BYTES_IN_PER_SITE} B a site in, 8 B out); whole finalize "
+        + ", ".join(f"{name} {statistics.median(w):.2f} ms (runs {', '.join(f'{x:.2f}' for x in w)})"
+                    for name, w in walls.items())
+        + f"; p-values bitwise equal; on {card}")
+    return launches, qsrc
+
+
+def stream_phase(card, workdir, qsrc) -> None:
+    """Phase 10: run_streaming on phase 9's file with 8 MB chunks for -m
+    local, -R -m likelihood_ratio and -m quality, byte-equal to engine.run;
+    a --checkpoint rerun with resume that skips pass 1; --stream -m local
+    at N_STREAM simulated sites with the default chunks, its output's hash
+    equal to engine.run's."""
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.ops import local_classify
+    from sid_tpu_torch.ops import quality_finalize as qf
+    from sid_tpu_torch.utils import profiling
+
+    cases = (("-m local", {}), ("-R -m likelihood_ratio", {"method": "likelihood_ratio", "estimate_prior": True}),
+             ("-m quality", {"method": "quality"}))
+    want = {label: engine.run(qsrc, Options(**kw), binary=True) for label, kw in cases}
+    local_classify.LAUNCHES = 0
+    qf.LAUNCHES = 0
+    for label, kw in cases:
+        out = io.BytesIO()
+        t0 = time.perf_counter()
+        n = engine.run_streaming(qsrc, Options(**kw), out, chunk_bytes=STREAM_CHUNK)
+        wall = time.perf_counter() - t0
+        if out.getvalue() != want[label]:
+            raise AssertionError(f"--stream {label} differs from engine.run: {first_difference(out.getvalue(), want[label])}")
+        log(f"# --stream {label}, {STREAM_CHUNK >> 20} MB chunks, {N_QUALITY} sites: byte-equal to engine.run, "
+            f"{n} records, {N_QUALITY / wall:,.0f} sites/s ({wall * 1e3:.1f} ms); on {card}")
+    launches = {"local classify": local_classify.LAUNCHES, "quality finalize": qf.LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the streaming path was not launched: {launches}")
+    log("# kernel launches on the streaming path: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+
+    label, kw = cases[1]
+    ckpt = os.path.join(workdir, "hist")
+    engine.run_streaming(qsrc, Options(**kw), io.BytesIO(), chunk_bytes=STREAM_CHUNK, checkpoint=ckpt)
+    prof = profiling.StageProfile()
+    profiling.activate(prof)
+    try:
+        again = io.BytesIO()
+        engine.run_streaming(qsrc, Options(**kw), again, chunk_bytes=STREAM_CHUNK, checkpoint=ckpt, resume=True)
+    finally:
+        profiling.activate(None)
+    stages = sorted({name for name, _ in prof.stages})
+    if "histogram" in stages or again.getvalue() != want[label]:
+        raise AssertionError(f"--checkpoint --resume {label}: stages {stages}, byte-equal {again.getvalue() == want[label]}")
+    log(f"# --stream {label} --checkpoint, then --resume: pass 1 skipped (stages run: {', '.join(stages)}), "
+        f"byte-equal to engine.run")
+
+    big = os.path.join(workdir, "phred_10m.pileup")
+    t0 = time.perf_counter()
+    size = write_phred_pileup(big, N_STREAM, seed=20)
+    log(f"# simulated {N_STREAM} sites ({size / 1e9:.2f} GB on disk) in {time.perf_counter() - t0:.1f} s")
+    sinks = []
+    for _ in range(2):
+        sink = HashSink()
+        p = profiling.StageProfile()
+        profiling.activate(p)
+        t0 = time.perf_counter()
+        n = engine.run_streaming(big, Options(), sink)
+        wall = time.perf_counter() - t0
+        profiling.activate(None)
+        sinks.append(sink)
+        split = {}
+        for name, s in p.stages:
+            split[name] = split.get(name, 0.0) + s
+        log(f"# --stream -m local, {N_STREAM} sites, 64 MB chunks: {N_STREAM / wall:,.0f} sites/s ({wall:.2f} s), "
+            f"{n} records; " + ", ".join(f"{k} {v * 1e3:.0f} ms" for k, v in split.items()) + f"; on {card}")
+    whole = engine.run(big, Options(), binary=True)
+    digest = hashlib.sha256(whole).hexdigest()
+    if any(s.hash.hexdigest() != digest or s.size != len(whole) for s in sinks):
+        raise AssertionError("--stream -m local at 10M sites differs from engine.run")
+    log(f"# --stream -m local at {N_STREAM} sites: output ({len(whole) / 1e6:.0f} MB) the same SHA-256 as engine.run")
 
 
 def main() -> int:
@@ -890,11 +1264,11 @@ def main() -> int:
             walls.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(walls)
 
-    # phase 5's histogram, and its rows up to 1000x: no row for the range
-    # screen, so no long-double power tables up to the deepest coverage
+    # phase 5's rows up to 1000x: no row for the range screen, so no
+    # long-double power tables up to the deepest coverage (the whole
+    # histogram's one flagged row costs both fits ~37 s: PERF.md section 5)
     shallow = fit_prof.sum(-1) <= 1000
-    for hist, (h_prof, h_mult) in (("phase 5 histogram", (fit_prof, fit_mult)),
-                                   ("rows <= 1000x", (fit_prof[shallow], fit_mult[shallow]))):
+    for hist, (h_prof, h_mult) in (("rows <= 1000x", (fit_prof[shallow], fit_mult[shallow])),):
         u_h = h_prof.shape[0]
         fits = {}
         for name, opts in (("device (auto)", opts_auto), ("exact", opts_exact)):
@@ -950,7 +1324,18 @@ def main() -> int:
     log(f"# the set-up's largest coverage at U={h_prof.shape[0]} (host clock, medians of 6, in turns): "
         + ", ".join(f"{name} {statistics.median(w):.2f} ms" for name, w in cov_walls.items()) + f"; on {card}")
 
-    # ---- 8. results ----
+    # ---- 8-10. the quality finalize kernel, -m quality, --stream ----
+    workdir = os.path.join(HERE, ".smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        quality_row = quality_kernel_phase(torch, dev, card, sass)
+        quality_row["launches"], qsrc = quality_path_phase(torch, dev, card, workdir, golden_src, real_src)
+        stream_phase(card, workdir, qsrc)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- 11. results ----
     kernel_rows = [{
         "name": "local_log_likelihoods",
         "route": "cuda",
@@ -975,6 +1360,7 @@ def main() -> int:
         kernel_rows.append({"name": name, "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
                      "replaces": replaces, "launches": fit_launches[launches_key], "max_abs_err": err,
                      **fit_times[name], "library_ms": None})
+    kernel_rows.append(quality_row)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

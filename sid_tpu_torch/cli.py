@@ -19,6 +19,7 @@ from typing import List, Optional
 
 from sid_tpu_torch import engine
 from sid_tpu_torch.config import Options
+from sid_tpu_torch.utils.checkpoint import StreamProgress
 from sid_tpu_torch.utils.errors import NotPortedError, SidParseError
 from sid_tpu_torch.utils.profiling import StageProfile, activate
 
@@ -45,7 +46,7 @@ _LONG_OPTIONS = [
     ("output=", "Output CSV path ('-' = stdout, default)"),
     ("devices=", "Number of devices for the site axis (not yet ported)"),
     ("per-shard-fit", "Fit the Lynch model per shard (not yet ported)"),
-    ("stream", "Two-pass streaming mode (not yet ported)"),
+    ("stream", "Two-pass streaming mode: memory bounded by --chunk-mb, identical output"),
     ("chunk-mb=", "Streaming chunk size in MB (default 64)"),
     ("profile", "Print per-stage timing report to stderr"),
     ("platform=", "Torch device: 'cuda' (default) or 'cpu'; also honored from SIDTPU_PLATFORM"),
@@ -160,7 +161,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     options.platform = options.platform or os.environ.get("SIDTPU_PLATFORM")
     try:
         engine.check_ported(options)
-        if options.engine == "device":
+        # the streaming engine's fit and classify run on the device under
+        # either engine, as sid_tpu's do
+        if options.engine == "device" or options.stream:
             options.device()
     except (NotPortedError, RuntimeError) as e:
         _fail(str(e))
@@ -177,7 +180,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     prof = StageProfile(enabled=options.profile)
     activate(prof if options.profile else None)
     try:
-        csv = engine.run(input_path, options, diag, binary=True)
+        if options.stream:
+            prof.count("sites", _stream(options, input_path, diag))
+        else:
+            csv = engine.run(input_path, options, diag, binary=True)
+            prof.count("sites", max(csv.count(b"\n") - 1, 0))
+            _write(options.output, csv)
     except SidParseError as e:
         # the reference dies on the uncaught std::invalid_argument; we
         # report the same message with the offending line number
@@ -185,17 +193,36 @@ def main(argv: Optional[List[str]] = None) -> int:
         sys.exit(1)
     finally:
         activate(None)
-    prof.count("sites", max(csv.count(b"\n") - 1, 0))
-    if options.output in ("-", ""):
-        buf = sys.stdout.buffer
-        buf.write(csv)
-        buf.flush()
-    else:
-        with open(options.output, "wb") as out:
-            out.write(csv)
     if options.profile:
         prof.report(log=lambda line: print(line, file=sys.stderr))
     return 0
+
+
+def _write(output: str, csv: bytes) -> None:
+    if output in ("-", ""):
+        sys.stdout.buffer.write(csv)
+        sys.stdout.buffer.flush()
+    else:
+        with open(output, "wb") as out:
+            out.write(csv)
+
+
+def _stream(options: Options, input_path: str, diag) -> int:
+    """``--stream`` (sid_tpu/cli.py:197-217): the two-pass engine into
+    stdout, or into ``--output`` with chunk-level progress for ``--resume``
+    (the file is reopened in place when it exists). Returns the records
+    written."""
+    kw = dict(chunk_bytes=options.chunk_mb << 20, checkpoint=options.checkpoint,
+              resume=options.resume)
+    if options.output in ("-", ""):
+        n = engine.run_streaming(input_path, options, sys.stdout.buffer, diag, **kw)
+        sys.stdout.buffer.flush()
+        return n
+    mode = "r+b" if options.resume and os.path.exists(options.output) else "wb"
+    with open(options.output, mode) as out:
+        return engine.run_streaming(
+            input_path, options, out, diag, progress=StreamProgress(options.output), **kw
+        )
 
 
 if __name__ == "__main__":

@@ -44,12 +44,12 @@ class Options:
     diagnostics: bool = True
     # output path ("-" = stdout)
     output: str = "-"
-    # streaming two-pass mode (not yet ported)
+    # streaming two-pass mode (engine.run_streaming), chunk size in MB
     stream: bool = False
     chunk_mb: int = 64
     # per-stage timing report
     profile: bool = False
-    # streaming checkpoint/resume (not yet ported)
+    # streaming checkpoint (the pass-1 histogram, .npz) and resume
     checkpoint: Optional[str] = None
     resume: bool = False
     # multi-sample population mode: "", "pooled", or "independent"

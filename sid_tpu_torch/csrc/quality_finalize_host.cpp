@@ -1,0 +1,34 @@
+// Host build of the quality finalize kernel's per-site arithmetic
+// (quality_finalize.cuh), looped over arrays as the kernel's grid-stride loop
+// walks them, so the CPU tests can hold the very expressions the card runs
+// against the torch f64 version before any card sees them.
+//
+//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
+//       -o libquality_finalize_host.so quality_finalize_host.cpp
+#include <stdint.h>
+#include <string.h>
+
+#include "quality_finalize.cuh"
+
+extern "C" {
+
+// counts (n, 4) uint16; alleles, log_het, params and use_prior as
+// sid_quality_finalize_launch takes them; out: n f64; returns the misses.
+uint32_t sid_quality_finalize_rows_host(const uint16_t* counts, const uint8_t* alleles,
+                                        const double* log_het, int64_t n,
+                                        const double* params, int use_prior,
+                                        const double* tab, int tab_len, double* out) {
+  const sid::QualityParams p{params[0], params[1], params[2], use_prior};
+  uint32_t misses = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t word[2];
+    memcpy(word, counts + 4 * i, sizeof(word));
+    bool miss;
+    out[i] = sid::quality_het_row(word[0], word[1], alleles[i], log_het[i], p, tab, tab_len,
+                                  &miss);
+    misses += miss;
+  }
+  return misses;
+}
+
+}  // extern "C"

@@ -1,10 +1,11 @@
-"""Host-exact engine (``--engine exact``): local, bayes and likelihood_ratio
-in long double, the reference's observable pipeline (call.cpp) as sid_tpu's
+"""Host-exact engine (``--engine exact``): all four methods in long double,
+the reference's observable pipeline (call.cpp) as sid_tpu's
 ``exact/engine.py`` runs it. No device stage.
 
 Each function takes a parsed PileupBatch and Options and returns a
 CallResult; stderr diagnostics (call.cpp:72-80,155-163 and the minimizer's
-convergence line) go through ``diag``. ``quality`` waits for its slice.
+convergence line) go through ``diag``. ``quality`` needs the batch's
+per-read arrays (a parse with both quality columns, not terms only).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+from scipy.special import gammaln
 
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.exact import lynch_ld, stats_ld
@@ -109,3 +111,76 @@ def call_likelihood_ratio_exact(batch, options: Options, diag=None) -> common.Ca
         batch, "p_value", inverse, is_het, major, second, adj_p1, adj_p2,
         keep_u=keep,
     )
+
+
+def call_quality_exact(batch, options: Options, diag=None) -> common.CallResult:
+    """callQualityBasedSimple (call.cpp:291-372): per-read log terms of the
+    min(bq, mq) error rate summed per site in long double, the allele-balance
+    binomial, linear long-double likelihoods and the LD LRT; every site is
+    emitted."""
+    n_sites = batch.num_sites
+    snp_prior = options.snp_prior
+    if options.estimate_prior:
+        snp_prior = _estimate_prior(batch.counts, diag)
+
+    counts = batch.counts.astype(np.int64)
+    major, second = common.major_allele_indices_np(counts)
+
+    offsets = batch.read_offsets
+    code = batch.read_code.astype(np.int64)
+    bq = batch.read_bq.astype(np.float64)
+    mq = batch.read_mq.astype(np.float64)
+
+    # per-read error from the smaller Phred value (call.cpp:331)
+    err = np.power(10.0, np.minimum(bq, mq) / -10.0)
+    site_of_read = np.repeat(np.arange(n_sites), np.diff(offsets))
+    is_major = code == major[site_of_read]
+    is_top2 = is_major | (code == second[site_of_read])
+
+    with np.errstate(divide="ignore"):
+        hom_terms = np.where(is_major, np.log(1.0 - err), np.log(err))
+        het_terms = np.where(is_top2, np.log(1.0 - 2.0 / 3.0 * err), np.log(2.0 / 3.0 * err))
+    # sequential within-site accumulation in long double (reference loop order)
+    log_hom = _segment_sum_ld(hom_terms, offsets)
+    log_het = _segment_sum_ld(het_terms, offsets)
+
+    # allele-balance binomial (call.cpp:344-349): n = n1 + n2, k = n2
+    n = np.take_along_axis(counts, major[:, None].astype(np.int64), 1)[:, 0] + (
+        np.take_along_axis(counts, second[:, None].astype(np.int64), 1)[:, 0]
+    )
+    k = np.take_along_axis(counts, second[:, None].astype(np.int64), 1)[:, 0]
+    logbinom = gammaln(n + 1) - gammaln(n - k + 1) - gammaln(k + 1)
+    log_het = log_het + (logbinom.astype(LD) - n.astype(LD) * np.log(LD(2)))
+
+    # the reference's exp of a long double is the long-double overload
+    pp1 = np.exp(log_hom)
+    pp2 = np.exp(log_het)
+    if snp_prior > 0:
+        pp1 = pp1 * LD(np.float64(1.0 - snp_prior))
+        pp2 = pp2 * LD(np.float64(snp_prior))
+
+    p1 = stats_ld.lrt_pvalue_ld(pp2, pp1)
+    p2 = stats_ld.lrt_pvalue_ld(pp1, pp2)
+    is_het = p2 < options.significance_level
+    return common.CallResult(
+        chrom_id=batch.chrom_id,
+        chrom_table=batch.chrom_table,
+        pos=batch.pos,
+        is_het=is_het,
+        major=major,
+        second=second,
+        conf_hom=p1,
+        conf_het=p2,
+        conf_type="p_value",
+    )
+
+
+def _segment_sum_ld(terms: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """Per-segment sums in long double over CSR offsets (np.add.reduceat,
+    sid_tpu/exact/engine.py:238-247)."""
+    terms_ld = terms.astype(LD)
+    out = np.zeros(offsets.shape[0] - 1, LD)
+    nonempty = np.diff(offsets) > 0
+    if terms_ld.size:
+        out[nonempty] = np.add.reduceat(terms_ld, offsets[:-1][nonempty])
+    return out

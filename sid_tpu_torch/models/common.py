@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sid_tpu_torch.io import native
+from sid_tpu_torch.io.stream import pack_profiles
 from sid_tpu_torch.native import bridge
 from sid_tpu_torch.utils.format import fmt_g
 
@@ -135,6 +136,42 @@ class CallResult:
 
     def to_csv(self, include_header: bool = True) -> str:
         return self.to_csv_bytes(include_header).decode("latin1")
+
+
+def join_class_table(batch, keys: np.ndarray, cls, conf_type: str) -> CallResult:
+    """Join a per-class table onto a batch through packed-profile search
+    (sid_tpu/models/common.py:194-233).
+
+    ``keys`` is the sorted packed-uint64 profile table
+    (``io.stream.pack_profiles``); ``cls`` the 5-tuple (is_het, major,
+    second, conf_hom, conf_het) over classes. Sites whose profile is absent
+    from ``keys`` (cov<4-filtered) are omitted, in input order: the
+    streaming analogue of the map<profile_t,size_t> join (call.cpp:129-140).
+    """
+    site_keys = pack_profiles(batch.counts)
+    idx = np.searchsorted(keys, site_keys)
+    idx_c = np.minimum(idx, max(len(keys) - 1, 0))
+    found = keys[idx_c] == site_keys if len(keys) else np.zeros(len(site_keys), bool)
+    class_idx = idx_c[found].astype(np.int32)
+    cls_conf_hom = np.asarray(cls[3], np.float64)
+    cls_conf_het = np.asarray(cls[4], np.float64)
+    return CallResult(
+        chrom_id=batch.chrom_id[found],
+        chrom_table=batch.chrom_table,
+        pos=batch.pos[found],
+        is_het=cls[0][class_idx],
+        major=cls[1][class_idx],
+        second=cls[2][class_idx],
+        conf_hom=cls_conf_hom[class_idx],
+        conf_het=cls_conf_het[class_idx],
+        conf_type=conf_type,
+        class_idx=class_idx,
+        cls_is_het=np.asarray(cls[0]),
+        cls_major=np.asarray(cls[1]),
+        cls_second=np.asarray(cls[2]),
+        cls_conf_hom=cls_conf_hom,
+        cls_conf_het=cls_conf_het,
+    )
 
 
 def gather_result(

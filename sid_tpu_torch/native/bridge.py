@@ -1,12 +1,14 @@
 """ctypes interface to libsidtpu (``sid_tpu_torch/csrc/host/parser.cpp``, the
 port's copy of ``sid_tpu/native/parser.cpp``).
 
-Declares every entry point the ``local`` and Lynch-fit slices call — the
-threaded parser (``sidtpu_parse_ex``), the unique-profile histogram, the two
-``%g`` CSV writers, the glibc-libm erfc and LRT, the long-double ``local``
-classifier and the long-double Lynch objective and marginals — and marshals
-numpy arrays in and out. The quality method's inline per-site terms (parse
-flag 1) wait for the quality slice.
+Declares every entry point the port calls — the threaded parser
+(``sidtpu_parse_ex``, with the quality method's inline per-site terms of
+parse flags 1 and 2), the unique-profile histogram, the two ``%g`` CSV
+writers, the glibc-libm erfc and LRT, the long-double ``local`` classifier,
+the long-double Lynch objective and marginals, and the fused host quality
+finalize — and marshals numpy arrays in and out. The (256, 4) Phred term
+table the parser sums from is this module's own numpy copy
+(``quality_term_tables``), injected into the library when it is configured.
 """
 
 from __future__ import annotations
@@ -51,6 +53,12 @@ _SIGNATURES = {
     "sidtpu_chrom_blob": (_vp, [_vp]),
     "sidtpu_chrom_blob_len": (_i64, [_vp]),
     "sidtpu_free": (None, [_vp]),
+    "sidtpu_set_quality_table": (None, [_P_F64]),
+    "sidtpu_num_terms": (_i64, [_vp]),
+    "sidtpu_term_hom": (_vp, [_vp]),
+    "sidtpu_term_het": (_vp, [_vp]),
+    "sidtpu_term_major": (_vp, [_vp]),
+    "sidtpu_term_second": (_vp, [_vp]),
     "sidtpu_unique_profiles": (_vp, [_P_U16, _i64, _i32]),
     "sidtpu_unique_num_classes": (_i64, [_vp]),
     "sidtpu_unique_class_profiles": (_vp, [_vp]),
@@ -76,15 +84,45 @@ _SIGNATURES = {
     ]),
     "sidtpu_compound_nll_ld": (_f64, [_P_I32, _P_I64, _P_F64, _P_F64, _f64, _f64, _i64, _i32]),
     "sidtpu_lynch_marginals_ld": (None, [_P_I32, _P_F64, _P_F64, _f64, _i64, _P_LD, _P_LD, _i32]),
+    "sidtpu_quality_finalize": (_i32, [
+        _P_U16, _P_I32, _P_I32, _P_F64, _P_F64, _P_F64, _i64, _f64, _f64, _i32,
+        _f64, _f64, _i64, _P_F64, _P_F64, _P_U8, _i32,
+    ]),
 }
+
+# parse flags of sidtpu_parse_ex: per-site quality terms inline, and terms only
+PARSE_TERMS = 1
+PARSE_TERMS_ONLY = 2
+
+_term_table = None
+
+
+def quality_term_tables() -> np.ndarray:
+    """(256, 4) f64 table of per-read log terms by Phred value q:
+    [ln(1-e), ln(e), ln(1-2e/3), ln(2e/3)] with e = 10^(-q/10) (call.cpp:331-342
+    computes these per read); the expressions of sid_tpu's
+    ``models/quality.py::quality_term_tables``, so the same bits."""
+    global _term_table
+    if _term_table is None:
+        q = np.arange(256, dtype=np.float64)
+        e = np.power(10.0, q / -10.0)
+        with np.errstate(divide="ignore"):
+            _term_table = np.stack(
+                [np.log(1.0 - e), np.log(e), np.log(1.0 - 2.0 / 3.0 * e),
+                 np.log(2.0 / 3.0 * e)], axis=1,
+            )
+    return _term_table
 
 
 def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare restype/argtypes of every entry point the port calls."""
+    """Declare restype/argtypes of every entry point the port calls, and
+    inject the Phred term table the parser's inline quality sums read."""
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
+    tab = np.ascontiguousarray(quality_term_tables(), np.float64)
+    lib.sidtpu_set_quality_table(_ptr(tab, _P_F64))  # the library copies it
     return lib
 
 
@@ -118,12 +156,23 @@ def _as_array(ptr, ctype, count, dtype) -> np.ndarray:
     return arr.astype(dtype, copy=True)
 
 
-def parse(lib, data: bytes, parse_bq: bool, parse_mq: bool, errors: ErrorChannel) -> dict:
+def parse(lib, data: bytes, parse_bq: bool, parse_mq: bool, errors: ErrorChannel,
+          terms_only: bool = False) -> dict:
     """Threaded native parse of a whole buffer: the PileupBatch fields as
-    numpy arrays (the per-read ones only when a quality column is asked
-    for). Malformed lines go to ``errors``."""
+    numpy arrays. Malformed lines go to ``errors``.
+
+    With both quality columns the parser also sums the quality method's
+    per-site terms inline (``q_log_hom``, ``q_log_het``, ``q_major``,
+    ``q_second``; bitwise ``models/quality.py::accumulate_read_terms``'s
+    sequential order), and returns the per-read arrays unless
+    ``terms_only``. With one quality column it returns the per-read arrays
+    alone.
+    """
+    flags = 0
+    if parse_bq and parse_mq:
+        flags = PARSE_TERMS | (PARSE_TERMS_ONLY if terms_only else 0)
     res = lib.sidtpu_parse_ex(
-        data, len(data), int(parse_bq), int(parse_mq), int(errors.strict), 0, 0
+        data, len(data), int(parse_bq), int(parse_mq), int(errors.strict), 0, flags
     )
     try:
         n_err = lib.sidtpu_num_errors(res)
@@ -145,7 +194,7 @@ def parse(lib, data: bytes, parse_bq: bool, parse_mq: bool, errors: ErrorChannel
                 lib.sidtpu_counts(res), ctypes.c_uint16, n * 4, np.uint16
             ).reshape(-1, 4),
         )
-        if parse_bq or parse_mq:
+        if (parse_bq or parse_mq) and not flags & PARSE_TERMS_ONLY:
             r = lib.sidtpu_num_reads(res)
             fields.update(
                 read_offsets=_as_array(lib.sidtpu_read_offsets(res), ctypes.c_int64, n + 1, np.int64),
@@ -153,6 +202,13 @@ def parse(lib, data: bytes, parse_bq: bool, parse_mq: bool, errors: ErrorChannel
                 read_strand=_as_array(lib.sidtpu_read_strand(res), ctypes.c_uint8, r, np.uint8),
                 read_bq=_as_array(lib.sidtpu_read_bq(res), ctypes.c_uint8, r, np.uint8),
                 read_mq=_as_array(lib.sidtpu_read_mq(res), ctypes.c_uint8, r, np.uint8),
+            )
+        if flags & PARSE_TERMS and lib.sidtpu_num_terms(res) == n:
+            fields.update(
+                q_log_hom=_as_array(lib.sidtpu_term_hom(res), ctypes.c_double, n, np.float64),
+                q_log_het=_as_array(lib.sidtpu_term_het(res), ctypes.c_double, n, np.float64),
+                q_major=_as_array(lib.sidtpu_term_major(res), ctypes.c_int8, n, np.int32),
+                q_second=_as_array(lib.sidtpu_term_second(res), ctypes.c_int8, n, np.int32),
             )
         return fields
     finally:
@@ -197,6 +253,38 @@ def lrt_pvalues_libm(lib, log_l0: np.ndarray, log_l1: np.ndarray) -> np.ndarray:
     out = np.empty_like(a)
     lib.sidtpu_lrt_pvalues(_ptr(a, _P_F64), _ptr(b, _P_F64), _ptr(out, _P_F64), a.size, 0)
     return out
+
+
+def quality_finalize(lib, counts, major, second, log_hom, log_het, snp_prior: float,
+                     alpha: float, lgamma_tab, underflow_log: float):
+    """The fused host quality finalize (``sidtpu_quality_finalize``,
+    call.cpp:344-369 in one threaded pass): allele-balance binomial, the
+    80-bit underflow clamp, the prior and both glibc LRT p-values.
+    Returns (is_het, p1, p2) over the N sites; raises if the table does not
+    cover the largest top-2 count sum + 1."""
+    n = int(np.shape(log_hom)[0])
+    counts = np.ascontiguousarray(counts[:n], np.uint16)
+    major = np.ascontiguousarray(major[:n], np.int32)
+    second = np.ascontiguousarray(second[:n], np.int32)
+    log_hom = np.ascontiguousarray(log_hom[:n], np.float64)
+    log_het = np.ascontiguousarray(log_het[:n], np.float64)
+    tab = np.ascontiguousarray(lgamma_tab, np.float64)
+    use_prior = snp_prior > 0
+    # glibc log of the same f64 arguments sid_tpu passes
+    lp_hom = float(np.log(np.float64(1.0 - snp_prior))) if use_prior else 0.0
+    lp_het = float(np.log(np.float64(snp_prior))) if use_prior else 0.0
+    p1 = np.empty(n, np.float64)
+    p2 = np.empty(n, np.float64)
+    het = np.empty(n, np.uint8)
+    rc = lib.sidtpu_quality_finalize(
+        _ptr(counts, _P_U16), _ptr(major, _P_I32), _ptr(second, _P_I32),
+        _ptr(log_hom, _P_F64), _ptr(log_het, _P_F64), _ptr(tab, _P_F64), tab.shape[0],
+        lp_hom, lp_het, int(use_prior), float(alpha), float(underflow_log), n,
+        _ptr(p1, _P_F64), _ptr(p2, _P_F64), _ptr(het, _P_U8), 0,
+    )
+    if rc != 0:
+        raise ValueError(f"the lgamma table ({tab.shape[0]} entries) does not cover the sites' top-2 counts")
+    return het.astype(bool), p1, p2
 
 
 def mc_log_f64(profiles: np.ndarray) -> np.ndarray:

@@ -40,6 +40,7 @@ HOST_LIB = os.path.join(BUILD_DIR, "libsidtpu.so")
 KERNELS = {
     "local_classify": ["local_classify.cuh"],
     "lynch": ["lynch.cuh", "local_classify.cuh"],
+    "quality_finalize": ["quality_finalize.cuh", "local_classify.cuh"],
 }
 
 

@@ -34,8 +34,15 @@ CASES = {
     "R": ["-R", "in.pileup"],
     "R-lr": ["-R", "-m", "likelihood_ratio", "in.pileup"],
     "engine-exact": ["--engine", "exact", "-R", "-m", "likelihood_ratio", "in.pileup"],
+    "stream": ["--stream", "in.pileup"],
+    "quality": ["-m", "quality", "in.pileup"],
+    "quality-R": ["-R", "-m", "quality", "in.pileup"],
+    "quality-exact": ["--engine", "exact", "-m", "quality", "in.pileup"],
+    "stream-quality-R": ["--stream", "--chunk-mb", "1", "-R", "-m", "quality", "in.pileup"],
+    "stream-R-lr": ["--stream", "-R", "-m", "likelihood_ratio", "in.pileup"],
 }
-UNPORTED = {"stream": ["--stream"], "quality": ["-m", "quality"]}
+UNPORTED = {"population": ["--population", "pooled"], "devices": ["--devices", "2"],
+            "per-shard-fit": ["--per-shard-fit"]}
 PROFILE = ["--profile", "--output", "out.csv", "in.pileup"]
 
 

@@ -1,0 +1,101 @@
+"""The quality finalize kernel's per-site arithmetic, compiled for the host,
+vs the plain torch version.
+
+``sid_tpu_torch/csrc/quality_finalize.cuh`` holds the expressions the card
+runs; ``quality_finalize_host.cpp`` loops them over arrays as the kernel's
+grid-stride loop does (counts as two 32-bit words, the allele byte, the het
+sum in; lpp2 out; sites whose n + 1 lies past the table counted). Built here
+with g++ (contraction off, like nvcc --fmad=false) and held bitwise against
+``ops.quality_finalize.quality_finalize_ref`` (and so against
+``finalize_quality_np`` and libsidtpu's host pass, test_torch_quality.py):
+every operation is an IEEE f64 add, subtract, multiply or compare, so no
+tolerance.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from sid_tpu_torch.ops import quality_finalize as qf  # noqa: E402
+from sid_tpu_torch.ops.lgamma import lgamma_table  # noqa: E402
+from test_torch_quality import PRIORS, bits, finalize_cases  # noqa: E402
+
+CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sid_tpu_torch", "csrc"
+)
+
+
+@pytest.fixture(scope="module")
+def shim(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    out = str(tmp_path_factory.mktemp("shim") / "libquality_finalize_host.so")
+    subprocess.run(
+        ["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", out, os.path.join(CSRC, "quality_finalize_host.cpp")],
+        check=True,
+    )
+    lib = ctypes.CDLL(out)
+    p = ctypes.c_void_p
+    lib.sid_quality_finalize_rows_host.restype = ctypes.c_uint32
+    lib.sid_quality_finalize_rows_host.argtypes = [
+        p, p, p, ctypes.c_int64, p, ctypes.c_int, p, ctypes.c_int, p,
+    ]
+    return lib
+
+
+def run_rows(lib, counts, alleles, log_het, prior, tab):
+    """The kernel's row loop on the host: (lpp2, sites past the table)."""
+    counts = np.ascontiguousarray(counts, np.uint16)
+    n = counts.shape[0]
+    ln2, underflow, log_prior = qf.host_constants(prior)
+    params = np.array([ln2, underflow, 0.0 if log_prior is None else log_prior], np.float64)
+    out = np.empty(n, np.float64)
+    misses = lib.sid_quality_finalize_rows_host(
+        counts.ctypes.data, alleles.ctypes.data, np.ascontiguousarray(log_het).ctypes.data, n,
+        params.ctypes.data, int(log_prior is not None), tab.ctypes.data, tab.shape[0], out.ctypes.data,
+    )
+    return out, misses
+
+
+@pytest.mark.parametrize("prior", PRIORS)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_shim_rows_bitwise_plain(shim, seed, prior):
+    counts, major, second, _, log_het = finalize_cases(seed=seed)
+    alleles = qf.pack_alleles(major, second)
+    tab_t = lgamma_table(2 * int(counts.astype(np.int64).sum(-1).max()), "cpu")
+    got, misses = run_rows(shim, counts, alleles, log_het, prior, tab_t.numpy())
+    want = qf.quality_finalize_ref(
+        torch.from_numpy(counts), torch.from_numpy(alleles), torch.from_numpy(log_het), tab_t, prior
+    ).numpy()
+    assert misses == 0
+    assert np.array_equal(bits(got), bits(want))
+    assert np.isneginf(got).sum() > 0 and np.isnan(got).sum() > 0 and np.isfinite(got).sum() > 0
+
+
+def test_shim_unmasked_allele_bits_are_ignored(shim):
+    # bits 4-7 of the byte carry nothing: the row reads major & 3, second & 3
+    counts, major, second, _, log_het = finalize_cases(n=500, seed=5)
+    alleles = qf.pack_alleles(major, second)
+    tab = lgamma_table(2 * int(counts.astype(np.int64).sum(-1).max()), "cpu").numpy()
+    clean = run_rows(shim, counts, alleles, log_het, 1e-3, tab)[0]
+    noisy = run_rows(shim, counts, alleles | np.uint8(0xF0), log_het, 1e-3, tab)[0]
+    assert np.array_equal(bits(clean), bits(noisy))
+
+
+def test_shim_table_overrun_counts_the_sites(shim):
+    counts = np.array([[5, 3, 0, 0], [0, 0, 0, 0], [1000, 0, 0, 7], [2, 2, 2, 2]], np.uint16)
+    alleles = qf.pack_alleles(np.array([0, 3, 0, 3]), np.array([1, 2, 3, 2]))
+    tab = lgamma_table(8, "cpu").numpy()[:10]  # reaches index 9: n + 1 <= 9 is covered
+    got, misses = run_rows(shim, counts, alleles, np.zeros(4), -1.0, tab)
+    assert misses == 1  # the 1007x site only
+    assert np.isnan(got[2]) and np.isfinite(got[[0, 1, 3]]).all()
+    with pytest.raises(ValueError, match="does not reach"):
+        qf.quality_finalize(torch.from_numpy(counts), torch.from_numpy(alleles),
+                            torch.zeros(4, dtype=torch.float64), torch.from_numpy(tab))

@@ -156,9 +156,12 @@ def test_empty_input():
     assert engine.run(b"", Options(platform="cpu"), binary=True) == want
 
 
-# options that raised NotPortedError before the Lynch-fit slice ported them
+# options that raised NotPortedError before the Lynch-fit slice and the
+# quality and streaming slice ported them (``stream`` is a CLI mode: through
+# engine.run it calls the input in memory, as sid_tpu's does)
 PORTED_SINCE = ({"method": "bayes"}, {"method": "likelihood_ratio"},
-                {"estimate_prior": True}, {"engine": "exact"})
+                {"estimate_prior": True}, {"engine": "exact"}, {"method": "quality"},
+                {"stream": True})
 
 
 @pytest.mark.parametrize("kw", [
