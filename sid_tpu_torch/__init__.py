@@ -6,8 +6,9 @@ the most likely diploid genotype and LRT confidences, byte-equal to
 ``sid_tpu`` module for module. Its device stages are hand-written CUDA
 kernels for Hopper, each with a plain torch f64 twin for CPU tensors: the
 ``local`` method's per-profile classify (top-2 alleles, the slim log
-likelihoods and the long-double range screen; ``csrc/local_classify.cu``)
-and the Lynch fit's objective and marginals (``csrc/lynch.cu``).
+likelihoods and the long-double range screen; ``csrc/local_classify.cu``),
+the Lynch fit's objective and marginals (``csrc/lynch.cu``) and the
+``quality`` method's finalize (``csrc/quality_finalize.cu``).
 
 Host work (parse, dedup, libm LRT, ``%g`` CSV) runs in the same C++ code as
 ``sid_tpu``: the package keeps a copy of ``sid_tpu/native/parser.cpp``,

@@ -1,1 +1,2 @@
-"""Host-side IO: mpileup parsing -> dense numpy arrays."""
+"""Host-side IO: mpileup parsing -> dense numpy arrays, and chunked
+streaming input."""

@@ -1,3 +1,3 @@
-"""Calling methods. ``local`` (per-site ML error, the default) is ported;
-``bayes``, ``likelihood_ratio`` and ``quality`` follow with the Lynch fit and
-the quality slice."""
+"""Calling methods: ``local`` (per-site ML error, the default), ``bayes`` and
+``likelihood_ratio`` over the Lynch fit, and ``quality`` (per-read Phred
+likelihoods)."""

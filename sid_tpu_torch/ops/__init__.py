@@ -1,2 +1,3 @@
 """Ops: the lgamma table, the fixed-allele likelihoods in torch f64, the
-host libm LRT, profile compaction, and the slim local classify kernel."""
+host libm LRT, profile compaction, and the kernels' wrappers: the slim
+local classify, the Lynch objective and marginals, the quality finalize."""

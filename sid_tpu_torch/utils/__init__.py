@@ -1,1 +1,2 @@
-"""Host-side utilities: error channel, C++-compatible formatting, profiling."""
+"""Host-side utilities: error channel, C++-compatible formatting, profiling,
+checkpoints."""
