@@ -78,8 +78,35 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    skips pass 1; --stream -m local at 10,000,000 simulated sites (~1.1 GB
    on disk, written under .smoke/ and removed) with 64 MB chunks, sites/s
    of two runs, the output's SHA-256 equal to engine.run's;
-11. prints a JSON line of kernel results, then the final JSON line
+11. the cohort's lane kernels (population mode) at 100 lanes and ~2,000,000
+   rows (an empty, a 1-row and a 1,000,000-row lane; the draws' deep rows,
+   which the range screen flags, in most lanes): the lanes' objective
+   bitwise the single-lane B2 and its plain version per lane (sum, flagged
+   count, flags) at three sets of per-lane thetas (boundary ones included),
+   for all lanes, every other lane, one lane and the two smallest, over
+   three grids; one call one launch by the library's counters;
+   LanesObjective at mixed thetas (out-of-box ones DBL_MAX, no launch)
+   bitwise DeviceObjective per lane; the lanes' marginals bitwise the
+   single-lane B4 per row, flags equal, 1e-12 to the plain version; the
+   call, device-only (the kernel launched again on what the card holds)
+   and plain times, the bounds, and one round against 100 single-lane B2
+   calls;
+12. the population path: 100 seeded ~30x samples of 50,000 sites with
+   Phred qualities (pi log-spaced 1e-4..1e-2, eps 1e-2; 0.55 GB under
+   .smoke/, removed) through call_population, pooled and independent -m
+   bayes (two runs each, sites/s and the device stages' share) and pooled
+   -R -m likelihood_ratio, and on 8 of them pooled -m local and -m quality,
+   every sample's CSV byte-equal to the same run on the CPU; the LR run
+   through call_population_streaming (64 MB chunks) byte-equal to it; the
+   lane, row record, local classify and quality finalize kernels launched;
+   five lanes' fits bitwise single-lane fits over DeviceObjective; the
+   lanes' rounds, launches and evaluations, and the fits' wall against 100
+   single-lane fits in turns;
+13. prints a JSON line of kernel results, then the final JSON line
    {"ok": true, "device": {...}}.
+
+``--population-only`` runs phases 1, 2, 11 and 12 alone and prints the lane
+kernels' line but no final line.
 
 Any failed check raises, and the script exits non-zero without the final
 line. Without a CUDA card it exits 1 at once.
@@ -154,12 +181,12 @@ def fit_histogram(prof: np.ndarray, seed: int = 2025):
     return rows, mult
 
 
-def simulated_counts(n_sites: int, seed: int = 7) -> np.ndarray:
-    """(n_sites, 4) counts of a ~30x diploid sample (pi=1e-3, eps=1e-2),
-    bench.py's generate; every site has coverage >= 1."""
+def simulated_counts(n_sites: int, seed: int = 7, pi: float = 1e-3) -> np.ndarray:
+    """(n_sites, 4) counts of a ~30x diploid sample (heterozygosity pi,
+    eps=1e-2), bench.py's generate; every site has coverage >= 1."""
     rng = np.random.default_rng(seed)
     cov = rng.poisson(30, n_sites).clip(1)
-    is_het = rng.uniform(size=n_sites) < 1e-3
+    is_het = rng.uniform(size=n_sites) < pi
     major = rng.integers(0, 4, n_sites)
     counts = np.zeros((n_sites, 4), np.int64)
     n_err = rng.binomial(cov, 0.01)
@@ -290,14 +317,14 @@ def assert_agree(name, a, b):
     return (float(err.max()), float(rel.max())) if err.size else (0.0, 0.0)
 
 
-def event_times_ms(torch, fn, sets) -> list:
-    """CUDA-event times of fn over REPEATS calls, cycling input sets with
-    distinct content (after one warm-up call per set)."""
+def event_times_ms(torch, fn, sets, repeats=REPEATS) -> list:
+    """CUDA-event times of fn over ``repeats`` calls, cycling input sets
+    with distinct content (after one warm-up call per set)."""
     for s in sets:
         fn(*s)
     torch.cuda.synchronize()
     times = []
-    for r in range(REPEATS):
+    for r in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -376,7 +403,9 @@ def row_counts(instrs: list) -> dict:
     """What every row of a kernel executes, from its SASS (a list of
     (address, predicated, opcode, operands)). The row's code is the
     innermost loop that holds the kernel's first global load inside a loop
-    (the row's own data, or the next row's where a thread loads ahead), or
+    (the row's own data, or the next row's where a thread loads ahead) and
+    holds f64 work (a loop of integer work alone, such as the lane kernels'
+    search of a row's lane, is passed over), or
     the whole kernel where no loop holds a global load. An instruction of it is executed by
     every row unless a branch can jump over it once that load has run; a
     predicated f64 instruction may do no work and is not counted. So
@@ -390,8 +419,16 @@ def row_counts(instrs: list) -> dict:
     jumps = [(ad, int(args.split()[-1].rstrip(","), 16)) for ad, _, op, args in instrs if op == "BRA"]
     jumps += [(ad, end) for ad, pred, op, _ in instrs if op == "EXIT" and pred]
     loads = [ad for ad, _, op, _ in instrs if op == "LDG"]
-    looped = [ad for ad in loads if any(t <= ad <= f for f, t in jumps)]
-    anchor = (looped or loads)[0]
+
+    def innermost(ad):
+        around = [(t, f) for f, t in jumps if t <= ad <= f]
+        return max(around) if around else None
+
+    def has_f64(loop):
+        return any(loop[0] <= ad <= loop[1] and op in F64_OPCODES for ad, _, op, _ in instrs)
+
+    looped = [ad for ad in loads if innermost(ad) is not None]
+    anchor = ([ad for ad in looped if has_f64(innermost(ad))] or looped or loads)[0]
     loops = [(t, f) for f, t in jumps if t <= anchor <= f]
     lo, hi = max(loops) if loops else (instrs[0][0], end)
     out = dict.fromkeys(("f64", "issued", "f64_all", "issued_all"), 0)
@@ -782,6 +819,405 @@ def stream_phase(card, workdir, qsrc) -> None:
     log(f"# --stream -m local at {N_STREAM} sites: output ({len(whole) / 1e6:.0f} MB) the same SHA-256 as engine.run")
 
 
+# lanes of the cohort kernels (phase 11) and the population path (phase 12)
+N_LANES = 100
+BIG_LANE = 1_000_000
+# in-box thetas for the lanes' objective (boundary ones included); the
+# lanes' objective wrapper gives the out-of-box ones DBL_MAX without a launch
+LANE_THETAS = ((1e-3, 1e-3), (0.05, 0.01), (0.0, 1e-3), (1e-3, 0.0), (1.0, 1.0), (0.5, 0.999), (0.02, 3.85e-11))
+OUT_OF_BOX = ((-0.1, 0.5), (0.3, 1.5))
+LANE_REPEATS = 10
+POP_SAMPLES = 100
+# 50,000 sites a sample keeps phase 12 near a minute; every check runs
+# at this depth
+POP_SITES = 50_000
+POP_SUBSET = 8
+POP_CHUNK = 64 << 20
+
+
+def lane_cohort(seed: int = 2028):
+    """N_LANES histograms of about 2,000,000 rows in all: the cov >= 4 rows
+    of two ``kernel_profiles`` draws with multiplicities, cut into an empty
+    lane, a 1-row lane, a BIG_LANE-row lane and lanes of lognormal sizes,
+    in a seeded order. The draws' deep rows (up to 65535 a base) fall in
+    most lanes, so the range screen flags rows in most lanes."""
+    p1, m1 = fit_histogram(kernel_profiles(2024))
+    p2, m2 = fit_histogram(kernel_profiles(2027), seed=2029)
+    prof = np.concatenate([p1, p2])
+    mult = np.concatenate([m1, m2])
+    rng = np.random.default_rng(seed)
+    rest = prof.shape[0] - BIG_LANE - 1
+    w = rng.lognormal(0.0, 1.0, N_LANES - 3)
+    sizes = np.floor(w / w.sum() * rest).astype(np.int64)
+    sizes[-1] += rest - sizes.sum()
+    sizes = np.concatenate([[0, 1, BIG_LANE], sizes])[rng.permutation(N_LANES)]
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    return [(np.ascontiguousarray(prof[a:b]), mult[a:b]) for a, b in zip(off[:-1], off[1:])]
+
+
+def bits_equal(a, b) -> bool:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return a.shape == b.shape and np.array_equal(a.view(np.int64), b.view(np.int64))
+
+
+def lanes_kernel_phase(torch, dev, card, sass):
+    """Phase 11: the lanes' objective and marginals kernels at N_LANES lanes
+    and ~2M rows against the single-lane kernels (bitwise, each lane
+    alone) and their plain versions, for every set of running lanes and
+    three grids; one launch a call by the library's counters; the lanes'
+    objective wrapper against DeviceObjective per lane with out-of-box
+    thetas; times and bounds. Returns the two rows of the kernels line
+    (launches are phase 12's)."""
+    from sid_tpu_torch.models import lynch
+    from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+    from sid_tpu_torch.ops.profiles import nucleotide_distribution
+
+    t0 = time.perf_counter()
+    hists = lane_cohort()
+    sizes = [p.shape[0] for p, _ in hists]
+    n = sum(sizes)
+    prof = np.concatenate([p for p, _ in hists])
+    mult = np.concatenate([m for _, m in hists])
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    nts = [nucleotide_distribution(p, m) for p, m in hists]
+    p_dev = torch.from_numpy(prof).to(dev)
+    m_dev = torch.from_numpy(mult).to(dev)
+    o_dev = torch.from_numpy(off).to(dev)
+    tab = lgamma_table(int(prof.sum(-1).max()), dev)
+    work = lo.LynchLanesWorkspace(p_dev, m_dev, o_dev, tab)
+    singles = [lo.LynchWorkspace(p_dev[a:b], m_dev[a:b], tab) for a, b in zip(off[:-1], off[1:])]
+    torch.cuda.synchronize()
+    if not torch.equal(work.records.view(torch.int64), lo.lynch_records_ref(p_dev, m_dev, tab).view(torch.int64)):
+        raise AssertionError("the cohort's row record differs from its plain version")
+    log(f"# lanes: {N_LANES} lanes, {n} rows (sizes {min(sizes)}..{max(sizes)}, an empty and a 1-row lane), "
+        f"{len(work.part_sum)} chunks; grids {work.grids}; cohort and workspaces in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    everyone = list(range(N_LANES))
+    subsets = {"all": everyone, "every other": everyone[::2], "one (the 1M-row lane)": [sizes.index(BIG_LANE)],
+               "the empty and the 1-row lane": sorted([sizes.index(0), sizes.index(1)])}
+    max_abs = 0.0
+    theta_sets = []
+    for shift in range(3):
+        thetas = [LANE_THETAS[(k + shift) % len(LANE_THETAS)] for k in range(N_LANES)]
+        scal = np.stack([likelihoods.lynch_scalars(th[0], th[1], nt) for th, nt in zip(thetas, nts)])
+        theta_sets.append(scal)
+        alone = []
+        for k, w in enumerate(singles):
+            total, cnt = w.nll(scal[k])
+            alone.append(([total, cnt], w.flags.clone()))
+        plain, plain_flags = lo.lynch_compound_nll_lanes_ref(p_dev, m_dev, off, scal, tab, everyone)
+        plain = plain.cpu().numpy()
+        flagged = sum(1 for a in alone if a[0][1])
+        for name, lanes in subsets.items():
+            for grid in (1, 7, work.grids[0]):
+                got = work.nll_lanes(scal, lanes, grid=grid)
+                for row, k in zip(got, lanes):
+                    a, b = int(off[k]), int(off[k + 1])
+                    if not bits_equal(row, alone[k][0]) or not bits_equal(row, plain[k]):
+                        raise AssertionError(f"lanes' objective, lanes {name}, grid {grid}, lane {k}: {row.tolist()} vs "
+                                             f"single-lane {alone[k][0]} vs plain {plain[k].tolist()}")
+                    if not (torch.equal(work.flags[a:b], alone[k][1]) and torch.equal(work.flags[a:b], plain_flags[a:b])):
+                        raise AssertionError(f"lanes' objective flags, lanes {name}, grid {grid}, lane {k}")
+                    max_abs = max(max_abs, abs(float(row[0]) - float(plain[k][0])))
+        log(f"# lanes' objective == single-lane B2 == plain, bitwise, thetas shifted {shift}: every lane's sum and "
+            f"flagged count and flags for lanes {', '.join(subsets)} and grids 1, 7, {work.grids[0]}; "
+            f"{flagged} lanes with flagged rows ({int(sum(a[0][1] for a in alone))} rows)")
+    before = lo.kernel_launches()
+    work.nll_lanes(theta_sets[0], everyone)
+    after = lo.kernel_launches()
+    per_call = {k: after[k] - before[k] for k in after}
+    if per_call != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 1, "marginals_lanes": 0}:
+        raise AssertionError(f"one lanes' objective call: launches {per_call}")
+    before = lo.kernel_launches()
+    work.marginals_lanes_host(theta_sets[0])
+    after = lo.kernel_launches()
+    per_marg = {k: after[k] - before[k] for k in after}
+    if per_marg != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 1}:
+        raise AssertionError(f"one lanes' marginals call: launches {per_marg}")
+    log(f"# one call is one launch (the kernel library's counters): objective {per_call}, marginals {per_marg}")
+
+    # the wrapper: out-of-box lanes DBL_MAX without a launch, the others
+    # bitwise DeviceObjective (rows <= 1000x, so no lane needs long double)
+    shallow = [(p[p.sum(-1) <= 1000], m[p.sum(-1) <= 1000]) for p, m in hists]
+    objective = lynch.LanesObjective(shallow, np.stack(nts), dev)
+    points = [np.array((LANE_THETAS + OUT_OF_BOX)[k % (len(LANE_THETAS) + len(OUT_OF_BOX))]) for k in everyone]
+    launches = lo.NLL_LANES_LAUNCHES
+    values = objective(everyone, points)
+    if lo.NLL_LANES_LAUNCHES - launches != 1:
+        raise AssertionError("the lanes' objective wrapper did not launch once")
+    n_out = 0
+    for k, (value, x) in enumerate(zip(values, points)):
+        want = lynch.DeviceObjective(shallow[k][0], shallow[k][1], nts[k], dev)(x)
+        n_out += value == likelihoods.DBL_MAX
+        if not bits_equal(value, want):
+            raise AssertionError(f"LanesObjective lane {k} at {tuple(x)}: {value!r} vs DeviceObjective {want!r}")
+    only_out = objective([0, 1], [np.array(OUT_OF_BOX[0]), np.array(OUT_OF_BOX[1])])
+    if only_out != [likelihoods.DBL_MAX] * 2 or lo.NLL_LANES_LAUNCHES - launches != 1:
+        raise AssertionError("out-of-box lanes alone launched the kernel or got another value than DBL_MAX")
+    log(f"# LanesObjective at mixed thetas == DeviceObjective per lane, bitwise ({n_out} lanes out of the box: "
+        f"DBL_MAX; out-of-box lanes alone launch nothing)")
+    del objective
+
+    marg_abs = 0.0
+    marg_flagged = 0
+    for scal in theta_sets:
+        hom, het, flags = work.marginals_lanes(scal)
+        p_hom, p_het, p_flags = lo.lynch_marginals_lanes_ref(p_dev, off, scal, tab)
+        if not torch.equal(flags, p_flags):
+            raise AssertionError("lanes' marginals flags differ from the plain version's")
+        for k, w in enumerate(singles):
+            a, b = int(off[k]), int(off[k + 1])
+            s_hom, s_het, s_flags = w.marginals(scal[k])
+            if not (torch.equal(hom[a:b].view(torch.int64), s_hom.view(torch.int64))
+                    and torch.equal(het[a:b].view(torch.int64), s_het.view(torch.int64))
+                    and torch.equal(flags[a:b], s_flags)):
+                raise AssertionError(f"lanes' marginals lane {k} differ from the single-lane B4")
+        for what, x, y in (("log L_hom", p_hom, hom), ("log L_het", p_het, het)):
+            marg_abs = max(marg_abs, assert_agree(f"lanes' marginals {what}", x.cpu().numpy(), y.cpu().numpy())[0])
+        marg_flagged = max(marg_flagged, int(flags.sum()))
+    log(f"# lanes' marginals == single-lane B4 per row, bitwise, flags equal, at three sets of epsilons; plain "
+        f"version to {RTOL} (max abs err {marg_abs!r}); up to {marg_flagged} rows flagged")
+
+    # times: call (events around the wrapper call), device (torch.profiler),
+    # plain version, and the S single-lane B2 calls of one round
+    nll_sets = [(s, everyone) for s in theta_sets]
+    marg_sets = [(s,) for s in theta_sets]
+    call = event_times_ms(torch, work.nll_lanes, nll_sets, LANE_REPEATS)
+    plain_fn = lambda s, lanes: lo.lynch_compound_nll_lanes_ref(p_dev, m_dev, off, s, tab, lanes)  # noqa: E731
+    plain = event_times_ms(torch, plain_fn, nll_sets, 3)
+    call += event_times_ms(torch, work.nll_lanes, nll_sets, LANE_REPEATS)
+    # device only: the kernel launched again on what the card holds (no
+    # copies), enqueued behind torch.cuda._sleep
+    work.nll_lanes(theta_sets[1], everyone)
+    dev_nll = device_only_ms(torch, work.launch_nll_lanes, [()])
+
+    def one_round_alone(s):
+        for k, w in enumerate(singles):
+            w.nll(s[k])
+
+    alone_ms = event_times_ms(torch, one_round_alone, marg_sets, 3)
+    m_call = event_times_ms(torch, work.marginals_lanes, marg_sets, LANE_REPEATS)
+    m_plain = event_times_ms(torch, lambda s: lo.lynch_marginals_lanes_ref(p_dev, off, s, tab), marg_sets, 3)
+    m_call += event_times_ms(torch, work.marginals_lanes, marg_sets, LANE_REPEATS)
+    work.marginals_lanes(theta_sets[1])
+    dev_marg = device_only_ms(torch, work.launch_marginals_lanes, [()])
+    chunks = len(work.part_sum)
+    rows = []
+    # the f64 work of a row: the lanes' objective runs B2's row function
+    # (nll_rows_sum, mixture_row), whose rows row_counts finds in B2's SASS
+    # but not in this kernel's, where a branch of the row loop jumps over
+    # the row's code; the lanes' marginals kernel's own SASS gives B4's
+    for name, sass_name, row_sass, replaces, call_t, plain_t, dev_ms, n_bytes, err in (
+        ("lynch_compound_nll_lanes", "lynch_nll_lanes_kernel", "lynch_nll_kernel", "sid_tpu/models/population.py:83",
+         call, plain, dev_nll, n * (24 + 1) + chunks * 12 + N_LANES * (128 + 12 + 16) + (N_LANES + 1) * 16, max_abs),
+        ("lynch_marginals_lanes", "lynch_marginals_lanes_kernel", "lynch_marginals_lanes_kernel",
+         "sid_tpu/models/population.py:298", m_call, m_plain, dev_marg,
+         n * (24 + 17) + N_LANES * 128 + (N_LANES + 1) * 8, marg_abs),
+    ):
+        own = kernel_counts(sass, sass_name)
+        c = kernel_counts(sass, row_sass)
+        b_ms, b_by = bound_ms(n_bytes, c["f64"] * n)
+        b_all = bound_ms(n_bytes, c["f64_all"] * n)[0]
+        log(f"# {name}: f64 instructions a row from the SASS of {row_sass}: {c['f64']} ({c['f64_all']} with every "
+            f"branch arm); this kernel's own: {own['f64']} ({own['f64_all']})")
+        row = {"name": name, "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu", "replaces": replaces,
+               "launches": None, "max_abs_err": err, "ms": statistics.median(call_t),
+               "plain_ms": statistics.median(plain_t), "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        rows.append(row)
+        log(f"# {name} at {N_LANES} lanes, {n} rows: call {row['ms']:.4f} ms (median of {len(call_t)}, min "
+            f"{min(call_t):.4f}), device only {dev_ms:.4f} ms, plain torch "
+            f"{row['plain_ms']:.2f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {c['f64']} f64 "
+            f"instructions every row executes), {b_ms / dev_ms:.1%} of the bound ({b_all:.4f} ms, "
+            f"{b_all / dev_ms:.1%}, with every branch arm: {c['f64_all']}); issuing the row's instructions "
+            f"{issue_ms(c['issued'], n):.4f}-{issue_ms(c['issued_all'], n):.4f} ms; on {card}")
+    log(f"# one round of {N_LANES} lanes: one lanes' objective call {rows[0]['ms']:.4f} ms against "
+        f"{statistics.median(alone_ms):.3f} ms for {N_LANES} single-lane B2 calls (median of {len(alone_ms)}); "
+        f"on {card}")
+    return rows
+
+
+def write_population(workdir: str):
+    """POP_SAMPLES seeded ~30x samples of POP_SITES sites each with per-read
+    Phred qualities, heterozygosity log-spaced 1e-4..1e-2, eps 1e-2, under
+    workdir; returns (paths, bytes)."""
+    os.makedirs(workdir, exist_ok=True)
+    pis = np.logspace(-4, -2, POP_SAMPLES)
+    paths = []
+    size = 0
+    for k, pi in enumerate(pis):
+        path = os.path.join(workdir, f"s{k:03d}.pileup")
+        data = phred_pileup(simulated_counts(POP_SITES, seed=5000 + 2 * k, pi=float(pi)), 1, 5001 + 2 * k)
+        with open(path, "wb") as f:
+            f.write(data)
+        size += len(data)
+        paths.append(path)
+    return paths, size
+
+
+def population_run(paths, options, mode, prof=None):
+    """The in-memory population path as the CLI runs it: parse each sample,
+    call_population, each sample's CSV bytes. Returns (SHA-256 per sample,
+    records, wall seconds)."""
+    from sid_tpu_torch.io.pileup import parse_pileup
+    from sid_tpu_torch.models.population import call_population
+    from sid_tpu_torch.utils import profiling
+
+    reads = options.method == "quality"
+    profiling.activate(prof)
+    try:
+        t0 = time.perf_counter()
+        batches = [parse_pileup(p, reads, reads, quality_terms_only=reads) for p in paths]
+        results = call_population(batches, options, mode)
+        digests = [hashlib.sha256(r.to_csv_bytes()).hexdigest() for r in results]
+        wall = time.perf_counter() - t0
+    finally:
+        profiling.activate(None)
+    return digests, sum(r.num_records for r in results), wall
+
+
+def population_phase(torch, dev, card, workdir):
+    """Phase 12: the population path at POP_SAMPLES x POP_SITES sites on the
+    card: pooled and independent -m bayes (two runs each) and pooled -R -m
+    likelihood_ratio, each byte-equal to the same run on the CPU (the plain
+    versions); the same LR run streamed (64 MB chunks) byte-equal to it;
+    pooled -m local and -m quality on a subset, byte-equal to the CPU;
+    five lanes' fits bitwise single-lane fits over DeviceObjective; the
+    lanes' rounds and launches, the fits' wall against single-lane fits in
+    turns, the device stages' share. Returns the kernel launches of the
+    path."""
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.exact.nmsimplex import minimize_nmsimplex2
+    from sid_tpu_torch.io.pileup import parse_pileup
+    from sid_tpu_torch.models import lynch, population as pop
+    from sid_tpu_torch.models.population import call_population_streaming
+    from sid_tpu_torch.ops import local_classify, lynch_objective as lo
+    from sid_tpu_torch.ops import quality_finalize as qf
+    from sid_tpu_torch.ops.profiles import filter_min_coverage, nucleotide_distribution, unique_profiles
+    from sid_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    paths, size = write_population(os.path.join(workdir, "population"))
+    n_sites = POP_SAMPLES * POP_SITES
+    log(f"# population: {POP_SAMPLES} samples x {POP_SITES} ~30x sites with Phred qualities, pi 1e-4..1e-2 "
+        f"log-spaced, eps 1e-2 ({size / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+    subset = paths[:: POP_SAMPLES // POP_SUBSET][:POP_SUBSET]
+    cases = [
+        ("pooled -m bayes", paths, {"method": "bayes"}, "pooled", 2),
+        ("independent -m bayes", paths, {"method": "bayes"}, "independent", 2),
+        ("pooled -R -m likelihood_ratio", paths, {"method": "likelihood_ratio", "estimate_prior": True}, "pooled", 1),
+        (f"pooled -m local ({POP_SUBSET} samples)", subset, {"method": "local"}, "pooled", 1),
+        (f"pooled -m quality ({POP_SUBSET} samples)", subset, {"method": "quality"}, "pooled", 1),
+    ]
+    names = ("records", "nll_lanes", "marginals_lanes")
+    lo.RECORD_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
+    local_classify.LAUNCHES = 0
+    qf.LAUNCHES = 0
+    card_runs = {}
+    for label, ps, kw, mode, runs in cases:
+        for r in range(runs):
+            p = profiling.StageProfile()
+            card_runs.setdefault(label, []).append(population_run(ps, Options(**kw), mode, p) + (p,))
+        digests = {run[0] == card_runs[label][0][0] for run in card_runs[label]}
+        if digests != {True}:
+            raise AssertionError(f"population {label}: two runs on the card differ")
+    stream_opts = Options(method="likelihood_ratio", estimate_prior=True)
+    t0 = time.perf_counter()
+    counts = call_population_streaming(paths, stream_opts, "pooled", chunk_bytes=POP_CHUNK)
+    stream_wall = time.perf_counter() - t0
+    launches = {"records": lo.RECORD_LAUNCHES, "nll_lanes": lo.NLL_LANES_LAUNCHES,
+                "marginals_lanes": lo.MARGINALS_LANES_LAUNCHES, "local": local_classify.LAUNCHES,
+                "quality": qf.LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the population path was not launched: {launches}")
+    log("# kernel launches on the population path: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    label = "pooled -R -m likelihood_ratio"
+    for path, digest in zip(paths, card_runs[label][0][0]):
+        with open(path + ".calls.csv", "rb") as f:
+            if hashlib.sha256(f.read()).hexdigest() != digest:
+                raise AssertionError(f"--stream {label}: {path}.calls.csv differs from the in-memory run")
+    log(f"# --stream {label}, {POP_CHUNK >> 20} MB chunks: every sample's .calls.csv byte-equal to the in-memory "
+        f"run, {sum(counts)} records, {n_sites / stream_wall:,.0f} sites/s ({stream_wall:.2f} s); on {card}")
+    for label, ps, kw, mode, _ in cases:
+        cpu = population_run(ps, Options(platform="cpu", **kw), mode)
+        if cpu[0] != card_runs[label][0][0]:
+            bad = [k for k, (a, b) in enumerate(zip(cpu[0], card_runs[label][0][0])) if a != b]
+            raise AssertionError(f"population {label}: samples {bad} differ between the card and the CPU")
+        log(f"# population {label}: every sample's CSV byte-equal to the CPU run (plain versions; {cpu[2]:.1f} s)")
+    for label in ("pooled -m bayes", "independent -m bayes"):
+        for digests, records, wall, p in card_runs[label]:
+            stages = {}
+            for name, sec in p.stages:
+                stages[name] = stages.get(name, 0.0) + sec
+            cuda = ", ".join(f"{k.split(':')[1]} {v:.1f} ms on the stream" for k, v in p.counters.items()
+                             if k.endswith(":cuda_ms"))
+            log(f"# population {label}: {n_sites / wall:,.0f} sites/s ({wall:.2f} s, {records} records); device "
+                f"stages {profiling.device_seconds(p) / wall:.2%} of wall (" + ", ".join(
+                    f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()) + f"; {cuda}); on {card}")
+
+    # the fits at the model layer: five lanes bitwise single-lane fits, the
+    # lanes' rounds and launches, the fits' wall against single-lane fits
+    hists = []
+    for path in paths:
+        prof_k, mult_k, _ = unique_profiles(parse_pileup(path).counts)
+        hists.append(filter_min_coverage(prof_k, mult_k, 4)[:2])
+    nts = np.stack([nucleotide_distribution(p, m) for p, m in hists])
+    fits = {mode: pop.fit_population(hists, mode=mode, device=dev) for mode in ("pooled", "independent")}
+    eps_pooled = fits["pooled"][1].eps
+    for k in range(0, POP_SAMPLES, POP_SAMPLES // 5)[:5]:
+        obj = lynch.DeviceObjective(hists[k][0], hists[k][1], nts[k], dev)
+        two = minimize_nmsimplex2(obj, pop.START, pop.STEP)
+        one = minimize_nmsimplex2(lambda x: obj((x[0], eps_pooled)), pop.START_PI, pop.STEP_PI)
+        ind, pooled_k = fits["independent"][0][k], fits["pooled"][0][k]
+        if not (bits_equal([ind.pi, ind.eps], two.x) and ind.converged == two.converged
+                and bits_equal(pooled_k.pi, one.x[0]) and pooled_k.converged == one.converged):
+            raise AssertionError(f"lane {k}: the lane fits differ from single-lane fits over DeviceObjective")
+    log("# five lanes (0, 20, 40, 60, 80): independent (pi, eps) and pooled pi bitwise single-lane "
+        "minimize_nmsimplex2 over DeviceObjective")
+    u = [p.shape[0] for p, _ in hists]
+    walls = {"lanes": [], "single-lane fits": []}
+    for turn in ("lanes", "single-lane fits", "single-lane fits", "lanes"):
+        torch.cuda.synchronize()
+        before = lo.NLL_LANES_LAUNCHES
+        t0 = time.perf_counter()
+        if turn == "lanes":
+            results, obj = pop.fit_lanes(hists, nts, dev, pop.START, pop.STEP)
+            stats = (obj.rounds, lo.NLL_LANES_LAUNCHES - before, obj.evaluations,
+                     max(r.iterations for r in results), sum(r.converged for r in results))
+        else:
+            for (p_k, m_k), nt in zip(hists, nts):
+                minimize_nmsimplex2(lynch.DeviceObjective(p_k, m_k, nt, dev), pop.START, pop.STEP)
+        walls[turn].append(time.perf_counter() - t0)
+    log(f"# independent fits of {POP_SAMPLES} samples (U {min(u)}..{max(u)}): {stats[0]} rounds, {stats[1]} lanes' "
+        f"objective launches, {stats[2]} lane evaluations, at most {stats[3]} iterations, {stats[4]} converged; "
+        f"wall in turns: " + ", ".join(f"{k} {', '.join(f'{w * 1e3:.1f}' for w in v)} ms" for k, v in walls.items())
+        + f"; on {card}")
+    return launches
+
+
+def population_phases(torch, dev, card, sass) -> list:
+    """Phases 11 and 12 (their files under .smoke/, removed at the end);
+    returns the lane kernels' rows of the kernels line, with the launches
+    of the population path."""
+    workdir = os.path.join(HERE, ".smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        t0 = time.perf_counter()
+        rows = lanes_kernel_phase(torch, dev, card, sass)
+        t1 = time.perf_counter()
+        launches = population_phase(torch, dev, card, workdir)
+        log(f"# phase 11 took {t1 - t0:.1f} s, phase 12 {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rows[0]["launches"] = launches["nll_lanes"]
+    rows[1]["launches"] = launches["marginals_lanes"]
+    return rows
+
+
 def main() -> int:
     import argparse
 
@@ -789,6 +1225,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
     ap.add_argument("--parent", help="an unpacked tree of the parent commit: time its local kernel in turns")
+    ap.add_argument("--population-only", action="store_true",
+                    help="run phases 1, 2, 11 and 12 alone (no final line)")
     args = ap.parse_args()
 
     # ---- 1. probe ----
@@ -839,6 +1277,11 @@ def main() -> int:
             f"{c['issued']} instructions a warp; with every branch arm {c['f64_all']} and {c['issued_all']}")
     if not sass:
         raise AssertionError("no cuobjdump: the kernels' f64 instruction counts, and so their bounds, are unknown")
+    if args.population_only:
+        rows = population_phases(torch, dev, card, sass)
+        print(json.dumps({"kernels": rows}), flush=True)
+        log("# --population-only: phases 3-10 skipped, so no final line")
+        return 0
 
     # ---- 3. kernel vs plain at U = 1M ----
     prof_np = kernel_profiles()
@@ -1096,7 +1539,8 @@ def main() -> int:
     one = work.nll(s)
     after = lynch_objective.kernel_launches()
     per_eval = {k: after[k] - before[k] for k in after}
-    if per_eval != {"records": 0, "nll": 1, "marginals": 0} or list(one) != first.tolist():
+    if (per_eval != {"records": 0, "nll": 1, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 0}
+            or list(one) != first.tolist()):
         raise AssertionError(f"one evaluation: launches {per_eval}, result {one!r} vs {first!r}")
     log(f"# B2 bitwise repeatable: 10 calls and grids of 1, 7, 1000 and {work.grids[1]} (the resident "
         f"blocks) blocks all give {first[0]!r}; one evaluation is {per_eval['nll']} kernel launch "
@@ -1335,7 +1779,10 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # ---- 11. results ----
+    # ---- 11-12. the cohort's lane kernels, the population path ----
+    lane_rows = population_phases(torch, dev, card, sass)
+
+    # ---- 13. results ----
     kernel_rows = [{
         "name": "local_log_likelihoods",
         "route": "cuda",
@@ -1361,6 +1808,7 @@ def main() -> int:
                      "replaces": replaces, "launches": fit_launches[launches_key], "max_abs_err": err,
                      **fit_times[name], "library_ms": None})
     kernel_rows.append(quality_row)
+    kernel_rows += lane_rows
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -7,8 +7,10 @@ the most likely diploid genotype and LRT confidences, byte-equal to
 kernels for Hopper, each with a plain torch f64 twin for CPU tensors: the
 ``local`` method's per-profile classify (top-2 alleles, the slim log
 likelihoods and the long-double range screen; ``csrc/local_classify.cu``),
-the Lynch fit's objective and marginals (``csrc/lynch.cu``) and the
-``quality`` method's finalize (``csrc/quality_finalize.cu``).
+the Lynch fit's objective and marginals and their lane forms for a cohort
+of samples (``csrc/lynch.cu``) and the ``quality`` method's finalize
+(``csrc/quality_finalize.cu``). Population mode (``models.population``)
+calls many samples with a pooled or per-sample fit.
 
 Host work (parse, dedup, libm LRT, ``%g`` CSV) runs in the same C++ code as
 ``sid_tpu``: the package keeps a copy of ``sid_tpu/native/parser.cpp``,

@@ -52,7 +52,7 @@ _LONG_OPTIONS = [
     ("platform=", "Torch device: 'cuda' (default) or 'cpu'; also honored from SIDTPU_PLATFORM"),
     ("checkpoint=", "Persist/reuse the pass-1 histogram (.npz) in streaming mode"),
     ("resume", "Resume a streaming run"),
-    ("population=", "Joint multi-sample calling: 'pooled' or 'independent' (not yet ported)"),
+    ("population=", "Joint multi-sample calling: 'pooled' (shared error rate) or 'independent'; all positional args are sample pileups, outputs <input>.calls.csv"),
     ("multihost", "Multi-host data-parallel run (not yet ported)"),
     ("help", "Print this help message"),
 ]
@@ -152,6 +152,8 @@ def parse_args(argv: List[str]) -> tuple:
         opts.validate(allow_unknown_method=True)
     except ValueError as e:
         _fail(str(e))
+    if opts.population:
+        return opts, rest
     return opts, rest[0]
 
 
@@ -161,12 +163,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     options.platform = options.platform or os.environ.get("SIDTPU_PLATFORM")
     try:
         engine.check_ported(options)
-        # the streaming engine's fit and classify run on the device under
-        # either engine, as sid_tpu's do
-        if options.engine == "device" or options.stream:
+        # the streaming engine's fit and classify, and population mode, run
+        # on the device under either engine, as sid_tpu's do
+        if options.engine == "device" or options.stream or options.population:
             options.device()
     except (NotPortedError, RuntimeError) as e:
         _fail(str(e))
+    if options.population:
+        return _main_population(options, input_path)
     try:
         open(input_path, "rb").close()
     except OSError:
@@ -223,6 +227,42 @@ def _stream(options: Options, input_path: str, diag) -> int:
         return engine.run_streaming(
             input_path, options, out, diag, progress=StreamProgress(options.output), **kw
         )
+
+
+def _main_population(options: Options, paths: List[str]) -> int:
+    """Joint multi-sample calling (sid_tpu/cli.py:279-315): one output CSV
+    per sample, ``<input>.calls.csv``. ``--fit`` and ``--engine`` are not
+    read, as in sid_tpu."""
+    from sid_tpu_torch.io.pileup import parse_pileup
+    from sid_tpu_torch.models.population import call_population, call_population_streaming
+
+    def diag(line: str) -> None:
+        if options.diagnostics:
+            print(line, file=sys.stderr)
+
+    for p in paths:
+        if not os.path.exists(p):
+            print(f"Could not open file: {p}", file=sys.stderr)
+            sys.exit(1)
+    if options.stream:
+        # streamed ingest: histograms accumulate chunk by chunk
+        call_population_streaming(
+            paths, options, mode=options.population, diag=diag, chunk_bytes=options.chunk_mb << 20,
+        )
+        return 0
+    needs_reads = options.method == "quality"
+    batches = []
+    for p in paths:
+        with open(p, "rb") as f:
+            batches.append(parse_pileup(f, needs_reads, needs_reads, backend=options.io_backend,
+                                        quality_terms_only=needs_reads))
+    results = call_population(batches, options, mode=options.population, diag=diag)
+    for p, res in zip(paths, results):
+        out_path = p + ".calls.csv"
+        with open(out_path, "wb") as out:
+            out.write(res.to_csv_bytes())
+        diag(f"# wrote {out_path} ({res.num_records} records)")
+    return 0
 
 
 if __name__ == "__main__":

@@ -313,17 +313,20 @@ SID_HD void load_profile(const int32_t* prof, int64_t i, int c[4]) {
 #endif
 }
 
-// one thread's share of a chunk: the sum of its unflagged terms, and how
-// many of its rows were flagged (flags written for every row it covers)
-SID_HD double nll_thread_sum(int64_t chunk, int t, const double* rec, int64_t n,
-                             const LynchScalars& s, uint8_t* flags, int* n_flagged) {
+// one thread's share of the chunk that starts at row `first` and stops at
+// row `end` at the latest: the sum of its unflagged terms, and how many of
+// its rows were flagged (flags written for every row it covers). The
+// record has n rows (its plane stride).
+SID_HD double nll_rows_sum(int64_t first, int64_t end, int t, const double* rec,
+                           int64_t n, const LynchScalars& s, uint8_t* flags,
+                           int* n_flagged) {
   double acc = 0.0;
   int cnt = 0;
   SID_NO_UNROLL
   for (int k = 0; k < kRowsPerThread; ++k) {
-    const int64_t i = chunk * kChunk + static_cast<int64_t>(k) * kReduceThreads + t;
+    const int64_t i = first + static_cast<int64_t>(k) * kReduceThreads + t;
     double term = 0.0;
-    if (i < n) {
+    if (i < end) {
       const RowRecord r = read_record(rec, n, i);
       bool flagged;
       const double log_mix = mixture_row(r, s, &flagged);
@@ -338,6 +341,42 @@ SID_HD double nll_thread_sum(int64_t chunk, int t, const double* rec, int64_t n,
   }
   *n_flagged = cnt;
   return acc;
+}
+
+// one thread's share of chunk `chunk` of a fit's n rows
+SID_HD double nll_thread_sum(int64_t chunk, int t, const double* rec, int64_t n,
+                             const LynchScalars& s, uint8_t* flags, int* n_flagged) {
+  return nll_rows_sum(chunk * kChunk, n, t, rec, n, s, flags, n_flagged);
+}
+
+// ---- lanes: many fits' rows in one record ----
+// A cohort's fits (lanes) keep their rows one after another in one record;
+// lane l holds rows off[l] .. off[l+1]-1. Its objective runs in chunks of
+// kChunk rows that start at off[l] (a lane's last chunk may be short and
+// never reaches into the next lane), so every lane sums its rows in the
+// order a fit of those rows alone sums them. An empty lane has one chunk
+// of no rows, whose sum is the 0.0 a fit of no rows gives.
+SID_HD int64_t lane_chunks(int64_t rows) {
+  return rows > kChunk ? (rows + kChunk - 1) / kChunk : 1;
+}
+
+// The largest k in [0, count) with off[k] <= x, for non-decreasing off with
+// off[0] <= x: a row's lane from the row offsets (empty lanes, whose
+// offsets repeat the next lane's, are skipped), or a chunk's place among
+// the running lanes from their chunk offsets. A binary search over count
+// entries.
+SID_HD int lane_of(const int64_t* off, int count, int64_t x) {
+  int lo = 0;
+  int hi = count - 1;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (off[mid] <= x) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
 }
 
 }  // namespace sid

@@ -5,8 +5,10 @@ quirk that an unrecognized method produces no records (the CLI then prints
 only the CSV header). ``options.engine`` selects the device path (default)
 or the host long-double oracle. ``run`` calls a whole input in memory;
 ``run_streaming`` calls it in two passes over newline-aligned chunks, with
-the same output. Methods and options of sid_tpu that this package does not
-run yet raise ``NotPortedError`` instead of doing something else.
+the same output. Population mode (many samples) is
+``models.population``, which the CLI dispatches to. Methods and options of
+sid_tpu that this package does not run yet raise ``NotPortedError`` instead
+of doing something else.
 """
 
 from __future__ import annotations
@@ -50,7 +52,6 @@ _TABLES = {
 def check_ported(options: Options) -> None:
     """Raise NotPortedError for the first option this package cannot run."""
     unported = (
-        (bool(options.population), "--population"),
         (options.multihost, "--multihost"),
         (options.per_shard_fit, "--per-shard-fit"),
         (options.mesh_devices is not None, "--devices"),

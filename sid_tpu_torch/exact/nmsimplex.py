@@ -19,12 +19,22 @@ objective and the device objective, one f64 scalar fetched per evaluation
 (sid_tpu's ``lax.while_loop`` form exists to bound XLA trace size and has no
 counterpart here). NumPy f64 contracts nothing into a fused multiply-add,
 so the spec's operation order is the order executed.
+
+The loop is a generator (``_minimize``) that yields each point it needs and
+receives its value, so one copy of the rule serves two loops:
+``minimize_nmsimplex2`` evaluates a scalar objective point by point, and
+``minimize_nmsimplex2_lanes`` advances many independent minimizations in
+lockstep, one pending point of every running lane per call of a lane-batched
+objective. That is how sid_tpu's population fits run (a vmapped
+``lax.while_loop`` whose batching masks finished lanes, one objective
+evaluation per lane per trip: ``sid_tpu/ops/nmsimplex.py:287``); each lane
+takes the points and the decisions it would take alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Generator, List, Optional, Sequence
 
 import numpy as np
 
@@ -37,23 +47,30 @@ class MinimizeResult:
     iterations: int
 
 
+# a generator that yields the points to evaluate and is sent their values
+_Steps = Generator[np.ndarray, float, None]
+
+
 class _State:
     __slots__ = ("x1", "y1", "center", "S2", "P", "N")
 
-    def __init__(self, x0: np.ndarray, step: np.ndarray, f: Callable):
+    def __init__(self, x0: np.ndarray):
         N = x0.shape[0]
         P = N + 1
         self.N, self.P = N, P
         self.x1 = np.zeros((P, N), np.float64)
         self.y1 = np.zeros(P, np.float64)
+        self.center = np.zeros(N, np.float64)
+
+    def start(self, x0: np.ndarray, step: np.ndarray) -> _Steps:
+        """The initial simplex: x0 and one step along each axis."""
         self.x1[0] = x0
-        self.y1[0] = f(x0)
-        for i in range(N):
+        self.y1[0] = yield x0
+        for i in range(self.N):
             xt = x0.copy()
             xt[i] += step[i]
             self.x1[i + 1] = xt
-            self.y1[i + 1] = f(xt)
-        self.center = np.zeros(N, np.float64)
+            self.y1[i + 1] = yield xt
         self._compute_center()
         self._compute_size()
 
@@ -93,11 +110,11 @@ class _State:
         self.x1[i] = x
         self.y1[i] = val
 
-    def contract_by_best(self, best: int, f: Callable):
+    def contract_by_best(self, best: int) -> _Steps:
         for i in range(self.P):
             if i != best:
                 self.x1[i] = 0.5 * (self.x1[i] + self.x1[best])
-                self.y1[i] = f(self.x1[i])
+                self.y1[i] = yield self.x1[i]
         self._compute_center()
         self._compute_size()
 
@@ -107,7 +124,7 @@ class _State:
         return self._compute_size()
 
 
-def _iterate(state: _State, f: Callable):
+def _iterate(state: _State) -> _Steps:
     y1 = state.y1
     n = state.P
     # highest, second-highest, lowest — GSL's exact initialization quirk:
@@ -131,12 +148,12 @@ def _iterate(state: _State, f: Callable):
             s_hi = i
 
     xc = state.try_corner_move(-1.0, hi)
-    val = f(xc)
+    val = yield xc
 
     if np.isfinite(val) and val < y1[lo]:
         # reflected point is a new best: try expansion
         xc2 = state.try_corner_move(-2.0, hi)
-        val2 = f(xc2)
+        val2 = yield xc2
         if np.isfinite(val2) and val2 < y1[lo]:
             state.update_point(hi, xc2, val2)
         else:
@@ -146,13 +163,40 @@ def _iterate(state: _State, f: Callable):
         if np.isfinite(val) and val <= y1[hi]:
             state.update_point(hi, xc, val)
         xc2 = state.try_corner_move(0.5, hi)
-        val2 = f(xc2)
+        val2 = yield xc2
         if np.isfinite(val2) and val2 <= state.y1[hi]:
             state.update_point(hi, xc2, val2)
         else:
-            state.contract_by_best(lo, f)
+            yield from state.contract_by_best(lo)
     else:
         state.update_point(hi, xc, val)
+
+
+def _minimize(x0, step, tol: float, max_iterations: int) -> Generator[np.ndarray, float, MinimizeResult]:
+    """The whole minimization as a generator: yields each point to
+    evaluate, is sent its value, returns the result."""
+    x0 = np.asarray(x0, np.float64)
+    step = np.asarray(step, np.float64)
+    state = _State(x0)
+    yield from state.start(x0, step)
+
+    i = 0
+    converged = False
+    while i < max_iterations:
+        i += 1
+        yield from _iterate(state)
+        size = state.size()
+        if size < tol:
+            converged = True
+            break
+
+    lo = int(np.argmin(state.y1))
+    return MinimizeResult(
+        x=state.x1[lo].copy(),
+        fval=float(state.y1[lo]),
+        converged=converged,
+        iterations=i,
+    )
 
 
 def minimize_nmsimplex2(
@@ -168,28 +212,53 @@ def minimize_nmsimplex2(
     ``log`` receives the reference's convergence diagnostics verbatim
     (optimization.hpp:69-77).
     """
-    x0 = np.asarray(x0, np.float64)
-    step = np.asarray(step, np.float64)
-    state = _State(x0, step, f)
+    steps = _minimize(x0, step, tol, max_iterations)
+    try:
+        x = next(steps)
+        while True:
+            x = steps.send(f(x))
+    except StopIteration as done:
+        res = done.value
+    if log:
+        if res.converged:
+            log(f"# GSL function minimization converged in {res.iterations} iterations.")
+        else:
+            log(f"# Error: GSL function minimization did not converge in {res.iterations} iterations!")
+    return res
 
-    i = 0
-    converged = False
-    while i < max_iterations:
-        i += 1
-        _iterate(state, f)
-        size = state.size()
-        if size < tol:
-            converged = True
-            if log:
-                log(f"# GSL function minimization converged in {i} iterations.")
-            break
-    if not converged and log:
-        log(f"# Error: GSL function minimization did not converge in {i} iterations!")
 
-    lo = int(np.argmin(state.y1))
-    return MinimizeResult(
-        x=state.x1[lo].copy(),
-        fval=float(state.y1[lo]),
-        converged=converged,
-        iterations=i,
-    )
+def minimize_nmsimplex2_lanes(
+    f_lanes: Callable[[List[int], List[np.ndarray]], Sequence[float]],
+    x0s: Sequence[Sequence[float]],
+    steps: Sequence[Sequence[float]],
+    tol: float = 1e-5,
+    max_iterations: int = 1000,
+) -> List[MinimizeResult]:
+    """Minimize S objectives in lockstep, one lane each, with the nmsimplex2
+    rule; lane k starts at x0s[k] with steps[k].
+
+    Each round collects the one pending point of every lane still running
+    and calls ``f_lanes(lanes, points)`` once: ``lanes`` the running lanes'
+    indices in increasing order, ``points`` their points; it returns their
+    values in that order. A lane stops at size < tol or at max_iterations
+    on its own, and its result is bitwise what ``minimize_nmsimplex2``
+    gives for its objective alone. No diagnostic line is written (sid_tpu's
+    population fits write none).
+    """
+    if len(x0s) != len(steps):
+        raise ValueError(f"{len(x0s)} starting points but {len(steps)} steps")
+    runs = [_minimize(x0, st, tol, max_iterations) for x0, st in zip(x0s, steps)]
+    results: List[Optional[MinimizeResult]] = [None] * len(runs)
+    pending = {k: next(run) for k, run in enumerate(runs)}
+    while pending:
+        lanes = sorted(pending)
+        values = f_lanes(lanes, [pending[k] for k in lanes])
+        if len(values) != len(lanes):
+            raise ValueError(f"f_lanes returned {len(values)} values for {len(lanes)} lanes")
+        for k, val in zip(lanes, values):
+            try:
+                pending[k] = runs[k].send(val)
+            except StopIteration as done:
+                results[k] = done.value
+                del pending[k]
+    return results

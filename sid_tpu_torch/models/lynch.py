@@ -26,7 +26,7 @@ construction, and on the device above.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +113,91 @@ class DeviceObjective:
                 log_l_hom[rows] = np.log(l_hom).astype(np.float64)
                 log_l_het[rows] = np.log(l_het).astype(np.float64)
         return log_l_hom, log_l_het
+
+
+class LanesObjective:
+    """``DeviceObjective`` for a cohort: the compound objective of each of
+    S histograms (lanes) on a torch device, evaluated for any set of lanes,
+    each at its own theta, in one call (``f_lanes`` of
+    ``exact.nmsimplex.minimize_nmsimplex2_lanes``).
+
+    The lanes' rows are bound to the device once (``LynchLanesWorkspace``).
+    A lane's theta is its point (pi, epsilon), or (pi, ``eps``) when the
+    lanes fit pi alone at a fixed error rate. A lane whose theta is outside
+    the box [0,1]^2 gets DBL_MAX without a launch; one launch evaluates the
+    others. Where the range screen flags rows of a lane, their terms come
+    from the long-double objective over that lane's flagged rows; each
+    lane's total is clamped to +-DBL_MAX. So each lane's value is bitwise
+    ``DeviceObjective``'s for its histogram alone.
+    """
+
+    def __init__(self, histograms: Sequence[Tuple[np.ndarray, np.ndarray]], nts: np.ndarray, device,
+                 eps: Optional[float] = None):
+        self.profiles = np.ascontiguousarray(
+            np.concatenate([np.asarray(p, np.int32).reshape(-1, 4) for p, _ in histograms]), np.int32)
+        self.mult = np.ascontiguousarray(np.concatenate([np.asarray(m, np.int64) for _, m in histograms]),
+                                         np.int64)
+        self.offsets = np.concatenate([[0], np.cumsum([len(m) for _, m in histograms])]).astype(np.int64)
+        self.nts = np.asarray(nts, np.float64).reshape(len(histograms), 4)
+        self.eps = eps
+        max_cov = int(coverage_of(self.profiles).max()) if self.profiles.shape[0] else 0
+        self.tab = lgamma_table(max_cov, device)
+        self.work = lynch_objective.LynchLanesWorkspace(
+            torch.from_numpy(self.profiles).to(device), torch.from_numpy(self.mult).to(device),
+            torch.from_numpy(self.offsets).to(device), self.tab,
+        )
+        self._scalars = np.zeros((len(histograms), 16), np.float64)
+        self.rounds = 0  # objective launches (one a round with a lane in the box)
+        self.evaluations = 0  # lane evaluations in the box
+
+    def _rows(self, lane: int) -> slice:
+        return slice(int(self.offsets[lane]), int(self.offsets[lane + 1]))
+
+    def _ld(self, lane: int, rows: np.ndarray) -> bridge.NativeLynchLD:
+        r = self._rows(lane)
+        return bridge.NativeLynchLD(native.load(), self.profiles[r], self.mult[r], self.nts[lane], rows)
+
+    def __call__(self, lanes: List[int], points: List[np.ndarray]) -> List[float]:
+        thetas = [(float(x[0]), float(x[1]) if self.eps is None else self.eps) for x in points]
+        values = [likelihoods.DBL_MAX] * len(lanes)
+        inside = [k for k, (pi, eps) in enumerate(thetas) if 0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0]
+        if not inside:
+            return values
+        for k in inside:
+            pi, eps = thetas[k]
+            self._scalars[lanes[k]] = likelihoods.lynch_scalars(pi, eps, self.nts[lanes[k]])
+        out = self.work.nll_lanes(self._scalars, [lanes[k] for k in inside])
+        self.rounds += 1
+        self.evaluations += len(inside)
+        for k, (total, n_flagged) in zip(inside, out.tolist()):
+            if n_flagged:
+                rows = np.nonzero(self.work.flags[self._rows(lanes[k])].cpu().numpy())[0]
+                total = total - self._ld(lanes[k], rows).objective(thetas[k])
+            if total > likelihoods.DBL_MAX:
+                total = likelihoods.DBL_MAX
+            elif total < -likelihoods.DBL_MAX:
+                total = -likelihoods.DBL_MAX
+            values[k] = -total
+        return values
+
+    def marginals(self, eps: Sequence[float]) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Per lane (log L_hom, log L_het) f64 at that lane's epsilon, all
+        lanes in one launch of the lanes' marginals; the rows the screen
+        flags get the log of their long-double marginals."""
+        scalars = np.stack([likelihoods.lynch_scalars(0.0, e, nt) for e, nt in zip(eps, self.nts)])
+        log_l_hom, log_l_het, flags = self.work.marginals_lanes_host(scalars)
+        out = []
+        for lane, e in enumerate(eps):
+            r = self._rows(lane)
+            lhom, lhet = log_l_hom[r], log_l_het[r]
+            rows = np.nonzero(flags[r])[0]
+            if rows.size:
+                l_hom, l_het = self._ld(lane, rows).marginals(float(e))
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    lhom[rows] = np.log(l_hom).astype(np.float64)
+                    lhet[rows] = np.log(l_het).astype(np.float64)
+            out.append((lhom, lhet))
+        return out
 
 
 def fit_lynch(

@@ -174,11 +174,14 @@ def _component_ok(amax: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 
 def _component_negligible(log_weight, m, amax, log_n_terms, log_denom, log_mix):
-    if log_weight == -math.inf:
+    if not torch.is_tensor(log_weight) and log_weight == -math.inf:
         return torch.ones_like(m, dtype=torch.bool)
     top = torch.where(amax > LD_LOG_MIN_NORMAL, amax, LD_LOG_MIN_NORMAL)
     bound = log_weight + (((m + log_n_terms) + top) - log_denom)
-    return bound < log_mix - NEGLIGIBLE
+    negligible = bound < log_mix - NEGLIGIBLE
+    if torch.is_tensor(log_weight):  # per-row scalars
+        return negligible | (log_weight == -math.inf)
+    return negligible
 
 
 class LynchRows(NamedTuple):
@@ -189,10 +192,16 @@ class LynchRows(NamedTuple):
     flag_mixture: torch.Tensor  # (U,) bool: long-double objective term may differ
 
 
-def lynch_rows(profiles: torch.Tensor, scalars: np.ndarray, lgamma_tab: torch.Tensor) -> LynchRows:
+def lynch_rows(profiles: torch.Tensor, scalars, lgamma_tab: torch.Tensor) -> LynchRows:
     """Per profile, ``lynch_row`` of csrc/lynch.cuh: the two marginals, the
-    mixture and the long-double range screen's flags."""
-    s = [float(v) for v in scalars]
+    mixture and the long-double range screen's flags. ``scalars`` is one
+    evaluation's 16 values (``lynch_scalars``), or a (U, 16) f64 tensor on
+    the profiles' device with each row's own (the cohort's lanes); the
+    operations are the same either way."""
+    if torch.is_tensor(scalars) and scalars.dim() == 2:
+        s = list(scalars.unbind(1))
+    else:
+        s = [float(v) for v in scalars]
     prof = profiles.to(torch.int64)
     cov = prof.sum(-1)
     m = log_multinomial(prof, lgamma_tab)
@@ -241,23 +250,48 @@ def fixed_order_sum(terms: torch.Tensor) -> torch.Tensor:
     per chunk of CHUNK_ROWS rows, thread t adds rows k*REDUCE_THREADS + t in
     k order from 0.0, the threads fold as a tree; the chunk sums fold the
     same way. Rows past the end add 0.0. Returns a 0-d tensor."""
-    u = terms.shape[0]
-    n_chunks = -(-u // CHUNK_ROWS)
-    x = torch.zeros(n_chunks * CHUNK_ROWS, dtype=torch.float64, device=terms.device)
-    x[:u] = terms
-    x = x.view(n_chunks, ROWS_PER_THREAD, REDUCE_THREADS)
-    acc = torch.zeros((n_chunks, REDUCE_THREADS), dtype=torch.float64, device=terms.device)
+    return fixed_order_sums(terms, [terms.shape[0]])[0]
+
+
+def lane_chunks(rows) -> np.ndarray:
+    """The objective chunks of lanes of ``rows`` rows each (csrc/lynch.cuh
+    lane_chunks): ceil(rows / CHUNK_ROWS), and one for an empty lane."""
+    return np.maximum(1, -(-np.asarray(rows, np.int64) // CHUNK_ROWS))
+
+
+def fixed_order_sums(terms: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+    """``fixed_order_sum`` of each run of consecutive ``terms`` (their
+    lengths ``sizes``), all at once, as the lanes' objective kernel sums
+    its lanes: each run in chunks of CHUNK_ROWS from its first term (an
+    empty run one chunk of nothing), each run's chunk sums folded in one
+    block's order. Bitwise ``fixed_order_sum`` of each run alone: the
+    padding adds 0.0, which changes no sum (a sum from 0.0 is never -0.0).
+    Returns a (len(sizes),) tensor."""
+    dev = terms.device
+    sizes = np.asarray(sizes, np.int64)
+    n_runs = sizes.shape[0]
+    chunks = lane_chunks(sizes)
+    chunk_base = np.concatenate([[0], np.cumsum(chunks)[:-1]]).astype(np.int64)
+    run_start = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    total = int(chunks.sum())
+    pos = np.repeat(chunk_base * CHUNK_ROWS - run_start, sizes) + np.arange(int(sizes.sum()))
+    x = torch.zeros(total * CHUNK_ROWS, dtype=torch.float64, device=dev)
+    x[torch.from_numpy(pos).to(dev)] = terms
+    x = x.view(total, ROWS_PER_THREAD, REDUCE_THREADS)
+    acc = torch.zeros((total, REDUCE_THREADS), dtype=torch.float64, device=dev)
     for k in range(ROWS_PER_THREAD):
         acc = acc + x[:, k, :]
     partials = _tree_fold(acc)
-    rounds = -(-n_chunks // REDUCE_THREADS)
-    y = torch.zeros(rounds * REDUCE_THREADS, dtype=torch.float64, device=terms.device)
-    y[:n_chunks] = partials
-    y = y.view(rounds, REDUCE_THREADS)
-    acc = torch.zeros((1, REDUCE_THREADS), dtype=torch.float64, device=terms.device)
+    rounds = int((-(-chunks // REDUCE_THREADS)).max()) if n_runs else 0
+    y = torch.zeros((n_runs, rounds * REDUCE_THREADS), dtype=torch.float64, device=dev)
+    run_of_chunk = torch.from_numpy(np.repeat(np.arange(n_runs), chunks)).to(dev)
+    slot = torch.from_numpy(np.arange(total) - np.repeat(chunk_base, chunks)).to(dev)
+    y[run_of_chunk, slot] = partials
+    y = y.view(n_runs, rounds, REDUCE_THREADS)
+    acc = torch.zeros((n_runs, REDUCE_THREADS), dtype=torch.float64, device=dev)
     for r in range(rounds):
-        acc = acc + y[r]
-    return _tree_fold(acc)[0]
+        acc = acc + y[:, r, :]
+    return _tree_fold(acc)
 
 
 def log_hom_marginal(profiles, error_probability: float, nucleotide_distribution, lgamma_tab) -> torch.Tensor:

@@ -23,10 +23,22 @@ the caller evaluates the flagged rows in host long double
 (``models/lynch.py``). The theta-dependent scalars come from
 ``ops.likelihoods.lynch_scalars``.
 
-``RECORD_LAUNCHES``, ``NLL_LAUNCHES`` and ``MARGINALS_LAUNCHES`` count
-kernel launches (not plain-version calls), so a run can show that it went
-through the kernels; the kernel library keeps its own count
-(``kernel_launches``).
+A ``LynchLanesWorkspace`` does the same for a cohort (population mode): the
+lanes' rows one after another with lane row offsets, one row record over all
+of them, and two more kernels, the counterparts of sid_tpu's vmapped
+population programs (``models/population.py``: the fits' objective and
+``_marginals_batched``): ``nll_lanes`` evaluates the objective of any set
+of lanes, each at its own theta, in one launch (each lane bitwise B2 over
+its rows alone), and ``marginals_lanes`` is B4 over every lane's rows at
+its lane's epsilon in one launch. Their plain versions
+(``lynch_compound_nll_lanes_ref``, ``lynch_marginals_lanes_ref``) take
+every lane's rows at once, each at its lane's scalars, and give each lane
+the bits of the single-lane plain versions.
+
+``RECORD_LAUNCHES``, ``NLL_LAUNCHES``, ``MARGINALS_LAUNCHES``,
+``NLL_LANES_LAUNCHES`` and ``MARGINALS_LANES_LAUNCHES`` count kernel
+launches (not plain-version calls), so a run can show that it went through
+the kernels; the kernel library keeps its own count (``kernel_launches``).
 """
 
 from __future__ import annotations
@@ -45,13 +57,15 @@ from sid_tpu_torch.ops import likelihoods
 RECORD_LAUNCHES = 0
 NLL_LAUNCHES = 0
 MARGINALS_LAUNCHES = 0
+NLL_LANES_LAUNCHES = 0
+MARGINALS_LANES_LAUNCHES = 0
 
 # counts arrive as uint16; the record packs them so
 MAX_COUNT = 65535
 # the record: m, the signed multiplicity, the packed counts (csrc/lynch.cuh)
 RECORD_PLANES = 3
 # the kernel library's launch counters (csrc/lynch.cu)
-KERNELS = ("records", "nll", "marginals")
+KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -91,6 +105,53 @@ def lynch_marginals_ref(
     """Plain torch f64 version of B4: (log L_hom, log L_het, uint8 flags)."""
     rows = likelihoods.lynch_rows(profiles, scalars, lgamma_tab)
     return rows.lhom, rows.lhet, rows.flag_marginals.to(torch.uint8)
+
+
+def _lane_rows(offsets: np.ndarray, lanes, device):
+    """The rows of ``lanes`` in order, and each one's place among them."""
+    sizes = np.array([offsets[k + 1] - offsets[k] for k in lanes], np.int64)
+    rows = np.concatenate([np.arange(offsets[k], offsets[k + 1]) for k in lanes]) if len(lanes) else []
+    which = np.repeat(np.arange(len(lanes)), sizes)
+    return (torch.as_tensor(np.asarray(rows, np.int64), device=device),
+            torch.from_numpy(which).to(device), sizes)
+
+
+def lynch_compound_nll_lanes_ref(
+    profiles: torch.Tensor, mult: torch.Tensor, offsets: np.ndarray, scalars: np.ndarray,
+    lgamma_tab: torch.Tensor, lanes,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the lanes' objective: for each of ``lanes``, B2's
+    plain version over its rows at its own row of ``scalars`` (S, 16),
+    bitwise ``lynch_compound_nll_ref`` of that lane alone. All the lanes'
+    rows go through ``likelihoods.lynch_rows`` at once with per-row
+    scalars, and ``likelihoods.fixed_order_sums`` sums each lane in the
+    kernel's order. Returns ((len(lanes), 2) f64 [sum of the unflagged
+    terms, flagged count] in the order of ``lanes``, (N,) uint8 flags, 0
+    outside them)."""
+    dev = profiles.device
+    rows, which, sizes = _lane_rows(offsets, list(lanes), dev)
+    per_row = torch.from_numpy(np.ascontiguousarray(scalars, np.float64)[list(lanes)]).to(dev)[which]
+    r = likelihoods.lynch_rows(profiles[rows], per_row, lgamma_tab)
+    terms = torch.where(r.flag_mixture, 0.0, likelihoods.lynch_terms(r.log_mix, mult[rows]))
+    counts = torch.zeros(len(sizes), dtype=torch.int64, device=dev).index_add_(
+        0, which, r.flag_mixture.to(torch.int64))
+    flags = torch.zeros(profiles.shape[0], dtype=torch.uint8, device=dev)
+    flags[rows] = r.flag_mixture.to(torch.uint8)
+    out = torch.stack([likelihoods.fixed_order_sums(terms, sizes), counts.to(torch.float64)], 1)
+    return out, flags
+
+
+def lynch_marginals_lanes_ref(
+    profiles: torch.Tensor, offsets: np.ndarray, scalars: np.ndarray, lgamma_tab: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the lanes' marginals: every row at its lane's row
+    of ``scalars`` (S, 16), bitwise ``lynch_marginals_ref`` of each lane
+    alone: (log L_hom, log L_het, uint8 flags), each (N,)."""
+    dev = profiles.device
+    lanes = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    per_row = torch.from_numpy(np.ascontiguousarray(scalars, np.float64)).to(dev)[torch.from_numpy(lanes).to(dev)]
+    r = likelihoods.lynch_rows(profiles, per_row, lgamma_tab)
+    return r.lhom, r.lhet, r.flag_marginals.to(torch.uint8)
 
 
 def _check(profiles, lgamma_tab, mult) -> None:
@@ -150,6 +211,9 @@ def _kernel_lib() -> ctypes.CDLL:
                 ("sid_lynch_records_launch", [p, p, p, i32, i64, p, i32, p]),
                 ("sid_lynch_nll_launch", [p, p, i64, p, p, p, p, p, i32, p, p]),
                 ("sid_lynch_marginals_launch", [p, p, i64, p, p, p, i32, p]),
+                ("sid_lynch_lanes_grids", [i64, i64, p]),
+                ("sid_lynch_nll_lanes_launch", [p, i64, p, p, i32, p, p, i64, i32, p, p, p, p, p, i32, p, p]),
+                ("sid_lynch_marginals_lanes_launch", [p, i64, p, i32, p, p, p, p, p, i32, p]),
             ):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
@@ -168,7 +232,8 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def kernel_launches() -> dict:
     """The kernel library's own launch counts since it was loaded, by
-    kernel: {"records": n, "nll": n, "marginals": n}."""
+    kernel: {"records": n, "nll": n, "marginals": n, "nll_lanes": n,
+    "marginals_lanes": n}."""
     lib = _kernel_lib()
     return {name: lib.sid_lynch_launches(k) for k, name in enumerate(KERNELS)}
 
@@ -376,3 +441,230 @@ def lynch_marginals(
         return lynch_marginals_ref(profiles, scalars, lgamma_tab)
     _cuda_checks(profiles, lgamma_tab, "Lynch marginals")
     return LynchWorkspace(profiles, mult, lgamma_tab).marginals(scalars)
+
+
+def _check_offsets(offsets: torch.Tensor, profiles: torch.Tensor) -> np.ndarray:
+    """Lane row offsets: (S+1,) int64 on the profiles' device, 0 first, the
+    row count last, non-decreasing, S >= 1. Returns them on the host."""
+    if not isinstance(offsets, torch.Tensor) or offsets.dim() != 1 or offsets.shape[0] < 2:
+        raise ValueError("offsets must be a (S+1,) tensor with S >= 1")
+    if offsets.dtype != torch.int64:
+        raise TypeError(f"offsets must be {torch.int64}, got {offsets.dtype}")
+    if offsets.device != profiles.device:
+        raise ValueError(f"offsets is on {offsets.device}, profiles on {profiles.device}")
+    if not offsets.is_contiguous():
+        raise ValueError("offsets must be contiguous")
+    if offsets.shape[0] > 2**31:
+        raise ValueError("too many lanes for an int lane index")
+    off = offsets.cpu().numpy()
+    if off[0] != 0 or off[-1] != profiles.shape[0] or (np.diff(off) < 0).any():
+        raise ValueError(f"offsets must rise from 0 to {profiles.shape[0]}")
+    return off
+
+
+def _check_lanes(lanes, n_lanes: int) -> list:
+    lanes = [int(k) for k in lanes]
+    if not lanes or lanes[0] < 0 or lanes[-1] >= n_lanes or any(a >= b for a, b in zip(lanes, lanes[1:])):
+        raise ValueError(f"lanes must be distinct lanes of 0..{n_lanes - 1} in increasing order, got {lanes}")
+    return lanes
+
+
+class LynchLanesWorkspace:
+    """A cohort's fits (lanes) bound to their device, checked once.
+
+    profiles (N, 4) int32 counts in 0..65535 and mult (N,) int64 >= 0 hold
+    the lanes' rows one after another; offsets (S+1,) int64 are the lanes'
+    row offsets (lane l is rows offsets[l] .. offsets[l+1]-1, a lane may be
+    empty); lgamma_tab (T,) f64 covers every lane; all contiguous on one
+    device. On a CUDA device the set-up kernel writes one row record over
+    all rows, the grids come from the occupancy API once, and the kernels
+    launch on the stream that was current when the workspace was made. On
+    the CPU each method runs the plain version.
+    """
+
+    def __init__(self, profiles: torch.Tensor, mult: torch.Tensor, offsets: torch.Tensor,
+                 lgamma_tab: torch.Tensor):
+        _check(profiles, lgamma_tab, mult)
+        device = profiles.device
+        if device.type != "cpu":
+            _cuda_checks(profiles, lgamma_tab, "Lynch lanes")
+        self.offsets = _check_offsets(offsets, profiles)
+        _check_values(profiles, mult)
+        self.profiles, self.mult, self.lgamma_tab = profiles, mult, lgamma_tab
+        self.n = n = profiles.shape[0]
+        self.lanes = s = self.offsets.shape[0] - 1
+        self.device = device
+        # the rows' flags of the last objective (for the lanes it ran)
+        self.flags: Optional[torch.Tensor] = None
+        # the running lanes of the last objective upload (launch_nll_lanes),
+        # and whether any scalars were uploaded (launch_marginals_lanes)
+        self._uploaded: Optional[int] = None
+        self._scalars_on_card = False
+        if device.type == "cpu":
+            return
+        chunks = self._chunks = likelihoods.lane_chunks(np.diff(self.offsets))
+        chunk_off = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
+        lib = self._lib = _kernel_lib()
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.current_stream(device)
+            grids = (ctypes.c_int * 3)()
+            _raise_on(lib, lib.sid_lynch_grids(n, grids), "Lynch grid")
+            self.records_grid = grids[0]
+            lane_grids = (ctypes.c_int * 2)()
+            _raise_on(lib, lib.sid_lynch_lanes_grids(n, int(chunk_off[-1]), lane_grids), "Lynch lanes grid")
+            self.grids = tuple(lane_grids)  # the lanes' objective, the lanes' marginals
+            self.records = torch.empty((RECORD_PLANES, n), dtype=torch.float64, device=device)
+            self.flags = torch.zeros(n, dtype=torch.uint8, device=device)
+            self.chunk_off = torch.from_numpy(chunk_off).to(device)
+            self.row_off = offsets
+            self.part_sum = torch.empty(int(chunk_off[-1]), dtype=torch.float64, device=device)
+            self.part_cnt = torch.empty(int(chunk_off[-1]), dtype=torch.int32, device=device)
+            self.ticket = torch.zeros(s, dtype=torch.int32, device=device)
+            self.out = torch.empty((s, 2), dtype=torch.float64, device=device)
+            self.host_out = torch.empty((s, 2), dtype=torch.float64, pin_memory=True)
+            self._host_view = self.host_out.numpy()
+            # one round's upload: scalars (S, 16) f64 | the running lanes'
+            # chunk offsets (A+1) int64 | the running lanes (A) int32
+            size = 16 * 8 * s + 8 * (s + 1) + 4 * s
+            self.upload_host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            self.upload_dev = torch.empty(size, dtype=torch.uint8, device=device)
+            self._upload = self.upload_host.numpy()
+            # the pinned upload is free again once this event has passed
+            self._upload_read = torch.cuda.Event()
+            self._upload_read.record(self.stream)
+        self.write_records()
+
+    def write_records(self) -> None:
+        """Enqueue the set-up kernel that writes the row record over every
+        lane's rows (done once when the workspace is made)."""
+        global RECORD_LAUNCHES
+        with torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_records_launch(
+                self.profiles.data_ptr(), self.mult.data_ptr(), self.lgamma_tab.data_ptr(),
+                self.lgamma_tab.shape[0], self.n, self.records.data_ptr(), self.records_grid,
+                self.stream.cuda_stream,
+            )
+        _raise_on(self._lib, err, "Lynch record")
+        if self.n:
+            RECORD_LAUNCHES += 1
+
+    def _check_scalars(self, scalars) -> np.ndarray:
+        scalars = np.ascontiguousarray(scalars, np.float64)
+        if scalars.shape != (self.lanes, 16):
+            raise ValueError(f"scalars must be ({self.lanes}, 16): lynch_scalars per lane")
+        return scalars
+
+    def _scalars_up(self, scalars: np.ndarray) -> None:
+        """The scalars into the pinned upload, once the last upload of it
+        has been read."""
+        self._upload_read.synchronize()
+        self._upload[: 128 * self.lanes].view(np.float64)[:] = scalars.reshape(-1)
+        self._scalars_on_card = True
+
+    def nll_lanes(self, scalars, lanes, grid: Optional[int] = None) -> np.ndarray:
+        """The objective of ``lanes`` (distinct, increasing), each at its
+        own row of ``scalars`` (S, 16), waited for: a (len(lanes), 2) f64
+        array of [sum of the unflagged terms, flagged count], each lane's
+        bitwise B2 over its rows alone; the lanes' rows' flags in
+        ``flags``. On a card one ctypes call: the upload of the scalars and
+        the lanes, one launch, the copy of the results into pinned memory,
+        one stream sync. ``grid`` sets the number of blocks (the results do
+        not depend on it); by default the resident blocks."""
+        global NLL_LANES_LAUNCHES
+        scalars = self._check_scalars(scalars)
+        lanes = _check_lanes(lanes, self.lanes)
+        if self.device.type == "cpu":
+            out, self.flags = lynch_compound_nll_lanes_ref(
+                self.profiles, self.mult, self.offsets, scalars, self.lgamma_tab, lanes)
+            return out.numpy()
+        a = len(lanes)
+        self._scalars_up(scalars)
+        base = 128 * self.lanes
+        act_off = self._upload[base : base + 8 * (a + 1)].view(np.int64)
+        act_off[0] = 0
+        np.cumsum(self._chunks[lanes], out=act_off[1:])
+        self._upload[base + 8 * (a + 1) : base + 8 * (a + 1) + 4 * a].view(np.int32)[:] = lanes
+        same = torch.cuda.current_device() == self.device.index
+        with contextlib.nullcontext() if same else torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_nll_lanes_launch(
+                self.records.data_ptr(), self.n, self.row_off.data_ptr(), self.chunk_off.data_ptr(),
+                self.lanes, self.upload_host.data_ptr(), self.upload_dev.data_ptr(),
+                base + 12 * a + 8, a, self.flags.data_ptr(), self.part_sum.data_ptr(),
+                self.part_cnt.data_ptr(), self.ticket.data_ptr(), self.out.data_ptr(),
+                grid or self.grids[0], self.host_out.data_ptr(), self.stream.cuda_stream,
+            )
+        _raise_on(self._lib, err, "Lynch lanes objective")
+        NLL_LANES_LAUNCHES += 1
+        self._uploaded = a
+        return self._host_view[lanes].copy()
+
+    def launch_nll_lanes(self, grid: Optional[int] = None) -> None:
+        """Enqueue the lanes' objective again on what the card holds (the
+        lanes of the last ``nll_lanes`` call, the scalars last uploaded)
+        and return at once, with no copy either way: the kernel alone, for
+        timing it."""
+        global NLL_LANES_LAUNCHES
+        if self._uploaded is None:
+            raise RuntimeError("launch_nll_lanes needs an nll_lanes call first")
+        with torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_nll_lanes_launch(
+                self.records.data_ptr(), self.n, self.row_off.data_ptr(), self.chunk_off.data_ptr(),
+                self.lanes, None, self.upload_dev.data_ptr(), 0, self._uploaded, self.flags.data_ptr(),
+                self.part_sum.data_ptr(), self.part_cnt.data_ptr(), self.ticket.data_ptr(),
+                self.out.data_ptr(), grid or self.grids[0], None, self.stream.cuda_stream,
+            )
+        _raise_on(self._lib, err, "Lynch lanes objective")
+        NLL_LANES_LAUNCHES += 1
+
+    def _marginals(self, scalars: Optional[np.ndarray]) -> torch.Tensor:
+        """Launch the lanes' marginals at ``scalars`` (uploaded first), or
+        None: at the scalars the card holds; the results in one (17 N,)
+        uint8 device buffer (``_split``)."""
+        global MARGINALS_LANES_LAUNCHES
+        n = self.n
+        buf = torch.empty(17 * n, dtype=torch.uint8, device=self.device)
+        lhom, lhet, flags = _split(buf, n)
+        if scalars is not None:
+            self._scalars_up(scalars)
+        with torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_marginals_lanes_launch(
+                self.records.data_ptr(), n, self.row_off.data_ptr(), self.lanes,
+                None if scalars is None else self.upload_host.data_ptr(), self.upload_dev.data_ptr(),
+                lhom.data_ptr(), lhet.data_ptr(), flags.data_ptr(), self.grids[1], self.stream.cuda_stream,
+            )
+            if scalars is not None:
+                self._upload_read.record(self.stream)
+        _raise_on(self._lib, err, "Lynch lanes marginals")
+        if n:
+            MARGINALS_LANES_LAUNCHES += 1
+        return buf
+
+    def launch_marginals_lanes(self) -> None:
+        """Enqueue the lanes' marginals again at the scalars last uploaded
+        and return at once, with no copy: the kernel alone, for timing
+        it."""
+        if not self._scalars_on_card:
+            raise RuntimeError("launch_marginals_lanes needs scalars uploaded first")
+        self._marginals(None)
+
+    def marginals_lanes(self, scalars) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """B4 over every lane's rows at its row of ``scalars`` (S, 16), one
+        launch: (log L_hom, log L_het, uint8 flags), each (N,), on the
+        workspace's device; the pi entries are not read."""
+        scalars = self._check_scalars(scalars)
+        if self.device.type == "cpu":
+            return lynch_marginals_lanes_ref(self.profiles, self.offsets, scalars, self.lgamma_tab)
+        return _split(self._marginals(scalars), self.n)
+
+    def marginals_lanes_host(self, scalars) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``marginals_lanes`` as host arrays: on a card one copy of all
+        three into pinned memory and one stream sync."""
+        scalars = self._check_scalars(scalars)
+        if self.device.type == "cpu":
+            return tuple(t.numpy() for t in self.marginals_lanes(scalars))
+        buf = self._marginals(scalars)
+        host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+        with torch.cuda.stream(self.stream):
+            host.copy_(buf, non_blocking=True)
+        self.stream.synchronize()
+        return tuple(t.numpy() for t in _split(host, self.n))

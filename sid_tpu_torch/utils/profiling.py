@@ -5,6 +5,11 @@ derived throughput, printable as a stderr report or a dict. On a CUDA
 device, ``device_stage`` also brackets its block with CUDA events on the
 current stream, so the report carries the stream's own time for the block
 beside the host's wall time.
+
+Device stages carry sid_tpu's names where sid_tpu has the stage:
+``local_log_likelihoods``, ``fit_lynch``, ``finalize_quality_het`` and
+population mode's ``population_marginals``; ``population_fit`` (the cohort's
+lockstep fits) has no sid_tpu counterpart.
 """
 
 from __future__ import annotations

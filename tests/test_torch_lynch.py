@@ -282,3 +282,144 @@ def test_workspace_rejects_counts_it_cannot_pack_and_other_rows():
         Workspace(prof.to("meta"), mult.to("meta"), tab.to("meta"))
     with pytest.raises(ValueError, match="mult is on meta"):
         Workspace(prof, mult.to("meta"), tab)
+
+
+def lane_cohort(seed=4):
+    """Eight lanes of lynch_profiles-like rows: an empty lane, a 1-row lane,
+    lanes around the chunk size, one of 12 chunks (whose chunk sums fold in
+    an order that matters) and one with the deep rows."""
+    rng = np.random.default_rng(seed)
+    prof, mult = lynch_profiles(n=20000, seed=seed)
+    sizes = [0, 1, 1023, 1024, 1025, 12, 12000, 2915]  # the last holds rows 5..11, the deep ones
+    parts = []
+    start = 12
+    for n in sizes[:-1]:
+        parts.append((prof[start:start + n], mult[start:start + n]))
+        start += n
+    tail = np.concatenate([prof[:12], prof[start:start + sizes[-1] - 12]])
+    parts.append((tail, np.concatenate([mult[:12], mult[start:start + sizes[-1] - 12]])))
+    # the 12-chunk lane's multiplicities span nine orders of magnitude, so
+    # its chunk sums differ in size and their fold order shows in the bits
+    big = sizes.index(12000)
+    parts[big] = (parts[big][0], 10 ** rng.integers(0, 10, 12000))
+    rng.shuffle(parts)
+    return parts
+
+
+def _stack(parts):
+    prof = np.concatenate([p for p, _ in parts]).astype(np.int32)
+    mult = np.concatenate([m for _, m in parts]).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum([len(m) for _, m in parts])]).astype(np.int64)
+    return torch.from_numpy(prof), torch.from_numpy(mult), torch.from_numpy(off)
+
+
+LANE_THETAS = [(1e-3, 1e-3), (0.05, 0.01), (0.0, 1e-3), (1e-3, 0.0), (1.0, 1.0), (0.5, 0.999), (0.02, 3.85e-11)]
+
+
+@pytest.mark.parametrize("subset", ["all", "every-other", "one", "last-two"])
+def test_lanes_plain_version_is_each_lane_alone(subset):
+    parts = lane_cohort()
+    prof, mult, off = _stack(parts)
+    tab = lgamma_table(int(prof.sum(-1).max()), "cpu")
+    n = len(parts)
+    scalars = np.stack([
+        lk.lynch_scalars(*LANE_THETAS[k % len(LANE_THETAS)], nucleotide_distribution(*parts[k])) for k in range(n)
+    ])
+    lanes = {"all": list(range(n)), "every-other": list(range(0, n, 2)), "one": [3], "last-two": [n - 2, n - 1]}[subset]
+    out, flags = lynch_objective.lynch_compound_nll_lanes_ref(prof, mult, off.numpy(), scalars, tab, lanes)
+    assert out.shape == (len(lanes), 2)
+    for row, k in zip(out, lanes):
+        a, b = int(off[k]), int(off[k + 1])
+        want, want_flags = lynch_objective.lynch_compound_nll_ref(prof[a:b], mult[a:b], scalars[k], tab)
+        assert torch.equal(row.view(torch.int64), want.view(torch.int64))
+        assert torch.equal(flags[a:b], want_flags)
+    outside = torch.ones(prof.shape[0], dtype=torch.bool)
+    for k in lanes:
+        outside[int(off[k]):int(off[k + 1])] = False
+    assert not flags[outside].any()
+    # the empty lane's value is a fit of no rows: +0.0 and no flagged row
+    empty = [k for k, (p, _) in enumerate(parts) if p.shape[0] == 0][0]
+    got, _ = lynch_objective.lynch_compound_nll_lanes_ref(prof, mult, off.numpy(), scalars, tab, [empty])
+    assert got[0].tolist() == [0.0, 0.0] and not torch.signbit(got[0, 0])
+    hom, het, mflags = lynch_objective.lynch_marginals_lanes_ref(prof, off.numpy(), scalars, tab)
+    for k in range(n):
+        a, b = int(off[k]), int(off[k + 1])
+        for x, y in zip((hom[a:b], het[a:b], mflags[a:b]),
+                        lynch_objective.lynch_marginals_ref(prof[a:b], scalars[k], tab)):
+            assert torch.equal(torch.nan_to_num(x.double()).view(torch.int64),
+                               torch.nan_to_num(y.double()).view(torch.int64))
+
+
+def test_lanes_workspace_on_cpu_is_the_plain_version():
+    parts = lane_cohort(seed=8)
+    prof, mult, off = _stack(parts)
+    tab = lgamma_table(int(prof.sum(-1).max()), "cpu")
+    n = len(parts)
+    counts = (lynch_objective.RECORD_LAUNCHES, lynch_objective.NLL_LANES_LAUNCHES,
+              lynch_objective.MARGINALS_LANES_LAUNCHES)
+    work = lynch_objective.LynchLanesWorkspace(prof, mult, off, tab)
+    scalars = np.stack([lk.lynch_scalars(0.05, 0.01, nucleotide_distribution(*parts[k])) for k in range(n)])
+    got = work.nll_lanes(scalars, [1, 4, 5])
+    want, want_flags = lynch_objective.lynch_compound_nll_lanes_ref(prof, mult, off.numpy(), scalars, tab, [1, 4, 5])
+    assert isinstance(got, np.ndarray) and np.array_equal(got, want.numpy())
+    assert torch.equal(work.flags, want_flags)
+    for a, b in zip(work.marginals_lanes_host(scalars),
+                    lynch_objective.lynch_marginals_lanes_ref(prof, off.numpy(), scalars, tab)):
+        assert isinstance(a, np.ndarray) and np.array_equal(a, b.numpy(), equal_nan=a.dtype.kind == "f")
+    assert counts == (lynch_objective.RECORD_LAUNCHES, lynch_objective.NLL_LANES_LAUNCHES,
+                      lynch_objective.MARGINALS_LANES_LAUNCHES)
+
+
+def test_lanes_workspace_rejects_what_the_kernels_do_not_take():
+    prof = torch.zeros((8, 4), dtype=torch.int32)
+    mult = torch.ones(8, dtype=torch.int64)
+    tab = lgamma_table(0, "cpu")
+    W = lynch_objective.LynchLanesWorkspace
+    off = torch.tensor([0, 3, 3, 8])
+    for bad, err in (
+        (torch.tensor([0, 3, 8], dtype=torch.int32), TypeError),  # dtype
+        (torch.tensor([1, 3, 8]), ValueError),  # not from 0
+        (torch.tensor([0, 3, 7]), ValueError),  # not to the row count
+        (torch.tensor([0, 5, 3, 8]), ValueError),  # falling
+        (torch.tensor([0]), ValueError),  # no lane
+        (torch.tensor([[0, 8]]), ValueError),  # not 1-D
+        (torch.tensor([0, 9, 3, 8])[::2], ValueError),  # not contiguous
+        (np.array([0, 8]), ValueError),  # not a tensor
+    ):
+        with pytest.raises(err):
+            W(prof, mult, bad, tab)
+    with pytest.raises(ValueError, match="offsets is on meta"):
+        W(prof, mult, off.to("meta"), tab)
+    with pytest.raises(TypeError):
+        W(prof.to(torch.int64), mult, off, tab)
+    with pytest.raises(ValueError, match="mult must be"):
+        W(prof, mult[:4], off, tab)
+    with pytest.raises(ValueError, match="no Lynch lanes kernel for device meta"):
+        W(prof.to("meta"), mult.to("meta"), off.to("meta"), tab.to("meta"))
+    work = W(prof, mult, off, tab)
+    s = np.tile(lk.lynch_scalars(0.01, 0.01, [0.25] * 4), (3, 1))
+    with pytest.raises(ValueError, match=r"scalars must be \(3, 16\)"):
+        work.nll_lanes(s[:2], [0])
+    with pytest.raises(ValueError, match=r"scalars must be \(3, 16\)"):
+        work.marginals_lanes(s[:, :15])
+    for lanes in ([], [3], [-1], [1, 0], [1, 1]):
+        with pytest.raises(ValueError, match="lanes must be"):
+            work.nll_lanes(s, lanes)
+    assert work.nll_lanes(s, [0, 1, 2]).shape == (3, 2)
+    # the kernel-only relaunches have no kernel to launch on the CPU
+    with pytest.raises(RuntimeError):
+        work.launch_nll_lanes()
+    with pytest.raises(RuntimeError):
+        work.launch_marginals_lanes()
+
+
+@pytest.mark.parametrize("sizes", [[0], [5, 0, 1], [1024, 1025, 0, 1023, 1], [300_000, 7, 0, 2048]])
+def test_fixed_order_sums_is_each_run_alone(sizes):
+    rng = np.random.default_rng(sum(sizes))
+    n = sum(sizes)
+    x = torch.from_numpy(rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n))
+    got = lk.fixed_order_sums(x, sizes)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    for k, (a, b) in enumerate(zip(starts[:-1], starts[1:])):
+        want = lk.fixed_order_sum(x[a:b])
+        assert got[k].view(torch.int64) == want.view(torch.int64)

@@ -14,7 +14,11 @@ folds the chunk sums. Built here with g++
 - against the plain torch f64 versions: the record bitwise, m and the flags
   bitwise, the values within 1e-12 relative (only the exp/log
   implementations differ: glibc here, torch's on the CPU), and a sum that
-  does not change with the number of blocks.
+  does not change with the number of blocks;
+- the cohort's lanes: ``lane_of`` (a row's or a chunk's lane by binary
+  search) against numpy, and the lanes' objective and marginals as their
+  kernels walk a cohort's record: each lane bitwise the single-lane
+  objective over its own rows, for every set of running lanes and grid.
 """
 
 import ctypes
@@ -56,12 +60,17 @@ def shim(tmp_path_factory):
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.sid_lynch_chunk_rows_host.restype = i32
     lib.sid_lynch_chunk_rows_host.argtypes = []
+    lib.sid_lynch_lane_chunks_host.restype = i64
+    lib.sid_lynch_lane_chunks_host.argtypes = [i64]
     for name, args in (
         ("sid_lynch_rows_host", [p, p, p, i32, i64] + [p] * 6),
         ("sid_lynch_records_host", [p, p, p, i32, i64, p]),
         ("sid_lynch_read_records_host", [p, i64, p, p, p, p]),
         ("sid_lynch_record_rows_host", [p, i64, p] + [p] * 5),
         ("sid_lynch_nll_host", [p, i64, p, i32, p, p]),
+        ("sid_lynch_lane_of_host", [p, i32, p, i64, p]),
+        ("sid_lynch_nll_lanes_host", [p, i64, p, i32, p, p, i32, i32, p, p]),
+        ("sid_lynch_marginals_lanes_host", [p, i64, p, i32, p, p, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = None
@@ -204,3 +213,91 @@ def test_sum_does_not_change_with_the_number_of_blocks(shim, u):
     want, _ = lynch_objective.lynch_compound_nll_ref(torch.from_numpy(prof), torch.from_numpy(mult), s, tab)
     assert results[0][1] == float(want[1])
     assert abs(results[0][0] - float(want[0])) <= 1e-12 * abs(float(want[0]))
+
+
+@pytest.mark.parametrize("sizes", [[5], [0, 1, 0, 0, 7, 1, 0], [1] * 9, [0, 3000, 1, 1024, 1025, 0], [0, 0, 4]])
+def test_lane_of_is_searchsorted(shim, sizes):
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    rows = np.arange(off[-1], dtype=np.int64)
+    got = np.empty(rows.size, np.int32)
+    shim.sid_lynch_lane_of_host(off.ctypes.data, len(sizes), rows.ctypes.data, rows.size, got.ctypes.data)
+    want = np.searchsorted(off[:-1], rows, side="right") - 1
+    assert np.array_equal(got, want)
+    assert all(off[k] <= r < off[k + 1] for r, k in zip(rows, got))  # never an empty lane
+    # chunk offsets of a lane walk (every lane at least one chunk)
+    chunks = np.array([shim.sid_lynch_lane_chunks_host(int(n)) for n in sizes])
+    assert list(chunks) == list(lk.lane_chunks(sizes))
+    assert list(chunks) == [max(1, -(-n // lk.CHUNK_ROWS)) for n in sizes]
+    coff = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
+    js = np.arange(coff[-1], dtype=np.int64)
+    got = np.empty(js.size, np.int32)
+    shim.sid_lynch_lane_of_host(coff.ctypes.data, len(sizes), js.ctypes.data, js.size, got.ctypes.data)
+    assert np.array_equal(got, np.repeat(np.arange(len(sizes)), chunks))
+
+
+def run_nll_lanes(lib, rec, off, scalars, lanes, grid):
+    n = rec.shape[1]
+    flags = np.zeros(n, np.uint8)
+    out = np.full((len(off) - 1, 2), np.nan)
+    act = np.asarray(lanes, np.int32)
+    lib.sid_lynch_nll_lanes_host(rec.ctypes.data, n, off.ctypes.data, len(off) - 1, scalars.ctypes.data,
+                                 act.ctypes.data, act.size, grid, flags.ctypes.data, out.ctypes.data)
+    return out, flags
+
+
+@pytest.fixture(scope="module")
+def cohort(shim):
+    from test_torch_lynch import LANE_THETAS, lane_cohort
+
+    parts = lane_cohort(seed=11)
+    prof = np.ascontiguousarray(np.concatenate([p for p, _ in parts]), np.int32)
+    mult = np.concatenate([m for _, m in parts]).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum([len(m) for _, m in parts])]).astype(np.int64)
+    tab = lgamma_table(int(prof.sum(-1).max()), "cpu")
+    scalars = np.ascontiguousarray(np.stack([
+        lk.lynch_scalars(*LANE_THETAS[k % len(LANE_THETAS)], nucleotide_distribution(*parts[k]))
+        for k in range(len(parts))
+    ]))
+    return parts, prof, mult, off, tab, scalars, run_records(shim, prof, mult, tab)
+
+
+@pytest.mark.parametrize("grid", [1, 3, 64] + list(RESIDENT_GRIDS))
+def test_lanes_objective_is_each_lane_alone(shim, cohort, grid):
+    """Each running lane's [sum, flagged count] is bitwise the single-lane
+    objective over its own rows (its own record), and its flags the
+    same, for every set of running lanes and grid."""
+    parts, prof, mult, off, tab, scalars, rec = cohort
+    n = len(parts)
+    alone = []
+    for k, (p, m) in enumerate(parts):
+        alone.append(run_nll(shim, run_records(shim, np.ascontiguousarray(p, np.int32), m, tab), scalars[k], 5))
+    for lanes in (list(range(n)), list(range(0, n, 2)), [n - 1], [1, 2]):
+        out, flags = run_nll_lanes(shim, rec, off, scalars, lanes, grid)
+        for k in range(n):
+            if k in lanes:
+                assert np.array_equal(bits(out[k]), bits(alone[k][0]))
+                assert np.array_equal(flags[off[k]:off[k + 1]], alone[k][1])
+            else:
+                assert np.isnan(out[k]).all() and not flags[off[k]:off[k + 1]].any()
+    # the deep lane's flagged rows are counted, the empty lane's sum is +0.0
+    assert sum(a[0][1] for a in alone) >= 4
+    empty = [k for k, (p, _) in enumerate(parts) if p.shape[0] == 0][0]
+    assert bits(alone[empty][0])[0] == 0 and alone[empty][0][1] == 0
+
+
+def test_lanes_marginals_are_each_lane_alone(shim, cohort):
+    parts, prof, mult, off, tab, scalars, rec = cohort
+    n = rec.shape[1]
+    lhom, lhet, flags = np.empty(n), np.empty(n), np.empty(n, np.uint8)
+    shim.sid_lynch_marginals_lanes_host(rec.ctypes.data, n, off.ctypes.data, len(parts), scalars.ctypes.data,
+                                        lhom.ctypes.data, lhet.ctypes.data, flags.ctypes.data)
+    for k, (p, m) in enumerate(parts):
+        r = slice(off[k], off[k + 1])
+        _, _, w_hom, w_het, w_flags = run_record_rows(
+            shim, run_records(shim, np.ascontiguousarray(p, np.int32), m, tab), scalars[k])
+        assert np.array_equal(bits(lhom[r]), bits(w_hom)) and np.array_equal(bits(lhet[r]), bits(w_het))
+        assert np.array_equal(flags[r], w_flags)
+    want = lynch_objective.lynch_marginals_lanes_ref(torch.from_numpy(prof), off, scalars, tab)
+    assert np.array_equal(flags, want[2].numpy())
+    assert_agree(lhom, want[0].numpy(), 1e-12)
+    assert_agree(lhet, want[1].numpy(), 1e-12)
