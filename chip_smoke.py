@@ -105,9 +105,6 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
 13. prints a JSON line of kernel results, then the final JSON line
    {"ok": true, "device": {...}}.
 
-``--population-only`` runs phases 1, 2, 11 and 12 alone and prints the lane
-kernels' line but no final line.
-
 Any failed check raises, and the script exits non-zero without the final
 line. Without a CUDA card it exits 1 at once.
 """
@@ -1225,8 +1222,6 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
     ap.add_argument("--parent", help="an unpacked tree of the parent commit: time its local kernel in turns")
-    ap.add_argument("--population-only", action="store_true",
-                    help="run phases 1, 2, 11 and 12 alone (no final line)")
     args = ap.parse_args()
 
     # ---- 1. probe ----
@@ -1277,12 +1272,6 @@ def main() -> int:
             f"{c['issued']} instructions a warp; with every branch arm {c['f64_all']} and {c['issued_all']}")
     if not sass:
         raise AssertionError("no cuobjdump: the kernels' f64 instruction counts, and so their bounds, are unknown")
-    if args.population_only:
-        rows = population_phases(torch, dev, card, sass)
-        print(json.dumps({"kernels": rows}), flush=True)
-        log("# --population-only: phases 3-10 skipped, so no final line")
-        return 0
-
     # ---- 3. kernel vs plain at U = 1M ----
     prof_np = kernel_profiles()
     major_np, second_np = major_allele_indices_np(prof_np)

@@ -18,7 +18,8 @@ still fitting, and each sample's fit is the one ``fit_lynch``'s objective
 would give alone, with the long-double terms of the rows the range screen
 flags (sid_tpu's population fits have no screen: fault C4 in ROADMAP.md).
 The cohort's (hom, het) marginals at each sample's epsilon are one launch
-of the lanes' marginals kernel. Per-sample priors, LRT and BH stay on the
+of the lanes' marginals kernel, over the workspace the per-sample fits
+bound. Per-sample priors, LRT and BH stay on the
 host per sample (BH's domain is each sample's own unique profiles,
 call.cpp:120-138). ``-m local`` classifies each sample through
 ``models.local.classify_profiles_local`` (the local classify kernel) at the
@@ -99,14 +100,21 @@ def fit_population(
     ``diag`` receives the pooled fit's two lines. The fits run in the device
     stage ``population_fit`` (sid_tpu times them in no stage).
     """
+    fits, pooled, _ = _fit_population(histograms, mode, diag, mesh_devices, device)
+    return fits, pooled
+
+
+def _fit_population(histograms, mode: str, diag, mesh_devices, device):
+    """``fit_population``, and the per-sample ``LanesObjective`` the fits
+    ran over, whose workspace then serves the cohort's marginals."""
     if mesh_devices is not None:
         raise NotPortedError("--devices")
     device = Options().device() if device is None else torch.device(device)
     with profiling.device_stage("population_fit", device):
-        return _fit_population(histograms, mode, diag, device)
+        return _fit_lanes_of_mode(histograms, mode, diag, device)
 
 
-def _fit_population(histograms, mode: str, diag, device):
+def _fit_lanes_of_mode(histograms, mode: str, diag, device):
     nts = _nts(histograms)
     pooled = None
     if mode == "pooled":
@@ -117,12 +125,12 @@ def _fit_population(histograms, mode: str, diag, device):
         if diag:
             diag(f"# pooled heterozygosity: {pooled.pi:.6e}")
             diag(f"# pooled error: {pooled.eps:.6e}")
-        results, _ = fit_lanes(histograms, nts, device, START_PI, STEP_PI, eps=pooled.eps)
+        results, objective = fit_lanes(histograms, nts, device, START_PI, STEP_PI, eps=pooled.eps)
         fits = [SampleFit(float(r.x[0]), pooled.eps, bool(r.converged)) for r in results]
     else:
-        results, _ = fit_lanes(histograms, nts, device, START, STEP)
+        results, objective = fit_lanes(histograms, nts, device, START, STEP)
         fits = [SampleFit(float(r.x[0]), float(r.x[1]), bool(r.converged)) for r in results]
-    return fits, pooled
+    return fits, pooled, objective
 
 
 def classify_sample_profiles(profiles: np.ndarray, mult: np.ndarray, fit: SampleFit, options: Options):
@@ -138,6 +146,7 @@ def classify_population_profiles(
     per_sample: Sequence[Tuple[np.ndarray, np.ndarray]],
     fits: Sequence[SampleFit],
     options: Options,
+    objective: Optional[LanesObjective] = None,
 ):
     """Per-class tables for a whole cohort.
 
@@ -145,7 +154,8 @@ def classify_population_profiles(
     bayes/likelihood_ratio apply the cov>=4 filter (reference semantics).
     Returns (list of per-sample cls 5-tuples, filtered, conf_type). The
     marginals of every sample come from one launch of the lanes' marginals
-    kernel; local runs the local classify kernel once per sample.
+    kernel, over ``objective`` (the fits' lanes, already on the device) when
+    it is given; local runs the local classify kernel once per sample.
     """
     method = options.method
     if method == "local":
@@ -154,7 +164,7 @@ def classify_population_profiles(
         raise ValueError(f"population mode does not support method {method!r}")
 
     filtered = [filter_min_coverage(p, m, 4)[:2] for p, m in per_sample]
-    marginals = _population_marginals(filtered, fits, options)
+    marginals = _population_marginals(filtered, fits, options, objective)
     out = []
     for (fp, _), fit, (lh, lt) in zip(filtered, fits, marginals):
         if method == "bayes":
@@ -170,14 +180,17 @@ def _population_marginals(
     filtered: Sequence[Tuple[np.ndarray, np.ndarray]],
     fits: Sequence[SampleFit],
     options: Options,
+    objective: Optional[LanesObjective] = None,
 ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """The cohort's (log L_hom, log L_het) per sample at its fitted
-    epsilon: one launch of the lanes' marginals kernel."""
+    epsilon: one launch of the lanes' marginals kernel, over ``objective``
+    when the fits' lanes are given, else over ``filtered`` bound anew."""
     if options.mesh_devices is not None:
         raise NotPortedError("--devices")
     device = options.device()
     with profiling.device_stage("population_marginals", device):
-        objective = LanesObjective(filtered, _nts(filtered), device)
+        if objective is None:
+            objective = LanesObjective(filtered, _nts(filtered), device)
         return objective.marginals([f.eps for f in fits])
 
 
@@ -221,8 +234,7 @@ def call_population(
         fp, fm, _ = filter_min_coverage(p, m, 4)
         histograms.append((fp, fm))
 
-    fits, _ = fit_population(histograms, mode=mode, diag=diag, mesh_devices=options.mesh_devices,
-                             device=options.device())
+    fits, _, objective = _fit_population(histograms, mode, diag, options.mesh_devices, options.device())
 
     results = []
     if options.method == "quality":
@@ -235,7 +247,7 @@ def call_population(
             results.append(call_quality(b, opts))
         return results
     cls_list, filtered, conf_type = classify_population_profiles(
-        [(p, m) for p, m, _ in uniques], fits, options
+        [(p, m) for p, m, _ in uniques], fits, options, objective
     )
     for b, (p, m, inv), cls in zip(batches, uniques, cls_list):
         keep = filter_min_coverage(p, m, 4)[2] if filtered else None
@@ -267,13 +279,12 @@ def call_population_streaming(
         profiles, mult, _ = accumulate_histogram(p, chunk_bytes, options.io_backend)
         full_hists.append((profiles, mult))
     filtered_hists = [filter_min_coverage(p, m, 4)[:2] for p, m in full_hists]
-    fits, _ = fit_population(filtered_hists, mode=mode, diag=diag, mesh_devices=options.mesh_devices,
-                             device=options.device())
+    fits, _, objective = _fit_population(filtered_hists, mode, diag, options.mesh_devices, options.device())
 
     needs_reads = options.method == "quality"
     if not needs_reads:
         # every sample's class table up front, before the chunked re-parses
-        cls_all, filtered, conf_type = classify_population_profiles(full_hists, fits, options)
+        cls_all, filtered, conf_type = classify_population_profiles(full_hists, fits, options, objective)
     counts = []
     for i, (path, (profiles, mult), fit) in enumerate(zip(paths, full_hists, fits)):
         out_path = path + ".calls.csv"

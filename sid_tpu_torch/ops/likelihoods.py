@@ -141,8 +141,8 @@ def lynch_scalars(pi: float, eps: float, nt: Sequence[float]) -> np.ndarray:
     return np.array(vals, np.float64)
 
 
-def _xlogy_s(x: torch.Tensor, logy: float) -> torch.Tensor:
-    """_xlogy of integer counts and a host scalar: (double)x * logy, 0 at x == 0."""
+def _xlogy_s(x: torch.Tensor, logy: torch.Tensor) -> torch.Tensor:
+    """_xlogy of integer counts and per-row scalars: (double)x * logy, 0 at x == 0."""
     return torch.where(x == 0, 0.0, x.to(torch.float64) * logy)
 
 
@@ -174,14 +174,9 @@ def _component_ok(amax: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 
 def _component_negligible(log_weight, m, amax, log_n_terms, log_denom, log_mix):
-    if not torch.is_tensor(log_weight) and log_weight == -math.inf:
-        return torch.ones_like(m, dtype=torch.bool)
     top = torch.where(amax > LD_LOG_MIN_NORMAL, amax, LD_LOG_MIN_NORMAL)
     bound = log_weight + (((m + log_n_terms) + top) - log_denom)
-    negligible = bound < log_mix - NEGLIGIBLE
-    if torch.is_tensor(log_weight):  # per-row scalars
-        return negligible | (log_weight == -math.inf)
-    return negligible
+    return (bound < log_mix - NEGLIGIBLE) | (log_weight == -math.inf)
 
 
 class LynchRows(NamedTuple):
@@ -192,16 +187,20 @@ class LynchRows(NamedTuple):
     flag_mixture: torch.Tensor  # (U,) bool: long-double objective term may differ
 
 
-def lynch_rows(profiles: torch.Tensor, scalars, lgamma_tab: torch.Tensor) -> LynchRows:
+def row_scalars(scalars, profiles: torch.Tensor) -> torch.Tensor:
+    """One evaluation's 16 values (``lynch_scalars``) as every row's, the
+    (U, 16) form ``lynch_rows`` takes: a broadcast view, no copy."""
+    s = torch.as_tensor(np.asarray(scalars, np.float64), device=profiles.device)
+    return s.expand(profiles.shape[0], 16)
+
+
+def lynch_rows(profiles: torch.Tensor, scalars: torch.Tensor, lgamma_tab: torch.Tensor) -> LynchRows:
     """Per profile, ``lynch_row`` of csrc/lynch.cuh: the two marginals, the
-    mixture and the long-double range screen's flags. ``scalars`` is one
-    evaluation's 16 values (``lynch_scalars``), or a (U, 16) f64 tensor on
-    the profiles' device with each row's own (the cohort's lanes); the
-    operations are the same either way."""
-    if torch.is_tensor(scalars) and scalars.dim() == 2:
-        s = list(scalars.unbind(1))
-    else:
-        s = [float(v) for v in scalars]
+    mixture and the long-double range screen's flags. ``scalars`` is a
+    (U, 16) f64 tensor on the profiles' device, each row's 16 values of
+    ``lynch_scalars`` (one evaluation's: ``row_scalars``; a cohort's: each
+    row its lane's)."""
+    s = list(scalars.unbind(1))
     prof = profiles.to(torch.int64)
     cov = prof.sum(-1)
     m = log_multinomial(prof, lgamma_tab)
@@ -298,7 +297,7 @@ def log_hom_marginal(profiles, error_probability: float, nucleotide_distribution
     """log homozygousLikelihood marginalized over the base (lynch.hpp:82-90):
     multinom * sum_i nt_i (1-e)^n_i (e/3)^(cov-n_i), in log space."""
     s = lynch_scalars(0.0, error_probability, nucleotide_distribution)
-    return lynch_rows(profiles, s, lgamma_tab).lhom
+    return lynch_rows(profiles, row_scalars(s, profiles), lgamma_tab).lhom
 
 
 def log_het_marginal(profiles, error_probability: float, nucleotide_distribution, lgamma_tab) -> torch.Tensor:
@@ -306,7 +305,7 @@ def log_het_marginal(profiles, error_probability: float, nucleotide_distribution
     multinom * sum_{i<j} nt_i nt_j ((1-2e/3)/2)^(n_i+n_j) (e/3)^(cov-n_i-n_j)
     / (1 - sum nt_i^2), in log space."""
     s = lynch_scalars(0.0, error_probability, nucleotide_distribution)
-    return lynch_rows(profiles, s, lgamma_tab).lhet
+    return lynch_rows(profiles, row_scalars(s, profiles), lgamma_tab).lhet
 
 
 def compound_neg_log_likelihood(theta, profiles, mult, nucleotide_distribution, lgamma_tab) -> torch.Tensor:
@@ -318,7 +317,7 @@ def compound_neg_log_likelihood(theta, profiles, mult, nucleotide_distribution, 
     pi, eps = float(theta[0]), float(theta[1])
     in_box = 0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0
     s = lynch_scalars(min(max(pi, 0.0), 1.0), min(max(eps, 0.0), 1.0), nucleotide_distribution)
-    rows = lynch_rows(profiles, s, lgamma_tab)
+    rows = lynch_rows(profiles, row_scalars(s, profiles), lgamma_tab)
     total = fixed_order_sum(lynch_terms(rows.log_mix, mult))
     total = torch.clamp(total, -DBL_MAX, DBL_MAX)
     if not in_box:

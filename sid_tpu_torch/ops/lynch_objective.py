@@ -91,7 +91,7 @@ def lynch_compound_nll_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch f64 version of B2: ([sum of the unflagged terms, flagged
     count] as a (2,) f64 tensor, (U,) uint8 flags)."""
-    rows = likelihoods.lynch_rows(profiles, scalars, lgamma_tab)
+    rows = likelihoods.lynch_rows(profiles, likelihoods.row_scalars(scalars, profiles), lgamma_tab)
     flags = rows.flag_mixture
     terms = torch.where(flags, 0.0, likelihoods.lynch_terms(rows.log_mix, mult))
     total = likelihoods.fixed_order_sum(terms)
@@ -103,7 +103,7 @@ def lynch_marginals_ref(
     profiles: torch.Tensor, scalars: np.ndarray, lgamma_tab: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch f64 version of B4: (log L_hom, log L_het, uint8 flags)."""
-    rows = likelihoods.lynch_rows(profiles, scalars, lgamma_tab)
+    rows = likelihoods.lynch_rows(profiles, likelihoods.row_scalars(scalars, profiles), lgamma_tab)
     return rows.lhom, rows.lhet, rows.flag_marginals.to(torch.uint8)
 
 

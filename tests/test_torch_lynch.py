@@ -152,7 +152,8 @@ def test_fixed_order_sum_is_the_kernels_order(u):
 def test_screen_flags_deep_rows_only(data):
     prof, mult = data["prof"], data["mult"]
     nt = nucleotide_distribution(prof, mult)
-    rows = lk.lynch_rows(torch.from_numpy(prof), lk.lynch_scalars(0.01, 0.01, nt), data["tab_t"])
+    prof_t = torch.from_numpy(prof)
+    rows = lk.lynch_rows(prof_t, lk.row_scalars(lk.lynch_scalars(0.01, 0.01, nt), prof_t), data["tab_t"])
     mix = np.nonzero(rows.flag_mixture.numpy())[0]
     marg = np.nonzero(rows.flag_marginals.numpy())[0]
     # mc overflows: (9000, 9000, 0, 0), (12000, 6000, 10, 0), (65535 x 4);

@@ -137,7 +137,8 @@ def test_rows_match_plain(shim, data, theta):
     prof, _, tab, nt = data
     s = lk.lynch_scalars(theta[0], theta[1], nt)
     got = run_rows(shim, prof, s, tab)
-    want = lk.lynch_rows(torch.from_numpy(prof), s, tab)
+    prof_t = torch.from_numpy(prof)
+    want = lk.lynch_rows(prof_t, lk.row_scalars(s, prof_t), tab)
     for a, b in zip(got[:3], want[:3]):
         assert_agree(a, b.numpy(), 1e-12)
     assert np.array_equal(got[3], want.flag_marginals.numpy())
@@ -180,7 +181,8 @@ def test_record_rows_are_lynch_row(shim, data, theta):
     for a, b in ((log_mix, r_log_mix), (lhom, r_lhom), (lhet, r_lhet)):
         assert np.array_equal(bits(a), bits(b))
     assert np.array_equal(flag_mixture, r_fmix) and np.array_equal(flag_marginals, r_fmarg)
-    want = lk.lynch_rows(torch.from_numpy(prof), s, tab)
+    prof_t = torch.from_numpy(prof)
+    want = lk.lynch_rows(prof_t, lk.row_scalars(s, prof_t), tab)
     for a, b in ((lhom, want.lhom), (lhet, want.lhet), (log_mix, want.log_mix)):
         assert_agree(a, b.numpy(), 1e-12)
     assert np.array_equal(flag_marginals, want.flag_marginals.numpy())

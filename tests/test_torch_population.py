@@ -465,3 +465,21 @@ def test_population_launches_no_kernel_on_the_cpu(cohorts):
     _port_run(cohorts["main"][:2], "pooled", "bayes")
     assert counts == (lynch_objective.RECORD_LAUNCHES, lynch_objective.NLL_LANES_LAUNCHES,
                       lynch_objective.MARGINALS_LANES_LAUNCHES)
+
+
+@pytest.mark.parametrize("mode, bound", [("pooled", 2), ("independent", 1)])
+def test_marginals_use_the_fits_lanes(cohorts, monkeypatch, mode, bound):
+    """The cohort's rows are bound once for the per-sample fits, and the
+    marginals run over that binding: pooled binds the merged histogram and
+    the samples, independent the samples alone."""
+    made = []
+
+    class Counted(pop.LanesObjective):
+        def __init__(self, *args, **kwargs):
+            made.append(len(args[0]))
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(pop, "LanesObjective", Counted)
+    texts = cohorts["main"][:3]
+    _port_run(texts, mode, "lr-R")
+    assert made == [1, 3][2 - bound:]
