@@ -2,10 +2,20 @@
 """Smoke run of the PyTorch / CUDA port on one CUDA card:
 
     python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py --lane-variants
 
 ``--parent DIR`` names an unpacked tree of the parent commit (git archive
-into a git-ignored directory); phase 3 then builds its local classify
-kernel too and times it against this tree's in turns on the same card.
+into a git-ignored directory) whose lane kernels (csrc/lynch.cu) take row
+and chunk offsets on the card and a per-lane upload, as before the lane
+slot table; phase 11 then builds them with this tree's nvcc flags, prints
+their ptxas report and blocks an SM, holds their results bitwise against
+this tree's and times both, device only, in turns at both cohort shapes.
+``--lane-variants`` builds variants of the lane kernels instead
+(``LANE_VARIANTS``: a launch bound of 2 blocks an SM, the lane table in
+global memory, every lane folded by the last block, four marginals rows
+a thread, the slot search unrolled), holds them bitwise against the
+committed kernels at phase 11's and phase 12's cohort shapes, times them
+in turns, and stops.
 
 Drives sid_tpu_torch's main paths (``engine.run`` and
 ``engine.run_streaming``, what ``./sid-tpu-torch`` and ``./sid-tpu-torch
@@ -15,9 +25,11 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
 2. build: libsidtpu.so (g++) and the kernel libraries (one nvcc per source,
    all started together, sm_90a) from the sources in this checkout; the
    compiler's register report of every kernel (0 spill bytes asserted for
-   every kernel) and, from cuobjdump -sass, the f64 instructions that
-   every row of each kernel executes, from which the bounds below are
-   computed;
+   every kernel), the Lynch kernels' resident blocks an SM, and, from
+   cuobjdump -sass, the f64 instructions that every row of each kernel
+   executes, from which the bounds below are computed, and where the Lynch
+   kernels' f64 instructions take their operands (constant bank, uniform
+   registers) and how many constant and local-memory loads they make;
 3. kernel vs plain: the local classify kernel against its plain torch f64
    version on the card at U = 1,000,000 profiles (Poisson(30) bulk, zero
    rows, deep rows up to 65535, ties, capped rows) at -E 0.0, 0.1, 1.0 and
@@ -27,7 +39,7 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    long_double_range_rows at each -E and priors -1, 1e-3 and 0.999; median
    times of both over distinct inputs, by CUDA events, the device-only
    time, the bound from the kernel's own bytes and the share of the first
-   port's 40-byte bound; with --parent, the parent's kernel in turns;
+   port's 40-byte bound;
 4. the -m local path: engine.run on the golden fixture (byte-equal to
    golden_local.csv), the 100k-site real-data-shaped fixture and a
    1,000,000-site simulated ~30x pileup, the last two byte-equal to the CSV
@@ -56,7 +68,9 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    auto (the device fit) and --fit exact on phase 5's rows up to 1000x;
    wall time, iterations, (pi, eps) of both within the simplex tolerance,
    and how many bayes / LR profile records differ; one evaluation and the
-   device fit's wall taken apart;
+   device fit's wall taken apart; a one-lane LanesObjective against
+   DeviceObjective on the same rows (bitwise the same values), the
+   kernel alone and the whole call, in turns;
 8. the quality finalize kernel (B6) at N = 1,000,000 sites (Poisson(30)
    bulk, zero-coverage sites, ties, deep sites up to 65535, log sums on
    both sides of the 80-bit underflow line, NaN and -inf sums) at priors
@@ -89,8 +103,12 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    bitwise DeviceObjective per lane; the lanes' marginals bitwise the
    single-lane B4 per row, flags equal, 1e-12 to the plain version; the
    call, device-only (the kernel launched again on what the card holds)
-   and plain times, the bounds, and one round against 100 single-lane B2
-   calls;
+   and plain times, the bounds (B2's f64 row count for the objective, B4's
+   for the marginals), and one round against 100 single-lane B2 calls;
+   the same times and bounds at phase 12's shape (100 lanes of the
+   samples' ~1,000 unique profiles, from simulated_counts), where the
+   results are held bitwise against the plain version; with --parent, the
+   parent's lane kernels in turns;
 12. the population path: 100 seeded ~30x samples of 50,000 sites with
    Phred qualities (pi log-spaced 1e-4..1e-2, eps 1e-2; 0.55 GB under
    .smoke/, removed) through call_population, pooled and independent -m
@@ -441,9 +459,10 @@ def row_counts(instrs: list) -> dict:
     return out
 
 
-def sass_row_counts(lib_path: str) -> dict:
-    """``row_counts`` of every kernel of a built library, by mangled name;
-    {} when the toolkit has no cuobjdump."""
+def sass_kernels(lib_path: str) -> dict:
+    """Every kernel of a built library as a list of (address, predicated,
+    opcode, operands), by mangled name; {} when the toolkit has no
+    cuobjdump."""
     tool = cuobjdump_path()
     if tool is None:
         return {}
@@ -460,7 +479,25 @@ def sass_row_counts(lib_path: str) -> dict:
         ins = SASS_LINE.match(line)
         if name and ins:
             kernels[name].append((int(ins.group(1), 16), ins.group(2) is not None, ins.group(3), ins.group(4)))
-    return {name: row_counts(instrs) for name, instrs in kernels.items()}
+    return kernels
+
+
+def operand_counts(instrs: list) -> dict:
+    """Where a kernel's f64 instructions take their operands, and its
+    constant and local-memory loads: of its f64 instructions, those reading
+    the parameter bank (c[0x0]), the bank of its __constant__ data
+    (c[0x3]) or a uniform register; its LDC, ULDC, LDL and STL
+    instructions."""
+    out = dict.fromkeys(("f64", "f64_param", "f64_const", "f64_uniform", "LDC", "ULDC", "LDL", "STL"), 0)
+    for _, _, op, args in instrs:
+        if op in F64_OPCODES:
+            out["f64"] += 1
+            out["f64_param"] += "c[0x0]" in args
+            out["f64_const"] += "c[0x3]" in args
+            out["f64_uniform"] += re.search(r"\bUR\d+", args) is not None
+        if op in ("LDC", "ULDC", "LDL", "STL"):
+            out[op] += 1
+    return out
 
 
 def kernel_counts(counts: dict, kernel: str) -> dict:
@@ -516,11 +553,12 @@ def fit_wall_split(torch, prof, mult, nt, dev) -> dict:
 
 
 def parent_local_kernel(build, parent: str):
-    """The parent tree's local classify kernel (csrc/local_classify.cu of the
-    first port: int32 counts and host-made allele indices in, l1 and l2 out),
-    built here with this tree's nvcc flags, with the kernel's resident
-    blocks an SM from the occupancy API. Returns (ctypes library, ptxas
-    report, blocks an SM)."""
+    """A tree's local classify kernel with the first port's interface
+    (csrc/local_classify.cu: int32 counts and host-made allele indices in,
+    l1 and l2 out), built here with this tree's nvcc flags, with the
+    kernel's resident blocks an SM from the occupancy API; for
+    scripts/local_classify_variants.py --parent. Returns (ctypes library,
+    ptxas report, blocks an SM)."""
     import ctypes
 
     src = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc", "local_classify.cu")
@@ -858,13 +896,16 @@ def bits_equal(a, b) -> bool:
     return a.shape == b.shape and np.array_equal(a.view(np.int64), b.view(np.int64))
 
 
-def lanes_kernel_phase(torch, dev, card, sass):
+def lanes_kernel_phase(torch, dev, card, sass, parent=None):
     """Phase 11: the lanes' objective and marginals kernels at N_LANES lanes
     and ~2M rows against the single-lane kernels (bitwise, each lane
     alone) and their plain versions, for every set of running lanes and
     three grids; one launch a call by the library's counters; the lanes'
     objective wrapper against DeviceObjective per lane with out-of-box
-    thetas; times and bounds. Returns the two rows of the kernels line
+    thetas; times and bounds; the same times and bounds at phase 12's
+    shape, its results held against the plain versions; with ``parent``
+    (``parent_lanes_library``'s result) the parent's lane kernels bitwise
+    and in turns at both shapes. Returns the two rows of the kernels line
     (launches are phase 12's)."""
     from sid_tpu_torch.models import lynch
     from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
@@ -978,63 +1019,299 @@ def lanes_kernel_phase(torch, dev, card, sass):
     log(f"# lanes' marginals == single-lane B4 per row, bitwise, flags equal, at three sets of epsilons; plain "
         f"version to {RTOL} (max abs err {marg_abs!r}); up to {marg_flagged} rows flagged")
 
-    # times: call (events around the wrapper call), device (torch.profiler),
-    # plain version, and the S single-lane B2 calls of one round
-    nll_sets = [(s, everyone) for s in theta_sets]
-    marg_sets = [(s,) for s in theta_sets]
-    call = event_times_ms(torch, work.nll_lanes, nll_sets, LANE_REPEATS)
-    plain_fn = lambda s, lanes: lo.lynch_compound_nll_lanes_ref(p_dev, m_dev, off, s, tab, lanes)  # noqa: E731
-    plain = event_times_ms(torch, plain_fn, nll_sets, 3)
-    call += event_times_ms(torch, work.nll_lanes, nll_sets, LANE_REPEATS)
-    # device only: the kernel launched again on what the card holds (no
-    # copies), enqueued behind torch.cuda._sleep
-    work.nll_lanes(theta_sets[1], everyone)
-    dev_nll = device_only_ms(torch, work.launch_nll_lanes, [()])
+    # times: call (events around the wrapper call), device only (the kernel
+    # launched again on what the card holds, no copies, enqueued behind
+    # torch.cuda._sleep), the plain version, and the S single-lane B2 calls
+    # of one round
+    times = lane_times(torch, work, theta_sets, p_dev, m_dev, off, tab)
 
     def one_round_alone(s):
         for k, w in enumerate(singles):
             w.nll(s[k])
 
-    alone_ms = event_times_ms(torch, one_round_alone, marg_sets, 3)
-    m_call = event_times_ms(torch, work.marginals_lanes, marg_sets, LANE_REPEATS)
-    m_plain = event_times_ms(torch, lambda s: lo.lynch_marginals_lanes_ref(p_dev, off, s, tab), marg_sets, 3)
-    m_call += event_times_ms(torch, work.marginals_lanes, marg_sets, LANE_REPEATS)
-    work.marginals_lanes(theta_sets[1])
-    dev_marg = device_only_ms(torch, work.launch_marginals_lanes, [()])
-    chunks = len(work.part_sum)
+    alone_ms = event_times_ms(torch, one_round_alone, [(s,) for s in theta_sets], 3)
+    del singles
+
+    # phase 12's shape: the samples' cov >= 4 unique profiles, ~1,000 rows a
+    # lane, held bitwise against the plain version
+    t0 = time.perf_counter()
+    pop = population_cohort()
+    sizes2 = [p.shape[0] for p, _ in pop]
+    n2 = sum(sizes2)
+    off2 = np.concatenate([[0], np.cumsum(sizes2)]).astype(np.int64)
+    p2 = torch.from_numpy(np.concatenate([p for p, _ in pop])).to(dev)
+    m2 = torch.from_numpy(np.concatenate([m for _, m in pop])).to(dev)
+    tab2 = lgamma_table(int(p2.sum(-1).max()), dev)
+    work2 = lo.LynchLanesWorkspace(p2, m2, torch.from_numpy(off2).to(dev), tab2)
+    nts2 = [nucleotide_distribution(p, m) for p, m in pop]
+    theta_sets2 = [np.stack([likelihoods.lynch_scalars(*LANE_THETAS[(k + shift) % len(LANE_THETAS)], nt)
+                             for k, nt in enumerate(nts2)]) for shift in range(3)]
+    for scal in theta_sets2:
+        got = work2.nll_lanes(scal, everyone)
+        want, want_flags = lo.lynch_compound_nll_lanes_ref(p2, m2, off2, scal, tab2, everyone)
+        if not bits_equal(got, want.cpu().numpy()) or not torch.equal(work2.flags, want_flags):
+            raise AssertionError("lanes' objective at phase 12's shape differs from its plain version")
+        hom, het, flags = work2.marginals_lanes(scal)
+        w_hom, w_het, w_flags = lo.lynch_marginals_lanes_ref(p2, off2, scal, tab2)
+        if not torch.equal(flags, w_flags):
+            raise AssertionError("lanes' marginals flags at phase 12's shape differ from the plain version's")
+        for what, x, y in (("log L_hom", w_hom, hom), ("log L_het", w_het, het)):
+            assert_agree(f"lanes' marginals at phase 12's shape, {what}", x.cpu().numpy(), y.cpu().numpy())
+    times2 = lane_times(torch, work2, theta_sets2, p2, m2, off2, tab2)
+    log(f"# lanes at phase 12's shape: {N_LANES} lanes, {n2} rows (sizes {min(sizes2)}..{max(sizes2)}), "
+        f"{len(work2.part_sum)} chunks; the objective bitwise and the marginals' flags equal to the plain "
+        f"versions (marginals to {RTOL}) at three sets of thetas; in {time.perf_counter() - t0:.1f} s")
+
+    parents = {}
+    if parent is not None:
+        plib, report, per_sm = parent
+        for fn, r in report.items():
+            if "lanes_kernel" in fn:
+                resident = per_sm["nll_lanes" if "nll_lanes" in fn else "marginals_lanes"]
+                log(f"# ptxas parent lynch: {fn}: {r['registers']} registers, {r['spill_stores']} bytes spill "
+                    f"stores, {r['spill_loads']} bytes spill loads; {resident} blocks an SM")
+        for shape, w, scal in (("phase 11's cohort", work, theta_sets[1]), ("phase 12's shape", work2, theta_sets2[1])):
+            parents[shape] = parent_in_turns(torch, card, ParentLanes(torch, plib, w), w, scal, shape)
+
+    blocks = lo.blocks_per_sm(dev)
     rows = []
-    # the f64 work of a row: the lanes' objective runs B2's row function
-    # (nll_rows_sum, mixture_row), whose rows row_counts finds in B2's SASS
-    # but not in this kernel's, where a branch of the row loop jumps over
-    # the row's code; the lanes' marginals kernel's own SASS gives B4's
-    for name, sass_name, row_sass, replaces, call_t, plain_t, dev_ms, n_bytes, err in (
-        ("lynch_compound_nll_lanes", "lynch_nll_lanes_kernel", "lynch_nll_kernel", "sid_tpu/models/population.py:83",
-         call, plain, dev_nll, n * (24 + 1) + chunks * 12 + N_LANES * (128 + 12 + 16) + (N_LANES + 1) * 16, max_abs),
-        ("lynch_marginals_lanes", "lynch_marginals_lanes_kernel", "lynch_marginals_lanes_kernel",
-         "sid_tpu/models/population.py:298", m_call, m_plain, dev_marg,
-         n * (24 + 17) + N_LANES * 128 + (N_LANES + 1) * 8, marg_abs),
+    # the f64 work of a row, the same whatever implements it: B2's row count
+    # (lynch_nll_kernel's SASS) for the objective, B4's (lynch_marginals_kernel)
+    # for the marginals
+    for name, kernel, row_sass, replaces, err in (
+        ("lynch_compound_nll_lanes", "nll_lanes", "lynch_nll_kernel", "sid_tpu/models/population.py:83", max_abs),
+        ("lynch_marginals_lanes", "marginals_lanes", "lynch_marginals_kernel", "sid_tpu/models/population.py:298",
+         marg_abs),
     ):
-        own = kernel_counts(sass, sass_name)
         c = kernel_counts(sass, row_sass)
-        b_ms, b_by = bound_ms(n_bytes, c["f64"] * n)
-        b_all = bound_ms(n_bytes, c["f64_all"] * n)[0]
+        own = kernel_counts(sass, f"lynch_{kernel}_kernel")
         log(f"# {name}: f64 instructions a row from the SASS of {row_sass}: {c['f64']} ({c['f64_all']} with every "
-            f"branch arm); this kernel's own: {own['f64']} ({own['f64_all']})")
+            f"branch arm); this kernel's own: {own['f64']} ({own['f64_all']}); {blocks[kernel]} blocks an SM")
+        shapes = {}
+        for shape, w, t in (("phase 11's cohort", work, times), ("phase 12's shape", work2, times2)):
+            chunks_w = len(w.part_sum)
+            n_bytes = (w.n * (24 + 1) + chunks_w * 12 + w.lanes * (lo.LANE_SLOT.itemsize + 16) if kernel == "nll_lanes"
+                       else w.n * (24 + 17) + w.lanes * lo.LANE_SLOT.itemsize)
+            call_t, dev_ms, plain_t = t[kernel]
+            b_ms, b_by = bound_ms(n_bytes, c["f64"] * w.n)
+            b_all = bound_ms(n_bytes, c["f64_all"] * w.n)[0]
+            shapes[shape] = {"rows": w.n, "ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t),
+                             "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by}
+            if shape in parents:
+                shapes[shape]["parent_device_ms"] = parents[shape][kernel]
+            log(f"# {name} at {shape}, {w.lanes} lanes, {w.n} rows: call {statistics.median(call_t):.4f} ms (median "
+                f"of {len(call_t)}, min {min(call_t):.4f}), device only {dev_ms:.4f} ms, plain torch "
+                f"{statistics.median(plain_t):.2f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.2f} MB; {c['f64']} f64 instructions every row "
+                f"executes), {b_ms / dev_ms:.1%} of the bound ({b_all:.4f} ms, {b_all / dev_ms:.1%}, with every "
+                f"branch arm: {c['f64_all']}); issuing the row's instructions {issue_ms(c['issued'], w.n):.4f}-"
+                f"{issue_ms(c['issued_all'], w.n):.4f} ms; grid {w.grids[0 if kernel == 'nll_lanes' else 1]} "
+                f"blocks; on {card}")
+        main = shapes["phase 11's cohort"]
         row = {"name": name, "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu", "replaces": replaces,
-               "launches": None, "max_abs_err": err, "ms": statistics.median(call_t),
-               "plain_ms": statistics.median(plain_t), "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None}
+               "launches": None, "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "device_ms": main["device_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+               "library_ms": None, "blocks_per_sm": blocks[kernel],
+               "at_population_shape": shapes["phase 12's shape"]}
+        if "parent_device_ms" in main:
+            row["parent_device_ms"] = main["parent_device_ms"]
         rows.append(row)
-        log(f"# {name} at {N_LANES} lanes, {n} rows: call {row['ms']:.4f} ms (median of {len(call_t)}, min "
-            f"{min(call_t):.4f}), device only {dev_ms:.4f} ms, plain torch "
-            f"{row['plain_ms']:.2f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {c['f64']} f64 "
-            f"instructions every row executes), {b_ms / dev_ms:.1%} of the bound ({b_all:.4f} ms, "
-            f"{b_all / dev_ms:.1%}, with every branch arm: {c['f64_all']}); issuing the row's instructions "
-            f"{issue_ms(c['issued'], n):.4f}-{issue_ms(c['issued_all'], n):.4f} ms; on {card}")
     log(f"# one round of {N_LANES} lanes: one lanes' objective call {rows[0]['ms']:.4f} ms against "
         f"{statistics.median(alone_ms):.3f} ms for {N_LANES} single-lane B2 calls (median of {len(alone_ms)}); "
         f"on {card}")
     return rows
+
+
+def lane_times(torch, work, theta_sets, p_dev, m_dev, off, tab) -> dict:
+    """The lane kernels' times on a workspace at every lane: by kernel
+    ("nll_lanes", "marginals_lanes"), (call times in ms, device-only ms,
+    the plain version's times in ms). Calls and the plain version in
+    turns."""
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    everyone = list(range(work.lanes))
+    out = {}
+    for kernel, fn, sets, plain_fn, relaunch in (
+        ("nll_lanes", work.nll_lanes, [(s, everyone) for s in theta_sets],
+         lambda s, lanes: lo.lynch_compound_nll_lanes_ref(p_dev, m_dev, off, s, tab, lanes),
+         work.launch_nll_lanes),
+        ("marginals_lanes", work.marginals_lanes, [(s,) for s in theta_sets],
+         lambda s: lo.lynch_marginals_lanes_ref(p_dev, off, s, tab), work.launch_marginals_lanes),
+    ):
+        call = event_times_ms(torch, fn, sets, LANE_REPEATS)
+        plain_t = event_times_ms(torch, plain_fn, sets, 3)
+        call += event_times_ms(torch, fn, sets, LANE_REPEATS)
+        fn(*sets[1])
+        out[kernel] = (call, device_only_ms(torch, relaunch, [()]), plain_t)
+    return out
+
+
+def parent_lanes_library(build, parent: str):
+    """The parent tree's lane kernels: its csrc/lynch.cu, with its own
+    headers, built here with this tree's nvcc flags through a wrapper that
+    adds the lane kernels' resident blocks an SM. Returns (ctypes library,
+    ptxas report, {"nll_lanes": blocks an SM, "marginals_lanes": ...})."""
+    import ctypes
+
+    src = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc", "lynch.cu")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    wrapper = os.path.join(build.BUILD_DIR, "parent_lynch.cu")
+    with open(wrapper, "w") as f:
+        f.write(f'#include "{src}"\n'
+                'extern "C" int sid_parent_blocks_per_sm(int objective, int* n) {\n'
+                '  if (objective)\n'
+                '    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, lynch_nll_lanes_kernel, kThreads, 0);\n'
+                '  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, lynch_marginals_lanes_kernel, kThreads, 0);\n'
+                '}\n')
+    out = os.path.join(build.BUILD_DIR, "libparent_lynch.so")
+    proc = subprocess.run(build.nvcc_command(wrapper, out), capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the parent's lane kernels do not build: {proc.stderr}")
+    lib = ctypes.CDLL(out)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for name, args in (
+        ("sid_lynch_lanes_grids", [i64, i64, p]),
+        ("sid_lynch_nll_lanes_launch", [p, i64, p, p, i32, p, p, i64, i32, p, p, p, p, p, i32, p, p]),
+        ("sid_lynch_marginals_lanes_launch", [p, i64, p, i32, p, p, p, p, p, i32, p]),
+        ("sid_parent_blocks_per_sm", [i32, p]),
+    ):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = args
+    per_sm = {}
+    for name, objective in (("nll_lanes", 1), ("marginals_lanes", 0)):
+        blocks = ctypes.c_int(0)
+        if lib.sid_parent_blocks_per_sm(objective, ctypes.byref(blocks)):
+            raise AssertionError("occupancy query of the parent's lane kernels failed")
+        per_sm[name] = blocks.value
+    return lib, ptxas_report(proc.stdout + proc.stderr), per_sm
+
+
+class ParentLanes:
+    """The parent tree's lane kernels over a LynchLanesWorkspace's row
+    record, with their own arguments: the lanes' row and chunk offsets on
+    the card, the objective's upload ([scalars (S, 16) | the running lanes'
+    chunk offsets (A+1) | the running lanes (A)]), the marginals' scalars
+    copied to the card, and their own scratch and outputs."""
+
+    def __init__(self, torch, lib, work):
+        import ctypes
+
+        from sid_tpu_torch.ops import likelihoods
+
+        self.torch, self.lib, self.work = torch, lib, work
+        dev, s = work.device, work.lanes
+        self.chunks = likelihoods.lane_chunks(np.diff(work.offsets))
+        chunk_off = np.concatenate([[0], np.cumsum(self.chunks)]).astype(np.int64)
+        self.row_off = torch.from_numpy(work.offsets).to(dev)
+        self.chunk_off = torch.from_numpy(chunk_off).to(dev)
+        grids = (ctypes.c_int * 2)()
+        if lib.sid_lynch_lanes_grids(work.n, int(chunk_off[-1]), grids):
+            raise AssertionError("the parent's lane grids failed")
+        self.grids = tuple(grids)
+        self.part_sum = torch.empty(int(chunk_off[-1]), dtype=torch.float64, device=dev)
+        self.part_cnt = torch.empty(int(chunk_off[-1]), dtype=torch.int32, device=dev)
+        self.ticket = torch.zeros(s, dtype=torch.int32, device=dev)
+        self.out = torch.empty((s, 2), dtype=torch.float64, device=dev)
+        self.host_out = torch.empty((s, 2), dtype=torch.float64, pin_memory=True)
+        self.flags = torch.zeros(work.n, dtype=torch.uint8, device=dev)
+        size = 128 * s + 8 * (s + 1) + 4 * s
+        self.upload_host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        self.upload_dev = torch.empty(size, dtype=torch.uint8, device=dev)
+        self.scalars_host = torch.empty((s, 16), dtype=torch.float64, pin_memory=True)
+        self.scalars_dev = torch.empty((s, 16), dtype=torch.float64, device=dev)
+        self.marg = torch.empty(17 * work.n, dtype=torch.uint8, device=dev)
+        self.active = 0
+
+    def _nll(self, a: int, upload_bytes: int, host_out) -> None:
+        w = self.work
+        err = self.lib.sid_lynch_nll_lanes_launch(
+            w.records.data_ptr(), w.n, self.row_off.data_ptr(), self.chunk_off.data_ptr(), w.lanes,
+            self.upload_host.data_ptr(), self.upload_dev.data_ptr(), upload_bytes, a, self.flags.data_ptr(),
+            self.part_sum.data_ptr(), self.part_cnt.data_ptr(), self.ticket.data_ptr(), self.out.data_ptr(),
+            self.grids[0], host_out, self.torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"the parent's lanes' objective did not launch ({err})")
+        self.active = a
+
+    def nll(self, scalars, lanes) -> np.ndarray:
+        """The parent's objective of ``lanes``, waited for: (len(lanes), 2)."""
+        s, a = self.work.lanes, len(lanes)
+        up = self.upload_host.numpy()
+        up[: 128 * s].view(np.float64)[:] = np.ascontiguousarray(scalars, np.float64).reshape(-1)
+        act = up[128 * s : 128 * s + 8 * (a + 1)].view(np.int64)
+        act[0] = 0
+        np.cumsum(self.chunks[lanes], out=act[1:])
+        up[128 * s + 8 * (a + 1) : 128 * s + 12 * a + 8].view(np.int32)[:] = lanes
+        self._nll(a, 128 * s + 12 * a + 8, self.host_out.data_ptr())
+        return self.host_out.numpy()[lanes].copy()
+
+    def launch_nll(self) -> None:
+        self._nll(self.active, 0, None)
+
+    def _marginals(self, scalars_host) -> None:
+        w, n = self.work, self.work.n
+        err = self.lib.sid_lynch_marginals_lanes_launch(
+            w.records.data_ptr(), n, self.row_off.data_ptr(), w.lanes, scalars_host, self.scalars_dev.data_ptr(),
+            self.marg.data_ptr(), self.marg[8 * n :].data_ptr(), self.marg[16 * n :].data_ptr(), self.grids[1],
+            self.torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"the parent's lanes' marginals did not launch ({err})")
+
+    def marginals(self, scalars):
+        """The parent's marginals at ``scalars``, waited for: (log L_hom,
+        log L_het, flags) on the card."""
+        self.scalars_host.numpy()[:] = scalars
+        self._marginals(self.scalars_host.data_ptr())
+        self.torch.cuda.synchronize()
+        n = self.work.n
+        return self.marg[: 8 * n].view(self.torch.float64), self.marg[8 * n : 16 * n].view(self.torch.float64), \
+            self.marg[16 * n :]
+
+    def launch_marginals(self) -> None:
+        self._marginals(None)
+
+
+def parent_in_turns(torch, card, parent, work, scalars, shape: str) -> dict:
+    """The parent's lane kernels against this tree's on one workspace: the
+    results bitwise (every lane's objective and flags, every row's
+    marginals), then device-only times in turns (parent, new, new, parent).
+    Returns the parent's median device-only ms by kernel."""
+    everyone = list(range(work.lanes))
+    if not (bits_equal(parent.nll(scalars, everyone), work.nll_lanes(scalars, everyone))
+            and torch.equal(parent.flags, work.flags)):
+        raise AssertionError(f"the parent's lanes' objective differs from this tree's at {shape}")
+    for what, x, y in zip(("log L_hom", "log L_het", "flags"), parent.marginals(scalars),
+                          work.marginals_lanes(scalars)):
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            raise AssertionError(f"the parent's lanes' marginals differ from this tree's in {what} at {shape}")
+    out = {}
+    for kernel, old, new, ready in (
+        ("nll_lanes", parent.launch_nll, work.launch_nll_lanes,
+         lambda: (parent.nll(scalars, everyone), work.nll_lanes(scalars, everyone))),
+        ("marginals_lanes", parent.launch_marginals, work.launch_marginals_lanes,
+         lambda: (parent.marginals(scalars), work.marginals_lanes(scalars))),
+    ):
+        ready()
+        readings = [(who, device_only_ms(torch, fn, [()]))
+                    for who, fn in (("parent", old), ("new", new), ("new", new), ("parent", old))]
+        out[kernel] = statistics.median(t for who, t in readings if who == "parent")
+        new_ms = statistics.median(t for who, t in readings if who == "new")
+        log(f"# {kernel} at {shape}, device only in turns: " + ", ".join(f"{who} {t:.4f} ms" for who, t in readings)
+            + f"; the parent's results bitwise this tree's; parent / new {out[kernel] / new_ms:.2f}x; on {card}")
+    return out
+
+
+def population_cohort():
+    """Phase 12's cohort without its pileups: the cov >= 4 unique profiles
+    and multiplicities of the POP_SAMPLES samples that write_population
+    simulates (the same counts)."""
+    from sid_tpu_torch.ops.profiles import filter_min_coverage, unique_profiles
+
+    hists = []
+    for k, pi in enumerate(np.logspace(-4, -2, POP_SAMPLES)):
+        prof, mult, _ = unique_profiles(simulated_counts(POP_SITES, seed=5000 + 2 * k, pi=float(pi)))
+        hists.append(filter_min_coverage(prof, mult, 4)[:2])
+    return hists
 
 
 def write_population(workdir: str):
@@ -1088,12 +1365,11 @@ def population_phase(torch, dev, card, workdir):
     path."""
     from sid_tpu_torch.config import Options
     from sid_tpu_torch.exact.nmsimplex import minimize_nmsimplex2
-    from sid_tpu_torch.io.pileup import parse_pileup
     from sid_tpu_torch.models import lynch, population as pop
     from sid_tpu_torch.models.population import call_population_streaming
     from sid_tpu_torch.ops import local_classify, lynch_objective as lo
     from sid_tpu_torch.ops import quality_finalize as qf
-    from sid_tpu_torch.ops.profiles import filter_min_coverage, nucleotide_distribution, unique_profiles
+    from sid_tpu_torch.ops.profiles import nucleotide_distribution
     from sid_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
@@ -1157,10 +1433,7 @@ def population_phase(torch, dev, card, workdir):
 
     # the fits at the model layer: five lanes bitwise single-lane fits, the
     # lanes' rounds and launches, the fits' wall against single-lane fits
-    hists = []
-    for path in paths:
-        prof_k, mult_k, _ = unique_profiles(parse_pileup(path).counts)
-        hists.append(filter_min_coverage(prof_k, mult_k, 4)[:2])
+    hists = population_cohort()  # the samples' histograms, from the counts their pileups were written from
     nts = np.stack([nucleotide_distribution(p, m) for p, m in hists])
     fits = {mode: pop.fit_population(hists, mode=mode, device=dev) for mode in ("pooled", "independent")}
     eps_pooled = fits["pooled"][1].eps
@@ -1195,7 +1468,7 @@ def population_phase(torch, dev, card, workdir):
     return launches
 
 
-def population_phases(torch, dev, card, sass) -> list:
+def population_phases(torch, dev, card, sass, parent=None) -> list:
     """Phases 11 and 12 (their files under .smoke/, removed at the end);
     returns the lane kernels' rows of the kernels line, with the launches
     of the population path."""
@@ -1204,7 +1477,7 @@ def population_phases(torch, dev, card, sass) -> list:
     os.makedirs(workdir)
     try:
         t0 = time.perf_counter()
-        rows = lanes_kernel_phase(torch, dev, card, sass)
+        rows = lanes_kernel_phase(torch, dev, card, sass, parent)
         t1 = time.perf_counter()
         launches = population_phase(torch, dev, card, workdir)
         log(f"# phase 11 took {t1 - t0:.1f} s, phase 12 {time.perf_counter() - t1:.1f} s")
@@ -1215,13 +1488,245 @@ def population_phases(torch, dev, card, sass) -> list:
     return rows
 
 
+# --lane-variants: design choices of the lane kernels, each a text
+# substitution in csrc/lynch.cu
+_MIN_BLOCKS = "constexpr int kLanesMinBlocks = 3;"
+_SLOTS = "__constant__ sid::LaneSlot c_slots[kLanesPerLaunch];"
+_MARGINALS_ROWS = "constexpr int kMarginalsRowsPerThread = 1;"
+_OBJECTIVE = "// The objective of the n_slots running lanes of c_slots."
+_NLL_SEARCH = "    const int k = sid::slot_of(c_slots, n_slots, j);\n    const int64_t first_chunk"
+_MARGINALS_SEARCH = "    const int k = sid::slot_of(c_slots, n_slots, j);\n    const int64_t first ="
+# the slot search in a fixed number of steps with no data-dependent loop:
+# the count of slots whose walk ends at or before j
+_UNROLLED_SEARCH = """__device__ __forceinline__ int unrolled_slot_of(int count, int64_t j) {
+  int k = 0;
+#pragma unroll
+  for (int step = 256; step >= 1; step >>= 1) {
+    if (k + step < count && c_slots[k + step - 1].walk_end <= j) k += step;
+  }
+  return k;
+}
+
+"""
+_ELECTED = """    // thread 0 holds the chunk's sum: store it, publish it, count the chunk
+    if (t == 0) {
+      part_sum[j] = v;
+      part_cnt[j] = cnt;
+      __threadfence();
+      sh_last = atomicAdd(slot_ticket + k, 1u) == n_lane_chunks - 1;
+    }
+    __syncthreads();
+    if (sh_last) {
+      // the lane's last chunk: fold its chunk sums as lynch_nll_kernel does
+      __threadfence();
+      double acc = 0.0;
+      int lane_cnt = 0;
+      for (int64_t base = 0; base < n_lane_chunks; base += kThreads) {
+        const int64_t i = base + t;
+        acc = acc + (i < n_lane_chunks ? __ldcg(part_sum + first_chunk + i) : 0.0);
+        lane_cnt = lane_cnt + (i < n_lane_chunks ? __ldcg(part_cnt + first_chunk + i) : 0);
+      }
+      block_fold(acc, lane_cnt, sh_sum, sh_cnt);
+      if (t == 0) {
+        out[2 * k] = acc;
+        out[2 * k + 1] = static_cast<double>(lane_cnt);
+        slot_ticket[k] = 0;  // ready for the next launch
+      }
+    }
+  }
+}
+"""
+# every lane folded at the end by the last block to finish, one warp a
+# lane: thread t of the block's tree is lane l = t % 32, register q = t / 32
+# of the warp, so the tree's levels 128, 64 and 32 add registers q and
+# q + 4, 2, 1 of one thread and the levels 16 .. 1 are the same shuffles
+_DEFERRED = """    if (t == 0) {
+      part_sum[j] = v;
+      part_cnt[j] = cnt;
+    }
+    (void)n_lane_chunks;
+  }
+  if (t == 0) {
+    __threadfence();
+    sh_last = atomicAdd(slot_ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  __threadfence();
+  const int lane = t % 32;
+  for (int k = t / 32; k < n_slots; k += kThreads / 32) {
+    const int64_t first_chunk = sid::walk_start(c_slots, k);
+    const int64_t n_lane_chunks = c_slots[k].walk_end - first_chunk;
+    double v8[kThreads / 32];
+    int c8[kThreads / 32];
+    for (int q = 0; q < kThreads / 32; ++q) {
+      double acc = 0.0;
+      int cnt = 0;
+      for (int64_t base = 0; base < n_lane_chunks; base += kThreads) {
+        const int64_t i = base + lane + 32 * q;
+        acc = acc + (i < n_lane_chunks ? __ldcg(part_sum + first_chunk + i) : 0.0);
+        cnt = cnt + (i < n_lane_chunks ? __ldcg(part_cnt + first_chunk + i) : 0);
+      }
+      v8[q] = acc;
+      c8[q] = cnt;
+    }
+    for (int s = kThreads / 64; s >= 1; s >>= 1) {
+      for (int q = 0; q < s; ++q) {
+        v8[q] = v8[q] + v8[q + s];
+        c8[q] = c8[q] + c8[q + s];
+      }
+    }
+    double acc = v8[0];
+    int cnt = c8[0];
+    for (int s = 16; s > 0; s >>= 1) {
+      acc = acc + __shfl_down_sync(0xffffffffu, acc, s);
+      cnt = cnt + __shfl_down_sync(0xffffffffu, cnt, s);
+    }
+    if (lane == 0) {
+      out[2 * k] = acc;
+      out[2 * k + 1] = static_cast<double>(cnt);
+    }
+  }
+  if (t == 0) *slot_ticket = 0;  // ready for the next launch
+}
+"""
+
+# name -> [(text, replacement)]
+LANE_VARIANTS = {
+    "as committed": [],
+    "2 blocks an SM": [(_MIN_BLOCKS, "constexpr int kLanesMinBlocks = 2;")],
+    "slots in global memory": [(_SLOTS, "__device__ sid::LaneSlot c_slots[kLanesPerLaunch];")],
+    "lane folds deferred to the last block": [(_ELECTED, _DEFERRED)],
+    "marginals 4 rows a thread": [(_MARGINALS_ROWS, "constexpr int kMarginalsRowsPerThread = 4;")],
+    "slot search unrolled": [(_OBJECTIVE, _UNROLLED_SEARCH + _OBJECTIVE),
+                             (_NLL_SEARCH, _NLL_SEARCH.replace("sid::slot_of(c_slots, n_slots, j)",
+                                                               "unrolled_slot_of(n_slots, j)")),
+                             (_MARGINALS_SEARCH, _MARGINALS_SEARCH.replace("sid::slot_of(c_slots, n_slots, j)",
+                                                                           "unrolled_slot_of(n_slots, j)"))],
+}
+LANE_KERNELS = (("nll_lanes", 3, "lynch_nll_lanes_kernel"), ("marginals_lanes", 4, "lynch_marginals_lanes_kernel"))
+
+
+def build_lane_variant(build, name: str, edits) -> tuple:
+    with open(os.path.join(build.CSRC, "lynch.cu")) as f:
+        src = f.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise AssertionError(f"{name}: the text to replace is not in the source once: {old[:60]!r}")
+        src = src.replace(old, new)
+    tag = "".join(c if c.isalnum() else "_" for c in name)
+    path = os.path.join(build.BUILD_DIR, f"lanes_variant_{tag}.cu")
+    out = path[:-3] + ".so"
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        f.write(src)
+    proc = subprocess.run(build.nvcc_command(path, out, ["-I", build.CSRC]), capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"{name} does not build: {proc.stderr}")
+    return out, proc.stdout + proc.stderr
+
+
+def lane_variants(torch) -> int:
+    """--lane-variants: the lane kernels' variants (LANE_VARIANTS), each
+    sid_tpu_torch/csrc/lynch.cu with one design choice of its lane kernels
+    taken out or changed by a text substitution, built with the port's nvcc
+    flags into sid_tpu_torch/_build/. For each, the two lane kernels'
+    registers and spills, resident blocks an SM and where their f64
+    instructions take their operands (operand_counts); on phase 11's cohort
+    and at phase 12's shape every lane's objective and flags and every
+    row's marginals bitwise the committed kernels'; then the device-only
+    time of each kernel (the kernel launched again on what the card holds,
+    on the variant's own resident grid) in two rounds, the second in
+    reverse order."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sid_tpu_torch.native import build
+    from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+    from sid_tpu_torch.ops.profiles import nucleotide_distribution
+
+    card = card_line()
+    print(f"# {card}", flush=True)
+    dev = torch.device("cuda")
+    with ThreadPoolExecutor(len(LANE_VARIANTS)) as pool:
+        futures = {name: pool.submit(build_lane_variant, build, name, edits) for name, edits in LANE_VARIANTS.items()}
+        built = {name: fut.result() for name, fut in futures.items()}
+    libs = {}
+    for name, (path, compiler_log) in built.items():
+        lib = libs[name] = lo.load_kernel_library(path)
+        report = ptxas_report(compiler_log)
+        sass = sass_kernels(path)
+        per_sm = ctypes.c_int(0)
+        for kernel, k, fn_name in LANE_KERNELS:
+            if lib.sid_lynch_blocks_per_sm(k, ctypes.byref(per_sm)):
+                raise AssertionError(f"{name}: occupancy query failed")
+            (r,) = [v for fn, v in report.items() if fn_name in fn]
+            ops = ", ".join(f"{key} {v}" for key, v in
+                            operand_counts([v for fn, v in sass.items() if fn_name in fn][0]).items())
+            print(f"# {name}: {kernel}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, "
+                  f"{r['spill_loads']} bytes spill loads, {per_sm.value} blocks an SM; sass {ops}", flush=True)
+
+    # a workspace a variant and shape, each made with the variant's library,
+    # so its grids and walks are the variant's own
+    committed = lo._kernel_lib()
+    cohorts = {}
+    for shape, hists in (("phase 11's cohort", lane_cohort()), ("phase 12's shape", population_cohort())):
+        off = np.concatenate([[0], np.cumsum([p.shape[0] for p, _ in hists])]).astype(np.int64)
+        p_dev = torch.from_numpy(np.ascontiguousarray(np.concatenate([p for p, _ in hists]))).to(dev)
+        m_dev = torch.from_numpy(np.concatenate([m for _, m in hists])).to(dev)
+        tab = lgamma_table(int(p_dev.sum(-1).max()), dev)
+        works = {}
+        try:
+            for name, lib in libs.items():
+                lo._lib = lib
+                works[name] = lo.LynchLanesWorkspace(p_dev, m_dev, torch.from_numpy(off).to(dev), tab)
+        finally:
+            lo._lib = committed
+        scal = np.stack([likelihoods.lynch_scalars(*LANE_THETAS[(k + 1) % len(LANE_THETAS)],
+                                                   nucleotide_distribution(p, m)) for k, (p, m) in enumerate(hists)])
+        cohorts[shape] = (works, scal)
+
+    everyone = list(range(N_LANES))
+    for shape, (works, scal) in cohorts.items():
+        want = None
+        for name, work in works.items():
+            got = [work.nll_lanes(scal, everyone), work.flags.cpu().numpy()]
+            got += [t.cpu().numpy() for t in work.marginals_lanes(scal)]
+            if want is None:
+                want = got
+            elif not all(np.array_equal(a.view(np.uint8), b.view(np.uint8)) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} differs from the committed kernels at {shape}")
+        print(f"# {shape}: {work.n} rows, {work.lanes} lanes; every variant's objective, flags and marginals "
+              f"bitwise the committed kernels'", flush=True)
+
+    for shape, (works, scal) in cohorts.items():
+        readings = {}
+        for name in list(works) + list(works)[::-1]:
+            work = works[name]
+            work.nll_lanes(scal, everyone)
+            nll = device_only_ms(torch, work.launch_nll_lanes, [()])
+            work.marginals_lanes(scal)
+            marg = device_only_ms(torch, work.launch_marginals_lanes, [()])
+            readings.setdefault(name, []).append((nll, marg))
+        for name, rs in readings.items():
+            print(f"# {shape}, {name} (grids {works[name].grids}): device only, objective "
+                  f"{statistics.median(r[0] for r in rs):.4f} ms (readings {', '.join(f'{r[0]:.4f}' for r in rs)}), "
+                  f"marginals {statistics.median(r[1] for r in rs):.4f} ms (readings "
+                  f"{', '.join(f'{r[1]:.4f}' for r in rs)}); on {card}", flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
-    ap.add_argument("--parent", help="an unpacked tree of the parent commit: time its local kernel in turns")
+    ap.add_argument("--parent", help="an unpacked tree of the parent commit: its lane kernels bitwise and in turns")
+    ap.add_argument("--lane-variants", action="store_true",
+                    help="time variants of the lane kernels (LANE_VARIANTS) in turns, and stop")
     args = ap.parse_args()
 
     # ---- 1. probe ----
@@ -1243,6 +1748,8 @@ def main() -> int:
     from sid_tpu_torch.utils import profiling
     from synth import make_pileup_text, simulate_diploid_counts
 
+    if args.lane_variants:
+        return lane_variants(torch)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"# device: {kind} (count {torch.cuda.device_count()}); torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1266,7 +1773,17 @@ def main() -> int:
                 f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
             if r["spill_stores"] or r["spill_loads"]:
                 raise AssertionError(f"ptxas spills registers in {fn}")
-        sass.update(sass_row_counts(libs[name]))
+        kernels = sass_kernels(libs[name])
+        sass.update({fn: row_counts(instrs) for fn, instrs in kernels.items()})
+        if name != "lynch":
+            continue
+        for fn, instrs in sorted(kernels.items()):
+            c = operand_counts(instrs)
+            log(f"# sass operands {fn}: {c['f64']} f64 instructions, {c['f64_param']} reading the parameter "
+                f"bank, {c['f64_const']} the constant bank, {c['f64_uniform']} a uniform register; LDC {c['LDC']}, "
+                f"ULDC {c['ULDC']}, local loads {c['LDL']}, local stores {c['STL']}")
+    log("# Lynch kernels' resident blocks an SM (occupancy API): "
+        + ", ".join(f"{k} {v}" for k, v in lynch_objective.blocks_per_sm(dev).items()))
     for fn, c in sorted(sass.items()):
         log(f"# sass: {fn}: a row executes at least {c['f64']} f64 instructions and issues at least "
             f"{c['issued']} instructions a warp; with every branch arm {c['f64_all']} and {c['issued_all']}")
@@ -1333,45 +1850,6 @@ def main() -> int:
         f"{issue_ms(local_rows['issued'], U_KERNEL):.4f}-{issue_ms(local_rows['issued_all'], U_KERNEL):.4f} ms "
         f"({local_rows['issued']}-{local_rows['issued_all']} a warp); grid {resident} blocks ({resident // sms} an "
         f"SM x {sms} SMs); on {card}")
-    parent_dev_ms = None
-    if args.parent:
-        plib, preport, per_sm = parent_local_kernel(build, args.parent)
-        for fn, r in preport.items():
-            log(f"# ptxas parent local_classify: {fn}: {r['registers']} registers, {r['stack']} bytes stack "
-                f"frame, {r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
-        launched = min(-(-U_KERNEL // 256), sms * 8)
-        log(f"# parent's local kernel at U={U_KERNEL}: {launched} blocks of 256 launched, {per_sm} resident an "
-            f"SM x {sms} SMs = {per_sm * sms}: " + (f"a second wave of {launched - per_sm * sms} blocks"
-                                                   if launched > per_sm * sms else "one wave"))
-        old_sets = []
-        for k in range(INPUT_SETS):
-            p_k = np.roll(prof_np, 7919 * k, 0)
-            m_k, s_k = major_allele_indices_np(p_k)
-            old_sets.append([torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (p_k, m_k, s_k)])
-        old_out = [torch.empty(U_KERNEL, dtype=torch.float64, device=dev) for _ in range(2)]
-
-        def old_launch(p_k, m_k, s_k):
-            err = plib.sid_local_classify_launch(
-                p_k.data_ptr(), m_k.data_ptr(), s_k.data_ptr(), 0.1, tab.data_ptr(), tab.shape[0],
-                old_out[0].data_ptr(), old_out[1].data_ptr(), U_KERNEL, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise AssertionError(f"the parent's kernel did not launch ({err})")
-
-        old_launch(*old_sets[0])
-        torch.cuda.synchronize()
-        ref1, ref2 = (t.cpu().numpy() for t in local_classify.local_classify(counts, 0.1, 1e-3, tab)[:2])
-        for name, a, b in (("l1", ref1, old_out[0].cpu().numpy()), ("l2", ref2, old_out[1].cpu().numpy())):
-            if not np.array_equal(a.view(np.uint64), b.view(np.uint64)):
-                raise AssertionError(f"the parent's kernel and this one differ in {name}")
-        turns = [("parent", old_launch, old_sets), ("new", local_classify.local_classify, sets),
-                 ("new", local_classify.local_classify, sets), ("parent", old_launch, old_sets)]
-        readings = [(who, device_only_ms(torch, fn, fn_sets)) for who, fn, fn_sets in turns]
-        parent_dev_ms = statistics.median(t for who, t in readings if who == "parent")
-        new_ms = statistics.median(t for who, t in readings if who == "new")
-        log(f"# in turns, device only at U={U_KERNEL}, -E 0.1: "
-            + ", ".join(f"{who} {t:.4f} ms" for who, t in readings)
-            + f"; the parent's l1, l2 bitwise this kernel's; parent / new {parent_dev_ms / new_ms:.2f}x; on {card}")
-        del old_sets, old_out
     del sets, counts
 
     # ---- 4. main path ----
@@ -1736,7 +2214,42 @@ def main() -> int:
             f"{median_ms(lambda: obj.work.nll(s), 9):.3f} ms"
             f" + long double over the {rows.size} flagged rows {median_ms(lambda: ld.objective(theta), 3):.3f} ms; "
             f"the exact fit's evaluation {median_ms(lambda: ld_all.objective(theta), 3):.3f} ms; on {card}")
-        del obj, fits, lh_d, lt_d, lh_e, lt_e
+        # a one-lane LanesObjective on the same rows (ROADMAP B.9): the
+        # values bitwise DeviceObjective's and the marginals bitwise B4's;
+        # the kernels alone (device only) and the objective's whole call
+        # (host clock), in turns
+        one_lane = lynch.LanesObjective([(h_prof, h_mult)], h_nt[None], dev)
+        at = [np.array(theta)]
+        if rows.size or not bits_equal(one_lane([0], at)[0], obj(theta)):
+            raise AssertionError(f"one-lane LanesObjective vs DeviceObjective at U={u_h}: {rows.size} flagged rows, "
+                                 f"{one_lane([0], at)[0]!r} vs {obj(theta)!r}")
+        s_eps = likelihoods.lynch_scalars(0.0, eps_d, h_nt)
+        for what, x, y in zip(("log L_hom", "log L_het", "flags"), obj.work.marginals(s_eps),
+                              one_lane.work.marginals_lanes(s_eps[None])):
+            if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                raise AssertionError(f"one-lane lanes' marginals vs B4 at U={u_h}: {what} differs")
+        pairs = (
+            (("B2", lambda: obj.work.launch_nll(s), lambda: obj(theta)),
+             ("the lanes' objective", one_lane.work.launch_nll_lanes, lambda: one_lane([0], at))),
+            (("B4", lambda: obj.work.marginals(s_eps), None),
+             ("the lanes' marginals", one_lane.work.launch_marginals_lanes, None)),
+        )
+        kernel_t, call_t = {}, {}
+        for a, b in pairs:
+            for name, launch, call in (a, b, b, a) * 2:
+                kernel_t.setdefault(name, []).append(device_only_ms(torch, launch, [()]))
+                if call is not None:
+                    call_t.setdefault(name, []).append(median_ms(call, 21))
+        log(f"# one evaluation at U={u_h}, {hist}, the fitted theta, no flagged rows: a one-lane LanesObjective "
+            f"bitwise DeviceObjective and its marginals bitwise B4; in turns, the kernels alone (device only) "
+            + ", ".join(f"{name} {statistics.median(t):.4f} ms (readings {', '.join(f'{x:.4f}' for x in t)})"
+                        for name, t in kernel_t.items())
+            + "; the objective's whole call (host clock, medians of 21) "
+            + ", ".join(f"{'DeviceObjective' if name == 'B2' else 'one-lane LanesObjective'} "
+                        f"{statistics.median(t):.4f} ms (readings {', '.join(f'{x:.4f}' for x in t)})"
+                        for name, t in call_t.items())
+            + f"; on {card}")
+        del obj, one_lane, fits, lh_d, lt_d, lh_e, lt_e
     # the device fit's wall taken apart, on the rows <= 1000x
     h_prof, h_mult = np.ascontiguousarray(fit_prof[shallow]), fit_mult[shallow]
     for _ in range(3):
@@ -1769,7 +2282,8 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # ---- 11-12. the cohort's lane kernels, the population path ----
-    lane_rows = population_phases(torch, dev, card, sass)
+    parent = parent_lanes_library(build, args.parent) if args.parent else None
+    lane_rows = population_phases(torch, dev, card, sass, parent)
 
     # ---- 13. results ----
     kernel_rows = [{
@@ -1785,7 +2299,6 @@ def main() -> int:
         "bound_ms": local_bound[0],
         "bound_by": local_bound[1],
         "bound_ms_40_bytes": bound_40,
-        "parent_device_ms": parent_dev_ms,
         "library_ms": None,
     }]
     for name, replaces, launches_key, err in (

@@ -48,28 +48,43 @@
 // _fit_pi_batched :152 (one nmsimplex2 while-loop per sample around B2) and
 // _marginals_batched :298 (B4 per sample). The lanes' rows sit one after
 // another in one record (written once by lynch_records_kernel, which has
-// nothing lane-specific), with lane row offsets. The host runs every
-// lane's simplex in lockstep (exact/nmsimplex.py); each round is one launch
-// of lynch_nll_lanes_kernel for every lane still running:
-//   - chunks of kChunk rows start at each lane's first row (lynch.cuh
-//     lane_chunks); blocks walk the running lanes' chunks grid-stride and
-//     find a chunk's lane by a binary search over the running lanes' chunk
-//     offsets (lane_of);
+// nothing lane-specific). A launch takes a table of up to kLanesPerLaunch
+// running lanes (lynch.cuh LaneSlot: the lane's 16 scalars, its rows, the
+// end of its chunks in the launch's walk). The host runs every lane's
+// simplex in lockstep (exact/nmsimplex.py); each round is one launch of
+// lynch_nll_lanes_kernel for every lane still running:
+//   - the walk is the running lanes' chunks of kChunk rows, each lane's from
+//     its first row (lynch.cuh lane_chunks); blocks take walk chunks
+//     grid-stride, so each chunk a block takes belongs to one lane;
 //   - each chunk reduces exactly as in lynch_nll_kernel into its own slot;
-//     a per-lane atomic counter elects the block that completes a lane's
-//     last chunk, and that block folds the lane's chunk sums in the
-//     single-lane kernel's order and resets the counter. So each lane's
-//     [sum, flagged count] is bitwise lynch_nll_kernel's over that lane's
-//     rows alone, whatever the other lanes, the grid or the order in which
-//     blocks finish;
-//   - the (S, 16) scalars and the running lanes go up in one async copy
-//     from pinned memory, the (S, 2) results come back in one, and the
-//     round waits on one stream sync: one ctypes call a round.
-// lynch_marginals_lanes_kernel is B4 for the whole cohort in one launch:
-// each row finds its lane in the row offsets and reads that lane's
-// scalars. What bounds them is what bounds B2 and B4 (f64 instructions);
-// a lane's scalars are read from global memory (the same 128 bytes for a
-// whole chunk, served by L1) instead of the kernel parameters.
+//     a per-lane ticket elects the block that completes a lane's last
+//     chunk, and that block folds the lane's chunk sums in the single-lane
+//     kernel's order and resets the ticket. So each lane's [sum, flagged
+//     count] is bitwise lynch_nll_kernel's over that lane's rows alone,
+//     whatever the other lanes, the grid or the order in which blocks
+//     finish;
+//   - the table goes up in one async copy from pinned memory into the
+//     constant bank, the (A, 2) results come back in one, and the round
+//     waits on one stream sync: one ctypes call a round. More running lanes
+//     than kLanesPerLaunch run in launches of at most that many, one after
+//     another on the stream; lanes are independent, so no bit moves.
+// lynch_marginals_lanes_kernel is B4 for the whole cohort in one launch,
+// over a walk of every lane's chunks of kMarginalsChunk rows, each row at
+// its lane's scalars.
+//
+// What bounds the lane kernels is what bounds B2 and B4: f64 instructions,
+// long chains of dependent multiplies and adds (the exp/log polynomials
+// under --fmad=false) whose latency only more resident warps hide. So they
+// keep B2's and B4's register budget of 3 blocks an SM with 0 spill bytes.
+// A block's chunk belongs to one lane, so the lane (found once a chunk by a
+// binary search over the table) and its scalars are the same for the whole
+// block, and the scalars are read from the constant bank where a row uses
+// them instead of being held in 32 registers for the whole walk (with the
+// table in global memory ptxas spills at this budget). The marginals take
+// one row a thread of each chunk, so that a cohort of ~1,000 rows a lane
+// still fills the card, and no row searches for its lane. Deferring every
+// lane's fold to the last block was slower than the election at both of
+// chip_smoke.py's cohort shapes (its --lane-variants).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -86,12 +101,21 @@ constexpr int kThreads = sid::kReduceThreads;
 // chip_smoke.py prints and checks)
 constexpr int kNllMinBlocks = 3;
 constexpr int kMarginalsMinBlocks = 3;
-// the lane kernels read their lane's scalars from global memory rather
-// than the parameter bank, and need more registers for them
-constexpr int kLanesMinBlocks = 2;
+constexpr int kLanesMinBlocks = 3;
+
+// the running lanes of one launch of a lane kernel, written into the
+// constant bank on the launch's stream just before it (58 KB of the 64 KB)
+constexpr int kLanesPerLaunch = 384;
+// the rows each thread takes of a chunk of the lanes' marginals, and so
+// the rows of their chunks (the objective's chunks are sid::kChunk): one,
+// so that a cohort of ~1,000 rows a lane still fills the card
+constexpr int kMarginalsRowsPerThread = 1;
+constexpr int kMarginalsChunk = kThreads * kMarginalsRowsPerThread;
+__constant__ sid::LaneSlot c_slots[kLanesPerLaunch];
 
 static_assert(sizeof(sid::LynchScalars) == 16 * sizeof(double),
               "LynchScalars must be 16 doubles");
+static_assert(sizeof(sid::LaneSlot) == 19 * sizeof(double), "LaneSlot must be 152 bytes");
 
 // kernel launches since the library was loaded: records, objective,
 // marginals, the lanes' objective, the lanes' marginals
@@ -204,43 +228,34 @@ __global__ void __launch_bounds__(kThreads, kMarginalsMinBlocks)
   }
 }
 
-// The objective of the running lanes. rec: (3, n) record of all lanes;
-// row_off, chunk_off: (S+1) row and chunk offsets of the lanes;
-// scalars: (S, 16) LynchScalars; active: the n_active running lanes in
-// increasing order; act_chunk_off: (n_active + 1) offsets of their chunks
-// in the walk; lane_ticket: (S) counters, 0 between launches; out: (S, 2)
-// [sum of the unflagged terms, flagged count], written for running lanes.
+// The objective of the n_slots running lanes of c_slots. rec: (3, n)
+// record of all lanes; flags: (n,) uint8; part_sum, part_cnt: one entry a
+// chunk of the walk; slot_ticket: (n_slots) counters, 0 between launches;
+// out: (n_slots, 2) [sum of the unflagged terms, flagged count].
 __global__ void __launch_bounds__(kThreads, kLanesMinBlocks)
-    lynch_nll_lanes_kernel(const double* __restrict__ rec, int64_t n,
-                           const int64_t* __restrict__ row_off,
-                           const int64_t* __restrict__ chunk_off,
-                           const sid::LynchScalars* __restrict__ scalars,
-                           const int* __restrict__ active,
-                           const int64_t* __restrict__ act_chunk_off,
-                           int n_active, uint8_t* __restrict__ flags,
-                           double* part_sum, int* part_cnt,
-                           unsigned int* lane_ticket, double* __restrict__ out) {
+    lynch_nll_lanes_kernel(const double* __restrict__ rec, int64_t n, int n_slots,
+                           uint8_t* __restrict__ flags, double* part_sum, int* part_cnt,
+                           unsigned int* slot_ticket, double* __restrict__ out) {
   __shared__ double sh_sum[kThreads];
   __shared__ int sh_cnt[kThreads];
   __shared__ bool sh_last;
   const int t = threadIdx.x;
-  const int64_t total = act_chunk_off[n_active];
+  const int64_t total = c_slots[n_slots - 1].walk_end;
   for (int64_t j = blockIdx.x; j < total; j += gridDim.x) {
-    const int a = sid::lane_of(act_chunk_off, n_active, j);
-    const int lane = active[a];
-    const int64_t local = j - act_chunk_off[a];
-    const int64_t first_chunk = chunk_off[lane];
-    const int64_t n_lane_chunks = chunk_off[lane + 1] - first_chunk;
+    // the chunk's lane: the same for the whole block
+    const int k = sid::slot_of(c_slots, n_slots, j);
+    const int64_t first_chunk = sid::walk_start(c_slots, k);
+    const int64_t n_lane_chunks = c_slots[k].walk_end - first_chunk;
     int cnt = 0;
-    double v = sid::nll_rows_sum(row_off[lane] + local * sid::kChunk, row_off[lane + 1], t,
-                                 rec, n, scalars[lane], flags, &cnt);
+    double v = sid::nll_rows_sum(c_slots[k].first_row + (j - first_chunk) * sid::kChunk,
+                                 c_slots[k].end_row, t, rec, n, c_slots[k].s, flags, &cnt);
     block_fold(v, cnt, sh_sum, sh_cnt);
     // thread 0 holds the chunk's sum: store it, publish it, count the chunk
     if (t == 0) {
-      part_sum[first_chunk + local] = v;
-      part_cnt[first_chunk + local] = cnt;
+      part_sum[j] = v;
+      part_cnt[j] = cnt;
       __threadfence();
-      sh_last = atomicAdd(lane_ticket + lane, 1u) == n_lane_chunks - 1;
+      sh_last = atomicAdd(slot_ticket + k, 1u) == n_lane_chunks - 1;
     }
     __syncthreads();
     if (sh_last) {
@@ -255,32 +270,39 @@ __global__ void __launch_bounds__(kThreads, kLanesMinBlocks)
       }
       block_fold(acc, lane_cnt, sh_sum, sh_cnt);
       if (t == 0) {
-        out[2 * lane] = acc;
-        out[2 * lane + 1] = static_cast<double>(lane_cnt);
-        lane_ticket[lane] = 0;  // ready for the next round
+        out[2 * k] = acc;
+        out[2 * k + 1] = static_cast<double>(lane_cnt);
+        slot_ticket[k] = 0;  // ready for the next launch
       }
     }
   }
 }
 
-// B4 for every lane's rows at that lane's scalars. row_off: (S+1) row
-// offsets; scalars: (S, 16).
+// B4 for the rows of the n_slots lanes of c_slots, each at its lane's
+// scalars (the pi entries unused): a walk of the lanes' chunks of
+// kMarginalsChunk rows, each thread taking rows r * kThreads + t of a
+// chunk. lhom, lhet: (n,) f64; flags: (n,) uint8.
 __global__ void __launch_bounds__(kThreads, kLanesMinBlocks)
-    lynch_marginals_lanes_kernel(const double* __restrict__ rec, int64_t n,
-                                 const int64_t* __restrict__ row_off, int n_lanes,
-                                 const sid::LynchScalars* __restrict__ scalars,
-                                 double* __restrict__ lhom,
-                                 double* __restrict__ lhet,
+    lynch_marginals_lanes_kernel(const double* __restrict__ rec, int64_t n, int n_slots,
+                                 double* __restrict__ lhom, double* __restrict__ lhet,
                                  uint8_t* __restrict__ flags) {
-  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int lane = sid::lane_of(row_off, n_lanes, i);
-    bool flagged;
-    const sid::Components k = sid::marginals_row(sid::read_record(rec, n, i), scalars[lane], &flagged);
-    lhom[i] = k.lhom;
-    lhet[i] = k.lhet;
-    flags[i] = flagged ? 1 : 0;
+  const int t = threadIdx.x;
+  const int64_t total = c_slots[n_slots - 1].walk_end;
+  for (int64_t j = blockIdx.x; j < total; j += gridDim.x) {
+    const int k = sid::slot_of(c_slots, n_slots, j);
+    const int64_t first = c_slots[k].first_row + (j - sid::walk_start(c_slots, k)) * kMarginalsChunk;
+    const int64_t end = c_slots[k].end_row;
+    SID_NO_UNROLL
+    for (int r = 0; r < kMarginalsRowsPerThread; ++r) {
+      const int64_t i = first + static_cast<int64_t>(r) * kThreads + t;
+      if (i < end) {
+        bool flagged;
+        const sid::Components c = sid::marginals_row(sid::read_record(rec, n, i), c_slots[k].s, &flagged);
+        lhom[i] = c.lhom;
+        lhet[i] = c.lhet;
+        flags[i] = flagged ? 1 : 0;
+      }
+    }
   }
 }
 
@@ -310,6 +332,33 @@ int launched(int kernel) {
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++g_launches[kernel];
   return static_cast<int>(err);
+}
+
+// The launches of a lane kernel over n_slots LaneSlot in pinned memory,
+// in groups of kLanesPerLaunch whose walk_end each count from 0: for each
+// group, its slots copied into the constant bank on st (not with upload
+// 0, which launches one group of at most kLanesPerLaunch on what the bank
+// holds), then launch(first slot, slots, blocks) with no more blocks than
+// the group's walk has chunks. Returns a cudaError_t.
+template <typename Launch>
+int launch_groups(const void* slots_host, int n_slots, int upload, int grid, cudaStream_t st,
+                  int kernel, Launch launch) {
+  if (n_slots <= 0 || (!upload && n_slots > kLanesPerLaunch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const sid::LaneSlot* slots = static_cast<const sid::LaneSlot*>(slots_host);
+  for (int first = 0; first < n_slots; first += kLanesPerLaunch) {
+    const int count = n_slots - first < kLanesPerLaunch ? n_slots - first : kLanesPerLaunch;
+    if (upload) {
+      const cudaError_t e = cudaMemcpyToSymbolAsync(c_slots, slots + first, sizeof(sid::LaneSlot) * count, 0,
+                                                    cudaMemcpyHostToDevice, st);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const int64_t chunks = slots[first + count - 1].walk_end;
+    launch(first, count, static_cast<int>(chunks < grid ? chunks : grid));
+    const int err = launched(kernel);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -388,77 +437,74 @@ int sid_lynch_marginals_launch(const void* rec, const double* scalars, int64_t n
   return launched(kMarginalsKernel);
 }
 
-// The grids of a cohort workspace of n rows in n_chunks lane chunks on the
-// current device: grids[0] the lanes' objective (capped at the chunk
-// count), grids[1] the lanes' marginals. Called once per workspace.
-int sid_lynch_lanes_grids(int64_t n, int64_t n_chunks, int* grids) {
+// The running lanes one launch of a lane kernel takes, and the bytes of
+// one LaneSlot (lynch.cuh)
+int sid_lynch_lanes_per_launch() { return kLanesPerLaunch; }
+// rows per chunk of the lanes' marginals (the objective's: sid_lynch_chunk_rows)
+int sid_lynch_marginals_chunk_rows() { return kMarginalsChunk; }
+int sid_lynch_lane_slot_bytes() { return static_cast<int>(sizeof(sid::LaneSlot)); }
+
+// The grids of a cohort workspace whose lanes have n_chunks objective
+// chunks and n_marginals_chunks marginals chunks in all, on the current
+// device: grids[0] the lanes' objective, grids[1] the lanes' marginals,
+// each the resident blocks capped at its chunks. Called once per workspace.
+int sid_lynch_lanes_grids(int64_t n_chunks, int64_t n_marginals_chunks, int* grids) {
   cudaError_t err = resident_grid(lynch_nll_lanes_kernel, n_chunks, &grids[0]);
-  if (err == cudaSuccess)
-    err = resident_grid(lynch_marginals_lanes_kernel, (n + kThreads - 1) / kThreads, &grids[1]);
+  if (err == cudaSuccess) err = resident_grid(lynch_marginals_lanes_kernel, n_marginals_chunks, &grids[1]);
   return static_cast<int>(err);
 }
 
-// One round of the lanes' objective, one call. upload_host: pinned host
-// bytes [scalars (n_lanes, 16) f64 | act_chunk_off (n_active + 1) int64 |
-// active (n_active) int32], upload_bytes of them copied to upload_dev (the
-// same layout, 8-byte aligned; none with upload_bytes 0, which launches
-// again on what upload_dev holds); then the kernel; then, with host_out
-// (pinned) not null, out (n_lanes, 2) f64 copied there and the stream
-// waited for. row_off,
-// chunk_off: (n_lanes + 1) int64 on the card; flags: (n,) uint8;
-// part_sum, part_cnt: one slot a lane chunk; lane_ticket: (n_lanes)
-// uint32, 0 between launches. Returns a cudaError_t.
-int sid_lynch_nll_lanes_launch(const void* rec, int64_t n, const void* row_off,
-                               const void* chunk_off, int n_lanes,
-                               const void* upload_host, void* upload_dev,
-                               int64_t upload_bytes, int n_active, void* flags,
-                               void* part_sum, void* part_cnt, void* lane_ticket,
-                               void* out, int grid, double* host_out,
+// The blocks of kernel k (the launch counters' numbering) resident on one
+// SM of the current device, from the occupancy API.
+int sid_lynch_blocks_per_sm(int kernel, int* per_sm) {
+  const void* fns[kKernelCount] = {
+      reinterpret_cast<const void*>(lynch_records_kernel), reinterpret_cast<const void*>(lynch_nll_kernel),
+      reinterpret_cast<const void*>(lynch_marginals_kernel), reinterpret_cast<const void*>(lynch_nll_lanes_kernel),
+      reinterpret_cast<const void*>(lynch_marginals_lanes_kernel)};
+  if (kernel < 0 || kernel >= kKernelCount) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fns[kernel], kThreads, 0));
+}
+
+// One round of the lanes' objective, one call: the launches of
+// launch_groups over slots_host (n_slots LaneSlot, pinned), each group's
+// results at out + 2 * its first slot; then, with host_out (pinned) not
+// null, out (n_slots, 2) f64 copied there and the stream waited for.
+// flags: (n,) uint8; part_sum, part_cnt: an entry for each chunk of the
+// longest walk; slot_ticket: kLanesPerLaunch uint32, 0 between launches.
+// Returns a cudaError_t.
+int sid_lynch_nll_lanes_launch(const void* rec, int64_t n, const void* slots_host, int n_slots,
+                               int upload, void* flags, void* part_sum, void* part_cnt,
+                               void* slot_ticket, void* out, int grid, double* host_out,
                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSuccess;
-  if (upload_bytes > 0)
-    e = cudaMemcpyAsync(upload_dev, upload_host, static_cast<size_t>(upload_bytes),
-                        cudaMemcpyHostToDevice, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const double* scalars = static_cast<const double*>(upload_dev);
-  const int64_t* act_chunk_off = reinterpret_cast<const int64_t*>(scalars + 16 * static_cast<int64_t>(n_lanes));
-  const int* active = reinterpret_cast<const int*>(act_chunk_off + n_active + 1);
-  lynch_nll_lanes_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const double*>(rec), n, static_cast<const int64_t*>(row_off),
-      static_cast<const int64_t*>(chunk_off),
-      reinterpret_cast<const sid::LynchScalars*>(scalars), active, act_chunk_off, n_active,
-      static_cast<uint8_t*>(flags), static_cast<double*>(part_sum), static_cast<int*>(part_cnt),
-      static_cast<unsigned int*>(lane_ticket), static_cast<double*>(out));
-  const int err = launched(kNllLanesKernel);
+  const int err = launch_groups(slots_host, n_slots, upload, grid, st, kNllLanesKernel,
+                                [&](int first, int count, int blocks) {
+    lynch_nll_lanes_kernel<<<blocks, kThreads, 0, st>>>(
+        static_cast<const double*>(rec), n, count, static_cast<uint8_t*>(flags),
+        static_cast<double*>(part_sum), static_cast<int*>(part_cnt),
+        static_cast<unsigned int*>(slot_ticket), static_cast<double*>(out) + 2 * static_cast<int64_t>(first));
+  });
   if (err != 0 || host_out == nullptr) return err;
-  e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double) * static_cast<size_t>(n_lanes),
-                      cudaMemcpyDeviceToHost, st);
+  cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double) * static_cast<size_t>(n_slots),
+                                  cudaMemcpyDeviceToHost, st);
   if (e == cudaSuccess) e = cudaStreamSynchronize(st);
   return static_cast<int>(e);
 }
 
-// The lanes' marginals. scalars_host: (n_lanes, 16) f64 in pinned memory,
-// copied to scalars_dev first (none when null: the launch reads what
-// scalars_dev holds); row_off: (n_lanes + 1) int64 on the card;
-// lhom, lhet: (n,) f64; flags: (n,) uint8. Returns a cudaError_t.
-int sid_lynch_marginals_lanes_launch(const void* rec, int64_t n, const void* row_off,
-                                     int n_lanes, const void* scalars_host,
-                                     void* scalars_dev, void* lhom, void* lhet,
-                                     void* flags, int grid, void* stream) {
+// The lanes' marginals: the launches of launch_groups over slots_host
+// (n_slots LaneSlot, pinned, each lane at its epsilon's scalars); lhom,
+// lhet: (n,) f64; flags: (n,) uint8. Returns a cudaError_t.
+int sid_lynch_marginals_lanes_launch(const void* rec, int64_t n, const void* slots_host, int n_slots,
+                                     int upload, void* lhom, void* lhet, void* flags, int grid,
+                                     void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (scalars_host != nullptr) {
-    const cudaError_t e = cudaMemcpyAsync(scalars_dev, scalars_host,
-                                          16 * sizeof(double) * static_cast<size_t>(n_lanes),
-                                          cudaMemcpyHostToDevice, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  lynch_marginals_lanes_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const double*>(rec), n, static_cast<const int64_t*>(row_off), n_lanes,
-      static_cast<const sid::LynchScalars*>(scalars_dev), static_cast<double*>(lhom),
-      static_cast<double*>(lhet), static_cast<uint8_t*>(flags));
-  return launched(kMarginalsLanesKernel);
+  return launch_groups(slots_host, n_slots, upload, grid, st, kMarginalsLanesKernel,
+                       [&](int, int count, int blocks) {
+    lynch_marginals_lanes_kernel<<<blocks, kThreads, 0, st>>>(
+        static_cast<const double*>(rec), n, count, static_cast<double*>(lhom),
+        static_cast<double*>(lhet), static_cast<uint8_t*>(flags));
+  });
 }
 
 const char* sid_lynch_error_string(int err) {

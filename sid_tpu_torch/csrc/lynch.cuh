@@ -356,27 +356,43 @@ SID_HD double nll_thread_sum(int64_t chunk, int t, const double* rec, int64_t n,
 // never reaches into the next lane), so every lane sums its rows in the
 // order a fit of those rows alone sums them. An empty lane has one chunk
 // of no rows, whose sum is the 0.0 a fit of no rows gives.
-SID_HD int64_t lane_chunks(int64_t rows) {
-  return rows > kChunk ? (rows + kChunk - 1) / kChunk : 1;
+// (The lanes' marginals walk chunks of another size the same way.)
+SID_HD int64_t lane_chunks(int64_t rows, int64_t chunk = kChunk) {
+  return rows > chunk ? (rows + chunk - 1) / chunk : 1;
 }
 
-// The largest k in [0, count) with off[k] <= x, for non-decreasing off with
-// off[0] <= x: a row's lane from the row offsets (empty lanes, whose
-// offsets repeat the next lane's, are skipped), or a chunk's place among
-// the running lanes from their chunk offsets. A binary search over count
-// entries.
-SID_HD int lane_of(const int64_t* off, int count, int64_t x) {
+// One running lane of a launch of the lane kernels (lynch.cu): its
+// scalars, its rows first_row .. end_row - 1 of the record, and the end of
+// its chunks in the launch's walk, which takes the running lanes' chunks
+// one after another (walk_end is the running total of lane_chunks). 152
+// bytes; the kernels read a launch's slots from the constant bank.
+struct LaneSlot {
+  LynchScalars s;
+  int64_t first_row;
+  int64_t end_row;
+  int64_t walk_end;
+};
+
+// The slot of chunk j of the walk: the first k in [0, count) with
+// slots[k].walk_end > j, for j below slots[count - 1].walk_end. Every lane
+// has a chunk, so walk_end rises strictly and slot k holds chunks
+// walk_start(k) .. walk_end - 1. A binary search over the slots.
+SID_HD int slot_of(const LaneSlot* slots, int count, int64_t j) {
   int lo = 0;
   int hi = count - 1;
   while (lo < hi) {
-    const int mid = lo + (hi - lo + 1) / 2;
-    if (off[mid] <= x) {
-      lo = mid;
+    const int mid = lo + (hi - lo) / 2;
+    if (slots[mid].walk_end > j) {
+      hi = mid;
     } else {
-      hi = mid - 1;
+      lo = mid + 1;
     }
   }
   return lo;
+}
+
+SID_HD int64_t walk_start(const LaneSlot* slots, int k) {
+  return k > 0 ? slots[k - 1].walk_end : 0;
 }
 
 }  // namespace sid

@@ -5,9 +5,10 @@
 // block as a grid of `grid` blocks would take them, then folds the chunk
 // sums as the last block does on the card. The grid may not change the
 // result. The lanes' objective and marginals run the same way over a
-// cohort's record: the chunks of the running lanes block by block, each
-// lane's chunk sums folded when its last chunk is done, and each row of the
-// marginals at its lane's scalars.
+// cohort's record and a table of lane slots, launch by launch: the walk of
+// the running lanes' chunks block by block, each lane's chunk sums folded
+// when its last chunk is done, and each row of the marginals at its lane's
+// scalars.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblynch_host.so lynch_host.cpp
@@ -145,82 +146,97 @@ void sid_lynch_nll_host(const double* rec, int64_t n, const double* scalars,
   out[1] = static_cast<double>(c[0]);
 }
 
-// lane_of over the first `count` offsets for each of the n values xs
-void sid_lynch_lane_of_host(const int64_t* off, int count, const int64_t* xs,
-                            int64_t n, int32_t* out) {
-  for (int64_t i = 0; i < n; ++i) out[i] = sid::lane_of(off, count, xs[i]);
+// slot_of over the first `count` slots for each of the n walk chunks js
+void sid_lynch_slot_of_host(const void* slots, int count, const int64_t* js, int64_t n, int32_t* out) {
+  const sid::LaneSlot* sl = static_cast<const sid::LaneSlot*>(slots);
+  for (int64_t i = 0; i < n; ++i) out[i] = sid::slot_of(sl, count, js[i]);
 }
 
-int64_t sid_lynch_lane_chunks_host(int64_t rows) { return sid::lane_chunks(rows); }
+int64_t sid_lynch_lane_chunks_host(int64_t rows, int64_t chunk) { return sid::lane_chunks(rows, chunk); }
 
-// The lanes' objective over a cohort's record of n rows, with a grid of
-// `grid` blocks, as lynch_nll_lanes_kernel runs it: row_off (n_lanes + 1),
-// scalars (n_lanes, 16), the n_active running lanes in increasing order;
-// out (n_lanes, 2) written for the running lanes, flags for their rows.
-void sid_lynch_nll_lanes_host(const double* rec, int64_t n, const int64_t* row_off,
-                              int n_lanes, const double* scalars,
-                              const int32_t* active, int n_active, int grid,
-                              uint8_t* flags, double* out) {
-  std::vector<int64_t> chunk_off(static_cast<size_t>(n_lanes) + 1, 0);
-  for (int l = 0; l < n_lanes; ++l)
-    chunk_off[l + 1] = chunk_off[l] + sid::lane_chunks(row_off[l + 1] - row_off[l]);
-  std::vector<int64_t> act_off(static_cast<size_t>(n_active) + 1, 0);
-  for (int a = 0; a < n_active; ++a) {
-    const int l = active[a];
-    act_off[a + 1] = act_off[a] + (chunk_off[l + 1] - chunk_off[l]);
-  }
-  std::vector<double> part_sum(static_cast<size_t>(chunk_off[n_lanes]));
-  std::vector<int> part_cnt(static_cast<size_t>(chunk_off[n_lanes]));
-  std::vector<int64_t> done(static_cast<size_t>(n_lanes), 0);
+int sid_lynch_lane_slot_bytes_host() { return static_cast<int>(sizeof(sid::LaneSlot)); }
+
+// The lanes' objective over a cohort's record of n rows, as the launches
+// of lynch_nll_lanes_kernel run it with a grid of `grid` blocks: slots,
+// n_slots LaneSlot in groups of per_launch (one launch each) whose
+// walk_end each count from 0; out (n_slots, 2) in slot order, flags for
+// the slots' rows.
+void sid_lynch_nll_lanes_host(const double* rec, int64_t n, const void* slots, int n_slots,
+                              int per_launch, int grid, uint8_t* flags, double* out) {
   std::vector<double> v(sid::kReduceThreads);
   std::vector<int> c(sid::kReduceThreads);
-  for (int b = 0; b < grid; ++b) {
-    for (int64_t j = b; j < act_off[n_active]; j += grid) {
-      const int a = sid::lane_of(act_off.data(), n_active, j);
-      const int l = active[a];
-      const int64_t local = j - act_off[a];
-      const int64_t first_chunk = chunk_off[l];
-      const int64_t n_chunks = chunk_off[l + 1] - first_chunk;
-      const sid::LynchScalars s = unpack(scalars + 16 * static_cast<int64_t>(l));
-      for (int t = 0; t < sid::kReduceThreads; ++t)
-        v[t] = sid::nll_rows_sum(row_off[l] + local * sid::kChunk, row_off[l + 1], t, rec, n, s,
-                                 flags, &c[t]);
-      tree_fold(v, c);
-      part_sum[static_cast<size_t>(first_chunk + local)] = v[0];
-      part_cnt[static_cast<size_t>(first_chunk + local)] = c[0];
-      if (++done[l] < n_chunks) continue;
-      for (int t = 0; t < sid::kReduceThreads; ++t) {
-        double acc = 0.0;
-        int cnt = 0;
-        for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
-          const int64_t i = base + t;
-          acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(first_chunk + i)] : 0.0);
-          cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(first_chunk + i)] : 0);
+  for (int first = 0; first < n_slots; first += per_launch) {
+    const sid::LaneSlot* sl = static_cast<const sid::LaneSlot*>(slots) + first;
+    const int count = n_slots - first < per_launch ? n_slots - first : per_launch;
+    const int64_t total = sl[count - 1].walk_end;
+    const int64_t blocks = total < grid ? total : grid;
+    std::vector<double> part_sum(static_cast<size_t>(total));
+    std::vector<int> part_cnt(static_cast<size_t>(total));
+    std::vector<int64_t> done(static_cast<size_t>(count), 0);
+    for (int64_t b = 0; b < blocks; ++b) {
+      for (int64_t j = b; j < total; j += blocks) {
+        const int k = sid::slot_of(sl, count, j);
+        const int64_t first_chunk = sid::walk_start(sl, k);
+        const int64_t n_chunks = sl[k].walk_end - first_chunk;
+        for (int t = 0; t < sid::kReduceThreads; ++t)
+          v[t] = sid::nll_rows_sum(sl[k].first_row + (j - first_chunk) * sid::kChunk, sl[k].end_row, t,
+                                   rec, n, sl[k].s, flags, &c[t]);
+        tree_fold(v, c);
+        part_sum[static_cast<size_t>(j)] = v[0];
+        part_cnt[static_cast<size_t>(j)] = c[0];
+        if (++done[k] < n_chunks) continue;
+        // the block that completes the lane folds its chunk sums
+        for (int t = 0; t < sid::kReduceThreads; ++t) {
+          double acc = 0.0;
+          int cnt = 0;
+          for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
+            const int64_t i = base + t;
+            acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(first_chunk + i)] : 0.0);
+            cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(first_chunk + i)] : 0);
+          }
+          v[t] = acc;
+          c[t] = cnt;
         }
-        v[t] = acc;
-        c[t] = cnt;
+        tree_fold(v, c);
+        out[2 * (first + k)] = v[0];
+        out[2 * (first + k) + 1] = static_cast<double>(c[0]);
+        done[k] = 0;
       }
-      tree_fold(v, c);
-      out[2 * l] = v[0];
-      out[2 * l + 1] = static_cast<double>(c[0]);
-      done[l] = 0;
     }
   }
 }
 
-// The lanes' marginals over a cohort's record of n rows: each row at its
-// lane's scalars (row_off (n_lanes + 1), scalars (n_lanes, 16)).
-void sid_lynch_marginals_lanes_host(const double* rec, int64_t n, const int64_t* row_off,
-                                    int n_lanes, const double* scalars, double* lhom,
+// The lanes' marginals over a cohort's record of n rows, as the launches
+// of lynch_marginals_lanes_kernel run them with rows_per_thread rows of
+// each chunk a thread (slots, whose walk counts chunks of that many rows
+// a thread, per_launch and grid as above): each row at its lane's
+// scalars.
+void sid_lynch_marginals_lanes_host(const double* rec, int64_t n, const void* slots, int n_slots,
+                                    int per_launch, int grid, int rows_per_thread, double* lhom,
                                     double* lhet, uint8_t* flags) {
-  for (int64_t i = 0; i < n; ++i) {
-    const int l = sid::lane_of(row_off, n_lanes, i);
-    const sid::LynchScalars s = unpack(scalars + 16 * static_cast<int64_t>(l));
-    bool f;
-    const sid::Components k = sid::marginals_row(sid::read_record(rec, n, i), s, &f);
-    lhom[i] = k.lhom;
-    lhet[i] = k.lhet;
-    flags[i] = f ? 1 : 0;
+  const int64_t chunk = static_cast<int64_t>(rows_per_thread) * sid::kReduceThreads;
+  for (int first = 0; first < n_slots; first += per_launch) {
+    const sid::LaneSlot* sl = static_cast<const sid::LaneSlot*>(slots) + first;
+    const int count = n_slots - first < per_launch ? n_slots - first : per_launch;
+    const int64_t total = sl[count - 1].walk_end;
+    const int64_t blocks = total < grid ? total : grid;
+    for (int64_t b = 0; b < blocks; ++b) {
+      for (int64_t j = b; j < total; j += blocks) {
+        const int k = sid::slot_of(sl, count, j);
+        const int64_t row0 = sl[k].first_row + (j - sid::walk_start(sl, k)) * chunk;
+        for (int r = 0; r < rows_per_thread; ++r) {
+          for (int t = 0; t < sid::kReduceThreads; ++t) {
+            const int64_t i = row0 + static_cast<int64_t>(r) * sid::kReduceThreads + t;
+            if (i >= sl[k].end_row) continue;
+            bool f;
+            const sid::Components m = sid::marginals_row(sid::read_record(rec, n, i), sl[k].s, &f);
+            lhom[i] = m.lhom;
+            lhet[i] = m.lhet;
+            flags[i] = f ? 1 : 0;
+          }
+        }
+      }
+    }
   }
 }
 

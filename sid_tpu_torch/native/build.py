@@ -26,7 +26,7 @@ import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG, "_build")
@@ -81,19 +81,21 @@ def kernel_paths(name: str):
     return lib, lib[: -len(".so")] + ".log"
 
 
+def nvcc_command(src: str, out: str, extra: Optional[List[str]] = None) -> List[str]:
+    """The nvcc command that builds ``src`` for Hopper into the shared
+    library ``out`` with the kernels' flags (ptxas's register report on)."""
+    return [
+        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+        # no fused multiply-add: the kernel's mul/add sequence must round
+        # like the host and torch f64 compositions it is held against
+        "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", *(extra or []), "-o", out, src,
+    ]
+
+
 def _kernel_cmd(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-
-    def cmd(out: str) -> List[str]:
-        return [
-            nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-            # no fused multiply-add: the kernel's mul/add sequence must round
-            # like the host and torch f64 compositions it is held against
-            "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", out, src,
-        ]
-
-    return cmd
+    return lambda out: nvcc_command(src, out)
 
 
 def _digest(deps: List[str], cmd: List[str], salt: str) -> str:

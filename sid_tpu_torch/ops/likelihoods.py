@@ -252,10 +252,11 @@ def fixed_order_sum(terms: torch.Tensor) -> torch.Tensor:
     return fixed_order_sums(terms, [terms.shape[0]])[0]
 
 
-def lane_chunks(rows) -> np.ndarray:
+def lane_chunks(rows, chunk_rows: int = CHUNK_ROWS) -> np.ndarray:
     """The objective chunks of lanes of ``rows`` rows each (csrc/lynch.cuh
-    lane_chunks): ceil(rows / CHUNK_ROWS), and one for an empty lane."""
-    return np.maximum(1, -(-np.asarray(rows, np.int64) // CHUNK_ROWS))
+    lane_chunks), or chunks of ``chunk_rows``: ceil(rows / chunk_rows), and
+    one for an empty lane."""
+    return np.maximum(1, -(-np.asarray(rows, np.int64) // chunk_rows))
 
 
 def fixed_order_sums(terms: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:

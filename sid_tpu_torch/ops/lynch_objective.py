@@ -30,7 +30,10 @@ population programs (``models/population.py``: the fits' objective and
 ``_marginals_batched``): ``nll_lanes`` evaluates the objective of any set
 of lanes, each at its own theta, in one launch (each lane bitwise B2 over
 its rows alone), and ``marginals_lanes`` is B4 over every lane's rows at
-its lane's epsilon in one launch. Their plain versions
+its lane's epsilon in one launch; each launch takes a table of its lanes
+(``fill_lane_slots``: scalars, rows, chunks) into the kernel library's
+constant bank, and a cohort of more lanes than one launch takes
+(``per_launch``) runs in several. Their plain versions
 (``lynch_compound_nll_lanes_ref``, ``lynch_marginals_lanes_ref``) take
 every lane's rows at once, each at its lane's scalars, and give each lane
 the bits of the single-lane plain versions.
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import itertools
 import threading
 from typing import Optional, Tuple
 
@@ -66,9 +70,16 @@ MAX_COUNT = 65535
 RECORD_PLANES = 3
 # the kernel library's launch counters (csrc/lynch.cu)
 KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes")
+# one running lane of a launch of a lane kernel (csrc/lynch.cuh LaneSlot):
+# its scalars, its rows, the end of its chunks in the launch's walk
+LANE_SLOT = np.dtype([("s", "<f8", (16,)), ("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8")])
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+# what each kernel library's constant bank holds on each device: the
+# (workspace, "nll" or "marginals") whose slot table was copied there last
+_bank = {}
+_workspace_keys = itertools.count()
 
 
 def lynch_records_ref(profiles: torch.Tensor, mult: torch.Tensor, lgamma_tab: torch.Tensor) -> torch.Tensor:
@@ -198,36 +209,61 @@ def _cuda_checks(profiles, lgamma_tab, what: str) -> None:
         raise ValueError("lgamma_tab is too long for an int index")
 
 
+def load_kernel_library(path: str) -> ctypes.CDLL:
+    """A build of csrc/lynch.cu at ``path`` with its functions' types set,
+    checked against this module's chunk, record and slot layouts."""
+    lib = ctypes.CDLL(path)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for name, args in (
+        ("sid_lynch_chunk_rows", []),
+        ("sid_lynch_record_planes", []),
+        ("sid_lynch_lanes_per_launch", []),
+        ("sid_lynch_lane_slot_bytes", []),
+        ("sid_lynch_marginals_chunk_rows", []),
+        ("sid_lynch_grids", [i64, p]),
+        ("sid_lynch_blocks_per_sm", [i32, p]),
+        ("sid_lynch_records_launch", [p, p, p, i32, i64, p, i32, p]),
+        ("sid_lynch_nll_launch", [p, p, i64, p, p, p, p, p, i32, p, p]),
+        ("sid_lynch_marginals_launch", [p, p, i64, p, p, p, i32, p]),
+        ("sid_lynch_lanes_grids", [i64, i64, p]),
+        ("sid_lynch_nll_lanes_launch", [p, i64, p, i32, i32, p, p, p, p, p, i32, p, p]),
+        ("sid_lynch_marginals_lanes_launch", [p, i64, p, i32, i32, p, p, p, i32, p]),
+    ):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+    lib.sid_lynch_launches.restype = ctypes.c_longlong
+    lib.sid_lynch_launches.argtypes = [i32]
+    lib.sid_lynch_error_string.restype = ctypes.c_char_p
+    lib.sid_lynch_error_string.argtypes = [i32]
+    if lib.sid_lynch_chunk_rows() != likelihoods.CHUNK_ROWS:
+        raise RuntimeError("csrc/lynch.cuh and ops/likelihoods.py disagree on the chunk size")
+    if lib.sid_lynch_record_planes() != RECORD_PLANES:
+        raise RuntimeError("csrc/lynch.cuh and ops/lynch_objective.py disagree on the record")
+    if lib.sid_lynch_lane_slot_bytes() != LANE_SLOT.itemsize:
+        raise RuntimeError("csrc/lynch.cuh and ops/lynch_objective.py disagree on the lane slot")
+    return lib
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build.kernel_library("lynch"))
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            for name, args in (
-                ("sid_lynch_chunk_rows", []),
-                ("sid_lynch_record_planes", []),
-                ("sid_lynch_grids", [i64, p]),
-                ("sid_lynch_records_launch", [p, p, p, i32, i64, p, i32, p]),
-                ("sid_lynch_nll_launch", [p, p, i64, p, p, p, p, p, i32, p, p]),
-                ("sid_lynch_marginals_launch", [p, p, i64, p, p, p, i32, p]),
-                ("sid_lynch_lanes_grids", [i64, i64, p]),
-                ("sid_lynch_nll_lanes_launch", [p, i64, p, p, i32, p, p, i64, i32, p, p, p, p, p, i32, p, p]),
-                ("sid_lynch_marginals_lanes_launch", [p, i64, p, i32, p, p, p, p, p, i32, p]),
-            ):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = args
-            lib.sid_lynch_launches.restype = ctypes.c_longlong
-            lib.sid_lynch_launches.argtypes = [i32]
-            lib.sid_lynch_error_string.restype = ctypes.c_char_p
-            lib.sid_lynch_error_string.argtypes = [i32]
-            if lib.sid_lynch_chunk_rows() != likelihoods.CHUNK_ROWS:
-                raise RuntimeError("csrc/lynch.cuh and ops/likelihoods.py disagree on the chunk size")
-            if lib.sid_lynch_record_planes() != RECORD_PLANES:
-                raise RuntimeError("csrc/lynch.cuh and ops/lynch_objective.py disagree on the record")
-            _lib = lib
+            _lib = load_kernel_library(build.kernel_library("lynch"))
         return _lib
+
+
+def blocks_per_sm(device) -> dict:
+    """The blocks of each kernel resident on one SM of ``device`` (the
+    occupancy API), by the names of ``KERNELS``."""
+    lib = _kernel_lib()
+    per_sm = ctypes.c_int(0)
+    out = {}
+    with torch.cuda.device(device):
+        for k, name in enumerate(KERNELS):
+            _raise_on(lib, lib.sid_lynch_blocks_per_sm(k, ctypes.byref(per_sm)), "Lynch occupancy")
+            out[name] = per_sm.value
+    return out
 
 
 def kernel_launches() -> dict:
@@ -469,6 +505,24 @@ def _check_lanes(lanes, n_lanes: int) -> list:
     return lanes
 
 
+def fill_lane_slots(slots: np.ndarray, offsets: np.ndarray, chunks: np.ndarray, scalars: np.ndarray,
+                    lanes, per_launch: int) -> None:
+    """The lane kernels' table of ``lanes`` (distinct lanes of the cohort in
+    increasing order) into the first len(lanes) entries of ``slots``
+    (``LANE_SLOT``): each lane's row of ``scalars`` (S, 16), its rows from
+    the row ``offsets`` (S+1), and the end of its ``chunks`` (S,) in the
+    walk of its launch; the lanes run in launches of ``per_launch``, each
+    walk counting from 0."""
+    lanes = np.asarray(lanes, np.int64)
+    table = slots[: lanes.shape[0]]
+    table["s"] = scalars[lanes]
+    table["first_row"] = offsets[lanes]
+    table["end_row"] = offsets[lanes + 1]
+    walk = table["walk_end"]
+    for first in range(0, lanes.shape[0], per_launch):
+        np.cumsum(chunks[lanes[first : first + per_launch]], out=walk[first : first + per_launch])
+
+
 class LynchLanesWorkspace:
     """A cohort's fits (lanes) bound to their device, checked once.
 
@@ -478,8 +532,11 @@ class LynchLanesWorkspace:
     empty); lgamma_tab (T,) f64 covers every lane; all contiguous on one
     device. On a CUDA device the set-up kernel writes one row record over
     all rows, the grids come from the occupancy API once, and the kernels
-    launch on the stream that was current when the workspace was made. On
-    the CPU each method runs the plain version.
+    launch on the stream that was current when the workspace was made; each
+    launch takes a table of its lanes (``fill_lane_slots``) from pinned
+    memory into the kernel library's constant bank, so the lane kernels of
+    all workspaces on a device launch on one stream. On the CPU each method
+    runs the plain version.
     """
 
     def __init__(self, profiles: torch.Tensor, mult: torch.Tensor, offsets: torch.Tensor,
@@ -496,42 +553,46 @@ class LynchLanesWorkspace:
         self.device = device
         # the rows' flags of the last objective (for the lanes it ran)
         self.flags: Optional[torch.Tensor] = None
-        # the running lanes of the last objective upload (launch_nll_lanes),
-        # and whether any scalars were uploaded (launch_marginals_lanes)
-        self._uploaded: Optional[int] = None
-        self._scalars_on_card = False
+        # the running lanes of the last objective's table, and whether the
+        # marginals' table is filled (the kernel-only relaunches use them)
+        self._nll_count: Optional[int] = None
+        self._marginals_filled = False
         if device.type == "cpu":
             return
-        chunks = self._chunks = likelihoods.lane_chunks(np.diff(self.offsets))
-        chunk_off = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
+        self._key = next(_workspace_keys)
         lib = self._lib = _kernel_lib()
+        self.per_launch = lib.sid_lynch_lanes_per_launch()
+        # each lane's chunks in the objective's walk and in the marginals'
+        rows = np.diff(self.offsets)
+        self._chunks = likelihoods.lane_chunks(rows)
+        self._marginals_chunks = likelihoods.lane_chunks(rows, lib.sid_lynch_marginals_chunk_rows())
+        n_chunks = int(self._chunks.sum())
         with torch.cuda.device(device):
             self.stream = torch.cuda.current_stream(device)
             grids = (ctypes.c_int * 3)()
             _raise_on(lib, lib.sid_lynch_grids(n, grids), "Lynch grid")
             self.records_grid = grids[0]
             lane_grids = (ctypes.c_int * 2)()
-            _raise_on(lib, lib.sid_lynch_lanes_grids(n, int(chunk_off[-1]), lane_grids), "Lynch lanes grid")
+            err = lib.sid_lynch_lanes_grids(n_chunks, int(self._marginals_chunks.sum()), lane_grids)
+            _raise_on(lib, err, "Lynch lanes grid")
             self.grids = tuple(lane_grids)  # the lanes' objective, the lanes' marginals
             self.records = torch.empty((RECORD_PLANES, n), dtype=torch.float64, device=device)
             self.flags = torch.zeros(n, dtype=torch.uint8, device=device)
-            self.chunk_off = torch.from_numpy(chunk_off).to(device)
-            self.row_off = offsets
-            self.part_sum = torch.empty(int(chunk_off[-1]), dtype=torch.float64, device=device)
-            self.part_cnt = torch.empty(int(chunk_off[-1]), dtype=torch.int32, device=device)
-            self.ticket = torch.zeros(s, dtype=torch.int32, device=device)
+            # one entry a chunk of the longest walk, at most every lane's
+            self.part_sum = torch.empty(n_chunks, dtype=torch.float64, device=device)
+            self.part_cnt = torch.empty(n_chunks, dtype=torch.int32, device=device)
+            self.ticket = torch.zeros(self.per_launch, dtype=torch.int32, device=device)
             self.out = torch.empty((s, 2), dtype=torch.float64, device=device)
             self.host_out = torch.empty((s, 2), dtype=torch.float64, pin_memory=True)
             self._host_view = self.host_out.numpy()
-            # one round's upload: scalars (S, 16) f64 | the running lanes'
-            # chunk offsets (A+1) int64 | the running lanes (A) int32
-            size = 16 * 8 * s + 8 * (s + 1) + 4 * s
-            self.upload_host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
-            self.upload_dev = torch.empty(size, dtype=torch.uint8, device=device)
-            self._upload = self.upload_host.numpy()
-            # the pinned upload is free again once this event has passed
-            self._upload_read = torch.cuda.Event()
-            self._upload_read.record(self.stream)
+            # the pinned tables of the objective (the running lanes) and of
+            # the marginals (every lane), each free again to be refilled
+            # once its event has passed
+            self.nll_table = torch.empty(s * LANE_SLOT.itemsize, dtype=torch.uint8, pin_memory=True)
+            self.marginals_table = torch.empty(s * LANE_SLOT.itemsize, dtype=torch.uint8, pin_memory=True)
+            self._nll_slots = self.nll_table.numpy().view(LANE_SLOT)
+            self._marginals_slots = self.marginals_table.numpy().view(LANE_SLOT)
+            self._read = {"nll": torch.cuda.Event(), "marginals": torch.cuda.Event()}
         self.write_records()
 
     def write_records(self) -> None:
@@ -554,23 +615,41 @@ class LynchLanesWorkspace:
             raise ValueError(f"scalars must be ({self.lanes}, 16): lynch_scalars per lane")
         return scalars
 
-    def _scalars_up(self, scalars: np.ndarray) -> None:
-        """The scalars into the pinned upload, once the last upload of it
-        has been read."""
-        self._upload_read.synchronize()
-        self._upload[: 128 * self.lanes].view(np.float64)[:] = scalars.reshape(-1)
-        self._scalars_on_card = True
+    def _bank_holds(self, kind: str) -> bool:
+        """Whether the constant bank holds ``kind``'s table of this
+        workspace (as one launch's worth)."""
+        return _bank.get((id(self._lib), self.device.index)) == (self._key, kind)
+
+    def _banked(self, kind: str, count: int) -> None:
+        """Record that ``kind``'s table of ``count`` lanes was launched:
+        the bank holds it if it took one launch."""
+        _bank[(id(self._lib), self.device.index)] = (self._key, kind) if count <= self.per_launch else None
+
+    def _launch_nll(self, count: int, upload: int, grid: Optional[int], host_out) -> None:
+        global NLL_LANES_LAUNCHES
+        same = torch.cuda.current_device() == self.device.index
+        with contextlib.nullcontext() if same else torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_nll_lanes_launch(
+                self.records.data_ptr(), self.n, self.nll_table.data_ptr(), count, upload,
+                self.flags.data_ptr(), self.part_sum.data_ptr(), self.part_cnt.data_ptr(),
+                self.ticket.data_ptr(), self.out.data_ptr(), grid or self.grids[0], host_out,
+                self.stream.cuda_stream,
+            )
+            self._read["nll"].record(self.stream)
+        _raise_on(self._lib, err, "Lynch lanes objective")
+        self._banked("nll", count)
+        NLL_LANES_LAUNCHES += -(-count // self.per_launch)
 
     def nll_lanes(self, scalars, lanes, grid: Optional[int] = None) -> np.ndarray:
         """The objective of ``lanes`` (distinct, increasing), each at its
         own row of ``scalars`` (S, 16), waited for: a (len(lanes), 2) f64
         array of [sum of the unflagged terms, flagged count], each lane's
         bitwise B2 over its rows alone; the lanes' rows' flags in
-        ``flags``. On a card one ctypes call: the upload of the scalars and
-        the lanes, one launch, the copy of the results into pinned memory,
-        one stream sync. ``grid`` sets the number of blocks (the results do
-        not depend on it); by default the resident blocks."""
-        global NLL_LANES_LAUNCHES
+        ``flags``. On a card one ctypes call: the lanes' table into the
+        constant bank, one launch (one for each ``per_launch`` lanes), the
+        copy of the results into pinned memory, one stream sync. ``grid``
+        sets the number of blocks (the results do not depend on it); by
+        default the resident blocks."""
         scalars = self._check_scalars(scalars)
         lanes = _check_lanes(lanes, self.lanes)
         if self.device.type == "cpu":
@@ -578,73 +657,53 @@ class LynchLanesWorkspace:
                 self.profiles, self.mult, self.offsets, scalars, self.lgamma_tab, lanes)
             return out.numpy()
         a = len(lanes)
-        self._scalars_up(scalars)
-        base = 128 * self.lanes
-        act_off = self._upload[base : base + 8 * (a + 1)].view(np.int64)
-        act_off[0] = 0
-        np.cumsum(self._chunks[lanes], out=act_off[1:])
-        self._upload[base + 8 * (a + 1) : base + 8 * (a + 1) + 4 * a].view(np.int32)[:] = lanes
-        same = torch.cuda.current_device() == self.device.index
-        with contextlib.nullcontext() if same else torch.cuda.device(self.device):
-            err = self._lib.sid_lynch_nll_lanes_launch(
-                self.records.data_ptr(), self.n, self.row_off.data_ptr(), self.chunk_off.data_ptr(),
-                self.lanes, self.upload_host.data_ptr(), self.upload_dev.data_ptr(),
-                base + 12 * a + 8, a, self.flags.data_ptr(), self.part_sum.data_ptr(),
-                self.part_cnt.data_ptr(), self.ticket.data_ptr(), self.out.data_ptr(),
-                grid or self.grids[0], self.host_out.data_ptr(), self.stream.cuda_stream,
-            )
-        _raise_on(self._lib, err, "Lynch lanes objective")
-        NLL_LANES_LAUNCHES += 1
-        self._uploaded = a
-        return self._host_view[lanes].copy()
+        self._read["nll"].synchronize()
+        fill_lane_slots(self._nll_slots, self.offsets, self._chunks, scalars, lanes, self.per_launch)
+        self._launch_nll(a, 1, grid, self.host_out.data_ptr())
+        self._nll_count = a
+        return self._host_view[:a].copy()
 
     def launch_nll_lanes(self, grid: Optional[int] = None) -> None:
-        """Enqueue the lanes' objective again on what the card holds (the
-        lanes of the last ``nll_lanes`` call, the scalars last uploaded)
-        and return at once, with no copy either way: the kernel alone, for
-        timing it."""
-        global NLL_LANES_LAUNCHES
-        if self._uploaded is None:
+        """Enqueue the lanes' objective again on the table of the last
+        ``nll_lanes`` call (copied into the constant bank again only if
+        another table went there since) and return at once, with no copy
+        of results: the kernel alone, for timing it."""
+        if self._nll_count is None:
             raise RuntimeError("launch_nll_lanes needs an nll_lanes call first")
-        with torch.cuda.device(self.device):
-            err = self._lib.sid_lynch_nll_lanes_launch(
-                self.records.data_ptr(), self.n, self.row_off.data_ptr(), self.chunk_off.data_ptr(),
-                self.lanes, None, self.upload_dev.data_ptr(), 0, self._uploaded, self.flags.data_ptr(),
-                self.part_sum.data_ptr(), self.part_cnt.data_ptr(), self.ticket.data_ptr(),
-                self.out.data_ptr(), grid or self.grids[0], None, self.stream.cuda_stream,
-            )
-        _raise_on(self._lib, err, "Lynch lanes objective")
-        NLL_LANES_LAUNCHES += 1
+        self._launch_nll(self._nll_count, int(not self._bank_holds("nll")), grid, None)
 
     def _marginals(self, scalars: Optional[np.ndarray]) -> torch.Tensor:
-        """Launch the lanes' marginals at ``scalars`` (uploaded first), or
-        None: at the scalars the card holds; the results in one (17 N,)
-        uint8 device buffer (``_split``)."""
+        """Launch the lanes' marginals at ``scalars``, or None: on the
+        table of the last call; the results in one (17 N,) uint8 device
+        buffer (``_split``)."""
         global MARGINALS_LANES_LAUNCHES
-        n = self.n
+        n, s = self.n, self.lanes
         buf = torch.empty(17 * n, dtype=torch.uint8, device=self.device)
         lhom, lhet, flags = _split(buf, n)
         if scalars is not None:
-            self._scalars_up(scalars)
+            self._read["marginals"].synchronize()
+            fill_lane_slots(self._marginals_slots, self.offsets, self._marginals_chunks, scalars, range(s),
+                            self.per_launch)
+            self._marginals_filled = True
+        upload = int(scalars is not None or not self._bank_holds("marginals"))
         with torch.cuda.device(self.device):
             err = self._lib.sid_lynch_marginals_lanes_launch(
-                self.records.data_ptr(), n, self.row_off.data_ptr(), self.lanes,
-                None if scalars is None else self.upload_host.data_ptr(), self.upload_dev.data_ptr(),
-                lhom.data_ptr(), lhet.data_ptr(), flags.data_ptr(), self.grids[1], self.stream.cuda_stream,
+                self.records.data_ptr(), n, self.marginals_table.data_ptr(), s, upload, lhom.data_ptr(),
+                lhet.data_ptr(), flags.data_ptr(), self.grids[1], self.stream.cuda_stream,
             )
-            if scalars is not None:
-                self._upload_read.record(self.stream)
+            self._read["marginals"].record(self.stream)
         _raise_on(self._lib, err, "Lynch lanes marginals")
         if n:
-            MARGINALS_LANES_LAUNCHES += 1
+            self._banked("marginals", s)
+            MARGINALS_LANES_LAUNCHES += -(-s // self.per_launch)
         return buf
 
     def launch_marginals_lanes(self) -> None:
-        """Enqueue the lanes' marginals again at the scalars last uploaded
-        and return at once, with no copy: the kernel alone, for timing
-        it."""
-        if not self._scalars_on_card:
-            raise RuntimeError("launch_marginals_lanes needs scalars uploaded first")
+        """Enqueue the lanes' marginals again on the table of the last
+        call and return at once, with no copy of results: the kernel
+        alone, for timing it."""
+        if not self._marginals_filled:
+            raise RuntimeError("launch_marginals_lanes needs a marginals_lanes call first")
         self._marginals(None)
 
     def marginals_lanes(self, scalars) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

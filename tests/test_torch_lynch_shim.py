@@ -15,10 +15,13 @@ folds the chunk sums. Built here with g++
   bitwise, the values within 1e-12 relative (only the exp/log
   implementations differ: glibc here, torch's on the CPU), and a sum that
   does not change with the number of blocks;
-- the cohort's lanes: ``lane_of`` (a row's or a chunk's lane by binary
-  search) against numpy, and the lanes' objective and marginals as their
-  kernels walk a cohort's record: each lane bitwise the single-lane
-  objective over its own rows, for every set of running lanes and grid.
+- the cohort's lanes: ``slot_of`` (a walk chunk's lane by binary search
+  over a launch's lane slots) against numpy, and the lanes' objective and
+  marginals as their kernels walk a cohort's record through the tables
+  that ``fill_lane_slots`` writes: each lane bitwise the single-lane
+  objective and marginals over its own rows, for every set of running
+  lanes and grid, cohorts with runs of empty and 1-row lanes, and lanes
+  split into launches of a few.
 """
 
 import ctypes
@@ -36,7 +39,7 @@ from sid_tpu_torch.ops import lynch_objective  # noqa: E402
 from sid_tpu_torch.ops.lgamma import lgamma_table  # noqa: E402
 from sid_tpu_torch.ops.profiles import nucleotide_distribution  # noqa: E402
 from test_torch_local_classify import assert_agree  # noqa: E402
-from test_torch_lynch import THETAS, lynch_profiles  # noqa: E402
+from test_torch_lynch import LANE_THETAS, THETAS, lane_cohort, lynch_profiles  # noqa: E402
 
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sid_tpu_torch", "csrc"
@@ -44,6 +47,8 @@ CSRC = os.path.join(
 IN_BOX = [t for t in THETAS if 0 <= t[0] <= 1 and 0 <= t[1] <= 1]
 # the resident grids of an H100 (132 SMs) at 3 and 4 blocks an SM
 RESIDENT_GRIDS = (396, 528)
+# the lanes one launch of a lane kernel takes (csrc/lynch.cu kLanesPerLaunch)
+PER_LAUNCH = 384
 
 
 @pytest.fixture(scope="module")
@@ -61,16 +66,18 @@ def shim(tmp_path_factory):
     lib.sid_lynch_chunk_rows_host.restype = i32
     lib.sid_lynch_chunk_rows_host.argtypes = []
     lib.sid_lynch_lane_chunks_host.restype = i64
-    lib.sid_lynch_lane_chunks_host.argtypes = [i64]
+    lib.sid_lynch_lane_chunks_host.argtypes = [i64, i64]
+    lib.sid_lynch_lane_slot_bytes_host.restype = i32
+    lib.sid_lynch_lane_slot_bytes_host.argtypes = []
     for name, args in (
         ("sid_lynch_rows_host", [p, p, p, i32, i64] + [p] * 6),
         ("sid_lynch_records_host", [p, p, p, i32, i64, p]),
         ("sid_lynch_read_records_host", [p, i64, p, p, p, p]),
         ("sid_lynch_record_rows_host", [p, i64, p] + [p] * 5),
         ("sid_lynch_nll_host", [p, i64, p, i32, p, p]),
-        ("sid_lynch_lane_of_host", [p, i32, p, i64, p]),
-        ("sid_lynch_nll_lanes_host", [p, i64, p, i32, p, p, i32, i32, p, p]),
-        ("sid_lynch_marginals_lanes_host", [p, i64, p, i32, p, p, p, p]),
+        ("sid_lynch_slot_of_host", [p, i32, p, i64, p]),
+        ("sid_lynch_nll_lanes_host", [p, i64, p, i32, i32, i32, p, p]),
+        ("sid_lynch_marginals_lanes_host", [p, i64, p, i32, i32, i32, i32, p, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = None
@@ -217,82 +224,137 @@ def test_sum_does_not_change_with_the_number_of_blocks(shim, u):
     assert abs(results[0][0] - float(want[0])) <= 1e-12 * abs(float(want[0]))
 
 
-@pytest.mark.parametrize("sizes", [[5], [0, 1, 0, 0, 7, 1, 0], [1] * 9, [0, 3000, 1, 1024, 1025, 0], [0, 0, 4]])
+def lane_table(off, scalars, lanes, per_launch=PER_LAUNCH, chunk_rows=lk.CHUNK_ROWS):
+    """The lane kernels' slot table of ``lanes`` (fill_lane_slots) for a
+    walk of chunks of ``chunk_rows``."""
+    slots = np.zeros(len(lanes), lynch_objective.LANE_SLOT)
+    chunks = lk.lane_chunks(np.diff(off), chunk_rows)
+    lynch_objective.fill_lane_slots(slots, off, chunks, scalars, lanes, per_launch)
+    return slots
+
+
+@pytest.mark.parametrize("sizes", [[5], [0, 1, 0, 0, 7, 1, 0], [1] * 9, [0, 3000, 1, 1024, 1025, 0], [0, 0, 4],
+                                   [0, 2000, 1] * 128])
 def test_lane_of_is_searchsorted(shim, sizes):
-    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    rows = np.arange(off[-1], dtype=np.int64)
-    got = np.empty(rows.size, np.int32)
-    shim.sid_lynch_lane_of_host(off.ctypes.data, len(sizes), rows.ctypes.data, rows.size, got.ctypes.data)
-    want = np.searchsorted(off[:-1], rows, side="right") - 1
-    assert np.array_equal(got, want)
-    assert all(off[k] <= r < off[k + 1] for r, k in zip(rows, got))  # never an empty lane
-    # chunk offsets of a lane walk (every lane at least one chunk)
-    chunks = np.array([shim.sid_lynch_lane_chunks_host(int(n)) for n in sizes])
+    """A walk chunk's lane (slot_of over a launch's slots) is numpy's
+    searchsorted over the walk's chunk offsets: every lane, an empty one
+    too, owns lane_chunks of the walk, in order, whatever launch the table
+    is cut into."""
+    assert shim.sid_lynch_lane_slot_bytes_host() == lynch_objective.LANE_SLOT.itemsize
+    chunks = np.array([shim.sid_lynch_lane_chunks_host(int(n), lk.CHUNK_ROWS) for n in sizes])
     assert list(chunks) == list(lk.lane_chunks(sizes))
     assert list(chunks) == [max(1, -(-n // lk.CHUNK_ROWS)) for n in sizes]
-    coff = np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
-    js = np.arange(coff[-1], dtype=np.int64)
-    got = np.empty(js.size, np.int32)
-    shim.sid_lynch_lane_of_host(coff.ctypes.data, len(sizes), js.ctypes.data, js.size, got.ctypes.data)
-    assert np.array_equal(got, np.repeat(np.arange(len(sizes)), chunks))
+    # the marginals' walk takes chunks of another size the same way
+    assert [shim.sid_lynch_lane_chunks_host(int(n), 256) for n in sizes] == list(lk.lane_chunks(sizes, 256))
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    scalars = np.zeros((len(sizes), 16))
+    for per_launch in (PER_LAUNCH, 2):
+        slots = lane_table(off, scalars, range(len(sizes)), per_launch)
+        for first in range(0, len(sizes), per_launch):
+            group = np.ascontiguousarray(slots[first:first + per_launch])
+            coff = np.concatenate([[0], np.cumsum(chunks[first:first + per_launch])]).astype(np.int64)
+            assert np.array_equal(group["walk_end"], coff[1:])
+            assert np.array_equal(group["first_row"], off[first:first + len(group)])
+            assert np.array_equal(group["end_row"], off[first + 1:first + len(group) + 1])
+            js = np.arange(coff[-1], dtype=np.int64)
+            got = np.empty(js.size, np.int32)
+            shim.sid_lynch_slot_of_host(group.ctypes.data, len(group), js.ctypes.data, js.size, got.ctypes.data)
+            assert np.array_equal(got, np.searchsorted(coff[1:], js, side="right"))
+            assert np.array_equal(got, np.repeat(np.arange(len(group)), chunks[first:first + per_launch]))
 
 
-def run_nll_lanes(lib, rec, off, scalars, lanes, grid):
+def run_nll_lanes(lib, rec, off, scalars, lanes, grid, per_launch=PER_LAUNCH):
+    """The lanes' objective of ``lanes`` through their slot table: out
+    (S, 2) by lane (NaN for the others) and the flags."""
     n = rec.shape[1]
     flags = np.zeros(n, np.uint8)
+    got = np.full((len(lanes), 2), np.nan)
+    slots = lane_table(off, scalars, lanes, per_launch)
+    lib.sid_lynch_nll_lanes_host(rec.ctypes.data, n, slots.ctypes.data, len(lanes), per_launch, grid,
+                                 flags.ctypes.data, got.ctypes.data)
     out = np.full((len(off) - 1, 2), np.nan)
-    act = np.asarray(lanes, np.int32)
-    lib.sid_lynch_nll_lanes_host(rec.ctypes.data, n, off.ctypes.data, len(off) - 1, scalars.ctypes.data,
-                                 act.ctypes.data, act.size, grid, flags.ctypes.data, out.ctypes.data)
+    out[list(lanes)] = got
     return out, flags
 
 
-@pytest.fixture(scope="module")
-def cohort(shim):
-    from test_torch_lynch import LANE_THETAS, lane_cohort
-
-    parts = lane_cohort(seed=11)
+def _cohort(shim, parts):
     prof = np.ascontiguousarray(np.concatenate([p for p, _ in parts]), np.int32)
     mult = np.concatenate([m for _, m in parts]).astype(np.int64)
     off = np.concatenate([[0], np.cumsum([len(m) for _, m in parts])]).astype(np.int64)
     tab = lgamma_table(int(prof.sum(-1).max()), "cpu")
     scalars = np.ascontiguousarray(np.stack([
         lk.lynch_scalars(*LANE_THETAS[k % len(LANE_THETAS)], nucleotide_distribution(*parts[k]))
+        if len(parts[k][1]) else lk.lynch_scalars(*LANE_THETAS[k % len(LANE_THETAS)], [0.25] * 4)
         for k in range(len(parts))
     ]))
     return parts, prof, mult, off, tab, scalars, run_records(shim, prof, mult, tab)
 
 
-@pytest.mark.parametrize("grid", [1, 3, 64] + list(RESIDENT_GRIDS))
-def test_lanes_objective_is_each_lane_alone(shim, cohort, grid):
+@pytest.fixture(scope="module")
+def cohorts(shim):
+    """lane_cohort's eight lanes ("mixed": an empty and a 1-row lane, lanes
+    around the chunk size, a 12-chunk lane whose fold order shows in the
+    bits, the deep rows), and "sparse": runs of empty and 1-row lanes
+    between lanes that end mid-chunk."""
+    parts = lane_cohort(seed=11)
+    prof, mult = lynch_profiles(n=6000, seed=13)
+    sizes = [0, 0, 1, 1, 0, 700, 1, 0, 0, 1500, 1, 1, 2047, 0, 1, 1737]
+    start = np.concatenate([[0], np.cumsum(sizes)])
+    sparse = [(prof[a:b], mult[a:b]) for a, b in zip(start[:-1], start[1:])]
+    return {"mixed": _cohort(shim, parts), "sparse": _cohort(shim, sparse)}
+
+
+def _walks(ids):
+    return [pytest.param(*case, id=i) for i, case in ids.items()]
+
+
+@pytest.mark.parametrize("which, grid, per_launch", _walks({
+    "1": ("mixed", 1, PER_LAUNCH), "3": ("mixed", 3, PER_LAUNCH), "64": ("mixed", 64, PER_LAUNCH),
+    "396": ("mixed", 396, PER_LAUNCH), "528": ("mixed", 528, PER_LAUNCH),
+    "3-launches-of-3": ("mixed", 3, 3), "64-launches-of-1": ("mixed", 64, 1),
+    "sparse-1": ("sparse", 1, PER_LAUNCH), "sparse-7-launches-of-4": ("sparse", 7, 4),
+    "sparse-528-launches-of-5": ("sparse", 528, 5),
+}))
+def test_lanes_objective_is_each_lane_alone(shim, cohorts, which, grid, per_launch):
     """Each running lane's [sum, flagged count] is bitwise the single-lane
     objective over its own rows (its own record), and its flags the
-    same, for every set of running lanes and grid."""
-    parts, prof, mult, off, tab, scalars, rec = cohort
+    same, for every set of running lanes, grid and launch size."""
+    parts, prof, mult, off, tab, scalars, rec = cohorts[which]
     n = len(parts)
     alone = []
     for k, (p, m) in enumerate(parts):
         alone.append(run_nll(shim, run_records(shim, np.ascontiguousarray(p, np.int32), m, tab), scalars[k], 5))
     for lanes in (list(range(n)), list(range(0, n, 2)), [n - 1], [1, 2]):
-        out, flags = run_nll_lanes(shim, rec, off, scalars, lanes, grid)
+        out, flags = run_nll_lanes(shim, rec, off, scalars, lanes, grid, per_launch)
         for k in range(n):
             if k in lanes:
                 assert np.array_equal(bits(out[k]), bits(alone[k][0]))
                 assert np.array_equal(flags[off[k]:off[k + 1]], alone[k][1])
             else:
                 assert np.isnan(out[k]).all() and not flags[off[k]:off[k + 1]].any()
-    # the deep lane's flagged rows are counted, the empty lane's sum is +0.0
-    assert sum(a[0][1] for a in alone) >= 4
-    empty = [k for k, (p, _) in enumerate(parts) if p.shape[0] == 0][0]
-    assert bits(alone[empty][0])[0] == 0 and alone[empty][0][1] == 0
+    # every empty lane's sum is +0.0 with no flagged row
+    empty = [k for k, (p, _) in enumerate(parts) if p.shape[0] == 0]
+    assert empty and all(bits(alone[k][0])[0] == 0 and alone[k][0][1] == 0 for k in empty)
+    if which == "mixed":  # the deep lane's flagged rows are counted
+        assert sum(a[0][1] for a in alone) >= 4
 
 
-def test_lanes_marginals_are_each_lane_alone(shim, cohort):
-    parts, prof, mult, off, tab, scalars, rec = cohort
+@pytest.mark.parametrize("which, grid, per_launch, rows_per_thread", _walks({
+    "mixed": ("mixed", 396, PER_LAUNCH, 4), "mixed-1": ("mixed", 1, PER_LAUNCH, 4),
+    "mixed-5-launches-of-3": ("mixed", 5, 3, 4), "sparse": ("sparse", 528, PER_LAUNCH, 4),
+    "sparse-7-launches-of-2": ("sparse", 7, 2, 4), "mixed-1-row-a-thread": ("mixed", 396, PER_LAUNCH, 1),
+    "sparse-1-row-a-thread-launches-of-3": ("sparse", 64, 3, 1),
+}))
+def test_lanes_marginals_are_each_lane_alone(shim, cohorts, which, grid, per_launch, rows_per_thread):
+    """Every row's marginals and flag bitwise the single-lane marginals of
+    its lane, whatever the grid, the launch size and the rows a thread
+    takes of a chunk; within 1e-12 of the plain version."""
+    parts, prof, mult, off, tab, scalars, rec = cohorts[which]
     n = rec.shape[1]
-    lhom, lhet, flags = np.empty(n), np.empty(n), np.empty(n, np.uint8)
-    shim.sid_lynch_marginals_lanes_host(rec.ctypes.data, n, off.ctypes.data, len(parts), scalars.ctypes.data,
-                                        lhom.ctypes.data, lhet.ctypes.data, flags.ctypes.data)
+    lhom, lhet, flags = np.full(n, np.nan), np.full(n, np.nan), np.full(n, 7, np.uint8)
+    slots = lane_table(off, scalars, range(len(parts)), per_launch, rows_per_thread * lk.REDUCE_THREADS)
+    shim.sid_lynch_marginals_lanes_host(rec.ctypes.data, n, slots.ctypes.data, len(parts), per_launch, grid,
+                                        rows_per_thread, lhom.ctypes.data, lhet.ctypes.data, flags.ctypes.data)
     for k, (p, m) in enumerate(parts):
         r = slice(off[k], off[k + 1])
         _, _, w_hom, w_het, w_flags = run_record_rows(
