@@ -120,7 +120,29 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    five lanes' fits bitwise single-lane fits over DeviceObjective; the
    lanes' rounds, launches and evaluations, and the fits' wall against 100
    single-lane fits in turns;
-13. prints a JSON line of kernel results, then the final JSON line
+13. the fused on-device LRT (exact_pvalues=False): B5
+   (local_classify_lrt_kernel) at phase 3's profiles, every -E and prior:
+   its byte's bits 0-4 bitwise B1's, p1 and p2 within 1e-13 relative of
+   host libm (glibc erfc) over B1's likelihoods plus the prior and of the
+   plain LRT on the card over the same likelihoods (where both are >=
+   DBL_MIN; below it together), is_het equal outside the alpha band, the
+   whole plain version's largest relative error printed (its logs are
+   torch's); B6's full form (quality_finalize_lrt_kernel) at phase 8's
+   sites against libsidtpu's sidtpu_quality_finalize and its plain version;
+   the LRT (lrt_pvalues_kernel) on phase 5's marginals with and without a
+   prior against host libm and its plain version; BH (the three passes
+   ending in bh_adjust_kernel, over torch.argsort's order) on B5's p-values
+   with ties and NaN planted, bitwise adjust_benjamini_hochberg_np over two
+   tile sizes and as its plain version; each kernel's call, device-only and
+   plain times and bound (BH also torch.argsort's and torch.cummin's
+   times); the device LRT's wall against the host-libm path at U = 1M,
+   N = 1M and phase 5's U; engine.run with exact_pvalues=False for
+   -m local, -m quality and -R -m likelihood_ratio on golden and the
+   1M-site inputs, each within the tolerance of the host-libm run and of
+   the CPU run (lines differing in bytes counted), every kernel launched;
+   in phase 12, pooled -R -m likelihood_ratio and -m local on 8 samples,
+   held the same way;
+14. prints a JSON line of kernel results, then the final JSON line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the final
@@ -854,6 +876,344 @@ def stream_phase(card, workdir, qsrc) -> None:
     log(f"# --stream -m local at {N_STREAM} sites: output ({len(whole) / 1e6:.0f} MB) the same SHA-256 as engine.run")
 
 
+# ---- phase 13: the fused on-device LRT (exact_pvalues=False) ----
+DBL_MIN = np.finfo(np.float64).tiny
+# p-values through another erfc than the host's (CUDA's, torch's): 1e-13
+# relative where both are >= DBL_MIN, below DBL_MIN together
+P_RTOL = 1e-13
+ALPHA = 0.05
+
+
+def pvalues_close(name, got, want, rtol=P_RTOL) -> float:
+    """The device-LRT tolerance: NaN at the same positions, below DBL_MIN
+    together, |got - want| <= rtol * want elsewhere; returns the largest
+    relative error."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        raise AssertionError(f"{name}: NaN positions differ")
+    g, w = got[~nan], want[~nan]
+    low = w < DBL_MIN
+    if not np.array_equal(g < DBL_MIN, low):
+        raise AssertionError(f"{name}: {int(((g < DBL_MIN) != low).sum())} p-values below DBL_MIN on one side only")
+    rel = np.abs(g[~low] - w[~low]) / w[~low]
+    if rel.size and rel.max() > rtol:
+        i = int(np.argmax(rel))
+        raise AssertionError(f"{name}: rel err {rel[i]!r} > {rtol} ({g[~low][i]!r} vs {w[~low][i]!r})")
+    return float(rel.max()) if rel.size else 0.0
+
+
+def het_close(name, got, want, p2, alpha=ALPHA) -> int:
+    """is_het apart only where p2 lies within P_RTOL * alpha of alpha;
+    returns how many rows differ."""
+    differ = np.asarray(got, bool) != np.asarray(want, bool)
+    if (np.abs(np.asarray(p2)[differ] - alpha) > P_RTOL * alpha).any():
+        raise AssertionError(f"{name}: is_het differs away from alpha at {np.flatnonzero(differ)[:5]}")
+    return int(differ.sum())
+
+
+def csv_close(name, got: bytes, want: bytes, alpha=ALPHA) -> int:
+    """Two CSVs of p-values held by the tolerance as printed: the same
+    sites and confidence type; each p-value equal or one unit of %g's sixth
+    digit apart; the call apart only where het_conf prints as alpha.
+    Returns the count of lines that differ in bytes."""
+    gl, wl = got.split(b"\n"), want.split(b"\n")
+    if len(gl) != len(wl):
+        raise AssertionError(f"{name}: {len(gl)} vs {len(wl)} lines")
+    differ = [k for k, (a, b) in enumerate(zip(gl, wl)) if a != b]
+    for k in differ:
+        a, b = gl[k].split(b","), wl[k].split(b",")
+        ok = a[:2] == b[:2] and a[6:] == b[6:]
+        for x, y in zip(a[4:6], b[4:6]):
+            fx, fy = float(x), float(y)
+            ok &= (np.isnan(fx) and np.isnan(fy)) or abs(fx - fy) <= 1e-5 * max(abs(fx), abs(fy))
+        if a[2:4] != b[2:4]:
+            ok &= abs(float(b[5]) - alpha) <= 1e-5 * alpha
+        if not ok:
+            raise AssertionError(f"{name}: line {k}: {gl[k]!r} vs {wl[k]!r}")
+    return len(differ)
+
+
+def lrt_rows_times(torch, label, fn, plain, sets, launch, sass, names, rows, n_bytes, card, extra=""):
+    """Call (median of 40, in turns with the plain version), device-only
+    time and bound of one device-LRT kernel; returns the kernels line's
+    timing keys."""
+    plain_t = event_times_ms(torch, plain, sets)
+    call_t = event_times_ms(torch, fn, sets) + event_times_ms(torch, fn, sets)
+    plain_t += event_times_ms(torch, plain, sets)
+    dev_ms = device_only_ms(torch, launch, sets)
+    f64 = sum(kernel_counts(sass, k)["f64"] for k in names)
+    f64_all = sum(kernel_counts(sass, k)["f64_all"] for k in names)
+    b_ms, b_by = bound_ms(n_bytes, f64 * rows)
+    b_all = bound_ms(n_bytes, f64_all * rows)[0]
+    out = {"ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"# {label}: call {out['ms']:.4f} ms (median of {len(call_t)}, min {min(call_t):.4f}), device only "
+        f"{dev_ms:.4f} ms, plain torch {out['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; "
+        f"{f64} f64 instructions every row executes, {f64_all} with every branch arm: {b_all:.4f} ms), "
+        f"{b_ms / dev_ms:.1%} of the bound{extra}; on {card}")
+    return out
+
+
+def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof) -> list:
+    """Phase 13, the kernels: B5 at phase 3's U profiles, every -E and
+    prior; B6's full form at phase 8's N sites; the LRT on phase 5's
+    marginals (of ``fit_prof``); BH on B5's p-values with ties and NaN
+    planted. Each held to the host path and its plain version, timed,
+    bounded; the device LRT's wall against the host-libm path. Returns the four kernels' rows of the
+    kernels line (launches are the path's)."""
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.models import likelihood_ratio, local, quality
+    from sid_tpu_torch.models.common import LONG_DOUBLE_UNDERFLOW_LOG
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import quality_finalize as qf
+    from sid_tpu_torch.ops import stats
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+
+    t_phase = time.perf_counter()
+    u = prof_np.shape[0]
+    counts_np, hi = lc.narrow_counts(prof_np)
+    counts = torch.from_numpy(counts_np.view(np.int16)).to(dev)
+    tab = lgamma_table(4 * hi, dev)
+    rows = []
+
+    # B5: the byte bitwise B1's; p1, p2 against host libm over B1's (l1,
+    # l2) plus the prior, and against the plain LRT on the card over the
+    # same likelihoods; is_het equal outside the alpha band; the whole plain
+    # version (torch's logs: 1e-12 on l1, l2) reported
+    b5_rel = b5_abs = plain_rel = 0.0
+    bh_p = None
+    for thr in THRESHOLDS:
+        for prior in PRIORS:
+            l1, l2, b1 = (t.cpu().numpy().copy() for t in lc.local_classify(counts, thr, prior, tab))
+            k1, k2, kb = (t.cpu().numpy().copy() for t in lc.local_classify_lrt(counts, thr, prior, ALPHA, tab))
+            torch.cuda.synchronize()
+            if not np.array_equal(kb & 31, b1):
+                raise AssertionError(f"B5 at -E {thr}, prior {prior}: the byte's bits 0-4 differ from B1's")
+            lp_hom, lp_het, _, use_prior = lc.lrt_constants(prior, ALPHA)
+            if use_prior:
+                l1, l2 = l1 + lp_hom, l2 + lp_het
+            h1 = stats.lrt_pvalue_from_logs_np(l2, l1)
+            h2 = stats.lrt_pvalue_from_logs_np(l1, l2)
+            b5_rel = max(b5_rel, pvalues_close(f"B5 p1 -E {thr} prior {prior} vs host libm", k1, h1),
+                         pvalues_close(f"B5 p2 -E {thr} prior {prior} vs host libm", k2, h2))
+            with np.errstate(invalid="ignore"):
+                het_close(f"B5 is_het -E {thr} prior {prior}", lc.het_flags(kb), (l2 > l1) & (h2 < ALPHA), h2)
+            t1, t2 = torch.from_numpy(l1).to(dev), torch.from_numpy(l2).to(dev)
+            q1, q2 = stats.lrt_pvalues_ref(t2, t1).cpu().numpy(), stats.lrt_pvalues_ref(t1, t2).cpu().numpy()
+            for a, b in ((k1, q1), (k2, q2)):
+                pvalues_close(f"B5 -E {thr} prior {prior} vs the plain LRT on the card", a, b)
+                fin = np.isfinite(a) & np.isfinite(b)
+                b5_abs = max(b5_abs, float(np.abs(a[fin] - b[fin]).max()))
+            f1, f2, fb = (t.cpu().numpy() for t in lc.local_classify_lrt_ref(counts, thr, prior, ALPHA, tab))
+            if not np.array_equal(fb & 31, b1):
+                raise AssertionError(f"B5's plain version at -E {thr}, prior {prior}: the byte differs")
+            for a, b in ((f1, k1), (f2, k2)):
+                ok = (a >= DBL_MIN) & (b >= DBL_MIN)
+                plain_rel = max(plain_rel, float((np.abs(a[ok] - b[ok]) / b[ok]).max()))
+            if thr == 0.1 and prior == 1e-3:
+                bh_p = k2.copy()
+        log(f"# B5 == host at U={u}, -E {thr}: the byte's bits 0-4 bitwise B1's, p1 and p2 within {P_RTOL} of host "
+            f"libm over B1's likelihoods and of the plain LRT on the card, is_het equal outside the alpha band, "
+            f"at priors {PRIORS}")
+    log(f"# B5: max rel err {b5_rel!r} against host libm (bound {P_RTOL}); against the whole plain version on the "
+        f"card (torch's logs) {plain_rel!r}")
+    sets = [(torch.roll(counts, 7919 * k, 0).contiguous(), 0.1, 1e-3, ALPHA, tab) for k in range(INPUT_SETS)]
+    buf = torch.empty(lc.BYTES_PER_ROW * u, dtype=torch.uint8, device=dev)
+    times = lrt_rows_times(torch, f"local_classify_lrt (B5) at U={u}, -E 0.1, prior 1e-3", lc.local_classify_lrt,
+                           lc.local_classify_lrt_ref, sets,
+                           lambda c, thr, pr, a, t: lc._launch(c, thr, pr, t, buf, a), sass,
+                           ["local_classify_lrt_kernel"], u, u * (8 + 17) + tab.shape[0] * 8, card,
+                           f"; grid {lc.resident_blocks(dev, True)} blocks")
+    rows.append({"name": "local_classify_lrt", "route": "cuda", "source": "sid_tpu_torch/csrc/local_classify.cu",
+                 "replaces": "sid_tpu/models/local.py:30", "launches": None, "max_abs_err": b5_abs, **times,
+                 "library_ms": None})
+    del sets, buf
+
+    # B6's full form: against libsidtpu's fused host pass and the plain version on the card
+    n = N_QUALITY
+    c_np, ma, se, lh, lt = finalize_inputs(n)
+    qtab = lgamma_table(qf.MAX_TOP2, dev)
+    c_dev = torch.from_numpy(c_np.view(np.int16)).to(dev)
+    a_dev = torch.from_numpy(qf.pack_alleles(ma, se)).to(dev)
+    lt_dev, lh_dev = torch.from_numpy(lt).to(dev), torch.from_numpy(lh).to(dev)
+    q_rel = q_abs = 0.0
+    for prior in PRIORS:
+        k1, k2, kh = (t.cpu().numpy().copy() for t in qf.quality_finalize_lrt(c_dev, a_dev, lt_dev, lh_dev, qtab,
+                                                                              prior, ALPHA))
+        h_het, h1, h2 = quality.finalize_quality_native(c_np, ma, se, lh, lt, prior, ALPHA)
+        q_rel = max(q_rel, pvalues_close(f"B6 full p1 prior {prior}", k1, h1),
+                    pvalues_close(f"B6 full p2 prior {prior}", k2, h2))
+        het_close(f"B6 full is_het prior {prior}", kh.astype(bool), h_het, h2)
+        p1, p2, ph = (t.cpu().numpy() for t in qf.quality_finalize_lrt_ref(c_dev, a_dev, lt_dev, lh_dev, qtab,
+                                                                           prior, ALPHA))
+        for a, b in ((k1, p1), (k2, p2)):
+            pvalues_close(f"B6 full prior {prior} vs its plain version on the card", a, b)
+            fin = np.isfinite(a) & np.isfinite(b)
+            q_abs = max(q_abs, float(np.abs(a[fin] - b[fin]).max()))
+        het_close(f"B6 full is_het prior {prior} vs plain", kh.astype(bool), ph.astype(bool), p2)
+    log(f"# B6 full == host at N={n}, priors {PRIORS}: p1, p2 within {P_RTOL} of sidtpu_quality_finalize (max rel "
+        f"err {q_rel!r}) and of the plain version on the card, is_het equal outside the alpha band")
+    sets = [tuple(torch.roll(t, 7919 * j, 0).contiguous() for t in (c_dev, a_dev, lt_dev, lh_dev)) + (qtab, 1e-3, ALPHA)
+            for j in range(INPUT_SETS)]
+    q_out = torch.empty(qf.LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=dev)
+    misses = torch.empty(1, dtype=torch.int32, device=dev)
+    times = lrt_rows_times(torch, f"quality_finalize_lrt (B6 full) at N={n}, prior 1e-3", qf.quality_finalize_lrt,
+                           qf.quality_finalize_lrt_ref, sets,
+                           lambda c, a, h, hm, t, pr, al: qf.launch_lrt(c, a, h, hm, t, pr, al, q_out, misses), sass,
+                           ["quality_finalize_lrt_kernel"], n,
+                           n * (qf.LRT_BYTES_IN_PER_SITE + qf.LRT_BYTES_OUT_PER_SITE) + qtab.shape[0] * 8, card)
+    rows.append({"name": "quality_finalize_lrt", "route": "cuda", "source": "sid_tpu_torch/csrc/quality_finalize.cu",
+                 "replaces": "sid_tpu/models/quality.py:133", "launches": None, "max_abs_err": q_abs, **times,
+                 "library_ms": None})
+    del sets, q_out
+
+    # the LRT on phase 5's marginals, without and with the -R prior
+    lhom, lhet = marginals
+    m = lhom.shape[0]
+    hom_dev, het_dev = torch.from_numpy(lhom).to(dev), torch.from_numpy(lhet).to(dev)
+    l_rel = l_abs = 0.0
+    for pi in (None, 0.02):
+        log_priors = None if pi is None else stats.prior_logs(pi)
+        k1, k2 = (t.cpu().numpy() for t in stats.lrt_pair(hom_dev, het_dev, log_priors))
+        with np.errstate(invalid="ignore"):
+            hom, het = np.where(lhom < LONG_DOUBLE_UNDERFLOW_LOG, -np.inf, lhom), \
+                np.where(lhet < LONG_DOUBLE_UNDERFLOW_LOG, -np.inf, lhet)
+            if pi is not None:
+                het = het + np.log(np.float64(pi))
+                het = np.where(het < LONG_DOUBLE_UNDERFLOW_LOG, -np.inf, het)
+                hom = hom + np.log(np.float64(1.0 - pi))
+                hom = np.where(hom < LONG_DOUBLE_UNDERFLOW_LOG, -np.inf, hom)
+        l_rel = max(l_rel, pvalues_close(f"LRT p1 prior {pi}", k1, stats.lrt_pvalue_from_logs_np(het, hom)),
+                    pvalues_close(f"LRT p2 prior {pi}", k2, stats.lrt_pvalue_from_logs_np(hom, het)))
+        p1, p2 = (t.cpu().numpy() for t in stats.lrt_pair_ref(hom_dev, het_dev, log_priors))
+        for a, b in ((k1, p1), (k2, p2)):
+            pvalues_close(f"LRT prior {pi} vs its plain version on the card", a, b)
+            fin = np.isfinite(a) & np.isfinite(b)
+            l_abs = max(l_abs, float(np.abs(a[fin] - b[fin]).max()))
+    log(f"# LRT == host at U={m} (phase 5's marginals at eps {FIT_EPSILONS[0]}), without and with a prior: within "
+        f"{P_RTOL} of host libm (max rel err {l_rel!r}) and of the plain version on the card")
+    sets = [(torch.roll(hom_dev, 7919 * j, 0).contiguous(), torch.roll(het_dev, 7919 * j, 0).contiguous(),
+             stats.prior_logs(0.02)) for j in range(INPUT_SETS)]
+    p_out = torch.empty(2 * m, dtype=torch.float64, device=dev)
+    times = lrt_rows_times(torch, f"lrt_pvalues at U={m}, -R prior", stats.lrt_pair, stats.lrt_pair_ref, sets,
+                           lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:m], p_out[m:]),
+                           sass, ["lrt_pvalues_kernel"], m, 32 * m, card,
+                           f"; grid {stats.resident_blocks(dev)} blocks")
+    rows.append({"name": "lrt_pvalues", "route": "cuda", "source": "sid_tpu_torch/csrc/lrt_bh.cu",
+                 "replaces": "sid_tpu/ops/stats.py:24", "launches": None, "max_abs_err": l_abs, **times,
+                 "library_ms": None})
+
+    # BH on B5's p2 at U with ties and NaN planted: bitwise the host BH,
+    # over two tile sizes, and its plain version on the card
+    p = torch.from_numpy(bh_p).to(dev)
+    p[::997] = 0.5
+    p[::1999] = float("nan")
+    p[3::3001] = 0.0
+    p[5::4001] = 1.0
+    p_np = p.cpu().numpy()
+    want = stats.adjust_benjamini_hochberg_np(p_np)
+    for items in (stats.BH_ITEMS, 3):
+        got = stats.adjust_benjamini_hochberg(p, items=items).cpu().numpy()
+        if not np.array_equal(got.view(np.uint64), want.view(np.uint64)):
+            raise AssertionError(f"BH with {items} positions a thread differs bitwise from the host BH")
+    plain = stats.adjust_benjamini_hochberg_ref(p).cpu().numpy()
+    if not np.array_equal(plain.view(np.uint64), want.view(np.uint64)):
+        raise AssertionError("BH's plain version on the card differs bitwise from the host BH")
+    tiles = [-(-u // (stats.BH_THREADS * k)) for k in (stats.BH_ITEMS, 3)]
+    log(f"# BH == host at U={u} (B5's p2, {int(np.isnan(p_np).sum())} NaN, ties at 0.5, 0 and 1 planted): bitwise "
+        f"adjust_benjamini_hochberg_np over {tiles[0]} and {tiles[1]} tiles and as the plain version on the card")
+    sets = [(torch.roll(p, 7919 * j, 0).contiguous(),) for j in range(INPUT_SETS)]
+    orders = {s[0].data_ptr(): stats.bh_order(s[0]) for s in sets}
+    bh_out = torch.empty_like(p)
+    argsort_t = event_times_ms(torch, stats.bh_order, sets)
+    s_sorted = [(stats._scaled(s[0][orders[s[0].data_ptr()]]),) for s in sets]  # what torch.cummin would scan
+    cummin_t = event_times_ms(torch, lambda s: torch.cummin(s, 0), s_sorted)
+    times = lrt_rows_times(torch, f"bh_adjust at U={u} (the three passes; the call adds torch.argsort)",
+                           stats.adjust_benjamini_hochberg, stats.adjust_benjamini_hochberg_ref, sets,
+                           lambda q: stats.launch_bh(q, orders[q.data_ptr()], bh_out), sass,
+                           ["bh_block_min_kernel", "bh_adjust_kernel"], u, 24 * u, card,
+                           f"; torch.argsort (bh_order) {statistics.median(argsort_t):.4f} ms, torch.cummin "
+                           f"{statistics.median(cummin_t):.4f} ms (medians of {len(argsort_t)})")
+    rows.append({"name": "bh_adjust", "route": "cuda", "source": "sid_tpu_torch/csrc/lrt_bh.cu",
+                 "replaces": "sid_tpu/ops/stats.py:78", "launches": None, "max_abs_err": 0.0, **times,
+                 "library_ms": statistics.median(cummin_t), "argsort_ms": statistics.median(argsort_t)})
+    del sets, orders, s_sorted
+
+    # the device LRT's wall against the host-libm path, in turns
+    opts_dev, opts_host = Options(exact_pvalues=False), Options()
+    walls = {}
+
+    def turns(label, ways):
+        for name, fn in (ways + ways[::-1]) * 2:
+            t0 = time.perf_counter()
+            fn()
+            walls.setdefault(label, {}).setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+    turns(f"classify_profiles_local at U={u}", (
+        ("device LRT (B5)", lambda: local.classify_profiles_local(prof_np, opts_dev, 1e-3)),
+        ("host libm (B1 + glibc erfc)", lambda: local.classify_profiles_local(prof_np, opts_host, 1e-3))))
+    def quality_host_libm():
+        lpp1, lpp2 = quality.finalize_logs(c_np, ma, se, lh, lt, 1e-3, dev)
+        return stats.lrt_pvalue_from_logs_np(lpp2, lpp1), stats.lrt_pvalue_from_logs_np(lpp1, lpp2)
+
+    turns(f"the quality finalize at N={n}", (
+        ("device LRT (B6 full)", lambda: qf.finalize_lrt(c_np, ma, se, lh, lt, 1e-3, ALPHA, dev)),
+        ("host libm (B6 + glibc erfc)", quality_host_libm),
+        ("libsidtpu's fused host pass", lambda: quality.finalize_quality_native(c_np, ma, se, lh, lt, 1e-3, ALPHA))))
+    opts_lr_dev = Options(method="likelihood_ratio", estimate_prior=True, exact_pvalues=False)
+    opts_lr_host = Options(method="likelihood_ratio", estimate_prior=True)
+    turns(f"the LR classification at U={m} (-R)", (
+        ("device LRT + BH", lambda: likelihood_ratio.lrt_classify(fit_prof, 0.02, lhom, lhet, opts_lr_dev)),
+        ("host libm + host BH", lambda: likelihood_ratio.lrt_classify(fit_prof, 0.02, lhom, lhet, opts_lr_host))))
+    for label, w in walls.items():
+        log(f"# {label}, host clock in turns: " + "; ".join(
+            f"{name} {statistics.median(v):.2f} ms (runs {', '.join(f'{x:.2f}' for x in v)})" for name, v in w.items())
+            + f"; on {card}")
+    log(f"# phase 13's kernels took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def device_lrt_path_phase(torch, card, golden_src, synth, qsrc) -> dict:
+    """Phase 13, the path: engine.run with exact_pvalues=False for -m local,
+    -m quality and -R -m likelihood_ratio on golden and the 1M-site inputs
+    (counts set to 0 just before and read just after); each held to the
+    same run with the host-libm LRT and to the CPU run of the port by the
+    tolerance as printed. Returns the launches of the four kernels."""
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import quality_finalize as qf
+    from sid_tpu_torch.ops import stats
+
+    cases = (("-m local", {}, synth), ("-m quality", {"method": "quality"}, qsrc),
+             ("-R -m likelihood_ratio", {"method": "likelihood_ratio", "estimate_prior": True}, synth))
+    runs = []
+    lc.LRT_LAUNCHES = qf.LRT_LAUNCHES = stats.LRT_LAUNCHES = stats.BH_LAUNCHES = 0
+    for label, kw, big in cases:
+        for name, src in (("golden", golden_src), (f"{N_SITES} sites", big)):
+            t0 = time.perf_counter()
+            got = engine.run(src, Options(exact_pvalues=False, **kw), binary=True)
+            runs.append((label, kw, name, src, got, time.perf_counter() - t0))
+    launches = {"local_classify_lrt": lc.LRT_LAUNCHES, "quality_finalize_lrt": qf.LRT_LAUNCHES,
+                "lrt_pvalues": stats.LRT_LAUNCHES, "bh_adjust": stats.BH_LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the device-LRT path was not launched: {launches}")
+    log("# kernel launches on the device-LRT path: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    for label, kw, name, src, got, wall in runs:
+        t0 = time.perf_counter()
+        host = engine.run(src, Options(**kw), binary=True)
+        host_wall = time.perf_counter() - t0
+        cpu = engine.run(src, Options(platform="cpu", exact_pvalues=False, **kw), binary=True)
+        n_host = csv_close(f"{label} {name} vs the host-libm run", got, host)
+        n_cpu = csv_close(f"{label} {name} vs the CPU run", got, cpu)
+        records = got.count(b"\n") - 1
+        log(f"# {label} exact_pvalues=False, {name}: {records} records, {wall * 1e3:.1f} ms (host-libm "
+            f"run {host_wall * 1e3:.1f} ms); within the tolerance of the host-libm run ({n_host} lines differ in "
+            f"bytes) and of the CPU run ({n_cpu}); on {card}")
+    return launches
+
+
 # lanes of the cohort kernels (phase 11) and the population path (phase 12)
 N_LANES = 100
 BIG_LANE = 1_000_000
@@ -1332,6 +1692,53 @@ def write_population(workdir: str):
     return paths, size
 
 
+def population_csvs(paths, options, mode):
+    """Each sample's CSV bytes of the in-memory population path, and the
+    wall seconds."""
+    from sid_tpu_torch.io.pileup import parse_pileup
+    from sid_tpu_torch.models.population import call_population
+
+    reads = options.method == "quality"
+    t0 = time.perf_counter()
+    batches = [parse_pileup(p, reads, reads, quality_terms_only=reads) for p in paths]
+    csvs = [r.to_csv_bytes() for r in call_population(batches, options, mode)]
+    return csvs, time.perf_counter() - t0
+
+
+def population_device_lrt(card, subset) -> dict:
+    """Phase 13 on the population path: pooled -R -m likelihood_ratio and
+    -m local with exact_pvalues=False on the subset's samples (counts set
+    to 0 just before, read just after), each sample's CSV held to the
+    host-libm run and the CPU run by the tolerance as printed. Returns the
+    launches of the path's device-LRT kernels."""
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import stats
+
+    cases = ((f"pooled -R -m likelihood_ratio ({len(subset)} samples)",
+              {"method": "likelihood_ratio", "estimate_prior": True}),
+             (f"pooled -m local ({len(subset)} samples)", {"method": "local"}))
+    lc.LRT_LAUNCHES = stats.LRT_LAUNCHES = stats.BH_LAUNCHES = 0
+    runs = {label: population_csvs(subset, Options(exact_pvalues=False, **kw), "pooled") for label, kw in cases}
+    launches = {"local_classify_lrt": lc.LRT_LAUNCHES, "lrt_pvalues": stats.LRT_LAUNCHES,
+                "bh_adjust": stats.BH_LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a device-LRT kernel of the population path was not launched: {launches}")
+    log("# kernel launches on the population device-LRT path: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    for label, kw in cases:
+        got, wall = runs[label]
+        host, host_wall = population_csvs(subset, Options(**kw), "pooled")
+        cpu, _ = population_csvs(subset, Options(platform="cpu", exact_pvalues=False, **kw), "pooled")
+        n_host = sum(csv_close(f"population {label} sample {k} vs host libm", g, h)
+                     for k, (g, h) in enumerate(zip(got, host)))
+        n_cpu = sum(csv_close(f"population {label} sample {k} vs the CPU", g, c)
+                    for k, (g, c) in enumerate(zip(got, cpu)))
+        log(f"# population {label} exact_pvalues=False: {wall:.2f} s (host-libm run {host_wall:.2f} s); every "
+            f"sample within the tolerance of the host-libm run ({n_host} lines differ in bytes) and of the CPU "
+            f"run ({n_cpu}); on {card}")
+    return launches
+
+
 def population_run(paths, options, mode, prof=None):
     """The in-memory population path as the CLI runs it: parse each sample,
     call_population, each sample's CSV bytes. Returns (SHA-256 per sample,
@@ -1420,6 +1827,7 @@ def population_phase(torch, dev, card, workdir):
             bad = [k for k, (a, b) in enumerate(zip(cpu[0], card_runs[label][0][0])) if a != b]
             raise AssertionError(f"population {label}: samples {bad} differ between the card and the CPU")
         log(f"# population {label}: every sample's CSV byte-equal to the CPU run (plain versions; {cpu[2]:.1f} s)")
+    population_device_lrt(card, subset)
     for label in ("pooled -m bayes", "independent -m bayes"):
         for digests, records, wall, p in card_runs[label]:
             stages = {}
@@ -2016,6 +2424,8 @@ def main() -> int:
     for eps in FIT_EPSILONS:
         s = likelihoods.lynch_scalars(0.0, eps, nt)
         kk = [t.cpu().numpy() for t in work.marginals(s)]
+        if eps == FIT_EPSILONS[0]:
+            lrt_marginals = (kk[0].copy(), kk[1].copy())  # phase 13's LRT input
         pp = [t.cpu().numpy() for t in lynch_objective.lynch_marginals_ref(p_dev, s, ftab)]
         if not np.array_equal(kk[2], pp[2]):
             raise AssertionError(f"B4 flags differ at eps {eps}")
@@ -2270,7 +2680,7 @@ def main() -> int:
     log(f"# the set-up's largest coverage at U={h_prof.shape[0]} (host clock, medians of 6, in turns): "
         + ", ".join(f"{name} {statistics.median(w):.2f} ms" for name, w in cov_walls.items()) + f"; on {card}")
 
-    # ---- 8-10. the quality finalize kernel, -m quality, --stream ----
+    # ---- 8-10, 13. the quality finalize kernel, -m quality, --stream, the device LRT ----
     workdir = os.path.join(HERE, ".smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -2278,6 +2688,8 @@ def main() -> int:
         quality_row = quality_kernel_phase(torch, dev, card, sass)
         quality_row["launches"], qsrc = quality_path_phase(torch, dev, card, workdir, golden_src, real_src)
         stream_phase(card, workdir, qsrc)
+        lrt_rows = device_lrt_kernel_phase(torch, dev, card, sass, prof_np, lrt_marginals, fit_prof)
+        lrt_launches = device_lrt_path_phase(torch, card, golden_src, synth, qsrc)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2285,7 +2697,7 @@ def main() -> int:
     parent = parent_lanes_library(build, args.parent) if args.parent else None
     lane_rows = population_phases(torch, dev, card, sass, parent)
 
-    # ---- 13. results ----
+    # ---- 14. results ----
     kernel_rows = [{
         "name": "local_log_likelihoods",
         "route": "cuda",
@@ -2311,6 +2723,9 @@ def main() -> int:
                      **fit_times[name], "library_ms": None})
     kernel_rows.append(quality_row)
     kernel_rows += lane_rows
+    for row in lrt_rows:
+        row["launches"] = lrt_launches[row["name"]]
+    kernel_rows += lrt_rows
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

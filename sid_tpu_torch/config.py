@@ -33,8 +33,9 @@ class Options:
     fit_backend: str = "auto"
     # pileup parser backend: "auto"/"native" (C++ libsidtpu) or "python"
     io_backend: str = "auto"
-    # LRT erfc on host glibc libm from device log-likelihoods (the only
-    # flow ported; False is the fused on-device LRT of sid_tpu)
+    # LRT erfc on host glibc libm from device log-likelihoods; False is
+    # sid_tpu's fused on-device LRT (the device erfc, and for
+    # likelihood_ratio the BH correction, on the device)
     exact_pvalues: bool = True
     # number of devices along the site axis (None = one device)
     mesh_devices: Optional[int] = None

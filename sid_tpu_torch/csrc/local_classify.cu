@@ -54,11 +54,15 @@ __device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    local_classify_kernel(const uint2* __restrict__ counts, int64_t n,
-                          sid::ClassifyParams p, const double* __restrict__ tab,
-                          int tab_len, double* __restrict__ l1,
-                          double* __restrict__ l2, uint8_t* __restrict__ packed) {
+// The row loop of both kernels: B1's (l1, l2, byte) or, with kLrt, B5's
+// (p1, p2, byte with is_het); the same staging, prefetch and row function.
+template <bool kLrt>
+__device__ __forceinline__ void classify_rows(const uint2* __restrict__ counts, int64_t n,
+                                              const sid::ClassifyParams& p,
+                                              const sid::LocalLrtParams& q,
+                                              const double* __restrict__ tab, int tab_len,
+                                              double* __restrict__ o1, double* __restrict__ o2,
+                                              uint8_t* __restrict__ packed) {
   __shared__ double head[kTabHead];
   const int head_len = tab_len < kTabHead ? tab_len : kTabHead;
   for (int k = threadIdx.x; k < head_len; k += kThreads) cp_async8(head + k, tab + k);
@@ -75,30 +79,65 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const uint2 row = next;
     if (i + stride < n) next = __ldg(counts + i + stride);
     double a, b;
-    const unsigned byte = sid::classify_row(row.x, row.y, p, table, &a, &b);
-    l1[i] = a;
-    l2[i] = b;
+    unsigned byte;
+    if constexpr (kLrt) {
+      byte = sid::classify_row_lrt(row.x, row.y, p, q, table, &a, &b);
+    } else {
+      byte = sid::classify_row(row.x, row.y, p, table, &a, &b);
+    }
+    o1[i] = a;
+    o2[i] = b;
     packed[i] = static_cast<uint8_t>(byte);
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    local_classify_kernel(const uint2* __restrict__ counts, int64_t n,
+                          sid::ClassifyParams p, const double* __restrict__ tab,
+                          int tab_len, double* __restrict__ l1,
+                          double* __restrict__ l2, uint8_t* __restrict__ packed) {
+  classify_rows<false>(counts, n, p, sid::LocalLrtParams{}, tab, tab_len, l1, l2, packed);
+}
 
-extern "C" {
+// B5: the fused on-device LRT's classify (sid_tpu/models/local.py:30,
+// classify_local, and its vmapped form population.py:287)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    local_classify_lrt_kernel(const uint2* __restrict__ counts, int64_t n,
+                              sid::ClassifyParams p, sid::LocalLrtParams q,
+                              const double* __restrict__ tab, int tab_len,
+                              double* __restrict__ p1, double* __restrict__ p2,
+                              uint8_t* __restrict__ packed) {
+  classify_rows<true>(counts, n, p, q, tab, tab_len, p1, p2, packed);
+}
 
-// The kernel's resident blocks on the whole current device (blocks an SM by
+// A kernel's resident blocks on the whole current device (blocks an SM by
 // the occupancy API x SMs); the caller computes it once per device.
-int sid_local_classify_resident_blocks(int* blocks) {
+template <class Kernel>
+int resident_blocks(Kernel kernel, int* blocks) {
   int device = 0;
   int sms = 0;
   int per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, local_classify_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *blocks = sms * per_sm;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The kernels' resident blocks on the whole current device; the caller
+// computes them once per device.
+int sid_local_classify_resident_blocks(int* blocks) {
+  return resident_blocks(local_classify_kernel, blocks);
+}
+
+int sid_local_classify_lrt_resident_blocks(int* blocks) {
+  return resident_blocks(local_classify_lrt_kernel, blocks);
 }
 
 // counts: (n, 4) uint16, 8-byte aligned; params: thr, ln4, K, prior,
@@ -118,6 +157,27 @@ int sid_local_classify_launch(const void* counts, int64_t n, const double* param
   local_classify_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint2*>(counts), n, p, static_cast<const double*>(tab),
       tab_len, l1, l1 + n, reinterpret_cast<uint8_t*>(l1 + 2 * n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B5 over the same counts, params and table as sid_local_classify_launch;
+// lrt: log(1 - prior), log(prior), alpha (3 host doubles) and use_prior;
+// out: 17 n bytes, 8-byte aligned: p1 (n f64), p2 (n f64), then the n bytes
+// (B1's byte and is_het in bit 5); resident:
+// sid_local_classify_lrt_resident_blocks's count. Returns a cudaError_t.
+int sid_local_classify_lrt_launch(const void* counts, int64_t n, const double* params,
+                                  int every, const double* lrt, int use_prior, const void* tab,
+                                  int tab_len, void* out, int resident, void* stream) {
+  if (n <= 0) return 0;
+  const int64_t needed = (n + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(needed < resident ? needed : resident);
+  const sid::ClassifyParams p{params[0], params[1], params[2], params[3],
+                              params[4], params[5], every};
+  const sid::LocalLrtParams q{lrt[0], lrt[1], lrt[2], use_prior};
+  double* p1 = static_cast<double*>(out);
+  local_classify_lrt_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(counts), n, p, q, static_cast<const double*>(tab), tab_len,
+      p1, p1 + n, reinterpret_cast<uint8_t*>(p1 + 2 * n));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,7 +18,9 @@
 // major and the next second: sid_tpu/models/common.py:30-44) and the
 // long-double range screen of models/local.py::long_double_range_rows
 // (cov * ln4 > LD_LOG_MAX or cov * K + prior > -LD_LOG_MIN, with the
-// constants from the host), packed into one byte.
+// constants from the host), packed into one byte. classify_row_lrt adds
+// sid_tpu's fused tail of the row (the prior, both LRTs through lrt.cuh and
+// is_het in bit 5) for the exact_pvalues=False flow.
 //
 // Every operation is a separate IEEE f64 operation in that order: build
 // with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
@@ -27,10 +29,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lrt.cuh"
+
+#ifndef SID_HD
 #ifdef __CUDACC__
 #define SID_HD __host__ __device__ __forceinline__
 #else
 #define SID_HD inline
+#endif
 #endif
 
 namespace sid {
@@ -180,6 +186,40 @@ SID_HD unsigned classify_row(uint32_t lo, uint32_t hi, const ClassifyParams& p,
   *l1 = r.l1;
   *l2 = r.l2;
   return pack_row(t, out_of_long_double_range(c0 + c1 + c2 + c3, p));
+}
+
+// ---- the fused on-device LRT: the same row, then prior, LRTs, is_het ----
+
+// the prior's two logs (host glibc scalars: log(1 - prior), log(prior)),
+// added when a prior > 0 is set, and the significance level
+struct LocalLrtParams {
+  double log_prior_hom;
+  double log_prior_het;
+  double alpha;
+  int use_prior;
+};
+
+// the byte's bit 5: is_het
+constexpr unsigned kHetBit = 32u;
+
+// classify_row, then sid_tpu/models/local.py:59-65 (classify_local's tail):
+// l1 += log(1 - prior), l2 += log(prior) with a prior; p1 = lrt(l2, l1),
+// p2 = lrt(l1, l2); is_het = l2 > l1 and p2 < alpha, as bit 5 of the byte.
+// Writes p1 and p2 and returns the byte.
+template <class Table>
+SID_HD unsigned classify_row_lrt(uint32_t lo, uint32_t hi, const ClassifyParams& p,
+                                 const LocalLrtParams& q, const Table& table, double* p1,
+                                 double* p2) {
+  double l1, l2;
+  unsigned byte = classify_row(lo, hi, p, table, &l1, &l2);
+  if (q.use_prior) {
+    l1 = add_keep_nan(l1, q.log_prior_hom);
+    l2 = add_keep_nan(l2, q.log_prior_het);
+  }
+  *p1 = lrt_pvalue(l2, l1);
+  *p2 = lrt_pvalue(l1, l2);
+  if (l2 > l1 && *p2 < q.alpha) byte |= kHetBit;
+  return byte;
 }
 
 }  // namespace sid

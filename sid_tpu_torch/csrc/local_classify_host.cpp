@@ -47,6 +47,30 @@ void sid_local_classify_rows_host(const uint16_t* counts, int64_t n,
   }
 }
 
+// B5's row loop (local_classify_lrt_kernel): counts, params, every and the
+// table as sid_local_classify_rows_host takes them; lrt and use_prior as
+// sid_local_classify_lrt_launch takes them; out: 17 n bytes, p1 (n f64), p2
+// (n f64), then the n bytes (is_het in bit 5).
+void sid_local_classify_lrt_rows_host(const uint16_t* counts, int64_t n,
+                                      const double* params, int every,
+                                      const double* lrt, int use_prior,
+                                      const double* tab, int tab_len,
+                                      const double* head, int head_len, void* out) {
+  const sid::ClassifyParams p{params[0], params[1], params[2], params[3],
+                              params[4], params[5], every};
+  const sid::LocalLrtParams q{lrt[0], lrt[1], lrt[2], use_prior};
+  const sid::StagedTable table{head, head_len, tab, tab_len};
+  double* p1 = static_cast<double*>(out);
+  double* p2 = p1 + n;
+  uint8_t* packed = reinterpret_cast<uint8_t*>(p1 + 2 * n);
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t word[2];
+    memcpy(word, counts + 4 * i, sizeof(word));
+    packed[i] = static_cast<uint8_t>(
+        sid::classify_row_lrt(word[0], word[1], p, q, table, p1 + i, p2 + i));
+  }
+}
+
 double sid_long_double_underflow_log() { return sid::kLongDoubleUnderflowLog; }
 
 }  // extern "C"

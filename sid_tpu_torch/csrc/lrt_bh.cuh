@@ -1,0 +1,69 @@
+// Per-element arithmetic of the likelihood_ratio method's device LRT and
+// Benjamini-Hochberg step-up, shared by the CUDA kernels (lrt_bh.cu) and a
+// g++ host build (lrt_bh_host.cpp) that the CPU tests hold against the
+// host paths.
+//
+// The LRT of a profile (models/likelihood_ratio.py::lrt_classify):
+//   hom = clamp(log_l_hom), het = clamp(log_l_het)
+//   with the -R prior: het = clamp(het + log(pi)), hom = clamp(hom + log(1 - pi))
+//   p1 = lrt(het, hom)  (confidence against het), p2 = lrt(hom, het)
+// where clamp sends values below the 80-bit underflow line to -inf and the
+// prior's logs are host glibc scalars.
+//
+// BH over m p-values (stats.cpp:68-80; sid_tpu/ops/stats.py:78-99): with
+// ord the descending order of p (NaN last),
+//   s[0] = p[ord[0]], s[i] = p[ord[i]] * m / (m - i)
+//   run[i] = min(s[0..i]), NaN propagating
+//   out[ord[i]] = run[i] > 1 ? 1 : run[i]
+// min is exact, so the running min is the same bits however it is split
+// into blocks, as long as every combine keeps the earlier operand on the
+// left (the first NaN in the order wins, as np.minimum.accumulate keeps it).
+//
+// Build with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#include "lrt.cuh"
+
+namespace sid {
+
+// the host's constants: LONG_DOUBLE_UNDERFLOW_LOG (or -inf: no clamp), the
+// prior's logs log(1 - pi) and log(pi)
+struct LrtParams {
+  double underflow_log;
+  double log_prior_hom;
+  double log_prior_het;
+  int use_prior;
+};
+
+SID_HD void lrt_pair(double log_l_hom, double log_l_het, const LrtParams& p,
+                     double* p1, double* p2) {
+  double hom = clamp_below(log_l_hom, p.underflow_log);
+  double het = clamp_below(log_l_het, p.underflow_log);
+  if (p.use_prior) {
+    het = clamp_below(add_keep_nan(het, p.log_prior_het), p.underflow_log);
+    hom = clamp_below(add_keep_nan(hom, p.log_prior_hom), p.underflow_log);
+  }
+  *p1 = lrt_pvalue(het, hom);
+  *p2 = lrt_pvalue(hom, het);
+}
+
+// s[i] of the sorted order: the raw p at i = 0 (stats.cpp:74), a NaN as it
+// is, else (p * m) / (m - i) in that order
+SID_HD double bh_scaled(double p, int64_t i, int64_t m) {
+  if (i == 0 || p != p) return p;
+  return p * static_cast<double>(m) / (static_cast<double>(m) - static_cast<double>(i));
+}
+
+// min of an earlier a and a later b: the first NaN wins, ties keep a
+SID_HD double min_first_nan(double a, double b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return b < a ? b : a;
+}
+
+SID_HD double bh_clamp(double r) { return r > 1.0 ? 1.0 : r; }
+
+}  // namespace sid

@@ -18,6 +18,12 @@
 // grid the kernel's resident blocks from the occupancy API (asked once per
 // device on the host), the table read through __ldg.
 //
+// quality_finalize_lrt_kernel is the full form for the exact_pvalues=False
+// flow, in place of sid_tpu's XLA program sid_tpu/models/quality.py:133
+// (finalize_quality): the same het side, then the hom clamp and prior and
+// both LRTs (lrt.cuh) and is_het, 25 B in and 17 B out a site; its two erfc
+// (~100 f64 instructions each) weigh about as much as the bytes.
+//
 // A site whose n + 1 lies past the table gets NaN and adds one to a miss
 // count, zeroed on the stream before the kernel; the wrapper raises on a
 // non-zero count (sid_tpu's host pass returned -1 for the same table).
@@ -51,23 +57,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
+// B6's full form (sid_tpu/models/quality.py:133, finalize_quality): reads
+// the het side's 17 B a site and log_hom (8 B), writes p1, p2 and is_het
+// (17 B); the two erfc are the row's largest work.
+__global__ void __launch_bounds__(kThreads)
+    quality_finalize_lrt_kernel(const uint2* __restrict__ counts,
+                                const uint8_t* __restrict__ alleles,
+                                const double* __restrict__ log_het,
+                                const double* __restrict__ log_hom, int64_t n,
+                                sid::QualityParams p, sid::QualityLrtParams q,
+                                const double* __restrict__ tab, int tab_len,
+                                double* __restrict__ p1, double* __restrict__ p2,
+                                uint8_t* __restrict__ het, unsigned* __restrict__ misses) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    const uint2 c = __ldg(counts + i);
+    bool miss;
+    double a, b;
+    het[i] = sid::quality_lrt_row(c.x, c.y, __ldg(alleles + i), __ldg(log_hom + i),
+                                  __ldg(log_het + i), p, q, tab, tab_len, &miss, &a, &b);
+    p1[i] = a;
+    p2[i] = b;
+    if (miss) atomicAdd(misses, 1u);
+  }
+}
 
-extern "C" {
-
-// The kernel's resident blocks on the whole current device (blocks an SM by
-// the occupancy API x SMs); the caller computes it once per device.
-int sid_quality_finalize_resident_blocks(int* blocks) {
+template <class Kernel>
+int resident_blocks(Kernel kernel, int* blocks) {
   int device = 0;
   int sms = 0;
   int per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quality_finalize_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *blocks = sms * per_sm;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The kernels' resident blocks on the whole current device (blocks an SM by
+// the occupancy API x SMs); the caller computes them once per device.
+int sid_quality_finalize_resident_blocks(int* blocks) {
+  return resident_blocks(quality_finalize_kernel, blocks);
+}
+
+int sid_quality_finalize_lrt_resident_blocks(int* blocks) {
+  return resident_blocks(quality_finalize_lrt_kernel, blocks);
 }
 
 // counts: (n, 4) uint16, 8-byte aligned; alleles: n bytes (major | second
@@ -89,6 +130,32 @@ int sid_quality_finalize_launch(const void* counts, const void* alleles, const v
       static_cast<const uint2*>(counts), static_cast<const uint8_t*>(alleles),
       static_cast<const double*>(log_het), n, p, static_cast<const double*>(tab), tab_len,
       static_cast<double*>(out), static_cast<unsigned*>(misses));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The full form over the same counts, alleles, log_het, params, table and
+// misses as sid_quality_finalize_launch; log_hom: n f64; lrt: log(1 -
+// prior), alpha (2 host doubles); out: 17 n bytes, 8-byte aligned: p1 (n
+// f64), p2 (n f64), then is_het (n bytes); resident:
+// sid_quality_finalize_lrt_resident_blocks's count. Returns a cudaError_t.
+int sid_quality_finalize_lrt_launch(const void* counts, const void* alleles, const void* log_het,
+                                    const void* log_hom, int64_t n, const double* params,
+                                    int use_prior, const double* lrt, const void* tab,
+                                    int tab_len, void* out, void* misses, int resident,
+                                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(misses, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
+  const int64_t needed = (n + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(needed < resident ? needed : resident);
+  const sid::QualityParams p{params[0], params[1], params[2], use_prior};
+  const sid::QualityLrtParams q{lrt[0], lrt[1]};
+  double* p1 = static_cast<double*>(out);
+  quality_finalize_lrt_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const uint2*>(counts), static_cast<const uint8_t*>(alleles),
+      static_cast<const double*>(log_het), static_cast<const double*>(log_hom), n, p, q,
+      static_cast<const double*>(tab), tab_len, p1, p1 + n,
+      reinterpret_cast<uint8_t*>(p1 + 2 * n), static_cast<unsigned*>(misses));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,12 @@
 // models/quality.py::finalize_quality_np, so the bits are theirs. ln2, the
 // underflow line and the prior's log come from the host.
 //
+// quality_lrt_row is the full form (sid_tpu/models/quality.py:133,
+// finalize_quality) for the exact_pvalues=False flow: lpp2 as above, lpp1 =
+// clamp(log_hom) + log(1 - prior) when a prior is set, p1 = lrt(lpp2, lpp1),
+// p2 = lrt(lpp1, lpp2) (lrt.cuh) and is_het = p2 < alpha: the composition of
+// libsidtpu's sidtpu_quality_finalize.
+//
 // Every operation is a separate IEEE f64 operation in that order: build
 // with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
 #pragma once
@@ -51,6 +57,27 @@ SID_HD double quality_het_row(uint32_t lo, uint32_t hi, unsigned alleles, double
   double lpp2 = lt < p.underflow_log ? -INFINITY : lt;
   if (p.use_prior) lpp2 += p.log_prior_het;
   return lpp2;
+}
+
+// the full form's further constants: log(1 - prior) (a host glibc scalar,
+// added when QualityParams::use_prior) and the significance level
+struct QualityLrtParams {
+  double log_prior_hom;
+  double alpha;
+};
+
+// One site of the full form: writes p1 and p2, returns is_het; *miss as in
+// quality_het_row.
+SID_HD bool quality_lrt_row(uint32_t lo, uint32_t hi, unsigned alleles, double log_hom,
+                            double log_het, const QualityParams& p, const QualityLrtParams& q,
+                            const double* tab, int tab_len, bool* miss, double* p1,
+                            double* p2) {
+  const double lpp2 = quality_het_row(lo, hi, alleles, log_het, p, tab, tab_len, miss);
+  double lpp1 = clamp_below(log_hom, p.underflow_log);
+  if (p.use_prior) lpp1 = add_keep_nan(lpp1, q.log_prior_hom);
+  *p1 = lrt_pvalue(lpp2, lpp1);
+  *p2 = lrt_pvalue(lpp1, lpp2);
+  return *p2 < q.alpha;
 }
 
 }  // namespace sid

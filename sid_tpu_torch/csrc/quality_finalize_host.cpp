@@ -31,4 +31,26 @@ uint32_t sid_quality_finalize_rows_host(const uint16_t* counts, const uint8_t* a
   return misses;
 }
 
+// The full form's site loop (quality_finalize_lrt_kernel): as above, plus
+// log_hom (n f64) and lrt: log(1 - prior), alpha; writes p1, p2 (n f64
+// each) and het (n bytes); returns the misses.
+uint32_t sid_quality_finalize_lrt_rows_host(const uint16_t* counts, const uint8_t* alleles,
+                                            const double* log_het, const double* log_hom,
+                                            int64_t n, const double* params, int use_prior,
+                                            const double* lrt, const double* tab, int tab_len,
+                                            double* p1, double* p2, uint8_t* het) {
+  const sid::QualityParams p{params[0], params[1], params[2], use_prior};
+  const sid::QualityLrtParams q{lrt[0], lrt[1]};
+  uint32_t misses = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t word[2];
+    memcpy(word, counts + 4 * i, sizeof(word));
+    bool miss;
+    het[i] = sid::quality_lrt_row(word[0], word[1], alleles[i], log_hom[i], log_het[i], p, q, tab,
+                                  tab_len, &miss, p1 + i, p2 + i);
+    misses += miss;
+  }
+  return misses;
+}
+
 }  // extern "C"

@@ -55,11 +55,6 @@ def check_ported(options: Options) -> None:
         (options.multihost, "--multihost"),
         (options.per_shard_fit, "--per-shard-fit"),
         (options.mesh_devices is not None, "--devices"),
-        (
-            options.engine == "device" and not options.exact_pvalues
-            and options.method in ("local", "likelihood_ratio", "quality"),
-            "the fused on-device LRT (exact_pvalues=False)",
-        ),
     )
     for flag, name in unported:
         if flag:

@@ -13,7 +13,10 @@ call.cpp:223-234), fitted before the classification.
 Placement: the device takes the counts and returns, per profile, the top-2
 alleles, (l1, l2) and the range screen's flag (``ops.local_classify``: the
 CUDA kernel on a CUDA device, the torch f64 twin on the CPU), and the host
-adds the prior and runs the LRT through glibc libm.
+adds the prior and runs the LRT through glibc libm. With
+``exact_pvalues=False`` (sid_tpu's fused on-device LRT, ``classify_local``)
+the device also adds the prior and runs both LRTs and is_het (B5, the same
+source's second kernel), and returns (p1, p2) and the byte instead.
 ``classify_profiles_local_ld`` is the same classification in long double
 on the host (libsidtpu), an independent path with no device stage, against
 which the device path is held.
@@ -40,7 +43,6 @@ from sid_tpu_torch.native import bridge
 from sid_tpu_torch.ops import local_classify, stats
 from sid_tpu_torch.ops.profiles import unique_profiles
 from sid_tpu_torch.utils import profiling
-from sid_tpu_torch.utils.errors import NotPortedError
 
 
 def long_double_range_rows(cov: np.ndarray, error_threshold: float, snp_prior: float) -> np.ndarray:
@@ -65,25 +67,29 @@ def long_double_range_rows(cov: np.ndarray, error_threshold: float, snp_prior: f
 
 def classify_profiles_local(profiles: np.ndarray, options: Options, snp_prior: float):
     """Per-class local classification on the options' device; returns the
-    5 host arrays (is_het, major, second, p1, p2) over U. The alleles, (l1,
-    l2) and the range screen's rows all come from the classify kernel's
-    outputs (``ops.local_classify``); the prior and the LRT run on the host."""
-    if not options.exact_pvalues:
-        raise NotPortedError("the fused on-device LRT (exact_pvalues=False)")
+    5 host arrays (is_het, major, second, p1, p2) over U. The alleles and
+    the range screen's rows come from the classify kernel's byte; (l1, l2)
+    too, and the host adds the prior and runs the LRT through glibc libm,
+    or, with ``exact_pvalues=False``, B5 returns (p1, p2) and is_het from
+    the device. The screen's rows are classified in long double either way."""
     device = options.device()
-    with profiling.device_stage("local_log_likelihoods", device):
-        l1, l2, packed = local_classify.classify_profiles(
-            profiles, options.site_error_threshold, snp_prior, device
-        )
+    thr, alpha = options.site_error_threshold, options.significance_level
+    if options.exact_pvalues:
+        with profiling.device_stage("local_log_likelihoods", device):
+            l1, l2, packed = local_classify.classify_profiles(profiles, thr, snp_prior, device)
+        if snp_prior > 0:
+            # glibc log, matching the oracle's prior arithmetic
+            l1 = l1 + np.log(np.float64(1.0 - snp_prior))
+            l2 = l2 + np.log(np.float64(snp_prior))
+        p1 = stats.lrt_pvalue_from_logs_np(l2, l1)
+        p2 = stats.lrt_pvalue_from_logs_np(l1, l2)
+        with np.errstate(invalid="ignore"):
+            is_het = (l2 > l1) & (p2 < alpha)
+    else:
+        with profiling.device_stage("classify_local", device):
+            p1, p2, packed = local_classify.classify_profiles(profiles, thr, snp_prior, device, alpha)
+        is_het = local_classify.het_flags(packed)
     major, second, ld_rows = local_classify.unpack(packed)
-    if snp_prior > 0:
-        # glibc log, matching the oracle's prior arithmetic
-        l1 = l1 + np.log(np.float64(1.0 - snp_prior))
-        l2 = l2 + np.log(np.float64(snp_prior))
-    p1 = stats.lrt_pvalue_from_logs_np(l2, l1)
-    p2 = stats.lrt_pvalue_from_logs_np(l1, l2)
-    with np.errstate(invalid="ignore"):
-        is_het = (l2 > l1) & (p2 < options.significance_level)
     rows = np.flatnonzero(ld_rows)
     if rows.size:
         is_het[rows], p1[rows], p2[rows] = _classify_ld(

@@ -17,8 +17,10 @@ CUDA kernel on a CUDA device, the torch f64 version on the CPU); the host
 clamps the hom side, adds its prior and runs both LRTs through glibc libm
 (libsidtpu's ``sidtpu_lrt_pvalues``). ``call_quality_host`` is the
 independent host path the device path is held against: libsidtpu's fused
-``sidtpu_quality_finalize``, bitwise the same composition. sid_tpu's fused
-on-device LRT (``finalize_quality``, ``exact_pvalues=False``) is not ported.
+``sidtpu_quality_finalize``, bitwise the same composition. With
+``exact_pvalues=False`` (sid_tpu's fused on-device LRT, ``finalize_quality``)
+the device runs the whole finalize (``quality_finalize.finalize_lrt``: the
+same kernel source's full form, with both LRTs through the device erfc).
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from sid_tpu_torch.ops import quality_finalize, stats
 from sid_tpu_torch.ops.lgamma import lgamma_int_table, table_size
 from sid_tpu_torch.ops.profiles import coverage_of, unique_profiles
 from sid_tpu_torch.utils import profiling
-from sid_tpu_torch.utils.errors import NotPortedError
 
 __all__ = [
     "quality_term_tables", "accumulate_read_terms", "finalize_quality_np",
@@ -143,9 +144,15 @@ def _result(batch, major, second, is_het, p1, p2) -> common.CallResult:
 def call_quality(batch, options: Options, diag=None) -> common.CallResult:
     """End-to-end ``quality`` call on a parsed batch (device path); ``diag``
     gets -R's fit diagnostics."""
-    if not options.exact_pvalues:
-        raise NotPortedError("the fused on-device LRT (exact_pvalues=False)")
     snp_prior, major, second, log_hom, log_het = _terms(batch, options, diag)
+    if not options.exact_pvalues:
+        device = options.device()
+        with profiling.device_stage("finalize_quality", device):
+            is_het, p1, p2 = quality_finalize.finalize_lrt(
+                batch.counts, major, second, log_hom, log_het, snp_prior,
+                options.significance_level, device,
+            )
+        return _result(batch, major, second, is_het, p1, p2)
     lpp1, lpp2 = finalize_logs(
         batch.counts, major, second, log_hom, log_het, snp_prior, options.device()
     )

@@ -38,9 +38,10 @@ HOST_LIB = os.path.join(BUILD_DIR, "libsidtpu.so")
 
 # kernel name -> the headers its source (csrc/<name>.cu) includes
 KERNELS = {
-    "local_classify": ["local_classify.cuh"],
-    "lynch": ["lynch.cuh", "local_classify.cuh"],
-    "quality_finalize": ["quality_finalize.cuh", "local_classify.cuh"],
+    "local_classify": ["local_classify.cuh", "lrt.cuh"],
+    "lynch": ["lynch.cuh", "local_classify.cuh", "lrt.cuh"],
+    "quality_finalize": ["quality_finalize.cuh", "local_classify.cuh", "lrt.cuh"],
+    "lrt_bh": ["lrt_bh.cuh", "lrt.cuh"],
 }
 
 

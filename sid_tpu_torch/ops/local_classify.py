@@ -20,8 +20,16 @@ one copy into pinned memory, with one stream sync. The pinned buffers come
 from torch's caching host allocator, which hands the same memory back on
 the next call of the same size.
 
-``LAUNCHES`` counts kernel launches (not plain-version calls), so a run can
-show that it went through the kernel.
+``local_classify_lrt`` is the fused on-device LRT's classify (B5, sid_tpu's
+XLA program ``models/local.py::classify_local``, for ``exact_pvalues=False``):
+the same row, then the prior, both LRT p-values and is_het. It returns
+``(p1, p2, packed)`` with is_het in bit 5 of the byte; on a card it launches
+``local_classify_lrt_kernel`` of the same source, on the CPU it runs
+``local_classify_lrt_ref``. ``classify_profiles(..., alpha=...)`` is its
+device stage, with the same copies.
+
+``LAUNCHES`` and ``LRT_LAUNCHES`` count launches of the two kernels (not
+plain-version calls), so a run can show that it went through them.
 """
 
 from __future__ import annotations
@@ -35,22 +43,24 @@ import torch
 
 from sid_tpu_torch.models import common
 from sid_tpu_torch.native import build
-from sid_tpu_torch.ops import likelihoods
+from sid_tpu_torch.ops import likelihoods, stats
 from sid_tpu_torch.ops.lgamma import lgamma_table
 
 LAUNCHES = 0
+LRT_LAUNCHES = 0
 
 # counts travel as uint16
 MAX_COUNT = 65535
 # l1 and l2 (f64) and the byte
 BYTES_PER_ROW = 17
 FLAG_BIT = 16
+HET_BIT = 32
 
 _COUNT_DTYPES = (torch.uint16, torch.int16)  # int16: the uint16 bits
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
-_resident: Dict[int, int] = {}  # device index -> the kernel's resident blocks
+_resident: Dict[Tuple[int, bool], int] = {}  # (device index, B5) -> the kernel's resident blocks
 
 
 def local_log_likelihoods_ref(
@@ -113,6 +123,33 @@ def local_classify_ref(
     return l1, l2, packed.to(torch.uint8)
 
 
+def lrt_constants(snp_prior: float, alpha: float):
+    """(log(1 - prior), log(prior), alpha, use_prior): the host glibc logs
+    ``models/local.py`` adds, a prior being set when it is > 0."""
+    use_prior = snp_prior > 0
+    lp_hom, lp_het = stats.prior_logs(snp_prior) if use_prior else (0.0, 0.0)
+    return lp_hom, lp_het, float(alpha), use_prior
+
+
+def local_classify_lrt_ref(
+    counts: torch.Tensor, error_threshold: float, snp_prior: float, alpha: float,
+    lgamma_tab: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch f64 version of B5: ``local_classify_ref``'s row, then
+    l1 += log(1 - prior) and l2 += log(prior) with a prior, p1 = lrt(l2, l1),
+    p2 = lrt(l1, l2) (``stats.lrt_pvalues_ref``), is_het = l2 > l1 and
+    p2 < alpha in bit 5: (p1, p2, packed). Runs on any device."""
+    l1, l2, packed = local_classify_ref(counts, error_threshold, snp_prior, lgamma_tab)
+    lp_hom, lp_het, alpha, use_prior = lrt_constants(snp_prior, alpha)
+    if use_prior:
+        l1 = stats.add_keep_nan(l1, lp_hom)
+        l2 = stats.add_keep_nan(l2, lp_het)
+    p1 = stats.lrt_pvalues_ref(l2, l1)
+    p2 = stats.lrt_pvalues_ref(l1, l2)
+    het = (l2 > l1) & (p2 < alpha)
+    return p1, p2, packed | (het.to(torch.uint8) * HET_BIT)
+
+
 def unpack(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(major int32, second int32, range flag bool) of the packed bytes."""
     return (
@@ -120,6 +157,11 @@ def unpack(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         ((packed >> 2) & 3).astype(np.int32),
         (packed & FLAG_BIT).astype(bool),
     )
+
+
+def het_flags(packed: np.ndarray) -> np.ndarray:
+    """B5's is_het (bit 5) of the packed bytes."""
+    return (packed & HET_BIT).astype(bool)
 
 
 def narrow_counts(profiles: np.ndarray, out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, int]:
@@ -168,8 +210,11 @@ def _kernel_lib() -> ctypes.CDLL:
             p, i32 = ctypes.c_void_p, ctypes.c_int
             lib.sid_local_classify_launch.restype = i32
             lib.sid_local_classify_launch.argtypes = [p, ctypes.c_int64, p, i32, p, i32, p, i32, p]
-            lib.sid_local_classify_resident_blocks.restype = i32
-            lib.sid_local_classify_resident_blocks.argtypes = [p]
+            lib.sid_local_classify_lrt_launch.restype = i32
+            lib.sid_local_classify_lrt_launch.argtypes = [p, ctypes.c_int64, p, i32, p, i32, p, i32, p, i32, p]
+            for query in (lib.sid_local_classify_resident_blocks, lib.sid_local_classify_lrt_resident_blocks):
+                query.restype = i32
+                query.argtypes = [p]
             lib.sid_cuda_error_string.restype = ctypes.c_char_p
             lib.sid_cuda_error_string.argtypes = [i32]
             _lib = lib
@@ -182,23 +227,25 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"local classify {what} failed: {msg} ({err})")
 
 
-def resident_blocks(device: torch.device) -> int:
-    """The kernel's resident blocks on the whole card (occupancy x SMs),
-    asked of the device once and kept."""
+def resident_blocks(device: torch.device, lrt: bool = False) -> int:
+    """The kernel's (B5's with ``lrt``) resident blocks on the whole card
+    (occupancy x SMs), asked of the device once and kept."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    blocks = _resident.get(index)
+    blocks = _resident.get((index, lrt))
     if blocks is None:
         lib = _kernel_lib()
+        query = lib.sid_local_classify_lrt_resident_blocks if lrt else lib.sid_local_classify_resident_blocks
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            _raise_on(lib, lib.sid_local_classify_resident_blocks(ctypes.byref(out)), "occupancy query")
-        blocks = _resident[index] = out.value
+            _raise_on(lib, query(ctypes.byref(out)), "occupancy query")
+        blocks = _resident[(index, lrt)] = out.value
     return blocks
 
 
-def _launch(counts, error_threshold, snp_prior, lgamma_tab, buf) -> None:
-    """Enqueue the kernel over ``counts`` (checked, on a card) into ``buf``."""
-    global LAUNCHES
+def _launch(counts, error_threshold, snp_prior, lgamma_tab, buf, alpha=None) -> None:
+    """Enqueue the kernel over ``counts`` (checked, on a card) into ``buf``:
+    B1, or B5 when ``alpha`` is given."""
+    global LAUNCHES, LRT_LAUNCHES
     device = counts.device
     if counts.data_ptr() % 8:
         raise ValueError("counts must be 8-byte aligned (one 8-byte load per row)")
@@ -212,14 +259,26 @@ def _launch(counts, error_threshold, snp_prior, lgamma_tab, buf) -> None:
     params = (ctypes.c_double * 6)(
         float(error_threshold), common.LN4, k, prior, common.LD_LOG_MAX, -common.LD_LOG_MIN
     )
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = lib.sid_local_classify_launch(
-            counts.data_ptr(), u, params, int(every), lgamma_tab.data_ptr(),
-            lgamma_tab.shape[0], buf.data_ptr(), resident_blocks(device),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        if alpha is None:
+            err = lib.sid_local_classify_launch(
+                counts.data_ptr(), u, params, int(every), lgamma_tab.data_ptr(),
+                lgamma_tab.shape[0], buf.data_ptr(), resident_blocks(device), stream,
+            )
+        else:
+            lp_hom, lp_het, alpha, use_prior = lrt_constants(snp_prior, alpha)
+            lrt = (ctypes.c_double * 3)(lp_hom, lp_het, alpha)
+            err = lib.sid_local_classify_lrt_launch(
+                counts.data_ptr(), u, params, int(every), lrt, int(use_prior),
+                lgamma_tab.data_ptr(), lgamma_tab.shape[0], buf.data_ptr(),
+                resident_blocks(device, True), stream,
+            )
     _raise_on(lib, err, "kernel launch")
-    LAUNCHES += 1
+    if alpha is None:
+        LAUNCHES += 1
+    else:
+        LRT_LAUNCHES += 1
 
 
 def local_classify(
@@ -248,23 +307,48 @@ def local_classify(
     return split(buf, counts.shape[0])
 
 
+def local_classify_lrt(
+    counts: torch.Tensor,
+    error_threshold: float,
+    snp_prior: float,
+    alpha: float,
+    lgamma_tab: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(p1, p2, packed) over the profiles (B5): the CUDA kernel on a CUDA
+    device, ``local_classify_lrt_ref`` on the CPU; arguments and results as
+    ``local_classify``'s, with is_het in bit 5 of the byte."""
+    _check(counts, lgamma_tab)
+    device = counts.device
+    if device.type == "cpu":
+        return local_classify_lrt_ref(counts, error_threshold, snp_prior, alpha, lgamma_tab)
+    if device.type != "cuda":
+        raise ValueError(f"no local classify kernel for device {device}")
+    buf = torch.empty(BYTES_PER_ROW * counts.shape[0], dtype=torch.uint8, device=device)
+    _launch(counts, error_threshold, snp_prior, lgamma_tab, buf, alpha)
+    return split(buf, counts.shape[0])
+
+
 def classify_profiles(
-    profiles: np.ndarray, error_threshold: float, snp_prior: float, device
+    profiles: np.ndarray, error_threshold: float, snp_prior: float, device,
+    alpha: Optional[float] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The device stage: (l1, l2, packed) host arrays of (U, 4) host counts
     in 0..65535 (raises otherwise) on ``device``, the table sized from the
-    largest count. On a card: uint16 counts into pinned memory, one async
-    copy in, the kernel, one copy of the 17 bytes a row into pinned memory,
-    one stream sync. On the CPU the same narrowing, then the plain version.
+    largest count; with ``alpha``, B5's (p1, p2, packed). On a card: uint16
+    counts into pinned memory, one async copy in, the kernel, one copy of
+    the 17 bytes a row into pinned memory, one stream sync. On the CPU the
+    same narrowing, then the plain version.
     """
     device = torch.device(device)
     u = np.shape(profiles)[0]
     if device.type != "cuda":
         counts, hi = narrow_counts(profiles)
-        l1, l2, packed = local_classify(
-            torch.from_numpy(counts), error_threshold, snp_prior, lgamma_table(4 * hi, device)
-        )
-        return l1.numpy(), l2.numpy(), packed.numpy()
+        tab = lgamma_table(4 * hi, device)
+        if alpha is None:
+            out = local_classify(torch.from_numpy(counts), error_threshold, snp_prior, tab)
+        else:
+            out = local_classify_lrt(torch.from_numpy(counts), error_threshold, snp_prior, alpha, tab)
+        return tuple(t.numpy() for t in out)
     host_in = torch.empty((u, 4), dtype=torch.int16, pin_memory=True)
     _, hi = narrow_counts(profiles, host_in.numpy().view(np.uint16))
     with torch.cuda.device(device):
@@ -273,7 +357,7 @@ def classify_profiles(
         counts = torch.empty((u, 4), dtype=torch.int16, device=device)
         counts.copy_(host_in, non_blocking=True)
         buf = torch.empty(BYTES_PER_ROW * u, dtype=torch.uint8, device=device)
-        _launch(counts, error_threshold, snp_prior, tab, buf)
+        _launch(counts, error_threshold, snp_prior, tab, buf, alpha)
         host_out = torch.empty(BYTES_PER_ROW * u, dtype=torch.uint8, pin_memory=True)
         host_out.copy_(buf, non_blocking=True)
         stream.synchronize()

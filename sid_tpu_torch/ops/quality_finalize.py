@@ -19,8 +19,16 @@ het sums and alleles go into one pinned buffer and one async copy, the
 kernel runs, lpp2 and the miss count come back in one copy into pinned
 memory, with one stream sync.
 
-``LAUNCHES`` counts kernel launches (not plain-version calls), so a run can
-show that it went through the kernel.
+``quality_finalize_lrt`` is the full form for ``exact_pvalues=False``
+(sid_tpu's XLA program ``models/quality.py::finalize_quality``): the same
+het side, then the hom clamp and prior, both LRT p-values and is_het =
+p2 < alpha. It returns (p1, p2, is_het uint8); on a card it launches
+``quality_finalize_lrt_kernel`` of the same source, on the CPU it runs
+``quality_finalize_lrt_ref``. ``finalize_lrt`` is its device stage: 25 B a
+site in one copy, 17 B a site and the miss count back in one copy.
+
+``LAUNCHES`` and ``LRT_LAUNCHES`` count launches of the two kernels (not
+plain-version calls), so a run can show that it went through them.
 """
 
 from __future__ import annotations
@@ -28,16 +36,18 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sid_tpu_torch.models.common import LONG_DOUBLE_UNDERFLOW_LOG
 from sid_tpu_torch.native import build
+from sid_tpu_torch.ops import stats
 from sid_tpu_torch.ops.lgamma import lgamma_table
 
 LAUNCHES = 0
+LRT_LAUNCHES = 0
 
 # the largest n = c[major] + c[second] of uint16 counts: one table of
 # lgamma_table(MAX_TOP2) covers every site, so the stage sizes no table from
@@ -48,12 +58,15 @@ MAX_TOP2 = 2 * 65535
 # counts (8 B), het sum (8 B) and the allele byte in; lpp2 (8 B) out
 BYTES_IN_PER_SITE = 17
 BYTES_PER_SITE = 25
+# the full form: log_hom too in (25 B); p1, p2 and is_het out (17 B)
+LRT_BYTES_IN_PER_SITE = 25
+LRT_BYTES_OUT_PER_SITE = 17
 
 _COUNT_DTYPES = (torch.uint16, torch.int16)  # int16: the uint16 bits
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
-_resident: Dict[int, int] = {}  # device index -> the kernel's resident blocks
+_resident: Dict[Tuple[int, bool], int] = {}  # (device index, full form) -> resident blocks
 
 
 def host_constants(snp_prior: float):
@@ -61,6 +74,11 @@ def host_constants(snp_prior: float):
     arguments sid_tpu's finalize_quality_np takes, and its clamp line."""
     log_prior = float(np.log(np.float64(snp_prior))) if snp_prior > 0 else None
     return float(np.log(2.0)), LONG_DOUBLE_UNDERFLOW_LOG, log_prior
+
+
+def log_prior_hom(snp_prior: float) -> float:
+    """log(1 - prior) as the host pass adds it (0.0 without a prior)."""
+    return float(np.log(np.float64(1.0 - snp_prior))) if snp_prior > 0 else 0.0
 
 
 def pack_alleles(major: np.ndarray, second: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
@@ -101,6 +119,29 @@ def quality_finalize_ref(
     return lpp2
 
 
+def quality_finalize_lrt_ref(
+    counts: torch.Tensor,
+    alleles: torch.Tensor,
+    log_het: torch.Tensor,
+    log_hom: torch.Tensor,
+    lgamma_tab: torch.Tensor,
+    snp_prior: float,
+    alpha: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch f64 version of the full form (any device): lpp2 of
+    ``quality_finalize_ref``, lpp1 = clamp(log_hom) + log(1 - prior) with a
+    prior, p1 = lrt(lpp2, lpp1), p2 = lrt(lpp1, lpp2)
+    (``stats.lrt_pvalues_ref``), is_het = p2 < alpha: (p1, p2, is_het
+    uint8)."""
+    lpp2 = quality_finalize_ref(counts, alleles, log_het, lgamma_tab, snp_prior)
+    lpp1 = torch.where(log_hom < LONG_DOUBLE_UNDERFLOW_LOG, -math.inf, log_hom)
+    if snp_prior > 0:
+        lpp1 = stats.add_keep_nan(lpp1, log_prior_hom(snp_prior))
+    p1 = stats.lrt_pvalues_ref(lpp2, lpp1)
+    p2 = stats.lrt_pvalues_ref(lpp1, lpp2)
+    return p1, p2, (p2 < alpha).to(torch.uint8)
+
+
 def _check(counts, alleles, log_het, lgamma_tab) -> None:
     if counts.dim() != 2 or counts.shape[1] != 4:
         raise ValueError(f"counts must be (N, 4), got {tuple(counts.shape)}")
@@ -132,8 +173,14 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.sid_quality_finalize_launch.argtypes = [
                 p, p, p, ctypes.c_int64, p, i32, p, i32, p, p, i32, p,
             ]
-            lib.sid_quality_finalize_resident_blocks.restype = i32
-            lib.sid_quality_finalize_resident_blocks.argtypes = [p]
+            lib.sid_quality_finalize_lrt_launch.restype = i32
+            lib.sid_quality_finalize_lrt_launch.argtypes = [
+                p, p, p, p, ctypes.c_int64, p, i32, p, p, i32, p, p, i32, p,
+            ]
+            for query in (lib.sid_quality_finalize_resident_blocks,
+                          lib.sid_quality_finalize_lrt_resident_blocks):
+                query.restype = i32
+                query.argtypes = [p]
             lib.sid_cuda_error_string.restype = ctypes.c_char_p
             lib.sid_cuda_error_string.argtypes = [i32]
             _lib = lib
@@ -146,17 +193,19 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"quality finalize {what} failed: {msg} ({err})")
 
 
-def resident_blocks(device: torch.device) -> int:
-    """The kernel's resident blocks on the whole card (occupancy x SMs),
-    asked of the device once and kept."""
+def resident_blocks(device: torch.device, lrt: bool = False) -> int:
+    """The kernel's (the full form's with ``lrt``) resident blocks on the
+    whole card (occupancy x SMs), asked of the device once and kept."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    blocks = _resident.get(index)
+    blocks = _resident.get((index, lrt))
     if blocks is None:
         lib = _kernel_lib()
+        query = (lib.sid_quality_finalize_lrt_resident_blocks if lrt
+                 else lib.sid_quality_finalize_resident_blocks)
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            _raise_on(lib, lib.sid_quality_finalize_resident_blocks(ctypes.byref(out)), "occupancy query")
-        blocks = _resident[index] = out.value
+            _raise_on(lib, query(ctypes.byref(out)), "occupancy query")
+        blocks = _resident[(index, lrt)] = out.value
     return blocks
 
 
@@ -181,6 +230,31 @@ def launch(counts, alleles, log_het, lgamma_tab, snp_prior, out, misses) -> None
         )
     _raise_on(lib, err, "kernel launch")
     LAUNCHES += 1
+
+
+def launch_lrt(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha, out, misses) -> None:
+    """Enqueue the full form (checked tensors on a card) into ``out`` (17 N
+    bytes: p1, p2, is_het) and ``misses`` (one int32, zeroed on the stream
+    first); no sync."""
+    global LRT_LAUNCHES
+    device = counts.device
+    if counts.data_ptr() % 8:
+        raise ValueError("counts must be 8-byte aligned (one 8-byte load per site)")
+    if lgamma_tab.shape[0] >= 2**31:
+        raise ValueError("lgamma_tab is too long for an int index")
+    lib = _kernel_lib()
+    ln2, underflow, log_prior = host_constants(snp_prior)
+    params = (ctypes.c_double * 3)(ln2, underflow, 0.0 if log_prior is None else log_prior)
+    lrt = (ctypes.c_double * 2)(log_prior_hom(snp_prior), float(alpha))
+    with torch.cuda.device(device):
+        err = lib.sid_quality_finalize_lrt_launch(
+            counts.data_ptr(), alleles.data_ptr(), log_het.data_ptr(), log_hom.data_ptr(),
+            counts.shape[0], params, int(log_prior is not None), lrt, lgamma_tab.data_ptr(),
+            lgamma_tab.shape[0], out.data_ptr(), misses.data_ptr(), resident_blocks(device, True),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, err, "kernel launch")
+    LRT_LAUNCHES += 1
 
 
 def _raise_on_misses(misses: int, tab_len: int) -> None:
@@ -265,3 +339,90 @@ def finalize_het(
     out = host_out.numpy()
     _raise_on_misses(int(out[8 * n : 8 * n + 4].view(np.int32)[0]), tab.shape[0])
     return out[: 8 * n].view(np.float64)
+
+
+def quality_finalize_lrt(
+    counts: torch.Tensor,
+    alleles: torch.Tensor,
+    log_het: torch.Tensor,
+    log_hom: torch.Tensor,
+    lgamma_tab: torch.Tensor,
+    snp_prior: float,
+    alpha: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(p1, p2, is_het uint8) over the sites: the full form's CUDA kernel on
+    a CUDA device (launch, then a sync to read the miss count), the plain
+    version on the CPU; arguments as ``quality_finalize``'s, plus log_hom
+    (N,) f64 on the same device."""
+    _check(counts, alleles, log_het, lgamma_tab)
+    stats.check_f64(log_het, log_hom=log_hom)
+    device = counts.device
+    if device.type == "cpu":
+        return quality_finalize_lrt_ref(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha)
+    if device.type != "cuda":
+        raise ValueError(f"no quality finalize kernel for device {device}")
+    n = counts.shape[0]
+    out = torch.empty(LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=device)
+    misses = torch.empty(1, dtype=torch.int32, device=device)
+    launch_lrt(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha, out, misses)
+    _raise_on_misses(int(misses.item()), lgamma_tab.shape[0])
+    return out[: 8 * n].view(torch.float64), out[8 * n : 16 * n].view(torch.float64), out[16 * n :]
+
+
+def finalize_lrt(
+    counts: np.ndarray,
+    major: np.ndarray,
+    second: np.ndarray,
+    log_hom: np.ndarray,
+    log_het: np.ndarray,
+    snp_prior: float,
+    alpha: float,
+    device,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The full form's device stage: (is_het, p1, p2) host arrays from
+    (N, 4) uint16 host counts, the alleles and both per-read sums, on
+    ``device``, with the table of ``MAX_TOP2``. On a card: one pinned buffer
+    of 25 B a site, one async copy in, the kernel, one copy of the 17 B a
+    site and the miss count into pinned memory, one stream sync. On the CPU
+    the plain version."""
+    device = torch.device(device)
+    n = int(np.shape(counts)[0])
+    if n == 0:
+        return np.zeros(0, bool), np.zeros(0, np.float64), np.zeros(0, np.float64)
+    counts = np.asarray(counts)
+    if counts.dtype != np.uint16:
+        raise TypeError(f"counts must be uint16, got {counts.dtype}")
+    if device.type != "cuda":
+        p1, p2, het = quality_finalize_lrt(
+            torch.from_numpy(np.ascontiguousarray(counts)),
+            torch.from_numpy(pack_alleles(major, second)),
+            torch.from_numpy(np.ascontiguousarray(log_het, np.float64)),
+            torch.from_numpy(np.ascontiguousarray(log_hom, np.float64)),
+            lgamma_table(MAX_TOP2, device), snp_prior, alpha,
+        )
+        return het.numpy().astype(bool), p1.numpy(), p2.numpy()
+    host_in = torch.empty(LRT_BYTES_IN_PER_SITE * n, dtype=torch.uint8, pin_memory=True)
+    view = host_in.numpy()
+    np.copyto(view[: 8 * n].view(np.uint16).reshape(n, 4), counts)
+    np.copyto(view[8 * n : 16 * n].view(np.float64), log_het)
+    np.copyto(view[16 * n : 24 * n].view(np.float64), log_hom)
+    pack_alleles(major, second, out=view[24 * n :])
+    out_len = LRT_BYTES_OUT_PER_SITE * n
+    at = -(-out_len // 8) * 8  # the miss count, 8-byte aligned after the results
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        tab = lgamma_table(MAX_TOP2, device)
+        dev_in = torch.empty(LRT_BYTES_IN_PER_SITE * n, dtype=torch.uint8, device=device)
+        dev_in.copy_(host_in, non_blocking=True)
+        dev_out = torch.empty(at + 8, dtype=torch.uint8, device=device)
+        launch_lrt(
+            dev_in[: 8 * n].view(torch.int16).view(n, 4), dev_in[24 * n :],
+            dev_in[8 * n : 16 * n].view(torch.float64), dev_in[16 * n : 24 * n].view(torch.float64),
+            tab, snp_prior, alpha, dev_out[:out_len], dev_out[at : at + 4].view(torch.int32),
+        )
+        host_out = torch.empty(at + 8, dtype=torch.uint8, pin_memory=True)
+        host_out.copy_(dev_out, non_blocking=True)
+        stream.synchronize()
+    out = host_out.numpy()
+    _raise_on_misses(int(out[at : at + 4].view(np.int32)[0]), tab.shape[0])
+    return out[16 * n : out_len].astype(bool), out[: 8 * n].view(np.float64), out[8 * n : 16 * n].view(np.float64)

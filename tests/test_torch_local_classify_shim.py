@@ -30,7 +30,7 @@ from sid_tpu_torch.models.common import (  # noqa: E402
     major_allele_indices_np,
 )
 from sid_tpu_torch.models import local  # noqa: E402
-from sid_tpu_torch.ops import local_classify  # noqa: E402
+from sid_tpu_torch.ops import local_classify, stats  # noqa: E402
 from sid_tpu_torch.ops.lgamma import lgamma_table  # noqa: E402
 from test_torch_local_classify import (  # noqa: E402
     SCREEN_PRIORS,
@@ -42,6 +42,13 @@ from test_torch_local_classify import (  # noqa: E402
     deep_screen_profiles,
     tie_profiles,
 )
+from test_torch_lrt import assert_pvalues_close  # noqa: E402
+
+# the plain version's logs are torch's and the shim's glibc's (1e-12 on l1,
+# l2, measured below 2.4e-13), and erfc's slope turns a log's last bits into
+# up to ~1e-11 of a small p-value: the B5 p-values of the two are held to
+# the likelihoods' tolerance, not the erfc's
+RTOL_LIKELIHOOD = 1e-10
 
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sid_tpu_torch", "csrc"
@@ -69,6 +76,10 @@ def shim(tmp_path_factory):
     lib.sid_local_classify_rows_host.restype = None
     lib.sid_local_classify_rows_host.argtypes = [
         p, ctypes.c_int64, p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p,
+    ]
+    lib.sid_local_classify_lrt_rows_host.restype = None
+    lib.sid_local_classify_lrt_rows_host.argtypes = [
+        p, ctypes.c_int64, p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p,
     ]
     lib.sid_long_double_underflow_log.restype = ctypes.c_double
     lib.sid_long_double_underflow_log.argtypes = []
@@ -100,6 +111,24 @@ def run_rows(lib, counts, thr, prior, tab, head_len=TAB_HEAD):
     lib.sid_local_classify_rows_host(
         counts.ctypes.data, u, params.ctypes.data, int(every), tab.ctypes.data,
         tab.shape[0], head.ctypes.data, head_len, out.ctypes.data,
+    )
+    return out[: 8 * u].view(np.float64), out[8 * u : 16 * u].view(np.float64), out[16 * u :]
+
+
+def run_lrt_rows(lib, counts, thr, prior, alpha, tab, head_len=TAB_HEAD):
+    """B5's row loop on the host (local_classify_lrt_kernel): (p1, p2, packed)."""
+    counts = np.ascontiguousarray(counts, np.uint16)
+    u = counts.shape[0]
+    head_len = min(head_len, tab.shape[0])
+    head = np.append(tab[:head_len], np.nan)
+    every, k, pr = common.long_double_screen(thr, prior)
+    params = np.array([thr, common.LN4, k, pr, common.LD_LOG_MAX, -common.LD_LOG_MIN], np.float64)
+    lp_hom, lp_het, alpha, use_prior = local_classify.lrt_constants(prior, alpha)
+    lrt = np.array([lp_hom, lp_het, alpha], np.float64)
+    out = np.empty(17 * u, np.uint8)
+    lib.sid_local_classify_lrt_rows_host(
+        counts.ctypes.data, u, params.ctypes.data, int(every), lrt.ctypes.data, int(use_prior),
+        tab.ctypes.data, tab.shape[0], head.ctypes.data, head_len, out.ctypes.data,
     )
     return out[: 8 * u].view(np.float64), out[8 * u : 16 * u].view(np.float64), out[16 * u :]
 
@@ -193,3 +222,43 @@ def test_shim_rows_flags_match_long_double_range_rows(shim, thr, prior):
     assert np.array_equal(flags, want)
     want_major, want_second = major_allele_indices_np(counts.astype(np.int32))
     assert np.array_equal(major, want_major) and np.array_equal(second, want_second)
+
+
+LRT_PRIORS = [-1.0, 0.0, 1e-3, 0.999]
+
+
+@pytest.mark.parametrize("prior", LRT_PRIORS)
+@pytest.mark.parametrize("thr", [0.1, 1.0])
+@pytest.mark.parametrize("make", [adversarial_profiles, bulk_profiles, tie_profiles])
+def test_lrt_rows_are_bitwise_b1_rows_and_the_host_lrt(shim, make, thr, prior):
+    """B5's row is B1's row then the host path's tail: its byte's bits 0-4
+    are B1's; with glibc's log and erfc both ways, p1 and p2 are bitwise the
+    host libm LRT over B1's (l1, l2) plus the glibc prior, and is_het
+    (bit 5) is l2 > l1 and p2 < alpha."""
+    counts = np.ascontiguousarray(make(), np.uint16)
+    tab = lgamma_table(int(counts.astype(np.int64).sum(-1).max()), "cpu").numpy()
+    l1, l2, b1 = run_rows(shim, counts, thr, prior, tab)
+    p1, p2, b5 = run_lrt_rows(shim, counts, thr, prior, 0.05, tab)
+    assert np.array_equal(b5 & 31, b1)
+    if prior > 0:
+        l1 = l1 + np.log(np.float64(1.0 - prior))
+        l2 = l2 + np.log(np.float64(prior))
+    want1 = stats.lrt_pvalue_from_logs_np(l2, l1)
+    want2 = stats.lrt_pvalue_from_logs_np(l1, l2)
+    assert np.array_equal(p1.view(np.uint64), want1.view(np.uint64))
+    assert np.array_equal(p2.view(np.uint64), want2.view(np.uint64))
+    with np.errstate(invalid="ignore"):
+        assert np.array_equal(local_classify.het_flags(b5), (l2 > l1) & (want2 < 0.05))
+    # and the plain version's: the same bytes, p-values by the device-LRT tolerance
+    q1, q2, qb = local_classify.local_classify_lrt_ref(
+        torch.from_numpy(counts), thr, prior, 0.05, torch.from_numpy(tab))
+    assert np.array_equal(qb.numpy() & 31, b1)
+    assert_pvalues_close(q1.numpy(), p1, RTOL_LIKELIHOOD)
+    assert_pvalues_close(q2.numpy(), p2, RTOL_LIKELIHOOD)
+
+
+def test_lrt_rows_table_overrun_gives_nan_pvalues(shim):
+    counts = np.array([[5, 3, 0, 0], [1000, 7, 0, 0]], np.uint16)
+    tab = lgamma_table(8, "cpu").numpy()[:10]
+    p1, p2, _ = run_lrt_rows(shim, counts, 0.1, -1.0, 0.05, tab)
+    assert np.isfinite(p1[0]) and np.isnan(p1[1]) and np.isnan(p2[1])

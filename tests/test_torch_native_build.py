@@ -57,3 +57,21 @@ def test_host_sources_are_byte_equal_to_sid_tpu(name):
         f"csrc/host/{name} differs from sid_tpu/native/{name} at lines {sorted(i + 1 for i in differ)}"
     )
     assert all(got[i].startswith(b"//") and want[i].startswith(b"//") for i in differ)
+
+
+@pytest.mark.parametrize("name", sorted(build.KERNELS))
+def test_kernel_deps_name_every_header_the_source_includes(name):
+    """A header left out of KERNELS would not rebuild its library when it
+    changes: every quoted include, followed through the headers, is a dep."""
+    import re
+
+    deps = {os.path.basename(p) for p in build.kernel_deps(name)}
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        src = todo.pop()
+        if src in seen:
+            continue
+        seen.add(src)
+        with open(os.path.join(build.CSRC, src)) as f:
+            todo += re.findall(r'^#include "([^"]+)"', f.read(), re.M)
+    assert seen == deps, (sorted(seen), sorted(deps))

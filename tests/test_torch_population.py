@@ -29,7 +29,13 @@ to both packages:
   flagged rows' marginals bitwise the long-double ones, and the deep
   sample's ``-m local`` CSV that of sid_tpu's host long-double classifier
   at the long-double fit's pi (where sid_tpu's cohort output differs);
-- the mesh and the fused on-device LRT raise ``NotPortedError``.
+- the fused on-device LRT (``exact_pvalues=False``: B5 per sample for
+  ``-m local``, the LRT and BH kernels' plain versions per sample for LR,
+  B6's full form for quality): every sample's CSV held to sid_tpu's by the
+  device-LRT tolerance (test_torch_lrt.py), the class tables to the same
+  call's host-libm tables (the same logs) to 1e-13, streaming byte-equal
+  to in memory;
+- the mesh raises ``NotPortedError``.
 """
 
 import dataclasses
@@ -67,6 +73,7 @@ from sid_tpu_torch.parallel.distributed import merge_histograms  # noqa: E402
 from sid_tpu_torch.utils.errors import NotPortedError  # noqa: E402
 from synth import make_pileup_text, simulate_diploid_counts  # noqa: E402
 from test_torch_local_classify import assert_agree  # noqa: E402
+from test_torch_lrt import assert_csv_close, assert_het_close, assert_pvalues_close  # noqa: E402
 
 MODES = ("pooled", "independent")
 METHODS = {
@@ -77,6 +84,14 @@ METHODS = {
     "local-R": {"method": "local", "estimate_prior": True},
     "quality": {"method": "quality"},
 }
+# the fused on-device LRT's variants
+DEVICE_LRT_METHODS = {
+    "lr-dev": {"method": "likelihood_ratio", "exact_pvalues": False},
+    "lr-R-dev": {"method": "likelihood_ratio", "estimate_prior": True, "exact_pvalues": False},
+    "local-dev": {"method": "local", "exact_pvalues": False},
+    "local-R-dev": {"method": "local", "estimate_prior": True, "exact_pvalues": False},
+}
+ALL_METHODS = {**METHODS, **DEVICE_LRT_METHODS}
 PIS = (0.002, 0.02, 0.06, 0.01, 0.03)
 DEEP = [9000, 9000, 0, 0]
 
@@ -133,7 +148,7 @@ def ref_runs(cohorts):
     def get(cohort, mode, variant):
         key = (cohort, mode, variant)
         if key not in memo:
-            kw = METHODS[variant]
+            kw = ALL_METHODS[variant]
             reads = kw["method"] == "quality"
             batches, _ = _parse_both(cohorts[cohort], reads)
             lines = []
@@ -145,7 +160,7 @@ def ref_runs(cohorts):
 
 
 def _port_run(texts, mode, variant):
-    kw = METHODS[variant]
+    kw = ALL_METHODS[variant]
     reads = kw["method"] == "quality"
     _, batches = _parse_both(texts, reads)
     lines = []
@@ -423,13 +438,25 @@ def test_mesh_and_device_lrt_raise(cohorts):
         pop.fit_population(hists, mesh_devices=2, device="cpu")
     with pytest.raises(NotPortedError, match="--devices"):
         pop.call_population(batches, Options(platform="cpu", method="bayes", mesh_devices=2))
+    # (named when the fused on-device LRT raised too) its class tables:
+    # those of the same call with the host-libm LRT, p-values to 1e-13
     per_sample = [unique_profiles(b.counts)[:2] for b in batches]
     for method in ("local", "likelihood_ratio"):
-        opts = Options(platform="cpu", method=method, exact_pvalues=False)
-        with pytest.raises(NotPortedError, match="exact_pvalues=False"):
-            pop.classify_population_profiles(per_sample, fits, opts)
-    with pytest.raises(NotPortedError, match="exact_pvalues=False"):
-        pop.call_population(batches, Options(platform="cpu", method="quality", exact_pvalues=False))
+        got, filtered, conf_type = pop.classify_population_profiles(
+            per_sample, fits, Options(platform="cpu", method=method, exact_pvalues=False))
+        want = pop.classify_population_profiles(per_sample, fits, Options(platform="cpu", method=method))
+        assert (filtered, conf_type) == want[1:]
+        for g, w in zip(got, want[0]):
+            assert np.array_equal(g[1], w[1]) and np.array_equal(g[2], w[2])
+            assert_pvalues_close(g[3], w[3])
+            assert_pvalues_close(g[4], w[4])
+            assert_het_close(g[0], w[0], w[4], 0.05)
+    texts = cohorts["main"][:2]
+    ref_batches, batches = _parse_both(texts, True)
+    got = pop.call_population(batches, Options(platform="cpu", method="quality", exact_pvalues=False))
+    want = ref_pop.call_population(ref_batches, RefOptions(method="quality", exact_pvalues=False))
+    for g, w in zip(got, want):
+        assert_csv_close(g.to_csv_bytes(), w.to_csv_bytes())
     with pytest.raises(ValueError, match="does not support method"):
         pop.classify_population_profiles(per_sample, fits, Options(platform="cpu", method="bogus"))
 
@@ -483,3 +510,30 @@ def test_marginals_use_the_fits_lanes(cohorts, monkeypatch, mode, bound):
     texts = cohorts["main"][:3]
     _port_run(texts, mode, "lr-R")
     assert made == [1, 3][2 - bound:]
+
+
+@pytest.mark.parametrize("variant", list(DEVICE_LRT_METHODS))
+@pytest.mark.parametrize("mode", MODES)
+def test_call_population_device_lrt(cohorts, ref_runs, mode, variant):
+    """exact_pvalues=False: every sample's CSV sid_tpu's by the device-LRT
+    tolerance (sid_tpu's cohort local runs its batched classify_local), the
+    same diagnostics."""
+    got, got_lines = _port_run(cohorts["main"], mode, variant)
+    want, want_lines = ref_runs("main", mode, variant)
+    assert got_lines == want_lines and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.count(b"\n") > 500
+        assert_csv_close(g, w)
+
+
+@pytest.mark.parametrize("variant", ["lr-R-dev", "local-dev"])
+def test_streaming_device_lrt_equals_in_memory(cohorts, tmp_path, variant):
+    texts = cohorts["main"]
+    paths = _write_cohort(str(tmp_path / "port"), texts)
+    opts = Options(platform="cpu", **DEVICE_LRT_METHODS[variant])
+    pop.call_population_streaming(paths, opts, "pooled", None, 16 << 10)
+    got = []
+    for path in paths:
+        with open(path + ".calls.csv", "rb") as f:
+            got.append(f.read())
+    assert got == _port_run(texts, "pooled", variant)[0]

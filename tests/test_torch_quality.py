@@ -34,6 +34,7 @@ from sid_tpu_torch.native import bridge  # noqa: E402
 from sid_tpu_torch.ops import quality_finalize as qf  # noqa: E402
 from sid_tpu_torch.ops.lgamma import lgamma_int_table, lgamma_table, table_size  # noqa: E402
 from synth import make_bwa_like_pileup, simulate_diploid_counts  # noqa: E402
+from test_torch_lrt import assert_csv_close  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 PRIORS = (-1.0, 1e-3, 0.999)
@@ -304,10 +305,28 @@ def test_deep_input_reaches_the_table_edge_and_the_clamp(inputs):
 
 
 def test_fused_device_lrt_is_not_ported():
-    from sid_tpu_torch.utils.errors import NotPortedError
+    """(Named when the fused on-device LRT raised NotPortedError.) -m
+    quality with exact_pvalues=False: sid_tpu's CSV by the device-LRT
+    tolerance."""
+    _device_lrt_matches_sid_tpu({})
 
-    with pytest.raises(NotPortedError, match="not yet ported in sid_tpu_torch"):
-        engine.run(_read("golden.pileup"), Options(platform="cpu", method="quality", exact_pvalues=False))
+
+@pytest.mark.parametrize("kw", [{"estimate_prior": True}, {"snp_prior": 1e-3}, {"snp_prior": 0.999}])
+def test_fused_device_lrt_with_priors(kw):
+    _device_lrt_matches_sid_tpu(kw)
+
+
+def _device_lrt_matches_sid_tpu(kw):
+    """engine.run -m quality, exact_pvalues=False: sid_tpu's CSV by the
+    device-LRT tolerance, the same diagnostics."""
+    src = _read("golden.pileup")
+    want_diag, got_diag = [], []
+    want = ref_engine.run(src, RefOptions(method="quality", exact_pvalues=False, **kw), want_diag.append,
+                          binary=True)
+    got = engine.run(src, Options(platform="cpu", method="quality", exact_pvalues=False, **kw),
+                     got_diag.append, binary=True)
+    assert got_diag == want_diag and got.count(b"\n") > 300
+    assert_csv_close(got, want)
 
 
 def test_bridge_declares_the_quality_hooks():

@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from sid_tpu_torch.models import quality  # noqa: E402
 from sid_tpu_torch.ops import quality_finalize as qf  # noqa: E402
 from sid_tpu_torch.ops.lgamma import lgamma_table  # noqa: E402
 from test_torch_quality import PRIORS, bits, finalize_cases  # noqa: E402
@@ -47,7 +48,27 @@ def shim(tmp_path_factory):
     lib.sid_quality_finalize_rows_host.argtypes = [
         p, p, p, ctypes.c_int64, p, ctypes.c_int, p, ctypes.c_int, p,
     ]
+    lib.sid_quality_finalize_lrt_rows_host.restype = ctypes.c_uint32
+    lib.sid_quality_finalize_lrt_rows_host.argtypes = [
+        p, p, p, p, ctypes.c_int64, p, ctypes.c_int, p, p, ctypes.c_int, p, p, p,
+    ]
     return lib
+
+
+def run_lrt_rows(lib, counts, alleles, log_hom, log_het, prior, alpha, tab):
+    """The full form's site loop on the host: (p1, p2, is_het, misses)."""
+    counts = np.ascontiguousarray(counts, np.uint16)
+    n = counts.shape[0]
+    ln2, underflow, log_prior = qf.host_constants(prior)
+    params = np.array([ln2, underflow, 0.0 if log_prior is None else log_prior], np.float64)
+    lrt = np.array([qf.log_prior_hom(prior), alpha], np.float64)
+    p1, p2, het = np.empty(n), np.empty(n), np.empty(n, np.uint8)
+    misses = lib.sid_quality_finalize_lrt_rows_host(
+        counts.ctypes.data, alleles.ctypes.data, np.ascontiguousarray(log_het).ctypes.data,
+        np.ascontiguousarray(log_hom).ctypes.data, n, params.ctypes.data, int(log_prior is not None),
+        lrt.ctypes.data, tab.ctypes.data, tab.shape[0], p1.ctypes.data, p2.ctypes.data, het.ctypes.data,
+    )
+    return p1, p2, het.astype(bool), misses
 
 
 def run_rows(lib, counts, alleles, log_het, prior, tab):
@@ -99,3 +120,20 @@ def test_shim_table_overrun_counts_the_sites(shim):
     with pytest.raises(ValueError, match="does not reach"):
         qf.quality_finalize(torch.from_numpy(counts), torch.from_numpy(alleles),
                             torch.zeros(4, dtype=torch.float64), torch.from_numpy(tab))
+
+
+@pytest.mark.parametrize("prior", PRIORS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_shim_full_rows_bitwise_the_host_pass(shim, seed, prior):
+    """The full form (B6's het side, the hom clamp and prior, both LRTs,
+    is_het) with glibc's erfc is bitwise libsidtpu's fused
+    sidtpu_quality_finalize: p1, p2 and the calls."""
+    counts, major, second, log_hom, log_het = finalize_cases(seed=seed)
+    alleles = qf.pack_alleles(major, second)
+    tab = lgamma_table(2 * int(counts.astype(np.int64).sum(-1).max()), "cpu").numpy()
+    p1, p2, het, misses = run_lrt_rows(shim, counts, alleles, log_hom, log_het, prior, 0.05, tab)
+    h_het, h1, h2 = quality.finalize_quality_native(counts, major, second, log_hom, log_het, prior, 0.05)
+    assert misses == 0
+    assert np.array_equal(bits(p1), bits(h1)) and np.array_equal(bits(p2), bits(h2))
+    assert np.array_equal(het, h_het)
+    assert np.isnan(p2).sum() > 0 and (p2 == 0).sum() > 0 and ((p2 > 0) & (p2 < 1)).sum() > 100

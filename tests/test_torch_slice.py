@@ -30,6 +30,7 @@ from synth import (  # noqa: E402
     simulate_diploid_counts,
 )
 from test_torch_local_classify import adversarial_profiles  # noqa: E402
+from test_torch_lrt import assert_csv_close  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
@@ -162,6 +163,9 @@ def test_empty_input():
 PORTED_SINCE = ({"method": "bayes"}, {"method": "likelihood_ratio"},
                 {"estimate_prior": True}, {"engine": "exact"}, {"method": "quality"},
                 {"stream": True})
+# the fused on-device LRT, ported since: its p-values come from another erfc,
+# so its CSV is held to sid_tpu's by the device-LRT tolerance, not bytes
+DEVICE_LRT = {"exact_pvalues": False}
 
 
 @pytest.mark.parametrize("kw", [
@@ -170,16 +174,20 @@ PORTED_SINCE = ({"method": "bayes"}, {"method": "likelihood_ratio"},
     {"per_shard_fit": True}, {"mesh_devices": 2}, {"exact_pvalues": False},
 ])
 def test_unported_options_raise(kw):
-    """Unported options raise; the ported ones give sid_tpu's bytes and
-    diagnostic lines."""
+    """Unported options raise; the ported ones give sid_tpu's bytes (the
+    device LRT: sid_tpu's CSV by its tolerance) and diagnostic lines."""
     from sid_tpu_torch.utils.errors import NotPortedError
 
     src = _read("golden.pileup")
-    if kw in PORTED_SINCE:
+    if kw in PORTED_SINCE or kw == DEVICE_LRT:
         want_diag, got_diag = [], []
         want = ref_engine.run(src, RefOptions(**kw), want_diag.append, binary=True)
         got = engine.run(src, Options(platform="cpu", **kw), got_diag.append, binary=True)
-        assert got == want and got_diag == want_diag
+        assert got_diag == want_diag
+        if kw == DEVICE_LRT:
+            assert_csv_close(got, want)
+        else:
+            assert got == want
         assert got.count(b"\n") > 1
         return
     with pytest.raises(NotPortedError, match="not yet ported in sid_tpu_torch"):
