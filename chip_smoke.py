@@ -2,20 +2,25 @@
 """Smoke run of the PyTorch / CUDA port on one CUDA card:
 
     python3 chip_smoke.py [--parent DIR]
-    python3 chip_smoke.py --lane-variants
+    python3 chip_smoke.py --lane-variants | --b5-variants | --bh-variants
 
 ``--parent DIR`` names an unpacked tree of the parent commit (git archive
-into a git-ignored directory) whose lane kernels (csrc/lynch.cu) take row
-and chunk offsets on the card and a per-lane upload, as before the lane
-slot table; phase 11 then builds them with this tree's nvcc flags, prints
-their ptxas report and blocks an SM, holds their results bitwise against
-this tree's and times both, device only, in turns at both cohort shapes.
-``--lane-variants`` builds variants of the lane kernels instead
+into a git-ignored directory) whose csrc/local_classify.cu (B1, B5) and
+csrc/lrt_bh.cu (BH as three passes over torch.argsort's int64 order) keep
+their C interfaces; phase 13 then builds them with this tree's nvcc flags,
+prints their ptxas report, holds B5's p1, p2 and byte and BH's out and
+is_het bitwise against this tree's at U = 1M and at the simulated sites'
+~2,000 profiles, and times both, device only and whole calls, in turns (B1
+too). ``--lane-variants`` builds variants of the lane kernels instead
 (``LANE_VARIANTS``: a launch bound of 2 blocks an SM, the lane table in
 global memory, every lane folded by the last block, four marginals rows
 a thread, the slot search unrolled), holds them bitwise against the
 committed kernels at phase 11's and phase 12's cohort shapes, times them
-in turns, and stops.
+in turns, and stops. ``--b5-variants`` (``B5_VARIANTS``) and
+``--bh-variants`` (``BH_VARIANTS``) do the same for B5's design choices
+(the table staged or not, 5 or 6 blocks an SM, the LRT tail row by row or
+regrouped by erfc's arm) and for the BH sort's (the scatter staged or not,
+pairs a thread, look-back width), each built with -D.
 
 Drives sid_tpu_torch's main paths (``engine.run`` and
 ``engine.run_streaming``, what ``./sid-tpu-torch`` and ``./sid-tpu-torch
@@ -107,8 +112,7 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    for the marginals), and one round against 100 single-lane B2 calls;
    the same times and bounds at phase 12's shape (100 lanes of the
    samples' ~1,000 unique profiles, from simulated_counts), where the
-   results are held bitwise against the plain version; with --parent, the
-   parent's lane kernels in turns;
+   results are held bitwise against the plain version;
 12. the population path: 100 seeded ~30x samples of 50,000 sites with
    Phred qualities (pi log-spaced 1e-4..1e-2, eps 1e-2; 0.55 GB under
    .smoke/, removed) through call_population, pooled and independent -m
@@ -121,27 +125,32 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    lanes' rounds, launches and evaluations, and the fits' wall against 100
    single-lane fits in turns;
 13. the fused on-device LRT (exact_pvalues=False): B5
-   (local_classify_lrt_kernel) at phase 3's profiles, every -E and prior:
-   its byte's bits 0-4 bitwise B1's, p1 and p2 within 1e-13 relative of
-   host libm (glibc erfc) over B1's likelihoods plus the prior and of the
-   plain LRT on the card over the same likelihoods (where both are >=
-   DBL_MIN; below it together), is_het equal outside the alpha band, the
-   whole plain version's largest relative error printed (its logs are
-   torch's); B6's full form (quality_finalize_lrt_kernel) at phase 8's
-   sites against libsidtpu's sidtpu_quality_finalize and its plain version;
-   the LRT (lrt_pvalues_kernel) on phase 5's marginals with and without a
-   prior against host libm and its plain version; BH (the three passes
-   ending in bh_adjust_kernel, over torch.argsort's order) on B5's p-values
-   with ties and NaN planted, bitwise adjust_benjamini_hochberg_np over two
-   tile sizes and as its plain version; each kernel's call, device-only and
-   plain times and bound (BH also torch.argsort's and torch.cummin's
-   times); the device LRT's wall against the host-libm path at U = 1M,
-   N = 1M and phase 5's U; engine.run with exact_pvalues=False for
-   -m local, -m quality and -R -m likelihood_ratio on golden and the
-   1M-site inputs, each within the tolerance of the host-libm run and of
-   the CPU run (lines differing in bytes counted), every kernel launched;
-   in phase 12, pooled -R -m likelihood_ratio and -m local on 8 samples,
-   held the same way;
+   (local_classify_lrt_kernel, one erfc a row) at phase 3's profiles, every
+   -E and prior: its byte's bits 0-4 bitwise B1's, p1 and p2 within 1e-13
+   relative of host libm (glibc erfc) over B1's likelihoods plus the prior
+   and of the plain LRT on the card over the same likelihoods (where both
+   are >= DBL_MIN; below it together), is_het equal outside the alpha band,
+   the whole plain version's largest relative error printed (its logs are
+   torch's); the card's erfc(0.0); B6's full form (quality_finalize_lrt_kernel)
+   at phase 8's sites against libsidtpu's sidtpu_quality_finalize and its
+   plain version; the LRT (lrt_pvalues_kernel) on phase 5's marginals with
+   and without a prior against host libm and its plain version; BH with its
+   own order (csrc/bh_sort.cuh: a radix sort and a chained scan, or one
+   block up to 8,192 p-values) on B5's p-values with ties and NaN planted,
+   at U = 1M and at the simulated sites' ~2,000 profiles (both arrays and
+   is_het in one launch): bitwise adjust_benjamini_hochberg_np at 8- and
+   11-bit digits over two scan tiles, over torch.argsort's order and as its
+   plain version, the hand order equal to torch.argsort(key, stable=True);
+   each kernel's call, device-only and plain times and bound (BH also by
+   kernel through torch.profiler, at both digit widths, with torch.argsort's
+   and torch.cummin's times, and at the path's shape); with --parent, the
+   parent's B5 and BH bitwise and in turns; the device LRT's wall against
+   the host-libm path at U = 1M, N = 1M and phase 5's U; engine.run with
+   exact_pvalues=False for -m local, -m quality and -R -m likelihood_ratio
+   on golden and the 1M-site inputs, each within the tolerance of the
+   host-libm run and of the CPU run (lines differing in bytes counted),
+   every kernel launched; in phase 12, pooled -R -m likelihood_ratio and
+   -m local on 8 samples, held the same way;
 14. prints a JSON line of kernel results, then the final JSON line
    {"ok": true, "device": {...}}.
 
@@ -464,6 +473,8 @@ def row_counts(instrs: list) -> dict:
     def has_f64(loop):
         return any(loop[0] <= ad <= loop[1] and op in F64_OPCODES for ad, _, op, _ in instrs)
 
+    if not loads:  # a kernel that loads nothing (a zeroing kernel): the whole of it
+        loads = [instrs[0][0]]
     looped = [ad for ad in loads if innermost(ad) is not None]
     anchor = ([ad for ad in looped if has_f64(innermost(ad))] or looped or loads)[0]
     loops = [(t, f) for f, t in jumps if t <= anchor <= f]
@@ -607,6 +618,122 @@ def parent_local_kernel(build, parent: str):
     if lib.sid_parent_blocks_per_sm(ctypes.byref(per_sm)):
         raise AssertionError("occupancy query of the parent's kernel failed")
     return lib, ptxas_report(proc.stdout + proc.stderr), per_sm.value
+
+
+def build_sources(build, sources: dict, extra=None) -> dict:
+    """Each named .cu source built with the port's nvcc flags (plus
+    ``extra``) into sid_tpu_torch/_build/<name>.so, all at once; its
+    includes resolve beside it. Returns {name: (library path, ptxas
+    report)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+
+    def one(name, src):
+        out = os.path.join(build.BUILD_DIR, f"{name}.so")
+        proc = subprocess.run(build.nvcc_command(src, out, (extra or {}).get(name)), capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"{name} does not build: {proc.stderr}")
+        return out, ptxas_report(proc.stdout + proc.stderr)
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {name: pool.submit(one, name, src) for name, src in sources.items()}
+        return {name: fut.result() for name, fut in futures.items()}
+
+
+def parent_device_lrt(build, parent: str) -> dict:
+    """The parent tree's csrc/local_classify.cu (B1, B5: the interface
+    this tree keeps) and csrc/lrt_bh.cu (BH as three passes over an int64
+    order), built with this tree's nvcc flags; their ptxas lines printed.
+    Returns {"local_classify": library with its types set, "bh": ParentBH}."""
+    from sid_tpu_torch.ops import local_classify as lc
+
+    csrc = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc")
+    built = build_sources(build, {"parent_local_classify": os.path.join(csrc, "local_classify.cu"),
+                                  "parent_lrt_bh": os.path.join(csrc, "lrt_bh.cu")})
+    for name, (_, report) in built.items():
+        for fn, r in report.items():
+            log(f"# ptxas {name}: {fn}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, "
+                f"{r['spill_loads']} bytes spill loads")
+    return {"local_classify": lc.load_kernel_library(built["parent_local_classify"][0]),
+            "bh": ParentBH(built["parent_lrt_bh"][0])}
+
+
+class ParentBH:
+    """The parent's BH: bh_order (torch.argsort) and its three passes
+    (sid_bh_adjust_launch over the int64 order, 8 positions a thread)."""
+
+    ITEMS = 8
+
+    def __init__(self, path: str):
+        import ctypes
+
+        self.lib = ctypes.CDLL(path)
+        p = ctypes.c_void_p
+        self.lib.sid_bh_adjust_launch.restype = ctypes.c_int
+        self.lib.sid_bh_adjust_launch.argtypes = [p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_double, p, p, p, p]
+
+    def launch(self, torch, p, order, out, het=None, alpha=0.0) -> None:
+        m = p.shape[0]
+        scratch = torch.empty(2 * -(-m // (256 * self.ITEMS)), dtype=torch.float64, device=p.device)
+        err = self.lib.sid_bh_adjust_launch(p.data_ptr(), order.data_ptr(), m, self.ITEMS, alpha, out.data_ptr(),
+                                            0 if het is None else het.data_ptr(), scratch.data_ptr(),
+                                            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"the parent's BH launch failed ({err})")
+
+    def __call__(self, torch, p, het=None, alpha=0.0):
+        from sid_tpu_torch.ops import stats
+
+        out = torch.empty_like(p)
+        self.launch(torch, p, stats.bh_order(p), out, het, alpha)
+        return out
+
+
+class local_library:
+    """Run ops.local_classify's wrappers over another build of
+    csrc/local_classify.cu (its resident blocks asked anew) inside a with
+    block."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from sid_tpu_torch.ops import local_classify as lc
+
+        self.saved = lc._kernel_lib(), dict(lc._resident)
+        lc._lib, lc._resident = self.lib, {}
+
+    def __exit__(self, *exc):
+        from sid_tpu_torch.ops import local_classify as lc
+
+        lc._lib, lc._resident = self.saved[0], self.saved[1]
+        return False
+
+
+def in_turns(torch, ways: dict, sets, rounds=2) -> dict:
+    """Device-only times of each way's launch over the input sets, in turns
+    (a, b, ..., then reversed), ``rounds`` times: {name: [ms, ...]}."""
+    out = {}
+    for _ in range(rounds):
+        for name in list(ways) + list(ways)[::-1]:
+            out.setdefault(name, []).append(device_only_ms(torch, ways[name], sets))
+    return out
+
+
+def calls_in_turns(torch, ways: dict, sets) -> dict:
+    """CUDA-event times of each way's whole call, in turns (a, b, ...,
+    reversed): {name: [ms, ...]} (REPEATS a turn)."""
+    out = {}
+    for name in list(ways) + list(ways)[::-1]:
+        out.setdefault(name, []).extend(event_times_ms(torch, ways[name], sets))
+    return out
+
+
+def readings(times: dict) -> str:
+    return "; ".join(f"{name} {statistics.median(v):.4f} ms (min {min(v):.4f}, max {max(v):.4f}, {len(v)} readings)"
+                     for name, v in times.items())
 
 
 def device_time_ms(event) -> float:
@@ -955,13 +1082,17 @@ def lrt_rows_times(torch, label, fn, plain, sets, launch, sass, names, rows, n_b
     return out
 
 
-def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof) -> list:
+def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof, small_prof, parent=None) -> list:
     """Phase 13, the kernels: B5 at phase 3's U profiles, every -E and
     prior; B6's full form at phase 8's N sites; the LRT on phase 5's
     marginals (of ``fit_prof``); BH on B5's p-values with ties and NaN
-    planted. Each held to the host path and its plain version, timed,
-    bounded; the device LRT's wall against the host-libm path. Returns the four kernels' rows of the
-    kernels line (launches are the path's)."""
+    planted, at U and at ``small_prof`` (the simulated sites' ~2,000
+    profiles, the path's shape). Each held to the host path and its plain
+    version, timed, bounded; with ``parent`` (``parent_device_lrt``) B5 and
+    BH bitwise the parent's kernels at both shapes and timed in turns with
+    them (B1 too); the device LRT's wall against the host-libm path.
+    Returns the four kernels' rows of the kernels line (launches are the
+    path's)."""
     from sid_tpu_torch.config import Options
     from sid_tpu_torch.models import likelihood_ratio, local, quality
     from sid_tpu_torch.models.common import LONG_DOUBLE_UNDERFLOW_LOG
@@ -1025,9 +1156,58 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                            lambda c, thr, pr, a, t: lc._launch(c, thr, pr, t, buf, a), sass,
                            ["local_classify_lrt_kernel"], u, u * (8 + 17) + tab.shape[0] * 8, card,
                            f"; grid {lc.resident_blocks(dev, True)} blocks")
-    rows.append({"name": "local_classify_lrt", "route": "cuda", "source": "sid_tpu_torch/csrc/local_classify.cu",
-                 "replaces": "sid_tpu/models/local.py:30", "launches": None, "max_abs_err": b5_abs, **times,
-                 "library_ms": None})
+    erfc0 = torch.special.erfc(torch.zeros(1, dtype=torch.float64, device=dev)).item()
+    log(f"# erfc(0.0) on the card (torch's CUDA erfc): {erfc0!r} ({np.float64(erfc0).view(np.uint64):#x}); B5 "
+        f"evaluates it once a thread from a 0.0 the host passes")
+    small_np, small_hi = lc.narrow_counts(small_prof)
+    small_counts = torch.from_numpy(small_np.view(np.int16)).to(dev)
+    small_tab = lgamma_table(4 * small_hi, dev)
+    b5_row = {"name": "local_classify_lrt", "route": "cuda", "source": "sid_tpu_torch/csrc/local_classify.cu",
+              "replaces": "sid_tpu/models/local.py:30", "launches": None, "max_abs_err": b5_abs, **times,
+              "library_ms": None}
+    if parent is not None:
+        plib = parent["local_classify"]
+        shapes = ((f"U={u}", counts, tab), (f"U={small_prof.shape[0]} (the simulated sites' profiles)",
+                                             small_counts, small_tab))
+        for label, c, t in shapes:
+            for thr in THRESHOLDS:
+                for prior in PRIORS:
+                    new = [x.cpu() for x in lc.local_classify_lrt(c, thr, prior, ALPHA, t)]
+                    with local_library(plib):
+                        old = [x.cpu() for x in lc.local_classify_lrt(c, thr, prior, ALPHA, t)]
+                    for what, x, y in zip(("p1", "p2", "byte"), new, old):
+                        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                            raise AssertionError(f"B5 at {label}, -E {thr}, prior {prior}: {what} differs from the "
+                                                 "parent's kernel")
+        log(f"# B5 == the parent's B5 bitwise (p1, p2, byte) at {' and '.join(x[0] for x in shapes)}, every -E "
+            f"and prior")
+        committed = lc._kernel_lib()
+
+        def on(lib, fn):
+            def run(*a):
+                with local_library(lib):
+                    return fn(*a)
+            return run
+
+        for label, c, t in shapes:
+            n_rows = c.shape[0]
+            buf = torch.empty(lc.BYTES_PER_ROW * n_rows, dtype=torch.uint8, device=dev)
+            sets = [(torch.roll(c, 7919 * k, 0).contiguous(), 0.1, 1e-3, ALPHA, t) for k in range(INPUT_SETS)]
+            b5 = lambda cc, thr, pr, a, tt: lc._launch(cc, thr, pr, tt, buf, a)  # noqa: E731
+            b1 = lambda cc, thr, pr, a, tt: lc._launch(cc, thr, pr, tt, buf)  # noqa: E731
+            dev_t = in_turns(torch, {"B5": on(committed, b5), "parent B5": on(plib, b5),
+                                     "B1": on(committed, b1), "parent B1": on(plib, b1)}, sets)
+            call_t = calls_in_turns(torch, {"B5": on(committed, lc.local_classify_lrt),
+                                            "parent B5": on(plib, lc.local_classify_lrt)}, sets)
+            log(f"# B5 and B1 against the parent's at {label}, -E 0.1, prior 1e-3, in turns: device only "
+                f"{readings(dev_t)}; the call {readings(call_t)}; on {card}")
+            key = "" if c is counts else "small_"
+            b5_row.update({f"{key}parent_device_ms": statistics.median(dev_t["parent B5"]),
+                           f"{key}device_ms_in_turns": statistics.median(dev_t["B5"]),
+                           f"{key}b1_device_ms": statistics.median(dev_t["B1"]),
+                           f"{key}parent_b1_device_ms": statistics.median(dev_t["parent B1"]),
+                           f"{key}parent_ms": statistics.median(call_t["parent B5"])})
+    rows.append(b5_row)
     del sets, buf
 
     # B6's full form: against libsidtpu's fused host pass and the plain version on the card
@@ -1104,8 +1284,9 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                  "replaces": "sid_tpu/ops/stats.py:24", "launches": None, "max_abs_err": l_abs, **times,
                  "library_ms": None})
 
-    # BH on B5's p2 at U with ties and NaN planted: bitwise the host BH,
-    # over two tile sizes, and its plain version on the card
+    # BH on B5's p2 at U with ties and NaN planted: bitwise the host BH
+    # over both digit widths and two scan tiles, the hand order equal to
+    # torch.argsort's, the plain version too
     p = torch.from_numpy(bh_p).to(dev)
     p[::997] = 0.5
     p[::1999] = float("nan")
@@ -1113,32 +1294,175 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
     p[5::4001] = 1.0
     p_np = p.cpu().numpy()
     want = stats.adjust_benjamini_hochberg_np(p_np)
-    for items in (stats.BH_ITEMS, 3):
-        got = stats.adjust_benjamini_hochberg(p, items=items).cpu().numpy()
-        if not np.array_equal(got.view(np.uint64), want.view(np.uint64)):
-            raise AssertionError(f"BH with {items} positions a thread differs bitwise from the host BH")
-    plain = stats.adjust_benjamini_hochberg_ref(p).cpu().numpy()
-    if not np.array_equal(plain.view(np.uint64), want.view(np.uint64)):
-        raise AssertionError("BH's plain version on the card differs bitwise from the host BH")
-    tiles = [-(-u // (stats.BH_THREADS * k)) for k in (stats.BH_ITEMS, 3)]
+
+    def bitwise(label, got, ref):
+        if not np.array_equal(got.cpu().numpy().view(np.uint64), ref.view(np.uint64)):
+            raise AssertionError(f"BH {label} differs bitwise from the host BH")
+
+    for bits in (8, 11):
+        for items in (stats.BH_ITEMS, 4):
+            bitwise(f"at U={u}, {bits}-bit digits, {items} positions a scan thread",
+                    stats.adjust_benjamini_hochberg(p, items=items, bits=bits), want)
+        if not torch.equal(stats.bh_radix_order(p, bits), stats.bh_order(p)):
+            raise AssertionError(f"the hand order ({bits}-bit digits) differs from torch.argsort(key, stable=True)")
+    ordered = torch.empty_like(p)
+    stats.launch_bh(p, stats.bh_order(p), ordered)
+    bitwise(f"at U={u} over torch.argsort's order", ordered, want)
+    bitwise(f"at U={u}, its plain version on the card", stats.adjust_benjamini_hochberg_ref(p), want)
+    keys = p_np.view(np.uint64).copy()
+    keys[p_np == 0] = 0
+    keys[np.isnan(p_np)] = np.uint64(0x7FF8000000000000)
+    keys[(p_np != 0) & ~np.isnan(p_np)] ^= np.uint64(1 << 63)
+    keys = np.where(keys >> np.uint64(63), ~keys, keys | np.uint64(1 << 63))
+    passes_run = {b: sum(len(np.unique((keys >> np.uint64(q * b)) & np.uint64((1 << b) - 1))) > 1
+                         for q in range(-(-64 // b))) for b in (8, 11)}
     log(f"# BH == host at U={u} (B5's p2, {int(np.isnan(p_np).sum())} NaN, ties at 0.5, 0 and 1 planted): bitwise "
-        f"adjust_benjamini_hochberg_np over {tiles[0]} and {tiles[1]} tiles and as the plain version on the card")
+        f"adjust_benjamini_hochberg_np with 8- and 11-bit digits ({passes_run[8]} and {passes_run[11]} scatter "
+        f"passes run) over scan tiles of {stats.BH_SCAN_THREADS * stats.BH_ITEMS} and {stats.BH_SCAN_THREADS * 4}, "
+        f"over torch.argsort's order and as the plain version; the hand order equal to torch.argsort(key, "
+        f"stable=True) at both widths")
+
+    # the path's shape: B5's p-values of the simulated sites' profiles,
+    # ties and NaN planted; both arrays in one launch
+    q1, q2, _ = (x.clone() for x in lc.local_classify_lrt(small_counts, 0.1, 1e-3, ALPHA, small_tab))
+    q2[::97] = 0.5
+    q2[::211] = float("nan")
+    q2[3::301] = 0.0
+    q1[::89] = float("nan")
+    q1[5::113] = 1.0
+    us = q1.shape[0]
+    o1, o2 = torch.empty_like(q1), torch.empty_like(q2)
+    h2 = torch.empty(us, dtype=torch.uint8, device=dev)
+    before = stats.BH_LAUNCHES
+    stats.launch_bh_pair(q1, q2, o1, o2, h2, ALPHA)
+    pair_launches = stats.BH_LAUNCHES - before
+    if pair_launches > 2:
+        raise AssertionError(f"BH of both arrays at U={us} took {pair_launches} launches")
+    w1, w2 = stats.adjust_benjamini_hochberg_np(q1.cpu().numpy()), stats.adjust_benjamini_hochberg_np(q2.cpu().numpy())
+    bitwise(f"of p1 at U={us}", o1, w1)
+    bitwise(f"of p2 at U={us}", o2, w2)
+    with np.errstate(invalid="ignore"):
+        if not np.array_equal(h2.cpu().numpy().astype(bool), w2 < ALPHA):
+            raise AssertionError(f"BH's is_het at U={us} differs from adjusted < alpha")
+    bitwise(f"at U={us}, one array", stats.adjust_benjamini_hochberg(q2), w2)
+    for bits in (8, 11):
+        if not torch.equal(stats.bh_radix_order(q2, bits), stats.bh_order(q2)):
+            raise AssertionError(f"the hand order at U={us} differs from torch.argsort(key, stable=True)")
+    log(f"# BH == host at U={us} (the simulated sites' profiles, B5's p1 and p2, ties and NaN planted): both "
+        f"arrays and is_het in {pair_launches} launch, bitwise adjust_benjamini_hochberg_np; the hand order "
+        f"there equal to torch.argsort's")
+    bh = parent["bh"] if parent is not None else None
+    if bh is not None:
+        het_new, het_old = (torch.empty(u, dtype=torch.uint8, device=dev) for _ in range(2))
+        new, old = torch.empty_like(p), torch.empty_like(p)
+        stats.launch_bh(p, None, new, het_new, ALPHA)
+        bh.launch(torch, p, stats.bh_order(p), old, het_old, ALPHA)
+        p1_old, p2_old = bh(torch, q1), torch.empty_like(q2)
+        h2_old = torch.empty_like(h2)
+        bh.launch(torch, q2, stats.bh_order(q2), p2_old, h2_old, ALPHA)
+        for label, x, y in ((f"out at U={u}", new, old), (f"is_het at U={u}", het_new, het_old),
+                            (f"p1 out at U={us}", o1, p1_old), (f"p2 out at U={us}", o2, p2_old),
+                            (f"is_het at U={us}", h2, h2_old)):
+            if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                raise AssertionError(f"BH {label} differs from the parent's kernels")
+        log(f"# BH == the parent's BH bitwise (out and is_het) at U={u} and U={us}")
+
+    # times at U: the whole call (order and scan), device only at both
+    # digit widths (and the parent's passes, with and without its argsort),
+    # the plain version, torch.argsort and torch.cummin; each kernel's
+    # device time in one call by torch.profiler
     sets = [(torch.roll(p, 7919 * j, 0).contiguous(),) for j in range(INPUT_SETS)]
-    orders = {s[0].data_ptr(): stats.bh_order(s[0]) for s in sets}
     bh_out = torch.empty_like(p)
+    dev_ways = {f"{b}-bit digits": (lambda q, b=b: stats.launch_bh(q, None, bh_out, bits=b)) for b in (8, 11)}
+    call_ways = {"hand order + scan": stats.adjust_benjamini_hochberg}
+    if bh is not None:
+        orders = {s_[0].data_ptr(): stats.bh_order(s_[0]) for s_ in sets}
+        dev_ways["parent: three passes (order made outside)"] = lambda q: bh.launch(torch, q, orders[q.data_ptr()],
+                                                                                    bh_out)
+        dev_ways["parent: torch.argsort + three passes"] = lambda q: bh.launch(torch, q, stats.bh_order(q), bh_out)
+        call_ways["parent: torch.argsort + three passes"] = lambda q: bh(torch, q)
+    dev_t = in_turns(torch, dev_ways, sets)
+    call_t = calls_in_turns(torch, call_ways, sets)
+    plain_t = event_times_ms(torch, stats.adjust_benjamini_hochberg_ref, sets)
     argsort_t = event_times_ms(torch, stats.bh_order, sets)
-    s_sorted = [(stats._scaled(s[0][orders[s[0].data_ptr()]]),) for s in sets]  # what torch.cummin would scan
-    cummin_t = event_times_ms(torch, lambda s: torch.cummin(s, 0), s_sorted)
-    times = lrt_rows_times(torch, f"bh_adjust at U={u} (the three passes; the call adds torch.argsort)",
-                           stats.adjust_benjamini_hochberg, stats.adjust_benjamini_hochberg_ref, sets,
-                           lambda q: stats.launch_bh(q, orders[q.data_ptr()], bh_out), sass,
-                           ["bh_block_min_kernel", "bh_adjust_kernel"], u, 24 * u, card,
-                           f"; torch.argsort (bh_order) {statistics.median(argsort_t):.4f} ms, torch.cummin "
-                           f"{statistics.median(cummin_t):.4f} ms (medians of {len(argsort_t)})")
-    rows.append({"name": "bh_adjust", "route": "cuda", "source": "sid_tpu_torch/csrc/lrt_bh.cu",
-                 "replaces": "sid_tpu/ops/stats.py:78", "launches": None, "max_abs_err": 0.0, **times,
-                 "library_ms": statistics.median(cummin_t), "argsort_ms": statistics.median(argsort_t)})
-    del sets, orders, s_sorted
+    s_sorted = [(stats._scaled(s_[0][stats.bh_order(s_[0])]),) for s_ in sets]  # what torch.cummin would scan
+    cummin_t = event_times_ms(torch, lambda x: torch.cummin(x, 0), s_sorted)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as tp:
+        for _ in range(5):
+            stats.adjust_benjamini_hochberg(p)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in tp.key_averages():
+        for key in ("bh_histogram_kernel", "bh_plan_kernel", "bh_radix_pass_kernel", "bh_scan_kernel"):
+            if key in ev.key:
+                total = getattr(ev, "device_time_total", None)
+                total = ev.cuda_time_total if total is None else total
+                split[key] = split.get(key, 0.0) + total / 5 / 1e3
+    scan = kernel_counts(sass, f"bh_scan_kernelILi{stats.BH_ITEMS}E")
+    f64_pos = scan["f64_kernel"] / stats.BH_ITEMS  # every instruction of a thread's walk, over its positions
+    dev_ms = statistics.median(dev_t[f"{stats.BH_BITS}-bit digits"])
+    b_ms, b_by = bound_ms(16 * u, f64_pos * u)
+    sort_ms = {b: passes_run[b] * 24 * u / HBM_BYTES_PER_S * 1e3 for b in (8, 11)}
+    scan_bound = 20 * u / HBM_BYTES_PER_S * 1e3
+    log(f"# bh_adjust at U={u}, in turns: device only {readings(dev_t)}; the call {readings(call_t)}; plain torch "
+        f"{statistics.median(plain_t):.4f} ms; torch.argsort (bh_order) {statistics.median(argsort_t):.4f} ms, "
+        f"torch.cummin {statistics.median(cummin_t):.4f} ms; by kernel in one call (torch.profiler, mean of 5): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        + f"; bound {b_ms:.4f} ms by {b_by} (the function's bytes: p in, out out, {16 * u / 1e6:.0f} MB; "
+        f"{f64_pos:.1f} f64 instructions a position), {b_ms / dev_ms:.1%} of it; a radix sort of 12 B pairs "
+        f"moves {passes_run[8]} x 24 B a pair at 8 bits ({sort_ms[8]:.4f} ms), {passes_run[11]} x 24 B at 11 "
+        f"({sort_ms[11]:.4f} ms); the scan launch's own bytes (a position, p gathered, out) {scan_bound:.4f} ms, "
+        + (f"{scan_bound / split['bh_scan_kernel']:.1%} of it" if "bh_scan_kernel" in split else "not measured")
+        + f"; on {card}")
+
+    # times at the path's shape: both arrays, in turns with the parent's
+    # two argsorts and two three-pass runs
+    small_sets = [(torch.roll(q1, 7 * j, 0).contiguous(), torch.roll(q2, 7 * j, 0).contiguous())
+                  for j in range(INPUT_SETS)]
+    so1, so2, sh = torch.empty_like(q1), torch.empty_like(q2), torch.empty_like(h2)
+    small_dev_ways = {"one launch, both arrays": lambda a, b_: stats.launch_bh_pair(a, b_, so1, so2, sh, ALPHA)}
+
+    def pair_call(a, b_):
+        x, y, z = torch.empty_like(a), torch.empty_like(b_), torch.empty(a.shape[0], dtype=torch.uint8, device=dev)
+        stats.launch_bh_pair(a, b_, x, y, z, ALPHA)
+        return x, y, z
+
+    small_call_ways = {"one launch, both arrays": pair_call}
+    if bh is not None:
+        def parent_pair(a, b_):
+            bh.launch(torch, a, stats.bh_order(a), so1)
+            bh.launch(torch, b_, stats.bh_order(b_), so2, sh, ALPHA)
+
+        def parent_pair_call(a, b_):
+            z = torch.empty(a.shape[0], dtype=torch.uint8, device=dev)
+            return bh(torch, a), bh(torch, b_, z, ALPHA), z
+
+        small_dev_ways["parent: two torch.argsort + two passes"] = parent_pair
+        small_call_ways["parent: two torch.argsort + two passes"] = parent_pair_call
+    small_dev = in_turns(torch, small_dev_ways, small_sets)
+    small_call = calls_in_turns(torch, small_call_ways, small_sets)
+    log(f"# BH of both arrays at U={us}, in turns: device only {readings(small_dev)}; the call {readings(small_call)}; "
+        f"the function's bytes (2 x p in and out, is_het) {bound_ms(33 * us, 0)[0] * 1e3:.3f} us; on {card}")
+    bh_row = {"name": "bh_adjust", "route": "cuda", "source": "sid_tpu_torch/csrc/lrt_bh.cu",
+              "replaces": "sid_tpu/ops/stats.py:78", "launches": None, "max_abs_err": 0.0,
+              "ms": statistics.median(call_t["hand order + scan"]), "plain_ms": statistics.median(plain_t),
+              "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": statistics.median(cummin_t), "argsort_ms": statistics.median(argsort_t),
+              "sort_bound_ms": sort_ms[stats.BH_BITS], "scatter_passes": passes_run[stats.BH_BITS],
+              "device_ms_by_bits": {b: statistics.median(dev_t[f"{b}-bit digits"]) for b in (8, 11)},
+              "kernel_ms": split,
+              "small_rows": us, "small_launches": pair_launches,
+              "small_device_ms": statistics.median(small_dev["one launch, both arrays"]),
+              "small_ms": statistics.median(small_call["one launch, both arrays"])}
+    if bh is not None:
+        bh_row.update({
+            "parent_device_ms": statistics.median(dev_t["parent: torch.argsort + three passes"]),
+            "parent_passes_device_ms": statistics.median(dev_t["parent: three passes (order made outside)"]),
+            "parent_ms": statistics.median(call_t["parent: torch.argsort + three passes"]),
+            "small_parent_device_ms": statistics.median(small_dev["parent: two torch.argsort + two passes"]),
+            "small_parent_ms": statistics.median(small_call["parent: two torch.argsort + two passes"])})
+    rows.append(bh_row)
+    del sets, s_sorted, small_sets
 
     # the device LRT's wall against the host-libm path, in turns
     opts_dev, opts_host = Options(exact_pvalues=False), Options()
@@ -1256,17 +1580,15 @@ def bits_equal(a, b) -> bool:
     return a.shape == b.shape and np.array_equal(a.view(np.int64), b.view(np.int64))
 
 
-def lanes_kernel_phase(torch, dev, card, sass, parent=None):
+def lanes_kernel_phase(torch, dev, card, sass):
     """Phase 11: the lanes' objective and marginals kernels at N_LANES lanes
     and ~2M rows against the single-lane kernels (bitwise, each lane
     alone) and their plain versions, for every set of running lanes and
     three grids; one launch a call by the library's counters; the lanes'
     objective wrapper against DeviceObjective per lane with out-of-box
     thetas; times and bounds; the same times and bounds at phase 12's
-    shape, its results held against the plain versions; with ``parent``
-    (``parent_lanes_library``'s result) the parent's lane kernels bitwise
-    and in turns at both shapes. Returns the two rows of the kernels line
-    (launches are phase 12's)."""
+    shape, its results held against the plain versions. Returns the two
+    rows of the kernels line (launches are phase 12's)."""
     from sid_tpu_torch.models import lynch
     from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
     from sid_tpu_torch.ops.lgamma import lgamma_table
@@ -1422,17 +1744,6 @@ def lanes_kernel_phase(torch, dev, card, sass, parent=None):
         f"{len(work2.part_sum)} chunks; the objective bitwise and the marginals' flags equal to the plain "
         f"versions (marginals to {RTOL}) at three sets of thetas; in {time.perf_counter() - t0:.1f} s")
 
-    parents = {}
-    if parent is not None:
-        plib, report, per_sm = parent
-        for fn, r in report.items():
-            if "lanes_kernel" in fn:
-                resident = per_sm["nll_lanes" if "nll_lanes" in fn else "marginals_lanes"]
-                log(f"# ptxas parent lynch: {fn}: {r['registers']} registers, {r['spill_stores']} bytes spill "
-                    f"stores, {r['spill_loads']} bytes spill loads; {resident} blocks an SM")
-        for shape, w, scal in (("phase 11's cohort", work, theta_sets[1]), ("phase 12's shape", work2, theta_sets2[1])):
-            parents[shape] = parent_in_turns(torch, card, ParentLanes(torch, plib, w), w, scal, shape)
-
     blocks = lo.blocks_per_sm(dev)
     rows = []
     # the f64 work of a row, the same whatever implements it: B2's row count
@@ -1457,8 +1768,6 @@ def lanes_kernel_phase(torch, dev, card, sass, parent=None):
             b_all = bound_ms(n_bytes, c["f64_all"] * w.n)[0]
             shapes[shape] = {"rows": w.n, "ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t),
                              "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by}
-            if shape in parents:
-                shapes[shape]["parent_device_ms"] = parents[shape][kernel]
             log(f"# {name} at {shape}, {w.lanes} lanes, {w.n} rows: call {statistics.median(call_t):.4f} ms (median "
                 f"of {len(call_t)}, min {min(call_t):.4f}), device only {dev_ms:.4f} ms, plain torch "
                 f"{statistics.median(plain_t):.2f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.2f} MB; {c['f64']} f64 instructions every row "
@@ -1472,8 +1781,6 @@ def lanes_kernel_phase(torch, dev, card, sass, parent=None):
                "device_ms": main["device_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                "library_ms": None, "blocks_per_sm": blocks[kernel],
                "at_population_shape": shapes["phase 12's shape"]}
-        if "parent_device_ms" in main:
-            row["parent_device_ms"] = main["parent_device_ms"]
         rows.append(row)
     log(f"# one round of {N_LANES} lanes: one lanes' objective call {rows[0]['ms']:.4f} ms against "
         f"{statistics.median(alone_ms):.3f} ms for {N_LANES} single-lane B2 calls (median of {len(alone_ms)}); "
@@ -1502,162 +1809,6 @@ def lane_times(torch, work, theta_sets, p_dev, m_dev, off, tab) -> dict:
         call += event_times_ms(torch, fn, sets, LANE_REPEATS)
         fn(*sets[1])
         out[kernel] = (call, device_only_ms(torch, relaunch, [()]), plain_t)
-    return out
-
-
-def parent_lanes_library(build, parent: str):
-    """The parent tree's lane kernels: its csrc/lynch.cu, with its own
-    headers, built here with this tree's nvcc flags through a wrapper that
-    adds the lane kernels' resident blocks an SM. Returns (ctypes library,
-    ptxas report, {"nll_lanes": blocks an SM, "marginals_lanes": ...})."""
-    import ctypes
-
-    src = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc", "lynch.cu")
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    wrapper = os.path.join(build.BUILD_DIR, "parent_lynch.cu")
-    with open(wrapper, "w") as f:
-        f.write(f'#include "{src}"\n'
-                'extern "C" int sid_parent_blocks_per_sm(int objective, int* n) {\n'
-                '  if (objective)\n'
-                '    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, lynch_nll_lanes_kernel, kThreads, 0);\n'
-                '  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, lynch_marginals_lanes_kernel, kThreads, 0);\n'
-                '}\n')
-    out = os.path.join(build.BUILD_DIR, "libparent_lynch.so")
-    proc = subprocess.run(build.nvcc_command(wrapper, out), capture_output=True, text=True, timeout=600)
-    if proc.returncode:
-        raise AssertionError(f"the parent's lane kernels do not build: {proc.stderr}")
-    lib = ctypes.CDLL(out)
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name, args in (
-        ("sid_lynch_lanes_grids", [i64, i64, p]),
-        ("sid_lynch_nll_lanes_launch", [p, i64, p, p, i32, p, p, i64, i32, p, p, p, p, p, i32, p, p]),
-        ("sid_lynch_marginals_lanes_launch", [p, i64, p, i32, p, p, p, p, p, i32, p]),
-        ("sid_parent_blocks_per_sm", [i32, p]),
-    ):
-        fn = getattr(lib, name)
-        fn.restype = i32
-        fn.argtypes = args
-    per_sm = {}
-    for name, objective in (("nll_lanes", 1), ("marginals_lanes", 0)):
-        blocks = ctypes.c_int(0)
-        if lib.sid_parent_blocks_per_sm(objective, ctypes.byref(blocks)):
-            raise AssertionError("occupancy query of the parent's lane kernels failed")
-        per_sm[name] = blocks.value
-    return lib, ptxas_report(proc.stdout + proc.stderr), per_sm
-
-
-class ParentLanes:
-    """The parent tree's lane kernels over a LynchLanesWorkspace's row
-    record, with their own arguments: the lanes' row and chunk offsets on
-    the card, the objective's upload ([scalars (S, 16) | the running lanes'
-    chunk offsets (A+1) | the running lanes (A)]), the marginals' scalars
-    copied to the card, and their own scratch and outputs."""
-
-    def __init__(self, torch, lib, work):
-        import ctypes
-
-        from sid_tpu_torch.ops import likelihoods
-
-        self.torch, self.lib, self.work = torch, lib, work
-        dev, s = work.device, work.lanes
-        self.chunks = likelihoods.lane_chunks(np.diff(work.offsets))
-        chunk_off = np.concatenate([[0], np.cumsum(self.chunks)]).astype(np.int64)
-        self.row_off = torch.from_numpy(work.offsets).to(dev)
-        self.chunk_off = torch.from_numpy(chunk_off).to(dev)
-        grids = (ctypes.c_int * 2)()
-        if lib.sid_lynch_lanes_grids(work.n, int(chunk_off[-1]), grids):
-            raise AssertionError("the parent's lane grids failed")
-        self.grids = tuple(grids)
-        self.part_sum = torch.empty(int(chunk_off[-1]), dtype=torch.float64, device=dev)
-        self.part_cnt = torch.empty(int(chunk_off[-1]), dtype=torch.int32, device=dev)
-        self.ticket = torch.zeros(s, dtype=torch.int32, device=dev)
-        self.out = torch.empty((s, 2), dtype=torch.float64, device=dev)
-        self.host_out = torch.empty((s, 2), dtype=torch.float64, pin_memory=True)
-        self.flags = torch.zeros(work.n, dtype=torch.uint8, device=dev)
-        size = 128 * s + 8 * (s + 1) + 4 * s
-        self.upload_host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
-        self.upload_dev = torch.empty(size, dtype=torch.uint8, device=dev)
-        self.scalars_host = torch.empty((s, 16), dtype=torch.float64, pin_memory=True)
-        self.scalars_dev = torch.empty((s, 16), dtype=torch.float64, device=dev)
-        self.marg = torch.empty(17 * work.n, dtype=torch.uint8, device=dev)
-        self.active = 0
-
-    def _nll(self, a: int, upload_bytes: int, host_out) -> None:
-        w = self.work
-        err = self.lib.sid_lynch_nll_lanes_launch(
-            w.records.data_ptr(), w.n, self.row_off.data_ptr(), self.chunk_off.data_ptr(), w.lanes,
-            self.upload_host.data_ptr(), self.upload_dev.data_ptr(), upload_bytes, a, self.flags.data_ptr(),
-            self.part_sum.data_ptr(), self.part_cnt.data_ptr(), self.ticket.data_ptr(), self.out.data_ptr(),
-            self.grids[0], host_out, self.torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise AssertionError(f"the parent's lanes' objective did not launch ({err})")
-        self.active = a
-
-    def nll(self, scalars, lanes) -> np.ndarray:
-        """The parent's objective of ``lanes``, waited for: (len(lanes), 2)."""
-        s, a = self.work.lanes, len(lanes)
-        up = self.upload_host.numpy()
-        up[: 128 * s].view(np.float64)[:] = np.ascontiguousarray(scalars, np.float64).reshape(-1)
-        act = up[128 * s : 128 * s + 8 * (a + 1)].view(np.int64)
-        act[0] = 0
-        np.cumsum(self.chunks[lanes], out=act[1:])
-        up[128 * s + 8 * (a + 1) : 128 * s + 12 * a + 8].view(np.int32)[:] = lanes
-        self._nll(a, 128 * s + 12 * a + 8, self.host_out.data_ptr())
-        return self.host_out.numpy()[lanes].copy()
-
-    def launch_nll(self) -> None:
-        self._nll(self.active, 0, None)
-
-    def _marginals(self, scalars_host) -> None:
-        w, n = self.work, self.work.n
-        err = self.lib.sid_lynch_marginals_lanes_launch(
-            w.records.data_ptr(), n, self.row_off.data_ptr(), w.lanes, scalars_host, self.scalars_dev.data_ptr(),
-            self.marg.data_ptr(), self.marg[8 * n :].data_ptr(), self.marg[16 * n :].data_ptr(), self.grids[1],
-            self.torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise AssertionError(f"the parent's lanes' marginals did not launch ({err})")
-
-    def marginals(self, scalars):
-        """The parent's marginals at ``scalars``, waited for: (log L_hom,
-        log L_het, flags) on the card."""
-        self.scalars_host.numpy()[:] = scalars
-        self._marginals(self.scalars_host.data_ptr())
-        self.torch.cuda.synchronize()
-        n = self.work.n
-        return self.marg[: 8 * n].view(self.torch.float64), self.marg[8 * n : 16 * n].view(self.torch.float64), \
-            self.marg[16 * n :]
-
-    def launch_marginals(self) -> None:
-        self._marginals(None)
-
-
-def parent_in_turns(torch, card, parent, work, scalars, shape: str) -> dict:
-    """The parent's lane kernels against this tree's on one workspace: the
-    results bitwise (every lane's objective and flags, every row's
-    marginals), then device-only times in turns (parent, new, new, parent).
-    Returns the parent's median device-only ms by kernel."""
-    everyone = list(range(work.lanes))
-    if not (bits_equal(parent.nll(scalars, everyone), work.nll_lanes(scalars, everyone))
-            and torch.equal(parent.flags, work.flags)):
-        raise AssertionError(f"the parent's lanes' objective differs from this tree's at {shape}")
-    for what, x, y in zip(("log L_hom", "log L_het", "flags"), parent.marginals(scalars),
-                          work.marginals_lanes(scalars)):
-        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
-            raise AssertionError(f"the parent's lanes' marginals differ from this tree's in {what} at {shape}")
-    out = {}
-    for kernel, old, new, ready in (
-        ("nll_lanes", parent.launch_nll, work.launch_nll_lanes,
-         lambda: (parent.nll(scalars, everyone), work.nll_lanes(scalars, everyone))),
-        ("marginals_lanes", parent.launch_marginals, work.launch_marginals_lanes,
-         lambda: (parent.marginals(scalars), work.marginals_lanes(scalars))),
-    ):
-        ready()
-        readings = [(who, device_only_ms(torch, fn, [()]))
-                    for who, fn in (("parent", old), ("new", new), ("new", new), ("parent", old))]
-        out[kernel] = statistics.median(t for who, t in readings if who == "parent")
-        new_ms = statistics.median(t for who, t in readings if who == "new")
-        log(f"# {kernel} at {shape}, device only in turns: " + ", ".join(f"{who} {t:.4f} ms" for who, t in readings)
-            + f"; the parent's results bitwise this tree's; parent / new {out[kernel] / new_ms:.2f}x; on {card}")
     return out
 
 
@@ -1876,7 +2027,7 @@ def population_phase(torch, dev, card, workdir):
     return launches
 
 
-def population_phases(torch, dev, card, sass, parent=None) -> list:
+def population_phases(torch, dev, card, sass) -> list:
     """Phases 11 and 12 (their files under .smoke/, removed at the end);
     returns the lane kernels' rows of the kernels line, with the launches
     of the population path."""
@@ -1885,7 +2036,7 @@ def population_phases(torch, dev, card, sass, parent=None) -> list:
     os.makedirs(workdir)
     try:
         t0 = time.perf_counter()
-        rows = lanes_kernel_phase(torch, dev, card, sass, parent)
+        rows = lanes_kernel_phase(torch, dev, card, sass)
         t1 = time.perf_counter()
         launches = population_phase(torch, dev, card, workdir)
         log(f"# phase 11 took {t1 - t0:.1f} s, phase 12 {time.perf_counter() - t1:.1f} s")
@@ -2126,17 +2277,170 @@ def lane_variants(torch) -> int:
     return 0
 
 
+# --b5-variants: B5's design choices (csrc/local_classify.cu's SID_B5_*
+# macros), each built with -D
+B5_VARIANTS = {
+    f"{'staged' if st else 'global'} table, {mb} blocks an SM, tail {'regrouped' if rg else 'row by row'}":
+        {"SID_B5_STAGE": st, "SID_B5_MIN_BLOCKS": mb, "SID_B5_REGROUP": rg}
+    for st in (0, 1) for mb in (5, 6) for rg in (0, 1)
+}
+
+
+def b5_variants(torch) -> int:
+    """--b5-variants: csrc/local_classify.cu built once a variant
+    (B5_VARIANTS: the table's head staged with cp.async and the counts
+    prefetched, or both read from global memory; 5 or 6 blocks an SM; the
+    LRT tail row by row or regrouped by erfc's arm) with the port's nvcc
+    flags into sid_tpu_torch/_build/. For each, B5's registers, spills,
+    blocks an SM and f64 instructions a row; at phase 3's U = 1M profiles
+    every -E and prior, p1, p2 and the byte bitwise the committed kernel's;
+    then device-only times at -E 0.1, prior 1e-3 in turns (two rounds, the
+    second reversed), and stop."""
+    from sid_tpu_torch.native import build
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+
+    card = card_line()
+    print(f"# {card}", flush=True)
+    dev = torch.device("cuda")
+    names = {f"b5_variant_{k}": name for k, name in enumerate(B5_VARIANTS)}
+    src = os.path.join(build.CSRC, "local_classify.cu")
+    built = build_sources(build, {tag: src for tag in names},
+                          {tag: [f"-D{k}={v}" for k, v in B5_VARIANTS[name].items()] for tag, name in names.items()})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    libs = {}
+    for tag, name in names.items():
+        path, report = built[tag]
+        lib = libs[name] = lc.load_kernel_library(path)
+        (r,) = [v for fn, v in report.items() if "local_classify_lrt_kernel" in fn]
+        (c,) = [row_counts(v) for fn, v in sass_kernels(path).items() if "local_classify_lrt_kernel" in fn]
+        with local_library(lib):
+            blocks = lc.resident_blocks(dev, True)
+        print(f"# {name}: local_classify_lrt_kernel {r['registers']} registers, {r['spill_stores']} bytes spill "
+              f"stores, {r['spill_loads']} bytes spill loads, {blocks // sms} blocks an SM; a row executes at least "
+              f"{c['f64']} f64 instructions, {c['f64_all']} with every branch arm", flush=True)
+    prof = kernel_profiles()
+    counts_np, hi = lc.narrow_counts(prof)
+    counts = torch.from_numpy(counts_np.view(np.int16)).to(dev)
+    tab = lgamma_table(4 * hi, dev)
+    for thr in THRESHOLDS:
+        for prior in PRIORS:
+            want = [x.cpu() for x in lc.local_classify_lrt(counts, thr, prior, ALPHA, tab)]
+            for name, lib in libs.items():
+                with local_library(lib):
+                    got = [x.cpu() for x in lc.local_classify_lrt(counts, thr, prior, ALPHA, tab)]
+                if not all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(got, want)):
+                    raise AssertionError(f"{name} differs from the committed B5 at -E {thr}, prior {prior}")
+    print(f"# every variant's p1, p2 and byte bitwise the committed B5 at U={prof.shape[0]}, every -E and prior",
+          flush=True)
+    buf = torch.empty(lc.BYTES_PER_ROW * prof.shape[0], dtype=torch.uint8, device=dev)
+    sets = [(torch.roll(counts, 7919 * k, 0).contiguous(),) for k in range(INPUT_SETS)]
+
+    def way(lib):
+        def run(c):
+            with local_library(lib):
+                lc._launch(c, 0.1, 1e-3, tab, buf, ALPHA)
+        return run
+
+    ways = {"committed": way(lc._kernel_lib()), **{name: way(lib) for name, lib in libs.items()}}
+    times = in_turns(torch, ways, sets)
+    for name, v in times.items():
+        print(f"# B5 at U={prof.shape[0]}, -E 0.1, prior 1e-3, {name}: device only {statistics.median(v):.4f} ms "
+              f"(readings {', '.join(f'{x:.4f}' for x in v)}); on {card}", flush=True)
+    return 0
+
+
+# --bh-variants: the multi-block BH sort's design choices (the SID_BH_*
+# macros of csrc/bh_sort.cuh and csrc/lrt_bh.cu), each built with -D
+BH_VARIANTS = {
+    f"{'staged' if st else 'direct'} scatter, {items} pairs a thread, look-back {lb}":
+        {"SID_BH_STAGED": st, "SID_BH_SORT_ITEMS": items, "SID_BH_LOOKBACK": lb}
+    for st, items, lb in ((1, 16, 4), (1, 16, 8), (1, 16, 16), (1, 12, 8), (0, 16, 4), (0, 8, 4))
+}
+
+
+def bh_variants(torch) -> int:
+    """--bh-variants: csrc/lrt_bh.cu built once a variant (BH_VARIANTS:
+    the scatter staged in shared memory or straight from registers, the
+    pairs a thread, the look-back words read at once) with the port's nvcc
+    flags into sid_tpu_torch/_build/. For each, the scatter pass's and the
+    scan's registers and spills; at U = 1M (B5's p2 of phase 3's profiles
+    with ties and NaN, and uniform p cubed, whose keys spread over more
+    bins) BH bitwise adjust_benjamini_hochberg_np; the whole BH on the
+    device in turns (two rounds, the second reversed), 8- and 11-bit digits
+    of the committed build beside them; then stop."""
+    from sid_tpu_torch.native import build
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import stats
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+
+    card = card_line()
+    print(f"# {card}", flush=True)
+    dev = torch.device("cuda")
+    names = {f"bh_variant_{k}": name for k, name in enumerate(BH_VARIANTS)}
+    src = os.path.join(build.CSRC, "lrt_bh.cu")
+    built = build_sources(build, {tag: src for tag in names},
+                          {tag: [f"-D{k}={v}" for k, v in BH_VARIANTS[name].items()] for tag, name in names.items()})
+    libs = {}
+    for tag, name in names.items():
+        path, report = built[tag]
+        libs[name] = stats.load_kernel_library(path)
+        for fn, r in sorted(report.items()):
+            if "bh_radix_pass_kernel" in fn or f"bh_scan_kernelILi{stats.BH_ITEMS}" in fn:
+                print(f"# {name}: {fn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
+                      f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads", flush=True)
+    prof = kernel_profiles()
+    counts_np, hi = lc.narrow_counts(prof)
+    counts = torch.from_numpy(counts_np.view(np.int16)).to(dev)
+    p2 = lc.local_classify_lrt(counts, 0.1, 1e-3, ALPHA, lgamma_table(4 * hi, dev))[1].clone()
+    p2[::997] = 0.5
+    p2[::1999] = float("nan")
+    cubed = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, prof.shape[0]) ** 3).to(dev)
+    out = torch.empty_like(p2)
+    committed = stats._kernel_lib()
+
+    def way(lib, bits=8):
+        def run(q):
+            stats._lib = lib
+            try:
+                stats.launch_bh(q, None, out, bits=bits)
+            finally:
+                stats._lib = committed
+        return run
+
+    ways = {"committed, 8-bit digits": way(committed), "committed, 11-bit digits": way(committed, 11),
+            **{name: way(lib) for name, lib in libs.items()}}
+    for label, p in (("B5's p2", p2), ("uniform p cubed", cubed)):
+        want = stats.adjust_benjamini_hochberg_np(p.cpu().numpy())
+        for name, fn in ways.items():
+            fn(p)
+            if not np.array_equal(out.cpu().numpy().view(np.uint64), want.view(np.uint64)):
+                raise AssertionError(f"BH {name} differs from the host BH on {label}")
+        times = in_turns(torch, ways, [(torch.roll(p, 7919 * j, 0).contiguous(),) for j in range(3)])
+        for name, v in times.items():
+            print(f"# BH at U={p.shape[0]}, {label}, {name}: bitwise the host BH; device only "
+                  f"{statistics.median(v):.4f} ms (readings {', '.join(f'{x:.4f}' for x in v)}); on {card}",
+                  flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
-    ap.add_argument("--parent", help="an unpacked tree of the parent commit: its lane kernels bitwise and in turns")
+    ap.add_argument("--parent", help="an unpacked tree of the parent commit: its B5 and BH kernels (csrc/"
+                    "local_classify.cu, csrc/lrt_bh.cu) bitwise and in turns in phase 13")
+    ap.add_argument("--b5-variants", action="store_true",
+                    help="time B5's design variants (B5_VARIANTS) in turns, and stop")
+    ap.add_argument("--bh-variants", action="store_true",
+                    help="time the BH sort's design variants (BH_VARIANTS) in turns, and stop")
     ap.add_argument("--lane-variants", action="store_true",
                     help="time variants of the lane kernels (LANE_VARIANTS) in turns, and stop")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     # ---- 1. probe ----
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2158,6 +2462,10 @@ def main() -> int:
 
     if args.lane_variants:
         return lane_variants(torch)
+    if args.b5_variants:
+        return b5_variants(torch)
+    if args.bh_variants:
+        return bh_variants(torch)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"# device: {kind} (count {torch.cuda.device_count()}); torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2182,7 +2490,8 @@ def main() -> int:
             if r["spill_stores"] or r["spill_loads"]:
                 raise AssertionError(f"ptxas spills registers in {fn}")
         kernels = sass_kernels(libs[name])
-        sass.update({fn: row_counts(instrs) for fn, instrs in kernels.items()})
+        sass.update({fn: {**row_counts(instrs), "f64_kernel": sum(op in F64_OPCODES for _, _, op, _ in instrs)}
+                     for fn, instrs in kernels.items()})
         if name != "lynch":
             continue
         for fn, instrs in sorted(kernels.items()):
@@ -2688,14 +2997,16 @@ def main() -> int:
         quality_row = quality_kernel_phase(torch, dev, card, sass)
         quality_row["launches"], qsrc = quality_path_phase(torch, dev, card, workdir, golden_src, real_src)
         stream_phase(card, workdir, qsrc)
-        lrt_rows = device_lrt_kernel_phase(torch, dev, card, sass, prof_np, lrt_marginals, fit_prof)
+        small_prof = unique_profiles(parse_pileup(synth).counts)[0]
+        parent = parent_device_lrt(build, args.parent) if args.parent else None
+        lrt_rows = device_lrt_kernel_phase(torch, dev, card, sass, prof_np, lrt_marginals, fit_prof, small_prof,
+                                           parent)
         lrt_launches = device_lrt_path_phase(torch, card, golden_src, synth, qsrc)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # ---- 11-12. the cohort's lane kernels, the population path ----
-    parent = parent_lanes_library(build, args.parent) if args.parent else None
-    lane_rows = population_phases(torch, dev, card, sass, parent)
+    lane_rows = population_phases(torch, dev, card, sass)
 
     # ---- 14. results ----
     kernel_rows = [{
@@ -2726,6 +3037,7 @@ def main() -> int:
     for row in lrt_rows:
         row["launches"] = lrt_launches[row["name"]]
     kernel_rows += lrt_rows
+    log(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -19,8 +19,8 @@
 // long-double range screen of models/local.py::long_double_range_rows
 // (cov * ln4 > LD_LOG_MAX or cov * K + prior > -LD_LOG_MIN, with the
 // constants from the host), packed into one byte. classify_row_lrt adds
-// sid_tpu's fused tail of the row (the prior, both LRTs through lrt.cuh and
-// is_het in bit 5) for the exact_pvalues=False flow.
+// sid_tpu's fused tail of the row (the prior, both LRTs through lrt.cuh
+// with one erfc, and is_het in bit 5) for the exact_pvalues=False flow.
 //
 // Every operation is a separate IEEE f64 operation in that order: build
 // with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
@@ -202,24 +202,42 @@ struct LocalLrtParams {
 // the byte's bit 5: is_het
 constexpr unsigned kHetBit = 32u;
 
-// classify_row, then sid_tpu/models/local.py:59-65 (classify_local's tail):
-// l1 += log(1 - prior), l2 += log(prior) with a prior; p1 = lrt(l2, l1),
-// p2 = lrt(l1, l2); is_het = l2 > l1 and p2 < alpha, as bit 5 of the byte.
-// Writes p1 and p2 and returns the byte.
+// classify_row, then the prior of sid_tpu/models/local.py:59-65
+// (classify_local's tail): l1 += log(1 - prior), l2 += log(prior) with a
+// prior. Writes l1 and l2 and returns B1's byte.
 template <class Table>
-SID_HD unsigned classify_row_lrt(uint32_t lo, uint32_t hi, const ClassifyParams& p,
-                                 const LocalLrtParams& q, const Table& table, double* p1,
-                                 double* p2) {
-  double l1, l2;
-  unsigned byte = classify_row(lo, hi, p, table, &l1, &l2);
+SID_HD unsigned classify_row_prior(uint32_t lo, uint32_t hi, const ClassifyParams& p,
+                                   const LocalLrtParams& q, const Table& table, double* l1,
+                                   double* l2) {
+  const unsigned byte = classify_row(lo, hi, p, table, l1, l2);
   if (q.use_prior) {
-    l1 = add_keep_nan(l1, q.log_prior_hom);
-    l2 = add_keep_nan(l2, q.log_prior_het);
+    *l1 = add_keep_nan(*l1, q.log_prior_hom);
+    *l2 = add_keep_nan(*l2, q.log_prior_het);
   }
-  *p1 = lrt_pvalue(l2, l1);
-  *p2 = lrt_pvalue(l1, l2);
+  return byte;
+}
+
+// The rest of the tail from the row's (l1, l2) after the prior, e =
+// erfc(sqrt(lrt_pair_arg(l1, l2))) and z = erfc(0.0): p1 = lrt(l2, l1), p2
+// = lrt(l1, l2) (lrt.cuh lrt_pair_from), is_het = l2 > l1 and p2 < alpha
+// as bit 5 of the byte. Writes p1 and p2 and returns the byte.
+SID_HD unsigned lrt_tail(double l1, double l2, double e, double z, const LocalLrtParams& q,
+                         unsigned byte, double* p1, double* p2) {
+  lrt_pair_from(l1, l2, e, z, p1, p2);
   if (l2 > l1 && *p2 < q.alpha) byte |= kHetBit;
   return byte;
+}
+
+// B5's row: classify_row_prior, one erfc, lrt_tail; z is erfc(0.0) as the
+// caller evaluated it once. Bitwise the tail of two lrt_pvalue calls.
+template <class Table>
+SID_HD unsigned classify_row_lrt(uint32_t lo, uint32_t hi, const ClassifyParams& p,
+                                 const LocalLrtParams& q, const Table& table, double z,
+                                 double* p1, double* p2) {
+  double l1, l2;
+  const unsigned byte = classify_row_prior(lo, hi, p, q, table, &l1, &l2);
+  const double e = erfc(sqrt(lrt_pair_arg(l1, l2)));
+  return lrt_tail(l1, l2, e, z, q, byte, p1, p2);
 }
 
 }  // namespace sid

@@ -4,6 +4,7 @@
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblocal_classify_host.so local_classify_host.cpp
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -60,6 +61,7 @@ void sid_local_classify_lrt_rows_host(const uint16_t* counts, int64_t n,
                               params[4], params[5], every};
   const sid::LocalLrtParams q{lrt[0], lrt[1], lrt[2], use_prior};
   const sid::StagedTable table{head, head_len, tab, tab_len};
+  const double z = erfc(0.0);
   double* p1 = static_cast<double*>(out);
   double* p2 = p1 + n;
   uint8_t* packed = reinterpret_cast<uint8_t*>(p1 + 2 * n);
@@ -67,8 +69,24 @@ void sid_local_classify_lrt_rows_host(const uint16_t* counts, int64_t n,
     uint32_t word[2];
     memcpy(word, counts + 4 * i, sizeof(word));
     packed[i] = static_cast<uint8_t>(
-        sid::classify_row_lrt(word[0], word[1], p, q, table, p1 + i, p2 + i));
+        sid::classify_row_lrt(word[0], word[1], p, q, table, z, p1 + i, p2 + i));
   }
+}
+
+// B5's one-erfc tail over logs: (p1, p2) = lrt_pair_from(l1, l2,
+// erfc(sqrt(lrt_pair_arg(l1, l2))), erfc(0.0)), the pair that
+// (lrt_pvalue(l2, l1), lrt_pvalue(l1, l2)) gives with two erfc
+void sid_lrt_pair_one_erfc_host(const double* l1, const double* l2, int64_t n, double* p1, double* p2) {
+  const double z = erfc(0.0);
+  for (int64_t i = 0; i < n; ++i) {
+    const double e = erfc(sqrt(sid::lrt_pair_arg(l1[i], l2[i])));
+    sid::lrt_pair_from(l1[i], l2[i], e, z, p1 + i, p2 + i);
+  }
+}
+
+// lrt_pvalue(l0, l1) over arrays, the two-erfc form
+void sid_lrt_pvalue_pairs_host(const double* l0, const double* l1, int64_t n, double* out) {
+  for (int64_t i = 0; i < n; ++i) out[i] = sid::lrt_pvalue(l0[i], l1[i]);
 }
 
 double sid_long_double_underflow_log() { return sid::kLongDoubleUnderflowLog; }

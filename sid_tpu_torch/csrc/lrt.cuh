@@ -43,6 +43,35 @@ SID_HD double lrt_pvalue(double l0, double l1) {
   return erfc(sqrt(m));
 }
 
+// lrt_pvalue's special cases in its order, else v
+SID_HD double lrt_special_or(double l0, double l1, double v) {
+  if (l0 == -INFINITY) return 0.0;
+  if (l1 != l1) return l1;
+  if (l0 != l0) return l0;
+  return v;
+}
+
+// (lrt_pvalue(l2, l1), lrt_pvalue(l1, l2)) with one erfc. With d = l1 - l2,
+// the first takes erfc(sqrt(max(0, d))) and the second
+// erfc(sqrt(max(0, -d))), -d being l2 - l1 exactly; they cannot both be
+// positive, so one erfc(sqrt(a)) serves the side that is, and the other
+// takes z, erfc(0.0) as the caller evaluated it. d is NaN only where both
+// logs are +inf (a NaN or -inf log is a special case), and then both sides
+// take erfc(sqrt(d)) of the same NaN, as the two calls would.
+// lrt_pair_arg gives a, lrt_pair_from the two p-values from e =
+// erfc(sqrt(a)).
+SID_HD double lrt_pair_arg(double l1, double l2) {
+  const double d = l1 - l2;
+  return (d > 0.0 || d != d) ? d : (d < 0.0 ? -d : 0.0);
+}
+
+SID_HD void lrt_pair_from(double l1, double l2, double e, double z, double* p1, double* p2) {
+  const double d = l1 - l2;
+  const bool nan = d != d;
+  *p1 = lrt_special_or(l2, l1, (d > 0.0 || nan) ? e : z);
+  *p2 = lrt_special_or(l1, l2, (d < 0.0 || nan) ? e : z);
+}
+
 // x + y where x may be NaN: x86's add passes the NaN through with its sign;
 // the card's need not, so a NaN x is returned as it is
 SID_HD double add_keep_nan(double x, double y) { return x != x ? x : x + y; }

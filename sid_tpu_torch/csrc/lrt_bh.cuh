@@ -17,7 +17,8 @@
 //   out[ord[i]] = run[i] > 1 ? 1 : run[i]
 // min is exact, so the running min is the same bits however it is split
 // into blocks, as long as every combine keeps the earlier operand on the
-// left (the first NaN in the order wins, as np.minimum.accumulate keeps it).
+// left (the first NaN in the order wins, and of equal values the last, as
+// np.minimum.accumulate keeps them).
 //
 // Build with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
 #pragma once
@@ -57,11 +58,13 @@ SID_HD double bh_scaled(double p, int64_t i, int64_t m) {
   return p * static_cast<double>(m) / (static_cast<double>(m) - static_cast<double>(i));
 }
 
-// min of an earlier a and a later b: the first NaN wins, ties keep a
+// min of an earlier a and a later b as np.minimum takes it: the first NaN
+// wins, else a < b ? a : b, so a tie (+0 and -0) gives the later b, as
+// np.minimum.accumulate and torch.cummin do
 SID_HD double min_first_nan(double a, double b) {
   if (a != a) return a;
   if (b != b) return b;
-  return b < a ? b : a;
+  return a < b ? a : b;
 }
 
 SID_HD double bh_clamp(double r) { return r > 1.0 ? 1.0 : r; }

@@ -41,7 +41,7 @@ KERNELS = {
     "local_classify": ["local_classify.cuh", "lrt.cuh"],
     "lynch": ["lynch.cuh", "local_classify.cuh", "lrt.cuh"],
     "quality_finalize": ["quality_finalize.cuh", "local_classify.cuh", "lrt.cuh"],
-    "lrt_bh": ["lrt_bh.cuh", "lrt.cuh"],
+    "lrt_bh": ["lrt_bh.cuh", "bh_sort.cuh", "lrt.cuh"],
 }
 
 

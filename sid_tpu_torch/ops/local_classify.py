@@ -202,22 +202,28 @@ def _check(counts: torch.Tensor, lgamma_tab: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def load_kernel_library(path: str) -> ctypes.CDLL:
+    """A build of csrc/local_classify.cu at ``path`` with its functions'
+    types set."""
+    lib = ctypes.CDLL(path)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sid_local_classify_launch.restype = i32
+    lib.sid_local_classify_launch.argtypes = [p, ctypes.c_int64, p, i32, p, i32, p, i32, p]
+    lib.sid_local_classify_lrt_launch.restype = i32
+    lib.sid_local_classify_lrt_launch.argtypes = [p, ctypes.c_int64, p, i32, p, i32, p, i32, p, i32, p]
+    for query in (lib.sid_local_classify_resident_blocks, lib.sid_local_classify_lrt_resident_blocks):
+        query.restype = i32
+        query.argtypes = [p]
+    lib.sid_cuda_error_string.restype = ctypes.c_char_p
+    lib.sid_cuda_error_string.argtypes = [i32]
+    return lib
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build.kernel_library("local_classify"))
-            p, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.sid_local_classify_launch.restype = i32
-            lib.sid_local_classify_launch.argtypes = [p, ctypes.c_int64, p, i32, p, i32, p, i32, p]
-            lib.sid_local_classify_lrt_launch.restype = i32
-            lib.sid_local_classify_lrt_launch.argtypes = [p, ctypes.c_int64, p, i32, p, i32, p, i32, p, i32, p]
-            for query in (lib.sid_local_classify_resident_blocks, lib.sid_local_classify_lrt_resident_blocks):
-                query.restype = i32
-                query.argtypes = [p]
-            lib.sid_cuda_error_string.restype = ctypes.c_char_p
-            lib.sid_cuda_error_string.argtypes = [i32]
-            _lib = lib
+            _lib = load_kernel_library(build.kernel_library("local_classify"))
         return _lib
 
 

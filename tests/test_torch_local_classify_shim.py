@@ -81,6 +81,10 @@ def shim(tmp_path_factory):
     lib.sid_local_classify_lrt_rows_host.argtypes = [
         p, ctypes.c_int64, p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p, ctypes.c_int, p,
     ]
+    lib.sid_lrt_pair_one_erfc_host.restype = None
+    lib.sid_lrt_pair_one_erfc_host.argtypes = [p, p, ctypes.c_int64, p, p]
+    lib.sid_lrt_pvalue_pairs_host.restype = None
+    lib.sid_lrt_pvalue_pairs_host.argtypes = [p, p, ctypes.c_int64, p]
     lib.sid_long_double_underflow_log.restype = ctypes.c_double
     lib.sid_long_double_underflow_log.argtypes = []
     return lib
@@ -262,3 +266,34 @@ def test_lrt_rows_table_overrun_gives_nan_pvalues(shim):
     tab = lgamma_table(8, "cpu").numpy()[:10]
     p1, p2, _ = run_lrt_rows(shim, counts, 0.1, -1.0, 0.05, tab)
     assert np.isfinite(p1[0]) and np.isnan(p1[1]) and np.isnan(p2[1])
+
+
+# every pair of these logs, both ways: zeros of both signs, +-1, the
+# f64 exp's underflow, a tiny positive and a huge negative, +-inf and NaN of
+# both signs
+PAIR_LOGS = np.array([0.0, -0.0, 1.0, -1.0, -745.0, 1e-300, -1e300, np.inf, -np.inf, np.nan, -np.nan])
+
+
+@pytest.mark.parametrize("prior", [None, 1e-3, 0.999])
+def test_one_erfc_tail_is_bitwise_the_two_lrt_pvalues(shim, prior):
+    """B5's tail with one erfc (lrt_pair_arg, lrt_pair_from) is bitwise
+    (lrt_pvalue(l2, l1), lrt_pvalue(l1, l2)) under glibc, NaN bits
+    included: both logs +inf (d NaN) gives NaN on both sides, -inf gives 0."""
+    lib = shim
+    l1, l2 = (np.ascontiguousarray(a.ravel()) for a in np.meshgrid(PAIR_LOGS, PAIR_LOGS))
+    l1 = np.concatenate([l1, np.random.default_rng(5).normal(-50, 30, 2000)])
+    l2 = np.concatenate([l2, np.random.default_rng(6).normal(-50, 30, 2000)])
+    if prior is not None:
+        with np.errstate(invalid="ignore"):
+            l1 = np.where(np.isnan(l1), l1, l1 + np.log(np.float64(1.0 - prior)))
+            l2 = np.where(np.isnan(l2), l2, l2 + np.log(np.float64(prior)))
+    n = l1.size
+    p1, p2, w1, w2 = (np.empty(n) for _ in range(4))
+    lib.sid_lrt_pair_one_erfc_host(l1.ctypes.data, l2.ctypes.data, n, p1.ctypes.data, p2.ctypes.data)
+    lib.sid_lrt_pvalue_pairs_host(l2.ctypes.data, l1.ctypes.data, n, w1.ctypes.data)
+    lib.sid_lrt_pvalue_pairs_host(l1.ctypes.data, l2.ctypes.data, n, w2.ctypes.data)
+    assert np.array_equal(p1.view(np.uint64), w1.view(np.uint64))
+    assert np.array_equal(p2.view(np.uint64), w2.view(np.uint64))
+    both_inf = (l1 == np.inf) & (l2 == np.inf)
+    assert both_inf.any() and np.isnan(p1[both_inf]).all() and np.isnan(p2[both_inf]).all()
+    assert (p2[l1 == -np.inf] == 0).all() and (p1[l2 == -np.inf] == 0).all()

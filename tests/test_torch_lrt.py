@@ -237,6 +237,22 @@ def test_tensor_entry_points_check_their_inputs():
         stats.adjust_benjamini_hochberg(torch.zeros(8, dtype=torch.float64)[::2])
 
 
+@pytest.mark.parametrize("kw, match", [
+    ({"items": 3}, "items"), ({"bits": 9}, "bits"),
+    ({"order": torch.zeros(4, dtype=torch.int32)}, "order"), ({"order": torch.zeros(3, dtype=torch.int64)}, "order"),
+])
+def test_bh_launch_checks_its_arguments_before_any_launch(kw, match):
+    """launch_bh raises on a tile, digit width or order the kernels do not
+    take, before it loads the kernel library."""
+    p = torch.zeros(4, dtype=torch.float64)
+    kw = {"order": None, **kw}
+    with pytest.raises(ValueError, match=match):
+        stats.launch_bh(p, kw.pop("order"), torch.empty_like(p), **kw)
+    if "bits" in kw:
+        with pytest.raises(ValueError, match="bits"):
+            stats.bh_radix_order(p, kw["bits"])
+
+
 # ---- the dead-code API, on tests/test_stats.py's vectors ----
 
 def test_bonferroni_is_sid_tpus():

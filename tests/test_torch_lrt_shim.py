@@ -8,8 +8,12 @@ card runs; ``lrt_bh_host.cpp`` loops them over arrays. Built here with g++
   host path), NaN bits included;
 - the LRT kernel's row (clamp, -R prior, both p-values) is bitwise the host
   path's composition (numpy clamp and prior, ``sidtpu_lrt_pvalues``);
-- the BH scan walked as the kernels split it (tiles of threads x items
-  positions: one tile, three tiles, many tiles) is bitwise the host BH.
+- BH walked as the kernels split it (``csrc/bh_sort.cuh``): the radix
+  order's histogram, plan and digit passes over tiles, warps and lanes is
+  exactly numpy's stable argsort of -p and ``bh_order``, skipping the
+  digits that are the same in every key; the chained scan over tiles with
+  its look-back, and the one-block path for one and two arrays, are
+  bitwise the host BH.
 """
 
 import ctypes
@@ -48,8 +52,20 @@ def shim(tmp_path_factory):
     lib.sid_lrt_pvalue_host.argtypes = [p, p, i64, p]
     lib.sid_lrt_pvalues_host.restype = None
     lib.sid_lrt_pvalues_host.argtypes = [p, p, i64, p, i32, p, p]
-    lib.sid_bh_adjust_host.restype = None
-    lib.sid_bh_adjust_host.argtypes = [p, p, i64, i32, i32, ctypes.c_double, p, p]
+    lib.sid_bh_radix_keys_host.restype = None
+    lib.sid_bh_radix_keys_host.argtypes = [p, i64, p]
+    lib.sid_bh_p_of_key_host.restype = None
+    lib.sid_bh_p_of_key_host.argtypes = [p, i64, p, p]
+    lib.sid_bh_radix_order_host.restype = i32
+    lib.sid_bh_radix_order_host.argtypes = [p, i64, i32, i32, i32, p]
+    lib.sid_bh_scan_host.restype = None
+    lib.sid_bh_scan_host.argtypes = [p, p, i64, i32, i32, i32, ctypes.c_double, p, p]
+    lib.sid_bh_small_host.restype = i32
+    lib.sid_bh_small_host.argtypes = [i32, p, i64, ctypes.c_double, p, p]
+    lib.sid_bh_layout_bytes_host.restype = i64
+    lib.sid_bh_layout_bytes_host.argtypes = [i64, i32, i32]
+    lib.sid_bh_constants_host.restype = None
+    lib.sid_bh_constants_host.argtypes = [p]
     return lib
 
 
@@ -101,34 +117,181 @@ def bh_input(m, seed):
     return p
 
 
-@pytest.mark.parametrize("threads, items", [(256, 8), (64, 5), (4, 3), (1, 1), (7, 64)])
-@pytest.mark.parametrize("m", [1, 2, 1000, 4093])
-def test_bh_walk_over_split_grids_is_the_host_bh(shim, m, threads, items):
-    """One tile (m <= threads x items), three tiles and many: the same
-    bits, and is_het = adjusted < alpha."""
-    p = bh_input(m, seed=m)
+def edge_input(m, seed):
+    """bh_input with every edge of the key planted: -0, NaN of both signs,
+    +-inf, negatives, subnormals and values above 1."""
+    p = bh_input(m, seed)
+    rng = np.random.default_rng(seed + 1)
+    for v, every in ((-0.0, 30), (-np.nan, 90), (np.inf, 150), (-np.inf, 150), (-0.25, 70),
+                     (-1e-300, 200), (5e-324, 200), (1.5, 60), (1e300, 300)):
+        p[rng.integers(0, m, max(1, m // every))] = v
+    return p
+
+
+INPUTS = {"ties": bh_input, "edges": edge_input}
+# the sort's tile (kSortTile) and the scan's (kScanThreads x kScanItems)
+TILE = 4096
+ORDER_SIZES = [0, 1, TILE - 1, TILE, TILE + 1, 4093, 2**20]
+
+
+def radix_order(shim, p, bits, threads=256, items=16):
+    m = p.shape[0]
+    order = np.empty(m, np.uint32)
+    passes = shim.sid_bh_radix_order_host(_ptr(p), m, bits, threads, items, _ptr(order))
+    return order.astype(np.int64), passes
+
+
+@pytest.mark.parametrize("kind", list(INPUTS))
+@pytest.mark.parametrize("bits", [8, 11])
+@pytest.mark.parametrize("m", ORDER_SIZES)
+def test_radix_order_is_the_stable_argsort(shim, m, bits, kind):
+    """The kernels' order (histogram, plan, digit passes over tiles of
+    256 x 16 pairs) is numpy's stable argsort of -p and bh_order's, +-0,
+    NaN of both signs, +-inf and negatives included."""
+    p = INPUTS[kind](m, seed=m + bits) if m else np.zeros(0)
+    order, passes = radix_order(shim, p, bits)
+    assert np.array_equal(order, np.argsort(-p, kind="stable"))
+    if m:
+        assert np.array_equal(stats.bh_order(torch.from_numpy(p)).numpy(), order)
+    assert passes <= -(-64 // bits)
+
+
+@pytest.mark.parametrize("threads, items", [(32, 1), (64, 3), (96, 2)])
+@pytest.mark.parametrize("m", [33, 1000, 4093])
+def test_radix_order_over_small_tiles_is_the_stable_argsort(shim, m, threads, items):
+    """Many tiles, each with a look-back over the ones before it."""
+    p = edge_input(m, seed=7 * m)
+    for bits in (8, 11):
+        assert np.array_equal(radix_order(shim, p, bits, threads, items)[0], np.argsort(-p, kind="stable"))
+
+
+def test_radix_keys_order_as_the_key(shim):
+    """The twiddled key's unsigned order is bh_order's key's float order:
+    -inf < negatives < +0 < positives < +inf < NaN, zeros of both signs one
+    key and every NaN one key, above every other."""
+    p = edge_input(5000, seed=11)
+    keys = np.empty(p.shape[0], np.uint64)
+    shim.sid_bh_radix_keys_host(_ptr(p), p.shape[0], _ptr(keys))
+    with np.errstate(invalid="ignore"):
+        key = np.where(np.isnan(p), np.float64(np.nan), np.float64(0.0) - p)
+    assert np.array_equal(np.argsort(keys, kind="stable"), np.argsort(key, kind="stable"))
+    assert len(set(keys[np.isnan(p)].tolist())) == 1 and len(set(keys[p == 0].tolist())) == 1
+    assert np.all(keys[np.isnan(p)] > keys[~np.isnan(p)].max())
+
+
+@pytest.mark.parametrize("m", [1, 5000])
+def test_scan_reads_p_from_the_sorted_key(shim, m):
+    """bh_scan_kernel takes p back from the sorted key (bh_p_of_key), bitwise,
+    and gathers p itself only for the keys of zeros and NaN, whose sign and
+    payload the key dropped."""
+    p = edge_input(m, seed=13)
+    keys = np.empty(m, np.uint64)
+    shim.sid_bh_radix_keys_host(_ptr(p), m, _ptr(keys))
+    got = np.full(m, 7.0)
+    ok = np.empty(m, np.uint8)
+    shim.sid_bh_p_of_key_host(_ptr(keys), m, _ptr(got), _ptr(ok))
+    gather = (p == 0) | np.isnan(p)
+    assert np.array_equal(ok.astype(bool), ~gather)
+    assert np.array_equal(bits(got[~gather]), bits(p[~gather]))
+
+
+@pytest.mark.parametrize("case, passes8, passes11", [
+    ("one value", 0, 0), ("zeros of both signs", 0, 0), ("nan of both signs", 0, 0),
+    ("two values", 1, 1), ("low bits", 1, 1), ("both signs", 8, 6),
+])
+def test_radix_order_skips_the_digits_every_key_shares(shim, case, passes8, passes11):
+    """A digit that is the same in every key gets no scatter pass; the
+    order is still the stable argsort (the identity where none is left)."""
+    m = 10000
+    rng = np.random.default_rng(3)
+    p = {
+        "one value": np.full(m, 0.25),
+        "zeros of both signs": np.where(rng.random(m) < 0.5, 0.0, -0.0),
+        "nan of both signs": np.where(rng.random(m) < 0.5, np.nan, -np.nan),
+        "two values": np.where(rng.random(m) < 0.5, 0.25, 0.5),  # exponents differ: the top digit only
+        "low bits": (np.full(m, 0.25).view(np.uint64) + rng.integers(0, 200, m).astype(np.uint64)).view(np.float64),
+        "both signs": np.where(rng.random(m) < 0.5, 0.25, -0.25),  # a negative key's bits flip
+    }[case]
+    for bits, want in ((8, passes8), (11, passes11)):
+        order, passes = radix_order(shim, p, bits)
+        assert passes == want
+        assert np.array_equal(order, np.argsort(-p, kind="stable"))
+
+
+SCAN_SPLITS = [(256, 16, 0), (256, 4, 0), (32, 1, 3), (64, 3, 1)]
+
+
+@pytest.mark.parametrize("threads, items, lag", SCAN_SPLITS)
+@pytest.mark.parametrize("m", [1, 2, 1000, 4093, TILE + 1])
+def test_chained_scan_walk_is_the_host_bh(shim, m, threads, items, lag):
+    """bh_scan_kernel's tiles in order, each thread's blocked positions, the
+    block's shuffle scan and the look-back (through `lag` tiles that show
+    only their aggregates): bitwise adjust_benjamini_hochberg_np, is_het =
+    adjusted < alpha; NaN of both signs, +-0 and +-inf included."""
+    p = edge_input(m, seed=m + threads)
     order = np.ascontiguousarray(np.argsort(-p, kind="stable"))
     out = np.empty(m)
     het = np.empty(m, np.uint8)
-    shim.sid_bh_adjust_host(_ptr(p), _ptr(order), m, threads, items, 0.05, _ptr(out), _ptr(het))
+    shim.sid_bh_scan_host(_ptr(p), _ptr(order), m, threads, items, lag, 0.05, _ptr(out), _ptr(het))
     want = stats.adjust_benjamini_hochberg_np(p)
     assert np.array_equal(bits(out), bits(want))
     with np.errstate(invalid="ignore"):
         assert np.array_equal(het.astype(bool), want < 0.05)
-    assert np.array_equal(stats.bh_order(torch.from_numpy(p)).numpy(), order)
 
 
-def test_bh_walk_splits_as_described(shim):
-    """The split of the largest case: 4093 positions in tiles of 4 x 3
-    give 342 tiles, of 256 x 8 two, of 7 x 64 ten; the kernels' launches
-    follow the tiles (one pass for one tile, three otherwise)."""
-    tiles = {(t, i): -(-4093 // (t * i)) for t, i in ((4, 3), (256, 8), (7, 64))}
-    assert tiles == {(4, 3): 342, (256, 8): 2, (7, 64): 10}
-    assert stats.bh_launches(2048) == 1 and stats.bh_launches(2049) == 3 and stats.bh_launches(0) == 0
+@pytest.mark.parametrize("arrays", [1, 2])
+@pytest.mark.parametrize("m", [1, 2, 1000, 4093, 8192])
+def test_one_block_path_is_the_host_bh(shim, m, arrays):
+    """bh_small_kernel's block for each of one or two arrays: the key, the
+    8-bit radix passes in shared memory, the block scan: bitwise
+    adjust_benjamini_hochberg_np; is_het on the second array only."""
+    ps = [edge_input(m, seed=m + a) for a in range(arrays)]
+    outs = [np.empty(m) for _ in range(arrays)]
+    hets = [np.full(m, 7, np.uint8) for _ in range(arrays)]
+    ptrs = (ctypes.c_void_p * 2)(*[_ptr(x) for x in ps] + [None] * (2 - arrays))
+    optrs = (ctypes.c_void_p * 2)(*[_ptr(x) for x in outs] + [None] * (2 - arrays))
+    hptrs = (ctypes.c_void_p * 2)(None, _ptr(hets[1]) if arrays == 2 else None)
+    assert shim.sid_bh_small_host(arrays, ptrs, m, 0.05, optrs, hptrs) >= 0
+    for a in range(arrays):
+        want = stats.adjust_benjamini_hochberg_np(ps[a])
+        assert np.array_equal(bits(outs[a]), bits(want))
+    with np.errstate(invalid="ignore"):
+        if arrays == 2:
+            assert np.array_equal(hets[1].astype(bool), want < 0.05)
+    assert np.all(hets[0] == 7)
 
 
-def test_bh_threads_are_the_kernels():
-    import re
+def test_one_block_path_refuses_more_than_it_holds(shim):
+    p = np.zeros(stats.BH_SMALL_MAX + 1)
+    out = np.empty_like(p)
+    ptrs = (ctypes.c_void_p * 2)(_ptr(p), None)
+    optrs = (ctypes.c_void_p * 2)(_ptr(out), None)
+    assert shim.sid_bh_small_host(1, ptrs, p.shape[0], 0.05, optrs, (ctypes.c_void_p * 2)(None, None)) == -1
 
-    with open(os.path.join(CSRC, "lrt_bh.cu")) as f:
-        assert re.search(r"constexpr int kThreads = (\d+);", f.read()).group(1) == str(stats.BH_THREADS)
+
+def test_bh_constants_are_the_kernels(shim):
+    """The wrapper's tile sizes and limits are the header's."""
+    got = np.empty(4, np.int64)
+    shim.sid_bh_constants_host(_ptr(got))
+    assert got.tolist() == [stats.BH_SORT_TILE, stats.BH_SCAN_THREADS * stats.BH_ITEMS,
+                            stats.BH_SMALL_MAX, 8]
+    assert TILE == stats.BH_SORT_TILE
+
+
+@pytest.mark.parametrize("m", [8193, 2**20, 2**31 - 1])
+def test_bh_scratch_holds_the_pairs_and_the_look_back(shim, m):
+    """The scratch covers both 12-byte pair buffers and the look-back words
+    of every tile and bin."""
+    for bits in (8, 11):
+        n = shim.sid_bh_layout_bytes_host(m, bits, stats.BH_ITEMS)
+        tiles = -(-m // stats.BH_SORT_TILE)
+        assert n >= 24 * m + 8 * tiles * (1 << bits)
+        assert n % 16 == 0
+
+
+def test_bh_launches_follow_the_paths():
+    assert stats.bh_launches(0) == 0
+    assert stats.bh_launches(1) == stats.bh_launches(stats.BH_SMALL_MAX) == 1
+    assert stats.bh_launches(stats.BH_SMALL_MAX + 1) == 3 + 8
+    assert stats.bh_launches(10**6, bits=11) == 3 + 6
+    assert stats.bh_launches(10**6, ordered=True) == 2
