@@ -18,8 +18,7 @@ a thread, the slot search unrolled), holds them bitwise against the
 committed kernels at phase 11's and phase 12's cohort shapes, times them
 in turns, and stops. ``--b5-variants`` (``B5_VARIANTS``) and
 ``--bh-variants`` (``BH_VARIANTS``) do the same for B5's design choices
-(the table staged or not, 5 or 6 blocks an SM, the LRT tail row by row or
-regrouped by erfc's arm) and for the BH sort's (the scatter staged or not,
+(the table staged or not, 5 or 6 blocks an SM) and for the BH sort's (the scatter staged or not,
 pairs a thread, look-back width), each built with -D.
 
 Drives sid_tpu_torch's main paths (``engine.run`` and
@@ -2280,17 +2279,15 @@ def lane_variants(torch) -> int:
 # --b5-variants: B5's design choices (csrc/local_classify.cu's SID_B5_*
 # macros), each built with -D
 B5_VARIANTS = {
-    f"{'staged' if st else 'global'} table, {mb} blocks an SM, tail {'regrouped' if rg else 'row by row'}":
-        {"SID_B5_STAGE": st, "SID_B5_MIN_BLOCKS": mb, "SID_B5_REGROUP": rg}
-    for st in (0, 1) for mb in (5, 6) for rg in (0, 1)
+    f"{'staged' if st else 'global'} table, {mb} blocks an SM": {"SID_B5_STAGE": st, "SID_B5_MIN_BLOCKS": mb}
+    for st in (0, 1) for mb in (5, 6)
 }
 
 
 def b5_variants(torch) -> int:
     """--b5-variants: csrc/local_classify.cu built once a variant
     (B5_VARIANTS: the table's head staged with cp.async and the counts
-    prefetched, or both read from global memory; 5 or 6 blocks an SM; the
-    LRT tail row by row or regrouped by erfc's arm) with the port's nvcc
+    prefetched, or both read from global memory; 5 or 6 blocks an SM) with the port's nvcc
     flags into sid_tpu_torch/_build/. For each, B5's registers, spills,
     blocks an SM and f64 instructions a row; at phase 3's U = 1M profiles
     every -E and prior, p1, p2 and the byte bitwise the committed kernel's;

@@ -52,20 +52,16 @@ constexpr int kTabHead = 1024;  // 8 KB of shared memory a block
 // B5's design, chosen by timing its variants in turns on the card
 // (chip_smoke.B5_VARIANTS builds the others with -D): the table's head
 // staged and the counts prefetched (1) or both read straight from global
-// memory (0); the blocks an SM its launch bound asks for; the LRT tail run
-// row by row (0) or regrouped by erfc's range over each block's rows (1)
+// memory (0); the blocks an SM its launch bound asks for. (A tail that
+// regrouped each block's rows by erfc's range arm was 12 % slower.)
 #ifndef SID_B5_STAGE
 #define SID_B5_STAGE 0
 #endif
 #ifndef SID_B5_MIN_BLOCKS
 #define SID_B5_MIN_BLOCKS 6
 #endif
-#ifndef SID_B5_REGROUP
-#define SID_B5_REGROUP 0
-#endif
 constexpr bool kLrtStage = SID_B5_STAGE != 0;
 constexpr int kLrtMinBlocks = SID_B5_MIN_BLOCKS;
-constexpr bool kLrtRegroup = SID_B5_REGROUP != 0;
 
 __device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -158,80 +154,6 @@ __device__ __forceinline__ void lrt_rows(const uint2* __restrict__ counts, int64
   }
 }
 
-// erfc's arm for sqrt(a) (CUDA's erfc branches near 0.75, 5 and 27.3); a NaN
-// goes with the last; -1 where a is 0 and the row takes z
-__device__ __forceinline__ int erfc_arm(double a) {
-  if (a == 0.0) return -1;
-  const double x = sqrt(a);
-  return x < 0.75 ? 0 : x < 5.0 ? 1 : x < 27.3 ? 2 : 3;
-}
-
-// B5's rows a block at a time with the LRT tail regrouped: each thread
-// makes its row's (l1, l2) and erfc argument, the block queues the rows by
-// erfc's arm so a warp runs one arm, the queue's erfc go back by row, and
-// each thread finishes its row. The same erfc of the same argument, so the
-// same bits as lrt_rows.
-template <bool kStage>
-__device__ __forceinline__ void lrt_rows_regrouped(const uint2* __restrict__ counts, int64_t n,
-                                                   const sid::ClassifyParams& p,
-                                                   const sid::LocalLrtParams& q,
-                                                   const double* __restrict__ tab, int tab_len,
-                                                   double z, double* __restrict__ o1,
-                                                   double* __restrict__ o2,
-                                                   uint8_t* __restrict__ packed) {
-  __shared__ double arg[kThreads];
-  __shared__ double res[kThreads];
-  __shared__ uint16_t queue[kThreads];
-  __shared__ int arm_count[4];
-  __shared__ double head[kStage ? kTabHead : 1];
-  const int t = threadIdx.x;
-  int head_len = 0;
-  if constexpr (kStage) {
-    head_len = stage_head(head, tab, tab_len);
-    wait_head();
-  }
-  const sid::StagedTable staged{head, head_len, tab, tab_len};
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads; first < n; first += stride) {
-    const int64_t i = first + t;
-    double l1 = 0.0, l2 = 0.0;
-    unsigned byte = 0;
-    if (i < n) {
-      const uint2 row = __ldg(counts + i);
-      byte = sid::classify_row_prior(row.x, row.y, p, q, staged, &l1, &l2);
-    }
-    const double a = sid::lrt_pair_arg(l1, l2);
-    const int arm = i < n ? erfc_arm(a) : -1;
-    if (t < 4) arm_count[t] = 0;
-    __syncthreads();
-    const int slot = arm >= 0 ? atomicAdd(arm_count + arm, 1) : 0;
-    __syncthreads();
-    int total = 0, base = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      base += k < arm ? arm_count[k] : 0;
-      total += arm_count[k];
-    }
-    if (arm >= 0) {
-      queue[base + slot] = static_cast<uint16_t>(t);
-      arg[t] = a;
-    }
-    __syncthreads();
-    if (t < total) {
-      const int w = queue[t];
-      res[w] = erfc(sqrt(arg[w]));
-    }
-    __syncthreads();
-    if (i < n) {
-      double a1, b1;
-      byte = sid::lrt_tail(l1, l2, arm >= 0 ? res[t] : z, z, q, byte, &a1, &b1);
-      o1[i] = a1;
-      o2[i] = b1;
-      packed[i] = static_cast<uint8_t>(byte);
-    }
-  }
-}
-
 // B5: the fused on-device LRT's classify (sid_tpu/models/local.py:30,
 // classify_local, and its vmapped form population.py:287); zero is 0.0
 // from the host, so erfc(0.0) is evaluated on the card, once a thread
@@ -241,12 +163,7 @@ __global__ void __launch_bounds__(kThreads, kLrtMinBlocks)
                               const double* __restrict__ tab, int tab_len,
                               double* __restrict__ p1, double* __restrict__ p2,
                               uint8_t* __restrict__ packed) {
-  const double z = erfc(zero);
-  if constexpr (kLrtRegroup) {
-    lrt_rows_regrouped<kLrtStage>(counts, n, p, q, tab, tab_len, z, p1, p2, packed);
-  } else {
-    lrt_rows<kLrtStage>(counts, n, p, q, tab, tab_len, z, p1, p2, packed);
-  }
+  lrt_rows<kLrtStage>(counts, n, p, q, tab, tab_len, erfc(zero), p1, p2, packed);
 }
 
 // A kernel's resident blocks on the whole current device (blocks an SM by

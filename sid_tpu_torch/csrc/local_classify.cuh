@@ -202,42 +202,25 @@ struct LocalLrtParams {
 // the byte's bit 5: is_het
 constexpr unsigned kHetBit = 32u;
 
-// classify_row, then the prior of sid_tpu/models/local.py:59-65
-// (classify_local's tail): l1 += log(1 - prior), l2 += log(prior) with a
-// prior. Writes l1 and l2 and returns B1's byte.
-template <class Table>
-SID_HD unsigned classify_row_prior(uint32_t lo, uint32_t hi, const ClassifyParams& p,
-                                   const LocalLrtParams& q, const Table& table, double* l1,
-                                   double* l2) {
-  const unsigned byte = classify_row(lo, hi, p, table, l1, l2);
-  if (q.use_prior) {
-    *l1 = add_keep_nan(*l1, q.log_prior_hom);
-    *l2 = add_keep_nan(*l2, q.log_prior_het);
-  }
-  return byte;
-}
-
-// The rest of the tail from the row's (l1, l2) after the prior, e =
-// erfc(sqrt(lrt_pair_arg(l1, l2))) and z = erfc(0.0): p1 = lrt(l2, l1), p2
-// = lrt(l1, l2) (lrt.cuh lrt_pair_from), is_het = l2 > l1 and p2 < alpha
-// as bit 5 of the byte. Writes p1 and p2 and returns the byte.
-SID_HD unsigned lrt_tail(double l1, double l2, double e, double z, const LocalLrtParams& q,
-                         unsigned byte, double* p1, double* p2) {
-  lrt_pair_from(l1, l2, e, z, p1, p2);
-  if (l2 > l1 && *p2 < q.alpha) byte |= kHetBit;
-  return byte;
-}
-
-// B5's row: classify_row_prior, one erfc, lrt_tail; z is erfc(0.0) as the
-// caller evaluated it once. Bitwise the tail of two lrt_pvalue calls.
+// classify_row, then sid_tpu/models/local.py:59-65 (classify_local's tail):
+// l1 += log(1 - prior), l2 += log(prior) with a prior; p1 = lrt(l2, l1),
+// p2 = lrt(l1, l2) with one erfc (lrt.cuh lrt_pair_arg, lrt_pair_from; z is
+// erfc(0.0) as the caller evaluated it once), bitwise the two lrt_pvalue
+// calls; is_het = l2 > l1 and p2 < alpha, as bit 5 of the byte. Writes p1
+// and p2 and returns the byte.
 template <class Table>
 SID_HD unsigned classify_row_lrt(uint32_t lo, uint32_t hi, const ClassifyParams& p,
                                  const LocalLrtParams& q, const Table& table, double z,
                                  double* p1, double* p2) {
   double l1, l2;
-  const unsigned byte = classify_row_prior(lo, hi, p, q, table, &l1, &l2);
-  const double e = erfc(sqrt(lrt_pair_arg(l1, l2)));
-  return lrt_tail(l1, l2, e, z, q, byte, p1, p2);
+  unsigned byte = classify_row(lo, hi, p, table, &l1, &l2);
+  if (q.use_prior) {
+    l1 = add_keep_nan(l1, q.log_prior_hom);
+    l2 = add_keep_nan(l2, q.log_prior_het);
+  }
+  lrt_pair_from(l1, l2, erfc(sqrt(lrt_pair_arg(l1, l2))), z, p1, p2);
+  if (l2 > l1 && *p2 < q.alpha) byte |= kHetBit;
+  return byte;
 }
 
 }  // namespace sid
