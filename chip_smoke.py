@@ -2350,22 +2350,25 @@ def b5_variants(torch) -> int:
 # --bh-variants: the multi-block BH sort's design choices (the SID_BH_*
 # macros of csrc/bh_sort.cuh and csrc/lrt_bh.cu), each built with -D
 BH_VARIANTS = {
-    f"{'staged' if st else 'direct'} scatter, {items} pairs a thread, look-back {lb}":
-        {"SID_BH_STAGED": st, "SID_BH_SORT_ITEMS": items, "SID_BH_LOOKBACK": lb}
-    for st, items, lb in ((1, 16, 4), (1, 16, 8), (1, 16, 16), (1, 12, 8), (0, 16, 4), (0, 8, 4))
+    f"{'staged' if st else 'direct'} scatter, {items} pairs a thread, look-back {lb}, one-block warps of {rows}":
+        {"SID_BH_STAGED": st, "SID_BH_SORT_ITEMS": items, "SID_BH_LOOKBACK": lb, "SID_BH_SMALL_ROWS": rows}
+    for st, items, lb, rows in ((1, 16, 4, 128), (1, 16, 8, 128), (1, 16, 16, 128), (1, 12, 8, 128),
+                                (0, 16, 4, 128), (0, 8, 4, 128), (1, 16, 4, 64), (1, 16, 4, 256))
 }
 
 
 def bh_variants(torch) -> int:
     """--bh-variants: csrc/lrt_bh.cu built once a variant (BH_VARIANTS:
     the scatter staged in shared memory or straight from registers, the
-    pairs a thread, the look-back words read at once) with the port's nvcc
-    flags into sid_tpu_torch/_build/. For each, the scatter pass's and the
-    scan's registers and spills; at U = 1M (B5's p2 of phase 3's profiles
-    with ties and NaN, and uniform p cubed, whose keys spread over more
-    bins) BH bitwise adjust_benjamini_hochberg_np; the whole BH on the
-    device in turns (two rounds, the second reversed), 8- and 11-bit digits
-    of the committed build beside them; then stop."""
+    pairs a thread, the look-back words read at once, the one-block path's
+    positions a ranking warp) with the port's nvcc flags into
+    sid_tpu_torch/_build/. For each, the scatter pass's, the scan's and the
+    one-block kernel's registers and spills; at U = 1M (B5's p2 of phase
+    3's profiles with ties and NaN, and uniform p cubed, whose keys spread
+    over more bins) BH bitwise adjust_benjamini_hochberg_np, and the first
+    1,976 of each as the one-block pair (the path's shape); the whole BH on
+    the device in turns (two rounds, the second reversed), 8- and 11-bit
+    digits of the committed build beside them; then stop."""
     from sid_tpu_torch.native import build
     from sid_tpu_torch.ops import local_classify as lc
     from sid_tpu_torch.ops import stats
@@ -2383,7 +2386,7 @@ def bh_variants(torch) -> int:
         path, report = built[tag]
         libs[name] = stats.load_kernel_library(path)
         for fn, r in sorted(report.items()):
-            if "bh_radix_pass_kernel" in fn or f"bh_scan_kernelILi{stats.BH_ITEMS}" in fn:
+            if "bh_radix_pass_kernel" in fn or f"bh_scan_kernelILi{stats.BH_ITEMS}" in fn or "bh_small" in fn:
                 print(f"# {name}: {fn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
                       f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads", flush=True)
     prof = kernel_profiles()
@@ -2407,6 +2410,31 @@ def bh_variants(torch) -> int:
 
     ways = {"committed, 8-bit digits": way(committed), "committed, 11-bit digits": way(committed, 11),
             **{name: way(lib) for name, lib in libs.items()}}
+    # the path's shape: both arrays in one launch of the one-block kernel
+    q1, q2 = p2[:1976].contiguous(), cubed[:1976].contiguous()
+    o1, o2, h2 = torch.empty_like(q1), torch.empty_like(q2), torch.empty(1976, dtype=torch.uint8, device=dev)
+    w1, w2 = (stats.adjust_benjamini_hochberg_np(q.cpu().numpy()) for q in (q1, q2))
+
+    def pair(lib):
+        def run(a, b):
+            stats._lib = lib
+            try:
+                stats.launch_bh_pair(a, b, o1, o2, h2, ALPHA)
+            finally:
+                stats._lib = committed
+        return run
+
+    pairs = {"committed": pair(committed), **{name: pair(lib) for name, lib in libs.items()}}
+    for name, fn in pairs.items():
+        fn(q1, q2)
+        if not (np.array_equal(o1.cpu().numpy().view(np.uint64), w1.view(np.uint64))
+                and np.array_equal(o2.cpu().numpy().view(np.uint64), w2.view(np.uint64))):
+            raise AssertionError(f"BH {name} differs from the host BH at U=1976")
+    times = in_turns(torch, pairs, [(torch.roll(q1, 7 * j, 0).contiguous(), torch.roll(q2, 7 * j, 0).contiguous())
+                                    for j in range(3)])
+    for name, v in times.items():
+        print(f"# BH of both arrays at U=1976 (one launch), {name}: bitwise the host BH; device only "
+              f"{statistics.median(v):.4f} ms (readings {', '.join(f'{x:.4f}' for x in v)}); on {card}", flush=True)
     for label, p in (("B5's p2", p2), ("uniform p cubed", cubed)):
         want = stats.adjust_benjamini_hochberg_np(p.cpu().numpy())
         for name, fn in ways.items():

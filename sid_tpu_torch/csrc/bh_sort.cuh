@@ -70,6 +70,23 @@ constexpr int kSmallWarps = kSmallThreads / 32;
 constexpr int kSmallMax = 8192;
 constexpr int kSmallBits = 8;
 constexpr int kSmallItems = kSmallMax / kSmallThreads;
+// positions a ranking warp of the one-block path takes at least (whole
+// rounds of 32; 64, 128 and 256 timed on the card, 128 the fastest)
+#ifndef SID_BH_SMALL_ROWS
+#define SID_BH_SMALL_ROWS 128
+#endif
+
+// the one-block path's ranking warps for m p-values: ceil(m /
+// SID_BH_SMALL_ROWS), at most the block's; and the positions each takes,
+// whole rounds of 32 (at most 256 for m <= kSmallMax)
+SID_HD int small_ranking_warps(int64_t m) {
+  const int64_t w = (m + SID_BH_SMALL_ROWS - 1) / SID_BH_SMALL_ROWS;
+  return static_cast<int>(w < 1 ? 1 : w > kSmallWarps ? kSmallWarps : w);
+}
+SID_HD int small_warp_positions(int64_t m) {
+  const int w = small_ranking_warps(m);
+  return static_cast<int>(((m + w - 1) / w + 31) / 32 * 32);
+}
 
 SID_HD uint64_t f64_bits(double x) {
 #ifdef __CUDA_ARCH__

@@ -617,14 +617,15 @@ __global__ void __launch_bounds__(sid::kSmallThreads)
   }
   __syncthreads();
   const uint64_t key0 = sid::bh_radix_key(ps[0]);
-  // each warp a run of whole rounds of 32 positions
-  const int seg = ((m + sid::kSmallWarps - 1) / sid::kSmallWarps + 31) / 32 * 32;
+  // the ranking warps, each a run of whole rounds of 32 positions
+  const int warps = sid::small_ranking_warps(m);
+  const int seg = sid::small_warp_positions(m);
   const int rounds = seg / 32;
   const unsigned below = (1u << lane) - 1u;
   int cur = 0;
   for (int q = 0; q < kPasses; ++q) {
     if (hist[q * kBins + sid::radix_digit(key0, q, sid::kSmallBits)] == static_cast<uint32_t>(m)) continue;
-    for (int k = t; k < sid::kSmallWarps * kBins; k += kT) cnt[k] = 0;
+    for (int k = t; k < warps * kBins; k += kT) cnt[k] = 0;
     __syncthreads();
     const uint32_t* src = idx[cur];
     uint32_t* dst = idx[cur ^ 1];
@@ -632,7 +633,7 @@ __global__ void __launch_bounds__(sid::kSmallThreads)
     unsigned dig[sid::kSmallItems];
 #pragma unroll
     for (int r = 0; r < sid::kSmallItems; ++r) {
-      if (r >= rounds) break;
+      if (r >= rounds || warp >= warps) break;
       const int i = warp * seg + 32 * r + lane;
       const bool ok = i < m;
       pos[r] = ok ? src[i] : 0u;
@@ -647,7 +648,7 @@ __global__ void __launch_bounds__(sid::kSmallThreads)
     __syncthreads();
     if (t < kBins) {
       uint32_t sum = 0;
-      for (int w = 0; w < sid::kSmallWarps; ++w) {
+      for (int w = 0; w < warps; ++w) {
         const uint32_t c = cnt[w * kBins + t];
         cnt[w * kBins + t] = static_cast<uint16_t>(sum);
         sum += c;
@@ -680,7 +681,7 @@ __global__ void __launch_bounds__(sid::kSmallThreads)
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < sid::kSmallItems; ++r) {
-      if (r >= rounds) break;
+      if (r >= rounds || warp >= warps) break;
       if (warp * seg + 32 * r + lane >= m) continue;
       dst[bin_off[dig[r]] + cnt[warp * kBins + dig[r]] + rank[r]] = pos[r];
     }

@@ -215,7 +215,7 @@ int sid_bh_small_host(int n_arrays, const double* const* p, int64_t m, double al
   int done = 0;
   for (int a = 0; a < n_arrays && m > 0; ++a) {
     const int bits = sid::kSmallBits, bins = 1 << bits, passes = sid::radix_passes(bits);
-    const int warps = sid::kSmallWarps;
+    const int warps = sid::small_ranking_warps(m);
     std::vector<uint32_t> idx[2] = {std::vector<uint32_t>(m), std::vector<uint32_t>(m)};
     std::vector<uint32_t> hist(static_cast<size_t>(passes) * bins, 0);
     for (int64_t i = 0; i < m; ++i) {
@@ -224,7 +224,7 @@ int sid_bh_small_host(int n_arrays, const double* const* p, int64_t m, double al
       for (int q = 0; q < passes; ++q) ++hist[q * bins + sid::radix_digit(key, q, bits)];
     }
     const uint64_t key0 = sid::bh_radix_key(p[a][0]);
-    const int64_t seg = ((m + warps - 1) / warps + 31) / 32 * 32;
+    const int64_t seg = sid::small_warp_positions(m);
     int cur = 0;
     done = 0;
     for (int q = 0; q < passes; ++q) {
