@@ -1081,6 +1081,26 @@ def lrt_rows_times(torch, label, fn, plain, sets, launch, sass, names, rows, n_b
     return out
 
 
+def path_shape_pvalues(prof, dev):
+    """BH's input at the likelihood-ratio path's shape: B5's p1 and p2 (-E
+    0.1, prior 1e-3) of ``prof`` on the card, with NaN and ties at 0.5, 0
+    and 1 planted."""
+    import torch
+
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+
+    counts_np, hi = lc.narrow_counts(prof)
+    counts = torch.from_numpy(counts_np.view(np.int16)).to(dev)
+    q1, q2, _ = (x.clone() for x in lc.local_classify_lrt(counts, 0.1, 1e-3, ALPHA, lgamma_table(4 * hi, dev)))
+    q2[::97] = 0.5
+    q2[::211] = float("nan")
+    q2[3::301] = 0.0
+    q1[::89] = float("nan")
+    q1[5::113] = 1.0
+    return q1, q2
+
+
 def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof, small_prof, parent=None) -> list:
     """Phase 13, the kernels: B5 at phase 3's U profiles, every -E and
     prior; B6's full form at phase 8's N sites; the LRT on phase 5's
@@ -1323,12 +1343,7 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
 
     # the path's shape: B5's p-values of the simulated sites' profiles,
     # ties and NaN planted; both arrays in one launch
-    q1, q2, _ = (x.clone() for x in lc.local_classify_lrt(small_counts, 0.1, 1e-3, ALPHA, small_tab))
-    q2[::97] = 0.5
-    q2[::211] = float("nan")
-    q2[3::301] = 0.0
-    q1[::89] = float("nan")
-    q1[5::113] = 1.0
+    q1, q2 = path_shape_pvalues(small_prof, dev)
     us = q1.shape[0]
     o1, o2 = torch.empty_like(q1), torch.empty_like(q2)
     h2 = torch.empty(us, dtype=torch.uint8, device=dev)
@@ -2352,8 +2367,8 @@ def b5_variants(torch) -> int:
 BH_VARIANTS = {
     f"{'staged' if st else 'direct'} scatter, {items} pairs a thread, look-back {lb}, one-block warps of {rows}":
         {"SID_BH_STAGED": st, "SID_BH_SORT_ITEMS": items, "SID_BH_LOOKBACK": lb, "SID_BH_SMALL_ROWS": rows}
-    for st, items, lb, rows in ((1, 16, 4, 128), (1, 16, 8, 128), (1, 16, 16, 128), (1, 12, 8, 128),
-                                (0, 16, 4, 128), (0, 8, 4, 128), (1, 16, 4, 64), (1, 16, 4, 256))
+    for st, items, lb, rows in ((1, 16, 4, 64), (1, 16, 8, 64), (1, 16, 16, 64), (1, 12, 8, 64), (0, 16, 4, 64),
+                                (0, 8, 4, 64), (1, 16, 4, 128), (1, 16, 4, 256))
 }
 
 
@@ -2365,8 +2380,9 @@ def bh_variants(torch) -> int:
     sid_tpu_torch/_build/. For each, the scatter pass's, the scan's and the
     one-block kernel's registers and spills; at U = 1M (B5's p2 of phase
     3's profiles with ties and NaN, and uniform p cubed, whose keys spread
-    over more bins) BH bitwise adjust_benjamini_hochberg_np, and the first
-    1,976 of each as the one-block pair (the path's shape); the whole BH on
+    over more bins) BH bitwise adjust_benjamini_hochberg_np, and B5's p1
+    and p2 of the 1M simulated sites' ~2,000 profiles as the one-block pair
+    (the path's shape, phase 13's input); the whole BH on
     the device in turns (two rounds, the second reversed), 8- and 11-bit
     digits of the committed build beside them; then stop."""
     from sid_tpu_torch.native import build
@@ -2410,9 +2426,14 @@ def bh_variants(torch) -> int:
 
     ways = {"committed, 8-bit digits": way(committed), "committed, 11-bit digits": way(committed, 11),
             **{name: way(lib) for name, lib in libs.items()}}
-    # the path's shape: both arrays in one launch of the one-block kernel
-    q1, q2 = p2[:1976].contiguous(), cubed[:1976].contiguous()
-    o1, o2, h2 = torch.empty_like(q1), torch.empty_like(q2), torch.empty(1976, dtype=torch.uint8, device=dev)
+    # the path's shape: both arrays of the simulated sites' profiles in one
+    # launch of the one-block kernel
+    from sid_tpu_torch.io.pileup import parse_pileup
+    from sid_tpu_torch.ops.profiles import unique_profiles
+
+    q1, q2 = path_shape_pvalues(unique_profiles(parse_pileup(simulated_pileup(N_SITES)).counts)[0], dev)
+    us = q1.shape[0]
+    o1, o2, h2 = torch.empty_like(q1), torch.empty_like(q2), torch.empty(us, dtype=torch.uint8, device=dev)
     w1, w2 = (stats.adjust_benjamini_hochberg_np(q.cpu().numpy()) for q in (q1, q2))
 
     def pair(lib):
@@ -2429,11 +2450,12 @@ def bh_variants(torch) -> int:
         fn(q1, q2)
         if not (np.array_equal(o1.cpu().numpy().view(np.uint64), w1.view(np.uint64))
                 and np.array_equal(o2.cpu().numpy().view(np.uint64), w2.view(np.uint64))):
-            raise AssertionError(f"BH {name} differs from the host BH at U=1976")
+            raise AssertionError(f"BH {name} differs from the host BH at U={us}")
     times = in_turns(torch, pairs, [(torch.roll(q1, 7 * j, 0).contiguous(), torch.roll(q2, 7 * j, 0).contiguous())
                                     for j in range(3)])
     for name, v in times.items():
-        print(f"# BH of both arrays at U=1976 (one launch), {name}: bitwise the host BH; device only "
+        print(f"# BH of both arrays at U={us} (the simulated sites' profiles, one launch), {name}: bitwise the host "
+              f"BH; device only "
               f"{statistics.median(v):.4f} ms (readings {', '.join(f'{x:.4f}' for x in v)}); on {card}", flush=True)
     for label, p in (("B5's p2", p2), ("uniform p cubed", cubed)):
         want = stats.adjust_benjamini_hochberg_np(p.cpu().numpy())

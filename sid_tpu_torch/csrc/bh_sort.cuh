@@ -71,9 +71,10 @@ constexpr int kSmallMax = 8192;
 constexpr int kSmallBits = 8;
 constexpr int kSmallItems = kSmallMax / kSmallThreads;
 // positions a ranking warp of the one-block path takes at least (whole
-// rounds of 32; 64, 128 and 256 timed on the card, 128 the fastest)
+// rounds of 32; 64, 128 and 256 timed on the card: 64 the fastest on the
+// likelihood-ratio path's p-values, 128 on keys spread over every digit)
 #ifndef SID_BH_SMALL_ROWS
-#define SID_BH_SMALL_ROWS 128
+#define SID_BH_SMALL_ROWS 64
 #endif
 
 // the one-block path's ranking warps for m p-values: ceil(m /

@@ -26,9 +26,10 @@
 //     the sorted order. Each tile publishes its aggregate, then its
 //     inclusive prefix; the flag lives apart from the f64 value (NaN and
 //     +inf are values) behind a fence; every combine keeps the earlier tile
-//     on the left (sid::min_first_nan). A tile's positions are loaded
-//     warp-striped and read back blocked through shared memory, p is
-//     gathered once a position, out and is_het are scattered.
+//     on the left (sid::min_first_nan). A tile's positions and p values
+//     are loaded warp-striped and read back blocked through shared memory
+//     (p taken back from the sorted key, gathered only for zeros and NaN),
+//     out and is_het are scattered.
 // The sort's pairs are 12 B (a 64-bit key, a 32-bit position: m < 2^31).
 // Its tiles and the scan's take their numbers from per-launch counters
 // (atomicAdd), so a tile waits only on tiles that have started. min is
@@ -37,7 +38,9 @@
 // for any tiling.
 // What bounds it: bytes. The function itself reads p and writes out and
 // is_het (17 B a p-value); a radix sort of 12 B pairs reads and writes each
-// pair once a pass.
+// pair once a pass (8 passes of 8-bit digits; 11-bit digits, 6 passes of
+// 2,048 bins, measured 2.2x slower on an H100). The scatter is staged in
+// shared memory in digit order so each bin's run is stored contiguously.
 //
 // Launch: on the caller's stream, no allocation (the torch wrapper passes
 // the outputs and the scratch: sid_bh_scratch_bytes), returns
