@@ -18,8 +18,10 @@ a thread, the slot search unrolled), holds them bitwise against the
 committed kernels at phase 11's and phase 12's cohort shapes, times them
 in turns, and stops. ``--b5-variants`` (``B5_VARIANTS``) and
 ``--bh-variants`` (``BH_VARIANTS``) do the same for B5's design choices
-(the table staged or not, 5 or 6 blocks an SM) and for the BH sort's (the scatter staged or not,
-pairs a thread, look-back width), each built with -D.
+(the table staged or not, 5 or 6 blocks an SM) and for BH's (the scatter
+staged or not, pairs a thread, look-back width, digit width, the scan's
+positions a thread, the one-block path's ranking warps), each a text
+substitution on the committed sources.
 
 Drives sid_tpu_torch's main paths (``engine.run`` and
 ``engine.run_streaming``, what ``./sid-tpu-torch`` and ``./sid-tpu-torch
@@ -137,12 +139,12 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    own order (csrc/bh_sort.cuh: a radix sort and a chained scan, or one
    block up to 8,192 p-values) on B5's p-values with ties and NaN planted,
    at U = 1M and at the simulated sites' ~2,000 profiles (both arrays and
-   is_het in one launch): bitwise adjust_benjamini_hochberg_np at 8- and
-   11-bit digits over two scan tiles, over torch.argsort's order and as its
-   plain version, the hand order equal to torch.argsort(key, stable=True);
-   each kernel's call, device-only and plain times and bound (BH also by
-   kernel through torch.profiler, at both digit widths, with torch.argsort's
-   and torch.cummin's times, and at the path's shape); with --parent, the
+   is_het in one launch): bitwise adjust_benjamini_hochberg_np, over its
+   own order, over torch.argsort's and as its plain version, the hand
+   order equal to torch.argsort(key, stable=True); each kernel's call,
+   device-only and plain times and bound (BH also by kernel through
+   torch.profiler, with torch.argsort's and torch.cummin's times, and at
+   the path's shape); with --parent, the
    parent's B5 and BH bitwise and in turns; the device LRT's wall against
    the host-libm path at U = 1M, N = 1M and phase 5's U; engine.run with
    exact_pvalues=False for -m local, -m quality and -R -m likelihood_ratio
@@ -1304,7 +1306,7 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                  "library_ms": None})
 
     # BH on B5's p2 at U with ties and NaN planted: bitwise the host BH
-    # over both digit widths and two scan tiles, the hand order equal to
+    # over its own order and torch.argsort's, the hand order equal to
     # torch.argsort's, the plain version too
     p = torch.from_numpy(bh_p).to(dev)
     p[::997] = 0.5
@@ -1318,12 +1320,9 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
         if not np.array_equal(got.cpu().numpy().view(np.uint64), ref.view(np.uint64)):
             raise AssertionError(f"BH {label} differs bitwise from the host BH")
 
-    for bits in (8, 11):
-        for items in (stats.BH_ITEMS, 4):
-            bitwise(f"at U={u}, {bits}-bit digits, {items} positions a scan thread",
-                    stats.adjust_benjamini_hochberg(p, items=items, bits=bits), want)
-        if not torch.equal(stats.bh_radix_order(p, bits), stats.bh_order(p)):
-            raise AssertionError(f"the hand order ({bits}-bit digits) differs from torch.argsort(key, stable=True)")
+    bitwise(f"at U={u}", stats.adjust_benjamini_hochberg(p), want)
+    if not torch.equal(stats.bh_radix_order(p), stats.bh_order(p)):
+        raise AssertionError(f"the hand order at U={u} differs from torch.argsort(key, stable=True)")
     ordered = torch.empty_like(p)
     stats.launch_bh(p, stats.bh_order(p), ordered)
     bitwise(f"at U={u} over torch.argsort's order", ordered, want)
@@ -1333,13 +1332,13 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
     keys[np.isnan(p_np)] = np.uint64(0x7FF8000000000000)
     keys[(p_np != 0) & ~np.isnan(p_np)] ^= np.uint64(1 << 63)
     keys = np.where(keys >> np.uint64(63), ~keys, keys | np.uint64(1 << 63))
-    passes_run = {b: sum(len(np.unique((keys >> np.uint64(q * b)) & np.uint64((1 << b) - 1))) > 1
-                         for q in range(-(-64 // b))) for b in (8, 11)}
+    digit = stats.BH_BITS
+    passes_run = sum(len(np.unique((keys >> np.uint64(q * digit)) & np.uint64((1 << digit) - 1))) > 1
+                     for q in range(-(-64 // digit)))
     log(f"# BH == host at U={u} (B5's p2, {int(np.isnan(p_np).sum())} NaN, ties at 0.5, 0 and 1 planted): bitwise "
-        f"adjust_benjamini_hochberg_np with 8- and 11-bit digits ({passes_run[8]} and {passes_run[11]} scatter "
-        f"passes run) over scan tiles of {stats.BH_SCAN_THREADS * stats.BH_ITEMS} and {stats.BH_SCAN_THREADS * 4}, "
-        f"over torch.argsort's order and as the plain version; the hand order equal to torch.argsort(key, "
-        f"stable=True) at both widths")
+        f"adjust_benjamini_hochberg_np with {digit}-bit digits ({passes_run} scatter passes run) over scan tiles of "
+        f"{stats.BH_SCAN_THREADS * stats.BH_ITEMS}, over torch.argsort's order and as the plain version; the hand "
+        f"order equal to torch.argsort(key, stable=True)")
 
     # the path's shape: B5's p-values of the simulated sites' profiles,
     # ties and NaN planted; both arrays in one launch
@@ -1359,9 +1358,8 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
         if not np.array_equal(h2.cpu().numpy().astype(bool), w2 < ALPHA):
             raise AssertionError(f"BH's is_het at U={us} differs from adjusted < alpha")
     bitwise(f"at U={us}, one array", stats.adjust_benjamini_hochberg(q2), w2)
-    for bits in (8, 11):
-        if not torch.equal(stats.bh_radix_order(q2, bits), stats.bh_order(q2)):
-            raise AssertionError(f"the hand order at U={us} differs from torch.argsort(key, stable=True)")
+    if not torch.equal(stats.bh_radix_order(q2), stats.bh_order(q2)):
+        raise AssertionError(f"the hand order at U={us} differs from torch.argsort(key, stable=True)")
     log(f"# BH == host at U={us} (the simulated sites' profiles, B5's p1 and p2, ties and NaN planted): both "
         f"arrays and is_het in {pair_launches} launch, bitwise adjust_benjamini_hochberg_np; the hand order "
         f"there equal to torch.argsort's")
@@ -1381,13 +1379,13 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                 raise AssertionError(f"BH {label} differs from the parent's kernels")
         log(f"# BH == the parent's BH bitwise (out and is_het) at U={u} and U={us}")
 
-    # times at U: the whole call (order and scan), device only at both
-    # digit widths (and the parent's passes, with and without its argsort),
+    # times at U: the whole call (order and scan), device only (and the
+    # parent's passes, with and without its argsort),
     # the plain version, torch.argsort and torch.cummin; each kernel's
     # device time in one call by torch.profiler
     sets = [(torch.roll(p, 7919 * j, 0).contiguous(),) for j in range(INPUT_SETS)]
     bh_out = torch.empty_like(p)
-    dev_ways = {f"{b}-bit digits": (lambda q, b=b: stats.launch_bh(q, None, bh_out, bits=b)) for b in (8, 11)}
+    dev_ways = {"hand order + scan": lambda q: stats.launch_bh(q, None, bh_out)}
     call_ways = {"hand order + scan": stats.adjust_benjamini_hochberg}
     if bh is not None:
         orders = {s_[0].data_ptr(): stats.bh_order(s_[0]) for s_ in sets}
@@ -1412,11 +1410,11 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                 total = getattr(ev, "device_time_total", None)
                 total = ev.cuda_time_total if total is None else total
                 split[key] = split.get(key, 0.0) + total / 5 / 1e3
-    scan = kernel_counts(sass, f"bh_scan_kernelILi{stats.BH_ITEMS}E")
+    scan = kernel_counts(sass, "bh_scan_kernel")
     f64_pos = scan["f64_kernel"] / stats.BH_ITEMS  # every instruction of a thread's walk, over its positions
-    dev_ms = statistics.median(dev_t[f"{stats.BH_BITS}-bit digits"])
+    dev_ms = statistics.median(dev_t["hand order + scan"])
     b_ms, b_by = bound_ms(16 * u, f64_pos * u)
-    sort_ms = {b: passes_run[b] * 24 * u / HBM_BYTES_PER_S * 1e3 for b in (8, 11)}
+    sort_ms = passes_run * 24 * u / HBM_BYTES_PER_S * 1e3
     scan_bound = 20 * u / HBM_BYTES_PER_S * 1e3
     log(f"# bh_adjust at U={u}, in turns: device only {readings(dev_t)}; the call {readings(call_t)}; plain torch "
         f"{statistics.median(plain_t):.4f} ms; torch.argsort (bh_order) {statistics.median(argsort_t):.4f} ms, "
@@ -1424,8 +1422,8 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
         + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
         + f"; bound {b_ms:.4f} ms by {b_by} (the function's bytes: p in, out out, {16 * u / 1e6:.0f} MB; "
         f"{f64_pos:.1f} f64 instructions a position), {b_ms / dev_ms:.1%} of it; a radix sort of 12 B pairs "
-        f"moves {passes_run[8]} x 24 B a pair at 8 bits ({sort_ms[8]:.4f} ms), {passes_run[11]} x 24 B at 11 "
-        f"({sort_ms[11]:.4f} ms); the scan launch's own bytes (a position, p gathered, out) {scan_bound:.4f} ms, "
+        f"moves {passes_run} x 24 B a pair at {digit}-bit digits ({sort_ms:.4f} ms); the scan launch's own bytes "
+        f"(a position, p gathered, out) {scan_bound:.4f} ms, "
         + (f"{scan_bound / split['bh_scan_kernel']:.1%} of it" if "bh_scan_kernel" in split else "not measured")
         + f"; on {card}")
 
@@ -1462,9 +1460,7 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
               "ms": statistics.median(call_t["hand order + scan"]), "plain_ms": statistics.median(plain_t),
               "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
               "library_ms": statistics.median(cummin_t), "argsort_ms": statistics.median(argsort_t),
-              "sort_bound_ms": sort_ms[stats.BH_BITS], "scatter_passes": passes_run[stats.BH_BITS],
-              "device_ms_by_bits": {b: statistics.median(dev_t[f"{b}-bit digits"]) for b in (8, 11)},
-              "kernel_ms": split,
+              "sort_bound_ms": sort_ms, "scatter_passes": passes_run, "kernel_ms": split,
               "small_rows": us, "small_launches": pair_launches,
               "small_device_ms": statistics.median(small_dev["one launch, both arrays"]),
               "small_ms": statistics.median(small_call["one launch, both arrays"])}
@@ -2164,40 +2160,57 @@ _DEFERRED = """    if (t == 0) {
 }
 """
 
-# name -> [(text, replacement)]
+# name -> [(file, text, replacement)]
+_L = "lynch.cu"
 LANE_VARIANTS = {
     "as committed": [],
-    "2 blocks an SM": [(_MIN_BLOCKS, "constexpr int kLanesMinBlocks = 2;")],
-    "slots in global memory": [(_SLOTS, "__device__ sid::LaneSlot c_slots[kLanesPerLaunch];")],
-    "lane folds deferred to the last block": [(_ELECTED, _DEFERRED)],
-    "marginals 4 rows a thread": [(_MARGINALS_ROWS, "constexpr int kMarginalsRowsPerThread = 4;")],
-    "slot search unrolled": [(_OBJECTIVE, _UNROLLED_SEARCH + _OBJECTIVE),
-                             (_NLL_SEARCH, _NLL_SEARCH.replace("sid::slot_of(c_slots, n_slots, j)",
-                                                               "unrolled_slot_of(n_slots, j)")),
-                             (_MARGINALS_SEARCH, _MARGINALS_SEARCH.replace("sid::slot_of(c_slots, n_slots, j)",
-                                                                           "unrolled_slot_of(n_slots, j)"))],
+    "2 blocks an SM": [(_L, _MIN_BLOCKS, "constexpr int kLanesMinBlocks = 2;")],
+    "slots in global memory": [(_L, _SLOTS, "__device__ sid::LaneSlot c_slots[kLanesPerLaunch];")],
+    "lane folds deferred to the last block": [(_L, _ELECTED, _DEFERRED)],
+    "marginals 4 rows a thread": [(_L, _MARGINALS_ROWS, "constexpr int kMarginalsRowsPerThread = 4;")],
+    "slot search unrolled": [(_L, _OBJECTIVE, _UNROLLED_SEARCH + _OBJECTIVE),
+                             (_L, _NLL_SEARCH, _NLL_SEARCH.replace("sid::slot_of(c_slots, n_slots, j)",
+                                                                   "unrolled_slot_of(n_slots, j)")),
+                             (_L, _MARGINALS_SEARCH, _MARGINALS_SEARCH.replace("sid::slot_of(c_slots, n_slots, j)",
+                                                                               "unrolled_slot_of(n_slots, j)"))],
 }
 LANE_KERNELS = (("nll_lanes", 3, "lynch_nll_lanes_kernel"), ("marginals_lanes", 4, "lynch_marginals_lanes_kernel"))
 
 
-def build_lane_variant(build, name: str, edits) -> tuple:
-    with open(os.path.join(build.CSRC, "lynch.cu")) as f:
-        src = f.read()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise AssertionError(f"{name}: the text to replace is not in the source once: {old[:60]!r}")
-        src = src.replace(old, new)
-    tag = "".join(c if c.isalnum() else "_" for c in name)
-    path = os.path.join(build.BUILD_DIR, f"lanes_variant_{tag}.cu")
-    out = path[:-3] + ".so"
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    with open(path, "w") as f:
-        f.write(src)
-    proc = subprocess.run(build.nvcc_command(path, out, ["-I", build.CSRC]), capture_output=True, text=True,
-                          timeout=600)
-    if proc.returncode:
-        raise AssertionError(f"{name} does not build: {proc.stderr}")
-    return out, proc.stdout + proc.stderr
+def variant_texts(csrc: str, main: str, edits) -> dict:
+    """csrc/<main> and every file ``edits`` touches, as text, each
+    substitution made in turn; a text to replace that is not in its file
+    exactly once raises."""
+    texts = {}
+    for name in [main] + [f for f, _, _ in edits]:
+        if name not in texts:
+            with open(os.path.join(csrc, name)) as f:
+                texts[name] = f.read()
+    for name, old, new in edits:
+        if texts[name].count(old) != 1:
+            raise AssertionError(f"the text to replace is not in {name} once: {old[:60]!r}")
+        texts[name] = texts[name].replace(old, new)
+    return texts
+
+
+def build_variants(build, main: str, variants: dict, prefix: str) -> dict:
+    """Each variant of csrc/<main> (``variant_texts``) written with the
+    files it edits under sid_tpu_torch/_build/<prefix>_<k>/, so its includes
+    find an edited header before csrc's, and built with the port's nvcc
+    flags, all at once. Returns {name: (library path, ptxas report)}."""
+    tags = {}
+    for k, (name, edits) in enumerate(variants.items()):
+        tag = f"{prefix}_{k}"
+        folder = os.path.join(build.BUILD_DIR, tag)
+        shutil.rmtree(folder, ignore_errors=True)
+        os.makedirs(folder)
+        for file, text in variant_texts(build.CSRC, main, edits).items():
+            with open(os.path.join(folder, file), "w") as f:
+                f.write(text)
+        tags[tag] = (name, os.path.join(folder, main))
+    built = build_sources(build, {tag: src for tag, (_, src) in tags.items()},
+                          {tag: ["-I", build.CSRC] for tag in tags})
+    return {name: built[tag] for tag, (name, _) in tags.items()}
 
 
 def lane_variants(torch) -> int:
@@ -2213,7 +2226,6 @@ def lane_variants(torch) -> int:
     on the variant's own resident grid) in two rounds, the second in
     reverse order."""
     import ctypes
-    from concurrent.futures import ThreadPoolExecutor
 
     from sid_tpu_torch.native import build
     from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
@@ -2223,13 +2235,10 @@ def lane_variants(torch) -> int:
     card = card_line()
     print(f"# {card}", flush=True)
     dev = torch.device("cuda")
-    with ThreadPoolExecutor(len(LANE_VARIANTS)) as pool:
-        futures = {name: pool.submit(build_lane_variant, build, name, edits) for name, edits in LANE_VARIANTS.items()}
-        built = {name: fut.result() for name, fut in futures.items()}
+    built = build_variants(build, "lynch.cu", LANE_VARIANTS, "lanes_variant")
     libs = {}
-    for name, (path, compiler_log) in built.items():
+    for name, (path, report) in built.items():
         lib = libs[name] = lo.load_kernel_library(path)
-        report = ptxas_report(compiler_log)
         sass = sass_kernels(path)
         per_sm = ctypes.c_int(0)
         for kernel, k, fn_name in LANE_KERNELS:
@@ -2291,22 +2300,112 @@ def lane_variants(torch) -> int:
     return 0
 
 
-# --b5-variants: B5's design choices (csrc/local_classify.cu's SID_B5_*
-# macros), each built with -D
+# --b5-variants and --bh-variants: design choices of B5
+# (csrc/local_classify.cu) and of the BH sort (csrc/lrt_bh.cu,
+# csrc/bh_sort.cuh), each a list of text substitutions (file, text,
+# replacement) on the committed sources; the empty list is the committed
+# design
+_B5_GLOBAL_ROWS = """  const sid::GlobalTable table{tab, tab_len};
+  for (; i < n; i += stride) {
+    const uint2 row = __ldg(counts + i);
+"""
+_B5_STAGED_ROWS = """  __shared__ double head[kTabHead];
+  const int head_len = stage_head(head, tab, tab_len);
+  uint2 next = i < n ? __ldg(counts + i) : make_uint2(0u, 0u);
+  wait_head();
+  const sid::StagedTable table{head, head_len, tab, tab_len};
+  for (; i < n; i += stride) {
+    const uint2 row = next;
+    if (i + stride < n) next = __ldg(counts + i + stride);
+"""
+_B5_BLOCKS = "constexpr int kLrtMinBlocks = 6;"
+_B5_STAGED = ("local_classify.cu", _B5_GLOBAL_ROWS, _B5_STAGED_ROWS)
+_B5_5_BLOCKS = ("local_classify.cu", _B5_BLOCKS, "constexpr int kLrtMinBlocks = 5;")
 B5_VARIANTS = {
-    f"{'staged' if st else 'global'} table, {mb} blocks an SM": {"SID_B5_STAGE": st, "SID_B5_MIN_BLOCKS": mb}
-    for st in (0, 1) for mb in (5, 6)
+    "global table, 6 blocks an SM (committed)": [],
+    "global table, 5 blocks an SM": [_B5_5_BLOCKS],
+    "staged table, 6 blocks an SM": [_B5_STAGED],
+    "staged table, 5 blocks an SM": [_B5_STAGED, _B5_5_BLOCKS],
+}
+
+_BH_STAGED_SCATTER = """  // each pair's place in the tile's digit order
+#pragma unroll
+  for (int k = 0; k < sid::kSortItems; ++k) {
+    if (base + 32 * k >= m) continue;
+    const unsigned d = sid::radix_digit(key[k], pass, kBits);
+    rank[k] += local_start[d] + warp_cnt[warp * kBins + d];
+  }
+  __syncthreads();  // the counters' memory now holds the staged pairs
+#pragma unroll
+  for (int k = 0; k < sid::kSortItems; ++k) {
+    if (base + 32 * k >= m) continue;
+    skey[rank[k]] = key[k];
+    sdig[rank[k]] = static_cast<uint16_t>(sid::radix_digit(key[k], pass, kBits));
+  }
+  __syncthreads();
+  const int64_t left = m - static_cast<int64_t>(tile) * sid::kSortTile;
+  const int n_tile = left < sid::kSortTile ? static_cast<int>(left) : sid::kSortTile;
+  for (int l = t; l < n_tile; l += sid::kSortThreads) {
+    const unsigned d = sdig[l];
+    kout[tile_base[d] + (l - local_start[d])] = skey[l];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < sid::kSortItems; ++k)
+    if (base + 32 * k < m) sval[rank[k]] = val[k];
+  __syncthreads();
+  for (int l = t; l < n_tile; l += sid::kSortThreads) {
+    const unsigned d = sdig[l];
+    vout[tile_base[d] + (l - local_start[d])] = sval[l];
+  }
+"""
+_BH_DIRECT_SCATTER = """#pragma unroll
+  for (int k = 0; k < sid::kSortItems; ++k) {
+    if (base + 32 * k >= m) continue;
+    const unsigned d = sid::radix_digit(key[k], pass, kBits);
+    const uint32_t at = tile_base[d] + warp_cnt[warp * kBins + d] + rank[k];
+    kout[at] = key[k];
+    vout[at] = val[k];
+  }
+"""
+_BH_UNION = "constexpr int kPassUnionBytes = kPassCounterBytes > kSortTile * 8 ? kPassCounterBytes : kSortTile * 8;"
+_BH_SMEM = "constexpr int kPassSmemBytes = kPassUnionBytes + 2 * 4 * kSortBins + 2 * kSortTile;"
+_BH_DIRECT = [("lrt_bh.cu", _BH_STAGED_SCATTER, _BH_DIRECT_SCATTER),
+              ("bh_sort.cuh", _BH_UNION, "constexpr int kPassUnionBytes = kPassCounterBytes;"),
+              ("bh_sort.cuh", _BH_SMEM, "constexpr int kPassSmemBytes = kPassUnionBytes + 2 * 4 * kSortBins;")]
+
+
+def _bh_constant(name: str, committed: int, value: int) -> tuple:
+    return ("bh_sort.cuh", f"constexpr int {name} = {committed};", f"constexpr int {name} = {value};")
+
+
+def _look_back(value: int) -> tuple:
+    return ("lrt_bh.cu", "constexpr int kLookBack = 4;", f"constexpr int kLookBack = {value};")
+
+
+BH_VARIANTS = {
+    "committed: staged scatter, 16 pairs a thread, look-back 4, 8-bit digits, 4 positions a scan thread, "
+    "one-block warps of 64": [],
+    "look-back 8": [_look_back(8)],
+    "look-back 16": [_look_back(16)],
+    "12 pairs a thread": [_bh_constant("kSortItems", 16, 12)],
+    "direct scatter": _BH_DIRECT,
+    "direct scatter, 8 pairs a thread": _BH_DIRECT + [_bh_constant("kSortItems", 16, 8)],
+    "11-bit digits": [_bh_constant("kSortBits", 8, 11)],
+    "16 positions a scan thread": [_bh_constant("kScanItems", 4, 16)],
+    "one-block warps of 128": [_bh_constant("kSmallRows", 64, 128)],
+    "one-block warps of 256": [_bh_constant("kSmallRows", 64, 256)],
 }
 
 
 def b5_variants(torch) -> int:
-    """--b5-variants: csrc/local_classify.cu built once a variant
-    (B5_VARIANTS: the table's head staged with cp.async and the counts
-    prefetched, or both read from global memory; 5 or 6 blocks an SM) with the port's nvcc
-    flags into sid_tpu_torch/_build/. For each, B5's registers, spills,
-    blocks an SM and f64 instructions a row; at phase 3's U = 1M profiles
-    every -E and prior, p1, p2 and the byte bitwise the committed kernel's;
-    then device-only times at -E 0.1, prior 1e-3 in turns (two rounds, the
+    """--b5-variants: B5's variants (B5_VARIANTS: the table's head staged
+    with cp.async and the counts prefetched, or both read from global
+    memory; 5 or 6 blocks an SM), built with the port's nvcc flags into
+    sid_tpu_torch/_build/. For each, B5's registers, spills, blocks an SM
+    and f64 instructions a row; at phase 3's U = 1M profiles every -E and
+    prior, p1, p2 and the byte bitwise the committed kernel's; then
+    device-only times at -E 0.1, prior 1e-3 in turns (two rounds, the
     second reversed), and stop."""
     from sid_tpu_torch.native import build
     from sid_tpu_torch.ops import local_classify as lc
@@ -2315,14 +2414,10 @@ def b5_variants(torch) -> int:
     card = card_line()
     print(f"# {card}", flush=True)
     dev = torch.device("cuda")
-    names = {f"b5_variant_{k}": name for k, name in enumerate(B5_VARIANTS)}
-    src = os.path.join(build.CSRC, "local_classify.cu")
-    built = build_sources(build, {tag: src for tag in names},
-                          {tag: [f"-D{k}={v}" for k, v in B5_VARIANTS[name].items()] for tag, name in names.items()})
+    built = build_variants(build, "local_classify.cu", B5_VARIANTS, "b5_variant")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     libs = {}
-    for tag, name in names.items():
-        path, report = built[tag]
+    for name, (path, report) in built.items():
         lib = libs[name] = lc.load_kernel_library(path)
         (r,) = [v for fn, v in report.items() if "local_classify_lrt_kernel" in fn]
         (c,) = [row_counts(v) for fn, v in sass_kernels(path).items() if "local_classify_lrt_kernel" in fn]
@@ -2354,37 +2449,26 @@ def b5_variants(torch) -> int:
                 lc._launch(c, 0.1, 1e-3, tab, buf, ALPHA)
         return run
 
-    ways = {"committed": way(lc._kernel_lib()), **{name: way(lib) for name, lib in libs.items()}}
-    times = in_turns(torch, ways, sets)
+    times = in_turns(torch, {name: way(lib) for name, lib in libs.items()}, sets)
     for name, v in times.items():
         print(f"# B5 at U={prof.shape[0]}, -E 0.1, prior 1e-3, {name}: device only {statistics.median(v):.4f} ms "
               f"(readings {', '.join(f'{x:.4f}' for x in v)}); on {card}", flush=True)
     return 0
 
 
-# --bh-variants: the multi-block BH sort's design choices (the SID_BH_*
-# macros of csrc/bh_sort.cuh and csrc/lrt_bh.cu), each built with -D
-BH_VARIANTS = {
-    f"{'staged' if st else 'direct'} scatter, {items} pairs a thread, look-back {lb}, one-block warps of {rows}":
-        {"SID_BH_STAGED": st, "SID_BH_SORT_ITEMS": items, "SID_BH_LOOKBACK": lb, "SID_BH_SMALL_ROWS": rows}
-    for st, items, lb, rows in ((1, 16, 4, 64), (1, 16, 8, 64), (1, 16, 16, 64), (1, 12, 8, 64), (0, 16, 4, 64),
-                                (0, 8, 4, 64), (1, 16, 4, 128), (1, 16, 4, 256))
-}
-
-
 def bh_variants(torch) -> int:
-    """--bh-variants: csrc/lrt_bh.cu built once a variant (BH_VARIANTS:
-    the scatter staged in shared memory or straight from registers, the
-    pairs a thread, the look-back words read at once, the one-block path's
-    positions a ranking warp) with the port's nvcc flags into
-    sid_tpu_torch/_build/. For each, the scatter pass's, the scan's and the
-    one-block kernel's registers and spills; at U = 1M (B5's p2 of phase
-    3's profiles with ties and NaN, and uniform p cubed, whose keys spread
-    over more bins) BH bitwise adjust_benjamini_hochberg_np, and B5's p1
-    and p2 of the 1M simulated sites' ~2,000 profiles as the one-block pair
-    (the path's shape, phase 13's input); the whole BH on
-    the device in turns (two rounds, the second reversed), 8- and 11-bit
-    digits of the committed build beside them; then stop."""
+    """--bh-variants: the BH kernels' variants (BH_VARIANTS: the scatter
+    staged in shared memory or straight from registers, the pairs a
+    thread, the look-back words read at once, the digit width, the scan's
+    positions a thread, the one-block path's positions a ranking warp),
+    built with the port's nvcc flags into sid_tpu_torch/_build/. For each,
+    the scatter pass's, the scan's and the one-block kernel's registers and
+    spills; at U = 1M (B5's p2 of phase 3's profiles with ties and NaN, and
+    uniform p cubed, whose keys spread over more bins) BH bitwise
+    adjust_benjamini_hochberg_np, and B5's p1 and p2 of the 1M simulated
+    sites' ~2,000 profiles as the one-block pair (the path's shape, phase
+    13's input); the whole BH on the device in turns (two rounds, the second
+    reversed); then stop."""
     from sid_tpu_torch.native import build
     from sid_tpu_torch.ops import local_classify as lc
     from sid_tpu_torch.ops import stats
@@ -2393,16 +2477,12 @@ def bh_variants(torch) -> int:
     card = card_line()
     print(f"# {card}", flush=True)
     dev = torch.device("cuda")
-    names = {f"bh_variant_{k}": name for k, name in enumerate(BH_VARIANTS)}
-    src = os.path.join(build.CSRC, "lrt_bh.cu")
-    built = build_sources(build, {tag: src for tag in names},
-                          {tag: [f"-D{k}={v}" for k, v in BH_VARIANTS[name].items()] for tag, name in names.items()})
+    built = build_variants(build, "lrt_bh.cu", BH_VARIANTS, "bh_variant")
     libs = {}
-    for tag, name in names.items():
-        path, report = built[tag]
+    for name, (path, report) in built.items():
         libs[name] = stats.load_kernel_library(path)
         for fn, r in sorted(report.items()):
-            if "bh_radix_pass_kernel" in fn or f"bh_scan_kernelILi{stats.BH_ITEMS}" in fn or "bh_small" in fn:
+            if "bh_radix_pass_kernel" in fn or "bh_scan_kernel" in fn or "bh_small" in fn:
                 print(f"# {name}: {fn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
                       f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads", flush=True)
     prof = kernel_profiles()
@@ -2415,17 +2495,16 @@ def bh_variants(torch) -> int:
     out = torch.empty_like(p2)
     committed = stats._kernel_lib()
 
-    def way(lib, bits=8):
+    def way(lib):
         def run(q):
             stats._lib = lib
             try:
-                stats.launch_bh(q, None, out, bits=bits)
+                stats.launch_bh(q, None, out)
             finally:
                 stats._lib = committed
         return run
 
-    ways = {"committed, 8-bit digits": way(committed), "committed, 11-bit digits": way(committed, 11),
-            **{name: way(lib) for name, lib in libs.items()}}
+    ways = {name: way(lib) for name, lib in libs.items()}
     # the path's shape: both arrays of the simulated sites' profiles in one
     # launch of the one-block kernel
     from sid_tpu_torch.io.pileup import parse_pileup
@@ -2445,7 +2524,7 @@ def bh_variants(torch) -> int:
                 stats._lib = committed
         return run
 
-    pairs = {"committed": pair(committed), **{name: pair(lib) for name, lib in libs.items()}}
+    pairs = {name: pair(lib) for name, lib in libs.items()}
     for name, fn in pairs.items():
         fn(q1, q2)
         if not (np.array_equal(o1.cpu().numpy().view(np.uint64), w1.view(np.uint64))

@@ -14,7 +14,7 @@
 // torch.argsort(key, stable=True): ties keep their positions' order, which
 // is what the scan's first-NaN and +-0 rules rest on.
 //
-// The sort's passes, `bits` bits a digit (8 or 11), low digit first:
+// The sort's passes, kSortBits bits a digit, low digit first:
 //   histogram   every digit's counts at once, per block;
 //   plan        the per-block counts summed, each digit's exclusive bin
 //               offsets, and the digits that are the same in every key
@@ -42,46 +42,42 @@ constexpr uint64_t kSignBit = 0x8000000000000000ull;
 // the positive quiet NaN, what torch.full_like(p, nan) holds
 constexpr uint64_t kPositiveNaN = 0x7ff8000000000000ull;
 
-// the multi-block sort's tile: kSortThreads threads of kSortItems pairs;
-// its scatter staged in shared memory (1) or straight from the registers
-// (staged and 16 timed fastest on the card, against direct and 8 or 12)
-#ifndef SID_BH_SORT_ITEMS
-#define SID_BH_SORT_ITEMS 16
-#endif
-#ifndef SID_BH_STAGED
-#define SID_BH_STAGED 1
-#endif
+// The multi-block sort: digits of kSortBits bits, tiles of kSortThreads
+// threads of kSortItems pairs, the scatter staged in shared memory in digit
+// order. The chained scan: tiles of kScanThreads threads of kScanItems
+// positions. The one-block path: up to kSmallMax pairs in one block's
+// shared memory, kSmallThreads threads, 8-bit digits, each ranking warp
+// taking at least kSmallRows positions (whole rounds of 32). Each was
+// chosen by timing its variants on the card over two spreads of keys
+// (chip_smoke.py BH_VARIANTS builds them by text substitution; PERF.md has
+// their times).
+constexpr int kSortBits = 8;
+constexpr int kSortBins = 1 << kSortBits;
+constexpr int kSortPasses = (64 + kSortBits - 1) / kSortBits;
 constexpr int kSortThreads = 256;
-constexpr int kSortItems = SID_BH_SORT_ITEMS;
+constexpr int kSortItems = 16;
 constexpr int kSortTile = kSortThreads * kSortItems;
 constexpr int kSortWarps = kSortThreads / 32;
 // the histogram kernel's largest grid
 constexpr int kHistBlocks = 128;
-// the chained scan: kScanThreads threads of kScanItems positions a tile
 constexpr int kScanThreads = 256;
-constexpr int kScanItems = 16;
+constexpr int kScanItems = 4;
+constexpr int kScanTile = kScanThreads * kScanItems;
 // the scan's dynamic shared memory: a tile's positions (uint32) and p
 // values (f64), one pad entry every 16 of each
-SID_HD constexpr int scan_smem_bytes(int items) { return 12 * (kScanThreads * items + kScanThreads * items / 16); }
-// the one-block path: m <= kSmallMax pairs in one block's shared memory,
-// kSmallThreads threads, 8-bit digits
+constexpr int kScanSmemBytes = 12 * (kScanTile + kScanTile / 16);
 constexpr int kSmallThreads = 1024;
 constexpr int kSmallWarps = kSmallThreads / 32;
 constexpr int kSmallMax = 8192;
 constexpr int kSmallBits = 8;
 constexpr int kSmallItems = kSmallMax / kSmallThreads;
-// positions a ranking warp of the one-block path takes at least (whole
-// rounds of 32; 64, 128 and 256 timed on the card: 64 the fastest on the
-// likelihood-ratio path's p-values, 128 on keys spread over every digit)
-#ifndef SID_BH_SMALL_ROWS
-#define SID_BH_SMALL_ROWS 64
-#endif
+constexpr int kSmallRows = 64;
 
-// the one-block path's ranking warps for m p-values: ceil(m /
-// SID_BH_SMALL_ROWS), at most the block's; and the positions each takes,
-// whole rounds of 32 (at most 256 for m <= kSmallMax)
+// the one-block path's ranking warps for m p-values: ceil(m / kSmallRows),
+// at most the block's; and the positions each takes, whole rounds of 32
+// (at most 256 for m <= kSmallMax)
 SID_HD int small_ranking_warps(int64_t m) {
-  const int64_t w = (m + SID_BH_SMALL_ROWS - 1) / SID_BH_SMALL_ROWS;
+  const int64_t w = (m + kSmallRows - 1) / kSmallRows;
   return static_cast<int>(w < 1 ? 1 : w > kSmallWarps ? kSmallWarps : w);
 }
 SID_HD int small_warp_positions(int64_t m) {
@@ -134,16 +130,12 @@ SID_HD bool bh_p_of_key(uint64_t key, double* p) {
 
 SID_HD int radix_passes(int bits) { return (64 + bits - 1) / bits; }
 
-// a scatter pass's dynamic shared memory: the warps' bin counters, later
-// the tile's keys (then positions) in digit order; the bins' global and
-// tile-local starts; each staged pair's digit
-SID_HD constexpr int pass_union_bytes(int bits) {
-  return kSortWarps * (1 << bits) * 2 > (SID_BH_STAGED ? kSortTile * 8 : 0) ? kSortWarps * (1 << bits) * 2
-                                                                          : kSortTile * 8;
-}
-SID_HD constexpr int pass_smem_bytes(int bits) {
-  return pass_union_bytes(bits) + 2 * 4 * (1 << bits) + (SID_BH_STAGED ? 2 * kSortTile : 0);
-}
+// a scatter pass's dynamic shared memory: the warps' bin counters (uint16),
+// whose room then holds the tile's keys and later its positions in digit
+// order; the bins' global and tile-local starts; each staged pair's digit
+constexpr int kPassCounterBytes = kSortWarps * kSortBins * 2;
+constexpr int kPassUnionBytes = kPassCounterBytes > kSortTile * 8 ? kPassCounterBytes : kSortTile * 8;
+constexpr int kPassSmemBytes = kPassUnionBytes + 2 * 4 * kSortBins + 2 * kSortTile;
 
 SID_HD unsigned radix_digit(uint64_t key, int pass, int bits) {
   return static_cast<unsigned>(key >> (pass * bits)) & ((1u << bits) - 1u);
@@ -168,45 +160,46 @@ SID_HD uint64_t status_word(int pass, uint64_t flag, uint32_t count) {
 }
 
 // The scratch of one multi-block BH over m p-values, in bytes from one
-// 16-byte aligned base: both pair buffers, the per-block histograms, the
-// bin offsets, the digits' plan, the look-back status, the tile counters
-// and the scan's look-back.
+// 16-byte aligned base: with `sort`, both pair buffers, the per-block
+// histograms, the bin offsets, the digits' plan, the look-back status and
+// the passes' tile counters; then the scan's tile counter and look-back,
+// all that a scan over a given order needs.
 struct BhLayout {
-  int bits, passes, bins, sort_tiles, hist_blocks, scan_tiles;
-  int64_t keys[2], vals[2], block_hist, offsets, trivial, status, counters, scan_flag,
+  int sort_tiles, hist_blocks, scan_tiles;
+  int64_t keys[2], vals[2], block_hist, offsets, trivial, status, counters, scan_counter, scan_flag,
       scan_agg, scan_incl, total;
 };
 
 inline int64_t align16(int64_t x) { return (x + 15) & ~static_cast<int64_t>(15); }
 
-inline BhLayout bh_layout(int64_t m, int bits, int scan_items) {
+inline BhLayout bh_layout(int64_t m, bool sort) {
   BhLayout l;
-  l.bits = bits;
-  l.passes = radix_passes(bits);
-  l.bins = 1 << bits;
-  l.sort_tiles = static_cast<int>((m + kSortTile - 1) / kSortTile);
+  const int64_t n = sort ? m : 0;  // the pairs sorted
+  const int64_t passes = sort ? kSortPasses : 0, bins = sort ? kSortBins : 0;
+  l.sort_tiles = static_cast<int>((n + kSortTile - 1) / kSortTile);
   l.hist_blocks = l.sort_tiles < kHistBlocks ? l.sort_tiles : kHistBlocks;
-  const int64_t scan_tile = static_cast<int64_t>(kScanThreads) * scan_items;
-  l.scan_tiles = static_cast<int>((m + scan_tile - 1) / scan_tile);
+  l.scan_tiles = static_cast<int>((m + kScanTile - 1) / kScanTile);
   int64_t at = 0;
   for (int b = 0; b < 2; ++b) {
     l.keys[b] = at;
-    at = align16(at + 8 * m);
+    at = align16(at + 8 * n);
   }
   for (int b = 0; b < 2; ++b) {
     l.vals[b] = at;
-    at = align16(at + 4 * m);
+    at = align16(at + 4 * n);
   }
   l.block_hist = at;
-  at = align16(at + 4 * static_cast<int64_t>(l.hist_blocks) * l.passes * l.bins);
+  at = align16(at + 4 * l.hist_blocks * passes * bins);
   l.offsets = at;
-  at = align16(at + 4 * static_cast<int64_t>(l.passes) * l.bins);
+  at = align16(at + 4 * passes * bins);
   l.trivial = at;
-  at = align16(at + 4 * l.passes);
+  at = align16(at + 4 * passes);
   l.status = at;
-  at = align16(at + 8 * static_cast<int64_t>(l.sort_tiles) * l.bins);
-  l.counters = at;  // one tile counter a pass, then the scan's
-  at = align16(at + 4 * (l.passes + 1));
+  at = align16(at + 8 * l.sort_tiles * bins);
+  l.counters = at;  // one tile counter a pass
+  at = align16(at + 4 * passes);
+  l.scan_counter = at;
+  at = align16(at + 4);
   l.scan_flag = at;
   at = align16(at + 4 * static_cast<int64_t>(l.scan_tiles));
   l.scan_agg = at;

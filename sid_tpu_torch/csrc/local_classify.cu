@@ -49,19 +49,12 @@ constexpr int kThreads = 256;
 constexpr int kMinBlocks = 5;
 constexpr int kTabHead = 1024;  // 8 KB of shared memory a block
 
-// B5's design, chosen by timing its variants in turns on the card
-// (chip_smoke.B5_VARIANTS builds the others with -D): the table's head
-// staged and the counts prefetched (1) or both read straight from global
-// memory (0); the blocks an SM its launch bound asks for. (A tail that
-// regrouped each block's rows by erfc's range arm was 12 % slower.)
-#ifndef SID_B5_STAGE
-#define SID_B5_STAGE 0
-#endif
-#ifndef SID_B5_MIN_BLOCKS
-#define SID_B5_MIN_BLOCKS 6
-#endif
-constexpr bool kLrtStage = SID_B5_STAGE != 0;
-constexpr int kLrtMinBlocks = SID_B5_MIN_BLOCKS;
+// B5's launch bound: the blocks an SM it asks for. B5's rows read the
+// table and the counts straight from global memory; B1's staging and
+// prefetch, 5 blocks an SM and a tail regrouped by erfc's range arm were
+// timed slower on the card (chip_smoke.B5_VARIANTS builds the first two by
+// text substitution; PERF.md has the times).
+constexpr int kLrtMinBlocks = 6;
 
 __device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -116,9 +109,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   classify_rows(counts, n, p, tab, tab_len, l1, l2, packed);
 }
 
-// B5's rows one by one: classify_row_lrt (one erfc a row); with kStage
-// B1's staging and prefetch
-template <bool kStage>
+// B5's rows one by one: classify_row_lrt (one erfc a row)
 __device__ __forceinline__ void lrt_rows(const uint2* __restrict__ counts, int64_t n,
                                          const sid::ClassifyParams& p, const sid::LocalLrtParams& q,
                                          const double* __restrict__ tab, int tab_len, double z,
@@ -126,31 +117,14 @@ __device__ __forceinline__ void lrt_rows(const uint2* __restrict__ counts, int64
                                          uint8_t* __restrict__ packed) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if constexpr (kStage) {
-    __shared__ double head[kTabHead];
-    const int head_len = stage_head(head, tab, tab_len);
-    uint2 next = i < n ? __ldg(counts + i) : make_uint2(0u, 0u);
-    wait_head();
-    const sid::StagedTable staged{head, head_len, tab, tab_len};
-    for (; i < n; i += stride) {
-      const uint2 row = next;
-      if (i + stride < n) next = __ldg(counts + i + stride);
-      double a, b;
-      const unsigned byte = sid::classify_row_lrt(row.x, row.y, p, q, staged, z, &a, &b);
-      o1[i] = a;
-      o2[i] = b;
-      packed[i] = static_cast<uint8_t>(byte);
-    }
-  } else {
-    const sid::GlobalTable table{tab, tab_len};
-    for (; i < n; i += stride) {
-      const uint2 row = __ldg(counts + i);
-      double a, b;
-      const unsigned byte = sid::classify_row_lrt(row.x, row.y, p, q, table, z, &a, &b);
-      o1[i] = a;
-      o2[i] = b;
-      packed[i] = static_cast<uint8_t>(byte);
-    }
+  const sid::GlobalTable table{tab, tab_len};
+  for (; i < n; i += stride) {
+    const uint2 row = __ldg(counts + i);
+    double a, b;
+    const unsigned byte = sid::classify_row_lrt(row.x, row.y, p, q, table, z, &a, &b);
+    o1[i] = a;
+    o2[i] = b;
+    packed[i] = static_cast<uint8_t>(byte);
   }
 }
 
@@ -163,7 +137,7 @@ __global__ void __launch_bounds__(kThreads, kLrtMinBlocks)
                               const double* __restrict__ tab, int tab_len,
                               double* __restrict__ p1, double* __restrict__ p2,
                               uint8_t* __restrict__ packed) {
-  lrt_rows<kLrtStage>(counts, n, p, q, tab, tab_len, erfc(zero), p1, p2, packed);
+  lrt_rows(counts, n, p, q, tab, tab_len, erfc(zero), p1, p2, packed);
 }
 
 // A kernel's resident blocks on the whole current device (blocks an SM by

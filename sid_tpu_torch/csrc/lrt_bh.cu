@@ -30,7 +30,8 @@
 //     are loaded warp-striped and read back blocked through shared memory
 //     (p taken back from the sorted key, gathered only for zeros and NaN),
 //     out and is_het are scattered.
-// The sort's pairs are 12 B (a 64-bit key, a 32-bit position: m < 2^31).
+// The sort's pairs are 12 B (a 64-bit key, a 32-bit position: m < 2^31);
+// its digits, tiles and the scan's are bh_sort.cuh's constants.
 // Its tiles and the scan's take their numbers from per-launch counters
 // (atomicAdd), so a tile waits only on tiles that have started. min is
 // exact and associative with the first NaN winning and ties giving the
@@ -38,8 +39,7 @@
 // for any tiling.
 // What bounds it: bytes. The function itself reads p and writes out and
 // is_het (17 B a p-value); a radix sort of 12 B pairs reads and writes each
-// pair once a pass (8 passes of 8-bit digits; 11-bit digits, 6 passes of
-// 2,048 bins, measured 2.2x slower on an H100). The scatter is staged in
+// pair once a pass (8 passes of 8-bit digits). The scatter is staged in
 // shared memory in digit order so each bin's run is stored contiguously.
 //
 // Launch: on the caller's stream, no allocation (the torch wrapper passes
@@ -56,12 +56,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPlanThreads = 1024;
-// look-back words a sort thread reads at once (4, 8 and 16 timed on the
-// card: 4 the fastest and the fewest registers)
-#ifndef SID_BH_LOOKBACK
-#define SID_BH_LOOKBACK 4
-#endif
-constexpr int kLookBack = SID_BH_LOOKBACK;
+// look-back words a sort thread reads at once (the fastest of the widths
+// timed on the card, and the fewest registers)
+constexpr int kLookBack = 4;
 
 __global__ void __launch_bounds__(kThreads)
     lrt_pvalues_kernel(const double* __restrict__ lhom, const double* __restrict__ lhet,
@@ -87,11 +84,12 @@ struct BhSort {
   uint32_t* offsets;               // [passes][bins], each digit's exclusive bin offsets
   int* trivial;                    // [passes], 1 where one bin holds every key
   unsigned long long* status;      // [sort_tiles][bins]
-  unsigned int* counters;          // [passes + 1]: the passes' tile counters, the scan's
+  unsigned int* counters;          // [passes]: the passes' tile counters
+  unsigned int* scan_counter;      // the scan's tile counter
   int* scan_flag;                  // [scan_tiles]: 0, 1 aggregate, 2 inclusive
   double* scan_agg;                // [scan_tiles]
   double* scan_incl;               // [scan_tiles]
-  int hist_blocks, sort_tiles, scan_tiles, passes;
+  int hist_blocks, sort_tiles, scan_tiles;
 };
 
 BhSort bh_sort_of(void* scratch, const sid::BhLayout& l) {
@@ -106,13 +104,13 @@ BhSort bh_sort_of(void* scratch, const sid::BhLayout& l) {
   s.trivial = reinterpret_cast<int*>(base + l.trivial);
   s.status = reinterpret_cast<unsigned long long*>(base + l.status);
   s.counters = reinterpret_cast<unsigned int*>(base + l.counters);
+  s.scan_counter = reinterpret_cast<unsigned int*>(base + l.scan_counter);
   s.scan_flag = reinterpret_cast<int*>(base + l.scan_flag);
   s.scan_agg = reinterpret_cast<double*>(base + l.scan_agg);
   s.scan_incl = reinterpret_cast<double*>(base + l.scan_incl);
   s.hist_blocks = l.hist_blocks;
   s.sort_tiles = l.sort_tiles;
   s.scan_tiles = l.scan_tiles;
-  s.passes = l.passes;
   return s;
 }
 
@@ -165,12 +163,11 @@ __device__ __forceinline__ double block_exclusive_min(double v, double* slots, d
 }
 
 // every digit's counts of this block's keys (kPasses x kBins uint32 of
-// dynamic shared memory: 8 or 48 KB); the look-back state zeroed
-template <int kBits>
+// dynamic shared memory); the look-back state zeroed
 __global__ void __launch_bounds__(sid::kSortThreads)
     bh_histogram_kernel(const double* __restrict__ p, int64_t m, BhSort s) {
-  constexpr int kBins = 1 << kBits;
-  constexpr int kPasses = (64 + kBits - 1) / kBits;
+  constexpr int kBins = sid::kSortBins;
+  constexpr int kPasses = sid::kSortPasses;
   extern __shared__ uint32_t hist[];
   const int t = threadIdx.x;
   for (int k = t; k < kPasses * kBins; k += sid::kSortThreads) hist[k] = 0;
@@ -179,12 +176,13 @@ __global__ void __launch_bounds__(sid::kSortThreads)
   const int64_t n_status = static_cast<int64_t>(s.sort_tiles) * kBins;
   for (int64_t k = g; k < n_status; k += stride) s.status[k] = 0;
   for (int64_t k = g; k < s.scan_tiles; k += stride) s.scan_flag[k] = 0;
-  if (g <= kPasses) s.counters[g] = 0;
+  if (g < kPasses) s.counters[g] = 0;
+  if (g == 0) *s.scan_counter = 0;
   __syncthreads();
   for (int64_t i = g; i < m; i += stride) {
     const uint64_t key = sid::bh_radix_key(__ldg(p + i));
 #pragma unroll
-    for (int q = 0; q < kPasses; ++q) atomicAdd(hist + q * kBins + sid::radix_digit(key, q, kBits), 1u);
+    for (int q = 0; q < kPasses; ++q) atomicAdd(hist + q * kBins + sid::radix_digit(key, q, sid::kSortBits), 1u);
   }
   __syncthreads();
   uint32_t* out = s.block_hist + static_cast<int64_t>(blockIdx.x) * kPasses * kBins;
@@ -193,15 +191,14 @@ __global__ void __launch_bounds__(sid::kSortThreads)
 
 // block `pass`: the digit's counts summed over the histogram's blocks, its
 // exclusive bin offsets, and whether one bin holds every key
-template <int kBits>
 __global__ void __launch_bounds__(kPlanThreads)
     bh_plan_kernel(const double* __restrict__ p, int64_t m, BhSort s) {
-  constexpr int kBins = 1 << kBits;
-  constexpr int kPasses = (64 + kBits - 1) / kBits;
+  constexpr int kBins = sid::kSortBins;
+  constexpr int kPasses = sid::kSortPasses;
   constexpr int kPer = (kBins + kPlanThreads - 1) / kPlanThreads;
   __shared__ uint32_t warp_sum[kPlanThreads / 32];
   const int pass = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const unsigned first = sid::radix_digit(sid::bh_radix_key(__ldg(p)), pass, kBits);
+  const unsigned first = sid::radix_digit(sid::bh_radix_key(__ldg(p)), pass, sid::kSortBits);
   uint32_t c[kPer];
   uint32_t local = 0;
 #pragma unroll
@@ -265,17 +262,17 @@ __device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v, uint32_t* sl
 // kSortTile (bh_sort.cuh); a digit that is the same in every key returns.
 // The pairs are staged in shared memory in the tile's digit order, so the
 // stores to each bin's run of the output are consecutive (dynamic shared
-// memory: sid::pass_smem_bytes).
-template <int kBits>
+// memory: sid::kPassSmemBytes).
 __global__ void __launch_bounds__(sid::kSortThreads)
     bh_radix_pass_kernel(const double* __restrict__ p, int64_t m, int pass, BhSort s) {
-  constexpr int kBins = 1 << kBits;
+  constexpr int kBits = sid::kSortBits;
+  constexpr int kBins = sid::kSortBins;
   constexpr int kOwn = kBins / sid::kSortThreads;  // bins a thread owns, consecutive
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* warp_cnt = reinterpret_cast<uint16_t*>(smem);  // [warps][bins]
   uint64_t* skey = reinterpret_cast<uint64_t*>(smem);      // after the counters: the tile's keys
   uint32_t* sval = reinterpret_cast<uint32_t*>(smem);      // then its positions
-  uint32_t* tile_base = reinterpret_cast<uint32_t*>(smem + sid::pass_union_bytes(kBits));
+  uint32_t* tile_base = reinterpret_cast<uint32_t*>(smem + sid::kPassUnionBytes);
   uint32_t* local_start = tile_base + kBins;
   uint16_t* sdig = reinterpret_cast<uint16_t*>(local_start + kBins);
   __shared__ uint32_t slots[sid::kSortWarps];
@@ -379,7 +376,6 @@ __global__ void __launch_bounds__(sid::kSortThreads)
     tile_base[b] = s.offsets[pass * kBins + b] + excl;
   }
   __syncthreads();
-#if SID_BH_STAGED
   // each pair's place in the tile's digit order
 #pragma unroll
   for (int k = 0; k < sid::kSortItems; ++k) {
@@ -410,16 +406,6 @@ __global__ void __launch_bounds__(sid::kSortThreads)
     const unsigned d = sdig[l];
     vout[tile_base[d] + (l - local_start[d])] = sval[l];
   }
-#else
-#pragma unroll
-  for (int k = 0; k < sid::kSortItems; ++k) {
-    if (base + 32 * k >= m) continue;
-    const unsigned d = sid::radix_digit(key[k], pass, kBits);
-    const uint32_t at = tile_base[d] + warp_cnt[warp * kBins + d] + rank[k];
-    kout[at] = key[k];
-    vout[at] = val[k];
-  }
-#endif
 }
 
 // where the scan finds the order: a given int64 order, or the sort's last
@@ -429,7 +415,6 @@ struct BhOrder {
   const uint64_t* keys[2];
   const uint32_t* vals[2];
   const int* trivial;
-  int passes;
 };
 
 struct BhScan {
@@ -440,20 +425,19 @@ struct BhScan {
 };
 
 // shared-memory index of a tile position: one pad entry every 16
-// positions, so the blocked reads of 16 consecutive positions a thread do
-// not share banks
+// positions
 __device__ __forceinline__ int padded(int local) { return local + (local >> 4); }
 
 // A tile of the sorted order: positions and p values loaded warp-striped
 // (p from the sorted key where the key holds it, else gathered once) and
-// read back blocked through shared memory (sid::scan_smem_bytes), each
+// read back blocked through shared memory (sid::kScanSmemBytes), each
 // thread's running min of s, the block's scan, warp 0's look-back over 32
 // tiles at a time, then out and is_het scattered.
-template <int kItems>
 __global__ void __launch_bounds__(sid::kScanThreads)
     bh_scan_kernel(const double* __restrict__ p, int64_t m, BhOrder o, BhScan sc, double alpha,
                    double* __restrict__ out, uint8_t* __restrict__ het) {
-  constexpr int kTile = sid::kScanThreads * kItems;
+  constexpr int kItems = sid::kScanItems;
+  constexpr int kTile = sid::kScanTile;
   constexpr int kSlots = kTile + kTile / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   double* ps = reinterpret_cast<double*>(smem);
@@ -466,7 +450,7 @@ __global__ void __launch_bounds__(sid::kScanThreads)
   const uint32_t* v = nullptr;
   const uint64_t* kv = nullptr;
   if (o.ext == nullptr) {
-    const int k = sid::radix_rank_of_pass(o.trivial, o.passes);
+    const int k = sid::radix_rank_of_pass(o.trivial, sid::kSortPasses);
     if (k) {
       v = (k & 1) ? o.vals[0] : o.vals[1];
       kv = (k & 1) ? o.keys[0] : o.keys[1];
@@ -567,7 +551,7 @@ __global__ void __launch_bounds__(sid::kScanThreads)
 
 // the sorted positions as int64 (the order the scan reads), for checks
 __global__ void bh_order_out_kernel(int64_t m, BhOrder o, int64_t* __restrict__ order) {
-  const int k = sid::radix_rank_of_pass(o.trivial, o.passes);
+  const int k = sid::radix_rank_of_pass(o.trivial, sid::kSortPasses);
   const uint32_t* v = k ? ((k & 1) ? o.vals[0] : o.vals[1]) : nullptr;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < m; i += stride)
@@ -717,54 +701,40 @@ __global__ void __launch_bounds__(sid::kSmallThreads)
   }
 }
 
-template <int kItems>
 cudaError_t launch_scan(const double* p, int64_t m, const BhOrder& o, const BhScan& sc, int tiles,
                         double alpha, double* out, uint8_t* het, cudaStream_t s) {
-  const int smem = sid::scan_smem_bytes(kItems);
   const cudaError_t err =
-      cudaFuncSetAttribute(bh_scan_kernel<kItems>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(bh_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sid::kScanSmemBytes);
   if (err != cudaSuccess) return err;
-  bh_scan_kernel<kItems><<<tiles, sid::kScanThreads, smem, s>>>(p, m, o, sc, alpha, out, het);
+  bh_scan_kernel<<<tiles, sid::kScanThreads, sid::kScanSmemBytes, s>>>(p, m, o, sc, alpha, out, het);
   return cudaGetLastError();
 }
 
-cudaError_t launch_scan_items(int items, const double* p, int64_t m, const BhOrder& o, const BhScan& sc,
-                              int tiles, double alpha, double* out, uint8_t* het, cudaStream_t s) {
-  return items == sid::kScanItems ? launch_scan<sid::kScanItems>(p, m, o, sc, tiles, alpha, out, het, s)
-                                  : launch_scan<4>(p, m, o, sc, tiles, alpha, out, het, s);
-}
-
 // the radix order's launches: the histogram, the plan, one pass a digit
-template <int kBits>
 cudaError_t launch_sort(const double* p, int64_t m, const sid::BhLayout& l, const BhSort& s,
                         cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(bh_radix_pass_kernel<kBits>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         sid::pass_smem_bytes(kBits));
+  cudaError_t err = cudaFuncSetAttribute(bh_radix_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         sid::kPassSmemBytes);
   if (err != cudaSuccess) return err;
-  bh_histogram_kernel<kBits>
-      <<<l.hist_blocks, sid::kSortThreads, 4 * l.passes * l.bins, st>>>(p, m, s);
+  bh_histogram_kernel<<<l.hist_blocks, sid::kSortThreads, 4 * sid::kSortPasses * sid::kSortBins, st>>>(p, m, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bh_plan_kernel<kBits><<<l.passes, kPlanThreads, 0, st>>>(p, m, s);
+  bh_plan_kernel<<<sid::kSortPasses, kPlanThreads, 0, st>>>(p, m, s);
   err = cudaGetLastError();
-  for (int pass = 0; pass < l.passes && err == cudaSuccess; ++pass) {
-    bh_radix_pass_kernel<kBits><<<l.sort_tiles, sid::kSortThreads, sid::pass_smem_bytes(kBits), st>>>(p, m, pass, s);
+  for (int pass = 0; pass < sid::kSortPasses && err == cudaSuccess; ++pass) {
+    bh_radix_pass_kernel<<<l.sort_tiles, sid::kSortThreads, sid::kPassSmemBytes, st>>>(p, m, pass, s);
     err = cudaGetLastError();
   }
   return err;
 }
 
-template <int kBits>
-cudaError_t launch_sorted_bh(const double* p, int64_t m, int items, double alpha, double* out,
-                             uint8_t* het, void* scratch, cudaStream_t st) {
-  const sid::BhLayout l = sid::bh_layout(m, kBits, items);
-  const BhSort s = bh_sort_of(scratch, l);
-  const cudaError_t err = launch_sort<kBits>(p, m, l, s, st);
-  if (err != cudaSuccess) return err;
-  const BhOrder o{nullptr, {s.keys[0], s.keys[1]}, {s.vals[0], s.vals[1]}, s.trivial, l.passes};
-  const BhScan sc{s.counters + l.passes, s.scan_flag, s.scan_agg, s.scan_incl};
-  return launch_scan_items(items, p, m, o, sc, l.scan_tiles, alpha, out, het, st);
+// the sort's order of its last pass: the buffers the last real pass wrote
+// (none: every digit was the same, the identity order)
+BhOrder sorted_order(const BhSort& s) {
+  return BhOrder{nullptr, {s.keys[0], s.keys[1]}, {s.vals[0], s.vals[1]}, s.trivial};
 }
+
+BhScan scan_state(const BhSort& s) { return BhScan{s.scan_counter, s.scan_flag, s.scan_agg, s.scan_incl}; }
 
 cudaError_t launch_small(const BhSmall& a, int arrays, int64_t m, double alpha, cudaStream_t st) {
   const int smem = sid::bh_small_smem(m);
@@ -774,9 +744,6 @@ cudaError_t launch_small(const BhSmall& a, int arrays, int64_t m, double alpha, 
   bh_small_kernel<<<arrays, sid::kSmallThreads, smem, st>>>(a, static_cast<int>(m), alpha);
   return cudaGetLastError();
 }
-
-bool valid_bits(int bits) { return bits == 8 || bits == 11; }
-bool valid_items(int items) { return items == sid::kScanItems || items == 4; }
 
 }  // namespace
 
@@ -812,26 +779,26 @@ int sid_lrt_pvalues_launch(const void* lhom, const void* lhet, int64_t n, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of scratch sid_bh_adjust_launch takes for m p-values with `bits`
-// bits a digit and `items` positions a scan thread; 0 where the one-block
-// path needs none (ordered: 0 for a given order, 1 for the hand sort).
-int64_t sid_bh_scratch_bytes(int64_t m, int bits, int items, int ordered) {
-  if (m <= 0 || (!ordered && m <= sid::kSmallMax)) return 0;
-  return sid::bh_layout(m, bits, items).total;
+// Bytes of scratch a BH launch takes for m p-values. kind 0:
+// sid_bh_adjust_launch with the hand order (none up to kSmallMax, the
+// one-block path); 1: sid_bh_adjust_launch over a given order (the scan's
+// look-back alone); 2: sid_bh_order_launch.
+int64_t sid_bh_scratch_bytes(int64_t m, int kind) {
+  if (m <= 0 || (kind == 0 && m <= sid::kSmallMax)) return 0;
+  return sid::bh_layout(m, kind != 1).total;
 }
 
 // BH over p (m f64, m < 2^31) into out (m f64) and, when not null, het (m
 // bytes: out < alpha). ord: null for the hand order, or m int64, the
-// descending order of p; bits: 8 or 11 (the sort's digit); items: 16 or 4
-// positions a scan thread; scratch: sid_bh_scratch_bytes, 16-byte aligned.
-// Launches: for a given order, a zeroing kernel and the scan; for the hand
-// order, one bh_small_kernel where m <= kSmallMax, else the histogram, the
-// plan, one pass a digit and the scan. Returns a cudaError_t.
-int sid_bh_adjust_launch(const void* p, const void* ord, int64_t m, int bits, int items, double alpha,
-                         void* out, void* het, void* scratch, void* stream) {
+// descending order of p; scratch: sid_bh_scratch_bytes (kind 0 or 1),
+// 16-byte aligned. Launches: for a given order, a zeroing kernel and the
+// scan; for the hand order, one bh_small_kernel where m <= kSmallMax, else
+// the histogram, the plan, one pass a digit and the scan. Returns a
+// cudaError_t.
+int sid_bh_adjust_launch(const void* p, const void* ord, int64_t m, double alpha, void* out, void* het,
+                         void* scratch, void* stream) {
   if (m <= 0) return 0;
-  if (m >= 0x80000000ll || !valid_bits(bits) || !valid_items(items))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (m >= 0x80000000ll) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double* pp = static_cast<const double*>(p);
   double* oo = static_cast<double*>(out);
@@ -840,18 +807,18 @@ int sid_bh_adjust_launch(const void* p, const void* ord, int64_t m, int bits, in
     const BhSmall a{{pp, nullptr}, {oo, nullptr}, {hh, nullptr}};
     return static_cast<int>(launch_small(a, 1, m, alpha, st));
   }
-  if (ord == nullptr) {
-    return static_cast<int>(bits == 8 ? launch_sorted_bh<8>(pp, m, items, alpha, oo, hh, scratch, st)
-                                      : launch_sorted_bh<11>(pp, m, items, alpha, oo, hh, scratch, st));
-  }
-  const sid::BhLayout l = sid::bh_layout(m, bits, items);
+  const sid::BhLayout l = sid::bh_layout(m, ord == nullptr);
   const BhSort s = bh_sort_of(scratch, l);
-  const BhScan sc{s.counters + l.passes, s.scan_flag, s.scan_agg, s.scan_incl};
-  bh_zero_scan_kernel<<<(l.scan_tiles + 255) / 256, 256, 0, st>>>(sc, l.scan_tiles);
-  cudaError_t err = cudaGetLastError();
+  if (ord == nullptr) {
+    const cudaError_t err = launch_sort(pp, m, l, s, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_scan(pp, m, sorted_order(s), scan_state(s), l.scan_tiles, alpha, oo, hh, st));
+  }
+  bh_zero_scan_kernel<<<(l.scan_tiles + 255) / 256, 256, 0, st>>>(scan_state(s), l.scan_tiles);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const BhOrder o{static_cast<const int64_t*>(ord), {nullptr, nullptr}, {nullptr, nullptr}, nullptr, 0};
-  return static_cast<int>(launch_scan_items(items, pp, m, o, sc, l.scan_tiles, alpha, oo, hh, st));
+  const BhOrder o{static_cast<const int64_t*>(ord), {nullptr, nullptr}, {nullptr, nullptr}, nullptr};
+  return static_cast<int>(launch_scan(pp, m, o, scan_state(s), l.scan_tiles, alpha, oo, hh, st));
 }
 
 // BH over two arrays of m <= kSmallMax p-values in one launch of
@@ -867,20 +834,19 @@ int sid_bh_small_pair_launch(const void* p0, const void* p1, int64_t m, double a
   return static_cast<int>(launch_small(a, 2, m, alpha, static_cast<cudaStream_t>(stream)));
 }
 
-// The hand radix order of p alone (m < 2^31, bits 8 or 11) into order (m
-// int64): the sort's launches and one that writes the positions out;
-// scratch: sid_bh_scratch_bytes(m, bits, 16, 1). Returns a cudaError_t.
-int sid_bh_order_launch(const void* p, int64_t m, int bits, void* order, void* scratch, void* stream) {
+// The hand radix order of p alone (m < 2^31) into order (m int64): the
+// sort's launches and one that writes the positions out; scratch:
+// sid_bh_scratch_bytes (kind 2). Returns a cudaError_t.
+int sid_bh_order_launch(const void* p, int64_t m, void* order, void* scratch, void* stream) {
   if (m <= 0) return 0;
-  if (m >= 0x80000000ll || !valid_bits(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  if (m >= 0x80000000ll) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double* pp = static_cast<const double*>(p);
-  const sid::BhLayout l = sid::bh_layout(m, bits, sid::kScanItems);
+  const sid::BhLayout l = sid::bh_layout(m, true);
   const BhSort s = bh_sort_of(scratch, l);
-  cudaError_t err = bits == 8 ? launch_sort<8>(pp, m, l, s, st) : launch_sort<11>(pp, m, l, s, st);
+  const cudaError_t err = launch_sort(pp, m, l, s, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const BhOrder o{nullptr, {s.keys[0], s.keys[1]}, {s.vals[0], s.vals[1]}, s.trivial, l.passes};
-  bh_order_out_kernel<<<256, 256, 0, st>>>(m, o, static_cast<int64_t*>(order));
+  bh_order_out_kernel<<<256, 256, 0, st>>>(m, sorted_order(s), static_cast<int64_t*>(order));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -282,16 +282,18 @@ int sid_bh_small_host(int n_arrays, const double* const* p, int64_t m, double al
   return done;
 }
 
-// the layout's total bytes (sid_bh_scratch_bytes for a multi-block BH)
-int64_t sid_bh_layout_bytes_host(int64_t m, int bits, int items) { return sid::bh_layout(m, bits, items).total; }
+// the layout's total bytes: sort 1 for a multi-block BH with the hand
+// order, 0 for a scan over a given order (sid_bh_scratch_bytes)
+int64_t sid_bh_layout_bytes_host(int64_t m, int sort) { return sid::bh_layout(m, sort != 0).total; }
 
-// the header's constants: kSortTile, kScanThreads * kScanItems, kSmallMax,
-// kSmallBits
+// the header's constants: kSortTile, kScanTile, kSmallMax, kSmallBits,
+// kSortBits
 void sid_bh_constants_host(int64_t* out) {
   out[0] = sid::kSortTile;
-  out[1] = static_cast<int64_t>(sid::kScanThreads) * sid::kScanItems;
+  out[1] = sid::kScanTile;
   out[2] = sid::kSmallMax;
   out[3] = sid::kSmallBits;
+  out[4] = sid::kSortBits;
 }
 
 }  // extern "C"

@@ -52,13 +52,12 @@ LRT_LAUNCHES = 0
 BH_LAUNCHES = 0
 
 # csrc/bh_sort.cuh: positions of the sorted order a thread of the scan
-# walks (kScanItems; 4 is the other tile the kernel library holds), the
-# scan's threads, the sort's tile, the one-block path's largest m
-BH_ITEMS = 16
+# walks (kScanItems), the scan's threads, the sort's tile, the one-block
+# path's largest m, the sort's bits a digit (kSortBits)
+BH_ITEMS = 4
 BH_SCAN_THREADS = 256
 BH_SORT_TILE = 4096
 BH_SMALL_MAX = 8192
-# the radix sort's digit: 8 or 11 bits
 BH_BITS = 8
 BH_MAX = 2**31 - 1
 
@@ -206,11 +205,11 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
     lib.sid_lrt_pvalues_launch.restype = i32
     lib.sid_lrt_pvalues_launch.argtypes = [p, p, i64, p, i32, p, p, i32, p]
     lib.sid_bh_scratch_bytes.restype = i64
-    lib.sid_bh_scratch_bytes.argtypes = [i64, i32, i32, i32]
+    lib.sid_bh_scratch_bytes.argtypes = [i64, i32]
     lib.sid_bh_adjust_launch.restype = i32
-    lib.sid_bh_adjust_launch.argtypes = [p, p, i64, i32, i32, ctypes.c_double, p, p, p, p]
+    lib.sid_bh_adjust_launch.argtypes = [p, p, i64, ctypes.c_double, p, p, p, p]
     lib.sid_bh_order_launch.restype = i32
-    lib.sid_bh_order_launch.argtypes = [p, i64, i32, p, p, p]
+    lib.sid_bh_order_launch.argtypes = [p, i64, p, p, p]
     lib.sid_bh_small_pair_launch.restype = i32
     lib.sid_bh_small_pair_launch.argtypes = [p, p, i64, ctypes.c_double, p, p, p, p, p]
     lib.sid_cuda_error_string.restype = ctypes.c_char_p
@@ -279,7 +278,7 @@ def launch_lrt(log_l_hom, log_l_het, log_priors, underflow_log, p1, p2=None) -> 
     LRT_LAUNCHES += 1
 
 
-def bh_launches(m: int, ordered: bool = False, bits: int = BH_BITS) -> int:
+def bh_launches(m: int, ordered: bool = False) -> int:
     """Kernel launches of one BH call over m p-values: for a given order a
     zeroing kernel and the scan; for the hand order one launch up to
     ``BH_SMALL_MAX``, else the histogram, the plan, one pass a digit and
@@ -290,44 +289,44 @@ def bh_launches(m: int, ordered: bool = False, bits: int = BH_BITS) -> int:
         return 2
     if m <= BH_SMALL_MAX:
         return 1
-    return 3 + -(-64 // bits)
+    return 3 + -(-64 // BH_BITS)
 
 
-def _check_bh(p, items: int, bits: int) -> None:
+def _check_bh(p) -> None:
     if p.shape[0] > BH_MAX:
         raise ValueError(f"BH on the card takes at most {BH_MAX} p-values, got {p.shape[0]}")
-    if items not in (BH_ITEMS, 4):
-        raise ValueError(f"items must be {BH_ITEMS} or 4, got {items}")
-    if bits not in (8, 11):
-        raise ValueError(f"bits must be 8 or 11, got {bits}")
 
 
-def launch_bh(p, order, out, het=None, alpha: float = 0.0, items: int = BH_ITEMS,
-              bits: int = BH_BITS) -> None:
+def _scratch(lib, m: int, kind: int, device) -> torch.Tensor:
+    """A BH launch's scratch from torch's caching allocator
+    (``sid_bh_scratch_bytes``: kind 0 the hand order, 1 a given order, 2
+    the order alone)."""
+    return torch.empty(max(lib.sid_bh_scratch_bytes(m, kind), 1), dtype=torch.uint8, device=device)
+
+
+def launch_bh(p, order, out, het=None, alpha: float = 0.0) -> None:
     """Enqueue BH over p (f64) into out (f64) and, when given, het (uint8:
     out < alpha); no sync. ``order``: None for the hand order (the radix
-    sort of ``bits`` bits a digit, or the one-block path up to
-    ``BH_SMALL_MAX``), or the descending order of p (int64), which the scan
-    then takes as it is. The scratch comes from torch's caching allocator."""
+    sort, or the one-block path up to ``BH_SMALL_MAX``), or the descending
+    order of p (int64), which the scan then takes as it is."""
     global BH_LAUNCHES
     m = p.shape[0]
     if m == 0:
         return
-    _check_bh(p, items, bits)
+    _check_bh(p)
     if order is not None and (order.dtype != torch.int64 or order.shape != p.shape or not order.is_contiguous()):
         raise ValueError("order must be a contiguous int64 permutation of p's positions")
     lib = _kernel_lib()
     ordered = order is not None
-    n_scratch = lib.sid_bh_scratch_bytes(m, bits, items, int(ordered))
-    scratch = torch.empty(max(n_scratch, 1), dtype=torch.uint8, device=p.device)
+    scratch = _scratch(lib, m, int(ordered), p.device)
     with torch.cuda.device(p.device):
         err = lib.sid_bh_adjust_launch(
-            p.data_ptr(), order.data_ptr() if ordered else 0, m, bits, items, float(alpha), out.data_ptr(),
+            p.data_ptr(), order.data_ptr() if ordered else 0, m, float(alpha), out.data_ptr(),
             0 if het is None else het.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream,
         )
     _raise_on(lib, err, "BH launch")
-    BH_LAUNCHES += bh_launches(m, ordered, bits)
+    BH_LAUNCHES += bh_launches(m, ordered)
 
 
 def launch_bh_pair(p1, p2, out1, out2, het2, alpha: float) -> None:
@@ -352,7 +351,7 @@ def launch_bh_pair(p1, p2, out1, out2, het2, alpha: float) -> None:
     BH_LAUNCHES += 1
 
 
-def bh_radix_order(p: torch.Tensor, bits: int = BH_BITS) -> torch.Tensor:
+def bh_radix_order(p: torch.Tensor) -> torch.Tensor:
     """The kernels' radix order of p on a card (int64; the multi-block
     sort at any m, then its positions written out), for checks against
     ``bh_order``, its plain version. Launches are not counted: the BH path
@@ -361,12 +360,11 @@ def bh_radix_order(p: torch.Tensor, bits: int = BH_BITS) -> torch.Tensor:
     out = torch.empty(p.shape[0], dtype=torch.int64, device=p.device)
     if p.shape[0] == 0:
         return out
-    _check_bh(p, BH_ITEMS, bits)
+    _check_bh(p)
     lib = _kernel_lib()
-    scratch = torch.empty(lib.sid_bh_scratch_bytes(p.shape[0], bits, BH_ITEMS, 1), dtype=torch.uint8,
-                          device=p.device)
+    scratch = _scratch(lib, p.shape[0], 2, p.device)
     with torch.cuda.device(p.device):
-        err = lib.sid_bh_order_launch(p.data_ptr(), p.shape[0], bits, out.data_ptr(), scratch.data_ptr(),
+        err = lib.sid_bh_order_launch(p.data_ptr(), p.shape[0], out.data_ptr(), scratch.data_ptr(),
                                       torch.cuda.current_stream(p.device).cuda_stream)
     _raise_on(lib, err, "BH order launch")
     return out
@@ -408,16 +406,15 @@ def lrt_pair(
     return p1, p2
 
 
-def adjust_benjamini_hochberg(p: torch.Tensor, items: int = BH_ITEMS, bits: int = BH_BITS) -> torch.Tensor:
+def adjust_benjamini_hochberg(p: torch.Tensor) -> torch.Tensor:
     """BH-adjusted p (f64 tensor): on a card the hand kernels
-    (``launch_bh`` with its own order; ``items`` positions a scan thread,
-    ``bits`` bits a digit of the sort); on the CPU the plain version.
+    (``launch_bh`` with its own order); on the CPU the plain version.
     Bitwise the host BH either way."""
     check_f64(p, p=p)
     if _device_of(p) == "cpu":
         return adjust_benjamini_hochberg_ref(p)
     out = torch.empty_like(p)
-    launch_bh(p, None, out, items=items, bits=bits)
+    launch_bh(p, None, out)
     return out
 
 

@@ -1,11 +1,10 @@
 """chip_smoke.py's pieces that run without a card.
 
 The design-variant builds edit the kernel sources by text substitution
-(``LANE_VARIANTS``, ``scripts/local_classify_variants.py``) or by the
-sources' own ``#ifndef`` macros (``B5_VARIANTS``, ``BH_VARIANTS``); a source
-edit that moves the text or drops a macro would only fail on the card, so
-these hold them here. ``row_counts`` reads kernels that load nothing (the
-BH scan's zeroing kernel) as a whole.
+(``LANE_VARIANTS``, ``B5_VARIANTS``, ``BH_VARIANTS``,
+``scripts/local_classify_variants.py``); a source edit that moves the text
+would only fail on the card, so these hold them here. ``row_counts`` reads
+kernels that load nothing (the BH scan's zeroing kernel) as a whole.
 """
 
 import importlib.util
@@ -36,8 +35,9 @@ def local_variants():
 @pytest.mark.parametrize("name", list(chip_smoke.LANE_VARIANTS))
 def test_lane_variant_texts_are_in_lynch_cu_once(name):
     src = source("lynch.cu")
-    for old, _ in chip_smoke.LANE_VARIANTS[name]:
-        assert src.count(old) == 1
+    for file, old, _ in chip_smoke.LANE_VARIANTS[name]:
+        assert file == "lynch.cu" and src.count(old) == 1
+    chip_smoke.variant_texts(CSRC, "lynch.cu", chip_smoke.LANE_VARIANTS[name])
 
 
 @pytest.mark.parametrize("name", list(local_variants()))
@@ -47,33 +47,50 @@ def test_local_classify_variant_texts_are_in_the_source_once(name):
         assert src.count(old) == 1
 
 
-@pytest.mark.parametrize("table, files", [
-    ("B5_VARIANTS", ("local_classify.cu",)),
-    ("BH_VARIANTS", ("bh_sort.cuh", "lrt_bh.cu")),
-])
-def test_variant_macros_are_the_sources(table, files):
-    """Every macro a variant sets is one the sources default with #ifndef,
-    and each variant sets a distinct combination."""
-    text = "".join(source(f) for f in files)
-    defaulted = set(re.findall(r"#ifndef (SID_\w+)", text))
+VARIANT_TABLES = {"B5_VARIANTS": "local_classify.cu", "BH_VARIANTS": "lrt_bh.cu"}
+
+
+@pytest.mark.parametrize("table, name", [(t, n) for t in VARIANT_TABLES for n in getattr(chip_smoke, t)])
+def test_variant_texts_are_in_the_sources_once(table, name):
+    """Each substitution of a B5 or BH variant finds its text once in the
+    file it edits (after the variant's earlier substitutions) and changes
+    it."""
+    edits = getattr(chip_smoke, table)[name]
+    texts = chip_smoke.variant_texts(CSRC, VARIANT_TABLES[table], edits)
+    for file, old, new in edits:
+        assert old != new
+        assert new in texts[file]
+
+
+@pytest.mark.parametrize("table", list(VARIANT_TABLES))
+def test_variants_are_distinct(table):
+    """No two variants of a table make the same sources, and only the
+    committed design makes none."""
     variants = getattr(chip_smoke, table)
-    for macros in variants.values():
-        assert set(macros) <= defaulted
-    assert len({tuple(sorted(m.items())) for m in variants.values()}) == len(variants)
+    made = {name: chip_smoke.variant_texts(CSRC, VARIANT_TABLES[table], edits) for name, edits in variants.items()}
+    keys = [tuple(sorted(texts.items())) for texts in made.values()]
+    assert len(set(keys)) == len(variants)
+    assert sum(not edits for edits in variants.values()) == 1
 
 
 def test_committed_b5_design_is_a_variant():
-    """The defaults of csrc/local_classify.cu are one of B5_VARIANTS, so
+    """B5_VARIANTS holds the committed csrc/local_classify.cu as it is, so
     --b5-variants times the committed design beside the others."""
-    src = source("local_classify.cu")
-    committed = {k: int(v) for k, v in re.findall(r"#define (SID_B5_\w+) (\d+)", src)}
-    assert committed in list(chip_smoke.B5_VARIANTS.values())
+    assert [] in list(chip_smoke.B5_VARIANTS.values())
+    texts = chip_smoke.variant_texts(CSRC, "local_classify.cu", [])
+    assert texts == {"local_classify.cu": source("local_classify.cu")}
 
 
 def test_committed_bh_design_is_a_variant():
-    src = source("bh_sort.cuh") + source("lrt_bh.cu")
-    committed = {k: int(v) for k, v in re.findall(r"#define (SID_BH_\w+) (\d+)", src)}
-    assert committed in list(chip_smoke.BH_VARIANTS.values())
+    assert [] in list(chip_smoke.BH_VARIANTS.values())
+    assert chip_smoke.variant_texts(CSRC, "lrt_bh.cu", []) == {"lrt_bh.cu": source("lrt_bh.cu")}
+
+
+def test_kernel_sources_hold_no_variant_macros():
+    """The variants live in chip_smoke.py's substitutions, not as build
+    macros of the kernel sources."""
+    for name in ("local_classify.cu", "lrt_bh.cu", "bh_sort.cuh"):
+        assert not re.findall(r"#if(?:n?def)? SID_(?:B5|BH)_", source(name))
 
 
 def test_row_counts_of_a_kernel_that_loads_nothing():

@@ -238,19 +238,16 @@ def test_tensor_entry_points_check_their_inputs():
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"items": 3}, "items"), ({"bits": 9}, "bits"),
+    ({"p": torch.zeros(1, dtype=torch.float64).expand(2**31)}, "at most"),
     ({"order": torch.zeros(4, dtype=torch.int32)}, "order"), ({"order": torch.zeros(3, dtype=torch.int64)}, "order"),
 ])
 def test_bh_launch_checks_its_arguments_before_any_launch(kw, match):
-    """launch_bh raises on a tile, digit width or order the kernels do not
-    take, before it loads the kernel library."""
-    p = torch.zeros(4, dtype=torch.float64)
-    kw = {"order": None, **kw}
+    """launch_bh raises on more p-values than a 32-bit position holds (a
+    stride-0 view, no memory) or an order the kernels do not take, before it
+    loads the kernel library."""
+    p = kw.get("p", torch.zeros(4, dtype=torch.float64))
     with pytest.raises(ValueError, match=match):
-        stats.launch_bh(p, kw.pop("order"), torch.empty_like(p), **kw)
-    if "bits" in kw:
-        with pytest.raises(ValueError, match="bits"):
-            stats.bh_radix_order(p, kw["bits"])
+        stats.launch_bh(p, kw.get("order"), p)
 
 
 # ---- the dead-code API, on tests/test_stats.py's vectors ----

@@ -63,7 +63,7 @@ def shim(tmp_path_factory):
     lib.sid_bh_small_host.restype = i32
     lib.sid_bh_small_host.argtypes = [i32, p, i64, ctypes.c_double, p, p]
     lib.sid_bh_layout_bytes_host.restype = i64
-    lib.sid_bh_layout_bytes_host.argtypes = [i64, i32, i32]
+    lib.sid_bh_layout_bytes_host.argtypes = [i64, i32]
     lib.sid_bh_constants_host.restype = None
     lib.sid_bh_constants_host.argtypes = [p]
     return lib
@@ -129,7 +129,7 @@ def edge_input(m, seed):
 
 
 INPUTS = {"ties": bh_input, "edges": edge_input}
-# the sort's tile (kSortTile) and the scan's (kScanThreads x kScanItems)
+# the sort's tile (kSortTile)
 TILE = 4096
 ORDER_SIZES = [0, 1, TILE - 1, TILE, TILE + 1, 4093, 2**20]
 
@@ -270,11 +270,11 @@ def test_one_block_path_refuses_more_than_it_holds(shim):
 
 
 def test_bh_constants_are_the_kernels(shim):
-    """The wrapper's tile sizes and limits are the header's."""
-    got = np.empty(4, np.int64)
+    """The wrapper's tile sizes, limits and digit width are the header's."""
+    got = np.empty(5, np.int64)
     shim.sid_bh_constants_host(_ptr(got))
     assert got.tolist() == [stats.BH_SORT_TILE, stats.BH_SCAN_THREADS * stats.BH_ITEMS,
-                            stats.BH_SMALL_MAX, 8]
+                            stats.BH_SMALL_MAX, 8, stats.BH_BITS]
     assert TILE == stats.BH_SORT_TILE
 
 
@@ -282,16 +282,24 @@ def test_bh_constants_are_the_kernels(shim):
 def test_bh_scratch_holds_the_pairs_and_the_look_back(shim, m):
     """The scratch covers both 12-byte pair buffers and the look-back words
     of every tile and bin."""
-    for bits in (8, 11):
-        n = shim.sid_bh_layout_bytes_host(m, bits, stats.BH_ITEMS)
-        tiles = -(-m // stats.BH_SORT_TILE)
-        assert n >= 24 * m + 8 * tiles * (1 << bits)
-        assert n % 16 == 0
+    n = shim.sid_bh_layout_bytes_host(m, 1)
+    tiles = -(-m // stats.BH_SORT_TILE)
+    assert n >= 24 * m + 8 * tiles * (1 << stats.BH_BITS)
+    assert n % 16 == 0
+
+
+@pytest.mark.parametrize("m", [1, 8193, 2**20, 2**31 - 1])
+def test_bh_scratch_of_a_given_order_is_the_scan_state(shim, m):
+    """A scan over a given order takes the scan's tile counter and its
+    look-back (a flag and two f64 a tile), none of the sort's buffers."""
+    n = shim.sid_bh_layout_bytes_host(m, 0)
+    tiles = -(-m // (stats.BH_SCAN_THREADS * stats.BH_ITEMS))
+    assert 4 + 20 * tiles <= n <= 64 + 20 * tiles
+    assert n % 16 == 0
 
 
 def test_bh_launches_follow_the_paths():
     assert stats.bh_launches(0) == 0
     assert stats.bh_launches(1) == stats.bh_launches(stats.BH_SMALL_MAX) == 1
-    assert stats.bh_launches(stats.BH_SMALL_MAX + 1) == 3 + 8
-    assert stats.bh_launches(10**6, bits=11) == 3 + 6
+    assert stats.bh_launches(stats.BH_SMALL_MAX + 1) == 3 + 64 // stats.BH_BITS == 3 + 8
     assert stats.bh_launches(10**6, ordered=True) == 2
