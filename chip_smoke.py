@@ -2,26 +2,31 @@
 """Smoke run of the PyTorch / CUDA port on one CUDA card:
 
     python3 chip_smoke.py [--parent DIR]
-    python3 chip_smoke.py --lane-variants | --b5-variants | --bh-variants
+    python3 chip_smoke.py --lane-variants | --b5-variants | --bh-variants | --lrt-variants
 
 ``--parent DIR`` names an unpacked tree of the parent commit (git archive
-into a git-ignored directory) whose csrc/local_classify.cu (B1, B5) and
-csrc/lrt_bh.cu (BH as three passes over torch.argsort's int64 order) keep
-their C interfaces; phase 13 then builds them with this tree's nvcc flags,
-prints their ptxas report, holds B5's p1, p2 and byte and BH's out and
-is_het bitwise against this tree's at U = 1M and at the simulated sites'
-~2,000 profiles, and times both, device only and whole calls, in turns (B1
-too). ``--lane-variants`` builds variants of the lane kernels instead
+into a git-ignored directory) whose csrc/local_classify.cu (B1, B5),
+csrc/lrt_bh.cu (the LRT and BH with its own order) and
+csrc/quality_finalize.cu (B6 full, its outputs one buffer of 17 B a site)
+keep their C interfaces; phase 13 then builds them with this tree's nvcc
+flags, prints their ptxas report, holds B5's p1, p2 and byte, the LRT's p1
+and p2 (with and without a prior, and one-sided), BH's out and is_het and
+B6 full's p1, p2, is_het and miss count bitwise against this tree's at
+U = 1M (N = 1M for B6 full) and at the simulated sites' ~2,000 profiles,
+and times them, device only and whole calls, in turns (B1 too).
+``--lane-variants`` builds variants of the lane kernels instead
 (``LANE_VARIANTS``: a launch bound of 2 blocks an SM, the lane table in
 global memory, every lane folded by the last block, four marginals rows
 a thread, the slot search unrolled), holds them bitwise against the
 committed kernels at phase 11's and phase 12's cohort shapes, times them
-in turns, and stops. ``--b5-variants`` (``B5_VARIANTS``) and
-``--bh-variants`` (``BH_VARIANTS``) do the same for B5's design choices
-(the table staged or not, 5 or 6 blocks an SM) and for BH's (the scatter
-staged or not, pairs a thread, look-back width, digit width, the scan's
-positions a thread, the one-block path's ranking warps), each a text
-substitution on the committed sources.
+in turns, and stops. ``--b5-variants`` (``B5_VARIANTS``),
+``--bh-variants`` (``BH_VARIANTS``) and ``--lrt-variants``
+(``LRT_VARIANTS``, ``B6_LRT_VARIANTS``) do the same for B5's design
+choices (the table staged or not, 5 or 6 blocks an SM), for BH's (the
+scatter staged or not, pairs a thread, look-back width, digit width, the
+scan's positions a thread, the one-block path's ranking warps) and for
+the LRT kernel's and B6 full's (1 or 2 rows a thread, 4 to 8 blocks an
+SM), each a text substitution on the committed sources.
 
 Drives sid_tpu_torch's main paths (``engine.run`` and
 ``engine.run_streaming``, what ``./sid-tpu-torch`` and ``./sid-tpu-torch
@@ -132,11 +137,16 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    and of the plain LRT on the card over the same likelihoods (where both
    are >= DBL_MIN; below it together), is_het equal outside the alpha band,
    the whole plain version's largest relative error printed (its logs are
-   torch's); the card's erfc(0.0); B6's full form (quality_finalize_lrt_kernel)
-   at phase 8's sites against libsidtpu's sidtpu_quality_finalize and its
-   plain version; the LRT (lrt_pvalues_kernel) on phase 5's marginals with
-   and without a prior against host libm and its plain version; BH with its
-   own order (csrc/bh_sort.cuh: a radix sort and a chained scan, or one
+   torch's); the card's erfc(0.0); B6's full form (quality_finalize_lrt_kernel,
+   one erfc a site) at phase 8's sites, edge rows planted, against
+   libsidtpu's sidtpu_quality_finalize and its plain version, and on views
+   one site in and the first N - 1 sites bitwise the whole run; the LRT
+   (lrt_pvalues_kernel, one erfc a row, two rows a thread) on phase 5's
+   marginals, edge rows planted, with and without a prior and one-sided,
+   against host libm and its plain version, views one row in (taken value
+   by value) and the first U - 1 rows bitwise the whole run, and
+   lrt_benjamini_hochberg at an even and an odd U bitwise the host BH of
+   the card's p-values; BH with its own order (csrc/bh_sort.cuh: a radix sort and a chained scan, or one
    block up to 8,192 p-values) on B5's p-values with ties and NaN planted,
    at U = 1M and at the simulated sites' ~2,000 profiles (both arrays and
    is_het in one launch): bitwise adjust_benjamini_hochberg_np, over its
@@ -144,8 +154,8 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    order equal to torch.argsort(key, stable=True); each kernel's call,
    device-only and plain times and bound (BH also by kernel through
    torch.profiler, with torch.argsort's and torch.cummin's times, and at
-   the path's shape); with --parent, the
-   parent's B5 and BH bitwise and in turns; the device LRT's wall against
+   the path's shape); with --parent, the parent's B5, B6 full, LRT and BH
+   bitwise and in turns; the device LRT's wall against
    the host-libm path at U = 1M, N = 1M and phase 5's U; engine.run with
    exact_pvalues=False for -m local, -m quality and -R -m likelihood_ratio
    on golden and the 1M-site inputs, each within the tolerance of the
@@ -644,73 +654,60 @@ def build_sources(build, sources: dict, extra=None) -> dict:
 
 
 def parent_device_lrt(build, parent: str) -> dict:
-    """The parent tree's csrc/local_classify.cu (B1, B5: the interface
-    this tree keeps) and csrc/lrt_bh.cu (BH as three passes over an int64
-    order), built with this tree's nvcc flags; their ptxas lines printed.
-    Returns {"local_classify": library with its types set, "bh": ParentBH}."""
-    from sid_tpu_torch.ops import local_classify as lc
+    """The parent tree's csrc/local_classify.cu (B1, B5), csrc/lrt_bh.cu
+    (the LRT and BH with its own order: the C interfaces this tree keeps)
+    and csrc/quality_finalize.cu (B6 and its full form, whose outputs the
+    parent takes as one buffer of 17 B a site), built with this tree's nvcc
+    flags, all at once; their ptxas lines printed. Returns {"local_classify":
+    and "lrt_bh": libraries with their types set (``using_library``),
+    "quality": the parent's own ops/quality_finalize.py over its build}."""
+    import importlib.util
+    import types
 
-    csrc = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc")
-    built = build_sources(build, {"parent_local_classify": os.path.join(csrc, "local_classify.cu"),
-                                  "parent_lrt_bh": os.path.join(csrc, "lrt_bh.cu")})
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import stats
+
+    tree = os.path.join(os.path.abspath(parent), "sid_tpu_torch")
+    built = build_sources(build, {f"parent_{name}": os.path.join(tree, "csrc", f"{name}.cu")
+                                  for name in ("local_classify", "lrt_bh", "quality_finalize")})
     for name, (_, report) in built.items():
         for fn, r in report.items():
             log(f"# ptxas {name}: {fn}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, "
                 f"{r['spill_loads']} bytes spill loads")
+    spec = importlib.util.spec_from_file_location("parent_quality_finalize",
+                                                  os.path.join(tree, "ops", "quality_finalize.py"))
+    quality = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quality)
+    # its wrappers load their library through the module's `build`: the parent's
+    quality.build = types.SimpleNamespace(kernel_library=lambda name: built["parent_quality_finalize"][0])
     return {"local_classify": lc.load_kernel_library(built["parent_local_classify"][0]),
-            "bh": ParentBH(built["parent_lrt_bh"][0])}
+            "lrt_bh": stats.load_kernel_library(built["parent_lrt_bh"][0]),
+            "quality": quality}
 
 
-class ParentBH:
-    """The parent's BH: bh_order (torch.argsort) and its three passes
-    (sid_bh_adjust_launch over the int64 order, 8 positions a thread)."""
+class using_library:
+    """Run a kernel module's wrappers (ops.local_classify, ops.stats) over
+    another build of its source (its resident blocks asked anew) inside a
+    with block."""
 
-    ITEMS = 8
-
-    def __init__(self, path: str):
-        import ctypes
-
-        self.lib = ctypes.CDLL(path)
-        p = ctypes.c_void_p
-        self.lib.sid_bh_adjust_launch.restype = ctypes.c_int
-        self.lib.sid_bh_adjust_launch.argtypes = [p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_double, p, p, p, p]
-
-    def launch(self, torch, p, order, out, het=None, alpha=0.0) -> None:
-        m = p.shape[0]
-        scratch = torch.empty(2 * -(-m // (256 * self.ITEMS)), dtype=torch.float64, device=p.device)
-        err = self.lib.sid_bh_adjust_launch(p.data_ptr(), order.data_ptr(), m, self.ITEMS, alpha, out.data_ptr(),
-                                            0 if het is None else het.data_ptr(), scratch.data_ptr(),
-                                            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise AssertionError(f"the parent's BH launch failed ({err})")
-
-    def __call__(self, torch, p, het=None, alpha=0.0):
-        from sid_tpu_torch.ops import stats
-
-        out = torch.empty_like(p)
-        self.launch(torch, p, stats.bh_order(p), out, het, alpha)
-        return out
-
-
-class local_library:
-    """Run ops.local_classify's wrappers over another build of
-    csrc/local_classify.cu (its resident blocks asked anew) inside a with
-    block."""
-
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, module, lib):
+        self.module, self.lib = module, lib
 
     def __enter__(self):
-        from sid_tpu_torch.ops import local_classify as lc
-
-        self.saved = lc._kernel_lib(), dict(lc._resident)
-        lc._lib, lc._resident = self.lib, {}
+        self.saved = self.module._kernel_lib(), dict(self.module._resident)
+        self.module._lib, self.module._resident = self.lib, {}
 
     def __exit__(self, *exc):
-        from sid_tpu_torch.ops import local_classify as lc
-
-        lc._lib, lc._resident = self.saved[0], self.saved[1]
+        self.module._lib, self.module._resident = self.saved
         return False
+
+
+def on_library(module, lib, fn):
+    """fn run under ``using_library(module, lib)``."""
+    def run(*a):
+        with using_library(module, lib):
+            return fn(*a)
+    return run
 
 
 def in_turns(torch, ways: dict, sets, rounds=2) -> dict:
@@ -1062,25 +1059,57 @@ def csv_close(name, got: bytes, want: bytes, alpha=ALPHA) -> int:
     return len(differ)
 
 
-def lrt_rows_times(torch, label, fn, plain, sets, launch, sass, names, rows, n_bytes, card, extra=""):
+def lrt_rows_times(torch, label, fn, plain, sets, launch, sass, names, rows, n_bytes, card, extra="",
+                   per_thread=1):
     """Call (median of 40, in turns with the plain version), device-only
-    time and bound of one device-LRT kernel; returns the kernels line's
-    timing keys."""
+    time and bound of one device-LRT kernel; ``per_thread``: the rows a
+    thread takes in one pass of its row loop, whose SASS counts are divided
+    by it. Returns the kernels line's timing keys."""
     plain_t = event_times_ms(torch, plain, sets)
     call_t = event_times_ms(torch, fn, sets) + event_times_ms(torch, fn, sets)
     plain_t += event_times_ms(torch, plain, sets)
     dev_ms = device_only_ms(torch, launch, sets)
-    f64 = sum(kernel_counts(sass, k)["f64"] for k in names)
-    f64_all = sum(kernel_counts(sass, k)["f64_all"] for k in names)
+    f64 = sum(kernel_counts(sass, k)["f64"] for k in names) / per_thread
+    f64_all = sum(kernel_counts(sass, k)["f64_all"] for k in names) / per_thread
     b_ms, b_by = bound_ms(n_bytes, f64 * rows)
     b_all = bound_ms(n_bytes, f64_all * rows)[0]
     out = {"ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by, "f64_row": f64, "f64_row_all_arms": f64_all}
     log(f"# {label}: call {out['ms']:.4f} ms (median of {len(call_t)}, min {min(call_t):.4f}), device only "
         f"{dev_ms:.4f} ms, plain torch {out['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; "
-        f"{f64} f64 instructions every row executes, {f64_all} with every branch arm: {b_all:.4f} ms), "
+        f"{f64:g} f64 instructions every row executes, {f64_all:g} with every branch arm: {b_all:.4f} ms), "
         f"{b_ms / dev_ms:.1%} of the bound{extra}; on {card}")
     return out
+
+
+def kernel_rows(source: str, text=None) -> int:
+    """Rows a thread of the row kernel of csrc/<source> (its kLrtRows), read
+    from the committed file or from ``text``, a variant of it."""
+    if text is None:
+        with open(os.path.join(HERE, "sid_tpu_torch", "csrc", source)) as f:
+            text = f.read()
+    (rows,) = re.findall(r"^constexpr int kLrtRows = (\d+);", text, re.M)
+    return int(rows)
+
+
+def plant_edges(lhom: np.ndarray, lhet: np.ndarray):
+    """Copies of two arrays of logs (the LRT's log likelihoods, the quality
+    finalize's per-read sums) with every pair of edge values planted at
+    rows spread over them: NaN of both signs,
+    +-inf, -0 and +0, equal logs, the 80-bit underflow line and its
+    neighbours, and the values that the -R prior's logs (pi 0.02) move onto
+    the line."""
+    from sid_tpu_torch.models.common import LONG_DOUBLE_UNDERFLOW_LOG as line
+    from sid_tpu_torch.ops import stats
+
+    lp_hom, lp_het = stats.prior_logs(0.02)
+    vals = [np.nan, -np.float64(np.nan), np.inf, -np.inf, -0.0, 0.0, -7.25, line, np.nextafter(line, -np.inf),
+            np.nextafter(line, np.inf), line - lp_hom, line - lp_het, np.nextafter(line - lp_het, -np.inf)]
+    pairs = np.array([(a, b) for a in vals for b in vals], np.float64)
+    at = np.linspace(5, lhom.shape[0] - 5, pairs.shape[0]).astype(np.int64)
+    hom, het = np.array(lhom, np.float64), np.array(lhet, np.float64)
+    hom[at], het[at] = pairs[:, 0], pairs[:, 1]
+    return hom, het
 
 
 def path_shape_pvalues(prof, dev):
@@ -1109,11 +1138,11 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
     marginals (of ``fit_prof``); BH on B5's p-values with ties and NaN
     planted, at U and at ``small_prof`` (the simulated sites' ~2,000
     profiles, the path's shape). Each held to the host path and its plain
-    version, timed, bounded; with ``parent`` (``parent_device_lrt``) B5 and
-    BH bitwise the parent's kernels at both shapes and timed in turns with
-    them (B1 too); the device LRT's wall against the host-libm path.
-    Returns the four kernels' rows of the kernels line (launches are the
-    path's)."""
+    version, timed, bounded; with ``parent`` (``parent_device_lrt``) B5,
+    the LRT and BH bitwise the parent's kernels at both shapes and B6 full
+    at N, each timed in turns with the parent's (B1 too); the device LRT's
+    wall against the host-libm path. Returns the four kernels' rows of the
+    kernels line (launches are the path's)."""
     from sid_tpu_torch.config import Options
     from sid_tpu_torch.models import likelihood_ratio, local, quality
     from sid_tpu_torch.models.common import LONG_DOUBLE_UNDERFLOW_LOG
@@ -1194,7 +1223,7 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
             for thr in THRESHOLDS:
                 for prior in PRIORS:
                     new = [x.cpu() for x in lc.local_classify_lrt(c, thr, prior, ALPHA, t)]
-                    with local_library(plib):
+                    with using_library(lc, plib):
                         old = [x.cpu() for x in lc.local_classify_lrt(c, thr, prior, ALPHA, t)]
                     for what, x, y in zip(("p1", "p2", "byte"), new, old):
                         if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
@@ -1204,22 +1233,16 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
             f"and prior")
         committed = lc._kernel_lib()
 
-        def on(lib, fn):
-            def run(*a):
-                with local_library(lib):
-                    return fn(*a)
-            return run
-
         for label, c, t in shapes:
             n_rows = c.shape[0]
             buf = torch.empty(lc.BYTES_PER_ROW * n_rows, dtype=torch.uint8, device=dev)
             sets = [(torch.roll(c, 7919 * k, 0).contiguous(), 0.1, 1e-3, ALPHA, t) for k in range(INPUT_SETS)]
             b5 = lambda cc, thr, pr, a, tt: lc._launch(cc, thr, pr, tt, buf, a)  # noqa: E731
             b1 = lambda cc, thr, pr, a, tt: lc._launch(cc, thr, pr, tt, buf)  # noqa: E731
-            dev_t = in_turns(torch, {"B5": on(committed, b5), "parent B5": on(plib, b5),
-                                     "B1": on(committed, b1), "parent B1": on(plib, b1)}, sets)
-            call_t = calls_in_turns(torch, {"B5": on(committed, lc.local_classify_lrt),
-                                            "parent B5": on(plib, lc.local_classify_lrt)}, sets)
+            dev_t = in_turns(torch, {"B5": on_library(lc, committed, b5), "parent B5": on_library(lc, plib, b5),
+                                     "B1": on_library(lc, committed, b1), "parent B1": on_library(lc, plib, b1)}, sets)
+            call_t = calls_in_turns(torch, {"B5": on_library(lc, committed, lc.local_classify_lrt),
+                                            "parent B5": on_library(lc, plib, lc.local_classify_lrt)}, sets)
             log(f"# B5 and B1 against the parent's at {label}, -E 0.1, prior 1e-3, in turns: device only "
                 f"{readings(dev_t)}; the call {readings(call_t)}; on {card}")
             key = "" if c is counts else "small_"
@@ -1231,9 +1254,13 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
     rows.append(b5_row)
     del sets, buf
 
-    # B6's full form: against libsidtpu's fused host pass and the plain version on the card
+    # B6's full form: against libsidtpu's fused host pass and the plain
+    # version on the card, edge rows planted; views one site in (the
+    # value-by-value path where sites go in pairs) and an odd n bitwise the
+    # whole run
     n = N_QUALITY
     c_np, ma, se, lh, lt = finalize_inputs(n)
+    lh, lt = plant_edges(lh, lt)
     qtab = lgamma_table(qf.MAX_TOP2, dev)
     c_dev = torch.from_numpy(c_np.view(np.int16)).to(dev)
     a_dev = torch.from_numpy(qf.pack_alleles(ma, se)).to(dev)
@@ -1253,24 +1280,66 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
             fin = np.isfinite(a) & np.isfinite(b)
             q_abs = max(q_abs, float(np.abs(a[fin] - b[fin]).max()))
         het_close(f"B6 full is_het prior {prior} vs plain", kh.astype(bool), ph.astype(bool), p2)
-    log(f"# B6 full == host at N={n}, priors {PRIORS}: p1, p2 within {P_RTOL} of sidtpu_quality_finalize (max rel "
-        f"err {q_rel!r}) and of the plain version on the card, is_het equal outside the alpha band")
+        for label, cut in (("views one site in (8-byte aligned, odd n)", slice(1, None)),
+                           ("the first n - 1 sites (odd n)", slice(0, n - 1))):
+            got = [t.cpu().numpy() for t in qf.quality_finalize_lrt(c_dev[cut], a_dev[cut], lt_dev[cut], lh_dev[cut],
+                                                                   qtab, prior, ALPHA)]
+            if not all(np.array_equal(x.view(np.uint8), y[cut].view(np.uint8)) for x, y in zip(got, (k1, k2, kh))):
+                raise AssertionError(f"B6 full at prior {prior}, {label}: differs from the whole run's sites")
+    log(f"# B6 full == host at N={n}, priors {PRIORS}, edge rows planted: p1, p2 within {P_RTOL} of "
+        f"sidtpu_quality_finalize (max rel err {q_rel!r}) and of the plain version on the card, is_het equal "
+        f"outside the alpha band; views one site in and the first n - 1 sites bitwise the whole run")
     sets = [tuple(torch.roll(t, 7919 * j, 0).contiguous() for t in (c_dev, a_dev, lt_dev, lh_dev)) + (qtab, 1e-3, ALPHA)
             for j in range(INPUT_SETS)]
-    q_out = torch.empty(qf.LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=dev)
+    q_outs = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
     misses = torch.empty(1, dtype=torch.int32, device=dev)
+    q_launch = lambda c, a, h, hm, t, pr, al: qf.launch_lrt(c, a, h, hm, t, pr, al, *q_outs, misses)  # noqa: E731
+    q_rows = kernel_rows("quality_finalize.cu")
     times = lrt_rows_times(torch, f"quality_finalize_lrt (B6 full) at N={n}, prior 1e-3", qf.quality_finalize_lrt,
-                           qf.quality_finalize_lrt_ref, sets,
-                           lambda c, a, h, hm, t, pr, al: qf.launch_lrt(c, a, h, hm, t, pr, al, q_out, misses), sass,
-                           ["quality_finalize_lrt_kernel"], n,
-                           n * (qf.LRT_BYTES_IN_PER_SITE + qf.LRT_BYTES_OUT_PER_SITE) + qtab.shape[0] * 8, card)
-    rows.append({"name": "quality_finalize_lrt", "route": "cuda", "source": "sid_tpu_torch/csrc/quality_finalize.cu",
-                 "replaces": "sid_tpu/models/quality.py:133", "launches": None, "max_abs_err": q_abs, **times,
-                 "library_ms": None})
-    del sets, q_out
+                           qf.quality_finalize_lrt_ref, sets, q_launch, sass, ["quality_finalize_lrt_kernel"], n,
+                           n * (qf.LRT_BYTES_IN_PER_SITE + qf.LRT_BYTES_OUT_PER_SITE) + qtab.shape[0] * 8, card,
+                           f"; {q_rows} sites a thread, grid {qf.resident_blocks(dev, True)} blocks", q_rows)
+    b6_row = {"name": "quality_finalize_lrt", "route": "cuda", "source": "sid_tpu_torch/csrc/quality_finalize.cu",
+              "replaces": "sid_tpu/models/quality.py:133", "launches": None, "max_abs_err": q_abs, **times,
+              "library_ms": None}
+    if parent is not None:
+        pq = parent["quality"]  # the parent's launch_lrt takes one output buffer of 17 B a site
+        short = qtab[:1000]  # deep sites read past it: the miss count
+        for prior in PRIORS:
+            for tab_, what in ((qtab, "the whole table"), (short, "a table of 1,000 entries")):
+                new = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
+                qf.launch_lrt(c_dev, a_dev, lt_dev, lh_dev, tab_, prior, ALPHA, *new, misses)
+                new_misses = int(misses.item())
+                out = torch.empty(17 * n, dtype=torch.uint8, device=dev)
+                pq.launch_lrt(c_dev, a_dev, lt_dev, lh_dev, tab_, prior, ALPHA, out, misses)
+                old = (out[: 8 * n], out[8 * n: 16 * n], out[16 * n:], int(misses.item()))
+                for label, x, y in zip(("p1", "p2", "is_het"), new, old[:3]):
+                    if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                        raise AssertionError(f"B6 full at prior {prior}, {what}: {label} differs from the parent's")
+                if new_misses != old[3] or (tab_ is short) != (new_misses > 0):
+                    raise AssertionError(f"B6 full at prior {prior}, {what}: {new_misses} misses, "
+                                         f"the parent's {old[3]}")
+        log(f"# B6 full == the parent's B6 full bitwise (p1, p2, is_het, miss count) at N={n}, priors {PRIORS}, "
+            f"edge rows planted, with the whole table and with one of 1,000 entries ({new_misses} misses)")
+        p_out = torch.empty(17 * n, dtype=torch.uint8, device=dev)
+        dev_t = in_turns(torch, {"B6 full": q_launch,
+                                 "parent B6 full": lambda *a: pq.launch_lrt(*a, p_out, misses)}, sets)
+        call_t = calls_in_turns(torch, {"B6 full": qf.quality_finalize_lrt,
+                                        "parent B6 full": pq.quality_finalize_lrt}, sets)
+        log(f"# B6 full against the parent's at N={n}, prior 1e-3, in turns: device only {readings(dev_t)}; the call "
+            f"{readings(call_t)}; on {card}")
+        b6_row.update({"parent_device_ms": statistics.median(dev_t["parent B6 full"]),
+                       "device_ms_in_turns": statistics.median(dev_t["B6 full"]),
+                       "parent_ms": statistics.median(call_t["parent B6 full"]),
+                       "ms_in_turns": statistics.median(call_t["B6 full"])})
+    rows.append(b6_row)
+    del sets, q_outs
 
-    # the LRT on phase 5's marginals, without and with the -R prior
-    lhom, lhet = marginals
+    # the LRT on phase 5's marginals with edge rows planted, without and
+    # with the -R prior, and the one-sided call; views one row in (the
+    # value-by-value path where rows go in pairs) and an odd U bitwise the
+    # whole run
+    lhom, lhet = plant_edges(*marginals)
     m = lhom.shape[0]
     hom_dev, het_dev = torch.from_numpy(lhom).to(dev), torch.from_numpy(lhet).to(dev)
     l_rel = l_abs = 0.0
@@ -1292,18 +1361,85 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
             pvalues_close(f"LRT prior {pi} vs its plain version on the card", a, b)
             fin = np.isfinite(a) & np.isfinite(b)
             l_abs = max(l_abs, float(np.abs(a[fin] - b[fin]).max()))
-    log(f"# LRT == host at U={m} (phase 5's marginals at eps {FIT_EPSILONS[0]}), without and with a prior: within "
-        f"{P_RTOL} of host libm (max rel err {l_rel!r}) and of the plain version on the card")
+        for label, cut in (("views one row in (8-byte aligned, odd U)", slice(1, None)),
+                           ("the first U - 1 rows (odd U)", slice(0, m - 1))):
+            got = [t.cpu().numpy() for t in stats.lrt_pair(hom_dev[cut], het_dev[cut], log_priors)]
+            if not all(np.array_equal(x.view(np.uint64), y[cut].view(np.uint64)) for x, y in zip(got, (k1, k2))):
+                raise AssertionError(f"LRT at prior {pi}, {label}: differs from the whole run's rows")
+    one = stats.lrt_pvalues(het_dev, hom_dev).cpu().numpy()
+    pvalues_close("the one-sided LRT vs host libm", one, stats.lrt_pvalue_from_logs_np(lhet, lhom))
+    pvalues_close("the one-sided LRT vs its plain version on the card", one,
+                  stats.lrt_pvalues_ref(het_dev, hom_dev).cpu().numpy())
+    log(f"# LRT == host at U={m} (phase 5's marginals at eps {FIT_EPSILONS[0]}, edge rows planted), without and "
+        f"with a prior and one-sided: within {P_RTOL} of host libm (max rel err {l_rel!r}) and of the plain version "
+        f"on the card; views one row in and the first U - 1 rows bitwise the whole run")
+    # BH on top of the new LRT (lrt_benjamini_hochberg, even and odd U):
+    # bitwise the host BH over the card's p-values
+    for uu in (m, small_prof.shape[0] - 1):
+        lp = stats.prior_logs(0.02)
+        is_het, adj1, adj2 = stats.lrt_benjamini_hochberg(lhom[:uu], lhet[:uu], lp, ALPHA, dev)
+        q1_, q2_ = (t.cpu().numpy() for t in stats.lrt_pair(hom_dev[:uu], het_dev[:uu], lp))
+        w1_, w2_ = stats.adjust_benjamini_hochberg_np(q1_), stats.adjust_benjamini_hochberg_np(q2_)
+        with np.errstate(invalid="ignore"):
+            ok = (np.array_equal(adj1.view(np.uint64), w1_.view(np.uint64))
+                  and np.array_equal(adj2.view(np.uint64), w2_.view(np.uint64)) and np.array_equal(is_het, w2_ < ALPHA))
+        if not ok:
+            raise AssertionError(f"lrt_benjamini_hochberg at U={uu}: BH differs from the host BH of the card's "
+                                 "p-values")
+    log(f"# lrt_benjamini_hochberg at U={m} and U={small_prof.shape[0] - 1} (-R prior): adjusted p-values and "
+        f"is_het bitwise the host BH of the card's LRT p-values")
+    ma_ = stats.aligned_rows(m)
+    p_out = torch.empty(ma_ + m, dtype=torch.float64, device=dev)
     sets = [(torch.roll(hom_dev, 7919 * j, 0).contiguous(), torch.roll(het_dev, 7919 * j, 0).contiguous(),
              stats.prior_logs(0.02)) for j in range(INPUT_SETS)]
-    p_out = torch.empty(2 * m, dtype=torch.float64, device=dev)
+    l_launch = lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:m], p_out[ma_:])  # noqa
+    l_rows = kernel_rows("lrt_bh.cu")
     times = lrt_rows_times(torch, f"lrt_pvalues at U={m}, -R prior", stats.lrt_pair, stats.lrt_pair_ref, sets,
-                           lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:m], p_out[m:]),
-                           sass, ["lrt_pvalues_kernel"], m, 32 * m, card,
-                           f"; grid {stats.resident_blocks(dev)} blocks")
-    rows.append({"name": "lrt_pvalues", "route": "cuda", "source": "sid_tpu_torch/csrc/lrt_bh.cu",
-                 "replaces": "sid_tpu/ops/stats.py:24", "launches": None, "max_abs_err": l_abs, **times,
-                 "library_ms": None})
+                           l_launch, sass, ["lrt_pvalues_kernel"], m, 32 * m, card,
+                           f"; {l_rows} rows a thread, grid {stats.resident_blocks(dev)} blocks", l_rows)
+    lrt_row = {"name": "lrt_pvalues", "route": "cuda", "source": "sid_tpu_torch/csrc/lrt_bh.cu",
+               "replaces": "sid_tpu/ops/stats.py:24", "launches": None, "max_abs_err": l_abs, **times,
+               "library_ms": None}
+    if parent is not None:
+        plib = parent["lrt_bh"]
+        us = small_prof.shape[0]
+        shapes = ((f"U={m}", hom_dev, het_dev), (f"U={us} (the path's shape)", hom_dev[:us], het_dev[:us]))
+        for label, h_, e_ in shapes:
+            for lp in (None, stats.prior_logs(0.02)):
+                new = stats.lrt_pair(h_, e_, lp)
+                with using_library(stats, plib):
+                    old = stats.lrt_pair(h_, e_, lp)
+                if not all(torch.equal(x.view(torch.int64), y.view(torch.int64)) for x, y in zip(new, old)):
+                    raise AssertionError(f"LRT at {label}, prior {lp}: differs from the parent's kernel")
+            new = stats.lrt_pvalues(e_, h_)
+            with using_library(stats, plib):
+                old = stats.lrt_pvalues(e_, h_)
+            if not torch.equal(new.view(torch.int64), old.view(torch.int64)):
+                raise AssertionError(f"the one-sided LRT at {label}: differs from the parent's kernel")
+        log(f"# LRT == the parent's LRT bitwise (p1, p2; one-sided p) at {' and '.join(x[0] for x in shapes)}, edge "
+            f"rows planted, without and with a prior")
+        for label, h_, e_ in shapes:
+            uu = h_.shape[0]
+            ua = stats.aligned_rows(uu)
+            buf = torch.empty(ua + uu, dtype=torch.float64, device=dev)
+            sets_ = [(torch.roll(h_, 7 * j, 0).contiguous(), torch.roll(e_, 7 * j, 0).contiguous(),
+                      stats.prior_logs(0.02)) for j in range(INPUT_SETS)]
+
+            def launch(a, b, lp, buf=buf, uu=uu, ua=ua):
+                stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, buf[:uu], buf[ua:])
+
+            dev_t = in_turns(torch, {"LRT": launch, "parent LRT": on_library(stats, plib, launch)}, sets_)
+            call_t = calls_in_turns(torch, {"LRT": stats.lrt_pair,
+                                            "parent LRT": on_library(stats, plib, stats.lrt_pair)}, sets_)
+            log(f"# LRT against the parent's at {label}, -R prior, in turns: device only {readings(dev_t)}; the call "
+                f"{readings(call_t)}; on {card}")
+            key = "" if h_ is hom_dev else "small_"
+            lrt_row.update({f"{key}parent_device_ms": statistics.median(dev_t["parent LRT"]),
+                            f"{key}device_ms_in_turns": statistics.median(dev_t["LRT"]),
+                            f"{key}parent_ms": statistics.median(call_t["parent LRT"]),
+                            f"{key}ms_in_turns": statistics.median(call_t["LRT"])})
+    rows.append(lrt_row)
+    del sets
 
     # BH on B5's p2 at U with ties and NaN planted: bitwise the host BH
     # over its own order and torch.argsort's, the hand order equal to
@@ -1363,36 +1499,32 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
     log(f"# BH == host at U={us} (the simulated sites' profiles, B5's p1 and p2, ties and NaN planted): both "
         f"arrays and is_het in {pair_launches} launch, bitwise adjust_benjamini_hochberg_np; the hand order "
         f"there equal to torch.argsort's")
-    bh = parent["bh"] if parent is not None else None
-    if bh is not None:
+    plib = parent["lrt_bh"] if parent is not None else None
+    if plib is not None:
         het_new, het_old = (torch.empty(u, dtype=torch.uint8, device=dev) for _ in range(2))
         new, old = torch.empty_like(p), torch.empty_like(p)
         stats.launch_bh(p, None, new, het_new, ALPHA)
-        bh.launch(torch, p, stats.bh_order(p), old, het_old, ALPHA)
-        p1_old, p2_old = bh(torch, q1), torch.empty_like(q2)
-        h2_old = torch.empty_like(h2)
-        bh.launch(torch, q2, stats.bh_order(q2), p2_old, h2_old, ALPHA)
+        p1_old, p2_old, h2_old = torch.empty_like(q1), torch.empty_like(q2), torch.empty_like(h2)
+        with using_library(stats, plib):
+            stats.launch_bh(p, None, old, het_old, ALPHA)
+            stats.launch_bh_pair(q1, q2, p1_old, p2_old, h2_old, ALPHA)
         for label, x, y in ((f"out at U={u}", new, old), (f"is_het at U={u}", het_new, het_old),
                             (f"p1 out at U={us}", o1, p1_old), (f"p2 out at U={us}", o2, p2_old),
                             (f"is_het at U={us}", h2, h2_old)):
             if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
                 raise AssertionError(f"BH {label} differs from the parent's kernels")
-        log(f"# BH == the parent's BH bitwise (out and is_het) at U={u} and U={us}")
+        log(f"# BH == the parent's BH bitwise (out and is_het) at U={u} and U={us} (both arrays in one launch)")
 
     # times at U: the whole call (order and scan), device only (and the
-    # parent's passes, with and without its argsort),
-    # the plain version, torch.argsort and torch.cummin; each kernel's
-    # device time in one call by torch.profiler
+    # parent's chain), the plain version, torch.argsort and torch.cummin;
+    # each kernel's device time in one call by torch.profiler
     sets = [(torch.roll(p, 7919 * j, 0).contiguous(),) for j in range(INPUT_SETS)]
     bh_out = torch.empty_like(p)
     dev_ways = {"hand order + scan": lambda q: stats.launch_bh(q, None, bh_out)}
     call_ways = {"hand order + scan": stats.adjust_benjamini_hochberg}
-    if bh is not None:
-        orders = {s_[0].data_ptr(): stats.bh_order(s_[0]) for s_ in sets}
-        dev_ways["parent: three passes (order made outside)"] = lambda q: bh.launch(torch, q, orders[q.data_ptr()],
-                                                                                    bh_out)
-        dev_ways["parent: torch.argsort + three passes"] = lambda q: bh.launch(torch, q, stats.bh_order(q), bh_out)
-        call_ways["parent: torch.argsort + three passes"] = lambda q: bh(torch, q)
+    if plib is not None:
+        dev_ways["parent: hand order + scan"] = on_library(stats, plib, dev_ways["hand order + scan"])
+        call_ways["parent: hand order + scan"] = on_library(stats, plib, stats.adjust_benjamini_hochberg)
     dev_t = in_turns(torch, dev_ways, sets)
     call_t = calls_in_turns(torch, call_ways, sets)
     plain_t = event_times_ms(torch, stats.adjust_benjamini_hochberg_ref, sets)
@@ -1440,17 +1572,9 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
         return x, y, z
 
     small_call_ways = {"one launch, both arrays": pair_call}
-    if bh is not None:
-        def parent_pair(a, b_):
-            bh.launch(torch, a, stats.bh_order(a), so1)
-            bh.launch(torch, b_, stats.bh_order(b_), so2, sh, ALPHA)
-
-        def parent_pair_call(a, b_):
-            z = torch.empty(a.shape[0], dtype=torch.uint8, device=dev)
-            return bh(torch, a), bh(torch, b_, z, ALPHA), z
-
-        small_dev_ways["parent: two torch.argsort + two passes"] = parent_pair
-        small_call_ways["parent: two torch.argsort + two passes"] = parent_pair_call
+    if plib is not None:
+        small_dev_ways["parent: one launch"] = on_library(stats, plib, small_dev_ways["one launch, both arrays"])
+        small_call_ways["parent: one launch"] = on_library(stats, plib, pair_call)
     small_dev = in_turns(torch, small_dev_ways, small_sets)
     small_call = calls_in_turns(torch, small_call_ways, small_sets)
     log(f"# BH of both arrays at U={us}, in turns: device only {readings(small_dev)}; the call {readings(small_call)}; "
@@ -1464,13 +1588,12 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
               "small_rows": us, "small_launches": pair_launches,
               "small_device_ms": statistics.median(small_dev["one launch, both arrays"]),
               "small_ms": statistics.median(small_call["one launch, both arrays"])}
-    if bh is not None:
+    if plib is not None:
         bh_row.update({
-            "parent_device_ms": statistics.median(dev_t["parent: torch.argsort + three passes"]),
-            "parent_passes_device_ms": statistics.median(dev_t["parent: three passes (order made outside)"]),
-            "parent_ms": statistics.median(call_t["parent: torch.argsort + three passes"]),
-            "small_parent_device_ms": statistics.median(small_dev["parent: two torch.argsort + two passes"]),
-            "small_parent_ms": statistics.median(small_call["parent: two torch.argsort + two passes"])})
+            "parent_device_ms": statistics.median(dev_t["parent: hand order + scan"]),
+            "parent_ms": statistics.median(call_t["parent: hand order + scan"]),
+            "small_parent_device_ms": statistics.median(small_dev["parent: one launch"]),
+            "small_parent_ms": statistics.median(small_call["parent: one launch"])})
     rows.append(bh_row)
     del sets, s_sorted, small_sets
 
@@ -1498,8 +1621,8 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
     opts_lr_dev = Options(method="likelihood_ratio", estimate_prior=True, exact_pvalues=False)
     opts_lr_host = Options(method="likelihood_ratio", estimate_prior=True)
     turns(f"the LR classification at U={m} (-R)", (
-        ("device LRT + BH", lambda: likelihood_ratio.lrt_classify(fit_prof, 0.02, lhom, lhet, opts_lr_dev)),
-        ("host libm + host BH", lambda: likelihood_ratio.lrt_classify(fit_prof, 0.02, lhom, lhet, opts_lr_host))))
+        ("device LRT + BH", lambda: likelihood_ratio.lrt_classify(fit_prof, 0.02, *marginals, opts_lr_dev)),
+        ("host libm + host BH", lambda: likelihood_ratio.lrt_classify(fit_prof, 0.02, *marginals, opts_lr_host))))
     for label, w in walls.items():
         log(f"# {label}, host clock in turns: " + "; ".join(
             f"{name} {statistics.median(v):.2f} ms (runs {', '.join(f'{x:.2f}' for x in v)})" for name, v in w.items())
@@ -2398,6 +2521,167 @@ BH_VARIANTS = {
 }
 
 
+# the likelihood-ratio path's profiles at phase 13's 1M simulated sites
+# (1,976): the LRT variants are also timed at that many rows
+PATH_PROFILES = 1976
+
+# the fused LRT's row kernels' committed rows a thread and launch bounds
+# (kLrtRows, kLrtMinBlocks of csrc/lrt_bh.cu and csrc/quality_finalize.cu)
+LRT_COMMITTED = {"lrt_bh.cu": (2, 4), "quality_finalize.cu": (1, 4)}
+
+
+def _lrt_variants(file: str) -> dict:
+    """1 or 2 rows a thread by 4 to 8 blocks an SM, each a substitution of
+    the committed constants of ``file`` (none for the committed pair)."""
+    rows0, blocks0 = LRT_COMMITTED[file]
+    out = {}
+    for rows in (1, 2):
+        for blocks in range(4, 9):
+            edits = []
+            if rows != rows0:
+                edits.append((file, f"constexpr int kLrtRows = {rows0};", f"constexpr int kLrtRows = {rows};"))
+            if blocks != blocks0:
+                edits.append((file, f"constexpr int kLrtMinBlocks = {blocks0};",
+                              f"constexpr int kLrtMinBlocks = {blocks};"))
+            out[f"{rows} row{'s' * (rows > 1)} a thread, {blocks} blocks an SM" + ("" if edits else " (committed)")] \
+                = edits
+    return out
+
+
+LRT_VARIANTS = _lrt_variants("lrt_bh.cu")
+B6_LRT_VARIANTS = _lrt_variants("quality_finalize.cu")
+
+
+def lrt_marginals(torch, dev):
+    """Phase 5's marginals at eps FIT_EPSILONS[0] (B4 over the cov >= 4
+    rows of kernel_profiles, with their multiplicities): the LRT's input in
+    phase 13, as host arrays."""
+    from sid_tpu_torch.ops import likelihoods, lynch_objective
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+    from sid_tpu_torch.ops.profiles import nucleotide_distribution
+
+    fit_prof, fit_mult = fit_histogram(kernel_profiles())
+    nt = nucleotide_distribution(fit_prof, fit_mult)
+    p_dev, m_dev = torch.from_numpy(fit_prof).to(dev), torch.from_numpy(fit_mult).to(dev)
+    work = lynch_objective.LynchWorkspace(p_dev, m_dev, lgamma_table(int(fit_prof.sum(-1).max()), dev))
+    kk = work.marginals(likelihoods.lynch_scalars(0.0, FIT_EPSILONS[0], nt))
+    return kk[0].cpu().numpy().copy(), kk[1].cpu().numpy().copy()
+
+
+def lrt_variants(torch) -> int:
+    """--lrt-variants: the LRT kernel's and B6 full's variants
+    (LRT_VARIANTS, B6_LRT_VARIANTS: 1 or 2 rows a thread, 4 to 8 blocks an
+    SM), built with the port's nvcc flags into sid_tpu_torch/_build/. For
+    each, its ptxas line, blocks an SM and f64 instructions a row (the row
+    loop's SASS over its rows a thread); the LRT at phase 13's U (phase 5's
+    marginals, edge rows planted) without and with a prior, one-sided, and
+    on views one row in, bitwise the committed kernel; B6 full at N = 1M
+    (edge rows planted) at every prior, and with a table of 1,000 entries
+    (the miss count), bitwise the committed kernel; then device-only times
+    at the -R prior / prior 1e-3 in turns (two rounds, the second
+    reversed), the LRT also at PATH_PROFILES rows, and stop."""
+    from sid_tpu_torch.models.common import LONG_DOUBLE_UNDERFLOW_LOG
+    from sid_tpu_torch.native import build
+    from sid_tpu_torch.ops import quality_finalize as qf
+    from sid_tpu_torch.ops import stats
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+
+    card = card_line()
+    print(f"# {card}", flush=True)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kinds = (("LRT", stats, "lrt_bh.cu", LRT_VARIANTS, "lrt_pvalues_kernel"),
+             ("B6 full", qf, "quality_finalize.cu", B6_LRT_VARIANTS, "quality_finalize_lrt_kernel"))
+    libs = {}
+    for kind, mod, main, variants, kernel in kinds:
+        built = build_variants(build, main, variants, f"{main.split('.')[0]}_variant")
+        for name, (path, report) in built.items():
+            lib = libs.setdefault(kind, {})[name] = mod.load_kernel_library(path)
+            (r,) = [v for fn, v in report.items() if kernel in fn]
+            (c,) = [row_counts(v) for fn, v in sass_kernels(path).items() if kernel in fn]
+            rows = kernel_rows(main, variant_texts(build.CSRC, main, variants[name])[main])
+            with using_library(mod, lib):
+                blocks = stats.resident_blocks(dev) if mod is stats else qf.resident_blocks(dev, True)
+            print(f"# {kind} {name}: {kernel} {r['registers']} registers, {r['stack']} bytes stack frame, "
+                  f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads, {blocks // sms} "
+                  f"blocks an SM; a row executes at least {c['f64'] / rows:g} f64 instructions, "
+                  f"{c['f64_all'] / rows:g} with every branch arm", flush=True)
+
+    def bitwise(a, b) -> bool:
+        return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(a, b))
+
+    lhom, lhet = plant_edges(*lrt_marginals(torch, dev))
+    m = lhom.shape[0]
+    hom, het = torch.from_numpy(lhom).to(dev), torch.from_numpy(lhet).to(dev)
+    for name, lib in libs["LRT"].items():
+        for cut in (slice(None), slice(1, None), slice(0, m - 1)):
+            for lp in (None, stats.prior_logs(0.02)):
+                want = stats.lrt_pair(hom[cut], het[cut], lp)
+                with using_library(stats, lib):
+                    got = stats.lrt_pair(hom[cut], het[cut], lp)
+                if not bitwise(got, want):
+                    raise AssertionError(f"LRT {name} differs from the committed kernel ({cut}, prior {lp})")
+            with using_library(stats, lib):
+                got = stats.lrt_pvalues(het[cut], hom[cut])
+            if not bitwise([got], [stats.lrt_pvalues(het[cut], hom[cut])]):
+                raise AssertionError(f"LRT {name}: the one-sided call differs from the committed kernel")
+    print(f"# every LRT variant's p1, p2 (without and with a prior) and one-sided p bitwise the committed kernel at "
+          f"U={m}, edge rows planted, also on views one row in and on the first U - 1 rows", flush=True)
+    n = N_QUALITY
+    c_np, ma, se, lh, lt = finalize_inputs(n)
+    lh, lt = plant_edges(lh, lt)
+    q_in = (torch.from_numpy(c_np.view(np.int16)).to(dev), torch.from_numpy(qf.pack_alleles(ma, se)).to(dev),
+            torch.from_numpy(lt).to(dev), torch.from_numpy(lh).to(dev))
+    qtab = lgamma_table(qf.MAX_TOP2, dev)
+    misses = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def full(tab, prior):
+        out = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
+        qf.launch_lrt(*q_in, tab, prior, ALPHA, *out, misses)
+        return list(out) + [misses.clone()]
+
+    for prior in PRIORS:
+        for tab in (qtab, qtab[:1000]):
+            want = full(tab, prior)
+            for name, lib in libs["B6 full"].items():
+                with using_library(qf, lib):
+                    got = full(tab, prior)
+                if not bitwise(got, want):
+                    raise AssertionError(f"B6 full {name} differs from the committed kernel at prior {prior}, "
+                                         f"table of {tab.shape[0]}")
+    print(f"# every B6 full variant's p1, p2, is_het and miss count bitwise the committed kernel at N={n}, edge rows "
+          f"planted, priors {PRIORS}, with the whole table and one of 1,000 entries", flush=True)
+    ma_ = stats.aligned_rows(m)
+    p_out = torch.empty(ma_ + m, dtype=torch.float64, device=dev)
+    lrt_sets = [(torch.roll(hom, 7919 * j, 0).contiguous(), torch.roll(het, 7919 * j, 0).contiguous(),
+                 stats.prior_logs(0.02)) for j in range(INPUT_SETS)]
+    q_out = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
+    q_sets = [tuple(torch.roll(t, 7919 * j, 0).contiguous() for t in q_in) for j in range(INPUT_SETS)]
+    ways = {
+        "LRT": (stats, lrt_sets,
+                lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:m], p_out[ma_:]),
+                f"U={m}, -R prior"),
+        "B6 full": (qf, q_sets, lambda c, a, h, hm: qf.launch_lrt(c, a, h, hm, qtab, 1e-3, ALPHA, *q_out, misses),
+                    f"N={n}, prior 1e-3"),
+    }
+    # and the LRT at the likelihood-ratio path's shape (~2,000 profiles),
+    # where the grid is a few blocks and each thread's chain of erfc counts
+    us = PATH_PROFILES
+    us_out = torch.empty(stats.aligned_rows(us) + us, dtype=torch.float64, device=dev)
+    ways["LRT, the path's shape"] = (
+        stats, [tuple(t[:us].contiguous() for t in s_[:2]) + (s_[2],) for s_ in lrt_sets],
+        lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, us_out[:us],
+                                          us_out[stats.aligned_rows(us):]),
+        f"U={us}, -R prior")
+    for kind, (mod, sets, launch, at) in ways.items():
+        lib_kind = kind.split(",")[0]
+        times = in_turns(torch, {name: on_library(mod, lib, launch) for name, lib in libs[lib_kind].items()}, sets)
+        for name, v in times.items():
+            print(f"# {lib_kind} at {at}, {name}: device only {statistics.median(v):.4f} ms (readings "
+                  f"{', '.join(f'{x:.4f}' for x in v)}); on {card}", flush=True)
+    return 0
+
+
 def b5_variants(torch) -> int:
     """--b5-variants: B5's variants (B5_VARIANTS: the table's head staged
     with cp.async and the counts prefetched, or both read from global
@@ -2421,7 +2705,7 @@ def b5_variants(torch) -> int:
         lib = libs[name] = lc.load_kernel_library(path)
         (r,) = [v for fn, v in report.items() if "local_classify_lrt_kernel" in fn]
         (c,) = [row_counts(v) for fn, v in sass_kernels(path).items() if "local_classify_lrt_kernel" in fn]
-        with local_library(lib):
+        with using_library(lc, lib):
             blocks = lc.resident_blocks(dev, True)
         print(f"# {name}: local_classify_lrt_kernel {r['registers']} registers, {r['spill_stores']} bytes spill "
               f"stores, {r['spill_loads']} bytes spill loads, {blocks // sms} blocks an SM; a row executes at least "
@@ -2434,7 +2718,7 @@ def b5_variants(torch) -> int:
         for prior in PRIORS:
             want = [x.cpu() for x in lc.local_classify_lrt(counts, thr, prior, ALPHA, tab)]
             for name, lib in libs.items():
-                with local_library(lib):
+                with using_library(lc, lib):
                     got = [x.cpu() for x in lc.local_classify_lrt(counts, thr, prior, ALPHA, tab)]
                 if not all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(got, want)):
                     raise AssertionError(f"{name} differs from the committed B5 at -E {thr}, prior {prior}")
@@ -2445,7 +2729,7 @@ def b5_variants(torch) -> int:
 
     def way(lib):
         def run(c):
-            with local_library(lib):
+            with using_library(lc, lib):
                 lc._launch(c, 0.1, 1e-3, tab, buf, ALPHA)
         return run
 
@@ -2556,12 +2840,16 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
-    ap.add_argument("--parent", help="an unpacked tree of the parent commit: its B5 and BH kernels (csrc/"
-                    "local_classify.cu, csrc/lrt_bh.cu) bitwise and in turns in phase 13")
+    ap.add_argument("--parent", help="an unpacked tree of the parent commit: its B5, LRT, BH and B6 full kernels "
+                    "(csrc/local_classify.cu, csrc/lrt_bh.cu, csrc/quality_finalize.cu) bitwise and in turns in "
+                    "phase 13")
     ap.add_argument("--b5-variants", action="store_true",
                     help="time B5's design variants (B5_VARIANTS) in turns, and stop")
     ap.add_argument("--bh-variants", action="store_true",
                     help="time the BH sort's design variants (BH_VARIANTS) in turns, and stop")
+    ap.add_argument("--lrt-variants", action="store_true",
+                    help="time the LRT kernel's and B6 full's variants (LRT_VARIANTS, B6_LRT_VARIANTS) in turns, "
+                         "and stop")
     ap.add_argument("--lane-variants", action="store_true",
                     help="time variants of the lane kernels (LANE_VARIANTS) in turns, and stop")
     args = ap.parse_args()
@@ -2592,6 +2880,8 @@ def main() -> int:
         return b5_variants(torch)
     if args.bh_variants:
         return bh_variants(torch)
+    if args.lrt_variants:
+        return lrt_variants(torch)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"# device: {kind} (count {torch.cuda.device_count()}); torch {torch.__version__}, CUDA {torch.version.cuda}")

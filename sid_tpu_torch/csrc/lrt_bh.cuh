@@ -8,7 +8,9 @@
 //   with the -R prior: het = clamp(het + log(pi)), hom = clamp(hom + log(1 - pi))
 //   p1 = lrt(het, hom)  (confidence against het), p2 = lrt(hom, het)
 // where clamp sends values below the 80-bit underflow line to -inf and the
-// prior's logs are host glibc scalars.
+// prior's logs are host glibc scalars. lrt_row gives (p1, p2) with one erfc
+// (lrt.cuh lrt_pair_arg, lrt_pair_from); lrt_pair_two_erfc is the same pair
+// as two lrt_pvalue calls, the form the host replays hold it against.
 //
 // BH over m p-values (stats.cpp:68-80; sid_tpu/ops/stats.py:78-99): with
 // ord the descending order of p (NaN last),
@@ -39,14 +41,32 @@ struct LrtParams {
   int use_prior;
 };
 
-SID_HD void lrt_pair(double log_l_hom, double log_l_het, const LrtParams& p,
-                     double* p1, double* p2) {
-  double hom = clamp_below(log_l_hom, p.underflow_log);
-  double het = clamp_below(log_l_het, p.underflow_log);
+// the clamp and, with the prior, the prior added and clamped again
+SID_HD void lrt_logs(double log_l_hom, double log_l_het, const LrtParams& p, double* hom,
+                     double* het) {
+  *hom = clamp_below(log_l_hom, p.underflow_log);
+  *het = clamp_below(log_l_het, p.underflow_log);
   if (p.use_prior) {
-    het = clamp_below(add_keep_nan(het, p.log_prior_het), p.underflow_log);
-    hom = clamp_below(add_keep_nan(hom, p.log_prior_hom), p.underflow_log);
+    *het = clamp_below(add_keep_nan(*het, p.log_prior_het), p.underflow_log);
+    *hom = clamp_below(add_keep_nan(*hom, p.log_prior_hom), p.underflow_log);
   }
+}
+
+// lrt_pvalues_kernel's row: (p1, p2) with one erfc, z = erfc(0.0) as the
+// caller evaluated it. lrt_pair_from's (l1, l2) are (hom, het), so its p1
+// is lrt_pvalue(het, hom) and its p2 lrt_pvalue(hom, het).
+SID_HD void lrt_row(double log_l_hom, double log_l_het, const LrtParams& p, double z,
+                    double* p1, double* p2) {
+  double hom, het;
+  lrt_logs(log_l_hom, log_l_het, p, &hom, &het);
+  lrt_pair_from(hom, het, erfc(sqrt(lrt_pair_arg(hom, het))), z, p1, p2);
+}
+
+// the same pair with two erfc
+SID_HD void lrt_pair_two_erfc(double log_l_hom, double log_l_het, const LrtParams& p,
+                              double* p1, double* p2) {
+  double hom, het;
+  lrt_logs(log_l_hom, log_l_het, p, &hom, &het);
   *p1 = lrt_pvalue(het, hom);
   *p2 = lrt_pvalue(hom, het);
 }

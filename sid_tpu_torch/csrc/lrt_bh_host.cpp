@@ -1,7 +1,9 @@
 // Host build of the device LRT and BH arithmetic (lrt.cuh, lrt_bh.cuh,
 // bh_sort.cuh), so the CPU tests can hold the very expressions the card
 // runs against the host paths before any card sees them: sid::lrt_pvalue
-// with glibc's erfc against libsidtpu's sidtpu_lrt_pvalues, and BH walked
+// with glibc's erfc against libsidtpu's sidtpu_lrt_pvalues; the LRT
+// kernel's walk (rows a thread, groups, the rows left over) with its
+// one-erfc row against the two-erfc form; and BH walked
 // as the kernels of lrt_bh.cu split it: the radix order's histogram, plan
 // and digit passes over tiles, warps, rounds and lanes; the chained scan
 // over tiles with its look-back; the one-block path for one or two arrays.
@@ -94,16 +96,40 @@ void sid_lrt_pvalue_host(const double* l0, const double* l1, int64_t n, double* 
   for (int64_t i = 0; i < n; ++i) out[i] = sid::lrt_pvalue(l0[i], l1[i]);
 }
 
-// lrt_pvalues_kernel's row loop; params and use_prior as
-// sid_lrt_pvalues_launch takes them; p2 may be null
+// The LRT's rows in the two-erfc form (lrt_pair_two_erfc); params and
+// use_prior as sid_lrt_pvalues_launch takes them; p2 may be null
 void sid_lrt_pvalues_host(const double* lhom, const double* lhet, int64_t n,
                           const double* params, int use_prior, double* p1, double* p2) {
   const sid::LrtParams lp{params[0], params[1], params[2], use_prior};
   for (int64_t i = 0; i < n; ++i) {
     double a, b;
-    sid::lrt_pair(lhom[i], lhet[i], lp, &a, &b);
+    sid::lrt_pair_two_erfc(lhom[i], lhet[i], lp, &a, &b);
     p1[i] = a;
     if (p2 != nullptr) p2[i] = b;
+  }
+}
+
+// lrt_pvalues_kernel's walk over `threads` threads with `rows` profiles a
+// thread (row_groups.cuh): each thread's whole groups in grid-stride order,
+// then the profiles left over, one a thread; each row is lrt_row with z =
+// erfc(0.0). visits (n bytes, or null) counts the writes of each profile.
+void sid_lrt_pvalues_walk_host(const double* lhom, const double* lhet, int64_t n,
+                               const double* params, int use_prior, double* p1, double* p2,
+                               int rows, int64_t threads, uint8_t* visits) {
+  const sid::LrtParams lp{params[0], params[1], params[2], use_prior};
+  const double z = erfc(0.0);
+  const int64_t groups = n / rows;
+  auto row = [&](int64_t i) {
+    double a, b;
+    sid::lrt_row(lhom[i], lhet[i], lp, z, &a, &b);
+    p1[i] = a;
+    if (p2 != nullptr) p2[i] = b;
+    if (visits != nullptr) ++visits[i];
+  };
+  for (int64_t t = 0; t < threads; ++t) {
+    for (int64_t g = t; g < groups; g += threads)
+      for (int r = 0; r < rows; ++r) row(g * rows + r);
+    if (groups * rows + t < n) row(groups * rows + t);
   }
 }
 

@@ -16,8 +16,11 @@
 // quality_lrt_row is the full form (sid_tpu/models/quality.py:133,
 // finalize_quality) for the exact_pvalues=False flow: lpp2 as above, lpp1 =
 // clamp(log_hom) + log(1 - prior) when a prior is set, p1 = lrt(lpp2, lpp1),
-// p2 = lrt(lpp1, lpp2) (lrt.cuh) and is_het = p2 < alpha: the composition of
-// libsidtpu's sidtpu_quality_finalize.
+// p2 = lrt(lpp1, lpp2) and is_het = p2 < alpha: the composition of
+// libsidtpu's sidtpu_quality_finalize, with one erfc for both p-values
+// (lrt.cuh lrt_pair_arg, lrt_pair_from); quality_lrt_row_two_erfc is the
+// same row with two lrt_pvalue calls, the form the host replays hold it
+// against.
 //
 // Every operation is a separate IEEE f64 operation in that order: build
 // with contraction off (nvcc --fmad=false, g++ -ffp-contract=off).
@@ -66,15 +69,38 @@ struct QualityLrtParams {
   double alpha;
 };
 
-// One site of the full form: writes p1 and p2, returns is_het; *miss as in
-// quality_het_row.
+// The full form's logs: lpp2 (quality_het_row) and lpp1 = clamp(log_hom)
+// plus log(1 - prior) when a prior is set; *miss as in quality_het_row.
+SID_HD void quality_lrt_logs(uint32_t lo, uint32_t hi, unsigned alleles, double log_hom,
+                             double log_het, const QualityParams& p, const QualityLrtParams& q,
+                             const double* tab, int tab_len, bool* miss, double* lpp1,
+                             double* lpp2) {
+  *lpp2 = quality_het_row(lo, hi, alleles, log_het, p, tab, tab_len, miss);
+  *lpp1 = clamp_below(log_hom, p.underflow_log);
+  if (p.use_prior) *lpp1 = add_keep_nan(*lpp1, q.log_prior_hom);
+}
+
+// One site of the full form: writes p1 and p2, returns is_het; z is
+// erfc(0.0) as the caller evaluated it. lrt_pair_from's (l1, l2) are
+// (lpp1, lpp2), so its p1 is lrt_pvalue(lpp2, lpp1) and its p2
+// lrt_pvalue(lpp1, lpp2).
 SID_HD bool quality_lrt_row(uint32_t lo, uint32_t hi, unsigned alleles, double log_hom,
                             double log_het, const QualityParams& p, const QualityLrtParams& q,
-                            const double* tab, int tab_len, bool* miss, double* p1,
+                            const double* tab, int tab_len, double z, bool* miss, double* p1,
                             double* p2) {
-  const double lpp2 = quality_het_row(lo, hi, alleles, log_het, p, tab, tab_len, miss);
-  double lpp1 = clamp_below(log_hom, p.underflow_log);
-  if (p.use_prior) lpp1 = add_keep_nan(lpp1, q.log_prior_hom);
+  double lpp1, lpp2;
+  quality_lrt_logs(lo, hi, alleles, log_hom, log_het, p, q, tab, tab_len, miss, &lpp1, &lpp2);
+  lrt_pair_from(lpp1, lpp2, erfc(sqrt(lrt_pair_arg(lpp1, lpp2))), z, p1, p2);
+  return *p2 < q.alpha;
+}
+
+// the same site with two erfc
+SID_HD bool quality_lrt_row_two_erfc(uint32_t lo, uint32_t hi, unsigned alleles, double log_hom,
+                                     double log_het, const QualityParams& p,
+                                     const QualityLrtParams& q, const double* tab, int tab_len,
+                                     bool* miss, double* p1, double* p2) {
+  double lpp1, lpp2;
+  quality_lrt_logs(lo, hi, alleles, log_hom, log_het, p, q, tab, tab_len, miss, &lpp1, &lpp2);
   *p1 = lrt_pvalue(lpp2, lpp1);
   *p2 = lrt_pvalue(lpp1, lpp2);
   return *p2 < q.alpha;

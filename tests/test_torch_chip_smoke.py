@@ -1,8 +1,8 @@
 """chip_smoke.py's pieces that run without a card.
 
 The design-variant builds edit the kernel sources by text substitution
-(``LANE_VARIANTS``, ``B5_VARIANTS``, ``BH_VARIANTS``,
-``scripts/local_classify_variants.py``); a source edit that moves the text
+(``LANE_VARIANTS``, ``B5_VARIANTS``, ``BH_VARIANTS``, ``LRT_VARIANTS``,
+``B6_LRT_VARIANTS``, ``scripts/local_classify_variants.py``); a source edit that moves the text
 would only fail on the card, so these hold them here. ``row_counts`` reads
 kernels that load nothing (the BH scan's zeroing kernel) as a whole.
 """
@@ -47,12 +47,13 @@ def test_local_classify_variant_texts_are_in_the_source_once(name):
         assert src.count(old) == 1
 
 
-VARIANT_TABLES = {"B5_VARIANTS": "local_classify.cu", "BH_VARIANTS": "lrt_bh.cu"}
+VARIANT_TABLES = {"B5_VARIANTS": "local_classify.cu", "BH_VARIANTS": "lrt_bh.cu", "LRT_VARIANTS": "lrt_bh.cu",
+                  "B6_LRT_VARIANTS": "quality_finalize.cu"}
 
 
 @pytest.mark.parametrize("table, name", [(t, n) for t in VARIANT_TABLES for n in getattr(chip_smoke, t)])
 def test_variant_texts_are_in_the_sources_once(table, name):
-    """Each substitution of a B5 or BH variant finds its text once in the
+    """Each substitution of a B5, BH, LRT or B6 full variant finds its text once in the
     file it edits (after the variant's earlier substitutions) and changes
     it."""
     edits = getattr(chip_smoke, table)[name]
@@ -89,8 +90,37 @@ def test_committed_bh_design_is_a_variant():
 def test_kernel_sources_hold_no_variant_macros():
     """The variants live in chip_smoke.py's substitutions, not as build
     macros of the kernel sources."""
-    for name in ("local_classify.cu", "lrt_bh.cu", "bh_sort.cuh"):
-        assert not re.findall(r"#if(?:n?def)? SID_(?:B5|BH)_", source(name))
+    for name in ("local_classify.cu", "lrt_bh.cu", "bh_sort.cuh", "quality_finalize.cu", "row_groups.cuh"):
+        assert not re.findall(r"#if(?:n?def)? SID_(?:B5|BH|LRT)_", source(name))
+
+
+@pytest.mark.parametrize("file", sorted(chip_smoke.LRT_COMMITTED))
+def test_lrt_committed_constants_are_the_sources(file):
+    """LRT_COMMITTED holds the row kernels' committed rows a thread and
+    launch bound, and kernel_rows reads the rows of each variant's text."""
+    rows, blocks = chip_smoke.LRT_COMMITTED[file]
+    src = source(file)
+    assert src.count(f"constexpr int kLrtRows = {rows};") == 1
+    assert src.count(f"constexpr int kLrtMinBlocks = {blocks};") == 1
+    assert chip_smoke.kernel_rows(file) == rows
+    table = chip_smoke.LRT_VARIANTS if file == "lrt_bh.cu" else chip_smoke.B6_LRT_VARIANTS
+    assert len(table) == 10
+    for name, edits in table.items():
+        text = chip_smoke.variant_texts(CSRC, file, edits)[file]
+        assert chip_smoke.kernel_rows(file, text) == int(name.split()[0])
+        assert f"constexpr int kLrtMinBlocks = {name.split(', ')[1].split()[0]};" in text
+
+
+def test_planted_edges_keep_the_arrays():
+    """plant_edges copies both arrays and plants every pair of its 13 edge
+    values once, at distinct rows."""
+    import numpy as np
+
+    a, b = np.linspace(-10, -1, 1000), np.linspace(-20, -2, 1000)
+    x, y = chip_smoke.plant_edges(a, b)
+    changed = (x != a) | (y != b) | np.isnan(x) | np.isnan(y)
+    assert 13 * 13 - 13 <= changed.sum() <= 13 * 13
+    assert np.array_equal(a, np.linspace(-10, -1, 1000))
 
 
 def test_row_counts_of_a_kernel_that_loads_nothing():
