@@ -7,13 +7,13 @@
 ``--parent DIR`` names an unpacked tree of the parent commit (git archive
 into a git-ignored directory) whose csrc/local_classify.cu (B1, B5),
 csrc/lrt_bh.cu (the LRT and BH with its own order) and
-csrc/quality_finalize.cu (B6 full, its outputs one buffer of 17 B a site)
-keep their C interfaces; phase 13 then builds them with this tree's nvcc
-flags, prints their ptxas report, holds B5's p1, p2 and byte, the LRT's p1
-and p2 (with and without a prior, and one-sided), BH's out and is_het and
-B6 full's p1, p2, is_het and miss count bitwise against this tree's at
-U = 1M (N = 1M for B6 full) and at the simulated sites' ~2,000 profiles,
-and times them, device only and whole calls, in turns (B1 too).
+csrc/quality_finalize.cu (B6 and its full form) keep their C interfaces;
+phase 13 then builds them with this tree's nvcc flags, prints their ptxas
+report, holds B5's p1, p2 and byte, the LRT's p1 and p2 (with and without
+a prior, and one-sided), BH's out and is_het and B6 full's p1, p2, is_het
+and miss count bitwise against this tree's at U = 1M (N = 1M for B6 full)
+and at the simulated sites' ~2,000 profiles, and times them, device only
+and whole calls, in turns (B1 too).
 ``--lane-variants`` builds variants of the lane kernels instead
 (``LANE_VARIANTS``: a launch bound of 2 blocks an SM, the lane table in
 global memory, every lane folded by the last block, four marginals rows
@@ -25,8 +25,8 @@ in turns, and stops. ``--b5-variants`` (``B5_VARIANTS``),
 choices (the table staged or not, 5 or 6 blocks an SM), for BH's (the
 scatter staged or not, pairs a thread, look-back width, digit width, the
 scan's positions a thread, the one-block path's ranking warps) and for
-the LRT kernel's and B6 full's (1 or 2 rows a thread, 4 to 8 blocks an
-SM), each a text substitution on the committed sources.
+the LRT kernel's and B6 full's (4 to 8 blocks an SM), each a text
+substitution on the committed sources.
 
 Drives sid_tpu_torch's main paths (``engine.run`` and
 ``engine.run_streaming``, what ``./sid-tpu-torch`` and ``./sid-tpu-torch
@@ -139,12 +139,10 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    the whole plain version's largest relative error printed (its logs are
    torch's); the card's erfc(0.0); B6's full form (quality_finalize_lrt_kernel,
    one erfc a site) at phase 8's sites, edge rows planted, against
-   libsidtpu's sidtpu_quality_finalize and its plain version, and on views
-   one site in and the first N - 1 sites bitwise the whole run; the LRT
-   (lrt_pvalues_kernel, one erfc a row, two rows a thread) on phase 5's
-   marginals, edge rows planted, with and without a prior and one-sided,
-   against host libm and its plain version, views one row in (taken value
-   by value) and the first U - 1 rows bitwise the whole run, and
+   libsidtpu's sidtpu_quality_finalize and its plain version; the LRT
+   (lrt_pvalues_kernel, one erfc a row) on phase 5's marginals, edge rows
+   planted, with and without a prior and one-sided, against host libm and
+   its plain version, timed there and at the path's ~2,000 profiles, and
    lrt_benjamini_hochberg at an even and an odd U bitwise the host BH of
    the card's p-values; BH with its own order (csrc/bh_sort.cuh: a radix sort and a chained scan, or one
    block up to 8,192 p-values) on B5's p-values with ties and NaN planted,
@@ -655,40 +653,29 @@ def build_sources(build, sources: dict, extra=None) -> dict:
 
 def parent_device_lrt(build, parent: str) -> dict:
     """The parent tree's csrc/local_classify.cu (B1, B5), csrc/lrt_bh.cu
-    (the LRT and BH with its own order: the C interfaces this tree keeps)
-    and csrc/quality_finalize.cu (B6 and its full form, whose outputs the
-    parent takes as one buffer of 17 B a site), built with this tree's nvcc
-    flags, all at once; their ptxas lines printed. Returns {"local_classify":
-    and "lrt_bh": libraries with their types set (``using_library``),
-    "quality": the parent's own ops/quality_finalize.py over its build}."""
-    import importlib.util
-    import types
-
+    (the LRT and BH with its own order) and csrc/quality_finalize.cu (B6
+    and its full form), whose C interfaces this tree keeps, built with this
+    tree's nvcc flags, all at once; their ptxas lines printed. Returns
+    {"local_classify", "lrt_bh", "quality_finalize": libraries with their
+    types set}, for ``using_library`` over this tree's wrappers."""
     from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import quality_finalize as qf
     from sid_tpu_torch.ops import stats
 
-    tree = os.path.join(os.path.abspath(parent), "sid_tpu_torch")
-    built = build_sources(build, {f"parent_{name}": os.path.join(tree, "csrc", f"{name}.cu")
-                                  for name in ("local_classify", "lrt_bh", "quality_finalize")})
+    csrc = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc")
+    modules = {"local_classify": lc, "lrt_bh": stats, "quality_finalize": qf}
+    built = build_sources(build, {f"parent_{name}": os.path.join(csrc, f"{name}.cu") for name in modules})
     for name, (_, report) in built.items():
         for fn, r in report.items():
             log(f"# ptxas {name}: {fn}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, "
                 f"{r['spill_loads']} bytes spill loads")
-    spec = importlib.util.spec_from_file_location("parent_quality_finalize",
-                                                  os.path.join(tree, "ops", "quality_finalize.py"))
-    quality = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(quality)
-    # its wrappers load their library through the module's `build`: the parent's
-    quality.build = types.SimpleNamespace(kernel_library=lambda name: built["parent_quality_finalize"][0])
-    return {"local_classify": lc.load_kernel_library(built["parent_local_classify"][0]),
-            "lrt_bh": stats.load_kernel_library(built["parent_lrt_bh"][0]),
-            "quality": quality}
+    return {name: mod.load_kernel_library(built[f"parent_{name}"][0]) for name, mod in modules.items()}
 
 
 class using_library:
-    """Run a kernel module's wrappers (ops.local_classify, ops.stats) over
-    another build of its source (its resident blocks asked anew) inside a
-    with block."""
+    """Run a kernel module's wrappers (ops.local_classify, ops.stats,
+    ops.quality_finalize) over another build of its source (its resident
+    blocks asked anew) inside a with block."""
 
     def __init__(self, module, lib):
         self.module, self.lib = module, lib
@@ -1059,37 +1046,25 @@ def csv_close(name, got: bytes, want: bytes, alpha=ALPHA) -> int:
     return len(differ)
 
 
-def lrt_rows_times(torch, label, fn, plain, sets, launch, sass, names, rows, n_bytes, card, extra="",
-                   per_thread=1):
+def lrt_rows_times(torch, label, fn, plain, sets, launch, sass, names, rows, n_bytes, card, extra=""):
     """Call (median of 40, in turns with the plain version), device-only
-    time and bound of one device-LRT kernel; ``per_thread``: the rows a
-    thread takes in one pass of its row loop, whose SASS counts are divided
-    by it. Returns the kernels line's timing keys."""
+    time and bound of one device-LRT kernel; returns the kernels line's
+    timing keys."""
     plain_t = event_times_ms(torch, plain, sets)
     call_t = event_times_ms(torch, fn, sets) + event_times_ms(torch, fn, sets)
     plain_t += event_times_ms(torch, plain, sets)
     dev_ms = device_only_ms(torch, launch, sets)
-    f64 = sum(kernel_counts(sass, k)["f64"] for k in names) / per_thread
-    f64_all = sum(kernel_counts(sass, k)["f64_all"] for k in names) / per_thread
+    f64 = sum(kernel_counts(sass, k)["f64"] for k in names)
+    f64_all = sum(kernel_counts(sass, k)["f64_all"] for k in names)
     b_ms, b_by = bound_ms(n_bytes, f64 * rows)
     b_all = bound_ms(n_bytes, f64_all * rows)[0]
     out = {"ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
            "bound_ms": b_ms, "bound_by": b_by, "f64_row": f64, "f64_row_all_arms": f64_all}
     log(f"# {label}: call {out['ms']:.4f} ms (median of {len(call_t)}, min {min(call_t):.4f}), device only "
         f"{dev_ms:.4f} ms, plain torch {out['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; "
-        f"{f64:g} f64 instructions every row executes, {f64_all:g} with every branch arm: {b_all:.4f} ms), "
+        f"{f64} f64 instructions every row executes, {f64_all} with every branch arm: {b_all:.4f} ms), "
         f"{b_ms / dev_ms:.1%} of the bound{extra}; on {card}")
     return out
-
-
-def kernel_rows(source: str, text=None) -> int:
-    """Rows a thread of the row kernel of csrc/<source> (its kLrtRows), read
-    from the committed file or from ``text``, a variant of it."""
-    if text is None:
-        with open(os.path.join(HERE, "sid_tpu_torch", "csrc", source)) as f:
-            text = f.read()
-    (rows,) = re.findall(r"^constexpr int kLrtRows = (\d+);", text, re.M)
-    return int(rows)
 
 
 def plant_edges(lhom: np.ndarray, lhet: np.ndarray):
@@ -1255,9 +1230,7 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
     del sets, buf
 
     # B6's full form: against libsidtpu's fused host pass and the plain
-    # version on the card, edge rows planted; views one site in (the
-    # value-by-value path where sites go in pairs) and an odd n bitwise the
-    # whole run
+    # version on the card, edge rows planted
     n = N_QUALITY
     c_np, ma, se, lh, lt = finalize_inputs(n)
     lh, lt = plant_edges(lh, lt)
@@ -1280,52 +1253,46 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
             fin = np.isfinite(a) & np.isfinite(b)
             q_abs = max(q_abs, float(np.abs(a[fin] - b[fin]).max()))
         het_close(f"B6 full is_het prior {prior} vs plain", kh.astype(bool), ph.astype(bool), p2)
-        for label, cut in (("views one site in (8-byte aligned, odd n)", slice(1, None)),
-                           ("the first n - 1 sites (odd n)", slice(0, n - 1))):
-            got = [t.cpu().numpy() for t in qf.quality_finalize_lrt(c_dev[cut], a_dev[cut], lt_dev[cut], lh_dev[cut],
-                                                                   qtab, prior, ALPHA)]
-            if not all(np.array_equal(x.view(np.uint8), y[cut].view(np.uint8)) for x, y in zip(got, (k1, k2, kh))):
-                raise AssertionError(f"B6 full at prior {prior}, {label}: differs from the whole run's sites")
     log(f"# B6 full == host at N={n}, priors {PRIORS}, edge rows planted: p1, p2 within {P_RTOL} of "
         f"sidtpu_quality_finalize (max rel err {q_rel!r}) and of the plain version on the card, is_het equal "
-        f"outside the alpha band; views one site in and the first n - 1 sites bitwise the whole run")
+        f"outside the alpha band")
     sets = [tuple(torch.roll(t, 7919 * j, 0).contiguous() for t in (c_dev, a_dev, lt_dev, lh_dev)) + (qtab, 1e-3, ALPHA)
             for j in range(INPUT_SETS)]
-    q_outs = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
+    q_out = torch.empty(qf.LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=dev)
     misses = torch.empty(1, dtype=torch.int32, device=dev)
-    q_launch = lambda c, a, h, hm, t, pr, al: qf.launch_lrt(c, a, h, hm, t, pr, al, *q_outs, misses)  # noqa: E731
-    q_rows = kernel_rows("quality_finalize.cu")
+    q_launch = lambda c, a, h, hm, t, pr, al: qf.launch_lrt(c, a, h, hm, t, pr, al, q_out, misses)  # noqa: E731
     times = lrt_rows_times(torch, f"quality_finalize_lrt (B6 full) at N={n}, prior 1e-3", qf.quality_finalize_lrt,
                            qf.quality_finalize_lrt_ref, sets, q_launch, sass, ["quality_finalize_lrt_kernel"], n,
                            n * (qf.LRT_BYTES_IN_PER_SITE + qf.LRT_BYTES_OUT_PER_SITE) + qtab.shape[0] * 8, card,
-                           f"; {q_rows} sites a thread, grid {qf.resident_blocks(dev, True)} blocks", q_rows)
+                           f"; grid {qf.resident_blocks(dev, True)} blocks")
     b6_row = {"name": "quality_finalize_lrt", "route": "cuda", "source": "sid_tpu_torch/csrc/quality_finalize.cu",
               "replaces": "sid_tpu/models/quality.py:133", "launches": None, "max_abs_err": q_abs, **times,
               "library_ms": None}
     if parent is not None:
-        pq = parent["quality"]  # the parent's launch_lrt takes one output buffer of 17 B a site
+        plib = parent["quality_finalize"]
         short = qtab[:1000]  # deep sites read past it: the miss count
+
+        def full(tab_, prior):
+            out = torch.empty(qf.LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=dev)
+            qf.launch_lrt(c_dev, a_dev, lt_dev, lh_dev, tab_, prior, ALPHA, out, misses)
+            return out, int(misses.item())
+
         for prior in PRIORS:
             for tab_, what in ((qtab, "the whole table"), (short, "a table of 1,000 entries")):
-                new = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
-                qf.launch_lrt(c_dev, a_dev, lt_dev, lh_dev, tab_, prior, ALPHA, *new, misses)
-                new_misses = int(misses.item())
-                out = torch.empty(17 * n, dtype=torch.uint8, device=dev)
-                pq.launch_lrt(c_dev, a_dev, lt_dev, lh_dev, tab_, prior, ALPHA, out, misses)
-                old = (out[: 8 * n], out[8 * n: 16 * n], out[16 * n:], int(misses.item()))
-                for label, x, y in zip(("p1", "p2", "is_het"), new, old[:3]):
-                    if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                new, new_misses = full(tab_, prior)
+                with using_library(qf, plib):
+                    old, old_misses = full(tab_, prior)
+                for label, at in (("p1", slice(0, 8 * n)), ("p2", slice(8 * n, 16 * n)), ("is_het", slice(16 * n, None))):
+                    if not torch.equal(new[at], old[at]):
                         raise AssertionError(f"B6 full at prior {prior}, {what}: {label} differs from the parent's")
-                if new_misses != old[3] or (tab_ is short) != (new_misses > 0):
+                if new_misses != old_misses or (tab_ is short) != (new_misses > 0):
                     raise AssertionError(f"B6 full at prior {prior}, {what}: {new_misses} misses, "
-                                         f"the parent's {old[3]}")
+                                         f"the parent's {old_misses}")
         log(f"# B6 full == the parent's B6 full bitwise (p1, p2, is_het, miss count) at N={n}, priors {PRIORS}, "
             f"edge rows planted, with the whole table and with one of 1,000 entries ({new_misses} misses)")
-        p_out = torch.empty(17 * n, dtype=torch.uint8, device=dev)
-        dev_t = in_turns(torch, {"B6 full": q_launch,
-                                 "parent B6 full": lambda *a: pq.launch_lrt(*a, p_out, misses)}, sets)
+        dev_t = in_turns(torch, {"B6 full": q_launch, "parent B6 full": on_library(qf, plib, q_launch)}, sets)
         call_t = calls_in_turns(torch, {"B6 full": qf.quality_finalize_lrt,
-                                        "parent B6 full": pq.quality_finalize_lrt}, sets)
+                                        "parent B6 full": on_library(qf, plib, qf.quality_finalize_lrt)}, sets)
         log(f"# B6 full against the parent's at N={n}, prior 1e-3, in turns: device only {readings(dev_t)}; the call "
             f"{readings(call_t)}; on {card}")
         b6_row.update({"parent_device_ms": statistics.median(dev_t["parent B6 full"]),
@@ -1333,12 +1300,10 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                        "parent_ms": statistics.median(call_t["parent B6 full"]),
                        "ms_in_turns": statistics.median(call_t["B6 full"])})
     rows.append(b6_row)
-    del sets, q_outs
+    del sets, q_out
 
     # the LRT on phase 5's marginals with edge rows planted, without and
-    # with the -R prior, and the one-sided call; views one row in (the
-    # value-by-value path where rows go in pairs) and an odd U bitwise the
-    # whole run
+    # with the -R prior, and the one-sided call
     lhom, lhet = plant_edges(*marginals)
     m = lhom.shape[0]
     hom_dev, het_dev = torch.from_numpy(lhom).to(dev), torch.from_numpy(lhet).to(dev)
@@ -1361,19 +1326,14 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
             pvalues_close(f"LRT prior {pi} vs its plain version on the card", a, b)
             fin = np.isfinite(a) & np.isfinite(b)
             l_abs = max(l_abs, float(np.abs(a[fin] - b[fin]).max()))
-        for label, cut in (("views one row in (8-byte aligned, odd U)", slice(1, None)),
-                           ("the first U - 1 rows (odd U)", slice(0, m - 1))):
-            got = [t.cpu().numpy() for t in stats.lrt_pair(hom_dev[cut], het_dev[cut], log_priors)]
-            if not all(np.array_equal(x.view(np.uint64), y[cut].view(np.uint64)) for x, y in zip(got, (k1, k2))):
-                raise AssertionError(f"LRT at prior {pi}, {label}: differs from the whole run's rows")
     one = stats.lrt_pvalues(het_dev, hom_dev).cpu().numpy()
     pvalues_close("the one-sided LRT vs host libm", one, stats.lrt_pvalue_from_logs_np(lhet, lhom))
     pvalues_close("the one-sided LRT vs its plain version on the card", one,
                   stats.lrt_pvalues_ref(het_dev, hom_dev).cpu().numpy())
     log(f"# LRT == host at U={m} (phase 5's marginals at eps {FIT_EPSILONS[0]}, edge rows planted), without and "
         f"with a prior and one-sided: within {P_RTOL} of host libm (max rel err {l_rel!r}) and of the plain version "
-        f"on the card; views one row in and the first U - 1 rows bitwise the whole run")
-    # BH on top of the new LRT (lrt_benjamini_hochberg, even and odd U):
+        f"on the card")
+    # BH on top of the LRT (lrt_benjamini_hochberg, even and odd U):
     # bitwise the host BH over the card's p-values
     for uu in (m, small_prof.shape[0] - 1):
         lp = stats.prior_logs(0.02)
@@ -1388,21 +1348,28 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                                  "p-values")
     log(f"# lrt_benjamini_hochberg at U={m} and U={small_prof.shape[0] - 1} (-R prior): adjusted p-values and "
         f"is_het bitwise the host BH of the card's LRT p-values")
-    ma_ = stats.aligned_rows(m)
-    p_out = torch.empty(ma_ + m, dtype=torch.float64, device=dev)
     sets = [(torch.roll(hom_dev, 7919 * j, 0).contiguous(), torch.roll(het_dev, 7919 * j, 0).contiguous(),
              stats.prior_logs(0.02)) for j in range(INPUT_SETS)]
-    l_launch = lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:m], p_out[ma_:])  # noqa
-    l_rows = kernel_rows("lrt_bh.cu")
+
+    def l_launch(a, b, lp):
+        uu = a.shape[0]
+        stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, lrt_out[:uu], lrt_out[uu:2 * uu])
+
+    lrt_out = torch.empty(2 * m, dtype=torch.float64, device=dev)
     times = lrt_rows_times(torch, f"lrt_pvalues at U={m}, -R prior", stats.lrt_pair, stats.lrt_pair_ref, sets,
                            l_launch, sass, ["lrt_pvalues_kernel"], m, 32 * m, card,
-                           f"; {l_rows} rows a thread, grid {stats.resident_blocks(dev)} blocks", l_rows)
+                           f"; grid {stats.resident_blocks(dev)} blocks")
+    # and device only at the likelihood-ratio path's U (the simulated
+    # sites' ~2,000 profiles)
+    us = small_prof.shape[0]
+    small_sets = [tuple(t[:us].contiguous() for t in s_[:2]) + (s_[2],) for s_ in sets]
+    small_dev_ms = device_only_ms(torch, l_launch, small_sets)
+    log(f"# lrt_pvalues at U={us} (the path's shape), -R prior: device only {small_dev_ms:.4f} ms; on {card}")
     lrt_row = {"name": "lrt_pvalues", "route": "cuda", "source": "sid_tpu_torch/csrc/lrt_bh.cu",
                "replaces": "sid_tpu/ops/stats.py:24", "launches": None, "max_abs_err": l_abs, **times,
-               "library_ms": None}
+               "library_ms": None, "small_rows": us, "small_device_ms": small_dev_ms}
     if parent is not None:
         plib = parent["lrt_bh"]
-        us = small_prof.shape[0]
         shapes = ((f"U={m}", hom_dev, het_dev), (f"U={us} (the path's shape)", hom_dev[:us], het_dev[:us]))
         for label, h_, e_ in shapes:
             for lp in (None, stats.prior_logs(0.02)):
@@ -1419,16 +1386,9 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
         log(f"# LRT == the parent's LRT bitwise (p1, p2; one-sided p) at {' and '.join(x[0] for x in shapes)}, edge "
             f"rows planted, without and with a prior")
         for label, h_, e_ in shapes:
-            uu = h_.shape[0]
-            ua = stats.aligned_rows(uu)
-            buf = torch.empty(ua + uu, dtype=torch.float64, device=dev)
             sets_ = [(torch.roll(h_, 7 * j, 0).contiguous(), torch.roll(e_, 7 * j, 0).contiguous(),
                       stats.prior_logs(0.02)) for j in range(INPUT_SETS)]
-
-            def launch(a, b, lp, buf=buf, uu=uu, ua=ua):
-                stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, buf[:uu], buf[ua:])
-
-            dev_t = in_turns(torch, {"LRT": launch, "parent LRT": on_library(stats, plib, launch)}, sets_)
+            dev_t = in_turns(torch, {"LRT": l_launch, "parent LRT": on_library(stats, plib, l_launch)}, sets_)
             call_t = calls_in_turns(torch, {"LRT": stats.lrt_pair,
                                             "parent LRT": on_library(stats, plib, stats.lrt_pair)}, sets_)
             log(f"# LRT against the parent's at {label}, -R prior, in turns: device only {readings(dev_t)}; the call "
@@ -1439,7 +1399,7 @@ def device_lrt_kernel_phase(torch, dev, card, sass, prof_np, marginals, fit_prof
                             f"{key}parent_ms": statistics.median(call_t["parent LRT"]),
                             f"{key}ms_in_turns": statistics.median(call_t["LRT"])})
     rows.append(lrt_row)
-    del sets
+    del sets, small_sets, lrt_out
 
     # BH on B5's p2 at U with ties and NaN planted: bitwise the host BH
     # over its own order and torch.argsort's, the hand order equal to
@@ -2525,27 +2485,19 @@ BH_VARIANTS = {
 # (1,976): the LRT variants are also timed at that many rows
 PATH_PROFILES = 1976
 
-# the fused LRT's row kernels' committed rows a thread and launch bounds
-# (kLrtRows, kLrtMinBlocks of csrc/lrt_bh.cu and csrc/quality_finalize.cu)
-LRT_COMMITTED = {"lrt_bh.cu": (2, 4), "quality_finalize.cu": (1, 4)}
+# the fused LRT's row kernels' committed launch bounds (kLrtMinBlocks of
+# csrc/lrt_bh.cu and csrc/quality_finalize.cu, blocks an SM)
+LRT_COMMITTED = {"lrt_bh.cu": 4, "quality_finalize.cu": 4}
 
 
 def _lrt_variants(file: str) -> dict:
-    """1 or 2 rows a thread by 4 to 8 blocks an SM, each a substitution of
-    the committed constants of ``file`` (none for the committed pair)."""
-    rows0, blocks0 = LRT_COMMITTED[file]
-    out = {}
-    for rows in (1, 2):
-        for blocks in range(4, 9):
-            edits = []
-            if rows != rows0:
-                edits.append((file, f"constexpr int kLrtRows = {rows0};", f"constexpr int kLrtRows = {rows};"))
-            if blocks != blocks0:
-                edits.append((file, f"constexpr int kLrtMinBlocks = {blocks0};",
-                              f"constexpr int kLrtMinBlocks = {blocks};"))
-            out[f"{rows} row{'s' * (rows > 1)} a thread, {blocks} blocks an SM" + ("" if edits else " (committed)")] \
-                = edits
-    return out
+    """4 to 8 blocks an SM, each a substitution of the committed launch
+    bound of ``file`` (none for the committed one)."""
+    blocks0 = LRT_COMMITTED[file]
+    return {f"{blocks} blocks an SM" + (" (committed)" if blocks == blocks0 else ""):
+            [] if blocks == blocks0 else [(file, f"constexpr int kLrtMinBlocks = {blocks0};",
+                                           f"constexpr int kLrtMinBlocks = {blocks};")]
+            for blocks in range(4, 9)}
 
 
 LRT_VARIANTS = _lrt_variants("lrt_bh.cu")
@@ -2570,12 +2522,11 @@ def lrt_marginals(torch, dev):
 
 def lrt_variants(torch) -> int:
     """--lrt-variants: the LRT kernel's and B6 full's variants
-    (LRT_VARIANTS, B6_LRT_VARIANTS: 1 or 2 rows a thread, 4 to 8 blocks an
-    SM), built with the port's nvcc flags into sid_tpu_torch/_build/. For
-    each, its ptxas line, blocks an SM and f64 instructions a row (the row
-    loop's SASS over its rows a thread); the LRT at phase 13's U (phase 5's
-    marginals, edge rows planted) without and with a prior, one-sided, and
-    on views one row in, bitwise the committed kernel; B6 full at N = 1M
+    (LRT_VARIANTS, B6_LRT_VARIANTS: 4 to 8 blocks an SM), built with the
+    port's nvcc flags into sid_tpu_torch/_build/. For each, its ptxas line,
+    blocks an SM and f64 instructions a row (the row loop's SASS); the LRT
+    at phase 13's U (phase 5's marginals, edge rows planted) without and
+    with a prior and one-sided, bitwise the committed kernel; B6 full at N = 1M
     (edge rows planted) at every prior, and with a table of 1,000 entries
     (the miss count), bitwise the committed kernel; then device-only times
     at the -R prior / prior 1e-3 in turns (two rounds, the second
@@ -2599,13 +2550,12 @@ def lrt_variants(torch) -> int:
             lib = libs.setdefault(kind, {})[name] = mod.load_kernel_library(path)
             (r,) = [v for fn, v in report.items() if kernel in fn]
             (c,) = [row_counts(v) for fn, v in sass_kernels(path).items() if kernel in fn]
-            rows = kernel_rows(main, variant_texts(build.CSRC, main, variants[name])[main])
             with using_library(mod, lib):
                 blocks = stats.resident_blocks(dev) if mod is stats else qf.resident_blocks(dev, True)
             print(f"# {kind} {name}: {kernel} {r['registers']} registers, {r['stack']} bytes stack frame, "
                   f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads, {blocks // sms} "
-                  f"blocks an SM; a row executes at least {c['f64'] / rows:g} f64 instructions, "
-                  f"{c['f64_all'] / rows:g} with every branch arm", flush=True)
+                  f"blocks an SM; a row executes at least {c['f64']} f64 instructions, "
+                  f"{c['f64_all']} with every branch arm", flush=True)
 
     def bitwise(a, b) -> bool:
         return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(a, b))
@@ -2614,19 +2564,18 @@ def lrt_variants(torch) -> int:
     m = lhom.shape[0]
     hom, het = torch.from_numpy(lhom).to(dev), torch.from_numpy(lhet).to(dev)
     for name, lib in libs["LRT"].items():
-        for cut in (slice(None), slice(1, None), slice(0, m - 1)):
-            for lp in (None, stats.prior_logs(0.02)):
-                want = stats.lrt_pair(hom[cut], het[cut], lp)
-                with using_library(stats, lib):
-                    got = stats.lrt_pair(hom[cut], het[cut], lp)
-                if not bitwise(got, want):
-                    raise AssertionError(f"LRT {name} differs from the committed kernel ({cut}, prior {lp})")
+        for lp in (None, stats.prior_logs(0.02)):
+            want = stats.lrt_pair(hom, het, lp)
             with using_library(stats, lib):
-                got = stats.lrt_pvalues(het[cut], hom[cut])
-            if not bitwise([got], [stats.lrt_pvalues(het[cut], hom[cut])]):
-                raise AssertionError(f"LRT {name}: the one-sided call differs from the committed kernel")
+                got = stats.lrt_pair(hom, het, lp)
+            if not bitwise(got, want):
+                raise AssertionError(f"LRT {name} differs from the committed kernel (prior {lp})")
+        with using_library(stats, lib):
+            got = stats.lrt_pvalues(het, hom)
+        if not bitwise([got], [stats.lrt_pvalues(het, hom)]):
+            raise AssertionError(f"LRT {name}: the one-sided call differs from the committed kernel")
     print(f"# every LRT variant's p1, p2 (without and with a prior) and one-sided p bitwise the committed kernel at "
-          f"U={m}, edge rows planted, also on views one row in and on the first U - 1 rows", flush=True)
+          f"U={m}, edge rows planted", flush=True)
     n = N_QUALITY
     c_np, ma, se, lh, lt = finalize_inputs(n)
     lh, lt = plant_edges(lh, lt)
@@ -2636,9 +2585,9 @@ def lrt_variants(torch) -> int:
     misses = torch.empty(1, dtype=torch.int32, device=dev)
 
     def full(tab, prior):
-        out = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
-        qf.launch_lrt(*q_in, tab, prior, ALPHA, *out, misses)
-        return list(out) + [misses.clone()]
+        out = torch.empty(qf.LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=dev)
+        qf.launch_lrt(*q_in, tab, prior, ALPHA, out, misses)
+        return out, misses.clone()
 
     for prior in PRIORS:
         for tab in (qtab, qtab[:1000]):
@@ -2651,27 +2600,24 @@ def lrt_variants(torch) -> int:
                                          f"table of {tab.shape[0]}")
     print(f"# every B6 full variant's p1, p2, is_het and miss count bitwise the committed kernel at N={n}, edge rows "
           f"planted, priors {PRIORS}, with the whole table and one of 1,000 entries", flush=True)
-    ma_ = stats.aligned_rows(m)
-    p_out = torch.empty(ma_ + m, dtype=torch.float64, device=dev)
+    p_out = torch.empty(2 * m, dtype=torch.float64, device=dev)
     lrt_sets = [(torch.roll(hom, 7919 * j, 0).contiguous(), torch.roll(het, 7919 * j, 0).contiguous(),
                  stats.prior_logs(0.02)) for j in range(INPUT_SETS)]
-    q_out = qf.lrt_outputs(torch.empty(qf.lrt_out_bytes(n), dtype=torch.uint8, device=dev), n)
+    q_out = torch.empty(qf.LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=dev)
     q_sets = [tuple(torch.roll(t, 7919 * j, 0).contiguous() for t in q_in) for j in range(INPUT_SETS)]
     ways = {
         "LRT": (stats, lrt_sets,
-                lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:m], p_out[ma_:]),
+                lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:m], p_out[m:]),
                 f"U={m}, -R prior"),
-        "B6 full": (qf, q_sets, lambda c, a, h, hm: qf.launch_lrt(c, a, h, hm, qtab, 1e-3, ALPHA, *q_out, misses),
+        "B6 full": (qf, q_sets, lambda c, a, h, hm: qf.launch_lrt(c, a, h, hm, qtab, 1e-3, ALPHA, q_out, misses),
                     f"N={n}, prior 1e-3"),
     }
     # and the LRT at the likelihood-ratio path's shape (~2,000 profiles),
-    # where the grid is a few blocks and each thread's chain of erfc counts
+    # where the grid is a few blocks
     us = PATH_PROFILES
-    us_out = torch.empty(stats.aligned_rows(us) + us, dtype=torch.float64, device=dev)
     ways["LRT, the path's shape"] = (
         stats, [tuple(t[:us].contiguous() for t in s_[:2]) + (s_[2],) for s_ in lrt_sets],
-        lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, us_out[:us],
-                                          us_out[stats.aligned_rows(us):]),
+        lambda a, b, lp: stats.launch_lrt(a, b, lp, LONG_DOUBLE_UNDERFLOW_LOG, p_out[:us], p_out[us:2 * us]),
         f"U={us}, -R prior")
     for kind, (mod, sets, launch, at) in ways.items():
         lib_kind = kind.split(",")[0]

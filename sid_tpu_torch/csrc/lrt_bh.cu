@@ -16,9 +16,9 @@
 //     other takes erfc(0.0), evaluated once a thread from a 0.0 the host
 //     passes (the card's own erfc, not a constant 1.0); the bits are the
 //     two-erfc form's (lrt_pair_two_erfc);
-//   - kLrtRows profiles a thread (row_groups.cuh): at 2, lhom, lhet, p1 and
-//     p2 move as 16-byte double2 where every base is 16-byte aligned, the
-//     odd profile left over one a thread;
+//   - one profile a thread in a grid-stride loop (a thread taking two in
+//     16-byte double2 accesses was 6 % faster at U = 1M and 16 % slower at
+//     the likelihood-ratio path's U of ~2,000 profiles; PERF.md);
 //   - a launch bound of kLrtMinBlocks blocks an SM and a grid of the
 //     kernel's resident blocks (occupancy API, asked once per device on
 //     the host). A one-sided call (p2 null) computes the same row and
@@ -62,7 +62,6 @@
 
 #include "bh_sort.cuh"
 #include "lrt_bh.cuh"
-#include "row_groups.cuh"
 
 namespace {
 
@@ -72,34 +71,19 @@ constexpr int kPlanThreads = 1024;
 // timed on the card, and the fewest registers)
 constexpr int kLookBack = 4;
 
-// lrt_pvalues_kernel's profiles a thread (1 or 2) and the blocks an SM its
-// launch bound asks for: the fastest of the variants timed on the card
-// (chip_smoke.py --lrt-variants builds the others by text substitution;
-// PERF.md has the times). 2 profiles a thread beat 1 by 5 %; at 4 blocks
-// ptxas takes 40 registers and 6 blocks stay resident.
-constexpr int kLrtRows = 2;
+// the blocks an SM lrt_pvalues_kernel's launch bound asks for: the fastest
+// of the variants timed on the card (chip_smoke.py --lrt-variants builds
+// the others by text substitution; PERF.md has the times)
 constexpr int kLrtMinBlocks = 4;
 
 __global__ void __launch_bounds__(kThreads, kLrtMinBlocks)
     lrt_pvalues_kernel(const double* __restrict__ lhom, const double* __restrict__ lhet,
-                       int64_t n, sid::LrtParams p, double zero, bool vec,
-                       double* __restrict__ p1, double* __restrict__ p2) {
+                       int64_t n, sid::LrtParams p, double zero, double* __restrict__ p1,
+                       double* __restrict__ p2) {
   const double z = erfc(zero);
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t groups = n / kLrtRows;
-  for (int64_t g = t; g < groups; g += stride) {
-    const int64_t i = g * kLrtRows;
-    double hom[kLrtRows], het[kLrtRows], a[kLrtRows], b[kLrtRows];
-    sid::load_group(lhom, i, vec, hom);
-    sid::load_group(lhet, i, vec, het);
-#pragma unroll
-    for (int r = 0; r < kLrtRows; ++r) sid::lrt_row(hom[r], het[r], p, z, &a[r], &b[r]);
-    sid::store_group(p1, i, vec, a);
-    if (p2 != nullptr) sid::store_group(p2, i, vec, b);
-  }
-  const int64_t i = groups * kLrtRows + t;  // the profiles left over
-  if (i < n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += stride) {
     double a, b;
     sid::lrt_row(__ldg(lhom + i), __ldg(lhet + i), p, z, &a, &b);
     p1[i] = a;
@@ -799,18 +783,15 @@ int sid_lrt_resident_blocks(int* blocks) {
 
 // lhom, lhet: n f64; params: the underflow line, log(1 - pi), log(pi) (3
 // host doubles) and use_prior; p1: n f64; p2: n f64 or null (not written);
-// resident: sid_lrt_resident_blocks's count. Every base 8-byte aligned;
-// profiles move in 16-byte pairs where all are 16-byte aligned. Returns a
-// cudaError_t.
+// resident: sid_lrt_resident_blocks's count. Returns a cudaError_t.
 int sid_lrt_pvalues_launch(const void* lhom, const void* lhet, int64_t n, const double* params,
                            int use_prior, void* p1, void* p2, int resident, void* stream) {
   if (n <= 0) return 0;
-  const int64_t needed = ((n + kLrtRows - 1) / kLrtRows + kThreads - 1) / kThreads;
+  const int64_t needed = (n + kThreads - 1) / kThreads;
   const int grid = static_cast<int>(needed < resident ? needed : resident);
   const sid::LrtParams lp{params[0], params[1], params[2], use_prior};
-  const bool vec = sid::aligned_to(16, {lhom, lhet, p1, p2});
   lrt_pvalues_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(lhom), static_cast<const double*>(lhet), n, lp, 0.0, vec,
+      static_cast<const double*>(lhom), static_cast<const double*>(lhet), n, lp, 0.0,
       static_cast<double*>(p1), static_cast<double*>(p2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,8 @@
 // bh_sort.cuh), so the CPU tests can hold the very expressions the card
 // runs against the host paths before any card sees them: sid::lrt_pvalue
 // with glibc's erfc against libsidtpu's sidtpu_lrt_pvalues; the LRT
-// kernel's walk (rows a thread, groups, the rows left over) with its
-// one-erfc row against the two-erfc form; and BH walked
+// kernel's grid-stride walk with its one-erfc row against the two-erfc
+// form; and BH walked
 // as the kernels of lrt_bh.cu split it: the radix order's histogram, plan
 // and digit passes over tiles, warps, rounds and lanes; the chained scan
 // over tiles with its look-back; the one-block path for one or two arrays.
@@ -109,27 +109,22 @@ void sid_lrt_pvalues_host(const double* lhom, const double* lhet, int64_t n,
   }
 }
 
-// lrt_pvalues_kernel's walk over `threads` threads with `rows` profiles a
-// thread (row_groups.cuh): each thread's whole groups in grid-stride order,
-// then the profiles left over, one a thread; each row is lrt_row with z =
-// erfc(0.0). visits (n bytes, or null) counts the writes of each profile.
+// lrt_pvalues_kernel's grid-stride walk over `threads` threads: thread t
+// evaluates z = erfc(0.0) once, then takes rows t, t + threads, ... with
+// lrt_row. visits (n bytes, or null) counts the writes of each profile.
 void sid_lrt_pvalues_walk_host(const double* lhom, const double* lhet, int64_t n,
                                const double* params, int use_prior, double* p1, double* p2,
-                               int rows, int64_t threads, uint8_t* visits) {
+                               int64_t threads, uint8_t* visits) {
   const sid::LrtParams lp{params[0], params[1], params[2], use_prior};
-  const double z = erfc(0.0);
-  const int64_t groups = n / rows;
-  auto row = [&](int64_t i) {
-    double a, b;
-    sid::lrt_row(lhom[i], lhet[i], lp, z, &a, &b);
-    p1[i] = a;
-    if (p2 != nullptr) p2[i] = b;
-    if (visits != nullptr) ++visits[i];
-  };
   for (int64_t t = 0; t < threads; ++t) {
-    for (int64_t g = t; g < groups; g += threads)
-      for (int r = 0; r < rows; ++r) row(g * rows + r);
-    if (groups * rows + t < n) row(groups * rows + t);
+    const double z = erfc(0.0);
+    for (int64_t i = t; i < n; i += threads) {
+      double a, b;
+      sid::lrt_row(lhom[i], lhet[i], lp, z, &a, &b);
+      p1[i] = a;
+      if (p2 != nullptr) p2[i] = b;
+      if (visits != nullptr) ++visits[i];
+    }
   }
 }
 

@@ -29,11 +29,8 @@
 //     other takes erfc(0.0), which each thread evaluates once from a 0.0
 //     the host passes (the card's own erfc, not a constant); the bits are
 //     the two-erfc form's (quality_lrt_row_two_erfc);
-//   - kLrtRows sites a thread (row_groups.cuh): at 2, the counts as one
-//     16-byte load, log_het and log_hom as double2, the allele bytes as one
-//     2-byte load, p1 and p2 stored as double2 and is_het as 2 bytes, where
-//     every base allows it (else value by value); the odd site left over
-//     one a thread. The committed 1 site a thread was the faster;
+//   - one site a thread in a grid-stride loop (a thread taking two in
+//     16-byte accesses was 3-4 % slower: more registers, fewer blocks);
 //   - a launch bound of kLrtMinBlocks blocks an SM, the grid the resident
 //     blocks.
 //
@@ -47,7 +44,6 @@
 #include <stdint.h>
 
 #include "quality_finalize.cuh"
-#include "row_groups.cuh"
 
 namespace {
 
@@ -71,12 +67,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B6's full form's sites a thread (1 or 2) and the blocks an SM its launch
-// bound asks for: the fastest of the variants timed on the card
-// (chip_smoke.py --lrt-variants builds the others by text substitution;
-// PERF.md has the times). 1 site a thread beat 2 by 3 %: the pair's
-// 16-byte accesses cost 44-48 registers (5 blocks an SM) or spills.
-constexpr int kLrtRows = 1;
+// the blocks an SM B6's full form's launch bound asks for: the fastest of
+// the variants timed on the card (chip_smoke.py --lrt-variants builds the
+// others by text substitution; PERF.md has the times)
 constexpr int kLrtMinBlocks = 4;
 
 // B6's full form (sid_tpu/models/quality.py:133, finalize_quality): reads
@@ -88,37 +81,13 @@ __global__ void __launch_bounds__(kThreads, kLrtMinBlocks)
                                 const double* __restrict__ log_het,
                                 const double* __restrict__ log_hom, int64_t n,
                                 sid::QualityParams p, sid::QualityLrtParams q, double zero,
-                                bool vec, const double* __restrict__ tab, int tab_len,
+                                const double* __restrict__ tab, int tab_len,
                                 double* __restrict__ p1, double* __restrict__ p2,
                                 uint8_t* __restrict__ het, unsigned* __restrict__ misses) {
   const double z = erfc(zero);
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t groups = n / kLrtRows;
-  for (int64_t g = t; g < groups; g += stride) {
-    const int64_t i = g * kLrtRows;
-    uint2 c[kLrtRows];
-    unsigned al[kLrtRows], h[kLrtRows];
-    double lh[kLrtRows], lm[kLrtRows], a[kLrtRows], b[kLrtRows];
-    sid::load_group(counts, i, vec, c);
-    sid::load_group(alleles, i, vec, al);
-    sid::load_group(log_het, i, vec, lh);
-    sid::load_group(log_hom, i, vec, lm);
-    unsigned missed = 0;
-#pragma unroll
-    for (int r = 0; r < kLrtRows; ++r) {
-      bool miss;
-      h[r] = sid::quality_lrt_row(c[r].x, c[r].y, al[r], lm[r], lh[r], p, q, tab, tab_len, z, &miss,
-                                  &a[r], &b[r]);
-      missed += miss;
-    }
-    sid::store_group(p1, i, vec, a);
-    sid::store_group(p2, i, vec, b);
-    sid::store_group(het, i, vec, h);
-    if (missed) atomicAdd(misses, missed);
-  }
-  const int64_t i = groups * kLrtRows + t;  // the sites left over
-  if (i < n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += stride) {
     const uint2 c = __ldg(counts + i);
     bool miss;
     double a, b;
@@ -182,31 +151,27 @@ int sid_quality_finalize_launch(const void* counts, const void* alleles, const v
 
 // The full form over the same counts, alleles, log_het, params, table and
 // misses as sid_quality_finalize_launch; log_hom: n f64; lrt: log(1 -
-// prior), alpha (2 host doubles); p1, p2: n f64 each, het: n bytes; every
-// f64 base 8-byte aligned. At 2 sites a thread (kLrtRows) sites move in
-// pairs (16-byte counts, double2, 2-byte allele and is_het accesses) where
-// the counts and f64 bases are 16-byte aligned and the byte bases even;
-// resident:
+// prior), alpha (2 host doubles); out: 17 n bytes, 8-byte aligned: p1 (n
+// f64), p2 (n f64), then is_het (n bytes); resident:
 // sid_quality_finalize_lrt_resident_blocks's count. Returns a cudaError_t.
 int sid_quality_finalize_lrt_launch(const void* counts, const void* alleles, const void* log_het,
                                     const void* log_hom, int64_t n, const double* params,
                                     int use_prior, const double* lrt, const void* tab,
-                                    int tab_len, void* p1, void* p2, void* het, void* misses,
-                                    int resident, void* stream) {
+                                    int tab_len, void* out, void* misses, int resident,
+                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(misses, 0, sizeof(unsigned), s);
   if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
-  const int64_t needed = ((n + kLrtRows - 1) / kLrtRows + kThreads - 1) / kThreads;
+  const int64_t needed = (n + kThreads - 1) / kThreads;
   const int grid = static_cast<int>(needed < resident ? needed : resident);
   const sid::QualityParams p{params[0], params[1], params[2], use_prior};
   const sid::QualityLrtParams q{lrt[0], lrt[1]};
-  const bool vec = sid::aligned_to(16, {counts, log_het, log_hom, p1, p2}) &&
-                   sid::aligned_to(2, {alleles, het});
+  double* p1 = static_cast<double*>(out);
   quality_finalize_lrt_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const uint2*>(counts), static_cast<const uint8_t*>(alleles),
-      static_cast<const double*>(log_het), static_cast<const double*>(log_hom), n, p, q, 0.0, vec,
-      static_cast<const double*>(tab), tab_len, static_cast<double*>(p1), static_cast<double*>(p2),
-      static_cast<uint8_t*>(het), static_cast<unsigned*>(misses));
+      static_cast<const double*>(log_het), static_cast<const double*>(log_hom), n, p, q, 0.0,
+      static_cast<const double*>(tab), tab_len, p1, p1 + n,
+      reinterpret_cast<uint8_t*>(p1 + 2 * n), static_cast<unsigned*>(misses));
   return static_cast<int>(cudaGetLastError());
 }
 

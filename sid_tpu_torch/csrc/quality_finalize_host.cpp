@@ -3,8 +3,7 @@
 // CPU tests can hold the very expressions the card runs against the torch
 // f64 version and libsidtpu's host pass before any card sees them: the het
 // side's rows, the full form's sites in the two-erfc form, and the full
-// form's kernel walk (sites a thread, groups, the sites left over) with its
-// one-erfc row.
+// form's grid-stride walk with its one-erfc row.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o libquality_finalize_host.so quality_finalize_host.cpp
@@ -57,39 +56,31 @@ uint32_t sid_quality_finalize_lrt_rows_host(const uint16_t* counts, const uint8_
   return misses;
 }
 
-// quality_finalize_lrt_kernel's walk over `threads` threads with `rows`
-// sites a thread (row_groups.cuh): each thread's whole groups in
-// grid-stride order (a group's misses added at once), then the sites left
-// over, one a thread; each site is quality_lrt_row with z = erfc(0.0).
-// Arguments as sid_quality_finalize_lrt_rows_host's; visits (n bytes, or
-// null) counts the writes of each site. Returns the misses.
+// quality_finalize_lrt_kernel's grid-stride walk over `threads` threads:
+// thread t evaluates z = erfc(0.0) once, then takes sites t, t + threads,
+// ... with quality_lrt_row. Arguments as sid_quality_finalize_lrt_rows_host's;
+// visits (n bytes, or null) counts the writes of each site. Returns the
+// misses.
 uint32_t sid_quality_finalize_lrt_walk_host(const uint16_t* counts, const uint8_t* alleles,
                                             const double* log_het, const double* log_hom,
                                             int64_t n, const double* params, int use_prior,
                                             const double* lrt, const double* tab, int tab_len,
-                                            double* p1, double* p2, uint8_t* het, int rows,
-                                            int64_t threads, uint8_t* visits) {
+                                            double* p1, double* p2, uint8_t* het, int64_t threads,
+                                            uint8_t* visits) {
   const sid::QualityParams p{params[0], params[1], params[2], use_prior};
   const sid::QualityLrtParams q{lrt[0], lrt[1]};
-  const double z = erfc(0.0);
-  const int64_t groups = n / rows;
-  auto site = [&](int64_t i) -> uint32_t {
-    uint32_t word[2];
-    memcpy(word, counts + 4 * i, sizeof(word));
-    bool miss;
-    het[i] = sid::quality_lrt_row(word[0], word[1], alleles[i], log_hom[i], log_het[i], p, q, tab,
-                                  tab_len, z, &miss, p1 + i, p2 + i);
-    if (visits != nullptr) ++visits[i];
-    return miss;
-  };
   uint32_t misses = 0;
   for (int64_t t = 0; t < threads; ++t) {
-    for (int64_t g = t; g < groups; g += threads) {
-      uint32_t missed = 0;
-      for (int r = 0; r < rows; ++r) missed += site(g * rows + r);
-      misses += missed;
+    const double z = erfc(0.0);
+    for (int64_t i = t; i < n; i += threads) {
+      uint32_t word[2];
+      memcpy(word, counts + 4 * i, sizeof(word));
+      bool miss;
+      het[i] = sid::quality_lrt_row(word[0], word[1], alleles[i], log_hom[i], log_het[i], p, q,
+                                    tab, tab_len, z, &miss, p1 + i, p2 + i);
+      if (visits != nullptr) ++visits[i];
+      misses += miss;
     }
-    if (groups * rows + t < n) misses += site(groups * rows + t);
   }
   return misses;
 }

@@ -40,8 +40,8 @@ HOST_LIB = os.path.join(BUILD_DIR, "libsidtpu.so")
 KERNELS = {
     "local_classify": ["local_classify.cuh", "lrt.cuh"],
     "lynch": ["lynch.cuh", "local_classify.cuh", "lrt.cuh"],
-    "quality_finalize": ["quality_finalize.cuh", "local_classify.cuh", "lrt.cuh", "row_groups.cuh"],
-    "lrt_bh": ["lrt_bh.cuh", "bh_sort.cuh", "lrt.cuh", "row_groups.cuh"],
+    "quality_finalize": ["quality_finalize.cuh", "local_classify.cuh", "lrt.cuh"],
+    "lrt_bh": ["lrt_bh.cuh", "bh_sort.cuh", "lrt.cuh"],
 }
 
 

@@ -26,7 +26,7 @@ p2 < alpha. It returns (p1, p2, is_het uint8); on a card it launches
 ``quality_finalize_lrt_kernel`` of the same source (one erfc a site), on
 the CPU it runs ``quality_finalize_lrt_ref``. ``finalize_lrt`` is its
 device stage: 25 B a site in one copy, 17 B a site and the miss count back
-in one copy, each array of both buffers at a 16-byte offset.
+in one copy.
 
 ``LAUNCHES`` and ``LRT_LAUNCHES`` count launches of the two kernels (not
 plain-version calls), so a run can show that it went through them.
@@ -175,7 +175,7 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
     ]
     lib.sid_quality_finalize_lrt_launch.restype = i32
     lib.sid_quality_finalize_lrt_launch.argtypes = [
-        p, p, p, p, ctypes.c_int64, p, i32, p, p, i32, p, p, p, p, i32, p,
+        p, p, p, p, ctypes.c_int64, p, i32, p, p, i32, p, p, i32, p,
     ]
     for query in (lib.sid_quality_finalize_resident_blocks,
                   lib.sid_quality_finalize_lrt_resident_blocks):
@@ -239,13 +239,10 @@ def launch(counts, alleles, log_het, lgamma_tab, snp_prior, out, misses) -> None
     LAUNCHES += 1
 
 
-def launch_lrt(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha, p1, p2, het, misses) -> None:
-    """Enqueue the full form (checked tensors on a card) into ``p1``,
-    ``p2`` (N f64 each), ``het`` (N bytes) and ``misses`` (one int32,
-    zeroed on the stream first); no sync. The kernel moves two sites a
-    thread as 16-byte accesses where the counts and every f64 array start
-    16-byte aligned and the byte arrays at even addresses, else value by
-    value."""
+def launch_lrt(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha, out, misses) -> None:
+    """Enqueue the full form (checked tensors on a card) into ``out`` (17 N
+    bytes: p1, p2, is_het) and ``misses`` (one int32, zeroed on the stream
+    first); no sync."""
     global LRT_LAUNCHES
     device = counts.device
     if counts.data_ptr() % 8:
@@ -260,8 +257,8 @@ def launch_lrt(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha, 
         err = lib.sid_quality_finalize_lrt_launch(
             counts.data_ptr(), alleles.data_ptr(), log_het.data_ptr(), log_hom.data_ptr(),
             counts.shape[0], params, int(log_prior is not None), lrt, lgamma_tab.data_ptr(),
-            lgamma_tab.shape[0], p1.data_ptr(), p2.data_ptr(), het.data_ptr(), misses.data_ptr(),
-            resident_blocks(device, True), torch.cuda.current_stream(device).cuda_stream,
+            lgamma_tab.shape[0], out.data_ptr(), misses.data_ptr(), resident_blocks(device, True),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(lib, err, "kernel launch")
     LRT_LAUNCHES += 1
@@ -372,25 +369,11 @@ def quality_finalize_lrt(
     if device.type != "cuda":
         raise ValueError(f"no quality finalize kernel for device {device}")
     n = counts.shape[0]
-    p1, p2, het = lrt_outputs(torch.empty(lrt_out_bytes(n), dtype=torch.uint8, device=device), n)
+    out = torch.empty(LRT_BYTES_OUT_PER_SITE * n, dtype=torch.uint8, device=device)
     misses = torch.empty(1, dtype=torch.int32, device=device)
-    launch_lrt(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha, p1, p2, het, misses)
+    launch_lrt(counts, alleles, log_het, log_hom, lgamma_tab, snp_prior, alpha, out, misses)
     _raise_on_misses(int(misses.item()), lgamma_tab.shape[0])
-    return p1, p2, het
-
-
-def lrt_out_bytes(n: int) -> int:
-    """Bytes of the full form's outputs for n sites laid out by
-    ``lrt_outputs``."""
-    return 16 * stats.aligned_rows(n) + n
-
-
-def lrt_outputs(buf: torch.Tensor, n: int):
-    """(p1, p2, is_het) views of a uint8 buffer of ``lrt_out_bytes(n)``:
-    p1 at 0, p2 and is_het at 16-byte offsets (``stats.aligned_rows``)."""
-    na = stats.aligned_rows(n)
-    return (buf[: 8 * n].view(torch.float64), buf[8 * na : 8 * (na + n)].view(torch.float64),
-            buf[16 * na : 16 * na + n])
+    return out[: 8 * n].view(torch.float64), out[8 * n : 16 * n].view(torch.float64), out[16 * n :]
 
 
 def finalize_lrt(
@@ -425,34 +408,28 @@ def finalize_lrt(
             lgamma_table(MAX_TOP2, device), snp_prior, alpha,
         )
         return het.numpy().astype(bool), p1.numpy(), p2.numpy()
-    # every array at a 16-byte offset (stats.aligned_rows), so the kernel
-    # moves two sites a thread as 16-byte accesses at every n
-    na = stats.aligned_rows(n)
-    in_len = 24 * na + n
-    host_in = torch.empty(in_len, dtype=torch.uint8, pin_memory=True)
+    host_in = torch.empty(LRT_BYTES_IN_PER_SITE * n, dtype=torch.uint8, pin_memory=True)
     view = host_in.numpy()
     np.copyto(view[: 8 * n].view(np.uint16).reshape(n, 4), counts)
-    np.copyto(view[8 * na : 8 * (na + n)].view(np.float64), log_het)
-    np.copyto(view[16 * na : 8 * (2 * na + n)].view(np.float64), log_hom)
-    pack_alleles(major, second, out=view[24 * na :])
-    out_len = lrt_out_bytes(n)
+    np.copyto(view[8 * n : 16 * n].view(np.float64), log_het)
+    np.copyto(view[16 * n : 24 * n].view(np.float64), log_hom)
+    pack_alleles(major, second, out=view[24 * n :])
+    out_len = LRT_BYTES_OUT_PER_SITE * n
     at = -(-out_len // 8) * 8  # the miss count, 8-byte aligned after the results
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         tab = lgamma_table(MAX_TOP2, device)
-        dev_in = torch.empty(in_len, dtype=torch.uint8, device=device)
+        dev_in = torch.empty(LRT_BYTES_IN_PER_SITE * n, dtype=torch.uint8, device=device)
         dev_in.copy_(host_in, non_blocking=True)
         dev_out = torch.empty(at + 8, dtype=torch.uint8, device=device)
         launch_lrt(
-            dev_in[: 8 * n].view(torch.int16).view(n, 4), dev_in[24 * na :],
-            dev_in[8 * na : 8 * (na + n)].view(torch.float64),
-            dev_in[16 * na : 8 * (2 * na + n)].view(torch.float64),
-            tab, snp_prior, alpha, *lrt_outputs(dev_out, n), dev_out[at : at + 4].view(torch.int32),
+            dev_in[: 8 * n].view(torch.int16).view(n, 4), dev_in[24 * n :],
+            dev_in[8 * n : 16 * n].view(torch.float64), dev_in[16 * n : 24 * n].view(torch.float64),
+            tab, snp_prior, alpha, dev_out[:out_len], dev_out[at : at + 4].view(torch.int32),
         )
         host_out = torch.empty(at + 8, dtype=torch.uint8, pin_memory=True)
         host_out.copy_(dev_out, non_blocking=True)
         stream.synchronize()
     out = host_out.numpy()
     _raise_on_misses(int(out[at : at + 4].view(np.int32)[0]), tab.shape[0])
-    return (out[16 * na : 16 * na + n].astype(bool), out[: 8 * n].view(np.float64),
-            out[8 * na : 8 * (na + n)].view(np.float64))
+    return out[16 * n : out_len].astype(bool), out[: 8 * n].view(np.float64), out[8 * n : 16 * n].view(np.float64)

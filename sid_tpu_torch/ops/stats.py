@@ -10,8 +10,7 @@ The tensor functions are the fused on-device LRT (``exact_pvalues=False``,
 sid_tpu's ``lrt_pvalue_from_logs`` and ``adjust_benjamini_hochberg``). For
 CUDA tensors they launch the hand-written kernels of ``csrc/lrt_bh.cu``
 (built with nvcc at first use): ``lrt_pvalues_kernel`` (the clamp, the -R
-prior and both p-values with one erfc a row, ``csrc/lrt_bh.cuh``; two rows
-a thread, in 16-byte pairs where the arrays start 16-byte aligned) and BH
+prior and both p-values with one erfc a row, ``csrc/lrt_bh.cuh``) and BH
 with its own order
 (``csrc/bh_sort.cuh``): up to ``BH_SMALL_MAX`` p-values one block an array
 (``bh_small_kernel``: the key, a radix sort in shared memory, the scan),
@@ -280,14 +279,6 @@ def launch_lrt(log_l_hom, log_l_het, log_priors, underflow_log, p1, p2=None) -> 
     LRT_LAUNCHES += 1
 
 
-def aligned_rows(n: int) -> int:
-    """n rounded up to even: where the next f64 array of a buffer starts,
-    so that every array in it starts 16-byte aligned when the buffer does
-    (the LRT kernels move two rows a thread as 16-byte accesses only
-    there)."""
-    return n + (n & 1)
-
-
 def bh_launches(m: int, ordered: bool = False) -> int:
     """Kernel launches of one BH call over m p-values: for a given order a
     zeroing kernel and the scan; for the hand order one launch up to
@@ -441,9 +432,7 @@ def lrt_benjamini_hochberg(
     corrections with their own orders (``launch_bh_pair``: one launch up to
     ``BH_SMALL_MAX`` profiles; the second writing is_het = adj_p2 < alpha),
     the 17 B a profile back in one copy into pinned memory, one stream sync.
-    The second log and p2 start at 16-byte offsets (``aligned_rows``), so
-    the LRT kernel moves its profiles in 16-byte pairs at every U. On the
-    CPU the plain versions."""
+    On the CPU the plain versions."""
     device = torch.device(device)
     u = int(np.shape(log_l_hom)[0])
     if device.type != "cuda":
@@ -453,18 +442,17 @@ def lrt_benjamini_hochberg(
         return adj2 < alpha, adj1, adj2
     if u == 0:
         return np.zeros(0, bool), np.zeros(0), np.zeros(0)
-    ua = aligned_rows(u)
-    host_in = torch.empty(8 * (ua + u), dtype=torch.uint8, pin_memory=True)
+    host_in = torch.empty(16 * u, dtype=torch.uint8, pin_memory=True)
     view = host_in.numpy()
     np.copyto(view[: 8 * u].view(np.float64), log_l_hom)
-    np.copyto(view[8 * ua :].view(np.float64), log_l_het)
+    np.copyto(view[8 * u :].view(np.float64), log_l_het)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
-        dev_in = torch.empty(8 * (ua + u), dtype=torch.uint8, device=device)
+        dev_in = torch.empty(16 * u, dtype=torch.uint8, device=device)
         dev_in.copy_(host_in, non_blocking=True)
-        lhom, lhet = dev_in[: 8 * u].view(torch.float64), dev_in[8 * ua :].view(torch.float64)
-        p = torch.empty(ua + u, dtype=torch.float64, device=device)
-        p1, p2 = p[:u], p[ua:]
+        lhom, lhet = dev_in[: 8 * u].view(torch.float64), dev_in[8 * u :].view(torch.float64)
+        p = torch.empty(2 * u, dtype=torch.float64, device=device)
+        p1, p2 = p[:u], p[u:]
         launch_lrt(lhom, lhet, log_priors, LONG_DOUBLE_UNDERFLOW_LOG, p1, p2)
         dev_out = torch.empty(17 * u, dtype=torch.uint8, device=device)
         adj1, adj2 = dev_out[: 8 * u].view(torch.float64), dev_out[8 * u : 16 * u].view(torch.float64)

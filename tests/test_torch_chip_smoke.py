@@ -90,25 +90,23 @@ def test_committed_bh_design_is_a_variant():
 def test_kernel_sources_hold_no_variant_macros():
     """The variants live in chip_smoke.py's substitutions, not as build
     macros of the kernel sources."""
-    for name in ("local_classify.cu", "lrt_bh.cu", "bh_sort.cuh", "quality_finalize.cu", "row_groups.cuh"):
+    for name in ("local_classify.cu", "lrt_bh.cu", "bh_sort.cuh", "quality_finalize.cu"):
         assert not re.findall(r"#if(?:n?def)? SID_(?:B5|BH|LRT)_", source(name))
 
 
 @pytest.mark.parametrize("file", sorted(chip_smoke.LRT_COMMITTED))
 def test_lrt_committed_constants_are_the_sources(file):
-    """LRT_COMMITTED holds the row kernels' committed rows a thread and
-    launch bound, and kernel_rows reads the rows of each variant's text."""
-    rows, blocks = chip_smoke.LRT_COMMITTED[file]
+    """LRT_COMMITTED holds the row kernels' committed launch bounds, and
+    each variant's text asks for its own."""
+    blocks = chip_smoke.LRT_COMMITTED[file]
     src = source(file)
-    assert src.count(f"constexpr int kLrtRows = {rows};") == 1
     assert src.count(f"constexpr int kLrtMinBlocks = {blocks};") == 1
-    assert chip_smoke.kernel_rows(file) == rows
     table = chip_smoke.LRT_VARIANTS if file == "lrt_bh.cu" else chip_smoke.B6_LRT_VARIANTS
-    assert len(table) == 10
+    assert len(table) == 5
     for name, edits in table.items():
         text = chip_smoke.variant_texts(CSRC, file, edits)[file]
-        assert chip_smoke.kernel_rows(file, text) == int(name.split()[0])
-        assert f"constexpr int kLrtMinBlocks = {name.split(', ')[1].split()[0]};" in text
+        assert f"constexpr int kLrtMinBlocks = {name.split()[0]};" in text
+        assert (edits == []) == name.endswith("(committed)")
 
 
 def test_planted_edges_keep_the_arrays():

@@ -8,9 +8,8 @@ card runs; ``lrt_bh_host.cpp`` loops them over arrays. Built here with g++
   host path), NaN bits included;
 - the LRT kernel's row (clamp, -R prior, both p-values) is bitwise the host
   path's composition (numpy clamp and prior, ``sidtpu_lrt_pvalues``), in
-  its two-erfc form and as the kernel walks it: one erfc a row, one or two
-  rows a thread over a few threads, the odd row left over, every row
-  written once, on every pair of edge values (NaN of both signs, +-inf,
+  its two-erfc form and as the kernel walks it: one erfc a row, a
+  grid-stride loop over a few threads, every row written once, on every pair of edge values (NaN of both signs, +-inf,
   +-0, equal logs, the 80-bit underflow line and its neighbours) with and
   without the prior and one-sided, at n = 0 to 3 and beyond;
 - BH walked as the kernels split it (``csrc/bh_sort.cuh``): the radix
@@ -58,7 +57,7 @@ def shim(tmp_path_factory):
     lib.sid_lrt_pvalues_host.restype = None
     lib.sid_lrt_pvalues_host.argtypes = [p, p, i64, p, i32, p, p]
     lib.sid_lrt_pvalues_walk_host.restype = None
-    lib.sid_lrt_pvalues_walk_host.argtypes = [p, p, i64, p, i32, p, p, i32, i64, p]
+    lib.sid_lrt_pvalues_walk_host.argtypes = [p, p, i64, p, i32, p, p, i64, p]
     lib.sid_bh_radix_keys_host.restype = None
     lib.sid_bh_radix_keys_host.argtypes = [p, i64, p]
     lib.sid_bh_p_of_key_host.restype = None
@@ -141,7 +140,7 @@ def some_rows(arrays, n):
     return tuple(np.ascontiguousarray(a[at]) for a in arrays)
 
 
-def lrt_walk(shim, lhom, lhet, log_priors, rows, threads, one_sided=False):
+def lrt_walk(shim, lhom, lhet, log_priors, threads, one_sided=False):
     """lrt_pvalues_kernel's walk on the host: (p1, p2 or None, visits)."""
     n = lhom.shape[0]
     lp = log_priors or (0.0, 0.0)
@@ -149,24 +148,25 @@ def lrt_walk(shim, lhom, lhet, log_priors, rows, threads, one_sided=False):
     p1, p2 = np.full(n, 7.0), None if one_sided else np.full(n, 7.0)
     visits = np.zeros(n, np.uint8)
     shim.sid_lrt_pvalues_walk_host(_ptr(lhom), _ptr(lhet), n, _ptr(params), int(log_priors is not None), _ptr(p1),
-                                   None if one_sided else _ptr(p2), rows, threads, _ptr(visits))
+                                   None if one_sided else _ptr(p2), threads, _ptr(visits))
     return p1, p2, visits
 
 
-WALKS = [(1, 1), (1, 5), (2, 1), (2, 3), (2, 64)]
+# threads of the host replays of the row kernels' grid-stride walks
+WALKS = [1, 2, 3, 5, 64]
 
 
 @pytest.mark.parametrize("pi", [None, 0.02])
-@pytest.mark.parametrize("rows, threads", WALKS)
+@pytest.mark.parametrize("threads", WALKS)
 @pytest.mark.parametrize("n", [0, 1, 2, 3, "edges"])
-def test_lrt_walk_is_bitwise_the_two_erfc_form_and_the_host_path(shim, n, rows, threads, pi):
-    """The kernel's walk (one erfc a row, rows a thread, the odd row left
-    over) writes every row once, bitwise the two-erfc form and the host
+def test_lrt_walk_is_bitwise_the_two_erfc_form_and_the_host_path(shim, n, threads, pi):
+    """The kernel's walk (one erfc a row, erfc(0.0) once a thread, a
+    grid-stride loop) writes every row once, bitwise the two-erfc form and the host
     path's composition (numpy clamp and prior, sidtpu_lrt_pvalues), on every
     pair of edge values; the one-sided call gives the same p1."""
     lhom, lhet = some_rows(edge_logs(), n)
     log_priors = None if pi is None else stats.prior_logs(pi)
-    p1, p2, visits = lrt_walk(shim, lhom, lhet, log_priors, rows, threads)
+    p1, p2, visits = lrt_walk(shim, lhom, lhet, log_priors, threads)
     assert np.all(visits == 1)
     lp = log_priors or (0.0, 0.0)
     params = np.array([LONG_DOUBLE_UNDERFLOW_LOG, lp[0], lp[1]])
@@ -182,7 +182,7 @@ def test_lrt_walk_is_bitwise_the_two_erfc_form_and_the_host_path(shim, n, rows, 
             hom = common.clamp_ld_underflow_np(hom + np.log(np.float64(1.0 - pi)))
     assert np.array_equal(bits(p1), bits(stats.lrt_pvalue_from_logs_np(het, hom)))
     assert np.array_equal(bits(p2), bits(stats.lrt_pvalue_from_logs_np(hom, het)))
-    only, _, visits = lrt_walk(shim, lhom, lhet, log_priors, rows, threads, one_sided=True)
+    only, _, visits = lrt_walk(shim, lhom, lhet, log_priors, threads, one_sided=True)
     assert np.array_equal(bits(only), bits(p1)) and np.all(visits == 1)
 
 
@@ -197,14 +197,6 @@ def test_edge_logs_cover_the_edges():
     assert np.isnan(p2).sum() > 0 and np.signbit(p2[np.isnan(p2)]).any() and (~np.signbit(p2[np.isnan(p2)])).any()
     assert (p2 == 0).sum() > 0 and (p2 == 1).sum() > 0 and ((p2 > 0) & (p2 < 1)).sum() > 100
     assert (lhom == LONG_DOUBLE_UNDERFLOW_LOG).any() and (lhom == -0.0).any()
-
-
-@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 995_986])
-def test_aligned_rows_start_the_next_array_at_16_bytes(n):
-    """The device stage's second log and p2 start at 8 * aligned_rows(u)
-    bytes: a multiple of 16 at or after the first array's end."""
-    a = stats.aligned_rows(n)
-    assert a >= n and (8 * a) % 16 == 0 and a - n <= 1
 
 
 def bh_input(m, seed):

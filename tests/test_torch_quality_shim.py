@@ -12,9 +12,8 @@ every operation is an IEEE f64 add, subtract, multiply or compare, so no
 tolerance. The full form (both LRT p-values and is_het) is held against
 libsidtpu's fused ``sidtpu_quality_finalize`` with glibc's erfc: in its
 two-erfc form, and as ``quality_finalize_lrt_kernel`` walks it (one erfc a
-site, one or two sites a thread, the odd site left over, every site
-written once, a group's misses added at once) on every pair of edge values
-of the per-read sums, at n = 0 to 3 and beyond.
+site, a grid-stride loop over a few threads, every site written once) on
+every pair of edge values of the per-read sums, at n = 0 to 3 and beyond.
 """
 
 import ctypes
@@ -60,7 +59,7 @@ def shim(tmp_path_factory):
     ]
     lib.sid_quality_finalize_lrt_walk_host.restype = ctypes.c_uint32
     lib.sid_quality_finalize_lrt_walk_host.argtypes = [
-        p, p, p, p, ctypes.c_int64, p, ctypes.c_int, p, p, ctypes.c_int, p, p, p, ctypes.c_int, ctypes.c_int64, p,
+        p, p, p, p, ctypes.c_int64, p, ctypes.c_int, p, p, ctypes.c_int, p, p, p, ctypes.c_int64, p,
     ]
     return lib
 
@@ -159,7 +158,7 @@ def edge_sites(n=1001, seed=7):
     return counts, major, second, log_hom, log_het
 
 
-def run_lrt_walk(lib, counts, alleles, log_hom, log_het, prior, alpha, tab, rows, threads):
+def run_lrt_walk(lib, counts, alleles, log_hom, log_het, prior, alpha, tab, threads):
     """quality_finalize_lrt_kernel's walk on the host: (p1, p2, is_het,
     misses, visits)."""
     counts = np.ascontiguousarray(counts, np.uint16)
@@ -172,23 +171,22 @@ def run_lrt_walk(lib, counts, alleles, log_hom, log_het, prior, alpha, tab, rows
         counts.ctypes.data, alleles.ctypes.data, np.ascontiguousarray(log_het).ctypes.data,
         np.ascontiguousarray(log_hom).ctypes.data, n, params.ctypes.data, int(log_prior is not None),
         lrt.ctypes.data, tab.ctypes.data, tab.shape[0], p1.ctypes.data, p2.ctypes.data, het.ctypes.data,
-        rows, threads, visits.ctypes.data,
+        threads, visits.ctypes.data,
     )
     return p1, p2, het, misses, visits
 
 
 @pytest.mark.parametrize("prior", PRIORS)
-@pytest.mark.parametrize("rows, threads", WALKS)
+@pytest.mark.parametrize("threads", WALKS)
 @pytest.mark.parametrize("n", [0, 1, 2, 3, "edges"])
-def test_full_walk_is_bitwise_the_two_erfc_form_and_the_host_pass(shim, n, rows, threads, prior):
-    """The kernel's walk (one erfc a site, sites a thread, the odd site
-    left over) writes every site once, bitwise the two-erfc form and
+def test_full_walk_is_bitwise_the_two_erfc_form_and_the_host_pass(shim, n, threads, prior):
+    """The kernel's walk (one erfc a site, erfc(0.0) once a thread, a
+    grid-stride loop) writes every site once, bitwise the two-erfc form and
     libsidtpu's sidtpu_quality_finalize: p1, p2, is_het and the misses."""
     counts, major, second, log_hom, log_het = some_rows(edge_sites(), n)
     alleles = qf.pack_alleles(major, second)
     tab = lgamma_table(2 * 4 * 65535, "cpu").numpy()
-    p1, p2, het, misses, visits = run_lrt_walk(shim, counts, alleles, log_hom, log_het, prior, 0.05, tab, rows,
-                                               threads)
+    p1, p2, het, misses, visits = run_lrt_walk(shim, counts, alleles, log_hom, log_het, prior, 0.05, tab, threads)
     assert np.all(visits == 1) and misses == 0
     t1, t2, t_het, t_misses = run_lrt_rows(shim, counts, alleles, log_hom, log_het, prior, 0.05, tab)
     assert np.array_equal(bits(p1), bits(t1)) and np.array_equal(bits(p2), bits(t2))
@@ -198,30 +196,15 @@ def test_full_walk_is_bitwise_the_two_erfc_form_and_the_host_pass(shim, n, rows,
     assert np.array_equal(het.astype(bool), h_het)
 
 
-@pytest.mark.parametrize("rows, threads", WALKS)
-def test_full_walk_counts_the_misses_as_the_two_erfc_form(shim, rows, threads):
+@pytest.mark.parametrize("threads", WALKS)
+def test_full_walk_counts_the_misses_as_the_two_erfc_form(shim, threads):
     """With a table that the deep sites read past, the walk's miss count
-    (a group's misses added at once) and its NaN sites are the two-erfc
-    form's."""
+    and its NaN sites are the two-erfc form's."""
     counts, major, second, log_hom, log_het = edge_sites()
     alleles = qf.pack_alleles(major, second)
     tab = lgamma_table(2 * 4 * 65535, "cpu").numpy()[:1000]
-    p1, p2, het, misses, visits = run_lrt_walk(shim, counts, alleles, log_hom, log_het, 1e-3, 0.05, tab, rows,
-                                               threads)
+    p1, p2, het, misses, visits = run_lrt_walk(shim, counts, alleles, log_hom, log_het, 1e-3, 0.05, tab, threads)
     t1, t2, t_het, t_misses = run_lrt_rows(shim, counts, alleles, log_hom, log_het, 1e-3, 0.05, tab)
     assert misses == t_misses > 0 and np.all(visits == 1)
     assert np.array_equal(bits(p1), bits(t1)) and np.array_equal(bits(p2), bits(t2))
     assert np.array_equal(het.astype(bool), t_het)
-
-
-@pytest.mark.parametrize("n", [0, 1, 2, 3, 1_000_001])
-def test_full_form_outputs_start_at_16_bytes(n):
-    """quality_finalize_lrt's and finalize_lrt's outputs: p1 at 0, p2 and
-    is_het at 16-byte offsets, inside the buffer and apart."""
-    buf = torch.zeros(qf.lrt_out_bytes(n), dtype=torch.uint8)
-    p1, p2, het = qf.lrt_outputs(buf, n)
-    base = buf.data_ptr()
-    assert (p1.shape, p2.shape, het.shape) == ((n,), (n,), (n,))
-    assert (p2.data_ptr() - base) % 16 == 0 and (het.data_ptr() - base) % 16 == 0
-    assert p2.data_ptr() - base >= 8 * n and het.data_ptr() - p2.data_ptr() >= 8 * n
-    assert het.data_ptr() - base + n == buf.numel()
