@@ -160,8 +160,25 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    host-libm run and of the CPU run (lines differing in bytes counted),
    every kernel launched; in phase 12, pooled -R -m likelihood_ratio and
    -m local on 8 samples, held the same way;
-14. prints a JSON line of kernel results, then the final JSON line
-   {"ok": true, "device": {...}}.
+14. --per-shard-fit: 4 chromosomes of 1,000,000 simulated ~30x sites with
+   Phred columns, each from its own seed with pi log-spaced 1e-4..1e-2
+   (0.44 GB under .smoke/, removed), through engine.run for -m local,
+   bayes, likelihood_ratio, -R -m likelihood_ratio and quality, each under
+   --fit auto and --fit device, byte-equal to engine.run over each
+   chromosome alone, concatenated (so auto and device equal each other);
+   sites/s, the stages and the launches a shard of B1, the row record, B2,
+   B4 and B6; the path's kernels launched;
+15. --multihost on that file: sid_tpu_torch.cli.main as 2 processes
+   sharing the card (this script run as --multihost-child, which writes
+   each process's device, wall and kernel counters), with
+   SIDTPU_COORDINATOR on a free localhost port, for -m local, -R -m
+   likelihood_ratio --fit device (also as 4 processes) and -m quality,
+   each byte-equal to one process's engine.run; the 2-process LR run with
+   --checkpoint, then
+   --resume, which skips pass 1 in every process (--profile's stages);
+16. prints a JSON line of kernel results (with each kernel's launches on
+   phases 14 and 15 as launches_per_shard and launches_multihost), then
+   the final JSON line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the final
 line. Without a CUDA card it exits 1 at once.
@@ -259,10 +276,10 @@ def _starts(lengths: np.ndarray) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
 
 
-def phred_pileup(counts: np.ndarray, first_pos: int, seed: int) -> bytes:
-    """mpileup lines of ``counts`` (every coverage >= 1): chr1 from position
-    ``first_pos``, reference N, the reads as base letters (A, C, G, T in
-    turn) and per-read base and mapping qualities drawn from ``seed``
+def phred_pileup(counts: np.ndarray, first_pos: int, seed: int, chrom: str = "chr1") -> bytes:
+    """mpileup lines of ``counts`` (every coverage >= 1): ``chrom`` from
+    position ``first_pos``, reference N, the reads as base letters (A, C, G,
+    T in turn) and per-read base and mapping qualities drawn from ``seed``
     (Phred 2..41 and 1..60), assembled with numpy."""
     counts = np.asarray(counts, np.int64)
     n = counts.shape[0]
@@ -270,8 +287,8 @@ def phred_pileup(counts: np.ndarray, first_pos: int, seed: int) -> bytes:
     pos = np.arange(first_pos, first_pos + n, dtype=np.int64)
     powers = 10 ** np.arange(1, 19, dtype=np.int64)
     digits = lambda x: np.searchsorted(powers, x, side="right") + 1  # noqa: E731
-    head_len = 9 + digits(pos) + digits(cov)  # "chr1\t" pos "\tN\t" cov "\t"
-    heads = np.frombuffer("".join(f"chr1\t{p}\tN\t{c}\t" for p, c in zip(pos.tolist(), cov.tolist())).encode(),
+    head_len = len(chrom) + 5 + digits(pos) + digits(cov)  # chrom "\t" pos "\tN\t" cov "\t"
+    heads = np.frombuffer("".join(f"{chrom}\t{p}\tN\t{c}\t" for p, c in zip(pos.tolist(), cov.tolist())).encode(),
                           np.uint8)
     line_len = head_len + 3 * cov + 3
     start = _starts(line_len)
@@ -2140,6 +2157,271 @@ def population_phases(torch, dev, card, sass) -> list:
     return rows
 
 
+# ---- phases 14-15: the scale-out paths (--per-shard-fit, --multihost) ----
+SHARD_CHROMS = 4
+SHARD_SITES = 1_000_000
+# each chromosome its own heterozygosity, log-spaced: the per-chromosome
+# fits differ
+SHARD_PIS = tuple(float(x) for x in np.logspace(-4, -2, SHARD_CHROMS))
+SHARD_CASES = (
+    ("-m local", {}),
+    ("-m bayes", {"method": "bayes"}),
+    ("-m likelihood_ratio", {"method": "likelihood_ratio"}),
+    ("-R -m likelihood_ratio", {"method": "likelihood_ratio", "estimate_prior": True}),
+    ("-m quality", {"method": "quality"}),
+)
+# (label, CLI flags, the same options, process counts): the LR run fits on
+# the card from the all-gathered histogram, so it alone also runs as 4
+# processes (each process start costs ~8 s of imports and CUDA context)
+MULTIHOST_CASES = (
+    ("-m local", ["-m", "local"], {}, (2,)),
+    ("-R -m likelihood_ratio --fit device", ["-R", "-m", "likelihood_ratio", "--fit", "device"],
+     {"method": "likelihood_ratio", "estimate_prior": True, "fit_backend": "device"}, (2, 4)),
+    ("-m quality", ["-m", "quality"], {"method": "quality"}, (2,)),
+)
+MULTIHOST_TIMEOUT = 300
+
+
+def chromosome_texts() -> list:
+    """SHARD_CHROMS chromosomes (chr1..) of SHARD_SITES simulated ~30x
+    sites with Phred columns, each from its own seed and SHARD_PIS's pi."""
+    return [phred_pileup(simulated_counts(SHARD_SITES, seed=40 + 2 * k, pi=pi), 1, 41 + 2 * k, f"chr{k + 1}")
+            for k, pi in enumerate(SHARD_PIS)]
+
+
+def kernel_counters() -> dict:
+    """The launch counters of every kernel wrapper on the scale-out paths."""
+    from sid_tpu_torch.ops import local_classify, lynch_objective
+    from sid_tpu_torch.ops import quality_finalize as qf
+
+    return {"local_log_likelihoods": local_classify.LAUNCHES, "lynch_records": lynch_objective.RECORD_LAUNCHES,
+            "lynch_compound_nll": lynch_objective.NLL_LAUNCHES,
+            "lynch_marginals": lynch_objective.MARGINALS_LAUNCHES, "quality_finalize": qf.LAUNCHES}
+
+
+def reset_kernel_counters() -> None:
+    from sid_tpu_torch.ops import local_classify, lynch_objective
+    from sid_tpu_torch.ops import quality_finalize as qf
+
+    local_classify.LAUNCHES = 0
+    lynch_objective.RECORD_LAUNCHES = lynch_objective.NLL_LAUNCHES = lynch_objective.MARGINALS_LAUNCHES = 0
+    qf.LAUNCHES = 0
+
+
+def path_kernels(kw: dict, fit: str) -> tuple:
+    """The kernels a run of these options must launch on the card."""
+    method = kw.get("method", "local")
+    if method == "local":
+        return ("local_log_likelihoods",)
+    if method == "quality":
+        return ("quality_finalize",)
+    return ("lynch_records", "lynch_compound_nll", "lynch_marginals") if fit == "device" else ()
+
+
+def stage_split(prof) -> str:
+    split = {}
+    for name, sec in prof.stages:
+        split[name] = split.get(name, 0.0) + sec
+    cuda = {k: v for k, v in prof.counters.items() if k.endswith(":cuda_ms")}
+    return ", ".join([f"{k} {v * 1e3:.1f} ms" for k, v in split.items()]
+                     + [f"{k} {v:.3f}" for k, v in cuda.items()])
+
+
+def per_shard_phase(card, path: str, texts: list) -> dict:
+    """Phase 14: --per-shard-fit on SHARD_CHROMS chromosomes; every case
+    byte-equal to engine.run over each chromosome alone, concatenated (the
+    GNU-parallel fan-out of parallel-run-sid.sh), under --fit auto and
+    --fit device, which are byte-equal to each other; sites/s, the stages,
+    and the launches a shard. Returns the launches of the phase's runs."""
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.utils import profiling
+
+    n_sites = SHARD_CHROMS * SHARD_SITES
+    total = dict.fromkeys(kernel_counters(), 0)
+    for label, kw in SHARD_CASES:
+        t0 = time.perf_counter()
+        alone = [engine.run(t, Options(**kw), binary=True) for t in texts]
+        ref_wall = time.perf_counter() - t0
+        want = alone[0] + b"".join(a.split(b"\n", 1)[1] for a in alone[1:])
+        for fit in ("auto", "device"):
+            prof = profiling.StageProfile()
+            reset_kernel_counters()
+            profiling.activate(prof)
+            t0 = time.perf_counter()
+            try:
+                got = engine.run(path, Options(per_shard_fit=True, fit_backend=fit, **kw), binary=True)
+            finally:
+                profiling.activate(None)
+            wall = time.perf_counter() - t0
+            launches = kernel_counters()
+            if got != want:
+                raise AssertionError(f"--per-shard-fit {label} --fit {fit} differs from the chromosomes called "
+                                     f"alone: {first_difference(got, want)}")
+            missing = [k for k in path_kernels(kw, fit) if not launches[k]]
+            if missing:
+                raise AssertionError(f"--per-shard-fit {label} --fit {fit} launched no {missing}")
+            for k, v in launches.items():
+                total[k] += v
+            per_shard = ", ".join(f"{k} {v / SHARD_CHROMS:g}" for k, v in launches.items() if v)
+            log(f"# --per-shard-fit {label} --fit {fit}, {SHARD_CHROMS} chromosomes x {SHARD_SITES} sites: "
+                f"byte-equal to each chromosome alone; {n_sites / wall:,.0f} sites/s ({wall:.3f} s; the "
+                f"{SHARD_CHROMS} runs alone {ref_wall:.3f} s); {stage_split(prof)}; launches a shard: "
+                f"{per_shard or 'none (the host fit)'}; on {card}")
+        # --fit auto and --fit device gave the same bytes: both equal want
+    return total
+
+
+def multihost_child(counts_path: str, argv: list) -> int:
+    """One process of phase 15: sid_tpu_torch.cli.main (what ./sid-tpu-torch
+    runs) on ``argv``, then into ``counts_path`` its device, the kernel
+    counters and the wall-clock times (time.time) at which it began, had
+    imported the package and had a CUDA context, and left cli.main."""
+    t_start = time.time()
+    sys.path.insert(0, HERE)
+    import torch
+
+    from sid_tpu_torch import cli
+
+    device = torch.cuda.get_device_name(torch.cuda.current_device()) if torch.cuda.is_available() else "cpu"
+    t_ready = time.time()
+    rc = cli.main(argv)
+    t_done = time.time()
+    with open(counts_path, "w") as f:
+        json.dump({"device": device, "t_start": t_start, "t_ready": t_ready, "t_done": t_done,
+                   "launches": kernel_counters()}, f)
+    return rc
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_multihost(workdir: str, tag: str, args: list, n: int) -> tuple:
+    """n processes of the --multihost CLI sharing the card, on a free
+    localhost port; returns (wall, each process's report, stderr)."""
+    port = free_port()
+    procs = []
+    t_spawn = time.time()
+    for pid in range(n):
+        env = dict(os.environ, SIDTPU_COORDINATOR=f"127.0.0.1:{port}", SIDTPU_NUM_PROCESSES=str(n),
+                   SIDTPU_PROCESS_ID=str(pid))
+        env.pop("SIDTPU_PLATFORM", None)
+        report = os.path.join(workdir, f"{tag}.{pid}.json")
+        procs.append((report, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-child", report, "--multihost", *args],
+            env=env, cwd=HERE, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)))
+    errs = []
+    try:
+        for _, p in procs:
+            errs.append(p.communicate(timeout=MULTIHOST_TIMEOUT)[1].decode())
+    finally:
+        for _, p in procs:
+            p.kill()
+    t_exit = time.time()
+    for (_, p), err in zip(procs, errs):
+        if p.returncode != 0:
+            raise AssertionError(f"a --multihost process exited {p.returncode}: {err[-3000:]}")
+    reports = []
+    for report, _ in procs:
+        with open(report) as f:
+            reports.append(json.load(f))
+    for r in reports:
+        # where the wall goes: interpreter start, imports and the CUDA
+        # context, cli.main, exit
+        r["split"] = (r["t_start"] - t_spawn, r["t_ready"] - r["t_start"], r["t_done"] - r["t_ready"],
+                      t_exit - r["t_done"])
+    return t_exit - t_spawn, reports, errs
+
+
+def multihost_phase(card, workdir: str, path: str) -> dict:
+    """Phase 15: --multihost as 2 processes sharing the card, and the LR
+    case as 4 too, each byte-equal to one process's engine.run; a
+    --checkpoint run and a --resume rerun that skips pass 1 in every
+    process. Returns the launches of the phase's processes."""
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+
+    n_sites = SHARD_CHROMS * SHARD_SITES
+    total = dict.fromkeys(kernel_counters(), 0)
+    ckpt = os.path.join(workdir, "hist.npz")
+    for label, flags, kw, processes in MULTIHOST_CASES:
+        t0 = time.perf_counter()
+        want = engine.run(path, Options(**kw), binary=True)
+        one_wall = time.perf_counter() - t0
+        for n in processes:
+            out = os.path.join(workdir, f"multihost_{n}.csv")
+            resume_pair = n == 2 and kw.get("estimate_prior")
+            extra = ["--profile", "--checkpoint", ckpt] if resume_pair else []
+            wall, reports, errs = spawn_multihost(workdir, f"{n}", [*flags, *extra, "--output", out, path], n)
+            with open(out, "rb") as f:
+                got = f.read()
+            os.remove(out)
+            if got != want:
+                raise AssertionError(f"--multihost {label} as {n} processes differs from one process: "
+                                     f"{first_difference(got, want)}")
+            launches = {k: sum(r["launches"][k] for r in reports) for k in total}
+            missing = [k for k in path_kernels(kw, kw.get("fit_backend", "auto")) if not launches[k]]
+            if missing:
+                raise AssertionError(f"--multihost {label} as {n} processes launched no {missing}")
+            for k, v in launches.items():
+                total[k] += v
+            devices = ", ".join(r["device"] for r in reports)
+            splits = "; ".join("/".join(f"{x:.2f}" for x in r["split"]) for r in reports)
+            log(f"# --multihost {label}, {n} processes on one card ({devices}): byte-equal to one process's "
+                f"engine.run; {n_sites / wall:,.0f} sites/s ({wall:.2f} s from the first start to the last exit; "
+                f"each process's start/imports and CUDA context/cli.main/exit {splits} s; one process's "
+                f"engine.run {one_wall:.2f} s); launches: "
+                + ", ".join(f"{k} {v}" for k, v in launches.items() if v) + f"; on {card}")
+            if not resume_pair:
+                continue
+            if not all("# stage histogram" in e for e in errs):
+                raise AssertionError("--multihost --checkpoint: a process ran no pass 1")
+            wall, reports, errs = spawn_multihost(workdir, "resume", [*flags, *extra, "--resume", "--output", out,
+                                                                     path], n)
+            with open(out, "rb") as f:
+                again = f.read()
+            os.remove(out)
+            skipped = not any("# stage histogram" in e for e in errs)
+            if again != want or not skipped:
+                raise AssertionError(f"--multihost {label} --resume: byte-equal {again == want}, pass 1 skipped "
+                                     f"{skipped}")
+            log(f"# --multihost {label} --checkpoint, then --resume as {n} processes: pass 1 skipped in every "
+                f"process, byte-equal; {wall:.2f} s")
+    return total
+
+
+def scale_out_phases(card) -> dict:
+    """Phases 14 and 15 on one file (under .smoke/, removed at the end);
+    returns each path's launches by kernel."""
+    workdir = os.path.join(HERE, ".smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        t0 = time.perf_counter()
+        texts = chromosome_texts()
+        path = os.path.join(workdir, "chromosomes.pileup")
+        with open(path, "wb") as f:
+            for t in texts:
+                f.write(t)
+        log(f"# simulated {SHARD_CHROMS} chromosomes x {SHARD_SITES} sites with Phred columns (pi "
+            + ", ".join(f"{pi:.3g}" for pi in SHARD_PIS) + f"; {os.path.getsize(path) / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        per_shard = per_shard_phase(card, path, texts)
+        del texts
+        t2 = time.perf_counter()
+        multihost = multihost_phase(card, workdir, path)
+        log(f"# phase 14 took {t2 - t1:.1f} s, phase 15 {time.perf_counter() - t2:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"per_shard": per_shard, "multihost": multihost}
+
+
 # --lane-variants: design choices of the lane kernels, each a text
 # substitution in csrc/lynch.cu
 _MIN_BLOCKS = "constexpr int kLanesMinBlocks = 3;"
@@ -2781,6 +3063,8 @@ def bh_variants(torch) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--multihost-child"]:
+        return multihost_child(sys.argv[2], sys.argv[3:])
     import argparse
 
     import torch
@@ -3370,7 +3654,10 @@ def main() -> int:
     # ---- 11-12. the cohort's lane kernels, the population path ----
     lane_rows = population_phases(torch, dev, card, sass)
 
-    # ---- 14. results ----
+    # ---- 14-15. --per-shard-fit, --multihost ----
+    scale_out = scale_out_phases(card)
+
+    # ---- 16. results ----
     kernel_rows = [{
         "name": "local_log_likelihoods",
         "route": "cuda",
@@ -3399,6 +3686,10 @@ def main() -> int:
     for row in lrt_rows:
         row["launches"] = lrt_launches[row["name"]]
     kernel_rows += lrt_rows
+    for row in kernel_rows:
+        for path, launches in scale_out.items():
+            if row["name"] in launches:
+                row[f"launches_{path}"] = launches[row["name"]]
     log(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,12 @@ Reproduces sid.cpp:11-110 as ``sid_tpu.cli`` does: the same short flags with
 the same defaults and help text (-m method, -r fixed prior, -R estimated
 prior, -p significance level, -E site error cap, -h), the header-only output
 for unrecognized methods, "No file name given!" on missing input, and the
-exit codes. Long options are sid_tpu's; those whose feature is not ported
-yet exit 1 with "... is not yet ported in sid_tpu_torch". ``--platform``
-names the torch device (default cuda); without CUDA the run exits 1 unless
-``--platform cpu`` was given.
+exit codes. Long options are sid_tpu's; ``--devices``, whose feature is not
+ported yet, exits 1 with "--devices is not yet ported in sid_tpu_torch".
+``--platform`` names the torch device (default cuda); without CUDA the run
+exits 1 unless ``--platform cpu`` was given. ``--multihost`` (or
+``SIDTPU_NUM_PROCESSES`` in the environment) runs this process as one of a
+torch.distributed group.
 """
 
 from __future__ import annotations
@@ -45,15 +47,15 @@ _LONG_OPTIONS = [
     ("io=", "Pileup parser backend: 'auto' (default), 'native', 'python'"),
     ("output=", "Output CSV path ('-' = stdout, default)"),
     ("devices=", "Number of devices for the site axis (not yet ported)"),
-    ("per-shard-fit", "Fit the Lynch model per shard (not yet ported)"),
+    ("per-shard-fit", "Fit the Lynch model per chromosome (reference-script semantics) instead of globally"),
     ("stream", "Two-pass streaming mode: memory bounded by --chunk-mb, identical output"),
     ("chunk-mb=", "Streaming chunk size in MB (default 64)"),
     ("profile", "Print per-stage timing report to stderr"),
     ("platform=", "Torch device: 'cuda' (default) or 'cpu'; also honored from SIDTPU_PLATFORM"),
-    ("checkpoint=", "Persist/reuse the pass-1 histogram (.npz) in streaming mode"),
-    ("resume", "Resume a streaming run"),
+    ("checkpoint=", "Persist/reuse the pass-1 histogram (.npz) in streaming or multihost mode"),
+    ("resume", "Resume a streaming/multihost run: reuse checkpoint + completed chunks/parts"),
     ("population=", "Joint multi-sample calling: 'pooled' (shared error rate) or 'independent'; all positional args are sample pileups, outputs <input>.calls.csv"),
-    ("multihost", "Multi-host data-parallel run (not yet ported)"),
+    ("multihost", "Multi-host data-parallel run (torch.distributed, gloo): requires --output; reads SIDTPU_COORDINATOR/SIDTPU_NUM_PROCESSES/SIDTPU_PROCESS_ID"),
     ("help", "Print this help message"),
 ]
 
@@ -171,6 +173,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         _fail(str(e))
     if options.population:
         return _main_population(options, input_path)
+    if options.multihost or os.environ.get("SIDTPU_NUM_PROCESSES"):
+        return _main_multihost(options, input_path)
     try:
         open(input_path, "rb").close()
     except OSError:
@@ -181,8 +185,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if options.diagnostics:
             print(line, file=sys.stderr)
 
-    prof = StageProfile(enabled=options.profile)
-    activate(prof if options.profile else None)
+    prof = _start_profile(options)
     try:
         if options.stream:
             prof.count("sites", _stream(options, input_path, diag))
@@ -196,10 +199,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"{e} (line {e.line_number})", file=sys.stderr)
         sys.exit(1)
     finally:
-        activate(None)
+        _stop_profile(prof)
     if options.profile:
         prof.report(log=lambda line: print(line, file=sys.stderr))
     return 0
+
+
+def _start_profile(options: Options) -> StageProfile:
+    """The run's stage profile, active under ``--profile``; with
+    ``SIDTPU_TRACE=<dir>`` set, ``--profile`` also records a torch.profiler
+    trace of the run into that directory."""
+    prof = StageProfile(enabled=options.profile)
+    if options.profile:
+        activate(prof)
+        prof.start_device_trace()
+    return prof
+
+
+def _stop_profile(prof: StageProfile) -> None:
+    activate(None)
+    path = prof.stop_device_trace()
+    if path:
+        print(f"# trace: {path}", file=sys.stderr)
 
 
 def _write(output: str, csv: bytes) -> None:
@@ -227,6 +248,39 @@ def _stream(options: Options, input_path: str, diag) -> int:
         return engine.run_streaming(
             input_path, options, out, diag, progress=StreamProgress(options.output), **kw
         )
+
+
+def _main_multihost(options: Options, input_path: str) -> int:
+    """One process of a multi-host run (sid_tpu/cli.py:246-273): every
+    process runs this same command line, with its SIDTPU_PROCESS_ID; process
+    0 writes ``--output``. ``--profile`` reports each process's stages."""
+    from sid_tpu_torch.parallel import distributed
+
+    if options.output in ("-", ""):
+        _fail("--multihost requires --output PATH")
+    nprocs = os.environ.get("SIDTPU_NUM_PROCESSES")
+    procid = os.environ.get("SIDTPU_PROCESS_ID")
+    distributed.initialize(
+        os.environ.get("SIDTPU_COORDINATOR"),
+        int(nprocs) if nprocs else None,
+        int(procid) if procid else None,
+    )
+
+    def diag(line: str) -> None:
+        if options.diagnostics:
+            print(line, file=sys.stderr)
+
+    prof = _start_profile(options)
+    try:
+        out = distributed.run_multihost(input_path, options, options.output, diag)
+    finally:
+        _stop_profile(prof)
+        distributed.shutdown()
+    if out is not None:
+        diag(f"# wrote {out}")
+    if options.profile:
+        prof.report(log=lambda line: print(line, file=sys.stderr))
+    return 0
 
 
 def _main_population(options: Options, paths: List[str]) -> int:

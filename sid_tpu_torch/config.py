@@ -39,7 +39,7 @@ class Options:
     exact_pvalues: bool = True
     # number of devices along the site axis (None = one device)
     mesh_devices: Optional[int] = None
-    # fit the Lynch model per shard (not yet ported)
+    # fit the Lynch model per chromosome (parallel.pipeline)
     per_shard_fit: bool = False
     # emit reference-identical stderr diagnostics (call.cpp:72,78-80)
     diagnostics: bool = True
@@ -55,7 +55,7 @@ class Options:
     resume: bool = False
     # multi-sample population mode: "", "pooled", or "independent"
     population: str = ""
-    # multi-host data-parallel execution (not yet ported)
+    # multi-host data-parallel execution (parallel.distributed)
     multihost: bool = False
     # torch device for the per-profile math: "cuda" (None) or "cpu"
     platform: Optional[str] = None

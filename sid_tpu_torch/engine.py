@@ -5,10 +5,12 @@ quirk that an unrecognized method produces no records (the CLI then prints
 only the CSV header). ``options.engine`` selects the device path (default)
 or the host long-double oracle. ``run`` calls a whole input in memory;
 ``run_streaming`` calls it in two passes over newline-aligned chunks, with
-the same output. Population mode (many samples) is
-``models.population``, which the CLI dispatches to. Methods and options of
-sid_tpu that this package does not run yet raise ``NotPortedError`` instead
-of doing something else.
+the same output. ``--per-shard-fit`` calls each chromosome alone
+(``parallel.pipeline``); ``run_streaming`` does not read it, as sid_tpu's
+does not (``ROADMAP.md`` C9). Population mode (many samples) is
+``models.population`` and ``--multihost`` ``parallel.distributed``, which
+the CLI dispatches to. ``--devices``, which this package does not run yet,
+raises ``NotPortedError`` instead of doing something else.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import os
 import sys
 from typing import Callable, Optional
 
+import numpy as np
+
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.exact import engine as exact_engine
 from sid_tpu_torch.io.pileup import PileupBatch, parse_pileup
@@ -27,6 +31,7 @@ from sid_tpu_torch.models import bayes, common, likelihood_ratio, local, quality
 from sid_tpu_torch.models.common import CSV_HEADER, CallResult
 from sid_tpu_torch.models.lynch import estimate_prior_heterozygosity
 from sid_tpu_torch.ops.profiles import filter_min_coverage
+from sid_tpu_torch.parallel.pipeline import call_per_shard
 from sid_tpu_torch.utils import checkpoint as ckpt
 from sid_tpu_torch.utils import profiling
 from sid_tpu_torch.utils.errors import NotPortedError
@@ -50,15 +55,10 @@ _TABLES = {
 
 
 def check_ported(options: Options) -> None:
-    """Raise NotPortedError for the first option this package cannot run."""
-    unported = (
-        (options.multihost, "--multihost"),
-        (options.per_shard_fit, "--per-shard-fit"),
-        (options.mesh_devices is not None, "--devices"),
-    )
-    for flag, name in unported:
-        if flag:
-            raise NotPortedError(name)
+    """Raise NotPortedError for an option this package cannot run yet:
+    ``--devices``."""
+    if options.mesh_devices is not None:
+        raise NotPortedError("--devices")
 
 
 def call_batch(
@@ -67,11 +67,14 @@ def call_batch(
     diag: Optional[Callable[[str], None]] = None,
 ) -> Optional[CallResult]:
     """Dispatch one parsed batch to the selected method implementation;
-    None for an unknown method (header-only output, sid.cpp:92-102)."""
+    None for an unknown method (header-only output, sid.cpp:92-102).
+    ``--per-shard-fit`` calls each chromosome alone (sid_tpu/engine.py:51-54)."""
     check_ported(options)
     fn = _TABLES[options.engine].get(options.method)
     if fn is None:
         return None
+    if options.per_shard_fit:
+        return call_per_shard(batch, options, fn, diag)
     return fn(batch, options, diag)
 
 
@@ -104,6 +107,52 @@ def run(
         return result.to_csv_bytes() if binary else result.to_csv()
 
 
+@dataclasses.dataclass
+class ClassTable:
+    """What pass 1 of a two-pass run gives pass 2: the sorted packed keys
+    and per-class arrays (is_het, major, second, conf_hom, conf_het) that
+    chunks are joined through, or for ``quality`` (a per-site method) the
+    options each chunk is called with, the -R prior fixed."""
+
+    options: Options
+    keys: Optional[np.ndarray] = None
+    cls: Optional[tuple] = None
+    conf_type: str = "p_value"
+
+
+def class_table(profiles, mult, options: Options, diag=None) -> ClassTable:
+    """Pass 1's table from the whole input's histogram (profiles, mult):
+    ``local`` through the classify kernel, bayes and likelihood_ratio
+    through the fit over the cov >= 4 profiles, ``quality`` only its -R
+    prior (no histogram needed without -R: pass None)."""
+    method = options.method
+    snp_prior = options.snp_prior
+    if method == "quality":  # no fit or classify: outside the stage
+        if options.estimate_prior:
+            snp_prior = estimate_prior_heterozygosity(profiles, mult, options, diag)
+        return ClassTable(dataclasses.replace(options, estimate_prior=False, snp_prior=snp_prior))
+    with profiling.maybe_stage("fit+classify"):
+        if method == "local":
+            if options.estimate_prior:
+                snp_prior = estimate_prior_heterozygosity(profiles, mult, options, diag)
+            cls = local.classify_profiles_local(profiles, options, snp_prior)
+            return ClassTable(options, pack_profiles(profiles), cls)
+        fprof, fmult, _ = filter_min_coverage(profiles, mult, 4)
+        if method == "bayes":
+            cls = bayes.classify_profiles_bayes(fprof, fmult, options, diag)
+            return ClassTable(options, pack_profiles(fprof), cls, "probability")
+        cls = likelihood_ratio.classify_profiles_lr(fprof, fmult, options, diag)
+        return ClassTable(options, pack_profiles(fprof), cls)
+
+
+def call_chunk(batch: PileupBatch, table: ClassTable) -> CallResult:
+    """Pass 2 on one parsed chunk: ``quality`` calls it, the other methods
+    join it through the class table."""
+    if table.cls is None:
+        return quality.call_quality(batch, table.options)
+    return common.join_class_table(batch, table.keys, table.cls, table.conf_type)
+
+
 def run_streaming(
     src,
     options: Optional[Options] = None,
@@ -123,7 +172,9 @@ def run_streaming(
     rows joined through a packed-key binary search (``quality`` calls each
     chunk, which runs its finalize kernel). The output is the in-memory
     path's, byte for byte, including the global BH correction and the cov>=4
-    omission. Returns the number of records written.
+    omission. Returns the number of records written. The fit is global
+    under ``per_shard_fit`` too: sid_tpu's run_streaming does not read it
+    (``ROADMAP.md`` C9), and this one follows its bytes.
 
     ``src`` is a path or bytes (read twice). ``checkpoint`` persists the
     pass-1 histogram (.npz) so reruns with ``resume=True`` skip pass 1;
@@ -174,29 +225,9 @@ def run_streaming(
         return profiles, mult
 
     # ---- pass 1: histogram and the per-class table (quality: only -R) ----
-    cls = keys = None
-    conf_type = "p_value"
-    snp_prior = options.snp_prior
-    if method == "quality":
-        if options.estimate_prior:
-            snp_prior = estimate_prior_heterozygosity(*histogram(), options, diag)
-        chunk_options = dataclasses.replace(options, estimate_prior=False, snp_prior=snp_prior)
-    else:
-        profiles, mult = histogram()
-        with profiling.maybe_stage("fit+classify"):
-            if method == "local":
-                if options.estimate_prior:
-                    snp_prior = estimate_prior_heterozygosity(profiles, mult, options, diag)
-                cls = local.classify_profiles_local(profiles, options, snp_prior)
-                keys = pack_profiles(profiles)
-            else:
-                fprof, fmult, _ = filter_min_coverage(profiles, mult, 4)
-                if method == "bayes":
-                    cls = bayes.classify_profiles_bayes(fprof, fmult, options, diag)
-                    conf_type = "probability"
-                else:
-                    cls = likelihood_ratio.classify_profiles_lr(fprof, fmult, options, diag)
-                keys = pack_profiles(fprof)
+    needs_histogram = method != "quality" or options.estimate_prior
+    profiles, mult = histogram() if needs_histogram else (None, None)
+    table = class_table(profiles, mult, options, diag)
 
     # ---- pass 2: classify or join chunk by chunk ----
     needs_reads = method == "quality"
@@ -210,10 +241,7 @@ def run_streaming(
         if batch.num_sites == 0:
             continue
         with profiling.maybe_stage("call"):
-            if method == "quality":
-                res = quality.call_quality(batch, chunk_options)
-            else:
-                res = common.join_class_table(batch, keys, cls, conf_type)
+            res = call_chunk(batch, table)
         with profiling.maybe_stage("serialize"):
             write(res.to_csv_bytes(include_header=False))
         emitted += res.num_records

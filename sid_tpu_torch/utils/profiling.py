@@ -1,7 +1,11 @@
 """Per-stage wall-clock timers and sites/sec counters (``--profile``).
 
 A run records stage timings (parse, call, serialize, the device block) and
-derived throughput, printable as a stderr report or a dict. On a CUDA
+derived throughput, printable as a stderr report or a dict;
+``SIDTPU_TRACE=<dir>`` also records a ``torch.profiler`` trace of the work
+between ``start_device_trace`` and ``stop_device_trace`` into that
+directory (Chrome trace JSON; they replace sid_tpu's jax.profiler hook, and
+the CLI brackets a ``--profile`` run with them). On a CUDA
 device, ``device_stage`` also brackets its block with CUDA events on the
 current stream, so the report carries the stream's own time for the block
 beside the host's wall time.
@@ -15,6 +19,7 @@ lockstep fits) has no sid_tpu counterpart.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -28,6 +33,8 @@ class StageProfile:
         self.enabled = enabled
         self.stages: List[tuple] = []  # (name, seconds)
         self.counters: Dict[str, float] = {}
+        self._trace_dir = os.environ.get("SIDTPU_TRACE")
+        self._trace = None
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -43,6 +50,27 @@ class StageProfile:
     def count(self, name: str, value: float) -> None:
         if self.enabled:
             self.counters[name] = self.counters.get(name, 0.0) + value
+
+    def start_device_trace(self) -> None:
+        """Start a torch.profiler trace (host, and the card's kernels and
+        copies where CUDA is present) when SIDTPU_TRACE names a directory."""
+        if self._trace_dir and self._trace is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._trace = torch.profiler.profile(activities=activities)
+            self._trace.start()
+
+    def stop_device_trace(self) -> Optional[str]:
+        """Stop the trace and write it under SIDTPU_TRACE; returns its path."""
+        if self._trace is None:
+            return None
+        self._trace.stop()
+        os.makedirs(self._trace_dir, exist_ok=True)
+        path = os.path.join(self._trace_dir, f"sid_tpu_torch.{os.getpid()}.{time.time_ns()}.trace.json")
+        self._trace.export_chrome_trace(path)
+        self._trace = None
+        return path
 
     def total(self) -> float:
         """Wall seconds of the top-level stages (device stages nest inside

@@ -4,7 +4,9 @@ The design-variant builds edit the kernel sources by text substitution
 (``LANE_VARIANTS``, ``B5_VARIANTS``, ``BH_VARIANTS``, ``LRT_VARIANTS``,
 ``B6_LRT_VARIANTS``, ``scripts/local_classify_variants.py``); a source edit that moves the text
 would only fail on the card, so these hold them here. ``row_counts`` reads
-kernels that load nothing (the BH scan's zeroing kernel) as a whole.
+kernels that load nothing (the BH scan's zeroing kernel) as a whole. The scale-out
+phases' inputs (chromosomes named by the Phred writer) and their kernel
+counters are held here too.
 """
 
 import importlib.util
@@ -137,3 +139,39 @@ def test_row_counts_of_a_row_loop():
               (0x60, False, "EXIT", "")]
     got = chip_smoke.row_counts(instrs)
     assert (got["f64"], got["f64_all"]) == (1, 2)
+
+
+def test_phred_pileup_names_its_chromosome():
+    from sid_tpu_torch.io.pileup import parse_pileup
+
+    counts = chip_smoke.simulated_counts(300, seed=3, pi=0.01)
+    text = chip_smoke.phred_pileup(counts, 7, 4, "chrX_10")
+    batch = parse_pileup(text, True, True, backend="python")
+    assert batch.chrom_table == ["chrX_10"]
+    assert batch.pos.tolist() == list(range(7, 307))
+    assert batch.counts.tolist() == counts.tolist()
+    assert chip_smoke.phred_pileup(counts, 7, 4) == text.replace(b"chrX_10\t", b"chr1\t")
+
+
+def test_chromosome_texts_differ_by_seed_and_pi(monkeypatch):
+    from sid_tpu_torch.io.pileup import parse_pileup
+
+    monkeypatch.setattr(chip_smoke, "SHARD_SITES", 2000)
+    texts = chip_smoke.chromosome_texts()
+    batches = [parse_pileup(t) for t in texts]
+    assert [b.chrom_table for b in batches] == [[f"chr{k + 1}"] for k in range(chip_smoke.SHARD_CHROMS)]
+    assert all(b.num_sites == 2000 for b in batches)
+    assert len({b.counts.tobytes() for b in batches}) == chip_smoke.SHARD_CHROMS
+    assert chip_smoke.SHARD_PIS[0] == pytest.approx(1e-4) and chip_smoke.SHARD_PIS[-1] == pytest.approx(1e-2)
+
+
+@pytest.mark.parametrize("kw,fit,want", [
+    ({}, "auto", ("local_log_likelihoods",)),
+    ({"method": "quality"}, "device", ("quality_finalize",)),
+    ({"method": "bayes"}, "auto", ()),
+    ({"method": "likelihood_ratio", "estimate_prior": True}, "device",
+     ("lynch_records", "lynch_compound_nll", "lynch_marginals")),
+])
+def test_path_kernels_are_counters(kw, fit, want):
+    assert chip_smoke.path_kernels(kw, fit) == want
+    assert set(want) <= set(chip_smoke.kernel_counters())

@@ -43,8 +43,13 @@ CASES = {
     "quality-exact": ["--engine", "exact", "-m", "quality", "in.pileup"],
     "stream-quality-R": ["--stream", "--chunk-mb", "1", "-R", "-m", "quality", "in.pileup"],
     "stream-R-lr": ["--stream", "-R", "-m", "likelihood_ratio", "in.pileup"],
+    "per-shard-fit": ["--per-shard-fit", "two.pileup"],
+    "per-shard-fit-bayes": ["--per-shard-fit", "-m", "bayes", "two.pileup"],
+    "per-shard-fit-R-lr": ["--per-shard-fit", "-R", "-m", "likelihood_ratio", "two.pileup"],
+    "per-shard-fit-exact-R-quality": ["--per-shard-fit", "--engine", "exact", "-R", "-m", "quality", "two.pileup"],
+    "multihost-no-output": ["--multihost", "in.pileup"],
 }
-UNPORTED = {"devices": ["--devices", "2"], "per-shard-fit": ["--per-shard-fit"]}
+UNPORTED = {"devices": ["--devices", "2"]}
 POP_SAMPLES = ["s0.pileup", "s1.pileup", "s2.pileup"]
 POPULATION = {
     "pooled-bayes": ["--population", "pooled", "-m", "bayes"] + POP_SAMPLES,
@@ -76,6 +81,11 @@ def workdir(tmp_path_factory):
     counts = simulate_diploid_counts(200, coverage=20, pi=0.05, eps=0.01, seed=9)
     (d / "in.pileup").write_bytes(make_pileup_text(counts, with_qualities=True))
     (d / "bad.pileup").write_bytes(b"chr1\t1\tA\t1\t.\nnot a pileup line\n")
+    # two chromosomes of different (pi, eps): --per-shard-fit fits each alone
+    (d / "two.pileup").write_bytes(b"".join(
+        make_pileup_text(simulate_diploid_counts(150, coverage=20, pi=pi, eps=eps, seed=seed), chrom=chrom,
+                         with_qualities=True, seed=seed)
+        for chrom, pi, eps, seed in (("chr1", 0.02, 0.01, 11), ("chr2", 0.06, 0.02, 12))))
     # population cases: one directory per case and tool, each with the samples
     for case in POPULATION:
         for tool in ("sid-tpu", "sid-tpu-torch"):

@@ -157,12 +157,13 @@ def test_empty_input():
     assert engine.run(b"", Options(platform="cpu"), binary=True) == want
 
 
-# options that raised NotPortedError before the Lynch-fit slice and the
-# quality and streaming slice ported them (``stream`` is a CLI mode: through
-# engine.run it calls the input in memory, as sid_tpu's does)
+# options that raised NotPortedError before the Lynch-fit slice, the
+# quality and streaming slice and the scale-out slice ported them (``stream``
+# is a CLI mode: through engine.run it calls the input in memory, as
+# sid_tpu's does)
 PORTED_SINCE = ({"method": "bayes"}, {"method": "likelihood_ratio"},
                 {"estimate_prior": True}, {"engine": "exact"}, {"method": "quality"},
-                {"stream": True})
+                {"stream": True}, {"per_shard_fit": True})
 # the fused on-device LRT, ported since: its p-values come from another erfc,
 # so its CSV is held to sid_tpu's by the device-LRT tolerance, not bytes
 DEVICE_LRT = {"exact_pvalues": False}
