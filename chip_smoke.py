@@ -176,9 +176,23 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    each byte-equal to one process's engine.run; the 2-process LR run with
    --checkpoint, then
    --resume, which skips pass 1 in every process (--profile's stages);
-16. prints a JSON line of kernel results (with each kernel's launches on
-   phases 14 and 15 as launches_per_shard and launches_multihost), then
-   the final JSON line {"ok": true, "device": {...}}.
+16. --devices (B10's sharded fit, B9's sample-axis blocks): (a) engine.run
+   with --devices 1 for -m local, bayes, -R -m likelihood_ratio and quality
+   on phase 4's and phase 9's 1,000,000 sites, and --population pooled and
+   independent -m bayes on phase 12's cohort, each byte-equal to the run
+   without --devices under --fit device (the path's launches counted from
+   0); (b) fit_lynch_global over [cuda:0] x k, k = 1, 2, 3, 4, 8, at phase
+   7's U = 991,985: (pi, eps) and both log-L arrays bitwise the one-device
+   fit, the partials and fold launches an evaluation, the walls; the C2
+   repro planted in the last shard, the objective and marginals bitwise
+   the one-device objective's; B2's partials mode bitwise its plain version
+   over 4 shards, its times and bound; (c) the cohort's fits over
+   [cuda:0] x 2 and x 4 at phase 12's shape, bitwise the unsharded fits;
+   (d) lynch_fold_kernel bitwise fold_chunk_sums_ref at 1, 2, 255, 256,
+   257 and 973 chunks, its times and bound (12 B a chunk);
+17. prints a JSON line of kernel results (with each kernel's launches on
+   phases 14, 15 and 16 as launches_per_shard, launches_multihost and
+   launches_mesh), then the final JSON line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the final
 line. Without a CUDA card it exits 1 at once.
@@ -1759,13 +1773,15 @@ def lanes_kernel_phase(torch, dev, card, sass):
     work.nll_lanes(theta_sets[0], everyone)
     after = lo.kernel_launches()
     per_call = {k: after[k] - before[k] for k in after}
-    if per_call != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 1, "marginals_lanes": 0}:
+    if per_call != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 1, "marginals_lanes": 0,
+                    "nll_partials": 0, "fold": 0}:
         raise AssertionError(f"one lanes' objective call: launches {per_call}")
     before = lo.kernel_launches()
     work.marginals_lanes_host(theta_sets[0])
     after = lo.kernel_launches()
     per_marg = {k: after[k] - before[k] for k in after}
-    if per_marg != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 1}:
+    if per_marg != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 1,
+                    "nll_partials": 0, "fold": 0}:
         raise AssertionError(f"one lanes' marginals call: launches {per_marg}")
     log(f"# one call is one launch (the kernel library's counters): objective {per_call}, marginals {per_marg}")
 
@@ -2089,6 +2105,9 @@ def population_phase(torch, dev, card, workdir):
             raise AssertionError(f"population {label}: samples {bad} differ between the card and the CPU")
         log(f"# population {label}: every sample's CSV byte-equal to the CPU run (plain versions; {cpu[2]:.1f} s)")
     population_device_lrt(card, subset)
+    t0 = time.perf_counter()
+    mesh_launches = population_mesh_runs(paths, card_runs, card)
+    mesh_wall = time.perf_counter() - t0
     for label in ("pooled -m bayes", "independent -m bayes"):
         for digests, records, wall, p in card_runs[label]:
             stages = {}
@@ -2134,13 +2153,14 @@ def population_phase(torch, dev, card, workdir):
         f"objective launches, {stats[2]} lane evaluations, at most {stats[3]} iterations, {stats[4]} converged; "
         f"wall in turns: " + ", ".join(f"{k} {', '.join(f'{w * 1e3:.1f}' for w in v)} ms" for k, v in walls.items())
         + f"; on {card}")
-    return launches
+    return launches, (mesh_launches, mesh_wall)
 
 
-def population_phases(torch, dev, card, sass) -> list:
-    """Phases 11 and 12 (their files under .smoke/, removed at the end);
-    returns the lane kernels' rows of the kernels line, with the launches
-    of the population path."""
+def population_phases(torch, dev, card, sass) -> tuple:
+    """Phases 11 and 12 (their files under .smoke/, removed at the end),
+    with phase 16 (a)'s population runs on phase 12's files; returns the
+    lane kernels' rows of the kernels line, with the launches of the
+    population path, and phase 16 (a)'s (launches, wall)."""
     workdir = os.path.join(HERE, ".smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -2148,13 +2168,13 @@ def population_phases(torch, dev, card, sass) -> list:
         t0 = time.perf_counter()
         rows = lanes_kernel_phase(torch, dev, card, sass)
         t1 = time.perf_counter()
-        launches = population_phase(torch, dev, card, workdir)
-        log(f"# phase 11 took {t1 - t0:.1f} s, phase 12 {time.perf_counter() - t1:.1f} s")
+        launches, mesh = population_phase(torch, dev, card, workdir)
+        log(f"# phase 11 took {t1 - t0:.1f} s, phase 12 {time.perf_counter() - t1 - mesh[1]:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows[0]["launches"] = launches["nll_lanes"]
     rows[1]["launches"] = launches["marginals_lanes"]
-    return rows
+    return rows, mesh
 
 
 # ---- phases 14-15: the scale-out paths (--per-shard-fit, --multihost) ----
@@ -2420,6 +2440,298 @@ def scale_out_phases(card) -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return {"per_shard": per_shard, "multihost": multihost}
+
+
+# ---- phase 16: --devices (B10's sharded fit, B9's sample-axis blocks) ----
+# shard counts of the fit over [cuda:0] * k, of the cohort's fits, and the
+# fold kernel's chunk counts held against its plain version
+MESH_SHARDS = (1, 2, 3, 4, 8)
+MESH_POP_SHARDS = (2, 4)
+FOLD_CHUNKS = (1, 2, 255, 256, 257, 973)
+# thetas of the objective with the C2 repro planted in the last shard (the
+# fitted theta is added); each evaluation replays the row in long double
+MESH_C2_THETAS = ((1e-3, 1e-3), (0.05, 0.01))
+MESH_CASES = (
+    ("-m local", {}),
+    ("-m bayes", {"method": "bayes"}),
+    ("-R -m likelihood_ratio", {"method": "likelihood_ratio", "estimate_prior": True}),
+    ("-m quality", {"method": "quality"}),
+)
+MESH_POP_CASES = (("pooled -m bayes", "pooled"), ("independent -m bayes", "independent"))
+
+
+def mesh_counters() -> dict:
+    """The launch counters of every kernel wrapper on the --devices paths,
+    by the names of the kernels line."""
+    from sid_tpu_torch.ops import local_classify, lynch_objective as lo
+    from sid_tpu_torch.ops import quality_finalize as qf
+
+    return {"local_log_likelihoods": local_classify.LAUNCHES, "lynch_records": lo.RECORD_LAUNCHES,
+            "lynch_compound_nll": lo.NLL_LAUNCHES, "lynch_compound_nll_partials": lo.NLL_PARTIALS_LAUNCHES,
+            "lynch_fold": lo.FOLD_LAUNCHES, "lynch_marginals": lo.MARGINALS_LAUNCHES,
+            "quality_finalize": qf.LAUNCHES, "lynch_compound_nll_lanes": lo.NLL_LANES_LAUNCHES,
+            "lynch_marginals_lanes": lo.MARGINALS_LANES_LAUNCHES}
+
+
+def reset_mesh_counters() -> None:
+    from sid_tpu_torch.ops import local_classify, lynch_objective as lo
+    from sid_tpu_torch.ops import quality_finalize as qf
+
+    local_classify.LAUNCHES = qf.LAUNCHES = 0
+    lo.RECORD_LAUNCHES = lo.NLL_LAUNCHES = lo.NLL_PARTIALS_LAUNCHES = lo.FOLD_LAUNCHES = 0
+    lo.MARGINALS_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def population_mesh_runs(paths, card_runs, card) -> dict:
+    """Phase 16 (a), the population half: --population pooled and
+    independent -m bayes with --devices 1 on phase 12's cohort, every
+    sample's CSV byte-equal to phase 12's runs without it (the counters set
+    to 0 just before and read just after). Returns the launches."""
+    from sid_tpu_torch.config import Options
+
+    reset_mesh_counters()
+    walls = {}
+    for label, mode in MESH_POP_CASES:
+        digests, _, walls[label] = population_run(paths, Options(method="bayes", mesh_devices=1), mode)
+        if digests != card_runs[label][0][0]:
+            bad = [k for k, (a, b) in enumerate(zip(digests, card_runs[label][0][0])) if a != b]
+            raise AssertionError(f"--devices 1 --population {label}: samples {bad} differ from the run without it")
+    launches = mesh_counters()
+    for k in ("lynch_compound_nll_lanes", "lynch_marginals_lanes"):
+        if not launches[k]:
+            raise AssertionError(f"--devices 1 --population launched no {k}: {launches}")
+    log("# phase 16 (a): --devices 1 --population " + ", ".join(
+        f"{label} {walls[label]:.2f} s (without it {card_runs[label][0][2]:.2f} s)" for label in walls)
+        + f": every sample's CSV byte-equal to the run without --devices; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v) + f"; on {card}")
+    return launches
+
+
+def mesh_path_runs(card, synth: bytes, qbytes: bytes) -> dict:
+    """Phase 16 (a): engine.run with --devices 1 on the card for MESH_CASES
+    on phase 4's 1M simulated sites (-m quality on phase 9's, with Phred
+    columns), each byte-equal to the same run without --devices under --fit
+    device; the counters set to 0 just before the --devices runs and read
+    just after. Returns the launches."""
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+
+    want, walls = {}, {}
+    for label, kw in MESH_CASES:
+        src = qbytes if kw.get("method") == "quality" else synth
+        lines = []
+        t0 = time.perf_counter()
+        want[label] = (engine.run(src, Options(fit_backend="device", **kw), lines.append, binary=True), lines)
+        walls[label] = [time.perf_counter() - t0]
+    reset_mesh_counters()
+    for label, kw in MESH_CASES:
+        src = qbytes if kw.get("method") == "quality" else synth
+        lines = []
+        t0 = time.perf_counter()
+        got = engine.run(src, Options(fit_backend="device", mesh_devices=1, **kw), lines.append, binary=True)
+        walls[label].append(time.perf_counter() - t0)
+        if (got, lines) != want[label]:
+            raise AssertionError(f"--devices 1 {label}: differs from the run without it: "
+                                 f"{first_difference(got, want[label][0])}; {lines} vs {want[label][1]}")
+    launches = mesh_counters()
+    for k in ("local_log_likelihoods", "lynch_records", "lynch_compound_nll_partials", "lynch_fold",
+              "lynch_marginals", "quality_finalize"):
+        if not launches[k]:
+            raise AssertionError(f"the --devices 1 path launched no {k}: {launches}")
+    if launches["lynch_compound_nll"]:
+        raise AssertionError(f"a --devices fit launched one-device B2: {launches}")
+    log(f"# phase 16 (a): engine.run --devices 1, {synth.count(b'\n'):,} sites: " + ", ".join(
+        f"{label} {walls[label][1] * 1e3:.1f} ms (without it {walls[label][0] * 1e3:.1f} ms)" for label in walls)
+        + "; each CSV and its diagnostic lines byte-equal to the run without --devices under --fit device; "
+        "launches " + ", ".join(f"{k} {v}" for k, v in launches.items() if v) + f"; on {card}")
+    return launches
+
+
+def mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult) -> dict:
+    """Phase 16 (b): fit_lynch_global over [cuda:0] * k for MESH_SHARDS at
+    phase 7's U, (pi, eps) and both log-L arrays bitwise the one-device
+    fit; the partials and fold launches an evaluation; the walls. The C2
+    repro (9000, 9000, 0, 0) planted as the last row, in the last shard: the
+    objective at MESH_C2_THETAS and the fitted theta, and the marginals,
+    bitwise the one-device objective's for every k (a whole fit with it
+    costs ~90 long-double evaluations; the CPU tests hold it). The partials
+    mode against its plain version at k = 4, and its times. Returns the
+    partials row of the kernels line (launches filled in later)."""
+    from sid_tpu_torch.models import lynch
+    from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+    from sid_tpu_torch.ops.profiles import nucleotide_distribution
+    from sid_tpu_torch.parallel import fit as pfit
+    from sid_tpu_torch.parallel.mesh import chunk_bounds
+
+    u = h_prof.shape[0]
+    lines = []
+    want = lynch.fit_on_filtered_profiles(h_prof, h_mult, dev, lines.append)
+    n_chunks = -(-u // likelihoods.CHUNK_ROWS)
+    # the walls in turns: one device, k = 1 .. 8, k = 8 .. 1, one device
+    walls = {"one": []}
+    per_eval = {}
+    for k in ("one",) + MESH_SHARDS + MESH_SHARDS[::-1] + ("one",):
+        got_lines = []
+        before = (lo.NLL_PARTIALS_LAUNCHES, lo.FOLD_LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if k == "one":
+            lynch.fit_on_filtered_profiles(h_prof, h_mult, dev)
+            walls["one"].append(time.perf_counter() - t0)
+            continue
+        got = pfit.fit_lynch_global(h_prof, h_mult, [dev] * k, got_lines.append)
+        walls.setdefault(k, []).append(time.perf_counter() - t0)
+        partials, folds = lo.NLL_PARTIALS_LAUNCHES - before[0], lo.FOLD_LAUNCHES - before[1]
+        same = (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]) and bits_equal(got[2], want[2])
+                and bits_equal(got[3], want[3]) and got_lines == lines)
+        if not same:
+            raise AssertionError(f"fit_lynch_global over {k} shards differs from the one-device fit: "
+                                 f"{got[:2]} vs {want[:2]}; {got_lines} vs {lines}")
+        shards = int((np.diff(chunk_bounds(u, k)) > 0).sum())
+        if partials != shards * folds:
+            raise AssertionError(f"{k} shards: {partials} partials launches for {folds} folds ({shards} shards)")
+        per_eval[k] = (partials / folds, folds)
+    log(f"# phase 16 (b): fit_lynch_global over [cuda:0] x k at U={u} ({n_chunks} chunks): (pi, eps) = "
+        f"({want[0]!r}, {want[1]!r}) and both log-L arrays bitwise the one-device fit for k = "
+        f"{', '.join(map(str, MESH_SHARDS))}; an evaluation: "
+        + ", ".join(f"k={k} {p:g} partials + 1 fold ({f} evaluations)" for k, (p, f) in per_eval.items())
+        + "; fit wall in turns (host clock, medians of 2), " + ", ".join(
+            f"{'one-device' if k == 'one' else f'k={k}'} {statistics.median(w) * 1e3:.1f} ms "
+            f"({', '.join(f'{x * 1e3:.1f}' for x in w)})" for k, w in walls.items()) + f"; on {card}")
+
+    # the C2 repro in the last shard
+    deep_prof = np.ascontiguousarray(np.vstack([h_prof, [[9000, 9000, 0, 0]]]), np.int32)
+    deep_mult = np.concatenate([h_mult, [1]]).astype(np.int64)
+    nt = nucleotide_distribution(deep_prof, deep_mult)
+    one = lynch.DeviceObjective(deep_prof, deep_mult, nt, dev)
+    thetas = MESH_C2_THETAS + ((want[0], want[1]),)
+    want_v = [one(th) for th in thetas]
+    want_m = one.marginals(want[1])
+    t0 = time.perf_counter()
+    for k in MESH_SHARDS:
+        sharded = pfit.ShardedDeviceObjective(deep_prof, deep_mult, nt, [dev] * k)
+        got_v = [sharded(th) for th in thetas]
+        if not bits_equal(got_v, want_v) or sharded.flagged != 1:
+            raise AssertionError(f"C2 repro, {k} shards: {got_v} vs {want_v}, {sharded.flagged} flagged rows")
+        if k == MESH_SHARDS[-1] and not all(bits_equal(a, b) for a, b in zip(sharded.marginals(want[1]), want_m)):
+            raise AssertionError(f"C2 repro, {k} shards: the marginals differ")
+    log(f"# phase 16 (b): C2 repro (9000, 9000, 0, 0) as row {u} (the last shard): the objective at {thetas} bitwise "
+        f"the one-device objective for every k (the row replayed in long double by its global row), the "
+        f"marginals at k = {MESH_SHARDS[-1]} too; {time.perf_counter() - t0:.1f} s")
+
+    # the partials mode against its plain version at k = 4, and its times
+    tab = lgamma_table(int(h_prof.sum(-1).max()), dev)
+    s = likelihoods.lynch_scalars(want[0], want[1], nucleotide_distribution(h_prof, h_mult))
+    bounds = chunk_bounds(u, 4)
+    works = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        p = torch.from_numpy(np.ascontiguousarray(h_prof[a:b])).to(dev)
+        m = torch.from_numpy(np.ascontiguousarray(h_mult[a:b])).to(dev)
+        w = lo.LynchWorkspace(p, m, tab)
+        n = -(-(b - a) // likelihoods.CHUNK_ROWS)
+        sums = torch.empty(n, dtype=torch.float64, device=dev)
+        cnts = torch.empty(n, dtype=torch.int32, device=dev)
+        w.launch_partials(s, sums, cnts)
+        ps, pc, pf = lo.lynch_nll_partials_ref(p, m, s, tab)
+        if not (torch.equal(sums.view(torch.int64), ps.view(torch.int64)) and torch.equal(cnts, pc)
+                and torch.equal(w.flags, pf)):
+            raise AssertionError(f"B2's partials mode differs from its plain version on rows {a}..{b}")
+        works.append((w, sums, cnts, p, m))
+
+    def partials_call(*_):
+        for w, sums, cnts, _, _ in works:
+            w.launch_partials(s, sums, cnts)
+
+    def partials_plain(*_):
+        return [lo.lynch_nll_partials_ref(p, m, s, tab) for _, _, _, p, m in works]
+
+    plain_t = event_times_ms(torch, partials_plain, [()])
+    call_t = event_times_ms(torch, partials_call, [()]) + event_times_ms(torch, partials_call, [()])
+    plain_t += event_times_ms(torch, partials_plain, [()])
+    dev_ms = device_only_ms(torch, partials_call, [()])
+    c = kernel_counts(sass, "lynch_nll_kernel")
+    n_bytes = u * (24 + 1) + n_chunks * 12
+    b_ms, b_by = bound_ms(n_bytes, c["f64"] * u)
+    log(f"# phase 16 (b): B2's partials mode over 4 shards at U={u}: bitwise its plain version (chunk sums, counts, "
+        f"flags); the 4 launches: call {statistics.median(call_t):.4f} ms, device only {dev_ms:.4f} ms, plain torch "
+        f"{statistics.median(plain_t):.4f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {c['f64']} f64 "
+        f"instructions every row executes), {b_ms / dev_ms:.1%} of the bound; on {card}")
+    return {"name": "lynch_compound_nll_partials", "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
+            "replaces": "sid_tpu/parallel/fit.py:29", "launches": None, "max_abs_err": 0.0,
+            "ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shards": 4}
+
+
+def mesh_population_fits(dev, card) -> None:
+    """Phase 16 (c): the cohort's fits over [cuda:0] * k for MESH_POP_SHARDS
+    at phase 12's shape (blocks of ceil(S / k) samples), pooled and
+    independent, every sample's fit bitwise the unsharded fit; the rounds
+    and the walls."""
+    from sid_tpu_torch.models import population as pop
+
+    hists = population_cohort()
+    out = []
+    for mode in ("pooled", "independent"):
+        t0 = time.perf_counter()
+        want = pop.fit_population(hists, mode=mode, device=dev)
+        walls = [time.perf_counter() - t0]
+        for k in MESH_POP_SHARDS:
+            t0 = time.perf_counter()
+            got = pop.fit_population(hists, mode=mode, device=dev, devices=[dev] * k)
+            walls.append(time.perf_counter() - t0)
+            same = got[1] == want[1] and all(
+                bits_equal([a.pi, a.eps], [b.pi, b.eps]) and a.converged == b.converged
+                for a, b in zip(got[0], want[0]))
+            if not same:
+                raise AssertionError(f"population {mode} fits over {k} blocks differ from the unsharded fits")
+        out.append(f"{mode} {walls[0] * 1e3:.1f} ms unsharded, "
+                   + ", ".join(f"{k} blocks {w * 1e3:.1f} ms" for k, w in zip(MESH_POP_SHARDS, walls[1:])))
+    log(f"# phase 16 (c): the {len(hists)} samples' fits over [cuda:0] x k, k = "
+        f"{', '.join(map(str, MESH_POP_SHARDS))}: every sample's (pi, eps) bitwise the unsharded fits; walls "
+        + "; ".join(out) + f"; on {card}")
+
+
+def fold_kernel_checks(torch, dev, card, n_chunks_main: int) -> dict:
+    """Phase 16 (d): lynch_fold_kernel against fold_chunk_sums_ref on the
+    card, bitwise, at FOLD_CHUNKS and at the main path's chunk count; its
+    call, device-only, plain and torch.sum times there, and its bound
+    (n_chunks x 12 B over the memory rate). Returns its kernels-line row."""
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    rng = np.random.default_rng(2029)
+    for n in FOLD_CHUNKS + (n_chunks_main,):
+        ps = torch.from_numpy(rng.standard_normal(n) * 10.0 ** rng.integers(-3, 9, n)).to(dev)
+        pc = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
+        got = lo.lynch_fold(ps, pc).cpu()
+        want = lo.lynch_fold_ref(ps, pc).cpu()
+        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            raise AssertionError(f"the fold kernel differs from its plain version at {n} chunks: {got} vs {want}")
+    log(f"# phase 16 (d): lynch_fold_kernel == fold_chunk_sums_ref on the card, bitwise, at n_chunks "
+        f"{', '.join(map(str, FOLD_CHUNKS + (n_chunks_main,)))}")
+    n = n_chunks_main
+    sets = [(torch.from_numpy(rng.standard_normal(n) * 1e6).to(dev),
+             torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)) for _ in range(INPUT_SETS)]
+    out = torch.empty(2, dtype=torch.float64, device=dev)
+    plain_t = event_times_ms(torch, lo.lynch_fold_ref, sets)
+    call_t = event_times_ms(torch, lo.lynch_fold, sets) + event_times_ms(torch, lo.lynch_fold, sets)
+    plain_t += event_times_ms(torch, lo.lynch_fold_ref, sets)
+    dev_ms = device_only_ms(torch, lambda a, b: lo.lynch_fold(a, b, out), sets)
+    lib_t = event_times_ms(torch, lambda a, b: torch.sum(a), sets)
+    b_ms, b_by = bound_ms(n * 12 + 16, 0)
+    log(f"# phase 16 (d): lynch_fold at {n} chunks (phase 7's U): call {statistics.median(call_t):.4f} ms (median of "
+        f"{len(call_t)}), device only {dev_ms:.4f} ms, plain torch {statistics.median(plain_t):.4f} ms, torch.sum of "
+        f"the chunk sums {statistics.median(lib_t):.4f} ms; bound {b_ms:.6f} ms by {b_by} ({n * 12} B), "
+        f"{b_ms / dev_ms:.2%} of the bound (one block: the launch is the cost); on {card}")
+    return {"name": "lynch_fold", "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
+            "replaces": "sid_tpu/parallel/fit.py:29", "launches": None, "max_abs_err": 0.0,
+            "ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": statistics.median(lib_t), "n_chunks": n}
 
 
 # --lane-variants: design choices of the lane kernels, each a text
@@ -3369,7 +3681,8 @@ def main() -> int:
     one = work.nll(s)
     after = lynch_objective.kernel_launches()
     per_eval = {k: after[k] - before[k] for k in after}
-    if (per_eval != {"records": 0, "nll": 1, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 0}
+    if (per_eval != {"records": 0, "nll": 1, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 0,
+                     "nll_partials": 0, "fold": 0}
             or list(one) != first.tolist()):
         raise AssertionError(f"one evaluation: launches {per_eval}, result {one!r} vs {first!r}")
     log(f"# B2 bitwise repeatable: 10 calls and grids of 1, 7, 1000 and {work.grids[1]} (the resident "
@@ -3642,6 +3955,8 @@ def main() -> int:
     try:
         quality_row = quality_kernel_phase(torch, dev, card, sass)
         quality_row["launches"], qsrc = quality_path_phase(torch, dev, card, workdir, golden_src, real_src)
+        with open(qsrc, "rb") as f:
+            qbytes = f.read()  # phase 16's -m quality input
         stream_phase(card, workdir, qsrc)
         small_prof = unique_profiles(parse_pileup(synth).counts)[0]
         parent = parent_device_lrt(build, args.parent) if args.parent else None
@@ -3652,12 +3967,29 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # ---- 11-12. the cohort's lane kernels, the population path ----
-    lane_rows = population_phases(torch, dev, card, sass)
+    lane_rows, (pop_mesh_launches, pop_mesh_wall) = population_phases(torch, dev, card, sass)
 
     # ---- 14-15. --per-shard-fit, --multihost ----
     scale_out = scale_out_phases(card)
 
-    # ---- 16. results ----
+    # ---- 16. --devices ----
+    t0 = time.perf_counter()
+    mesh_launches = mesh_path_runs(card, synth, qbytes)
+    add_launches(mesh_launches, pop_mesh_launches)
+    del qbytes
+    t1 = time.perf_counter()
+    partials_row = mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult)
+    t2 = time.perf_counter()
+    mesh_population_fits(dev, card)
+    t3 = time.perf_counter()
+    fold_row = fold_kernel_checks(torch, dev, card, -(-h_prof.shape[0] // likelihoods.CHUNK_ROWS))
+    log(f"# phase 16 took {time.perf_counter() - t0 + pop_mesh_wall:.1f} s: (a) {t1 - t0 + pop_mesh_wall:.1f} s "
+        f"({pop_mesh_wall:.1f} s of it the population runs, in phase 12's time), (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
+    log("# kernel launches on the --devices path (phase 16 (a)): "
+        + ", ".join(f"{k} {v}" for k, v in mesh_launches.items() if v))
+
+    # ---- 17. results ----
     kernel_rows = [{
         "name": "local_log_likelihoods",
         "route": "cuda",
@@ -3686,10 +4018,14 @@ def main() -> int:
     for row in lrt_rows:
         row["launches"] = lrt_launches[row["name"]]
     kernel_rows += lrt_rows
+    scale_out["mesh"] = mesh_launches
     for row in kernel_rows:
         for path, launches in scale_out.items():
             if row["name"] in launches:
                 row[f"launches_{path}"] = launches[row["name"]]
+    for row in (partials_row, fold_row):
+        row["launches"] = mesh_launches[row["name"]]
+        kernel_rows.append(row)
     log(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

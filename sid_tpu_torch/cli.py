@@ -4,10 +4,11 @@ Reproduces sid.cpp:11-110 as ``sid_tpu.cli`` does: the same short flags with
 the same defaults and help text (-m method, -r fixed prior, -R estimated
 prior, -p significance level, -E site error cap, -h), the header-only output
 for unrecognized methods, "No file name given!" on missing input, and the
-exit codes. Long options are sid_tpu's; ``--devices``, whose feature is not
-ported yet, exits 1 with "--devices is not yet ported in sid_tpu_torch".
-``--platform`` names the torch device (default cuda); without CUDA the run
-exits 1 unless ``--platform cpu`` was given. ``--multihost`` (or
+exit codes. Long options are sid_tpu's. ``--platform`` names the torch
+device (default cuda); without CUDA the run exits 1 unless ``--platform
+cpu`` was given. ``--devices N`` runs the device work over the first N
+devices of that platform (one CPU device; every card the process sees),
+and exits 1 when N selects none. ``--multihost`` (or
 ``SIDTPU_NUM_PROCESSES`` in the environment) runs this process as one of a
 torch.distributed group.
 """
@@ -22,7 +23,7 @@ from typing import List, Optional
 from sid_tpu_torch import engine
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.utils.checkpoint import StreamProgress
-from sid_tpu_torch.utils.errors import NotPortedError, SidParseError
+from sid_tpu_torch.utils.errors import SidParseError
 from sid_tpu_torch.utils.profiling import StageProfile, activate
 
 # (name-for-help, takes_arg, description) in the reference's map order
@@ -46,7 +47,7 @@ _LONG_OPTIONS = [
     ("fit=", "Lynch fit backend: 'auto' (default), 'device', or 'exact'"),
     ("io=", "Pileup parser backend: 'auto' (default), 'native', 'python'"),
     ("output=", "Output CSV path ('-' = stdout, default)"),
-    ("devices=", "Number of devices for the site axis (not yet ported)"),
+    ("devices=", "Number of mesh devices for the site axis (default: one device, no mesh)"),
     ("per-shard-fit", "Fit the Lynch model per chromosome (reference-script semantics) instead of globally"),
     ("stream", "Two-pass streaming mode: memory bounded by --chunk-mb, identical output"),
     ("chunk-mb=", "Streaming chunk size in MB (default 64)"),
@@ -164,12 +165,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     options, input_path = parse_args(argv)
     options.platform = options.platform or os.environ.get("SIDTPU_PLATFORM")
     try:
-        engine.check_ported(options)
         # the streaming engine's fit and classify, and population mode, run
         # on the device under either engine, as sid_tpu's do
         if options.engine == "device" or options.stream or options.population:
             options.device()
-    except (NotPortedError, RuntimeError) as e:
+            if options.method in engine.METHODS:
+                options.mesh()  # a --devices that selects no device
+    except (RuntimeError, ValueError) as e:
         _fail(str(e))
     if options.population:
         return _main_population(options, input_path)

@@ -10,7 +10,7 @@ means ``cuda``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -37,7 +37,7 @@ class Options:
     # sid_tpu's fused on-device LRT (the device erfc, and for
     # likelihood_ratio the BH correction, on the device)
     exact_pvalues: bool = True
-    # number of devices along the site axis (None = one device)
+    # number of devices along the site axis (None = one device, no mesh)
     mesh_devices: Optional[int] = None
     # fit the Lynch model per chromosome (parallel.pipeline)
     per_shard_fit: bool = False
@@ -75,6 +75,16 @@ class Options:
                 "CUDA is not available; pass --platform cpu to run on the host"
             )
         return device
+
+    def mesh(self) -> Optional[List[torch.device]]:
+        """The run's device mesh (``parallel.mesh``): None without
+        ``--devices``, else ``make_site_mesh(mesh_devices)`` over the
+        devices of the run's platform (raises when it selects none)."""
+        if self.mesh_devices is None:
+            return None
+        from sid_tpu_torch.parallel.mesh import make_site_mesh, platform_devices
+
+        return make_site_mesh(self.mesh_devices, platform_devices(self.device()))
 
     @classmethod
     def from_reference(cls, d: dict) -> "Options":

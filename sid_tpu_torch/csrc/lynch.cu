@@ -72,6 +72,17 @@
 // over a walk of every lane's chunks of kMarginalsChunk rows, each row at
 // its lane's scalars.
 //
+// A sharded fit (--devices; replaces sid_tpu/parallel/fit.py:29
+// fit_lynch_global, B10, whose XLA program all-reduces each shard's sum).
+// The histogram is cut into contiguous shards at multiples of kChunk rows,
+// each shard with its own record on its own device; an evaluation launches
+// lynch_nll_kernel on every shard in its partials-only mode (fold 0), each
+// writing its chunk sums into its place in one buffer on the fold's device
+// (on one card a view, on another card a copy), then lynch_fold_kernel
+// folds them in global chunk order as the last block of a one-device launch
+// would. So the fit's (pi, epsilon) are bitwise the one-device fit's for
+// every shard count; there is one sync an evaluation.
+//
 // What bounds the lane kernels is what bounds B2 and B4: f64 instructions,
 // long chains of dependent multiplies and adds (the exp/log polynomials
 // under --fmad=false) whose latency only more resident warps hide. So they
@@ -118,14 +129,17 @@ static_assert(sizeof(sid::LynchScalars) == 16 * sizeof(double),
 static_assert(sizeof(sid::LaneSlot) == 19 * sizeof(double), "LaneSlot must be 152 bytes");
 
 // kernel launches since the library was loaded: records, objective,
-// marginals, the lanes' objective, the lanes' marginals
+// marginals, the lanes' objective, the lanes' marginals, the objective's
+// partials-only mode, the fold
 enum {
   kRecordsKernel = 0,
   kNllKernel = 1,
   kMarginalsKernel = 2,
   kNllLanesKernel = 3,
   kMarginalsLanesKernel = 4,
-  kKernelCount = 5
+  kNllPartialsKernel = 5,
+  kFoldKernel = 6,
+  kKernelCount = 7
 };
 std::atomic<long long> g_launches[kKernelCount];
 
@@ -170,11 +184,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// B2. With fold 0 (the partials-only mode of a sharded fit) the kernel
+// stops after storing its chunks' sums and counts, and never touches the
+// ticket or out: lynch_fold_kernel folds the chunk sums of every shard.
 __global__ void __launch_bounds__(kThreads, kNllMinBlocks)
     lynch_nll_kernel(const double* __restrict__ rec, sid::LynchScalars s,
                      int64_t n, int64_t n_chunks, uint8_t* __restrict__ flags,
                      double* part_sum, int* part_cnt, unsigned int* ticket,
-                     double* __restrict__ out) {
+                     double* __restrict__ out, int fold) {
   __shared__ double sh_sum[kThreads];
   __shared__ int sh_cnt[kThreads];
   __shared__ bool sh_last;
@@ -188,6 +205,7 @@ __global__ void __launch_bounds__(kThreads, kNllMinBlocks)
       part_cnt[chunk] = cnt;
     }
   }
+  if (!fold) return;
   // thread 0 wrote this block's partials: publish them, then take a ticket
   if (t == 0) {
     __threadfence();
@@ -197,18 +215,36 @@ __global__ void __launch_bounds__(kThreads, kNllMinBlocks)
   if (!sh_last) return;
   // the last block: every partial is visible; read them from L2
   __threadfence();
-  double acc = 0.0;
   int cnt = 0;
-  for (int64_t base = 0; base < n_chunks; base += kThreads) {
-    const int64_t i = base + t;
-    acc = acc + (i < n_chunks ? __ldcg(part_sum + i) : 0.0);
-    cnt = cnt + (i < n_chunks ? __ldcg(part_cnt + i) : 0);
-  }
+  double acc = sid::fold_thread_sum(part_sum, part_cnt, n_chunks, t, &cnt);
   block_fold(acc, cnt, sh_sum, sh_cnt);
   if (t == 0) {
     out[0] = acc;
     out[1] = static_cast<double>(cnt);
     *ticket = 0;  // ready for the next evaluation
+  }
+}
+
+// The fold of a sharded fit (B10, sid_tpu/parallel/fit.py:29
+// fit_lynch_global): one block folds n_chunks chunk sums and flagged counts,
+// every shard's in global chunk order, exactly as lynch_nll_kernel's last
+// block folds one fit's. The shards are cut at multiples of kChunk rows, so
+// shard chunk k is global chunk (first row / kChunk) + k and each chunk sum
+// is the one the single-device kernel stores: out is bitwise B2's for the
+// whole histogram, whatever the shard count. Bound: n_chunks * 12 bytes
+// read (~1,000 chunks at U = 1M), one block; its cost is the launch.
+__global__ void __launch_bounds__(kThreads)
+    lynch_fold_kernel(const double* part_sum, const int* part_cnt, int64_t n_chunks,
+                      double* __restrict__ out) {
+  __shared__ double sh_sum[kThreads];
+  __shared__ int sh_cnt[kThreads];
+  const int t = threadIdx.x;
+  int cnt = 0;
+  double acc = sid::fold_thread_sum(part_sum, part_cnt, n_chunks, t, &cnt);
+  block_fold(acc, cnt, sh_sum, sh_cnt);
+  if (t == 0) {
+    out[0] = acc;
+    out[1] = static_cast<double>(cnt);
   }
 }
 
@@ -372,7 +408,8 @@ int sid_lynch_chunk_rows() { return sid::kChunk; }
 int sid_lynch_record_planes() { return sid::kRecordPlanes; }
 
 // kernel launches since load: 0 records, 1 objective, 2 marginals, 3 the
-// lanes' objective, 4 the lanes' marginals
+// lanes' objective, 4 the lanes' marginals, 5 the objective's partials-only
+// mode, 6 the fold
 long long sid_lynch_launches(int kernel) {
   return kernel >= 0 && kernel < kKernelCount ? g_launches[kernel].load() : -1;
 }
@@ -415,11 +452,44 @@ int sid_lynch_nll_launch(const void* rec, const double* scalars, int64_t n,
       static_cast<const double*>(rec), unpack(scalars), n,
       (n + sid::kChunk - 1) / sid::kChunk, static_cast<uint8_t*>(flags),
       static_cast<double*>(part_sum), static_cast<int*>(part_cnt),
-      static_cast<unsigned int*>(ticket), static_cast<double*>(out));
+      static_cast<unsigned int*>(ticket), static_cast<double*>(out), 1);
   const int err = launched(kNllKernel);
   if (err != 0 || host_out == nullptr) return err;
   cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double),
                                   cudaMemcpyDeviceToHost, st);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
+  return static_cast<int>(e);
+}
+
+// B2's partials-only mode, one shard of a sharded fit: the chunk sums and
+// flagged counts of the shard's n rows into part_sum, part_cnt
+// (ceil(n / chunk) entries each: the shard's place in the fit's buffers),
+// the flags into flags; no fold, no ticket, no result. Returns a cudaError_t.
+int sid_lynch_nll_partials_launch(const void* rec, const double* scalars, int64_t n,
+                                  void* flags, void* part_sum, void* part_cnt, int grid,
+                                  void* stream) {
+  if (n <= 0) return 0;
+  lynch_nll_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(rec), unpack(scalars), n,
+      (n + sid::kChunk - 1) / sid::kChunk, static_cast<uint8_t*>(flags),
+      static_cast<double*>(part_sum), static_cast<int*>(part_cnt), nullptr, nullptr, 0);
+  return launched(kNllPartialsKernel);
+}
+
+// The fold of a sharded fit: part_sum (n_chunks,) f64 and part_cnt
+// (n_chunks,) int32, every shard's chunks in global order, into out (2,)
+// f64 [sum of the unflagged terms, flagged count] on the card. With
+// host_out (pinned, 2 doubles) not null, out is copied there and the stream
+// is waited for. Returns a cudaError_t.
+int sid_lynch_fold_launch(const void* part_sum, const void* part_cnt, int64_t n_chunks, void* out,
+                          double* host_out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lynch_fold_kernel<<<1, kThreads, 0, st>>>(static_cast<const double*>(part_sum),
+                                            static_cast<const int*>(part_cnt), n_chunks,
+                                            static_cast<double*>(out));
+  const int err = launched(kFoldKernel);
+  if (err != 0 || host_out == nullptr) return err;
+  cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double), cudaMemcpyDeviceToHost, st);
   if (e == cudaSuccess) e = cudaStreamSynchronize(st);
   return static_cast<int>(e);
 }
@@ -460,7 +530,8 @@ int sid_lynch_blocks_per_sm(int kernel, int* per_sm) {
   const void* fns[kKernelCount] = {
       reinterpret_cast<const void*>(lynch_records_kernel), reinterpret_cast<const void*>(lynch_nll_kernel),
       reinterpret_cast<const void*>(lynch_marginals_kernel), reinterpret_cast<const void*>(lynch_nll_lanes_kernel),
-      reinterpret_cast<const void*>(lynch_marginals_lanes_kernel)};
+      reinterpret_cast<const void*>(lynch_marginals_lanes_kernel), reinterpret_cast<const void*>(lynch_nll_kernel),
+      reinterpret_cast<const void*>(lynch_fold_kernel)};
   if (kernel < 0 || kernel >= kKernelCount) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fns[kernel], kThreads, 0));
 }

@@ -349,6 +349,28 @@ SID_HD double nll_thread_sum(int64_t chunk, int t, const double* rec, int64_t n,
   return nll_rows_sum(chunk * kChunk, n, t, rec, n, s, flags, n_flagged);
 }
 
+// Thread t's share of the fold of n_chunks chunk sums and flagged counts:
+// chunks t, t + kReduceThreads, ... added in that order from 0.0 (0.0 past
+// the end); the kReduceThreads shares then fold as a tree. On the card the
+// chunk sums are read from L2 (other blocks, or other launches, wrote them).
+SID_HD double fold_thread_sum(const double* part_sum, const int* part_cnt, int64_t n_chunks,
+                              int t, int* n_flagged) {
+  double acc = 0.0;
+  int cnt = 0;
+  for (int64_t base = 0; base < n_chunks; base += kReduceThreads) {
+    const int64_t i = base + t;
+#ifdef __CUDA_ARCH__
+    acc = acc + (i < n_chunks ? __ldcg(part_sum + i) : 0.0);
+    cnt = cnt + (i < n_chunks ? __ldcg(part_cnt + i) : 0);
+#else
+    acc = acc + (i < n_chunks ? part_sum[i] : 0.0);
+    cnt = cnt + (i < n_chunks ? part_cnt[i] : 0);
+#endif
+  }
+  *n_flagged = cnt;
+  return acc;
+}
+
 // ---- lanes: many fits' rows in one record ----
 // A cohort's fits (lanes) keep their rows one after another in one record;
 // lane l holds rows off[l] .. off[l+1]-1. Its objective runs in chunks of

@@ -8,7 +8,8 @@
 // cohort's record and a table of lane slots, launch by launch: the walk of
 // the running lanes' chunks block by block, each lane's chunk sums folded
 // when its last chunk is done, and each row of the marginals at its lane's
-// scalars.
+// scalars. A sharded fit's partials-only objective and its fold run as the
+// card runs them too.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblynch_host.so lynch_host.cpp
@@ -34,6 +35,17 @@ void tree_fold(std::vector<double>& v, std::vector<int>& c) {
       c[t] = c[t] + c[t + s];
     }
   }
+}
+
+// the fold of n_chunks chunk sums as one block does it: the threads'
+// shares (fold_thread_sum), then the tree
+void fold_chunks(const double* part_sum, const int* part_cnt, int64_t n_chunks, double* out) {
+  std::vector<double> v(sid::kReduceThreads);
+  std::vector<int> c(sid::kReduceThreads);
+  for (int t = 0; t < sid::kReduceThreads; ++t) v[t] = sid::fold_thread_sum(part_sum, part_cnt, n_chunks, t, &c[t]);
+  tree_fold(v, c);
+  out[0] = v[0];
+  out[1] = static_cast<double>(c[0]);
 }
 
 }  // namespace
@@ -130,20 +142,31 @@ void sid_lynch_nll_host(const double* rec, int64_t n, const double* scalars,
       part_cnt[static_cast<size_t>(chunk)] = c[0];
     }
   }
-  for (int t = 0; t < sid::kReduceThreads; ++t) {
-    double acc = 0.0;
-    int cnt = 0;
-    for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
-      const int64_t i = base + t;
-      acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(i)] : 0.0);
-      cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(i)] : 0);
-    }
-    v[t] = acc;
-    c[t] = cnt;
+  fold_chunks(part_sum.data(), part_cnt.data(), n_chunks, out);
+}
+
+// The partials-only mode of the objective (a shard of a sharded fit): the
+// chunk sums and flagged counts of n rows into part_sum, part_cnt
+// (ceil(n / chunk) entries), the flags into flags.
+void sid_lynch_nll_partials_host(const double* rec, int64_t n, const double* scalars, uint8_t* flags,
+                                 double* part_sum, int32_t* part_cnt) {
+  const sid::LynchScalars s = unpack(scalars);
+  const int64_t n_chunks = (n + sid::kChunk - 1) / sid::kChunk;
+  std::vector<double> v(sid::kReduceThreads);
+  std::vector<int> c(sid::kReduceThreads);
+  for (int64_t chunk = 0; chunk < n_chunks; ++chunk) {
+    for (int t = 0; t < sid::kReduceThreads; ++t)
+      v[t] = sid::nll_thread_sum(chunk, t, rec, n, s, flags, &c[t]);
+    tree_fold(v, c);
+    part_sum[chunk] = v[0];
+    part_cnt[chunk] = c[0];
   }
-  tree_fold(v, c);
-  out[0] = v[0];
-  out[1] = static_cast<double>(c[0]);
+}
+
+// The fold kernel: n_chunks chunk sums and counts into out[0] (the sum),
+// out[1] (the flagged count).
+void sid_lynch_fold_host(const double* part_sum, const int32_t* part_cnt, int64_t n_chunks, double* out) {
+  fold_chunks(part_sum, part_cnt, n_chunks, out);
 }
 
 // slot_of over the first `count` slots for each of the n walk chunks js

@@ -9,8 +9,9 @@ the same output. ``--per-shard-fit`` calls each chromosome alone
 (``parallel.pipeline``); ``run_streaming`` does not read it, as sid_tpu's
 does not (``ROADMAP.md`` C9). Population mode (many samples) is
 ``models.population`` and ``--multihost`` ``parallel.distributed``, which
-the CLI dispatches to. ``--devices``, which this package does not run yet,
-raises ``NotPortedError`` instead of doing something else.
+the CLI dispatches to. ``--devices`` (``Options.mesh``) runs each method's
+device work over a mesh of devices (``parallel.mesh``, ``parallel.fit``);
+the exact engine does not read it, as sid_tpu's does not.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from sid_tpu_torch.ops.profiles import filter_min_coverage
 from sid_tpu_torch.parallel.pipeline import call_per_shard
 from sid_tpu_torch.utils import checkpoint as ckpt
 from sid_tpu_torch.utils import profiling
-from sid_tpu_torch.utils.errors import NotPortedError
 
 METHODS = ("local", "bayes", "likelihood_ratio", "quality")
 
@@ -54,13 +54,6 @@ _TABLES = {
 }
 
 
-def check_ported(options: Options) -> None:
-    """Raise NotPortedError for an option this package cannot run yet:
-    ``--devices``."""
-    if options.mesh_devices is not None:
-        raise NotPortedError("--devices")
-
-
 def call_batch(
     batch: PileupBatch,
     options: Options,
@@ -69,7 +62,6 @@ def call_batch(
     """Dispatch one parsed batch to the selected method implementation;
     None for an unknown method (header-only output, sid.cpp:92-102).
     ``--per-shard-fit`` calls each chromosome alone (sid_tpu/engine.py:51-54)."""
-    check_ported(options)
     fn = _TABLES[options.engine].get(options.method)
     if fn is None:
         return None
@@ -185,7 +177,6 @@ def run_streaming(
     if not isinstance(src, (str, bytes, os.PathLike)):
         raise TypeError("run_streaming needs a re-readable source (path or bytes)")
     options = options or Options()
-    check_ported(options)
     out = out or sys.stdout
     is_binary = "b" in getattr(out, "mode", "") or isinstance(
         out, (_io.RawIOBase, _io.BufferedIOBase)

@@ -13,7 +13,8 @@ call.cpp:223-234), fitted before the classification.
 Placement: the device takes the counts and returns, per profile, the top-2
 alleles, (l1, l2) and the range screen's flag (``ops.local_classify``: the
 CUDA kernel on a CUDA device, the torch f64 twin on the CPU), and the host
-adds the prior and runs the LRT through glibc libm. With
+adds the prior and runs the LRT through glibc libm; with ``--devices`` each
+device of the mesh classifies one contiguous block of the profiles. With
 ``exact_pvalues=False`` (sid_tpu's fused on-device LRT, ``classify_local``)
 the device also adds the prior and runs both LRTs and is_het (B5, the same
 source's second kernel), and returns (p1, p2) and the byte instead.
@@ -65,18 +66,28 @@ def long_double_range_rows(cov: np.ndarray, error_threshold: float, snp_prior: f
     return (c * common.LN4 > common.LD_LOG_MAX) | (c * k + prior > -common.LD_LOG_MIN)
 
 
-def classify_profiles_local(profiles: np.ndarray, options: Options, snp_prior: float):
-    """Per-class local classification on the options' device; returns the
-    5 host arrays (is_het, major, second, p1, p2) over U. The alleles and
-    the range screen's rows come from the classify kernel's byte; (l1, l2)
-    too, and the host adds the prior and runs the LRT through glibc libm,
-    or, with ``exact_pvalues=False``, B5 returns (p1, p2) and is_het from
-    the device. The screen's rows are classified in long double either way."""
-    device = options.device()
+def classify_profiles_local(profiles: np.ndarray, options: Options, snp_prior: float, mesh=None):
+    """Per-class local classification on the options' device, or over the
+    run's mesh (``--devices``) or ``mesh`` (a list of devices) one
+    contiguous block of rows a device; returns the 5 host arrays (is_het,
+    major, second, p1, p2) over U. The alleles and the range screen's rows
+    come from the classify kernel's byte; (l1, l2) too, and the host adds
+    the prior and runs the LRT through glibc libm, or, with
+    ``exact_pvalues=False``, B5 returns (p1, p2) and is_het from the device.
+    The screen's rows are classified in long double either way, with a mesh
+    too (sid_tpu's mesh classify has no screen: fault C1, ROADMAP.md)."""
+    mesh = options.mesh() if mesh is None else mesh
+    device = options.device() if mesh is None else mesh[0]
     thr, alpha = options.site_error_threshold, options.significance_level
+
+    def classify(alpha=None):
+        if mesh is None:
+            return local_classify.classify_profiles(profiles, thr, snp_prior, device, alpha)
+        return local_classify.classify_profiles_sharded(profiles, thr, snp_prior, mesh, alpha)
+
     if options.exact_pvalues:
         with profiling.device_stage("local_log_likelihoods", device):
-            l1, l2, packed = local_classify.classify_profiles(profiles, thr, snp_prior, device)
+            l1, l2, packed = classify()
         if snp_prior > 0:
             # glibc log, matching the oracle's prior arithmetic
             l1 = l1 + np.log(np.float64(1.0 - snp_prior))
@@ -87,7 +98,7 @@ def classify_profiles_local(profiles: np.ndarray, options: Options, snp_prior: f
             is_het = (l2 > l1) & (p2 < alpha)
     else:
         with profiling.device_stage("classify_local", device):
-            p1, p2, packed = local_classify.classify_profiles(profiles, thr, snp_prior, device, alpha)
+            p1, p2, packed = classify(alpha)
         is_het = local_classify.het_flags(packed)
     major, second, ld_rows = local_classify.unpack(packed)
     rows = np.flatnonzero(ld_rows)

@@ -21,7 +21,8 @@ long-double marginals from libsidtpu, so both fits follow the reference.
 
 ``resolve_fit_backend`` picks between them: "auto" fits on the host up to
 EXACT_FIT_MAX_U unique profiles, where it is cheap and byte-exact by
-construction, and on the device above.
+construction, and on the device above; with ``--devices`` it is always the
+device fit, over the mesh (``parallel.fit.fit_lynch_global``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ from sid_tpu_torch.ops import likelihoods, lynch_objective
 from sid_tpu_torch.ops.lgamma import lgamma_table
 from sid_tpu_torch.ops.profiles import coverage_of, filter_min_coverage, nucleotide_distribution
 from sid_tpu_torch.utils import profiling
-from sid_tpu_torch.utils.errors import NotPortedError
 
 # "auto" fits on the host up to this many unique profiles (sid_tpu's default)
 EXACT_FIT_MAX_U = 500_000
@@ -85,13 +85,25 @@ class DeviceObjective:
         self.work = lynch_objective.LynchWorkspace(self.prof_dev, self.mult_dev, self.tab)
         self.flagged = 0  # most rows the screen flagged in one evaluation
 
+    def _nll(self, scalars) -> Tuple[float, float]:
+        """(sum of the unflagged terms, flagged count) at one theta."""
+        return self.work.nll(scalars)
+
+    def _flagged_rows(self) -> np.ndarray:
+        """The rows the last evaluation's range screen flagged, in order."""
+        return np.nonzero(self.work.flags.cpu().numpy())[0]
+
+    def _marginals_host(self, scalars) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """B4 at one epsilon as host arrays (log L_hom, log L_het, flags)."""
+        return self.work.marginals_host(scalars)
+
     def __call__(self, theta) -> float:
         pi, eps = float(theta[0]), float(theta[1])
         if not (0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0):
             return likelihoods.DBL_MAX
-        total, n_flagged = self.work.nll(likelihoods.lynch_scalars(pi, eps, self.nt))
+        total, n_flagged = self._nll(likelihoods.lynch_scalars(pi, eps, self.nt))
         if n_flagged:
-            rows = np.nonzero(self.work.flags.cpu().numpy())[0]
+            rows = self._flagged_rows()
             self.flagged = max(self.flagged, rows.size)
             ld = bridge.NativeLynchLD(native.load(), self.profiles, self.mult, self.nt, rows)
             total = total - ld.objective((pi, eps))
@@ -104,7 +116,7 @@ class DeviceObjective:
     def marginals(self, eps: float) -> Tuple[np.ndarray, np.ndarray]:
         """(log L_hom, log L_het) f64 at epsilon (B4); the rows the screen
         flags get the log of their long-double marginals."""
-        log_l_hom, log_l_het, flags = self.work.marginals_host(likelihoods.lynch_scalars(0.0, eps, self.nt))
+        log_l_hom, log_l_het, flags = self._marginals_host(likelihoods.lynch_scalars(0.0, eps, self.nt))
         rows = np.nonzero(flags)[0]
         if rows.size:
             ld = bridge.NativeLynchLD(native.load(), self.profiles, self.mult, self.nt, rows)
@@ -158,27 +170,42 @@ class LanesObjective:
         return bridge.NativeLynchLD(native.load(), self.profiles[r], self.mult[r], self.nts[lane], rows)
 
     def __call__(self, lanes: List[int], points: List[np.ndarray]) -> List[float]:
+        return self.enqueue(lanes, points, wait_now=True)()
+
+    def enqueue(self, lanes: List[int], points: List[np.ndarray], wait_now: bool = False):
+        """One round of ``__call__`` in two halves: its launch enqueued (or,
+        with ``wait_now``, waited for as one call), and a callable that
+        waits for it and returns the lanes' values."""
         thetas = [(float(x[0]), float(x[1]) if self.eps is None else self.eps) for x in points]
         values = [likelihoods.DBL_MAX] * len(lanes)
         inside = [k for k, (pi, eps) in enumerate(thetas) if 0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0]
         if not inside:
-            return values
+            return lambda: values
         for k in inside:
             pi, eps = thetas[k]
             self._scalars[lanes[k]] = likelihoods.lynch_scalars(pi, eps, self.nts[lanes[k]])
-        out = self.work.nll_lanes(self._scalars, [lanes[k] for k in inside])
+        running = [lanes[k] for k in inside]
+        if wait_now:
+            out = self.work.nll_lanes(self._scalars, running)
+            fetch = lambda: out  # noqa: E731
+        else:
+            fetch = self.work.enqueue_nll_lanes(self._scalars, running)
         self.rounds += 1
         self.evaluations += len(inside)
-        for k, (total, n_flagged) in zip(inside, out.tolist()):
-            if n_flagged:
-                rows = np.nonzero(self.work.flags[self._rows(lanes[k])].cpu().numpy())[0]
-                total = total - self._ld(lanes[k], rows).objective(thetas[k])
-            if total > likelihoods.DBL_MAX:
-                total = likelihoods.DBL_MAX
-            elif total < -likelihoods.DBL_MAX:
-                total = -likelihoods.DBL_MAX
-            values[k] = -total
-        return values
+
+        def finish() -> List[float]:
+            for k, (total, n_flagged) in zip(inside, fetch().tolist()):
+                if n_flagged:
+                    rows = np.nonzero(self.work.flags[self._rows(lanes[k])].cpu().numpy())[0]
+                    total = total - self._ld(lanes[k], rows).objective(thetas[k])
+                if total > likelihoods.DBL_MAX:
+                    total = likelihoods.DBL_MAX
+                elif total < -likelihoods.DBL_MAX:
+                    total = -likelihoods.DBL_MAX
+                values[k] = -total
+            return values
+
+        return finish
 
     def marginals(self, eps: Sequence[float]) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Per lane (log L_hom, log L_het) f64 at that lane's epsilon, all
@@ -200,6 +227,52 @@ class LanesObjective:
         return out
 
 
+class ShardedLanesObjective:
+    """``LanesObjective`` over a mesh (``--devices`` in population mode,
+    sid_tpu's sample-axis shard_map fits): the cohort's lanes cut into
+    contiguous blocks of ceil(S / n), one a device of the mesh, each its own
+    ``LanesObjective`` on its device (empty blocks bind nothing). A round
+    enqueues every block's running lanes, then waits for each block in
+    turn; a block whose lanes have all stopped launches nothing. Lanes are
+    independent, so each lane's value is bitwise its value unsharded."""
+
+    def __init__(self, histograms: Sequence[Tuple[np.ndarray, np.ndarray]], nts: np.ndarray, mesh,
+                 eps: Optional[float] = None):
+        from sid_tpu_torch.parallel.mesh import shard_bounds
+
+        nts = np.asarray(nts, np.float64).reshape(len(histograms), 4)
+        bounds = shard_bounds(len(histograms), len(mesh)).tolist()
+        # (first lane, end lane, objective) of each block that holds lanes
+        self.blocks = [(a, b, LanesObjective(histograms[a:b], nts[a:b], dev, eps))
+                       for a, b, dev in zip(bounds[:-1], bounds[1:], mesh) if b > a]
+        self.rounds = 0  # rounds in which some block launched
+
+    @property
+    def evaluations(self) -> int:
+        return sum(obj.evaluations for _, _, obj in self.blocks)
+
+    def __call__(self, lanes: List[int], points: List[np.ndarray]) -> List[float]:
+        values: List[float] = [likelihoods.DBL_MAX] * len(lanes)
+        pending = []
+        launched = False
+        for a, b, obj in self.blocks:
+            ks = [k for k, lane in enumerate(lanes) if a <= lane < b]
+            if ks:
+                before = obj.rounds
+                pending.append((ks, obj.enqueue([lanes[k] - a for k in ks], [points[k] for k in ks])))
+                launched |= obj.rounds > before
+        for ks, finish in pending:
+            for k, v in zip(ks, finish()):
+                values[k] = v
+        self.rounds += launched
+        return values
+
+    def marginals(self, eps: Sequence[float]) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Per lane (log L_hom, log L_het) at its epsilon: each block's
+        lanes' marginals on its device, in lane order."""
+        return [m for a, b, obj in self.blocks for m in obj.marginals(list(eps[a:b]))]
+
+
 def fit_lynch(
     profiles: np.ndarray,
     mult: np.ndarray,
@@ -209,7 +282,12 @@ def fit_lynch(
 ) -> Tuple[MinimizeResult, np.ndarray, np.ndarray]:
     """The device fit: nmsimplex2 from (1e-3, 1e-3), step 1e-4, over B2,
     then B4 at the fitted epsilon. Returns (result, log_l_hom, log_l_het)."""
-    objective = DeviceObjective(profiles, mult, nt, device)
+    return fit_objective(DeviceObjective(profiles, mult, nt, device), log)
+
+
+def fit_objective(objective: DeviceObjective, log: Optional[Callable[[str], None]] = None):
+    """nmsimplex2 from (1e-3, 1e-3), step 1e-4, over ``objective``, then
+    its marginals at the fitted epsilon: (result, log_l_hom, log_l_het)."""
     res = minimize_nmsimplex2(objective, DEFAULT_START, DEFAULT_STEP, log=log)
     log_l_hom, log_l_het = objective.marginals(float(res.x[1]))
     return res, log_l_hom, log_l_het
@@ -249,8 +327,11 @@ def fit_profiles(
             log_l_hom = np.log(l_hom).astype(np.float64)
             log_l_het = np.log(l_het).astype(np.float64)
         return pi, eps, log_l_hom, log_l_het, nt
-    if options.mesh_devices is not None:
-        raise NotPortedError("--devices")
+    mesh = options.mesh()
+    if mesh is not None:
+        from sid_tpu_torch.parallel.fit import fit_lynch_global
+
+        return fit_lynch_global(profiles, mult, mesh, diag)
     return fit_on_filtered_profiles(profiles, mult, options.device(), diag)
 
 

@@ -29,8 +29,17 @@ or its fused LRT form B5 with ``exact_pvalues=False``) at the sample's pi;
 ``-m quality`` calls each sample through ``models.quality.call_quality``
 with its pi as the SNP prior.
 
-Not ported: the sample-axis mesh (``mesh_devices``), which raises
-``NotPortedError``.
+With ``--devices`` the cohort's lanes are cut into contiguous blocks of
+ceil(S / n), one a device of the mesh, as sid_tpu's shard_map variants
+shard the sample axis (``_fit_batched_shardmap``,
+``_fit_pi_batched_shardmap``, the sharded marginals and batched classify):
+each block its own lanes' workspace on its device
+(``models.lynch.ShardedLanesObjective``), every block's running lanes
+enqueued each round, no collectives, each lane bitwise its unsharded fit;
+no padding samples are made. The pooled 2-D fit stays on the mesh's first
+device, unsharded, as in sid_tpu. ``-m local`` classifies each sample on
+its block's device, and ``-m quality`` shards each sample's sites over the
+mesh, as sid_tpu's ``call_quality`` does.
 """
 
 from __future__ import annotations
@@ -45,12 +54,12 @@ from sid_tpu_torch.config import Options
 from sid_tpu_torch.exact.nmsimplex import MinimizeResult, minimize_nmsimplex2_lanes
 from sid_tpu_torch.models import common, local
 from sid_tpu_torch.models.common import CallResult
-from sid_tpu_torch.models.lynch import LanesObjective
+from sid_tpu_torch.models.lynch import LanesObjective, ShardedLanesObjective
 from sid_tpu_torch.ops import stats
 from sid_tpu_torch.ops.profiles import filter_min_coverage, nucleotide_distribution, unique_profiles
 from sid_tpu_torch.parallel.distributed import merge_histograms
+from sid_tpu_torch.parallel.mesh import make_site_mesh, platform_devices, shard_bounds
 from sid_tpu_torch.utils import profiling
-from sid_tpu_torch.utils.errors import NotPortedError
 
 # the fits' starts and steps (sid_tpu/models/population.py:77-78,163)
 START = (1e-3, 1e-3)
@@ -77,11 +86,17 @@ def fit_lanes(
     start: Sequence[float],
     step: Sequence[float],
     eps: Optional[float] = None,
+    mesh=None,
 ) -> Tuple[List[MinimizeResult], LanesObjective]:
     """One nmsimplex2 fit per histogram, all in lockstep over the lanes'
-    objective: 2-D fits of (pi, epsilon), or 1-D fits of pi at ``eps``.
-    Returns (per-lane results, the objective with its round counts)."""
-    objective = LanesObjective(histograms, nts, device, eps)
+    objective: 2-D fits of (pi, epsilon), or 1-D fits of pi at ``eps``; on
+    ``device``, or with ``mesh`` (a list of devices) in blocks of lanes one
+    a device. Returns (per-lane results, the objective with its round
+    counts)."""
+    if mesh is None:
+        objective = LanesObjective(histograms, nts, device, eps)
+    else:
+        objective = ShardedLanesObjective(histograms, nts, mesh, eps)
     n = len(histograms)
     return minimize_nmsimplex2_lanes(objective, [start] * n, [step] * n), objective
 
@@ -92,30 +107,38 @@ def fit_population(
     diag=None,
     mesh_devices: Optional[int] = None,
     device=None,
+    devices: Optional[Sequence] = None,
 ) -> Tuple[List[SampleFit], Optional[SampleFit]]:
     """Fit the Lynch model over per-sample (cov>=4-filtered) histograms.
 
     Returns (per-sample fits, pooled fit or None). ``mode`` is "pooled" or
     "independent" (any other value fits independently, as sid_tpu does).
-    ``device`` is the torch device of the objective (default cuda).
-    ``diag`` receives the pooled fit's two lines. The fits run in the device
-    stage ``population_fit`` (sid_tpu times them in no stage).
+    ``device`` is the torch device of the objective (default cuda). With
+    ``mesh_devices`` or ``devices`` the per-sample fits run over the mesh
+    ``make_site_mesh(mesh_devices, devices)`` (default: the devices of
+    ``device``'s type), one block of samples a device; ``devices`` may
+    repeat a device. ``diag`` receives the pooled fit's two lines. The fits
+    run in the device stage ``population_fit`` (sid_tpu times them in no
+    stage).
     """
-    fits, pooled, _ = _fit_population(histograms, mode, diag, mesh_devices, device)
+    device = Options().device() if device is None else torch.device(device)
+    mesh = None
+    if mesh_devices is not None or devices is not None:
+        mesh = make_site_mesh(mesh_devices, platform_devices(device) if devices is None else devices)
+    fits, pooled, _ = _fit_population(histograms, mode, diag, mesh, device)
     return fits, pooled
 
 
-def _fit_population(histograms, mode: str, diag, mesh_devices, device):
-    """``fit_population``, and the per-sample ``LanesObjective`` the fits
-    ran over, whose workspace then serves the cohort's marginals."""
-    if mesh_devices is not None:
-        raise NotPortedError("--devices")
-    device = Options().device() if device is None else torch.device(device)
+def _fit_population(histograms, mode: str, diag, mesh, device):
+    """``fit_population`` over ``mesh`` (None: on ``device``), and the
+    per-sample lanes' objective the fits ran over, whose workspaces then
+    serve the cohort's marginals."""
+    device = torch.device(device) if mesh is None else mesh[0]
     with profiling.device_stage("population_fit", device):
-        return _fit_lanes_of_mode(histograms, mode, diag, device)
+        return _fit_lanes_of_mode(histograms, mode, diag, device, mesh)
 
 
-def _fit_lanes_of_mode(histograms, mode: str, diag, device):
+def _fit_lanes_of_mode(histograms, mode: str, diag, device, mesh):
     nts = _nts(histograms)
     pooled = None
     if mode == "pooled":
@@ -126,10 +149,10 @@ def _fit_lanes_of_mode(histograms, mode: str, diag, device):
         if diag:
             diag(f"# pooled heterozygosity: {pooled.pi:.6e}")
             diag(f"# pooled error: {pooled.eps:.6e}")
-        results, objective = fit_lanes(histograms, nts, device, START_PI, STEP_PI, eps=pooled.eps)
+        results, objective = fit_lanes(histograms, nts, device, START_PI, STEP_PI, eps=pooled.eps, mesh=mesh)
         fits = [SampleFit(float(r.x[0]), pooled.eps, bool(r.converged)) for r in results]
     else:
-        results, objective = fit_lanes(histograms, nts, device, START, STEP)
+        results, objective = fit_lanes(histograms, nts, device, START, STEP, mesh=mesh)
         fits = [SampleFit(float(r.x[0]), float(r.x[1]), bool(r.converged)) for r in results]
     return fits, pooled, objective
 
@@ -167,11 +190,12 @@ def classify_population_profiles(
     filtered = [filter_min_coverage(p, m, 4)[:2] for p, m in per_sample]
     marginals = _population_marginals(filtered, fits, options, objective)
     out = []
-    for (fp, _), fit, (lh, lt) in zip(filtered, fits, marginals):
+    devices = sample_devices(len(filtered), options)
+    for (fp, _), fit, (lh, lt), dev in zip(filtered, fits, marginals, devices):
         if method == "bayes":
             out.append(_bayes_post(fp, lh, lt, fit))
         else:
-            out.append(_lr_post(fp, lh, lt, fit, options))
+            out.append(_lr_post(fp, lh, lt, fit, options, dev))
     if method == "bayes":
         return out, True, "probability"
     return out, True, "p_value"
@@ -186,12 +210,12 @@ def _population_marginals(
     """The cohort's (log L_hom, log L_het) per sample at its fitted
     epsilon: one launch of the lanes' marginals kernel, over ``objective``
     when the fits' lanes are given, else over ``filtered`` bound anew."""
-    if options.mesh_devices is not None:
-        raise NotPortedError("--devices")
-    device = options.device()
+    mesh = options.mesh()
+    device = options.device() if mesh is None else mesh[0]
     with profiling.device_stage("population_marginals", device):
         if objective is None:
-            objective = LanesObjective(filtered, _nts(filtered), device)
+            objective = (LanesObjective(filtered, _nts(filtered), device) if mesh is None
+                         else ShardedLanesObjective(filtered, _nts(filtered), mesh))
         return objective.marginals([f.eps for f in fits])
 
 
@@ -201,17 +225,27 @@ def _classify_local_population(per_sample, fits, options: Options):
     ``exact_pvalues=False``, one launch a sample. sid_tpu moves the whole
     cohort to its f64 batched path when one sample has no profiles or more
     than 1M, and always with ``exact_pvalues=False`` (ROADMAP.md C, ADVICE
-    r5 #2, C6); here every sample takes the path it takes alone."""
-    if options.mesh_devices is not None:
-        raise NotPortedError("--devices")
+    r5 #2, C6); here every sample takes the path it takes alone. With a
+    mesh each sample runs on its block's device (``sample_devices``)."""
     out = []
-    for (p, _), fit in zip(per_sample, fits):
+    for (p, _), fit, dev in zip(per_sample, fits, sample_devices(len(per_sample), options)):
         if p.shape[0] == 0:
             empty = np.zeros(0, np.int32)
             out.append((np.zeros(0, bool), empty, empty, np.zeros(0), np.zeros(0)))
         else:
-            out.append(local.classify_profiles_local(p, options, fit.pi))
+            out.append(local.classify_profiles_local(p, options, fit.pi, None if dev is None else [dev]))
     return out
+
+
+def sample_devices(n_samples: int, options: Options) -> list:
+    """Each sample's device under the run's mesh: the device of its block
+    of ceil(S / n) samples (the fits' blocks); None for every sample
+    without a mesh."""
+    mesh = options.mesh()
+    if mesh is None:
+        return [None] * n_samples
+    bounds = shard_bounds(n_samples, len(mesh))
+    return [mesh[int(np.searchsorted(bounds, i, side="right")) - 1] for i in range(n_samples)]
 
 
 def call_population(
@@ -234,7 +268,7 @@ def call_population(
         fp, fm, _ = filter_min_coverage(p, m, 4)
         histograms.append((fp, fm))
 
-    fits, _, objective = _fit_population(histograms, mode, diag, options.mesh_devices, options.device())
+    fits, _, objective = _fit_population(histograms, mode, diag, options.mesh(), options.device())
 
     results = []
     if options.method == "quality":
@@ -279,7 +313,7 @@ def call_population_streaming(
         profiles, mult, _ = accumulate_histogram(p, chunk_bytes, options.io_backend)
         full_hists.append((profiles, mult))
     filtered_hists = [filter_min_coverage(p, m, 4)[:2] for p, m in full_hists]
-    fits, _, objective = _fit_population(filtered_hists, mode, diag, options.mesh_devices, options.device())
+    fits, _, objective = _fit_population(filtered_hists, mode, diag, options.mesh(), options.device())
 
     needs_reads = options.method == "quality"
     if not needs_reads:
@@ -324,12 +358,13 @@ def _classify_lr_fixed(profiles, mult, fit: SampleFit, options: Options):
     return _lr_post(profiles, log_l_hom, log_l_het, fit, options)
 
 
-def _lr_post(profiles, log_l_hom, log_l_het, fit: SampleFit, options: Options):
+def _lr_post(profiles, log_l_hom, log_l_het, fit: SampleFit, options: Options, device=None):
     """The LR classification after the marginals: prior, LRT, per-sample BH,
-    on the host, or on the options' device with ``exact_pvalues=False``."""
+    on the host, or with ``exact_pvalues=False`` on ``device`` (default the
+    options' device)."""
     if not options.exact_pvalues:
         log_priors = stats.prior_logs(fit.pi) if options.estimate_prior and fit.pi > 0 else None
-        device = options.device()
+        device = options.device() if device is None else device
         with profiling.device_stage("population_lrt", device):
             is_het, adj_p1, adj_p2 = stats.lrt_benjamini_hochberg(
                 log_l_hom, log_l_het, log_priors, options.significance_level, device

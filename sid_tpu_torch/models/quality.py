@@ -20,7 +20,10 @@ independent host path the device path is held against: libsidtpu's fused
 ``sidtpu_quality_finalize``, bitwise the same composition. With
 ``exact_pvalues=False`` (sid_tpu's fused on-device LRT, ``finalize_quality``)
 the device runs the whole finalize (``quality_finalize.finalize_lrt``: the
-same kernel source's full form, with both LRTs through the device erfc).
+same kernel source's full form, with both LRTs through the device erfc). With
+``--devices`` either form runs over the mesh, one contiguous block of sites
+a device (sid_tpu's site-sharded finalize); like sid_tpu's, a mesh run
+never takes the fused host finalize.
 """
 
 from __future__ import annotations
@@ -90,11 +93,15 @@ def finalize_quality_np(counts, major, second, log_hom, log_het, snp_prior: floa
     return log_pp1, log_pp2
 
 
-def finalize_logs(counts, major, second, log_hom, log_het, snp_prior: float, device):
+def finalize_logs(counts, major, second, log_hom, log_het, snp_prior: float, device, mesh=None):
     """(lpp1, lpp2): the het side on ``device`` (``ops.quality_finalize``),
-    the hom side's clamp and prior on the host."""
+    or over ``mesh`` one contiguous block of sites a device, the hom side's
+    clamp and prior on the host."""
     with profiling.device_stage("finalize_quality_het", device):
-        lpp2 = quality_finalize.finalize_het(counts, major, second, log_het, snp_prior, device)
+        if mesh is None:
+            lpp2 = quality_finalize.finalize_het(counts, major, second, log_het, snp_prior, device)
+        else:
+            lpp2 = quality_finalize.finalize_het_sharded(counts, major, second, log_het, snp_prior, mesh)
     lpp1 = common.clamp_ld_underflow_np(log_hom)
     if snp_prior > 0:
         lpp1 = lpp1 + np.log(np.float64(1.0 - snp_prior))
@@ -145,17 +152,17 @@ def call_quality(batch, options: Options, diag=None) -> common.CallResult:
     """End-to-end ``quality`` call on a parsed batch (device path); ``diag``
     gets -R's fit diagnostics."""
     snp_prior, major, second, log_hom, log_het = _terms(batch, options, diag)
+    mesh = options.mesh()
+    device = options.device() if mesh is None else mesh[0]
     if not options.exact_pvalues:
-        device = options.device()
+        args = (batch.counts, major, second, log_hom, log_het, snp_prior, options.significance_level)
         with profiling.device_stage("finalize_quality", device):
-            is_het, p1, p2 = quality_finalize.finalize_lrt(
-                batch.counts, major, second, log_hom, log_het, snp_prior,
-                options.significance_level, device,
-            )
+            if mesh is None:
+                is_het, p1, p2 = quality_finalize.finalize_lrt(*args, device)
+            else:
+                is_het, p1, p2 = quality_finalize.finalize_lrt_sharded(*args, mesh)
         return _result(batch, major, second, is_het, p1, p2)
-    lpp1, lpp2 = finalize_logs(
-        batch.counts, major, second, log_hom, log_het, snp_prior, options.device()
-    )
+    lpp1, lpp2 = finalize_logs(batch.counts, major, second, log_hom, log_het, snp_prior, device, mesh)
     p1 = stats.lrt_pvalue_from_logs_np(lpp2, lpp1)
     p2 = stats.lrt_pvalue_from_logs_np(lpp1, lpp2)
     with np.errstate(invalid="ignore"):

@@ -252,6 +252,38 @@ def fixed_order_sum(terms: torch.Tensor) -> torch.Tensor:
     return fixed_order_sums(terms, [terms.shape[0]])[0]
 
 
+def chunk_sums_ref(terms: torch.Tensor) -> torch.Tensor:
+    """The first half of ``fixed_order_sum``: the (ceil(U / CHUNK_ROWS),)
+    chunk sums of a (U,) f64 tensor, each in its chunk's fixed order, what
+    B2 stores per chunk (in its partials-only mode, a shard's). A shard cut
+    at a multiple of CHUNK_ROWS has the whole tensor's chunk sums of its
+    rows."""
+    n_chunks = -(-terms.shape[0] // CHUNK_ROWS)
+    x = torch.zeros(n_chunks * CHUNK_ROWS, dtype=torch.float64, device=terms.device)
+    x[: terms.shape[0]] = terms
+    x = x.view(n_chunks, ROWS_PER_THREAD, REDUCE_THREADS)
+    acc = torch.zeros((n_chunks, REDUCE_THREADS), dtype=torch.float64, device=terms.device)
+    for k in range(ROWS_PER_THREAD):
+        acc = acc + x[:, k, :]
+    return _tree_fold(acc)
+
+
+def fold_chunk_sums_ref(chunk_sums: torch.Tensor) -> torch.Tensor:
+    """The second half of ``fixed_order_sum`` and the plain version of the
+    fold kernel (csrc/lynch.cu ``lynch_fold_kernel``): thread t adds chunk
+    sums t, t + REDUCE_THREADS, ... from 0.0, the threads fold as a tree.
+    ``fold_chunk_sums_ref(chunk_sums_ref(terms))`` is bitwise
+    ``fixed_order_sum(terms)``. Returns a 0-d tensor."""
+    rounds = -(-chunk_sums.shape[0] // REDUCE_THREADS)
+    y = torch.zeros(rounds * REDUCE_THREADS, dtype=torch.float64, device=chunk_sums.device)
+    y[: chunk_sums.shape[0]] = chunk_sums
+    y = y.view(rounds, REDUCE_THREADS)
+    acc = torch.zeros((1, REDUCE_THREADS), dtype=torch.float64, device=chunk_sums.device)
+    for r in range(rounds):
+        acc = acc + y[r]
+    return _tree_fold(acc)[0]
+
+
 def lane_chunks(rows, chunk_rows: int = CHUNK_ROWS) -> np.ndarray:
     """The objective chunks of lanes of ``rows`` rows each (csrc/lynch.cuh
     lane_chunks), or chunks of ``chunk_rows``: ceil(rows / chunk_rows), and

@@ -26,7 +26,8 @@ the same row, then the prior, both LRT p-values and is_het. It returns
 ``(p1, p2, packed)`` with is_het in bit 5 of the byte; on a card it launches
 ``local_classify_lrt_kernel`` of the same source, on the CPU it runs
 ``local_classify_lrt_ref``. ``classify_profiles(..., alpha=...)`` is its
-device stage, with the same copies.
+device stage, with the same copies. ``classify_profiles_sharded`` runs
+either over a mesh (``--devices``), one contiguous block of rows a device.
 
 ``LAUNCHES`` and ``LRT_LAUNCHES`` count launches of the two kernels (not
 plain-version calls), so a run can show that it went through them.
@@ -345,7 +346,29 @@ def classify_profiles(
     the 17 bytes a row into pinned memory, one stream sync. On the CPU the
     same narrowing, then the plain version.
     """
-    device = torch.device(device)
+    return _enqueue_classify(profiles, error_threshold, snp_prior, torch.device(device), alpha)()
+
+
+def classify_profiles_sharded(
+    profiles: np.ndarray, error_threshold: float, snp_prior: float, mesh,
+    alpha: Optional[float] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``classify_profiles`` over a mesh (``--devices``, sid_tpu's
+    row-sharded classify): the rows cut into contiguous shards, one a
+    device of ``mesh``, each shard's copies and kernel enqueued on its
+    device before any is waited for, the results concatenated in row
+    order. The kernel is elementwise, so the bits are ``classify_profiles``'s."""
+    from sid_tpu_torch.parallel.mesh import run_sharded
+
+    return run_sharded(np.shape(profiles)[0], mesh, lambda a, b, dev: _enqueue_classify(
+        profiles[a:b], error_threshold, snp_prior, dev, alpha))
+
+
+def _enqueue_classify(profiles, error_threshold: float, snp_prior: float, device: torch.device,
+                      alpha: Optional[float]):
+    """Start ``classify_profiles`` on ``device`` (on a card: the copy in,
+    the kernel and the copy out, enqueued) and return the callable that
+    waits for it and returns the host arrays."""
     u = np.shape(profiles)[0]
     if device.type != "cuda":
         counts, hi = narrow_counts(profiles)
@@ -354,7 +377,7 @@ def classify_profiles(
             out = local_classify(torch.from_numpy(counts), error_threshold, snp_prior, tab)
         else:
             out = local_classify_lrt(torch.from_numpy(counts), error_threshold, snp_prior, alpha, tab)
-        return tuple(t.numpy() for t in out)
+        return lambda: tuple(t.numpy() for t in out)
     host_in = torch.empty((u, 4), dtype=torch.int16, pin_memory=True)
     _, hi = narrow_counts(profiles, host_in.numpy().view(np.uint16))
     with torch.cuda.device(device):
@@ -366,5 +389,9 @@ def classify_profiles(
         _launch(counts, error_threshold, snp_prior, tab, buf, alpha)
         host_out = torch.empty(BYTES_PER_ROW * u, dtype=torch.uint8, pin_memory=True)
         host_out.copy_(buf, non_blocking=True)
+
+    def wait():
         stream.synchronize()
-    return tuple(t.numpy() for t in split(host_out, u))
+        return tuple(t.numpy() for t in split(host_out, u))
+
+    return wait

@@ -38,10 +38,18 @@ constant bank, and a cohort of more lanes than one launch takes
 every lane's rows at once, each at its lane's scalars, and give each lane
 the bits of the single-lane plain versions.
 
+A sharded fit (``parallel/fit.py``, sid_tpu's ``fit_lynch_global``) runs
+B2 per shard in its partials-only mode (``LynchWorkspace.launch_partials``:
+the shard's chunk sums and flagged counts into its place in one buffer,
+no fold) and folds every shard's chunk sums in global chunk order with the
+fold kernel (``lynch_fold``), as B2's last block folds one fit's; the plain
+versions are ``lynch_nll_partials_ref`` and ``lynch_fold_ref``.
+
 ``RECORD_LAUNCHES``, ``NLL_LAUNCHES``, ``MARGINALS_LAUNCHES``,
-``NLL_LANES_LAUNCHES`` and ``MARGINALS_LANES_LAUNCHES`` count kernel
-launches (not plain-version calls), so a run can show that it went through
-the kernels; the kernel library keeps its own count (``kernel_launches``).
+``NLL_LANES_LAUNCHES``, ``MARGINALS_LANES_LAUNCHES``,
+``NLL_PARTIALS_LAUNCHES`` and ``FOLD_LAUNCHES`` count kernel launches (not
+plain-version calls), so a run can show that it went through the kernels;
+the kernel library keeps its own count (``kernel_launches``).
 """
 
 from __future__ import annotations
@@ -63,13 +71,15 @@ NLL_LAUNCHES = 0
 MARGINALS_LAUNCHES = 0
 NLL_LANES_LAUNCHES = 0
 MARGINALS_LANES_LAUNCHES = 0
+NLL_PARTIALS_LAUNCHES = 0
+FOLD_LAUNCHES = 0
 
 # counts arrive as uint16; the record packs them so
 MAX_COUNT = 65535
 # the record: m, the signed multiplicity, the packed counts (csrc/lynch.cuh)
 RECORD_PLANES = 3
 # the kernel library's launch counters (csrc/lynch.cu)
-KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes")
+KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes", "nll_partials", "fold")
 # one running lane of a launch of a lane kernel (csrc/lynch.cuh LaneSlot):
 # its scalars, its rows, the end of its chunks in the launch's walk
 LANE_SLOT = np.dtype([("s", "<f8", (16,)), ("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8")])
@@ -108,6 +118,28 @@ def lynch_compound_nll_ref(
     total = likelihoods.fixed_order_sum(terms)
     out = torch.stack([total, flags.sum().to(torch.float64)])
     return out, flags.to(torch.uint8)
+
+
+def lynch_nll_partials_ref(
+    profiles: torch.Tensor, mult: torch.Tensor, scalars: np.ndarray, lgamma_tab: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch f64 version of B2's partials-only mode: the
+    (ceil(U / CHUNK_ROWS),) chunk sums of the unflagged terms (f64) and
+    flagged counts (int32), and the (U,) uint8 flags."""
+    rows = likelihoods.lynch_rows(profiles, likelihoods.row_scalars(scalars, profiles), lgamma_tab)
+    flags = rows.flag_mixture
+    terms = torch.where(flags, 0.0, likelihoods.lynch_terms(rows.log_mix, mult))
+    n_chunks = -(-profiles.shape[0] // likelihoods.CHUNK_ROWS)
+    cnt = torch.zeros(n_chunks * likelihoods.CHUNK_ROWS, dtype=torch.int32, device=profiles.device)
+    cnt[: profiles.shape[0]] = flags.to(torch.int32)
+    counts = cnt.view(n_chunks, likelihoods.CHUNK_ROWS).sum(1, dtype=torch.int32)
+    return likelihoods.chunk_sums_ref(terms), counts, flags.to(torch.uint8)
+
+
+def lynch_fold_ref(part_sum: torch.Tensor, part_cnt: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the fold kernel: [the chunk sums folded in the
+    kernel's order, the flagged counts summed] as a (2,) f64 tensor."""
+    return torch.stack([likelihoods.fold_chunk_sums_ref(part_sum), part_cnt.sum().to(torch.float64)])
 
 
 def lynch_marginals_ref(
@@ -228,6 +260,8 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
         ("sid_lynch_lanes_grids", [i64, i64, p]),
         ("sid_lynch_nll_lanes_launch", [p, i64, p, i32, i32, p, p, p, p, p, i32, p, p]),
         ("sid_lynch_marginals_lanes_launch", [p, i64, p, i32, i32, p, p, p, i32, p]),
+        ("sid_lynch_nll_partials_launch", [p, p, i64, p, p, p, i32, p]),
+        ("sid_lynch_fold_launch", [p, p, i64, p, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -269,7 +303,7 @@ def blocks_per_sm(device) -> dict:
 def kernel_launches() -> dict:
     """The kernel library's own launch counts since it was loaded, by
     kernel: {"records": n, "nll": n, "marginals": n, "nll_lanes": n,
-    "marginals_lanes": n}."""
+    "marginals_lanes": n, "nll_partials": n, "fold": n}."""
     lib = _kernel_lib()
     return {name: lib.sid_lynch_launches(k) for k, name in enumerate(KERNELS)}
 
@@ -384,6 +418,33 @@ class LynchWorkspace:
         self._launch_nll(scalars, None, self.host_out.data_ptr())
         return float(self._host_view[0]), float(self._host_view[1])
 
+    def launch_partials(self, scalars, part_sum: torch.Tensor, part_cnt: torch.Tensor) -> None:
+        """B2's partials-only mode at one theta (one shard of a sharded
+        fit), enqueued: the chunk sums of the unflagged terms into part_sum
+        (f64) and the flagged counts into part_cnt (int32), ceil(U /
+        CHUNK_ROWS) entries each on the workspace's device, the rows' flags
+        into ``flags``; no fold. On the CPU the plain version."""
+        global NLL_PARTIALS_LAUNCHES
+        _check_scalars(scalars)
+        n_chunks = -(-self.u // likelihoods.CHUNK_ROWS)
+        for name, t, dtype in (("part_sum", part_sum, torch.float64), ("part_cnt", part_cnt, torch.int32)):
+            if t.shape != (n_chunks,) or t.dtype != dtype or t.device != self.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be ({n_chunks},) contiguous {dtype} on {self.device}")
+        if self.device.type == "cpu":
+            sums, cnts, self.flags = lynch_nll_partials_ref(self.profiles, self.mult, scalars, self.lgamma_tab)
+            part_sum.copy_(sums)
+            part_cnt.copy_(cnts)
+            return
+        if not self.u:
+            return
+        self._scalars[:] = scalars
+        with torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_nll_partials_launch(
+                self.records.data_ptr(), self._scalars.ctypes.data, self.u, self.flags.data_ptr(),
+                part_sum.data_ptr(), part_cnt.data_ptr(), self.grids[1], self.stream.cuda_stream)
+        _raise_on(self._lib, err, "Lynch partials")
+        NLL_PARTIALS_LAUNCHES += 1
+
     def _marginals(self, scalars) -> torch.Tensor:
         """Launch B4 at one epsilon; its results in one (17 U,) uint8 device
         buffer (``_split``)."""
@@ -429,6 +490,40 @@ class LynchWorkspace:
 def _split(buf: torch.Tensor, u: int):
     """(log L_hom, log L_het, flags) as views of a (17 U,) uint8 buffer."""
     return buf[: 8 * u].view(torch.float64), buf[8 * u : 16 * u].view(torch.float64), buf[16 * u :]
+
+
+def lynch_fold(part_sum: torch.Tensor, part_cnt: torch.Tensor, out: Optional[torch.Tensor] = None,
+               host_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fold of a sharded fit: (2,) f64 [the chunk sums part_sum (C,)
+    f64 folded in B2's order, the flagged counts part_cnt (C,) int32
+    summed], on their device: the fold kernel on a CUDA device, enqueued on
+    the current stream, into ``out`` when given (made here otherwise); with
+    ``host_out`` (pinned, 2 f64) also copied there and the stream waited
+    for. On the CPU the plain version."""
+    global FOLD_LAUNCHES
+    for name, t, dtype in (("part_sum", part_sum, torch.float64), ("part_cnt", part_cnt, torch.int32)):
+        if t.dim() != 1 or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
+    if part_cnt.shape != part_sum.shape or part_cnt.device != part_sum.device:
+        raise ValueError("part_sum and part_cnt must have one shape and one device")
+    device = part_sum.device
+    if device.type == "cpu":
+        res = lynch_fold_ref(part_sum, part_cnt)
+        if host_out is not None:
+            host_out.copy_(res)
+        return res
+    if device.type != "cuda":
+        raise ValueError(f"no Lynch fold kernel for device {device}")
+    if out is None:
+        out = torch.empty(2, dtype=torch.float64, device=device)
+    lib = _kernel_lib()
+    with torch.cuda.device(device):
+        err = lib.sid_lynch_fold_launch(
+            part_sum.data_ptr(), part_cnt.data_ptr(), part_sum.shape[0], out.data_ptr(),
+            None if host_out is None else host_out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "Lynch fold")
+    FOLD_LAUNCHES += 1
+    return out
 
 
 def lynch_compound_nll(
@@ -657,11 +752,40 @@ class LynchLanesWorkspace:
                 self.profiles, self.mult, self.offsets, scalars, self.lgamma_tab, lanes)
             return out.numpy()
         a = len(lanes)
+        self._fill_nll(scalars, lanes)
+        self._launch_nll(a, 1, grid, self.host_out.data_ptr())
+        return self._host_view[:a].copy()
+
+    def enqueue_nll_lanes(self, scalars, lanes):
+        """``nll_lanes`` in two halves, for several workspaces at once (a
+        cohort over a mesh): enqueue the round and return at once, with a
+        callable that waits for it and returns the (len(lanes), 2) array.
+        On a card the launch, then a copy of the results into pinned
+        memory; the callable syncs the stream. On the CPU the plain
+        version, run here."""
+        if self.device.type == "cpu":
+            out = self.nll_lanes(scalars, lanes)
+            return lambda: out
+        scalars = self._check_scalars(scalars)
+        lanes = _check_lanes(lanes, self.lanes)
+        a = len(lanes)
+        self._fill_nll(scalars, lanes)
+        self._launch_nll(a, 1, None, None)
+        with torch.cuda.stream(self.stream):
+            self.host_out[:a].copy_(self.out[:a], non_blocking=True)
+
+        def wait():
+            self.stream.synchronize()
+            return self._host_view[:a].copy()
+
+        return wait
+
+    def _fill_nll(self, scalars: np.ndarray, lanes: list) -> None:
+        """The objective's table of ``lanes`` into its pinned buffer, once
+        the last launch has read it."""
         self._read["nll"].synchronize()
         fill_lane_slots(self._nll_slots, self.offsets, self._chunks, scalars, lanes, self.per_launch)
-        self._launch_nll(a, 1, grid, self.host_out.data_ptr())
-        self._nll_count = a
-        return self._host_view[:a].copy()
+        self._nll_count = len(lanes)
 
     def launch_nll_lanes(self, grid: Optional[int] = None) -> None:
         """Enqueue the lanes' objective again on the table of the last

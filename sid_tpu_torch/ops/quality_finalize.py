@@ -28,6 +28,9 @@ the CPU it runs ``quality_finalize_lrt_ref``. ``finalize_lrt`` is its
 device stage: 25 B a site in one copy, 17 B a site and the miss count back
 in one copy.
 
+``finalize_het_sharded`` and ``finalize_lrt_sharded`` run either stage
+over a mesh (``--devices``), one contiguous block of sites a device.
+
 ``LAUNCHES`` and ``LRT_LAUNCHES`` count launches of the two kernels (not
 plain-version calls), so a run can show that it went through them.
 """
@@ -310,20 +313,42 @@ def finalize_het(
     ``MAX_TOP2``. On a card: one pinned buffer of 17 B a site, one async
     copy in, the kernel, one copy of lpp2 and the miss count into pinned
     memory, one stream sync. On the CPU the plain version."""
-    device = torch.device(device)
-    n = int(np.shape(counts)[0])
-    if n == 0:
-        return np.zeros(0, np.float64)
+    return _enqueue_het(counts, major, second, log_het, snp_prior, torch.device(device))()[0]
+
+
+def finalize_het_sharded(counts, major, second, log_het, snp_prior: float, mesh) -> np.ndarray:
+    """``finalize_het`` over a mesh (``--devices``, sid_tpu's site-sharded
+    finalize): contiguous blocks of sites, one a device of ``mesh``, all
+    enqueued before any is waited for, lpp2 concatenated in site order;
+    bitwise ``finalize_het`` (the kernel is elementwise)."""
+    from sid_tpu_torch.parallel.mesh import run_sharded
+
+    return run_sharded(int(np.shape(counts)[0]), mesh, lambda a, b, dev: _enqueue_het(
+        counts[a:b], major[a:b], second[a:b], log_het[a:b], snp_prior, dev))[0]
+
+
+def _check_counts(counts) -> np.ndarray:
     counts = np.asarray(counts)
     if counts.dtype != np.uint16:
         raise TypeError(f"counts must be uint16, got {counts.dtype}")
+    return counts
+
+
+def _enqueue_het(counts, major, second, log_het, snp_prior: float, device: torch.device):
+    """Start ``finalize_het`` on ``device`` and return the callable that
+    waits for it and returns (lpp2,)."""
+    n = int(np.shape(counts)[0])
+    if n == 0:
+        return lambda: (np.zeros(0, np.float64),)
+    counts = _check_counts(counts)
     if device.type != "cuda":
         tab = lgamma_table(MAX_TOP2, device)
-        return quality_finalize(
+        out = quality_finalize(
             torch.from_numpy(np.ascontiguousarray(counts)),
             torch.from_numpy(pack_alleles(major, second)),
             torch.from_numpy(np.ascontiguousarray(log_het, np.float64)), tab, snp_prior,
         ).numpy()
+        return lambda: (out,)
     host_in = torch.empty(BYTES_IN_PER_SITE * n, dtype=torch.uint8, pin_memory=True)
     view = host_in.numpy()
     np.copyto(view[: 8 * n].view(np.uint16).reshape(n, 4), counts)
@@ -342,10 +367,14 @@ def finalize_het(
         )
         host_out = torch.empty(8 * n + 8, dtype=torch.uint8, pin_memory=True)
         host_out.copy_(dev_out, non_blocking=True)
+
+    def wait():
         stream.synchronize()
-    out = host_out.numpy()
-    _raise_on_misses(int(out[8 * n : 8 * n + 4].view(np.int32)[0]), tab.shape[0])
-    return out[: 8 * n].view(np.float64)
+        out = host_out.numpy()
+        _raise_on_misses(int(out[8 * n : 8 * n + 4].view(np.int32)[0]), tab.shape[0])
+        return (out[: 8 * n].view(np.float64),)
+
+    return wait
 
 
 def quality_finalize_lrt(
@@ -392,13 +421,25 @@ def finalize_lrt(
     of 25 B a site, one async copy in, the kernel, one copy of the 17 B a
     site and the miss count into pinned memory, one stream sync. On the CPU
     the plain version."""
-    device = torch.device(device)
+    return _enqueue_lrt(counts, major, second, log_hom, log_het, snp_prior, alpha, torch.device(device))()
+
+
+def finalize_lrt_sharded(counts, major, second, log_hom, log_het, snp_prior: float, alpha: float, mesh):
+    """``finalize_lrt`` over a mesh, as ``finalize_het_sharded``: (is_het,
+    p1, p2) concatenated in site order."""
+    from sid_tpu_torch.parallel.mesh import run_sharded
+
+    return run_sharded(int(np.shape(counts)[0]), mesh, lambda a, b, dev: _enqueue_lrt(
+        counts[a:b], major[a:b], second[a:b], log_hom[a:b], log_het[a:b], snp_prior, alpha, dev))
+
+
+def _enqueue_lrt(counts, major, second, log_hom, log_het, snp_prior: float, alpha: float, device: torch.device):
+    """Start ``finalize_lrt`` on ``device`` and return the callable that
+    waits for it and returns (is_het, p1, p2)."""
     n = int(np.shape(counts)[0])
     if n == 0:
-        return np.zeros(0, bool), np.zeros(0, np.float64), np.zeros(0, np.float64)
-    counts = np.asarray(counts)
-    if counts.dtype != np.uint16:
-        raise TypeError(f"counts must be uint16, got {counts.dtype}")
+        return lambda: (np.zeros(0, bool), np.zeros(0, np.float64), np.zeros(0, np.float64))
+    counts = _check_counts(counts)
     if device.type != "cuda":
         p1, p2, het = quality_finalize_lrt(
             torch.from_numpy(np.ascontiguousarray(counts)),
@@ -407,7 +448,7 @@ def finalize_lrt(
             torch.from_numpy(np.ascontiguousarray(log_hom, np.float64)),
             lgamma_table(MAX_TOP2, device), snp_prior, alpha,
         )
-        return het.numpy().astype(bool), p1.numpy(), p2.numpy()
+        return lambda: (het.numpy().astype(bool), p1.numpy(), p2.numpy())
     host_in = torch.empty(LRT_BYTES_IN_PER_SITE * n, dtype=torch.uint8, pin_memory=True)
     view = host_in.numpy()
     np.copyto(view[: 8 * n].view(np.uint16).reshape(n, 4), counts)
@@ -429,7 +470,11 @@ def finalize_lrt(
         )
         host_out = torch.empty(at + 8, dtype=torch.uint8, pin_memory=True)
         host_out.copy_(dev_out, non_blocking=True)
+
+    def wait():
         stream.synchronize()
-    out = host_out.numpy()
-    _raise_on_misses(int(out[at : at + 4].view(np.int32)[0]), tab.shape[0])
-    return out[16 * n : out_len].astype(bool), out[: 8 * n].view(np.float64), out[8 * n : 16 * n].view(np.float64)
+        out = host_out.numpy()
+        _raise_on_misses(int(out[at : at + 4].view(np.int32)[0]), tab.shape[0])
+        return out[16 * n : out_len].astype(bool), out[: 8 * n].view(np.float64), out[8 * n : 16 * n].view(np.float64)
+
+    return wait

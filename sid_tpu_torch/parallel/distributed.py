@@ -185,7 +185,6 @@ def run_multihost(
     whose part and ``.done`` marker (holding the fingerprint and the
     range's end) exist is not called again.
     """
-    engine.check_ported(options)
     pid = process_index()
     nproc = process_count()
     ranges = byte_ranges(path, nproc * ranges_per_process)

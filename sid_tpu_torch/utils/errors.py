@@ -1,4 +1,4 @@
-"""Parse-error channel, and the error for features not yet ported.
+"""Parse-error channel.
 
 The reference throws ``std::invalid_argument("Malformed pileup line")`` and
 terminates on the first bad line (pileup.cpp:22,28,34,40 — never caught).
@@ -21,14 +21,6 @@ class SidParseError(ValueError):
     def __init__(self, message: str, line_number: int = -1):
         super().__init__(message)
         self.line_number = line_number
-
-
-class NotPortedError(NotImplementedError):
-    """A method or option of sid_tpu that this package does not run yet."""
-
-    def __init__(self, feature: str):
-        super().__init__(f"{feature} is not yet ported in sid_tpu_torch")
-        self.feature = feature
 
 
 @dataclasses.dataclass

@@ -175,3 +175,50 @@ def test_chromosome_texts_differ_by_seed_and_pi(monkeypatch):
 def test_path_kernels_are_counters(kw, fit, want):
     assert chip_smoke.path_kernels(kw, fit) == want
     assert set(want) <= set(chip_smoke.kernel_counters())
+
+
+def test_phase_16_runs_in_main():
+    """Phase 16 (--devices) is driven by main, after phases 14-15 and
+    before the kernels line, with the shard and chunk counts the issue of
+    the slice names."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    at = [src.index(s) for s in ("scale_out_phases(card)", "# ---- 16. --devices ----", "mesh_path_runs(",
+                                 "mesh_fit_runs(", "mesh_population_fits(", "fold_kernel_checks(",
+                                 'print(json.dumps({"kernels"')]
+    assert at == sorted(at)
+    assert "population_mesh_runs(" in inspect.getsource(chip_smoke.population_phase)
+    assert chip_smoke.MESH_SHARDS == (1, 2, 3, 4, 8)
+    assert chip_smoke.MESH_POP_SHARDS == (2, 4)
+    assert chip_smoke.FOLD_CHUNKS == (1, 2, 255, 256, 257, 973)
+
+
+def test_mesh_counters_are_the_wrappers():
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    lo.FOLD_LAUNCHES, lo.NLL_PARTIALS_LAUNCHES = 3, 5
+    assert chip_smoke.mesh_counters()["lynch_fold"] == 3
+    assert chip_smoke.mesh_counters()["lynch_compound_nll_partials"] == 5
+    chip_smoke.reset_mesh_counters()
+    assert set(chip_smoke.mesh_counters().values()) == {0}
+    total = {"lynch_fold": 1}
+    chip_smoke.add_launches(total, {"lynch_fold": 2, "lynch_records": 1})
+    assert total == {"lynch_fold": 3, "lynch_records": 1}
+
+
+def test_fold_row_of_the_kernels_line(monkeypatch):
+    """The fold kernel's row carries every key of the kernels line; on the
+    CPU (plain versions, the timers stubbed) it runs its bitwise checks."""
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "event_times_ms", lambda torch, fn, sets, repeats=20: [(fn(*sets[0]), 1.0)[1]])
+    monkeypatch.setattr(chip_smoke, "device_only_ms", lambda torch, launch, sets, **kw: (launch(*sets[0]), 1.0)[1])
+    row = chip_smoke.fold_kernel_checks(torch, torch.device("cpu"), "cpu", 969)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"}
+    assert keys <= set(row)
+    assert row["name"] == "lynch_fold" and row["route"] == "cuda"
+    assert row["replaces"] == "sid_tpu/parallel/fit.py:29" and row["source"] == "sid_tpu_torch/csrc/lynch.cu"
+    assert row["bound_by"] == "bytes" and row["bound_ms"] == pytest.approx((969 * 12 + 16) / 3.35e12 * 1e3)
+    assert row["n_chunks"] == 969

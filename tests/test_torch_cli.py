@@ -22,7 +22,6 @@ pytest.importorskip("torch")
 from synth import make_pileup_text, simulate_diploid_counts  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = "not yet ported in sid_tpu_torch"
 
 CASES = {
     "normal": ["in.pileup"],
@@ -48,8 +47,17 @@ CASES = {
     "per-shard-fit-R-lr": ["--per-shard-fit", "-R", "-m", "likelihood_ratio", "two.pileup"],
     "per-shard-fit-exact-R-quality": ["--per-shard-fit", "--engine", "exact", "-R", "-m", "quality", "two.pileup"],
     "multihost-no-output": ["--multihost", "in.pileup"],
+    # --devices: sid_tpu shards over 2 of the conftest's 8 virtual CPU
+    # devices, the port over its one CPU device
+    "devices-local": ["--devices", "2", "-m", "local", "in.pileup"],
+    "devices-R-lr": ["--devices", "2", "-R", "-m", "likelihood_ratio", "in.pileup"],
+    "devices-stream": ["--devices", "2", "--stream", "in.pileup"],
+    "devices-bayes-per-shard-fit": ["--devices", "2", "-m", "bayes", "--per-shard-fit", "two.pileup"],
+    "devices-quality-R": ["--devices", "2", "-R", "-m", "quality", "in.pileup"],
 }
-UNPORTED = {"devices": ["--devices", "2"]}
+# --devices values sid_tpu rejects: 0 selects no device (it dies on a
+# ZeroDivisionError), "abc" is no number (both die on int())
+NO_DEVICE = {"devices-0": ["--devices", "0", "in.pileup"], "devices-abc": ["--devices", "abc", "in.pileup"]}
 POP_SAMPLES = ["s0.pileup", "s1.pileup", "s2.pileup"]
 POPULATION = {
     "pooled-bayes": ["--population", "pooled", "-m", "bayes"] + POP_SAMPLES,
@@ -63,6 +71,8 @@ POPULATION = {
     + POP_SAMPLES,
     "stream-pooled-local": ["--population", "pooled", "--stream"] + POP_SAMPLES,
     "missing-file": ["--population", "pooled", "s0.pileup", "/nonexistent/file.pileup"],
+    "devices-pooled-bayes": ["--population", "pooled", "--devices", "2", "-m", "bayes"] + POP_SAMPLES,
+    "devices-independent-local": ["--population", "independent", "--devices", "2"] + POP_SAMPLES,
 }
 PROFILE = ["--profile", "--output", "out.csv", "in.pileup"]
 
@@ -103,8 +113,9 @@ def results(workdir):
     for case, args in CASES.items():
         jobs[("sid-tpu", case)] = args
         jobs[("sid-tpu-torch", case)] = args
-    for case, args in UNPORTED.items():
-        jobs[("sid-tpu-torch", case)] = args + ["in.pileup"]
+    for case, args in NO_DEVICE.items():
+        jobs[("sid-tpu", case)] = args
+        jobs[("sid-tpu-torch", case)] = args
     jobs[("sid-tpu-torch", "profile")] = PROFILE
     cwd = {}
     for case, args in POPULATION.items():
@@ -116,9 +127,16 @@ def results(workdir):
         return {key: fut.result() for key, fut in futures.items()}
 
 
+def without_xla_log(result):
+    """sid_tpu's (rc, stdout, stderr) without the CPU-feature lines XLA logs
+    where its jitted programs load (its mesh and population programs)."""
+    rc, out, err = result
+    return rc, out, b"".join(ln for ln in err.splitlines(True) if b"cpu_aot_loader" not in ln)
+
+
 @pytest.mark.parametrize("case", [c for c in CASES if c != "help"])
 def test_same_answer_as_sid_tpu(results, case):
-    assert results[("sid-tpu-torch", case)] == results[("sid-tpu", case)]
+    assert results[("sid-tpu-torch", case)] == without_xla_log(results[("sid-tpu", case)])
 
 
 def test_help(results):
@@ -128,11 +146,20 @@ def test_help(results):
     assert out_g.splitlines()[:7] == out_w.splitlines()[:7]
 
 
-@pytest.mark.parametrize("case", list(UNPORTED))
-def test_not_yet_ported_exits_1(results, case):
-    rc, out, err = results[("sid-tpu-torch", case)]
-    assert rc == 1 and out == b""
-    assert NOT_PORTED in err.decode()
+@pytest.mark.parametrize("case", list(NO_DEVICE))
+def test_devices_selecting_no_device_exit_1(results, case):
+    """sid_tpu's exit code. For 0 its message is a ZeroDivisionError
+    traceback, the port's one line (ROADMAP.md C14); for a value that is no
+    number both end on int()'s ValueError."""
+    rc, out, err = results[("sid-tpu", case)]
+    got = results[("sid-tpu-torch", case)]
+    assert rc == got[0] == 1 and out == got[1] == b""
+    if case == "devices-0":
+        assert b"ZeroDivisionError" in err
+        assert got[2] == b"sid: --devices 0 selects no device\n"
+    else:
+        assert err.splitlines()[-1] == got[2].splitlines()[-1] == (
+            b"ValueError: invalid literal for int() with base 10: 'abc'")
 
 
 def test_output_file_and_profile(results, workdir):
@@ -150,10 +177,7 @@ def test_population_same_answer_as_sid_tpu(results, workdir, case):
     ``# wrote`` line a sample), and every sample's .calls.csv, byte for
     byte."""
     got = results[("sid-tpu-torch", "population-" + case)]
-    rc, out, err = results[("sid-tpu", "population-" + case)]
-    # sid_tpu's jitted fits make XLA log its CPU-feature lines here
-    want = (rc, out, b"".join(ln for ln in err.splitlines(True) if b"cpu_aot_loader" not in ln))
-    assert got == want
+    assert got == without_xla_log(results[("sid-tpu", "population-" + case)])
     rc, out, err = got
     base = workdir / "population" / case
     if case == "missing-file":

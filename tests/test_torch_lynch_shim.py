@@ -78,6 +78,8 @@ def shim(tmp_path_factory):
         ("sid_lynch_slot_of_host", [p, i32, p, i64, p]),
         ("sid_lynch_nll_lanes_host", [p, i64, p, i32, i32, i32, p, p]),
         ("sid_lynch_marginals_lanes_host", [p, i64, p, i32, i32, i32, i32, p, p, p]),
+        ("sid_lynch_nll_partials_host", [p, i64, p, p, p, p]),
+        ("sid_lynch_fold_host", [p, p, i64, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = None
@@ -222,6 +224,43 @@ def test_sum_does_not_change_with_the_number_of_blocks(shim, u):
     want, _ = lynch_objective.lynch_compound_nll_ref(torch.from_numpy(prof), torch.from_numpy(mult), s, tab)
     assert results[0][1] == float(want[1])
     assert abs(results[0][0] - float(want[0])) <= 1e-12 * abs(float(want[0]))
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 8])
+def test_sharded_partials_and_fold_are_the_objective(shim, data, shards):
+    """A sharded fit's card arithmetic (csrc/lynch.cu's partials-only mode
+    per shard, cut at multiples of the chunk, then lynch_fold_kernel) gives
+    the one-launch objective's bits and flags, and the plain versions
+    (lynch_nll_partials_ref, lynch_fold_ref) the shim's."""
+    from sid_tpu_torch.parallel.mesh import chunk_bounds
+
+    prof, mult, tab, nt = data
+    s = lk.lynch_scalars(0.05, 0.01, nt)
+    want, want_flags = run_nll(shim, run_records(shim, prof, mult, tab), s, grid=5)
+    u = prof.shape[0]
+    n_chunks = -(-u // lk.CHUNK_ROWS)
+    part_sum, part_cnt = np.empty(n_chunks), np.empty(n_chunks, np.int32)
+    flags = np.empty(u, np.uint8)
+    bounds = chunk_bounds(u, shards)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        c = a // lk.CHUNK_ROWS
+        rec = run_records(shim, np.ascontiguousarray(prof[a:b]), np.ascontiguousarray(mult[a:b]), tab)
+        shard_flags = np.empty(b - a, np.uint8)
+        shim.sid_lynch_nll_partials_host(rec.ctypes.data, b - a, s.ctypes.data, shard_flags.ctypes.data,
+                                         part_sum[c:].ctypes.data, part_cnt[c:].ctypes.data)
+        flags[a:b] = shard_flags
+        p_sum, p_cnt, p_flags = lynch_objective.lynch_nll_partials_ref(
+            torch.from_numpy(prof[a:b]), torch.from_numpy(mult[a:b]), s, tab)
+        assert np.array_equal(p_flags.numpy(), shard_flags)
+        assert np.array_equal(p_cnt.numpy(), part_cnt[c : c + p_cnt.shape[0]])
+        err = np.abs(p_sum.numpy() - part_sum[c : c + p_sum.shape[0]])
+        assert (err <= 1e-12 * np.maximum(1.0, np.abs(p_sum.numpy()))).all()
+    got = np.empty(2)
+    shim.sid_lynch_fold_host(part_sum.ctypes.data, part_cnt.ctypes.data, n_chunks, got.ctypes.data)
+    assert np.array_equal(bits(got), bits(want))
+    assert np.array_equal(flags, want_flags)
+    plain = lynch_objective.lynch_fold_ref(torch.from_numpy(part_sum), torch.from_numpy(part_cnt)).numpy()
+    assert np.array_equal(bits(plain), bits(got))
 
 
 def lane_table(off, scalars, lanes, per_launch=PER_LAUNCH, chunk_rows=lk.CHUNK_ROWS):

@@ -35,7 +35,8 @@ to both packages:
   device-LRT tolerance (test_torch_lrt.py), the class tables to the same
   call's host-libm tables (the same logs) to 1e-13, streaming byte-equal
   to in memory;
-- the mesh raises ``NotPortedError``.
+- a mesh (``--devices``; ``test_torch_mesh.py`` holds it against sid_tpu's)
+  gives the unsharded fits and CSVs.
 """
 
 import dataclasses
@@ -70,7 +71,6 @@ from sid_tpu_torch.ops.profiles import (  # noqa: E402
     unique_profiles,
 )
 from sid_tpu_torch.parallel.distributed import merge_histograms  # noqa: E402
-from sid_tpu_torch.utils.errors import NotPortedError  # noqa: E402
 from synth import make_pileup_text, simulate_diploid_counts  # noqa: E402
 from test_torch_local_classify import assert_agree  # noqa: E402
 from test_torch_lrt import assert_csv_close, assert_het_close, assert_pvalues_close  # noqa: E402
@@ -428,16 +428,20 @@ def test_deep_cohort_local_follows_long_double(cohorts, ref_runs, deep_fits, coh
         assert got[2] == b"chrom,pos,label,gt,hom_conf,het_conf,conf_type\n"
 
 
-# ---- what is not ported ----
+# ---- what was not ported: the mesh and the device LRT ----
 
 def test_mesh_and_device_lrt_raise(cohorts):
+    """(Named when the mesh and the device LRT raised.) A mesh gives the
+    unsharded fits and CSVs: ``mesh_devices`` on the CPU platform (one
+    device) and two devices given."""
     _, batches = _parse_both(cohorts["main"][:2], False)
     hists = _hists(batches)
     fits, _ = pop.fit_population(hists, mode="independent", device="cpu")
-    with pytest.raises(NotPortedError, match="--devices"):
-        pop.fit_population(hists, mesh_devices=2, device="cpu")
-    with pytest.raises(NotPortedError, match="--devices"):
-        pop.call_population(batches, Options(platform="cpu", method="bayes", mesh_devices=2))
+    assert pop.fit_population(hists, mode="independent", mesh_devices=2, device="cpu") == (fits, None)
+    assert pop.fit_population(hists, mode="independent", device="cpu", devices=["cpu", "cpu"]) == (fits, None)
+    want = pop.call_population(batches, Options(platform="cpu", method="bayes"))
+    got = pop.call_population(batches, Options(platform="cpu", method="bayes", mesh_devices=2))
+    assert [r.to_csv_bytes() for r in got] == [r.to_csv_bytes() for r in want]
     # (named when the fused on-device LRT raised too) its class tables:
     # those of the same call with the host-libm LRT, p-values to 1e-13
     per_sample = [unique_profiles(b.counts)[:2] for b in batches]

@@ -157,13 +157,13 @@ def test_empty_input():
     assert engine.run(b"", Options(platform="cpu"), binary=True) == want
 
 
-# options that raised NotPortedError before the Lynch-fit slice, the
-# quality and streaming slice and the scale-out slice ported them (``stream``
-# is a CLI mode: through engine.run it calls the input in memory, as
-# sid_tpu's does)
+# options that raised NotPortedError until their slices ported them: the
+# Lynch-fit slice, the quality and streaming slice, the scale-out slice and
+# --devices (``stream`` is a CLI mode: through engine.run it calls the input
+# in memory, as sid_tpu's does)
 PORTED_SINCE = ({"method": "bayes"}, {"method": "likelihood_ratio"},
                 {"estimate_prior": True}, {"engine": "exact"}, {"method": "quality"},
-                {"stream": True}, {"per_shard_fit": True})
+                {"stream": True}, {"per_shard_fit": True}, {"mesh_devices": 2})
 # the fused on-device LRT, ported since: its p-values come from another erfc,
 # so its CSV is held to sid_tpu's by the device-LRT tolerance, not bytes
 DEVICE_LRT = {"exact_pvalues": False}
@@ -175,24 +175,19 @@ DEVICE_LRT = {"exact_pvalues": False}
     {"per_shard_fit": True}, {"mesh_devices": 2}, {"exact_pvalues": False},
 ])
 def test_unported_options_raise(kw):
-    """Unported options raise; the ported ones give sid_tpu's bytes (the
+    """The options that raised while unported now give sid_tpu's bytes (the
     device LRT: sid_tpu's CSV by its tolerance) and diagnostic lines."""
-    from sid_tpu_torch.utils.errors import NotPortedError
-
+    assert kw in PORTED_SINCE or kw == DEVICE_LRT
     src = _read("golden.pileup")
-    if kw in PORTED_SINCE or kw == DEVICE_LRT:
-        want_diag, got_diag = [], []
-        want = ref_engine.run(src, RefOptions(**kw), want_diag.append, binary=True)
-        got = engine.run(src, Options(platform="cpu", **kw), got_diag.append, binary=True)
-        assert got_diag == want_diag
-        if kw == DEVICE_LRT:
-            assert_csv_close(got, want)
-        else:
-            assert got == want
-        assert got.count(b"\n") > 1
-        return
-    with pytest.raises(NotPortedError, match="not yet ported in sid_tpu_torch"):
-        engine.run(src, Options(platform="cpu", **kw))
+    want_diag, got_diag = [], []
+    want = ref_engine.run(src, RefOptions(**kw), want_diag.append, binary=True)
+    got = engine.run(src, Options(platform="cpu", **kw), got_diag.append, binary=True)
+    assert got_diag == want_diag
+    if kw == DEVICE_LRT:
+        assert_csv_close(got, want)
+    else:
+        assert got == want
+    assert got.count(b"\n") > 1
 
 
 def test_cuda_never_falls_back_to_cpu():
