@@ -2615,7 +2615,8 @@ def mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult) -> dict:
     want_m = one.marginals(want[1])
     t0 = time.perf_counter()
     for k in MESH_SHARDS:
-        sharded = pfit.ShardedDeviceObjective(deep_prof, deep_mult, nt, [dev] * k)
+        sharded = lynch.DeviceObjective(deep_prof, deep_mult, nt,
+                                        work=pfit.ShardedLynchWorkspace(deep_prof, deep_mult, [dev] * k))
         got_v = [sharded(th) for th in thetas]
         if not bits_equal(got_v, want_v) or sharded.flagged != 1:
             raise AssertionError(f"C2 repro, {k} shards: {got_v} vs {want_v}, {sharded.flagged} flagged rows")
@@ -2624,6 +2625,20 @@ def mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult) -> dict:
     log(f"# phase 16 (b): C2 repro (9000, 9000, 0, 0) as row {u} (the last shard): the objective at {thetas} bitwise "
         f"the one-device objective for every k (the row replayed in long double by its global row), the "
         f"marginals at k = {MESH_SHARDS[-1]} too; {time.perf_counter() - t0:.1f} s")
+
+    # the path of a shard on another card than the fold's: its chunk sums in
+    # buffers of its own, copied into the fold's (here a copy on one card)
+    work = pfit.ShardedLynchWorkspace(deep_prof, deep_mult, [dev] * 4)
+    last = work.shards[-1]
+    work.shards[-1] = last._replace(sums=torch.empty_like(last.sums), cnts=torch.empty_like(last.cnts), copied=True)
+    for th in thetas:
+        sc = likelihoods.lynch_scalars(th[0], th[1], nt)
+        work.part_sum[last.chunks] = float("nan")
+        got_nll, want_nll = work.nll(sc), one.work.nll(sc)
+        if not bits_equal(list(got_nll), list(want_nll)):
+            raise AssertionError(f"a shard with buffers of its own: {got_nll} vs {want_nll} at {th}")
+    log("# phase 16 (b): a shard whose chunk sums are copied into the fold's buffers (the path of a second card, "
+        "run as a copy on one card; the fold's place for them poisoned first): B2's objective bitwise")
 
     # the partials mode against its plain version at k = 4, and its times
     tab = lgamma_table(int(h_prof.sum(-1).max()), dev)
@@ -2683,7 +2698,7 @@ def mesh_population_fits(dev, card) -> None:
         walls = [time.perf_counter() - t0]
         for k in MESH_POP_SHARDS:
             t0 = time.perf_counter()
-            got = pop.fit_population(hists, mode=mode, device=dev, devices=[dev] * k)
+            got = pop._fit_population(hists, mode, None, [dev] * k, dev)[:2]
             walls.append(time.perf_counter() - t0)
             same = got[1] == want[1] and all(
                 bits_equal([a.pi, a.eps], [b.pi, b.eps]) and a.converged == b.converged

@@ -64,8 +64,9 @@
 //     whatever the other lanes, the grid or the order in which blocks
 //     finish;
 //   - the table goes up in one async copy from pinned memory into the
-//     constant bank, the (A, 2) results come back in one, and the round
-//     waits on one stream sync: one ctypes call a round. More running lanes
+//     constant bank and the (A, 2) results come back in one, all enqueued
+//     by one ctypes call a round; the host then waits on one stream sync
+//     (after enqueueing the other devices' rounds, over a mesh). More running lanes
 //     than kLanesPerLaunch run in launches of at most that many, one after
 //     another on the stream; lanes are independent, so no bit moves.
 // lynch_marginals_lanes_kernel is B4 for the whole cohort in one launch,
@@ -539,7 +540,8 @@ int sid_lynch_blocks_per_sm(int kernel, int* per_sm) {
 // One round of the lanes' objective, one call: the launches of
 // launch_groups over slots_host (n_slots LaneSlot, pinned), each group's
 // results at out + 2 * its first slot; then, with host_out (pinned) not
-// null, out (n_slots, 2) f64 copied there and the stream waited for.
+// null, the copy of out (n_slots, 2) f64 there, enqueued (the caller
+// waits for the stream).
 // flags: (n,) uint8; part_sum, part_cnt: an entry for each chunk of the
 // longest walk; slot_ticket: kLanesPerLaunch uint32, 0 between launches.
 // Returns a cudaError_t.
@@ -556,10 +558,8 @@ int sid_lynch_nll_lanes_launch(const void* rec, int64_t n, const void* slots_hos
         static_cast<unsigned int*>(slot_ticket), static_cast<double*>(out) + 2 * static_cast<int64_t>(first));
   });
   if (err != 0 || host_out == nullptr) return err;
-  cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double) * static_cast<size_t>(n_slots),
-                                  cudaMemcpyDeviceToHost, st);
-  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
-  return static_cast<int>(e);
+  return static_cast<int>(cudaMemcpyAsync(host_out, out, 2 * sizeof(double) * static_cast<size_t>(n_slots),
+                                          cudaMemcpyDeviceToHost, st));
 }
 
 // The lanes' marginals: the launches of launch_groups over slots_host

@@ -71,39 +71,30 @@ class DeviceObjective:
     screen clears and one fetch brings back the sum and the flagged count;
     when it flags rows, their terms come from the long-double objective over
     those rows; the total is clamped to +-DBL_MAX as sid_tpu clamps it.
+    Over a mesh the workspace is ``parallel.fit.ShardedLynchWorkspace``,
+    given as ``work``: each shard's partials launch and one fold launch in
+    place of B2's one launch, with the same values.
     """
 
-    def __init__(self, profiles: np.ndarray, mult: np.ndarray, nt: np.ndarray, device):
+    def __init__(self, profiles: np.ndarray, mult: np.ndarray, nt: np.ndarray, device=None, work=None):
         self.profiles = np.ascontiguousarray(profiles, np.int32)
         self.mult = np.ascontiguousarray(mult, np.int64)
         self.nt = np.asarray(nt, np.float64)
-        u = self.profiles.shape[0]
-        max_cov = int(coverage_of(self.profiles).max()) if u else 0
-        self.prof_dev = torch.from_numpy(self.profiles).to(device)
-        self.mult_dev = torch.from_numpy(self.mult).to(device)
-        self.tab = lgamma_table(max_cov, device)
-        self.work = lynch_objective.LynchWorkspace(self.prof_dev, self.mult_dev, self.tab)
+        if work is None:
+            max_cov = int(coverage_of(self.profiles).max()) if self.profiles.shape[0] else 0
+            work = lynch_objective.LynchWorkspace(
+                torch.from_numpy(self.profiles).to(device), torch.from_numpy(self.mult).to(device),
+                lgamma_table(max_cov, device))
+        self.work = work  # nll, flags and marginals_host over these rows
         self.flagged = 0  # most rows the screen flagged in one evaluation
-
-    def _nll(self, scalars) -> Tuple[float, float]:
-        """(sum of the unflagged terms, flagged count) at one theta."""
-        return self.work.nll(scalars)
-
-    def _flagged_rows(self) -> np.ndarray:
-        """The rows the last evaluation's range screen flagged, in order."""
-        return np.nonzero(self.work.flags.cpu().numpy())[0]
-
-    def _marginals_host(self, scalars) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """B4 at one epsilon as host arrays (log L_hom, log L_het, flags)."""
-        return self.work.marginals_host(scalars)
 
     def __call__(self, theta) -> float:
         pi, eps = float(theta[0]), float(theta[1])
         if not (0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0):
             return likelihoods.DBL_MAX
-        total, n_flagged = self._nll(likelihoods.lynch_scalars(pi, eps, self.nt))
+        total, n_flagged = self.work.nll(likelihoods.lynch_scalars(pi, eps, self.nt))
         if n_flagged:
-            rows = self._flagged_rows()
+            rows = np.nonzero(self.work.flags.cpu().numpy())[0]
             self.flagged = max(self.flagged, rows.size)
             ld = bridge.NativeLynchLD(native.load(), self.profiles, self.mult, self.nt, rows)
             total = total - ld.objective((pi, eps))
@@ -116,7 +107,7 @@ class DeviceObjective:
     def marginals(self, eps: float) -> Tuple[np.ndarray, np.ndarray]:
         """(log L_hom, log L_het) f64 at epsilon (B4); the rows the screen
         flags get the log of their long-double marginals."""
-        log_l_hom, log_l_het, flags = self._marginals_host(likelihoods.lynch_scalars(0.0, eps, self.nt))
+        log_l_hom, log_l_het, flags = self.work.marginals_host(likelihoods.lynch_scalars(0.0, eps, self.nt))
         rows = np.nonzero(flags)[0]
         if rows.size:
             ld = bridge.NativeLynchLD(native.load(), self.profiles, self.mult, self.nt, rows)
@@ -170,12 +161,11 @@ class LanesObjective:
         return bridge.NativeLynchLD(native.load(), self.profiles[r], self.mult[r], self.nts[lane], rows)
 
     def __call__(self, lanes: List[int], points: List[np.ndarray]) -> List[float]:
-        return self.enqueue(lanes, points, wait_now=True)()
+        return self.enqueue(lanes, points)()
 
-    def enqueue(self, lanes: List[int], points: List[np.ndarray], wait_now: bool = False):
-        """One round of ``__call__`` in two halves: its launch enqueued (or,
-        with ``wait_now``, waited for as one call), and a callable that
-        waits for it and returns the lanes' values."""
+    def enqueue(self, lanes: List[int], points: List[np.ndarray]):
+        """One round of ``__call__`` in two halves: its launch enqueued, and
+        a callable that waits for it and returns the lanes' values."""
         thetas = [(float(x[0]), float(x[1]) if self.eps is None else self.eps) for x in points]
         values = [likelihoods.DBL_MAX] * len(lanes)
         inside = [k for k, (pi, eps) in enumerate(thetas) if 0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0]
@@ -185,11 +175,7 @@ class LanesObjective:
             pi, eps = thetas[k]
             self._scalars[lanes[k]] = likelihoods.lynch_scalars(pi, eps, self.nts[lanes[k]])
         running = [lanes[k] for k in inside]
-        if wait_now:
-            out = self.work.nll_lanes(self._scalars, running)
-            fetch = lambda: out  # noqa: E731
-        else:
-            fetch = self.work.enqueue_nll_lanes(self._scalars, running)
+        fetch = self.work.enqueue_nll_lanes(self._scalars, running)
         self.rounds += 1
         self.evaluations += len(inside)
 

@@ -107,33 +107,32 @@ def fit_population(
     diag=None,
     mesh_devices: Optional[int] = None,
     device=None,
-    devices: Optional[Sequence] = None,
 ) -> Tuple[List[SampleFit], Optional[SampleFit]]:
     """Fit the Lynch model over per-sample (cov>=4-filtered) histograms.
 
     Returns (per-sample fits, pooled fit or None). ``mode`` is "pooled" or
     "independent" (any other value fits independently, as sid_tpu does).
     ``device`` is the torch device of the objective (default cuda). With
-    ``mesh_devices`` or ``devices`` the per-sample fits run over the mesh
-    ``make_site_mesh(mesh_devices, devices)`` (default: the devices of
-    ``device``'s type), one block of samples a device; ``devices`` may
-    repeat a device. ``diag`` receives the pooled fit's two lines. The fits
-    run in the device stage ``population_fit`` (sid_tpu times them in no
-    stage).
+    ``mesh_devices`` the per-sample fits run over the mesh of the first
+    ``mesh_devices`` devices of ``device``'s type, one block of samples a
+    device. ``diag`` receives the pooled fit's two lines. The fits run in
+    the device stage ``population_fit`` (sid_tpu times them in no stage).
     """
     device = Options().device() if device is None else torch.device(device)
-    mesh = None
-    if mesh_devices is not None or devices is not None:
-        mesh = make_site_mesh(mesh_devices, platform_devices(device) if devices is None else devices)
+    mesh = None if mesh_devices is None else make_site_mesh(mesh_devices, platform_devices(device))
     fits, pooled, _ = _fit_population(histograms, mode, diag, mesh, device)
     return fits, pooled
 
 
 def _fit_population(histograms, mode: str, diag, mesh, device):
-    """``fit_population`` over ``mesh`` (None: on ``device``), and the
-    per-sample lanes' objective the fits ran over, whose workspaces then
-    serve the cohort's marginals."""
-    device = torch.device(device) if mesh is None else mesh[0]
+    """``fit_population`` over ``mesh`` (a list of devices, which may repeat
+    one; None: on ``device``), and the per-sample lanes' objective the fits
+    ran over, whose workspaces then serve the cohort's marginals."""
+    if mesh is None:
+        device = torch.device(device)
+    else:
+        mesh = make_site_mesh(devices=mesh)
+        device = mesh[0]
     with profiling.device_stage("population_fit", device):
         return _fit_lanes_of_mode(histograms, mode, diag, device, mesh)
 

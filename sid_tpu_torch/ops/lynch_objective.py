@@ -740,39 +740,28 @@ class LynchLanesWorkspace:
         own row of ``scalars`` (S, 16), waited for: a (len(lanes), 2) f64
         array of [sum of the unflagged terms, flagged count], each lane's
         bitwise B2 over its rows alone; the lanes' rows' flags in
-        ``flags``. On a card one ctypes call: the lanes' table into the
-        constant bank, one launch (one for each ``per_launch`` lanes), the
-        copy of the results into pinned memory, one stream sync. ``grid``
-        sets the number of blocks (the results do not depend on it); by
-        default the resident blocks."""
+        ``flags``. ``grid`` sets the number of blocks (the results do not
+        depend on it); by default the resident blocks."""
+        return self.enqueue_nll_lanes(scalars, lanes, grid)()
+
+    def enqueue_nll_lanes(self, scalars, lanes, grid: Optional[int] = None):
+        """``nll_lanes`` in two halves, so that several workspaces (a
+        cohort over a mesh) run at once: enqueue the round and return a
+        callable that waits for it and returns the (len(lanes), 2) array.
+        On a card one ctypes call enqueues the lanes' table into the
+        constant bank, the launch (one for each ``per_launch`` lanes) and
+        the copy of the results into pinned memory; the callable syncs the
+        stream. On the CPU the plain version, run here."""
         scalars = self._check_scalars(scalars)
         lanes = _check_lanes(lanes, self.lanes)
         if self.device.type == "cpu":
             out, self.flags = lynch_compound_nll_lanes_ref(
                 self.profiles, self.mult, self.offsets, scalars, self.lgamma_tab, lanes)
-            return out.numpy()
+            host = out.numpy()
+            return lambda: host
         a = len(lanes)
         self._fill_nll(scalars, lanes)
         self._launch_nll(a, 1, grid, self.host_out.data_ptr())
-        return self._host_view[:a].copy()
-
-    def enqueue_nll_lanes(self, scalars, lanes):
-        """``nll_lanes`` in two halves, for several workspaces at once (a
-        cohort over a mesh): enqueue the round and return at once, with a
-        callable that waits for it and returns the (len(lanes), 2) array.
-        On a card the launch, then a copy of the results into pinned
-        memory; the callable syncs the stream. On the CPU the plain
-        version, run here."""
-        if self.device.type == "cpu":
-            out = self.nll_lanes(scalars, lanes)
-            return lambda: out
-        scalars = self._check_scalars(scalars)
-        lanes = _check_lanes(lanes, self.lanes)
-        a = len(lanes)
-        self._fill_nll(scalars, lanes)
-        self._launch_nll(a, 1, None, None)
-        with torch.cuda.stream(self.stream):
-            self.host_out[:a].copy_(self.out[:a], non_blocking=True)
 
         def wait():
             self.stream.synchronize()

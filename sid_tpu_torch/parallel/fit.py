@@ -6,7 +6,9 @@ histogram over its mesh and lets XLA all-reduce each shard's sum once an
 evaluation; its (pi, epsilon) then agree across mesh sizes to rel 1e-6 on
 the CPU. Here the histogram is cut into contiguous shards at multiples of
 the objective's chunk (``mesh.chunk_bounds``), each bound to its device once
-(``LynchWorkspace``), and an evaluation enqueues every shard's B2 in its
+(``LynchWorkspace``). ``ShardedLynchWorkspace`` holds the shards behind the
+one-device workspace's interface, so ``models.lynch.DeviceObjective``
+evaluates it as it does one device's. An evaluation enqueues every shard's B2 in its
 partials-only mode, which writes the shard's chunk sums into its place in
 one buffer on the first device (a view there, a device-to-device copy from
 any other), then one launch of the fold kernel, which folds them in global
@@ -22,7 +24,7 @@ concatenated. The simplex runs on the host, once.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,74 +33,90 @@ from sid_tpu_torch.models.lynch import DeviceObjective, fit_objective
 from sid_tpu_torch.ops import likelihoods, lynch_objective
 from sid_tpu_torch.ops.lgamma import lgamma_table
 from sid_tpu_torch.ops.profiles import coverage_of, nucleotide_distribution
-from sid_tpu_torch.parallel.mesh import chunk_bounds
+from sid_tpu_torch.parallel.mesh import chunk_bounds, make_site_mesh
 from sid_tpu_torch.utils import profiling
 
 
-class ShardedDeviceObjective(DeviceObjective):
-    """``DeviceObjective`` over a mesh: the same values, bit for bit, from
-    the histogram cut into ``len(mesh)`` shards at multiples of
-    ``likelihoods.CHUNK_ROWS`` (empty shards bind nothing). Outside the box
-    it is DBL_MAX without a launch; inside, each shard's partials launch,
-    one fold launch and one sync (on a card), then the flagged rows' long-
-    double terms."""
+class Shard(NamedTuple):
+    """One shard of a sharded fit: its first row in the histogram, its
+    workspace, the buffers its partials launch writes, its chunks' place in
+    the fold's buffers, and whether those buffers are its own (on another
+    device than the fold's: copied into the fold's buffers each
+    evaluation) or views of the fold's."""
 
-    def __init__(self, profiles: np.ndarray, mult: np.ndarray, nt: np.ndarray, mesh: Sequence[torch.device]):
-        self.profiles = np.ascontiguousarray(profiles, np.int32)
-        self.mult = np.ascontiguousarray(mult, np.int64)
-        self.nt = np.asarray(nt, np.float64)
-        self.flagged = 0
-        u = self.profiles.shape[0]
-        max_cov = int(coverage_of(self.profiles).max()) if u else 0
-        self.fold_device = fold = torch.device(mesh[0])
+    first_row: int
+    work: lynch_objective.LynchWorkspace
+    sums: torch.Tensor
+    cnts: torch.Tensor
+    chunks: slice
+    copied: bool
+
+
+class ShardedLynchWorkspace:
+    """``LynchWorkspace``'s interface for the Lynch fit (``nll``, ``flags``,
+    ``marginals_host``) over a mesh, for ``DeviceObjective``: the same
+    values, bit for bit, from the histogram cut into ``len(mesh)`` shards
+    at multiples of ``likelihoods.CHUNK_ROWS`` (empty shards bind nothing).
+    ``nll`` launches each shard's partials, one fold and one sync (on a
+    card)."""
+
+    def __init__(self, profiles: np.ndarray, mult: np.ndarray, mesh: Sequence[torch.device]):
+        mesh = make_site_mesh(devices=mesh)
+        profiles = np.ascontiguousarray(profiles, np.int32)
+        mult = np.ascontiguousarray(mult, np.int64)
+        self.u = u = profiles.shape[0]
+        max_cov = int(coverage_of(profiles).max()) if u else 0
+        self.device = fold = mesh[0]
         n_chunks = -(-u // likelihoods.CHUNK_ROWS)
         # every shard's chunk sums in global chunk order, on the fold's device
         self.part_sum = torch.empty(n_chunks, dtype=torch.float64, device=fold)
         self.part_cnt = torch.empty(n_chunks, dtype=torch.int32, device=fold)
-        # (first row, workspace, its chunk sums, its counts, its chunks' slice)
-        self.shards: List[tuple] = []
+        self.shards: List[Shard] = []
         bounds = chunk_bounds(u, len(mesh))
         for a, b, dev in zip(bounds[:-1].tolist(), bounds[1:].tolist(), mesh):
             if b == a:
                 continue
-            dev = torch.device(dev)
             work = lynch_objective.LynchWorkspace(
-                torch.from_numpy(self.profiles[a:b]).to(dev), torch.from_numpy(self.mult[a:b]).to(dev),
+                torch.from_numpy(profiles[a:b]).to(dev), torch.from_numpy(mult[a:b]).to(dev),
                 lgamma_table(max_cov, dev))
             chunks = slice(a // likelihoods.CHUNK_ROWS, -(-b // likelihoods.CHUNK_ROWS))
-            if dev == fold:
-                sums, cnts = self.part_sum[chunks], self.part_cnt[chunks]
-            else:
+            copied = dev != fold
+            if copied:
                 n = chunks.stop - chunks.start
                 sums = torch.empty(n, dtype=torch.float64, device=dev)
                 cnts = torch.empty(n, dtype=torch.int32, device=dev)
-            self.shards.append((a, work, sums, cnts, chunks))
-        self.host_out = None
+            else:
+                sums, cnts = self.part_sum[chunks], self.part_cnt[chunks]
+            self.shards.append(Shard(a, work, sums, cnts, chunks, copied))
+        self.out = self.host_out = None
         if fold.type == "cuda":
             with torch.cuda.device(fold):
                 self.out = torch.empty(2, dtype=torch.float64, device=fold)
                 self.host_out = torch.empty(2, dtype=torch.float64, pin_memory=True)
 
-    def _nll(self, scalars) -> Tuple[float, float]:
-        for _, work, sums, cnts, _ in self.shards:
-            work.launch_partials(scalars, sums, cnts)
-        for _, work, sums, cnts, chunks in self.shards:
-            if work.device != self.fold_device:
-                self.part_sum[chunks].copy_(sums, non_blocking=True)
-                self.part_cnt[chunks].copy_(cnts, non_blocking=True)
-        if self.host_out is None:
-            total, n_flagged = lynch_objective.lynch_fold(self.part_sum, self.part_cnt).tolist()
-            return total, n_flagged
-        lynch_objective.lynch_fold(self.part_sum, self.part_cnt, self.out, self.host_out)
-        total, n_flagged = self.host_out.tolist()
+    def nll(self, scalars) -> Tuple[float, float]:
+        """(sum of the unflagged terms, flagged count) at one theta, bitwise
+        one-device B2's over the whole histogram."""
+        for shard in self.shards:
+            shard.work.launch_partials(scalars, shard.sums, shard.cnts)
+        for shard in self.shards:
+            if shard.copied:
+                self.part_sum[shard.chunks].copy_(shard.sums, non_blocking=True)
+                self.part_cnt[shard.chunks].copy_(shard.cnts, non_blocking=True)
+        res = lynch_objective.lynch_fold(self.part_sum, self.part_cnt, self.out, self.host_out)
+        total, n_flagged = (res if self.host_out is None else self.host_out).tolist()
         return total, n_flagged
 
-    def _flagged_rows(self) -> np.ndarray:
-        rows = [a + np.nonzero(work.flags.cpu().numpy())[0] for a, work, *_ in self.shards]
-        return np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    @property
+    def flags(self) -> torch.Tensor:
+        """The last evaluation's (U,) uint8 range-screen flags on the host,
+        every shard's in row order."""
+        return torch.cat([torch.zeros(0, dtype=torch.uint8)] + [s.work.flags.cpu() for s in self.shards])
 
-    def _marginals_host(self, scalars) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        parts = [work.marginals_host(scalars) for _, work, *_ in self.shards]
+    def marginals_host(self, scalars) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """B4 at one epsilon per shard, as host arrays concatenated in row
+        order (log L_hom, log L_het, uint8 flags)."""
+        parts = [s.work.marginals_host(scalars) for s in self.shards]
         if not parts:
             return np.zeros(0), np.zeros(0), np.zeros(0, np.uint8)
         lhom, lhet, flags = (np.concatenate([p[k] for p in parts]) for k in range(3))
@@ -116,6 +134,7 @@ def fit_lynch_global(
     eps, log_l_hom, log_l_het, nt) like ``models.lynch.fit_on_filtered_profiles``,
     bitwise its values for any mesh; ``diag`` gets the minimizer's line."""
     nt = nucleotide_distribution(profiles, mult)
-    with profiling.device_stage("fit_lynch", torch.device(mesh[0])):
-        res, log_l_hom, log_l_het = fit_objective(ShardedDeviceObjective(profiles, mult, nt, mesh), diag)
+    work = ShardedLynchWorkspace(profiles, mult, mesh)
+    with profiling.device_stage("fit_lynch", work.device):
+        res, log_l_hom, log_l_het = fit_objective(DeviceObjective(profiles, mult, nt, work=work), diag)
     return float(res.x[0]), float(res.x[1]), log_l_hom, log_l_het, nt

@@ -4,8 +4,9 @@ The port's counterparts of ``tests/test_parallel.py`` and of
 ``test_population.py::test_sharded_fits_identical``. sid_tpu runs as its own
 tests run it, on the conftest's 8 virtual CPU devices. The port's CPU
 platform has one device; a shard count k above it is a mesh of ``[cpu] * k``
-(``devices=``, or ``platform_devices`` patched to 8 CPU devices for the
-engine's ``mesh_devices``), the partitions a mesh of ``[cuda:0] * k`` makes
+(a list of devices to ``fit_lynch_global`` and ``_fit_population``, or
+``platform_devices`` patched to 8 CPU devices for the engine's
+``mesh_devices``), the partitions a mesh of ``[cuda:0] * k`` makes
 on one card. Inputs are made from a seed with numpy.
 
 - the fold: ``fold_chunk_sums_ref(chunk_sums_ref(t))`` is ``fixed_order_sum(t)``
@@ -48,7 +49,7 @@ from sid_tpu_torch.ops import lynch_objective  # noqa: E402
 from sid_tpu_torch.ops.lgamma import lgamma_table  # noqa: E402
 from sid_tpu_torch.ops.profiles import filter_min_coverage, nucleotide_distribution, unique_profiles  # noqa: E402
 from sid_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
-from sid_tpu_torch.parallel.fit import ShardedDeviceObjective, fit_lynch_global  # noqa: E402
+from sid_tpu_torch.parallel.fit import ShardedLynchWorkspace, fit_lynch_global  # noqa: E402
 from synth import make_pileup_text, simulate_diploid_counts  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -213,13 +214,45 @@ def test_sharded_objective_keeps_the_range_screen(deep_hist, k):
     prof, mult = deep_hist
     nt = nucleotide_distribution(prof, mult)
     one = DeviceObjective(prof, mult, nt, CPU)
-    sharded = ShardedDeviceObjective(prof, mult, nt, [CPU] * k)
+    sharded = DeviceObjective(prof, mult, nt, work=ShardedLynchWorkspace(prof, mult, [CPU] * k))
     for theta in THETAS:
         assert bits(sharded(theta)) == bits(one(theta)), theta
     assert sharded.flagged == one.flagged == 1
-    assert sharded._flagged_rows().tolist() == [prof.shape[0] - 1]
+    assert np.nonzero(sharded.work.flags.numpy())[0].tolist() == [prof.shape[0] - 1]
     for x, y in zip(sharded.marginals(0.01), one.marginals(0.01)):
         assert np.array_equal(bits(x), bits(y))
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_sharded_workspace_copies_own_buffers_into_the_fold(hist, k):
+    """A shard on another device than the fold's writes its chunk sums into
+    buffers of its own, copied into the fold's each evaluation. On the CPU
+    every shard shares the fold's device, so the last shard is given such
+    buffers; the fold's place for them is poisoned first, and the objective
+    is still bitwise one-device B2's."""
+    prof, mult = hist
+    nt = nucleotide_distribution(prof, mult)
+    work = ShardedLynchWorkspace(prof, mult, [CPU] * k)
+    assert not any(s.copied for s in work.shards)
+    assert all(s.sums.data_ptr() == work.part_sum[s.chunks].data_ptr() for s in work.shards)
+    last = work.shards[-1]
+    work.shards[-1] = last._replace(sums=torch.empty_like(last.sums), cnts=torch.empty_like(last.cnts), copied=True)
+    one = lynch_objective.LynchWorkspace(torch.from_numpy(prof), torch.from_numpy(mult),
+                                         lgamma_table(int(prof.sum(-1).max()), CPU))
+    for theta in THETAS[:-1]:  # inside the box
+        work.part_sum[last.chunks] = float("nan")
+        work.part_cnt[last.chunks] = -1
+        s = lk.lynch_scalars(*theta, nt)
+        assert bits(np.array(work.nll(s))).tolist() == bits(np.array(one.nll(s))).tolist(), theta
+
+
+def test_sharded_workspace_indexes_its_mesh():
+    """The mesh is normalised once (``make_site_mesh``): the fold's device
+    and every shard's are the list's devices, indexed."""
+    prof = np.zeros((3 * lk.CHUNK_ROWS, 4), np.int32)
+    prof[:, 0] = 5
+    work = ShardedLynchWorkspace(prof, np.ones(prof.shape[0], np.int64), ["cpu", CPU, torch.device("cpu")])
+    assert work.device == CPU and [s.work.device for s in work.shards] == [CPU] * 3
 
 
 def test_fit_lynch_global_with_a_deep_row(deep_hist):
@@ -383,7 +416,7 @@ def test_population_fits_over_a_mesh_are_bitwise(cohort_hists, mode, k):
     samples; some blocks empty at k = 8) is bitwise its unsharded fit."""
     want_lines, lines = [], []
     want, want_pooled = pop.fit_population(cohort_hists, mode, want_lines.append, device="cpu")
-    got, pooled = pop.fit_population(cohort_hists, mode, lines.append, device="cpu", devices=[CPU] * k)
+    got, pooled, _ = pop._fit_population(cohort_hists, mode, lines.append, [CPU] * k, CPU)
     assert got == want and pooled == want_pooled and lines == want_lines
     for f, w in zip(got, want):
         assert bits(f.pi) == bits(w.pi) and bits(f.eps) == bits(w.eps)

@@ -438,7 +438,7 @@ def test_mesh_and_device_lrt_raise(cohorts):
     hists = _hists(batches)
     fits, _ = pop.fit_population(hists, mode="independent", device="cpu")
     assert pop.fit_population(hists, mode="independent", mesh_devices=2, device="cpu") == (fits, None)
-    assert pop.fit_population(hists, mode="independent", device="cpu", devices=["cpu", "cpu"]) == (fits, None)
+    assert pop._fit_population(hists, "independent", None, ["cpu", "cpu"], "cpu")[:2] == (fits, None)
     want = pop.call_population(batches, Options(platform="cpu", method="bayes"))
     got = pop.call_population(batches, Options(platform="cpu", method="bayes", mesh_devices=2))
     assert [r.to_csv_bytes() for r in got] == [r.to_csv_bytes() for r in want]
