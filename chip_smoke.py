@@ -102,7 +102,21 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    (B1 and B6 launched); a --checkpoint run and a resume=True rerun that
    skips pass 1; --stream -m local at 10,000,000 simulated sites (~1.1 GB
    on disk, written under .smoke/ and removed) with 64 MB chunks, sites/s
-   of two runs, the output's SHA-256 equal to engine.run's;
+   of two runs, the output's SHA-256 equal to the monolithic engine.run's;
+   10b. the chunk pipeline (engine._run_pipelined_single_pass: the parse
+   of chunk k+1 on a worker thread while chunk k is called and written)
+   against the monolithic run (engine._run_monolithic), in turns, three
+   each, for -m local and -m quality on that 10M-site file with 32 and
+   128 MB chunks and on phase 9's 1M-site file with 32 MB chunks: bytes
+   equal (SHA-256 at 10M), sites/s and the split of the pipeline's pass
+   (pipeline:parse_wait, pipeline:call, pipeline:serialize), one launch of
+   B1 or B6 a chunk (counts from 0), the run at the engine's own chunk
+   size above its gate through engine.run; with exact_pvalues=False at 1M
+   B5 and B6 full once a chunk, the CSV within phase 13's tolerance of
+   the monolithic run; a malformed line planted in a late chunk reported
+   with its line in the file; the gate and chunk size these walls give
+   (``pipeline_gate``), beside the engine's PIPELINE_MIN_BYTES and
+   PIPELINE_CHUNK_BYTES;
 11. the cohort's lane kernels (population mode) at 100 lanes and ~2,000,000
    rows (an empty, a 1-row and a 1,000,000-row lane; the draws' deep rows,
    which the range screen flags, in most lanes): the lanes' objective
@@ -191,8 +205,9 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    (d) lynch_fold_kernel bitwise fold_chunk_sums_ref at 1, 2, 255, 256,
    257 and 973 chunks, its times and bound (12 B a chunk);
 17. prints a JSON line of kernel results (with each kernel's launches on
-   phases 14, 15 and 16 as launches_per_shard, launches_multihost and
-   launches_mesh), then the final JSON line {"ok": true, "device": {...}}.
+   phases 14, 15, 16 and 10b's pipelined runs as launches_per_shard,
+   launches_multihost, launches_mesh and launches_pipeline), then the
+   final JSON line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the final
 line. Without a CUDA card it exits 1 at once.
@@ -946,12 +961,13 @@ def quality_path_phase(torch, dev, card, workdir, golden_src, real_src):
     return launches, qsrc
 
 
-def stream_phase(card, workdir, qsrc) -> None:
+def stream_phase(card, workdir, qsrc) -> dict:
     """Phase 10: run_streaming on phase 9's file with 8 MB chunks for -m
     local, -R -m likelihood_ratio and -m quality, byte-equal to engine.run;
     a --checkpoint rerun with resume that skips pass 1; --stream -m local
     at N_STREAM simulated sites with the default chunks, its output's hash
-    equal to engine.run's."""
+    equal to the monolithic engine.run's; then phase 10b on both files.
+    Returns phase 10b's launches."""
     from sid_tpu_torch import engine
     from sid_tpu_torch.config import Options
     from sid_tpu_torch.ops import local_classify
@@ -1007,16 +1023,223 @@ def stream_phase(card, workdir, qsrc) -> None:
         wall = time.perf_counter() - t0
         profiling.activate(None)
         sinks.append(sink)
-        split = {}
-        for name, s in p.stages:
-            split[name] = split.get(name, 0.0) + s
+        split = stage_sums(p)
         log(f"# --stream -m local, {N_STREAM} sites, 64 MB chunks: {N_STREAM / wall:,.0f} sites/s ({wall:.2f} s), "
             f"{n} records; " + ", ".join(f"{k} {v * 1e3:.0f} ms" for k, v in split.items()) + f"; on {card}")
-    whole = engine.run(big, Options(), binary=True)
+    whole = engine._run_monolithic(big, Options(), None, True)
     digest = hashlib.sha256(whole).hexdigest()
     if any(s.hash.hexdigest() != digest or s.size != len(whole) for s in sinks):
-        raise AssertionError("--stream -m local at 10M sites differs from engine.run")
-    log(f"# --stream -m local at {N_STREAM} sites: output ({len(whole) / 1e6:.0f} MB) the same SHA-256 as engine.run")
+        raise AssertionError("--stream -m local at 10M sites differs from the monolithic engine.run")
+    log(f"# --stream -m local at {N_STREAM} sites: output ({len(whole) / 1e6:.0f} MB) the same SHA-256 as the "
+        f"monolithic engine.run")
+    del whole, sinks
+    return pipeline_phase(card, workdir, qsrc, big)
+
+
+# ---- phase 10b: the chunk pipeline (engine._run_pipelined_single_pass) ----
+# (sites, chunk sizes) measured: phase 9's 1M-site file and phase 10's 10M
+PIPE_CHUNKS = {N_QUALITY: (32 << 20,), N_STREAM: (32 << 20, 128 << 20)}
+PIPE_ROUNDS = 3
+PIPE_METHODS = ("local", "quality")
+PIPE_BAD_LINE = 900_001  # planted in a late chunk of a copy of the 1M-site file
+
+
+def pipeline_counters() -> dict:
+    """The launch counters of the pipeline's kernels, by the names of the
+    kernels line."""
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import quality_finalize as qf
+
+    return {"local_log_likelihoods": lc.LAUNCHES, "local_classify_lrt": lc.LRT_LAUNCHES,
+            "quality_finalize": qf.LAUNCHES, "quality_finalize_lrt": qf.LRT_LAUNCHES}
+
+
+def reset_pipeline_counters() -> None:
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import quality_finalize as qf
+
+    lc.LAUNCHES = lc.LRT_LAUNCHES = qf.LAUNCHES = qf.LRT_LAUNCHES = 0
+
+
+def pipeline_kernel(method: str, exact_pvalues: bool = True) -> str:
+    """The kernel a chunk of this method launches once."""
+    return {("local", True): "local_log_likelihoods", ("local", False): "local_classify_lrt",
+            ("quality", True): "quality_finalize", ("quality", False): "quality_finalize_lrt"}[method, exact_pvalues]
+
+
+def count_chunks(src: str, chunk_bytes: int) -> int:
+    """Chunks with a site that the pipeline cuts from src."""
+    from sid_tpu_torch.io.stream import iter_chunks
+
+    return sum(1 for chunk in iter_chunks(src, chunk_bytes) if chunk.strip())
+
+
+def pipeline_gate(walls: dict):
+    """(gate bytes, chunk bytes) from phase 10b's walls: the smallest input
+    size at which a chunk size's pipelined median wall beats the
+    monolithic median for both methods, and of the chunk sizes that win
+    there the one with the smaller summed median; (None, None) where the
+    pipeline wins nowhere. ``walls[(size, chunk)][method]`` is
+    ``(pipelined walls, monolithic walls)``."""
+    for size in sorted({size for size, _ in walls}):
+        wins = [(sum(statistics.median(p) for p, _ in walls[size, chunk].values()), chunk)
+                for s, chunk in walls if s == size
+                if all(statistics.median(p) < statistics.median(m) for p, m in walls[size, chunk].values())]
+        if wins:
+            return size, min(wins)[1]
+    return None, None
+
+
+def stage_sums(prof) -> dict:
+    split = {}
+    for name, sec in prof.stages:
+        split[name] = split.get(name, 0.0) + sec
+    return split
+
+
+def pipeline_phase(card, workdir, small, big) -> dict:
+    """Phase 10b: the chunk pipeline against the monolithic run, in turns
+    (three each), for -m local and -m quality at 10M sites (32 and 128 MB
+    chunks) and 1M sites (32 MB): bytes equal (SHA-256 at 10M), sites/s,
+    the split of the pipeline's pass (this thread's waits on the parse, its
+    calls, its CSV), one launch of B1 or B6 a chunk and one a monolithic
+    run; with exact_pvalues=False at 1M, B5 and B6 full once a chunk and
+    the CSV within the tolerance of the monolithic run; a parse error
+    planted in a late chunk names the file's line; the gate these walls
+    give. A pipelined run at the engine's own chunk size above its gate
+    goes through engine.run, the main path; the others, and every
+    monolithic run, are called by name. Returns the launches of the
+    pipelined runs."""
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.utils import profiling
+    from sid_tpu_torch.utils.errors import SidParseError
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    def timed(fn):
+        prof = profiling.StageProfile()
+        profiling.activate(prof)
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            profiling.activate(None)
+        return out, time.perf_counter() - t0, stage_sums(prof)
+
+    def pipelined(src, opts, chunk):
+        if chunk == engine.PIPELINE_CHUNK_BYTES and engine._pipeline_eligible(opts, os.path.getsize(src)):
+            return engine.run(src, opts, binary=True)
+        return engine._run_pipelined_single_pass(src, opts, None, True, chunk)
+
+    def check_launches(label, opts, want) -> None:
+        """The counts since the reset: ``want`` launches of the run's
+        kernel and none of another."""
+        got = pipeline_counters()
+        kernel = pipeline_kernel(opts.method, opts.exact_pvalues)
+        if got[kernel] != want or sum(got.values()) != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want} of {kernel}")
+
+    def pipelined_launches(label, opts, want) -> None:
+        check_launches(label, opts, want)
+        kernel = pipeline_kernel(opts.method, opts.exact_pvalues)
+        total[kernel] = total.get(kernel, 0) + want
+
+    walls = {}
+    for sites, src in ((N_QUALITY, small), (N_STREAM, big)):
+        size = os.path.getsize(src)
+        chunks = PIPE_CHUNKS[sites]
+        n_chunks = {c: count_chunks(src, c) for c in chunks}
+        for method in PIPE_METHODS:
+            opts = Options(method=method)
+            ways = ("monolithic",) + chunks
+            order = []
+            for r in range(PIPE_ROUNDS):
+                order += list(ways if r % 2 == 0 else reversed(ways))
+            want = digest = None
+            runs = {w: [] for w in ways}
+            for way in order:
+                reset_pipeline_counters()
+                if way == "monolithic":
+                    out, wall, split = timed(lambda: engine._run_monolithic(src, opts, None, True))
+                    check_launches(f"{method} at {sites} sites, monolithic", opts, 1)
+                else:
+                    out, wall, split = timed(lambda: pipelined(src, opts, way))
+                    if "pipeline" not in split:
+                        raise AssertionError(f"{method} at {sites} sites, {way >> 20} MB chunks: not pipelined")
+                    pipelined_launches(f"{method} at {sites} sites, {way >> 20} MB chunks", opts, n_chunks[way])
+                if want is None:
+                    want = out
+                    digest = hashlib.sha256(out).hexdigest() if sites == N_STREAM else None
+                elif out != want or (digest and hashlib.sha256(out).hexdigest() != digest):
+                    raise AssertionError(f"{method} at {sites} sites: {way} differs: {first_difference(out, want)}")
+                runs[way].append((wall, split))
+                del out
+            for chunk in chunks:
+                walls.setdefault((size, chunk), {})[method] = (
+                    [w for w, _ in runs[chunk]], [w for w, _ in runs["monolithic"]])
+            for way in ways:
+                label = "monolithic" if way == "monolithic" else f"pipelined, {way >> 20} MB chunks ({n_chunks[way]})"
+                med = statistics.median(w for w, _ in runs[way])
+                log(f"# phase 10b: -m {method}, {sites} sites ({size / 1e6:.0f} MB), {label}: median "
+                    f"{med * 1e3:.1f} ms, {sites / med:,.0f} sites/s; runs "
+                    + "; ".join(f"{w * 1e3:.1f} ms (" + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sp.items()) + ")"
+                                for w, sp in runs[way])
+                    + f"; on {card}")
+            mono = statistics.median(w for w, _ in runs["monolithic"])
+            log(f"# phase 10b: -m {method}, {sites} sites: pipelined / monolithic (medians) "
+                + ", ".join(f"{c >> 20} MB chunks {statistics.median(w for w, _ in runs[c]) / mono:.3f}"
+                            for c in chunks)
+                + ("; outputs byte-equal, SHA-256 " + digest if digest else "; outputs byte-equal")
+                + f"; one launch of {pipeline_kernel(method)} a chunk, one a monolithic run; on {card}")
+            del want
+
+    # exact_pvalues=False at 1M sites: B5 and B6 full once a chunk, the CSV
+    # within the tolerance of the monolithic run
+    chunk = PIPE_CHUNKS[N_QUALITY][0]
+    n_chunks = count_chunks(small, chunk)
+    for method in PIPE_METHODS:
+        opts = Options(method=method, exact_pvalues=False)
+        reset_pipeline_counters()
+        got = engine._run_pipelined_single_pass(small, opts, None, True, chunk)
+        pipelined_launches(f"{method} exact_pvalues=False, pipelined", opts, n_chunks)
+        reset_pipeline_counters()
+        want = engine._run_monolithic(small, opts, None, True)
+        check_launches(f"{method} exact_pvalues=False, monolithic", opts, 1)
+        n_diff = csv_close(f"-m {method} exact_pvalues=False, pipelined vs monolithic", got, want)
+        log(f"# phase 10b: -m {method} exact_pvalues=False, {N_QUALITY} sites, {chunk >> 20} MB chunks: "
+            f"{pipeline_kernel(method, False)} once a chunk ({n_chunks}); within the tolerance of the monolithic "
+            f"run ({n_diff} lines differ in bytes)")
+
+    # a parse error in a late chunk names the file's line
+    bad = os.path.join(workdir, "phred_1m_bad.pileup")
+    with open(small, "rb") as f:
+        text = f.read()
+    at = 0
+    for _ in range(PIPE_BAD_LINE - 1):
+        at = text.index(b"\n", at) + 1
+    with open(bad, "wb") as f:
+        f.write(text[:at] + b"not a pileup line" + text[text.index(b"\n", at):])
+    del text
+    try:
+        engine._run_pipelined_single_pass(bad, Options(), None, True, chunk)
+        raise AssertionError("the planted parse error was not raised")
+    except SidParseError as e:
+        if e.line_number != PIPE_BAD_LINE:
+            raise AssertionError(f"the planted parse error at line {PIPE_BAD_LINE} reported line {e.line_number}")
+    os.remove(bad)
+    log(f"# phase 10b: a malformed line {PIPE_BAD_LINE} (byte {at:,} of {os.path.getsize(small):,}, {chunk >> 20} MB "
+        f"chunks) raised with its line in the file")
+
+    gate, gate_chunk = pipeline_gate(walls)
+    log("# phase 10b: the gate these walls give: "
+        + (f"{gate} bytes ({gate / 1e6:.0f} MB), {gate_chunk >> 20} MB chunks" if gate else "none (the pipeline "
+           "wins at no size for both methods): keep 1 GiB and 128 MB")
+        + f"; the engine's: PIPELINE_MIN_BYTES {engine.PIPELINE_MIN_BYTES}, PIPELINE_CHUNK_BYTES "
+        f"{engine.PIPELINE_CHUNK_BYTES}; phase 10b took {time.perf_counter() - t_phase:.1f} s")
+    log("# kernel launches on the pipeline's runs: " + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return total
 
 
 # ---- phase 13: the fused on-device LRT (exact_pvalues=False) ----
@@ -2239,9 +2462,7 @@ def path_kernels(kw: dict, fit: str) -> tuple:
 
 
 def stage_split(prof) -> str:
-    split = {}
-    for name, sec in prof.stages:
-        split[name] = split.get(name, 0.0) + sec
+    split = stage_sums(prof)
     cuda = {k: v for k, v in prof.counters.items() if k.endswith(":cuda_ms")}
     return ", ".join([f"{k} {v * 1e3:.1f} ms" for k, v in split.items()]
                      + [f"{k} {v:.3f}" for k, v in cuda.items()])
@@ -3972,7 +4193,7 @@ def main() -> int:
         quality_row["launches"], qsrc = quality_path_phase(torch, dev, card, workdir, golden_src, real_src)
         with open(qsrc, "rb") as f:
             qbytes = f.read()  # phase 16's -m quality input
-        stream_phase(card, workdir, qsrc)
+        pipeline_launches = stream_phase(card, workdir, qsrc)
         small_prof = unique_profiles(parse_pileup(synth).counts)[0]
         parent = parent_device_lrt(build, args.parent) if args.parent else None
         lrt_rows = device_lrt_kernel_phase(torch, dev, card, sass, prof_np, lrt_marginals, fit_prof, small_prof,
@@ -4034,6 +4255,7 @@ def main() -> int:
         row["launches"] = lrt_launches[row["name"]]
     kernel_rows += lrt_rows
     scale_out["mesh"] = mesh_launches
+    scale_out["pipeline"] = pipeline_launches
     for row in kernel_rows:
         for path, launches in scale_out.items():
             if row["name"] in launches:

@@ -3,9 +3,12 @@
 Mirrors the reference's method dispatch (sid.cpp:92-100), including the
 quirk that an unrecognized method produces no records (the CLI then prints
 only the CSV header). ``options.engine`` selects the device path (default)
-or the host long-double oracle. ``run`` calls a whole input in memory;
-``run_streaming`` calls it in two passes over newline-aligned chunks, with
-the same output. ``--per-shard-fit`` calls each chromosome alone
+or the host long-double oracle. ``run`` calls a whole input in memory,
+or, for ``local`` and ``quality`` on an input of at least
+``PIPELINE_MIN_BYTES``, in one pass over newline-aligned chunks whose
+parse overlaps the call of the chunk before (the chunk pipeline);
+``run_streaming`` calls it in two passes over chunks. All three give the
+same output. ``--per-shard-fit`` calls each chromosome alone
 (``parallel.pipeline``); ``run_streaming`` does not read it, as sid_tpu's
 does not (``ROADMAP.md`` C9). Population mode (many samples) is
 ``models.population`` and ``--multihost`` ``parallel.distributed``, which
@@ -20,6 +23,7 @@ import dataclasses
 import io as _io
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
@@ -27,7 +31,7 @@ import numpy as np
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.exact import engine as exact_engine
 from sid_tpu_torch.io.pileup import PileupBatch, parse_pileup
-from sid_tpu_torch.io.stream import accumulate_histogram, iter_chunks, pack_profiles
+from sid_tpu_torch.io.stream import accumulate_histogram, iter_chunks, pack_profiles, parse_chunk, with_offsets
 from sid_tpu_torch.models import bayes, common, likelihood_ratio, local, quality
 from sid_tpu_torch.models.common import CSV_HEADER, CallResult
 from sid_tpu_torch.models.lynch import estimate_prior_heterozygosity
@@ -37,6 +41,17 @@ from sid_tpu_torch.utils import checkpoint as ckpt
 from sid_tpu_torch.utils import profiling
 
 METHODS = ("local", "bayes", "likelihood_ratio", "quality")
+
+# The chunk pipeline's size gate and chunk size, from the walls of
+# scripts/pipeline_variants.py (this design: "main reads") on an NVIDIA
+# H100 80GB HBM3 at 700 W with 8 host cores, medians of three runs in
+# turns; chip_smoke.py phase 10b measures them again. At 1.11 GB (10M
+# sites) with 128 MB chunks -m local took 1379 ms pipelined against 1494
+# monolithic and -m quality 1649 against 2008 (32 MB chunks: 1465 and
+# 1755); at 110 MB (1M sites, 32 MB chunks) -m local took 161 against 150.
+# So the gate is the 10M-site file's size, rounded down.
+PIPELINE_MIN_BYTES = 1_100_000_000
+PIPELINE_CHUNK_BYTES = 128 << 20
 
 _TABLES = {
     "device": {
@@ -82,8 +97,20 @@ def run(
     returns the native serializer's bytes (the CLI's path); default
     returns str. ``-m quality`` parses both quality columns: terms only
     under the device engine, the per-read arrays for the exact engine.
+    Bytes and paths of at least ``PIPELINE_MIN_BYTES`` (a ``.gz`` path by
+    its size on disk) take the chunk pipeline where ``_pipeline_eligible``
+    allows it (sid_tpu/engine.py:72-78); a file object never does.
     """
     options = options or Options()
+    if isinstance(src, (bytes, bytearray)) and _pipeline_eligible(options, len(src)):
+        return _run_pipelined_single_pass(bytes(src), options, diag, binary, PIPELINE_CHUNK_BYTES)
+    if isinstance(src, (str, os.PathLike)) and _pipeline_eligible(options, os.path.getsize(src)):
+        return _run_pipelined_single_pass(src, options, diag, binary, PIPELINE_CHUNK_BYTES)
+    return _run_monolithic(src, options, diag, binary)
+
+
+def _run_monolithic(src, options: Options, diag, binary: bool):
+    """``run`` on the whole input at once: one parse, one call, one CSV."""
     needs_reads = options.method == "quality"
     with profiling.maybe_stage("parse"):
         batch = parse_pileup(
@@ -97,6 +124,64 @@ def run(
         return header.encode() if binary else header
     with profiling.maybe_stage("serialize"):
         return result.to_csv_bytes() if binary else result.to_csv()
+
+
+def _pipeline_eligible(options: Options, size: int) -> bool:
+    """Methods whose calls are independent per chunk (no fitted prior, no
+    per-shard fit) on the device engine, at ``PIPELINE_MIN_BYTES`` or more
+    (sid_tpu/engine.py:313-320; ``--devices`` does not exclude it)."""
+    return (
+        options.method in ("local", "quality")
+        and not options.estimate_prior
+        and not options.per_shard_fit
+        and options.engine == "device"
+        and size >= PIPELINE_MIN_BYTES
+    )
+
+
+def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_bytes: int):
+    """The chunk pipeline (sid_tpu/engine.py:271-310): one worker thread
+    parses chunk k+1 (libsidtpu's parser releases the GIL) while this
+    thread calls chunk k on the device and serializes it; the parts are
+    joined after the header, byte-equal to ``_run_monolithic``. The worker
+    touches neither CUDA nor a pinned buffer. Under ``--profile`` the pass
+    is one top-level ``pipeline`` stage, and this thread's waits on the
+    parse, calls and serializations nest in it as ``pipeline:parse_wait``,
+    ``pipeline:call`` and ``pipeline:serialize``. A parse error names the
+    file's line; it is raised here after the worker's parse of the next
+    chunk ends."""
+    needs_reads = options.method == "quality"
+
+    def parse(offset, chunk):
+        return parse_chunk(src, offset, chunk, needs_reads, needs_reads, backend=options.io_backend,
+                           quality_terms_only=needs_reads)
+
+    def process(fut):
+        with profiling.maybe_stage("pipeline:parse_wait"):
+            batch = fut.result()
+        if batch.num_sites == 0:
+            return b"" if binary else ""
+        with profiling.maybe_stage("pipeline:call"):
+            result = call_batch(batch, options, diag)
+        with profiling.maybe_stage("pipeline:serialize"):
+            if binary:
+                return result.to_csv_bytes(include_header=False)
+            return result.to_csv(include_header=False)
+
+    header = CSV_HEADER + "\n"
+    parts = [header.encode() if binary else header]
+    with profiling.maybe_stage("pipeline"), ThreadPoolExecutor(1) as ex:
+        chunks = with_offsets(iter_chunks(src, chunk_bytes))
+        first = next(chunks, None)
+        if first is None:
+            return parts[0]
+        fut = ex.submit(parse, *first)
+        for located in chunks:
+            nxt = ex.submit(parse, *located)
+            parts.append(process(fut))
+            fut = nxt
+        parts.append(process(fut))
+    return (b"" if binary else "").join(parts)
 
 
 @dataclasses.dataclass
@@ -223,12 +308,12 @@ def run_streaming(
     # ---- pass 2: classify or join chunk by chunk ----
     needs_reads = method == "quality"
     emitted = 0
-    for chunk_no, chunk in enumerate(iter_chunks(src, chunk_bytes)):
+    for chunk_no, (offset, chunk) in enumerate(with_offsets(iter_chunks(src, chunk_bytes))):
         if chunk_no < start_chunk:
             continue
         with profiling.maybe_stage("parse"):
-            batch = parse_pileup(chunk, needs_reads, needs_reads, backend=options.io_backend,
-                                 quality_terms_only=needs_reads)
+            batch = parse_chunk(src, offset, chunk, needs_reads, needs_reads, backend=options.io_backend,
+                                quality_terms_only=needs_reads)
         if batch.num_sites == 0:
             continue
         with profiling.maybe_stage("call"):

@@ -5,19 +5,23 @@ The reference materializes the whole pileup in RAM (call.cpp:11-20). For
 whole-genome runs ``engine.run_streaming`` streams instead: pass 1 folds
 each chunk into the unique-profile histogram (the Lynch fit's sufficient
 statistic); pass 2 re-parses chunk by chunk, classifies, and appends CSV —
-memory is bounded by the chunk size, not the genome.
+memory is bounded by the chunk size, not the genome. A chunk is parsed
+with its offset in the input (``parse_chunk``), so a malformed line is
+reported by its line in the file, not in the chunk.
 """
 
 from __future__ import annotations
 
 import gzip
 import io as _io
+import mmap
 import os
 from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 
-from sid_tpu_torch.io.pileup import parse_pileup
+from sid_tpu_torch.io.pileup import PileupBatch, parse_pileup
+from sid_tpu_torch.utils.errors import SidParseError
 
 DEFAULT_CHUNK_BYTES = 64 << 20
 
@@ -54,7 +58,12 @@ def iter_chunks(
     Gzip input (detected by magic bytes) is decompressed transparently —
     the reference's pipelines zcat externally
     (scripts/sid-pipeline/run-sid.sh); here `.gz` is a first-class input.
+    Plain bytes and plain files (mapped) are cut in place: one copy a
+    chunk, the chunks of the stream loop below.
     """
+    if isinstance(src, bytes) and src[:2] != GZIP_MAGIC:
+        yield from _cut(src, chunk_bytes)
+        return
     raw = None
     if isinstance(src, bytes):
         stream: _io.IOBase = _maybe_gzip(_io.BytesIO(src))
@@ -67,6 +76,10 @@ def iter_chunks(
         stream = _maybe_gzip(src)
         close = False
     try:
+        if stream is raw and os.fstat(raw.fileno()).st_size:
+            with mmap.mmap(raw.fileno(), 0, access=mmap.ACCESS_READ) as mapped:
+                yield from _cut(mapped, chunk_bytes)
+            return
         carry = b""
         while True:
             block = stream.read(chunk_bytes)
@@ -88,6 +101,53 @@ def iter_chunks(
             stream.close()
             if raw is not None and raw is not stream:
                 raw.close()
+
+
+def _cut(buf, chunk_bytes: int) -> Iterator[bytes]:
+    """The stream loop's chunks of a whole buffer (bytes or a mapped file),
+    cut where it cuts them: after the last newline of the bytes read so
+    far, ``chunk_bytes`` a read, and the rest at the end."""
+    n = len(buf)
+    start = read = 0
+    while read < n:
+        read = min(read + chunk_bytes, n)
+        cut = buf.rfind(b"\n", start, read)
+        if cut >= 0:
+            yield buf[start:cut + 1]
+            start = cut + 1
+    if start < n:
+        yield buf[start:n]
+
+
+def with_offsets(chunks: Iterator[bytes], start: int = 0) -> Iterator[Tuple[int, bytes]]:
+    """(offset, chunk) of consecutive chunks of a text, the first at ``start``."""
+    for chunk in chunks:
+        yield start, chunk
+        start += len(chunk)
+
+
+def lines_before(src, offset: int) -> int:
+    """Newlines in the first ``offset`` bytes of ``src``'s text (a path or
+    bytes, gzip decompressed)."""
+    n = 0
+    for chunk in iter_chunks(src):
+        if len(chunk) >= offset:
+            return n + chunk.count(b"\n", 0, offset)
+        n += chunk.count(b"\n")
+        offset -= len(chunk)
+    return n
+
+
+def parse_chunk(src, offset: int, chunk: bytes, *args, **kwargs) -> PileupBatch:
+    """``parse_pileup(chunk, *args, **kwargs)`` of a chunk that starts
+    ``offset`` bytes into ``src``'s text: a malformed line's number counts
+    from the start of ``src``. The lines before the chunk are counted only
+    when the parse fails, so a clean parse costs nothing more."""
+    try:
+        return parse_pileup(chunk, *args, **kwargs)
+    except SidParseError as e:
+        e.line_number += lines_before(src, offset)
+        raise
 
 
 def pack_profiles(profiles: np.ndarray) -> np.ndarray:
@@ -143,16 +203,18 @@ def iter_range_chunks(
 
 
 def accumulate_histogram_chunks(
-    chunks: Iterator[bytes],
+    src,
+    chunks: Iterator[Tuple[int, bytes]],
     backend: str = "auto",
 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Merge per-chunk unique-profile histograms over an explicit chunk
-    iterator. Returns (profiles (U,4) sorted, mult (U,), total_sites)."""
+    """Merge per-chunk unique-profile histograms over explicit (offset,
+    chunk) pairs of ``src``'s text. Returns (profiles (U,4) sorted, mult
+    (U,), total_sites)."""
     keys_acc: Optional[np.ndarray] = None
     mult_acc: Optional[np.ndarray] = None
     total = 0
-    for chunk in chunks:
-        batch = parse_pileup(chunk, backend=backend)
+    for offset, chunk in chunks:
+        batch = parse_chunk(src, offset, chunk, backend=backend)
         total += batch.num_sites
         if batch.num_sites == 0:
             continue
@@ -180,4 +242,4 @@ def accumulate_histogram(
 
     Returns (profiles (U,4) sorted, mult (U,), total_sites).
     """
-    return accumulate_histogram_chunks(iter_chunks(src, chunk_bytes), backend)
+    return accumulate_histogram_chunks(src, with_offsets(iter_chunks(src, chunk_bytes)), backend)

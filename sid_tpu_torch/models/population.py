@@ -303,8 +303,9 @@ def call_population_streaming(
     per-class join (or per-site quality calls) and writing
     ``<path>.calls.csv``. Returns per-sample record counts.
     """
-    from sid_tpu_torch.io.pileup import parse_pileup
-    from sid_tpu_torch.io.stream import accumulate_histogram, iter_chunks, pack_profiles
+    from sid_tpu_torch.io.stream import (
+        accumulate_histogram, iter_chunks, pack_profiles, parse_chunk, with_offsets,
+    )
     from sid_tpu_torch.models.quality import call_quality
 
     full_hists = []
@@ -331,9 +332,9 @@ def call_population_streaming(
             keys = pack_profiles(src)
         with open(out_path, "wb") as out:
             out.write((common.CSV_HEADER + "\n").encode())
-            for chunk in iter_chunks(path, chunk_bytes):
-                batch = parse_pileup(chunk, needs_reads, needs_reads, backend=options.io_backend,
-                                     quality_terms_only=needs_reads)
+            for offset, chunk in with_offsets(iter_chunks(path, chunk_bytes)):
+                batch = parse_chunk(path, offset, chunk, needs_reads, needs_reads,
+                                    backend=options.io_backend, quality_terms_only=needs_reads)
                 if batch.num_sites == 0:
                     continue
                 if needs_reads:

@@ -27,12 +27,13 @@ import torch.distributed as dist
 
 from sid_tpu_torch import engine
 from sid_tpu_torch.config import Options
-from sid_tpu_torch.io.pileup import parse_pileup
 from sid_tpu_torch.io.stream import (
     accumulate_histogram_chunks,
     iter_range_chunks,
     pack_profiles,
+    parse_chunk,
     unpack_profiles,
+    with_offsets,
 )
 from sid_tpu_torch.models.common import CSV_HEADER
 from sid_tpu_torch.utils import checkpoint as ckpt
@@ -208,8 +209,8 @@ def run_multihost(
         else:
             with profiling.maybe_stage("histogram"):
                 chunks = (c for start, end in my_ranges
-                          for c in iter_range_chunks(path, start, end, chunk_bytes))
-                lp, lm, _ = accumulate_histogram_chunks(chunks, options.io_backend)
+                          for c in with_offsets(iter_range_chunks(path, start, end, chunk_bytes), start))
+                lp, lm, _ = accumulate_histogram_chunks(path, chunks, options.io_backend)
                 profiles, mult = allgather_histogram(lp, lm)
             if options.checkpoint and pid == 0:
                 ckpt.save_fit_state(options.checkpoint, profiles, mult, fingerprint=fp)
@@ -229,10 +230,10 @@ def run_multihost(
                     continue
         tmp = part + ".tmp"
         with open(tmp, "wb") as f:
-            for chunk in iter_range_chunks(path, start, end, chunk_bytes):
+            for offset, chunk in with_offsets(iter_range_chunks(path, start, end, chunk_bytes), start):
                 with profiling.maybe_stage("parse"):
-                    batch = parse_pileup(chunk, needs_reads, needs_reads, backend=options.io_backend,
-                                         quality_terms_only=needs_reads)
+                    batch = parse_chunk(path, offset, chunk, needs_reads, needs_reads,
+                                        backend=options.io_backend, quality_terms_only=needs_reads)
                 with profiling.maybe_stage("call"):
                     res = engine.call_chunk(batch, table)
                 with profiling.maybe_stage("serialize"):

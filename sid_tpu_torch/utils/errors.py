@@ -16,7 +16,9 @@ MALFORMED_OR_MISSING = "Malformed pileup line or missing mapping qualities"
 
 
 class SidParseError(ValueError):
-    """Raised in strict mode on a malformed pileup line."""
+    """Raised in strict mode on a malformed pileup line. ``line_number`` is
+    1-based and counts from the start of the input file (or bytes): a
+    parse of one chunk adds the lines before it (``io.stream.parse_chunk``)."""
 
     def __init__(self, message: str, line_number: int = -1):
         super().__init__(message)
@@ -25,7 +27,7 @@ class SidParseError(ValueError):
 
 @dataclasses.dataclass
 class ParseErrorRecord:
-    line_number: int  # 1-based line number within the parsed stream/shard
+    line_number: int  # 1-based line number within the buffer given to the parser
     message: str
     snippet: str = ""
 

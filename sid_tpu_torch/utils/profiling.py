@@ -1,6 +1,7 @@
 """Per-stage wall-clock timers and sites/sec counters (``--profile``).
 
-A run records stage timings (parse, call, serialize, the device block) and
+A run records stage timings (parse, call, serialize, the device block;
+the chunk pipeline's pass and, nested in it, its waits on the parse) and
 derived throughput, printable as a stderr report or a dict;
 ``SIDTPU_TRACE=<dir>`` also records a ``torch.profiler`` trace of the work
 between ``start_device_trace`` and ``stop_device_trace`` into that
@@ -73,9 +74,10 @@ class StageProfile:
         return path
 
     def total(self) -> float:
-        """Wall seconds of the top-level stages (device stages nest inside
-        "call" and are not counted twice)."""
-        return sum(s for name, s in self.stages if not name.startswith("device:"))
+        """Wall seconds of the top-level stages. A stage named with a
+        prefix ("device:", "host:", "pipeline:") nests inside a top-level
+        one ("call", "pipeline") and is not counted twice."""
+        return sum(s for name, s in self.stages if ":" not in name)
 
     def report(self, log=None) -> str:
         lines = []

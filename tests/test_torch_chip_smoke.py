@@ -222,3 +222,85 @@ def test_fold_row_of_the_kernels_line(monkeypatch):
     assert row["replaces"] == "sid_tpu/parallel/fit.py:29" and row["source"] == "sid_tpu_torch/csrc/lynch.cu"
     assert row["bound_by"] == "bytes" and row["bound_ms"] == pytest.approx((969 * 12 + 16) / 3.35e12 * 1e3)
     assert row["n_chunks"] == 969
+
+
+@pytest.mark.parametrize("walls, want", [
+    # (size, chunk) -> method -> (pipelined walls, monolithic walls)
+    ({(1, 32): {"local": ([1.0], [1.1]), "quality": ([2.0], [2.1])},
+      (9, 32): {"local": ([8.0], [9.0]), "quality": ([8.0], [9.0])}}, (1, 32)),
+    ({(1, 32): {"local": ([1.0], [1.1]), "quality": ([2.2], [2.1])},
+      (9, 32): {"local": ([8.0], [9.0]), "quality": ([8.5], [9.0])},
+      (9, 128): {"local": ([7.0], [9.0]), "quality": ([8.0], [9.0])}}, (9, 128)),
+    ({(1, 32): {"local": ([1.2, 1.0, 1.3], [1.1, 1.1, 1.1]), "quality": ([2.0], [2.1])}}, (None, None)),
+], ids=["smallest-size", "faster-chunk", "nowhere"])
+def test_pipeline_gate(walls, want):
+    assert chip_smoke.pipeline_gate(walls) == want
+
+
+def test_pipeline_counters_are_the_wrappers():
+    from sid_tpu_torch.ops import local_classify as lc
+    from sid_tpu_torch.ops import quality_finalize as qf
+
+    lc.LRT_LAUNCHES, qf.LAUNCHES = 2, 7
+    assert chip_smoke.pipeline_counters()["local_classify_lrt"] == 2
+    assert chip_smoke.pipeline_counters()["quality_finalize"] == 7
+    chip_smoke.reset_pipeline_counters()
+    assert set(chip_smoke.pipeline_counters().values()) == {0}
+    assert {chip_smoke.pipeline_kernel(m, e) for m in ("local", "quality") for e in (True, False)} == set(
+        chip_smoke.pipeline_counters())
+
+
+def test_phase_10b_runs_in_stream_phase():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.stream_phase)
+    assert src.index("engine._run_monolithic(big") < src.index("return pipeline_phase(card, workdir, qsrc, big)")
+    assert "pipeline_launches = stream_phase(" in inspect.getsource(chip_smoke.main)
+    assert chip_smoke.PIPE_CHUNKS == {chip_smoke.N_QUALITY: (32 << 20,),
+                                      chip_smoke.N_STREAM: (32 << 20, 128 << 20)}
+
+
+def test_pipeline_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 10b at a tiny size on the CPU: the plain versions launch no
+    kernel, so a call of the engine's call_batch stands for one launch; the
+    larger file's run at the engine's chunk size goes through engine.run."""
+    import torch
+
+    from sid_tpu_torch import engine
+    from sid_tpu_torch.config import Options
+
+    monkeypatch.setattr(Options, "device", lambda self: torch.device("cpu"))
+    calls = {}
+    real_call = engine.call_batch
+
+    def counting_call(batch, options, diag=None):
+        kernel = chip_smoke.pipeline_kernel(options.method, options.exact_pvalues)
+        calls[kernel] = calls.get(kernel, 0) + 1
+        return real_call(batch, options, diag)
+
+    runs = []
+    real_run = engine.run
+    monkeypatch.setattr(engine, "call_batch", counting_call)
+    monkeypatch.setattr(engine, "run", lambda *a, **k: (runs.append(a[0]), real_run(*a, **k))[1])
+    monkeypatch.setattr(chip_smoke, "pipeline_counters", lambda: {
+        k: calls.get(k, 0) for k in ("local_log_likelihoods", "local_classify_lrt", "quality_finalize",
+                                     "quality_finalize_lrt")})
+    monkeypatch.setattr(chip_smoke, "reset_pipeline_counters", calls.clear)
+    monkeypatch.setattr(chip_smoke, "N_QUALITY", 3_000)
+    monkeypatch.setattr(chip_smoke, "N_STREAM", 8_000)
+    monkeypatch.setattr(chip_smoke, "PIPE_CHUNKS", {3_000: (64 << 10,), 8_000: (64 << 10, 256 << 10)})
+    monkeypatch.setattr(chip_smoke, "PIPE_BAD_LINE", 2_501)
+    small, big = str(tmp_path / "small.pileup"), str(tmp_path / "big.pileup")
+    chip_smoke.write_phred_pileup(small, 3_000, seed=8)
+    size = chip_smoke.write_phred_pileup(big, 8_000, seed=20)
+    monkeypatch.setattr(engine, "PIPELINE_MIN_BYTES", size)
+    monkeypatch.setattr(engine, "PIPELINE_CHUNK_BYTES", 256 << 10)
+    launches = chip_smoke.pipeline_phase("cpu", str(tmp_path), small, big)
+    n_small = chip_smoke.count_chunks(small, 64 << 10)
+    n_big = [chip_smoke.count_chunks(big, c) for c in (64 << 10, 256 << 10)]
+    per_method = 3 * (n_small + sum(n_big))
+    assert n_small > 1 and n_big[1] > 1
+    assert launches == {"local_log_likelihoods": per_method, "quality_finalize": per_method,
+                        "local_classify_lrt": n_small, "quality_finalize_lrt": n_small}
+    assert runs == [big] * 6
+    assert sorted(os.listdir(tmp_path)) == ["big.pileup", "small.pileup"]

@@ -60,6 +60,23 @@ class TestIterChunks:
         data = b"c\t1\tA\t1\t.\nc\t2\tA\t1\t."
         assert list(stream.iter_chunks(data, 4)) == [b"c\t1\tA\t1\t.\n", b"c\t2\tA\t1\t."]
 
+    @pytest.mark.parametrize("seed", range(4))
+    def test_cut_in_place_equals_the_stream_loop(self, tmp_path, seed):
+        """Plain bytes and plain files are cut in place (one copy a chunk):
+        the chunks of sid_tpu's stream loop, for lines longer and shorter
+        than a chunk, with and without a last newline, and an empty file."""
+        rng = np.random.default_rng(seed)
+        path = tmp_path / "in.txt"
+        for _ in range(50):
+            lines = [b"x" * int(k) for k in rng.integers(0, 40, rng.integers(0, 30))]
+            data = b"\n".join(lines) + [b"", b"\n", b"tail"][rng.integers(3)]
+            chunk = int(rng.integers(1, 60))
+            want = list(ref_stream.iter_chunks(io.BytesIO(data), chunk))
+            path.write_bytes(data)
+            assert list(stream.iter_chunks(data, chunk)) == want
+            assert list(stream.iter_chunks(str(path), chunk)) == want
+            assert list(stream.iter_chunks(io.BytesIO(data), chunk)) == want
+
     def test_gzip_by_magic(self, text, tmp_path):
         gz = gzip.compress(text)
         path = tmp_path / "renamed.txt"  # no .gz suffix: detected by content
