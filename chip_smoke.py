@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch / CUDA port on one CUDA card:
 
     python3 chip_smoke.py [--parent DIR]
-    python3 chip_smoke.py --lane-variants | --b5-variants | --bh-variants | --lrt-variants
+    python3 chip_smoke.py --lane-variants | --shard-variants | --b5-variants | --bh-variants | --lrt-variants
 
 ``--parent DIR`` names an unpacked tree of the parent commit (git archive
 into a git-ignored directory) whose csrc/local_classify.cu (B1, B5),
@@ -13,13 +13,19 @@ report, holds B5's p1, p2 and byte, the LRT's p1 and p2 (with and without
 a prior, and one-sided), BH's out and is_het and B6 full's p1, p2, is_het
 and miss count bitwise against this tree's at U = 1M (N = 1M for B6 full)
 and at the simulated sites' ~2,000 profiles, and times them, device only
-and whole calls, in turns (B1 too).
+and whole calls, in turns (B1 too); and in phase 16 (d) its csrc/lynch.cu:
+its sharded evaluation (B2's partials-only mode per shard and the fold
+kernel) bitwise this tree's one launch and timed in turns with it at
+k = 1, 4 and 8 shards.
 ``--lane-variants`` builds variants of the lane kernels instead
 (``LANE_VARIANTS``: a launch bound of 2 blocks an SM, the lane table in
 global memory, every lane folded by the last block, four marginals rows
 a thread, the slot search unrolled), holds them bitwise against the
 committed kernels at phase 11's and phase 12's cohort shapes, times them
-in turns, and stops. ``--b5-variants`` (``B5_VARIANTS``),
+in turns, and stops. ``--shard-variants`` (``SHARD_VARIANTS``) builds
+the sharded objective with its table of shards in global memory (staged in
+shared memory or read where used) and prints ptxas's registers and spill
+bytes beside the committed kernel parameter's. ``--b5-variants`` (``B5_VARIANTS``),
 ``--bh-variants`` (``BH_VARIANTS``) and ``--lrt-variants``
 (``LRT_VARIANTS``, ``B6_LRT_VARIANTS``) do the same for B5's design
 choices (the table staged or not, 5 or 6 blocks an SM), for BH's (the
@@ -197,13 +203,19 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    without --devices under --fit device (the path's launches counted from
    0); (b) fit_lynch_global over [cuda:0] x k, k = 1, 2, 3, 4, 8, at phase
    7's U = 991,985: (pi, eps) and both log-L arrays bitwise the one-device
-   fit, the partials and fold launches an evaluation, the walls; the C2
-   repro planted in the last shard, the objective and marginals bitwise
-   the one-device objective's; B2's partials mode bitwise its plain version
-   over 4 shards, its times and bound; (c) the cohort's fits over
+   fit, one launch of the sharded objective (lynch_nll_shards_kernel) an
+   evaluation by the wrapper's and the library's counters, the walls; the
+   C2 repro planted in the last shard, the objective and marginals bitwise
+   the one-device objective's; the last shard in a launch group of its
+   own, its chunk sums copied into the fold's buffers (a second card's
+   path, as a copy on one card), bitwise; (c) the cohort's fits over
    [cuda:0] x 2 and x 4 at phase 12's shape, bitwise the unsharded fits;
-   (d) lynch_fold_kernel bitwise fold_chunk_sums_ref at 1, 2, 255, 256,
-   257 and 973 chunks, its times and bound (12 B a chunk);
+   (d) the sharded objective's launch bitwise its plain version
+   (lynch_nll_shards_ref: [sum, count], chunk sums and counts, flags) over
+   [cuda:0] x 1, 4, 8 at 1, 2, 255, 256, 257 and 973 chunks and at phase
+   7's U; there its call, device-only and plain times, torch.sum of the
+   chunk sums (the fold's share), the bound and its share (with --parent,
+   the parent's partials launches and fold in turns with it);
 17. prints a JSON line of kernel results (with each kernel's launches on
    phases 14, 15, 16 and 10b's pipelined runs as launches_per_shard,
    launches_multihost, launches_mesh and launches_pipeline), then the
@@ -1997,14 +2009,14 @@ def lanes_kernel_phase(torch, dev, card, sass):
     after = lo.kernel_launches()
     per_call = {k: after[k] - before[k] for k in after}
     if per_call != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 1, "marginals_lanes": 0,
-                    "nll_partials": 0, "fold": 0}:
+                    "nll_shards": 0}:
         raise AssertionError(f"one lanes' objective call: launches {per_call}")
     before = lo.kernel_launches()
     work.marginals_lanes_host(theta_sets[0])
     after = lo.kernel_launches()
     per_marg = {k: after[k] - before[k] for k in after}
     if per_marg != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 1,
-                    "nll_partials": 0, "fold": 0}:
+                    "nll_shards": 0}:
         raise AssertionError(f"one lanes' marginals call: launches {per_marg}")
     log(f"# one call is one launch (the kernel library's counters): objective {per_call}, marginals {per_marg}")
 
@@ -2664,10 +2676,14 @@ def scale_out_phases(card) -> dict:
 
 
 # ---- phase 16: --devices (B10's sharded fit, B9's sample-axis blocks) ----
-# shard counts of the fit over [cuda:0] * k, of the cohort's fits, and the
-# fold kernel's chunk counts held against its plain version
+# shard counts of the fit over [cuda:0] * k, of the cohort's fits, of the
+# sharded objective's checks and times, one count above a launch's table of
+# 32 shards, and the chunk counts at which it is held against its plain
+# version (around the fold's 256 threads)
 MESH_SHARDS = (1, 2, 3, 4, 8)
 MESH_POP_SHARDS = (2, 4)
+MESH_D_SHARDS = (1, 4, 8)
+MESH_MANY_SHARDS = 40
 FOLD_CHUNKS = (1, 2, 255, 256, 257, 973)
 # thetas of the objective with the C2 repro planted in the last shard (the
 # fitted theta is added); each evaluation replays the row in long double
@@ -2688,8 +2704,8 @@ def mesh_counters() -> dict:
     from sid_tpu_torch.ops import quality_finalize as qf
 
     return {"local_log_likelihoods": local_classify.LAUNCHES, "lynch_records": lo.RECORD_LAUNCHES,
-            "lynch_compound_nll": lo.NLL_LAUNCHES, "lynch_compound_nll_partials": lo.NLL_PARTIALS_LAUNCHES,
-            "lynch_fold": lo.FOLD_LAUNCHES, "lynch_marginals": lo.MARGINALS_LAUNCHES,
+            "lynch_compound_nll": lo.NLL_LAUNCHES, "lynch_compound_nll_shards": lo.NLL_SHARDS_LAUNCHES,
+            "lynch_marginals": lo.MARGINALS_LAUNCHES,
             "quality_finalize": qf.LAUNCHES, "lynch_compound_nll_lanes": lo.NLL_LANES_LAUNCHES,
             "lynch_marginals_lanes": lo.MARGINALS_LANES_LAUNCHES}
 
@@ -2699,7 +2715,7 @@ def reset_mesh_counters() -> None:
     from sid_tpu_torch.ops import quality_finalize as qf
 
     local_classify.LAUNCHES = qf.LAUNCHES = 0
-    lo.RECORD_LAUNCHES = lo.NLL_LAUNCHES = lo.NLL_PARTIALS_LAUNCHES = lo.FOLD_LAUNCHES = 0
+    lo.RECORD_LAUNCHES = lo.NLL_LAUNCHES = lo.NLL_SHARDS_LAUNCHES = 0
     lo.MARGINALS_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
 
 
@@ -2760,8 +2776,8 @@ def mesh_path_runs(card, synth: bytes, qbytes: bytes) -> dict:
             raise AssertionError(f"--devices 1 {label}: differs from the run without it: "
                                  f"{first_difference(got, want[label][0])}; {lines} vs {want[label][1]}")
     launches = mesh_counters()
-    for k in ("local_log_likelihoods", "lynch_records", "lynch_compound_nll_partials", "lynch_fold",
-              "lynch_marginals", "quality_finalize"):
+    for k in ("local_log_likelihoods", "lynch_records", "lynch_compound_nll_shards", "lynch_marginals",
+              "quality_finalize"):
         if not launches[k]:
             raise AssertionError(f"the --devices 1 path launched no {k}: {launches}")
     if launches["lynch_compound_nll"]:
@@ -2773,23 +2789,28 @@ def mesh_path_runs(card, synth: bytes, qbytes: bytes) -> dict:
     return launches
 
 
-def mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult) -> dict:
+def mesh_fit_runs(torch, dev, card, h_prof, h_mult) -> None:
     """Phase 16 (b): fit_lynch_global over [cuda:0] * k for MESH_SHARDS at
     phase 7's U, (pi, eps) and both log-L arrays bitwise the one-device
-    fit; the partials and fold launches an evaluation; the walls. The C2
-    repro (9000, 9000, 0, 0) planted as the last row, in the last shard: the
-    objective at MESH_C2_THETAS and the fitted theta, and the marginals,
-    bitwise the one-device objective's for every k (a whole fit with it
-    costs ~90 long-double evaluations; the CPU tests hold it). The partials
-    mode against its plain version at k = 4, and its times. Returns the
-    partials row of the kernels line (launches filled in later)."""
+    fit; one launch of the sharded objective an evaluation, by the
+    wrapper's counter and the kernel library's (no one-device B2, and the
+    partials-only mode and the fold kernel gone from the library); the
+    walls. The C2 repro (9000, 9000, 0, 0) planted as the last row, in the
+    last shard: the objective at MESH_C2_THETAS and the fitted theta, and
+    the marginals, bitwise the one-device objective's for every k (a whole
+    fit with it costs ~90 long-double evaluations; the CPU tests hold it).
+    A shard given a launch group of its own, whose chunk sums the fold's
+    call copies into its buffers after the event its call records (the
+    path of a second card, run as a copy on one card): bitwise. The mesh
+    [cuda:0] * MESH_MANY_SHARDS, more shards than one launch's table takes:
+    a launch group for each 32, bitwise."""
     from sid_tpu_torch.models import lynch
     from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
-    from sid_tpu_torch.ops.lgamma import lgamma_table
     from sid_tpu_torch.ops.profiles import nucleotide_distribution
     from sid_tpu_torch.parallel import fit as pfit
-    from sid_tpu_torch.parallel.mesh import chunk_bounds
 
+    if {"nll_partials", "fold"} & set(lo.KERNELS):
+        raise AssertionError(f"the kernel library still counts the partials-only mode or the fold: {lo.KERNELS}")
     u = h_prof.shape[0]
     lines = []
     want = lynch.fit_on_filtered_profiles(h_prof, h_mult, dev, lines.append)
@@ -2797,32 +2818,36 @@ def mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult) -> dict:
     # the walls in turns: one device, k = 1 .. 8, k = 8 .. 1, one device
     walls = {"one": []}
     per_eval = {}
+    evaluations = None
     for k in ("one",) + MESH_SHARDS + MESH_SHARDS[::-1] + ("one",):
         got_lines = []
-        before = (lo.NLL_PARTIALS_LAUNCHES, lo.FOLD_LAUNCHES)
+        before = (lo.NLL_LAUNCHES, lo.NLL_SHARDS_LAUNCHES, lo.kernel_launches())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if k == "one":
             lynch.fit_on_filtered_profiles(h_prof, h_mult, dev)
             walls["one"].append(time.perf_counter() - t0)
+            evaluations = lo.NLL_LAUNCHES - before[0]  # one B2 launch an evaluation
             continue
         got = pfit.fit_lynch_global(h_prof, h_mult, [dev] * k, got_lines.append)
         walls.setdefault(k, []).append(time.perf_counter() - t0)
-        partials, folds = lo.NLL_PARTIALS_LAUNCHES - before[0], lo.FOLD_LAUNCHES - before[1]
+        launches = lo.NLL_SHARDS_LAUNCHES - before[1]
+        library = {name: n - before[2][name] for name, n in lo.kernel_launches().items()}
         same = (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]) and bits_equal(got[2], want[2])
                 and bits_equal(got[3], want[3]) and got_lines == lines)
         if not same:
             raise AssertionError(f"fit_lynch_global over {k} shards differs from the one-device fit: "
                                  f"{got[:2]} vs {want[:2]}; {got_lines} vs {lines}")
-        shards = int((np.diff(chunk_bounds(u, k)) > 0).sum())
-        if partials != shards * folds:
-            raise AssertionError(f"{k} shards: {partials} partials launches for {folds} folds ({shards} shards)")
-        per_eval[k] = (partials / folds, folds)
+        if launches != evaluations or library["nll_shards"] != evaluations or library["nll"] or lo.NLL_LAUNCHES != before[0]:
+            raise AssertionError(f"{k} shards: {launches} launches of the sharded objective (the library's "
+                                 f"counters: {library}) for {evaluations} evaluations")
+        per_eval[k] = (launches / evaluations, evaluations)
     log(f"# phase 16 (b): fit_lynch_global over [cuda:0] x k at U={u} ({n_chunks} chunks): (pi, eps) = "
         f"({want[0]!r}, {want[1]!r}) and both log-L arrays bitwise the one-device fit for k = "
         f"{', '.join(map(str, MESH_SHARDS))}; an evaluation: "
-        + ", ".join(f"k={k} {p:g} partials + 1 fold ({f} evaluations)" for k, (p, f) in per_eval.items())
-        + "; fit wall in turns (host clock, medians of 2), " + ", ".join(
+        + ", ".join(f"k={k} {p:g} launch of lynch_nll_shards_kernel ({f} evaluations)" for k, (p, f) in per_eval.items())
+        + " (the wrapper's and the library's counters; no one-device B2, no partials-only or fold kernel in the "
+        "library); fit wall in turns (host clock, medians of 2), " + ", ".join(
             f"{'one-device' if k == 'one' else f'k={k}'} {statistics.median(w) * 1e3:.1f} ms "
             f"({', '.join(f'{x * 1e3:.1f}' for x in w)})" for k, w in walls.items()) + f"; on {card}")
 
@@ -2847,61 +2872,44 @@ def mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult) -> dict:
         f"the one-device objective for every k (the row replayed in long double by its global row), the "
         f"marginals at k = {MESH_SHARDS[-1]} too; {time.perf_counter() - t0:.1f} s")
 
-    # the path of a shard on another card than the fold's: its chunk sums in
-    # buffers of its own, copied into the fold's (here a copy on one card)
+    # the path of shards on another card than the fold's: a launch group of
+    # their own whose chunk sums the fold's call copies in (here on one card)
     work = pfit.ShardedLynchWorkspace(deep_prof, deep_mult, [dev] * 4)
-    last = work.shards[-1]
-    work.shards[-1] = last._replace(sums=torch.empty_like(last.sums), cnts=torch.empty_like(last.cnts), copied=True)
+    last = len(work.shards) - 1
+    peer = work.group(work.device, [last])
+    work.groups = [peer, work.group(work.device, range(last), [peer])]
+    chunks = work.shards[last].chunks
+    before = lo.NLL_SHARDS_LAUNCHES
     for th in thetas:
         sc = likelihoods.lynch_scalars(th[0], th[1], nt)
-        work.part_sum[last.chunks] = float("nan")
+        work.groups[-1].part_sum[chunks] = float("nan")
+        work.groups[-1].part_cnt[chunks] = -1
         got_nll, want_nll = work.nll(sc), one.work.nll(sc)
         if not bits_equal(list(got_nll), list(want_nll)):
-            raise AssertionError(f"a shard with buffers of its own: {got_nll} vs {want_nll} at {th}")
-    log("# phase 16 (b): a shard whose chunk sums are copied into the fold's buffers (the path of a second card, "
-        "run as a copy on one card; the fold's place for them poisoned first): B2's objective bitwise")
+            raise AssertionError(f"a shard in a launch group of its own: {got_nll} vs {want_nll} at {th}")
+    if lo.NLL_SHARDS_LAUNCHES - before != 2 * len(thetas):
+        raise AssertionError(f"two groups: {lo.NLL_SHARDS_LAUNCHES - before} launches for {len(thetas)} evaluations")
+    log("# phase 16 (b): the last shard in a launch group of its own, its chunk sums copied into the fold's buffers "
+        "by the fold's call after the event its launch recorded (the path of a second card, run as a copy on one "
+        "card; the fold's place for them poisoned first): B2's objective bitwise, two launches an evaluation")
 
-    # the partials mode against its plain version at k = 4, and its times
-    tab = lgamma_table(int(h_prof.sum(-1).max()), dev)
-    s = likelihoods.lynch_scalars(want[0], want[1], nucleotide_distribution(h_prof, h_mult))
-    bounds = chunk_bounds(u, 4)
-    works = []
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        p = torch.from_numpy(np.ascontiguousarray(h_prof[a:b])).to(dev)
-        m = torch.from_numpy(np.ascontiguousarray(h_mult[a:b])).to(dev)
-        w = lo.LynchWorkspace(p, m, tab)
-        n = -(-(b - a) // likelihoods.CHUNK_ROWS)
-        sums = torch.empty(n, dtype=torch.float64, device=dev)
-        cnts = torch.empty(n, dtype=torch.int32, device=dev)
-        w.launch_partials(s, sums, cnts)
-        ps, pc, pf = lo.lynch_nll_partials_ref(p, m, s, tab)
-        if not (torch.equal(sums.view(torch.int64), ps.view(torch.int64)) and torch.equal(cnts, pc)
-                and torch.equal(w.flags, pf)):
-            raise AssertionError(f"B2's partials mode differs from its plain version on rows {a}..{b}")
-        works.append((w, sums, cnts, p, m))
-
-    def partials_call(*_):
-        for w, sums, cnts, _, _ in works:
-            w.launch_partials(s, sums, cnts)
-
-    def partials_plain(*_):
-        return [lo.lynch_nll_partials_ref(p, m, s, tab) for _, _, _, p, m in works]
-
-    plain_t = event_times_ms(torch, partials_plain, [()])
-    call_t = event_times_ms(torch, partials_call, [()]) + event_times_ms(torch, partials_call, [()])
-    plain_t += event_times_ms(torch, partials_plain, [()])
-    dev_ms = device_only_ms(torch, partials_call, [()])
-    c = kernel_counts(sass, "lynch_nll_kernel")
-    n_bytes = u * (24 + 1) + n_chunks * 12
-    b_ms, b_by = bound_ms(n_bytes, c["f64"] * u)
-    log(f"# phase 16 (b): B2's partials mode over 4 shards at U={u}: bitwise its plain version (chunk sums, counts, "
-        f"flags); the 4 launches: call {statistics.median(call_t):.4f} ms, device only {dev_ms:.4f} ms, plain torch "
-        f"{statistics.median(plain_t):.4f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {c['f64']} f64 "
-        f"instructions every row executes), {b_ms / dev_ms:.1%} of the bound; on {card}")
-    return {"name": "lynch_compound_nll_partials", "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
-            "replaces": "sid_tpu/parallel/fit.py:29", "launches": None, "max_abs_err": 0.0,
-            "ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shards": 4}
+    # more shards on one card than a launch's table takes: a launch group
+    # for each SHARDS_PER_LAUNCH of them, the fold's last
+    k = MESH_MANY_SHARDS
+    work = pfit.ShardedLynchWorkspace(deep_prof, deep_mult, [dev] * k)
+    n_groups = -(-len(work.shards) // lo.SHARDS_PER_LAUNCH)
+    before = lo.NLL_SHARDS_LAUNCHES
+    for th in thetas:
+        sc = likelihoods.lynch_scalars(th[0], th[1], nt)
+        got_nll, want_nll = work.nll(sc), one.work.nll(sc)
+        if not bits_equal(list(got_nll), list(want_nll)):
+            raise AssertionError(f"{k} shards: {got_nll} vs {want_nll} at {th}")
+    if len(work.groups) != n_groups or lo.NLL_SHARDS_LAUNCHES - before != n_groups * len(thetas):
+        raise AssertionError(f"{k} shards: {len(work.groups)} groups, {lo.NLL_SHARDS_LAUNCHES - before} launches "
+                             f"for {len(thetas)} evaluations")
+    log(f"# phase 16 (b): [cuda:0] x {k}, {len(work.shards)} shards (a launch's table takes "
+        f"{lo.SHARDS_PER_LAUNCH}): {n_groups} launch groups, B2's objective bitwise at {len(thetas)} thetas, "
+        f"{n_groups} launches an evaluation")
 
 
 def mesh_population_fits(dev, card) -> None:
@@ -2933,41 +2941,185 @@ def mesh_population_fits(dev, card) -> None:
         + "; ".join(out) + f"; on {card}")
 
 
-def fold_kernel_checks(torch, dev, card, n_chunks_main: int) -> dict:
-    """Phase 16 (d): lynch_fold_kernel against fold_chunk_sums_ref on the
-    card, bitwise, at FOLD_CHUNKS and at the main path's chunk count; its
-    call, device-only, plain and torch.sum times there, and its bound
-    (n_chunks x 12 B over the memory rate). Returns its kernels-line row."""
-    from sid_tpu_torch.ops import lynch_objective as lo
+def parent_shards_evaluation(lib, work, dev):
+    """A parent tree's evaluation of a sharded fit (its csrc/lynch.cu with
+    B2's partials-only mode and the fold kernel) over ``work``'s shards
+    (their records, whose layout this tree keeps): each shard's partials
+    launch into its place in one buffer on ``dev``, then the fold kernel,
+    each a ctypes call. Returns run(scalars, host_out) (host_out: a pinned
+    (2,) f64 tensor, then the result is copied there and waited for; None:
+    enqueued only) and the shards' flags."""
+    import ctypes
 
-    rng = np.random.default_rng(2029)
-    for n in FOLD_CHUNKS + (n_chunks_main,):
-        ps = torch.from_numpy(rng.standard_normal(n) * 10.0 ** rng.integers(-3, 9, n)).to(dev)
-        pc = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
-        got = lo.lynch_fold(ps, pc).cpu()
-        want = lo.lynch_fold_ref(ps, pc).cpu()
-        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
-            raise AssertionError(f"the fold kernel differs from its plain version at {n} chunks: {got} vs {want}")
-    log(f"# phase 16 (d): lynch_fold_kernel == fold_chunk_sums_ref on the card, bitwise, at n_chunks "
-        f"{', '.join(map(str, FOLD_CHUNKS + (n_chunks_main,)))}")
-    n = n_chunks_main
-    sets = [(torch.from_numpy(rng.standard_normal(n) * 1e6).to(dev),
-             torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)) for _ in range(INPUT_SETS)]
+    import torch
+
+    part_sum = torch.empty(work.n_chunks, dtype=torch.float64, device=dev)
+    part_cnt = torch.empty(work.n_chunks, dtype=torch.int32, device=dev)
     out = torch.empty(2, dtype=torch.float64, device=dev)
-    plain_t = event_times_ms(torch, lo.lynch_fold_ref, sets)
-    call_t = event_times_ms(torch, lo.lynch_fold, sets) + event_times_ms(torch, lo.lynch_fold, sets)
-    plain_t += event_times_ms(torch, lo.lynch_fold_ref, sets)
-    dev_ms = device_only_ms(torch, lambda a, b: lo.lynch_fold(a, b, out), sets)
-    lib_t = event_times_ms(torch, lambda a, b: torch.sum(a), sets)
-    b_ms, b_by = bound_ms(n * 12 + 16, 0)
-    log(f"# phase 16 (d): lynch_fold at {n} chunks (phase 7's U): call {statistics.median(call_t):.4f} ms (median of "
-        f"{len(call_t)}), device only {dev_ms:.4f} ms, plain torch {statistics.median(plain_t):.4f} ms, torch.sum of "
-        f"the chunk sums {statistics.median(lib_t):.4f} ms; bound {b_ms:.6f} ms by {b_by} ({n * 12} B), "
-        f"{b_ms / dev_ms:.2%} of the bound (one block: the launch is the cost); on {card}")
-    return {"name": "lynch_fold", "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
+    scalars_buf = np.zeros(16, np.float64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    grids = (ctypes.c_int * 3)()
+    shards = []
+    for sh in work.shards:
+        if lib.sid_lynch_grids(sh.work.u, grids):
+            raise AssertionError("the parent's grid query failed")
+        flags = torch.empty(sh.work.u, dtype=torch.uint8, device=dev)
+        shards.append((sh.work.records.data_ptr(), sh.work.u, flags, part_sum[sh.chunks].data_ptr(),
+                        part_cnt[sh.chunks].data_ptr(), grids[1]))
+
+    def run(scalars, host_out=None):
+        scalars_buf[:] = scalars
+        for rec, n, flags, ps, pc, grid in shards:
+            if lib.sid_lynch_nll_partials_launch(rec, scalars_buf.ctypes.data, n, flags.data_ptr(), ps, pc, grid,
+                                                 stream):
+                raise AssertionError("the parent's partials launch failed")
+        if lib.sid_lynch_fold_launch(part_sum.data_ptr(), part_cnt.data_ptr(), work.n_chunks, out.data_ptr(),
+                                     None if host_out is None else host_out.data_ptr(), stream):
+            raise AssertionError("the parent's fold launch failed")
+
+    return run, [f for _, _, f, _, _, _ in shards]
+
+
+def parent_lynch(build, parent: str):
+    """The parent tree's csrc/lynch.cu built with this tree's nvcc flags,
+    its ptxas lines printed, the C functions of its sharded evaluation
+    typed (``parent_shards_evaluation``)."""
+    import ctypes
+
+    path, report = build_sources(build, {"parent_lynch": os.path.join(
+        os.path.abspath(parent), "sid_tpu_torch", "csrc", "lynch.cu")})["parent_lynch"]
+    for fn, r in report.items():
+        log(f"# ptxas parent_lynch: {fn}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, "
+            f"{r['spill_loads']} bytes spill loads")
+    lib = ctypes.CDLL(path)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for name, args in (("sid_lynch_grids", [i64, p]), ("sid_lynch_nll_partials_launch", [p, p, i64, p, p, p, i32, p]),
+                       ("sid_lynch_fold_launch", [p, p, i64, p, p, p])):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = args
+    lib.sid_lynch_launches.restype = ctypes.c_longlong
+    lib.sid_lynch_launches.argtypes = [i32]
+    return lib
+
+
+# the parent library's launch counters (its sid_lynch_launches) of the
+# partials-only B2 launches and of the fold kernel
+PARENT_PARTIALS_COUNTER, PARENT_FOLD_COUNTER = 5, 6
+
+
+def shards_kernel_checks(torch, dev, card, sass, fit_prof, fit_mult, h_prof, h_mult, parent_lib=None) -> dict:
+    """Phase 16 (d): the sharded objective's launch (csrc/lynch.cu
+    lynch_nll_shards_kernel, one a device and evaluation, the fold in the
+    fold device's last block) against its plain version
+    (lynch_nll_shards_ref) on the card, bitwise ([sum, flagged count],
+    every chunk sum and count, every shard's flags), over [cuda:0] x k for
+    k in MESH_D_SHARDS, at FOLD_CHUNKS chunks of phase 5's rows (deep rows
+    the screen flags among them) and at phase 7's U. There, for each k, its
+    call (one evaluation: launch, fetch, sync), device-only and plain
+    times, torch.sum of the chunk sums (the fold's share; no torch call
+    computes the objective), its bound (24 B of record and a flag byte a
+    row, 12 B a chunk, 40 B a shard, and the f64 every row executes) and
+    the share of it; with ``parent_lib`` (``parent_lynch``) the parent's
+    partials launches and fold kernel (``parent_shards_evaluation``),
+    bitwise the same, device only and whole calls in turns with the new
+    launch. Returns the kernels-line row (its times at k = 4, every k's
+    under "by_shards")."""
+    from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
+    from sid_tpu_torch.ops.profiles import nucleotide_distribution
+    from sid_tpu_torch.parallel import fit as pfit
+
+    def held(prof, mult, k):
+        """The sharded workspace over [dev] * k, one evaluation bitwise its
+        plain version; (workspace, scalars, the shards' tensors)."""
+        work = pfit.ShardedLynchWorkspace(prof, mult, [dev] * k)
+        s = likelihoods.lynch_scalars(0.05, 0.01, nucleotide_distribution(prof, mult))
+        got = work.nll(s)
+        fold = work.groups[-1]
+        shards = [(sh.work.profiles, sh.work.mult, sh.work.lgamma_tab) for sh in work.shards]
+        want, part_sum, part_cnt, flags = lo.lynch_nll_shards_ref(shards, s)
+        same = (bits_equal(list(got), want.tolist()) and bits_equal(fold.part_sum.cpu(), part_sum.cpu())
+                and torch.equal(fold.part_cnt, part_cnt)
+                and all(torch.equal(sh.work.flags, f) for sh, f in zip(work.shards, flags)))
+        if not same:
+            raise AssertionError(f"the sharded objective differs from its plain version at U={prof.shape[0]}, "
+                                 f"{k} shards: {got} vs {want.tolist()}")
+        return work, s, shards, got
+
+    counts = []
+    flagged = 0
+    for n in FOLD_CHUNKS:
+        rows = min(n * likelihoods.CHUNK_ROWS - 7, fit_prof.shape[0])
+        counts.append(-(-rows // likelihoods.CHUNK_ROWS))
+        for k in MESH_D_SHARDS:
+            flagged = max(flagged, int(held(fit_prof[:rows], fit_mult[:rows], k)[3][1]))
+    u = h_prof.shape[0]
+    n_chunks = -(-u // likelihoods.CHUNK_ROWS)
+    log(f"# phase 16 (d): lynch_nll_shards_kernel == lynch_nll_shards_ref on the card, bitwise ([sum, flagged "
+        f"count], every chunk sum and count, every shard's flags), over [cuda:0] x k, k = "
+        f"{', '.join(map(str, MESH_D_SHARDS))}, at {', '.join(map(str, counts))} chunks of phase 5's rows (up to "
+        f"{flagged} rows flagged) and at phase 7's U={u} ({n_chunks} chunks)")
+    c = kernel_counts(sass, "lynch_nll_shards_kernel")
+    by_shards = {}
+    for k in MESH_D_SHARDS:
+        work, s, shards, _ = held(h_prof, h_mult, k)
+        fold = work.groups[-1]
+        plain = lambda *_: lo.lynch_nll_shards_ref(shards, s)  # noqa: E731
+        call = lambda *_: work.nll(s)  # noqa: E731
+        launch = lambda *_: fold.launch(s)  # noqa: E731
+        plain_t = event_times_ms(torch, plain, [()])
+        call_t = event_times_ms(torch, call, [()]) + event_times_ms(torch, call, [()])
+        plain_t += event_times_ms(torch, plain, [()])
+        dev_ms = device_only_ms(torch, launch, [()])
+        sum_t = event_times_ms(torch, lambda *_: torch.sum(fold.part_sum), [()])
+        n_bytes = u * (24 + 1) + n_chunks * 12 + len(work.shards) * lo.SHARD_SLOT.itemsize
+        b_ms, b_by = bound_ms(n_bytes, c["f64"] * u)
+        # the launches of one evaluation, by the wrapper's and the library's
+        # counters (the plain version on the CPU launches nothing)
+        on_card = dev.type == "cuda"
+        before = (lo.NLL_SHARDS_LAUNCHES, lo.kernel_launches()["nll_shards"] if on_card else 0)
+        call()
+        launches = lo.NLL_SHARDS_LAUNCHES - before[0]
+        if launches != int(on_card) or (on_card and lo.kernel_launches()["nll_shards"] - before[1] != 1):
+            raise AssertionError(f"{k} shards: {launches} launches of the sharded objective for one evaluation")
+        row = {"ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "fold_torch_sum_ms": statistics.median(sum_t),
+               "launches_an_evaluation": launches}
+        extra = ""
+        if parent_lib is not None:
+            run, p_flags = parent_shards_evaluation(parent_lib, work, dev)
+            host = torch.empty(2, dtype=torch.float64, pin_memory=True)
+            counters = (PARENT_PARTIALS_COUNTER, PARENT_FOLD_COUNTER)
+            p_before = [parent_lib.sid_lynch_launches(i) for i in counters]
+            run(s, host)
+            partials, folds = (parent_lib.sid_lynch_launches(i) - b for i, b in zip(counters, p_before))
+            if (partials, folds) != (len(work.shards), 1):
+                raise AssertionError(f"the parent's evaluation at {k} shards: {partials} partials launches and "
+                                     f"{folds} folds")
+            if not (bits_equal(host.numpy(), list(work.nll(s))) and all(
+                    torch.equal(sh.work.flags, f) for sh, f in zip(work.shards, p_flags))):
+                raise AssertionError(f"the parent's partials and fold differ from the new launch at {k} shards")
+            device = in_turns(torch, {"parent": lambda *_: run(s), "new": launch}, [()])
+            calls = calls_in_turns(torch, {"parent": lambda *_: run(s, host), "new": call}, [()])
+            row["parent"] = {"device_ms": statistics.median(device["parent"]), "new_device_ms":
+                             statistics.median(device["new"]), "ms": statistics.median(calls["parent"]),
+                             "new_ms": statistics.median(calls["new"]), "launches_an_evaluation": partials + folds}
+            extra = (f"; in turns with the parent's {partials} partials launches + {folds} fold an evaluation (its "
+                     f"library's counters; bitwise the same): device only {readings(device)}; whole calls "
+                     f"{readings(calls)}")
+        by_shards[k] = row
+        log(f"# phase 16 (d): lynch_nll_shards_kernel over [cuda:0] x {k} at U={u}: {launches} launch an evaluation "
+            f"(the wrapper's and the library's counters); call "
+            f"{row['ms']:.4f} ms (median of {len(call_t)}: launch, fetch, sync), device only {dev_ms:.4f} ms, plain "
+            f"torch {row['plain_ms']:.4f} ms, torch.sum of the {n_chunks} chunk sums (the fold's share) "
+            f"{row['fold_torch_sum_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB; {c['f64']} "
+            f"f64 instructions every row executes, {c['f64_all']} with every branch arm), {b_ms / dev_ms:.1%} of "
+            f"the bound{extra}; on {card}")
+    main = by_shards[4]
+    return {"name": "lynch_compound_nll_shards", "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
             "replaces": "sid_tpu/parallel/fit.py:29", "launches": None, "max_abs_err": 0.0,
-            "ms": statistics.median(call_t), "plain_ms": statistics.median(plain_t), "device_ms": dev_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": statistics.median(lib_t), "n_chunks": n}
+            **{key: main[key] for key in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "fold_torch_sum_ms": main["fold_torch_sum_ms"], "shards": 4,
+            "by_shards": by_shards}
 
 
 # --lane-variants: design choices of the lane kernels, each a text
@@ -3210,6 +3362,61 @@ def lane_variants(torch) -> int:
                   f"{statistics.median(r[0] for r in rs):.4f} ms (readings {', '.join(f'{r[0]:.4f}' for r in rs)}), "
                   f"marginals {statistics.median(r[1] for r in rs):.4f} ms (readings "
                   f"{', '.join(f'{r[1]:.4f}' for r in rs)}); on {card}", flush=True)
+    return 0
+
+
+# --shard-variants: the sharded objective's (lynch_nll_shards_kernel's)
+# table of shards in global memory instead of a __grid_constant__ kernel
+# parameter, each a list of text substitutions in csrc/lynch.cu; the empty
+# list is the committed design. The global-memory variants keep the table in
+# a __device__ table that the launch's call fills when it differs from what
+# it holds (once per fit)
+_SHARD_STRUCT = "struct ShardTable {\n  sid::ShardSlot slot[kShardsPerLaunch];\n};\n"
+_SHARD_TOTAL = "  const int64_t total = n_shards > 0 ? table.slot[n_shards - 1].walk_end : 0;"
+_SHARD_CALL = "sid::shard_chunk_sum(table.slot, n_shards, j, t, s, &cnt, &chunk);"
+_SHARD_UPLOAD = [
+    ("lynch.cu", _SHARD_STRUCT, _SHARD_STRUCT + "__device__ ShardTable g_table;\n"),
+    ("lynch.cu", "    lynch_nll_shards_kernel(const __grid_constant__ ShardTable table, int n_shards,",
+     "    lynch_nll_shards_kernel(const sid::ShardSlot* __restrict__ table, int n_shards,"),
+    ("lynch.cu", "  lynch_nll_shards_kernel<<<grid, kThreads, 0, st>>>(\n      tab, n_shards,",
+     "  static ShardTable held;  // what g_table holds\n"
+     "  void* slots = nullptr;\n"
+     "  cudaError_t up = cudaGetSymbolAddress(&slots, g_table);\n"
+     "  if (up == cudaSuccess && memcmp(&held, &tab, sizeof(tab)) != 0) {\n"
+     "    held = tab;\n"
+     "    up = cudaMemcpyToSymbolAsync(g_table, &held, sizeof(held), 0, cudaMemcpyHostToDevice, st);\n"
+     "  }\n"
+     "  if (up != cudaSuccess) return static_cast<int>(up);\n"
+     "  lynch_nll_shards_kernel<<<grid, kThreads, 0, st>>>(\n"
+     "      static_cast<const sid::ShardSlot*>(slots), n_shards,"),
+]
+SHARD_VARIANTS = {
+    "committed (the table a kernel parameter)": [],
+    "the table in global memory, staged in shared memory": _SHARD_UPLOAD + [
+        ("lynch.cu", _SHARD_TOTAL, "  __shared__ sid::ShardSlot sh_table[kShardsPerLaunch];\n"
+         "  if (t < n_shards) sh_table[t] = table[t];\n  __syncthreads();\n"
+         "  const int64_t total = n_shards > 0 ? sh_table[n_shards - 1].walk_end : 0;"),
+        ("lynch.cu", _SHARD_CALL, "sid::shard_chunk_sum(sh_table, n_shards, j, t, s, &cnt, &chunk);")],
+    "the table in global memory, read where used": _SHARD_UPLOAD + [
+        ("lynch.cu", _SHARD_TOTAL, "  const int64_t total = n_shards > 0 ? table[n_shards - 1].walk_end : 0;"),
+        ("lynch.cu", _SHARD_CALL, "sid::shard_chunk_sum(table, n_shards, j, t, s, &cnt, &chunk);")],
+}
+
+
+def shard_variants() -> int:
+    """--shard-variants: ptxas's report of lynch_nll_shards_kernel for each
+    of SHARD_VARIANTS (sid_tpu_torch/csrc/lynch.cu with the shard table in
+    global memory, built with the port's nvcc flags into
+    sid_tpu_torch/_build/) beside the committed kernel: registers and spill
+    bytes at B2's budget of kNllMinBlocks blocks an SM, which the repo holds
+    at 0 spill bytes."""
+    from sid_tpu_torch.native import build
+
+    print(f"# {card_line()}", flush=True)
+    for name, (_, report) in build_variants(build, "lynch.cu", SHARD_VARIANTS, "shards_variant").items():
+        (r,) = [v for fn, v in report.items() if "lynch_nll_shards_kernel" in fn]
+        print(f"# {name}: lynch_nll_shards_kernel: {r['registers']} registers, {r['spill_stores']} bytes spill "
+              f"stores, {r['spill_loads']} bytes spill loads", flush=True)
     return 0
 
 
@@ -3620,7 +3827,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
     ap.add_argument("--parent", help="an unpacked tree of the parent commit: its B5, LRT, BH and B6 full kernels "
                     "(csrc/local_classify.cu, csrc/lrt_bh.cu, csrc/quality_finalize.cu) bitwise and in turns in "
-                    "phase 13")
+                    "phase 13, its sharded Lynch evaluation (csrc/lynch.cu) in phase 16 (d)")
     ap.add_argument("--b5-variants", action="store_true",
                     help="time B5's design variants (B5_VARIANTS) in turns, and stop")
     ap.add_argument("--bh-variants", action="store_true",
@@ -3630,6 +3837,9 @@ def main() -> int:
                          "and stop")
     ap.add_argument("--lane-variants", action="store_true",
                     help="time variants of the lane kernels (LANE_VARIANTS) in turns, and stop")
+    ap.add_argument("--shard-variants", action="store_true",
+                    help="print ptxas's report of the sharded objective with its table in global memory "
+                         "(SHARD_VARIANTS), and stop")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -3654,6 +3864,8 @@ def main() -> int:
 
     if args.lane_variants:
         return lane_variants(torch)
+    if args.shard_variants:
+        return shard_variants()
     if args.b5_variants:
         return b5_variants(torch)
     if args.bh_variants:
@@ -3918,7 +4130,7 @@ def main() -> int:
     after = lynch_objective.kernel_launches()
     per_eval = {k: after[k] - before[k] for k in after}
     if (per_eval != {"records": 0, "nll": 1, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 0,
-                     "nll_partials": 0, "fold": 0}
+                     "nll_shards": 0}
             or list(one) != first.tolist()):
         raise AssertionError(f"one evaluation: launches {per_eval}, result {one!r} vs {first!r}")
     log(f"# B2 bitwise repeatable: 10 calls and grids of 1, 7, 1000 and {work.grids[1]} (the resident "
@@ -4214,11 +4426,12 @@ def main() -> int:
     add_launches(mesh_launches, pop_mesh_launches)
     del qbytes
     t1 = time.perf_counter()
-    partials_row = mesh_fit_runs(torch, dev, card, sass, h_prof, h_mult)
+    mesh_fit_runs(torch, dev, card, h_prof, h_mult)
     t2 = time.perf_counter()
     mesh_population_fits(dev, card)
     t3 = time.perf_counter()
-    fold_row = fold_kernel_checks(torch, dev, card, -(-h_prof.shape[0] // likelihoods.CHUNK_ROWS))
+    shards_row = shards_kernel_checks(torch, dev, card, sass, fit_prof, fit_mult, h_prof, h_mult,
+                                      parent_lynch(build, args.parent) if args.parent else None)
     log(f"# phase 16 took {time.perf_counter() - t0 + pop_mesh_wall:.1f} s: (a) {t1 - t0 + pop_mesh_wall:.1f} s "
         f"({pop_mesh_wall:.1f} s of it the population runs, in phase 12's time), (b) {t2 - t1:.1f} s, (c) "
         f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
@@ -4260,9 +4473,8 @@ def main() -> int:
         for path, launches in scale_out.items():
             if row["name"] in launches:
                 row[f"launches_{path}"] = launches[row["name"]]
-    for row in (partials_row, fold_row):
-        row["launches"] = mesh_launches[row["name"]]
-        kernel_rows.append(row)
+    shards_row["launches"] = mesh_launches[shards_row["name"]]
+    kernel_rows.append(shards_row)
     log(f"# chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@
 //     a grid of exactly the resident blocks (the occupancy API, once per
 //     workspace), each walking chunks grid-stride;
 //   - one launch per evaluation: the last block to finish folds the chunk
-//     sums, so there is no second kernel and no serial tail on one SM.
+//     sums, so there is no second kernel and no serial tail on one SM
+//     (a sharded fit too: one launch a device, below).
 //
 // The objective's sum has a fixed order (lynch.cuh): each chunk of kChunk
 // rows reduces in a fixed per-thread order and a fixed tree into its own
@@ -76,13 +77,46 @@
 // A sharded fit (--devices; replaces sid_tpu/parallel/fit.py:29
 // fit_lynch_global, B10, whose XLA program all-reduces each shard's sum).
 // The histogram is cut into contiguous shards at multiples of kChunk rows,
-// each shard with its own record on its own device; an evaluation launches
-// lynch_nll_kernel on every shard in its partials-only mode (fold 0), each
-// writing its chunk sums into its place in one buffer on the fold's device
-// (on one card a view, on another card a copy), then lynch_fold_kernel
-// folds them in global chunk order as the last block of a one-device launch
-// would. So the fit's (pi, epsilon) are bitwise the one-device fit's for
-// every shard count; there is one sync an evaluation.
+// each shard with its own record on its own device. An evaluation is one
+// launch of lynch_nll_shards_kernel on each device that holds shards:
+//   - the launch walks every chunk of its device's shards grid-stride
+//     through the device's table of them (lynch.cuh ShardSlot: record,
+//     rows, flags, first global chunk, end of its chunks in the walk; at
+//     most kShardsPerLaunch, and a device that holds more launches once
+//     for each kShardsPerLaunch of them), built once per fit on the host
+//     and passed by value as a kernel parameter (__grid_constant__, 1,280
+//     bytes a launch), so a chunk's shard (lynch.cuh slot_of) and the shard's
+//     record, rows and flags are read from the parameter bank where the
+//     row loop uses them, as B2 reads its own: the kernel keeps B2's
+//     register budget of 3 blocks an SM with 0 spill bytes. A table in
+//     global memory spills at that budget (staged in shared memory or read
+//     where used: the three pointers and counts then live in registers
+//     through the row loop; chip_smoke.py --shard-variants prints ptxas's
+//     report of both);
+//   - each chunk reduces exactly as in lynch_nll_kernel (nll_thread_sum
+//     over the shard's rows alone) and is stored at its global chunk index:
+//     the shard starts at a multiple of kChunk, so every chunk sum is the
+//     one the one-device kernel stores;
+//   - on the fold's device (the mesh's first; its table lists its shards
+//     last) every block then takes the ticket as lynch_nll_kernel's blocks
+//     do, and the block that takes the last ticket folds all the fit's
+//     chunk sums in the one-device order (fold_thread_sum + block_fold)
+//     and resets the ticket; the same call copies the result into pinned
+//     memory and waits for it. So the fit's (pi, epsilon) are bitwise the
+//     one-device fit's for every mesh;
+//   - a launch on another device stops after its chunk sums, which go into
+//     buffers of its own, and its call records an event after it; the fold
+//     device's call makes its stream wait for each such event and copies
+//     those chunk sums into its own buffers (cudaMemcpyPeerAsync) before
+//     its launch, all on the one stream of that launch: ordered by the
+//     event and stream order, not by a wait that a library copy places.
+// On one card that is one launch and one call from the host an evaluation
+// for any shard count (before: a partials-only launch of lynch_nll_kernel
+// a shard and a one-block fold kernel, k + 1 launches and calls). Rejected:
+// merging a device's consecutive shards into one workspace when the fit is
+// made. On one card [cuda:0] x k would then be the one-device fit, and
+// nothing of the sharded path (the shard walk, the global chunk index, the
+// copies into the fold's buffers) would run on the only card there is.
 //
 // What bounds the lane kernels is what bounds B2 and B4: f64 instructions,
 // long chains of dependent multiplies and adds (the exp/log polynomials
@@ -118,6 +152,9 @@ constexpr int kLanesMinBlocks = 3;
 // the running lanes of one launch of a lane kernel, written into the
 // constant bank on the launch's stream just before it (58 KB of the 64 KB)
 constexpr int kLanesPerLaunch = 384;
+// the shards of a sharded fit one device's launch takes, in its table
+// (a kernel parameter)
+constexpr int kShardsPerLaunch = 32;
 // the rows each thread takes of a chunk of the lanes' marginals, and so
 // the rows of their chunks (the objective's chunks are sid::kChunk): one,
 // so that a cohort of ~1,000 rows a lane still fills the card
@@ -128,19 +165,38 @@ __constant__ sid::LaneSlot c_slots[kLanesPerLaunch];
 static_assert(sizeof(sid::LynchScalars) == 16 * sizeof(double),
               "LynchScalars must be 16 doubles");
 static_assert(sizeof(sid::LaneSlot) == 19 * sizeof(double), "LaneSlot must be 152 bytes");
+static_assert(sizeof(sid::ShardSlot) == 5 * sizeof(double), "ShardSlot must be 40 bytes");
+
+// the shard table of one launch of lynch_nll_shards_kernel, its first
+// n_shards entries used
+struct ShardTable {
+  sid::ShardSlot slot[kShardsPerLaunch];
+};
+
+// One copy that the fold device's call makes before its launch: bytes from
+// src on device src_device into dst on the fold's device, after event (a
+// cudaEvent_t recorded after the launch that wrote src; null: none). 40
+// bytes; the host builds the list once per fit.
+struct PeerPull {
+  void* event;
+  void* dst;
+  const void* src;
+  int64_t bytes;
+  int64_t src_device;
+};
+static_assert(sizeof(PeerPull) == 40, "PeerPull must be 40 bytes");
 
 // kernel launches since the library was loaded: records, objective,
-// marginals, the lanes' objective, the lanes' marginals, the objective's
-// partials-only mode, the fold
+// marginals, the lanes' objective, the lanes' marginals, a sharded fit's
+// objective on one device
 enum {
   kRecordsKernel = 0,
   kNllKernel = 1,
   kMarginalsKernel = 2,
   kNllLanesKernel = 3,
   kMarginalsLanesKernel = 4,
-  kNllPartialsKernel = 5,
-  kFoldKernel = 6,
-  kKernelCount = 7
+  kNllShardsKernel = 5,
+  kKernelCount = 6
 };
 std::atomic<long long> g_launches[kKernelCount];
 
@@ -171,6 +227,32 @@ __device__ void block_fold(double& v, int& c, double* sh_sum, int* sh_cnt) {
   __syncthreads();  // the shared arrays are free again
 }
 
+// The tail of an objective launch whose last block folds: thread 0 wrote
+// this block's chunk sums, so publish them and take a ticket; the block
+// that takes the last one (every chunk sum is then visible; read from L2)
+// folds the n_chunks chunk sums in their order (fold_thread_sum +
+// block_fold) into out and resets the ticket (0 between launches).
+__device__ __forceinline__ void fold_if_last(const double* part_sum, const int* part_cnt, int64_t n_chunks,
+                                             unsigned int* ticket, double* __restrict__ out, double* sh_sum,
+                                             int* sh_cnt, bool& sh_last) {
+  const int t = threadIdx.x;
+  if (t == 0) {
+    __threadfence();
+    sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  __threadfence();
+  int cnt = 0;
+  double acc = sid::fold_thread_sum(part_sum, part_cnt, n_chunks, t, &cnt);
+  block_fold(acc, cnt, sh_sum, sh_cnt);
+  if (t == 0) {
+    out[0] = acc;
+    out[1] = static_cast<double>(cnt);
+    *ticket = 0;  // ready for the next evaluation
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     lynch_records_kernel(const int32_t* __restrict__ prof,
                          const int64_t* __restrict__ mult,
@@ -185,14 +267,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B2. With fold 0 (the partials-only mode of a sharded fit) the kernel
-// stops after storing its chunks' sums and counts, and never touches the
-// ticket or out: lynch_fold_kernel folds the chunk sums of every shard.
+// B2.
 __global__ void __launch_bounds__(kThreads, kNllMinBlocks)
     lynch_nll_kernel(const double* __restrict__ rec, sid::LynchScalars s,
                      int64_t n, int64_t n_chunks, uint8_t* __restrict__ flags,
                      double* part_sum, int* part_cnt, unsigned int* ticket,
-                     double* __restrict__ out, int fold) {
+                     double* __restrict__ out) {
   __shared__ double sh_sum[kThreads];
   __shared__ int sh_cnt[kThreads];
   __shared__ bool sh_last;
@@ -206,47 +286,38 @@ __global__ void __launch_bounds__(kThreads, kNllMinBlocks)
       part_cnt[chunk] = cnt;
     }
   }
-  if (!fold) return;
-  // thread 0 wrote this block's partials: publish them, then take a ticket
-  if (t == 0) {
-    __threadfence();
-    sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!sh_last) return;
-  // the last block: every partial is visible; read them from L2
-  __threadfence();
-  int cnt = 0;
-  double acc = sid::fold_thread_sum(part_sum, part_cnt, n_chunks, t, &cnt);
-  block_fold(acc, cnt, sh_sum, sh_cnt);
-  if (t == 0) {
-    out[0] = acc;
-    out[1] = static_cast<double>(cnt);
-    *ticket = 0;  // ready for the next evaluation
-  }
+  fold_if_last(part_sum, part_cnt, n_chunks, ticket, out, sh_sum, sh_cnt, sh_last);
 }
 
-// The fold of a sharded fit (B10, sid_tpu/parallel/fit.py:29
-// fit_lynch_global): one block folds n_chunks chunk sums and flagged counts,
-// every shard's in global chunk order, exactly as lynch_nll_kernel's last
-// block folds one fit's. The shards are cut at multiples of kChunk rows, so
-// shard chunk k is global chunk (first row / kChunk) + k and each chunk sum
-// is the one the single-device kernel stores: out is bitwise B2's for the
-// whole histogram, whatever the shard count. Bound: n_chunks * 12 bytes
-// read (~1,000 chunks at U = 1M), one block; its cost is the launch.
-__global__ void __launch_bounds__(kThreads)
-    lynch_fold_kernel(const double* part_sum, const int* part_cnt, int64_t n_chunks,
-                      double* __restrict__ out) {
+// A sharded fit's objective on one device (B10, sid_tpu/parallel/fit.py:29
+// fit_lynch_global): the walk of the n_shards shards of table in chunks of
+// kChunk rows, each chunk's sum and flagged
+// count stored at its global index of part_sum, part_cnt and its rows'
+// flags into its shard's. With fold (the fold's device) the block that
+// takes the last ticket then folds the n_chunks chunk sums of the whole
+// fit, as lynch_nll_kernel's last block does, into out, and resets the
+// ticket (0 between launches); without, the kernel stops at its chunk sums.
+__global__ void __launch_bounds__(kThreads, kNllMinBlocks)
+    lynch_nll_shards_kernel(const __grid_constant__ ShardTable table, int n_shards, sid::LynchScalars s,
+                            double* part_sum, int* part_cnt, int64_t n_chunks, unsigned int* ticket,
+                            double* __restrict__ out, int fold) {
   __shared__ double sh_sum[kThreads];
   __shared__ int sh_cnt[kThreads];
+  __shared__ bool sh_last;
   const int t = threadIdx.x;
-  int cnt = 0;
-  double acc = sid::fold_thread_sum(part_sum, part_cnt, n_chunks, t, &cnt);
-  block_fold(acc, cnt, sh_sum, sh_cnt);
-  if (t == 0) {
-    out[0] = acc;
-    out[1] = static_cast<double>(cnt);
+  const int64_t total = n_shards > 0 ? table.slot[n_shards - 1].walk_end : 0;
+  for (int64_t j = blockIdx.x; j < total; j += gridDim.x) {
+    int cnt = 0;
+    int64_t chunk;
+    double v = sid::shard_chunk_sum(table.slot, n_shards, j, t, s, &cnt, &chunk);
+    block_fold(v, cnt, sh_sum, sh_cnt);
+    if (t == 0) {
+      part_sum[chunk] = v;
+      part_cnt[chunk] = cnt;
+    }
   }
+  // the other devices' chunk sums were copied in before the launch
+  if (fold) fold_if_last(part_sum, part_cnt, n_chunks, ticket, out, sh_sum, sh_cnt, sh_last);
 }
 
 __global__ void __launch_bounds__(kThreads, kMarginalsMinBlocks)
@@ -371,6 +442,15 @@ int launched(int kernel) {
   return static_cast<int>(err);
 }
 
+// With host_out (pinned, 2 doubles) not null: the objective out (2,) f64
+// copied there on st, and st waited for. Returns a cudaError_t.
+int fetch_and_wait(const void* out, double* host_out, cudaStream_t st) {
+  if (host_out == nullptr) return 0;
+  cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double), cudaMemcpyDeviceToHost, st);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
+  return static_cast<int>(e);
+}
+
 // The launches of a lane kernel over n_slots LaneSlot in pinned memory,
 // in groups of kLanesPerLaunch whose walk_end each count from 0: for each
 // group, its slots copied into the constant bank on st (not with upload
@@ -409,8 +489,8 @@ int sid_lynch_chunk_rows() { return sid::kChunk; }
 int sid_lynch_record_planes() { return sid::kRecordPlanes; }
 
 // kernel launches since load: 0 records, 1 objective, 2 marginals, 3 the
-// lanes' objective, 4 the lanes' marginals, 5 the objective's partials-only
-// mode, 6 the fold
+// lanes' objective, 4 the lanes' marginals, 5 a sharded fit's objective on
+// one device
 long long sid_lynch_launches(int kernel) {
   return kernel >= 0 && kernel < kKernelCount ? g_launches[kernel].load() : -1;
 }
@@ -453,46 +533,69 @@ int sid_lynch_nll_launch(const void* rec, const double* scalars, int64_t n,
       static_cast<const double*>(rec), unpack(scalars), n,
       (n + sid::kChunk - 1) / sid::kChunk, static_cast<uint8_t*>(flags),
       static_cast<double*>(part_sum), static_cast<int*>(part_cnt),
-      static_cast<unsigned int*>(ticket), static_cast<double*>(out), 1);
+      static_cast<unsigned int*>(ticket), static_cast<double*>(out));
   const int err = launched(kNllKernel);
-  if (err != 0 || host_out == nullptr) return err;
-  cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double),
-                                  cudaMemcpyDeviceToHost, st);
-  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
-  return static_cast<int>(e);
+  return err != 0 ? err : fetch_and_wait(out, host_out, st);
 }
 
-// B2's partials-only mode, one shard of a sharded fit: the chunk sums and
-// flagged counts of the shard's n rows into part_sum, part_cnt
-// (ceil(n / chunk) entries each: the shard's place in the fit's buffers),
-// the flags into flags; no fold, no ticket, no result. Returns a cudaError_t.
-int sid_lynch_nll_partials_launch(const void* rec, const double* scalars, int64_t n,
-                                  void* flags, void* part_sum, void* part_cnt, int grid,
-                                  void* stream) {
-  if (n <= 0) return 0;
-  lynch_nll_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(rec), unpack(scalars), n,
-      (n + sid::kChunk - 1) / sid::kChunk, static_cast<uint8_t*>(flags),
-      static_cast<double*>(part_sum), static_cast<int*>(part_cnt), nullptr, nullptr, 0);
-  return launched(kNllPartialsKernel);
+// The shards one launch of a sharded fit's objective takes on a device,
+// and the bytes of one ShardSlot (lynch.cuh) and of one PeerPull
+int sid_lynch_shards_per_launch() { return kShardsPerLaunch; }
+int sid_lynch_shard_slot_bytes() { return static_cast<int>(sizeof(sid::ShardSlot)); }
+int sid_lynch_peer_pull_bytes() { return static_cast<int>(sizeof(PeerPull)); }
+
+// The grid of a device's launch of a sharded fit's objective over n_chunks
+// walk chunks, on the current device: the resident blocks, capped at the
+// chunks. Called once per fit.
+int sid_lynch_shards_grid(int64_t n_chunks, int* grid) {
+  return static_cast<int>(resident_grid(lynch_nll_shards_kernel, n_chunks, grid));
 }
 
-// The fold of a sharded fit: part_sum (n_chunks,) f64 and part_cnt
-// (n_chunks,) int32, every shard's chunks in global order, into out (2,)
-// f64 [sum of the unflagged terms, flagged count] on the card. With
-// host_out (pinned, 2 doubles) not null, out is copied there and the stream
-// is waited for. Returns a cudaError_t.
-int sid_lynch_fold_launch(const void* part_sum, const void* part_cnt, int64_t n_chunks, void* out,
-                          double* host_out, void* stream) {
+// One evaluation of a sharded fit on the current device, one call.
+// table: n_shards ShardSlot (at most kShardsPerLaunch) in host memory,
+// copied into the launch's parameters;
+// scalars: 16 host doubles (LynchScalars); part_sum (n_chunks,) f64 and
+// part_cnt (n_chunks,) int32: the fit's chunk sums by global chunk.
+// Without fold: the launch, then with done (a cudaEvent_t) not null the
+// event recorded after it. With fold: first each of the n_pulls PeerPull
+// of pulls (host memory): the stream waits for its event, then its copy;
+// then the launch, which folds the n_chunks chunk sums into out (2,) f64
+// (ticket: one uint32, 0 between launches); then with host_out (pinned, 2
+// doubles) not null, out is copied there and the stream waited for. All on
+// stream. Returns a cudaError_t.
+int sid_lynch_nll_shards_launch(const void* table, int n_shards, const double* scalars, void* part_sum,
+                                void* part_cnt, int64_t n_chunks, void* ticket, void* out, int fold,
+                                const void* pulls, int n_pulls, void* done, int grid, double* host_out,
+                                void* stream) {
+  if (n_shards < 0 || n_shards > kShardsPerLaunch) return static_cast<int>(cudaErrorInvalidValue);
+  ShardTable tab{};
+  memcpy(tab.slot, table, sizeof(sid::ShardSlot) * static_cast<size_t>(n_shards));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lynch_fold_kernel<<<1, kThreads, 0, st>>>(static_cast<const double*>(part_sum),
-                                            static_cast<const int*>(part_cnt), n_chunks,
-                                            static_cast<double*>(out));
-  const int err = launched(kFoldKernel);
-  if (err != 0 || host_out == nullptr) return err;
-  cudaError_t e = cudaMemcpyAsync(host_out, out, 2 * sizeof(double), cudaMemcpyDeviceToHost, st);
-  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
-  return static_cast<int>(e);
+  if (fold && n_pulls > 0) {
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    const PeerPull* pull = static_cast<const PeerPull*>(pulls);
+    for (int i = 0; i < n_pulls && e == cudaSuccess; ++i) {
+      if (pull[i].event != nullptr) e = cudaStreamWaitEvent(st, static_cast<cudaEvent_t>(pull[i].event), 0);
+      if (e != cudaSuccess) break;
+      const size_t bytes = static_cast<size_t>(pull[i].bytes);
+      e = pull[i].src_device == device
+              ? cudaMemcpyAsync(pull[i].dst, pull[i].src, bytes, cudaMemcpyDeviceToDevice, st)
+              : cudaMemcpyPeerAsync(pull[i].dst, device, pull[i].src, static_cast<int>(pull[i].src_device),
+                                    bytes, st);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  lynch_nll_shards_kernel<<<grid, kThreads, 0, st>>>(
+      tab, n_shards, unpack(scalars), static_cast<double*>(part_sum),
+      static_cast<int*>(part_cnt), n_chunks, static_cast<unsigned int*>(ticket), static_cast<double*>(out),
+      fold);
+  const int err = launched(kNllShardsKernel);
+  if (err != 0) return err;
+  if (!fold) {
+    return done == nullptr ? 0 : static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(done), st));
+  }
+  return fetch_and_wait(out, host_out, st);
 }
 
 // B4. rec: (3, n) records; scalars as above (the pi entries unused);
@@ -531,8 +634,8 @@ int sid_lynch_blocks_per_sm(int kernel, int* per_sm) {
   const void* fns[kKernelCount] = {
       reinterpret_cast<const void*>(lynch_records_kernel), reinterpret_cast<const void*>(lynch_nll_kernel),
       reinterpret_cast<const void*>(lynch_marginals_kernel), reinterpret_cast<const void*>(lynch_nll_lanes_kernel),
-      reinterpret_cast<const void*>(lynch_marginals_lanes_kernel), reinterpret_cast<const void*>(lynch_nll_kernel),
-      reinterpret_cast<const void*>(lynch_fold_kernel)};
+      reinterpret_cast<const void*>(lynch_marginals_lanes_kernel),
+      reinterpret_cast<const void*>(lynch_nll_shards_kernel)};
   if (kernel < 0 || kernel >= kKernelCount) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fns[kernel], kThreads, 0));
 }

@@ -397,9 +397,11 @@ struct LaneSlot {
 
 // The slot of chunk j of the walk: the first k in [0, count) with
 // slots[k].walk_end > j, for j below slots[count - 1].walk_end. Every lane
-// has a chunk, so walk_end rises strictly and slot k holds chunks
-// walk_start(k) .. walk_end - 1. A binary search over the slots.
-SID_HD int slot_of(const LaneSlot* slots, int count, int64_t j) {
+// (and every shard) has a chunk, so walk_end rises strictly and slot k
+// holds chunks walk_start(k) .. walk_end - 1. A binary search over the
+// slots (LaneSlot or ShardSlot).
+template <typename Slot>
+SID_HD int slot_of(const Slot* slots, int count, int64_t j) {
   int lo = 0;
   int hi = count - 1;
   while (lo < hi) {
@@ -413,8 +415,38 @@ SID_HD int slot_of(const LaneSlot* slots, int count, int64_t j) {
   return lo;
 }
 
-SID_HD int64_t walk_start(const LaneSlot* slots, int k) {
+template <typename Slot>
+SID_HD int64_t walk_start(const Slot* slots, int k) {
   return k > 0 ? slots[k - 1].walk_end : 0;
+}
+
+// ---- shards: a sharded fit's rows on one device ----
+// A sharded fit (--devices) cuts the histogram into contiguous shards at
+// multiples of kChunk rows, each with its own record. One launch takes
+// every shard of one device through a table of ShardSlot (in the walk's
+// order): the shard's record and flags, its rows, the global index of its
+// first chunk, and the end of its chunks in the launch's walk (the running
+// total of ceil(rows / kChunk); a shard has at least one row). 40 bytes;
+// the kernel takes a launch's table as a kernel parameter (lynch.cu).
+struct ShardSlot {
+  const double* rec;
+  int64_t rows;
+  uint8_t* flags;
+  int64_t first_chunk;
+  int64_t walk_end;
+};
+
+// One thread's share of walk chunk j over the n_shards shards of table:
+// chunk j - walk_start of its shard, over the shard's rows alone, exactly
+// as nll_thread_sum takes that chunk of a fit of those rows. The shard
+// starts at a multiple of kChunk rows of the histogram, so this is the
+// one-device fit's chunk *global_chunk, with its bits.
+SID_HD double shard_chunk_sum(const ShardSlot* table, int n_shards, int64_t j, int t,
+                              const LynchScalars& s, int* n_flagged, int64_t* global_chunk) {
+  const int k = slot_of(table, n_shards, j);
+  const int64_t chunk = j - walk_start(table, k);
+  *global_chunk = table[k].first_chunk + chunk;
+  return nll_thread_sum(chunk, t, table[k].rec, table[k].rows, s, table[k].flags, n_flagged);
 }
 
 }  // namespace sid

@@ -8,8 +8,9 @@
 // cohort's record and a table of lane slots, launch by launch: the walk of
 // the running lanes' chunks block by block, each lane's chunk sums folded
 // when its last chunk is done, and each row of the marginals at its lane's
-// scalars. A sharded fit's partials-only objective and its fold run as the
-// card runs them too.
+// scalars. A sharded fit's objective on one device walks the device's
+// shard table as its launch does, block by block, and folds the fit's
+// chunk sums as that launch's last block does.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblynch_host.so lynch_host.cpp
@@ -145,28 +146,32 @@ void sid_lynch_nll_host(const double* rec, int64_t n, const double* scalars,
   fold_chunks(part_sum.data(), part_cnt.data(), n_chunks, out);
 }
 
-// The partials-only mode of the objective (a shard of a sharded fit): the
-// chunk sums and flagged counts of n rows into part_sum, part_cnt
-// (ceil(n / chunk) entries), the flags into flags.
-void sid_lynch_nll_partials_host(const double* rec, int64_t n, const double* scalars, uint8_t* flags,
-                                 double* part_sum, int32_t* part_cnt) {
+int sid_lynch_shard_slot_bytes_host() { return static_cast<int>(sizeof(sid::ShardSlot)); }
+
+// A sharded fit's objective on one device, as its launch of
+// lynch_nll_shards_kernel runs it with a grid of `grid` blocks: table,
+// n_shards ShardSlot (host pointers) whose chunks the blocks walk
+// grid-stride, each chunk's sum and flagged count into part_sum, part_cnt
+// at its global index and the rows' flags into its shard's; then with fold
+// the n_chunks chunk sums of the whole fit folded into out[0] (the sum)
+// and out[1] (the flagged count) as the last block folds them.
+void sid_lynch_nll_shards_host(const void* table, int n_shards, const double* scalars, double* part_sum,
+                               int32_t* part_cnt, int64_t n_chunks, int fold, int grid, double* out) {
   const sid::LynchScalars s = unpack(scalars);
-  const int64_t n_chunks = (n + sid::kChunk - 1) / sid::kChunk;
+  const sid::ShardSlot* sl = static_cast<const sid::ShardSlot*>(table);
+  const int64_t total = n_shards > 0 ? sl[n_shards - 1].walk_end : 0;
   std::vector<double> v(sid::kReduceThreads);
   std::vector<int> c(sid::kReduceThreads);
-  for (int64_t chunk = 0; chunk < n_chunks; ++chunk) {
-    for (int t = 0; t < sid::kReduceThreads; ++t)
-      v[t] = sid::nll_thread_sum(chunk, t, rec, n, s, flags, &c[t]);
-    tree_fold(v, c);
-    part_sum[chunk] = v[0];
-    part_cnt[chunk] = c[0];
+  for (int b = 0; b < grid; ++b) {
+    for (int64_t j = b; j < total; j += grid) {
+      int64_t chunk = 0;
+      for (int t = 0; t < sid::kReduceThreads; ++t) v[t] = sid::shard_chunk_sum(sl, n_shards, j, t, s, &c[t], &chunk);
+      tree_fold(v, c);
+      part_sum[chunk] = v[0];
+      part_cnt[chunk] = c[0];
+    }
   }
-}
-
-// The fold kernel: n_chunks chunk sums and counts into out[0] (the sum),
-// out[1] (the flagged count).
-void sid_lynch_fold_host(const double* part_sum, const int32_t* part_cnt, int64_t n_chunks, double* out) {
-  fold_chunks(part_sum, part_cnt, n_chunks, out);
+  if (fold) fold_chunks(part_sum, part_cnt, n_chunks, out);
 }
 
 // slot_of over the first `count` slots for each of the n walk chunks js

@@ -72,8 +72,9 @@ class DeviceObjective:
     when it flags rows, their terms come from the long-double objective over
     those rows; the total is clamped to +-DBL_MAX as sid_tpu clamps it.
     Over a mesh the workspace is ``parallel.fit.ShardedLynchWorkspace``,
-    given as ``work``: each shard's partials launch and one fold launch in
-    place of B2's one launch, with the same values.
+    given as ``work``: one launch of the sharded objective on each device
+    that holds shards (one on one card), the fold in the fold device's
+    last block, in place of B2's one launch, with the same values.
     """
 
     def __init__(self, profiles: np.ndarray, mult: np.ndarray, nt: np.ndarray, device=None, work=None):

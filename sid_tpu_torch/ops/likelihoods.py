@@ -255,7 +255,7 @@ def fixed_order_sum(terms: torch.Tensor) -> torch.Tensor:
 def chunk_sums_ref(terms: torch.Tensor) -> torch.Tensor:
     """The first half of ``fixed_order_sum``: the (ceil(U / CHUNK_ROWS),)
     chunk sums of a (U,) f64 tensor, each in its chunk's fixed order, what
-    B2 stores per chunk (in its partials-only mode, a shard's). A shard cut
+    B2 stores per chunk (the sharded objective, a shard's). A shard cut
     at a multiple of CHUNK_ROWS has the whole tensor's chunk sums of its
     rows."""
     n_chunks = -(-terms.shape[0] // CHUNK_ROWS)
@@ -270,8 +270,10 @@ def chunk_sums_ref(terms: torch.Tensor) -> torch.Tensor:
 
 def fold_chunk_sums_ref(chunk_sums: torch.Tensor) -> torch.Tensor:
     """The second half of ``fixed_order_sum`` and the plain version of the
-    fold kernel (csrc/lynch.cu ``lynch_fold_kernel``): thread t adds chunk
-    sums t, t + REDUCE_THREADS, ... from 0.0, the threads fold as a tree.
+    fold that the last block of B2 and of the sharded objective makes
+    (csrc/lynch.cu ``lynch_nll_kernel``, ``lynch_nll_shards_kernel``):
+    thread t adds chunk sums t, t + REDUCE_THREADS, ... from 0.0, the
+    threads fold as a tree.
     ``fold_chunk_sums_ref(chunk_sums_ref(terms))`` is bitwise
     ``fixed_order_sum(terms)``. Returns a 0-d tensor."""
     rounds = -(-chunk_sums.shape[0] // REDUCE_THREADS)

@@ -38,18 +38,21 @@ constant bank, and a cohort of more lanes than one launch takes
 every lane's rows at once, each at its lane's scalars, and give each lane
 the bits of the single-lane plain versions.
 
-A sharded fit (``parallel/fit.py``, sid_tpu's ``fit_lynch_global``) runs
-B2 per shard in its partials-only mode (``LynchWorkspace.launch_partials``:
-the shard's chunk sums and flagged counts into its place in one buffer,
-no fold) and folds every shard's chunk sums in global chunk order with the
-fold kernel (``lynch_fold``), as B2's last block folds one fit's; the plain
-versions are ``lynch_nll_partials_ref`` and ``lynch_fold_ref``.
+A sharded fit (``parallel/fit.py``, sid_tpu's ``fit_lynch_global``) binds
+each shard's rows in a ``LynchWorkspace`` and groups the shards by device
+(``LynchShardGroup``): one launch of the sharded objective a device and
+evaluation walks every chunk of the device's shards through a table of
+them built once (a kernel parameter), each chunk sum at its global index, and on the fold's
+device (the mesh's first) the last block folds all the fit's chunk sums in
+B2's order, after the other devices' chunk sums were copied in by the same
+call. Its plain version, ``lynch_nll_shards_ref``, is
+``lynch_nll_partials_ref`` per shard and ``lynch_fold_ref`` over them all.
 
 ``RECORD_LAUNCHES``, ``NLL_LAUNCHES``, ``MARGINALS_LAUNCHES``,
-``NLL_LANES_LAUNCHES``, ``MARGINALS_LANES_LAUNCHES``,
-``NLL_PARTIALS_LAUNCHES`` and ``FOLD_LAUNCHES`` count kernel launches (not
-plain-version calls), so a run can show that it went through the kernels;
-the kernel library keeps its own count (``kernel_launches``).
+``NLL_LANES_LAUNCHES``, ``MARGINALS_LANES_LAUNCHES`` and
+``NLL_SHARDS_LAUNCHES`` count kernel launches (not plain-version calls), so
+a run can show that it went through the kernels; the kernel library keeps
+its own count (``kernel_launches``).
 """
 
 from __future__ import annotations
@@ -71,18 +74,27 @@ NLL_LAUNCHES = 0
 MARGINALS_LAUNCHES = 0
 NLL_LANES_LAUNCHES = 0
 MARGINALS_LANES_LAUNCHES = 0
-NLL_PARTIALS_LAUNCHES = 0
-FOLD_LAUNCHES = 0
+NLL_SHARDS_LAUNCHES = 0
 
 # counts arrive as uint16; the record packs them so
 MAX_COUNT = 65535
 # the record: m, the signed multiplicity, the packed counts (csrc/lynch.cuh)
 RECORD_PLANES = 3
 # the kernel library's launch counters (csrc/lynch.cu)
-KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes", "nll_partials", "fold")
+KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes", "nll_shards")
 # one running lane of a launch of a lane kernel (csrc/lynch.cuh LaneSlot):
 # its scalars, its rows, the end of its chunks in the launch's walk
 LANE_SLOT = np.dtype([("s", "<f8", (16,)), ("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8")])
+# one shard of a sharded fit's launch on its device (csrc/lynch.cuh
+# ShardSlot): its record and flags (device addresses), its rows, its first
+# global chunk, the end of its chunks in the launch's walk
+SHARD_SLOT = np.dtype([("rec", "<u8"), ("rows", "<i8"), ("flags", "<u8"), ("first_chunk", "<i8"), ("walk_end", "<i8")])
+# the shards one launch of the sharded objective takes (csrc/lynch.cu
+# kShardsPerLaunch: its table is a kernel parameter)
+SHARDS_PER_LAUNCH = 32
+# one copy the fold device's call makes before its launch (csrc/lynch.cu
+# PeerPull): after the event, bytes from src on src_device into dst
+PEER_PULL = np.dtype([("event", "<u8"), ("dst", "<u8"), ("src", "<u8"), ("bytes", "<i8"), ("src_device", "<i8")])
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -123,9 +135,9 @@ def lynch_compound_nll_ref(
 def lynch_nll_partials_ref(
     profiles: torch.Tensor, mult: torch.Tensor, scalars: np.ndarray, lgamma_tab: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain torch f64 version of B2's partials-only mode: the
-    (ceil(U / CHUNK_ROWS),) chunk sums of the unflagged terms (f64) and
-    flagged counts (int32), and the (U,) uint8 flags."""
+    """Plain torch f64 version of one shard's part of the sharded
+    objective: the (ceil(U / CHUNK_ROWS),) chunk sums of the unflagged
+    terms (f64) and flagged counts (int32), and the (U,) uint8 flags."""
     rows = likelihoods.lynch_rows(profiles, likelihoods.row_scalars(scalars, profiles), lgamma_tab)
     flags = rows.flag_mixture
     terms = torch.where(flags, 0.0, likelihoods.lynch_terms(rows.log_mix, mult))
@@ -137,9 +149,26 @@ def lynch_nll_partials_ref(
 
 
 def lynch_fold_ref(part_sum: torch.Tensor, part_cnt: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the fold kernel: [the chunk sums folded in the
-    kernel's order, the flagged counts summed] as a (2,) f64 tensor."""
+    """Plain torch version of the fold in the sharded objective's last
+    block: [the chunk sums folded in B2's order, the flagged counts summed]
+    as a (2,) f64 tensor."""
     return torch.stack([likelihoods.fold_chunk_sums_ref(part_sum), part_cnt.sum().to(torch.float64)])
+
+
+def lynch_nll_shards_ref(
+    shards, scalars: np.ndarray
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
+    """Plain version of one launch of the sharded objective that holds a
+    whole fit (every shard on one device, the fold on): ``shards`` is the
+    (profiles, mult, lgamma_tab) of each shard in row order, each but the
+    last a multiple of CHUNK_ROWS rows. ``lynch_nll_partials_ref`` per
+    shard, ``lynch_fold_ref`` over their concatenation. Returns ((2,) f64
+    [sum of the unflagged terms, flagged count], the (C,) f64 chunk sums,
+    the (C,) int32 flagged counts, each shard's (rows,) uint8 flags)."""
+    parts = [lynch_nll_partials_ref(p, m, scalars, tab) for p, m, tab in shards]
+    part_sum = torch.cat([q[0] for q in parts])
+    part_cnt = torch.cat([q[1] for q in parts])
+    return lynch_fold_ref(part_sum, part_cnt), part_sum, part_cnt, [q[2] for q in parts]
 
 
 def lynch_marginals_ref(
@@ -260,8 +289,11 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
         ("sid_lynch_lanes_grids", [i64, i64, p]),
         ("sid_lynch_nll_lanes_launch", [p, i64, p, i32, i32, p, p, p, p, p, i32, p, p]),
         ("sid_lynch_marginals_lanes_launch", [p, i64, p, i32, i32, p, p, p, i32, p]),
-        ("sid_lynch_nll_partials_launch", [p, p, i64, p, p, p, i32, p]),
-        ("sid_lynch_fold_launch", [p, p, i64, p, p, p]),
+        ("sid_lynch_shards_per_launch", []),
+        ("sid_lynch_shard_slot_bytes", []),
+        ("sid_lynch_peer_pull_bytes", []),
+        ("sid_lynch_shards_grid", [i64, p]),
+        ("sid_lynch_nll_shards_launch", [p, i32, p, p, p, i64, p, p, i32, p, i32, p, i32, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -276,6 +308,9 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
         raise RuntimeError("csrc/lynch.cuh and ops/lynch_objective.py disagree on the record")
     if lib.sid_lynch_lane_slot_bytes() != LANE_SLOT.itemsize:
         raise RuntimeError("csrc/lynch.cuh and ops/lynch_objective.py disagree on the lane slot")
+    if (lib.sid_lynch_shard_slot_bytes() != SHARD_SLOT.itemsize or lib.sid_lynch_peer_pull_bytes() != PEER_PULL.itemsize
+            or lib.sid_lynch_shards_per_launch() != SHARDS_PER_LAUNCH):
+        raise RuntimeError("csrc/lynch.cu and ops/lynch_objective.py disagree on the shard table")
     return lib
 
 
@@ -303,7 +338,7 @@ def blocks_per_sm(device) -> dict:
 def kernel_launches() -> dict:
     """The kernel library's own launch counts since it was loaded, by
     kernel: {"records": n, "nll": n, "marginals": n, "nll_lanes": n,
-    "marginals_lanes": n, "nll_partials": n, "fold": n}."""
+    "marginals_lanes": n, "nll_shards": n}."""
     lib = _kernel_lib()
     return {name: lib.sid_lynch_launches(k) for k, name in enumerate(KERNELS)}
 
@@ -418,33 +453,6 @@ class LynchWorkspace:
         self._launch_nll(scalars, None, self.host_out.data_ptr())
         return float(self._host_view[0]), float(self._host_view[1])
 
-    def launch_partials(self, scalars, part_sum: torch.Tensor, part_cnt: torch.Tensor) -> None:
-        """B2's partials-only mode at one theta (one shard of a sharded
-        fit), enqueued: the chunk sums of the unflagged terms into part_sum
-        (f64) and the flagged counts into part_cnt (int32), ceil(U /
-        CHUNK_ROWS) entries each on the workspace's device, the rows' flags
-        into ``flags``; no fold. On the CPU the plain version."""
-        global NLL_PARTIALS_LAUNCHES
-        _check_scalars(scalars)
-        n_chunks = -(-self.u // likelihoods.CHUNK_ROWS)
-        for name, t, dtype in (("part_sum", part_sum, torch.float64), ("part_cnt", part_cnt, torch.int32)):
-            if t.shape != (n_chunks,) or t.dtype != dtype or t.device != self.device or not t.is_contiguous():
-                raise ValueError(f"{name} must be ({n_chunks},) contiguous {dtype} on {self.device}")
-        if self.device.type == "cpu":
-            sums, cnts, self.flags = lynch_nll_partials_ref(self.profiles, self.mult, scalars, self.lgamma_tab)
-            part_sum.copy_(sums)
-            part_cnt.copy_(cnts)
-            return
-        if not self.u:
-            return
-        self._scalars[:] = scalars
-        with torch.cuda.device(self.device):
-            err = self._lib.sid_lynch_nll_partials_launch(
-                self.records.data_ptr(), self._scalars.ctypes.data, self.u, self.flags.data_ptr(),
-                part_sum.data_ptr(), part_cnt.data_ptr(), self.grids[1], self.stream.cuda_stream)
-        _raise_on(self._lib, err, "Lynch partials")
-        NLL_PARTIALS_LAUNCHES += 1
-
     def _marginals(self, scalars) -> torch.Tensor:
         """Launch B4 at one epsilon; its results in one (17 U,) uint8 device
         buffer (``_split``)."""
@@ -492,38 +500,136 @@ def _split(buf: torch.Tensor, u: int):
     return buf[: 8 * u].view(torch.float64), buf[8 * u : 16 * u].view(torch.float64), buf[16 * u :]
 
 
-def lynch_fold(part_sum: torch.Tensor, part_cnt: torch.Tensor, out: Optional[torch.Tensor] = None,
-               host_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The fold of a sharded fit: (2,) f64 [the chunk sums part_sum (C,)
-    f64 folded in B2's order, the flagged counts part_cnt (C,) int32
-    summed], on their device: the fold kernel on a CUDA device, enqueued on
-    the current stream, into ``out`` when given (made here otherwise); with
-    ``host_out`` (pinned, 2 f64) also copied there and the stream waited
-    for. On the CPU the plain version."""
-    global FOLD_LAUNCHES
-    for name, t, dtype in (("part_sum", part_sum, torch.float64), ("part_cnt", part_cnt, torch.int32)):
-        if t.dim() != 1 or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
-    if part_cnt.shape != part_sum.shape or part_cnt.device != part_sum.device:
-        raise ValueError("part_sum and part_cnt must have one shape and one device")
-    device = part_sum.device
-    if device.type == "cpu":
-        res = lynch_fold_ref(part_sum, part_cnt)
-        if host_out is not None:
-            host_out.copy_(res)
-        return res
-    if device.type != "cuda":
-        raise ValueError(f"no Lynch fold kernel for device {device}")
-    if out is None:
-        out = torch.empty(2, dtype=torch.float64, device=device)
-    lib = _kernel_lib()
-    with torch.cuda.device(device):
-        err = lib.sid_lynch_fold_launch(
-            part_sum.data_ptr(), part_cnt.data_ptr(), part_sum.shape[0], out.data_ptr(),
-            None if host_out is None else host_out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, err, "Lynch fold")
-    FOLD_LAUNCHES += 1
-    return out
+class LynchShardGroup:
+    """The shards of a sharded fit that one device holds, for one launch of
+    the sharded objective (csrc/lynch.cu ``lynch_nll_shards_kernel``) an
+    evaluation.
+
+    ``shards`` are (LynchWorkspace on ``device``, first global chunk) of
+    each shard, in row order, each of at least one row and starting at a
+    multiple of CHUNK_ROWS rows of the fit's histogram; ``n_chunks`` is the
+    fit's chunk count C. An evaluation writes each chunk's sum and flagged
+    count at its global index of ``part_sum`` (C,) f64 and ``part_cnt`` (C,)
+    int32 and each shard's rows' flags into its workspace's ``flags``. With
+    ``fold`` (the fold's device) it first copies in the chunk sums of
+    ``peers``, the groups of the other devices, which are launched before
+    it, and then folds all C chunk sums in B2's order into ``out``. On a
+    CUDA device the shards' table is built once (each launch takes it as a
+    kernel parameter), the grid comes from the occupancy API once, and the launch, with
+    the peers' copies before it (each after the event its peer's call
+    records), runs on the stream that was current when the group was made:
+    one ctypes call an evaluation. On the CPU the plain versions run. At
+    most SHARDS_PER_LAUNCH shards, on every device (ValueError).
+    """
+
+    def __init__(self, device, shards, n_chunks: int, fold: bool, peers=()):
+        self.device = device = torch.device(device)
+        if len(shards) > SHARDS_PER_LAUNCH:
+            raise ValueError(f"at most {SHARDS_PER_LAUNCH} shards a launch group, not {len(shards)}")
+        self.works = [w for w, _ in shards]
+        self.n_chunks = n_chunks
+        self.fold = fold
+        self.peers = list(peers)
+        if self.peers and not fold:
+            raise ValueError("only the fold's group copies in other groups' chunk sums")
+        self.chunks = [slice(int(c), int(c) - (-w.u // likelihoods.CHUNK_ROWS)) for w, c in shards]
+        ends = [0] + [c.stop for c in self.chunks]
+        for w, c, end in zip(self.works, self.chunks, ends):
+            if w.device != device or w.u < 1 or c.start < end or c.stop > n_chunks:
+                raise ValueError("shards must be non-empty, on the group's device, in row order inside the fit")
+        # the group's chunks as runs of consecutive chunks (what the fold copies in)
+        self.runs = []
+        for c in self.chunks:
+            if self.runs and self.runs[-1].stop == c.start:
+                self.runs[-1] = slice(self.runs[-1].start, c.stop)
+            else:
+                self.runs.append(c)
+        # the last evaluation's [sum of the unflagged terms, flagged count] (with fold)
+        self.out: Optional[torch.Tensor] = None
+        if device.type == "cpu":
+            self.part_sum = torch.zeros(n_chunks, dtype=torch.float64)
+            self.part_cnt = torch.zeros(n_chunks, dtype=torch.int32)
+            return
+        if device.type != "cuda":
+            raise ValueError(f"no Lynch shards kernel for device {device}")
+        lib = self._lib = _kernel_lib()
+        if any(p.fold or p.device.type != "cuda" for p in self.peers):
+            raise ValueError("the peers are the groups without the fold, on CUDA devices")
+        self.table = table = np.zeros(max(len(shards), 1), SHARD_SLOT)
+        for k, (w, c) in enumerate(zip(self.works, self.chunks)):
+            table[k] = (w.records.data_ptr(), w.u, w.flags.data_ptr(), c.start, c.stop - c.start)
+        table["walk_end"] = np.cumsum(table["walk_end"])
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.current_stream(device)
+            grid = ctypes.c_int(0)
+            _raise_on(lib, lib.sid_lynch_shards_grid(int(table["walk_end"][-1]), ctypes.byref(grid)), "Lynch shards grid")
+            self.grid = grid.value
+            self.part_sum = torch.empty(max(n_chunks, 1), dtype=torch.float64, device=device)[:n_chunks]
+            self.part_cnt = torch.empty(max(n_chunks, 1), dtype=torch.int32, device=device)[:n_chunks]
+            ticket = out = done = None
+            if fold:
+                self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+                self.out = torch.empty(2, dtype=torch.float64, device=device)
+                self.host_out = torch.empty(2, dtype=torch.float64, pin_memory=True)
+                self._host_view = self.host_out.numpy()
+                ticket, out = self.ticket.data_ptr(), self.out.data_ptr()
+            else:
+                # recorded by each launch's call, waited for by the fold's
+                self.done = torch.cuda.Event()
+                self.done.record(self.stream)
+                done = self.done.cuda_event
+        # the fold's copies of its peers' chunk sums and counts, by run
+        self.pulls = np.zeros(max(2 * sum(len(p.runs) for p in self.peers), 1), PEER_PULL)
+        k = 0
+        for peer in self.peers:
+            for r in peer.runs:
+                for mine, theirs in ((self.part_sum, peer.part_sum), (self.part_cnt, peer.part_cnt)):
+                    self.pulls[k] = (peer.done.cuda_event, mine[r].data_ptr(), theirs[r].data_ptr(),
+                                     (r.stop - r.start) * mine.element_size(), peer.device.index)
+                    k += 1
+        self._scalars = np.zeros(16, np.float64)  # passed to the kernel by address
+        self._args = (table.ctypes.data, len(shards), self._scalars.ctypes.data, self.part_sum.data_ptr(),
+                      self.part_cnt.data_ptr(), n_chunks, ticket, out, int(fold), self.pulls.ctypes.data, k, done)
+
+    def _launch(self, scalars, host_out) -> None:
+        global NLL_SHARDS_LAUNCHES
+        _check_scalars(scalars)
+        if self.device.type == "cpu":
+            for w, c in zip(self.works, self.chunks):
+                self.part_sum[c], self.part_cnt[c], w.flags = lynch_nll_partials_ref(
+                    w.profiles, w.mult, scalars, w.lgamma_tab)
+            for peer in self.peers:
+                for r in peer.runs:
+                    self.part_sum[r], self.part_cnt[r] = peer.part_sum[r], peer.part_cnt[r]
+            if self.fold:
+                self.out = lynch_fold_ref(self.part_sum, self.part_cnt)
+            return
+        self._scalars[:] = scalars
+        same = torch.cuda.current_device() == self.device.index
+        with contextlib.nullcontext() if same else torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_nll_shards_launch(*self._args, self.grid, host_out, self.stream.cuda_stream)
+        _raise_on(self._lib, err, "Lynch shards objective")
+        NLL_SHARDS_LAUNCHES += 1
+
+    def launch(self, scalars) -> None:
+        """Enqueue the group's evaluation at one theta and return at once:
+        the chunk sums land in ``part_sum``, ``part_cnt`` and, with fold,
+        [sum of the unflagged terms, flagged count] in ``out``."""
+        self._launch(scalars, None)
+
+    def nll(self, scalars) -> Tuple[float, float]:
+        """The fold's evaluation at one theta, waited for: (sum of the
+        unflagged terms, flagged count) of the whole fit, the peers
+        launched before. On a card one ctypes call: the peers' copies, the
+        launch, an async copy into pinned memory, one stream sync."""
+        if not self.fold:
+            raise RuntimeError("only the fold's group returns the objective")
+        if self.device.type == "cpu":
+            self._launch(scalars, None)
+            total, n_flagged = self.out.tolist()
+            return total, n_flagged
+        self._launch(scalars, self.host_out.data_ptr())
+        return float(self._host_view[0]), float(self._host_view[1])
 
 
 def lynch_compound_nll(

@@ -13,6 +13,7 @@ import importlib.util
 import os
 import re
 
+import numpy as np
 import pytest
 
 import chip_smoke
@@ -50,12 +51,12 @@ def test_local_classify_variant_texts_are_in_the_source_once(name):
 
 
 VARIANT_TABLES = {"B5_VARIANTS": "local_classify.cu", "BH_VARIANTS": "lrt_bh.cu", "LRT_VARIANTS": "lrt_bh.cu",
-                  "B6_LRT_VARIANTS": "quality_finalize.cu"}
+                  "B6_LRT_VARIANTS": "quality_finalize.cu", "SHARD_VARIANTS": "lynch.cu"}
 
 
 @pytest.mark.parametrize("table, name", [(t, n) for t in VARIANT_TABLES for n in getattr(chip_smoke, t)])
 def test_variant_texts_are_in_the_sources_once(table, name):
-    """Each substitution of a B5, BH, LRT or B6 full variant finds its text once in the
+    """Each substitution of a B5, BH, LRT, B6 full or sharded objective variant finds its text once in the
     file it edits (after the variant's earlier substitutions) and changes
     it."""
     edits = getattr(chip_smoke, table)[name]
@@ -185,43 +186,56 @@ def test_phase_16_runs_in_main():
 
     src = inspect.getsource(chip_smoke.main)
     at = [src.index(s) for s in ("scale_out_phases(card)", "# ---- 16. --devices ----", "mesh_path_runs(",
-                                 "mesh_fit_runs(", "mesh_population_fits(", "fold_kernel_checks(",
+                                 "mesh_fit_runs(", "mesh_population_fits(", "shards_kernel_checks(",
                                  'print(json.dumps({"kernels"')]
     assert at == sorted(at)
     assert "population_mesh_runs(" in inspect.getsource(chip_smoke.population_phase)
     assert chip_smoke.MESH_SHARDS == (1, 2, 3, 4, 8)
     assert chip_smoke.MESH_POP_SHARDS == (2, 4)
+    assert chip_smoke.MESH_D_SHARDS == (1, 4, 8)
+    assert chip_smoke.MESH_MANY_SHARDS > 32
     assert chip_smoke.FOLD_CHUNKS == (1, 2, 255, 256, 257, 973)
 
 
 def test_mesh_counters_are_the_wrappers():
     from sid_tpu_torch.ops import lynch_objective as lo
 
-    lo.FOLD_LAUNCHES, lo.NLL_PARTIALS_LAUNCHES = 3, 5
-    assert chip_smoke.mesh_counters()["lynch_fold"] == 3
-    assert chip_smoke.mesh_counters()["lynch_compound_nll_partials"] == 5
+    lo.NLL_SHARDS_LAUNCHES, lo.NLL_LAUNCHES = 3, 5
+    assert chip_smoke.mesh_counters()["lynch_compound_nll_shards"] == 3
+    assert chip_smoke.mesh_counters()["lynch_compound_nll"] == 5
+    assert not {"lynch_fold", "lynch_compound_nll_partials"} & set(chip_smoke.mesh_counters())
     chip_smoke.reset_mesh_counters()
     assert set(chip_smoke.mesh_counters().values()) == {0}
-    total = {"lynch_fold": 1}
-    chip_smoke.add_launches(total, {"lynch_fold": 2, "lynch_records": 1})
-    assert total == {"lynch_fold": 3, "lynch_records": 1}
+    total = {"lynch_compound_nll_shards": 1}
+    chip_smoke.add_launches(total, {"lynch_compound_nll_shards": 2, "lynch_records": 1})
+    assert total == {"lynch_compound_nll_shards": 3, "lynch_records": 1}
 
 
 def test_fold_row_of_the_kernels_line(monkeypatch):
-    """The fold kernel's row carries every key of the kernels line; on the
-    CPU (plain versions, the timers stubbed) it runs its bitwise checks."""
+    """The sharded objective's row (its launch folds the chunk sums in its
+    last block) carries every key of the kernels line; on the CPU (plain
+    versions, the timers stubbed, small histograms with deep rows) it runs
+    its bitwise checks at every shard count."""
     import torch
 
     monkeypatch.setattr(chip_smoke, "event_times_ms", lambda torch, fn, sets, repeats=20: [(fn(*sets[0]), 1.0)[1]])
     monkeypatch.setattr(chip_smoke, "device_only_ms", lambda torch, launch, sets, **kw: (launch(*sets[0]), 1.0)[1])
-    row = chip_smoke.fold_kernel_checks(torch, torch.device("cpu"), "cpu", 969)
+    rng = np.random.default_rng(5)
+    prof = rng.multinomial(30, [0.94, 0.03, 0.02, 0.01], 3000).astype(np.int32)
+    prof[[5, 2900]] = [9000, 9000, 0, 0]
+    mult = rng.integers(1, 100, 3000).astype(np.int64)
+    sass = {"_ZN_lynch_nll_shards_kernel": {"f64": 238, "f64_all": 431}}
+    row = chip_smoke.shards_kernel_checks(torch, torch.device("cpu"), "cpu", sass, prof, mult, prof[:2500],
+                                          mult[:2500])
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     assert keys <= set(row)
-    assert row["name"] == "lynch_fold" and row["route"] == "cuda"
+    assert row["name"] == "lynch_compound_nll_shards" and row["route"] == "cuda"
     assert row["replaces"] == "sid_tpu/parallel/fit.py:29" and row["source"] == "sid_tpu_torch/csrc/lynch.cu"
-    assert row["bound_by"] == "bytes" and row["bound_ms"] == pytest.approx((969 * 12 + 16) / 3.35e12 * 1e3)
-    assert row["n_chunks"] == 969
+    assert row["bound_by"] == "operations" and row["bound_ms"] == pytest.approx(238 * 2500 / (132 * 64 * 1.98e9) * 1e3)
+    assert row["library_ms"] is None and row["shards"] == 4 and sorted(row["by_shards"]) == [1, 4, 8]
+    # the launches are counted, not assumed: the plain version on the CPU launches nothing
+    assert [r["launches_an_evaluation"] for r in row["by_shards"].values()] == [0, 0, 0]
 
 
 @pytest.mark.parametrize("walls, want", [

@@ -21,7 +21,13 @@ folds the chunk sums. Built here with g++
   that ``fill_lane_slots`` writes: each lane bitwise the single-lane
   objective and marginals over its own rows, for every set of running
   lanes and grid, cohorts with runs of empty and 1-row lanes, and lanes
-  split into launches of a few.
+  split into launches of a few;
+- a sharded fit's objective on one device: the walk of the device's shard
+  table (``ShardSlot``), fold on and off, over 1, 2, 3 and 8 shards and
+  over two groups whose first's chunk sums are copied into the fold's
+  buffers, bitwise the one-launch objective and its flags; the plain
+  version ``lynch_nll_shards_ref`` the same counts and flags, the chunk
+  sums to 1e-12.
 """
 
 import ctypes
@@ -69,6 +75,8 @@ def shim(tmp_path_factory):
     lib.sid_lynch_lane_chunks_host.argtypes = [i64, i64]
     lib.sid_lynch_lane_slot_bytes_host.restype = i32
     lib.sid_lynch_lane_slot_bytes_host.argtypes = []
+    lib.sid_lynch_shard_slot_bytes_host.restype = i32
+    lib.sid_lynch_shard_slot_bytes_host.argtypes = []
     for name, args in (
         ("sid_lynch_rows_host", [p, p, p, i32, i64] + [p] * 6),
         ("sid_lynch_records_host", [p, p, p, i32, i64, p]),
@@ -78,8 +86,7 @@ def shim(tmp_path_factory):
         ("sid_lynch_slot_of_host", [p, i32, p, i64, p]),
         ("sid_lynch_nll_lanes_host", [p, i64, p, i32, i32, i32, p, p]),
         ("sid_lynch_marginals_lanes_host", [p, i64, p, i32, i32, i32, i32, p, p, p]),
-        ("sid_lynch_nll_partials_host", [p, i64, p, p, p, p]),
-        ("sid_lynch_fold_host", [p, p, i64, p]),
+        ("sid_lynch_nll_shards_host", [p, i32, p, p, p, i64, i32, i32, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = None
@@ -226,41 +233,67 @@ def test_sum_does_not_change_with_the_number_of_blocks(shim, u):
     assert abs(results[0][0] - float(want[0])) <= 1e-12 * abs(float(want[0]))
 
 
-@pytest.mark.parametrize("shards", [1, 2, 3, 8])
-def test_sharded_partials_and_fold_are_the_objective(shim, data, shards):
-    """A sharded fit's card arithmetic (csrc/lynch.cu's partials-only mode
-    per shard, cut at multiples of the chunk, then lynch_fold_kernel) gives
-    the one-launch objective's bits and flags, and the plain versions
-    (lynch_nll_partials_ref, lynch_fold_ref) the shim's."""
+def run_shards(lib, table, s, n_chunks, fold, grid, part_sum, part_cnt):
+    """One device's walk of its shard table (with fold: then the fit's
+    fold): out (2,), NaN where the launch writes none."""
+    out = np.full(2, np.nan)
+    lib.sid_lynch_nll_shards_host(table.ctypes.data, table.shape[0], s.ctypes.data, part_sum.ctypes.data,
+                                  part_cnt.ctypes.data, n_chunks, int(fold), grid, out.ctypes.data)
+    return out
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 8, "two-groups"])
+def test_shard_walk_is_the_objective(shim, shards):
+    """A sharded fit's card arithmetic (csrc/lynch.cu lynch_nll_shards_kernel:
+    one launch a device walks its shards' chunks through their table,
+    cut at multiples of the chunk, each chunk sum at its global index; the
+    fold's device folds them all) gives the one-launch objective's bits and
+    flags for every grid. With two groups the first walks the middle shard
+    with the fold off into buffers of its own (and writes no result), whose
+    chunks are copied into the fold's buffers before the fold's walk of the
+    other shards. The plain version (lynch_nll_shards_ref) gives the same
+    counts and flags, the chunk sums within 1e-12."""
     from sid_tpu_torch.parallel.mesh import chunk_bounds
 
-    prof, mult, tab, nt = data
-    s = lk.lynch_scalars(0.05, 0.01, nt)
+    assert shim.sid_lynch_shard_slot_bytes_host() == lynch_objective.SHARD_SLOT.itemsize
+    prof, mult = lynch_profiles(n=8 * lk.CHUNK_ROWS - 100, seed=23)
+    tab = lgamma_table(int(prof.sum(-1).max()), "cpu")
+    s = lk.lynch_scalars(0.05, 0.01, nucleotide_distribution(prof, mult))
     want, want_flags = run_nll(shim, run_records(shim, prof, mult, tab), s, grid=5)
+    assert want[1] >= 4  # the deep rows
     u = prof.shape[0]
     n_chunks = -(-u // lk.CHUNK_ROWS)
-    part_sum, part_cnt = np.empty(n_chunks), np.empty(n_chunks, np.int32)
-    flags = np.empty(u, np.uint8)
-    bounds = chunk_bounds(u, shards)
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        c = a // lk.CHUNK_ROWS
-        rec = run_records(shim, np.ascontiguousarray(prof[a:b]), np.ascontiguousarray(mult[a:b]), tab)
-        shard_flags = np.empty(b - a, np.uint8)
-        shim.sid_lynch_nll_partials_host(rec.ctypes.data, b - a, s.ctypes.data, shard_flags.ctypes.data,
-                                         part_sum[c:].ctypes.data, part_cnt[c:].ctypes.data)
-        flags[a:b] = shard_flags
-        p_sum, p_cnt, p_flags = lynch_objective.lynch_nll_partials_ref(
-            torch.from_numpy(prof[a:b]), torch.from_numpy(mult[a:b]), s, tab)
-        assert np.array_equal(p_flags.numpy(), shard_flags)
-        assert np.array_equal(p_cnt.numpy(), part_cnt[c : c + p_cnt.shape[0]])
-        err = np.abs(p_sum.numpy() - part_sum[c : c + p_sum.shape[0]])
-        assert (err <= 1e-12 * np.maximum(1.0, np.abs(p_sum.numpy()))).all()
-    got = np.empty(2)
-    shim.sid_lynch_fold_host(part_sum.ctypes.data, part_cnt.ctypes.data, n_chunks, got.ctypes.data)
-    assert np.array_equal(bits(got), bits(want))
-    assert np.array_equal(flags, want_flags)
-    plain = lynch_objective.lynch_fold_ref(torch.from_numpy(part_sum), torch.from_numpy(part_cnt)).numpy()
-    assert np.array_equal(bits(plain), bits(got))
+    bounds = chunk_bounds(u, 3 if shards == "two-groups" else shards)
+    cut = [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    assert len(cut) == (3 if shards == "two-groups" else shards)
+    recs = [run_records(shim, np.ascontiguousarray(prof[a:b]), np.ascontiguousarray(mult[a:b]), tab) for a, b in cut]
+    groups = [[1], [0, 2]] if shards == "two-groups" else [list(range(len(cut)))]
+    for grid in (1, 3, 64, RESIDENT_GRIDS[0]):
+        flags = [np.full(b - a, 7, np.uint8) for a, b in cut]
+        sums = []
+        for g in groups:
+            table = np.zeros(len(g), lynch_objective.SHARD_SLOT)
+            for i, k in enumerate(g):
+                a, b = cut[k]
+                table[i] = (recs[k].ctypes.data, b - a, flags[k].ctypes.data, a // lk.CHUNK_ROWS,
+                            -(-(b - a) // lk.CHUNK_ROWS))
+            table["walk_end"] = np.cumsum(table["walk_end"])
+            part_sum, part_cnt = np.full(n_chunks, np.nan), np.full(n_chunks, -1, np.int32)
+            fold = g is groups[-1]
+            for peer, (p_sum, p_cnt) in zip(groups, sums):  # the peers' chunks copied in before the fold
+                for k in peer:
+                    c = slice(cut[k][0] // lk.CHUNK_ROWS, -(-cut[k][1] // lk.CHUNK_ROWS))
+                    part_sum[c], part_cnt[c] = p_sum[c], p_cnt[c]
+            out = run_shards(shim, table, s, n_chunks, fold, grid, part_sum, part_cnt)
+            sums.append((part_sum, part_cnt))
+            assert np.isnan(out).all() != fold
+        assert np.array_equal(bits(out), bits(want)), grid
+        assert np.array_equal(np.concatenate(flags), want_flags)
+    plain, p_sum, p_cnt, p_flags = lynch_objective.lynch_nll_shards_ref(
+        [(torch.from_numpy(prof[a:b]), torch.from_numpy(mult[a:b]), tab) for a, b in cut], s)
+    assert np.array_equal(p_cnt.numpy(), part_cnt) and plain[1].item() == want[1]
+    assert np.array_equal(torch.cat(p_flags).numpy(), want_flags)
+    assert (np.abs(p_sum.numpy() - part_sum) <= 1e-12 * np.maximum(1.0, np.abs(part_sum))).all()
 
 
 def lane_table(off, scalars, lanes, per_launch=PER_LAUNCH, chunk_rows=lk.CHUNK_ROWS):

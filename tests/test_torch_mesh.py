@@ -10,8 +10,10 @@ platform has one device; a shard count k above it is a mesh of ``[cpu] * k``
 on one card. Inputs are made from a seed with numpy.
 
 - the fold: ``fold_chunk_sums_ref(chunk_sums_ref(t))`` is ``fixed_order_sum(t)``
-  bitwise;
-- the mesh and its row splitter;
+  bitwise; the sharded objective's wrapper (``LynchShardGroup``) runs its
+  plain version on the CPU, bitwise ``fold_chunk_sums_ref``;
+- the mesh, its row splitter and the shards' grouping by device (the fold's
+  device last);
 - shard counts: ``fit_lynch_global`` over ``[cpu] * k``, k = 1..8, is bitwise
   ``fit_on_filtered_profiles`` (shards left empty above the chunk count;
   with a C2 deep row in the last shard), and within sid_tpu's rel 1e-6 of
@@ -119,17 +121,33 @@ def test_fold_of_chunk_sums_is_fixed_order_sum(u):
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2, 255, 256, 257, 973])
-def test_fold_wrapper_on_the_cpu_is_its_plain_version(n_chunks):
+def test_shards_wrapper_on_the_cpu_is_its_plain_version(n_chunks):
+    """The sharded objective's wrapper over three shards of a histogram of
+    ``n_chunks`` chunks (the last one short; deep rows the range screen
+    flags planted) runs the plain version on the CPU and launches nothing:
+    [sum, count] bitwise ``lynch_nll_shards_ref`` and
+    ``fold_chunk_sums_ref`` of its chunk sums, the chunk sums and flags its
+    own."""
     rng = np.random.default_rng(n_chunks)
-    part_sum = torch.from_numpy(rng.standard_normal(n_chunks) * 1e6)
-    part_cnt = torch.from_numpy(rng.integers(0, 5, n_chunks).astype(np.int32))
-    before = lynch_objective.FOLD_LAUNCHES
-    got = lynch_objective.lynch_fold(part_sum, part_cnt)
-    assert lynch_objective.FOLD_LAUNCHES == before  # the plain version is no launch
-    want = lynch_objective.lynch_fold_ref(part_sum, part_cnt)
-    assert np.array_equal(bits(got.numpy()), bits(want.numpy()))
-    assert got[1].item() == float(part_cnt.sum())
-    assert bits(got[0].item()) == bits(lk.fold_chunk_sums_ref(part_sum).item())
+    u = n_chunks * lk.CHUNK_ROWS - 7
+    prof = rng.multinomial(30, [0.94, 0.03, 0.02, 0.01], u).astype(np.int32)
+    prof[rng.choice(u, min(u, 3), replace=False)] = DEEP
+    mult = rng.integers(1, 1000, u).astype(np.int64)
+    tab = lgamma_table(int(prof.sum(-1).max()), CPU)
+    s = lk.lynch_scalars(0.05, 0.01, nucleotide_distribution(prof, mult))
+    b = mesh_mod.chunk_bounds(u, 3)
+    parts = [(torch.from_numpy(prof[x:y]), torch.from_numpy(mult[x:y]), tab) for x, y in zip(b[:-1], b[1:]) if y > x]
+    works = [(lynch_objective.LynchWorkspace(*p), x // lk.CHUNK_ROWS) for p, x in zip(parts, b)]
+    group = lynch_objective.LynchShardGroup(CPU, works, n_chunks, fold=True)
+    before = lynch_objective.NLL_SHARDS_LAUNCHES
+    got = group.nll(s)
+    assert lynch_objective.NLL_SHARDS_LAUNCHES == before  # the plain version is no launch
+    want, part_sum, part_cnt, flags = lynch_objective.lynch_nll_shards_ref(parts, s)
+    assert bits(np.array(got)).tolist() == bits(want.numpy()).tolist()
+    assert bits(got[0]) == bits(lk.fold_chunk_sums_ref(group.part_sum).item())
+    assert np.array_equal(bits(group.part_sum.numpy()), bits(part_sum.numpy()))
+    assert torch.equal(group.part_cnt, part_cnt) and got[1] == float(part_cnt.sum()) >= 1
+    assert all(torch.equal(w.flags, f) for (w, _), f in zip(works, flags))
 
 
 # ---- the mesh ----
@@ -155,6 +173,32 @@ def test_chunk_bounds_cut_at_chunks(n_rows, k):
     assert all(x % lk.CHUNK_ROWS == 0 for x in b[:-1] if x < n_rows)
     chunks = -(-n_rows // lk.CHUNK_ROWS)
     assert int((np.diff(b) > 0).sum()) == min(k, chunks) or chunks < k
+
+
+C0, C1, C2 = (torch.device("cuda", i) for i in range(3))
+
+
+@pytest.mark.parametrize("devices, fold, want", [
+    ([C0], C0, [(C0, [0])]),
+    ([C0] * 4, C0, [(C0, [0, 1, 2, 3])]),
+    ([C0, C1, C0], C0, [(C1, [1]), (C0, [0, 2])]),
+    ([C0, C1, C2, C1], C0, [(C1, [1, 3]), (C2, [2]), (C0, [0])]),
+    ([C1, C2], C0, [(C1, [0]), (C2, [1]), (C0, [])]),
+    ([], CPU, [(CPU, [])]),
+    ([CPU] * 3, CPU, [(CPU, [0, 1, 2])]),
+    ([C0] * 40, C0, [(C0, list(range(32))), (C0, list(range(32, 40)))]),
+    ([C0, C1] * 33, C0, [(C1, list(range(1, 64, 2))), (C1, [65]), (C0, list(range(0, 64, 2))), (C0, [64])]),
+], ids=["one", "one-card-x4", "repeated", "three-cards", "fold-without-shards", "no-rows", "cpu-x3",
+        "one-card-x40", "two-cards-x33"])
+def test_device_groups_put_the_fold_device_last(devices, fold, want):
+    """The shards' launch groups from torch.device objects alone (no card):
+    one group a device, in the order the devices first appear in the mesh,
+    each group's shards in row order, the fold device's group last; a
+    device with more than 32 shards (the table one launch takes) one group
+    for each 32 of them."""
+    from sid_tpu_torch.parallel.fit import device_groups
+
+    assert device_groups(devices, fold) == want
 
 
 def test_run_sharded_enqueues_every_shard_before_waiting():
@@ -190,6 +234,11 @@ def test_partials_and_fold_plain_are_b2_plain(hist, k):
     got = lynch_objective.lynch_fold_ref(torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
     assert np.array_equal(bits(got.numpy()), bits(want.numpy()))
     assert np.array_equal(torch.cat([p[2] for p in parts]).numpy(), want_flags.numpy())
+    # the sharded objective's plain version is these two, composed
+    shards = [(torch.from_numpy(prof[x:y]), torch.from_numpy(mult[x:y]), tab) for x, y in zip(b[:-1], b[1:]) if y > x]
+    out, _, _, flags = lynch_objective.lynch_nll_shards_ref(shards, s)
+    assert np.array_equal(bits(out.numpy()), bits(want.numpy()))
+    assert np.array_equal(torch.cat(flags).numpy(), want_flags.numpy())
 
 
 @pytest.mark.parametrize("k", range(1, 9))
@@ -225,25 +274,51 @@ def test_sharded_objective_keeps_the_range_screen(deep_hist, k):
 
 @pytest.mark.parametrize("k", [2, 3, 8])
 def test_sharded_workspace_copies_own_buffers_into_the_fold(hist, k):
-    """A shard on another device than the fold's writes its chunk sums into
-    buffers of its own, copied into the fold's each evaluation. On the CPU
-    every shard shares the fold's device, so the last shard is given such
-    buffers; the fold's place for them is poisoned first, and the objective
-    is still bitwise one-device B2's."""
+    """A group of shards on another device than the fold's writes its chunk
+    sums into buffers of its own, copied into the fold's each evaluation.
+    On the CPU every shard shares the fold's device (one group), so the
+    last shard is given a group of its own; the fold's place for its chunk
+    sums is poisoned first, and the objective is still bitwise one-device
+    B2's."""
     prof, mult = hist
     nt = nucleotide_distribution(prof, mult)
     work = ShardedLynchWorkspace(prof, mult, [CPU] * k)
-    assert not any(s.copied for s in work.shards)
-    assert all(s.sums.data_ptr() == work.part_sum[s.chunks].data_ptr() for s in work.shards)
+    assert len(work.groups) == 1 and work.groups[0].fold and not work.groups[0].peers
     last = work.shards[-1]
-    work.shards[-1] = last._replace(sums=torch.empty_like(last.sums), cnts=torch.empty_like(last.cnts), copied=True)
+    peer = work.group(CPU, [len(work.shards) - 1])
+    work.groups = [peer, work.group(CPU, range(len(work.shards) - 1), [peer])]
+    assert peer.runs == [last.chunks] and peer.part_sum.data_ptr() != work.groups[-1].part_sum.data_ptr()
     one = lynch_objective.LynchWorkspace(torch.from_numpy(prof), torch.from_numpy(mult),
                                          lgamma_table(int(prof.sum(-1).max()), CPU))
     for theta in THETAS[:-1]:  # inside the box
-        work.part_sum[last.chunks] = float("nan")
-        work.part_cnt[last.chunks] = -1
+        work.groups[-1].part_sum[last.chunks] = float("nan")
+        work.groups[-1].part_cnt[last.chunks] = -1
         s = lk.lynch_scalars(*theta, nt)
         assert bits(np.array(work.nll(s))).tolist() == bits(np.array(one.nll(s))).tolist(), theta
+
+
+def test_more_shards_than_a_launch_takes_are_bitwise_one_device():
+    """A mesh that lists one device 40 times (more shards than the 32 of a
+    launch's table) splits them into two launch groups, the fold's last;
+    the objective and flags are one-device B2's bit for bit. A group of 33
+    shards is refused on every device."""
+    rng = np.random.default_rng(40)
+    u = 40 * lk.CHUNK_ROWS - 300
+    prof = rng.multinomial(30, [0.94, 0.03, 0.02, 0.01], u).astype(np.int32)
+    prof[[7, u - 1]] = DEEP
+    mult = rng.integers(1, 1000, u).astype(np.int64)
+    nt = nucleotide_distribution(prof, mult)
+    work = ShardedLynchWorkspace(prof, mult, [CPU] * 40)
+    assert len(work.shards) == 40 and [len(g.works) for g in work.groups] == [32, 8]
+    assert work.groups[-1].peers == work.groups[:1] and work.groups[0].runs == [slice(0, 32)]
+    one = lynch_objective.LynchWorkspace(torch.from_numpy(prof), torch.from_numpy(mult),
+                                         lgamma_table(int(prof.sum(-1).max()), CPU))
+    for theta in THETAS[:-1]:
+        s = lk.lynch_scalars(*theta, nt)
+        assert bits(np.array(work.nll(s))).tolist() == bits(np.array(one.nll(s))).tolist(), theta
+        assert torch.equal(work.flags, one.flags.cpu())
+    with pytest.raises(ValueError, match="at most 32 shards"):
+        work.group(CPU, range(33))
 
 
 def test_sharded_workspace_indexes_its_mesh():
@@ -270,11 +345,11 @@ def test_mesh_fit_forces_the_device_backend(hist, eight_cpus):
     prof, mult = hist
     assert lynch.resolve_fit_backend(Options(platform="cpu", mesh_devices=2), 10) == "device"
     assert lynch.resolve_fit_backend(Options(platform="cpu", mesh_devices=2, fit_backend="exact"), 10) == "exact"
-    before = lynch_objective.NLL_PARTIALS_LAUNCHES, lynch_objective.FOLD_LAUNCHES
+    before = lynch_objective.NLL_SHARDS_LAUNCHES, lynch_objective.NLL_LAUNCHES
     got = lynch.fit_profiles(prof, mult, Options(platform="cpu", mesh_devices=4))
     assert same_fit(got, fit_on_filtered_profiles(prof, mult, CPU))
     # the CPU runs the plain versions: no kernel launch is counted
-    assert (lynch_objective.NLL_PARTIALS_LAUNCHES, lynch_objective.FOLD_LAUNCHES) == before
+    assert (lynch_objective.NLL_SHARDS_LAUNCHES, lynch_objective.NLL_LAUNCHES) == before
 
 
 # ---- method CSVs against sid_tpu's mesh ----
