@@ -78,14 +78,17 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
 6. the fit's main path: engine.run on golden.pileup for bayes, LR, LR -R
    and local -R under --fit device, --fit auto and --engine exact, each
    byte-equal to its golden CSV, the device fit's diagnostic lines those of
-   the goldens' run; B2 launched under --fit device and not under auto;
-   the deep-coverage repro of fault C2 byte-equal to --fit exact; every
-   kernel of the path launched;
+   the goldens' run; under --fit device one graph launch a fit (the loop on
+   the card) and its kernel launched, no B2, nothing under auto; the
+   deep-coverage repro of fault C2 byte-equal to --fit exact, each fit
+   handed over at evaluation 0 (then B2 on the host's loop); every kernel
+   of the path launched;
 7. the fit at U ~ 1M at the model layer: models.lynch.fit_profiles under
    auto (the device fit) and --fit exact on phase 5's rows up to 1000x;
    wall time, iterations, (pi, eps) of both within the simplex tolerance,
    and how many bayes / LR profile records differ; one evaluation and the
-   device fit's wall taken apart; a one-lane LanesObjective against
+   device fit's wall taken apart (set-up, the fit's graph, the loop on the
+   card, B4); a one-lane LanesObjective against
    DeviceObjective on the same rows (bitwise the same values), the
    kernel alone and the whole call, in turns;
 8. the quality finalize kernel (B6) at N = 1,000,000 sites (Poisson(30)
@@ -146,10 +149,10 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    -R -m likelihood_ratio, and on 8 of them pooled -m local and -m quality,
    every sample's CSV byte-equal to the same run on the CPU; the LR run
    through call_population_streaming (64 MB chunks) byte-equal to it; the
-   lane, row record, local classify and quality finalize kernels launched;
-   five lanes' fits bitwise single-lane fits over DeviceObjective; the
-   lanes' rounds, launches and evaluations, and the fits' wall against 100
-   single-lane fits in turns;
+   fit's kernel (one graph a fit), row record, lanes' marginals, local
+   classify and quality finalize kernels launched; five lanes' fits bitwise
+   single-lane fits over DeviceObjective; the lanes' rounds, launches and
+   evaluations, and the fits' wall against 100 single-lane fits in turns;
 13. the fused on-device LRT (exact_pvalues=False): B5
    (local_classify_lrt_kernel, one erfc a row) at phase 3's profiles, every
    -E and prior: its byte's bits 0-4 bitwise B1's, p1 and p2 within 1e-13
@@ -203,8 +206,9 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    without --devices under --fit device (the path's launches counted from
    0); (b) fit_lynch_global over [cuda:0] x k, k = 1, 2, 3, 4, 8, at phase
    7's U = 991,985: (pi, eps) and both log-L arrays bitwise the one-device
-   fit, one launch of the sharded objective (lynch_nll_shards_kernel) an
-   evaluation by the wrapper's and the library's counters, the walls; the
+   fit (its loop on the card), one launch of the sharded objective
+   (lynch_nll_shards_kernel) an evaluation of the host's loop by the
+   wrapper's and the library's counters, the walls; the
    C2 repro planted in the last shard, the objective and marginals bitwise
    the one-device objective's; the last shard in a launch group of its
    own, its chunk sums copied into the fold's buffers (a second card's
@@ -216,10 +220,24 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    7's U; there its call, device-only and plain times, torch.sum of the
    chunk sums (the fold's share), the bound and its share (with --parent,
    the parent's partials launches and fold in turns with it);
-17. prints a JSON line of kernel results (with each kernel's launches on
+17. the fit's loop on the card (B3: LynchFitWorkspace, one CUDA graph a
+   fit, csrc/lynch.cu lynch_fit_lanes_kernel and csrc/nmsimplex.cuh)
+   against the host's loop on the golden fit, the two C2 repros (handed
+   over at evaluation 0), phase 7's U = 991,985 and phase 12's cohort,
+   pooled and independent: results and every visited point bitwise, the
+   values that differ (CUDA's logs against glibc's) counted with their
+   largest ulp; one graph launch a fit and the kernel once an evaluation
+   (a round), by the wrappers' and the library's counters; the kernel
+   against its plain version lynch_fit_lanes_ref on the card; the walls
+   in turns (whole fit, loop alone) and the loop's device time; the
+   population path on 8 samples, two with the C2 row (C4), the counters
+   from 0: the merged fit and those lanes handed to the host's lockstep
+   (the lanes' objective launched), every CSV byte-equal to the CPU run;
+18. prints a JSON line of kernel results (with each kernel's launches on
    phases 14, 15, 16 and 10b's pipelined runs as launches_per_shard,
-   launches_multihost, launches_mesh and launches_pipeline), then the
-   final JSON line {"ok": true, "device": {...}}.
+   launches_multihost, launches_mesh and launches_pipeline; the lanes'
+   objective's are phase 17's C4 run's), then the final JSON line
+   {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the final
 line. Without a CUDA card it exits 1 at once.
@@ -623,9 +641,37 @@ def issue_ms(issued: float, rows: int) -> float:
 
 def fit_wall_split(torch, prof, mult, nt, dev) -> dict:
     """The device fit (models.lynch.fit_lynch) taken apart, wall clock in
-    ms: set-up (DeviceObjective: uploads, table, workspace), the
-    evaluations (each objective call, launch to fetched result), the host
-    simplex (the rest of the minimizer), B4 with its copies."""
+    ms: set-up (DeviceObjective: uploads, table, row record), the fit's
+    graph (LynchFitWorkspace: its buffers, the graph built and
+    instantiated), the loop on the card (one graph launch, the results'
+    copy, one sync), B4 with its copies."""
+    from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
+    from sid_tpu_torch.models.lynch import DeviceObjective
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obj = DeviceObjective(prof, mult, nt, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fw = lo.LynchFitWorkspace(obj.work, [[*DEFAULT_START, *DEFAULT_STEP, 0.0]], nt[None])
+    t2 = time.perf_counter()
+    out = fw.run()
+    t3 = time.perf_counter()
+    res = out.result(0)
+    obj.marginals(float(res.x[1]))
+    t4 = time.perf_counter()
+    return {"setup_ms": (t1 - t0) * 1e3, "graph_ms": (t2 - t1) * 1e3, "loop_ms": (t3 - t2) * 1e3,
+            "evaluations": int(out.evaluations[0]), "marginals_ms": (t4 - t3) * 1e3, "wall_ms": (t4 - t0) * 1e3,
+            "x": [float(v) for v in res.x]}
+
+
+def host_fit_wall_split(torch, prof, mult, nt, dev) -> dict:
+    """The device fit with the host's loop (before the loop ran on the
+    card; a mesh's fit still does) taken apart, wall clock in ms: set-up
+    (DeviceObjective: uploads, table, workspace), the evaluations (each
+    objective call, launch to fetched result), the host simplex (the rest
+    of the minimizer), B4 with its copies."""
     from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
     from sid_tpu_torch.exact.nmsimplex import minimize_nmsimplex2
     from sid_tpu_torch.models.lynch import DeviceObjective
@@ -2009,14 +2055,14 @@ def lanes_kernel_phase(torch, dev, card, sass):
     after = lo.kernel_launches()
     per_call = {k: after[k] - before[k] for k in after}
     if per_call != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 1, "marginals_lanes": 0,
-                    "nll_shards": 0}:
+                    "nll_shards": 0, "fit_lanes": 0, "fit_graphs": 0}:
         raise AssertionError(f"one lanes' objective call: launches {per_call}")
     before = lo.kernel_launches()
     work.marginals_lanes_host(theta_sets[0])
     after = lo.kernel_launches()
     per_marg = {k: after[k] - before[k] for k in after}
     if per_marg != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 1,
-                    "nll_shards": 0}:
+                    "nll_shards": 0, "fit_lanes": 0, "fit_graphs": 0}:
         raise AssertionError(f"one lanes' marginals call: launches {per_marg}")
     log(f"# one call is one launch (the kernel library's counters): objective {per_call}, marginals {per_marg}")
 
@@ -2304,8 +2350,8 @@ def population_phase(torch, dev, card, workdir):
         (f"pooled -m local ({POP_SUBSET} samples)", subset, {"method": "local"}, "pooled", 1),
         (f"pooled -m quality ({POP_SUBSET} samples)", subset, {"method": "quality"}, "pooled", 1),
     ]
-    names = ("records", "nll_lanes", "marginals_lanes")
     lo.RECORD_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
+    lo.FIT_LANES_LAUNCHES = lo.FIT_GRAPH_LAUNCHES = 0
     local_classify.LAUNCHES = 0
     qf.LAUNCHES = 0
     card_runs = {}
@@ -2320,11 +2366,13 @@ def population_phase(torch, dev, card, workdir):
     t0 = time.perf_counter()
     counts = call_population_streaming(paths, stream_opts, "pooled", chunk_bytes=POP_CHUNK)
     stream_wall = time.perf_counter() - t0
-    launches = {"records": lo.RECORD_LAUNCHES, "nll_lanes": lo.NLL_LANES_LAUNCHES,
+    launches = {"records": lo.RECORD_LAUNCHES, "fit_lanes": lo.FIT_LANES_LAUNCHES, "fit_graphs": lo.FIT_GRAPH_LAUNCHES,
                 "marginals_lanes": lo.MARGINALS_LANES_LAUNCHES, "local": local_classify.LAUNCHES,
                 "quality": qf.LAUNCHES}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the population path was not launched: {launches}")
+    # these samples flag no rows: no lane goes on in the host's lockstep
+    launches["nll_lanes"] = lo.NLL_LANES_LAUNCHES
     log("# kernel launches on the population path: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     label = "pooled -R -m likelihood_ratio"
     for path, digest in zip(paths, card_runs[label][0][0]):
@@ -2374,18 +2422,18 @@ def population_phase(torch, dev, card, workdir):
     walls = {"lanes": [], "single-lane fits": []}
     for turn in ("lanes", "single-lane fits", "single-lane fits", "lanes"):
         torch.cuda.synchronize()
-        before = lo.NLL_LANES_LAUNCHES
+        before = lo.FIT_LANES_LAUNCHES
         t0 = time.perf_counter()
         if turn == "lanes":
             results, obj = pop.fit_lanes(hists, nts, dev, pop.START, pop.STEP)
-            stats = (obj.rounds, lo.NLL_LANES_LAUNCHES - before, obj.evaluations,
+            stats = (obj.fit.rounds, lo.FIT_LANES_LAUNCHES - before, int(obj.fit.evaluations.sum()),
                      max(r.iterations for r in results), sum(r.converged for r in results))
         else:
             for (p_k, m_k), nt in zip(hists, nts):
                 minimize_nmsimplex2(lynch.DeviceObjective(p_k, m_k, nt, dev), pop.START, pop.STEP)
         walls[turn].append(time.perf_counter() - t0)
-    log(f"# independent fits of {POP_SAMPLES} samples (U {min(u)}..{max(u)}): {stats[0]} rounds, {stats[1]} lanes' "
-        f"objective launches, {stats[2]} lane evaluations, at most {stats[3]} iterations, {stats[4]} converged; "
+    log(f"# independent fits of {POP_SAMPLES} samples (U {min(u)}..{max(u)}): {stats[0]} rounds, {stats[1]} "
+        f"launches of the fit's kernel (one graph), {stats[2]} lane evaluations, at most {stats[3]} iterations, {stats[4]} converged; "
         f"wall in turns: " + ", ".join(f"{k} {', '.join(f'{w * 1e3:.1f}' for w in v)} ms" for k, v in walls.items())
         + f"; on {card}")
     return launches, (mesh_launches, mesh_wall)
@@ -2394,8 +2442,9 @@ def population_phase(torch, dev, card, workdir):
 def population_phases(torch, dev, card, sass) -> tuple:
     """Phases 11 and 12 (their files under .smoke/, removed at the end),
     with phase 16 (a)'s population runs on phase 12's files; returns the
-    lane kernels' rows of the kernels line, with the launches of the
-    population path, and phase 16 (a)'s (launches, wall)."""
+    lane kernels' rows of the kernels line (the marginals' launches those
+    of the population path), the population path's launches, and phase 16
+    (a)'s (launches, wall)."""
     workdir = os.path.join(HERE, ".smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -2407,9 +2456,326 @@ def population_phases(torch, dev, card, sass) -> tuple:
         log(f"# phase 11 took {t1 - t0:.1f} s, phase 12 {time.perf_counter() - t1 - mesh[1]:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    rows[0]["launches"] = launches["nll_lanes"]
     rows[1]["launches"] = launches["marginals_lanes"]
-    return rows, mesh
+    return rows, launches, mesh
+
+
+# ---- phase 17: the fit's loop on the card (B3) ----
+# a cohort whose samples 2 and 5 carry the C2 repro row (C4: their fits
+# hand over to the host's lockstep), small enough for the CPU's run
+LOOP_C4_SAMPLES = 8
+LOOP_C4_SITES = 20_000
+LOOP_C4_DEEP = (2, 5)
+
+
+def ulps(a, b) -> np.ndarray:
+    """|a - b| in units in the last place, for f64 arrays of one sign (0
+    where both are equal or both NaN)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    d = np.abs(a.view(np.int64) - b.view(np.int64))
+    return np.where(same, 0, d)
+
+
+class Visits:
+    """The points and values a host loop visits, per lane."""
+
+    def __init__(self, lanes: int):
+        self.points = [[] for _ in range(lanes)]
+        self.values = [[] for _ in range(lanes)]
+
+    def one(self, f):
+        def g(x):
+            v = f(x)
+            self.points[0].append(np.array(x))
+            self.values[0].append(v)
+            return v
+        return g
+
+    def lanes(self, f_lanes):
+        def g(lanes, points):
+            vals = f_lanes(lanes, points)
+            for k, x, v in zip(lanes, points, vals):
+                self.points[k].append(np.array(x))
+                self.values[k].append(v)
+            return vals
+        return g
+
+
+def compare_histories(label, fw, out, visits, tally) -> None:
+    """The card's histories of fw's lanes (a run ``out``) against the host
+    loop's ``visits``: every point bitwise, each lane as many evaluations,
+    up to a handed-over lane's flagged one; the values that differ and
+    their largest ulp and absolute difference into ``tally``."""
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    lanes = list(range(fw.lanes))
+    for k, (points, values, flagged) in zip(lanes, fw.history(lanes)):
+        host_p, host_v = visits.points[k], np.array(visits.values[k], np.float64)
+        n = len(points)
+        handed = out.status[k] == lo.FIT_HANDOVER
+        if (n > len(host_p)) or (not handed and n != len(host_p)):
+            raise AssertionError(f"{label} lane {k}: {n} evaluations on the card, {len(host_p)} on the host")
+        if not all(bits_equal(a, b) for a, b in zip(points, host_p[:n])):
+            bad = next(i for i, (a, b) in enumerate(zip(points, host_p)) if not bits_equal(a, b))
+            raise AssertionError(f"{label} lane {k}: point {bad} differs: {points[bad]!r} vs {host_p[bad]!r}")
+        m = n - 1 if handed else n  # a handed-over lane's last value is the flagged evaluation's sum
+        u = ulps(values[:m], host_v[:m])
+        tally["values"] += m
+        tally["differing"] += int(np.count_nonzero(u))
+        tally["max_ulp"] = max(tally["max_ulp"], int(u.max()) if m else 0)
+        diff = np.abs(values[:m] - host_v[:m])
+        tally["max_abs"] = max(tally["max_abs"], float(np.nanmax(diff)) if m and np.isfinite(diff).any() else 0.0)
+        tally["points"] += n
+
+
+def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_texts) -> tuple:
+    """Phase 17: the fit's loop on the card (LynchFitWorkspace, one graph
+    launch a fit) against the host's loop (exact/nmsimplex.py over
+    DeviceObjective / LanesObjective, one B2 or lanes launch a round), on
+    phase 7's U = 991,985, the golden fit, the two C2 repros and phase 12's
+    cohort, pooled and independent: results and every visited point
+    bitwise, the values that differ (CUDA's logs against glibc's) counted
+    with their largest ulp; one graph launch a fit and the kernel once an
+    evaluation (a round, for lanes), by the wrappers' and the library's
+    counters; the C2 fits handed over at evaluation 0; the fit's kernel
+    against its plain version (lynch_fit_lanes_ref) on the card; the walls
+    in turns (the whole fit, and the loop alone) and the loop's device
+    time. Then the population path on a C4 cohort (LOOP_C4_SAMPLES samples,
+    two with the C2 row), the counters from 0: lanes handed to the host's
+    lockstep, every sample's CSV byte-equal to the CPU's. Returns (the
+    fit's row of the kernels line, the C4 run's launches)."""
+    from sid_tpu_torch.config import Options
+    from sid_tpu_torch.exact import nmsimplex
+    from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
+    from sid_tpu_torch.io.pileup import parse_pileup
+    from sid_tpu_torch.models import lynch, population as pop
+    from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
+    from sid_tpu_torch.ops.profiles import filter_min_coverage, nucleotide_distribution, unique_profiles
+
+    t_phase = time.perf_counter()
+    tally = dict.fromkeys(("values", "differing", "max_ulp", "points"), 0)
+    tally["max_abs"] = 0.0
+    start_row = [*DEFAULT_START, *DEFAULT_STEP, 0.0]
+
+    def histogram(src):
+        prof, mult, _ = unique_profiles(parse_pileup(src).counts)
+        prof, mult, _ = filter_min_coverage(prof, mult, 4)
+        return prof, mult
+
+    def single(label, prof, mult, handed):
+        """One fit both ways: the device loop through DeviceObjective.minimize
+        (counted) and a LynchFitWorkspace run for its history."""
+        nt = nucleotide_distribution(prof, mult)
+        visits = Visits(1)
+        host = nmsimplex.minimize_nmsimplex2(visits.one(lynch.DeviceObjective(prof, mult, nt, dev)),
+                                             DEFAULT_START, DEFAULT_STEP)
+        obj = lynch.DeviceObjective(prof, mult, nt, dev)
+        before = (lo.kernel_launches(), lo.FIT_GRAPH_LAUNCHES, lo.FIT_LANES_LAUNCHES, lo.FIT_HANDOVERS)
+        got = obj.minimize(DEFAULT_START, DEFAULT_STEP)
+        lib = {k: v - before[0][k] for k, v in lo.kernel_launches().items()}
+        graphs, kernel = lo.FIT_GRAPH_LAUNCHES - before[1], lo.FIT_LANES_LAUNCHES - before[2]
+        out = obj.fit
+        if not (bits_equal(got.x, host.x) and (got.iterations, got.converged) == (host.iterations, host.converged)):
+            raise AssertionError(f"{label}: the loop on the card gives {got}, the host's {host}")
+        evals = int(out.evaluations[0])
+        if graphs != 1 or lib["fit_graphs"] != 1 or not (kernel == lib["fit_lanes"] == out.rounds == evals):
+            raise AssertionError(f"{label}: {graphs} graph launches ({lib['fit_graphs']} by the library), "
+                                 f"{kernel} kernel launches ({lib['fit_lanes']}) for {evals} evaluations")
+        if (out.status[0] == lo.FIT_HANDOVER) != handed or (handed and (evals != 1 or lo.FIT_HANDOVERS - before[3] != 1)):
+            raise AssertionError(f"{label}: status {out.status[0]}, {evals} evaluations on the card")
+        fw = lo.LynchFitWorkspace(obj.work, [start_row], nt[None])
+        compare_histories(label, fw, fw.run(), visits, tally)
+        log(f"# phase 17: {label}, U={prof.shape[0]}: (pi, eps) = ({got.x[0]!r}, {got.x[1]!r}), {got.iterations} "
+            f"iterations, bitwise the host's loop, every point too; "
+            + (f"handed over at evaluation 0, then {lib['nll']} B2 launches on the host"
+               if handed else f"{evals} evaluations: 1 graph launch, {kernel} launches of the fit's kernel")
+            + f"; on {card}")
+        return obj, host
+
+    # (a) the golden fit, the C2 repros, phase 7's U = 991,985
+    single("golden.pileup", *histogram(golden_src), False)
+    for name, src in deep_texts.items():
+        single(f"C2 repro {name}", *histogram(src), True)
+    h_nt = nucleotide_distribution(h_prof, h_mult)
+    obj, host = single("phase 7's rows <= 1000x", h_prof, h_mult, False)
+
+    # the fit's kernel against its plain version on the card, the times
+    work = obj.work
+    fw = lo.LynchFitWorkspace(work, [start_row], h_nt[None])
+    out = fw.run()
+    evals = int(out.evaluations[0])
+    ((dev_p, dev_v, _),) = fw.history([0])
+    scal = np.stack([likelihoods.lynch_scalars(0.0, 0.0, h_nt)])
+    t0 = time.perf_counter()
+    plain, plain_hist, plain_flags = lo.lynch_fit_lanes_ref(work.profiles, work.mult, fw.offsets, scal, work.lgamma_tab,
+                                                            fw.starts)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pp, pv = plain_hist[0, :evals, :2], plain_hist[0, :evals, 2]
+    if not (plain.status[0] == lo.FIT_DONE and int(plain.evaluations[0]) == evals and bits_equal(pp, dev_p)
+            and bits_equal(plain.x[0], out.x[0]) and plain.iterations[0] == out.iterations[0]):
+        raise AssertionError("the fit's kernel differs from its plain version at U = 991,985")
+    if not torch.equal(plain_flags, work.flags):
+        raise AssertionError("the fit's kernel's flags differ from its plain version's")
+    max_abs = float(np.abs(dev_v - pv).max())
+    plain_ulp = int(ulps(dev_v, pv).max())
+    calls = []
+    for _ in range(9):
+        t0 = time.perf_counter()
+        fw.run()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    loop_dev = device_only_ms(torch, fw.launch, [()], k=5, reps=3)
+    c = kernel_counts(sass, "lynch_nll_kernel")
+    u = h_prof.shape[0]
+    n_chunks = -(-u // likelihoods.CHUNK_ROWS)
+    b2_bound, b2_by = bound_ms(u * (24 + 1) + n_chunks * 12 + 16, c["f64"] * u)
+    log(f"# phase 17: the fit's kernel (its graph) == its plain version (lynch_fit_lanes_ref) on the card at "
+        f"U={u}: every point, x, iterations, converged and the rows' flags bitwise; {evals} values, "
+        f"{int(np.count_nonzero(ulps(dev_v, pv)))} differing, largest {plain_ulp} ulp (max abs err {max_abs!r}: "
+        f"the five logs of a point, CUDA's on the card, glibc's in the plain version)")
+    log(f"# phase 17: the fit at U={u} on the card: call (graph launch, results' copy, sync) median "
+        f"{statistics.median(calls):.3f} ms (min {min(calls):.3f}, of 9), device only {loop_dev:.3f} ms = "
+        f"{loop_dev / evals:.4f} ms an evaluation ({evals} evaluations, the kernel {evals} launches); plain "
+        f"version {plain_ms:.1f} ms; bound {b2_bound * evals:.3f} ms by {b2_by} (B2's {b2_bound:.4f} ms x "
+        f"{evals}), {b2_bound * evals / loop_dev:.1%} of it; on {card}")
+
+    # the walls in turns: the whole fit (set-up, loop, B4) and the loop alone
+    def host_fit():
+        o = lynch.DeviceObjective(h_prof, h_mult, h_nt, dev)
+        r = nmsimplex.minimize_nmsimplex2(o, DEFAULT_START, DEFAULT_STEP)
+        o.marginals(float(r.x[1]))
+
+    host_obj = lynch.DeviceObjective(h_prof, h_mult, h_nt, dev)
+    ways = {"the loop on the card": lambda: lynch.fit_lynch(h_prof, h_mult, h_nt, dev),
+            "the host's loop": host_fit}
+    loops = {"the loop on the card": fw.run,
+             "the host's loop": lambda: nmsimplex.minimize_nmsimplex2(host_obj, DEFAULT_START, DEFAULT_STEP)}
+    walls, loop_walls = {}, {}
+    for name in ("the loop on the card", "the host's loop", "the host's loop", "the loop on the card") * 2:
+        for table, fns in ((walls, ways), (loop_walls, loops)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            table.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    log(f"# phase 17: U={u}, in turns (host clock, ms): the device fit's wall (set-up, loop, B4) "
+        + ", ".join(f"{k} {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})" for k, v in walls.items())
+        + "; the loop alone (the evaluations and the simplex; the host's: each evaluation a launch, a copy and a "
+        "sync) " + ", ".join(f"{k} {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+                             for k, v in loop_walls.items()) + f"; on {card}")
+    for _ in range(2):
+        sp = host_fit_wall_split(torch, h_prof, h_mult, h_nt, dev)
+        log(f"# phase 17: the host's loop at U={u}, wall {sp['wall_ms']:.3f} ms = set-up {sp['setup_ms']:.3f} ms + "
+            f"{sp['evaluations']} evaluations {sp['evaluations_ms']:.3f} ms + host simplex {sp['simplex_ms']:.3f} ms "
+            f"+ B4 {sp['marginals_ms']:.3f} ms; on {card}")
+
+    # (b) phase 12's cohort: pooled (the merged 2-D fit, then pi at its
+    # epsilon) and independent, lanes on the card against the host's lockstep
+    hists = population_cohort()
+    nts = np.stack([nucleotide_distribution(p, m) for p, m in hists])
+    pooled = pop.fit_population(hists, mode="pooled", device=dev)[1]
+    cases = (("independent (pi, eps)", pop.START, pop.STEP, None), ("pooled pi", pop.START_PI, pop.STEP_PI, pooled.eps))
+    pop_times = {}
+    for label, start, step, eps in cases:
+        visits = Visits(len(hists))
+        host = nmsimplex.minimize_nmsimplex2_lanes(visits.lanes(lynch.LanesObjective(hists, nts, dev, eps)),
+                                                   [start] * len(hists), [step] * len(hists))
+        before = (lo.kernel_launches(), lo.FIT_GRAPH_LAUNCHES, lo.FIT_LANES_LAUNCHES)
+        got, obj = pop.fit_lanes(hists, nts, dev, start, step, eps)
+        lib = {k: v - before[0][k] for k, v in lo.kernel_launches().items()}
+        graphs, kernel = lo.FIT_GRAPH_LAUNCHES - before[1], lo.FIT_LANES_LAUNCHES - before[2]
+        if not all(bits_equal(g.x, w.x) and (g.iterations, g.converged) == (w.iterations, w.converged)
+                   for g, w in zip(got, host)):
+            raise AssertionError(f"cohort {label}: the lanes' loop on the card differs from the host's lockstep")
+        rounds = obj.fit.rounds
+        if (graphs != 1 or lib["fit_graphs"] != 1 or not (kernel == lib["fit_lanes"] == rounds
+                                                           == int(obj.fit.evaluations.max()))
+                or lib["nll_lanes"] or (obj.fit.status != lo.FIT_DONE).any()):
+            raise AssertionError(f"cohort {label}: {graphs} graphs, {kernel} kernel launches for {rounds} rounds, "
+                                 f"library {lib}")
+        held = 0.0 if eps is None else eps
+        fwc = lo.LynchFitWorkspace(obj.work, [list(start) + list(step) + [held]] * len(hists), nts)
+        compare_histories(f"cohort {label}", fwc, fwc.run(), visits, tally)
+        turns = {"lanes on the card": [], "the host's lockstep": []}
+        for name in ("lanes on the card", "the host's lockstep", "the host's lockstep", "lanes on the card") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "lanes on the card":
+                pop.fit_lanes(hists, nts, dev, start, step, eps)
+            else:
+                nmsimplex.minimize_nmsimplex2_lanes(lynch.LanesObjective(hists, nts, dev, eps),
+                                                    [start] * len(hists), [step] * len(hists))
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+        dev_ms = device_only_ms(torch, fwc.launch, [()], k=5, reps=3)
+        pop_times[label] = {"rounds": rounds, "device_ms": dev_ms,
+                            "ms": statistics.median(turns["lanes on the card"]),
+                            "host_loop_ms": statistics.median(turns["the host's lockstep"])}
+        log(f"# phase 17: cohort {label}, {len(hists)} lanes: every lane's result and point bitwise the host's "
+            f"lockstep; {rounds} rounds = {kernel} launches of the fit's kernel, 1 graph launch, "
+            f"{int(obj.fit.evaluations.sum())} lane evaluations; the loop on the card {dev_ms:.3f} ms device only; "
+            "fit_lanes in turns (host clock, ms, set-up included) " + ", ".join(
+                f"{k} {statistics.median(v):.2f} ({', '.join(f'{x:.2f}' for x in v)})" for k, v in turns.items())
+            + f"; on {card}")
+    # the cohort's fit (independent) taken apart, host clock: the lanes'
+    # workspace (rows concatenated and uploaded, the table, the record),
+    # the fit's workspace (its buffers, the graph built and instantiated),
+    # the loop (one graph launch, the results' copy, one sync)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lanes = lynch.LanesObjective(hists, nts, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwc = lo.LynchFitWorkspace(lanes.work, [[*pop.START, *pop.STEP, 0.0]] * len(hists), nts)
+        t2 = time.perf_counter()
+        fwc.run()
+        t3 = time.perf_counter()
+        log(f"# phase 17: the cohort's independent fits taken apart (host clock): {(t3 - t0) * 1e3:.3f} ms = the "
+            f"lanes' workspace {(t1 - t0) * 1e3:.3f} ms (rows concatenated, uploaded, table, record) + the fit's "
+            f"workspace {(t2 - t1) * 1e3:.3f} ms (buffers, graph built and instantiated) + the loop "
+            f"{(t3 - t2) * 1e3:.3f} ms (one graph launch, the results' copy, one sync); on {card}")
+    log(f"# phase 17: the loop on the card against the host's: {tally['points']} points bitwise; of {tally['values']} "
+        f"values, {tally['differing']} differ, by at most {tally['max_ulp']} ulp (max abs {tally['max_abs']!r}): "
+        f"CUDA's log and log1p against glibc's for the five theta scalars; no result, iteration count or point "
+        f"moved")
+
+    # (c) the population path with two C4 samples, the counters from 0
+    texts = []
+    for k in range(LOOP_C4_SAMPLES):
+        counts = simulated_counts(LOOP_C4_SITES, seed=7000 + 2 * k, pi=float(np.logspace(-4, -2, LOOP_C4_SAMPLES)[k]))
+        if k in LOOP_C4_DEEP:
+            counts = np.vstack([counts, [[9000, 9000, 0, 0]]])
+        texts.append(phred_pileup(counts, 1, 7001 + 2 * k))
+    lo.RECORD_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
+    lo.FIT_LANES_LAUNCHES = lo.FIT_GRAPH_LAUNCHES = lo.FIT_HANDOVERS = 0
+    got = {mode: [r.to_csv_bytes() for r in pop.call_population([parse_pileup(t) for t in texts],
+                                                                Options(method="bayes"), mode)]
+           for mode in ("pooled", "independent")}
+    c4 = {"records": lo.RECORD_LAUNCHES, "fit_lanes": lo.FIT_LANES_LAUNCHES, "fit_graphs": lo.FIT_GRAPH_LAUNCHES,
+          "handovers": lo.FIT_HANDOVERS, "nll_lanes": lo.NLL_LANES_LAUNCHES,
+          "marginals_lanes": lo.MARGINALS_LANES_LAUNCHES}
+    if not all(c4.values()):
+        raise AssertionError(f"a kernel of the population path with C4 samples was not launched: {c4}")
+    for mode, csvs in got.items():
+        cpu = [r.to_csv_bytes() for r in pop.call_population([parse_pileup(t) for t in texts],
+                                                             Options(platform="cpu", method="bayes"), mode)]
+        if cpu != csvs:
+            bad = [k for k, (a, b) in enumerate(zip(cpu, csvs)) if a != b]
+            raise AssertionError(f"population {mode} with C4 samples: samples {bad} differ from the CPU run")
+    log(f"# phase 17: population pooled and independent -m bayes, {LOOP_C4_SAMPLES} samples x {LOOP_C4_SITES} "
+        f"sites, samples {LOOP_C4_DEEP} with (9000, 9000, 0, 0): every sample's CSV byte-equal to the CPU run; "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in c4.items()) + f" (the merged fit and the deep samples' "
+        f"lanes handed over to the host's lockstep); phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    row = {"name": "lynch_fit_lanes", "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
+           "replaces": "sid_tpu/ops/nmsimplex.py:287", "launches": None, "max_abs_err": max_abs,
+           "ms": statistics.median(calls), "plain_ms": plain_ms, "device_ms": loop_dev,
+           "bound_ms": b2_bound * evals, "bound_by": b2_by, "library_ms": None, "evaluations": evals,
+           "graph_launches_a_fit": 1, "max_ulp_vs_plain": plain_ulp,
+           "host_loop_ms": statistics.median(loop_walls["the host's loop"]),
+           "values_differing_vs_host_loop": [tally["differing"], tally["values"]],
+           "at_population_shape": pop_times}
+    return row, c4
 
 
 # ---- phases 14-15: the scale-out paths (--per-shard-fit, --multihost) ----
@@ -2450,7 +2816,7 @@ def kernel_counters() -> dict:
     from sid_tpu_torch.ops import quality_finalize as qf
 
     return {"local_log_likelihoods": local_classify.LAUNCHES, "lynch_records": lynch_objective.RECORD_LAUNCHES,
-            "lynch_compound_nll": lynch_objective.NLL_LAUNCHES,
+            "lynch_compound_nll": lynch_objective.NLL_LAUNCHES, "lynch_fit_lanes": lynch_objective.FIT_LANES_LAUNCHES,
             "lynch_marginals": lynch_objective.MARGINALS_LAUNCHES, "quality_finalize": qf.LAUNCHES}
 
 
@@ -2460,6 +2826,7 @@ def reset_kernel_counters() -> None:
 
     local_classify.LAUNCHES = 0
     lynch_objective.RECORD_LAUNCHES = lynch_objective.NLL_LAUNCHES = lynch_objective.MARGINALS_LAUNCHES = 0
+    lynch_objective.FIT_LANES_LAUNCHES = 0
     qf.LAUNCHES = 0
 
 
@@ -2470,7 +2837,7 @@ def path_kernels(kw: dict, fit: str) -> tuple:
         return ("local_log_likelihoods",)
     if method == "quality":
         return ("quality_finalize",)
-    return ("lynch_records", "lynch_compound_nll", "lynch_marginals") if fit == "device" else ()
+    return ("lynch_records", "lynch_fit_lanes", "lynch_marginals") if fit == "device" else ()
 
 
 def stage_split(prof) -> str:
@@ -2707,7 +3074,7 @@ def mesh_counters() -> dict:
             "lynch_compound_nll": lo.NLL_LAUNCHES, "lynch_compound_nll_shards": lo.NLL_SHARDS_LAUNCHES,
             "lynch_marginals": lo.MARGINALS_LAUNCHES,
             "quality_finalize": qf.LAUNCHES, "lynch_compound_nll_lanes": lo.NLL_LANES_LAUNCHES,
-            "lynch_marginals_lanes": lo.MARGINALS_LANES_LAUNCHES}
+            "lynch_marginals_lanes": lo.MARGINALS_LANES_LAUNCHES, "lynch_fit_lanes": lo.FIT_LANES_LAUNCHES}
 
 
 def reset_mesh_counters() -> None:
@@ -2716,7 +3083,7 @@ def reset_mesh_counters() -> None:
 
     local_classify.LAUNCHES = qf.LAUNCHES = 0
     lo.RECORD_LAUNCHES = lo.NLL_LAUNCHES = lo.NLL_SHARDS_LAUNCHES = 0
-    lo.MARGINALS_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
+    lo.MARGINALS_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = lo.FIT_LANES_LAUNCHES = 0
 
 
 def add_launches(total: dict, launches: dict) -> None:
@@ -2780,8 +3147,8 @@ def mesh_path_runs(card, synth: bytes, qbytes: bytes) -> dict:
               "quality_finalize"):
         if not launches[k]:
             raise AssertionError(f"the --devices 1 path launched no {k}: {launches}")
-    if launches["lynch_compound_nll"]:
-        raise AssertionError(f"a --devices fit launched one-device B2: {launches}")
+    if launches["lynch_compound_nll"] or launches["lynch_fit_lanes"]:
+        raise AssertionError(f"a --devices fit launched one-device B2 or the one-device fit's loop: {launches}")
     log(f"# phase 16 (a): engine.run --devices 1, {synth.count(b'\n'):,} sites: " + ", ".join(
         f"{label} {walls[label][1] * 1e3:.1f} ms (without it {walls[label][0] * 1e3:.1f} ms)" for label in walls)
         + "; each CSV and its diagnostic lines byte-equal to the run without --devices under --fit device; "
@@ -2821,13 +3188,14 @@ def mesh_fit_runs(torch, dev, card, h_prof, h_mult) -> None:
     evaluations = None
     for k in ("one",) + MESH_SHARDS + MESH_SHARDS[::-1] + ("one",):
         got_lines = []
-        before = (lo.NLL_LAUNCHES, lo.NLL_SHARDS_LAUNCHES, lo.kernel_launches())
+        before = (lo.NLL_LAUNCHES, lo.NLL_SHARDS_LAUNCHES, lo.kernel_launches(), lo.FIT_LANES_LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if k == "one":
             lynch.fit_on_filtered_profiles(h_prof, h_mult, dev)
             walls["one"].append(time.perf_counter() - t0)
-            evaluations = lo.NLL_LAUNCHES - before[0]  # one B2 launch an evaluation
+            # the one-device fit's loop on the card: one launch an evaluation
+            evaluations = lo.FIT_LANES_LAUNCHES - before[3]
             continue
         got = pfit.fit_lynch_global(h_prof, h_mult, [dev] * k, got_lines.append)
         walls.setdefault(k, []).append(time.perf_counter() - t0)
@@ -2838,7 +3206,8 @@ def mesh_fit_runs(torch, dev, card, h_prof, h_mult) -> None:
         if not same:
             raise AssertionError(f"fit_lynch_global over {k} shards differs from the one-device fit: "
                                  f"{got[:2]} vs {want[:2]}; {got_lines} vs {lines}")
-        if launches != evaluations or library["nll_shards"] != evaluations or library["nll"] or lo.NLL_LAUNCHES != before[0]:
+        if (launches != evaluations or library["nll_shards"] != evaluations or library["nll"] or library["fit_lanes"]
+                or lo.NLL_LAUNCHES != before[0]):
             raise AssertionError(f"{k} shards: {launches} launches of the sharded objective (the library's "
                                  f"counters: {library}) for {evaluations} evaluations")
         per_eval[k] = (launches / evaluations, evaluations)
@@ -4130,7 +4499,7 @@ def main() -> int:
     after = lynch_objective.kernel_launches()
     per_eval = {k: after[k] - before[k] for k in after}
     if (per_eval != {"records": 0, "nll": 1, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 0,
-                     "nll_shards": 0}
+                     "nll_shards": 0, "fit_lanes": 0, "fit_graphs": 0}
             or list(one) != first.tolist()):
         raise AssertionError(f"one evaluation: launches {per_eval}, result {one!r} vs {first!r}")
     log(f"# B2 bitwise repeatable: 10 calls and grids of 1, 7, 1000 and {work.grids[1]} (the resident "
@@ -4244,43 +4613,64 @@ def main() -> int:
     lynch_objective.RECORD_LAUNCHES = 0
     lynch_objective.NLL_LAUNCHES = 0
     lynch_objective.MARGINALS_LAUNCHES = 0
+    lynch_objective.FIT_LANES_LAUNCHES = lynch_objective.FIT_GRAPH_LAUNCHES = lynch_objective.FIT_HANDOVERS = 0
     t0 = time.perf_counter()
+
+    def fit_counts():
+        return (lynch_objective.FIT_GRAPH_LAUNCHES, lynch_objective.FIT_LANES_LAUNCHES, lynch_objective.NLL_LAUNCHES,
+                lynch_objective.FIT_HANDOVERS)
+
     for label, kw, golden_name in fit_cases:
         with open(os.path.join(FIXTURES, golden_name), "rb") as f:
             want = f.read()
         grew = {}
         for mode, mkw in modes:
             lines = []
-            before = lynch_objective.NLL_LAUNCHES
+            before = fit_counts()
             got = engine.run(golden_src, Options(**kw, **mkw), lines.append, binary=True)
             if got != want:
                 raise AssertionError(f"{label} {mode}: CSV differs from {golden_name}: {first_difference(got, want)}")
-            grew[mode] = lynch_objective.NLL_LAUNCHES - before
+            grew[mode] = [a - b for a, b in zip(fit_counts(), before)]
             if mode == "--fit device":
+                # one fit: one graph launch, its kernel once an evaluation, no B2, no handover
                 expect = golden_fit_lines[:1] if label == "local -R" else golden_fit_lines
-                if grew[mode] == 0 or [ln for ln in lines if ln in golden_fit_lines] != expect:
-                    raise AssertionError(f"{label} {mode}: {grew[mode]} B2 launches, diagnostics {lines}")
-            elif grew[mode]:
-                raise AssertionError(f"{label} {mode}: B2 launched {grew[mode]} times")
+                if (grew[mode][0] != 1 or grew[mode][1] == 0 or grew[mode][2:] != [0, 0]
+                        or [ln for ln in lines if ln in golden_fit_lines] != expect):
+                    raise AssertionError(f"{label} {mode}: graph, fit kernel, B2 launches and handovers "
+                                         f"{grew[mode]}, diagnostics {lines}")
+            elif any(grew[mode]):
+                raise AssertionError(f"{label} {mode}: graph, fit kernel, B2 launches and handovers {grew[mode]}")
         log(f"# golden.pileup {label}: byte-equal to {golden_name} under "
-            + ", ".join(f"{mode} ({n} B2 launches)" for mode, n in grew.items()))
+            + ", ".join(f"{mode} ({g} graph launches, {k} launches of the fit's kernel, {b} B2 launches)"
+                        for mode, (g, k, b, _) in grew.items()))
     for name, src in deep.items():
+        handed = []
         for label, kw, _ in fit_cases:
             dev_lines, ex_lines = [], []
+            before = fit_counts()
             got = engine.run(src, Options(fit_backend="device", **kw), dev_lines.append, binary=True)
+            handed.append([a - b for a, b in zip(fit_counts(), before)])
             want = engine.run(src, Options(fit_backend="exact", **kw), ex_lines.append, binary=True)
             if got != want or dev_lines != ex_lines:
                 raise AssertionError(f"C2 repro {name} {label}: --fit device differs from --fit exact: "
                                      f"{first_difference(got, want)}; {dev_lines} vs {ex_lines}")
+            # the fit's first evaluation flags the deep row: handed over at evaluation 0
+            if handed[-1][0] != 1 or handed[-1][1] != 1 or handed[-1][3] != 1 or handed[-1][2] == 0:
+                raise AssertionError(f"C2 repro {name} {label}: graph, fit kernel, B2 launches and handovers "
+                                     f"{handed[-1]}")
         log(f"# C2 repro, 300 simulated sites + {name}: --fit device byte-equal to --fit exact "
-            f"(bayes, LR, LR -R, local -R; {ex_lines[-1]})")
+            f"(bayes, LR, LR -R, local -R; {ex_lines[-1]}); each fit handed over at evaluation 0 (one graph "
+            f"launch, one launch of the fit's kernel, then {handed[0][2]} B2 launches on the host's loop)")
     fit_launches = {"records": lynch_objective.RECORD_LAUNCHES, "nll": lynch_objective.NLL_LAUNCHES,
-                    "marginals": lynch_objective.MARGINALS_LAUNCHES, "local": local_classify.LAUNCHES}
+                    "marginals": lynch_objective.MARGINALS_LAUNCHES, "local": local_classify.LAUNCHES,
+                    "fit_lanes": lynch_objective.FIT_LANES_LAUNCHES, "fit_graphs": lynch_objective.FIT_GRAPH_LAUNCHES,
+                    "handovers": lynch_objective.FIT_HANDOVERS}
     if not all(fit_launches.values()):
         raise AssertionError(f"a kernel of the fit path was not launched: {fit_launches}")
     log(f"# kernel launches on the fit path ({time.perf_counter() - t0:.1f} s): row record "
-        f"{fit_launches['records']}, B2 {fit_launches['nll']}, B4 {fit_launches['marginals']}, local classify "
-        f"{fit_launches['local']}")
+        f"{fit_launches['records']}, the fit's kernel {fit_launches['fit_lanes']} ({fit_launches['fit_graphs']} "
+        f"graph launches, {fit_launches['handovers']} handovers), B2 {fit_launches['nll']} (after the "
+        f"handovers), B4 {fit_launches['marginals']}, local classify {fit_launches['local']}")
 
     # ---- 7. the fit at U ~ 1M at the model layer ----
     opts_auto, opts_exact = Options(), Options(fit_backend="exact")
@@ -4310,13 +4700,16 @@ def main() -> int:
         fits = {}
         for name, opts in (("device (auto)", opts_auto), ("exact", opts_exact)):
             lines = []
-            before = lynch_objective.NLL_LAUNCHES
+            before = (lynch_objective.NLL_LAUNCHES, lynch_objective.FIT_LANES_LAUNCHES,
+                      lynch_objective.FIT_GRAPH_LAUNCHES)
             t0 = time.perf_counter()
             pi_hat, eps_hat, lhom, lhet, _ = lynch.fit_profiles(h_prof, h_mult, opts, lines.append)
             wall = time.perf_counter() - t0
             fits[name] = (pi_hat, eps_hat, lhom, lhet)
             log(f"# fit, {hist}, U={u_h}, {name}: {wall:.2f} s; {lines[0]} "
-                f"({lynch_objective.NLL_LAUNCHES - before} B2 launches) pi {pi_hat!r}, eps {eps_hat!r}; on {card}")
+                f"({lynch_objective.FIT_GRAPH_LAUNCHES - before[2]} graph launches, "
+                f"{lynch_objective.FIT_LANES_LAUNCHES - before[1]} launches of the fit's kernel, "
+                f"{lynch_objective.NLL_LAUNCHES - before[0]} B2 launches) pi {pi_hat!r}, eps {eps_hat!r}; on {card}")
         (pi_d, eps_d, lh_d, lt_d), (pi_e, eps_e, lh_e, lt_e) = fits["device (auto)"], fits["exact"]
         d_pi, d_eps = abs(pi_d - pi_e), abs(eps_d - eps_e)
         if not (d_pi <= SIMPLEX_TOL and d_eps <= SIMPLEX_TOL):
@@ -4381,8 +4774,9 @@ def main() -> int:
     for _ in range(3):
         sp = fit_wall_split(torch, h_prof, h_mult, nucleotide_distribution(h_prof, h_mult), dev)
         log(f"# device fit at U={h_prof.shape[0]}, wall {sp['wall_ms']:.3f} ms = set-up {sp['setup_ms']:.3f} ms "
-            f"(uploads, table, row record) + {sp['evaluations']} evaluations {sp['evaluations_ms']:.3f} ms "
-            f"+ host simplex {sp['simplex_ms']:.3f} ms + B4 with its copies {sp['marginals_ms']:.3f} ms; on {card}")
+            f"(uploads, table, row record) + the fit's graph {sp['graph_ms']:.3f} ms (buffers, built, "
+            f"instantiated) + the loop on the card {sp['loop_ms']:.3f} ms ({sp['evaluations']} evaluations, one "
+            f"graph launch, one sync) + B4 with its copies {sp['marginals_ms']:.3f} ms; on {card}")
     # the set-up's largest coverage: the parent's length-4 axis sum against
     # coverage_of's column adds, in turns, the same integers
     cov_walls = {"sum(-1)": [], "coverage_of": []}
@@ -4415,7 +4809,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # ---- 11-12. the cohort's lane kernels, the population path ----
-    lane_rows, (pop_mesh_launches, pop_mesh_wall) = population_phases(torch, dev, card, sass)
+    lane_rows, pop_launches, (pop_mesh_launches, pop_mesh_wall) = population_phases(torch, dev, card, sass)
 
     # ---- 14-15. --per-shard-fit, --multihost ----
     scale_out = scale_out_phases(card)
@@ -4438,7 +4832,18 @@ def main() -> int:
     log("# kernel launches on the --devices path (phase 16 (a)): "
         + ", ".join(f"{k} {v}" for k, v in mesh_launches.items() if v))
 
-    # ---- 17. results ----
+    # ---- 17. the fit's loop on the card (B3) ----
+    fit_row, c4_launches = device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep)
+    fit_row["launches"] = fit_launches["fit_lanes"]
+    fit_row["graph_launches"] = fit_launches["fit_graphs"]
+    fit_row["handovers"] = fit_launches["handovers"]
+    fit_row["launches_population"] = pop_launches["fit_lanes"]
+    fit_row["launches_population_c4"] = c4_launches["fit_lanes"]
+    # the lanes' objective runs on the population path where a lane hands
+    # over: its launches are those of phase 17's C4 run
+    lane_rows[0]["launches"] = c4_launches["nll_lanes"]
+
+    # ---- 18. results ----
     kernel_rows = [{
         "name": "local_log_likelihoods",
         "route": "cuda",
@@ -4462,6 +4867,7 @@ def main() -> int:
         kernel_rows.append({"name": name, "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
                      "replaces": replaces, "launches": fit_launches[launches_key], "max_abs_err": err,
                      **fit_times[name], "library_ms": None})
+    kernel_rows.append(fit_row)
     kernel_rows.append(quality_row)
     kernel_rows += lane_rows
     for row in lrt_rows:

@@ -118,6 +118,31 @@
 // nothing of the sharded path (the shard walk, the global chunk index, the
 // copies into the fold's buffers) would run on the only card there is.
 //
+// The fit's loop on the card (B3: replaces sid_tpu/ops/nmsimplex.py:287
+// minimize_nmsimplex2_jax, the while-loop that sid_tpu's jitted fit_lynch,
+// models/lynch.py:60-85, and its vmapped cohort fits, models/population.py
+// :70, :83 and :152, run around B2). A fit of S >= 1 lanes (the device fit
+// is one) is one CUDA graph: a start kernel (each lane's simplex and first
+// point), then a conditional WHILE node whose body is
+//   - lynch_fit_lanes_kernel: every running lane's objective at its pending
+//     point, the walk of lynch_nll_lanes_kernel over a table of the lanes
+//     that is fixed for the fit (global memory, uploaded once); a block
+//     takes a chunk's lane and its mode by one thread, stages the lane's 16
+//     scalars in shared memory, and a lane that stopped returns from its
+//     chunks at once; a lane out of the box does no row work but takes its
+//     tickets. The block that takes a lane's last ticket folds the lane as
+//     lynch_nll_lanes_kernel does (so bitwise B2 over its rows alone) and
+//     then, in one thread, takes the value into the lane's simplex
+//     (lynch.cuh fit_take: the history entry, -clamp, nmsimplex.cuh's
+//     step, the next point's five log scalars computed on the card);
+//   - lynch_fit_continue_kernel, one thread: the round counted, the
+//     condition set from the count of running lanes (cudaGraphSetConditional).
+// The graph is built and instantiated once per fit workspace; a fit is one
+// graph launch, then one copy of the lanes' results and counters and one
+// stream sync. An evaluation that flags rows for the long-double replay
+// stops its lane (handover): the host replays the lane's history into its
+// own loop (exact/nmsimplex.py replay) and goes on there.
+//
 // What bounds the lane kernels is what bounds B2 and B4: f64 instructions,
 // long chains of dependent multiplies and adds (the exp/log polynomials
 // under --fmad=false) whose latency only more resident warps hide. So they
@@ -148,6 +173,7 @@ constexpr int kThreads = sid::kReduceThreads;
 constexpr int kNllMinBlocks = 3;
 constexpr int kMarginalsMinBlocks = 3;
 constexpr int kLanesMinBlocks = 3;
+constexpr int kFitMinBlocks = 3;
 
 // the running lanes of one launch of a lane kernel, written into the
 // constant bank on the launch's stream just before it (58 KB of the 64 KB)
@@ -196,9 +222,12 @@ enum {
   kNllLanesKernel = 3,
   kMarginalsLanesKernel = 4,
   kNllShardsKernel = 5,
-  kKernelCount = 6
+  kFitLanesKernel = 6,
+  kKernelCount = 7
 };
 std::atomic<long long> g_launches[kKernelCount];
+// graph launches of the fit (each runs lynch_fit_lanes_kernel once a round)
+std::atomic<long long> g_fit_graphs;
 
 // The block's tree fold of (v, c) over its kThreads threads; thread 0 ends
 // with the block's result. The levels s >= 32 go through shared memory; the
@@ -414,6 +443,130 @@ __global__ void __launch_bounds__(kThreads, kLanesMinBlocks)
   }
 }
 
+// A fit's start (the first node of its graph): lane i's simplex from
+// starts[i] = (x0 (N), step (N), fixed epsilon), its first point and
+// scalars, its ticket at 0; the running count S and the rounds 0.
+template <int N>
+__global__ void lynch_fit_start_kernel(const double* __restrict__ starts, int n_lanes,
+                                       sid::FitLaneState<N>* state, double* scalars, unsigned int* ticket,
+                                       double tol, int max_iterations, int dot_mode, int* running,
+                                       unsigned long long* rounds) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_lanes) {
+    const double* st = starts + static_cast<int64_t>(i) * (2 * N + 1);
+    sid::fit_start(state[i], st, st + N, st[2 * N], tol, max_iterations, dot_mode, scalars + 16 * static_cast<int64_t>(i));
+    ticket[i] = 0;
+  }
+  if (i == 0) {
+    *running = n_lanes;
+    *rounds = 0;
+  }
+}
+
+// A lane's step (lynch.cuh fit_take) as a call of its own: its registers
+// are not the row loop's, which keeps the kernel at 3 blocks an SM with 0
+// spill bytes (inlined, the 2-D step spilled 32 bytes).
+template <int N>
+__device__ __noinline__ bool lane_step(sid::FitLaneState<N>* lane, double total, int flagged, double* scalars,
+                                       double* history, double* result) {
+  return sid::fit_take(*lane, total, flagged, scalars, history, result);
+}
+
+// One round of a fit: every running lane's objective at its pending point,
+// then in the block that folds a lane, its step (see the top of the file).
+// lanes: (n_lanes) FitLane; scalars: (n_lanes, 16) f64, each lane's
+// LynchScalars; history: (n_lanes, history_entries, N + 2) f64; results:
+// (n_lanes, N + 5) f64; part_sum, part_cnt: an entry for each chunk of the
+// walk; ticket: (n_lanes), 0 between launches; running: the lanes running.
+template <int N>
+__global__ void __launch_bounds__(kThreads, kFitMinBlocks)
+    lynch_fit_lanes_kernel(const double* __restrict__ rec, int64_t n, const sid::FitLane* __restrict__ lanes,
+                           int n_lanes, sid::FitLaneState<N>* state, double* scalars, double* history,
+                           int64_t history_entries, uint8_t* __restrict__ flags, double* part_sum, int* part_cnt,
+                           unsigned int* ticket, double* results, int* running) {
+  __shared__ double sh_sum[kThreads];
+  __shared__ int sh_cnt[kThreads];
+  __shared__ bool sh_last;
+  __shared__ sid::LynchScalars sh_s;
+  __shared__ int sh_lane;
+  __shared__ int sh_mode;
+  const int t = threadIdx.x;
+  const int64_t total = lanes[n_lanes - 1].walk_end;
+  for (int64_t j = blockIdx.x; j < total; j += gridDim.x) {
+    __syncthreads();  // the last chunk's reads of the shared values are done
+    if (t == 0) {
+      const int lane = sid::slot_of(lanes, n_lanes, j);
+      sh_lane = lane;
+      sh_mode = __ldcg(&state[lane].mode);
+    }
+    __syncthreads();
+    const int k = sh_lane;
+    const int mode = sh_mode;
+    if (mode == sid::kFitIdle) continue;  // the lane stopped
+    if (mode == sid::kFitRows && t < 16) reinterpret_cast<double*>(&sh_s)[t] = __ldcg(scalars + 16 * static_cast<int64_t>(k) + t);
+    __syncthreads();
+    const int64_t first_chunk = sid::walk_start(lanes, k);
+    const int64_t n_lane_chunks = lanes[k].walk_end - first_chunk;
+    int cnt = 0;
+    double v = 0.0;
+    if (mode == sid::kFitRows) {
+      v = sid::nll_rows_sum(lanes[k].first_row + (j - first_chunk) * sid::kChunk, lanes[k].end_row, t, rec, n,
+                            sh_s, flags, &cnt);
+      block_fold(v, cnt, sh_sum, sh_cnt);
+    }
+    if (t == 0) {
+      if (mode == sid::kFitRows) {
+        part_sum[j] = v;
+        part_cnt[j] = cnt;
+      }
+      __threadfence();
+      sh_last = atomicAdd(ticket + k, 1u) == n_lane_chunks - 1;
+    }
+    __syncthreads();
+    if (!sh_last) continue;
+    // the lane's last chunk: fold its chunk sums as lynch_nll_kernel does,
+    // then take the value into its simplex
+    __threadfence();
+    double acc = 0.0;
+    int lane_cnt = 0;
+    if (mode == sid::kFitRows) {
+      for (int64_t base = 0; base < n_lane_chunks; base += kThreads) {
+        const int64_t i = base + t;
+        acc = acc + (i < n_lane_chunks ? __ldcg(part_sum + first_chunk + i) : 0.0);
+        lane_cnt = lane_cnt + (i < n_lane_chunks ? __ldcg(part_cnt + first_chunk + i) : 0);
+      }
+      block_fold(acc, lane_cnt, sh_sum, sh_cnt);
+    }
+    if (t == 0) {
+      ticket[k] = 0;  // ready for the next launch
+      const int64_t kk = k;
+      if (lane_step<N>(state + k, acc, lane_cnt, scalars + 16 * kk,
+                       history + kk * history_entries * sid::kHistoryWidth<N>,
+                       results + kk * sid::kResultWidth<N>)) {
+        atomicSub(running, 1);
+      }
+    }
+  }
+}
+
+// The tail of a round: count it, and run the body again while a lane runs.
+__global__ void lynch_fit_continue_kernel(cudaGraphConditionalHandle handle, const int* running,
+                                          unsigned long long* rounds) {
+  *rounds = *rounds + 1;
+  cudaGraphSetConditional(handle, *running > 0 ? 1u : 0u);
+}
+
+// A fit's graph and what it launches with: kept from its creation to its
+// destruction.
+struct FitGraph {
+  cudaGraph_t graph = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  // the device counters: running lanes (int) at 0, rounds (u64) at 8
+  void* counters = nullptr;
+  void* results = nullptr;
+  int64_t result_bytes = 0;
+};
+
 // min(needed, the blocks of `kernel` resident on the whole card), at least 1
 template <typename Kernel>
 cudaError_t resident_grid(Kernel kernel, int64_t needed, int* grid) {
@@ -490,7 +643,8 @@ int sid_lynch_record_planes() { return sid::kRecordPlanes; }
 
 // kernel launches since load: 0 records, 1 objective, 2 marginals, 3 the
 // lanes' objective, 4 the lanes' marginals, 5 a sharded fit's objective on
-// one device
+// one device, 6 the fit's rounds (counted from the fit's own counter after
+// each graph launch that sid_lynch_fit_run waits for)
 long long sid_lynch_launches(int kernel) {
   return kernel >= 0 && kernel < kKernelCount ? g_launches[kernel].load() : -1;
 }
@@ -635,7 +789,8 @@ int sid_lynch_blocks_per_sm(int kernel, int* per_sm) {
       reinterpret_cast<const void*>(lynch_records_kernel), reinterpret_cast<const void*>(lynch_nll_kernel),
       reinterpret_cast<const void*>(lynch_marginals_kernel), reinterpret_cast<const void*>(lynch_nll_lanes_kernel),
       reinterpret_cast<const void*>(lynch_marginals_lanes_kernel),
-      reinterpret_cast<const void*>(lynch_nll_shards_kernel)};
+      reinterpret_cast<const void*>(lynch_nll_shards_kernel),
+      reinterpret_cast<const void*>(lynch_fit_lanes_kernel<2>)};
   if (kernel < 0 || kernel >= kKernelCount) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fns[kernel], kThreads, 0));
 }
@@ -679,6 +834,138 @@ int sid_lynch_marginals_lanes_launch(const void* rec, int64_t n, const void* slo
         static_cast<const double*>(rec), n, count, static_cast<double*>(lhom),
         static_cast<double*>(lhet), static_cast<uint8_t*>(flags));
   });
+}
+
+// ---- the fit's loop on the card ----
+int sid_lynch_fit_lane_bytes() { return static_cast<int>(sizeof(sid::FitLane)); }
+int sid_lynch_fit_state_bytes(int dims) {
+  return dims == 1 ? static_cast<int>(sizeof(sid::FitLaneState<1>))
+                   : dims == 2 ? static_cast<int>(sizeof(sid::FitLaneState<2>)) : -1;
+}
+// graph launches of fits since load
+long long sid_lynch_fit_graphs() { return g_fit_graphs.load(); }
+
+// The graph of a fit of n_lanes lanes in dims (1 or 2) dimensions on the
+// current device, built and instantiated: the start kernel, then WHILE a
+// lane runs {lynch_fit_lanes_kernel, lynch_fit_continue_kernel}. The
+// buffers are the workspace's (device memory, kept as long as the graph):
+// rec (3, n) records; lanes (n_lanes) FitLane, whose walk has n_chunks
+// chunks (the fit kernel's grid: the resident blocks, capped there); starts (n_lanes, 2 dims + 1)
+// f64; state (n_lanes) FitLaneState; scalars (n_lanes, 16) f64 with the
+// eleven fixed ones in place; history (n_lanes, history_entries, dims + 2)
+// f64; flags (n,) uint8; part_sum, part_cnt an entry a walk chunk; ticket
+// (n_lanes) uint32; results (n_lanes, dims + 5) f64; counters 16 bytes.
+// *out receives the graph (for sid_lynch_fit_run and _destroy). Returns a
+// cudaError_t.
+int sid_lynch_fit_graph_create(int dims, const void* rec, int64_t n, const void* lanes, int n_lanes,
+                               int64_t n_chunks, const void* starts, void* state, void* scalars, void* history, int64_t history_entries,
+                               void* flags, void* part_sum, void* part_cnt, void* ticket, void* results,
+                               void* counters, double tol, int max_iterations, int dot_mode, void** out) {
+  if ((dims != 1 && dims != 2) || n_lanes <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* start_fn = dims == 1 ? reinterpret_cast<const void*>(lynch_fit_start_kernel<1>)
+                                   : reinterpret_cast<const void*>(lynch_fit_start_kernel<2>);
+  const void* fit_fn = dims == 1 ? reinterpret_cast<const void*>(lynch_fit_lanes_kernel<1>)
+                                 : reinterpret_cast<const void*>(lynch_fit_lanes_kernel<2>);
+  int grid = 1;
+  cudaError_t e = resident_grid(fit_fn, n_chunks, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  FitGraph* fg = new FitGraph();
+  fg->counters = counters;
+  fg->results = results;
+  fg->result_bytes = static_cast<int64_t>(n_lanes) * (dims + 5) * static_cast<int64_t>(sizeof(double));
+  int* running = static_cast<int*>(counters);
+  unsigned long long* rounds = reinterpret_cast<unsigned long long*>(static_cast<char*>(counters) + 8);
+  cudaGraphNode_t start_node = nullptr;
+  cudaGraphNode_t while_node = nullptr;
+  cudaGraphNode_t fit_node = nullptr;
+  cudaGraphNode_t cont_node = nullptr;
+  cudaGraphConditionalHandle handle = 0;
+  e = cudaGraphCreate(&fg->graph, 0);
+  if (e == cudaSuccess) {
+    const void* a_starts = starts;
+    void* kparams[] = {&a_starts, &n_lanes, &state, &scalars, &ticket, &tol, &max_iterations, &dot_mode,
+                       &running, &rounds};
+    cudaKernelNodeParams kp = {};
+    kp.func = const_cast<void*>(start_fn);
+    kp.gridDim = dim3(static_cast<unsigned>((n_lanes + kThreads - 1) / kThreads));
+    kp.blockDim = dim3(kThreads);
+    kp.kernelParams = kparams;
+    e = cudaGraphAddKernelNode(&start_node, fg->graph, nullptr, 0, &kp);
+  }
+  if (e == cudaSuccess) e = cudaGraphConditionalHandleCreate(&handle, fg->graph, 1, cudaGraphCondAssignDefault);
+  cudaGraph_t body = nullptr;
+  if (e == cudaSuccess) {
+    cudaGraphNodeParams cp = {};
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = handle;
+    cp.conditional.type = cudaGraphCondTypeWhile;
+    cp.conditional.size = 1;
+    e = cudaGraphAddNode(&while_node, fg->graph, &start_node, 1, &cp);
+    if (e == cudaSuccess) body = cp.conditional.phGraph_out[0];
+  }
+  if (e == cudaSuccess) {
+    const void* a_rec = rec;
+    const void* a_lanes = lanes;
+    void* kparams[] = {&a_rec, &n, &a_lanes, &n_lanes, &state, &scalars, &history, &history_entries,
+                       &flags, &part_sum, &part_cnt, &ticket, &results, &running};
+    cudaKernelNodeParams kp = {};
+    kp.func = const_cast<void*>(fit_fn);
+    kp.gridDim = dim3(static_cast<unsigned>(grid));
+    kp.blockDim = dim3(kThreads);
+    kp.kernelParams = kparams;
+    e = cudaGraphAddKernelNode(&fit_node, body, nullptr, 0, &kp);
+  }
+  if (e == cudaSuccess) {
+    void* kparams[] = {&handle, &running, &rounds};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(lynch_fit_continue_kernel);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = kparams;
+    e = cudaGraphAddKernelNode(&cont_node, body, &fit_node, 1, &kp);
+  }
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&fg->exec, fg->graph, 0);
+  if (e != cudaSuccess) {
+    if (fg->exec != nullptr) cudaGraphExecDestroy(fg->exec);
+    if (fg->graph != nullptr) cudaGraphDestroy(fg->graph);
+    delete fg;
+    return static_cast<int>(e);
+  }
+  *out = fg;
+  return 0;
+}
+
+// One fit: the graph launched on stream, then the lanes' results and the
+// counters (running, rounds) copied into pinned host memory (results_host:
+// n_lanes x (dims + 5) f64; counters_host: 16 bytes), one stream sync.
+// The rounds are the launches of lynch_fit_lanes_kernel. Returns a
+// cudaError_t.
+int sid_lynch_fit_run(void* graph, void* results_host, void* counters_host, void* stream) {
+  FitGraph* fg = static_cast<FitGraph*>(graph);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaGraphLaunch(fg->exec, st);
+  if (e == cudaSuccess) e = cudaMemcpyAsync(results_host, fg->results, fg->result_bytes, cudaMemcpyDeviceToHost, st);
+  if (e == cudaSuccess) e = cudaMemcpyAsync(counters_host, fg->counters, 16, cudaMemcpyDeviceToHost, st);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ++g_fit_graphs;
+  unsigned long long rounds = 0;
+  memcpy(&rounds, static_cast<const char*>(counters_host) + 8, sizeof(rounds));
+  g_launches[kFitLanesKernel] += static_cast<long long>(rounds);
+  return 0;
+}
+
+// The graph launched on stream and not waited for (kernel times).
+int sid_lynch_fit_enqueue(void* graph, void* stream) {
+  return static_cast<int>(cudaGraphLaunch(static_cast<FitGraph*>(graph)->exec, static_cast<cudaStream_t>(stream)));
+}
+
+void sid_lynch_fit_graph_destroy(void* graph) {
+  FitGraph* fg = static_cast<FitGraph*>(graph);
+  if (fg == nullptr) return;
+  cudaGraphExecDestroy(fg->exec);
+  cudaGraphDestroy(fg->graph);
+  delete fg;
 }
 
 const char* sid_lynch_error_string(int err) {

@@ -50,6 +50,7 @@
 #include <stdint.h>
 
 #include "local_classify.cuh"
+#include "nmsimplex.cuh"
 
 #ifdef __CUDA_ARCH__
 #define SID_NO_UNROLL _Pragma("unroll 1")
@@ -447,6 +448,128 @@ SID_HD double shard_chunk_sum(const ShardSlot* table, int n_shards, int64_t j, i
   const int64_t chunk = j - walk_start(table, k);
   *global_chunk = table[k].first_chunk + chunk;
   return nll_thread_sum(chunk, t, table[k].rec, table[k].rows, s, table[k].flags, n_flagged);
+}
+
+// ---- the fit's loop on the card: lanes that carry their simplex ----
+// A fit on the card (lynch.cu lynch_fit_lanes_kernel, sid_tpu's jitted
+// fit_lynch and its vmapped cohort fits around B3) runs S >= 1 lanes, each
+// one nmsimplex2 minimization over its rows (a single fit is one lane).
+// Each launch evaluates every running lane at its pending point; the block
+// that folds a lane's objective then takes the value into the lane's
+// simplex (fit_take) and sets its next point and scalars, which the next
+// launch reads. A lane's mode says what the next launch does with it:
+// nothing (it stopped), its rows at its scalars, or no row work and
+// DBL_MAX (its point is outside the box [0, 1]^2, where DeviceObjective
+// gives DBL_MAX without a launch).
+enum FitMode : int32_t { kFitIdle = 0, kFitRows = 1, kFitOutOfBox = 2 };
+// a lane stops DONE (converged or at max_iterations) or HANDOVER: an
+// evaluation flagged rows for the long-double replay, which the host makes
+enum FitStatus : int32_t { kFitRunning = 0, kFitDone = 1, kFitHandover = 2 };
+
+// a lane's rows first_row .. end_row - 1 and the end of its chunks in the
+// walk over every lane's chunks (the running total of lane_chunks); 24
+// bytes, fixed for a fit
+struct FitLane {
+  int64_t first_row;
+  int64_t end_row;
+  int64_t walk_end;
+};
+
+// a lane's state on the card
+template <int N>
+struct FitLaneState {
+  NmState<N> nm;
+  double fixed_eps;     // N == 1: the error rate the pi fit holds
+  int32_t mode;         // FitMode of the next launch
+  int32_t status;       // FitStatus
+  int32_t evaluations;  // entries written into the lane's history
+  int32_t pad;
+};
+
+// A history entry: the point (N), its value, the rows it flagged. Where it
+// flagged rows, the value is the sum of the unflagged terms (the host adds
+// the flagged rows' long-double terms).
+template <int N>
+constexpr int kHistoryWidth = N + 2;
+// a lane's result: x at the best corner (N), fval, converged, iterations,
+// evaluations, status
+template <int N>
+constexpr int kResultWidth = N + 5;
+
+// the lane's next evaluation from its pending point: in the box its five
+// theta scalars into scalars[0..4] (its other 11 stay), else out of the box
+template <int N>
+SID_HD void fit_set_point(FitLaneState<N>& lane, double* scalars) {
+  const double pi = lane.nm.xc[0];
+  const double eps = N == 2 ? lane.nm.xc[N - 1] : lane.fixed_eps;
+  if (theta_in_box(pi, eps)) {
+    theta_scalars(pi, eps, scalars);
+    lane.mode = kFitRows;
+  } else {
+    lane.mode = kFitOutOfBox;
+  }
+}
+
+// a lane from its start: the simplex at x0 with step, its first point set
+template <int N>
+SID_HD void fit_start(FitLaneState<N>& lane, const double* x0, const double* step, double fixed_eps, double tol,
+                      int max_iterations, int dot_mode, double* scalars) {
+  nm_start(lane.nm, x0, step, tol, max_iterations, dot_mode);
+  lane.fixed_eps = fixed_eps;
+  lane.status = kFitRunning;
+  lane.evaluations = 0;
+  lane.pad = 0;
+  fit_set_point(lane, scalars);
+}
+
+// the lane's result into out (kResultWidth<N> doubles)
+template <int N>
+SID_HD void fit_result(const FitLaneState<N>& lane, double* out) {
+  for (int j = 0; j < N; ++j) out[j] = lane.nm.x1[lane.nm.best][j];
+  out[N] = lane.nm.y1[lane.nm.best];
+  out[N + 1] = lane.nm.converged;
+  out[N + 2] = lane.nm.iterations;
+  out[N + 3] = lane.evaluations;
+  out[N + 4] = lane.status;
+}
+
+// The lane's evaluation of this launch is in: total and flagged are the
+// fold of its rows (mode rows; unread out of the box). The entry goes into
+// the lane's history; flagged rows hand the lane over, else its value
+// -clamp(total, +-DBL_MAX) (DBL_MAX out of the box) advances the simplex
+// and sets the next point. Returns whether the lane stopped (its result is
+// then in result).
+template <int N>
+SID_HD bool fit_take(FitLaneState<N>& lane, double total, int flagged, double* scalars, double* history,
+                     double* result) {
+  double* h = history + static_cast<int64_t>(lane.evaluations) * kHistoryWidth<N>;
+  for (int j = 0; j < N; ++j) h[j] = lane.nm.xc[j];
+  lane.evaluations = lane.evaluations + 1;
+  double y;
+  if (lane.mode == kFitOutOfBox) {
+    y = kDblMax;
+  } else if (flagged > 0) {
+    h[N] = total;
+    h[N + 1] = flagged;
+    lane.status = kFitHandover;
+    lane.mode = kFitIdle;
+    fit_result(lane, result);
+    return true;
+  } else {
+    y = total > kDblMax ? kDblMax : (total < -kDblMax ? -kDblMax : total);
+    y = -y;
+  }
+  h[N] = y;
+  h[N + 1] = 0.0;
+  nm_take(lane.nm, y);
+  if (lane.nm.phase == kNmDone) {
+    lane.status = kFitDone;
+    lane.mode = kFitIdle;
+    fit_result(lane, result);
+    return true;
+  }
+  fit_set_point(lane, scalars);
+  return false;
 }
 
 }  // namespace sid

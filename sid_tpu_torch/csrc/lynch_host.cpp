@@ -10,7 +10,10 @@
 // when its last chunk is done, and each row of the marginals at its lane's
 // scalars. A sharded fit's objective on one device walks the device's
 // shard table as its launch does, block by block, and folds the fit's
-// chunk sums as that launch's last block does.
+// chunk sums as that launch's last block does. The fit's loop on the card
+// (its graph: the start, then rounds of lynch_fit_lanes_kernel while a lane
+// runs) runs round by round, each lane's step where its last chunk is
+// folded, as the kernel's block does it.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblynch_host.so lynch_host.cpp
@@ -36,6 +39,78 @@ void tree_fold(std::vector<double>& v, std::vector<int>& c) {
       c[t] = c[t] + c[t + s];
     }
   }
+}
+
+// a lane's chunk sums folded as the block that completes it folds them
+void fold_lane(const std::vector<double>& part_sum, const std::vector<int>& part_cnt, int64_t first_chunk,
+               int64_t n_chunks, std::vector<double>& v, std::vector<int>& c) {
+  for (int t = 0; t < sid::kReduceThreads; ++t) {
+    double acc = 0.0;
+    int cnt = 0;
+    for (int64_t base = 0; base < n_chunks; base += sid::kReduceThreads) {
+      const int64_t i = base + t;
+      acc = acc + (i < n_chunks ? part_sum[static_cast<size_t>(first_chunk + i)] : 0.0);
+      cnt = cnt + (i < n_chunks ? part_cnt[static_cast<size_t>(first_chunk + i)] : 0);
+    }
+    v[t] = acc;
+    c[t] = cnt;
+  }
+  tree_fold(v, c);
+}
+
+template <int N>
+long long fit_lanes(const double* rec, int64_t n, const sid::FitLane* lanes, int n_lanes, const double* starts,
+                    double* scalars, double tol, int max_iterations, int dot_mode, double* history,
+                    int64_t history_entries, uint8_t* flags, double* results, int grid) {
+  std::vector<sid::FitLaneState<N>> state(static_cast<size_t>(n_lanes));
+  for (int i = 0; i < n_lanes; ++i) {
+    const double* st = starts + static_cast<int64_t>(i) * (2 * N + 1);
+    sid::fit_start(state[i], st, st + N, st[2 * N], tol, max_iterations, dot_mode, scalars + 16 * static_cast<int64_t>(i));
+  }
+  const int64_t total = lanes[n_lanes - 1].walk_end;
+  const int64_t blocks = total < grid ? total : grid;
+  std::vector<double> part_sum(static_cast<size_t>(total));
+  std::vector<int> part_cnt(static_cast<size_t>(total));
+  std::vector<int64_t> done(static_cast<size_t>(n_lanes), 0);
+  std::vector<double> v(sid::kReduceThreads);
+  std::vector<int> c(sid::kReduceThreads);
+  int running = n_lanes;
+  long long rounds = 0;
+  while (running > 0) {
+    ++rounds;
+    for (int64_t b = 0; b < blocks; ++b) {
+      for (int64_t j = b; j < total; j += blocks) {
+        const int k = sid::slot_of(lanes, n_lanes, j);
+        const int mode = state[k].mode;
+        if (mode == sid::kFitIdle) continue;
+        const int64_t first_chunk = sid::walk_start(lanes, k);
+        const int64_t n_chunks = lanes[k].walk_end - first_chunk;
+        const sid::LynchScalars s = unpack(scalars + 16 * static_cast<int64_t>(k));
+        if (mode == sid::kFitRows) {
+          for (int t = 0; t < sid::kReduceThreads; ++t)
+            v[t] = sid::nll_rows_sum(lanes[k].first_row + (j - first_chunk) * sid::kChunk, lanes[k].end_row, t, rec,
+                                     n, s, flags, &c[t]);
+          tree_fold(v, c);
+          part_sum[static_cast<size_t>(j)] = v[0];
+          part_cnt[static_cast<size_t>(j)] = c[0];
+        }
+        if (++done[k] < n_chunks) continue;
+        done[k] = 0;
+        double acc = 0.0;
+        int cnt = 0;
+        if (mode == sid::kFitRows) {
+          fold_lane(part_sum, part_cnt, first_chunk, n_chunks, v, c);
+          acc = v[0];
+          cnt = c[0];
+        }
+        const int64_t kk = k;
+        if (sid::fit_take(state[k], acc, cnt, scalars + 16 * kk, history + kk * history_entries * sid::kHistoryWidth<N>,
+                          results + kk * sid::kResultWidth<N>))
+          --running;
+      }
+    }
+  }
+  return rounds;
 }
 
 // the fold of n_chunks chunk sums as one block does it: the threads'
@@ -232,6 +307,27 @@ void sid_lynch_nll_lanes_host(const double* rec, int64_t n, const void* slots, i
       }
     }
   }
+}
+
+int sid_lynch_fit_lane_bytes_host() { return static_cast<int>(sizeof(sid::FitLane)); }
+
+// The fit's loop on the card, as its graph runs it with a grid of `grid`
+// blocks a round (lynch.cu sid_lynch_fit_graph_create): lanes (n_lanes)
+// FitLane over a record of n rows; starts (n_lanes, 2 dims + 1): x0, step,
+// the fixed epsilon of a 1-D fit; scalars (n_lanes, 16), the eleven fixed
+// ones in place (the five theta ones written); history (n_lanes,
+// history_entries, dims + 2); results (n_lanes, dims + 5); flags (n,).
+// Returns the rounds (the kernel's launches).
+long long sid_lynch_fit_lanes_host(int dims, const double* rec, int64_t n, const void* lanes, int n_lanes,
+                                   const double* starts, double* scalars, double tol, int max_iterations,
+                                   int dot_mode, double* history, int64_t history_entries, uint8_t* flags,
+                                   double* results, int grid) {
+  const sid::FitLane* fl = static_cast<const sid::FitLane*>(lanes);
+  if (dims == 1)
+    return fit_lanes<1>(rec, n, fl, n_lanes, starts, scalars, tol, max_iterations, dot_mode, history,
+                        history_entries, flags, results, grid);
+  return fit_lanes<2>(rec, n, fl, n_lanes, starts, scalars, tol, max_iterations, dot_mode, history,
+                      history_entries, flags, results, grid);
 }
 
 // The lanes' marginals over a cohort's record of n rows, as the launches

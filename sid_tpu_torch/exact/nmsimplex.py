@@ -14,11 +14,17 @@ optimization.hpp:26,66-67).
 
 A port of sid_tpu's NumPy spec (``sid_tpu/exact/nmsimplex.py``), operation
 for operation, so trajectories, results and diagnostic lines are bitwise
-sid_tpu's. It drives both Lynch fits of this package: the long-double host
-objective and the device objective, one f64 scalar fetched per evaluation
-(sid_tpu's ``lax.while_loop`` form exists to bound XLA trace size and has no
-counterpart here). NumPy f64 contracts nothing into a fused multiply-add,
-so the spec's operation order is the order executed.
+sid_tpu's. It drives the long-double host fit, the device objective where
+the fit does not run on a card (the CPU, a mesh), and the host's part of a
+fit on a card. There sid_tpu's ``lax.while_loop`` form
+(``sid_tpu/ops/nmsimplex.py:287``, one evaluation a trip) has its
+counterpart in ``csrc/nmsimplex.cuh``: the same rule as a step machine that
+the fit's kernel runs one evaluation a launch, bitwise this loop, and
+``replay`` hands a lane that the card stopped (rows for the long-double
+replay) back to this loop, positioned where the card left it. NumPy f64
+contracts nothing into a fused multiply-add, so the spec's operation order
+is the order executed; only its dot products go through BLAS, whose
+rounding ``dot_mode`` probes for the card's copy.
 
 The loop is a generator (``_minimize``) that yields each point it needs and
 receives its value, so one copy of the rule serves two loops:
@@ -34,9 +40,15 @@ takes the points and the decisions it would take alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Generator, List, Optional, Sequence
+import functools
+from typing import Callable, Dict, Generator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+
+# the reference's stop (optimization.hpp:26,66-67)
+TOL = 1e-5
+MAX_ITERATIONS = 1000
 
 
 @dataclasses.dataclass
@@ -199,6 +211,32 @@ def _minimize(x0, step, tol: float, max_iterations: int) -> Generator[np.ndarray
     )
 
 
+@functools.lru_cache(maxsize=None)
+def dot_mode() -> int:
+    """How this process's numpy rounds the dot product of two f64
+    2-vectors, which the loop's size updates take (``np.dot``, through
+    BLAS): 1 when it fuses, 0.0 + fma(a1, b1, fma(a0, b0, 0.0)) (OpenBLAS's
+    short-vector loop), 0 when it rounds each product and sum. The card's
+    copy of the loop (csrc/nmsimplex.cuh nm_dot) takes the same rounding;
+    any other raises."""
+    a = np.array([1.0, 1.0 + 2.0**-30])
+    b = np.array([-1.0, 1.0 + 2.0**-30])
+    got = float(np.dot(a, b))
+    modes = {2.0**-29 + 2.0**-60: 1, 2.0**-29: 0}
+    if got not in modes:
+        raise RuntimeError(f"numpy's dot rounds in neither known way: {got!r}")
+    return modes[got]
+
+
+def log_result(res: MinimizeResult, log: Optional[Callable[[str], None]]) -> None:
+    """The reference's convergence diagnostic (optimization.hpp:69-77)."""
+    if log:
+        if res.converged:
+            log(f"# GSL function minimization converged in {res.iterations} iterations.")
+        else:
+            log(f"# Error: GSL function minimization did not converge in {res.iterations} iterations!")
+
+
 def minimize_nmsimplex2(
     f: Callable[[np.ndarray], float],
     x0: Sequence[float],
@@ -219,12 +257,36 @@ def minimize_nmsimplex2(
             x = steps.send(f(x))
     except StopIteration as done:
         res = done.value
-    if log:
-        if res.converged:
-            log(f"# GSL function minimization converged in {res.iterations} iterations.")
-        else:
-            log(f"# Error: GSL function minimization did not converge in {res.iterations} iterations!")
+    log_result(res, log)
     return res
+
+
+def replay(x0, step, tol: float, max_iterations: int, values: Sequence[float],
+           points: Optional[Sequence[Sequence[float]]] = None
+           ) -> Tuple[Optional[Generator], Union[np.ndarray, MinimizeResult]]:
+    """The loop from x0 fed ``values``, the objective's values at its
+    first len(values) points (a lane's history from the card): returns
+    (the loop, its next point), or (None, its result) when it ended on
+    them. With ``points`` (the history's points), each point the loop
+    yields must be bitwise the recorded one (RuntimeError: the card's loop
+    parted from this one)."""
+
+    def check(k, x):
+        if points is not None and k < len(points) and not np.array_equal(x, np.asarray(points[k], np.float64)):
+            raise RuntimeError(f"replay: point {k} is {x.tolist()}, the history's {list(points[k])}")
+
+    steps = _minimize(x0, step, tol, max_iterations)
+    x = next(steps)
+    for k, val in enumerate(values):
+        check(k, x)
+        try:
+            x = steps.send(float(val))
+        except StopIteration as done:
+            if k != len(values) - 1:
+                raise RuntimeError(f"replay: the loop ended at value {k} of {len(values)}") from None
+            return None, done.value
+    check(len(values), x)
+    return steps, x
 
 
 def minimize_nmsimplex2_lanes(
@@ -249,7 +311,16 @@ def minimize_nmsimplex2_lanes(
         raise ValueError(f"{len(x0s)} starting points but {len(steps)} steps")
     runs = [_minimize(x0, st, tol, max_iterations) for x0, st in zip(x0s, steps)]
     results: List[Optional[MinimizeResult]] = [None] * len(runs)
-    pending = {k: next(run) for k, run in enumerate(runs)}
+    return finish_lanes(f_lanes, dict(enumerate(runs)), {k: next(run) for k, run in enumerate(runs)}, results)
+
+
+def finish_lanes(f_lanes: Callable[[List[int], List[np.ndarray]], Sequence[float]], runs: Dict[int, Generator],
+                 pending: Dict[int, np.ndarray], results: List[Optional[MinimizeResult]]) -> List[MinimizeResult]:
+    """``minimize_nmsimplex2_lanes``'s lockstep over the started loops
+    ``runs`` (lane -> loop, as ``replay`` positions one) from their pending
+    points ``pending`` (lane -> point), each lane's result into
+    ``results``, which holds the other lanes' already. Returns
+    ``results``."""
     while pending:
         lanes = sorted(pending)
         values = f_lanes(lanes, [pending[k] for k in lanes])

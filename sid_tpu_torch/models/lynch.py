@@ -5,12 +5,13 @@ estimateProfileGenotypeLikelihoods (lynch.cpp:17-35) runs as one of two fits:
 
 - the exact fit (``exact/lynch_ld.py``): the long-double objective on the
   host, the reference's arithmetic;
-- the device fit (``fit_lynch``): the same host nmsimplex2 loop over the
-  compound objective on the options' device (the CUDA kernel B2 of
-  ``ops/lynch_objective.py`` on a card), then the marginals at the fitted
-  epsilon (kernel B4). The profiles, their multiplicities and the lgamma
-  table are uploaded once; each evaluation sends the theta scalars and
-  fetches one (sum, flagged count) pair.
+- the device fit (``fit_lynch``): nmsimplex2 over the compound objective
+  on the options' device, then the marginals at the fitted epsilon
+  (kernel B4). The profiles, their multiplicities and the lgamma table are
+  uploaded once. On a card the whole loop runs there, one CUDA graph
+  launch (``ops/lynch_objective.py`` ``LynchFitWorkspace``: each
+  evaluation one launch of the fit's kernel, whose last block takes the
+  simplex's step); on the CPU, its plain version, the host loop over B2's.
 
 The reference multiplies linear long doubles, so at deep coverage a row's
 factors can leave the 80-bit range, where log space does not (fault C2,
@@ -18,6 +19,11 @@ ROADMAP.md): mc overflows to inf and the row's NaN term is skipped, or the
 dominant term's powers underflow to 0. The kernels' range screen flags such
 rows; the device fit adds their long-double objective terms and takes their
 long-double marginals from libsidtpu, so both fits follow the reference.
+A fit on the card hands such a fit to the host at the first evaluation
+that flags rows: the host replays the card's history into its own loop
+(``exact.nmsimplex.replay``, bitwise, nothing evaluated again), adds the
+flagged rows' long-double terms to that evaluation, and goes on evaluating
+B2 a point as the CPU and a mesh do.
 
 ``resolve_fit_backend`` picks between them: "auto" fits on the host up to
 EXACT_FIT_MAX_U unique profiles, where it is cheap and byte-exact by
@@ -38,6 +44,7 @@ from sid_tpu_torch.exact.lynch_ld import (
     DEFAULT_STEP,
     estimate_profile_genotype_likelihoods_ld,
 )
+from sid_tpu_torch.exact import nmsimplex
 from sid_tpu_torch.exact.nmsimplex import MinimizeResult, minimize_nmsimplex2
 from sid_tpu_torch.io import native
 from sid_tpu_torch.native import bridge
@@ -59,6 +66,29 @@ def resolve_fit_backend(options: Options, u: int) -> str:
     if options.mesh_devices is not None or u > EXACT_FIT_MAX_U:
         return "device"
     return "exact"
+
+
+def run_fit(fit: lynch_objective.LynchFitWorkspace, start, step, value):
+    """Run ``fit``'s loop on the device: (its ``FitLanes``, each lane's
+    result where its loop ended there, else None; and for the lanes it
+    handed over, their loops replayed from their histories
+    (``exact.nmsimplex.replay``) and sent the flagged evaluation's value
+    ``value(lane, point, sum of the unflagged terms, flagged count)``: the
+    loops still running and their pending points by lane, as
+    ``exact.nmsimplex.finish_lanes`` takes them)."""
+    out = fit.run()
+    results: List[Optional[MinimizeResult]] = [
+        out.result(k) if out.status[k] == lynch_objective.FIT_DONE else None for k in range(fit.lanes)]
+    handed = [k for k, r in enumerate(results) if r is None]
+    runs, pending = {}, {}
+    for k, (points, values, flagged) in zip(handed, fit.history(handed)):
+        steps, x = nmsimplex.replay(start, step, fit.tol, fit.max_iterations, values[:-1], points)
+        try:
+            pending[k] = steps.send(value(k, x, values[-1], flagged[-1]))
+            runs[k] = steps
+        except StopIteration as done:
+            results[k] = done.value
+    return out, results, runs, pending
 
 
 class DeviceObjective:
@@ -88,22 +118,38 @@ class DeviceObjective:
                 lgamma_table(max_cov, device))
         self.work = work  # nll, flags and marginals_host over these rows
         self.flagged = 0  # most rows the screen flagged in one evaluation
+        self.fit: Optional[lynch_objective.FitLanes] = None  # the last loop on the device's
 
     def __call__(self, theta) -> float:
         pi, eps = float(theta[0]), float(theta[1])
         if not (0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0):
             return likelihoods.DBL_MAX
         total, n_flagged = self.work.nll(likelihoods.lynch_scalars(pi, eps, self.nt))
+        return self.value(theta, total, n_flagged)
+
+    def value(self, theta, total: float, n_flagged: float) -> float:
+        """The objective at theta (in the box) from its evaluation's sum of
+        the unflagged terms and flagged count, the flags in the workspace:
+        the flagged rows' long-double terms added, the sum clamped and
+        negated."""
         if n_flagged:
             rows = np.nonzero(self.work.flags.cpu().numpy())[0]
             self.flagged = max(self.flagged, rows.size)
             ld = bridge.NativeLynchLD(native.load(), self.profiles, self.mult, self.nt, rows)
-            total = total - ld.objective((pi, eps))
-        if total > likelihoods.DBL_MAX:
-            total = likelihoods.DBL_MAX
-        elif total < -likelihoods.DBL_MAX:
-            total = -likelihoods.DBL_MAX
-        return -total
+            total = total - ld.objective((float(theta[0]), float(theta[1])))
+        return -lynch_objective.clamp_total(total)
+
+    def minimize(self, start, step) -> MinimizeResult:
+        """nmsimplex2 over this objective from ``start`` with ``step``. Over
+        one device's workspace the loop is ``LynchFitWorkspace``'s (one
+        graph launch on a card; its plain version on the CPU); a fit it
+        hands over goes on in the host's loop from the replayed history.
+        Over a mesh, the host's loop."""
+        if not isinstance(self.work, lynch_objective.LynchWorkspace):
+            return minimize_nmsimplex2(self, start, step)
+        fit = lynch_objective.LynchFitWorkspace(self.work, [list(start) + list(step) + [0.0]], self.nt[None])
+        self.fit, results, runs, pending = run_fit(fit, start, step, lambda k, x, total, n: self.value(x, total, n))
+        return nmsimplex.finish_lanes(lambda lanes, points: [self(x) for x in points], runs, pending, results)[0]
 
     def marginals(self, eps: float) -> Tuple[np.ndarray, np.ndarray]:
         """(log L_hom, log L_het) f64 at epsilon (B4); the rows the screen
@@ -153,6 +199,7 @@ class LanesObjective:
         self._scalars = np.zeros((len(histograms), 16), np.float64)
         self.rounds = 0  # objective launches (one a round with a lane in the box)
         self.evaluations = 0  # lane evaluations in the box
+        self.fit: Optional[lynch_objective.FitLanes] = None  # the last loop on the device's
 
     def _rows(self, lane: int) -> slice:
         return slice(int(self.offsets[lane]), int(self.offsets[lane + 1]))
@@ -164,10 +211,13 @@ class LanesObjective:
     def __call__(self, lanes: List[int], points: List[np.ndarray]) -> List[float]:
         return self.enqueue(lanes, points)()
 
+    def _theta(self, x) -> Tuple[float, float]:
+        return float(x[0]), float(x[1]) if self.eps is None else self.eps
+
     def enqueue(self, lanes: List[int], points: List[np.ndarray]):
         """One round of ``__call__`` in two halves: its launch enqueued, and
         a callable that waits for it and returns the lanes' values."""
-        thetas = [(float(x[0]), float(x[1]) if self.eps is None else self.eps) for x in points]
+        thetas = [self._theta(x) for x in points]
         values = [likelihoods.DBL_MAX] * len(lanes)
         inside = [k for k, (pi, eps) in enumerate(thetas) if 0.0 <= pi <= 1.0 and 0.0 <= eps <= 1.0]
         if not inside:
@@ -182,17 +232,34 @@ class LanesObjective:
 
         def finish() -> List[float]:
             for k, (total, n_flagged) in zip(inside, fetch().tolist()):
-                if n_flagged:
-                    rows = np.nonzero(self.work.flags[self._rows(lanes[k])].cpu().numpy())[0]
-                    total = total - self._ld(lanes[k], rows).objective(thetas[k])
-                if total > likelihoods.DBL_MAX:
-                    total = likelihoods.DBL_MAX
-                elif total < -likelihoods.DBL_MAX:
-                    total = -likelihoods.DBL_MAX
-                values[k] = -total
+                values[k] = self.value(lanes[k], thetas[k], total, n_flagged)
             return values
 
         return finish
+
+    def value(self, lane: int, theta, total: float, n_flagged: float) -> float:
+        """Lane ``lane``'s objective at theta (in the box) from its
+        evaluation's sum of the unflagged terms and flagged count, the
+        lane's flags in the workspace: the flagged rows' long-double terms
+        added, the sum clamped and negated."""
+        if n_flagged:
+            rows = np.nonzero(self.work.flags[self._rows(lane)].cpu().numpy())[0]
+            total = total - self._ld(lane, rows).objective(theta)
+        return -lynch_objective.clamp_total(total)
+
+    def minimize(self, start, step) -> List[MinimizeResult]:
+        """Every lane's nmsimplex2 fit from ``start`` with ``step`` (1-D
+        fits of pi at ``eps`` when the objective holds one):
+        ``LynchFitWorkspace``'s loop over the lanes (one graph launch on a
+        card; its plain version on the CPU); the lanes it hands over go on
+        in the host's lockstep over this objective from their replayed
+        histories."""
+        held = 0.0 if self.eps is None else self.eps
+        fit = lynch_objective.LynchFitWorkspace(self.work, [list(start) + list(step) + [held]] * len(self.nts),
+                                                self.nts)
+        self.fit, results, runs, pending = run_fit(
+            fit, start, step, lambda k, x, total, n: self.value(k, self._theta(x), total, n))
+        return nmsimplex.finish_lanes(self, runs, pending, results)
 
     def marginals(self, eps: Sequence[float]) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Per lane (log L_hom, log L_het) f64 at that lane's epsilon, all
@@ -273,9 +340,11 @@ def fit_lynch(
 
 
 def fit_objective(objective: DeviceObjective, log: Optional[Callable[[str], None]] = None):
-    """nmsimplex2 from (1e-3, 1e-3), step 1e-4, over ``objective``, then
-    its marginals at the fitted epsilon: (result, log_l_hom, log_l_het)."""
-    res = minimize_nmsimplex2(objective, DEFAULT_START, DEFAULT_STEP, log=log)
+    """nmsimplex2 from (1e-3, 1e-3), step 1e-4, over ``objective``
+    (``DeviceObjective.minimize``), then its marginals at the fitted
+    epsilon: (result, log_l_hom, log_l_het)."""
+    res = objective.minimize(DEFAULT_START, DEFAULT_STEP)
+    nmsimplex.log_result(res, log)
     log_l_hom, log_l_het = objective.marginals(float(res.x[1]))
     return res, log_l_hom, log_l_het
 

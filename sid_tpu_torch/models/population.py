@@ -11,12 +11,16 @@ samples' cov >= 4 profile histograms:
   each sample's pi from 1e-3, step 1e-4.
 
 sid_tpu vmaps one nmsimplex2 while-loop per sample over the sample axis.
-Here the cohort's fits run in lockstep on the host
-(``exact.nmsimplex.minimize_nmsimplex2_lanes``) over ``LanesObjective``:
-each round is one launch of the lanes' objective kernel for every sample
-still fitting, and each sample's fit is the one ``fit_lynch``'s objective
-would give alone, with the long-double terms of the rows the range screen
-flags (sid_tpu's population fits have no screen: fault C4 in ROADMAP.md).
+Here the cohort's fits run as lanes of one loop on the device
+(``LanesObjective.minimize``: on a card one CUDA graph, each round one
+launch of the fit's kernel for every sample still fitting, whose blocks
+also take each lane's simplex step; on the CPU its plain version), and
+each sample's fit is the one ``fit_lynch``'s objective would give alone,
+with the long-double terms of the rows the range screen flags (sid_tpu's
+population fits have no screen: fault C4 in ROADMAP.md): a lane whose
+evaluation flags rows goes on in the host's lockstep
+(``exact.nmsimplex.finish_lanes``) from its replayed history, one launch
+of the lanes' objective kernel a round.
 The cohort's (hom, het) marginals at each sample's epsilon are one launch
 of the lanes' marginals kernel, over the workspace the per-sample fits
 bound. Per-sample priors, LRT and BH run per sample (BH's domain is each
@@ -88,15 +92,16 @@ def fit_lanes(
     eps: Optional[float] = None,
     mesh=None,
 ) -> Tuple[List[MinimizeResult], LanesObjective]:
-    """One nmsimplex2 fit per histogram, all in lockstep over the lanes'
-    objective: 2-D fits of (pi, epsilon), or 1-D fits of pi at ``eps``; on
-    ``device``, or with ``mesh`` (a list of devices) in blocks of lanes one
-    a device. Returns (per-lane results, the objective with its round
-    counts)."""
+    """One nmsimplex2 fit per histogram, all as lanes of one loop: 2-D
+    fits of (pi, epsilon), or 1-D fits of pi at ``eps``; on ``device``
+    (``LanesObjective.minimize``: the loop on the device), or with
+    ``mesh`` (a list of devices) in blocks of lanes one a device, in
+    lockstep on the host. Returns (per-lane results, the objective with
+    its round counts)."""
     if mesh is None:
         objective = LanesObjective(histograms, nts, device, eps)
-    else:
-        objective = ShardedLanesObjective(histograms, nts, mesh, eps)
+        return objective.minimize(start, step), objective
+    objective = ShardedLanesObjective(histograms, nts, mesh, eps)
     n = len(histograms)
     return minimize_nmsimplex2_lanes(objective, [start] * n, [step] * n), objective
 

@@ -120,22 +120,28 @@ def _glibc_log1p(x: float) -> float:
     return -math.inf if x == -1 else math.nan
 
 
-def lynch_scalars(pi: float, eps: float, nt: Sequence[float]) -> np.ndarray:
-    """The 16 theta-dependent f64 scalars of one evaluation (the layout of
-    ``LynchScalars`` in csrc/lynch.cuh), computed once on the host:
-    log1p(-e), log(e/3), log((1-2e/3)/2), log1p(-pi), log pi,
-    log1p(-sum nt^2), log nt_i (4), log(nt_i nt_j) (6, in PAIRS order)."""
+def theta_scalars(pi: float, eps: float) -> list:
+    """The five scalars of ``lynch_scalars`` that depend on theta:
+    log1p(-e), log(e/3), log((1-2e/3)/2), log1p(-pi), log pi (the fit's
+    kernel computes them on the card: csrc/nmsimplex.cuh theta_scalars)."""
     pi, e = float(pi), float(eps)
-    nt =[float(v) for v in nt]
-    s2 = ((nt[0] * nt[0] + nt[1] * nt[1]) + nt[2] * nt[2]) + nt[3] * nt[3]
-    vals = [
+    return [
         _glibc_log1p(-e),
         _glibc_log(e / 3.0),
         _glibc_log((1.0 - 2.0 / 3.0 * e) / 2.0),
         _glibc_log1p(-pi),
         _glibc_log(pi),
-        _glibc_log1p(-s2),
     ]
+
+
+def lynch_scalars(pi: float, eps: float, nt: Sequence[float]) -> np.ndarray:
+    """The 16 theta-dependent f64 scalars of one evaluation (the layout of
+    ``LynchScalars`` in csrc/lynch.cuh), computed once on the host:
+    log1p(-e), log(e/3), log((1-2e/3)/2), log1p(-pi), log pi,
+    log1p(-sum nt^2), log nt_i (4), log(nt_i nt_j) (6, in PAIRS order)."""
+    nt = [float(v) for v in nt]
+    s2 = ((nt[0] * nt[0] + nt[1] * nt[1]) + nt[2] * nt[2]) + nt[3] * nt[3]
+    vals = theta_scalars(pi, eps) + [_glibc_log1p(-s2)]
     vals += [_glibc_log(v) for v in nt]
     vals += [_glibc_log(nt[i] * nt[j]) for i, j in PAIRS]
     return np.array(vals, np.float64)

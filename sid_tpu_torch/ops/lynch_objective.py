@@ -48,24 +48,43 @@ B2's order, after the other devices' chunk sums were copied in by the same
 call. Its plain version, ``lynch_nll_shards_ref``, is
 ``lynch_nll_partials_ref`` per shard and ``lynch_fold_ref`` over them all.
 
+A ``LynchFitWorkspace`` runs whole fits on the card (B3, sid_tpu's
+``ops/nmsimplex.py:287`` while-loop around B2): S >= 1 nmsimplex2
+minimizations (lanes) over the row record of a ``LynchWorkspace`` (one
+lane) or a ``LynchLanesWorkspace``, each launch of the fit's kernel one
+evaluation of every running lane, its last block a lane's simplex step
+(``csrc/nmsimplex.cuh``, bitwise ``exact/nmsimplex.py``), the whole loop one
+CUDA graph built and instantiated with the workspace (``run``: one graph
+launch, one copy of the lanes' results, one sync). A lane stops at its
+end or at its first evaluation that flags rows for the long-double
+replay (a handover: ``history`` gives its points and values for
+``exact.nmsimplex.replay``, and the host's loop goes on). Its plain
+version, ``lynch_fit_lanes_ref``, is the host loop over
+``lynch_compound_nll_lanes_ref`` with the same handovers and histories.
+
 ``RECORD_LAUNCHES``, ``NLL_LAUNCHES``, ``MARGINALS_LAUNCHES``,
-``NLL_LANES_LAUNCHES``, ``MARGINALS_LANES_LAUNCHES`` and
-``NLL_SHARDS_LAUNCHES`` count kernel launches (not plain-version calls), so
-a run can show that it went through the kernels; the kernel library keeps
-its own count (``kernel_launches``).
+``NLL_LANES_LAUNCHES``, ``MARGINALS_LANES_LAUNCHES``,
+``NLL_SHARDS_LAUNCHES`` and ``FIT_LANES_LAUNCHES`` count kernel launches
+(not plain-version calls; the fit's from the round count its graph keeps
+on the card), ``FIT_GRAPH_LAUNCHES`` the fits' graph launches and
+``FIT_HANDOVERS`` the lanes handed to the host's loop, so a run can show
+that it went through the kernels; the kernel library keeps its own count
+(``kernel_launches``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import itertools
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sid_tpu_torch.exact import nmsimplex
 from sid_tpu_torch.native import build
 from sid_tpu_torch.ops import likelihoods
 
@@ -75,13 +94,16 @@ MARGINALS_LAUNCHES = 0
 NLL_LANES_LAUNCHES = 0
 MARGINALS_LANES_LAUNCHES = 0
 NLL_SHARDS_LAUNCHES = 0
+FIT_LANES_LAUNCHES = 0
+FIT_GRAPH_LAUNCHES = 0
+FIT_HANDOVERS = 0
 
 # counts arrive as uint16; the record packs them so
 MAX_COUNT = 65535
 # the record: m, the signed multiplicity, the packed counts (csrc/lynch.cuh)
 RECORD_PLANES = 3
 # the kernel library's launch counters (csrc/lynch.cu)
-KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes", "nll_shards")
+KERNELS = ("records", "nll", "marginals", "nll_lanes", "marginals_lanes", "nll_shards", "fit_lanes")
 # one running lane of a launch of a lane kernel (csrc/lynch.cuh LaneSlot):
 # its scalars, its rows, the end of its chunks in the launch's walk
 LANE_SLOT = np.dtype([("s", "<f8", (16,)), ("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8")])
@@ -95,6 +117,11 @@ SHARDS_PER_LAUNCH = 32
 # one copy the fold device's call makes before its launch (csrc/lynch.cu
 # PeerPull): after the event, bytes from src on src_device into dst
 PEER_PULL = np.dtype([("event", "<u8"), ("dst", "<u8"), ("src", "<u8"), ("bytes", "<i8"), ("src_device", "<i8")])
+# one lane of a fit on the card (csrc/lynch.cuh FitLane): its rows and the
+# end of its chunks in the walk over every lane's chunks
+FIT_LANE = np.dtype([("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8")])
+# a fit lane's status (csrc/lynch.cuh FitStatus)
+FIT_DONE, FIT_HANDOVER = 1, 2
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -294,12 +321,22 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
         ("sid_lynch_peer_pull_bytes", []),
         ("sid_lynch_shards_grid", [i64, p]),
         ("sid_lynch_nll_shards_launch", [p, i32, p, p, p, i64, p, p, i32, p, i32, p, i32, p, p]),
+        ("sid_lynch_fit_lane_bytes", []),
+        ("sid_lynch_fit_state_bytes", [i32]),
+        ("sid_lynch_fit_graph_create", [i32, p, i64, p, i32, i64, p, p, p, p, i64, p, p, p, p, p, p,
+                                        ctypes.c_double, i32, i32, p]),
+        ("sid_lynch_fit_run", [p, p, p, p]),
+        ("sid_lynch_fit_enqueue", [p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = args
     lib.sid_lynch_launches.restype = ctypes.c_longlong
     lib.sid_lynch_launches.argtypes = [i32]
+    lib.sid_lynch_fit_graphs.restype = ctypes.c_longlong
+    lib.sid_lynch_fit_graphs.argtypes = []
+    lib.sid_lynch_fit_graph_destroy.restype = None
+    lib.sid_lynch_fit_graph_destroy.argtypes = [p]
     lib.sid_lynch_error_string.restype = ctypes.c_char_p
     lib.sid_lynch_error_string.argtypes = [i32]
     if lib.sid_lynch_chunk_rows() != likelihoods.CHUNK_ROWS:
@@ -311,6 +348,8 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
     if (lib.sid_lynch_shard_slot_bytes() != SHARD_SLOT.itemsize or lib.sid_lynch_peer_pull_bytes() != PEER_PULL.itemsize
             or lib.sid_lynch_shards_per_launch() != SHARDS_PER_LAUNCH):
         raise RuntimeError("csrc/lynch.cu and ops/lynch_objective.py disagree on the shard table")
+    if lib.sid_lynch_fit_lane_bytes() != FIT_LANE.itemsize:
+        raise RuntimeError("csrc/lynch.cuh and ops/lynch_objective.py disagree on the fit lane")
     return lib
 
 
@@ -338,9 +377,12 @@ def blocks_per_sm(device) -> dict:
 def kernel_launches() -> dict:
     """The kernel library's own launch counts since it was loaded, by
     kernel: {"records": n, "nll": n, "marginals": n, "nll_lanes": n,
-    "marginals_lanes": n, "nll_shards": n}."""
+    "marginals_lanes": n, "nll_shards": n, "fit_lanes": n}, and the fits'
+    graph launches as "fit_graphs"."""
     lib = _kernel_lib()
-    return {name: lib.sid_lynch_launches(k) for k, name in enumerate(KERNELS)}
+    out = {name: lib.sid_lynch_launches(k) for k, name in enumerate(KERNELS)}
+    out["fit_graphs"] = lib.sid_lynch_fit_graphs()
+    return out
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -946,3 +988,246 @@ class LynchLanesWorkspace:
             host.copy_(buf, non_blocking=True)
         self.stream.synchronize()
         return tuple(t.numpy() for t in _split(host, self.n))
+
+
+# ---- the fit's loop on the card (B3) ----
+
+
+def clamp_total(total: float) -> float:
+    """An objective's sum clamped to +-DBL_MAX (NaN stays), as sid_tpu
+    clamps it; the objective's value is its negation."""
+    if total > likelihoods.DBL_MAX:
+        return likelihoods.DBL_MAX
+    if total < -likelihoods.DBL_MAX:
+        return -likelihoods.DBL_MAX
+    return total
+
+
+def history_entries(dims: int, max_iterations: int) -> int:
+    """The most evaluations a lane of nmsimplex2 in ``dims`` dimensions
+    makes: P = dims + 1 for the start, at most P + 1 an iteration
+    (reflection, expansion or contraction, the other corners shrunk)."""
+    return max_iterations * (dims + 2) + dims + 1
+
+
+@dataclasses.dataclass
+class FitLanes:
+    """A fit's loop over S lanes in N dimensions, per lane: the best corner
+    ``x`` (S, N), ``fval``, ``converged``, ``iterations`` (of a lane that
+    ended; a handed-over lane's are unset), ``evaluations`` (its history
+    entries) and ``status`` (FIT_DONE or FIT_HANDOVER); ``rounds``, the
+    launches of the fit's kernel (the most evaluations of a lane)."""
+    x: np.ndarray
+    fval: np.ndarray
+    converged: np.ndarray
+    iterations: np.ndarray
+    evaluations: np.ndarray
+    status: np.ndarray
+    rounds: int
+
+    @classmethod
+    def from_rows(cls, rows: np.ndarray, dims: int, rounds: int) -> "FitLanes":
+        """From the kernel's (S, N + 5) result rows (csrc/lynch.cuh fit_result)."""
+        return cls(rows[:, :dims].copy(), rows[:, dims].copy(), rows[:, dims + 1] != 0,
+                   rows[:, dims + 2].astype(np.int64), rows[:, dims + 3].astype(np.int64),
+                   rows[:, dims + 4].astype(np.int64), int(rounds))
+
+    def result(self, lane: int) -> nmsimplex.MinimizeResult:
+        """The minimizer's result of a lane that ended on the card."""
+        if self.status[lane] != FIT_DONE:
+            raise ValueError(f"lane {lane} was handed over, it has no result of the card's loop")
+        return nmsimplex.MinimizeResult(x=self.x[lane].copy(), fval=float(self.fval[lane]),
+                                        converged=bool(self.converged[lane]), iterations=int(self.iterations[lane]))
+
+
+def lynch_fit_lanes_ref(
+    profiles: torch.Tensor, mult: torch.Tensor, offsets: np.ndarray, scalars: np.ndarray, lgamma_tab: torch.Tensor,
+    starts: np.ndarray, tol: float = nmsimplex.TOL, max_iterations: int = nmsimplex.MAX_ITERATIONS,
+) -> Tuple[FitLanes, np.ndarray, torch.Tensor]:
+    """Plain version of a fit's loop on the card: each lane's host loop
+    (``exact.nmsimplex``) in lockstep, every running lane's point in the
+    box evaluated each round by ``lynch_compound_nll_lanes_ref`` at the
+    scalars ``likelihoods.theta_scalars`` gives and the lane's eleven fixed
+    ones (``scalars`` (S, 16)), one outside DBL_MAX; each lane's value
+    -clamp(sum, +-DBL_MAX) while it flags no rows; the evaluation that
+    flags rows ends the lane there (a handover). ``starts`` (S, 2 N + 1):
+    each lane's x0, step and, for N = 1, the epsilon it holds. Returns
+    (the lanes' ``FitLanes``, their (S, H, N + 2) histories of (point,
+    value or flagged evaluation's sum, flagged rows), the (rows,) uint8
+    flags of each lane's last evaluation in the box)."""
+    starts = np.asarray(starts, np.float64)
+    n_lanes = starts.shape[0]
+    dims = (starts.shape[1] - 1) // 2
+    scal = np.array(scalars, np.float64, copy=True)
+    runs = {k: nmsimplex._minimize(starts[k, :dims], starts[k, dims : 2 * dims], tol, max_iterations)
+            for k in range(n_lanes)}
+    pending = {k: next(run) for k, run in runs.items()}
+    history = np.zeros((n_lanes, history_entries(dims, max_iterations), dims + 2))
+    rows = np.zeros((n_lanes, dims + 5))
+    flags = torch.zeros(profiles.shape[0], dtype=torch.uint8, device=profiles.device)
+    rounds = 0
+    while pending:
+        rounds += 1
+        lanes = sorted(pending)
+        thetas = {k: (float(pending[k][0]), float(pending[k][dims - 1]) if dims == 2 else float(starts[k, 2]))
+                  for k in lanes}
+        inside = [k for k in lanes if 0.0 <= thetas[k][0] <= 1.0 and 0.0 <= thetas[k][1] <= 1.0]
+        sums = {}
+        if inside:
+            for k in inside:
+                scal[k, :5] = likelihoods.theta_scalars(*thetas[k])
+            out, fl = lynch_compound_nll_lanes_ref(profiles, mult, offsets, scal, lgamma_tab, inside)
+            for k, (total, n_flagged) in zip(inside, out.tolist()):
+                r = slice(int(offsets[k]), int(offsets[k + 1]))
+                flags[r] = fl[r]
+                sums[k] = (total, n_flagged)
+        for k in lanes:
+            e = int(rows[k, dims + 3])
+            history[k, e, :dims] = pending[k]
+            rows[k, dims + 3] = e + 1
+            total, n_flagged = sums.get(k, (None, 0))
+            if n_flagged:
+                history[k, e, dims:] = total, n_flagged
+                rows[k, dims + 4] = FIT_HANDOVER
+                del pending[k]
+                continue
+            value = likelihoods.DBL_MAX if total is None else -clamp_total(total)
+            history[k, e, dims] = value
+            try:
+                pending[k] = runs[k].send(value)
+            except StopIteration as done:
+                res = done.value
+                rows[k, :dims] = res.x
+                rows[k, dims : dims + 3] = res.fval, res.converged, res.iterations
+                rows[k, dims + 4] = FIT_DONE
+                del pending[k]
+    return FitLanes.from_rows(rows, dims, rounds), history, flags
+
+
+class LynchFitWorkspace:
+    """Fits on the card: S lanes of nmsimplex2 over the rows of ``work``, a
+    ``LynchWorkspace`` (one lane, all its rows) or a ``LynchLanesWorkspace``
+    (its lanes), each lane from its row of ``starts`` (S, 2 N + 1: x0 (N),
+    step (N), and for N = 1 the epsilon its pi fit holds) with the eleven
+    scalars of its base composition (``nts`` (S, 4)), tolerance ``tol`` and
+    ``max_iterations``.
+
+    On a CUDA device the workspace uploads the lanes' table, starts and
+    fixed scalars once, allocates the lanes' state, histories and results,
+    and builds and instantiates the fit's graph (csrc/lynch.cu
+    ``sid_lynch_fit_graph_create``) on ``work``'s device; ``run`` launches
+    it on ``work``'s stream, copies the lanes' results and the round count
+    into pinned memory and syncs once. The rows' flags land in
+    ``work.flags`` as B2's do (a handed-over lane's: those of its flagged
+    evaluation). On the CPU ``run`` is the plain version,
+    ``lynch_fit_lanes_ref``. A fit on the card uses numpy's dot rounding
+    (``exact.nmsimplex.dot_mode``), so its points are the host loop's.
+    """
+
+    def __init__(self, work, starts, nts, tol: float = nmsimplex.TOL,
+                 max_iterations: int = nmsimplex.MAX_ITERATIONS):
+        self.work = work
+        self.starts = np.ascontiguousarray(starts, np.float64)
+        if self.starts.ndim != 2 or self.starts.shape[1] not in (3, 5):
+            raise ValueError("starts must be (S, 2 N + 1) for N = 1 or 2")
+        self.dims = dims = (self.starts.shape[1] - 1) // 2
+        self.lanes = s = self.starts.shape[0]
+        self.offsets = work.offsets if isinstance(work, LynchLanesWorkspace) else np.array([0, work.u], np.int64)
+        if self.offsets.shape[0] - 1 != s:
+            raise ValueError(f"{s} starts for {self.offsets.shape[0] - 1} lanes")
+        nts = np.asarray(nts, np.float64).reshape(s, 4)
+        self.scalars = np.stack([likelihoods.lynch_scalars(0.0, 0.0, nt) for nt in nts])
+        self.tol, self.max_iterations = float(tol), int(max_iterations)
+        self.entries = history_entries(dims, self.max_iterations)
+        self.device = device = work.device
+        self._graph = None
+        self._history_ref: Optional[np.ndarray] = None
+        self.last: Optional[FitLanes] = None  # the last run's
+        if device.type == "cpu":
+            return
+        lib = self._lib = _kernel_lib()
+        if lib.sid_lynch_fit_state_bytes(dims) <= 0:
+            raise RuntimeError(f"no fit state for {dims} dimensions")
+        table = np.zeros(s, FIT_LANE)
+        table["first_row"] = self.offsets[:-1]
+        table["end_row"] = self.offsets[1:]
+        table["walk_end"] = np.cumsum(likelihoods.lane_chunks(np.diff(self.offsets)))
+        n_chunks = int(table["walk_end"][-1])
+        if work.part_sum.shape[0] < n_chunks:
+            raise ValueError("the workspace's chunk sums do not cover the lanes' walk")
+        with torch.cuda.device(device):
+            self.stream = work.stream
+            up = dict(device=device, non_blocking=False)
+            self._table = torch.from_numpy(table.view(np.uint8)).to(**up)
+            self._starts = torch.from_numpy(self.starts).to(**up)
+            self._scalars = torch.from_numpy(self.scalars).to(**up)
+            self._state = torch.zeros(s * lib.sid_lynch_fit_state_bytes(dims), dtype=torch.uint8, device=device)
+            self.history_dev = torch.zeros((s, self.entries, dims + 2), dtype=torch.float64, device=device)
+            self._ticket = torch.zeros(s, dtype=torch.int32, device=device)
+            self._results = torch.zeros((s, dims + 5), dtype=torch.float64, device=device)
+            self._counters = torch.zeros(2, dtype=torch.int64, device=device)
+            self._results_host = torch.empty((s, dims + 5), dtype=torch.float64, pin_memory=True)
+            self._counters_host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+            graph = ctypes.c_void_p()
+            err = lib.sid_lynch_fit_graph_create(
+                dims, work.records.data_ptr(), work.records.shape[1], self._table.data_ptr(), s, n_chunks,
+                self._starts.data_ptr(), self._state.data_ptr(), self._scalars.data_ptr(), self.history_dev.data_ptr(),
+                self.entries, work.flags.data_ptr(), work.part_sum.data_ptr(), work.part_cnt.data_ptr(),
+                self._ticket.data_ptr(), self._results.data_ptr(), self._counters.data_ptr(), self.tol,
+                self.max_iterations, nmsimplex.dot_mode(), ctypes.byref(graph))
+            _raise_on(lib, err, "Lynch fit graph")
+            self._graph = graph.value
+
+    def __del__(self):
+        if getattr(self, "_graph", None):
+            self._lib.sid_lynch_fit_graph_destroy(self._graph)
+            self._graph = None
+
+    def run(self) -> FitLanes:
+        """Every lane's fit from its start: on a card one graph launch, one
+        copy of the results, one stream sync; on the CPU the plain
+        version."""
+        global FIT_GRAPH_LAUNCHES, FIT_LANES_LAUNCHES, FIT_HANDOVERS
+        w = self.work
+        if self.device.type == "cpu":
+            out, self._history_ref, flags = lynch_fit_lanes_ref(
+                w.profiles, w.mult, self.offsets, self.scalars, w.lgamma_tab, self.starts, self.tol,
+                self.max_iterations)
+            w.flags = flags
+        else:
+            with torch.cuda.device(self.device):
+                err = self._lib.sid_lynch_fit_run(self._graph, self._results_host.data_ptr(),
+                                                  self._counters_host.data_ptr(), self.stream.cuda_stream)
+            _raise_on(self._lib, err, "Lynch fit")
+            out = FitLanes.from_rows(self._results_host.numpy(), self.dims, int(self._counters_host[1]))
+            FIT_GRAPH_LAUNCHES += 1
+            FIT_LANES_LAUNCHES += out.rounds
+        FIT_HANDOVERS += int((out.status == FIT_HANDOVER).sum())
+        self.last = out
+        return out
+
+    def launch(self) -> None:
+        """Enqueue the fit's graph again and return at once, with no copy
+        of results: the loop on the card alone, for timing it."""
+        global FIT_GRAPH_LAUNCHES
+        with torch.cuda.device(self.device):
+            err = self._lib.sid_lynch_fit_enqueue(self._graph, self.stream.cuda_stream)
+        _raise_on(self._lib, err, "Lynch fit")
+        FIT_GRAPH_LAUNCHES += 1
+
+    def history(self, lanes: Sequence[int]):
+        """The histories of ``lanes`` in the last ``run``, each as (points
+        (E, N), values (E,), flagged rows (E,)) of its E evaluations there;
+        copied from the card in one copy."""
+        lanes = [int(k) for k in lanes]
+        if not lanes:
+            return []
+        evaluations = self.last.evaluations[lanes]
+        top = int(evaluations.max())
+        if self.device.type == "cpu":
+            rows = self._history_ref[lanes, :top]
+        else:
+            rows = self.history_dev[torch.as_tensor(lanes, device=self.device), :top].cpu().numpy()
+        d = self.dims
+        return [(h[:e, :d].copy(), h[:e, d].copy(), h[:e, d + 1].astype(np.int64))
+                for h, e in zip(rows, (int(e) for e in evaluations))]

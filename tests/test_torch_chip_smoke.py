@@ -171,7 +171,7 @@ def test_chromosome_texts_differ_by_seed_and_pi(monkeypatch):
     ({"method": "quality"}, "device", ("quality_finalize",)),
     ({"method": "bayes"}, "auto", ()),
     ({"method": "likelihood_ratio", "estimate_prior": True}, "device",
-     ("lynch_records", "lynch_compound_nll", "lynch_marginals")),
+     ("lynch_records", "lynch_fit_lanes", "lynch_marginals")),
 ])
 def test_path_kernels_are_counters(kw, fit, want):
     assert chip_smoke.path_kernels(kw, fit) == want
@@ -318,3 +318,27 @@ def test_pipeline_phase_on_the_cpu(monkeypatch, tmp_path):
                         "local_classify_lrt": n_small, "quality_finalize_lrt": n_small}
     assert runs == [big] * 6
     assert sorted(os.listdir(tmp_path)) == ["big.pileup", "small.pileup"]
+
+
+def test_phase_17_runs_in_main():
+    """Phase 17 (the fit's loop on the card) is driven by main after phase
+    16 and before the kernels line, and its row names B3."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    at = [src.index(s) for s in ("shards_kernel_checks(", "device_loop_phase(", "kernel_rows.append(fit_row)",
+                                 'print(json.dumps({"kernels"')]
+    assert at == sorted(at)
+    assert '"replaces": "sid_tpu/ops/nmsimplex.py:287"' in inspect.getsource(chip_smoke.device_loop_phase)
+
+
+def test_ulps_and_visits():
+    a = np.array([1.0, 2.0, np.nan, -3.0])
+    b = np.array([np.nextafter(1.0, 2.0), 2.0, np.nan, np.nextafter(np.nextafter(-3.0, -4.0), -4.0)])
+    assert chip_smoke.ulps(a, b).tolist() == [1, 0, 0, 2]
+    v = chip_smoke.Visits(3)
+    f = v.lanes(lambda lanes, points: [float(k) for k in lanes])
+    assert f([0, 2], [np.zeros(2), np.ones(2)]) == [0.0, 2.0]
+    assert v.values == [[0.0], [], [2.0]] and len(v.points[2]) == 1
+    g = chip_smoke.Visits(1).one(lambda x: 5.0)
+    assert g(np.zeros(1)) == 5.0
