@@ -78,7 +78,7 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
 6. the fit's main path: engine.run on golden.pileup for bayes, LR, LR -R
    and local -R under --fit device, --fit auto and --engine exact, each
    byte-equal to its golden CSV, the device fit's diagnostic lines those of
-   the goldens' run; under --fit device one graph launch a fit (the loop on
+   the goldens' run; under --fit device one launch a fit (the loop on
    the card) and its kernel launched, no B2, nothing under auto; the
    deep-coverage repro of fault C2 byte-equal to --fit exact, each fit
    handed over at evaluation 0 (then B2 on the host's loop); every kernel
@@ -87,7 +87,7 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    auto (the device fit) and --fit exact on phase 5's rows up to 1000x;
    wall time, iterations, (pi, eps) of both within the simplex tolerance,
    and how many bayes / LR profile records differ; one evaluation and the
-   device fit's wall taken apart (set-up, the fit's graph, the loop on the
+   device fit's wall taken apart (set-up, the fit's plan, the loop on the
    card, B4); a one-lane LanesObjective against
    DeviceObjective on the same rows (bitwise the same values), the
    kernel alone and the whole call, in turns;
@@ -149,7 +149,7 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    -R -m likelihood_ratio, and on 8 of them pooled -m local and -m quality,
    every sample's CSV byte-equal to the same run on the CPU; the LR run
    through call_population_streaming (64 MB chunks) byte-equal to it; the
-   fit's kernel (one graph a fit), row record, lanes' marginals, local
+   fit's kernel (one launch a fit), row record, lanes' marginals, local
    classify and quality finalize kernels launched; five lanes' fits bitwise
    single-lane fits over DeviceObjective; the lanes' rounds, launches and
    evaluations, and the fits' wall against 100 single-lane fits in turns;
@@ -220,14 +220,14 @@ Drives sid_tpu_torch's main paths (``engine.run`` and
    7's U; there its call, device-only and plain times, torch.sum of the
    chunk sums (the fold's share), the bound and its share (with --parent,
    the parent's partials launches and fold in turns with it);
-17. the fit's loop on the card (B3: LynchFitWorkspace, one CUDA graph a
-   fit, csrc/lynch.cu lynch_fit_lanes_kernel and csrc/nmsimplex.cuh)
+17. the fit's loop on the card (B3: LynchFitWorkspace, one cooperative
+   launch a fit, csrc/lynch.cu lynch_fit_lanes_kernel and csrc/nmsimplex.cuh)
    against the host's loop on the golden fit, the two C2 repros (handed
    over at evaluation 0), phase 7's U = 991,985 and phase 12's cohort,
    pooled and independent: results and every visited point bitwise, the
    values that differ (CUDA's logs against glibc's) counted with their
-   largest ulp; one graph launch a fit and the kernel once an evaluation
-   (a round), by the wrappers' and the library's counters; the kernel
+   largest ulp; one launch of the fit's kernel a fit and none a round,
+   by the wrappers' and the library's counters; the kernel
    against its plain version lynch_fit_lanes_ref on the card; the walls
    in turns (whole fit, loop alone) and the loop's device time; the
    population path on 8 samples, two with the C2 row (C4), the counters
@@ -642,9 +642,9 @@ def issue_ms(issued: float, rows: int) -> float:
 def fit_wall_split(torch, prof, mult, nt, dev) -> dict:
     """The device fit (models.lynch.fit_lynch) taken apart, wall clock in
     ms: set-up (DeviceObjective: uploads, table, row record), the fit's
-    graph (LynchFitWorkspace: its buffers, the graph built and
-    instantiated), the loop on the card (one graph launch, the results'
-    copy, one sync), B4 with its copies."""
+    plan (LynchFitWorkspace: its buffers, the launch planned), the loop on
+    the card (one launch, the results' copy, one sync), B4 with its
+    copies."""
     from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
     from sid_tpu_torch.models.lynch import DeviceObjective
     from sid_tpu_torch.ops import lynch_objective as lo
@@ -661,7 +661,7 @@ def fit_wall_split(torch, prof, mult, nt, dev) -> dict:
     res = out.result(0)
     obj.marginals(float(res.x[1]))
     t4 = time.perf_counter()
-    return {"setup_ms": (t1 - t0) * 1e3, "graph_ms": (t2 - t1) * 1e3, "loop_ms": (t3 - t2) * 1e3,
+    return {"setup_ms": (t1 - t0) * 1e3, "plan_ms": (t2 - t1) * 1e3, "loop_ms": (t3 - t2) * 1e3,
             "evaluations": int(out.evaluations[0]), "marginals_ms": (t4 - t3) * 1e3, "wall_ms": (t4 - t0) * 1e3,
             "x": [float(v) for v in res.x]}
 
@@ -2055,14 +2055,14 @@ def lanes_kernel_phase(torch, dev, card, sass):
     after = lo.kernel_launches()
     per_call = {k: after[k] - before[k] for k in after}
     if per_call != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 1, "marginals_lanes": 0,
-                    "nll_shards": 0, "fit_lanes": 0, "fit_graphs": 0}:
+                    "nll_shards": 0, "fit_lanes": 0, "fits": 0}:
         raise AssertionError(f"one lanes' objective call: launches {per_call}")
     before = lo.kernel_launches()
     work.marginals_lanes_host(theta_sets[0])
     after = lo.kernel_launches()
     per_marg = {k: after[k] - before[k] for k in after}
     if per_marg != {"records": 0, "nll": 0, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 1,
-                    "nll_shards": 0, "fit_lanes": 0, "fit_graphs": 0}:
+                    "nll_shards": 0, "fit_lanes": 0, "fits": 0}:
         raise AssertionError(f"one lanes' marginals call: launches {per_marg}")
     log(f"# one call is one launch (the kernel library's counters): objective {per_call}, marginals {per_marg}")
 
@@ -2351,7 +2351,7 @@ def population_phase(torch, dev, card, workdir):
         (f"pooled -m quality ({POP_SUBSET} samples)", subset, {"method": "quality"}, "pooled", 1),
     ]
     lo.RECORD_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
-    lo.FIT_LANES_LAUNCHES = lo.FIT_GRAPH_LAUNCHES = 0
+    lo.FIT_LANES_LAUNCHES = lo.FIT_LAUNCHES = lo.FIT_ROUNDS = 0
     local_classify.LAUNCHES = 0
     qf.LAUNCHES = 0
     card_runs = {}
@@ -2366,11 +2366,11 @@ def population_phase(torch, dev, card, workdir):
     t0 = time.perf_counter()
     counts = call_population_streaming(paths, stream_opts, "pooled", chunk_bytes=POP_CHUNK)
     stream_wall = time.perf_counter() - t0
-    launches = {"records": lo.RECORD_LAUNCHES, "fit_lanes": lo.FIT_LANES_LAUNCHES, "fit_graphs": lo.FIT_GRAPH_LAUNCHES,
-                "marginals_lanes": lo.MARGINALS_LANES_LAUNCHES, "local": local_classify.LAUNCHES,
-                "quality": qf.LAUNCHES}
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the population path was not launched: {launches}")
+    launches = {"records": lo.RECORD_LAUNCHES, "fit_lanes": lo.FIT_LANES_LAUNCHES, "fits": lo.FIT_LAUNCHES,
+                "fit_rounds": lo.FIT_ROUNDS, "marginals_lanes": lo.MARGINALS_LANES_LAUNCHES,
+                "local": local_classify.LAUNCHES, "quality": qf.LAUNCHES}
+    if not all(launches.values()) or launches["fit_lanes"] != launches["fits"]:
+        raise AssertionError(f"a kernel of the population path was not launched, or a fit not once: {launches}")
     # these samples flag no rows: no lane goes on in the host's lockstep
     launches["nll_lanes"] = lo.NLL_LANES_LAUNCHES
     log("# kernel launches on the population path: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
@@ -2433,7 +2433,7 @@ def population_phase(torch, dev, card, workdir):
                 minimize_nmsimplex2(lynch.DeviceObjective(p_k, m_k, nt, dev), pop.START, pop.STEP)
         walls[turn].append(time.perf_counter() - t0)
     log(f"# independent fits of {POP_SAMPLES} samples (U {min(u)}..{max(u)}): {stats[0]} rounds, {stats[1]} "
-        f"launches of the fit's kernel (one graph), {stats[2]} lane evaluations, at most {stats[3]} iterations, {stats[4]} converged; "
+        f"launch of the fit's kernel, {stats[2]} lane evaluations, at most {stats[3]} iterations, {stats[4]} converged; "
         f"wall in turns: " + ", ".join(f"{k} {', '.join(f'{w * 1e3:.1f}' for w in v)} ms" for k, v in walls.items())
         + f"; on {card}")
     return launches, (mesh_launches, mesh_wall)
@@ -2529,27 +2529,474 @@ def compare_histories(label, fw, out, visits, tally) -> None:
         tally["points"] += n
 
 
-def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_texts) -> tuple:
-    """Phase 17: the fit's loop on the card (LynchFitWorkspace, one graph
-    launch a fit) against the host's loop (exact/nmsimplex.py over
-    DeviceObjective / LanesObjective, one B2 or lanes launch a round), on
-    phase 7's U = 991,985, the golden fit, the two C2 repros and phase 12's
-    cohort, pooled and independent: results and every visited point
+# The round of a fit taken apart: %globaltimer stamps into a __device__
+# table of four a round (the row phase's start, the last chunk sum or
+# term stored, the lane's fold done, its step done; over lanes and blocks
+# the earliest start and the latest of the others), by text substitutions
+# on a csrc/lynch.cu, which then exports sid_stamps_reset / sid_stamps_read.
+# A round past the table's end stamps its last entry.
+STAMP_ROUNDS = 4096
+_STAMP_DECLS = """__device__ unsigned int g_round;
+__device__ unsigned long long g_stamps[4096][4];
+__device__ __forceinline__ unsigned long long stamp_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+"""
+_STAMP_EXPORTS = """extern "C" int sid_stamps_reset() {
+  static unsigned long long init[4096][4];
+  for (int r = 0; r < 4096; ++r) {
+    init[r][0] = ~0ull;
+    init[r][1] = init[r][2] = init[r][3] = 0;
+  }
+  return static_cast<int>(cudaMemcpyToSymbol(g_stamps, init, sizeof(init)));
+}
+extern "C" int sid_stamps_read(void* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps)));
+}
+"""
+_CONSTANT_BANK = "__constant__ sid::LaneSlot c_slots[kLanesPerLaunch];\n"
+_ERROR_STRING = "const char* sid_lynch_error_string(int err) {"
+# the parent's design (a start kernel, then a conditional WHILE over one
+# launch of lynch_fit_lanes_kernel and one of lynch_fit_continue_kernel a
+# round): the round is the continue kernel's count, read at the kernel's start
+PARENT_STAMPS = [
+    ("lynch.cu", _CONSTANT_BANK, _CONSTANT_BANK + _STAMP_DECLS),
+    ("lynch.cu", "  const int64_t total = lanes[n_lanes - 1].walk_end;\n",
+     "  const int64_t total = lanes[n_lanes - 1].walk_end;\n"
+     "  const unsigned int st_r = min(*reinterpret_cast<volatile unsigned int*>(&g_round), 4095u);\n"
+     "  if (threadIdx.x == 0) atomicMin(&g_stamps[st_r][0], stamp_now());\n"),
+    ("lynch.cu", "      if (mode == sid::kFitRows) {\n        part_sum[j] = v;\n        part_cnt[j] = cnt;\n      }\n",
+     "      if (mode == sid::kFitRows) {\n        part_sum[j] = v;\n        part_cnt[j] = cnt;\n      }\n"
+     "      atomicMax(&g_stamps[st_r][1], stamp_now());\n"),
+    ("lynch.cu", "    if (t == 0) {\n      ticket[k] = 0;  // ready for the next launch\n",
+     "    if (t == 0) {\n      atomicMax(&g_stamps[st_r][2], stamp_now());\n"
+     "      ticket[k] = 0;  // ready for the next launch\n"),
+    ("lynch.cu", "        atomicSub(running, 1);\n      }\n",
+     "        atomicSub(running, 1);\n      }\n      atomicMax(&g_stamps[st_r][3], stamp_now());\n"),
+    ("lynch.cu", "  *rounds = *rounds + 1;\n", "  *rounds = *rounds + 1;\n  g_round = static_cast<unsigned int>(*rounds);\n"),
+    ("lynch.cu", "    *rounds = 0;\n", "    *rounds = 0;\n    g_round = 0;\n"),
+    ("lynch.cu", _ERROR_STRING, _STAMP_EXPORTS + _ERROR_STRING),
+]
+
+
+def stamp_split(stamps: np.ndarray, rounds: int) -> dict:
+    """A fit's rounds from its stamp table (STAMP_ROUNDS x 4 ns): per round
+    the row phase (start to the last store), the fold (to the lane's fold
+    done), the step (to its step done) and the gap to the next round's
+    start; medians and totals in ms."""
+    s = stamps[:rounds].astype(np.int64)
+    row, fold, step = s[:, 1] - s[:, 0], s[:, 2] - s[:, 1], s[:, 3] - s[:, 2]
+    gap = s[1:, 0] - s[:-1, 3]
+    whole = s[-1, 3] - s[0, 0]
+    out = {"rounds": rounds, "whole_ms": whole / 1e6}
+    for name, v in (("row", row), ("fold", fold), ("step", step), ("gap", gap)):
+        out[f"{name}_ms"] = float(np.median(v)) / 1e6 if v.size else 0.0
+        out[f"{name}_total_ms"] = float(v.sum()) / 1e6
+    return out
+
+
+def split_line(split: dict) -> str:
+    return (f"{split['rounds']} rounds, {split['whole_ms']:.3f} ms first stamp to last; a round (medians, ms): "
+            f"row phase {split['row_ms']:.4f}, fold {split['fold_ms']:.4f}, step {split['step_ms']:.4f}, gap to the "
+            f"next round {split['gap_ms']:.4f} (totals {split['row_total_ms']:.3f}, {split['fold_total_ms']:.3f}, "
+            f"{split['step_total_ms']:.3f}, {split['gap_total_ms']:.3f})")
+
+
+def stamps_of(lib, torch, run) -> np.ndarray:
+    """The stamp table of one ``run()`` on a stamped library."""
+    import ctypes
+
+    torch.cuda.synchronize()
+    if lib.sid_stamps_reset():
+        raise AssertionError("the stamp table could not be reset")
+    run()
+    torch.cuda.synchronize()
+    host = np.zeros((STAMP_ROUNDS, 4), np.uint64)
+    if lib.sid_stamps_read(ctypes.c_void_p(host.ctypes.data)):
+        raise AssertionError("the stamp table could not be read")
+    return host
+
+
+# one lane of the parent's fit table (the graph design's csrc/lynch.cuh FitLane): its
+# rows and the end of its chunks in the walk
+PARENT_FIT_LANE = np.dtype([("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8")])
+
+
+def parent_fit_library(path: str):
+    """A build of the parent's csrc/lynch.cu (the graph design's fit interface) with
+    its fit functions typed."""
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for name, args in (("sid_lynch_fit_state_bytes", [i32]),
+                       ("sid_lynch_fit_graph_create", [i32, p, i64, p, i32, i64, p, p, p, p, i64, p, p, p, p, p, p,
+                                                       ctypes.c_double, i32, i32, p]),
+                       ("sid_lynch_fit_run", [p, p, p, p]), ("sid_lynch_fit_enqueue", [p, p])):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = args
+    lib.sid_lynch_fit_graph_destroy.restype = None
+    lib.sid_lynch_fit_graph_destroy.argtypes = [p]
+    for name in ("sid_stamps_reset", "sid_stamps_read"):
+        if hasattr(lib, name):
+            getattr(lib, name).restype = i32
+    if hasattr(lib, "sid_stamps_read"):
+        lib.sid_stamps_read.argtypes = [p]
+    return lib
+
+
+class ParentFit:
+    """Fits through the parent's fit interface (the graph design: a CUDA graph of a
+    start kernel and a conditional WHILE over one launch of
+    lynch_fit_lanes_kernel a round; sid_lynch_fit_graph_create, _run,
+    _enqueue, _destroy) on a workspace of this tree (its row record, flags
+    and chunk sums), each lane from its row of ``starts`` with the fixed
+    scalars of ``nts``, as LynchFitWorkspace takes them."""
+
+    def __init__(self, lib, work, starts, nts, tol=1e-5, max_iterations=1000):
+        import ctypes
+
+        import torch
+
+        from sid_tpu_torch.exact import nmsimplex
+        from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
+
+        self.lib = lib
+        self.starts = np.ascontiguousarray(starts, np.float64)
+        s = self.lanes = self.starts.shape[0]
+        self.dims = dims = (self.starts.shape[1] - 1) // 2
+        off = work.offsets if isinstance(work, lo.LynchLanesWorkspace) else np.array([0, work.u], np.int64)
+        table = np.zeros(s, PARENT_FIT_LANE)
+        table["first_row"], table["end_row"] = off[:-1], off[1:]
+        table["walk_end"] = np.cumsum(likelihoods.lane_chunks(np.diff(off)))
+        scalars = np.stack([likelihoods.lynch_scalars(0.0, 0.0, nt) for nt in np.asarray(nts).reshape(s, 4)])
+        self.work, self.stream = work, work.stream
+        dev = work.device
+        self.entries = lo.history_entries(dims, max_iterations)
+        with torch.cuda.device(dev):
+            up = dict(device=dev, non_blocking=False)
+            self._table = torch.from_numpy(table.view(np.uint8)).to(**up)
+            self._starts = torch.from_numpy(self.starts).to(**up)
+            self._scalars = torch.from_numpy(scalars).to(**up)
+            self._state = torch.zeros(s * lib.sid_lynch_fit_state_bytes(dims), dtype=torch.uint8, device=dev)
+            self.history_dev = torch.zeros((s, self.entries, dims + 2), dtype=torch.float64, device=dev)
+            self._ticket = torch.zeros(s, dtype=torch.int32, device=dev)
+            self._results = torch.zeros((s, dims + 5), dtype=torch.float64, device=dev)
+            self._counters = torch.zeros(2, dtype=torch.int64, device=dev)
+            self.results_host = torch.empty((s, dims + 5), dtype=torch.float64, pin_memory=True)
+            self.counters_host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+            graph = ctypes.c_void_p()
+            err = lib.sid_lynch_fit_graph_create(
+                dims, work.records.data_ptr(), work.records.shape[1], self._table.data_ptr(), s,
+                int(table["walk_end"][-1]), self._starts.data_ptr(), self._state.data_ptr(),
+                self._scalars.data_ptr(), self.history_dev.data_ptr(), self.entries, work.flags.data_ptr(),
+                work.part_sum.data_ptr(), work.part_cnt.data_ptr(), self._ticket.data_ptr(),
+                self._results.data_ptr(), self._counters.data_ptr(), tol, max_iterations, nmsimplex.dot_mode(),
+                ctypes.byref(graph))
+            if err:
+                raise AssertionError(f"the parent's fit graph: error {err}")
+            self._graph = graph.value
+
+    def __del__(self):
+        if getattr(self, "_graph", None):
+            self.lib.sid_lynch_fit_graph_destroy(self._graph)
+            self._graph = None
+
+    def run(self):
+        """One fit: (results (S, N + 5) as csrc/lynch.cuh fit_result
+        writes them, rounds)."""
+        import torch
+
+        with torch.cuda.device(self.work.device):
+            err = self.lib.sid_lynch_fit_run(self._graph, self.results_host.data_ptr(),
+                                             self.counters_host.data_ptr(), self.stream.cuda_stream)
+        if err:
+            raise AssertionError(f"the parent's fit: error {err}")
+        return self.results_host.numpy().copy(), int(self.counters_host[1])
+
+    def launch(self) -> None:
+        import torch
+
+        with torch.cuda.device(self.work.device):
+            if self.lib.sid_lynch_fit_enqueue(self._graph, self.stream.cuda_stream):
+                raise AssertionError("the parent's fit could not be enqueued")
+
+    def history(self) -> np.ndarray:
+        return self.history_dev.cpu().numpy()
+
+
+def fit_shapes(torch, dev, h_prof, h_mult) -> dict:
+    """Phase 17's two fit shapes: phase 7's rows (one 2-D lane) and phase
+    12's cohort (independent 2-D lanes), each as (workspace, starts, nts)."""
+    from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
+    from sid_tpu_torch.models import lynch, population as pop
+    from sid_tpu_torch.ops.profiles import nucleotide_distribution
+
+    h_nt = nucleotide_distribution(h_prof, h_mult)
+    hists = population_cohort()
+    nts = np.stack([nucleotide_distribution(p, m) for p, m in hists])
+    return {f"U={h_prof.shape[0]}": (lynch.DeviceObjective(h_prof, h_mult, h_nt, dev).work,
+                                     [[*DEFAULT_START, *DEFAULT_STEP, 0.0]], h_nt[None]),
+            "phase 12's cohort": (lynch.LanesObjective(hists, nts, dev).work,
+                                  [[*pop.START, *pop.STEP, 0.0]] * len(hists), nts)}
+
+
+def fit_outputs(torch, fit, run) -> list:
+    """A fit's results rows, its histories and the rows' flags after
+    ``run()``, as bytes."""
+    rows = run()
+    hist = fit.history_dev.cpu().numpy()
+    return [np.asarray(rows, np.float64).tobytes(), hist.tobytes(), fit.work.flags.cpu().numpy().tobytes()]
+
+
+def parent_fit_phase(torch, dev, card, parent: str, h_prof, h_mult) -> dict:
+    """Phase 17 with --parent: the parent's fit (its csrc/lynch.cu, the graph design's
+    interface, ParentFit) built with this tree's nvcc flags, and a
+    build of it with PARENT_STAMPS; at phase 7's rows and phase 12's
+    cohort its results, histories and flags bitwise this tree's
+    LynchFitWorkspace, the two timed in turns (device only: the fit
+    enqueued behind a held stream; call: launch, copies, sync, host
+    clock), and the parent's rounds taken apart by its stamps. Returns
+    {shape: times and split}."""
+    from sid_tpu_torch.native import build
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    csrc = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc")
+    built = build_variants(build, "lynch.cu", {"parent": [], "parent, stamped": PARENT_STAMPS}, "parent_fit", csrc)
+    for name, (path, report) in built.items():
+        for fn, r in report.items():
+            if "fit" in fn:
+                log(f"# phase 17 --parent: ptxas {name}: {fn}: {r['registers']} registers, {r['spill_stores']} bytes "
+                    f"spill stores, {r['spill_loads']} bytes spill loads")
+    plib = parent_fit_library(built["parent"][0])
+    slib = parent_fit_library(built["parent, stamped"][0])
+    out = {}
+    for shape, (work, starts, nts) in fit_shapes(torch, dev, h_prof, h_mult).items():
+        mine = lo.LynchFitWorkspace(work, starts, nts)
+        theirs = ParentFit(plib, work, starts, nts)
+        stamped = ParentFit(slib, work, starts, nts)
+
+        def mine_rows():
+            mine.run()
+            return mine._results_host.numpy().copy()
+
+        want = fit_outputs(torch, mine, mine_rows)
+        for label, fit in (("the parent's", theirs), ("the parent's stamped", stamped)):
+            got = fit_outputs(torch, fit, lambda: fit.run()[0])
+            if got != want:
+                bad = [k for k, (a, b) in enumerate(zip(got, want)) if a != b]
+                raise AssertionError(f"{shape}: {label} fit differs from this tree's in {bad} (results, histories, "
+                                     "flags)")
+        rounds = int(mine.last.rounds)
+        split = stamp_split(stamps_of(slib, torch, stamped.run), rounds)
+        dev_t, call_t = {}, {}
+        ways = {"this tree": mine, "the parent": theirs}
+        for name in ("the parent", "this tree", "this tree", "the parent") * 2:
+            fit = ways[name]
+            dev_t.setdefault(name, []).append(device_only_ms(torch, fit.launch, [()], k=5, reps=3))
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fit.run()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            call_t.setdefault(name, []).append(statistics.median(walls))
+        out[shape] = {"rounds": rounds, "split": split,
+                      **{f"{k}_device_ms": statistics.median(v) for k, v in dev_t.items()},
+                      **{f"{k}_call_ms": statistics.median(v) for k, v in call_t.items()}}
+        log(f"# phase 17 --parent, {shape}: the parent's fit bitwise this tree's (results, histories, flags); in "
+            "turns, device only (ms) " + readings(dev_t) + "; call (launch, copies, sync; host clock, medians of 5, "
+            "ms) " + readings(call_t) + f"; the parent's round by its stamps: {split_line(split)}; on {card}")
+        del mine, theirs, stamped
+    # the kernels that share the fit's row arithmetic: the parent's SASS and
+    # this tree's, instruction for instruction, and B2 in turns
+    mine_sass = sass_kernels(build.kernel_paths("lynch")[0])
+    theirs_sass = {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", fn): v for fn, v in sass_kernels(built["parent"][0]).items()}
+    same = {}
+    for fn, instrs in mine_sass.items():
+        name = next((k for k in SHARED_ROW_KERNELS if k in fn), None)
+        if name:
+            other = theirs_sass.get(re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", fn))
+            same[name] = other is not None and [i[1:] for i in other] == [i[1:] for i in instrs]
+    work = next(iter(fit_shapes(torch, dev, h_prof, h_mult).values()))[0]
+    import ctypes
+
+    p = ctypes.c_void_p
+    plib.sid_lynch_nll_launch.restype = ctypes.c_int
+    plib.sid_lynch_nll_launch.argtypes = [p, p, ctypes.c_int64, p, p, p, p, p, ctypes.c_int, p, p]
+    from sid_tpu_torch.ops import likelihoods
+
+    s = likelihoods.lynch_scalars(0.05, 0.01, np.full(4, 0.25))
+    work.nll(s)
+    mine_out = work.out.cpu().numpy().copy()
+
+    def parent_b2():
+        work._scalars[:] = s
+        if plib.sid_lynch_nll_launch(*work._nll_args, work.grids[1], None, work.stream.cuda_stream):
+            raise AssertionError("the parent's B2 failed")
+
+    parent_b2()
+    if not bits_equal(work.out.cpu().numpy(), mine_out):
+        raise AssertionError("the parent's B2 differs from this tree's")
+    b2 = {}
+    for name in ("the parent", "this tree", "this tree", "the parent") * 2:
+        b2.setdefault(name, []).append(device_only_ms(torch, parent_b2 if name == "the parent" else
+                                                      (lambda: work.launch_nll(s)), [()]))
+    out["b2_device_ms"] = {k: statistics.median(v) for k, v in b2.items()}
+    out["same_sass"] = same
+    log(f"# phase 17 --parent: the kernels that share the fit's row arithmetic, SASS instruction for instruction "
+        f"the parent's: {same}; B2 bitwise the parent's, in turns (device only) {readings(b2)}; on {card}")
+    if not all(same.values()):
+        log("# phase 17 --parent: a shared kernel's code differs from the parent's (see the times in turns)")
+    return out
+
+
+# the kernels that share the fit's row arithmetic (csrc/lynch.cuh)
+SHARED_ROW_KERNELS = ("lynch_nll_kernel", "lynch_nll_lanes_kernel", "lynch_nll_shards_kernel", "lynch_marginals_kernel",
+                      "lynch_marginals_lanes_kernel", "lynch_records_kernel")
+
+
+# the committed design's round taken apart: stamps at lane 0's pieces,
+# indexed by the block's round (its first piece's start after the wait,
+# the last chunk sum stored, the lane's fold done, its step published)
+_FIT_STAMP = "if (k == 0) atomicMax(&g_stamps[min(b.round, 4095u)][{}], stamp_now());\n"
+_ROW_WORK = "    if (mode == sid::kFitIdle) continue;  // the lane stopped\n"
+_LANE_ELECTION = "      __threadfence();\n      const int64_t n_lane_chunks = b.tab.walk_end - b.tab_chunk_start;\n"
+_STEP = "    if (t == 0) {\n      const int64_t kk = k;\n"
+_PUBLISHED = "                                                     : ((b.round + 2u) << 2) | static_cast<unsigned int>(next)));\n"
+FIT_STAMPS = [
+    ("lynch.cu", _CONSTANT_BANK, _CONSTANT_BANK + _STAMP_DECLS),
+    ("lynch.cu", _ROW_WORK, _ROW_WORK + "    if (t == 0 && b.lane == 0) atomicMin(&g_stamps[min(b.round, 4095u)][0], "
+     "stamp_now());\n"),
+    ("lynch.cu", _LANE_ELECTION, "      " + _FIT_STAMP.format(1) + _LANE_ELECTION),
+    ("lynch.cu", _STEP, _STEP + "      " + _FIT_STAMP.format(2)),
+    ("lynch.cu", _PUBLISHED, _PUBLISHED + "      " + _FIT_STAMP.format(3)),
+    ("lynch.cu", _ERROR_STRING, _STAMP_EXPORTS + _ERROR_STRING),
+]
+
+
+def stamped_fit_library(build):
+    """This tree's csrc/lynch.cu with FIT_STAMPS, built with the port's
+    nvcc flags: (a library with its fit functions typed, ptxas report)."""
+    import ctypes
+
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    path, report = build_variants(build, "lynch.cu", {"stamped": FIT_STAMPS}, "fit_stamped")["stamped"]
+    lib = lo.load_kernel_library(path)
+    lib.sid_stamps_reset.restype = ctypes.c_int
+    lib.sid_stamps_read.restype = ctypes.c_int
+    lib.sid_stamps_read.argtypes = [ctypes.c_void_p]
+    return lib, report
+
+
+def fit_registers(report: dict) -> dict:
+    """ptxas's registers and spill bytes of the fit kernel, by dimension."""
+    out = {}
+    for fn, r in report.items():
+        if "lynch_fit_lanes_kernel" in fn:
+            out["1-D" if "ILi1E" in fn else "2-D"] = (r["registers"], r["spill_stores"] + r["spill_loads"])
+    return out
+
+
+def setup_split(torch, prof, mult, nt, dev) -> dict:
+    """The device fit's set-up taken apart (host clock, ms, each step
+    synced), as DeviceObjective and LynchFitWorkspace make it: the host's
+    arrays and largest coverage, the profiles' upload, the lgamma table,
+    the workspace (LynchWorkspace: grids, buffers, pinned fetch buffer, row
+    record) and within it the record kernel alone (written again), its
+    buffers' and pinned buffer's allocations alone, and the fit's plan
+    (LynchFitWorkspace: uploads, buffers, pinned buffers, the launch's
+    plan) and within it the plan's C call alone."""
+    import ctypes
+
+    from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
+    from sid_tpu_torch.ops import lynch_objective as lo
+    from sid_tpu_torch.ops.lgamma import lgamma_table
+    from sid_tpu_torch.ops.profiles import coverage_of
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (p, m, max_cov), host_ms = timed(lambda: (np.ascontiguousarray(prof, np.int32), np.ascontiguousarray(mult, np.int64),
+                                              int(coverage_of(prof).max())))
+    (p_dev, m_dev), upload_ms = timed(lambda: (torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)))
+    tab, table_ms = timed(lambda: lgamma_table(max_cov, dev))
+    work, work_ms = timed(lambda: lo.LynchWorkspace(p_dev, m_dev, tab))
+    _, record_ms = timed(work.write_records)
+    u = p.shape[0]
+    chunks = max(-(-u // 1024), 1)
+
+    def buffers():
+        return [torch.empty((3, u), dtype=torch.float64, device=dev), torch.empty(u, dtype=torch.uint8, device=dev),
+                torch.empty(chunks, dtype=torch.float64, device=dev), torch.empty(chunks, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), torch.empty(2, dtype=torch.float64, device=dev)]
+
+    _, buffers_ms = timed(buffers)
+    _, pinned_ms = timed(lambda: torch.empty(2, dtype=torch.float64, pin_memory=True))
+    grids = (ctypes.c_int * 3)()
+    _, grids_ms = timed(lambda: lo._kernel_lib().sid_lynch_grids(u, grids))
+    fw, plan_ms = timed(lambda: lo.LynchFitWorkspace(work, [[*DEFAULT_START, *DEFAULT_STEP, 0.0]], nt[None]))
+    lib = lo._kernel_lib()
+    table = lo.fit_lane_table(fw.offsets, lib.sid_lynch_fit_unit_rows())
+    handle = ctypes.c_void_p()
+
+    def plan_call():
+        err = lib.sid_lynch_fit_create(
+            fw.dims, work.records.data_ptr(), u, fw._table.data_ptr(), 1, fw._starts.data_ptr(), fw._state.data_ptr(),
+            fw._scalars.data_ptr(), fw.history_dev.data_ptr(), fw.entries, work.flags.data_ptr(),
+            fw._terms.data_ptr(), work.part_sum.data_ptr(), work.part_cnt.data_ptr(), fw._chunk_ticket.data_ptr(),
+            fw._lane_ticket.data_ptr(), fw._gen.data_ptr(), fw._results.data_ptr(), fw._counters.data_ptr(),
+            int(table["unit_end"][-1]), int(table["walk_end"][-1]), fw.tol, fw.max_iterations, 0, lo.FIT_WAIT_NS,
+            ctypes.byref(handle))
+        if err:
+            raise AssertionError(f"the fit's plan: error {err}")
+
+    _, call_ms = timed(plan_call)
+    lib.sid_lynch_fit_destroy(handle)
+    return {"host_ms": host_ms, "upload_ms": upload_ms, "table_ms": table_ms, "workspace_ms": work_ms,
+            "record_ms": record_ms, "buffers_ms": buffers_ms, "pinned_ms": pinned_ms, "grids_ms": grids_ms,
+            "plan_ms": plan_ms, "plan_call_ms": call_ms}
+
+
+def setup_line(sp: dict) -> str:
+    return (f"host arrays and largest coverage {sp['host_ms']:.3f} + profiles' upload {sp['upload_ms']:.3f} + lgamma "
+            f"table {sp['table_ms']:.3f} + LynchWorkspace {sp['workspace_ms']:.3f} (of it, alone: the row record "
+            f"kernel {sp['record_ms']:.3f}, its six buffers {sp['buffers_ms']:.3f}, the pinned fetch buffer "
+            f"{sp['pinned_ms']:.3f}, the grids' occupancy query {sp['grids_ms']:.3f}) + LynchFitWorkspace "
+            f"{sp['plan_ms']:.3f} (of it, alone: the plan's C call {sp['plan_call_ms']:.3f}) ms")
+
+
+def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_texts, parent=None) -> tuple:
+    """Phase 17: the fit's loop on the card (LynchFitWorkspace, one launch
+    of the fit's kernel a fit) against the host's loop (exact/nmsimplex.py
+    over DeviceObjective / LanesObjective, one B2 or lanes launch a round),
+    on phase 7's U = 991,985, the golden fit, the two C2 repros and phase
+    12's cohort, pooled and independent: results and every visited point
     bitwise, the values that differ (CUDA's logs against glibc's) counted
-    with their largest ulp; one graph launch a fit and the kernel once an
-    evaluation (a round, for lanes), by the wrappers' and the library's
+    with their largest ulp; one launch of the fit's kernel a fit, its
+    rounds the lanes' most evaluations, by the wrappers' and the library's
     counters; the C2 fits handed over at evaluation 0; the fit's kernel
-    against its plain version (lynch_fit_lanes_ref) on the card; the walls
-    in turns (the whole fit, and the loop alone) and the loop's device
-    time. Then the population path on a C4 cohort (LOOP_C4_SAMPLES samples,
-    two with the C2 row), the counters from 0: lanes handed to the host's
-    lockstep, every sample's CSV byte-equal to the CPU's. Returns (the
-    fit's row of the kernels line, the C4 run's launches)."""
+    against its plain version (lynch_fit_lanes_ref) on the card; a launch
+    whose waits time out (wait_ns 0) raises, and the next fit is bitwise;
+    the walls in turns (whole fit, loop alone) and the loop's device time;
+    the fit's set-up taken apart; the round taken apart by the stamps of
+    FIT_STAMPS; with ``parent`` (a tree), parent_fit_phase. Then the
+    population path on a C4 cohort (LOOP_C4_SAMPLES samples, two with the
+    C2 row), the counters from 0: lanes handed to the host's lockstep,
+    every sample's CSV byte-equal to the CPU's. Returns (the fit's row of
+    the kernels line, the C4 run's launches)."""
     from sid_tpu_torch.config import Options
     from sid_tpu_torch.exact import nmsimplex
     from sid_tpu_torch.exact.lynch_ld import DEFAULT_START, DEFAULT_STEP
     from sid_tpu_torch.io.pileup import parse_pileup
     from sid_tpu_torch.models import lynch, population as pop
+    from sid_tpu_torch.native import build
     from sid_tpu_torch.ops import likelihoods, lynch_objective as lo
     from sid_tpu_torch.ops.profiles import filter_min_coverage, nucleotide_distribution, unique_profiles
 
@@ -2557,6 +3004,21 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
     tally = dict.fromkeys(("values", "differing", "max_ulp", "points"), 0)
     tally["max_abs"] = 0.0
     start_row = [*DEFAULT_START, *DEFAULT_STEP, 0.0]
+    with open(build.kernel_paths("lynch")[1]) as f:
+        registers = fit_registers(ptxas_report(f.read()))
+    if any(spill for _, spill in registers.values()):
+        raise AssertionError(f"the fit's kernel spills: {registers}")
+    log(f"# phase 17: ptxas, lynch_fit_lanes_kernel: " + ", ".join(
+        f"{d} {r} registers, {s} bytes spilled" for d, (r, s) in registers.items())
+        + f"; {lo.blocks_per_sm(dev)['fit_lanes']} blocks an SM (occupancy API)")
+
+    def counters():
+        return (lo.kernel_launches(), lo.FIT_LAUNCHES, lo.FIT_LANES_LAUNCHES, lo.FIT_ROUNDS, lo.FIT_HANDOVERS)
+
+    def grown(before):
+        now = counters()
+        lib = {k: v - before[0][k] for k, v in now[0].items()}
+        return lib, [a - b for a, b in zip(now[1:], before[1:])]
 
     def histogram(src):
         prof, mult, _ = unique_profiles(parse_pileup(src).counts)
@@ -2571,25 +3033,24 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
         host = nmsimplex.minimize_nmsimplex2(visits.one(lynch.DeviceObjective(prof, mult, nt, dev)),
                                              DEFAULT_START, DEFAULT_STEP)
         obj = lynch.DeviceObjective(prof, mult, nt, dev)
-        before = (lo.kernel_launches(), lo.FIT_GRAPH_LAUNCHES, lo.FIT_LANES_LAUNCHES, lo.FIT_HANDOVERS)
+        before = counters()
         got = obj.minimize(DEFAULT_START, DEFAULT_STEP)
-        lib = {k: v - before[0][k] for k, v in lo.kernel_launches().items()}
-        graphs, kernel = lo.FIT_GRAPH_LAUNCHES - before[1], lo.FIT_LANES_LAUNCHES - before[2]
+        lib, (fits, kernel, rounds, handovers) = grown(before)
         out = obj.fit
         if not (bits_equal(got.x, host.x) and (got.iterations, got.converged) == (host.iterations, host.converged)):
             raise AssertionError(f"{label}: the loop on the card gives {got}, the host's {host}")
         evals = int(out.evaluations[0])
-        if graphs != 1 or lib["fit_graphs"] != 1 or not (kernel == lib["fit_lanes"] == out.rounds == evals):
-            raise AssertionError(f"{label}: {graphs} graph launches ({lib['fit_graphs']} by the library), "
-                                 f"{kernel} kernel launches ({lib['fit_lanes']}) for {evals} evaluations")
-        if (out.status[0] == lo.FIT_HANDOVER) != handed or (handed and (evals != 1 or lo.FIT_HANDOVERS - before[3] != 1)):
+        if (fits, kernel, lib["fits"], lib["fit_lanes"]) != (1, 1, 1, 1) or not rounds == out.rounds == evals:
+            raise AssertionError(f"{label}: {fits} fits, {kernel} kernel launches (the library: {lib['fits']}, "
+                                 f"{lib['fit_lanes']}), {rounds} rounds for {evals} evaluations")
+        if (out.status[0] == lo.FIT_HANDOVER) != handed or (handed and (evals != 1 or handovers != 1)):
             raise AssertionError(f"{label}: status {out.status[0]}, {evals} evaluations on the card")
         fw = lo.LynchFitWorkspace(obj.work, [start_row], nt[None])
         compare_histories(label, fw, fw.run(), visits, tally)
         log(f"# phase 17: {label}, U={prof.shape[0]}: (pi, eps) = ({got.x[0]!r}, {got.x[1]!r}), {got.iterations} "
             f"iterations, bitwise the host's loop, every point too; "
             + (f"handed over at evaluation 0, then {lib['nll']} B2 launches on the host"
-               if handed else f"{evals} evaluations: 1 graph launch, {kernel} launches of the fit's kernel")
+               if handed else f"{evals} evaluations: 1 launch of the fit's kernel, {rounds} rounds")
             + f"; on {card}")
         return obj, host
 
@@ -2606,6 +3067,7 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
     out = fw.run()
     evals = int(out.evaluations[0])
     ((dev_p, dev_v, _),) = fw.history([0])
+    want_bytes = fit_outputs(torch, fw, lambda: fw._results_host.numpy().copy())
     scal = np.stack([likelihoods.lynch_scalars(0.0, 0.0, h_nt)])
     t0 = time.perf_counter()
     plain, plain_hist, plain_flags = lo.lynch_fit_lanes_ref(work.profiles, work.mult, fw.offsets, scal, work.lgamma_tab,
@@ -2620,6 +3082,18 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
         raise AssertionError("the fit's kernel's flags differ from its plain version's")
     max_abs = float(np.abs(dev_v - pv).max())
     plain_ulp = int(ulps(dev_v, pv).max())
+    # a launch whose waits time out ends with an error, and the next fit is whole
+    short = lo.LynchFitWorkspace(work, [start_row], h_nt[None], wait_ns=0)
+    try:
+        short.run()
+    except RuntimeError as e:
+        timed_out = str(e)
+    else:
+        raise AssertionError("a fit whose waits may last 0 ns did not report a timeout")
+    if "timed out" not in timed_out or fit_outputs(torch, fw, lambda: (fw.run(), fw._results_host.numpy().copy())[1]) \
+            != want_bytes:
+        raise AssertionError(f"after a timed-out launch ({timed_out}) the fit differs")
+    log(f"# phase 17: a fit whose waits may last 0 ns raises ({timed_out!r}); the next fit is bitwise the first")
     calls = []
     for _ in range(9):
         t0 = time.perf_counter()
@@ -2630,13 +3104,13 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
     u = h_prof.shape[0]
     n_chunks = -(-u // likelihoods.CHUNK_ROWS)
     b2_bound, b2_by = bound_ms(u * (24 + 1) + n_chunks * 12 + 16, c["f64"] * u)
-    log(f"# phase 17: the fit's kernel (its graph) == its plain version (lynch_fit_lanes_ref) on the card at "
+    log(f"# phase 17: the fit's kernel == its plain version (lynch_fit_lanes_ref) on the card at "
         f"U={u}: every point, x, iterations, converged and the rows' flags bitwise; {evals} values, "
         f"{int(np.count_nonzero(ulps(dev_v, pv)))} differing, largest {plain_ulp} ulp (max abs err {max_abs!r}: "
         f"the five logs of a point, CUDA's on the card, glibc's in the plain version)")
-    log(f"# phase 17: the fit at U={u} on the card: call (graph launch, results' copy, sync) median "
+    log(f"# phase 17: the fit at U={u} on the card: call (launch, results' copy, sync) median "
         f"{statistics.median(calls):.3f} ms (min {min(calls):.3f}, of 9), device only {loop_dev:.3f} ms = "
-        f"{loop_dev / evals:.4f} ms an evaluation ({evals} evaluations, the kernel {evals} launches); plain "
+        f"{loop_dev / evals:.4f} ms an evaluation ({evals} evaluations, one launch, grid {fw.grid} blocks); plain "
         f"version {plain_ms:.1f} ms; bound {b2_bound * evals:.3f} ms by {b2_by} (B2's {b2_bound:.4f} ms x "
         f"{evals}), {b2_bound * evals / loop_dev:.1%} of it; on {card}")
 
@@ -2681,18 +3155,16 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
         visits = Visits(len(hists))
         host = nmsimplex.minimize_nmsimplex2_lanes(visits.lanes(lynch.LanesObjective(hists, nts, dev, eps)),
                                                    [start] * len(hists), [step] * len(hists))
-        before = (lo.kernel_launches(), lo.FIT_GRAPH_LAUNCHES, lo.FIT_LANES_LAUNCHES)
+        before = counters()
         got, obj = pop.fit_lanes(hists, nts, dev, start, step, eps)
-        lib = {k: v - before[0][k] for k, v in lo.kernel_launches().items()}
-        graphs, kernel = lo.FIT_GRAPH_LAUNCHES - before[1], lo.FIT_LANES_LAUNCHES - before[2]
+        lib, (fits, kernel, rounds, _) = grown(before)
         if not all(bits_equal(g.x, w.x) and (g.iterations, g.converged) == (w.iterations, w.converged)
                    for g, w in zip(got, host)):
             raise AssertionError(f"cohort {label}: the lanes' loop on the card differs from the host's lockstep")
-        rounds = obj.fit.rounds
-        if (graphs != 1 or lib["fit_graphs"] != 1 or not (kernel == lib["fit_lanes"] == rounds
-                                                           == int(obj.fit.evaluations.max()))
+        if ((fits, kernel, lib["fits"], lib["fit_lanes"]) != (1, 1, 1, 1)
+                or not rounds == obj.fit.rounds == int(obj.fit.evaluations.max())
                 or lib["nll_lanes"] or (obj.fit.status != lo.FIT_DONE).any()):
-            raise AssertionError(f"cohort {label}: {graphs} graphs, {kernel} kernel launches for {rounds} rounds, "
+            raise AssertionError(f"cohort {label}: {fits} fits, {kernel} kernel launches for {rounds} rounds, "
                                  f"library {lib}")
         held = 0.0 if eps is None else eps
         fwc = lo.LynchFitWorkspace(obj.work, [list(start) + list(step) + [held]] * len(hists), nts)
@@ -2708,19 +3180,19 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
                                                     [start] * len(hists), [step] * len(hists))
             turns[name].append((time.perf_counter() - t0) * 1e3)
         dev_ms = device_only_ms(torch, fwc.launch, [()], k=5, reps=3)
-        pop_times[label] = {"rounds": rounds, "device_ms": dev_ms,
+        pop_times[label] = {"rounds": rounds, "device_ms": dev_ms, "grid": fwc.grid,
                             "ms": statistics.median(turns["lanes on the card"]),
                             "host_loop_ms": statistics.median(turns["the host's lockstep"])}
         log(f"# phase 17: cohort {label}, {len(hists)} lanes: every lane's result and point bitwise the host's "
-            f"lockstep; {rounds} rounds = {kernel} launches of the fit's kernel, 1 graph launch, "
+            f"lockstep; 1 launch of the fit's kernel (grid {fwc.grid} blocks) for {rounds} rounds, "
             f"{int(obj.fit.evaluations.sum())} lane evaluations; the loop on the card {dev_ms:.3f} ms device only; "
             "fit_lanes in turns (host clock, ms, set-up included) " + ", ".join(
                 f"{k} {statistics.median(v):.2f} ({', '.join(f'{x:.2f}' for x in v)})" for k, v in turns.items())
             + f"; on {card}")
     # the cohort's fit (independent) taken apart, host clock: the lanes'
     # workspace (rows concatenated and uploaded, the table, the record),
-    # the fit's workspace (its buffers, the graph built and instantiated),
-    # the loop (one graph launch, the results' copy, one sync)
+    # the fit's workspace (its buffers, the launch's plan), the loop (one
+    # launch, the results' copy, one sync)
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2733,12 +3205,33 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
         t3 = time.perf_counter()
         log(f"# phase 17: the cohort's independent fits taken apart (host clock): {(t3 - t0) * 1e3:.3f} ms = the "
             f"lanes' workspace {(t1 - t0) * 1e3:.3f} ms (rows concatenated, uploaded, table, record) + the fit's "
-            f"workspace {(t2 - t1) * 1e3:.3f} ms (buffers, graph built and instantiated) + the loop "
-            f"{(t3 - t2) * 1e3:.3f} ms (one graph launch, the results' copy, one sync); on {card}")
+            f"workspace {(t2 - t1) * 1e3:.3f} ms (buffers, the launch's plan) + the loop "
+            f"{(t3 - t2) * 1e3:.3f} ms (one launch, the results' copy, one sync); on {card}")
     log(f"# phase 17: the loop on the card against the host's: {tally['points']} points bitwise; of {tally['values']} "
         f"values, {tally['differing']} differ, by at most {tally['max_ulp']} ulp (max abs {tally['max_abs']!r}): "
         f"CUDA's log and log1p against glibc's for the five theta scalars; no result, iteration count or point "
         f"moved")
+
+    # the round taken apart: a build with FIT_STAMPS, bitwise the committed
+    # kernel, at phase 7's rows and phase 12's cohort
+    slib, sreport = stamped_fit_library(build)
+    committed = lo._kernel_lib()
+    splits = {}
+    for shape, (w, starts, nts_) in fit_shapes(torch, dev, h_prof, h_mult).items():
+        mine = lo.LynchFitWorkspace(w, starts, nts_)
+        want = fit_outputs(torch, mine, lambda: (mine.run(), mine._results_host.numpy().copy())[1])
+        try:
+            lo._lib = slib
+            stamped = lo.LynchFitWorkspace(w, starts, nts_)
+        finally:
+            lo._lib = committed
+        if fit_outputs(torch, stamped, lambda: (stamped.run(), stamped._results_host.numpy().copy())[1]) != want:
+            raise AssertionError(f"{shape}: the stamped fit differs from the committed kernel's")
+        splits[shape] = stamp_split(stamps_of(slib, torch, stamped.run), int(mine.last.evaluations[0]))
+        log(f"# phase 17: {shape}, lane 0's rounds by the stamps of a build with FIT_STAMPS (bitwise the committed "
+            f"kernel; registers {fit_registers(sreport)}): {split_line(splits[shape])}; on {card}")
+        del mine, stamped
+    parent_times = parent_fit_phase(torch, dev, card, parent, h_prof, h_mult) if parent else None
 
     # (c) the population path with two C4 samples, the counters from 0
     texts = []
@@ -2748,15 +3241,16 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
             counts = np.vstack([counts, [[9000, 9000, 0, 0]]])
         texts.append(phred_pileup(counts, 1, 7001 + 2 * k))
     lo.RECORD_LAUNCHES = lo.NLL_LANES_LAUNCHES = lo.MARGINALS_LANES_LAUNCHES = 0
-    lo.FIT_LANES_LAUNCHES = lo.FIT_GRAPH_LAUNCHES = lo.FIT_HANDOVERS = 0
+    lo.FIT_LANES_LAUNCHES = lo.FIT_LAUNCHES = lo.FIT_ROUNDS = lo.FIT_HANDOVERS = 0
     got = {mode: [r.to_csv_bytes() for r in pop.call_population([parse_pileup(t) for t in texts],
                                                                 Options(method="bayes"), mode)]
            for mode in ("pooled", "independent")}
-    c4 = {"records": lo.RECORD_LAUNCHES, "fit_lanes": lo.FIT_LANES_LAUNCHES, "fit_graphs": lo.FIT_GRAPH_LAUNCHES,
-          "handovers": lo.FIT_HANDOVERS, "nll_lanes": lo.NLL_LANES_LAUNCHES,
+    c4 = {"records": lo.RECORD_LAUNCHES, "fit_lanes": lo.FIT_LANES_LAUNCHES, "fits": lo.FIT_LAUNCHES,
+          "fit_rounds": lo.FIT_ROUNDS, "handovers": lo.FIT_HANDOVERS, "nll_lanes": lo.NLL_LANES_LAUNCHES,
           "marginals_lanes": lo.MARGINALS_LANES_LAUNCHES}
-    if not all(c4.values()):
-        raise AssertionError(f"a kernel of the population path with C4 samples was not launched: {c4}")
+    if not all(c4.values()) or c4["fit_lanes"] != c4["fits"]:
+        raise AssertionError(f"a kernel of the population path with C4 samples was not launched, or a fit not once: "
+                             f"{c4}")
     for mode, csvs in got.items():
         cpu = [r.to_csv_bytes() for r in pop.call_population([parse_pileup(t) for t in texts],
                                                              Options(platform="cpu", method="bayes"), mode)]
@@ -2765,16 +3259,17 @@ def device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep_t
             raise AssertionError(f"population {mode} with C4 samples: samples {bad} differ from the CPU run")
     log(f"# phase 17: population pooled and independent -m bayes, {LOOP_C4_SAMPLES} samples x {LOOP_C4_SITES} "
         f"sites, samples {LOOP_C4_DEEP} with (9000, 9000, 0, 0): every sample's CSV byte-equal to the CPU run; "
-        f"launches " + ", ".join(f"{k} {v}" for k, v in c4.items()) + f" (the merged fit and the deep samples' "
-        f"lanes handed over to the host's lockstep); phase 17 took {time.perf_counter() - t_phase:.1f} s")
+        f"launches " + ", ".join(f"{k} {v}" for k, v in c4.items()) + f" (one launch of the fit's kernel a fit; the "
+        f"merged fit and the deep samples' lanes handed over to the host's lockstep); phase 17 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     row = {"name": "lynch_fit_lanes", "route": "cuda", "source": "sid_tpu_torch/csrc/lynch.cu",
            "replaces": "sid_tpu/ops/nmsimplex.py:287", "launches": None, "max_abs_err": max_abs,
            "ms": statistics.median(calls), "plain_ms": plain_ms, "device_ms": loop_dev,
            "bound_ms": b2_bound * evals, "bound_by": b2_by, "library_ms": None, "evaluations": evals,
-           "graph_launches_a_fit": 1, "max_ulp_vs_plain": plain_ulp,
+           "launches_a_fit": 1, "grid": fw.grid, "registers": registers, "max_ulp_vs_plain": plain_ulp,
            "host_loop_ms": statistics.median(loop_walls["the host's loop"]),
            "values_differing_vs_host_loop": [tally["differing"], tally["values"]],
-           "at_population_shape": pop_times}
+           "at_population_shape": pop_times, "round_split": splits, "parent": parent_times}
     return row, c4
 
 
@@ -3188,14 +3683,14 @@ def mesh_fit_runs(torch, dev, card, h_prof, h_mult) -> None:
     evaluations = None
     for k in ("one",) + MESH_SHARDS + MESH_SHARDS[::-1] + ("one",):
         got_lines = []
-        before = (lo.NLL_LAUNCHES, lo.NLL_SHARDS_LAUNCHES, lo.kernel_launches(), lo.FIT_LANES_LAUNCHES)
+        before = (lo.NLL_LAUNCHES, lo.NLL_SHARDS_LAUNCHES, lo.kernel_launches(), lo.FIT_ROUNDS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if k == "one":
             lynch.fit_on_filtered_profiles(h_prof, h_mult, dev)
             walls["one"].append(time.perf_counter() - t0)
-            # the one-device fit's loop on the card: one launch an evaluation
-            evaluations = lo.FIT_LANES_LAUNCHES - before[3]
+            # the one-device fit's loop on the card: its rounds are its evaluations
+            evaluations = lo.FIT_ROUNDS - before[3]
             continue
         got = pfit.fit_lynch_global(h_prof, h_mult, [dev] * k, got_lines.append)
         walls.setdefault(k, []).append(time.perf_counter() - t0)
@@ -3352,11 +3847,17 @@ def parent_shards_evaluation(lib, work, dev):
 def parent_lynch(build, parent: str):
     """The parent tree's csrc/lynch.cu built with this tree's nvcc flags,
     its ptxas lines printed, the C functions of its sharded evaluation
-    typed (``parent_shards_evaluation``)."""
+    typed (``parent_shards_evaluation``); None for a parent without the
+    partials-only evaluation."""
     import ctypes
 
-    path, report = build_sources(build, {"parent_lynch": os.path.join(
-        os.path.abspath(parent), "sid_tpu_torch", "csrc", "lynch.cu")})["parent_lynch"]
+    src = os.path.join(os.path.abspath(parent), "sid_tpu_torch", "csrc", "lynch.cu")
+    with open(src) as f:
+        if "sid_lynch_nll_partials_launch" not in f.read():
+            log("# phase 16 (d): the parent's csrc/lynch.cu has no partials-only evaluation (it has the sharded "
+                "objective): nothing of it to compare there")
+            return None
+    path, report = build_sources(build, {"parent_lynch": src})["parent_lynch"]
     for fn, r in report.items():
         log(f"# ptxas parent_lynch: {fn}: {r['registers']} registers, {r['spill_stores']} bytes spill stores, "
             f"{r['spill_loads']} bytes spill loads")
@@ -3627,23 +4128,25 @@ def variant_texts(csrc: str, main: str, edits) -> dict:
     return texts
 
 
-def build_variants(build, main: str, variants: dict, prefix: str) -> dict:
-    """Each variant of csrc/<main> (``variant_texts``) written with the
-    files it edits under sid_tpu_torch/_build/<prefix>_<k>/, so its includes
-    find an edited header before csrc's, and built with the port's nvcc
-    flags, all at once. Returns {name: (library path, ptxas report)}."""
+def build_variants(build, main: str, variants: dict, prefix: str, csrc: str = None) -> dict:
+    """Each variant of <csrc>/<main> (``variant_texts``; csrc: this tree's
+    sid_tpu_torch/csrc unless named) written with the files it edits under
+    sid_tpu_torch/_build/<prefix>_<k>/, so its includes find an edited
+    header before csrc's, and built with the port's nvcc flags, all at
+    once. Returns {name: (library path, ptxas report)}."""
+    csrc = csrc or build.CSRC
     tags = {}
     for k, (name, edits) in enumerate(variants.items()):
         tag = f"{prefix}_{k}"
         folder = os.path.join(build.BUILD_DIR, tag)
         shutil.rmtree(folder, ignore_errors=True)
         os.makedirs(folder)
-        for file, text in variant_texts(build.CSRC, main, edits).items():
+        for file, text in variant_texts(csrc, main, edits).items():
             with open(os.path.join(folder, file), "w") as f:
                 f.write(text)
         tags[tag] = (name, os.path.join(folder, main))
     built = build_sources(build, {tag: src for tag, (_, src) in tags.items()},
-                          {tag: ["-I", build.CSRC] for tag in tags})
+                          {tag: ["-I", csrc] for tag in tags})
     return {name: built[tag] for tag, (name, _) in tags.items()}
 
 
@@ -3731,6 +4234,124 @@ def lane_variants(torch) -> int:
                   f"{statistics.median(r[0] for r in rs):.4f} ms (readings {', '.join(f'{r[0]:.4f}' for r in rs)}), "
                   f"marginals {statistics.median(r[1] for r in rs):.4f} ms (readings "
                   f"{', '.join(f'{r[1]:.4f}' for r in rs)}); on {card}", flush=True)
+    return 0
+
+
+# --fit-variants: design choices of the fit's kernel (lynch_fit_lanes_kernel),
+# each a list of text substitutions (file, text, replacement) on the
+# committed csrc/lynch.cu and csrc/lynch.cuh; the empty list is the
+# committed design: runs of row slices (units; a chunk a block where the
+# walk has no more chunks than the resident blocks), a whole chunk's terms
+# in shared memory, 3 blocks an SM, one row in flight a thread
+_FIT_BLOCKS = "constexpr int kFitMinBlocks = 3;"
+_PIECE_LOOP = ("  SID_NO_UNROLL\n"
+               "  for (int k = b.piece.first_slice; k < b.piece.first_slice + b.piece.slices; ++k) {\n")
+_WHOLE = "    if (mode == sid::kFitRows) fit_piece_rows(p);\n    const bool whole = b.piece.slices == b.piece.chunk_slices;\n"
+_SUM = "      r = whole ? fit_chunk_slots() : fit_chunk_terms(p);\n"
+# the runs: whole chunks for any walk (for one lane, the parent's balance:
+# 2 or 3 chunks a block) or row slices for any walk (committed: whole
+# chunks where the walk has no more chunks than the resident blocks)
+_RUNS = "  p.whole_chunks = sid::fit_whole_chunks(n_chunks, resident);\n"
+_GRID = "  plan->grid = static_cast<int>(sid::fit_grid(n_units, n_chunks, resident));\n"
+_CHUNK_RUNS = [("lynch.cu", _RUNS, "  p.whole_chunks = 1;\n"),
+               ("lynch.cu", _GRID, "  plan->grid = static_cast<int>(n_chunks < resident ? n_chunks : resident);\n")]
+_SLICE_RUNS = [("lynch.cu", _RUNS, "  p.whole_chunks = 0;\n"), ("lynch.cu", _GRID, "  plan->grid = resident;\n")]
+# a whole chunk summed in registers as B2 sums it (nll_rows_sum)
+_WHOLE_IN_REGISTERS = [
+    ("lynch.cu", _WHOLE,
+     "    const bool whole = b.piece.slices == b.piece.chunk_slices;\n"
+     "    RowSum w{0.0, 0};\n"
+     "    if (whole && mode == sid::kFitRows)\n"
+     "      w.v = sid::nll_rows_sum(b.piece.chunk_row, b.tab.end_row, t, p.rec, p.n, g_fit_scalars, p.flags, &w.cnt);\n"
+     "    if (!whole && mode == sid::kFitRows) fit_piece_rows(p);\n"),
+    ("lynch.cu", _SUM, "      r = whole ? w : fit_chunk_terms(p);\n"),
+]
+_TWO_IN_FLIGHT = [("lynch.cu", _PIECE_LOOP, _PIECE_LOOP.replace("SID_NO_UNROLL", '_Pragma("unroll 2")'))]
+FIT_VARIANTS = {
+    "as committed (runs of row slices, a chunk a block where they fit; 3 blocks an SM)": [],
+    "runs of whole chunks (the parent's balance)": _CHUNK_RUNS,
+    "runs of row slices for every walk": _SLICE_RUNS,
+    "waits poll without a pause": [("lynch.cu", "    __nanosleep(100);\n", "")],
+    "whole chunks through the term buffer too": [
+        ("lynch.cu", _WHOLE, _WHOLE.replace("b.piece.slices == b.piece.chunk_slices", "false"))],
+    "whole chunks summed in registers": _WHOLE_IN_REGISTERS,
+    "4 blocks an SM": [("lynch.cu", _FIT_BLOCKS, "constexpr int kFitMinBlocks = 4;")],
+    "two rows in flight, 3 blocks an SM": _TWO_IN_FLIGHT,
+    "two rows in flight, 2 blocks an SM": _TWO_IN_FLIGHT + [
+        ("lynch.cu", _FIT_BLOCKS, "constexpr int kFitMinBlocks = 2;")],
+}
+
+
+def fit_variants(torch) -> int:
+    """--fit-variants: the fit kernel's variants (FIT_VARIANTS), each
+    sid_tpu_torch/csrc/lynch.cu with one design choice changed by a text
+    substitution, built with the port's nvcc flags into
+    sid_tpu_torch/_build/. For each, the fit kernel's registers and spills
+    and resident blocks an SM; a variant that spills is reported and not
+    timed. At phase 7's rows and phase 12's cohort every lane's results,
+    history and the rows' flags bitwise the committed kernel's; then each
+    fit's device time (the launch enqueued behind a held stream) and call
+    (launch, copies, sync; host clock) in two rounds, the second in reverse
+    order."""
+    import ctypes
+
+    from sid_tpu_torch.native import build
+    from sid_tpu_torch.ops import lynch_objective as lo
+
+    card = card_line()
+    print(f"# {card}", flush=True)
+    dev = torch.device("cuda")
+    build.kernel_libraries()
+    built = build_variants(build, "lynch.cu", FIT_VARIANTS, "fit_variant")
+    libs = {}
+    for name, (path, report) in built.items():
+        lib = lo.load_kernel_library(path)
+        per_sm = ctypes.c_int(0)
+        if lib.sid_lynch_blocks_per_sm(6, ctypes.byref(per_sm)):
+            raise AssertionError(f"{name}: occupancy query failed")
+        regs = fit_registers(report)
+        spills = any(spill for _, spill in regs.values())
+        print(f"# {name}: lynch_fit_lanes_kernel " + ", ".join(f"{d} {r} registers, {s} bytes spilled"
+                                                              for d, (r, s) in regs.items())
+              + f", {per_sm.value} blocks an SM"
+              + ("; spills, not timed" if spills else ""), flush=True)
+        if not spills:
+            libs[name] = lib
+    fit_prof, fit_mult = fit_histogram(kernel_profiles())
+    shallow = fit_prof.sum(-1) <= 1000
+    committed = lo._kernel_lib()
+    for shape, (work, starts, nts) in fit_shapes(torch, dev, np.ascontiguousarray(fit_prof[shallow]),
+                                                   fit_mult[shallow]).items():
+        fits = {}
+        try:
+            for name, lib in libs.items():
+                lo._lib = lib
+                fits[name] = lo.LynchFitWorkspace(work, starts, nts)
+        finally:
+            lo._lib = committed
+        want = None
+        for name, fw in fits.items():
+            got = fit_outputs(torch, fw, lambda: (fw.run(), fw._results_host.numpy().copy())[1])
+            if want is None:
+                want = got
+            elif got != want:
+                raise AssertionError(f"{name} differs from the committed kernel at {shape}")
+        print(f"# {shape}: every variant's results, histories and flags bitwise the committed kernel's "
+              f"({int(fw.last.rounds)} rounds)", flush=True)
+        dev_t, call_t = {}, {}
+        for name in list(fits) + list(fits)[::-1]:
+            fw = fits[name]
+            dev_t.setdefault(name, []).append(device_only_ms(torch, fw.launch, [()], k=5, reps=3))
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fw.run()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            call_t.setdefault(name, []).append(statistics.median(walls))
+        for name in fits:
+            print(f"# {shape}, {name} (grid {fits[name].grid}): device only {statistics.median(dev_t[name]):.4f} ms "
+                  f"(readings {', '.join(f'{x:.4f}' for x in dev_t[name])}), call {statistics.median(call_t[name]):.4f} "
+                  f"ms (readings {', '.join(f'{x:.4f}' for x in call_t[name])}); on {card}", flush=True)
     return 0
 
 
@@ -4196,7 +4817,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of sid_tpu_torch on one CUDA card.")
     ap.add_argument("--parent", help="an unpacked tree of the parent commit: its B5, LRT, BH and B6 full kernels "
                     "(csrc/local_classify.cu, csrc/lrt_bh.cu, csrc/quality_finalize.cu) bitwise and in turns in "
-                    "phase 13, its sharded Lynch evaluation (csrc/lynch.cu) in phase 16 (d)")
+                    "phase 13, its fit (csrc/lynch.cu, the graph design's interface) bitwise and in turns in phase 17")
     ap.add_argument("--b5-variants", action="store_true",
                     help="time B5's design variants (B5_VARIANTS) in turns, and stop")
     ap.add_argument("--bh-variants", action="store_true",
@@ -4206,6 +4827,8 @@ def main() -> int:
                          "and stop")
     ap.add_argument("--lane-variants", action="store_true",
                     help="time variants of the lane kernels (LANE_VARIANTS) in turns, and stop")
+    ap.add_argument("--fit-variants", action="store_true",
+                    help="time variants of the fit's kernel (FIT_VARIANTS) in turns, and stop")
     ap.add_argument("--shard-variants", action="store_true",
                     help="print ptxas's report of the sharded objective with its table in global memory "
                          "(SHARD_VARIANTS), and stop")
@@ -4233,6 +4856,8 @@ def main() -> int:
 
     if args.lane_variants:
         return lane_variants(torch)
+    if args.fit_variants:
+        return fit_variants(torch)
     if args.shard_variants:
         return shard_variants()
     if args.b5_variants:
@@ -4499,7 +5124,7 @@ def main() -> int:
     after = lynch_objective.kernel_launches()
     per_eval = {k: after[k] - before[k] for k in after}
     if (per_eval != {"records": 0, "nll": 1, "marginals": 0, "nll_lanes": 0, "marginals_lanes": 0,
-                     "nll_shards": 0, "fit_lanes": 0, "fit_graphs": 0}
+                     "nll_shards": 0, "fit_lanes": 0, "fits": 0}
             or list(one) != first.tolist()):
         raise AssertionError(f"one evaluation: launches {per_eval}, result {one!r} vs {first!r}")
     log(f"# B2 bitwise repeatable: 10 calls and grids of 1, 7, 1000 and {work.grids[1]} (the resident "
@@ -4613,12 +5238,13 @@ def main() -> int:
     lynch_objective.RECORD_LAUNCHES = 0
     lynch_objective.NLL_LAUNCHES = 0
     lynch_objective.MARGINALS_LAUNCHES = 0
-    lynch_objective.FIT_LANES_LAUNCHES = lynch_objective.FIT_GRAPH_LAUNCHES = lynch_objective.FIT_HANDOVERS = 0
+    lynch_objective.FIT_LANES_LAUNCHES = lynch_objective.FIT_LAUNCHES = lynch_objective.FIT_HANDOVERS = 0
+    lynch_objective.FIT_ROUNDS = 0
     t0 = time.perf_counter()
 
     def fit_counts():
-        return (lynch_objective.FIT_GRAPH_LAUNCHES, lynch_objective.FIT_LANES_LAUNCHES, lynch_objective.NLL_LAUNCHES,
-                lynch_objective.FIT_HANDOVERS)
+        return (lynch_objective.FIT_LAUNCHES, lynch_objective.FIT_LANES_LAUNCHES, lynch_objective.NLL_LAUNCHES,
+                lynch_objective.FIT_HANDOVERS, lynch_objective.FIT_ROUNDS)
 
     for label, kw, golden_name in fit_cases:
         with open(os.path.join(FIXTURES, golden_name), "rb") as f:
@@ -4632,17 +5258,18 @@ def main() -> int:
                 raise AssertionError(f"{label} {mode}: CSV differs from {golden_name}: {first_difference(got, want)}")
             grew[mode] = [a - b for a, b in zip(fit_counts(), before)]
             if mode == "--fit device":
-                # one fit: one graph launch, its kernel once an evaluation, no B2, no handover
+                # one fit: one launch of the fit's kernel for all its rounds, no B2, no handover
                 expect = golden_fit_lines[:1] if label == "local -R" else golden_fit_lines
-                if (grew[mode][0] != 1 or grew[mode][1] == 0 or grew[mode][2:] != [0, 0]
+                if (grew[mode][:2] != [1, 1] or grew[mode][2:4] != [0, 0] or grew[mode][4] < 2
                         or [ln for ln in lines if ln in golden_fit_lines] != expect):
-                    raise AssertionError(f"{label} {mode}: graph, fit kernel, B2 launches and handovers "
-                                         f"{grew[mode]}, diagnostics {lines}")
+                    raise AssertionError(f"{label} {mode}: fits, fit kernel launches, B2 launches, handovers and "
+                                         f"rounds {grew[mode]}, diagnostics {lines}")
             elif any(grew[mode]):
-                raise AssertionError(f"{label} {mode}: graph, fit kernel, B2 launches and handovers {grew[mode]}")
+                raise AssertionError(f"{label} {mode}: fits, fit kernel launches, B2 launches, handovers and rounds "
+                                     f"{grew[mode]}")
         log(f"# golden.pileup {label}: byte-equal to {golden_name} under "
-            + ", ".join(f"{mode} ({g} graph launches, {k} launches of the fit's kernel, {b} B2 launches)"
-                        for mode, (g, k, b, _) in grew.items()))
+            + ", ".join(f"{mode} ({g} fits, {k} launches of the fit's kernel for {r} rounds, {b} B2 launches)"
+                        for mode, (g, k, b, _, r) in grew.items()))
     for name, src in deep.items():
         handed = []
         for label, kw, _ in fit_cases:
@@ -4655,22 +5282,22 @@ def main() -> int:
                 raise AssertionError(f"C2 repro {name} {label}: --fit device differs from --fit exact: "
                                      f"{first_difference(got, want)}; {dev_lines} vs {ex_lines}")
             # the fit's first evaluation flags the deep row: handed over at evaluation 0
-            if handed[-1][0] != 1 or handed[-1][1] != 1 or handed[-1][3] != 1 or handed[-1][2] == 0:
-                raise AssertionError(f"C2 repro {name} {label}: graph, fit kernel, B2 launches and handovers "
-                                     f"{handed[-1]}")
+            if handed[-1][:2] != [1, 1] or handed[-1][3:] != [1, 1] or handed[-1][2] == 0:
+                raise AssertionError(f"C2 repro {name} {label}: fits, fit kernel launches, B2 launches, handovers "
+                                     f"and rounds {handed[-1]}")
         log(f"# C2 repro, 300 simulated sites + {name}: --fit device byte-equal to --fit exact "
-            f"(bayes, LR, LR -R, local -R; {ex_lines[-1]}); each fit handed over at evaluation 0 (one graph "
-            f"launch, one launch of the fit's kernel, then {handed[0][2]} B2 launches on the host's loop)")
+            f"(bayes, LR, LR -R, local -R; {ex_lines[-1]}); each fit handed over at evaluation 0 (one launch of "
+            f"the fit's kernel, one round, then {handed[0][2]} B2 launches on the host's loop)")
     fit_launches = {"records": lynch_objective.RECORD_LAUNCHES, "nll": lynch_objective.NLL_LAUNCHES,
                     "marginals": lynch_objective.MARGINALS_LAUNCHES, "local": local_classify.LAUNCHES,
-                    "fit_lanes": lynch_objective.FIT_LANES_LAUNCHES, "fit_graphs": lynch_objective.FIT_GRAPH_LAUNCHES,
-                    "handovers": lynch_objective.FIT_HANDOVERS}
-    if not all(fit_launches.values()):
-        raise AssertionError(f"a kernel of the fit path was not launched: {fit_launches}")
+                    "fit_lanes": lynch_objective.FIT_LANES_LAUNCHES, "fits": lynch_objective.FIT_LAUNCHES,
+                    "fit_rounds": lynch_objective.FIT_ROUNDS, "handovers": lynch_objective.FIT_HANDOVERS}
+    if not all(fit_launches.values()) or fit_launches["fit_lanes"] != fit_launches["fits"]:
+        raise AssertionError(f"a kernel of the fit path was not launched, or a fit not once: {fit_launches}")
     log(f"# kernel launches on the fit path ({time.perf_counter() - t0:.1f} s): row record "
-        f"{fit_launches['records']}, the fit's kernel {fit_launches['fit_lanes']} ({fit_launches['fit_graphs']} "
-        f"graph launches, {fit_launches['handovers']} handovers), B2 {fit_launches['nll']} (after the "
-        f"handovers), B4 {fit_launches['marginals']}, local classify {fit_launches['local']}")
+        f"{fit_launches['records']}, the fit's kernel {fit_launches['fit_lanes']} (one a fit, "
+        f"{fit_launches['fit_rounds']} rounds in all, {fit_launches['handovers']} handovers), B2 {fit_launches['nll']} "
+        f"(after the handovers), B4 {fit_launches['marginals']}, local classify {fit_launches['local']}")
 
     # ---- 7. the fit at U ~ 1M at the model layer ----
     opts_auto, opts_exact = Options(), Options(fit_backend="exact")
@@ -4701,15 +5328,17 @@ def main() -> int:
         for name, opts in (("device (auto)", opts_auto), ("exact", opts_exact)):
             lines = []
             before = (lynch_objective.NLL_LAUNCHES, lynch_objective.FIT_LANES_LAUNCHES,
-                      lynch_objective.FIT_GRAPH_LAUNCHES)
+                      lynch_objective.FIT_ROUNDS)
             t0 = time.perf_counter()
             pi_hat, eps_hat, lhom, lhet, _ = lynch.fit_profiles(h_prof, h_mult, opts, lines.append)
             wall = time.perf_counter() - t0
             fits[name] = (pi_hat, eps_hat, lhom, lhet)
-            log(f"# fit, {hist}, U={u_h}, {name}: {wall:.2f} s; {lines[0]} "
-                f"({lynch_objective.FIT_GRAPH_LAUNCHES - before[2]} graph launches, "
-                f"{lynch_objective.FIT_LANES_LAUNCHES - before[1]} launches of the fit's kernel, "
-                f"{lynch_objective.NLL_LAUNCHES - before[0]} B2 launches) pi {pi_hat!r}, eps {eps_hat!r}; on {card}")
+            grew = (lynch_objective.FIT_LANES_LAUNCHES - before[1], lynch_objective.FIT_ROUNDS - before[2],
+                    lynch_objective.NLL_LAUNCHES - before[0])
+            if grew != ((1, grew[1], 0) if name == "device (auto)" else (0, 0, 0)) or (grew[0] and grew[1] < 2):
+                raise AssertionError(f"fit {name}: fit kernel launches, rounds and B2 launches {grew}")
+            log(f"# fit, {hist}, U={u_h}, {name}: {wall:.2f} s; {lines[0]} ({grew[0]} launches of the fit's kernel "
+                f"for {grew[1]} rounds, {grew[2]} B2 launches) pi {pi_hat!r}, eps {eps_hat!r}; on {card}")
         (pi_d, eps_d, lh_d, lt_d), (pi_e, eps_e, lh_e, lt_e) = fits["device (auto)"], fits["exact"]
         d_pi, d_eps = abs(pi_d - pi_e), abs(eps_d - eps_e)
         if not (d_pi <= SIMPLEX_TOL and d_eps <= SIMPLEX_TOL):
@@ -4774,9 +5403,13 @@ def main() -> int:
     for _ in range(3):
         sp = fit_wall_split(torch, h_prof, h_mult, nucleotide_distribution(h_prof, h_mult), dev)
         log(f"# device fit at U={h_prof.shape[0]}, wall {sp['wall_ms']:.3f} ms = set-up {sp['setup_ms']:.3f} ms "
-            f"(uploads, table, row record) + the fit's graph {sp['graph_ms']:.3f} ms (buffers, built, "
-            f"instantiated) + the loop on the card {sp['loop_ms']:.3f} ms ({sp['evaluations']} evaluations, one "
-            f"graph launch, one sync) + B4 with its copies {sp['marginals_ms']:.3f} ms; on {card}")
+            f"(uploads, table, row record) + the fit's plan {sp['plan_ms']:.3f} ms (buffers, the launch "
+            f"planned) + the loop on the card {sp['loop_ms']:.3f} ms ({sp['evaluations']} evaluations, one "
+            f"launch, one sync) + B4 with its copies {sp['marginals_ms']:.3f} ms; on {card}")
+    for _ in range(3):
+        log(f"# device fit at U={h_prof.shape[0]}, its set-up taken apart (host clock, each step synced): "
+            + setup_line(setup_split(torch, h_prof, h_mult, nucleotide_distribution(h_prof, h_mult), dev))
+            + f"; on {card}")
     # the set-up's largest coverage: the parent's length-4 axis sum against
     # coverage_of's column adds, in turns, the same integers
     cov_walls = {"sum(-1)": [], "coverage_of": []}
@@ -4833,9 +5466,11 @@ def main() -> int:
         + ", ".join(f"{k} {v}" for k, v in mesh_launches.items() if v))
 
     # ---- 17. the fit's loop on the card (B3) ----
-    fit_row, c4_launches = device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep)
+    fit_row, c4_launches = device_loop_phase(torch, dev, card, sass, h_prof, h_mult, golden_src, deep,
+                                             args.parent)
     fit_row["launches"] = fit_launches["fit_lanes"]
-    fit_row["graph_launches"] = fit_launches["fit_graphs"]
+    fit_row["fits"] = fit_launches["fits"]
+    fit_row["rounds"] = fit_launches["fit_rounds"]
     fit_row["handovers"] = fit_launches["handovers"]
     fit_row["launches_population"] = pop_launches["fit_lanes"]
     fit_row["launches_population_c4"] = c4_launches["fit_lanes"]

@@ -122,23 +122,42 @@
 // minimize_nmsimplex2_jax, the while-loop that sid_tpu's jitted fit_lynch,
 // models/lynch.py:60-85, and its vmapped cohort fits, models/population.py
 // :70, :83 and :152, run around B2). A fit of S >= 1 lanes (the device fit
-// is one) is one CUDA graph: a start kernel (each lane's simplex and first
-// point), then a conditional WHILE node whose body is
-//   - lynch_fit_lanes_kernel: every running lane's objective at its pending
-//     point, the walk of lynch_nll_lanes_kernel over a table of the lanes
-//     that is fixed for the fit (global memory, uploaded once); a block
-//     takes a chunk's lane and its mode by one thread, stages the lane's 16
-//     scalars in shared memory, and a lane that stopped returns from its
-//     chunks at once; a lane out of the box does no row work but takes its
-//     tickets. The block that takes a lane's last ticket folds the lane as
-//     lynch_nll_lanes_kernel does (so bitwise B2 over its rows alone) and
-//     then, in one thread, takes the value into the lane's simplex
-//     (lynch.cuh fit_take: the history entry, -clamp, nmsimplex.cuh's
-//     step, the next point's five log scalars computed on the card);
-//   - lynch_fit_continue_kernel, one thread: the round counted, the
-//     condition set from the count of running lanes (cudaGraphSetConditional).
-// The graph is built and instantiated once per fit workspace; a fit is one
-// graph launch, then one copy of the lanes' results and counters and one
+// is one) is one cooperative launch of lynch_fit_lanes_kernel, a grid of
+// resident blocks (lynch.cuh fit_grid), so that every block is on the
+// card while any waits:
+//   - the prologue starts each lane (one thread a lane: its simplex, its
+//     first point's scalars) and publishes its generation;
+//   - then the blocks loop over rounds themselves. A round's row work is
+//     the walk over every lane's units (lynch.cuh: one row slice of a
+//     chunk, 256 rows), cut into one contiguous run a block, so that the
+//     969 chunks of U = 991,985 are 3,876 units and a block's run 9 or 10
+//     of them, not 2 or 3 chunks; a walk of no more chunks than the
+//     resident blocks (a cohort of ~1,000 rows a lane) runs a chunk a
+//     block instead (fit_whole_chunks: four blocks a chunk cost such a
+//     cohort more than they saved). A piece of a run (its units of one
+//     chunk) puts its rows' terms into the block's shared memory. A whole
+//     chunk is summed from there; the pieces of a chunk that runs cut
+//     write their terms into a term buffer (8 bytes a row, in L2), and the
+//     block whose piece completes the chunk (its ticket) sums them. Either
+//     way each thread adds its four terms in B2's order (lynch.cuh
+//     chunk_terms_sum) and the block folds them with B2's tree. (Summed in
+//     registers as B2 sums them, a whole chunk spilled at this budget.);
+//   - before its first piece of lane k in round r, thread 0 waits with
+//     acquire loads for lane k's generation to show its point r, with the
+//     point's mode in the word (a lane runs its next round as soon as its
+//     own step is done), and stages the point's scalars in shared memory;
+//   - the block that takes a lane's last chunk ticket folds the lane's
+//     chunk sums as lynch_nll_lanes_kernel does (so bitwise B2 over its
+//     rows alone) and then, in one thread, takes the value into the lane's
+//     simplex (lynch.cuh fit_take: the history entry, -clamp,
+//     nmsimplex.cuh's step, the next point's five log scalars computed on
+//     the card) and publishes the lane's next generation with a release
+//     store (or its stop). A lane that stopped has no more rounds; a lane
+//     out of the box does no row work but takes its tickets;
+//   - every wait is bounded (a launch's wait_ns): past it the block writes
+//     the launch's epoch as its error and returns, the other blocks see it
+//     and return, and the call reports the timeout.
+// A fit is one launch, one copy of the lanes' results and counters and one
 // stream sync. An evaluation that flags rows for the long-double replay
 // stops its lane (handover): the host replays the lane's history into its
 // own loop (exact/nmsimplex.py replay) and goes on there.
@@ -226,8 +245,11 @@ enum {
   kKernelCount = 7
 };
 std::atomic<long long> g_launches[kKernelCount];
-// graph launches of the fit (each runs lynch_fit_lanes_kernel once a round)
-std::atomic<long long> g_fit_graphs;
+// fits run to their results (one launch of lynch_fit_lanes_kernel each)
+std::atomic<long long> g_fits;
+// sid_lynch_fit_run's code for a launch whose wait timed out (no
+// cudaError_t is negative)
+constexpr int kFitTimedOut = -1;
 
 // The block's tree fold of (v, c) over its kThreads threads; thread 0 ends
 // with the block's result. The levels s >= 32 go through shared memory; the
@@ -443,127 +465,399 @@ __global__ void __launch_bounds__(kThreads, kLanesMinBlocks)
   }
 }
 
-// A fit's start (the first node of its graph): lane i's simplex from
-// starts[i] = (x0 (N), step (N), fixed epsilon), its first point and
-// scalars, its ticket at 0; the running count S and the rounds 0.
-template <int N>
-__global__ void lynch_fit_start_kernel(const double* __restrict__ starts, int n_lanes,
-                                       sid::FitLaneState<N>* state, double* scalars, unsigned int* ticket,
-                                       double tol, int max_iterations, int dot_mode, int* running,
-                                       unsigned long long* rounds) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_lanes) {
-    const double* st = starts + static_cast<int64_t>(i) * (2 * N + 1);
-    sid::fit_start(state[i], st, st + N, st[2 * N], tol, max_iterations, dot_mode, scalars + 16 * static_cast<int64_t>(i));
-    ticket[i] = 0;
-  }
-  if (i == 0) {
-    *running = n_lanes;
-    *rounds = 0;
+// Lane generations (gen, one 64-bit word a lane): the launch's epoch in
+// the high word; in the low word (r << 2) | mode once the lane's point of
+// its round r - 1 (r >= 1) is published with its FitMode, kGenStopped once
+// it stopped. A launch's epoch is new (the wrapper counts launches), so a
+// word the last launch left reads as not yet published.
+constexpr unsigned int kGenStopped = 0xffffffffu;
+
+__device__ __forceinline__ unsigned long long gen_word(unsigned int epoch, unsigned int low) {
+  return (static_cast<unsigned long long>(epoch) << 32) | low;
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// What a fit's launch takes (a __grid_constant__ parameter): the record
+// (3, n); lanes (n_lanes) FitLane; starts (n_lanes, 2 N + 1); state
+// (n_lanes) FitLaneState; scalars (n_lanes, 16) with the eleven fixed ones
+// in place; history (n_lanes, history_entries, N + 2); flags and terms
+// (n) for the rows; part_sum, part_cnt an entry a chunk of the walk;
+// chunk_ticket (chunks) and lane_ticket (n_lanes), 0 between launches;
+// gen (n_lanes); results (n_lanes, N + 5); error: the epoch of a launch
+// whose wait timed out; n_units and n_chunks, the lengths of the walks
+// over every lane's units and chunks; whole_chunks: a run a chunk
+// (lynch.cuh fit_whole_chunks).
+struct FitParams {
+  const double* rec;
+  int64_t n;
+  const sid::FitLane* lanes;
+  const double* starts;
+  void* state;
+  double* scalars;
+  double* history;
+  int64_t history_entries;
+  uint8_t* flags;
+  double* terms;
+  double* part_sum;
+  int* part_cnt;
+  unsigned int* chunk_ticket;
+  unsigned int* lane_ticket;
+  unsigned long long* gen;
+  double* results;
+  unsigned int* error;
+  int64_t n_units;
+  int64_t n_chunks;
+  double tol;
+  unsigned long long wait_ns;
+  int n_lanes;
+  int max_iterations;
+  int dot_mode;
+  int whole_chunks;
+  unsigned int epoch;
+};
+
+// Thread 0 of a block: wait until the word *gen is at least want (the
+// lane published its point, or stopped) and return it, polling every
+// ~0.1 us. Past wait_ns of waiting, or once another block reported an
+// error in this launch, 0 (the timeout reported into *error).
+__device__ unsigned long long wait_for(const unsigned long long* gen, unsigned long long want, unsigned int* error,
+                                      unsigned int epoch, unsigned long long wait_ns) {
+  unsigned long long g = load_acquire(gen);
+  if (g >= want) return g;
+  const unsigned long long t0 = global_ns();
+  for (unsigned int spins = 1;; ++spins) {
+    __nanosleep(100);
+    g = load_acquire(gen);
+    if (g >= want) return g;
+    if (global_ns() - t0 > wait_ns) {
+      atomicExch(error, epoch);
+      return 0;
+    }
+    if ((spins & 63u) == 0 && *reinterpret_cast<volatile unsigned int*>(error) == epoch) return 0;
   }
 }
 
-// A lane's step (lynch.cuh fit_take) as a call of its own: its registers
-// are not the row loop's, which keeps the kernel at 3 blocks an SM with 0
-// spill bytes (inlined, the 2-D step spilled 32 bytes).
+// A lane's state copied between global memory (through L2: other blocks
+// of the launch wrote it) and a local copy, 8 bytes at a time.
 template <int N>
-__device__ __noinline__ bool lane_step(sid::FitLaneState<N>* lane, double total, int flagged, double* scalars,
-                                       double* history, double* result) {
-  return sid::fit_take(*lane, total, flagged, scalars, history, result);
+__device__ __forceinline__ void load_lane(const sid::FitLaneState<N>* g, sid::FitLaneState<N>& lane) {
+  static_assert(sizeof(sid::FitLaneState<N>) % 8 == 0, "the lane state is copied 8 bytes at a time");
+  const unsigned long long* src = reinterpret_cast<const unsigned long long*>(g);
+  unsigned long long* dst = reinterpret_cast<unsigned long long*>(&lane);
+  for (unsigned int w = 0; w < sizeof(lane) / 8; ++w) dst[w] = __ldcg(src + w);
 }
 
-// One round of a fit: every running lane's objective at its pending point,
-// then in the block that folds a lane, its step (see the top of the file).
-// lanes: (n_lanes) FitLane; scalars: (n_lanes, 16) f64, each lane's
-// LynchScalars; history: (n_lanes, history_entries, N + 2) f64; results:
-// (n_lanes, N + 5) f64; part_sum, part_cnt: an entry for each chunk of the
-// walk; ticket: (n_lanes), 0 between launches; running: the lanes running.
+template <int N>
+__device__ __forceinline__ void store_lane(sid::FitLaneState<N>* g, const sid::FitLaneState<N>& lane) {
+  const unsigned long long* src = reinterpret_cast<const unsigned long long*>(&lane);
+  unsigned long long* dst = reinterpret_cast<unsigned long long*>(g);
+  for (unsigned int w = 0; w < sizeof(lane) / 8; ++w) __stcg(dst + w, src[w]);
+}
+
+// A lane's start and step (lynch.cuh fit_start, fit_take) as calls of
+// their own: their registers are not the row loop's (inlined, the 2-D
+// step spilled 32 bytes). Each returns the lane's mode for its next point
+// (kFitIdle once it stopped).
+template <int N>
+__device__ __noinline__ int lane_start(sid::FitLaneState<N>* g, const double* start, double tol, int max_iterations,
+                                       int dot_mode, double* scalars) {
+  sid::FitLaneState<N> lane{};
+  sid::fit_start(lane, start, start + N, start[2 * N], tol, max_iterations, dot_mode, scalars);
+  store_lane(g, lane);
+  return lane.mode;
+}
+
+template <int N>
+__device__ __noinline__ int lane_step(sid::FitLaneState<N>* g, double total, int flagged, double* scalars,
+                                      double* history, double* result) {
+  sid::FitLaneState<N> lane;
+  load_lane(g, lane);
+  sid::fit_take(lane, total, flagged, scalars, history, result);
+  store_lane(g, lane);
+  return lane.mode;
+}
+
+// A block's place in its rounds, which thread 0 moves (fit_next): its run
+// of units and the next one, its round, whether a piece of the round had
+// a running lane; the piece it takes next, the piece's lane and that
+// lane's mode (-1: a wait failed, -2: the block is done), and whether the
+// lane's scalars are to be staged; the lane whose point of known_round is
+// staged (its mode known_mode); the lane table's entry of lane tab_lane
+// (its units from tab_unit_start, its chunks from tab_chunk_start).
+struct FitBlock {
+  sid::FitPiece piece;
+  sid::FitLane tab;
+  int64_t tab_unit_start;
+  int64_t tab_chunk_start;
+  int64_t unit;
+  int64_t run_begin;
+  int64_t run_end;
+  unsigned int round;
+  unsigned int known_round;
+  int first_lane;
+  int lane;
+  int tab_lane;
+  int known_lane;
+  int known_mode;
+  int mode;
+  int stage;
+  int ran;
+};
+
+// The fit kernel's block state, its staged lane's scalars, and each
+// thread's terms and flags of a chunk's slices (slot k * kThreads + t for
+// slice k), in shared memory, so that no register holds them through a
+// row (only lynch_fit_lanes_kernel and the calls below use them).
+__shared__ FitBlock g_fit_block;
+__shared__ sid::LynchScalars g_fit_scalars;
+__shared__ double g_fit_terms[sid::kChunk];
+__shared__ uint8_t g_fit_flags[sid::kChunk];
+
+// the lane table's entry of lane k into the block's cache
+__device__ __forceinline__ void cache_lane(FitBlock& b, const sid::FitLane* lanes, int k) {
+  b.tab = lanes[k];
+  b.tab_unit_start = k > 0 ? lanes[k - 1].unit_end : 0;
+  b.tab_chunk_start = k > 0 ? lanes[k - 1].walk_end : 0;
+  b.tab_lane = k;
+}
+
+// Thread 0: the block's next piece into g_fit_block. At its run's end, the
+// next round from the run's start, unless no piece of the round had a
+// running lane (then the block is done). The first piece of a lane in a
+// round waits for the lane's point of that round (gen, error, epoch and
+// wait_ns as in FitParams).
+__device__ __noinline__ void fit_next(const sid::FitLane* lanes, const unsigned long long* gen, unsigned int* error,
+                                      unsigned int epoch, unsigned long long wait_ns) {
+  FitBlock& b = g_fit_block;
+  int64_t unit = b.unit;
+  unsigned int round = b.round;
+  int ran = b.ran;
+  int k = b.lane;
+  if (unit >= b.run_end) {
+    if (!ran) {
+      b.mode = -2;
+      return;
+    }
+    round = round + 1u;
+    unit = b.run_begin;
+    k = b.first_lane;
+    ran = 0;
+  }
+  if (k != b.tab_lane) cache_lane(b, lanes, k);
+  while (b.tab.unit_end <= unit) cache_lane(b, lanes, ++k);  // a run moves forward through the lanes
+  const sid::FitPiece piece = sid::fit_piece(b.tab, b.tab_unit_start, b.tab_chunk_start, unit, b.run_end);
+  int mode = b.known_mode;
+  int stage = 0;
+  if (k != b.known_lane || round != b.known_round) {
+    const unsigned long long g = wait_for(gen + k, gen_word(epoch, (round + 1u) << 2), error, epoch, wait_ns);
+    if (g == 0) {
+      b.mode = -1;  // the wait failed: the launch stops
+      return;
+    }
+    const unsigned int low = static_cast<unsigned int>(g);
+    mode = low == kGenStopped ? static_cast<int>(sid::kFitIdle) : static_cast<int>(low & 3u);
+    stage = mode == sid::kFitRows;
+    b.known_lane = k;
+    b.known_round = round;
+    b.known_mode = mode;
+  }
+  b.piece = piece;
+  b.unit = unit + piece.slices;
+  b.round = round;
+  b.lane = k;
+  b.mode = mode;
+  b.stage = stage;
+  b.ran = ran | (mode != sid::kFitIdle);
+}
+
+// thread t's share of a chunk and its flagged rows
+struct RowSum {
+  double v;
+  int cnt;
+};
+
+// Thread t's rows of the block's piece: each row's flag into flags, and
+// its term (0.0 where flagged or at or past the lane's end) and flag into
+// its slot of the row's slice.
+__device__ __forceinline__ void fit_piece_rows(const FitParams& p) {
+  const FitBlock& b = g_fit_block;
+  const int t = threadIdx.x;
+  SID_NO_UNROLL
+  for (int k = b.piece.first_slice; k < b.piece.first_slice + b.piece.slices; ++k) {
+    const int64_t i = b.piece.chunk_row + static_cast<int64_t>(k) * kThreads + t;
+    double term = 0.0;
+    bool flagged = false;
+    if (i < b.tab.end_row) term = sid::fit_row_term(p.rec, p.n, i, g_fit_scalars, p.flags, &flagged);
+    g_fit_terms[k * kThreads + t] = term;
+    g_fit_flags[k * kThreads + t] = flagged ? 1 : 0;
+  }
+}
+
+// A whole chunk's share of thread t from its slots, in nll_rows_sum's
+// order (chunk_terms_sum's: 0.0 for a slice past the chunk's)
+__device__ __forceinline__ RowSum fit_chunk_slots() {
+  const int t = threadIdx.x;
+  const int slices = g_fit_block.piece.chunk_slices;
+  RowSum r{0.0, 0};
+  for (int k = 0; k < sid::kRowsPerThread; ++k) {
+    r.v = r.v + (k < slices ? g_fit_terms[k * kThreads + t] : 0.0);
+    r.cnt = r.cnt + (k < slices ? g_fit_flags[k * kThreads + t] : 0);
+  }
+  return r;
+}
+
+// The piece of a chunk that runs cut: thread t's terms of its rows from
+// their slots into the term buffer (rows before the lane's end)
+__device__ __forceinline__ void fit_piece_out(const FitParams& p) {
+  const FitBlock& b = g_fit_block;
+  const int t = threadIdx.x;
+  for (int k = b.piece.first_slice; k < b.piece.first_slice + b.piece.slices; ++k) {
+    const int64_t i = b.piece.chunk_row + static_cast<int64_t>(k) * kThreads + t;
+    if (i < b.tab.end_row) p.terms[i] = g_fit_terms[k * kThreads + t];
+  }
+}
+
+// a chunk's share of thread t from the term buffer (other blocks wrote
+// parts of it)
+__device__ __forceinline__ RowSum fit_chunk_terms(const FitParams& p) {
+  const FitBlock& b = g_fit_block;
+  RowSum r;
+  r.v = sid::chunk_terms_sum(b.piece.chunk_row, b.tab.end_row, threadIdx.x, p.terms, p.flags, &r.cnt);
+  return r;
+}
+
+// A whole fit in one cooperative launch (every block resident): the
+// lanes' starts, then each block's rounds over the pieces of its run (see
+// the top of the file and lynch.cuh); a block stops after a round in which
+// every lane of its run had stopped.
 template <int N>
 __global__ void __launch_bounds__(kThreads, kFitMinBlocks)
-    lynch_fit_lanes_kernel(const double* __restrict__ rec, int64_t n, const sid::FitLane* __restrict__ lanes,
-                           int n_lanes, sid::FitLaneState<N>* state, double* scalars, double* history,
-                           int64_t history_entries, uint8_t* __restrict__ flags, double* part_sum, int* part_cnt,
-                           unsigned int* ticket, double* results, int* running) {
+    lynch_fit_lanes_kernel(const __grid_constant__ FitParams p) {
   __shared__ double sh_sum[kThreads];
   __shared__ int sh_cnt[kThreads];
-  __shared__ bool sh_last;
-  __shared__ sid::LynchScalars sh_s;
-  __shared__ int sh_lane;
-  __shared__ int sh_mode;
+  __shared__ bool sh_chunk_last;
+  __shared__ bool sh_lane_last;
+  FitBlock& b = g_fit_block;
   const int t = threadIdx.x;
-  const int64_t total = lanes[n_lanes - 1].walk_end;
-  for (int64_t j = blockIdx.x; j < total; j += gridDim.x) {
-    __syncthreads();  // the last chunk's reads of the shared values are done
-    if (t == 0) {
-      const int lane = sid::slot_of(lanes, n_lanes, j);
-      sh_lane = lane;
-      sh_mode = __ldcg(&state[lane].mode);
-    }
+  sid::FitLaneState<N>* state = static_cast<sid::FitLaneState<N>*>(p.state);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + t; i < p.n_lanes;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int mode =
+        lane_start<N>(state + i, p.starts + i * (2 * N + 1), p.tol, p.max_iterations, p.dot_mode, p.scalars + 16 * i);
+    store_release(p.gen + i, gen_word(p.epoch, (1u << 2) | static_cast<unsigned int>(mode)));
+  }
+  if (t == 0) {
+    b.run_begin = sid::fit_run_begin(p.lanes, p.n_lanes, blockIdx.x, gridDim.x, p.whole_chunks);
+    b.run_end = sid::fit_run_begin(p.lanes, p.n_lanes, blockIdx.x + 1, gridDim.x, p.whole_chunks);
+    b.first_lane = sid::unit_lane(p.lanes, p.n_lanes, b.run_begin);
+    b.unit = b.run_begin;
+    b.lane = b.first_lane;
+    b.round = 0;
+    b.ran = 0;
+    b.tab_lane = -1;
+    b.known_lane = -1;
+  }
+  for (;;) {
+    __syncthreads();  // the last piece's reads of the shared values are done
+    if (t == 0) fit_next(p.lanes, p.gen, p.error, p.epoch, p.wait_ns);
     __syncthreads();
-    const int k = sh_lane;
-    const int mode = sh_mode;
+    const int mode = b.mode;
+    if (mode < 0) return;
     if (mode == sid::kFitIdle) continue;  // the lane stopped
-    if (mode == sid::kFitRows && t < 16) reinterpret_cast<double*>(&sh_s)[t] = __ldcg(scalars + 16 * static_cast<int64_t>(k) + t);
-    __syncthreads();
-    const int64_t first_chunk = sid::walk_start(lanes, k);
-    const int64_t n_lane_chunks = lanes[k].walk_end - first_chunk;
-    int cnt = 0;
-    double v = 0.0;
-    if (mode == sid::kFitRows) {
-      v = sid::nll_rows_sum(lanes[k].first_row + (j - first_chunk) * sid::kChunk, lanes[k].end_row, t, rec, n,
-                            sh_s, flags, &cnt);
-      block_fold(v, cnt, sh_sum, sh_cnt);
+    if (b.stage) {
+      // the lane's point changed: its scalars into shared memory
+      if (t < 16)
+        reinterpret_cast<double*>(&g_fit_scalars)[t] = __ldcg(p.scalars + 16 * static_cast<int64_t>(b.lane) + t);
+      __syncthreads();
     }
+    // the piece's rows' terms; the piece that completes its chunk sums them
+    if (mode == sid::kFitRows) fit_piece_rows(p);
+    const bool whole = b.piece.slices == b.piece.chunk_slices;
+    if (!whole) {
+      // a chunk that runs cut: its terms through the term buffer, and the
+      // chunk's last piece to finish sums them
+      if (mode == sid::kFitRows) fit_piece_out(p);
+      __syncthreads();  // every row's term is stored
+      if (t == 0) {
+        __threadfence();
+        unsigned int* ticket = p.chunk_ticket + b.piece.chunk;
+        const unsigned int slices = static_cast<unsigned int>(b.piece.slices);
+        const bool last = atomicAdd(ticket, slices) + slices == static_cast<unsigned int>(b.piece.chunk_slices);
+        if (last) *ticket = 0;  // ready for the lane's next round
+        sh_chunk_last = last;
+      }
+      __syncthreads();
+      if (!sh_chunk_last) continue;
+      __threadfence();
+    }
+    RowSum r{0.0, 0};
+    if (mode == sid::kFitRows) {
+      r = whole ? fit_chunk_slots() : fit_chunk_terms(p);
+      block_fold(r.v, r.cnt, sh_sum, sh_cnt);
+    }
+    // thread 0 holds the chunk's sum: store it; the lane's last chunk to
+    // finish folds the lane and steps it
     if (t == 0) {
+      const int k = b.lane;
       if (mode == sid::kFitRows) {
-        part_sum[j] = v;
-        part_cnt[j] = cnt;
+        p.part_sum[b.piece.chunk] = r.v;
+        p.part_cnt[b.piece.chunk] = r.cnt;
       }
       __threadfence();
-      sh_last = atomicAdd(ticket + k, 1u) == n_lane_chunks - 1;
+      const int64_t n_lane_chunks = b.tab.walk_end - b.tab_chunk_start;
+      const bool last = atomicAdd(p.lane_ticket + k, 1u) == n_lane_chunks - 1;
+      if (last) p.lane_ticket[k] = 0;  // ready for the lane's next round
+      sh_lane_last = last;
     }
     __syncthreads();
-    if (!sh_last) continue;
-    // the lane's last chunk: fold its chunk sums as lynch_nll_kernel does,
-    // then take the value into its simplex
+    if (!sh_lane_last) continue;
     __threadfence();
+    const int k = b.lane;
+    const int64_t first_chunk = b.tab_chunk_start;
+    const int64_t n_lane_chunks = b.tab.walk_end - first_chunk;
     double acc = 0.0;
     int lane_cnt = 0;
     if (mode == sid::kFitRows) {
       for (int64_t base = 0; base < n_lane_chunks; base += kThreads) {
         const int64_t i = base + t;
-        acc = acc + (i < n_lane_chunks ? __ldcg(part_sum + first_chunk + i) : 0.0);
-        lane_cnt = lane_cnt + (i < n_lane_chunks ? __ldcg(part_cnt + first_chunk + i) : 0);
+        acc = acc + (i < n_lane_chunks ? __ldcg(p.part_sum + first_chunk + i) : 0.0);
+        lane_cnt = lane_cnt + (i < n_lane_chunks ? __ldcg(p.part_cnt + first_chunk + i) : 0);
       }
       block_fold(acc, lane_cnt, sh_sum, sh_cnt);
     }
     if (t == 0) {
-      ticket[k] = 0;  // ready for the next launch
       const int64_t kk = k;
-      if (lane_step<N>(state + k, acc, lane_cnt, scalars + 16 * kk,
-                       history + kk * history_entries * sid::kHistoryWidth<N>,
-                       results + kk * sid::kResultWidth<N>)) {
-        atomicSub(running, 1);
-      }
+      const int next = lane_step<N>(state + k, acc, lane_cnt, p.scalars + 16 * kk,
+                                    p.history + kk * p.history_entries * sid::kHistoryWidth<N>,
+                                    p.results + kk * sid::kResultWidth<N>);
+      store_release(p.gen + k, gen_word(p.epoch, next == sid::kFitIdle
+                                                     ? kGenStopped
+                                                     : ((b.round + 2u) << 2) | static_cast<unsigned int>(next)));
     }
   }
 }
 
-// The tail of a round: count it, and run the body again while a lane runs.
-__global__ void lynch_fit_continue_kernel(cudaGraphConditionalHandle handle, const int* running,
-                                          unsigned long long* rounds) {
-  *rounds = *rounds + 1;
-  cudaGraphSetConditional(handle, *running > 0 ? 1u : 0u);
-}
-
-// A fit's graph and what it launches with: kept from its creation to its
+// A fit's launch and what it takes: kept from its creation to its
 // destruction.
-struct FitGraph {
-  cudaGraph_t graph = nullptr;
-  cudaGraphExec_t exec = nullptr;
-  // the device counters: running lanes (int) at 0, rounds (u64) at 8
-  void* counters = nullptr;
-  void* results = nullptr;
+struct FitPlan {
+  FitParams params;
+  const void* kernel = nullptr;
+  int grid = 1;
   int64_t result_bytes = 0;
 };
 
@@ -643,8 +937,7 @@ int sid_lynch_record_planes() { return sid::kRecordPlanes; }
 
 // kernel launches since load: 0 records, 1 objective, 2 marginals, 3 the
 // lanes' objective, 4 the lanes' marginals, 5 a sharded fit's objective on
-// one device, 6 the fit's rounds (counted from the fit's own counter after
-// each graph launch that sid_lynch_fit_run waits for)
+// one device, 6 the fit's kernel (one launch a fit)
 long long sid_lynch_launches(int kernel) {
   return kernel >= 0 && kernel < kKernelCount ? g_launches[kernel].load() : -1;
 }
@@ -842,133 +1135,120 @@ int sid_lynch_fit_state_bytes(int dims) {
   return dims == 1 ? static_cast<int>(sizeof(sid::FitLaneState<1>))
                    : dims == 2 ? static_cast<int>(sizeof(sid::FitLaneState<2>)) : -1;
 }
-// graph launches of fits since load
-long long sid_lynch_fit_graphs() { return g_fit_graphs.load(); }
+// rows per unit of a fit's row work (lynch.cuh kUnitRows)
+int sid_lynch_fit_unit_rows() { return sid::kUnitRows; }
+// fits launched and run to their results (sid_lynch_fit_run) since load
+long long sid_lynch_fits() { return g_fits.load(); }
+// a fit whose launch timed out waiting for a lane (the fit kernel's wait)
+int sid_lynch_fit_timed_out() { return kFitTimedOut; }
 
-// The graph of a fit of n_lanes lanes in dims (1 or 2) dimensions on the
-// current device, built and instantiated: the start kernel, then WHILE a
-// lane runs {lynch_fit_lanes_kernel, lynch_fit_continue_kernel}. The
-// buffers are the workspace's (device memory, kept as long as the graph):
-// rec (3, n) records; lanes (n_lanes) FitLane, whose walk has n_chunks
-// chunks (the fit kernel's grid: the resident blocks, capped there); starts (n_lanes, 2 dims + 1)
-// f64; state (n_lanes) FitLaneState; scalars (n_lanes, 16) f64 with the
-// eleven fixed ones in place; history (n_lanes, history_entries, dims + 2)
-// f64; flags (n,) uint8; part_sum, part_cnt an entry a walk chunk; ticket
-// (n_lanes) uint32; results (n_lanes, dims + 5) f64; counters 16 bytes.
-// *out receives the graph (for sid_lynch_fit_run and _destroy). Returns a
-// cudaError_t.
-int sid_lynch_fit_graph_create(int dims, const void* rec, int64_t n, const void* lanes, int n_lanes,
-                               int64_t n_chunks, const void* starts, void* state, void* scalars, void* history, int64_t history_entries,
-                               void* flags, void* part_sum, void* part_cnt, void* ticket, void* results,
-                               void* counters, double tol, int max_iterations, int dot_mode, void** out) {
-  if ((dims != 1 && dims != 2) || n_lanes <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const void* start_fn = dims == 1 ? reinterpret_cast<const void*>(lynch_fit_start_kernel<1>)
-                                   : reinterpret_cast<const void*>(lynch_fit_start_kernel<2>);
-  const void* fit_fn = dims == 1 ? reinterpret_cast<const void*>(lynch_fit_lanes_kernel<1>)
-                                 : reinterpret_cast<const void*>(lynch_fit_lanes_kernel<2>);
-  int grid = 1;
-  cudaError_t e = resident_grid(fit_fn, n_chunks, &grid);
+// A fit of n_lanes lanes in dims (1 or 2) dimensions on the current
+// device, planned: its kernel's grid and runs (lynch.cuh fit_grid over
+// the resident blocks from the occupancy API: a cooperative launch needs
+// every block resident) and its buffers (device memory, kept as long as
+// the plan): rec (3, n) records; lanes (n_lanes) FitLane; starts (n_lanes,
+// 2 dims + 1) f64; state (n_lanes) FitLaneState; scalars (n_lanes, 16) f64
+// with the eleven fixed ones in place; history (n_lanes, history_entries,
+// dims + 2) f64; flags (n) uint8; terms (n) f64; part_sum, part_cnt an
+// entry a chunk of the walk; chunk_ticket (the walk's chunks) and
+// lane_ticket (n_lanes) uint32, 0; gen (n_lanes) uint64, 0; results
+// (n_lanes, dims + 5) f64; counters 16 bytes, 0 (the epoch of a launch
+// whose wait timed out, at 0); n_units and n_chunks, the walks' lengths
+// (the last lane's unit_end and walk_end). A wait longer than wait_ns ends the
+// launch with that error. *out receives the plan (for sid_lynch_fit_run,
+// _enqueue, _grid and _destroy). Returns a cudaError_t.
+int sid_lynch_fit_create(int dims, const void* rec, int64_t n, const void* lanes, int n_lanes, const void* starts,
+                         void* state, void* scalars, void* history, int64_t history_entries, void* flags,
+                         void* terms, void* part_sum, void* part_cnt, void* chunk_ticket, void* lane_ticket,
+                         void* gen, void* results, void* counters, int64_t n_units, int64_t n_chunks, double tol,
+                         int max_iterations, int dot_mode, int64_t wait_ns, void** out) {
+  if ((dims != 1 && dims != 2) || n_lanes <= 0 || wait_ns < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = dims == 1 ? reinterpret_cast<const void*>(lynch_fit_lanes_kernel<1>)
+                             : reinterpret_cast<const void*>(lynch_fit_lanes_kernel<2>);
+  int resident = 1;
+  const cudaError_t e = resident_grid(fn, n_units, &resident);
   if (e != cudaSuccess) return static_cast<int>(e);
-  FitGraph* fg = new FitGraph();
-  fg->counters = counters;
-  fg->results = results;
-  fg->result_bytes = static_cast<int64_t>(n_lanes) * (dims + 5) * static_cast<int64_t>(sizeof(double));
-  int* running = static_cast<int*>(counters);
-  unsigned long long* rounds = reinterpret_cast<unsigned long long*>(static_cast<char*>(counters) + 8);
-  cudaGraphNode_t start_node = nullptr;
-  cudaGraphNode_t while_node = nullptr;
-  cudaGraphNode_t fit_node = nullptr;
-  cudaGraphNode_t cont_node = nullptr;
-  cudaGraphConditionalHandle handle = 0;
-  e = cudaGraphCreate(&fg->graph, 0);
-  if (e == cudaSuccess) {
-    const void* a_starts = starts;
-    void* kparams[] = {&a_starts, &n_lanes, &state, &scalars, &ticket, &tol, &max_iterations, &dot_mode,
-                       &running, &rounds};
-    cudaKernelNodeParams kp = {};
-    kp.func = const_cast<void*>(start_fn);
-    kp.gridDim = dim3(static_cast<unsigned>((n_lanes + kThreads - 1) / kThreads));
-    kp.blockDim = dim3(kThreads);
-    kp.kernelParams = kparams;
-    e = cudaGraphAddKernelNode(&start_node, fg->graph, nullptr, 0, &kp);
-  }
-  if (e == cudaSuccess) e = cudaGraphConditionalHandleCreate(&handle, fg->graph, 1, cudaGraphCondAssignDefault);
-  cudaGraph_t body = nullptr;
-  if (e == cudaSuccess) {
-    cudaGraphNodeParams cp = {};
-    cp.type = cudaGraphNodeTypeConditional;
-    cp.conditional.handle = handle;
-    cp.conditional.type = cudaGraphCondTypeWhile;
-    cp.conditional.size = 1;
-    e = cudaGraphAddNode(&while_node, fg->graph, &start_node, 1, &cp);
-    if (e == cudaSuccess) body = cp.conditional.phGraph_out[0];
-  }
-  if (e == cudaSuccess) {
-    const void* a_rec = rec;
-    const void* a_lanes = lanes;
-    void* kparams[] = {&a_rec, &n, &a_lanes, &n_lanes, &state, &scalars, &history, &history_entries,
-                       &flags, &part_sum, &part_cnt, &ticket, &results, &running};
-    cudaKernelNodeParams kp = {};
-    kp.func = const_cast<void*>(fit_fn);
-    kp.gridDim = dim3(static_cast<unsigned>(grid));
-    kp.blockDim = dim3(kThreads);
-    kp.kernelParams = kparams;
-    e = cudaGraphAddKernelNode(&fit_node, body, nullptr, 0, &kp);
-  }
-  if (e == cudaSuccess) {
-    void* kparams[] = {&handle, &running, &rounds};
-    cudaKernelNodeParams kp = {};
-    kp.func = reinterpret_cast<void*>(lynch_fit_continue_kernel);
-    kp.gridDim = dim3(1);
-    kp.blockDim = dim3(1);
-    kp.kernelParams = kparams;
-    e = cudaGraphAddKernelNode(&cont_node, body, &fit_node, 1, &kp);
-  }
-  if (e == cudaSuccess) e = cudaGraphInstantiate(&fg->exec, fg->graph, 0);
-  if (e != cudaSuccess) {
-    if (fg->exec != nullptr) cudaGraphExecDestroy(fg->exec);
-    if (fg->graph != nullptr) cudaGraphDestroy(fg->graph);
-    delete fg;
-    return static_cast<int>(e);
-  }
-  *out = fg;
+  FitPlan* plan = new FitPlan();
+  FitParams& p = plan->params;
+  p.rec = static_cast<const double*>(rec);
+  p.n = n;
+  p.lanes = static_cast<const sid::FitLane*>(lanes);
+  p.starts = static_cast<const double*>(starts);
+  p.state = state;
+  p.scalars = static_cast<double*>(scalars);
+  p.history = static_cast<double*>(history);
+  p.history_entries = history_entries;
+  p.flags = static_cast<uint8_t*>(flags);
+  p.terms = static_cast<double*>(terms);
+  p.part_sum = static_cast<double*>(part_sum);
+  p.part_cnt = static_cast<int*>(part_cnt);
+  p.chunk_ticket = static_cast<unsigned int*>(chunk_ticket);
+  p.lane_ticket = static_cast<unsigned int*>(lane_ticket);
+  p.gen = static_cast<unsigned long long*>(gen);
+  p.results = static_cast<double*>(results);
+  p.error = static_cast<unsigned int*>(counters);
+  p.n_units = n_units;
+  p.n_chunks = n_chunks;
+  p.tol = tol;
+  p.wait_ns = static_cast<unsigned long long>(wait_ns);
+  p.n_lanes = n_lanes;
+  p.max_iterations = max_iterations;
+  p.dot_mode = dot_mode;
+  p.whole_chunks = sid::fit_whole_chunks(n_chunks, resident);
+  p.epoch = 0;
+  plan->kernel = fn;
+  plan->grid = static_cast<int>(sid::fit_grid(n_units, n_chunks, resident));
+  plan->result_bytes = static_cast<int64_t>(n_lanes) * (dims + 5) * static_cast<int64_t>(sizeof(double));
+  *out = plan;
   return 0;
 }
 
-// One fit: the graph launched on stream, then the lanes' results and the
-// counters (running, rounds) copied into pinned host memory (results_host:
-// n_lanes x (dims + 5) f64; counters_host: 16 bytes), one stream sync.
-// The rounds are the launches of lynch_fit_lanes_kernel. Returns a
-// cudaError_t.
-int sid_lynch_fit_run(void* graph, void* results_host, void* counters_host, void* stream) {
-  FitGraph* fg = static_cast<FitGraph*>(graph);
+// The plan's grid (blocks of its launch)
+int sid_lynch_fit_grid(void* plan) { return static_cast<FitPlan*>(plan)->grid; }
+
+// The fit launched on stream: one cooperative launch of the fit kernel
+// with a new epoch. Returns a cudaError_t.
+int sid_lynch_fit_enqueue(void* plan, void* stream) {
+  FitPlan* fp = static_cast<FitPlan*>(plan);
+  // epoch 0 is the words' state before the first launch
+  fp->params.epoch = fp->params.epoch == 0xffffffffu ? 1u : fp->params.epoch + 1u;
+  void* args[] = {&fp->params};
+  cudaLaunchCooperativeKernel(fp->kernel, dim3(static_cast<unsigned>(fp->grid)), dim3(kThreads), args, 0,
+                              static_cast<cudaStream_t>(stream));
+  return launched(kFitLanesKernel);
+}
+
+// One fit: its launch, then the lanes' results and the counters copied
+// into pinned host memory (results_host: n_lanes x (dims + 5) f64;
+// counters_host: 16 bytes), one stream sync. A launch whose wait timed
+// out returns kFitTimedOut, its tickets set back to 0 first. Returns a
+// cudaError_t or kFitTimedOut.
+int sid_lynch_fit_run(void* plan, void* results_host, void* counters_host, void* stream) {
+  FitPlan* fp = static_cast<FitPlan*>(plan);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaGraphLaunch(fg->exec, st);
-  if (e == cudaSuccess) e = cudaMemcpyAsync(results_host, fg->results, fg->result_bytes, cudaMemcpyDeviceToHost, st);
-  if (e == cudaSuccess) e = cudaMemcpyAsync(counters_host, fg->counters, 16, cudaMemcpyDeviceToHost, st);
+  int err = sid_lynch_fit_enqueue(plan, stream);
+  if (err != 0) return err;
+  cudaError_t e = cudaMemcpyAsync(results_host, fp->params.results, fp->result_bytes, cudaMemcpyDeviceToHost, st);
+  if (e == cudaSuccess) e = cudaMemcpyAsync(counters_host, fp->params.error, 16, cudaMemcpyDeviceToHost, st);
   if (e == cudaSuccess) e = cudaStreamSynchronize(st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ++g_fit_graphs;
-  unsigned long long rounds = 0;
-  memcpy(&rounds, static_cast<const char*>(counters_host) + 8, sizeof(rounds));
-  g_launches[kFitLanesKernel] += static_cast<long long>(rounds);
+  unsigned int timed_out = 0;
+  memcpy(&timed_out, counters_host, sizeof(timed_out));
+  if (timed_out == fp->params.epoch) {
+    e = cudaMemsetAsync(fp->params.chunk_ticket, 0, sizeof(unsigned int) * static_cast<size_t>(fp->params.n_chunks), st);
+    if (e == cudaSuccess)
+      e = cudaMemsetAsync(fp->params.lane_ticket, 0, sizeof(unsigned int) * static_cast<size_t>(fp->params.n_lanes), st);
+    if (e == cudaSuccess) e = cudaStreamSynchronize(st);
+    return e != cudaSuccess ? static_cast<int>(e) : kFitTimedOut;
+  }
+  ++g_fits;
   return 0;
 }
 
-// The graph launched on stream and not waited for (kernel times).
-int sid_lynch_fit_enqueue(void* graph, void* stream) {
-  return static_cast<int>(cudaGraphLaunch(static_cast<FitGraph*>(graph)->exec, static_cast<cudaStream_t>(stream)));
-}
-
-void sid_lynch_fit_graph_destroy(void* graph) {
-  FitGraph* fg = static_cast<FitGraph*>(graph);
-  if (fg == nullptr) return;
-  cudaGraphExecDestroy(fg->exec);
-  cudaGraphDestroy(fg->graph);
-  delete fg;
-}
+void sid_lynch_fit_destroy(void* plan) { delete static_cast<FitPlan*>(plan); }
 
 const char* sid_lynch_error_string(int err) {
+  if (err == kFitTimedOut) return "a wait of the fit kernel timed out";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

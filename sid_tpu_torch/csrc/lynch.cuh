@@ -454,26 +454,148 @@ SID_HD double shard_chunk_sum(const ShardSlot* table, int n_shards, int64_t j, i
 // A fit on the card (lynch.cu lynch_fit_lanes_kernel, sid_tpu's jitted
 // fit_lynch and its vmapped cohort fits around B3) runs S >= 1 lanes, each
 // one nmsimplex2 minimization over its rows (a single fit is one lane).
-// Each launch evaluates every running lane at its pending point; the block
-// that folds a lane's objective then takes the value into the lane's
-// simplex (fit_take) and sets its next point and scalars, which the next
-// launch reads. A lane's mode says what the next launch does with it:
-// nothing (it stopped), its rows at its scalars, or no row work and
-// DBL_MAX (its point is outside the box [0, 1]^2, where DeviceObjective
-// gives DBL_MAX without a launch).
+// One launch runs the whole fit on a persistent grid: a round of a lane
+// evaluates it at its pending point; the block that folds a lane's
+// objective then takes the value into the lane's simplex (fit_take) and
+// sets its next point and scalars, which the lane's next round reads. A
+// lane's mode says what its next round does: nothing (it stopped), its
+// rows at its scalars, or no row work and DBL_MAX (its point is outside
+// the box [0, 1]^2, where DeviceObjective gives DBL_MAX without a launch).
 enum FitMode : int32_t { kFitIdle = 0, kFitRows = 1, kFitOutOfBox = 2 };
 // a lane stops DONE (converged or at max_iterations) or HANDOVER: an
 // evaluation flagged rows for the long-double replay, which the host makes
 enum FitStatus : int32_t { kFitRunning = 0, kFitDone = 1, kFitHandover = 2 };
 
-// a lane's rows first_row .. end_row - 1 and the end of its chunks in the
-// walk over every lane's chunks (the running total of lane_chunks); 24
-// bytes, fixed for a fit
+// The unit of a round's row work: one row slice of a chunk, slice s of the
+// chunk that starts at row c being rows c + s * kReduceThreads + t, one row
+// a thread t. Block b takes the contiguous run of units fit_run_begin(b)
+// .. fit_run_begin(b + 1) - 1 of the walk over every lane's units in each
+// of its rounds (a whole chunk, or runs that differ by one unit at most:
+// fit_whole_chunks), in pieces: the units of one chunk inside the run. A
+// piece computes each of its rows' terms (0.0 where flagged) and flags; a
+// whole chunk's one piece keeps them in the block, a chunk the runs' ends
+// cut has its pieces' terms written to a term buffer, and the block whose
+// piece completes the chunk's slices adds the chunk's terms in
+// nll_rows_sum's order (chunk_terms_sum) and folds them as B2 does. So
+// every chunk sum is B2's whichever block finished first.
+constexpr int kUnitRows = kReduceThreads;
+
+// a lane's rows first_row .. end_row - 1, the end of its chunks in the walk
+// over every lane's chunks (the running total of lane_chunks; the index of
+// its chunk sums) and of its units in the walk over every lane's units
+// (the running total of lane_chunks(rows, kUnitRows): one a kUnitRows rows,
+// one for a lane of no rows); 32 bytes, fixed for a fit
 struct FitLane {
   int64_t first_row;
   int64_t end_row;
   int64_t walk_end;
+  int64_t unit_end;
 };
+
+// the lane of unit u: the first k with lanes[k].unit_end > u (every lane
+// has a unit, so unit_end rises strictly)
+SID_HD int unit_lane(const FitLane* lanes, int n_lanes, int64_t u) {
+  int lo = 0;
+  int hi = n_lanes - 1;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    if (lanes[mid].unit_end > u) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+// A fit's runs over `resident` blocks (those that fit on the card): where
+// the walk has no more chunks than that, a run is one whole chunk (a block
+// a chunk, no chunk cut), else the units are shared out in runs that
+// differ by one unit at most, over at most `resident` blocks
+SID_HD bool fit_whole_chunks(int64_t n_chunks, int64_t resident) { return n_chunks <= resident; }
+
+SID_HD int64_t fit_grid(int64_t n_units, int64_t n_chunks, int64_t resident) {
+  if (fit_whole_chunks(n_chunks, resident)) return n_chunks;
+  return n_units < resident ? n_units : resident;
+}
+
+// the first unit of block b's run (b == grid: the walk's end): of units
+// b * n_units / grid, or with whole_chunks of the first unit of chunk
+// b * n_chunks / grid
+SID_HD int64_t fit_run_begin(const FitLane* lanes, int n_lanes, int64_t b, int64_t grid, bool whole_chunks) {
+  const int64_t n_units = lanes[n_lanes - 1].unit_end;
+  if (!whole_chunks) return b * n_units / grid;
+  const int64_t n_chunks = lanes[n_lanes - 1].walk_end;
+  const int64_t j = b * n_chunks / grid;
+  if (j >= n_chunks) return n_units;
+  const int k = slot_of(lanes, n_lanes, j);
+  return (k > 0 ? lanes[k - 1].unit_end : 0) + (j - walk_start(lanes, k)) * kRowsPerThread;
+}
+
+// A piece of a run: slices first_slice .. first_slice + slices - 1 of the
+// chunk (chunk_slices in all, the lane's last chunk may have fewer than
+// kRowsPerThread) whose sums are part_sum[chunk] and whose first row is
+// chunk_row
+struct FitPiece {
+  int64_t chunk;
+  int64_t chunk_row;
+  int first_slice;
+  int slices;
+  int chunk_slices;
+};
+
+// the piece that starts at unit u of `lane`, whose units start at
+// unit_start of the unit walk and whose chunks at chunk_start of the chunk
+// walk, and ends at run_end at the latest
+SID_HD FitPiece fit_piece(const FitLane& lane, int64_t unit_start, int64_t chunk_start, int64_t u, int64_t run_end) {
+  const int64_t q = u - unit_start;
+  const int64_t c = q / kRowsPerThread;
+  const int64_t left = lane.unit_end - unit_start - c * kRowsPerThread;
+  FitPiece f;
+  f.chunk = chunk_start + c;
+  f.chunk_row = lane.first_row + c * kChunk;
+  f.first_slice = static_cast<int>(q - c * kRowsPerThread);
+  f.chunk_slices = left < kRowsPerThread ? static_cast<int>(left) : kRowsPerThread;
+  const int64_t stop = u - f.first_slice + f.chunk_slices;
+  f.slices = static_cast<int>((stop < run_end ? stop : run_end) - u);
+  return f;
+}
+
+// row i's term, 0.0 where flagged, and its flag (also into flags[i])
+SID_HD double fit_row_term(const double* rec, int64_t n, int64_t i, const LynchScalars& s, uint8_t* flags,
+                           bool* flagged) {
+  const RowRecord r = read_record(rec, n, i);
+  const double log_mix = mixture_row(r, s, flagged);
+  flags[i] = *flagged ? 1 : 0;
+  return *flagged ? 0.0 : lynch_term(log_mix, r.mult);
+}
+
+// Thread t's share of the chunk that starts at row `first` from its rows'
+// terms and flags, in nll_rows_sum's order: rows first + k * kReduceThreads
+// + t for k = 0..kRowsPerThread-1 added from 0.0 (0.0 at or past end), the
+// flagged ones counted. On the card the terms are read from L2 (other
+// blocks wrote them).
+SID_HD double chunk_terms_sum(int64_t first, int64_t end, int t, const double* terms, const uint8_t* flags,
+                              int* n_flagged) {
+  double acc = 0.0;
+  int cnt = 0;
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int64_t i = first + static_cast<int64_t>(k) * kReduceThreads + t;
+    double term = 0.0;
+    if (i < end) {
+#ifdef __CUDA_ARCH__
+      term = __ldcg(terms + i);
+      cnt = cnt + __ldcg(flags + i);
+#else
+      term = terms[i];
+      cnt = cnt + flags[i];
+#endif
+    }
+    acc = acc + term;
+  }
+  *n_flagged = cnt;
+  return acc;
+}
 
 // a lane's state on the card
 template <int N>

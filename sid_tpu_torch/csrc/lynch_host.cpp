@@ -11,15 +11,16 @@
 // scalars. A sharded fit's objective on one device walks the device's
 // shard table as its launch does, block by block, and folds the fit's
 // chunk sums as that launch's last block does. The fit's loop on the card
-// (its graph: the start, then rounds of lynch_fit_lanes_kernel while a lane
-// runs) runs round by round, each lane's step where its last chunk is
-// folded, as the kernel's block does it.
+// (one launch of lynch_fit_lanes_kernel on a persistent grid) runs as its
+// blocks take their units, chunk sums, folds and steps, one block's step
+// at a time in an order the caller picks.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC \
 //       -o liblynch_host.so lynch_host.cpp
 #include <stdint.h>
 #include <string.h>
 
+#include <random>
 #include <vector>
 
 #include "lynch.cuh"
@@ -58,57 +59,141 @@ void fold_lane(const std::vector<double>& part_sum, const std::vector<int>& part
   tree_fold(v, c);
 }
 
+// A block of the fit's persistent grid as the shim runs it: its run of
+// units, its next unit (run_end when its round is done), its round,
+// whether a piece of its round had a running lane, whether it returned
+struct FitBlock {
+  int64_t run_begin = 0;
+  int64_t run_end = 0;
+  int64_t unit = 0;
+  uint32_t round = 0;
+  bool ran = false;
+  bool done = false;
+};
+
+// The fit's launch (lynch.cu lynch_fit_lanes_kernel) run in one thread:
+// the prologue starts the lanes; then, one step at a time, a block that
+// can go on takes its next piece (all of it: the rows' sum or terms and
+// flags, its chunk's ticket and sum, the lane's ticket, fold and step) or
+// ends its round. A block can go on unless its next piece's lane has not
+// published the block's round's point. `order` picks the block among those
+// that can: 0 the lowest, 1 the highest, 2 one drawn with a generator
+// seeded from `seed`. Returns the most evaluations of a lane, or -1 if no
+// block could go on while one had not returned.
 template <int N>
 long long fit_lanes(const double* rec, int64_t n, const sid::FitLane* lanes, int n_lanes, const double* starts,
                     double* scalars, double tol, int max_iterations, int dot_mode, double* history,
-                    int64_t history_entries, uint8_t* flags, double* results, int grid) {
+                    int64_t history_entries, uint8_t* flags, double* results, int grid, int order, uint64_t seed) {
   std::vector<sid::FitLaneState<N>> state(static_cast<size_t>(n_lanes));
+  // a lane's generation as the kernel's low word: (r << 2) | mode once its
+  // point of round r - 1 is published, kStopped once it stopped
+  constexpr uint32_t kStopped = 0xffffffffu;
+  std::vector<uint32_t> gen(static_cast<size_t>(n_lanes));
   for (int i = 0; i < n_lanes; ++i) {
     const double* st = starts + static_cast<int64_t>(i) * (2 * N + 1);
     sid::fit_start(state[i], st, st + N, st[2 * N], tol, max_iterations, dot_mode, scalars + 16 * static_cast<int64_t>(i));
+    gen[i] = (1u << 2) | static_cast<uint32_t>(state[i].mode);
   }
-  const int64_t total = lanes[n_lanes - 1].walk_end;
-  const int64_t blocks = total < grid ? total : grid;
-  std::vector<double> part_sum(static_cast<size_t>(total));
-  std::vector<int> part_cnt(static_cast<size_t>(total));
-  std::vector<int64_t> done(static_cast<size_t>(n_lanes), 0);
+  const int64_t total = lanes[n_lanes - 1].unit_end;
+  const int64_t n_chunks = lanes[n_lanes - 1].walk_end;
+  const bool whole_chunks = sid::fit_whole_chunks(n_chunks, grid);
+  const int64_t n_blocks = sid::fit_grid(total, n_chunks, grid);
+  std::vector<double> terms(static_cast<size_t>(n));
+  std::vector<double> part_sum(static_cast<size_t>(n_chunks));
+  std::vector<int> part_cnt(static_cast<size_t>(n_chunks));
+  std::vector<int> chunk_ticket(static_cast<size_t>(n_chunks), 0);
+  std::vector<int64_t> lane_ticket(static_cast<size_t>(n_lanes), 0);
   std::vector<double> v(sid::kReduceThreads);
   std::vector<int> c(sid::kReduceThreads);
-  int running = n_lanes;
-  long long rounds = 0;
-  while (running > 0) {
-    ++rounds;
-    for (int64_t b = 0; b < blocks; ++b) {
-      for (int64_t j = b; j < total; j += blocks) {
-        const int k = sid::slot_of(lanes, n_lanes, j);
-        const int mode = state[k].mode;
-        if (mode == sid::kFitIdle) continue;
-        const int64_t first_chunk = sid::walk_start(lanes, k);
-        const int64_t n_chunks = lanes[k].walk_end - first_chunk;
-        const sid::LynchScalars s = unpack(scalars + 16 * static_cast<int64_t>(k));
-        if (mode == sid::kFitRows) {
-          for (int t = 0; t < sid::kReduceThreads; ++t)
-            v[t] = sid::nll_rows_sum(lanes[k].first_row + (j - first_chunk) * sid::kChunk, lanes[k].end_row, t, rec,
-                                     n, s, flags, &c[t]);
-          tree_fold(v, c);
-          part_sum[static_cast<size_t>(j)] = v[0];
-          part_cnt[static_cast<size_t>(j)] = c[0];
+  std::vector<FitBlock> blocks(static_cast<size_t>(n_blocks));
+  for (int64_t b = 0; b < n_blocks; ++b) {
+    blocks[b].run_begin = blocks[b].unit = sid::fit_run_begin(lanes, n_lanes, b, n_blocks, whole_chunks);
+    blocks[b].run_end = sid::fit_run_begin(lanes, n_lanes, b + 1, n_blocks, whole_chunks);
+  }
+  std::mt19937_64 draw(seed);
+  std::vector<int64_t> ready;
+  for (;;) {
+    ready.clear();
+    for (int64_t b = 0; b < n_blocks; ++b) {
+      const FitBlock& fb = blocks[b];
+      if (fb.done) continue;
+      if (fb.unit >= fb.run_end) {
+        ready.push_back(b);
+        continue;
+      }
+      const uint32_t g = gen[sid::unit_lane(lanes, n_lanes, fb.unit)];
+      if (g >= (fb.round + 1) << 2) ready.push_back(b);
+    }
+    if (ready.empty()) break;
+    const size_t pick = order == 0 ? 0 : order == 1 ? ready.size() - 1 : static_cast<size_t>(draw() % ready.size());
+    FitBlock& fb = blocks[ready[pick]];
+    if (fb.unit >= fb.run_end) {
+      // the round's end: another round, or return
+      if (!fb.ran) {
+        fb.done = true;
+        continue;
+      }
+      fb.round += 1;
+      fb.unit = fb.run_begin;
+      fb.ran = false;
+      continue;
+    }
+    const int k = sid::unit_lane(lanes, n_lanes, fb.unit);
+    const sid::FitPiece f =
+        sid::fit_piece(lanes[k], k > 0 ? lanes[k - 1].unit_end : 0, sid::walk_start(lanes, k), fb.unit, fb.run_end);
+    fb.unit += f.slices;
+    const int mode = gen[k] == kStopped ? static_cast<int>(sid::kFitIdle) : static_cast<int>(gen[k] & 3u);
+    if (mode == sid::kFitIdle) continue;
+    fb.ran = true;
+    const int64_t end = lanes[k].end_row;
+    const sid::LynchScalars s = unpack(scalars + 16 * static_cast<int64_t>(k));
+    const size_t chunk = static_cast<size_t>(f.chunk);
+    // the piece's rows' terms; the piece that completes its chunk sums them
+    if (mode == sid::kFitRows) {
+      for (int k = f.first_slice; k < f.first_slice + f.slices; ++k) {
+        for (int t = 0; t < sid::kReduceThreads; ++t) {
+          const int64_t i = f.chunk_row + static_cast<int64_t>(k) * sid::kReduceThreads + t;
+          bool flagged;
+          if (i < end) terms[static_cast<size_t>(i)] = sid::fit_row_term(rec, n, i, s, flags, &flagged);
         }
-        if (++done[k] < n_chunks) continue;
-        done[k] = 0;
-        double acc = 0.0;
-        int cnt = 0;
-        if (mode == sid::kFitRows) {
-          fold_lane(part_sum, part_cnt, first_chunk, n_chunks, v, c);
-          acc = v[0];
-          cnt = c[0];
-        }
-        const int64_t kk = k;
-        if (sid::fit_take(state[k], acc, cnt, scalars + 16 * kk, history + kk * history_entries * sid::kHistoryWidth<N>,
-                          results + kk * sid::kResultWidth<N>))
-          --running;
       }
     }
+    if (f.slices != f.chunk_slices) {
+      chunk_ticket[chunk] += f.slices;
+      if (chunk_ticket[chunk] < f.chunk_slices) continue;
+      chunk_ticket[chunk] = 0;
+    }
+    if (mode == sid::kFitRows) {
+      for (int t = 0; t < sid::kReduceThreads; ++t)
+        v[t] = sid::chunk_terms_sum(f.chunk_row, end, t, terms.data(), flags, &c[t]);
+      tree_fold(v, c);
+      part_sum[chunk] = v[0];
+      part_cnt[chunk] = c[0];
+    }
+    const int64_t first_chunk = k > 0 ? lanes[k - 1].walk_end : 0;
+    const int64_t n_lane_chunks = lanes[k].walk_end - first_chunk;
+    if (++lane_ticket[k] < n_lane_chunks) continue;
+    lane_ticket[k] = 0;
+    double acc = 0.0;
+    int cnt = 0;
+    if (mode == sid::kFitRows) {
+      fold_lane(part_sum, part_cnt, first_chunk, n_lane_chunks, v, c);
+      acc = v[0];
+      cnt = c[0];
+    }
+    const int64_t kk = k;
+    const bool stopped = sid::fit_take(state[k], acc, cnt, scalars + 16 * kk,
+                                       history + kk * history_entries * sid::kHistoryWidth<N>,
+                                       results + kk * sid::kResultWidth<N>);
+    gen[k] = stopped ? kStopped : ((fb.round + 2) << 2) | static_cast<uint32_t>(state[k].mode);
+  }
+  long long rounds = 0;
+  for (int i = 0; i < n_lanes; ++i) {
+    if (gen[i] != kStopped) return -1;  // a lane never stopped: the blocks deadlocked
+    rounds = state[i].evaluations > rounds ? state[i].evaluations : rounds;
+  }
+  for (const FitBlock& fb : blocks) {
+    if (!fb.done) return -1;
   }
   return rounds;
 }
@@ -311,23 +396,27 @@ void sid_lynch_nll_lanes_host(const double* rec, int64_t n, const void* slots, i
 
 int sid_lynch_fit_lane_bytes_host() { return static_cast<int>(sizeof(sid::FitLane)); }
 
-// The fit's loop on the card, as its graph runs it with a grid of `grid`
-// blocks a round (lynch.cu sid_lynch_fit_graph_create): lanes (n_lanes)
-// FitLane over a record of n rows; starts (n_lanes, 2 dims + 1): x0, step,
-// the fixed epsilon of a 1-D fit; scalars (n_lanes, 16), the eleven fixed
-// ones in place (the five theta ones written); history (n_lanes,
-// history_entries, dims + 2); results (n_lanes, dims + 5); flags (n,).
-// Returns the rounds (the kernel's launches).
+int sid_lynch_fit_unit_rows_host() { return sid::kUnitRows; }
+
+// The fit's loop on the card, as its launch runs it with a grid of `grid`
+// blocks (lynch.cu lynch_fit_lanes_kernel), the blocks taking their steps
+// in `order` (0 the lowest block that can go on, 1 the highest, 2 drawn
+// from `seed`): lanes (n_lanes) FitLane over a record of n rows; starts
+// (n_lanes, 2 dims + 1): x0, step, the fixed epsilon of a 1-D fit; scalars
+// (n_lanes, 16), the eleven fixed ones in place (the five theta ones
+// written); history (n_lanes, history_entries, dims + 2); results
+// (n_lanes, dims + 5); flags (n,). Returns the rounds (the most
+// evaluations of a lane), or -1 if the blocks deadlocked.
 long long sid_lynch_fit_lanes_host(int dims, const double* rec, int64_t n, const void* lanes, int n_lanes,
                                    const double* starts, double* scalars, double tol, int max_iterations,
                                    int dot_mode, double* history, int64_t history_entries, uint8_t* flags,
-                                   double* results, int grid) {
+                                   double* results, int grid, int order, uint64_t seed) {
   const sid::FitLane* fl = static_cast<const sid::FitLane*>(lanes);
   if (dims == 1)
     return fit_lanes<1>(rec, n, fl, n_lanes, starts, scalars, tol, max_iterations, dot_mode, history,
-                        history_entries, flags, results, grid);
+                        history_entries, flags, results, grid, order, seed);
   return fit_lanes<2>(rec, n, fl, n_lanes, starts, scalars, tol, max_iterations, dot_mode, history,
-                      history_entries, flags, results, grid);
+                      history_entries, flags, results, grid, order, seed);
 }
 
 // The lanes' marginals over a cohort's record of n rows, as the launches

@@ -8,9 +8,9 @@ estimateProfileGenotypeLikelihoods (lynch.cpp:17-35) runs as one of two fits:
 - the device fit (``fit_lynch``): nmsimplex2 over the compound objective
   on the options' device, then the marginals at the fitted epsilon
   (kernel B4). The profiles, their multiplicities and the lgamma table are
-  uploaded once. On a card the whole loop runs there, one CUDA graph
-  launch (``ops/lynch_objective.py`` ``LynchFitWorkspace``: each
-  evaluation one launch of the fit's kernel, whose last block takes the
+  uploaded once. On a card the whole loop runs there, one launch of the
+  fit's kernel (``ops/lynch_objective.py`` ``LynchFitWorkspace``: its
+  blocks run every evaluation, and the block that completes one takes the
   simplex's step); on the CPU, its plain version, the host loop over B2's.
 
 The reference multiplies linear long doubles, so at deep coverage a row's
@@ -142,7 +142,7 @@ class DeviceObjective:
     def minimize(self, start, step) -> MinimizeResult:
         """nmsimplex2 over this objective from ``start`` with ``step``. Over
         one device's workspace the loop is ``LynchFitWorkspace``'s (one
-        graph launch on a card; its plain version on the CPU); a fit it
+        launch on a card; its plain version on the CPU); a fit it
         hands over goes on in the host's loop from the replayed history.
         Over a mesh, the host's loop."""
         if not isinstance(self.work, lynch_objective.LynchWorkspace):
@@ -250,7 +250,7 @@ class LanesObjective:
     def minimize(self, start, step) -> List[MinimizeResult]:
         """Every lane's nmsimplex2 fit from ``start`` with ``step`` (1-D
         fits of pi at ``eps`` when the objective holds one):
-        ``LynchFitWorkspace``'s loop over the lanes (one graph launch on a
+        ``LynchFitWorkspace``'s loop over the lanes (one launch on a
         card; its plain version on the CPU); the lanes it hands over go on
         in the host's lockstep over this objective from their replayed
         histories."""

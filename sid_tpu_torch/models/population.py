@@ -12,9 +12,9 @@ samples' cov >= 4 profile histograms:
 
 sid_tpu vmaps one nmsimplex2 while-loop per sample over the sample axis.
 Here the cohort's fits run as lanes of one loop on the device
-(``LanesObjective.minimize``: on a card one CUDA graph, each round one
-launch of the fit's kernel for every sample still fitting, whose blocks
-also take each lane's simplex step; on the CPU its plain version), and
+(``LanesObjective.minimize``: on a card one launch of the fit's kernel,
+whose blocks run each sample's evaluations and take each lane's simplex
+step as soon as its evaluation is in; on the CPU its plain version), and
 each sample's fit is the one ``fit_lynch``'s objective would give alone,
 with the long-double terms of the rows the range screen flags (sid_tpu's
 population fits have no screen: fault C4 in ROADMAP.md): a lane whose

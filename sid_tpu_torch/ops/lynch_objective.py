@@ -51,11 +51,12 @@ call. Its plain version, ``lynch_nll_shards_ref``, is
 A ``LynchFitWorkspace`` runs whole fits on the card (B3, sid_tpu's
 ``ops/nmsimplex.py:287`` while-loop around B2): S >= 1 nmsimplex2
 minimizations (lanes) over the row record of a ``LynchWorkspace`` (one
-lane) or a ``LynchLanesWorkspace``, each launch of the fit's kernel one
-evaluation of every running lane, its last block a lane's simplex step
-(``csrc/nmsimplex.cuh``, bitwise ``exact/nmsimplex.py``), the whole loop one
-CUDA graph built and instantiated with the workspace (``run``: one graph
-launch, one copy of the lanes' results, one sync). A lane stops at its
+lane) or a ``LynchLanesWorkspace``, the whole loop one cooperative launch
+of the fit's kernel on a persistent grid (``run``: one launch, one copy of
+the lanes' results, one sync): its blocks run each lane's rounds, each an
+evaluation of the lane's objective whose last block takes the lane's
+simplex step (``csrc/nmsimplex.cuh``, bitwise ``exact/nmsimplex.py``) and
+publishes its next point. A lane stops at its
 end or at its first evaluation that flags rows for the long-double
 replay (a handover: ``history`` gives its points and values for
 ``exact.nmsimplex.replay``, and the host's loop goes on). Its plain
@@ -65,11 +66,11 @@ version, ``lynch_fit_lanes_ref``, is the host loop over
 ``RECORD_LAUNCHES``, ``NLL_LAUNCHES``, ``MARGINALS_LAUNCHES``,
 ``NLL_LANES_LAUNCHES``, ``MARGINALS_LANES_LAUNCHES``,
 ``NLL_SHARDS_LAUNCHES`` and ``FIT_LANES_LAUNCHES`` count kernel launches
-(not plain-version calls; the fit's from the round count its graph keeps
-on the card), ``FIT_GRAPH_LAUNCHES`` the fits' graph launches and
-``FIT_HANDOVERS`` the lanes handed to the host's loop, so a run can show
-that it went through the kernels; the kernel library keeps its own count
-(``kernel_launches``).
+(not plain-version calls; the fit's kernel once a fit), ``FIT_LAUNCHES``
+the fits launched and run to their results, ``FIT_ROUNDS`` their rounds
+(each lane's most evaluations) and ``FIT_HANDOVERS`` the lanes handed to
+the host's loop, so a run can show that it went through the kernels; the
+kernel library keeps its own count (``kernel_launches``).
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ NLL_LANES_LAUNCHES = 0
 MARGINALS_LANES_LAUNCHES = 0
 NLL_SHARDS_LAUNCHES = 0
 FIT_LANES_LAUNCHES = 0
-FIT_GRAPH_LAUNCHES = 0
+FIT_LAUNCHES = 0
+FIT_ROUNDS = 0
 FIT_HANDOVERS = 0
 
 # counts arrive as uint16; the record packs them so
@@ -117,11 +119,15 @@ SHARDS_PER_LAUNCH = 32
 # one copy the fold device's call makes before its launch (csrc/lynch.cu
 # PeerPull): after the event, bytes from src on src_device into dst
 PEER_PULL = np.dtype([("event", "<u8"), ("dst", "<u8"), ("src", "<u8"), ("bytes", "<i8"), ("src_device", "<i8")])
-# one lane of a fit on the card (csrc/lynch.cuh FitLane): its rows and the
-# end of its chunks in the walk over every lane's chunks
-FIT_LANE = np.dtype([("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8")])
+# one lane of a fit on the card (csrc/lynch.cuh FitLane): its rows, the
+# end of its chunks in the walk over every lane's chunks and of its units
+# in the walk over every lane's units
+FIT_LANE = np.dtype([("first_row", "<i8"), ("end_row", "<i8"), ("walk_end", "<i8"), ("unit_end", "<i8")])
 # a fit lane's status (csrc/lynch.cuh FitStatus)
 FIT_DONE, FIT_HANDOVER = 1, 2
+# the longest a block of the fit's kernel waits for a lane's next point
+# before the launch ends with an error (ns): far above any round
+FIT_WAIT_NS = 10_000_000_000
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -323,8 +329,11 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
         ("sid_lynch_nll_shards_launch", [p, i32, p, p, p, i64, p, p, i32, p, i32, p, i32, p, p]),
         ("sid_lynch_fit_lane_bytes", []),
         ("sid_lynch_fit_state_bytes", [i32]),
-        ("sid_lynch_fit_graph_create", [i32, p, i64, p, i32, i64, p, p, p, p, i64, p, p, p, p, p, p,
-                                        ctypes.c_double, i32, i32, p]),
+        ("sid_lynch_fit_unit_rows", []),
+        ("sid_lynch_fit_timed_out", []),
+        ("sid_lynch_fit_create", [i32, p, i64, p, i32, p, p, p, p, i64, p, p, p, p, p, p, p, p, p, i64, i64,
+                                  ctypes.c_double, i32, i32, i64, p]),
+        ("sid_lynch_fit_grid", [p]),
         ("sid_lynch_fit_run", [p, p, p, p]),
         ("sid_lynch_fit_enqueue", [p, p]),
     ):
@@ -333,10 +342,10 @@ def load_kernel_library(path: str) -> ctypes.CDLL:
         fn.argtypes = args
     lib.sid_lynch_launches.restype = ctypes.c_longlong
     lib.sid_lynch_launches.argtypes = [i32]
-    lib.sid_lynch_fit_graphs.restype = ctypes.c_longlong
-    lib.sid_lynch_fit_graphs.argtypes = []
-    lib.sid_lynch_fit_graph_destroy.restype = None
-    lib.sid_lynch_fit_graph_destroy.argtypes = [p]
+    lib.sid_lynch_fits.restype = ctypes.c_longlong
+    lib.sid_lynch_fits.argtypes = []
+    lib.sid_lynch_fit_destroy.restype = None
+    lib.sid_lynch_fit_destroy.argtypes = [p]
     lib.sid_lynch_error_string.restype = ctypes.c_char_p
     lib.sid_lynch_error_string.argtypes = [i32]
     if lib.sid_lynch_chunk_rows() != likelihoods.CHUNK_ROWS:
@@ -377,11 +386,11 @@ def blocks_per_sm(device) -> dict:
 def kernel_launches() -> dict:
     """The kernel library's own launch counts since it was loaded, by
     kernel: {"records": n, "nll": n, "marginals": n, "nll_lanes": n,
-    "marginals_lanes": n, "nll_shards": n, "fit_lanes": n}, and the fits'
-    graph launches as "fit_graphs"."""
+    "marginals_lanes": n, "nll_shards": n, "fit_lanes": n}, and the fits
+    run to their results as "fits"."""
     lib = _kernel_lib()
     out = {name: lib.sid_lynch_launches(k) for k, name in enumerate(KERNELS)}
-    out["fit_graphs"] = lib.sid_lynch_fit_graphs()
+    out["fits"] = lib.sid_lynch_fits()
     return out
 
 
@@ -1003,6 +1012,18 @@ def clamp_total(total: float) -> float:
     return total
 
 
+def fit_lane_table(offsets: np.ndarray, unit_rows: int) -> np.ndarray:
+    """The lanes' FIT_LANE table of a fit over lanes of rows offsets[l] ..
+    offsets[l+1]-1: the running totals of their chunks and of their units
+    of ``unit_rows`` rows (csrc/lynch.cuh lane_chunks, FitLane)."""
+    sizes = np.diff(np.asarray(offsets, np.int64))
+    table = np.zeros(sizes.shape[0], FIT_LANE)
+    table["first_row"], table["end_row"] = offsets[:-1], offsets[1:]
+    table["walk_end"] = np.cumsum(likelihoods.lane_chunks(sizes))
+    table["unit_end"] = np.cumsum(likelihoods.lane_chunks(sizes, unit_rows))
+    return table
+
+
 def history_entries(dims: int, max_iterations: int) -> int:
     """The most evaluations a lane of nmsimplex2 in ``dims`` dimensions
     makes: P = dims + 1 for the start, at most P + 1 an iteration
@@ -1016,7 +1037,7 @@ class FitLanes:
     ``x`` (S, N), ``fval``, ``converged``, ``iterations`` (of a lane that
     ended; a handed-over lane's are unset), ``evaluations`` (its history
     entries) and ``status`` (FIT_DONE or FIT_HANDOVER); ``rounds``, the
-    launches of the fit's kernel (the most evaluations of a lane)."""
+    most evaluations of a lane."""
     x: np.ndarray
     fval: np.ndarray
     converged: np.ndarray
@@ -1026,11 +1047,13 @@ class FitLanes:
     rounds: int
 
     @classmethod
-    def from_rows(cls, rows: np.ndarray, dims: int, rounds: int) -> "FitLanes":
-        """From the kernel's (S, N + 5) result rows (csrc/lynch.cuh fit_result)."""
+    def from_rows(cls, rows: np.ndarray, dims: int, rounds: Optional[int] = None) -> "FitLanes":
+        """From the kernel's (S, N + 5) result rows (csrc/lynch.cuh
+        fit_result); ``rounds`` by default the most evaluations of a lane."""
+        evaluations = rows[:, dims + 3].astype(np.int64)
         return cls(rows[:, :dims].copy(), rows[:, dims].copy(), rows[:, dims + 1] != 0,
-                   rows[:, dims + 2].astype(np.int64), rows[:, dims + 3].astype(np.int64),
-                   rows[:, dims + 4].astype(np.int64), int(rounds))
+                   rows[:, dims + 2].astype(np.int64), evaluations, rows[:, dims + 4].astype(np.int64),
+                   int(evaluations.max()) if rounds is None else int(rounds))
 
     def result(self, lane: int) -> nmsimplex.MinimizeResult:
         """The minimizer's result of a lane that ended on the card."""
@@ -1065,9 +1088,7 @@ def lynch_fit_lanes_ref(
     history = np.zeros((n_lanes, history_entries(dims, max_iterations), dims + 2))
     rows = np.zeros((n_lanes, dims + 5))
     flags = torch.zeros(profiles.shape[0], dtype=torch.uint8, device=profiles.device)
-    rounds = 0
     while pending:
-        rounds += 1
         lanes = sorted(pending)
         thetas = {k: (float(pending[k][0]), float(pending[k][dims - 1]) if dims == 2 else float(starts[k, 2]))
                   for k in lanes}
@@ -1101,7 +1122,7 @@ def lynch_fit_lanes_ref(
                 rows[k, dims : dims + 3] = res.fval, res.converged, res.iterations
                 rows[k, dims + 4] = FIT_DONE
                 del pending[k]
-    return FitLanes.from_rows(rows, dims, rounds), history, flags
+    return FitLanes.from_rows(rows, dims), history, flags
 
 
 class LynchFitWorkspace:
@@ -1113,19 +1134,20 @@ class LynchFitWorkspace:
     ``max_iterations``.
 
     On a CUDA device the workspace uploads the lanes' table, starts and
-    fixed scalars once, allocates the lanes' state, histories and results,
-    and builds and instantiates the fit's graph (csrc/lynch.cu
-    ``sid_lynch_fit_graph_create``) on ``work``'s device; ``run`` launches
-    it on ``work``'s stream, copies the lanes' results and the round count
-    into pinned memory and syncs once. The rows' flags land in
-    ``work.flags`` as B2's do (a handed-over lane's: those of its flagged
-    evaluation). On the CPU ``run`` is the plain version,
+    fixed scalars once, allocates the lanes' state, histories, results, the
+    rows' terms, tickets and generations, and plans the fit's launch
+    (csrc/lynch.cu ``sid_lynch_fit_create``: its grid, every block resident)
+    on ``work``'s device; ``run`` launches it on ``work``'s stream, copies
+    the lanes' results into pinned memory and syncs once, and raises if a
+    block's wait for a lane timed out (after ``wait_ns``). The rows' flags
+    land in ``work.flags`` as B2's do (a handed-over lane's: those of its
+    flagged evaluation). On the CPU ``run`` is the plain version,
     ``lynch_fit_lanes_ref``. A fit on the card uses numpy's dot rounding
     (``exact.nmsimplex.dot_mode``), so its points are the host loop's.
     """
 
     def __init__(self, work, starts, nts, tol: float = nmsimplex.TOL,
-                 max_iterations: int = nmsimplex.MAX_ITERATIONS):
+                 max_iterations: int = nmsimplex.MAX_ITERATIONS, wait_ns: int = FIT_WAIT_NS):
         self.work = work
         self.starts = np.ascontiguousarray(starts, np.float64)
         if self.starts.ndim != 2 or self.starts.shape[1] not in (3, 5):
@@ -1140,7 +1162,7 @@ class LynchFitWorkspace:
         self.tol, self.max_iterations = float(tol), int(max_iterations)
         self.entries = history_entries(dims, self.max_iterations)
         self.device = device = work.device
-        self._graph = None
+        self._plan = None
         self._history_ref: Optional[np.ndarray] = None
         self.last: Optional[FitLanes] = None  # the last run's
         if device.type == "cpu":
@@ -1148,13 +1170,11 @@ class LynchFitWorkspace:
         lib = self._lib = _kernel_lib()
         if lib.sid_lynch_fit_state_bytes(dims) <= 0:
             raise RuntimeError(f"no fit state for {dims} dimensions")
-        table = np.zeros(s, FIT_LANE)
-        table["first_row"] = self.offsets[:-1]
-        table["end_row"] = self.offsets[1:]
-        table["walk_end"] = np.cumsum(likelihoods.lane_chunks(np.diff(self.offsets)))
-        n_chunks = int(table["walk_end"][-1])
+        table = fit_lane_table(self.offsets, lib.sid_lynch_fit_unit_rows())
+        n_chunks, n_units = int(table["walk_end"][-1]), int(table["unit_end"][-1])
         if work.part_sum.shape[0] < n_chunks:
             raise ValueError("the workspace's chunk sums do not cover the lanes' walk")
+        n = work.records.shape[1]
         with torch.cuda.device(device):
             self.stream = work.stream
             up = dict(device=device, non_blocking=False)
@@ -1163,31 +1183,35 @@ class LynchFitWorkspace:
             self._scalars = torch.from_numpy(self.scalars).to(**up)
             self._state = torch.zeros(s * lib.sid_lynch_fit_state_bytes(dims), dtype=torch.uint8, device=device)
             self.history_dev = torch.zeros((s, self.entries, dims + 2), dtype=torch.float64, device=device)
-            self._ticket = torch.zeros(s, dtype=torch.int32, device=device)
+            self._terms = torch.empty(max(n, 1), dtype=torch.float64, device=device)
+            self._chunk_ticket = torch.zeros(n_chunks, dtype=torch.int32, device=device)
+            self._lane_ticket = torch.zeros(s, dtype=torch.int32, device=device)
+            self._gen = torch.zeros(s, dtype=torch.int64, device=device)
             self._results = torch.zeros((s, dims + 5), dtype=torch.float64, device=device)
             self._counters = torch.zeros(2, dtype=torch.int64, device=device)
             self._results_host = torch.empty((s, dims + 5), dtype=torch.float64, pin_memory=True)
             self._counters_host = torch.empty(2, dtype=torch.int64, pin_memory=True)
-            graph = ctypes.c_void_p()
-            err = lib.sid_lynch_fit_graph_create(
-                dims, work.records.data_ptr(), work.records.shape[1], self._table.data_ptr(), s, n_chunks,
-                self._starts.data_ptr(), self._state.data_ptr(), self._scalars.data_ptr(), self.history_dev.data_ptr(),
-                self.entries, work.flags.data_ptr(), work.part_sum.data_ptr(), work.part_cnt.data_ptr(),
-                self._ticket.data_ptr(), self._results.data_ptr(), self._counters.data_ptr(), self.tol,
-                self.max_iterations, nmsimplex.dot_mode(), ctypes.byref(graph))
-            _raise_on(lib, err, "Lynch fit graph")
-            self._graph = graph.value
+            plan = ctypes.c_void_p()
+            err = lib.sid_lynch_fit_create(
+                dims, work.records.data_ptr(), n, self._table.data_ptr(), s, self._starts.data_ptr(),
+                self._state.data_ptr(), self._scalars.data_ptr(), self.history_dev.data_ptr(), self.entries,
+                work.flags.data_ptr(), self._terms.data_ptr(), work.part_sum.data_ptr(), work.part_cnt.data_ptr(),
+                self._chunk_ticket.data_ptr(), self._lane_ticket.data_ptr(), self._gen.data_ptr(),
+                self._results.data_ptr(), self._counters.data_ptr(), n_units, n_chunks, self.tol,
+                self.max_iterations, nmsimplex.dot_mode(), int(wait_ns), ctypes.byref(plan))
+            _raise_on(lib, err, "Lynch fit plan")
+            self._plan = plan.value
+            self.grid = lib.sid_lynch_fit_grid(self._plan)
 
     def __del__(self):
-        if getattr(self, "_graph", None):
-            self._lib.sid_lynch_fit_graph_destroy(self._graph)
-            self._graph = None
+        if getattr(self, "_plan", None):
+            self._lib.sid_lynch_fit_destroy(self._plan)
+            self._plan = None
 
     def run(self) -> FitLanes:
-        """Every lane's fit from its start: on a card one graph launch, one
-        copy of the results, one stream sync; on the CPU the plain
-        version."""
-        global FIT_GRAPH_LAUNCHES, FIT_LANES_LAUNCHES, FIT_HANDOVERS
+        """Every lane's fit from its start: on a card one launch, one copy
+        of the results, one stream sync; on the CPU the plain version."""
+        global FIT_LAUNCHES, FIT_LANES_LAUNCHES, FIT_ROUNDS, FIT_HANDOVERS
         w = self.work
         if self.device.type == "cpu":
             out, self._history_ref, flags = lynch_fit_lanes_ref(
@@ -1196,24 +1220,26 @@ class LynchFitWorkspace:
             w.flags = flags
         else:
             with torch.cuda.device(self.device):
-                err = self._lib.sid_lynch_fit_run(self._graph, self._results_host.data_ptr(),
+                err = self._lib.sid_lynch_fit_run(self._plan, self._results_host.data_ptr(),
                                                   self._counters_host.data_ptr(), self.stream.cuda_stream)
+            if err in (0, self._lib.sid_lynch_fit_timed_out()):
+                FIT_LANES_LAUNCHES += 1  # the kernel ran (to its end, or to a timed-out wait)
             _raise_on(self._lib, err, "Lynch fit")
-            out = FitLanes.from_rows(self._results_host.numpy(), self.dims, int(self._counters_host[1]))
-            FIT_GRAPH_LAUNCHES += 1
-            FIT_LANES_LAUNCHES += out.rounds
+            out = FitLanes.from_rows(self._results_host.numpy(), self.dims)
+            FIT_LAUNCHES += 1
+            FIT_ROUNDS += out.rounds
         FIT_HANDOVERS += int((out.status == FIT_HANDOVER).sum())
         self.last = out
         return out
 
     def launch(self) -> None:
-        """Enqueue the fit's graph again and return at once, with no copy
-        of results: the loop on the card alone, for timing it."""
-        global FIT_GRAPH_LAUNCHES
+        """Launch the fit again and return at once, with no copy of
+        results: the loop on the card alone, for timing it."""
+        global FIT_LANES_LAUNCHES
         with torch.cuda.device(self.device):
-            err = self._lib.sid_lynch_fit_enqueue(self._graph, self.stream.cuda_stream)
+            err = self._lib.sid_lynch_fit_enqueue(self._plan, self.stream.cuda_stream)
         _raise_on(self._lib, err, "Lynch fit")
-        FIT_GRAPH_LAUNCHES += 1
+        FIT_LANES_LAUNCHES += 1
 
     def history(self, lanes: Sequence[int]):
         """The histories of ``lanes`` in the last ``run``, each as (points

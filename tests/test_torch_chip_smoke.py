@@ -2,7 +2,8 @@
 
 The design-variant builds edit the kernel sources by text substitution
 (``LANE_VARIANTS``, ``B5_VARIANTS``, ``BH_VARIANTS``, ``LRT_VARIANTS``,
-``B6_LRT_VARIANTS``, ``scripts/local_classify_variants.py``); a source edit that moves the text
+``B6_LRT_VARIANTS``, ``FIT_VARIANTS``, ``FIT_STAMPS``,
+``scripts/local_classify_variants.py``); a source edit that moves the text
 would only fail on the card, so these hold them here. ``row_counts`` reads
 kernels that load nothing (the BH scan's zeroing kernel) as a whole. The scale-out
 phases' inputs (chromosomes named by the Phred writer) and their kernel
@@ -51,7 +52,7 @@ def test_local_classify_variant_texts_are_in_the_source_once(name):
 
 
 VARIANT_TABLES = {"B5_VARIANTS": "local_classify.cu", "BH_VARIANTS": "lrt_bh.cu", "LRT_VARIANTS": "lrt_bh.cu",
-                  "B6_LRT_VARIANTS": "quality_finalize.cu", "SHARD_VARIANTS": "lynch.cu"}
+                  "B6_LRT_VARIANTS": "quality_finalize.cu", "SHARD_VARIANTS": "lynch.cu", "FIT_VARIANTS": "lynch.cu"}
 
 
 @pytest.mark.parametrize("table, name", [(t, n) for t in VARIANT_TABLES for n in getattr(chip_smoke, t)])
@@ -330,6 +331,52 @@ def test_phase_17_runs_in_main():
                                  'print(json.dumps({"kernels"')]
     assert at == sorted(at)
     assert '"replaces": "sid_tpu/ops/nmsimplex.py:287"' in inspect.getsource(chip_smoke.device_loop_phase)
+
+
+def test_fit_stamps_change_lynch_cu():
+    """FIT_STAMPS's texts are each in csrc/lynch.cu once (after the earlier
+    substitutions), and the build they make exports the stamp table's
+    functions and stamps all four points of a round."""
+    texts = chip_smoke.variant_texts(CSRC, "lynch.cu", chip_smoke.FIT_STAMPS)
+    text = texts["lynch.cu"]
+    for _, old, new in chip_smoke.FIT_STAMPS:
+        assert old != new and new in text
+    assert 'extern "C" int sid_stamps_reset()' in text and 'extern "C" int sid_stamps_read(void* host)' in text
+    for point in range(4):
+        assert f"&g_stamps[min(b.round, 4095u)][{point}]" in text
+    assert "4096" in chip_smoke._STAMP_DECLS and chip_smoke.STAMP_ROUNDS == 4096
+
+
+def test_committed_fit_design_is_a_variant():
+    """FIT_VARIANTS holds the committed kernel as it is, and its run,
+    row loop and launch bound texts are the committed ones."""
+    assert list(chip_smoke.FIT_VARIANTS.values())[0] == []
+    assert source("lynch.cu").count(chip_smoke._RUNS) == 1 and source("lynch.cu").count(chip_smoke._GRID) == 1
+    assert source("lynch.cu").count(chip_smoke._PIECE_LOOP) == 1
+    assert source("lynch.cu").count(chip_smoke._WHOLE) == 1 and source("lynch.cu").count(chip_smoke._SUM) == 1
+    assert source("lynch.cu").count(chip_smoke._FIT_BLOCKS) == 1
+
+
+def test_stamp_split():
+    """A fit's rounds from a stamp table: the row phase, fold, step and the
+    gap to the next round's start, medians and totals in ms."""
+    stamps = np.zeros((chip_smoke.STAMP_ROUNDS, 4), np.uint64)
+    for r in range(3):
+        base = 100_000 * r
+        stamps[r] = [base, base + 40_000, base + 42_000, base + 45_000]
+    split = chip_smoke.stamp_split(stamps, 3)
+    assert split["rounds"] == 3 and split["whole_ms"] == pytest.approx(0.245)
+    assert split["row_ms"] == pytest.approx(0.040) and split["fold_ms"] == pytest.approx(0.002)
+    assert split["step_ms"] == pytest.approx(0.003) and split["gap_ms"] == pytest.approx(0.055)
+    assert split["gap_total_ms"] == pytest.approx(0.110) and split["row_total_ms"] == pytest.approx(0.120)
+    assert "3 rounds" in chip_smoke.split_line(split)
+
+
+def test_fit_registers():
+    report = {"_Z22lynch_fit_lanes_kernelILi1EEv": {"registers": 80, "spill_stores": 0, "spill_loads": 0},
+              "_Z22lynch_fit_lanes_kernelILi2EEv": {"registers": 72, "spill_stores": 8, "spill_loads": 4},
+              "_Z16lynch_nll_kernel": {"registers": 64, "spill_stores": 0, "spill_loads": 0}}
+    assert chip_smoke.fit_registers(report) == {"1-D": (80, 0), "2-D": (72, 12)}
 
 
 def test_ulps_and_visits():

@@ -16,11 +16,14 @@ nvcc --fmad=false) and these tests drive it point by point:
   on the same jitted objectives;
 - its dot products against numpy's (``dot_mode``), its five theta scalars
   against ``likelihoods.theta_scalars``;
-- ``lynch_host.cpp``'s copy of the whole loop on the card (rounds of the
-  fit's kernel, each lane's step in the block that folds it, handovers)
-  against the plain version ``lynch_fit_lanes_ref``: results, histories,
-  rounds and flags bitwise, for cohorts with empty, 1-row and deep lanes,
-  in 1-D and 2-D, over several grids;
+- ``lynch_host.cpp``'s copy of the whole loop on the card (the fit
+  kernel's persistent grid: each block's rounds over its units, the
+  chunks' and lanes' elections, each lane's step in the block that folds
+  it, handovers) against the plain version ``lynch_fit_lanes_ref``:
+  results, histories, rounds and flags bitwise, for cohorts with empty,
+  1-row and deep lanes, in 1-D and 2-D, over grids of 1, 7 and 396 blocks
+  whose steps are taken in three orders (lowest block first, highest
+  first, a seeded draw);
 - ``replay`` cut at every evaluation of a Lynch fit (a C2 input included)
   against the uninterrupted host loop, and the device fit and the cohort's
   fits through ``LynchFitWorkspace`` (its plain version here) against the
@@ -94,9 +97,10 @@ def fit_shim(tmp_path_factory):
     lib = ctypes.CDLL(_g_plus_plus(tmp_path_factory, "lynch_host.cpp", "liblynch_host.so"))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.sid_lynch_fit_lane_bytes_host.argtypes, lib.sid_lynch_fit_lane_bytes_host.restype = [], i32
+    lib.sid_lynch_fit_unit_rows_host.argtypes, lib.sid_lynch_fit_unit_rows_host.restype = [], i32
     lib.sid_lynch_fit_lanes_host.restype = ctypes.c_longlong
     lib.sid_lynch_fit_lanes_host.argtypes = [i32, p, i64, p, i32, p, p, ctypes.c_double, i32, i32, p, i64, p, p,
-                                             i32]
+                                             i32, i32, ctypes.c_uint64]
     lib.sid_lynch_records_host.argtypes = [p, p, p, i32, i64, p]
     lib.sid_lynch_records_host.restype = None
     return lib
@@ -252,20 +256,27 @@ def _plain_fit(deep, dims):
     return (prof, mult, off, scal, tab.numpy()), out
 
 
-@pytest.mark.parametrize("grid", [1, 396])
+# the orders in which the shim's blocks take their steps: the lowest block
+# that can go on, the highest, one drawn from a seed
+ORDERS = {"forward": 0, "reverse": 1, "shuffle": 2}
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+@pytest.mark.parametrize("grid", [1, 7, 396])
 @pytest.mark.parametrize("dims", [1, 2])
 @pytest.mark.parametrize("deep", [False, True])
-def test_kernel_loop_is_the_plain_version(fit_shim, deep, dims, grid):
-    """lynch_host.cpp's copy of the fit's graph (the start, then rounds of
-    lynch_fit_lanes_kernel, each lane stepped by the block that folds it)
-    against lynch_fit_lanes_ref: results, statuses, histories, rounds and
-    flags bitwise; the deep lane hands over at its first evaluation."""
+def test_kernel_loop_is_the_plain_version(fit_shim, deep, dims, grid, order):
+    """lynch_host.cpp's copy of the fit's launch (the lanes' starts, then
+    each block's rounds over its units: terms, the chunk's election and
+    sum, the lane's election, fold and step, the lane's next point
+    published) with its blocks' steps in ``order``, against
+    lynch_fit_lanes_ref: results, statuses, histories, rounds and flags
+    bitwise, so no order in which blocks finish moves a bit; the deep lane
+    hands over at its first evaluation."""
     (prof, mult, off, scal, tabn), (want, hist, flags) = _plain_fit(deep, dims)
     s = off.shape[0] - 1
     starts = _starts(dims, s)
-    table = np.zeros(s, lo.FIT_LANE)
-    table["first_row"], table["end_row"] = off[:-1], off[1:]
-    table["walk_end"] = np.cumsum(lk.lane_chunks(np.diff(off)))
+    table = lo.fit_lane_table(off, fit_shim.sid_lynch_fit_unit_rows_host())
     assert fit_shim.sid_lynch_fit_lane_bytes_host() == lo.FIT_LANE.itemsize
     rec = np.zeros((3, prof.shape[0]))
     fit_shim.sid_lynch_records_host(prof.ctypes.data, mult.ctypes.data, tabn.ctypes.data, tabn.shape[0],
@@ -278,7 +289,8 @@ def test_kernel_loop_is_the_plain_version(fit_shim, deep, dims, grid):
     rounds = fit_shim.sid_lynch_fit_lanes_host(
         dims, rec.ctypes.data, prof.shape[0], table.ctypes.data, s, np.ascontiguousarray(starts).ctypes.data,
         scal_io.ctypes.data, 1e-5, 1000, nmsimplex.dot_mode(), got_hist.ctypes.data, entries,
-        got_flags.ctypes.data, got_rows.ctypes.data, grid)
+        got_flags.ctypes.data, got_rows.ctypes.data, grid, ORDERS[order], 2024 + grid)
+    assert rounds >= 0, "the shim's blocks deadlocked"
     got = lo.FitLanes.from_rows(got_rows, dims, rounds)
     assert got.rounds == want.rounds == int(want.evaluations.max())
     assert np.array_equal(got.status, want.status) and np.array_equal(got.evaluations, want.evaluations)
@@ -291,6 +303,23 @@ def test_kernel_loop_is_the_plain_version(fit_shim, deep, dims, grid):
     handed = np.nonzero(want.status == lo.FIT_HANDOVER)[0]
     assert (len(handed) > 0) == deep
     assert all(want.evaluations[k] == 1 for k in handed)
+
+
+def test_fit_lane_table_walks(fit_shim):
+    """The fit's lane table: each lane's chunks and units (one for an empty
+    lane), their running totals, and every chunk holding whole units but
+    a lane's last, which holds the rest."""
+    unit = fit_shim.sid_lynch_fit_unit_rows_host()
+    assert lk.CHUNK_ROWS % unit == 0
+    sizes = np.array([0, 1, unit - 1, unit, unit + 1, 1023, 1024, 1025, 2100, 0, 5000])
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    table = lo.fit_lane_table(off, unit)
+    chunks = np.diff(np.concatenate([[0], table["walk_end"]]))
+    units = np.diff(np.concatenate([[0], table["unit_end"]]))
+    assert np.array_equal(chunks, np.maximum(1, -(-sizes // lk.CHUNK_ROWS)))
+    assert np.array_equal(units, np.maximum(1, -(-sizes // unit)))
+    assert np.array_equal(-(-units // (lk.CHUNK_ROWS // unit)), chunks)
+    assert np.array_equal(table["first_row"], off[:-1]) and np.array_equal(table["end_row"], off[1:])
 
 
 def _fit_input(deep_row=None, n=300, seed=9):
