@@ -1,0 +1,11 @@
+"""Milliseconds of the chunk pipeline's stage ``pipeline:read`` (its main
+thread taking the next chunk from the file: the open and map, the chunk's
+copy and its newline search) a million input sites."""
+
+STAGE = "pipeline:read"
+
+
+def read(run):
+    if not run.has_stage(STAGE):
+        return None
+    return run.stage_seconds(STAGE) * 1e3 / (run.requests * run.sites_per_request / 1e6)

@@ -190,11 +190,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     prof = _start_profile(options)
     try:
         if options.stream:
-            prof.count("sites", _stream(options, input_path, diag))
+            _stream(options, input_path, diag)
         else:
-            csv = engine.run(input_path, options, diag, binary=True)
-            prof.count("sites", max(csv.count(b"\n") - 1, 0))
-            _write(options.output, csv)
+            _write(options.output, engine.run(input_path, options, diag, binary=True))
     except SidParseError as e:
         # the reference dies on the uncaught std::invalid_argument; we
         # report the same message with the offending line number
@@ -234,22 +232,19 @@ def _write(output: str, csv: bytes) -> None:
             out.write(csv)
 
 
-def _stream(options: Options, input_path: str, diag) -> int:
+def _stream(options: Options, input_path: str, diag) -> None:
     """``--stream`` (sid_tpu/cli.py:197-217): the two-pass engine into
     stdout, or into ``--output`` with chunk-level progress for ``--resume``
-    (the file is reopened in place when it exists). Returns the records
-    written."""
+    (the file is reopened in place when it exists)."""
     kw = dict(chunk_bytes=options.chunk_mb << 20, checkpoint=options.checkpoint,
               resume=options.resume)
     if options.output in ("-", ""):
-        n = engine.run_streaming(input_path, options, sys.stdout.buffer, diag, **kw)
+        engine.run_streaming(input_path, options, sys.stdout.buffer, diag, **kw)
         sys.stdout.buffer.flush()
-        return n
+        return
     mode = "r+b" if options.resume and os.path.exists(options.output) else "wb"
     with open(options.output, mode) as out:
-        return engine.run_streaming(
-            input_path, options, out, diag, progress=StreamProgress(options.output), **kw
-        )
+        engine.run_streaming(input_path, options, out, diag, progress=StreamProgress(options.output), **kw)
 
 
 def _main_multihost(options: Options, input_path: str) -> int:

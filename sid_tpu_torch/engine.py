@@ -85,6 +85,7 @@ def call_batch(
     return fn(batch, options, diag)
 
 
+@profiling.in_request
 def run(
     src,
     options: Optional[Options] = None,
@@ -117,6 +118,7 @@ def _run_monolithic(src, options: Options, diag, binary: bool):
             src, needs_reads, needs_reads, backend=options.io_backend,
             quality_terms_only=needs_reads and options.engine == "device",
         )
+    profiling.count("sites", batch.num_sites)
     with profiling.maybe_stage("call"):
         result = call_batch(batch, options, diag)
     if result is None:
@@ -145,20 +147,29 @@ def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_
     thread calls chunk k on the device and serializes it; the parts are
     joined after the header, byte-equal to ``_run_monolithic``. The worker
     touches neither CUDA nor a pinned buffer. Under ``--profile`` the pass
-    is one top-level ``pipeline`` stage, and this thread's waits on the
-    parse, calls and serializations nest in it as ``pipeline:parse_wait``,
-    ``pipeline:call`` and ``pipeline:serialize``. A parse error names the
-    file's line; it is raised here after the worker's parse of the next
-    chunk ends."""
+    is one top-level ``pipeline`` stage and the join of the parts a
+    top-level ``join`` after it. This thread's spans nest in ``pipeline``
+    and follow each other: ``pipeline:read`` (each next chunk from the
+    input, and the read that finds its end), ``pipeline:parse_wait``,
+    ``pipeline:call`` and ``pipeline:serialize``; the worker's parse of
+    each chunk, ``worker:parse``, hangs under ``pipeline`` too. A parse
+    error names the file's line; it is raised here after the worker's
+    parse of the next chunk ends."""
     needs_reads = options.method == "quality"
 
+    def read():
+        with profiling.maybe_stage("pipeline:read"):
+            return next(chunks, None)
+
     def parse(offset, chunk):
-        return parse_chunk(src, offset, chunk, needs_reads, needs_reads, backend=options.io_backend,
-                           quality_terms_only=needs_reads)
+        with adopt(), profiling.maybe_stage("worker:parse"):
+            return parse_chunk(src, offset, chunk, needs_reads, needs_reads, backend=options.io_backend,
+                               quality_terms_only=needs_reads)
 
     def process(fut):
         with profiling.maybe_stage("pipeline:parse_wait"):
             batch = fut.result()
+        profiling.count("sites", batch.num_sites)
         if batch.num_sites == 0:
             return b"" if binary else ""
         with profiling.maybe_stage("pipeline:call"):
@@ -171,17 +182,21 @@ def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_
     header = CSV_HEADER + "\n"
     parts = [header.encode() if binary else header]
     with profiling.maybe_stage("pipeline"), ThreadPoolExecutor(1) as ex:
+        adopt = profiling.handover()
         chunks = with_offsets(iter_chunks(src, chunk_bytes))
-        first = next(chunks, None)
-        if first is None:
+        located = read()
+        if located is None:
             return parts[0]
-        fut = ex.submit(parse, *first)
-        for located in chunks:
+        fut = ex.submit(parse, *located)
+        while (located := read()) is not None:
             nxt = ex.submit(parse, *located)
             parts.append(process(fut))
             fut = nxt
         parts.append(process(fut))
-    return (b"" if binary else "").join(parts)
+    with profiling.maybe_stage("join"):
+        out = (b"" if binary else "").join(parts)
+        parts.clear()  # the chunks' parts are freed here, inside the span
+    return out
 
 
 @dataclasses.dataclass
@@ -230,6 +245,7 @@ def call_chunk(batch: PileupBatch, table: ClassTable) -> CallResult:
     return common.join_class_table(batch, table.keys, table.cls, table.conf_type)
 
 
+@profiling.in_request
 def run_streaming(
     src,
     options: Optional[Options] = None,
@@ -314,6 +330,7 @@ def run_streaming(
         with profiling.maybe_stage("parse"):
             batch = parse_chunk(src, offset, chunk, needs_reads, needs_reads, backend=options.io_backend,
                                 quality_terms_only=needs_reads)
+        profiling.count("sites", batch.num_sites)
         if batch.num_sites == 0:
             continue
         with profiling.maybe_stage("call"):

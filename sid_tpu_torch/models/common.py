@@ -18,6 +18,7 @@ import torch
 from sid_tpu_torch.io import native
 from sid_tpu_torch.io.stream import pack_profiles
 from sid_tpu_torch.native import bridge
+from sid_tpu_torch.utils import profiling
 from sid_tpu_torch.utils.format import fmt_g
 
 CSV_HEADER = "chrom,pos,label,gt,hom_conf,het_conf,conf_type"
@@ -190,34 +191,36 @@ def gather_result(
     Replaces the reference's map<profile_t,size_t> join (call.cpp:129-140):
     ``inverse`` maps each site to its unique-profile row; sites whose profile
     was filtered out (``keep_u`` False) are omitted from the output, in input
-    order, like the cov<4 drop of bayes and likelihood_ratio.
+    order, like the cov<4 drop of bayes and likelihood_ratio. Under
+    ``--profile`` the stage ``call:gather_result``.
     """
-    chrom_id, pos = batch.chrom_id, batch.pos
-    if keep_u is not None:
-        site_keep = keep_u[inverse]
-        # site -> unfiltered row -> filtered row
-        filtered_row = np.cumsum(keep_u) - 1
-        inverse = filtered_row[inverse[site_keep]]
-        chrom_id, pos = chrom_id[site_keep], pos[site_keep]
-    is_het_u = np.asarray(is_het_u)
-    major_u = np.asarray(major_u)
-    second_u = np.asarray(second_u)
-    p1_u = np.asarray(p1_u, np.float64)
-    p2_u = np.asarray(p2_u, np.float64)
-    return CallResult(
-        chrom_id=chrom_id,
-        chrom_table=batch.chrom_table,
-        pos=pos,
-        is_het=is_het_u[inverse],
-        major=major_u[inverse],
-        second=second_u[inverse],
-        conf_hom=p1_u[inverse],
-        conf_het=p2_u[inverse],
-        conf_type=conf_type,
-        class_idx=np.ascontiguousarray(inverse, np.int32),
-        cls_is_het=is_het_u,
-        cls_major=major_u,
-        cls_second=second_u,
-        cls_conf_hom=p1_u,
-        cls_conf_het=p2_u,
-    )
+    with profiling.maybe_stage("call:gather_result"):
+        chrom_id, pos = batch.chrom_id, batch.pos
+        if keep_u is not None:
+            site_keep = keep_u[inverse]
+            # site -> unfiltered row -> filtered row
+            filtered_row = np.cumsum(keep_u) - 1
+            inverse = filtered_row[inverse[site_keep]]
+            chrom_id, pos = chrom_id[site_keep], pos[site_keep]
+        is_het_u = np.asarray(is_het_u)
+        major_u = np.asarray(major_u)
+        second_u = np.asarray(second_u)
+        p1_u = np.asarray(p1_u, np.float64)
+        p2_u = np.asarray(p2_u, np.float64)
+        return CallResult(
+            chrom_id=chrom_id,
+            chrom_table=batch.chrom_table,
+            pos=pos,
+            is_het=is_het_u[inverse],
+            major=major_u[inverse],
+            second=second_u[inverse],
+            conf_hom=p1_u[inverse],
+            conf_het=p2_u[inverse],
+            conf_type=conf_type,
+            class_idx=np.ascontiguousarray(inverse, np.int32),
+            cls_is_het=is_het_u,
+            cls_major=major_u,
+            cls_second=second_u,
+            cls_conf_hom=p1_u,
+            cls_conf_het=p2_u,
+        )

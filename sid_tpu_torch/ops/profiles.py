@@ -16,6 +16,7 @@ import numpy as np
 
 from sid_tpu_torch.io import native
 from sid_tpu_torch.native import bridge
+from sid_tpu_torch.utils import profiling
 
 # from this many sites on, the threaded native histogram beats the sort
 _NATIVE_MIN_SITES = 65536
@@ -27,18 +28,20 @@ def unique_profiles(counts: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndar
     Returns ``(profiles (U,4) int32 lexicographically sorted, multiplicity
     (U,) int64, inverse (N,) int64)`` with ``profiles[inverse] == counts``.
     Large inputs go to libsidtpu's threaded flat-hash histogram; the numpy
-    path is the spec, and both give identical arrays.
+    path is the spec, and both give identical arrays. Under ``--profile``
+    the stage ``call:unique_profiles``.
     """
-    counts = np.asarray(counts)
-    if counts.shape[0] == 0:
-        return (
-            np.zeros((0, 4), np.int32),
-            np.zeros(0, np.int64),
-            np.zeros(0, np.int64),
-        )
-    if counts.shape[0] >= _NATIVE_MIN_SITES:
-        return bridge.unique_profiles(native.load(), counts)
-    return _unique_profiles_np(counts)
+    with profiling.maybe_stage("call:unique_profiles"):
+        counts = np.asarray(counts)
+        if counts.shape[0] == 0:
+            return (
+                np.zeros((0, 4), np.int32),
+                np.zeros(0, np.int64),
+                np.zeros(0, np.int64),
+            )
+        if counts.shape[0] >= _NATIVE_MIN_SITES:
+            return bridge.unique_profiles(native.load(), counts)
+        return _unique_profiles_np(counts)
 
 
 def _unique_profiles_np(counts: np.ndarray):

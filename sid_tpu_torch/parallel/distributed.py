@@ -234,6 +234,7 @@ def run_multihost(
                 with profiling.maybe_stage("parse"):
                     batch = parse_chunk(path, offset, chunk, needs_reads, needs_reads,
                                         backend=options.io_backend, quality_terms_only=needs_reads)
+                profiling.count("sites", batch.num_sites)
                 with profiling.maybe_stage("call"):
                     res = engine.call_chunk(batch, table)
                 with profiling.maybe_stage("serialize"):

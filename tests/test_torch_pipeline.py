@@ -185,15 +185,101 @@ def test_file_object_stays_monolithic(big_text, gate_1mb):
 
 @pytest.mark.parametrize("method", ["local", "quality"])
 def test_profile_total_is_the_pipeline_stage(big_text, gate_1mb, method):
+    """``total()`` is the top-level stages: the pass and the join after it."""
     _, prof = _profiled(lambda: engine.run(big_text, Options(platform="cpu", method=method), binary=True))
     (pipeline,) = [s for name, s in prof.stages if name == "pipeline"]
-    assert prof.total() == pipeline
+    (join,) = [s for name, s in prof.stages if name == "join"]
+    assert prof.total() == pipeline + join
     nested = {}
     for name, s in prof.stages:
         if name.startswith("pipeline:"):
             nested[name] = nested.get(name, 0.0) + s
-    assert sorted(nested) == ["pipeline:call", "pipeline:parse_wait", "pipeline:serialize"]
+    assert sorted(nested) == ["pipeline:call", "pipeline:parse_wait", "pipeline:read", "pipeline:serialize"]
     assert sum(nested.values()) <= pipeline
+
+
+# ---- the pipeline's spans, by their records ----
+
+CHUNKS = 3  # big_text in 1 MB chunks
+LEAVES = ("pipeline:read", "pipeline:parse_wait", "pipeline:call", "pipeline:serialize")
+
+
+@pytest.fixture(scope="module", params=["local", "quality"])
+def traced(request, big_text, tmp_path_factory):
+    """One pipelined run of big_text from a path at 1 MB chunks: (the
+    profile, its ``pipeline`` span, the method)."""
+    path = tmp_path_factory.mktemp("spans") / "in.pileup"
+    path.write_bytes(big_text)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine, "PIPELINE_MIN_BYTES", MB)
+        mp.setattr(engine, "PIPELINE_CHUNK_BYTES", MB)
+        _, prof = _profiled(lambda: engine.run(str(path), Options(platform="cpu", method=request.param),
+                                               binary=True))
+    (pipeline,) = [s for s in prof.spans if s.name == "pipeline"]
+    return prof, pipeline, request.param
+
+
+def _named(prof, name):
+    return [s for s in prof.spans if s.name == name]
+
+
+def test_a_read_and_a_parse_a_chunk(traced):
+    """One ``worker:parse`` a chunk; one ``pipeline:read`` a chunk, and
+    the one more that finds the input's end."""
+    prof, _, _ = traced
+    assert len(_named(prof, "worker:parse")) == CHUNKS
+    assert len(_named(prof, "pipeline:read")) == CHUNKS + 1
+    assert len(_named(prof, "pipeline:call")) == CHUNKS
+
+
+def test_worker_parse_hangs_under_pipeline_on_another_thread(traced):
+    prof, pipeline, _ = traced
+    for parse in _named(prof, "worker:parse"):
+        assert parse.parent == pipeline.id and parse.thread != pipeline.thread
+        assert parse.request == pipeline.request
+        assert pipeline.start_ns <= parse.start_ns <= parse.end_ns <= pipeline.end_ns
+
+
+def test_dedup_and_gather_inside_each_call(traced):
+    """``local`` dedups and gathers once a call; ``quality`` calls each
+    site and does neither."""
+    prof, pipeline, method = traced
+    each = 1 if method == "local" else 0
+    for call in _named(prof, "pipeline:call"):
+        assert call.parent == pipeline.id
+        for name in ("call:unique_profiles", "call:gather_result"):
+            inner = [s for s in _named(prof, name) if s.parent == call.id]
+            assert len(inner) == each
+            assert all(s.thread == call.thread and call.start_ns <= s.start_ns <= s.end_ns <= call.end_ns
+                       for s in inner)
+    assert len(_named(prof, "call:unique_profiles")) == len(_named(prof, "call:gather_result")) == each * CHUNKS
+
+
+def test_join_once_after_pipeline(traced):
+    prof, pipeline, _ = traced
+    (join,) = _named(prof, "join")
+    assert join.parent is None and join.thread == pipeline.thread
+    assert join.start_ns >= pipeline.end_ns
+    assert {s.request for s in prof.spans} == {pipeline.request}  # one request
+
+
+def test_main_thread_leaves_in_order(traced):
+    """This thread reads the first chunk and the next, then, a chunk at a
+    time, waits for its parse, calls, serializes and reads again (the
+    last read finds the end)."""
+    prof, pipeline, _ = traced
+    leaves = sorted((s for s in prof.spans if s.parent == pipeline.id and s.thread == pipeline.thread),
+                    key=lambda s: s.start_ns)
+    names = [s.name for s in leaves]
+    assert names == ["pipeline:read"] + ["pipeline:read", "pipeline:parse_wait", "pipeline:call",
+                                         "pipeline:serialize"] * CHUNKS
+    assert names[-1] != "pipeline:read" and set(names) == set(LEAVES)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(leaves, leaves[1:]))
+
+
+def test_sites_counted_where_parsed(traced, big_text):
+    prof, _, _ = traced
+    assert prof.counters["sites"] == len(big_text.splitlines())
 
 
 # ---- C15: the file's line number on every chunked parse ----
