@@ -311,7 +311,7 @@ def _main_population(options: Options, paths: List[str]) -> int:
     for p, res in zip(paths, results):
         out_path = p + ".calls.csv"
         with open(out_path, "wb") as out:
-            out.write(res.to_csv_bytes())
+            out.write(res.to_csv_buffer())
         diag(f"# wrote {out_path} ({res.num_records} records)")
     return 0
 

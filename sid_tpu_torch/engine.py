@@ -152,7 +152,10 @@ def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_
     and follow each other: ``pipeline:read`` (each next chunk from the
     input, and the read that finds its end), ``pipeline:parse_wait``,
     ``pipeline:call`` and ``pipeline:serialize``; the worker's parse of
-    each chunk, ``worker:parse``, hangs under ``pipeline`` too. A parse
+    each chunk, ``worker:parse``, hangs under ``pipeline`` too. A chunk's
+    part is the writer's buffer as it is (``CallResult.to_csv_buffer``;
+    decoded in text mode), its length added to the counter
+    ``serialize:bytes``; the join copies each part once. A parse
     error names the file's line; it is raised here after the worker's
     parse of the next chunk ends."""
     needs_reads = options.method == "quality"
@@ -175,9 +178,11 @@ def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_
         with profiling.maybe_stage("pipeline:call"):
             result = call_batch(batch, options, diag)
         with profiling.maybe_stage("pipeline:serialize"):
-            if binary:
-                return result.to_csv_bytes(include_header=False)
-            return result.to_csv(include_header=False)
+            part = result.to_csv_buffer(include_header=False)
+            if not binary:
+                part = str(part, "latin1")
+        profiling.count("serialize:bytes", len(part))
+        return part
 
     header = CSV_HEADER + "\n"
     parts = [header.encode() if binary else header]
@@ -283,7 +288,7 @@ def run_streaming(
         out, (_io.RawIOBase, _io.BufferedIOBase)
     )
     # binary sinks take the serializer's bytes untranscoded; text sinks decode
-    write = out.write if is_binary else (lambda b: out.write(b.decode("latin1")))
+    write = out.write if is_binary else (lambda b: out.write(str(b, "latin1")))
     method = options.method
 
     start_chunk = 0
@@ -336,7 +341,7 @@ def run_streaming(
         with profiling.maybe_stage("call"):
             res = call_chunk(batch, table)
         with profiling.maybe_stage("serialize"):
-            write(res.to_csv_bytes(include_header=False))
+            write(res.to_csv_buffer(include_header=False))
         emitted += res.num_records
         if progress is not None:
             out.flush()

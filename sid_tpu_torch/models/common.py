@@ -1,9 +1,10 @@
 """Shared calling-method machinery: allele selection, results, CSV assembly.
 
 ``CallResult`` is a struct-of-arrays over output sites (the reference's
-vector<OutputRecord>, call.hpp:23-38); its CSV comes from libsidtpu's
-multithreaded writer, byte-for-byte the reference's ostream output with
-``%g`` floats. ``to_csv_lines`` is the Python spec of the same format.
+vector<OutputRecord>, call.hpp:23-38); its CSV comes from a
+multithreaded native writer (the port's in-place indexed writer, or
+libsidtpu's per-site one), byte-for-byte the reference's ostream output
+with ``%g`` floats. ``to_csv_lines`` is the Python spec of the same format.
 """
 
 from __future__ import annotations
@@ -131,12 +132,20 @@ class CallResult:
             )
         return out
 
+    def to_csv_buffer(self, include_header: bool = True):
+        """The CSV as a bytes-like object, for a join or a write: with a
+        per-class table the port's in-place writer's exact-size uint8
+        array, else libsidtpu's per-site writer's bytes."""
+        if self.class_idx is None:
+            return bridge.write_csv(native.load(), self, include_header)
+        return bridge.write_csv_indexed(native.load(), native.csv_writer(), self, include_header)
+
     def to_csv_bytes(self, include_header: bool = True) -> bytes:
         """CSV as bytes from the native writer (no transcoding)."""
-        return bridge.write_csv(native.load(), self, include_header)
+        return bytes(self.to_csv_buffer(include_header))
 
     def to_csv(self, include_header: bool = True) -> str:
-        return self.to_csv_bytes(include_header).decode("latin1")
+        return str(self.to_csv_buffer(include_header), "latin1")
 
 
 def join_class_table(batch, keys: np.ndarray, cls, conf_type: str) -> CallResult:

@@ -346,7 +346,7 @@ def call_population_streaming(
                     res = call_quality(batch, opts)
                 else:
                     res = common.join_class_table(batch, keys, cls, conf_type)
-                out.write(res.to_csv_bytes(include_header=False))
+                out.write(res.to_csv_buffer(include_header=False))
                 emitted += res.num_records
         if diag:
             diag(f"# wrote {out_path} ({emitted} records)")

@@ -9,6 +9,11 @@ the long-double Lynch objective and marginals, and the fused host quality
 finalize — and marshals numpy arrays in and out. The (256, 4) Phred term
 table the parser sums from is this module's own numpy copy
 (``quality_term_tables``), injected into the library when it is configured.
+
+The port's indexed results are written by its own library, libsidtpu_csv
+(``csrc/host/csv_writer.cpp``, ``configure_csv``): every row once, in place,
+into a numpy buffer of the exact size; libsidtpu's indexed writer stays
+the oracle it is tested against.
 """
 
 from __future__ import annotations
@@ -90,6 +95,16 @@ _SIGNATURES = {
     ]),
 }
 
+_CSV_SIGNATURES = {
+    "sidtpu_csv_plan": (_vp, [
+        ctypes.c_char_p, _i64, _P_I32, _P_I32, _P_I32, _i64, _P_U8, _P_I32,
+        _P_I32, _P_F64, _P_F64, _i64, ctypes.c_char_p, _i32, _i32, _vp,
+    ]),
+    "sidtpu_csv_total": (_i64, [_vp]),
+    "sidtpu_csv_fill": (_i64, [_vp, _vp]),
+    "sidtpu_csv_free": (None, [_vp]),
+}
+
 # parse flags of sidtpu_parse_ex: per-site quality terms inline, and terms only
 PARSE_TERMS = 1
 PARSE_TERMS_ONLY = 2
@@ -117,13 +132,17 @@ def quality_term_tables() -> np.ndarray:
 def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare restype/argtypes of every entry point the port calls, and
     inject the Phred term table the parser's inline quality sums read."""
-    for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+    _declare(lib, _SIGNATURES)
     tab = np.ascontiguousarray(quality_term_tables(), np.float64)
     lib.sidtpu_set_quality_table(_ptr(tab, _P_F64))  # the library copies it
     return lib
+
+
+def _declare(lib: ctypes.CDLL, signatures) -> None:
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
 
 
 def _ptr(a: np.ndarray, ptype):
@@ -368,42 +387,66 @@ class NativeLynchLD:
 
 
 def write_csv(lib, result, include_header: bool) -> bytes:
-    """Multithreaded C++ serializer (glibc %g == ostream default).
-
-    Takes the indexed writer when the result carries its per-class table
-    (each class formatted once), the per-site writer otherwise.
-    """
-    n = result.num_records
+    """libsidtpu's multithreaded per-site serializer (glibc %g == ostream
+    default), for results without a per-class table."""
     blob = encode_chrom_blob(result.chrom_table)
     chrom_id = np.ascontiguousarray(result.chrom_id, np.int32)
     pos = np.ascontiguousarray(result.pos, np.int32)
+    is_het = np.ascontiguousarray(result.is_het, np.uint8)
+    major = np.ascontiguousarray(result.major, np.int32)
+    second = np.ascontiguousarray(result.second, np.int32)
+    ch = np.ascontiguousarray(result.conf_hom, np.float64)
+    ct = np.ascontiguousarray(result.conf_het, np.float64)
     out = _P_CHAR()
-    if result.class_idx is not None:
-        class_idx = np.ascontiguousarray(result.class_idx, np.int32)
-        is_het = np.ascontiguousarray(result.cls_is_het, np.uint8)
-        major = np.ascontiguousarray(result.cls_major, np.int32)
-        second = np.ascontiguousarray(result.cls_second, np.int32)
-        ch = np.ascontiguousarray(result.cls_conf_hom, np.float64)
-        ct = np.ascontiguousarray(result.cls_conf_het, np.float64)
-        length = lib.sidtpu_write_csv_indexed(
-            blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
-            _ptr(class_idx, _P_I32), n, _ptr(is_het, _P_U8), _ptr(major, _P_I32),
-            _ptr(second, _P_I32), _ptr(ch, _P_F64), _ptr(ct, _P_F64), ch.shape[0],
-            result.conf_type.encode(), int(include_header), 0, ctypes.byref(out),
-        )
-    else:
-        is_het = np.ascontiguousarray(result.is_het, np.uint8)
-        major = np.ascontiguousarray(result.major, np.int32)
-        second = np.ascontiguousarray(result.second, np.int32)
-        ch = np.ascontiguousarray(result.conf_hom, np.float64)
-        ct = np.ascontiguousarray(result.conf_het, np.float64)
-        length = lib.sidtpu_write_csv(
-            blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
-            _ptr(is_het, _P_U8), _ptr(major, _P_I32), _ptr(second, _P_I32),
-            _ptr(ch, _P_F64), _ptr(ct, _P_F64), result.conf_type.encode(),
-            n, int(include_header), 0, ctypes.byref(out),
-        )
+    length = lib.sidtpu_write_csv(
+        blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
+        _ptr(is_het, _P_U8), _ptr(major, _P_I32), _ptr(second, _P_I32),
+        _ptr(ch, _P_F64), _ptr(ct, _P_F64), result.conf_type.encode(),
+        result.num_records, int(include_header), 0, ctypes.byref(out),
+    )
     try:
         return ctypes.string_at(out, length)
     finally:
         lib.sidtpu_buffer_free(out)
+
+
+def configure_csv(csv: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare restype/argtypes of libsidtpu_csv's entry points."""
+    _declare(csv, _CSV_SIGNATURES)
+    return csv
+
+
+def write_csv_indexed(lib, csv, result, include_header: bool) -> np.ndarray:
+    """The CSV of a result with a per-class table as an exact-size uint8
+    array: libsidtpu_csv ``csv`` formats each class once with libsidtpu
+    ``lib``'s ``%g`` and sums every thread's rows' bytes, then each thread
+    writes its rows in place into the array. Byte for byte libsidtpu's
+    ``sidtpu_write_csv_indexed``; ``bytes.join`` and ``file.write`` take
+    the array as it is."""
+    blob = encode_chrom_blob(result.chrom_table)
+    chrom_id = np.ascontiguousarray(result.chrom_id, np.int32)
+    pos = np.ascontiguousarray(result.pos, np.int32)
+    class_idx = np.ascontiguousarray(result.class_idx, np.int32)
+    is_het = np.ascontiguousarray(result.cls_is_het, np.uint8)
+    major = np.ascontiguousarray(result.cls_major, np.int32)
+    second = np.ascontiguousarray(result.cls_second, np.int32)
+    ch = np.ascontiguousarray(result.cls_conf_hom, np.float64)
+    ct = np.ascontiguousarray(result.cls_conf_het, np.float64)
+    plan = csv.sidtpu_csv_plan(
+        blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
+        _ptr(class_idx, _P_I32), result.num_records, _ptr(is_het, _P_U8), _ptr(major, _P_I32),
+        _ptr(second, _P_I32), _ptr(ch, _P_F64), _ptr(ct, _P_F64), ch.shape[0],
+        result.conf_type.encode(), int(include_header), 0,
+        ctypes.cast(lib.sidtpu_format_g, _vp),
+    )
+    try:  # the plan points into the arrays above, alive until it is freed
+        total = csv.sidtpu_csv_total(plan)
+        if total < 0:
+            raise ValueError("a row's chromosome or class index lies outside its table")
+        out = np.empty(total, np.uint8)
+        written = csv.sidtpu_csv_fill(plan, out.ctypes.data_as(_vp))
+    finally:
+        csv.sidtpu_csv_free(plan)
+    if written != out.shape[0]:
+        raise RuntimeError(f"CSV writer wrote {written} bytes of a planned {out.shape[0]}")
+    return out

@@ -4,7 +4,9 @@ The host library is compiled from the port's own copy of sid_tpu's host
 C++ (``csrc/host/parser.cpp`` and ``fmt_g_pow10.h``, line for line
 ``sid_tpu/native/``'s but for one comment, which a test checks), with the flags of
 ``sid_tpu/native/build.py`` (``-ffp-contract=off`` keeps per-operation IEEE
-rounding), into ``sid_tpu_torch/_build/libsidtpu.so``. Each kernel source in
+rounding), into ``sid_tpu_torch/_build/libsidtpu.so``. The port's own
+indexed CSV writer (``csrc/host/csv_writer.cpp``, no copy of sid_tpu's) is
+built with the same flags into ``libsidtpu_csv.so``. Each kernel source in
 ``sid_tpu_torch/csrc`` is compiled for Hopper (``sm_90a``) into a shared
 library of its own with a plain C interface, loaded with ctypes;
 ``kernel_libraries`` starts one nvcc per source, all at once. Each output is
@@ -12,7 +14,7 @@ rebuilt when the hash of its sources and command changes. A file lock per
 output serialises concurrent builds of it (test workers), and a failed
 build raises.
 
-    python -m sid_tpu_torch.native.build          # host library
+    python -m sid_tpu_torch.native.build          # host libraries
     python -m sid_tpu_torch.native.build --cuda   # and the kernels
 """
 
@@ -36,6 +38,10 @@ HOST_SRC = os.path.join(CSRC, "host", "parser.cpp")
 HOST_DEPS = [HOST_SRC, os.path.join(CSRC, "host", "fmt_g_pow10.h")]
 HOST_LIB = os.path.join(BUILD_DIR, "libsidtpu.so")
 
+CSV_SRC = os.path.join(CSRC, "host", "csv_writer.cpp")
+CSV_DEPS = [CSV_SRC]
+CSV_LIB = os.path.join(BUILD_DIR, "libsidtpu_csv.so")
+
 # kernel name -> the headers its source (csrc/<name>.cu) includes
 KERNELS = {
     "local_classify": ["local_classify.cuh", "lrt.cuh"],
@@ -45,11 +51,15 @@ KERNELS = {
 }
 
 
-def _host_cmd(out: str) -> List[str]:
+def _host_cmd(out: str, src: str = HOST_SRC) -> List[str]:
     return [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-        "-ffp-contract=off", "-march=native", "-o", out, HOST_SRC,
+        "-ffp-contract=off", "-march=native", "-o", out, src,
     ]
+
+
+def _csv_cmd(out: str) -> List[str]:
+    return _host_cmd(out, CSV_SRC)
 
 
 def _cpu_fingerprint() -> str:
@@ -144,6 +154,12 @@ def host_library() -> str:
     return _build(HOST_LIB, HOST_DEPS, _host_cmd, salt=_cpu_fingerprint())
 
 
+def csv_library() -> str:
+    """Path of libsidtpu_csv.so (the in-place indexed CSV writer), built
+    from ``csrc/host/csv_writer.cpp`` when stale or built on another CPU."""
+    return _build(CSV_LIB, CSV_DEPS, _csv_cmd, salt=_cpu_fingerprint())
+
+
 def kernel_deps(name: str) -> List[str]:
     """The sources kernel ``name``'s library is built from."""
     return [os.path.join(CSRC, f) for f in [f"{name}.cu"] + KERNELS[name]]
@@ -165,6 +181,7 @@ def kernel_libraries() -> Dict[str, str]:
 
 if __name__ == "__main__":
     print(host_library())
+    print(csv_library())
     if "--cuda" in sys.argv[1:]:
         for path in kernel_libraries().values():
             print(path)

@@ -238,7 +238,7 @@ def run_multihost(
                 with profiling.maybe_stage("call"):
                     res = engine.call_chunk(batch, table)
                 with profiling.maybe_stage("serialize"):
-                    f.write(res.to_csv_bytes(include_header=False))
+                    f.write(res.to_csv_buffer(include_header=False))
         os.replace(tmp, part)
         with open(done, "w") as df:
             df.write(marker)

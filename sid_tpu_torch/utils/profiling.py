@@ -226,17 +226,24 @@ class StageProfile:
 
     def report(self, log=None) -> str:
         """Each stage's total and self time and its share of the run's
-        wall, the ``*_ms`` counters, and the rate: the sites the engine
-        parsed over the wall."""
+        wall, the ``*_ms`` counters, each ``<stem>:bytes`` counter with its
+        rate over the stages named ``<stem>`` or ``*:<stem>``, and the
+        rate: the sites the engine parsed over the wall."""
         wall = self.wall()
+        summary = self.summary()
         lines = []
-        for name, t in self.summary().items():
+        for name, t in summary.items():
             pct = 100.0 * t.seconds / wall if wall else 0.0
             lines.append(f"# stage {name}: {t.seconds * 1e3:.1f} ms, self {t.self_seconds * 1e3:.1f} ms, "
                          f"{t.count} span{'s' if t.count > 1 else ''} ({pct:.0f}% of the wall)")
         for name, value in self.counters.items():
             if name.endswith("_ms"):
                 lines.append(f"# {name}: {value:.3f}")
+            elif name.endswith(":bytes"):
+                stem = name[: -len(":bytes")]
+                seconds = sum(t.seconds for n, t in summary.items() if n == stem or n.endswith(":" + stem))
+                rate = f", {value / seconds * 1e-9:.2f} GB/s over its stages" if seconds > 0 else ""
+                lines.append(f"# {name}: {int(value):,}{rate}")
         n = self.counters.get("sites")
         if n and wall > 0:
             lines.append(f"# throughput: {n / wall:,.0f} sites/s over {int(n)} sites in {wall * 1e3:.1f} ms")

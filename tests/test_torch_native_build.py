@@ -1,8 +1,10 @@
 """The port builds its libraries from its own sources.
 
 ``sid_tpu_torch/native/build.py`` compiles libsidtpu.so from the port's copy
-of sid_tpu's host C++ (``csrc/host``) and each kernel library from
-``csrc``; nothing it builds from lies outside ``sid_tpu_torch/``. The copies
+of sid_tpu's host C++ (``csrc/host``), libsidtpu_csv.so from the port's own
+writer source there, and each kernel library from ``csrc``; nothing it
+builds from lies outside ``sid_tpu_torch/``, and a changed source rebuilds
+its library. The copies
 must stay byte-equal to ``sid_tpu/native/``'s, line for line, so any drift
 between the two packages' host code shows here. The one edit: the fourth
 line of parser.cpp, a comment, names the reference parser without the
@@ -34,6 +36,41 @@ def test_host_library_builds_from_the_port_alone():
     for path in build.HOST_DEPS:
         assert os.path.isfile(path), path
         assert _inside_port(path), path
+
+
+def test_csv_library_builds_from_the_port_alone():
+    """libsidtpu_csv: its own source, with the host library's flags, no
+    copy of sid_tpu's (the ``%g`` stays libsidtpu's)."""
+    assert build.CSV_DEPS == [build.CSV_SRC]
+    cmd = build._csv_cmd("OUT")
+    assert [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))] == [build.CSV_SRC]
+    assert cmd[:-1] == build._host_cmd("OUT")[:-1]
+    assert os.path.dirname(build.CSV_LIB) == build.BUILD_DIR
+    for path in build.CSV_DEPS:
+        assert os.path.isfile(path), path
+        assert _inside_port(path), path
+    assert not os.path.exists(os.path.join(REPO, "sid_tpu", "native", os.path.basename(build.CSV_SRC)))
+
+
+def test_csv_library_rebuilds_when_its_source_changes(tmp_path, monkeypatch):
+    """Built once, kept while its source is unchanged, rebuilt (a new
+    stamp and a new file) after an edit."""
+    src = tmp_path / "csv_writer.cpp"
+    src.write_bytes(open(build.CSV_SRC, "rb").read())
+    lib = tmp_path / "libsidtpu_csv.so"
+    monkeypatch.setattr(build, "CSV_SRC", str(src))
+    monkeypatch.setattr(build, "CSV_DEPS", [str(src)])
+    monkeypatch.setattr(build, "CSV_LIB", str(lib))
+    assert build.csv_library() == str(lib)
+    stamp = open(str(lib) + ".sha256").read()
+    first = os.stat(lib)
+    assert build.csv_library() == str(lib)
+    assert os.stat(lib).st_ino == first.st_ino and open(str(lib) + ".sha256").read() == stamp
+    with open(src, "a") as f:
+        f.write("\n// an edit\n")
+    assert build.csv_library() == str(lib)
+    assert open(str(lib) + ".sha256").read() != stamp
+    assert os.stat(lib).st_ino != first.st_ino  # the new build replaced the file
 
 
 @pytest.mark.parametrize("name", sorted(build.KERNELS))

@@ -101,6 +101,20 @@ def test_report_gives_total_self_and_the_rate_over_the_wall():
     ]
 
 
+def test_report_gives_a_byte_counter_with_its_stages_rate():
+    """``serialize:bytes`` over the stages named ``*:serialize`` (20 ms)."""
+    prof = _two_level_profile()
+    prof.count("serialize:bytes", 30_000_000)
+    prof.count("serialize:bytes", 10_000_000)
+    prof.count("unstaged:bytes", 7)
+    lines = prof.report().splitlines()
+    assert lines[5:] == [
+        "# serialize:bytes: 40,000,000, 2.00 GB/s over its stages",
+        "# unstaged:bytes: 7",
+        "# throughput: 10,000 sites/s over 1300 sites in 130.0 ms",
+    ]
+
+
 def test_a_disabled_profile_records_nothing():
     prof = profiling.StageProfile(enabled=False)
     with prof.request(), prof.stage("x"), prof.handover()():
