@@ -4,11 +4,13 @@ Mirrors the reference's method dispatch (sid.cpp:92-100), including the
 quirk that an unrecognized method produces no records (the CLI then prints
 only the CSV header). ``options.engine`` selects the device path (default)
 or the host long-double oracle. ``run`` calls a whole input in memory,
-or, for ``local`` and ``quality`` on an input of at least
-``PIPELINE_MIN_BYTES``, in one pass over newline-aligned chunks whose
-parse overlaps the call of the chunk before (the chunk pipeline);
-``run_streaming`` calls it in two passes over chunks. All three give the
-same output. ``--per-shard-fit`` calls each chromosome alone
+or, on an input of at least ``PIPELINE_MIN_BYTES``, over newline-aligned
+chunks whose parse overlaps the work on the chunk before: ``local`` and
+``quality`` in one pass (the chunk pipeline), ``bayes`` and
+``likelihood_ratio`` in two passes over what the first holds in memory,
+with one fit between them (the fitted chunk pipeline);
+``run_streaming`` calls it in two passes over chunks read twice. All give
+the same output. ``--per-shard-fit`` calls each chromosome alone
 (``parallel.pipeline``); ``run_streaming`` does not read it, as sid_tpu's
 does not (``ROADMAP.md`` C9). Population mode (many samples) is
 ``models.population`` and ``--multihost`` ``parallel.distributed``, which
@@ -19,23 +21,27 @@ the exact engine does not read it, as sid_tpu's does not.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import io as _io
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional
+from typing import Callable, Deque, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.exact import engine as exact_engine
 from sid_tpu_torch.io.pileup import PileupBatch, parse_pileup
-from sid_tpu_torch.io.stream import accumulate_histogram, iter_chunks, pack_profiles, parse_chunk, with_offsets
+from sid_tpu_torch.io.stream import (
+    accumulate_histogram, iter_chunks, merge_profile_tables, pack_profiles, parse_chunk, unpack_profiles,
+    with_offsets,
+)
 from sid_tpu_torch.models import bayes, common, likelihood_ratio, local, quality
 from sid_tpu_torch.models.common import CSV_HEADER, CallResult
 from sid_tpu_torch.models.lynch import estimate_prior_heterozygosity
-from sid_tpu_torch.ops.profiles import filter_min_coverage
+from sid_tpu_torch.ops.profiles import coverage_of, filter_min_coverage, unique_profiles
 from sid_tpu_torch.parallel.pipeline import call_per_shard
 from sid_tpu_torch.utils import checkpoint as ckpt
 from sid_tpu_torch.utils import profiling
@@ -99,14 +105,25 @@ def run(
     returns str. ``-m quality`` parses both quality columns: terms only
     under the device engine, the per-read arrays for the exact engine.
     Bytes and paths of at least ``PIPELINE_MIN_BYTES`` (a ``.gz`` path by
-    its size on disk) take the chunk pipeline where ``_pipeline_eligible``
-    allows it (sid_tpu/engine.py:72-78); a file object never does.
+    its size on disk) take a chunk path; a file object never does.
+    ``local`` and ``quality`` take the chunk pipeline where
+    ``_pipeline_eligible`` allows it (sid_tpu/engine.py:72-78); ``bayes``
+    and ``likelihood_ratio`` take the fitted chunk pipeline where
+    ``_fitted_pipeline_eligible`` allows it, where sid_tpu calls them
+    monolithic. Every path gives the same output.
     """
     options = options or Options()
-    if isinstance(src, (bytes, bytearray)) and _pipeline_eligible(options, len(src)):
-        return _run_pipelined_single_pass(bytes(src), options, diag, binary, PIPELINE_CHUNK_BYTES)
-    if isinstance(src, (str, os.PathLike)) and _pipeline_eligible(options, os.path.getsize(src)):
-        return _run_pipelined_single_pass(src, options, diag, binary, PIPELINE_CHUNK_BYTES)
+    if isinstance(src, (bytes, bytearray)):
+        size = len(src)
+    elif isinstance(src, (str, os.PathLike)):
+        size = os.path.getsize(src)
+    else:
+        return _run_monolithic(src, options, diag, binary)
+    for eligible, chunked in ((_pipeline_eligible, _run_pipelined_single_pass),
+                              (_fitted_pipeline_eligible, _run_fitted_pipeline)):
+        if eligible(options, size):
+            return chunked(bytes(src) if isinstance(src, bytearray) else src, options, diag, binary,
+                           PIPELINE_CHUNK_BYTES)
     return _run_monolithic(src, options, diag, binary)
 
 
@@ -131,7 +148,9 @@ def _run_monolithic(src, options: Options, diag, binary: bool):
 def _pipeline_eligible(options: Options, size: int) -> bool:
     """Methods whose calls are independent per chunk (no fitted prior, no
     per-shard fit) on the device engine, at ``PIPELINE_MIN_BYTES`` or more
-    (sid_tpu/engine.py:313-320; ``--devices`` does not exclude it)."""
+    (sid_tpu/engine.py:313-320; ``--devices`` does not exclude it).
+    ``bayes`` and ``likelihood_ratio`` take ``_fitted_pipeline_eligible``'s
+    path instead; sid_tpu calls them monolithic. The output is the same."""
     return (
         options.method in ("local", "quality")
         and not options.estimate_prior
@@ -141,23 +160,29 @@ def _pipeline_eligible(options: Options, size: int) -> bool:
     )
 
 
-def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_bytes: int):
-    """The chunk pipeline (sid_tpu/engine.py:271-310): one worker thread
-    parses chunk k+1 (libsidtpu's parser releases the GIL) while this
-    thread calls chunk k on the device and serializes it; the parts are
-    joined after the header, byte-equal to ``_run_monolithic``. The worker
-    touches neither CUDA nor a pinned buffer. Under ``--profile`` the pass
-    is one top-level ``pipeline`` stage and the join of the parts a
-    top-level ``join`` after it. This thread's spans nest in ``pipeline``
-    and follow each other: ``pipeline:read`` (each next chunk from the
-    input, and the read that finds its end), ``pipeline:parse_wait``,
-    ``pipeline:call`` and ``pipeline:serialize``; the worker's parse of
-    each chunk, ``worker:parse``, hangs under ``pipeline`` too. A chunk's
-    part is the writer's buffer as it is (``CallResult.to_csv_buffer``;
-    decoded in text mode), its length added to the counter
-    ``serialize:bytes``; the join copies each part once. A parse
-    error names the file's line; it is raised here after the worker's
-    parse of the next chunk ends."""
+def _fitted_pipeline_eligible(options: Options, size: int) -> bool:
+    """The fitted methods (``bayes``, ``likelihood_ratio``, with or without
+    -R) on the device engine with one global fit (no per-shard fit), at
+    ``PIPELINE_MIN_BYTES`` or more: ``_run_fitted_pipeline``'s inputs
+    (``--devices`` does not exclude it)."""
+    return (
+        options.method in ("bayes", "likelihood_ratio")
+        and not options.per_shard_fit
+        and options.engine == "device"
+        and size >= PIPELINE_MIN_BYTES
+    )
+
+
+def _parsed_chunks(src, options: Options, chunk_bytes: int) -> Iterator[PileupBatch]:
+    """The chunk pipeline's read loop: this thread reads each next chunk of
+    ``src`` (``pipeline:read``, and the read that finds its end) and hands
+    it to one worker thread, which parses it (``worker:parse``, hung under
+    the span open here; libsidtpu's parser releases the GIL) while the
+    caller works on the chunk before, which it gets after
+    ``pipeline:parse_wait``, each chunk's sites counted (``sites``). The
+    worker touches neither CUDA nor a pinned buffer. A parse error names
+    the file's line; it is raised after the worker's parse of the next
+    chunk ends."""
     needs_reads = options.method == "quality"
 
     def read():
@@ -169,39 +194,125 @@ def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_
             return parse_chunk(src, offset, chunk, needs_reads, needs_reads, backend=options.io_backend,
                                quality_terms_only=needs_reads)
 
-    def process(fut):
-        with profiling.maybe_stage("pipeline:parse_wait"):
-            batch = fut.result()
-        profiling.count("sites", batch.num_sites)
-        if batch.num_sites == 0:
-            return b"" if binary else ""
-        with profiling.maybe_stage("pipeline:call"):
-            result = call_batch(batch, options, diag)
-        with profiling.maybe_stage("pipeline:serialize"):
-            part = result.to_csv_buffer(include_header=False)
-            if not binary:
-                part = str(part, "latin1")
-        profiling.count("serialize:bytes", len(part))
-        return part
-
-    header = CSV_HEADER + "\n"
-    parts = [header.encode() if binary else header]
-    with profiling.maybe_stage("pipeline"), ThreadPoolExecutor(1) as ex:
+    with ThreadPoolExecutor(1) as ex:
         adopt = profiling.handover()
         chunks = with_offsets(iter_chunks(src, chunk_bytes))
         located = read()
-        if located is None:
-            return parts[0]
-        fut = ex.submit(parse, *located)
-        while (located := read()) is not None:
-            nxt = ex.submit(parse, *located)
-            parts.append(process(fut))
+        fut = None if located is None else ex.submit(parse, *located)
+        while fut is not None:
+            located = read()
+            nxt = None if located is None else ex.submit(parse, *located)
+            with profiling.maybe_stage("pipeline:parse_wait"):
+                batch = fut.result()
+            profiling.count("sites", batch.num_sites)
+            yield batch
             fut = nxt
-        parts.append(process(fut))
+
+
+def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_bytes: int):
+    """The chunk pipeline (sid_tpu/engine.py:271-310): ``_parsed_chunks``
+    parses chunk k+1 while this thread calls chunk k on the device and
+    serializes it; the parts are joined after the header, byte-equal to
+    ``_run_monolithic``. Under ``--profile`` the pass is one top-level
+    ``pipeline`` stage and the join of the parts a top-level ``join`` after
+    it. This thread's spans nest in ``pipeline`` and follow each other:
+    ``pipeline:read``, ``pipeline:parse_wait``, ``pipeline:call`` and
+    ``pipeline:serialize``; the worker's ``worker:parse`` hangs under
+    ``pipeline`` too. A chunk's part is the writer's buffer as it is
+    (``CallResult.to_csv_buffer``; decoded in text mode), its length added
+    to the counter ``serialize:bytes``; the join copies each part once."""
+    header = CSV_HEADER + "\n"
+    parts = [header.encode() if binary else header]
+    with profiling.maybe_stage("pipeline"):
+        for batch in _parsed_chunks(src, options, chunk_bytes):
+            if batch.num_sites == 0:
+                continue
+            with profiling.maybe_stage("pipeline:call"):
+                result = call_batch(batch, options, diag)
+            parts.append(_serialize(result, binary))
+    return _join(parts, binary)
+
+
+def _serialize(result: CallResult, binary: bool):
+    """A chunk's part under ``pipeline:serialize``, counted in
+    ``serialize:bytes``."""
+    with profiling.maybe_stage("pipeline:serialize"):
+        part = result.to_csv_buffer(include_header=False)
+        if not binary:
+            part = str(part, "latin1")
+    profiling.count("serialize:bytes", len(part))
+    return part
+
+
+def _join(parts: list, binary: bool):
+    """The parts joined under a top-level ``join``, and freed inside it."""
     with profiling.maybe_stage("join"):
         out = (b"" if binary else "").join(parts)
-        parts.clear()  # the chunks' parts are freed here, inside the span
+        parts.clear()
     return out
+
+
+class _HeldChunk(NamedTuple):
+    """What the fitted pipeline keeps of a chunk between its passes: the
+    sites' chromosomes and positions, and each site's row (``inverse``)
+    in the chunk's sorted unique profiles (``keys``, packed)."""
+
+    chrom_id: np.ndarray
+    chrom_table: List[str]
+    pos: np.ndarray
+    keys: np.ndarray
+    inverse: np.ndarray  # int32
+
+    @property
+    def nbytes(self) -> int:
+        return self.chrom_id.nbytes + self.pos.nbytes + self.keys.nbytes + self.inverse.nbytes
+
+
+def _run_fitted_pipeline(src, options: Options, diag, binary: bool, chunk_bytes: int):
+    """``bayes`` and ``likelihood_ratio`` on chunks, in two passes over
+    what pass 1 holds in memory, byte-equal to ``_run_monolithic`` (its
+    CSV and its ``diag`` lines); each site is parsed once and deduped once.
+
+    Pass 1 takes ``_parsed_chunks``'s batches; under ``pipeline:dedup``
+    each chunk's sites are deduped (``ops.profiles.unique_profiles``), its
+    sorted profiles merged into the request's table and its chromosomes,
+    positions, unique profiles and int32 inverse held (``_HeldChunk``; the
+    counts and the chunk's bytes are freed). Between the passes
+    ``class_table`` fits the table's coverage >= 4 profiles once
+    (``fit+classify``, BH over all of the input's profiles). Pass 2, under
+    ``pipeline:gather`` a chunk, maps the chunk's unique profiles onto the
+    table's rows with one search and gathers the classes onto its sites
+    (``common.gather_result``: the monolithic path's rows, order, coverage
+    < 4 omission and class rows), then writes its part
+    (``pipeline:serialize``); the parts are joined as the chunk pipeline
+    joins them. Counters: ``fitted:profiles`` (the profiles the fit was
+    given) and ``fitted:held_bytes`` (what pass 1 held)."""
+    held: Deque[_HeldChunk] = collections.deque()
+    keys, mult = np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    header = CSV_HEADER + "\n"
+    parts = [header.encode() if binary else header]
+    with profiling.maybe_stage("pipeline"):
+        for batch in _parsed_chunks(src, options, chunk_bytes):
+            if batch.num_sites == 0:
+                continue
+            with profiling.maybe_stage("pipeline:dedup"):
+                profiles, chunk_mult, inverse = unique_profiles(batch.counts)
+                chunk_keys = pack_profiles(profiles)
+                keys, mult = merge_profile_tables(keys, mult, chunk_keys, chunk_mult)
+                held.append(_HeldChunk(batch.chrom_id, batch.chrom_table, batch.pos, chunk_keys,
+                                       inverse.astype(np.int32)))
+        profiling.count("fitted:held_bytes", sum(h.nbytes for h in held))
+        profiles = unpack_profiles(keys)
+        table = class_table(profiles, mult, options, diag)
+        profiling.count("fitted:profiles", table.keys.shape[0])
+        keep = coverage_of(profiles) >= 4
+        while held:
+            chunk = held.popleft()
+            with profiling.maybe_stage("pipeline:gather"):
+                rows = np.searchsorted(keys, chunk.keys).astype(np.int32)
+                result = common.gather_result(chunk, table.conf_type, rows[chunk.inverse], *table.cls, keep_u=keep)
+            parts.append(_serialize(result, binary))
+    return _join(parts, binary)
 
 
 @dataclasses.dataclass

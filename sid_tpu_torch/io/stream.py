@@ -16,7 +16,7 @@ import gzip
 import io as _io
 import mmap
 import os
-from typing import Iterator, Optional, Tuple, Union
+from typing import Iterator, Tuple, Union
 
 import numpy as np
 
@@ -210,27 +210,27 @@ def accumulate_histogram_chunks(
     """Merge per-chunk unique-profile histograms over explicit (offset,
     chunk) pairs of ``src``'s text. Returns (profiles (U,4) sorted, mult
     (U,), total_sites)."""
-    keys_acc: Optional[np.ndarray] = None
-    mult_acc: Optional[np.ndarray] = None
+    keys_acc, mult_acc = np.zeros(0, np.uint64), np.zeros(0, np.int64)
     total = 0
     for offset, chunk in chunks:
         batch = parse_chunk(src, offset, chunk, backend=backend)
         total += batch.num_sites
         if batch.num_sites == 0:
             continue
-        keys = pack_profiles(batch.counts)
-        uniq, mult = np.unique(keys, return_counts=True)
-        if keys_acc is None:
-            keys_acc, mult_acc = uniq, mult.astype(np.int64)
-        else:
-            merged = np.concatenate([keys_acc, uniq])
-            weights = np.concatenate([mult_acc, mult.astype(np.int64)])
-            keys_acc, inv = np.unique(merged, return_inverse=True)
-            mult_acc = np.zeros(keys_acc.shape[0], np.int64)
-            np.add.at(mult_acc, inv, weights)
-    if keys_acc is None:
-        return np.zeros((0, 4), np.int32), np.zeros(0, np.int64), 0
+        uniq, mult = np.unique(pack_profiles(batch.counts), return_counts=True)
+        keys_acc, mult_acc = merge_profile_tables(keys_acc, mult_acc, uniq, mult)
     return unpack_profiles(keys_acc), mult_acc, total
+
+
+def merge_profile_tables(keys: np.ndarray, mult: np.ndarray, more_keys: np.ndarray, more_mult: np.ndarray):
+    """Two sorted tables of unique packed profiles (``pack_profiles``) and
+    their multiplicities as one sorted table, the multiplicities of a
+    profile in both added (int64)."""
+    merged = np.union1d(keys, more_keys)
+    total = np.zeros(merged.shape[0], np.int64)
+    total[np.searchsorted(merged, keys)] += mult
+    total[np.searchsorted(merged, more_keys)] += more_mult
+    return merged, total
 
 
 def accumulate_histogram(

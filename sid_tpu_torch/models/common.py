@@ -206,11 +206,12 @@ def gather_result(
     with profiling.maybe_stage("call:gather_result"):
         chrom_id, pos = batch.chrom_id, batch.pos
         if keep_u is not None:
-            site_keep = keep_u[inverse]
-            # site -> unfiltered row -> filtered row
-            filtered_row = np.cumsum(keep_u) - 1
-            inverse = filtered_row[inverse[site_keep]]
-            chrom_id, pos = chrom_id[site_keep], pos[site_keep]
+            # site -> unfiltered row -> filtered row, -1 where filtered out:
+            # one gather a site, and the sites compressed only if one drops
+            inverse = np.where(keep_u, np.cumsum(keep_u) - 1, -1)[inverse]
+            site_keep = inverse >= 0
+            if not site_keep.all():
+                inverse, chrom_id, pos = inverse[site_keep], chrom_id[site_keep], pos[site_keep]
         is_het_u = np.asarray(is_het_u)
         major_u = np.asarray(major_u)
         second_u = np.asarray(second_u)

@@ -35,10 +35,11 @@ def classify_profiles_lr(profiles, mult, options: Options, diag=None):
 
 def lrt_classify(profiles, pi: float, log_l_hom, log_l_het, options: Options):
     """The classification from a fit: (is_het, major, second, adj_p1,
-    adj_p2) over the profiles; the LRT and BH on the host, or on the
+    adj_p2) over the profiles; the LRT and BH on the host (the top-2, both
+    LRTs and both BH passes under the stage ``host:lrt_bh``), or on the
     options' device with ``exact_pvalues=False``."""
-    major, second = common.major_allele_indices_np(profiles)
     if not options.exact_pvalues:
+        major, second = common.major_allele_indices_np(profiles)
         log_priors = stats.prior_logs(pi) if options.estimate_prior else None
         device = options.device()
         with profiling.device_stage("classify_lr", device):
@@ -46,7 +47,8 @@ def lrt_classify(profiles, pi: float, log_l_hom, log_l_het, options: Options):
                 log_l_hom, log_l_het, log_priors, options.significance_level, device
             )
         return is_het, major, second, adj_p1, adj_p2
-    with np.errstate(invalid="ignore"):
+    with profiling.maybe_stage("host:lrt_bh"), np.errstate(invalid="ignore"):
+        major, second = common.major_allele_indices_np(profiles)
         lhom = common.clamp_ld_underflow_np(log_l_hom)
         lhet = common.clamp_ld_underflow_np(log_l_het)
         if options.estimate_prior:

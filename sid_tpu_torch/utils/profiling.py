@@ -15,9 +15,14 @@ The stages: the whole-input path's ``parse``, ``call`` and ``serialize``;
 the chunk pipeline's ``pipeline`` and, on its main thread,
 ``pipeline:read`` (the next chunk from the file), ``pipeline:parse_wait``,
 ``pipeline:call`` and ``pipeline:serialize``, its worker's
-``worker:parse``, and the ``join`` of its parts after it; inside a call,
+``worker:parse``, and the ``join`` of its parts after it; the fitted chunk
+pipeline's (``bayes``, ``likelihood_ratio``) ``pipeline:dedup`` (a chunk's
+dedup and merge into the request's table), ``fit+classify`` (the fit, once
+between its passes, as in ``--stream``) and ``pipeline:gather`` in place
+of ``pipeline:call``; inside a call,
 ``call:unique_profiles`` (the dedup), ``call:gather_result``, host blocks
-(``host:<name>``) and device blocks (``device:<name>``). Device stages
+(``host:<name>``: ``host:lrt_bh``, ``likelihood_ratio``'s host LRT and BH)
+and device blocks (``device:<name>``). Device stages
 carry sid_tpu's names where sid_tpu has the stage:
 ``local_log_likelihoods``, ``fit_lynch``, ``finalize_quality_het`` and
 population mode's ``population_marginals``; ``population_fit`` (the
@@ -25,7 +30,9 @@ cohort's lockstep fits) has no sid_tpu counterpart. On a CUDA device,
 ``device_stage`` also brackets its block with CUDA events on the current
 stream, so the report carries the stream's own time for the block beside
 the host's wall time. The engine counts the input sites it parses
-(``sites``).
+(``sites``); the fitted chunk pipeline the profiles its fit was given
+(``fitted:profiles``) and the bytes it held between its passes
+(``fitted:held_bytes``).
 
 ``SIDTPU_TRACE=<dir>`` also records a ``torch.profiler`` trace of the work
 between ``start_device_trace`` and ``stop_device_trace`` into that
@@ -227,8 +234,9 @@ class StageProfile:
     def report(self, log=None) -> str:
         """Each stage's total and self time and its share of the run's
         wall, the ``*_ms`` counters, each ``<stem>:bytes`` counter with its
-        rate over the stages named ``<stem>`` or ``*:<stem>``, and the
-        rate: the sites the engine parsed over the wall."""
+        rate over the stages named ``<stem>`` or ``*:<stem>``, every other
+        counter but ``sites``, and the rate: the sites the engine parsed
+        over the wall."""
         wall = self.wall()
         summary = self.summary()
         lines = []
@@ -244,6 +252,8 @@ class StageProfile:
                 seconds = sum(t.seconds for n, t in summary.items() if n == stem or n.endswith(":" + stem))
                 rate = f", {value / seconds * 1e-9:.2f} GB/s over its stages" if seconds > 0 else ""
                 lines.append(f"# {name}: {int(value):,}{rate}")
+            elif name != "sites":
+                lines.append(f"# {name}: {int(value):,}" if value == int(value) else f"# {name}: {value:g}")
         n = self.counters.get("sites")
         if n and wall > 0:
             lines.append(f"# throughput: {n / wall:,.0f} sites/s over {int(n)} sites in {wall * 1e3:.1f} ms")
