@@ -35,8 +35,8 @@ from sid_tpu_torch.config import Options
 from sid_tpu_torch.exact import engine as exact_engine
 from sid_tpu_torch.io.pileup import PileupBatch, parse_pileup
 from sid_tpu_torch.io.stream import (
-    accumulate_histogram, iter_chunks, merge_profile_tables, pack_profiles, parse_chunk, unpack_profiles,
-    with_offsets,
+    accumulate_histogram, chunk_views, iter_chunks, merge_profile_tables, pack_profiles, parse_chunk,
+    unpack_profiles, with_offsets,
 )
 from sid_tpu_torch.models import bayes, common, likelihood_ratio, local, quality
 from sid_tpu_torch.models.common import CSV_HEADER, CallResult
@@ -174,13 +174,18 @@ def _fitted_pipeline_eligible(options: Options, size: int) -> bool:
 
 
 def _parsed_chunks(src, options: Options, chunk_bytes: int) -> Iterator[PileupBatch]:
-    """The chunk pipeline's read loop: this thread reads each next chunk of
-    ``src`` (``pipeline:read``, and the read that finds its end) and hands
-    it to one worker thread, which parses it (``worker:parse``, hung under
-    the span open here; libsidtpu's parser releases the GIL) while the
-    caller works on the chunk before, which it gets after
-    ``pipeline:parse_wait``, each chunk's sites counted (``sites``). The
-    worker touches neither CUDA nor a pinned buffer. A parse error names
+    """The chunk pipeline's read loop: this thread takes each next chunk of
+    ``src`` (``pipeline:read``, and the read that finds its end), a view
+    of the bytes or of the mapped file where ``io.stream.chunk_views``
+    gives one (the newline search and the view, no copy) and bytes of a
+    gzip input, and hands it to one worker thread, which parses it in
+    place (``worker:parse``, hung under the span open here; libsidtpu's
+    parser releases the GIL) while the caller works on the chunk before,
+    which it gets after ``pipeline:parse_wait``, each chunk's sites counted
+    (``sites``). The worker touches neither CUDA nor a pinned buffer, and
+    no batch refers to a chunk. The worker is joined before the views are
+    released and the file unmapped, on every way out: the end, a parse
+    error, a caller that closes this generator early. A parse error names
     the file's line; it is raised after the worker's parse of the next
     chunk ends."""
     needs_reads = options.method == "quality"
@@ -194,9 +199,9 @@ def _parsed_chunks(src, options: Options, chunk_bytes: int) -> Iterator[PileupBa
             return parse_chunk(src, offset, chunk, needs_reads, needs_reads, backend=options.io_backend,
                                quality_terms_only=needs_reads)
 
-    with ThreadPoolExecutor(1) as ex:
+    with chunk_views(src, chunk_bytes) as views, ThreadPoolExecutor(1) as ex:
         adopt = profiling.handover()
-        chunks = with_offsets(iter_chunks(src, chunk_bytes))
+        chunks = with_offsets(views)
         located = read()
         fut = None if located is None else ex.submit(parse, *located)
         while fut is not None:

@@ -128,7 +128,7 @@ def _parse_python(
 
 
 def parse_pileup(
-    src: Union[str, bytes, os.PathLike, _io.IOBase],
+    src: Union[str, os.PathLike, _io.IOBase, bytes, bytearray, memoryview, np.ndarray],
     parse_base_qualities: bool = False,
     parse_mapping_qualities: bool = False,
     backend: str = "auto",
@@ -137,30 +137,33 @@ def parse_pileup(
 ) -> PileupBatch:
     """Parse mpileup text into a PileupBatch.
 
-    ``src`` may be a path, a bytes buffer, or a binary file object; gzip
-    input is detected by its magic bytes. ``backend``: "auto"/"native"
-    (C++ parser, built at first use) or "python" (the grammar spec).
-    ``quality_terms_only``: with both quality columns, the native parser
-    returns the quality method's per-site terms without the per-read
-    arrays; the Python backend ignores it (reads, no terms).
+    ``src`` may be a path, a binary file object, or any contiguous byte
+    buffer (bytes, bytearray, a memoryview, a numpy uint8 array), which
+    the native parser reads in place; gzip input is detected by its magic
+    bytes. No field of the batch refers to ``src``. ``backend``:
+    "auto"/"native" (C++ parser, built at first use) or "python" (the
+    grammar spec, on a bytes copy). ``quality_terms_only``: with both
+    quality columns, the native parser returns the quality method's
+    per-site terms without the per-read arrays; the Python backend ignores
+    it (reads, no terms).
     """
     if isinstance(src, (str, os.PathLike)):
         with open(src, "rb") as f:
             data = f.read()
-    elif isinstance(src, (bytes, bytearray)):
-        data = bytes(src)
-    else:
+    elif hasattr(src, "read"):
         data = src.read()
         if isinstance(data, str):
             data = data.encode()
-    if data[:2] == b"\x1f\x8b":  # transparent gzip input (magic-detected)
+    else:
+        data = src
+    if bytes(memoryview(data)[:2]) == b"\x1f\x8b":  # transparent gzip input (magic-detected)
         import gzip
 
         data = gzip.decompress(data)
 
     errors = ErrorChannel(strict=strict)
     if backend == "python":
-        return _parse_python(data, parse_base_qualities, parse_mapping_qualities, errors)
+        return _parse_python(bytes(data), parse_base_qualities, parse_mapping_qualities, errors)
     if backend not in ("auto", "native"):
         raise ValueError(f"unknown io backend: {backend!r}")
     fields = bridge.parse(

@@ -7,20 +7,25 @@ each chunk into the unique-profile histogram (the Lynch fit's sufficient
 statistic); pass 2 re-parses chunk by chunk, classifies, and appends CSV —
 memory is bounded by the chunk size, not the genome. A chunk is parsed
 with its offset in the input (``parse_chunk``), so a malformed line is
-reported by its line in the file, not in the chunk.
+reported by its line in the file, not in the chunk. The chunk pipeline
+takes the same chunks as views of the text (``chunk_views``), parsed in
+place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io as _io
 import mmap
 import os
+import stat
 from typing import Iterator, Tuple, Union
 
 import numpy as np
 
 from sid_tpu_torch.io.pileup import PileupBatch, parse_pileup
+from sid_tpu_torch.utils import profiling
 from sid_tpu_torch.utils.errors import SidParseError
 
 DEFAULT_CHUNK_BYTES = 64 << 20
@@ -58,12 +63,20 @@ def iter_chunks(
     Gzip input (detected by magic bytes) is decompressed transparently —
     the reference's pipelines zcat externally
     (scripts/sid-pipeline/run-sid.sh); here `.gz` is a first-class input.
-    Plain bytes and plain files (mapped) are cut in place: one copy a
-    chunk, the chunks of the stream loop below.
+    Plain bytes and regular files (mapped) are cut in place (``_in_place``):
+    one copy a chunk, the chunks of the stream loop (``_streamed``).
     """
-    if isinstance(src, bytes) and src[:2] != GZIP_MAGIC:
-        yield from _cut(src, chunk_bytes)
-        return
+    with contextlib.ExitStack() as stack:
+        text = _in_place(src, stack)
+        if text is not None:
+            yield from _cut(text, chunk_bytes)
+            return
+    yield from _streamed(src, chunk_bytes)
+
+
+def _streamed(src, chunk_bytes: int) -> Iterator[bytes]:
+    """The stream loop: newline-aligned chunks of ``src`` read
+    ``chunk_bytes`` at a time, gzip decompressed."""
     raw = None
     if isinstance(src, bytes):
         stream: _io.IOBase = _maybe_gzip(_io.BytesIO(src))
@@ -76,10 +89,6 @@ def iter_chunks(
         stream = _maybe_gzip(src)
         close = False
     try:
-        if stream is raw and os.fstat(raw.fileno()).st_size:
-            with mmap.mmap(raw.fileno(), 0, access=mmap.ACCESS_READ) as mapped:
-                yield from _cut(mapped, chunk_bytes)
-            return
         carry = b""
         while True:
             block = stream.read(chunk_bytes)
@@ -103,20 +112,85 @@ def iter_chunks(
                 raw.close()
 
 
-def _cut(buf, chunk_bytes: int) -> Iterator[bytes]:
-    """The stream loop's chunks of a whole buffer (bytes or a mapped file),
-    cut where it cuts them: after the last newline of the bytes read so
-    far, ``chunk_bytes`` a read, and the rest at the end."""
+def _spans(buf, chunk_bytes: int) -> Iterator[Tuple[int, int]]:
+    """(start, end) of the stream loop's chunks of a whole buffer (bytes
+    or a mapped file), cut where it cuts them: after the last newline of
+    the bytes read so far, ``chunk_bytes`` a read, and the rest at the end."""
     n = len(buf)
     start = read = 0
     while read < n:
         read = min(read + chunk_bytes, n)
         cut = buf.rfind(b"\n", start, read)
         if cut >= 0:
-            yield buf[start:cut + 1]
+            yield start, cut + 1
             start = cut + 1
     if start < n:
-        yield buf[start:n]
+        yield start, n
+
+
+def _cut(buf, chunk_bytes: int) -> Iterator[bytes]:
+    """``_spans``' chunks of a whole buffer, each copied out as bytes."""
+    for start, end in _spans(buf, chunk_bytes):
+        yield buf[start:end]
+
+
+def _in_place(src, stack: contextlib.ExitStack):
+    """The whole text of ``src`` where it can be read in place: plain
+    bytes, or a read-only map of a regular non-empty file, entered on
+    ``stack``. None where the text has to be streamed: gzip input, a file
+    object, an empty file, a path that is no regular file (a FIFO,
+    ``/dev/stdin``), which is told by its ``stat`` before it is opened,
+    so no byte of a pipe is read here."""
+    if isinstance(src, bytes):
+        return None if src[:2] == GZIP_MAGIC else src
+    if not isinstance(src, (str, os.PathLike)):
+        return None
+    st = os.stat(src)
+    if not (stat.S_ISREG(st.st_mode) and st.st_size):
+        return None
+    with open(src, "rb") as f:  # the map holds a descriptor of its own
+        if f.peek(2)[:2] == GZIP_MAGIC:
+            return None
+        return stack.enter_context(mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ))
+
+
+@contextlib.contextmanager
+def chunk_views(
+    src: Union[str, os.PathLike, _io.IOBase, bytes],
+    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+) -> Iterator[Iterator[Union[memoryview, bytes]]]:
+    """``iter_chunks``' chunks of ``src``, at its offsets, without a copy
+    where the text is already whole: entered, it gives an iterator of the
+    chunks, ``memoryview`` slices of plain bytes or of a regular non-empty
+    file's read-only map (opened and mapped on the first chunk); gzip input
+    and file objects give the stream loop's bytes. The request's counters
+    ``read:view_bytes`` and ``read:copied_bytes`` add the bytes of each
+    kind, once, at the exit.
+
+    The views, and the map, live until the exit, which releases every view
+    it gave and then unmaps the file. So a caller ends each parse of a view
+    before it exits, and keeps no array over a view: the exit raises
+    ``BufferError`` where one is left."""
+    counts = {"read:view_bytes": 0, "read:copied_bytes": 0}
+    with contextlib.ExitStack() as stack:
+
+        def chunks():
+            text = _in_place(src, stack)
+            if text is None:
+                for chunk in stack.enter_context(contextlib.closing(_streamed(src, chunk_bytes))):
+                    counts["read:copied_bytes"] += len(chunk)
+                    yield chunk
+                return
+            whole = stack.enter_context(memoryview(text))
+            for start, end in _spans(text, chunk_bytes):
+                counts["read:view_bytes"] += end - start
+                yield stack.enter_context(whole[start:end])  # released before the map closes
+
+        try:
+            yield chunks()
+        finally:
+            for name, n in counts.items():
+                profiling.count(name, n)
 
 
 def with_offsets(chunks: Iterator[bytes], start: int = 0) -> Iterator[Tuple[int, bytes]]:
@@ -138,11 +212,12 @@ def lines_before(src, offset: int) -> int:
     return n
 
 
-def parse_chunk(src, offset: int, chunk: bytes, *args, **kwargs) -> PileupBatch:
-    """``parse_pileup(chunk, *args, **kwargs)`` of a chunk that starts
-    ``offset`` bytes into ``src``'s text: a malformed line's number counts
-    from the start of ``src``. The lines before the chunk are counted only
-    when the parse fails, so a clean parse costs nothing more."""
+def parse_chunk(src, offset: int, chunk, *args, **kwargs) -> PileupBatch:
+    """``parse_pileup(chunk, *args, **kwargs)`` of a chunk (bytes or a
+    view) that starts ``offset`` bytes into ``src``'s text: a malformed
+    line's number counts from the start of ``src``. The lines before the
+    chunk are counted only when the parse fails, so a clean parse costs
+    nothing more."""
     try:
         return parse_pileup(chunk, *args, **kwargs)
     except SidParseError as e:

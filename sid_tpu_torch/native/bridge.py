@@ -40,7 +40,7 @@ _P_LD = ctypes.POINTER(ctypes.c_longdouble)
 _P_CHAR = ctypes.POINTER(ctypes.c_char)
 
 _SIGNATURES = {
-    "sidtpu_parse_ex": (_vp, [ctypes.c_char_p, _i64, _i32, _i32, _i32, _i32, _i32]),
+    "sidtpu_parse_ex": (_vp, [_vp, _i64, _i32, _i32, _i32, _i32, _i32]),
     "sidtpu_num_sites": (_i64, [_vp]),
     "sidtpu_num_reads": (_i64, [_vp]),
     "sidtpu_num_errors": (_i64, [_vp]),
@@ -175,10 +175,21 @@ def _as_array(ptr, ctype, count, dtype) -> np.ndarray:
     return arr.astype(dtype, copy=True)
 
 
-def parse(lib, data: bytes, parse_bq: bool, parse_mq: bool, errors: ErrorChannel,
+def _parse_in_place(lib, data, *args):
+    """``sidtpu_parse_ex`` over ``data``'s own bytes (any contiguous byte
+    buffer; ``np.frombuffer`` raises on another). The array that gives
+    their address lives for the call alone, so no export of ``data``
+    outlives it: the parse keeps copies of what it returns."""
+    buf = np.frombuffer(data, np.uint8)
+    return lib.sidtpu_parse_ex(buf.ctypes.data, buf.size, *args)
+
+
+def parse(lib, data, parse_bq: bool, parse_mq: bool, errors: ErrorChannel,
           terms_only: bool = False) -> dict:
-    """Threaded native parse of a whole buffer: the PileupBatch fields as
-    numpy arrays. Malformed lines go to ``errors``.
+    """Threaded native parse of a whole buffer, read in place (bytes,
+    bytearray, a memoryview or a numpy uint8 array): the PileupBatch fields
+    as numpy arrays, none of them over ``data``. Malformed lines go to
+    ``errors``.
 
     With both quality columns the parser also sums the quality method's
     per-site terms inline (``q_log_hom``, ``q_log_het``, ``q_major``,
@@ -190,9 +201,7 @@ def parse(lib, data: bytes, parse_bq: bool, parse_mq: bool, errors: ErrorChannel
     flags = 0
     if parse_bq and parse_mq:
         flags = PARSE_TERMS | (PARSE_TERMS_ONLY if terms_only else 0)
-    res = lib.sidtpu_parse_ex(
-        data, len(data), int(parse_bq), int(parse_mq), int(errors.strict), 0, flags
-    )
+    res = _parse_in_place(lib, data, int(parse_bq), int(parse_mq), int(errors.strict), 0, flags)
     try:
         n_err = lib.sidtpu_num_errors(res)
         if n_err:
