@@ -266,7 +266,7 @@ class _HeldChunk(NamedTuple):
     chrom_table: List[str]
     pos: np.ndarray
     keys: np.ndarray
-    inverse: np.ndarray  # int32
+    inverse: np.ndarray
 
     @property
     def nbytes(self) -> int:
@@ -286,9 +286,9 @@ def _run_fitted_pipeline(src, options: Options, diag, binary: bool, chunk_bytes:
     ``class_table`` fits the table's coverage >= 4 profiles once
     (``fit+classify``, BH over all of the input's profiles). Pass 2, under
     ``pipeline:gather`` a chunk, maps the chunk's unique profiles onto the
-    table's rows with one search and gathers the classes onto its sites
-    (``common.gather_result``: the monolithic path's rows, order, coverage
-    < 4 omission and class rows), then writes its part
+    table's class rows and coverage mask with one search and gathers once
+    a site (``common.gather_result``: the monolithic path's rows, order
+    and coverage < 4 omission), then writes its part
     (``pipeline:serialize``); the parts are joined as the chunk pipeline
     joins them. Counters: ``fitted:profiles`` (the profiles the fit was
     given) and ``fitted:held_bytes`` (what pass 1 held)."""
@@ -304,18 +304,20 @@ def _run_fitted_pipeline(src, options: Options, diag, binary: bool, chunk_bytes:
                 profiles, chunk_mult, inverse = unique_profiles(batch.counts)
                 chunk_keys = pack_profiles(profiles)
                 keys, mult = merge_profile_tables(keys, mult, chunk_keys, chunk_mult)
-                held.append(_HeldChunk(batch.chrom_id, batch.chrom_table, batch.pos, chunk_keys,
-                                       inverse.astype(np.int32)))
+                held.append(_HeldChunk(batch.chrom_id, batch.chrom_table, batch.pos, chunk_keys, inverse))
         profiling.count("fitted:held_bytes", sum(h.nbytes for h in held))
         profiles = unpack_profiles(keys)
         table = class_table(profiles, mult, options, diag)
         profiling.count("fitted:profiles", table.keys.shape[0])
         keep = coverage_of(profiles) >= 4
+        class_rows = np.where(keep, np.cumsum(keep) - 1, -1)  # the table's profiles' class rows
         while held:
             chunk = held.popleft()
             with profiling.maybe_stage("pipeline:gather"):
-                rows = np.searchsorted(keys, chunk.keys).astype(np.int32)
-                result = common.gather_result(chunk, table.conf_type, rows[chunk.inverse], *table.cls, keep_u=keep)
+                rows = class_rows[np.searchsorted(keys, chunk.keys)]
+                kept = rows >= 0
+                chunk_cls = (c[rows[kept]] for c in table.cls)
+                result = common.gather_result(chunk, table.conf_type, chunk.inverse, *chunk_cls, keep_u=kept)
             parts.append(_serialize(result, binary))
     return _join(parts, binary)
 

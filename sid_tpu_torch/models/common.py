@@ -1,8 +1,9 @@
 """Shared calling-method machinery: allele selection, results, CSV assembly.
 
-``CallResult`` is a struct-of-arrays over output sites (the reference's
-vector<OutputRecord>, call.hpp:23-38); its CSV comes from a
-multithreaded native writer (the port's in-place indexed writer, or
+``CallResult`` is the reference's vector<OutputRecord> (call.hpp:23-38):
+the sites and one class table, each site's int32 row in it, or the table
+over the sites where there are no rows (``-m quality``). Its CSV comes
+from a multithreaded native writer (the port's in-place indexed writer, or
 libsidtpu's per-site one), byte-for-byte the reference's ostream output
 with ``%g`` floats. ``to_csv_lines`` is the Python spec of the same format.
 """
@@ -91,51 +92,60 @@ def clamp_ld_underflow_np(log_l) -> np.ndarray:
     return np.where(log_l < LONG_DOUBLE_UNDERFLOW_LOG, -np.inf, log_l)
 
 
+# the five arrays of a call's answer, over classes or over sites
+ANSWER = ("is_het", "major", "second", "conf_hom", "conf_het")
+
+
 @dataclasses.dataclass
 class CallResult:
-    """Struct-of-arrays over the emitted sites, in output order."""
+    """The emitted sites, in output order, and their answer: row
+    ``class_idx[k]`` of the five answer arrays is site k's, or row k where
+    ``class_idx`` is None."""
 
     chrom_id: np.ndarray  # (M,) int32 -> chrom_table
     chrom_table: List[str]
     pos: np.ndarray  # (M,) int32
-    is_het: np.ndarray  # (M,) bool
-    major: np.ndarray  # (M,) int32  allele index
-    second: np.ndarray  # (M,) int32
-    conf_hom: np.ndarray  # (M,) float64
-    conf_het: np.ndarray  # (M,) float64
+    is_het: np.ndarray  # (C,) bool
+    major: np.ndarray  # (C,) int32  allele index
+    second: np.ndarray  # (C,) int32
+    conf_hom: np.ndarray  # (C,) float64
+    conf_het: np.ndarray  # (C,) float64
     conf_type: str  # "p_value" | "probability"
-    # optional per-unique-profile payload: when present, the serializer
-    # formats each class once and joins via class_idx (M,) -> class row
-    class_idx: Optional[np.ndarray] = None
-    cls_is_het: Optional[np.ndarray] = None
-    cls_major: Optional[np.ndarray] = None
-    cls_second: Optional[np.ndarray] = None
-    cls_conf_hom: Optional[np.ndarray] = None
-    cls_conf_het: Optional[np.ndarray] = None
+    class_idx: Optional[np.ndarray] = None  # (M,) int32 row in the C classes; None: C = M
 
     @property
     def num_records(self) -> int:
         return int(self.pos.shape[0])
 
+    def per_site(self) -> "CallResult":
+        """This result with one class a site: the answer arrays gathered
+        through ``class_idx`` (itself where it has none). The writers take
+        the class table as it is; this is for the Python spec and tests."""
+        if self.class_idx is None:
+            return self
+        return dataclasses.replace(
+            self, class_idx=None, **{name: getattr(self, name)[self.class_idx] for name in ANSWER})
+
     def to_csv_lines(self) -> List[str]:
         """One CSV line per record (operator<<, call.hpp:29-38) in Python."""
+        site = self.per_site()
         table = self.chrom_table
         out = []
         for k in range(self.num_records):
-            het = bool(self.is_het[k])
-            a = chr(ALLELES[self.major[k]])
-            b = chr(ALLELES[self.second[k]]) if het else a
+            het = bool(site.is_het[k])
+            a = chr(ALLELES[site.major[k]])
+            b = chr(ALLELES[site.second[k]]) if het else a
             out.append(
                 f"{table[self.chrom_id[k]]},{self.pos[k]},{'het' if het else 'hom'},{a}{b},"
-                f"{fmt_g(float(self.conf_hom[k]))},{fmt_g(float(self.conf_het[k]))},"
+                f"{fmt_g(float(site.conf_hom[k]))},{fmt_g(float(site.conf_het[k]))},"
                 f"{self.conf_type}"
             )
         return out
 
     def to_csv_buffer(self, include_header: bool = True):
         """The CSV as a bytes-like object, for a join or a write: with a
-        per-class table the port's in-place writer's exact-size uint8
-        array, else libsidtpu's per-site writer's bytes."""
+        class table the port's in-place writer's exact-size uint8 array,
+        else libsidtpu's per-site writer's bytes."""
         if self.class_idx is None:
             return bridge.write_csv(native.load(), self, include_header)
         return bridge.write_csv_indexed(native.load(), native.csv_writer(), self, include_header)
@@ -149,39 +159,34 @@ class CallResult:
 
 
 def join_class_table(batch, keys: np.ndarray, cls, conf_type: str) -> CallResult:
-    """Join a per-class table onto a batch through packed-profile search
+    """Join a class table onto a batch through packed-profile search
     (sid_tpu/models/common.py:194-233).
 
     ``keys`` is the sorted packed-uint64 profile table
     (``io.stream.pack_profiles``); ``cls`` the 5-tuple (is_het, major,
-    second, conf_hom, conf_het) over classes. Sites whose profile is absent
-    from ``keys`` (cov<4-filtered) are omitted, in input order: the
-    streaming analogue of the map<profile_t,size_t> join (call.cpp:129-140).
+    second, conf_hom, conf_het) over classes, the result's class table.
+    Sites whose profile is absent from ``keys`` (cov<4-filtered) are
+    omitted, in input order: the streaming analogue of the
+    map<profile_t,size_t> join (call.cpp:129-140).
     """
     site_keys = pack_profiles(batch.counts)
     idx = np.searchsorted(keys, site_keys)
-    idx_c = np.minimum(idx, max(len(keys) - 1, 0))
+    idx_c = np.minimum(idx, max(len(keys) - 1, 0), dtype=np.int32)
     found = keys[idx_c] == site_keys if len(keys) else np.zeros(len(site_keys), bool)
-    class_idx = idx_c[found].astype(np.int32)
-    cls_conf_hom = np.asarray(cls[3], np.float64)
-    cls_conf_het = np.asarray(cls[4], np.float64)
     return CallResult(
         chrom_id=batch.chrom_id[found],
         chrom_table=batch.chrom_table,
         pos=batch.pos[found],
-        is_het=cls[0][class_idx],
-        major=cls[1][class_idx],
-        second=cls[2][class_idx],
-        conf_hom=cls_conf_hom[class_idx],
-        conf_het=cls_conf_het[class_idx],
         conf_type=conf_type,
-        class_idx=class_idx,
-        cls_is_het=np.asarray(cls[0]),
-        cls_major=np.asarray(cls[1]),
-        cls_second=np.asarray(cls[2]),
-        cls_conf_hom=cls_conf_hom,
-        cls_conf_het=cls_conf_het,
+        class_idx=idx_c[found],
+        **_answer(*cls),
     )
+
+
+def _answer(is_het, major, second, conf_hom, conf_het) -> dict:
+    """A class table's five arrays as ``CallResult`` fields."""
+    return dict(is_het=np.asarray(is_het), major=np.asarray(major), second=np.asarray(second),
+                conf_hom=np.asarray(conf_hom, np.float64), conf_het=np.asarray(conf_het, np.float64))
 
 
 def gather_result(
@@ -195,42 +200,30 @@ def gather_result(
     p2_u: np.ndarray,
     keep_u: Optional[np.ndarray] = None,
 ) -> CallResult:
-    """Join per-unique-profile classifications back onto input sites.
+    """Join per-unique-profile classifications onto input sites: the five
+    arrays are the result's class table, ``inverse`` (int32, as
+    ``ops.profiles`` returns it) its ``class_idx``.
 
     Replaces the reference's map<profile_t,size_t> join (call.cpp:129-140):
-    ``inverse`` maps each site to its unique-profile row; sites whose profile
-    was filtered out (``keep_u`` False) are omitted from the output, in input
-    order, like the cov<4 drop of bayes and likelihood_ratio. Under
-    ``--profile`` the stage ``call:gather_result``.
+    sites whose profile was filtered out (``keep_u`` False; the arrays then
+    run over the kept profiles) are omitted, in input order, like the cov<4
+    drop of bayes and likelihood_ratio. Under ``--profile`` the stage
+    ``call:gather_result``.
     """
     with profiling.maybe_stage("call:gather_result"):
         chrom_id, pos = batch.chrom_id, batch.pos
         if keep_u is not None:
             # site -> unfiltered row -> filtered row, -1 where filtered out:
             # one gather a site, and the sites compressed only if one drops
-            inverse = np.where(keep_u, np.cumsum(keep_u) - 1, -1)[inverse]
+            inverse = np.where(keep_u, np.cumsum(keep_u, dtype=np.int32) - 1, -1)[inverse]
             site_keep = inverse >= 0
             if not site_keep.all():
                 inverse, chrom_id, pos = inverse[site_keep], chrom_id[site_keep], pos[site_keep]
-        is_het_u = np.asarray(is_het_u)
-        major_u = np.asarray(major_u)
-        second_u = np.asarray(second_u)
-        p1_u = np.asarray(p1_u, np.float64)
-        p2_u = np.asarray(p2_u, np.float64)
         return CallResult(
             chrom_id=chrom_id,
             chrom_table=batch.chrom_table,
             pos=pos,
-            is_het=is_het_u[inverse],
-            major=major_u[inverse],
-            second=second_u[inverse],
-            conf_hom=p1_u[inverse],
-            conf_het=p2_u[inverse],
             conf_type=conf_type,
-            class_idx=np.ascontiguousarray(inverse, np.int32),
-            cls_is_het=is_het_u,
-            cls_major=major_u,
-            cls_second=second_u,
-            cls_conf_hom=p1_u,
-            cls_conf_het=p2_u,
+            class_idx=inverse,
+            **_answer(is_het_u, major_u, second_u, p1_u, p2_u),
         )

@@ -247,7 +247,7 @@ def unique_profiles(lib, counts: np.ndarray):
     """Threaded unique-profile histogram.
 
     Returns (profiles (U,4) int32 sorted, mult (U,) int64, inverse (N,)
-    int64) — the contract of ops.profiles.unique_profiles.
+    int32) — the contract of ops.profiles.unique_profiles.
     """
     arr = np.ascontiguousarray(counts, np.uint16)
     n = arr.shape[0]
@@ -258,7 +258,7 @@ def unique_profiles(lib, counts: np.ndarray):
             lib.sidtpu_unique_class_profiles(res), ctypes.c_uint16, u * 4, np.int32
         ).reshape(-1, 4)
         mult = _as_array(lib.sidtpu_unique_class_mult(res), ctypes.c_int64, u, np.int64)
-        inverse = _as_array(lib.sidtpu_unique_inverse(res), ctypes.c_int32, n, np.int64)
+        inverse = _as_array(lib.sidtpu_unique_inverse(res), ctypes.c_int32, n, np.int32)
         return profiles, mult, inverse
     finally:
         lib.sidtpu_unique_free(res)
@@ -395,17 +395,26 @@ class NativeLynchLD:
         return l_hom, l_het
 
 
+def _row_arrays(result):
+    """What both writers take of a result: the chromosome blob, the sites'
+    chromosomes and positions, and the five answer arrays, contiguous in
+    the writers' dtypes."""
+    return (
+        encode_chrom_blob(result.chrom_table),
+        np.ascontiguousarray(result.chrom_id, np.int32),
+        np.ascontiguousarray(result.pos, np.int32),
+        np.ascontiguousarray(result.is_het, np.uint8),
+        np.ascontiguousarray(result.major, np.int32),
+        np.ascontiguousarray(result.second, np.int32),
+        np.ascontiguousarray(result.conf_hom, np.float64),
+        np.ascontiguousarray(result.conf_het, np.float64),
+    )
+
+
 def write_csv(lib, result, include_header: bool) -> bytes:
     """libsidtpu's multithreaded per-site serializer (glibc %g == ostream
-    default), for results without a per-class table."""
-    blob = encode_chrom_blob(result.chrom_table)
-    chrom_id = np.ascontiguousarray(result.chrom_id, np.int32)
-    pos = np.ascontiguousarray(result.pos, np.int32)
-    is_het = np.ascontiguousarray(result.is_het, np.uint8)
-    major = np.ascontiguousarray(result.major, np.int32)
-    second = np.ascontiguousarray(result.second, np.int32)
-    ch = np.ascontiguousarray(result.conf_hom, np.float64)
-    ct = np.ascontiguousarray(result.conf_het, np.float64)
+    default), for results without a class table."""
+    blob, chrom_id, pos, is_het, major, second, ch, ct = _row_arrays(result)
     out = _P_CHAR()
     length = lib.sidtpu_write_csv(
         blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
@@ -426,21 +435,14 @@ def configure_csv(csv: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def write_csv_indexed(lib, csv, result, include_header: bool) -> np.ndarray:
-    """The CSV of a result with a per-class table as an exact-size uint8
+    """The CSV of a result with a class table as an exact-size uint8
     array: libsidtpu_csv ``csv`` formats each class once with libsidtpu
     ``lib``'s ``%g`` and sums every thread's rows' bytes, then each thread
     writes its rows in place into the array. Byte for byte libsidtpu's
     ``sidtpu_write_csv_indexed``; ``bytes.join`` and ``file.write`` take
     the array as it is."""
-    blob = encode_chrom_blob(result.chrom_table)
-    chrom_id = np.ascontiguousarray(result.chrom_id, np.int32)
-    pos = np.ascontiguousarray(result.pos, np.int32)
+    blob, chrom_id, pos, is_het, major, second, ch, ct = _row_arrays(result)
     class_idx = np.ascontiguousarray(result.class_idx, np.int32)
-    is_het = np.ascontiguousarray(result.cls_is_het, np.uint8)
-    major = np.ascontiguousarray(result.cls_major, np.int32)
-    second = np.ascontiguousarray(result.cls_second, np.int32)
-    ch = np.ascontiguousarray(result.cls_conf_hom, np.float64)
-    ct = np.ascontiguousarray(result.cls_conf_het, np.float64)
     plan = csv.sidtpu_csv_plan(
         blob, len(blob), _ptr(chrom_id, _P_I32), _ptr(pos, _P_I32),
         _ptr(class_idx, _P_I32), result.num_records, _ptr(is_het, _P_U8), _ptr(major, _P_I32),

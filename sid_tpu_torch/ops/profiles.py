@@ -26,7 +26,8 @@ def unique_profiles(counts: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndar
     """Compact per-site base-count rows into unique profiles.
 
     Returns ``(profiles (U,4) int32 lexicographically sorted, multiplicity
-    (U,) int64, inverse (N,) int64)`` with ``profiles[inverse] == counts``.
+    (U,) int64, inverse (N,) int32)`` with ``profiles[inverse] == counts``;
+    the inverse is a call's ``CallResult.class_idx`` as it is.
     Large inputs go to libsidtpu's threaded flat-hash histogram; the numpy
     path is the spec, and both give identical arrays. Under ``--profile``
     the stage ``call:unique_profiles``.
@@ -37,7 +38,7 @@ def unique_profiles(counts: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndar
             return (
                 np.zeros((0, 4), np.int32),
                 np.zeros(0, np.int64),
-                np.zeros(0, np.int64),
+                np.zeros(0, np.int32),
             )
         if counts.shape[0] >= _NATIVE_MIN_SITES:
             return bridge.unique_profiles(native.load(), counts)
@@ -52,7 +53,7 @@ def _unique_profiles_np(counts: np.ndarray):
     uniq = np.unique(keys)
     inverse = np.searchsorted(uniq, keys)
     mult = np.bincount(inverse, minlength=uniq.shape[0]).astype(np.int64)
-    inverse = inverse.astype(np.int64)
+    inverse = inverse.astype(np.int32)
     prof = np.empty((uniq.shape[0], 4), np.int32)
     prof[:, 0] = (uniq >> 48) & 0xFFFF
     prof[:, 1] = (uniq >> 32) & 0xFFFF

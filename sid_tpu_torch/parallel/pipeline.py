@@ -6,7 +6,7 @@ parallel (scripts/sid-pipeline/parallel-run-sid.sh), which makes every
 statistic, the Lynch fit included, per chromosome. ``call_per_shard``
 gives those semantics in one process (``--per-shard-fit``): each shard is
 called alone and the results are concatenated in coordinate order, with
-the per-class payload kept so the CSV stays on the indexed writer.
+their class tables kept so the CSV stays on the indexed writer.
 
 A sliced batch carries the sites' quality-method terms of the native parser
 (``q_log_hom``, ``q_log_het``, ``q_major``, ``q_second``) beside the read
@@ -24,7 +24,7 @@ import numpy as np
 
 from sid_tpu_torch.config import Options
 from sid_tpu_torch.io.pileup import PileupBatch
-from sid_tpu_torch.models.common import CallResult
+from sid_tpu_torch.models.common import ANSWER, CallResult
 
 _SITE_TERMS = ("q_log_hom", "q_log_het", "q_major", "q_second")
 
@@ -73,28 +73,24 @@ def split_ranges(batch: PileupBatch, k: int) -> List[PileupBatch]:
 
 
 def concat_results(parts: List[CallResult]) -> CallResult:
-    """The shards' results in order, one CallResult. Each part's class
-    indices are offset into the concatenated class table, so the CSV is
-    written by the indexed writer (``sidtpu_write_csv_indexed``)."""
+    """The shards' results in order, one CallResult. Where every part has
+    a class table, the tables are concatenated and each part's
+    ``class_idx`` offset into them, so the CSV stays on the indexed writer
+    (``sidtpu_write_csv_indexed``); otherwise the parts' answers are
+    concatenated a site each."""
+    if not all(p.class_idx is not None for p in parts):
+        parts = [p.per_site() for p in parts]
     first = parts[0]
     merged = CallResult(
         chrom_id=np.concatenate([p.chrom_id for p in parts]),
         chrom_table=first.chrom_table,
         pos=np.concatenate([p.pos for p in parts]),
-        is_het=np.concatenate([p.is_het for p in parts]),
-        major=np.concatenate([p.major for p in parts]),
-        second=np.concatenate([p.second for p in parts]),
-        conf_hom=np.concatenate([p.conf_hom for p in parts]),
-        conf_het=np.concatenate([p.conf_het for p in parts]),
         conf_type=first.conf_type,
+        **{name: np.concatenate([getattr(p, name) for p in parts]) for name in ANSWER},
     )
-    if all(p.class_idx is not None for p in parts):
-        offsets = np.cumsum([0] + [p.cls_is_het.shape[0] for p in parts[:-1]])
-        merged.class_idx = np.concatenate(
-            [p.class_idx.astype(np.int64) + off for p, off in zip(parts, offsets)]
-        ).astype(np.int32)
-        for name in ("cls_is_het", "cls_major", "cls_second", "cls_conf_hom", "cls_conf_het"):
-            setattr(merged, name, np.concatenate([getattr(p, name) for p in parts]))
+    if first.class_idx is not None:
+        offsets = np.cumsum([0] + [p.is_het.shape[0] for p in parts[:-1]], dtype=np.int32)
+        merged.class_idx = np.concatenate([p.class_idx + off for p, off in zip(parts, offsets)])
     return merged
 
 

@@ -58,12 +58,9 @@ def _result(n, u, seed=0, chroms=("chr1",), pos=None, confs=None):
         conf_het = np.roll(conf_hom, 3)
     return CallResult(
         chrom_id=rng.integers(0, len(chroms), n).astype(np.int32), chrom_table=list(chroms), pos=pos,
-        is_het=None, major=None, second=None, conf_hom=None, conf_het=None, conf_type="p_value",
-        class_idx=rng.integers(0, u, n).astype(np.int32),
-        cls_is_het=rng.integers(0, 2, u).astype(np.uint8),
-        cls_major=rng.integers(0, 4, u).astype(np.int32),
-        cls_second=rng.integers(0, 4, u).astype(np.int32),
-        cls_conf_hom=conf_hom, cls_conf_het=conf_het,
+        is_het=rng.integers(0, 2, u).astype(np.uint8), major=rng.integers(0, 4, u).astype(np.int32),
+        second=rng.integers(0, 4, u).astype(np.int32), conf_hom=conf_hom, conf_het=conf_het,
+        conf_type="p_value", class_idx=rng.integers(0, u, n).astype(np.int32),
     )
 
 
@@ -89,11 +86,11 @@ def _arrays(res):
     return dict(
         chrom_id=np.ascontiguousarray(res.chrom_id, np.int32), pos=np.ascontiguousarray(res.pos, np.int32),
         class_idx=np.ascontiguousarray(res.class_idx, np.int32),
-        is_het=np.ascontiguousarray(res.cls_is_het, np.uint8),
-        major=np.ascontiguousarray(res.cls_major, np.int32),
-        second=np.ascontiguousarray(res.cls_second, np.int32),
-        hom=np.ascontiguousarray(res.cls_conf_hom, np.float64),
-        het=np.ascontiguousarray(res.cls_conf_het, np.float64),
+        is_het=np.ascontiguousarray(res.is_het, np.uint8),
+        major=np.ascontiguousarray(res.major, np.int32),
+        second=np.ascontiguousarray(res.second, np.int32),
+        hom=np.ascontiguousarray(res.conf_hom, np.float64),
+        het=np.ascontiguousarray(res.conf_het, np.float64),
     )
 
 

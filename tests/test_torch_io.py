@@ -74,8 +74,10 @@ def test_native_csv_matches_python_format_spec():
     assert engine.run(os.path.join(FIXTURES, "golden.pileup"), Options(platform="cpu")) == want
 
 
-@pytest.mark.parametrize("n", [0, 1000, 70000])
+@pytest.mark.parametrize("n", [0, 1000, 65535, 65536, 70000])
 def test_unique_profiles_match_sid_tpu(n):
+    """Both backends (the numpy spec below 65,536 sites, libsidtpu's
+    histogram from there on) give sid_tpu's values and an int32 inverse."""
     rng = np.random.default_rng(n)
     counts = rng.integers(0, 40, (n, 4)).astype(np.uint16)
     counts[: n // 3] = counts[n // 2 : n // 2 + n // 3]  # repeats
@@ -83,6 +85,7 @@ def test_unique_profiles_match_sid_tpu(n):
     want = ref_unique(counts)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+    assert got[2].dtype == np.int32 and got[2].shape == (n,)
     if n:
         for a, b in zip(_unique_profiles_np(counts), got):
             np.testing.assert_array_equal(a, b)

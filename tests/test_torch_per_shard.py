@@ -16,6 +16,7 @@ engine, whose parse keeps the quality terms and no reads
 means.
 """
 
+import dataclasses
 import io
 
 import numpy as np
@@ -30,6 +31,8 @@ from sid_tpu.parallel import pipeline as ref_pipeline  # noqa: E402
 from sid_tpu_torch import engine  # noqa: E402
 from sid_tpu_torch.config import Options  # noqa: E402
 from sid_tpu_torch.io.pileup import parse_pileup  # noqa: E402
+from sid_tpu_torch.models.common import ANSWER, CallResult  # noqa: E402
+from sid_tpu_torch.ops.profiles import coverage_of, unique_profiles  # noqa: E402
 from sid_tpu_torch.parallel import pipeline  # noqa: E402
 from synth import make_pileup_text, simulate_diploid_counts  # noqa: E402
 
@@ -109,10 +112,41 @@ class TestConcatPayload:
         parts = [engine.call_batch(s, opts) for s in shards]
         merged = pipeline.concat_results(parts)
         assert merged.class_idx is not None
-        assert merged.cls_is_het.shape[0] == sum(p.cls_is_het.shape[0] for p in parts)
+        assert merged.is_het.shape[0] == sum(p.is_het.shape[0] for p in parts)
         row_wise = "".join(p.to_csv(include_header=(i == 0)) for i, p in enumerate(parts))
         assert merged.to_csv() == row_wise
-        np.testing.assert_array_equal(merged.cls_is_het[merged.class_idx], merged.is_het)
+        for name in ANSWER:
+            np.testing.assert_array_equal(getattr(merged.per_site(), name),
+                                          np.concatenate([getattr(p.per_site(), name) for p in parts]))
+
+    @pytest.mark.parametrize("method", ["local", "bayes", "likelihood_ratio", "quality"])
+    def test_one_answer_a_site(self, two_chrom, two_chrom_batch, method):
+        """A result's five answer arrays run over its class table (every
+        unique profile for local, the cov >= 4 ones for bayes and
+        likelihood_ratio) with an int32 row a site, or over the sites
+        themselves for quality; the shards' results merge into the same
+        layout and the same per-site answer, and sid_tpu's bytes."""
+        assert len(dataclasses.fields(CallResult)) == 10
+        shards = pipeline.split_by_chromosome(two_chrom_batch)
+        parts = [engine.call_batch(s, Options(platform="cpu", method=method)) for s in shards]
+        for shard, part in zip(shards, parts):
+            profiles = unique_profiles(shard.counts)[0]
+            classes = {"local": len(profiles), "quality": part.num_records}.get(
+                method, int((coverage_of(profiles) >= 4).sum()))
+            assert all(getattr(part, name).shape == (classes,) for name in ANSWER)
+            if method == "quality":
+                assert part.class_idx is None
+            else:
+                assert part.class_idx.dtype == np.int32 and part.class_idx.shape == (part.num_records,)
+        merged = pipeline.concat_results(parts)
+        assert (merged.class_idx is None) == (method == "quality")
+        assert merged.is_het.shape[0] == sum(p.is_het.shape[0] for p in parts)
+        for name in ANSWER:
+            np.testing.assert_array_equal(getattr(merged.per_site(), name),
+                                          np.concatenate([getattr(p.per_site(), name) for p in parts]))
+        ref_parts = [ref_engine.call_batch(s, RefOptions(method=method))
+                     for s in ref_pipeline.split_by_chromosome(ref_parse(two_chrom, True, True, backend="python"))]
+        assert merged.to_csv_bytes() == ref_pipeline.concat_results(ref_parts).to_csv_bytes()
 
     def test_concat_without_payload_matches_sid_tpu(self, two_chrom, two_chrom_batch):
         parts = [engine.call_batch(s, Options(platform="cpu", method="quality"))

@@ -127,6 +127,10 @@ def test_join_class_table_matches_sid_tpu(text):
     want = ref_common.join_class_table(ref_parse(text), keys, cls, "p_value")
     assert 0 < got.num_records < batch.num_sites
     assert got.to_csv_bytes() == want.to_csv_bytes()
+    # the class table as given, an int32 row a site
+    assert all(getattr(got, name).shape == (u,) for name in common.ANSWER)
+    assert got.class_idx.dtype == np.int32 and got.class_idx.shape == (got.num_records,)
+    np.testing.assert_array_equal(got.per_site().conf_hom, want.conf_hom)
     empty = common.join_class_table(batch, keys[:0], tuple(c[:0] for c in cls), "p_value")
     assert empty.num_records == 0
 
