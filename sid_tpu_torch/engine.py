@@ -22,12 +22,15 @@ the exact engine does not read it, as sid_tpu's does not.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
+import functools
 import io as _io
+import mmap
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Deque, Iterator, List, NamedTuple, Optional
+from typing import Callable, Deque, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -217,44 +220,147 @@ def _parsed_chunks(src, options: Options, chunk_bytes: int) -> Iterator[PileupBa
 def _run_pipelined_single_pass(src, options: Options, diag, binary: bool, chunk_bytes: int):
     """The chunk pipeline (sid_tpu/engine.py:271-310): ``_parsed_chunks``
     parses chunk k+1 while this thread calls chunk k on the device and
-    serializes it; the parts are joined after the header, byte-equal to
-    ``_run_monolithic``. Under ``--profile`` the pass is one top-level
-    ``pipeline`` stage and the join of the parts a top-level ``join`` after
-    it. This thread's spans nest in ``pipeline`` and follow each other:
-    ``pipeline:read``, ``pipeline:parse_wait``, ``pipeline:call`` and
-    ``pipeline:serialize``; the worker's ``worker:parse`` hangs under
-    ``pipeline`` too. A chunk's part is the writer's buffer as it is
-    (``CallResult.to_csv_buffer``; decoded in text mode), its length added
-    to the counter ``serialize:bytes``; the join copies each part once."""
-    header = CSV_HEADER + "\n"
-    parts = [header.encode() if binary else header]
-    with profiling.maybe_stage("pipeline"):
-        for batch in _parsed_chunks(src, options, chunk_bytes):
-            if batch.num_sites == 0:
-                continue
-            with profiling.maybe_stage("pipeline:call"):
-                result = call_batch(batch, options, diag)
-            parts.append(_serialize(result, binary))
-    return _join(parts, binary)
+    writes its rows into the request's output (``_Output``) after the
+    header, byte-equal to ``_run_monolithic``. Under ``--profile`` the
+    pass is one top-level ``pipeline`` stage and the output's hand-over a
+    top-level ``join`` after it. This thread's spans nest in ``pipeline``
+    and follow each other: ``pipeline:read``, ``pipeline:parse_wait``,
+    ``pipeline:call`` and ``pipeline:serialize``; the worker's
+    ``worker:parse`` hangs under ``pipeline`` too."""
+    with _Output() as out:
+        with profiling.maybe_stage("pipeline"):
+            for batch in _parsed_chunks(src, options, chunk_bytes):
+                if batch.num_sites == 0:
+                    continue
+                with profiling.maybe_stage("pipeline:call"):
+                    result = call_batch(batch, options, diag)
+                out.write(result)
+        return out.take(binary)
 
 
-def _serialize(result: CallResult, binary: bool):
-    """A chunk's part under ``pipeline:serialize``, counted in
-    ``serialize:bytes``."""
-    with profiling.maybe_stage("pipeline:serialize"):
-        part = result.to_csv_buffer(include_header=False)
-        if not binary:
-            part = str(part, "latin1")
-    profiling.count("serialize:bytes", len(part))
-    return part
+# CPython's and libc's entry points that ``_Output`` grows and advises its
+# bytes with, as prototypes of this module's own (``ctypes.pythonapi``'s
+# function objects are shared, with whatever declarations others give them)
+_bytes_new = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.c_char_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_bytes_resize = ctypes.PYFUNCTYPE(ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_ssize_t)(
+    ("_PyBytes_Resize", ctypes.pythonapi))
+_bytes_data = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.c_void_p)(("PyBytes_AsString", ctypes.pythonapi))
+_decref = ctypes.PYFUNCTYPE(None, ctypes.c_void_p)(("Py_DecRef", ctypes.pythonapi))
+_madvise = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int)(
+    ("madvise", ctypes.CDLL(None)))
+_MADV_HUGEPAGE = getattr(mmap, "MADV_HUGEPAGE", None)
 
 
-def _join(parts: list, binary: bool):
-    """The parts joined under a top-level ``join``, and freed inside it."""
-    with profiling.maybe_stage("join"):
-        out = (b"" if binary else "").join(parts)
-        parts.clear()
-    return out
+@functools.lru_cache(maxsize=None)
+def _huge_pages_need_advice() -> bool:
+    """Whether a large block is backed by huge pages only where advised
+    ``MADV_HUGEPAGE``: the kernel's transparent huge pages in ``madvise``
+    mode. In ``always`` mode it is without advice; in ``never`` mode, or
+    on a kernel without them (no such file), advice changes nothing."""
+    if _MADV_HUGEPAGE is None:
+        return False
+    try:
+        with open("/sys/kernel/mm/transparent_hugepage/enabled") as f:
+            return "[madvise]" in f.read()
+    except OSError:
+        return False
+
+
+def _mapping_of(address: int) -> Optional[Tuple[int, int]]:
+    """The start and end of the memory mapping that holds ``address``
+    (``/proc/self/maps``), or None where it cannot be read."""
+    try:
+        with open("/proc/self/maps", "rb") as f:
+            for line in f:
+                lo, _, hi = line.partition(b" ")[0].partition(b"-")
+                if int(lo, 16) <= address < int(hi, 16):
+                    return int(lo, 16), int(hi, 16)
+    except OSError:
+        pass
+    return None
+
+
+class _Output:
+    """A request's CSV as one ``bytes`` object, written in place: it
+    starts as the header and grows by each chunk's part, which the chunk's
+    writer fills at its offset; ``take`` hands the object back, nothing
+    joined. Left without ``take`` (an error), the exit drops it.
+
+    Writing into a ``bytes`` is sound because nothing else can see it
+    before ``take``: its one reference is this object's raw pointer, no
+    Python name, so nothing hashes, interns or shares it while it is
+    resized or written, and ``_PyBytes_Resize`` requires that one
+    reference. glibc's ``realloc`` of a block of its own mapping remaps
+    the pages (``mremap``) and copies nothing, but may move them, so the
+    data's address is taken after every growth. Where huge pages need
+    advice, such a mapping is advised ``MADV_HUGEPAGE`` whole, as numpy
+    advises its large arrays: on 4 KiB pages the writer's fills took ~1.6x
+    as long. Advice on part of it would split the mapping, which
+    ``mremap`` cannot resize: glibc would then copy the whole block at
+    each growth (``PERF.md`` §6). Elsewhere the mapping is not looked up
+    (a read of ``/proc/self/maps`` took 2–3 ms on the card's host). The
+    exit counts ``serialize:in_place_bytes`` (parts filled in place),
+    ``serialize:copied_bytes`` (parts copied in: the per-site writer's)
+    and ``serialize:resizes`` (growths)."""
+
+    def __init__(self):
+        header = (CSV_HEADER + "\n").encode()
+        self._ob = ctypes.c_void_p(_bytes_new(header, len(header)))  # the one reference
+        self._size = len(header)
+        self._counts = {"serialize:in_place_bytes": 0, "serialize:copied_bytes": 0, "serialize:resizes": 0}
+
+    def __enter__(self) -> "_Output":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._ob.value is not None:
+            _decref(self._ob)
+            self._ob.value = None
+        for name, n in self._counts.items():
+            profiling.count(name, n)
+
+    def _grow(self, n: int) -> int:
+        """The address of n more bytes at the end."""
+        old = self._size
+        _bytes_resize(ctypes.byref(self._ob), old + n)  # on failure it frees the object, and raises
+        self._size += n
+        self._counts["serialize:resizes"] += 1
+        data = _bytes_data(self._ob)
+        mapping = _mapping_of(data) if _huge_pages_need_advice() else None
+        # the block's own mapping starts on the page of its object (glibc
+        # maps a large block alone); a block in a shared heap is not advised
+        if mapping is not None and mapping[0] == self._ob.value // mmap.PAGESIZE * mmap.PAGESIZE:
+            _madvise(mapping[0], mapping[1] - mapping[0], _MADV_HUGEPAGE)  # advice: a refusal changes no byte
+        return data + old
+
+    def write(self, result: CallResult) -> None:
+        """A chunk's rows after the rows before, under
+        ``pipeline:serialize`` (the plan, the growth, the advice and the
+        fill), counted in ``serialize:bytes``. An index outside its table
+        raises before the output grows."""
+        with profiling.maybe_stage("pipeline:serialize"):
+            if result.class_idx is None:
+                part = result.to_csv_buffer(include_header=False)
+                size = len(part)
+                if size:
+                    ctypes.memmove(self._grow(size), part, size)
+                self._counts["serialize:copied_bytes"] += size
+            else:
+                with result.csv_plan(include_header=False) as (size, fill):
+                    if size:
+                        fill(self._grow(size))
+                self._counts["serialize:in_place_bytes"] += size
+        profiling.count("serialize:bytes", size)
+
+    def take(self, binary: bool):
+        """The output under a top-level ``join``: the ``bytes`` itself, or
+        in text mode decoded once."""
+        with profiling.maybe_stage("join"):
+            out = ctypes.cast(self._ob, ctypes.py_object).value  # a reference of its own
+            _decref(self._ob)
+            self._ob.value = None
+            return out if binary else str(out, "latin1")
 
 
 class _HeldChunk(NamedTuple):
@@ -288,38 +394,38 @@ def _run_fitted_pipeline(src, options: Options, diag, binary: bool, chunk_bytes:
     ``pipeline:gather`` a chunk, maps the chunk's unique profiles onto the
     table's class rows and coverage mask with one search and gathers once
     a site (``common.gather_result``: the monolithic path's rows, order
-    and coverage < 4 omission), then writes its part
-    (``pipeline:serialize``); the parts are joined as the chunk pipeline
-    joins them. Counters: ``fitted:profiles`` (the profiles the fit was
-    given) and ``fitted:held_bytes`` (what pass 1 held)."""
+    and coverage < 4 omission), then writes its rows into the request's
+    output (``_Output``, under ``pipeline:serialize``), handed back under
+    ``join`` as the chunk pipeline's is. Counters: ``fitted:profiles``
+    (the profiles the fit was given) and ``fitted:held_bytes`` (what pass
+    1 held)."""
     held: Deque[_HeldChunk] = collections.deque()
     keys, mult = np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    header = CSV_HEADER + "\n"
-    parts = [header.encode() if binary else header]
-    with profiling.maybe_stage("pipeline"):
-        for batch in _parsed_chunks(src, options, chunk_bytes):
-            if batch.num_sites == 0:
-                continue
-            with profiling.maybe_stage("pipeline:dedup"):
-                profiles, chunk_mult, inverse = unique_profiles(batch.counts)
-                chunk_keys = pack_profiles(profiles)
-                keys, mult = merge_profile_tables(keys, mult, chunk_keys, chunk_mult)
-                held.append(_HeldChunk(batch.chrom_id, batch.chrom_table, batch.pos, chunk_keys, inverse))
-        profiling.count("fitted:held_bytes", sum(h.nbytes for h in held))
-        profiles = unpack_profiles(keys)
-        table = class_table(profiles, mult, options, diag)
-        profiling.count("fitted:profiles", table.keys.shape[0])
-        keep = coverage_of(profiles) >= 4
-        class_rows = np.where(keep, np.cumsum(keep) - 1, -1)  # the table's profiles' class rows
-        while held:
-            chunk = held.popleft()
-            with profiling.maybe_stage("pipeline:gather"):
-                rows = class_rows[np.searchsorted(keys, chunk.keys)]
-                kept = rows >= 0
-                chunk_cls = (c[rows[kept]] for c in table.cls)
-                result = common.gather_result(chunk, table.conf_type, chunk.inverse, *chunk_cls, keep_u=kept)
-            parts.append(_serialize(result, binary))
-    return _join(parts, binary)
+    with _Output() as out:
+        with profiling.maybe_stage("pipeline"):
+            for batch in _parsed_chunks(src, options, chunk_bytes):
+                if batch.num_sites == 0:
+                    continue
+                with profiling.maybe_stage("pipeline:dedup"):
+                    profiles, chunk_mult, inverse = unique_profiles(batch.counts)
+                    chunk_keys = pack_profiles(profiles)
+                    keys, mult = merge_profile_tables(keys, mult, chunk_keys, chunk_mult)
+                    held.append(_HeldChunk(batch.chrom_id, batch.chrom_table, batch.pos, chunk_keys, inverse))
+            profiling.count("fitted:held_bytes", sum(h.nbytes for h in held))
+            profiles = unpack_profiles(keys)
+            table = class_table(profiles, mult, options, diag)
+            profiling.count("fitted:profiles", table.keys.shape[0])
+            keep = coverage_of(profiles) >= 4
+            class_rows = np.where(keep, np.cumsum(keep) - 1, -1)  # the table's profiles' class rows
+            while held:
+                chunk = held.popleft()
+                with profiling.maybe_stage("pipeline:gather"):
+                    rows = class_rows[np.searchsorted(keys, chunk.keys)]
+                    kept = rows >= 0
+                    chunk_cls = (c[rows[kept]] for c in table.cls)
+                    result = common.gather_result(chunk, table.conf_type, chunk.inverse, *chunk_cls, keep_u=kept)
+                out.write(result)
+        return out.take(binary)
 
 
 @dataclasses.dataclass

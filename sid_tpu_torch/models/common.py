@@ -150,6 +150,12 @@ class CallResult:
             return bridge.write_csv(native.load(), self, include_header)
         return bridge.write_csv_indexed(native.load(), native.csv_writer(), self, include_header)
 
+    def csv_plan(self, include_header: bool = True):
+        """The in-place writer's plan of a result with a class table, for a
+        caller that owns the buffer: entered, (the CSV's exact size, a
+        ``fill(address)`` that writes it there); ``bridge.csv_plan``."""
+        return bridge.csv_plan(native.load(), native.csv_writer(), self, include_header)
+
     def to_csv_bytes(self, include_header: bool = True) -> bytes:
         """CSV as bytes from the native writer (no transcoding)."""
         return bytes(self.to_csv_buffer(include_header))

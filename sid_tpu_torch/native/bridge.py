@@ -12,15 +12,16 @@ table the parser sums from is this module's own numpy copy
 
 The port's indexed results are written by its own library, libsidtpu_csv
 (``csrc/host/csv_writer.cpp``, ``configure_csv``): every row once, in place,
-into a numpy buffer of the exact size; libsidtpu's indexed writer stays
-the oracle it is tested against.
+into a buffer of the exact size planned first (``csv_plan``); libsidtpu's
+indexed writer stays the oracle it is tested against.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import struct
-from typing import List
+from typing import Callable, Iterator, List, Tuple
 
 import numpy as np
 from scipy.special import gammaln
@@ -434,13 +435,16 @@ def configure_csv(csv: ctypes.CDLL) -> ctypes.CDLL:
     return csv
 
 
-def write_csv_indexed(lib, csv, result, include_header: bool) -> np.ndarray:
-    """The CSV of a result with a class table as an exact-size uint8
-    array: libsidtpu_csv ``csv`` formats each class once with libsidtpu
-    ``lib``'s ``%g`` and sums every thread's rows' bytes, then each thread
-    writes its rows in place into the array. Byte for byte libsidtpu's
-    ``sidtpu_write_csv_indexed``; ``bytes.join`` and ``file.write`` take
-    the array as it is."""
+@contextlib.contextmanager
+def csv_plan(lib, csv, result, include_header: bool) -> Iterator[Tuple[int, Callable[[int], None]]]:
+    """The indexed writer's two steps, for a result with a class table:
+    entered, libsidtpu_csv ``csv`` has formatted each class once with
+    libsidtpu ``lib``'s ``%g`` and summed every thread's rows' bytes, and
+    gives (the CSV's exact size, ``fill``); ``fill(address)`` has each
+    thread write its rows in place from ``address``, which must have that
+    many writable bytes. A row's chromosome or class index outside its
+    table raises ``ValueError`` on entry, before anything is written. The
+    plan points into the row arrays held here; it is freed at the exit."""
     blob, chrom_id, pos, is_het, major, second, ch, ct = _row_arrays(result)
     class_idx = np.ascontiguousarray(result.class_idx, np.int32)
     plan = csv.sidtpu_csv_plan(
@@ -454,10 +458,23 @@ def write_csv_indexed(lib, csv, result, include_header: bool) -> np.ndarray:
         total = csv.sidtpu_csv_total(plan)
         if total < 0:
             raise ValueError("a row's chromosome or class index lies outside its table")
-        out = np.empty(total, np.uint8)
-        written = csv.sidtpu_csv_fill(plan, out.ctypes.data_as(_vp))
+
+        def fill(address: int) -> None:
+            written = csv.sidtpu_csv_fill(plan, address)
+            if written != total:
+                raise RuntimeError(f"CSV writer wrote {written} bytes of a planned {total}")
+
+        yield total, fill
     finally:
         csv.sidtpu_csv_free(plan)
-    if written != out.shape[0]:
-        raise RuntimeError(f"CSV writer wrote {written} bytes of a planned {out.shape[0]}")
+
+
+def write_csv_indexed(lib, csv, result, include_header: bool) -> np.ndarray:
+    """The CSV of a result with a class table as an exact-size uint8
+    array: ``csv_plan``'s plan filled into a fresh array. Byte for byte
+    libsidtpu's ``sidtpu_write_csv_indexed``; ``bytes.join`` and
+    ``file.write`` take the array as it is."""
+    with csv_plan(lib, csv, result, include_header) as (total, fill):
+        out = np.empty(total, np.uint8)
+        fill(out.ctypes.data)
     return out

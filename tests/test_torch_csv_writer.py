@@ -10,9 +10,9 @@ class and 65,536 classes, both ``conf_type`` spellings, and thread counts
 that leave parts too small for the writer's block copies; a canary past
 the planned size checks that no thread writes beyond it, and an index
 outside its table raises before anything is written. The chunk
-pipeline, which keeps each chunk's buffer as its part, must equal the
-monolithic run, and its ``serialize:bytes`` counter the bytes after the
-header.
+pipeline, which has each chunk's writer fill its rows into the request's
+output, must equal the monolithic run, and its ``serialize:bytes`` counter
+the bytes after the header.
 """
 
 import ctypes
@@ -192,9 +192,9 @@ def _profiled(fn):
 
 @pytest.mark.parametrize("method", ["local", "quality"])
 def test_pipeline_of_buffers_equals_the_monolithic_run(pipelined, method):
-    """Each chunk's part is the writer's buffer; the join returns bytes
-    equal to the monolithic run's, and ``serialize:bytes`` counts every
-    byte after the header."""
+    """Each chunk's rows are written into the request's output, which is
+    returned as bytes equal to the monolithic run's, and
+    ``serialize:bytes`` counts every byte after the header."""
     path, text = pipelined
     opts = Options(platform="cpu", method=method)
     got, prof = _profiled(lambda: engine.run(path, opts, binary=True))

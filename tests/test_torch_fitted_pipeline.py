@@ -338,6 +338,8 @@ def test_counters(traced, big_text):
     sites = len(big_text.splitlines())
     assert 12 * sites < prof.counters["fitted:held_bytes"] <= 12 * sites + 8 * CHUNKS * profiles.shape[0]
     assert prof.counters["serialize:bytes"] == len(out) - len(HEADER)
+    assert prof.counters["serialize:in_place_bytes"] == len(out) - len(HEADER)
+    assert prof.counters["serialize:copied_bytes"] == 0 and prof.counters["serialize:resizes"] == CHUNKS
 
 
 def test_profile_report_shows_the_counters(big_text, gate_1mb, tmp_path, capsys):

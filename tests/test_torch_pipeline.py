@@ -263,6 +263,21 @@ def test_join_once_after_pipeline(traced):
     assert {s.request for s in prof.spans} == {pipeline.request}  # one request
 
 
+def test_output_written_in_place(traced):
+    """A growth of the request's output a chunk, each chunk's part filled
+    in place (``local``) or, from the per-site writer, copied in
+    (``quality``); ``--profile``'s report lists the three counters."""
+    prof, _, method = traced
+    written = prof.counters["serialize:bytes"]
+    copied = written if method == "quality" else 0
+    assert prof.counters["serialize:resizes"] == CHUNKS
+    assert prof.counters["serialize:copied_bytes"] == copied
+    assert prof.counters["serialize:in_place_bytes"] == written - copied
+    report = prof.report()
+    assert f"# serialize:copied_bytes: {int(copied):,}" in report.splitlines()
+    assert f"# serialize:resizes: {CHUNKS}" in report.splitlines()
+
+
 def test_main_thread_leaves_in_order(traced):
     """This thread reads the first chunk and the next, then, a chunk at a
     time, waits for its parse, calls, serializes and reads again (the
