@@ -19,17 +19,20 @@ import time
 import numpy as np
 
 from gpubench import harness
-from gpubench.reference import check, pileup
+from gpubench.reference import check
 from gpubench.traffic import generate
 
 
 def readings(cell: dict, seed: int) -> dict:
     """The numbers the float32 control reads on the cell's input for
     ``seed``."""
-    parsed = pileup.parse(generate.make_pileup(cell["traffic"], seed))
+    data = generate.make_pileup(cell["traffic"], seed)
     options = cell["config"]["options"]
+    parsed = check.parse(options, data)
     exp = check.expected(options, *parsed)
-    ctl = check.expected(options, *parsed, np.float32)
+    if check.needs_reads(options):  # the reads' terms and their sums in float32 too
+        parsed = check.parse(options, data, np.float32)
+    ctl = check.expected(options, *parsed, dtype=np.float32)
     csv = check.HEADER + b"\n" + check.render(ctl, check.class_text(ctl.classes, ctl.conf_type))
     return check.compare(csv, check.fit_lines(ctl), exp)
 

@@ -187,6 +187,13 @@ def steal_seconds() -> Optional[float]:
         return None
 
 
+def host_reading() -> Dict[str, Optional[float]]:
+    """The host's pace so far: this process's user and system CPU seconds,
+    and the seconds the hypervisor took the machine's CPUs away (steal)."""
+    usage = resource.getrusage(resource.RUSAGE_SELF)
+    return {"user": usage.ru_utime, "sys": usage.ru_stime, "steal": steal_seconds()}
+
+
 # a request's output is compared with the first request's at these many
 # blocks of this many bytes, drawn from the seed, and its last block
 PROBES, PROBE_BYTES = 64, 4096
@@ -222,7 +229,7 @@ def _run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: Option
     import torch
 
     from gpubench import trace as tracing
-    from gpubench.reference import check, pileup
+    from gpubench.reference import check
     from gpubench.traffic import generate
 
     t_start = process_start() if t_start is None else t_start
@@ -280,14 +287,15 @@ def _run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: Option
             stack.callback(profiling.activate, None)
             stack.enter_context(recording(run))
             prof = stack.enter_context(tracing.profiler(platform))
-        steal0, cpu0 = steal_seconds(), cpu_seconds()
+        host0, cpus = host_reading(), []
         w0 = time.perf_counter()
         while True:
             diag: List[str] = []
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), cpu_seconds()
             with tracing.annotate("request", trace):
                 out = request(diag)
             walls.append(time.perf_counter() - t0)
+            cpus.append(cpu_seconds() - c0)
             if first is None:
                 first = (out, diag)
                 offsets = draw.integers(0, max(len(out) - PROBE_BYTES, 1), PROBES).tolist()
@@ -299,14 +307,15 @@ def _run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: Option
             if time.perf_counter() - w0 >= seconds:
                 break
         run.window_s = time.perf_counter() - w0
-        cpu_s, steal1 = cpu_seconds() - cpu0, steal_seconds()
+        host = {k: None if v is None or host0[k] is None else v - host0[k] for k, v in host_reading().items()}
     log(f"# window: {len(walls)} requests in {run.window_s:.3f} s, {len(differ)} differing from the first "
         "at a probe; request walls (s): " + " ".join(f"{w:.3f}" for w in walls))
-    # the host's pace: CPU seconds of the process's threads a Msite, and the
-    # seconds the hypervisor took the machine's CPUs away (steal)
-    steal = None if steal0 is None or steal1 is None else steal1 - steal0
-    log(f"# window: {cpu_s:.3f} CPU s, {1e6 * cpu_s / (len(walls) * traffic['sites']):.6f} a Msite; "
-        f"steal {steal!r} s")
+    # the host's pace: CPU seconds of the process's threads, a request and a
+    # Msite, and the seconds the hypervisor took the machine's CPUs away
+    cpu_s = host["user"] + host["sys"]
+    log("# window: request CPU s: " + " ".join(f"{c:.2f}" for c in cpus))
+    log(f"# window: {cpu_s:.3f} CPU s ({host['user']:.3f} user, {host['sys']:.3f} system), "
+        f"{1e6 * cpu_s / (len(walls) * traffic['sites']):.6f} a Msite; steal {host['steal']!r} s")
     if trace:
         run.stages = list(stages.stages)
         run.device = tracing.summarise(prof, platform)
@@ -316,7 +325,8 @@ def _run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: Option
 
     # the reference, once the window has closed, from the file the port read
     t = time.time()
-    exp = check.expected(cell["config"]["options"], *pileup.parse(np.fromfile(path, np.uint8)))
+    stated = cell["config"]["options"]
+    exp = check.expected(stated, *check.parse(stated, np.fromfile(path, np.uint8)))
     numbers = _check_outputs([first] + ([drawn] if drawn else []) + differ, exp, check)
     log(f"# reference: {time.time() - t:.3f} s")
 

@@ -1,5 +1,6 @@
-"""Milliseconds of the stage ``join`` (the chunk pipeline's parts joined
-into one output, and freed, after its pass) a million input sites."""
+"""Milliseconds of the stage ``join`` (after the chunk pipeline's pass,
+the request's one output, written in place, handed back) a million input
+sites."""
 
 STAGE = "join"
 

@@ -1,6 +1,6 @@
 """Milliseconds of the chunk pipeline's stage ``pipeline:read`` (its main
-thread taking the next chunk from the file: the open and map, the chunk's
-copy and its newline search) a million input sites."""
+thread taking the next chunk from the file: the open and map, the newline
+search and a view of the mapping, no copy) a million input sites."""
 
 STAGE = "pipeline:read"
 

@@ -12,6 +12,7 @@ products overflow, are outside what this reference covers.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -48,6 +49,20 @@ def top_two(rows: np.ndarray):
     index wins (call.cpp:52-60 sorts {0,1,2,3} by count, stably)."""
     order = np.argsort(rows * 4 + np.arange(4), axis=1)
     return order[:, 3], order[:, 2]
+
+
+@functools.lru_cache(maxsize=None)
+def phred_terms(dtype=np.float64) -> np.ndarray:
+    """(256, 4) log terms of a read by its decoded quality q, with error
+    e = 10^(-q/10): [ln(1-e), ln(e), ln(1-2e/3), ln(2e/3)] (call.cpp:331-342),
+    every step in ``dtype``."""
+    q = np.arange(256, dtype=dtype)
+    e = np.power(dtype(10), -q / dtype(10))
+    with np.errstate(divide="ignore"):
+        terms = np.stack([np.log(dtype(1) - e), np.log(e), np.log(dtype(1) - dtype(2) / dtype(3) * e),
+                          np.log(dtype(2) / dtype(3) * e)], 1).astype(dtype)
+    terms.flags.writeable = False  # one table for every caller
+    return terms
 
 
 def _xlogy(n, log_y):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from gpubench import harness, rooflines
+from gpubench.tests.test_gpubench_faults import _half_left_out
 from sid_tpu_torch import engine
 
 SITES = 40_000
@@ -119,14 +120,7 @@ def _cell():
 
 def _sites_left_out(monkeypatch):
     """Each chunk loses every other site after its parse."""
-    inner = engine.parse_chunk
-
-    def parse_chunk(*args, **kwargs):
-        batch = inner(*args, **kwargs)
-        keep = np.arange(batch.num_sites) % 2 == 0
-        return type(batch)(chrom_id=batch.chrom_id[keep], chrom_table=batch.chrom_table, pos=batch.pos[keep],
-                           ref_base=batch.ref_base[keep], counts=batch.counts[keep])
-    monkeypatch.setattr(engine, "parse_chunk", parse_chunk)
+    _half_left_out(monkeypatch, "lrR.chrom17M")
 
 
 def _chunks_left_out_of_the_table(monkeypatch):

@@ -14,6 +14,13 @@ with probability ``1 / read_length`` each, and a base quality a read. The
 qualities are drawn uniformly from the stated Phred ranges. The rendering
 is vectorised.
 
+A traffic with ``read_mapping_quality`` is what ``samtools mpileup -s``
+prints: a seventh column of one mapping quality a read (Phred+33, in the
+order of the reads), each read's ``top`` with probability ``p_top`` and
+otherwise uniform on ``others``; a read that starts at the site prints the
+same byte after its ``^``. Without the key nothing more is drawn, and the
+six columns are the same bytes as ever.
+
 An input of ``sites`` sites is ``sites / body_sites`` tiles of
 ``body_sites`` consecutive positions. The first ``distinct_bodies`` tiles
 are drawn from the seed; a later tile repeats the reads and qualities of
@@ -123,8 +130,16 @@ def render(counts: np.ndarray, first_pos: int, chrom: bytes, traffic: dict, rng:
     tokens = np.empty((reads, 4), np.uint8)
     tokens_in = np.ones((reads, 4), bool)
     tokens[:, 0], tokens_in[:, 0] = ord("^"), r >= np.repeat(site_first + cov - n_start, cov)
-    lo, hi = traffic["mapping_quality"]
-    tokens[:, 1], tokens_in[:, 1] = rng.integers(33 + lo, 34 + hi, reads, dtype=np.uint8), tokens_in[:, 0]
+    mq_column = traffic.get("read_mapping_quality")
+    if mq_column is None:
+        lo, hi = traffic["mapping_quality"]
+        tokens[:, 1] = rng.integers(33 + lo, 34 + hi, reads, dtype=np.uint8)
+    else:
+        top = rng.random(reads) < mq_column["p_top"]
+        lo, hi = mq_column["others"]
+        tokens[:, 1] = np.where(top, 33 + mq_column["top"], rng.integers(33 + lo, 34 + hi, reads, dtype=np.uint8))
+    mqs = tokens[:, 1].copy()
+    tokens_in[:, 1] = tokens_in[:, 0]
     strand = (rng.random(reads) < traffic["reverse_strand"]).astype(np.uint8) << 5
     tokens[:, 2] = BASES[_site_order(counts, rng)] | strand
     tokens[:, 3], tokens_in[:, 3] = ord("$"), r < np.repeat(site_first + n_end, cov)
@@ -132,14 +147,20 @@ def render(counts: np.ndarray, first_pos: int, chrom: bytes, traffic: dict, rng:
     lo, hi = traffic["base_quality"]
     quals = rng.integers(33 + lo, 34 + hi, reads, dtype=np.uint8)
 
-    # each line: its head, its reads, a tab, its qualities, a newline
-    stream = np.concatenate([heads, tokens, quals, np.frombuffer(b"\t\n", np.uint8)])
-    tab = heads.size + tokens.size + reads
+    # each line: its head, its reads, a tab, its base qualities, (a tab,
+    # its mapping qualities,) a newline
+    columns = [quals] if mq_column is None else [quals, mqs]
+    stream = np.concatenate([heads, tokens, *columns, np.frombuffer(b"\t\n", np.uint8)])
+    tab = stream.size - 2
     head_len = head_in.sum(1)
     token_len = cov + 2 * n_start + n_end
-    src = np.stack([np.cumsum(head_len) - head_len, heads.size + np.cumsum(token_len) - token_len,
-                    np.full(n, tab), heads.size + tokens.size + site_first, np.full(n, tab + 1)], 1).ravel()
-    length = np.stack([head_len, token_len, np.ones(n, np.int64), cov, np.ones(n, np.int64)], 1).ravel()
+    one = np.ones(n, np.int64)
+    src = [np.cumsum(head_len) - head_len, heads.size + np.cumsum(token_len) - token_len]
+    length = [head_len, token_len]
+    for k in range(len(columns)):
+        src += [np.full(n, tab), heads.size + tokens.size + k * reads + site_first]
+        length += [one, cov]
+    src, length = np.stack(src + [np.full(n, tab + 1)], 1).ravel(), np.stack(length + [one], 1).ravel()
     return stream[np.repeat(src - (np.cumsum(length) - length), length) + np.arange(int(length.sum()))]
 
 
